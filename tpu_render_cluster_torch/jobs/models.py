@@ -1,0 +1,401 @@
+"""Job definition model (the port's own copy of the TOML job model).
+
+The job schema matches the reference's ``BlenderJob`` TOML contract
+(reference: shared/src/jobs/mod.rs:7-101): job name/description, project
+file + render script paths (with %BASE% placeholder support), inclusive
+frame range, the worker-count barrier, an internally-tagged distribution
+strategy, and output directory / name format / file format; plus this
+repo's ``tpu-batch`` strategy, ``render_backend`` hint, ``tiles`` grid and
+``[slo]`` table. Every job file under ``blender-projects/`` loads, and
+serialises to the same dictionary as in the JAX package.
+
+Left for the tiles slice: work units and the load-time default tile grid.
+"""
+
+from __future__ import annotations
+
+try:
+    import tomllib
+except ModuleNotFoundError:  # Python < 3.11
+    import tomli as tomllib  # type: ignore[no-redef]
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any
+
+
+@dataclass(frozen=True)
+class DynamicStrategyOptions:
+    """Tuning knobs of the dynamic work-stealing strategy.
+
+    Reference: shared/src/jobs/mod.rs:8-30.
+    """
+
+    target_queue_size: int
+    min_queue_size_to_steal: int
+    min_seconds_before_resteal_to_elsewhere: int
+    min_seconds_before_resteal_to_original_worker: int
+
+
+@dataclass(frozen=True)
+class EagerNaiveCoarseOptions:
+    target_queue_size: int
+
+
+@dataclass(frozen=True)
+class TpuBatchStrategyOptions:
+    """Tuning knobs of the TPU cost-matrix scheduler (new in this build).
+
+    The scheduler keeps every worker's queue topped up to
+    ``target_queue_size`` like eager-naive-coarse, but chooses *which* frame
+    goes to *which* worker by solving a batched assignment problem on TPU
+    (predicted frame time x worker load), and steals from overloaded workers
+    like the dynamic strategy when the pending pool runs dry.
+    """
+
+    target_queue_size: int = 4
+    min_queue_size_to_steal: int = 2
+    min_seconds_before_resteal_to_elsewhere: int = 40
+    min_seconds_before_resteal_to_original_worker: int = 80
+    # EMA smoothing factor for per-worker frame-time prediction.
+    cost_ema_alpha: float = 0.3
+
+
+@dataclass(frozen=True)
+class JobSlo:
+    """Per-job service-level objectives (new; absent from reference TOMLs).
+
+    Declared in the job TOML as an ``[slo]`` table; the master's SLO
+    engine (obs/slo.py) tracks attainment and multi-window burn rate
+    online and fires structured alerts when an objective burns.
+
+    - ``unit_latency_p99_seconds``: 99% of work units must go
+      dispatch-to-result within this bound (measured on the
+      ``master_unit_latency_seconds`` stream);
+    - ``deadline_seconds``: the whole job must finish within this many
+      seconds of starting.
+    """
+
+    unit_latency_p99_seconds: float | None = None
+    deadline_seconds: float | None = None
+
+    def __post_init__(self) -> None:
+        problems = []
+        for name in ("unit_latency_p99_seconds", "deadline_seconds"):
+            value = getattr(self, name)
+            # bool is an int subclass: `deadline_seconds = true` in TOML
+            # must be an error, not a 1-second objective.
+            if value is not None and (
+                isinstance(value, bool)
+                or not isinstance(value, (int, float))
+                or not value > 0
+            ):
+                problems.append(f"slo.{name} must be a positive number, got {value!r}")
+        if (
+            self.unit_latency_p99_seconds is None
+            and self.deadline_seconds is None
+        ):
+            problems.append(
+                "[slo] table declares no objective (set "
+                "unit_latency_p99_seconds and/or deadline_seconds)"
+            )
+        if problems:
+            raise ValueError("; ".join(problems))
+
+    def to_dict(self) -> dict[str, Any]:
+        out: dict[str, Any] = {}
+        if self.unit_latency_p99_seconds is not None:
+            out["unit_latency_p99_seconds"] = self.unit_latency_p99_seconds
+        if self.deadline_seconds is not None:
+            out["deadline_seconds"] = self.deadline_seconds
+        return out
+
+    @classmethod
+    def from_dict(cls, data: dict[str, Any]) -> "JobSlo":
+        if not isinstance(data, dict):
+            raise ValueError(f"slo must be a table, got {data!r}")
+        unknown = set(data) - {"unit_latency_p99_seconds", "deadline_seconds"}
+        if unknown:
+            raise ValueError(f"unknown slo key(s): {sorted(unknown)}")
+        def _num(key: str):
+            value = data.get(key)
+            if isinstance(value, (int, float)) and not isinstance(value, bool):
+                return float(value)
+            return value  # __post_init__ rejects non-numbers (incl. bools)
+        return cls(
+            unit_latency_p99_seconds=_num("unit_latency_p99_seconds"),
+            deadline_seconds=_num("deadline_seconds"),
+        )
+
+
+# The largest tile-grid side the reference accepts (jobs/tiles.py).
+MAX_TILE_GRID_DIM = 16
+
+STRATEGY_NAIVE_FINE = "naive-fine"
+STRATEGY_EAGER_NAIVE_COARSE = "eager-naive-coarse"
+STRATEGY_DYNAMIC = "dynamic"
+STRATEGY_TPU_BATCH = "tpu-batch"
+
+
+@dataclass(frozen=True)
+class DistributionStrategy:
+    """Internally-tagged strategy enum.
+
+    Serialised as ``{"strategy_type": "...", ...options}`` exactly like the
+    reference's serde representation (shared/src/jobs/mod.rs:32-43), so the
+    analysis suite's ``FrameDistributionStrategy.from_raw_data`` keeps
+    working (analysis/core/models.py:16-27).
+    """
+
+    strategy_type: str
+    eager: EagerNaiveCoarseOptions | None = None
+    dynamic: DynamicStrategyOptions | None = None
+    tpu_batch: TpuBatchStrategyOptions | None = None
+
+    # -- constructors ------------------------------------------------------
+
+    @classmethod
+    def naive_fine(cls) -> "DistributionStrategy":
+        return cls(STRATEGY_NAIVE_FINE)
+
+    @classmethod
+    def eager_naive_coarse(cls, target_queue_size: int) -> "DistributionStrategy":
+        return cls(
+            STRATEGY_EAGER_NAIVE_COARSE,
+            eager=EagerNaiveCoarseOptions(target_queue_size),
+        )
+
+    @classmethod
+    def dynamic_strategy(cls, options: DynamicStrategyOptions) -> "DistributionStrategy":
+        return cls(STRATEGY_DYNAMIC, dynamic=options)
+
+    @classmethod
+    def tpu_batch_strategy(cls, options: TpuBatchStrategyOptions | None = None) -> "DistributionStrategy":
+        return cls(STRATEGY_TPU_BATCH, tpu_batch=options or TpuBatchStrategyOptions())
+
+    # -- serde -------------------------------------------------------------
+
+    def to_dict(self) -> dict[str, Any]:
+        out: dict[str, Any] = {"strategy_type": self.strategy_type}
+        if self.strategy_type == STRATEGY_EAGER_NAIVE_COARSE:
+            assert self.eager is not None
+            out["target_queue_size"] = self.eager.target_queue_size
+        elif self.strategy_type == STRATEGY_DYNAMIC:
+            assert self.dynamic is not None
+            out["target_queue_size"] = self.dynamic.target_queue_size
+            out["min_queue_size_to_steal"] = self.dynamic.min_queue_size_to_steal
+            out["min_seconds_before_resteal_to_elsewhere"] = (
+                self.dynamic.min_seconds_before_resteal_to_elsewhere
+            )
+            out["min_seconds_before_resteal_to_original_worker"] = (
+                self.dynamic.min_seconds_before_resteal_to_original_worker
+            )
+        elif self.strategy_type == STRATEGY_TPU_BATCH:
+            assert self.tpu_batch is not None
+            out["target_queue_size"] = self.tpu_batch.target_queue_size
+            out["min_queue_size_to_steal"] = self.tpu_batch.min_queue_size_to_steal
+            out["min_seconds_before_resteal_to_elsewhere"] = (
+                self.tpu_batch.min_seconds_before_resteal_to_elsewhere
+            )
+            out["min_seconds_before_resteal_to_original_worker"] = (
+                self.tpu_batch.min_seconds_before_resteal_to_original_worker
+            )
+            out["cost_ema_alpha"] = self.tpu_batch.cost_ema_alpha
+        return out
+
+    @classmethod
+    def from_dict(cls, data: dict[str, Any]) -> "DistributionStrategy":
+        strategy_type = str(data["strategy_type"])
+        if strategy_type == STRATEGY_NAIVE_FINE:
+            return cls.naive_fine()
+        if strategy_type == STRATEGY_EAGER_NAIVE_COARSE:
+            return cls.eager_naive_coarse(int(data["target_queue_size"]))
+        if strategy_type == STRATEGY_DYNAMIC:
+            return cls.dynamic_strategy(
+                DynamicStrategyOptions(
+                    target_queue_size=int(data["target_queue_size"]),
+                    min_queue_size_to_steal=int(data["min_queue_size_to_steal"]),
+                    min_seconds_before_resteal_to_elsewhere=int(
+                        data["min_seconds_before_resteal_to_elsewhere"]
+                    ),
+                    min_seconds_before_resteal_to_original_worker=int(
+                        data["min_seconds_before_resteal_to_original_worker"]
+                    ),
+                )
+            )
+        if strategy_type == STRATEGY_TPU_BATCH:
+            return cls.tpu_batch_strategy(
+                TpuBatchStrategyOptions(
+                    target_queue_size=int(data.get("target_queue_size", 4)),
+                    min_queue_size_to_steal=int(data.get("min_queue_size_to_steal", 2)),
+                    min_seconds_before_resteal_to_elsewhere=int(
+                        data.get("min_seconds_before_resteal_to_elsewhere", 40)
+                    ),
+                    min_seconds_before_resteal_to_original_worker=int(
+                        data.get("min_seconds_before_resteal_to_original_worker", 80)
+                    ),
+                    cost_ema_alpha=float(data.get("cost_ema_alpha", 0.3)),
+                )
+            )
+        raise ValueError(f"Unknown strategy_type: {strategy_type!r}")
+
+
+@dataclass(frozen=True)
+class BlenderJob:
+    """A render job definition (reference: shared/src/jobs/mod.rs:46-81)."""
+
+    job_name: str
+    job_description: str | None
+    project_file_path: str
+    render_script_path: str
+    frame_range_from: int  # inclusive
+    frame_range_to: int  # inclusive
+    wait_for_number_of_workers: int
+    frame_distribution_strategy: DistributionStrategy
+    output_directory_path: str
+    output_file_name_format: str
+    output_file_format: str
+    # New (optional, absent from reference TOMLs): default worker backend hint.
+    render_backend: str | None = None
+    # New (optional): sub-frame tile grid ``(rows, cols)``. When set, the
+    # unit of distribution becomes ``(frame, tile)`` — every frame splits
+    # into rows*cols independently schedulable tiles that the master
+    # re-assembles (master/assembly.py). None (the reference contract)
+    # keeps whole-frame units and byte-identical wire traffic.
+    tile_grid: tuple[int, int] | None = None
+    # New (optional): per-job service-level objectives ([slo] TOML table).
+    # Master-side only — workers ignore it; absent = no SLO tracking and
+    # reference-identical serialization.
+    slo: JobSlo | None = None
+
+    def __post_init__(self) -> None:
+        """Reject structurally-broken jobs at load time, not mid-dispatch.
+
+        The reference accepts any TOML that parses and fails much later
+        (an inverted frame range yields a job that 'finishes' instantly
+        with zero frames; an empty project path dies inside Blender).
+        With the multi-job scheduler admitting jobs from remote clients,
+        a clear submit-time error is the contract.
+        """
+        problems = []
+        if not self.job_name.strip():
+            problems.append("job_name must be non-empty")
+        if self.frame_range_to < self.frame_range_from:
+            problems.append(
+                f"frame range is inverted: frame_range_from={self.frame_range_from} "
+                f"> frame_range_to={self.frame_range_to}"
+            )
+        if not self.project_file_path.strip():
+            problems.append("project_file_path must be non-empty")
+        if not self.render_script_path.strip():
+            problems.append("render_script_path must be non-empty")
+        if not self.output_directory_path.strip():
+            problems.append("output_directory_path must be non-empty")
+        if self.wait_for_number_of_workers < 1:
+            problems.append(
+                "wait_for_number_of_workers must be >= 1, got "
+                f"{self.wait_for_number_of_workers}"
+            )
+        if self.tile_grid is not None:
+            # Normalize to the canonical int tuple before validating
+            # (frozen dataclass: go through __setattr__ like __post_init__
+            # frameworks do). Anything non-[rows, cols]-shaped — a string,
+            # mixed types, wrong arity — lands in the aggregated
+            # 'Invalid job' report like every other field.
+            if isinstance(self.tile_grid, (str, bytes)):
+                grid = None  # "22" must not silently iterate into (2, 2)
+            else:
+                try:
+                    grid = tuple(int(v) for v in self.tile_grid)
+                except (TypeError, ValueError):
+                    grid = None
+            if grid is None or len(grid) != 2:
+                problems.append(
+                    f"tiles must be [rows, cols], got {self.tile_grid!r}"
+                )
+            else:
+                object.__setattr__(self, "tile_grid", grid)
+                rows, cols = grid
+                if not (1 <= rows <= MAX_TILE_GRID_DIM and 1 <= cols <= MAX_TILE_GRID_DIM):
+                    problems.append(
+                        f"tile grid {rows}x{cols} must have dimensions in "
+                        f"1..{MAX_TILE_GRID_DIM}"
+                    )
+        if self.slo is not None and not isinstance(self.slo, JobSlo):
+            # Raw TOML table through from_dict: normalize like tile_grid,
+            # landing malformed declarations in the aggregated report.
+            try:
+                object.__setattr__(self, "slo", JobSlo.from_dict(self.slo))
+            except ValueError as e:
+                problems.append(str(e))
+                object.__setattr__(self, "slo", None)
+        if problems:
+            raise ValueError(
+                f"Invalid job {self.job_name!r}: " + "; ".join(problems)
+            )
+
+    # -- derived -----------------------------------------------------------
+
+    def frame_indices(self) -> range:
+        return range(self.frame_range_from, self.frame_range_to + 1)
+
+    def frame_count(self) -> int:
+        return self.frame_range_to - self.frame_range_from + 1
+
+    # -- serde -------------------------------------------------------------
+
+    def to_dict(self) -> dict[str, Any]:
+        out: dict[str, Any] = {
+            "job_name": self.job_name,
+            "job_description": self.job_description,
+            "project_file_path": self.project_file_path,
+            "render_script_path": self.render_script_path,
+            "frame_range_from": self.frame_range_from,
+            "frame_range_to": self.frame_range_to,
+            "wait_for_number_of_workers": self.wait_for_number_of_workers,
+            "frame_distribution_strategy": self.frame_distribution_strategy.to_dict(),
+            "output_directory_path": self.output_directory_path,
+            "output_file_name_format": self.output_file_name_format,
+            "output_file_format": self.output_file_format,
+        }
+        if self.render_backend is not None:
+            out["render_backend"] = self.render_backend
+        if self.tile_grid is not None:
+            out["tiles"] = list(self.tile_grid)
+        if self.slo is not None:
+            out["slo"] = self.slo.to_dict()
+        return out
+
+    @classmethod
+    def from_dict(cls, data: dict[str, Any]) -> "BlenderJob":
+        return cls(
+            job_name=str(data["job_name"]),
+            job_description=data.get("job_description"),
+            project_file_path=str(data["project_file_path"]),
+            render_script_path=str(data["render_script_path"]),
+            frame_range_from=int(data["frame_range_from"]),
+            frame_range_to=int(data["frame_range_to"]),
+            wait_for_number_of_workers=int(data["wait_for_number_of_workers"]),
+            frame_distribution_strategy=DistributionStrategy.from_dict(
+                data["frame_distribution_strategy"]
+            ),
+            output_directory_path=str(data["output_directory_path"]),
+            output_file_name_format=str(data["output_file_name_format"]),
+            output_file_format=str(data["output_file_format"]),
+            render_backend=data.get("render_backend"),
+            # Raw value through to __post_init__'s normalization, so a
+            # malformed tiles key gets the aggregated 'Invalid job' error
+            # instead of a bare int() traceback here.
+            tile_grid=data.get("tiles"),
+            slo=data.get("slo"),
+        )
+
+    @classmethod
+    def load_from_file(cls, path: str | Path) -> "BlenderJob":
+        path = Path(path)
+        if path.exists() and not path.is_file():
+            raise ValueError(f"Path exists, but it is not a file: {path}")
+        if not path.exists():
+            raise FileNotFoundError(f"No such job file: {path}")
+        with path.open("rb") as f:
+            data = tomllib.load(f)
+        return cls.from_dict(data)

@@ -1,0 +1,114 @@
+"""Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and becomes its own
+shared library, ``csrc/build/lib<name>-<digest>.so``, at first use. The
+digest covers the source and the flags, so an edited kernel is rebuilt and
+a stale library is never loaded. The build directory is listed in
+``.gitignore``; nothing is built when this module is imported.
+
+Flags: ``-gencode arch=compute_90a,code=sm_90a -O3``, no ``--use_fast_math``
+(the kernels keep IEEE sqrt, division, sin and cos for parity with the
+plain versions), and ``--fmad=false``: the kernels write out the fused
+multiply-adds the reference rounds with (``fmaf``, see ``render/fp32.py``),
+and nvcc must fuse no others.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = CSRC_DIR / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+# (name) -> the nvcc/ptxas report of the build that made the library
+# (registers, shared memory, spills), or "" when an earlier build was reused.
+build_logs: dict[str, str] = {}
+
+_lock = threading.Lock()
+_libraries: dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> list[str]:
+    """The kernel names: one per ``csrc/*.cu``."""
+    return sorted(path.stem for path in CSRC_DIR.glob("*.cu"))
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found is not None:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, in $CUDA_HOME/bin and "
+        "/usr/local/cuda/bin): the CUDA kernels are built from source at "
+        "first use and need the CUDA toolkit."
+    )
+
+
+def library_path(name: str) -> Path:
+    source = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(
+        source.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: list[str] | None = None) -> dict[str, Path]:
+    """Build the named kernels (default: all), one nvcc each, all at once.
+
+    Libraries that already exist for the current source and flags are
+    reused. Raises with nvcc's output if any build fails.
+    """
+    names = sources() if names is None else list(names)
+    targets = {name: library_path(name) for name in names}
+    pending = {name: path for name, path in targets.items() if not path.is_file()}
+    for name in targets:
+        build_logs.setdefault(name, "")
+    if not pending:
+        return targets
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    jobs = {}
+    for name, path in pending.items():
+        partial = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        command = [nvcc, *NVCC_FLAGS, "-o", str(partial), str(CSRC_DIR / f"{name}.cu")]
+        jobs[name] = (
+            partial,
+            subprocess.Popen(
+                command, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ),
+        )
+    failures = []
+    for name, (partial, process) in jobs.items():
+        output, _ = process.communicate()
+        build_logs[name] = output
+        if process.returncode != 0:
+            partial.unlink(missing_ok=True)
+            failures.append(f"{name}.cu (nvcc exit {process.returncode}):\n{output}")
+        else:
+            os.replace(partial, pending[name])
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    with _lock:
+        library = _libraries.get(name)
+        if library is None:
+            library = ctypes.CDLL(str(build([name])[name]))
+            _libraries[name] = library
+        return library
