@@ -29,6 +29,7 @@ from tpu_render_cluster.jobs.models import BlenderJob as RefJob
 from tpu_render_cluster.jobs.models import DistributionStrategy
 from tpu_render_cluster_torch.jobs.models import BlenderJob as PortJob
 from tpu_render_cluster_torch.render import cli
+from tpu_render_cluster_torch.render.integrator import fused_frame_renderer
 from tpu_render_cluster_torch.worker.backends.torch_raytrace import TorchRaytraceBackend
 
 REPO = Path(__file__).resolve().parent.parent
@@ -43,9 +44,12 @@ def assert_images_match(got: np.ndarray, expected: np.ndarray) -> None:
     assert abs(got.mean() - expected.mean()) <= 0.5
 
 
-def _job(strategy: DistributionStrategy, frames: int = 4, workers: int = 2) -> RefJob:
+def _job(
+    strategy: DistributionStrategy, frames: int = 4, workers: int = 2,
+    name: str = "04vs_torch-port",
+) -> RefJob:
     return RefJob(
-        job_name="04vs_torch-port",
+        job_name=name,
         job_description=None,
         project_file_path="%BASE%/p.blend",
         render_script_path="%BASE%/s.py",
@@ -97,6 +101,42 @@ def test_two_port_workers_serve_a_job_through_the_harness(tmp_path, monkeypatch)
         path = tmp_path / "frames" / f"rendered-{frame:05d}.png"
         assert path.is_file()
         assert_images_match(np.asarray(Image.open(path)), image)
+
+
+def test_two_port_workers_serve_a_mesh_job_through_the_harness(tmp_path):
+    """A short 02_physics-mesh job; each PNG equals the port's own renderer
+    (tests/test_torch_frame_mesh.py holds that renderer against the
+    reference)."""
+    job = _job(
+        DistributionStrategy.eager_naive_coarse(2), frames=2, name="02_physics-mesh_torch-port"
+    )
+    width, height = 16, 12
+    backends = [
+        TorchRaytraceBackend(
+            device="cpu", width=width, height=height, samples=1, max_bounces=2,
+            base_directory=tmp_path,
+        )
+        for _ in range(2)
+    ]
+    _master_trace, worker_traces = run_local_job(job, backends, timeout=300.0)
+    rendered = [t for _name, trace in worker_traces for t in trace.frame_render_traces]
+    assert sorted(t.frame_index for t in rendered) == [1, 2]
+    render = fused_frame_renderer("02_physics-mesh", width, height, 1, 2, "cpu")
+    for frame in (1, 2):
+        image = np.asarray(Image.open(tmp_path / "frames" / f"rendered-{frame:05d}.png"))
+        np.testing.assert_array_equal(image, render(frame).numpy())
+
+
+def test_backend_refuses_a_deep_mesh_job_before_rendering(tmp_path):
+    backend = TorchRaytraceBackend(device="cpu", width=8, height=8, base_directory=tmp_path)
+    with pytest.raises(NotImplementedError, match="deep-mesh slice"):
+        backend.warm("03_physics-2-mesh_240f-4w")
+    job = PortJob.from_dict(
+        {**_job(DistributionStrategy.naive_fine(), name="03_physics-2-mesh_x").to_dict()}
+    )
+    with pytest.raises(NotImplementedError, match="deep-mesh slice"):
+        asyncio.run(backend.render_frame(job, 1))
+    assert not (tmp_path / "frames").exists()
 
 
 def test_backend_phases_and_jpeg_output(tmp_path):

@@ -50,7 +50,10 @@ def test_frame_matches_reference(reference_renderer, name, frame):
     render = port_integrator.fused_frame_renderer(name, WIDTH, HEIGHT, SAMPLES, BOUNCES, "cpu")
     got = render(frame)
     assert got.shape == (HEIGHT, WIDTH, 3) and got.device.type == "cpu"
-    assert kernels.counts == {"trace_fused": 0, "trace_fused_reference": 1}
+    assert kernels.counts == {
+        "trace_fused": 0, "trace_fused_reference": 1,
+        "trace_fused_mesh": 0, "trace_fused_mesh_reference": 0,
+    }
     assert_images_match(got.numpy(), expected)
     assert got.numpy().std() > 5.0
 

@@ -1,0 +1,69 @@
+"""Whole frames of a mesh scene: the port's ``fused_frame_renderer`` on the
+CPU against the JAX package's, with its Pallas mesh megakernel in
+interpret mode.
+
+Tolerance as in tests/test_torch_frame.py: at least 99.5% of uint8 channel
+values within +-1, and image means within 0.5. Both renderers trace the
+same rays with the same random numbers through the same physics.
+"""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_frame import assert_images_match
+from tpu_render_cluster_torch.render import integrator as port_integrator
+from tpu_render_cluster_torch.render import kernels
+
+WIDTH, HEIGHT, SAMPLES, BOUNCES = 32, 24, 2, 4
+
+
+@pytest.fixture
+def reference_renderer(monkeypatch):
+    """The JAX frame renderer with the Pallas megakernels forced on."""
+    from tpu_render_cluster.render.integrator import fused_frame_renderer
+
+    monkeypatch.setenv("TRC_PALLAS", "1")
+    jax.clear_caches()  # the env var is read at trace time
+    fused_frame_renderer.cache_clear()
+    yield fused_frame_renderer
+    jax.clear_caches()
+    fused_frame_renderer.cache_clear()
+
+
+def test_mesh_frames_match_reference(reference_renderer):
+    name = "02_physics-mesh"
+    reference = reference_renderer(name, WIDTH, HEIGHT, SAMPLES, BOUNCES)
+    render = port_integrator.fused_frame_renderer(name, WIDTH, HEIGHT, SAMPLES, BOUNCES, "cpu")
+    for frame in (1, 30):
+        expected = np.asarray(reference(frame))
+        kernels.reset_counts()
+        got = render(frame)
+        assert got.shape == (HEIGHT, WIDTH, 3) and got.device.type == "cpu"
+        assert kernels.counts == {
+            "trace_fused": 0, "trace_fused_reference": 0,
+            "trace_fused_mesh": 0, "trace_fused_mesh_reference": 1,
+        }
+        assert_images_match(got.numpy(), expected)
+        assert got.numpy().std() > 5.0
+
+
+def test_deep_mesh_renderer_names_its_slice():
+    with pytest.raises(NotImplementedError, match="deep-mesh slice"):
+        port_integrator.fused_frame_renderer("03_physics-2-mesh", 8, 8, 1, 1, "cpu")
+    with pytest.raises(NotImplementedError, match="deep-mesh slice"):
+        port_integrator.render_frame(
+            "03_physics-2-mesh", 2, width=8, height=8, samples=1, max_bounces=1, device="cpu"
+        )
+
+
+def test_render_frame_of_a_mesh_scene():
+    kernels.reset_counts()
+    linear = port_integrator.render_frame(
+        "02_physics-mesh", 40, width=12, height=10, samples=1, max_bounces=2, device="cpu"
+    )
+    assert linear.shape == (10, 12, 3) and torch.isfinite(linear).all()
+    assert kernels.counts["trace_fused_mesh_reference"] == 1

@@ -118,7 +118,10 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
         scene, torch.from_numpy(origins), torch.from_numpy(directions), 5, max_bounces=2
     )
     assert out.shape == (N_RAYS, 3)
-    assert kernels.counts == {"trace_fused": 0, "trace_fused_reference": 1}
+    assert kernels.counts == {
+        "trace_fused": 0, "trace_fused_reference": 1,
+        "trace_fused_mesh": 0, "trace_fused_mesh_reference": 0,
+    }
 
 
 def test_plain_version_chunking_changes_nothing():

@@ -1,11 +1,13 @@
-"""The CUDA path-trace megakernel against its plain PyTorch version, on a GPU.
+"""The CUDA path-trace megakernels (sphere and mesh) against their plain
+PyTorch versions, on a GPU.
 
-Needs a CUDA GPU and nvcc (the kernel has no CPU mode); skipped elsewhere.
+Needs a CUDA GPU and nvcc (the kernels have no CPU mode); skipped elsewhere.
 Imports no jax, so it runs on a GPU machine without the JAX package's
 dependencies: ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
 
 Tolerance as in tests/test_torch_kernels.py, rtol = atol = 1e-4 per ray:
-every ray at 1 bounce, at least 99.9% at 4 bounces.
+every ray at 1 bounce (the mesh kernel: all but an edge-tie budget of
+max(1, round(0.001 R)) rays), at least 99.9% at 4 bounces.
 """
 
 from __future__ import annotations
@@ -14,7 +16,14 @@ import pytest
 import torch
 
 from tpu_render_cluster_torch.render import integrator, kernels
-from tpu_render_cluster_torch.render.scene import build_scene
+from tpu_render_cluster_torch.render.mesh import (
+    MeshInstances,
+    MeshSet,
+    build_bvh,
+    make_icosphere,
+    scene_mesh_set,
+)
+from tpu_render_cluster_torch.render.scene import build_mesh_instances, build_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -24,6 +33,12 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU and nvcc: the kernel has no CPU mode")
     return torch.device("cuda")
+
+
+def _launched(kernel: str) -> dict[str, int]:
+    """``kernels.counts`` after one launch of ``kernel`` and nothing else:
+    no other kernel and no plain version."""
+    return {name: int(name == kernel) for name in kernels.counts}
 
 
 @pytest.mark.parametrize("max_bounces", [1, 4])
@@ -37,7 +52,7 @@ def test_cuda_kernel_matches_plain_version(cuda_device, name, max_bounces):
     kernels.reset_counts()
     got = kernels.trace_paths_fused(scene, origins, directions, seed, max_bounces=max_bounces)
     torch.cuda.synchronize()
-    assert kernels.counts == {"trace_fused": 1, "trace_fused_reference": 0}
+    assert kernels.counts == _launched("trace_fused")
     expected = kernels.trace_paths_fused_reference(
         scene, origins, directions, seed, max_bounces=max_bounces
     )
@@ -49,7 +64,71 @@ def test_cuda_frame_renderer_goes_through_the_kernel(cuda_device):
     kernels.reset_counts()
     image = integrator.fused_frame_renderer("01_simple-animation", 64, 48, 2, 4)(3)
     assert image.device.type == "cuda" and image.shape == (48, 64, 3)
-    assert kernels.counts == {"trace_fused": 1, "trace_fused_reference": 0}
+    assert kernels.counts == _launched("trace_fused")
     cpu = integrator.fused_frame_renderer("01_simple-animation", 64, 48, 2, 4, "cpu")(3)
+    diff = (image.cpu().int() - cpu.int()).abs()
+    assert (diff <= 1).float().mean().item() >= 0.995
+
+
+@pytest.mark.parametrize("max_bounces", [1, 4])
+@pytest.mark.parametrize("name", ["02_physics-mesh", "03_physics-2-mesh"])
+def test_cuda_mesh_kernel_matches_plain_version(cuda_device, name, max_bounces):
+    """02_physics-mesh is the main path's mesh; 03_physics-2-mesh's deep
+    icosphere tree is past the dispatch bound and called directly."""
+    scene = build_scene(name, 30, cuda_device)
+    mesh = scene_mesh_set(name, 30, device=cuda_device)
+    camera = integrator.scene_camera(name, 30, cuda_device)
+    origins, directions, seed = integrator.frame_rays_and_seed(
+        camera, 30, width=128, height=128, samples=4
+    )
+    kernels.reset_counts()
+    got = kernels.trace_paths_fused_mesh(
+        scene, mesh, origins, directions, seed, max_bounces=max_bounces
+    )
+    torch.cuda.synchronize()
+    assert kernels.counts == _launched("trace_fused_mesh")
+    expected = kernels.trace_paths_fused_mesh_reference(
+        scene, mesh, origins, directions, seed, max_bounces=max_bounces
+    )
+    close = torch.isclose(got, expected, rtol=1e-4, atol=1e-4).all(dim=1)
+    if max_bounces == 1:
+        assert (~close).sum().item() <= max(1, round(0.001 * close.numel()))
+    else:
+        assert close.float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize(
+    "n_faces,low,high",
+    # 700 faces of the level-3 icosphere: 48-96 KB of tables, staged past
+    # the default 48 KB limit; all 1,280 faces: beyond 96 KB, read from
+    # device memory.
+    [(700, 48 * 1024, 96 * 1024), (None, 96 * 1024, 1 << 30)],
+)
+def test_cuda_mesh_kernel_with_large_tables(cuda_device, n_faces, low, high):
+    vertices, faces = make_icosphere(3)
+    bvh = build_bvh(vertices, faces[:n_faces], device=cuda_device)
+    instances = build_mesh_instances("02_physics-mesh", 30, cuda_device)
+    mesh = MeshSet(bvh, MeshInstances(*(field[:3] for field in instances)))
+    table_bytes = 64 * bvh.v0.shape[0] + 48 * bvh.skip.shape[0] + 88 * 3
+    assert low < table_bytes <= high, table_bytes
+    scene = build_scene("02_physics-mesh", 30, cuda_device)
+    camera = integrator.scene_camera("02_physics-mesh", 30, cuda_device)
+    origins, directions, seed = integrator.frame_rays_and_seed(
+        camera, 30, width=64, height=64, samples=2
+    )
+    got = kernels.trace_paths_fused_mesh(scene, mesh, origins, directions, seed, max_bounces=4)
+    expected = kernels.trace_paths_fused_mesh_reference(
+        scene, mesh, origins, directions, seed, max_bounces=4
+    )
+    close = torch.isclose(got, expected, rtol=1e-4, atol=1e-4).all(dim=1)
+    assert close.float().mean().item() >= 0.999
+
+
+def test_cuda_mesh_frame_renderer_goes_through_the_kernel(cuda_device):
+    kernels.reset_counts()
+    image = integrator.fused_frame_renderer("02_physics-mesh", 64, 48, 2, 4)(3)
+    assert image.device.type == "cuda" and image.shape == (48, 64, 3)
+    assert kernels.counts == _launched("trace_fused_mesh")
+    cpu = integrator.fused_frame_renderer("02_physics-mesh", 64, 48, 2, 4, "cpu")(3)
     diff = (image.cpu().int() - cpu.int()).abs()
     assert (diff <= 1).float().mean().item() >= 0.995

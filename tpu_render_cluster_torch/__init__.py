@@ -2,8 +2,9 @@
 
 The JAX package ``tpu_render_cluster`` stays the reference; this package
 holds its own copies of every module it needs and imports nothing of it.
-Slice 1 covers sphere scenes rendered as whole frames through the
-path-trace megakernel (``render/csrc/trace_fused.cu``).
+It renders whole frames of the sphere scenes through the path-trace
+megakernel (``render/csrc/trace_fused.cu``) and of the mesh scenes whose
+mesh fits the mesh megakernel (``render/csrc/trace_fused_mesh.cu``).
 
 Entry points run on the GPU. They take the CPU only when the caller asks
 for it explicitly (``device="cpu"``), as the CPU tests do; without a GPU

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and becomes its own
 shared library, ``csrc/build/lib<name>-<digest>.so``, at first use. The
-digest covers the source and the flags, so an edited kernel is rebuilt and
-a stale library is never loaded. The build directory is listed in
+digest covers the source, every ``csrc/*.cuh`` header it may include, and
+the flags, so an edited kernel or shared header is rebuilt and a stale
+library is never loaded. The build directory is listed in
 ``.gitignore``; nothing is built when this module is imported.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3``, no ``--use_fast_math``
@@ -58,11 +59,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
+    digest.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: list[str] | None = None) -> dict[str, Path]:

@@ -1,11 +1,12 @@
-"""Standalone render CLI: render one frame of a sphere scene to a file.
+"""Standalone render CLI: render one frame of a scene to a file.
 
 Usage:
   python -m tpu_render_cluster_torch.render.cli --scene 04_very-simple \
       --frame 1 --width 256 --height 256 --samples 4 --out frame.png
 
-Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions on the
-CPU instead. Prints the same ``RESULTS=`` phase-timing line as the
+Sphere scenes and ``02_physics-mesh``; ``--obj`` (user meshes) is not
+ported yet. Runs on the GPU; ``--device cpu`` runs the plain PyTorch
+versions on the CPU instead. Prints the same ``RESULTS=`` phase-timing line as the
 reference CLI, which worker daemons parse.
 """
 

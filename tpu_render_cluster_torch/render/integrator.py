@@ -1,10 +1,12 @@
 """Whole-frame path tracing: primary rays, the megakernel, tonemapping.
 
 Port of the masked megakernel tier of ``tpu_render_cluster/render/
-integrator.py`` for sphere scenes and whole frames. A frame's samples ride
-the ray axis (the reference's flattened-samples branch of ``render_tile``):
-every sample's jittered camera rays are traced in ONE launch of the
-path-trace megakernel, then averaged per pixel and tonemapped.
+integrator.py`` for whole frames of the sphere scenes and of the mesh
+scenes whose mesh fits the mesh megakernel. A frame's samples ride the ray
+axis (the reference's flattened-samples branch of ``render_tile``): every
+sample's jittered camera rays are traced in ONE launch of a path-trace
+megakernel (``trace_paths`` picks which), then averaged per pixel and
+tonemapped.
 
 RNG: the jitter and the kernel's trace seed derive from the reference's
 ``jax.random`` key schedule, reproduced bit for bit by ``render/rng.py``.
@@ -21,9 +23,15 @@ import torch
 from tpu_render_cluster_torch import resolve_device
 from tpu_render_cluster_torch.render import kernels, rng
 from tpu_render_cluster_torch.render.camera import Camera, camera_rays, scene_camera
+from tpu_render_cluster_torch.render.mesh import MeshSet, scene_mesh_set
 from tpu_render_cluster_torch.render.scene import Scene, build_scene
 
-_TILES_SLICE = "tiled rendering arrives with the tiles slice of the port (ROADMAP.md, slice 2)"
+_TILES_SLICE = "tiled rendering arrives with the tiles slice of the port (ROADMAP.md, queue 1)"
+_DEEP_MESH_SLICE = (
+    "its BVH nodes x instances exceed the mesh megakernel's bound "
+    f"({kernels.MESH_MEGAKERNEL_MAX_WALK}); deep mesh scenes take the per-bounce "
+    "mesh kernel, which arrives with the deep-mesh slice of the port (ROADMAP.md, queue 1)"
+)
 
 
 def _int32(value) -> int:
@@ -92,6 +100,39 @@ def frame_rays_and_seed(camera: Camera, frame, *, width, height, samples):
     return origins, directions, trace_seed(tile_trace_key(base_key))
 
 
+def check_mesh_supported(mesh: MeshSet | None) -> None:
+    """Raise ``NotImplementedError`` for a mesh the ported kernels cannot
+    trace yet (beyond the mesh megakernel's walk bound)."""
+    if mesh is not None and not kernels.mesh_megakernel_eligible(mesh):
+        nodes, instances = mesh.bvh.skip.shape[0], mesh.instances.translation.shape[0]
+        raise NotImplementedError(
+            f"A mesh of {nodes} BVH nodes x {instances} instances: {_DEEP_MESH_SLICE}."
+        )
+
+
+def trace_paths(
+    scene: Scene,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    seed: int,
+    *,
+    max_bounces: int,
+    mesh: MeshSet | None = None,
+) -> torch.Tensor:
+    """Trace one sample per ray through the whole bounce loop; radiance
+    [R, 3]. The reference's dispatch: no mesh -> the sphere megakernel; a
+    mesh within the walk bound -> the mesh megakernel; a deeper mesh
+    raises ``NotImplementedError`` (its kernel is not ported yet)."""
+    if mesh is None:
+        return kernels.trace_paths_fused(
+            scene, origins, directions, seed, max_bounces=max_bounces
+        )
+    check_mesh_supported(mesh)
+    return kernels.trace_paths_fused_mesh(
+        scene, mesh, origins, directions, seed, max_bounces=max_bounces
+    )
+
+
 def render_tile(
     scene: Scene,
     camera: Camera,
@@ -105,6 +146,7 @@ def render_tile(
     tile_width: int,
     samples: int = 8,
     max_bounces: int = 4,
+    mesh: MeshSet | None = None,
 ) -> torch.Tensor:
     """Render a tile; returns [tile_height, tile_width, 3] linear radiance.
 
@@ -118,9 +160,9 @@ def render_tile(
         camera, base_key, width=width, height=height, y0=y0, x0=x0,
         tile_height=tile_height, tile_width=tile_width, samples=samples,
     )
-    radiance = kernels.trace_paths_fused(
+    radiance = trace_paths(
         scene, origins, directions, trace_seed(tile_trace_key(base_key)),
-        max_bounces=max_bounces,
+        max_bounces=max_bounces, mesh=mesh,
     )
     image = radiance.reshape(samples, n, 3).mean(dim=0)
     return image.reshape(tile_height, tile_width, 3)
@@ -147,6 +189,7 @@ def render_frame(
         scene, camera, frame_index, 0, 0,
         width=width, height=height, tile_height=height, tile_width=width,
         samples=samples, max_bounces=max_bounces,
+        mesh=scene_mesh_set(scene_name, frame_index, device=device),
     )
 
 
@@ -162,6 +205,10 @@ def _fused_frame_renderer(
     scene_name: str, width: int, height: int, samples: int, max_bounces: int,
     device: torch.device,
 ):
+    # A mesh's BVH and instance count are the same in every frame: a mesh
+    # the ported kernels cannot trace fails here, before any frame renders.
+    check_mesh_supported(scene_mesh_set(scene_name, 0, device=device))
+
     def render(frame: int) -> torch.Tensor:
         scene = build_scene(scene_name, frame, device)
         camera = scene_camera(scene_name, frame, device)
@@ -169,6 +216,7 @@ def _fused_frame_renderer(
             scene, camera, frame, 0, 0,
             width=width, height=height, tile_height=height, tile_width=width,
             samples=samples, max_bounces=max_bounces,
+            mesh=scene_mesh_set(scene_name, frame, device=device),
         )
         return tonemap(linear)
 
@@ -187,7 +235,8 @@ def fused_frame_renderer(
 
     The image stays on ``device``: the caller copies it back when it needs
     the pixels. The device resolves here (CUDA unless ``cpu`` is asked
-    for) and is part of the cache key.
+    for) and is part of the cache key. A mesh scene beyond the mesh
+    megakernel's bound raises ``NotImplementedError`` here.
     """
     return _fused_frame_renderer(
         scene_name, width, height, samples, max_bounces, resolve_device(device)

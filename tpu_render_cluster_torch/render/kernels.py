@@ -1,16 +1,21 @@
 """The render path's kernels and their plain PyTorch versions.
 
-Counterpart of ``tpu_render_cluster/render/pallas_kernels.py``. Slice 1
-holds one kernel: the sphere path-trace megakernel that replaces the TPU's
-``_trace_fused`` in its positional-counter mode, written in CUDA C++ for
-Hopper (``csrc/trace_fused.cu``, built by ``_build.py``).
+Counterpart of ``tpu_render_cluster/render/pallas_kernels.py``. Two
+kernels, written in CUDA C++ for Hopper and built by ``_build.py``:
 
-``trace_paths_fused`` launches the kernel for CUDA tensors, and raises if
-it cannot. For CPU tensors it runs ``trace_paths_fused_reference``, the
-plain version that repeats the reference's masked bounce loop operation for
-operation; there is no fallback from one to the other. ``counts`` records
-kernel launches and plain-version calls, so a run can show which one the
-main path went through.
+- ``csrc/trace_fused.cu``, the sphere path-trace megakernel that replaces
+  the TPU's ``_trace_fused`` in its positional-counter mode;
+- ``csrc/trace_fused_mesh.cu``, the mesh megakernel that replaces
+  ``_trace_fused_mesh``: spheres, the plane and K rigid instances of one
+  mesh walked through its threaded BVH, over the whole bounce loop.
+
+``trace_paths_fused`` / ``trace_paths_fused_mesh`` launch their kernel for
+CUDA tensors, and raise if they cannot. For CPU tensors they run the plain
+versions, ``trace_paths_fused_reference`` / ``_mesh_reference``, which
+repeat the reference's masked bounce loop operation for operation; there is
+no fallback from one to the other. ``counts`` records kernel launches and
+plain-version calls, so a run can show which one the main path went
+through.
 
 RNG: a counter-based PCG hash of (lane, bounce, seed), the same portable
 integer hash the TPU kernel uses, so the kernel and the plain version draw
@@ -26,17 +31,27 @@ from typing import NamedTuple
 import torch
 
 from tpu_render_cluster_torch.render.fp32 import INV_PI, dot3, fma
+from tpu_render_cluster_torch.render.mesh import LEAF_SIZE, MeshBVH, MeshSet
 from tpu_render_cluster_torch.render.rng import MASK32
 from tpu_render_cluster_torch.render.scene import Scene
 
 EPS = 1e-3
 INF = 1e30
-MAX_SPHERES = 128  # the kernel's shared-memory sphere table
+MAX_SPHERES = 128  # the kernels' shared-memory sphere table
 _SPHERE_ALIGN = 8  # the reference pads the sphere count to a multiple of 8
+# Mesh-megakernel dispatch bound: the whole-bounce-loop kernel takes a mesh
+# scene when BVH nodes x instances is at most this (the reference's rule).
+MESH_MEGAKERNEL_MAX_WALK = 1024
+_DET_EPS = 1e-12  # Moller-Trumbore's parallel-ray threshold
 
-# Kernel launches ("trace_fused") and plain-version calls
-# ("trace_fused_reference") since the last reset_counts().
-counts = {"trace_fused": 0, "trace_fused_reference": 0}
+# Kernel launches ("trace_fused", "trace_fused_mesh") and plain-version
+# calls ("..._reference") since the last reset_counts().
+counts = {
+    "trace_fused": 0,
+    "trace_fused_reference": 0,
+    "trace_fused_mesh": 0,
+    "trace_fused_mesh_reference": 0,
+}
 
 
 def reset_counts() -> None:
@@ -144,22 +159,26 @@ def trace_paths_fused(
     raise ValueError(f"Unsupported device {origins.device}")
 
 
-def _launch_trace_fused(scene, origins, directions, seed, max_bounces):
+def _library(name: str) -> ctypes.CDLL:
+    """The kernel's library with its C entry points typed."""
     from tpu_render_cluster_torch.render import _build
 
-    library = _build.load("trace_fused")
-    launch = library.trace_fused_launch
-    launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    launch.restype = ctypes.c_int
-    library.trace_fused_error_string.argtypes = [ctypes.c_int]
-    library.trace_fused_error_string.restype = ctypes.c_char_p
+    library = _build.load(name)
+    getattr(library, f"{name}_error_string").argtypes = [ctypes.c_int]
+    getattr(library, f"{name}_error_string").restype = ctypes.c_char_p
+    return library
 
+
+def _check_status(library, name: str, status: int) -> None:
+    if status != 0:
+        message = getattr(library, f"{name}_error_string")(status).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {status} ({message})")
+
+
+def _sphere_operands(scene: Scene) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' sphere table ([N, 16]: four float4 per sphere, see
+    csrc/path_common.cuh) and their 18 scene parameters."""
     table = sphere_table(scene)
-    n_padded = table.centers.shape[0]
     zero = torch.zeros_like(table.csq)
     spheres = torch.stack(
         [
@@ -176,23 +195,171 @@ def _launch_trace_fused(scene, origins, directions, seed, max_bounces):
             table.sky_zenith, table.plane_albedo_a, table.plane_albedo_b,
         ]
     ).to(torch.float32).contiguous()
-    origins = origins.contiguous()
-    directions = directions.contiguous()
+    return spheres, params
+
+
+def _ray_operands(origins, directions):
     rays = origins.shape[0]
     if rays >= 2**31:
         raise ValueError(f"{rays} rays exceed the kernel's int32 lane index")
     radiance = torch.empty((rays, 3), dtype=torch.float32, device=origins.device)
     stream = torch.cuda.current_stream(origins.device).cuda_stream
+    return origins.contiguous(), directions.contiguous(), radiance, stream
+
+
+def _launch_trace_fused(scene, origins, directions, seed, max_bounces):
+    library = _library("trace_fused")
+    launch = library.trace_fused_launch
+    launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    launch.restype = ctypes.c_int
+    spheres, params = _sphere_operands(scene)
+    origins, directions, radiance, stream = _ray_operands(origins, directions)
     status = launch(
-        origins.data_ptr(), directions.data_ptr(), rays,
-        spheres.data_ptr(), n_padded, params.data_ptr(),
+        origins.data_ptr(), directions.data_ptr(), origins.shape[0],
+        spheres.data_ptr(), spheres.shape[0], params.data_ptr(),
         int(seed), int(max_bounces), radiance.data_ptr(), stream,
     )
-    if status != 0:
-        message = library.trace_fused_error_string(status).decode()
-        raise RuntimeError(f"trace_fused launch failed: CUDA error {status} ({message})")
+    _check_status(library, "trace_fused", status)
     counts["trace_fused"] += 1
     return radiance
+
+
+# ---------------------------------------------------------------------------
+# Mesh scenes
+
+
+def mesh_megakernel_eligible(mesh: MeshSet) -> bool:
+    """Whether a mesh scene takes the whole-bounce-loop mesh megakernel
+    (BVH nodes x instances at most ``MESH_MEGAKERNEL_MAX_WALK``)."""
+    return (
+        mesh.bvh.skip.shape[0] * mesh.instances.translation.shape[0]
+        <= MESH_MEGAKERNEL_MAX_WALK
+    )
+
+
+def instance_table(mesh: MeshSet) -> torch.Tensor:
+    """[K, 22] per-instance table: rotation row-major (0..8), translation
+    (9..11), 1/scale (12), the instance's world-space AABB (13..18) and its
+    albedo (19..21). The world AABB of the transformed root box is
+    center_w = s R c_o + t, half_w = s |R| h_o."""
+    instances, bvh = mesh.instances, mesh.bvh
+    rotation, translation, scale = instances.rotation, instances.translation, instances.scale
+    k = rotation.shape[0]
+    center_obj = 0.5 * (bvh.bounds_min[0] + bvh.bounds_max[0])
+    half_obj = 0.5 * (bvh.bounds_max[0] - bvh.bounds_min[0])
+    center_w = fma(scale[:, None], dot3(rotation, center_obj.expand_as(rotation)), translation)
+    half_w = scale[:, None] * dot3(rotation.abs(), half_obj.expand_as(rotation))
+    return torch.cat(
+        [
+            rotation.reshape(k, 9),
+            translation,
+            (1.0 / scale)[:, None],
+            center_w - half_w,
+            center_w + half_w,
+            instances.albedo,
+        ],
+        dim=1,
+    ).contiguous()
+
+
+def _check_mesh(mesh: MeshSet, origins: torch.Tensor) -> None:
+    tensors = [*mesh.bvh[:-1], *mesh.instances]
+    devices = {t.device for t in tensors} | {origins.device}
+    if len(devices) != 1:
+        raise ValueError(f"rays and mesh must share one device, got {devices}")
+    if mesh.bvh.v0.shape[0] % LEAF_SIZE:
+        raise ValueError(f"triangle rows must come in {LEAF_SIZE}-row leaf slots")
+
+
+def trace_paths_fused_mesh(
+    scene: Scene,
+    mesh: MeshSet,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    seed: int,
+    *,
+    max_bounces: int,
+) -> torch.Tensor:
+    """Path-trace each ray of a mesh scene through the whole bounce loop;
+    radiance ``[R, 3]``. CUDA tensors go to the mesh megakernel, CPU
+    tensors to its plain version. Takes any mesh: the eligibility rule is
+    the caller's (``integrator.trace_paths``)."""
+    _check_inputs(scene, origins, directions, seed)
+    _check_mesh(mesh, origins)
+    if origins.device.type == "cuda":
+        return _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces)
+    if origins.device.type == "cpu":
+        return trace_paths_fused_mesh_reference(
+            scene, mesh, origins, directions, seed, max_bounces=max_bounces
+        )
+    raise ValueError(f"Unsupported device {origins.device}")
+
+
+# The kernel's layout of the BVHs launched last, keyed by the MeshBVH's
+# identity; an entry holds its MeshBVH, so that id is not reused meanwhile.
+# A BVH's tables are never changed in place.
+_packed_bvh: dict[int, tuple[MeshBVH, tuple]] = {}
+_PACKED_BVH_ENTRIES = 8
+
+
+def _bvh_operands(bvh: MeshBVH) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(triangle rows [T, 16] = v0, e1, e2, normal each padded to a float4,
+    node bounds [N, 8] = lo, 0, hi, 0, node links [N, 4] int32 = skip,
+    first, count, 0) in the canonical node order, packed once per BVH."""
+    entry = _packed_bvh.get(id(bvh))
+    if entry is not None and entry[0] is bvh:
+        return entry[1]
+    zero_t = torch.zeros_like(bvh.v0[:, :1])
+    triangles = torch.cat(
+        [bvh.v0, zero_t, bvh.e1, zero_t, bvh.e2, zero_t, bvh.normal, zero_t], dim=1
+    ).to(torch.float32).contiguous()
+    zero_n = torch.zeros_like(bvh.bounds_min[:, :1])
+    bounds = torch.cat([bvh.bounds_min, zero_n, bvh.bounds_max, zero_n], dim=1)
+    links = torch.stack(
+        [bvh.skip, bvh.first, bvh.count, torch.zeros_like(bvh.skip)], dim=1
+    ).to(torch.int32).contiguous()
+    packed = (triangles, bounds.to(torch.float32).contiguous(), links)
+    if len(_packed_bvh) >= _PACKED_BVH_ENTRIES:
+        del _packed_bvh[next(iter(_packed_bvh))]
+    _packed_bvh[id(bvh)] = (bvh, packed)
+    return packed
+
+
+def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces):
+    library = _library("trace_fused_mesh")
+    launch = library.trace_fused_mesh_launch
+    launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    launch.restype = ctypes.c_int
+    spheres, params = _sphere_operands(scene)
+    table = instance_table(mesh)
+    triangles, bounds, links = _bvh_operands(mesh.bvh)
+    origins, directions, radiance, stream = _ray_operands(origins, directions)
+    status = launch(
+        origins.data_ptr(), directions.data_ptr(), origins.shape[0],
+        spheres.data_ptr(), spheres.shape[0], params.data_ptr(),
+        table.data_ptr(), table.shape[0],
+        triangles.data_ptr(), triangles.shape[0],
+        bounds.data_ptr(), links.data_ptr(), bounds.shape[0],
+        int(seed), int(max_bounces), radiance.data_ptr(), stream,
+    )
+    _check_status(library, "trace_fused_mesh", status)
+    counts["trace_fused_mesh"] += 1
+    return radiance
+
+
+# ---------------------------------------------------------------------------
+# The plain versions
 
 
 def trace_paths_fused_reference(
@@ -205,7 +372,7 @@ def trace_paths_fused_reference(
     chunk_rays: int = 32768,
     stats: dict | None = None,
 ) -> torch.Tensor:
-    """The plain PyTorch version of the megakernel, on any device.
+    """The plain PyTorch version of the sphere megakernel, on any device.
 
     It repeats the reference's masked loop (every lane runs every bounce
     under an ``alive`` mask) over chunks of rays: a whole frame's
@@ -213,28 +380,78 @@ def trace_paths_fused_reference(
     keep their global index, so chunking changes no result.
 
     ``stats``, when given, receives the work this input needs, counted the
-    way the kernel does it: lane-bounces alive, lanes that hit, and sphere
-    tests of the shadow rays (which stop at the first occluder).
+    way the kernel does it: the scene's spheres (its radius-0 pad slots are
+    not counted), lane-bounces alive, lanes that hit, and sphere tests of the
+    shadow rays (which stop at the first occluder). The counts add up on
+    the device and are read once, at the end.
     """
     _check_inputs(scene, origins, directions, seed)
     counts["trace_fused_reference"] += 1
-    table = sphere_table(scene)
+    return _trace_reference(
+        sphere_table(scene), None, origins, directions, seed, max_bounces, chunk_rays, stats
+    )
+
+
+def trace_paths_fused_mesh_reference(
+    scene: Scene,
+    mesh: MeshSet,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    seed: int,
+    *,
+    max_bounces: int,
+    chunk_rays: int = 262144,
+    stats: dict | None = None,
+) -> torch.Tensor:
+    """The plain PyTorch version of the mesh megakernel, on any device.
+
+    The sphere version's masked loop plus, per bounce, the nearest mesh
+    hit (seeded with the sphere/plane t; strict ``<`` updates) and the
+    mesh shadow any-hit. The BVH walk is a sweep over the nodes in DFS
+    preorder that carries, per node, the rays whose walk reaches it: a ray
+    reaches a node when it passed the slab test of the node's parent,
+    tested against its best t at that moment. That is the per-ray walk of
+    the kernel, so the two agree ray for ray, ties included.
+
+    ``stats`` also receives the mesh work: world-AABB tests, instance
+    walks entered, node slab tests and triangle tests (the shadow walks
+    stop at the first occluder, as the kernel's do).
+    """
+    _check_inputs(scene, origins, directions, seed)
+    _check_mesh(mesh, origins)
+    counts["trace_fused_mesh_reference"] += 1
+    return _trace_reference(
+        sphere_table(scene), _MeshWalk.build(mesh, scene.sun_direction), origins, directions, seed,
+        max_bounces, chunk_rays, stats,
+    )
+
+
+_STATS = ("alive_lane_bounces", "hit_lane_bounces", "shadow_sphere_tests")
+_MESH_STATS = ("world_aabb_tests", "instance_walks", "node_tests", "triangle_tests")
+
+
+def _trace_reference(table, walk, origins, directions, seed, max_bounces, chunk_rays, stats):
     seed_word = int(seed) & MASK32
     out = torch.empty_like(origins)
     if stats is not None:
-        for key in ("alive_lane_bounces", "hit_lane_bounces", "shadow_sphere_tests"):
+        keys = _STATS + (_MESH_STATS if walk is not None else ())
+        for key in keys:
             stats.setdefault(key, 0)
-        stats["spheres"] = table.centers.shape[0]
+        # The scene's own pad slots (radius 0, always last) are not counted.
+        stats["spheres"] = int((table.r2 > 0.0).sum())
     for start in range(0, origins.shape[0], chunk_rays):
         stop = min(start + chunk_rays, origins.shape[0])
         out[start:stop] = _reference_chunk(
-            table, origins[start:stop], directions[start:stop], start,
+            table, walk, origins[start:stop], directions[start:stop], start,
             seed_word, max_bounces, stats,
         )
+    if stats is not None:
+        for key in keys:
+            stats[key] = int(stats[key])
     return out
 
 
-def _reference_chunk(table, o, d, lane_start, seed_word, max_bounces, stats):
+def _reference_chunk(table, walk, o, d, lane_start, seed_word, max_bounces, stats):
     device = o.device
     rays = o.shape[0]
     n = table.centers.shape[0]
@@ -280,8 +497,19 @@ def _reference_chunk(table, o, d, lane_start, seed_word, max_bounces, stats):
         denom = torch.where(torch.abs(d_y) < 1e-8, 1e-8, d_y)
         t_plane = -o_y / denom
         t_plane = torch.where((t_plane > EPS) & (torch.abs(d_y) >= 1e-8), t_plane, INF)
-        is_plane = (t_plane < t_sphere).to(torch.float32)
-        t = torch.minimum(t_sphere, t_plane)
+        if walk is None:
+            is_plane = (t_plane < t_sphere).to(torch.float32)
+            t = torch.minimum(t_sphere, t_plane)
+        else:
+            # -- mesh instances, seeded with the sphere/plane hit; dead
+            # lanes carry -INF and never walk --------------------------------
+            t_sp = torch.minimum(t_sphere, t_plane)
+            seed_t = torch.where(alive > 0.5, t_sp, -INF)[:, 0]
+            t_mesh, mesh_normal, mesh_albedo = walk.nearest(o, d, seed_t, stats)
+            t_mesh = t_mesh[:, None]
+            is_plane = ((t_plane < t_sphere) & (t_mesh >= t_sp)).to(torch.float32)
+            is_mesh = t_mesh < t_sp
+            t = torch.minimum(t_sp, t_mesh)
         hit = (t < INF).to(torch.float32)
 
         # -- sky on escape ------------------------------------------------
@@ -293,8 +521,8 @@ def _reference_chunk(table, o, d, lane_start, seed_word, max_bounces, stats):
         radiance = radiance + throughput * sky * (alive * (1.0 - hit))
 
         if stats is not None:
-            stats["alive_lane_bounces"] += int(alive.sum())
-            stats["hit_lane_bounces"] += int((alive * hit).sum())
+            stats["alive_lane_bounces"] += alive.sum(dtype=torch.int64)
+            stats["hit_lane_bounces"] += (alive * hit).sum(dtype=torch.int64)
         alive = alive * hit
         p = fma(d, t, o)
 
@@ -310,6 +538,11 @@ def _reference_chunk(table, o, d, lane_start, seed_word, max_bounces, stats):
         checker_rgb = torch.where(checker == 0, table.plane_albedo_a, table.plane_albedo_b)
         albedo = is_plane * checker_rgb + (1.0 - is_plane) * table.albedo[idx]
         emission = (1.0 - is_plane) * table.emission[idx]
+        if walk is not None:
+            # The reference's 0/1-weighted blends select exactly one term.
+            normal = torch.where(is_mesh, mesh_normal, normal)
+            albedo = torch.where(is_mesh, mesh_albedo, albedo)
+            emission = torch.where(is_mesh, 0.0, emission)
         radiance = radiance + throughput * emission * alive
 
         # -- sun NEE: one any-hit shadow test ------------------------------
@@ -327,12 +560,18 @@ def _reference_chunk(table, o, d, lane_start, seed_word, max_bounces, stats):
         cos_sun = torch.clamp_min(dot3(normal, sun)[:, None], 0.0)
         if stats is not None:
             tested = (alive > 0.5) & (cos_sun > 0.0)
+            # Pad slots never occlude: an unoccluded ray tests the real ones.
             first = torch.where(
                 occluders.any(dim=1, keepdim=True),
                 occluders.to(torch.int8).argmax(dim=1, keepdim=True) + 1,
-                n,
+                stats["spheres"],
             )
-            stats["shadow_sphere_tests"] += int(first[tested].sum())
+            stats["shadow_sphere_tests"] += (first * tested).sum()
+        if walk is not None:
+            # Lanes whose result cannot matter (sphere-shadowed, dead, sun
+            # below the surface) do not walk the mesh.
+            blocked = (shadowed > 0.0) | (alive <= 0.5) | (cos_sun <= 0.0)
+            shadowed = walk.occluded(shadow_o, blocked[:, 0], stats)[:, None].to(torch.float32)
         direct = albedo * table.sun_color * (cos_sun * (1.0 - shadowed) * alive) * INV_PI
         radiance = fma(throughput, direct, radiance)
 
@@ -366,3 +605,217 @@ def _reference_chunk(table, o, d, lane_start, seed_word, max_bounces, stats):
         o = torch.where(live, new_o, o)
         d = torch.where(live, new_d, d)
     return radiance
+
+
+def _winv(v: torch.Tensor) -> torch.Tensor:
+    """1 / v with |v| < 1e-12 pushed to +-1e-12 (sign of v; +0 -> +)."""
+    small = torch.abs(v) < 1e-12
+    return 1.0 / torch.where(small, torch.where(v < 0, -1e-12, 1e-12), v)
+
+
+def _slab(lo, hi, o, inv, limit) -> torch.Tensor:
+    """Per-ray AABB test: the box is entered before ``limit`` and not
+    behind the origin. ``o`` [n, 3]; ``inv`` [n, 3] or [3]; ``limit`` [n]
+    or a float."""
+    t_lo = (lo - o) * inv
+    t_hi = (hi - o) * inv
+    near = torch.minimum(t_lo, t_hi)
+    far = torch.maximum(t_lo, t_hi)
+    tnear = torch.maximum(torch.maximum(near[:, 0], near[:, 1]), near[:, 2])
+    tfar = torch.minimum(torch.minimum(far[:, 0], far[:, 1]), far[:, 2])
+    return (tfar >= torch.clamp_min(tnear, 0.0)) & (tnear < limit)
+
+
+def _sum3(a0, b0, a1, b1, a2, b2):
+    """a0*b0 + a1*b1 + a2*b2 written out, as XLA rounds it:
+    fma(a2, b2, fma(a0, b0, a1 * b1))."""
+    return fma(a2, b2, fma(a0, b0, a1 * b1))
+
+
+def _to_object(row: torch.Tensor, points: torch.Tensor, *, shift: bool) -> torch.Tensor:
+    """x' = R^T (x - t) / s of [n, 3] points (``shift``) or directions,
+    for one instance-table ``row``."""
+    if shift:
+        points = points - row[9:12]
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    return torch.stack(
+        [_sum3(x, row[0 + j], y, row[3 + j], z, row[6 + j]) for j in range(3)], dim=1
+    ) * row[12]
+
+
+class _MeshWalk(NamedTuple):
+    """The plain version's mesh geometry: the device tables plus the
+    tree's links on the host (canonical DFS preorder)."""
+
+    table: torch.Tensor  # [K, 22] (instance_table)
+    v0: torch.Tensor
+    e1: torch.Tensor
+    e2: torch.Tensor
+    normal: torch.Tensor
+    bounds_min: torch.Tensor
+    bounds_max: torch.Tensor
+    first: list[int]
+    count: list[int]
+    children: list[list[int]]
+    sun: torch.Tensor  # [3] world sun direction
+    sun_object: torch.Tensor  # [K, 3]: the sun direction in object space
+
+    @classmethod
+    def build(cls, mesh: MeshSet, sun: torch.Tensor) -> "_MeshWalk":
+        bvh = mesh.bvh
+        skip = bvh.skip.tolist()
+        count = bvh.count.tolist()
+        children: list[list[int]] = [[] for _ in skip]
+        for node, node_skip in enumerate(skip):
+            if count[node] == 0:  # inner: children run from node+1 to skip
+                child = node + 1
+                while child < node_skip:
+                    children[node].append(child)
+                    child = skip[child]
+        table = instance_table(mesh)
+        return cls(
+            table=table, v0=bvh.v0, e1=bvh.e1, e2=bvh.e2, normal=bvh.normal,
+            bounds_min=bvh.bounds_min, bounds_max=bvh.bounds_max,
+            first=bvh.first.tolist(), count=count, children=children, sun=sun,
+            sun_object=torch.cat([_to_object(row, sun[None, :], shift=False) for row in table]),
+        )
+
+    def _walk(self, o, inv, best_t, on_leaf, stats):
+        """Sweep the nodes in preorder with the rays that reach each one.
+        ``o`` [n, 3] and ``inv`` [n, 3] or [3] are in object space;
+        ``best_t`` [n] is read at each node (the caller's leaves update it
+        in place, or set it to -INF to stop a ray). ``on_leaf(node,
+        positions)`` tests a leaf."""
+        reach = {0: torch.arange(o.shape[0], device=o.device)}
+        for node in range(len(self.count)):
+            pos = reach.pop(node, None)
+            if pos is None or pos.numel() == 0:
+                continue
+            pos = pos[best_t[pos] > -INF]  # drop rays whose walk has ended
+            if stats is not None:
+                stats["node_tests"] += pos.numel()
+            inv_pos = inv if inv.ndim == 1 else inv[pos]
+            passed = _slab(
+                self.bounds_min[node], self.bounds_max[node], o[pos], inv_pos, best_t[pos]
+            )
+            pos = pos[passed]
+            if self.count[node] > 0:
+                if pos.numel():
+                    on_leaf(node, pos)
+            else:
+                for child in self.children[node]:
+                    reach[child] = pos
+
+    def _leaf(self, node, o, d):
+        """Moller-Trumbore of ``o``/``d`` [n, 3] against the leaf's real
+        rows: (hit [n, L], t [n, L]), rounded as XLA rounds the
+        reference's expressions."""
+        rows = slice(self.first[node], self.first[node] + self.count[node])
+        v0, e1, e2 = self.v0[rows], self.e1[rows], self.e2[rows]
+        ox, oy, oz = (o[:, i:i + 1] for i in range(3))
+        dx, dy, dz = (d[..., i:i + 1] for i in range(3))
+        v0x, v0y, v0z = (v0[:, i] for i in range(3))
+        e1x, e1y, e1z = (e1[:, i] for i in range(3))
+        e2x, e2y, e2z = (e2[:, i] for i in range(3))
+        pvx = fma(dy, e2z, -(dz * e2y))
+        pvy = fma(dz, e2x, -(dx * e2z))
+        pvz = fma(dx, e2y, -(dy * e2x))
+        det = _sum3(e1x, pvx, e1y, pvy, e1z, pvz)
+        inv_det = 1.0 / torch.where(torch.abs(det) < _DET_EPS, _DET_EPS, det)
+        tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
+        u = _sum3(tvx, pvx, tvy, pvy, tvz, pvz) * inv_det
+        qvx = fma(tvy, e1z, -(tvz * e1y))
+        qvy = fma(tvz, e1x, -(tvx * e1z))
+        qvz = fma(tvx, e1y, -(tvy * e1x))
+        v = _sum3(dx, qvx, dy, qvy, dz, qvz) * inv_det
+        t = _sum3(e2x, qvx, e2y, qvy, e2z, qvz) * inv_det
+        hit = (torch.abs(det) > _DET_EPS) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > EPS)
+        return hit, t
+
+    def nearest(self, o, d, seed_t, stats):
+        """Nearest mesh hit over all instances for world rays ``o``/``d``
+        [R, 3], seeded with ``seed_t`` [R]: (t [R] (== seed_t on a miss),
+        world normal facing the ray [R, 3], albedo [R, 3])."""
+        rays = o.shape[0]
+        best_t = seed_t.clone()
+        win_k = torch.full((rays,), -1, dtype=torch.int64, device=o.device)
+        win_row = torch.zeros((rays,), dtype=torch.int64, device=o.device)
+        inv = _winv(d)
+        for k in range(self.table.shape[0]):
+            row = self.table[k]
+            if stats is not None:
+                stats["world_aabb_tests"] += (seed_t > -INF).sum()
+            idx = _slab(row[13:16], row[16:19], o, inv, best_t).nonzero()[:, 0]
+            if idx.numel() == 0:
+                continue
+            if stats is not None:
+                stats["instance_walks"] += idx.numel()
+            lo = _to_object(row, o[idx], shift=True)
+            ld = _to_object(row, d[idx], shift=False)
+            local_t = best_t[idx]
+
+            def on_leaf(node, pos, k=k, lo=lo, ld=ld, idx=idx, local_t=local_t):
+                hit, t = self._leaf(node, lo[pos], ld[pos])
+                if stats is not None:
+                    stats["triangle_tests"] += hit.numel()
+                t = torch.where(hit, t, INF)
+                t_leaf = t.min(dim=1).values
+                rows = torch.arange(t.shape[1], device=t.device)
+                local = torch.where(t == t_leaf[:, None], rows, t.shape[1]).min(dim=1).values
+                closer = t_leaf < local_t[pos]
+                hit_pos = pos[closer]
+                local_t[hit_pos] = t_leaf[closer]
+                best_t[idx[hit_pos]] = t_leaf[closer]
+                win_k[idx[hit_pos]] = k
+                win_row[idx[hit_pos]] = self.first[node] + local[closer]
+
+            self._walk(lo, _winv(ld), local_t, on_leaf, stats)
+
+        hit = win_k >= 0
+        k_hit = win_k.clamp_min(0)
+        rot = self.table[k_hit, 0:9]
+        n_obj = self.normal[win_row]
+        world = torch.stack(
+            [_sum3(rot[:, 3 * i], n_obj[:, 0], rot[:, 3 * i + 1], n_obj[:, 1],
+                   rot[:, 3 * i + 2], n_obj[:, 2]) for i in range(3)],
+            dim=1,
+        )
+        world = torch.where(hit[:, None], world, 0.0)
+        albedo = torch.where(hit[:, None], self.table[k_hit, 19:22], 0.0)
+        facing = _sum3(world[:, 0], d[:, 0], world[:, 1], d[:, 1], world[:, 2], d[:, 2]) < 0.0
+        world = world * torch.where(facing, 1.0, -1.0)[:, None]
+        return best_t, world, albedo
+
+    def occluded(self, so, blocked, stats):
+        """Any-hit toward the sun from shadow origins ``so`` [R, 3];
+        ``blocked`` [R] lanes come back True without walking. A ray stops
+        at its first occluder."""
+        occluded = blocked.clone()
+        sun_inv = _winv(self.sun)
+        for k in range(self.table.shape[0]):
+            idx = (~occluded).nonzero()[:, 0]
+            if idx.numel() == 0:
+                break
+            if stats is not None:
+                stats["world_aabb_tests"] += idx.numel()
+            row = self.table[k]
+            idx = idx[_slab(row[13:16], row[16:19], so[idx], sun_inv, INF)]
+            if idx.numel() == 0:
+                continue
+            if stats is not None:
+                stats["instance_walks"] += idx.numel()
+            lo = _to_object(row, so[idx], shift=True)
+            ld = self.sun_object[k]
+            limit = torch.full((idx.numel(),), INF, device=so.device)
+
+            def on_leaf(node, pos, lo=lo, ld=ld, limit=limit):
+                hit, _ = self._leaf(node, lo[pos], ld)
+                any_hit = hit.any(dim=1)
+                if stats is not None:
+                    first = torch.where(any_hit, hit.to(torch.int8).argmax(dim=1) + 1, hit.shape[1])
+                    stats["triangle_tests"] += first.sum()
+                limit[pos[any_hit]] = -INF  # found: this ray's walk ends
+
+            self._walk(lo, _winv(ld), limit, on_leaf, stats)
+            occluded[idx[limit == -INF]] = True
+        return occluded

@@ -1,0 +1,456 @@
+"""Triangle meshes with a threaded BVH, and their rigid instances.
+
+Port of the host side of ``tpu_render_cluster/render/mesh.py``: the box and
+icosphere generators, the BLAS build (median or binned-SAH splits, the wide
+collapse, threaded skip links and the eight octant re-threadings), the
+per-process build memo, and the instance transforms a mesh scene animates.
+The build is numpy, arithmetic for arithmetic the reference's, so its
+tables equal the reference's array for array; the result lands as torch
+tensors on the render device.
+
+Layout (the traversal contract every kernel reads):
+
+- triangles are stored leaf-contiguous in ``LEAF_SIZE``-row slots, real
+  triangles first, degenerate all-zero rows after;
+- nodes are in DFS preorder; ``skip[i]`` is the next node outside node
+  ``i``'s subtree, so a walk is one moving index: slab hit on an inner node
+  -> ``i + 1``, leaf or miss -> ``skip[i]``;
+- ``first`` / ``count`` give a leaf's slot and its real triangle count
+  (0 for inner nodes).
+
+Left out of this slice: the TLAS topology and the quantized node tables
+(``mesh.py:928-1222`` of the reference), which change no per-ray result.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+LEAF_SIZE = 16
+SAH_BINS = 16
+_F32 = torch.float32
+
+
+class OctantTables(NamedTuple):
+    """The same tree re-threaded eight times ([8N] rows, octant ``o`` at
+    rows ``[o*N, (o+1)*N)``), children ordered near-first along each
+    octant's sign vector. Skip links are local (0..N); leaf slots are
+    shared with the canonical order."""
+
+    bounds_min: torch.Tensor  # [8N, 3]
+    bounds_max: torch.Tensor  # [8N, 3]
+    skip: torch.Tensor  # [8N] int32
+    first: torch.Tensor  # [8N] int32
+    count: torch.Tensor  # [8N] int32
+
+
+class MeshBVH(NamedTuple):
+    """Object-space triangle mesh + threaded BVH (``octant`` is None on
+    median builds)."""
+
+    v0: torch.Tensor  # [T, 3]
+    e1: torch.Tensor  # [T, 3]  (v1 - v0)
+    e2: torch.Tensor  # [T, 3]  (v2 - v0)
+    normal: torch.Tensor  # [T, 3] unit geometric normals
+    bounds_min: torch.Tensor  # [N, 3]
+    bounds_max: torch.Tensor  # [N, 3]
+    skip: torch.Tensor  # [N] int32
+    first: torch.Tensor  # [N] int32
+    count: torch.Tensor  # [N] int32
+    octant: OctantTables | None = None
+
+
+class MeshInstances(NamedTuple):
+    """K similarity-transformed instances of one object-space mesh:
+    ``x_world = scale * rotation @ x_obj + translation``."""
+
+    rotation: torch.Tensor  # [K, 3, 3]
+    translation: torch.Tensor  # [K, 3]
+    albedo: torch.Tensor  # [K, 3]
+    scale: torch.Tensor  # [K]
+
+
+class MeshSet(NamedTuple):
+    """A mesh-backed scene's geometry: one shared BVH + its instances."""
+
+    bvh: MeshBVH
+    instances: MeshInstances
+
+
+# ---------------------------------------------------------------------------
+# Procedural meshes
+
+
+def make_box() -> tuple[np.ndarray, np.ndarray]:
+    """Unit cube centered at the origin: 8 vertices, 12 triangles."""
+    vertices = np.array(
+        [
+            [-0.5, -0.5, -0.5], [0.5, -0.5, -0.5],
+            [0.5, 0.5, -0.5], [-0.5, 0.5, -0.5],
+            [-0.5, -0.5, 0.5], [0.5, -0.5, 0.5],
+            [0.5, 0.5, 0.5], [-0.5, 0.5, 0.5],
+        ],
+        np.float32,
+    )
+    faces = np.array(
+        [
+            [0, 2, 1], [0, 3, 2],  # -z
+            [4, 5, 6], [4, 6, 7],  # +z
+            [0, 1, 5], [0, 5, 4],  # -y
+            [3, 6, 2], [3, 7, 6],  # +y
+            [0, 7, 3], [0, 4, 7],  # -x
+            [1, 2, 6], [1, 6, 5],  # +x
+        ],
+        np.int32,
+    )
+    return vertices, faces
+
+
+def make_icosphere(subdivisions: int = 2) -> tuple[np.ndarray, np.ndarray]:
+    """Unit icosphere (radius 0.5) via icosahedron midpoint subdivision."""
+    phi = (1.0 + np.sqrt(5.0)) / 2.0
+    raw = np.array(
+        [
+            [-1, phi, 0], [1, phi, 0], [-1, -phi, 0], [1, -phi, 0],
+            [0, -1, phi], [0, 1, phi], [0, -1, -phi], [0, 1, -phi],
+            [phi, 0, -1], [phi, 0, 1], [-phi, 0, -1], [-phi, 0, 1],
+        ],
+        np.float32,
+    )
+    vertices = raw / np.linalg.norm(raw, axis=1, keepdims=True)
+    faces = np.array(
+        [
+            [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+            [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+            [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+            [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+        ],
+        np.int32,
+    )
+    for _ in range(subdivisions):
+        midpoint_cache: dict[tuple[int, int], int] = {}
+        vertex_list = list(vertices)
+        new_faces = []
+
+        def midpoint(a: int, b: int) -> int:
+            key = (min(a, b), max(a, b))
+            if key not in midpoint_cache:
+                m = vertex_list[a] + vertex_list[b]
+                m = m / np.linalg.norm(m)
+                midpoint_cache[key] = len(vertex_list)
+                vertex_list.append(m.astype(np.float32))
+            return midpoint_cache[key]
+
+        for f in faces:
+            a, b, c = int(f[0]), int(f[1]), int(f[2])
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        vertices = np.stack(vertex_list)
+        faces = np.array(new_faces, np.int32)
+    return (vertices * 0.5).astype(np.float32), faces
+
+
+# ---------------------------------------------------------------------------
+# Host-side BVH build (numpy, once per mesh)
+
+
+def _half_area(lo: np.ndarray, hi: np.ndarray) -> float:
+    """Half surface area of an AABB: the SAH's relative cost weight."""
+    e = np.maximum(hi - lo, 0.0)
+    return float(e[0] * e[1] + e[1] * e[2] + e[2] * e[0])
+
+
+def _sah_partition(
+    tri: np.ndarray, centroids: np.ndarray, indices: np.ndarray
+) -> tuple[np.ndarray, np.ndarray] | None:
+    """Binned-SAH split of ``indices``: minimize area_L*n_L + area_R*n_R
+    over SAH_BINS centroid bins on each axis. None when no axis admits a
+    non-degenerate split (the caller then splits at the median)."""
+    c = centroids[indices]
+    pts = tri[indices]
+    best = None  # (cost, axis, threshold bin, bin ids)
+    for axis in range(3):
+        lo = float(c[:, axis].min())
+        hi = float(c[:, axis].max())
+        if hi - lo < 1e-12:
+            continue
+        bins = np.clip(
+            ((c[:, axis] - lo) / (hi - lo) * SAH_BINS).astype(np.int64),
+            0, SAH_BINS - 1,
+        )
+        counts = np.bincount(bins, minlength=SAH_BINS)
+        bin_lo = np.full((SAH_BINS, 3), np.inf)
+        bin_hi = np.full((SAH_BINS, 3), -np.inf)
+        for b in range(SAH_BINS):
+            member = bins == b
+            if member.any():
+                p = pts[member].reshape(-1, 3)
+                bin_lo[b] = p.min(axis=0)
+                bin_hi[b] = p.max(axis=0)
+        # Prefix/suffix sweep: split "after bin b" for b in [0, SAH_BINS-2].
+        lo_acc, hi_acc = np.full(3, np.inf), np.full(3, -np.inf)
+        left_area = np.zeros(SAH_BINS)
+        left_count = np.cumsum(counts)
+        for b in range(SAH_BINS):
+            lo_acc = np.minimum(lo_acc, bin_lo[b])
+            hi_acc = np.maximum(hi_acc, bin_hi[b])
+            left_area[b] = _half_area(lo_acc, hi_acc)
+        lo_acc, hi_acc = np.full(3, np.inf), np.full(3, -np.inf)
+        right_area = np.zeros(SAH_BINS)
+        for b in range(SAH_BINS - 1, 0, -1):
+            lo_acc = np.minimum(lo_acc, bin_lo[b])
+            hi_acc = np.maximum(hi_acc, bin_hi[b])
+            right_area[b - 1] = _half_area(lo_acc, hi_acc)
+        right_count = left_count[-1] - left_count
+        for b in range(SAH_BINS - 1):
+            if left_count[b] == 0 or right_count[b] == 0:
+                continue
+            cost = left_area[b] * left_count[b] + right_area[b] * right_count[b]
+            if best is None or cost < best[0]:
+                best = (cost, axis, b, bins)
+    if best is None:
+        return None
+    _, axis, threshold, bins = best
+    return indices[bins <= threshold], indices[bins > threshold]
+
+
+def build_bvh(
+    vertices: np.ndarray,
+    faces: np.ndarray,
+    builder: str = "sah",
+    wide: int = 4,
+    device: str | torch.device = "cpu",
+) -> MeshBVH:
+    """Host-side BLAS build, threaded for stackless traversal.
+
+    ``builder`` is ``median`` (spatial median over centroids) or ``sah``
+    (binned surface-area heuristic; also emits the octant tables).
+    ``wide`` > 1 collapses the binary tree into an N-ary one by pulling
+    grandchildren up, largest-area inner child first. Both change only the
+    arrays' contents, never the traversal contract.
+    """
+    wide = max(1, min(int(wide), 8))
+    if builder not in ("median", "sah"):
+        raise ValueError(f"Unknown BVH builder: {builder!r}")
+    tri = vertices[faces]  # [T, 3, 3]
+    centroids = tri.mean(axis=1)
+    nodes: list[dict] = []
+
+    def emit(indices: np.ndarray) -> int:
+        node_index = len(nodes)
+        pts = tri[indices].reshape(-1, 3)
+        node = {"min": pts.min(axis=0), "max": pts.max(axis=0),
+                "first": -1, "count": 0, "children": None}
+        nodes.append(node)
+        if len(indices) <= LEAF_SIZE:
+            node["first"] = indices  # flattened below
+            node["count"] = len(indices)
+            return node_index
+        part = _sah_partition(tri, centroids, indices) if builder == "sah" else None
+        if part is None:
+            extent = centroids[indices].max(axis=0) - centroids[indices].min(axis=0)
+            axis = int(np.argmax(extent))
+            mid = len(indices) // 2
+            ordered = indices[np.argsort(centroids[indices, axis], kind="stable")]
+            part = (ordered[:mid], ordered[mid:])
+        left = emit(part[0])
+        right = emit(part[1])
+        node["children"] = [left, right]
+        return node_index
+
+    emit(np.arange(len(faces)))
+
+    if wide > 1:
+        def widen(i: int) -> None:
+            node = nodes[i]
+            if node["children"] is None:
+                return
+            children = list(node["children"])
+            while len(children) < wide:
+                inner = [c for c in children if nodes[c]["children"] is not None]
+                if not inner:
+                    break
+                pick = max(inner, key=lambda c: _half_area(nodes[c]["min"], nodes[c]["max"]))
+                at = children.index(pick)
+                children[at:at + 1] = nodes[pick]["children"]
+            node["children"] = children
+            for c in children:
+                widen(c)
+
+        widen(0)
+        remap: list[dict] = []
+
+        def reindex(i: int) -> int:  # DFS preorder of the reachable nodes
+            node = nodes[i]
+            new_index = len(remap)
+            remap.append(node)
+            if node["children"] is not None:
+                node["children"] = [reindex(c) for c in node["children"]]
+            return new_index
+
+        reindex(0)
+        nodes = remap
+
+    # Leaves into aligned LEAF_SIZE-row slots (-1 = degenerate pad row).
+    tri_order: list[int] = []
+    first = np.zeros(len(nodes), np.int32)
+    count = np.zeros(len(nodes), np.int32)
+    for i, node in enumerate(nodes):
+        if node["children"] is None:
+            first[i] = len(tri_order)
+            count[i] = node["count"]
+            members = [int(t) for t in node["first"]]
+            tri_order.extend(members + [-1] * (LEAF_SIZE - len(members)))
+
+    subtree = np.ones(len(nodes), np.int32)
+
+    def size(i: int) -> int:
+        node = nodes[i]
+        if node["children"] is not None:
+            subtree[i] = 1 + sum(size(c) for c in node["children"])
+        return subtree[i]
+
+    size(0)
+    skip = np.array([i + subtree[i] for i in range(len(nodes))], np.int32)
+
+    octant = None
+    if builder == "sah":
+        centers = [0.5 * (nd["min"] + nd["max"]) for nd in nodes]
+        ob_min, ob_max, o_skip, o_first, o_count = [], [], [], [], []
+        for code in range(8):
+            sgn = np.array([1.0 if code & (1 << a) else -1.0 for a in range(3)])
+            order: list[int] = []
+
+            def emit_octant(i: int) -> None:
+                order.append(i)
+                children = nodes[i]["children"]
+                if children is None:
+                    return
+                for c in sorted(children, key=lambda c: float(centers[c] @ sgn)):
+                    emit_octant(c)
+
+            emit_octant(0)
+            ob_min.append(np.stack([nodes[i]["min"] for i in order]))
+            ob_max.append(np.stack([nodes[i]["max"] for i in order]))
+            o_skip.append(np.array([p + subtree[i] for p, i in enumerate(order)], np.int32))
+            o_first.append(first[order])
+            o_count.append(count[order])
+        octant = OctantTables(
+            bounds_min=_tensor(np.concatenate(ob_min).astype(np.float32), device),
+            bounds_max=_tensor(np.concatenate(ob_max).astype(np.float32), device),
+            skip=_tensor(np.concatenate(o_skip), device),
+            first=_tensor(np.concatenate(o_first), device),
+            count=_tensor(np.concatenate(o_count), device),
+        )
+
+    order_array = np.array(tri_order, np.int64)
+    real = order_array >= 0
+    reordered = np.zeros((len(order_array), 3, 3), np.float32)
+    reordered[real] = tri[order_array[real]]  # pad rows stay all-zero
+    v0 = reordered[:, 0]
+    e1 = reordered[:, 1] - reordered[:, 0]
+    e2 = reordered[:, 2] - reordered[:, 0]
+    n = np.cross(e1, e2)
+    norm = np.linalg.norm(n, axis=1, keepdims=True)
+    n = np.where(
+        norm > 1e-12, n / np.maximum(norm, 1e-12), np.array([[0.0, 1.0, 0.0]], np.float32)
+    )
+    return MeshBVH(
+        v0=_tensor(v0, device),
+        e1=_tensor(e1, device),
+        e2=_tensor(e2, device),
+        normal=_tensor(n.astype(np.float32), device),
+        bounds_min=_tensor(np.stack([nd["min"] for nd in nodes]), device),
+        bounds_max=_tensor(np.stack([nd["max"] for nd in nodes]), device),
+        skip=_tensor(skip, device),
+        first=_tensor(first, device),
+        count=_tensor(count, device),
+        octant=octant,
+    )
+
+
+def _tensor(array: np.ndarray, device) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(array), device=device)
+
+
+# Process-wide build memo, keyed by every parameter that shapes the result.
+_geometry_cache: dict[tuple, MeshBVH] = {}
+
+
+def cached_mesh_bvh(
+    kind: str, builder: str = "sah", wide: int = 4, device: str | torch.device = "cpu"
+) -> MeshBVH:
+    """Memoized BLAS build of a procedural mesh, per (kind, builder, wide,
+    device)."""
+    wide = max(1, min(int(wide), 8))
+    device = torch.device(device)
+    key = (kind, builder, wide, device)
+    bvh = _geometry_cache.get(key)
+    if bvh is None:
+        if kind == "box":
+            geometry = make_box()
+        elif kind == "icosphere":
+            geometry = make_icosphere(2)
+        else:
+            raise ValueError(f"Unknown mesh kind: {kind!r}")
+        bvh = build_bvh(*geometry, builder=builder, wide=wide, device=device)
+        _geometry_cache[key] = bvh
+    return bvh
+
+
+def rotation_y(angle: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] rotation about +y for scalar or batched angles."""
+    c, s = torch.cos(angle), torch.sin(angle)
+    zero, one = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack(
+        [
+            torch.stack([c, zero, s], dim=-1),
+            torch.stack([zero, one, zero], dim=-1),
+            torch.stack([-s, zero, c], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def scene_mesh_set(
+    scene_name: str, frame, builder: str = "sah", wide: int = 4,
+    device: str | torch.device = "cpu",
+) -> MeshSet | None:
+    """The MeshSet of a scene on ``device`` (None for sphere-only scenes):
+    the cached BVH plus this frame's instance transforms."""
+    from tpu_render_cluster_torch.render.scene import build_mesh_instances, mesh_kind_for_scene
+
+    kind = mesh_kind_for_scene(scene_name)
+    if kind is None:
+        return None
+    return MeshSet(
+        bvh=cached_mesh_bvh(kind, builder, wide, device),
+        instances=build_mesh_instances(scene_name, frame, device),
+    )
+
+
+def mesh_from_arrays(
+    bvh_arrays: dict[str, np.ndarray], instance_arrays: dict[str, np.ndarray], device
+) -> MeshSet:
+    """A ``MeshSet`` from named arrays, e.g. a reference ``MeshBVH`` and
+    ``MeshInstances`` as numpy (``octant``, when present, as a dict of the
+    five octant arrays)."""
+
+    def as_tensor(value):
+        return torch.as_tensor(np.array(value), device=device)
+
+    octant = bvh_arrays.get("octant")
+    bvh = MeshBVH(
+        **{field: as_tensor(bvh_arrays[field]) for field in MeshBVH._fields[:-1]},
+        octant=None if octant is None else OctantTables(
+            **{field: as_tensor(octant[field]) for field in OctantTables._fields}
+        ),
+    )
+    instances = MeshInstances(
+        **{field: as_tensor(np.asarray(instance_arrays[field], np.float32))
+           for field in MeshInstances._fields}
+    )
+    return MeshSet(bvh=bvh, instances=instances)

@@ -1,11 +1,12 @@
-"""Procedural sphere scenes as structure-of-arrays tensors.
+"""Procedural scenes as structure-of-arrays tensors.
 
-Port of ``tpu_render_cluster/render/scene.py`` for the four sphere
-families (``04_very-simple``, ``01_simple-animation``, ``02_physics``,
-``03_physics-2``): a ground plane, a set of spheres padded with radius 0,
-a sun and a sky, each a closed-form function of the frame index. The
+Port of ``tpu_render_cluster/render/scene.py`` for every family: a ground
+plane, a set of spheres padded with radius 0, a sun and a sky, each a
+closed-form function of the frame index. The two mesh families
+(``02_physics-mesh``, ``03_physics-2-mesh``) add rigid instances of one
+shared mesh (``build_mesh_instances``; the BVH is in ``mesh.py``). The
 arithmetic follows the reference expression by expression in float32, so
-the arrays agree to rounding. The mesh families wait for the mesh slice.
+the arrays agree to rounding.
 """
 
 from __future__ import annotations
@@ -195,17 +196,65 @@ def build_scene(name: str, frame, device: str | torch.device = "cpu") -> Scene:
         spheres = _simple_animation(frame, device)
     elif name == "02_physics":
         spheres = _physics(frame, device, 48, 64, chaos=0.0)
+    elif name == "02_physics-mesh":
+        # A handful of spheres accompany the boxes of build_mesh_instances.
+        spheres = _physics(frame, device, 12, 16, chaos=0.0)
     elif name == "03_physics-2":
         spheres = _physics(frame, device, 96, 128, chaos=1.0)
-    elif name in MESH_SCENE_NAMES:
-        raise NotImplementedError(
-            f"Scene {name!r} is a mesh scene; mesh scenes arrive with the "
-            "mesh-scenes slice of the port (ROADMAP.md, slice 4)."
-        )
+    elif name == "03_physics-2-mesh":
+        spheres = _physics(frame, device, 16, 16, chaos=1.0)
     else:
         raise ValueError(f"Unknown scene: {name!r} (have {SCENE_NAMES})")
     centers, radii, albedo, emission = spheres
     return Scene(centers, radii, albedo, emission, **_default_lighting(device))
+
+
+def mesh_kind_for_scene(name: str) -> str | None:
+    """Which cached object-space BVH a mesh scene uses (None = no mesh)."""
+    if name == "02_physics-mesh":
+        return "box"
+    if name == "03_physics-2-mesh":
+        return "icosphere"
+    return None
+
+
+def build_mesh_instances(name: str, frame, device: str | torch.device = "cpu"):
+    """The mesh instances of a mesh scene's frame, else ``None``.
+
+    02_physics-mesh: 24 tumbling boxes dropped ballistically;
+    03_physics-2-mesh: 48 smaller icospheres with a chaotic spread. Only
+    the rigid transforms depend on the frame.
+    """
+    if name not in MESH_SCENE_NAMES:
+        return None
+    from tpu_render_cluster_torch.render.mesh import MeshInstances, rotation_y
+
+    t = _frame_tensor(frame, device) / _FPS
+    k = 48 if name == "03_physics-2-mesh" else 24
+    index = torch.arange(k, dtype=_F32, device=device)
+    u1 = torch.remainder(index * 0.7548776662, 1.0)
+    u2 = torch.remainder(index * 0.5698402909, 1.0)
+    u3 = torch.remainder(index * 0.3819660113, 1.0)
+    if name == "03_physics-2-mesh":
+        size = 0.45 + 0.35 * u3
+        x = (u1 - 0.5) * 9.0 + 0.5 * torch.sin(12.0 * u2)
+        z = (u2 - 0.5) * 9.0 + 0.5 * torch.cos(12.0 * u1)
+        h0 = 2.0 + 5.0 * u3
+        tau = torch.clamp_min(t - u1 * 2.0, 0.0)
+    else:
+        size = 0.6 + 0.5 * u3
+        x = (u1 - 0.5) * 7.0
+        z = (u2 - 0.5) * 7.0
+        h0 = 2.5 + 4.0 * u3
+        tau = torch.clamp_min(t - u1 * 1.5, 0.0)
+    y = _ballistic_height(tau, h0) + size * 0.5
+    rotation = rotation_y(tau * (0.6 + 2.0 * u2) + u1 * 6.28)
+    return MeshInstances(
+        rotation=rotation,
+        translation=torch.stack([x, y, z], dim=-1),
+        albedo=_grid_colors(k, device),
+        scale=size,
+    )
 
 
 def scene_from_arrays(arrays: dict[str, np.ndarray], device) -> Scene:

@@ -2,7 +2,10 @@
 
 Counterpart of ``tpu_render_cluster/worker/backends/tpu_raytrace.py`` for
 its whole-frame masked tier: each frame is one call of the cached frame
-renderer (primary rays, one megakernel launch, sample mean, tonemap). It
+renderer (primary rays, one megakernel launch, sample mean, tonemap), for
+sphere scenes and for mesh scenes within the mesh megakernel's bound. A
+deeper mesh job (``03_physics-2-mesh``) raises ``NotImplementedError`` when
+its renderer is built, in ``warm`` or before its first frame renders. It
 emits the same 7-phase ``FrameRenderTime``:
 
 - started_process/finished_loading: fetching (first: building) the cached
@@ -36,10 +39,10 @@ from tpu_render_cluster_torch.utils.paths import parse_with_base_directory_prefi
 from tpu_render_cluster_torch.worker.backends.base import RenderBackend
 
 _LATER_SLICES = {
-    "tile_size": "the tiles slice (ROADMAP.md, slice 2)",
-    "sharding": "the multi-GPU slice (ROADMAP.md, slice 7)",
-    "wavefront": "the wavefront slice (ROADMAP.md, slice 5)",
-    "raypool": "the ray-pool slice (ROADMAP.md, slice 6)",
+    "tile_size": "the tiles slice (ROADMAP.md, queue 1)",
+    "sharding": "the multi-GPU slice (ROADMAP.md, queue 1)",
+    "wavefront": "the wavefront slice (ROADMAP.md, queue 1)",
+    "raypool": "the ray-pool slice (ROADMAP.md, queue 1)",
 }
 
 
