@@ -5,31 +5,46 @@ CUDA toolkit):
 
     python3 chip_smoke.py
 
-Two main paths, one per kernel: whole frames of the sphere scene
-04_very-simple through ``trace_fused`` and of the mesh scene
-02_physics-mesh through ``trace_fused_mesh``. Phases, each of which raises
-(exit code 1) if its check fails:
+Four main paths, one per kernel, each through ``TorchRaytraceBackend``:
+whole frames of the sphere scene 04_very-simple through ``trace_fused``,
+of the mesh scene 02_physics-mesh through ``trace_fused_mesh``, of the deep
+mesh scene 03_physics-2-mesh through the wavefront driver (the backend's
+default tier for it) and ``mesh_bounce``, and two frames of 04_very-simple
+under ``wavefront="force"`` through ``sphere_bounce``. Phases, each of
+which raises (exit code 1) if its check fails:
 1. the card: name and power limit as nvidia-smi reports them;
 2. build every CUDA source of the port with nvcc (sm_90a), one nvcc per
    source, all at once, timed;
 3. each kernel against its plain PyTorch version on the card at 128x128,
-   4 spp, 1 and 4 bounces, at the tolerances of tests/test_torch_kernels.py
-   and tests/test_torch_kernels_mesh.py (the mesh kernel also on the deep
-   icosphere tree of 03_physics-2-mesh, called directly);
-4. each main path: the first 10 frames of a job file loaded through the
-   port's job model and rendered by TorchRaytraceBackend at 512x512, 8 spp,
-   4 bounces. The launch counts are zeroed just before each path and read
-   just after: its kernel must have launched once per frame and no plain
-   version run. Every PNG must decode with non-trivial content, and frame 1
-   must match the plain version's render of the same frame;
-5. timings: each path's per-frame phases and frames/s, a breakdown of one
-   frame, and each kernel's time (its wrapper's calls, CUDA events, the
+   4 spp: the megakernels at 1 and 4 bounces, at the tolerances of
+   tests/test_torch_kernels.py and tests/test_torch_kernels_mesh.py (the
+   mesh kernel also on the deep icosphere tree of 03_physics-2-mesh,
+   called directly); the per-bounce kernels on every launch of a wavefront
+   frame (bounce 0 with every lane alive and the lanes re-sorted, later
+   bounces with a sorted dead tail), all five outputs, at the tolerance of
+   tests/test_torch_mesh_bounce.py;
+4. each main path: the first frames of a job file loaded through the
+   port's job model and rendered by the backend at 512x512, 8 spp, 4
+   bounces. The launch counts are zeroed just before each path and read
+   just after: its kernel must have launched once per frame (a megakernel)
+   or once per bounce the wavefront driver launched, and nothing else
+   ran, no plain version either. Every PNG must decode with non-trivial
+   content. Frame 1 is checked further: a megakernel's against its plain
+   version's render; the deep path's against the masked deep loop ray for
+   ray and against the mesh megakernel's render, and each of its
+   launches against the plain per-bounce version on 65,536 of its rays;
+   the sphere wavefront's against the sphere megakernel and its frames;
+5. timings: each path's per-frame phases and frames/s and a breakdown of
+   one frame; each megakernel's time (its wrapper's calls, CUDA events, the
    median of 10 batches of 20) beside its bound, its plain version's time
-   and the host time of one wrapper call;
+   and the host time of one wrapper call; each per-bounce kernel's time at
+   every launch width of a frame, with the compaction of that bounce, and
+   the mesh megakernel on the same deep frame for comparison;
 6. under torch.profiler (reported, not checked: the numbers read "not
-   measured" where the profiler sees no device time): each kernel's own
-   device time apart from its wrapper's set-up kernels, and the card's
-   idle share over two frames of each main path.
+   measured" where the profiler sees no device time, or misses a launch of
+   the kernel after three tries): each kernel's own device time apart from
+   its wrapper's set-up work, and the card's idle share over two frames of
+   each main path (busy: the sum of the device's own events).
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -40,20 +55,25 @@ from __future__ import annotations
 
 import asyncio
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 REPO = Path(__file__).resolve().parent
 WIDTH, HEIGHT, SAMPLES, BOUNCES = 512, 512, 8, 4
+CHECK_SIDE, CHECK_SAMPLES = 128, 4  # phase 3's frames
+SUBSET = 65536  # rays of each launch held against the plain per-bounce version
 # Published H100 SXM peaks (dense): float32 outside the tensor cores, and
 # device memory bandwidth.
 FP32_PEAK_FLOPS = 67e12
 MEMORY_BYTES_PER_S = 3.35e12
-# Operations per unit of work of the megakernels, counted from their CUDA
+# Operations per unit of work of the kernels, counted from their CUDA
 # sources (an FMA counts 2): a nearest-hit sphere test (two 3-dots, the
 # quadratic, sqrt, two roots, selects: 26), a shadow-ray sphere test (one
 # 3-dot, the quadratic, sqrt, compares: 17), the shading of one hit (ray
@@ -70,27 +90,54 @@ OPS_SHADE_HIT = 200
 OPS_SLAB = 25
 OPS_INSTANCE_WALK = 48
 OPS_TRIANGLE = 54
+# Bytes per ray: a megakernel reads origin and direction and writes
+# radiance; a per-bounce kernel reads origin, direction, throughput, alive
+# (1 byte) and lane (4) and writes the contribution, origin, direction,
+# throughput and alive.
+MEGAKERNEL_RAY_BYTES = (3 + 3 + 3) * 4
+BOUNCE_RAY_BYTES = 3 * 12 + 1 + 4 + 4 * 12 + 1
 
-PATHS = {
-    # kernel -> (job file, scene)
-    "trace_fused": (
-        "blender-projects/04_very-simple/04_very-simple_demo_10f-1w.toml", "04_very-simple"
-    ),
-    "trace_fused_mesh": (
+SPHERE_JOB = "blender-projects/04_very-simple/04_very-simple_demo_10f-1w.toml"
+DEEP_JOB = "blender-projects/03_physics-2/03_physics-2-mesh_240f-8w_tpu-batch_tpu-raytrace.toml"
+
+
+class MainPath(NamedTuple):
+    kernel: str
+    job_file: str
+    scene: str
+    frames: int
+    wavefront: str | None  # the backend's option
+
+
+PATHS = [
+    MainPath("trace_fused", SPHERE_JOB, "04_very-simple", 10, None),
+    MainPath(
+        "trace_fused_mesh",
         "blender-projects/02_physics/02_physics-mesh_240f-4w_tpu-batch_tpu-raytrace.toml",
-        "02_physics-mesh",
+        "02_physics-mesh", 10, None,
     ),
-}
+    MainPath("mesh_bounce", DEEP_JOB, "03_physics-2-mesh", 10, None),
+    MainPath("sphere_bounce", SPHERE_JOB, "04_very-simple", 2, "force"),
+]
+MEGAKERNELS = ("trace_fused", "trace_fused_mesh")
 REPLACES = {
     "trace_fused": "tpu_render_cluster/render/pallas_kernels.py:901",
     "trace_fused_mesh": "tpu_render_cluster/render/pallas_kernels.py:3205",
+    "mesh_bounce": "tpu_render_cluster/render/pallas_kernels.py:3345",
+    "sphere_bounce": "tpu_render_cluster/render/pallas_kernels.py:1004",
 }
+BOUNCE_TOLERANCE = (
+    "rtol=atol=1e-4 per ray on contribution, origin, direction and throughput, alive exact; "
+    "all rays but max(1, round(0.001 R)) edge-tie rays"
+)
 TOLERANCE = {
     "trace_fused": "rtol=atol=1e-4 per ray; all rays at 1 bounce, >=99.9% at 4",
     "trace_fused_mesh": (
         "rtol=atol=1e-4 per ray; at 1 bounce all but max(1, round(0.001 R)) edge-tie rays, "
         ">=99.9% at 4"
     ),
+    "mesh_bounce": BOUNCE_TOLERANCE,
+    "sphere_bounce": BOUNCE_TOLERANCE,
 }
 
 
@@ -106,6 +153,26 @@ def agreement(got, expected) -> tuple[float, int, float]:
 
     close = torch.isclose(got, expected, rtol=1e-4, atol=1e-4).all(dim=1)
     return close.float().mean().item(), int((~close).sum()), (got - expected).abs().max().item()
+
+
+def bounce_agreement(got, expected) -> dict:
+    """Two ``BounceState``s of the same rays: the fraction of rays whose
+    four float outputs agree at rtol=atol=1e-4, the rays that do not, those
+    whose alive differs, the bit-equal fraction and the max abs error."""
+    import torch
+
+    close = torch.ones_like(got.alive)
+    equal = got.alive == expected.alive
+    err = 0.0
+    for have, want in zip(got[:4], expected[:4]):
+        close &= torch.isclose(have, want, rtol=1e-4, atol=1e-4).all(dim=1)
+        equal &= (have == want).all(dim=1)
+        err = max(err, (have - want).abs().max().item())
+    return {
+        "fraction": close.float().mean().item(), "bad": int((~close).sum()),
+        "alive_bad": int((got.alive != expected.alive).sum()),
+        "bit_equal": equal.float().mean().item(), "err": err,
+    }
 
 
 def cuda_ms(fn, repeats: int) -> float:
@@ -137,46 +204,74 @@ def host_ms(fn, repeats: int) -> float:
     return elapsed * 1e3 / repeats
 
 
-def device_time(fn, kernel_symbol: str) -> dict | None:
+def device_time(fn, kernel: str) -> dict | None:
     """One run of ``fn`` under torch.profiler (CUPTI): its wall ms, the
-    summed device ms of every kernel it ran, and that of the kernels whose
-    name holds ``kernel_symbol``. None where the profiler records no device
-    time (then these numbers are not measured)."""
+    summed device ms of every device operation it ran (kernels, copies,
+    fills: the device's own events; a PyTorch operator's events repeat the
+    device time of the kernels it launched and are left out), and that of
+    ``kernel``'s own launches (the events of its CUDA function
+    ``<kernel>_kernel``), with the launches the profile saw and those the
+    wrapper counted. None where the profiler records no device time (then
+    these numbers are not measured)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from tpu_render_cluster_torch.render import kernels
+
     torch.cuda.synchronize()
+    counted = kernels.counts[kernel]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+        # Idle margins inside the window: the profiler has dropped device
+        # events that lie next to its start or stop.
+        time.sleep(0.05)
         started = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - started) * 1e3
-    events = [e for e in trace.key_averages() if e.self_device_time_total > 0]
+        time.sleep(0.05)
+    events = [e for e in trace.events() if e.device_type == DeviceType.CUDA]
     if not events:
         return None
+    own = [e for e in events if re.search(rf"\b{kernel}_kernel\b", e.name)]
     return {
         "wall_ms": wall_ms,
-        "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
-        "kernel_ms": sum(e.self_device_time_total for e in events if kernel_symbol in e.key) / 1e3,
-        "kernels": sum(e.count for e in events),
+        "device_ms": sum(e.device_time_total for e in events) / 1e3,
+        "kernel_ms": sum(e.device_time_total for e in own) / 1e3,
+        "kernels": len(events),
+        "seen": len(own),
+        "launched": kernels.counts[kernel] - counted,
     }
 
 
-def profiled(fn, kernel_symbol: str, label: str) -> dict | None:
+def profiled(fn, kernel: str, label: str) -> dict | None:
     """``device_time`` that reports, and does not raise, when the
-    profiler cannot trace the card."""
-    try:
-        result = device_time(fn, kernel_symbol)
-    except Exception as error:  # noqa: BLE001 - the profiler is optional here
-        print(f"[6] {label}: profiler failed ({type(error).__name__}: {error}); not measured")
-        return None
-    if result is None:
-        print(f"[6] {label}: the profiler recorded no device time; not measured")
-    return result
+    profiler cannot trace the card, and that trusts a profile only where it
+    saw every launch of ``kernel`` that ``fn`` made: it profiles ``fn`` up
+    to three times, and else reports not measured."""
+    for _ in range(3):
+        try:
+            result = device_time(fn, kernel)
+        except Exception as error:  # noqa: BLE001 - the profiler is optional here
+            print(f"[6] {label}: profiler failed ({type(error).__name__}: {error}); not measured")
+            return None
+        if result is None:
+            print(f"[6] {label}: the profiler recorded no device time; not measured")
+            return None
+        if result["seen"] == result["launched"] > 0:
+            return result
+        print(
+            f"[6] {label}: the profile saw {result['seen']} of {result['launched']} "
+            f"{kernel} launches ({result['kernels']} device operations); profiling again"
+        )
+    print(f"[6] {label}: no profile saw every launch; not measured")
+    return None
 
 
 class Trace:
-    """One kernel's wrapper and plain version, bound to a scene's inputs."""
+    """One kernel's path trace and plain version, bound to a scene's inputs:
+    a megakernel's wrapper, or for a per-bounce kernel the wavefront driver
+    (``run``), the masked deep loop (``masked``) and one bounce."""
 
     def __init__(self, kernel: str, scene_name: str, frame: int, device):
         from tpu_render_cluster_torch.render import kernels
@@ -187,17 +282,31 @@ class Trace:
         self.kernel = kernel
         self.scene = build_scene(scene_name, frame, device)
         self.mesh = None
-        if kernel == "trace_fused_mesh":
+        if kernel in ("trace_fused_mesh", "mesh_bounce"):
             # Any mesh, also one past the dispatch bound (a direct call).
             self.mesh = scene_mesh_set(scene_name, frame, device=device)
 
-    def run(self, origins, directions, seed, max_bounces):
+    def run(self, origins, directions, seed, max_bounces, on_launch=None):
+        from tpu_render_cluster_torch.render import compaction
+
+        if self.kernel in ("sphere_bounce", "mesh_bounce"):
+            return compaction.trace_paths_wavefront(
+                self.scene, origins, directions, seed, max_bounces=max_bounces,
+                mesh=self.mesh, on_launch=on_launch,
+            )
         if self.mesh is None:
             return self.kernels.trace_paths_fused(
                 self.scene, origins, directions, seed, max_bounces=max_bounces
             )
         return self.kernels.trace_paths_fused_mesh(
             self.scene, self.mesh, origins, directions, seed, max_bounces=max_bounces
+        )
+
+    def masked(self, origins, directions, seed, max_bounces):
+        from tpu_render_cluster_torch.render import integrator
+
+        return integrator.trace_paths(
+            self.scene, origins, directions, seed, max_bounces=max_bounces, mesh=self.mesh
         )
 
     def plain(self, origins, directions, seed, max_bounces, stats=None):
@@ -210,10 +319,27 @@ class Trace:
             stats=stats,
         )
 
+    def bounce(self, state, live, seed, bounce, *, plain=False, stats=None):
+        """One launch of the per-bounce kernel (or its plain version) on a
+        wavefront launch's state."""
+        kernels = self.kernels
+        args = (*state, live, seed, bounce)
+        if self.mesh is None:
+            if plain:
+                return kernels.sphere_bounce_reference(
+                    self.scene, *args, total_bounces=BOUNCES, stats=stats
+                )
+            return kernels.sphere_bounce(self.scene, *args, total_bounces=BOUNCES)
+        if plain:
+            return kernels.mesh_bounce_reference(
+                self.scene, self.mesh, *args, total_bounces=BOUNCES, stats=stats
+            )
+        return kernels.mesh_bounce(self.scene, self.mesh, *args, total_bounces=BOUNCES)
+
 
 def kernel_vs_plain(kernel: str, scene_name: str, device) -> tuple[float, float]:
-    """Phase 3 for one kernel and scene: (lowest agreeing fraction, max abs
-    error) over 1 and 4 bounces at 128x128x4 spp."""
+    """Phase 3 for one megakernel and scene: (lowest agreeing fraction, max
+    abs error) over 1 and 4 bounces at CHECK_SIDE x CHECK_SIDE x CHECK_SAMPLES spp."""
     import torch
 
     from tpu_render_cluster_torch.render.camera import scene_camera
@@ -222,7 +348,8 @@ def kernel_vs_plain(kernel: str, scene_name: str, device) -> tuple[float, float]
     frame = 7 if kernel == "trace_fused" else 30
     trace = Trace(kernel, scene_name, frame, device)
     origins, directions, seed = frame_rays_and_seed(
-        scene_camera(scene_name, frame, device), frame, width=128, height=128, samples=4
+        scene_camera(scene_name, frame, device), frame,
+        width=CHECK_SIDE, height=CHECK_SIDE, samples=CHECK_SAMPLES,
     )
     agree_min, max_err = 1.0, 0.0
     for max_bounces in (1, 4):
@@ -232,7 +359,7 @@ def kernel_vs_plain(kernel: str, scene_name: str, device) -> tuple[float, float]
         fraction, bad, err = agreement(got, expected)
         bit_equal = (got == expected).all(dim=1).float().mean().item()
         print(
-            f"[3] {kernel} vs plain, {scene_name}, 128x128x4 spp, {max_bounces} bounce(s): "
+            f"[3] {kernel} vs plain, {scene_name}, {CHECK_SIDE}x{CHECK_SIDE}x{CHECK_SAMPLES} spp, {max_bounces} bounce(s): "
             f"{fraction:.6f} of rays within 1e-4 ({bad} not), {bit_equal:.6f} bit-equal, "
             f"max abs err {err:.3g}"
         )
@@ -249,96 +376,185 @@ def kernel_vs_plain(kernel: str, scene_name: str, device) -> tuple[float, float]
     return agree_min, max_err
 
 
-def drive_main_path(kernel: str, device) -> dict:
-    """Phase 4 for one path: the first 10 frames of its job through the
-    backend, with the launch counts zeroed just before and read just after."""
+def check_bounce(label: str, trace: Trace, launch, seed, rows=None, stats=None) -> dict:
+    """One wavefront launch through the per-bounce kernel and through its
+    plain version: on every ray, or the plain version on ``rows`` of the
+    launch only (the kernel's result for a ray does not depend on the other
+    rays). Raises past the edge-tie budget."""
+    import torch
+
+    got = trace.bounce(launch.state, launch.live, seed, launch.bounce)
+    state, live = launch.state, launch.live
+    if rows is not None:  # ascending, so the live rows stay in front
+        state = tuple(t[rows] for t in state)
+        live = int((rows < launch.live).sum())
+        got = type(got)(*(t[rows] for t in got))
+    out: list = []
+    plain_ms = cuda_ms(
+        lambda: out.append(trace.bounce(state, live, seed, launch.bounce, plain=True, stats=stats)), 1
+    )
+    expected = out[0]
+    result = {**bounce_agreement(got, expected), "plain_ms": plain_ms}
+    rays = state[0].shape[0]
+    budget = max(1, round(0.001 * rays))
+    print(
+        f"[{label}] {trace.kernel} vs plain, bounce {launch.bounce} (live {launch.live} of "
+        f"{launch.bucket}{'' if rows is None else f', {rays} rays drawn'}): "
+        f"{result['fraction']:.6f} of rays within 1e-4 ({result['bad']} not), "
+        f"{result['alive_bad']} alive differ, {result['bit_equal']:.6f} bit-equal, "
+        f"max abs err {result['err']:.3g}"
+    )
+    check(all(torch.isfinite(t).all().item() for t in got[:4]), f"{label}: non-finite state")
+    check(result["bad"] <= budget and result["alive_bad"] <= budget,
+          f"{trace.kernel} bounce {launch.bounce}: past the budget of {budget} rays")
+    check(not got.alive[live:].any().item(), f"{trace.kernel}: a lane past the live count lives")
+    return result
+
+
+def bounce_kernel_vs_plain(kernel: str, scene_name: str, device) -> tuple[float, float]:
+    """Phase 3 for a per-bounce kernel: every launch of a wavefront frame
+    of frame 30 at CHECK_SIDE x CHECK_SIDE x CHECK_SAMPLES spp, 4 bounces."""
+    from tpu_render_cluster_torch.render.camera import scene_camera
+    from tpu_render_cluster_torch.render.integrator import frame_rays_and_seed
+
+    trace = Trace(kernel, scene_name, 30, device)
+    origins, directions, seed = frame_rays_and_seed(
+        scene_camera(scene_name, 30, device), 30,
+        width=CHECK_SIDE, height=CHECK_SIDE, samples=CHECK_SAMPLES,
+    )
+    launches: list = []
+    trace.run(origins, directions, seed, BOUNCES, on_launch=launches.append)
+    check(len(launches) >= 2 and launches[-1].live < origins.shape[0],
+          f"{kernel} {scene_name}: no later bounce with a dead tail")
+    results = [check_bounce("3", trace, launch, seed) for launch in launches]
+    return min(r["fraction"] for r in results), max(r["err"] for r in results)
+
+
+def drive_main_path(path: MainPath, device) -> dict:
+    """Phase 4 for one path: its first frames through the backend, with the
+    launch counts zeroed just before and read just after."""
     import numpy as np
     import torch
     from PIL import Image
 
     from tpu_render_cluster_torch.jobs.models import BlenderJob
-    from tpu_render_cluster_torch.render import kernels
+    from tpu_render_cluster_torch.render import compaction, kernels
     from tpu_render_cluster_torch.render.scene import scene_for_job_name
     from tpu_render_cluster_torch.worker.backends.torch_raytrace import TorchRaytraceBackend
 
-    job_file, scene_name = PATHS[kernel]
-    job = BlenderJob.load_from_file(REPO / job_file)
-    check(scene_for_job_name(job.job_name) == scene_name, f"{job.job_name} is not {scene_name}")
-    frames = list(job.frame_indices())[:10]
-    check(len(frames) == 10, f"expected 10 frames of {job.job_name}, got {len(frames)}")
+    job = BlenderJob.load_from_file(REPO / path.job_file)
+    check(scene_for_job_name(job.job_name) == path.scene, f"{job.job_name} is not {path.scene}")
+    frames = list(job.frame_indices())[:path.frames]
+    check(len(frames) == path.frames, f"expected {path.frames} frames of {job.job_name}")
+    label = path.scene if path.wavefront is None else f"{path.scene} (wavefront={path.wavefront})"
+    wavefront = path.kernel not in MEGAKERNELS
+    log: list = []  # (bounce, live, bucket) of each wavefront launch
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as base:
         backend = TorchRaytraceBackend(
             width=WIDTH, height=HEIGHT, samples=SAMPLES, max_bounces=BOUNCES,
-            base_directory=base,
+            base_directory=base, wavefront=path.wavefront,
+            on_launch=lambda launch: log.append(tuple(launch[:3])),
         )
         check(backend.device.type == "cuda", f"backend chose {backend.device}")
+        check(compaction.wavefront_active(path.scene, mode=path.wavefront) == wavefront,
+              f"{label}: the backend does not pick the {path.kernel} tier")
         backend.warm(job.job_name)
         torch.cuda.synchronize()
         kernels.reset_counts()
+        log.clear()
         started = time.perf_counter()
         timings = [asyncio.run(backend.render_frame(job, f)) for f in frames]
         path_s = time.perf_counter() - started
         launches = dict(kernels.counts)
         print(f"[4] main path: {len(frames)} frames of {job.job_name} in {path_s:.4f} s; counts {launches}")
+        expected_launches = len(log) if wavefront else len(frames)
+        check(expected_launches >= len(frames), f"{label}: {len(log)} wavefront launches")
         for name, count in launches.items():
-            expected = len(frames) if name == kernel else 0
+            expected = expected_launches if name == path.kernel else 0
             check(count == expected, f"{job.job_name}: {name} ran {count} times, not {expected}")
+        if wavefront:
+            starts = [i for i, entry in enumerate(log) if entry[0] == 0] + [len(log)]
+            first_frame = log[:starts[1]]
+            print(
+                f"[4] {label}: the driver launched {len(log)} bounces over {len(frames)} frames "
+                f"(= the {path.kernel} launches); frame {frames[0]}'s (bounce, live, bucket): "
+                f"{first_frame}; live rays per bounce over the frames: "
+                + ", ".join(
+                    f"{b}: {statistics.mean(e[1] for e in log if e[0] == b):.1f}"
+                    for b in sorted({e[0] for e in log})
+                )
+            )
 
         outputs = sorted((Path(base) / "blender-projects").rglob("*.png"))
         check(len(outputs) == len(frames), f"{len(outputs)} PNGs for {len(frames)} frames")
-        for path in outputs:
-            pixels = np.array(Image.open(path))
-            check(pixels.shape == (HEIGHT, WIDTH, 3), f"{path.name}: {pixels.shape}")
-            check(pixels.astype(np.float32).std() > 5.0, f"{path.name} is flat")
-        first = torch.from_numpy(np.array(Image.open(outputs[0])))
+        images = []
+        for output in outputs:
+            pixels = np.array(Image.open(output))
+            check(pixels.shape == (HEIGHT, WIDTH, 3), f"{output.name}: {pixels.shape}")
+            check(pixels.astype(np.float32).std() > 5.0, f"{output.name} is flat")
+            images.append(torch.from_numpy(pixels))
 
         # Two frames again under the profiler, for the card's idle share.
         profiled_frames: list = []
-        frame_profile = profiled(
-            lambda: profiled_frames.extend(
-                asyncio.run(backend.render_frame(job, f)) for f in frames[:2]
-            ),
-            f"{kernel}_kernel", f"{scene_name} frames",
-        )
+
+        def two_frames():
+            profiled_frames[:] = [asyncio.run(backend.render_frame(job, f)) for f in frames[:2]]
+
+        frame_profile = profiled(two_frames, path.kernel, f"{label} frames")
         if frame_profile is not None:
             render_ms = sum(
                 (t.finished_rendering_at - t.started_rendering_at) * 1e3 for t in profiled_frames
             )
             print(
-                f"[6] {scene_name}, 2 frames under the profiler: wall {frame_profile['wall_ms']:.3f} "
+                f"[6] {label}, 2 frames under the profiler: wall {frame_profile['wall_ms']:.3f} "
                 f"ms, device busy {frame_profile['device_ms']:.3f} ms "
-                f"({frame_profile['kernels']} kernels; megakernel {frame_profile['kernel_ms']:.3f} "
+                f"({frame_profile['kernels']} device operations; {path.kernel} {frame_profile['kernel_ms']:.3f} "
                 f"ms); device idle {1 - frame_profile['device_ms'] / frame_profile['wall_ms']:.4f} "
                 f"of the frames, {1 - frame_profile['device_ms'] / render_ms:.4f} of their render "
                 f"phases ({render_ms:.3f} ms)"
             )
     return {
-        "scene": scene_name, "frames": frames, "timings": timings, "path_s": path_s,
-        "launches": launches[kernel], "first": first,
+        "path": path, "label": label, "frames": frames, "timings": timings, "path_s": path_s,
+        "launches": launches[path.kernel], "images": images,
     }
 
 
-def frame_vs_plain(kernel: str, run: dict, device) -> tuple[Trace, tuple, dict, float]:
-    """Frame 1 of a main path against the plain version's render of it.
-    Returns the frame's (trace, rays, work counters, the plain version's
-    ms on the card for this frame, its work counting included)."""
-    import torch
-
+def frame_rays(scene_name: str, frame: int, device):
     from tpu_render_cluster_torch.render.camera import scene_camera
-    from tpu_render_cluster_torch.render.integrator import frame_rays_and_seed, tonemap
+    from tpu_render_cluster_torch.render.integrator import frame_rays_and_seed
 
-    frame, scene_name = run["frames"][0], run["scene"]
-    trace = Trace(kernel, scene_name, frame, device)
-    rays = frame_rays_and_seed(
+    return frame_rays_and_seed(
         scene_camera(scene_name, frame, device), frame, width=WIDTH, height=HEIGHT, samples=SAMPLES
     )
+
+
+def to_image(radiance):
+    from tpu_render_cluster_torch.render.integrator import tonemap
+
+    return tonemap(
+        radiance.reshape(SAMPLES, HEIGHT * WIDTH, 3).mean(dim=0).reshape(HEIGHT, WIDTH, 3)
+    ).cpu()
+
+
+def within_one(image, expected) -> float:
+    return ((image.int() - expected.int()).abs() <= 1).float().mean().item()
+
+
+def frame_vs_plain(run: dict, device) -> tuple[Trace, tuple, dict, float]:
+    """Frame 1 of a megakernel's main path against the plain version's
+    render of it. Returns the frame's (trace, rays, work counters, the
+    plain version's ms on the card for this frame, its work counting
+    included)."""
+    import torch
+
+    frame, scene_name, kernel = run["frames"][0], run["path"].scene, run["path"].kernel
+    trace = Trace(kernel, scene_name, frame, device)
+    rays = frame_rays(scene_name, frame, device)
     stats: dict = {}
     result: list = []
     plain_ms = cuda_ms(lambda: result.append(trace.plain(*rays, BOUNCES, stats)), 1)
     plain = result[0]
-    image = plain.reshape(SAMPLES, HEIGHT * WIDTH, 3).mean(dim=0).reshape(HEIGHT, WIDTH, 3)
-    diff = (run["first"].int() - tonemap(image).cpu().int()).abs()
-    within = (diff <= 1).float().mean().item()
+    within = within_one(run["images"][0], to_image(plain))
     print(f"[4] {scene_name} frame {frame} vs plain-version render: {within:.6f} of uint8 values within 1")
     check(within >= 0.995, f"{scene_name}: main-path frame disagrees with the plain version ({within})")
     fraction, bad, err = agreement(trace.run(*rays, BOUNCES), plain)
@@ -348,37 +564,126 @@ def frame_vs_plain(kernel: str, run: dict, device) -> tuple[Trace, tuple, dict, 
     return trace, rays, stats, plain_ms
 
 
-def bound(stats: dict, rays: int) -> tuple[float, str, float, float]:
-    """(bound ms, "operations" or "bytes", operations, bytes) of the work
-    counted by a plain version."""
-    operations = (
+def wavefront_frame_checks(run: dict, reference_images, device) -> dict:
+    """Frame 1 of a wavefront main path. The radiance against the masked
+    tier on the same rays (the deep path: the masked deep loop, which runs
+    the same kernel per ray and should agree to the bit; the sphere path:
+    the sphere megakernel), the PNG against the megakernel's render (the
+    deep path: the mesh megakernel called directly on the frame's rays; the
+    sphere path: its main path's PNGs), and every launch of the frame
+    against the plain per-bounce version on SUBSET rays drawn from it, the
+    plain version counting their work. Returns the frame's trace, rays,
+    launches and the per-launch work counters and plain ms."""
+    import torch
+
+    frame, path = run["frames"][0], run["path"]
+    trace = Trace(path.kernel, path.scene, frame, device)
+    rays = frame_rays(path.scene, frame, device)
+    launches: list = []
+    wavefront = trace.run(*rays, BOUNCES, on_launch=launches.append)
+    if trace.mesh is not None:
+        masked = trace.masked(*rays, BOUNCES)
+        megakernel = trace.kernels.trace_paths_fused_mesh(
+            trace.scene, trace.mesh, *rays, max_bounces=BOUNCES
+        )
+        within = within_one(run["images"][0], to_image(megakernel))
+        print(f"[4] {path.scene} frame {frame}: main-path PNG vs the mesh megakernel's render: {within:.6f} of uint8 values within 1")
+        check(within >= 0.995, f"{path.scene}: main-path frame disagrees with row 3 ({within})")
+        fraction, bad, err = agreement(wavefront, masked)
+        bit_equal = (wavefront == masked).all(dim=1).float().mean().item()
+        print(f"[4] {path.scene} frame {frame} rays, wavefront vs masked deep loop: {fraction:.6f} within 1e-4 ({bad} not), {bit_equal:.6f} bit-equal, max abs err {err:.3g}")
+        check(fraction >= 0.999, f"{path.scene}: wavefront and masked deep loop disagree ({fraction})")
+    else:
+        masked = trace.kernels.trace_paths_fused(trace.scene, *rays, max_bounces=BOUNCES)
+        fraction, bad, err = agreement(wavefront, masked)
+        print(f"[4] {path.scene} frame {frame} rays, wavefront (sphere_bounce) vs trace_fused: {fraction:.6f} within 1e-4 ({bad} not), max abs err {err:.3g}")
+        check(fraction >= 0.999, f"{path.scene}: wavefront and megakernel disagree ({fraction})")
+        for index, (image, expected) in enumerate(zip(run["images"], reference_images)):
+            within = within_one(image, expected)
+            print(f"[4] {run['label']} frame {run['frames'][index]} PNG vs the trace_fused path's: {within:.6f} of uint8 values within 1")
+            check(within >= 0.995, f"{run['label']}: PNG disagrees with trace_fused's ({within})")
+    generator = torch.Generator(device=device).manual_seed(frame)
+    work, plain_ms, errors = [], [], []
+    for launch in launches:
+        rows = torch.randperm(launch.bucket, generator=generator, device=device)[:SUBSET].sort().values
+        stats: dict = {}
+        result = check_bounce("4", trace, launch, rays[2], rows=rows, stats=stats)
+        plain_ms.append(result["plain_ms"])
+        errors.append(result["err"])
+        work.append((stats, rows.numel()))
+    return {
+        "trace": trace, "rays": rays, "launches": launches, "work": work,
+        "plain_ms": plain_ms, "max_abs_err": max(errors),
+    }
+
+
+def bound(stats: dict, rays: int, ray_bytes: int, scale: float = 1.0) -> dict:
+    """The least time of the work counted by a plain version, times
+    ``scale``, for ``rays`` rays: the larger of its operations over the
+    float32 peak and its bytes over the memory rate.
+
+    A mesh kernel's instance search is counted two ways. "flat": every
+    world-AABB test of the kernels' per-thread sweep over the instance
+    table. "needed": what the search needs, about 2 ceil(log2 K) box tests
+    of a two-level walk per ray that searches the K instances, plus the
+    instances entered as counted. The bound is the needed count's, the
+    lower; the flat one and the world-AABB tests' share of it are kept
+    beside it. A sphere kernel has one count."""
+    rest = scale * (
         OPS_NEAREST_SPHERE * stats["spheres"] * stats["alive_lane_bounces"]
         + OPS_SHADE_HIT * stats["hit_lane_bounces"]
         + OPS_SHADOW_SPHERE * stats["shadow_sphere_tests"]
-        + OPS_SLAB * (stats.get("world_aabb_tests", 0) + stats.get("node_tests", 0))
+        + OPS_SLAB * stats.get("node_tests", 0)
         + OPS_INSTANCE_WALK * stats.get("instance_walks", 0)
         + OPS_TRIANGLE * stats.get("triangle_tests", 0)
     )
-    bytes_moved = rays * (3 + 3 + 3) * 4  # origins, directions in; radiance out
-    ops_ms = operations / FP32_PEAK_FLOPS * 1e3
+    bytes_moved = rays * ray_bytes
     bytes_ms = bytes_moved / MEMORY_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), operations, bytes_moved
+
+    def least(operations):
+        ops_ms = operations / FP32_PEAK_FLOPS * 1e3
+        return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+    if "instances" not in stats:
+        bound_ms, bound_by = least(rest)
+        return {"ms": bound_ms, "by": bound_by, "operations": rest, "bytes": bytes_moved,
+                "flat_ms": None, "world_aabb_share": None}
+    flat_search = scale * OPS_SLAB * stats["world_aabb_tests"]
+    tests_per_search = max(1, 2 * math.ceil(math.log2(stats["instances"])))
+    needed_search = scale * OPS_SLAB * tests_per_search * stats["broadphase_rays"]
+    bound_ms, bound_by = least(rest + needed_search)
+    return {
+        "ms": bound_ms, "by": bound_by, "operations": rest + needed_search, "bytes": bytes_moved,
+        "flat_ms": least(rest + flat_search)[0],
+        "world_aabb_share": flat_search / (rest + flat_search),
+    }
 
 
-def phase_times(kernel: str, run: dict, device) -> None:
+def describe_bound(b: dict) -> str:
+    text = f"bound {b['ms']:.4f} ms by {b['by']} ({b['operations'] / 1e9:.3f} GFLOP, {b['bytes'] / 1e6:.2f} MB"
+    if b["flat_ms"] is not None:
+        text += (
+            f"; with the flat instance sweep {b['flat_ms']:.4f} ms, of whose operations the "
+            f"world-AABB tests are {b['world_aabb_share']:.3f}"
+        )
+    return text + ")"
+
+
+def phase_times(run: dict, device) -> None:
     """Phase 5's host-clock numbers for one path: per-frame phases over the
     job, and one frame split further (each step fenced by a synchronize;
-    "scene+camera" includes the frame's mesh instances)."""
+    "scene+camera" includes the frame's mesh instances; "trace" is the
+    megakernel's wrapper or the whole wavefront driver)."""
     import torch
 
     from tpu_render_cluster_torch.render.camera import scene_camera
     from tpu_render_cluster_torch.render.image_io import write_image
-    from tpu_render_cluster_torch.render.integrator import frame_rays_and_seed, tonemap
+    from tpu_render_cluster_torch.render.integrator import frame_rays_and_seed
 
-    timings, scene_name = run["timings"], run["scene"]
+    timings, path = run["timings"], run["path"]
     med = lambda xs: statistics.median(xs) * 1e3  # noqa: E731
     print(
-        f"[5] {scene_name} main path per frame (median ms): loading "
+        f"[5] {run['label']} main path per frame (median ms): loading "
         f"{med([t.finished_loading_at - t.started_process_at for t in timings]):.3f}, render "
         f"{med([t.finished_rendering_at - t.started_rendering_at for t in timings]):.3f}, save "
         f"{med([t.file_saving_finished_at - t.file_saving_started_at for t in timings]):.3f}, total "
@@ -386,13 +691,13 @@ def phase_times(kernel: str, run: dict, device) -> None:
         f"{len(timings) / run['path_s']:.3f} frames/s over the job"
     )
     breakdown: dict[str, list[float]] = {
-        "scene+camera": [], "rays": [], "kernel": [], "mean+tonemap+copy": [], "png": []
+        "scene+camera": [], "rays": [], "trace": [], "mean+tonemap+copy": [], "png": []
     }
     with tempfile.TemporaryDirectory(prefix="chip-smoke-png-") as scratch:
         for frame in run["frames"][:5]:
             marks = [time.perf_counter()]
-            trace = Trace(kernel, scene_name, frame, device)  # scene and mesh
-            camera = scene_camera(scene_name, frame, device)
+            trace = Trace(path.kernel, path.scene, frame, device)  # scene and mesh
+            camera = scene_camera(path.scene, frame, device)
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
             rays = frame_rays_and_seed(camera, frame, width=WIDTH, height=HEIGHT, samples=SAMPLES)
@@ -401,18 +706,186 @@ def phase_times(kernel: str, run: dict, device) -> None:
             radiance = trace.run(*rays, BOUNCES)
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
-            pixels = tonemap(
-                radiance.reshape(SAMPLES, HEIGHT * WIDTH, 3).mean(dim=0).reshape(HEIGHT, WIDTH, 3)
-            ).cpu().numpy()
+            pixels = to_image(radiance).numpy()
             marks.append(time.perf_counter())
             write_image(Path(scratch) / f"f{frame}.png", pixels, "PNG")
             marks.append(time.perf_counter())
             for key, a, b in zip(breakdown, marks, marks[1:]):
                 breakdown[key].append((b - a) * 1e3)
     print(
-        f"[5] {scene_name} one frame, median ms: "
+        f"[5] {run['label']} one frame, median ms: "
         + ", ".join(f"{k} {statistics.median(v):.3f}" for k, v in breakdown.items())
     )
+
+
+def megakernel_record(run: dict, device, agree: float, max_abs_err: float, build_s: float) -> dict:
+    """Phases 4-6 after the main path for a megakernel: frame 1 against its
+    plain version, the phase times, and the kernel's timings and bound."""
+    kernel = run["path"].kernel
+    trace, rays, stats, plain_ms = frame_vs_plain(run, device)
+    phase_times(run, device)
+    kernel_call = lambda: trace.run(*rays, BOUNCES)  # noqa: E731
+    # The median of 10 batches of 20 calls: the card's clocks vary with
+    # the idle time before a batch.
+    cuda_ms(kernel_call, 3)
+    batches = [cuda_ms(kernel_call, 20) for _ in range(10)]
+    kernel_ms = statistics.median(batches)
+    wrapper_host_ms = host_ms(kernel_call, 20)
+    call_profile = profiled(
+        lambda: [kernel_call() for _ in range(20)], kernel, f"{kernel} calls"
+    )
+    kernel_only_ms = None
+    if call_profile is not None:
+        kernel_only_ms = call_profile["kernel_ms"] / call_profile["launched"]
+        print(
+            f"[6] {kernel}, 20 wrapper calls under the profiler: the kernel alone "
+            f"{kernel_only_ms:.4f} ms per call; all device work "
+            f"{call_profile['device_ms'] / 20:.4f} ms per call "
+            f"({call_profile['kernels'] / 20:.1f} device operations per call)"
+        )
+    n_rays = rays[0].shape[0]
+    least = bound(stats, n_rays, MEGAKERNEL_RAY_BYTES)
+    print(
+        f"[5] {kernel} at {n_rays} rays, {run['path'].scene}: {kernel_ms:.4f} ms "
+        f"(median of 10 batches of 20 calls: {', '.join(f'{b:.4f}' for b in batches)}; "
+        f"host {wrapper_host_ms:.4f} ms per call); plain version {plain_ms:.3f} ms; "
+        f"{describe_bound(least)}; work: {stats}"
+    )
+    return {
+        "name": kernel,
+        "route": "cuda",
+        "source": f"tpu_render_cluster_torch/render/csrc/{kernel}.cu",
+        "replaces": REPLACES[kernel],
+        "launches": run["launches"],
+        "max_abs_err": max_abs_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": least["ms"],
+        "bound_by": least["by"],
+        "library_ms": None,
+        "bound_flat_sweep_ms": least["flat_ms"],
+        "world_aabb_share": least["world_aabb_share"],
+        "host_ms": wrapper_host_ms,
+        "kernel_only_ms": kernel_only_ms,
+        "agree_fraction_min": agree,
+        "tolerance": TOLERANCE[kernel],
+        "build_s": build_s,
+    }
+
+
+def bounce_record(run: dict, checked: dict, device, agree: float, max_abs_err: float,
+                  build_s: float) -> dict:
+    """Phases 5-6 for a per-bounce kernel on frame 1 of its main path: the
+    kernel at every launch width (CUDA events, the median of 5 batches of
+    5 calls), the compaction before that launch, the estimated bound of
+    each launch (its plain version's work counters on SUBSET rays, scaled
+    to the launch), and the mesh megakernel on the same frame."""
+    import torch
+
+    from tpu_render_cluster_torch.render import compaction
+
+    kernel, trace, rays = run["path"].kernel, checked["trace"], checked["rays"]
+    seed = rays[2]
+    phase_times(run, device)
+    # The compaction's input before each bounce: the primary rays, then the
+    # previous launch's output.
+    n0 = rays[0].shape[0]
+    before = (
+        rays[0], rays[1], torch.ones((n0, 3), device=device),
+        torch.ones(n0, dtype=torch.bool, device=device),
+        torch.arange(n0, dtype=torch.int32, device=device),
+    )
+    per_launch = []
+    for launch, (stats, drawn), plain_ms in zip(checked["launches"], checked["work"], checked["plain_ms"]):
+        call = lambda launch=launch: trace.bounce(launch.state, launch.live, seed, launch.bounce)  # noqa: E731
+        cuda_ms(call, 2)
+        launch_ms = statistics.median(cuda_ms(call, 5) for _ in range(5))
+        launch_host_ms = host_ms(call, 5)
+        compact_ms = statistics.median(
+            cuda_ms(lambda: compaction.compact(*before, trace.mesh), 3) for _ in range(3)
+        )
+        least = bound(stats, launch.bucket, BOUNCE_RAY_BYTES, scale=launch.bucket / drawn)
+        alone = profiled(
+            lambda: [call() for _ in range(5)], kernel, f"{kernel} bounce {launch.bounce} calls"
+        )
+        step = call()
+        before = (step.origins, step.directions, step.throughput, step.alive, launch.state[4])
+        per_launch.append({
+            "bounce": launch.bounce, "live": launch.live, "bucket": launch.bucket,
+            "ms": launch_ms, "host_ms": launch_host_ms,
+            "kernel_only_ms": None if alone is None else alone["kernel_ms"] / 5,
+            "compaction_ms": compact_ms, "bound_ms": least["ms"], "bound_by": least["by"],
+            "bound_flat_sweep_ms": least["flat_ms"], "world_aabb_share": least["world_aabb_share"],
+            "plain_ms": plain_ms, "plain_rays": drawn,
+        })
+        print(
+            f"[5] {kernel} bounce {launch.bounce}, {launch.bucket} lanes ({launch.live} live): "
+            f"{launch_ms:.4f} ms per launch (host {launch_host_ms:.4f} ms per call); compaction "
+            f"before it {compact_ms:.4f} ms; {describe_bound(least)}, an estimate from the "
+            f"work counted on {drawn} rays drawn from the launch, scaled by "
+            f"{launch.bucket / drawn:.2f}; plain version on the {drawn} rays {plain_ms:.3f} ms; "
+            f"work: {stats}"
+        )
+        if alone is not None:
+            print(
+                f"[6] {kernel} bounce {launch.bounce}, 5 wrapper calls under the profiler: the "
+                f"kernel alone {alone['kernel_ms'] / 5:.4f} ms per call; all device work "
+                f"{alone['device_ms'] / 5:.4f} ms per call ({alone['kernels'] / 5:.1f} device "
+                f"operations per call)"
+            )
+    first = per_launch[0]
+    wrapper_host_ms, kernel_only_ms = first["host_ms"], first["kernel_only_ms"]
+    frame_ms = sum(p["ms"] for p in per_launch)
+    frame_compaction_ms = sum(p["compaction_ms"] for p in per_launch)
+    frame_bound_ms = sum(p["bound_ms"] for p in per_launch)
+    print(
+        f"[5] {kernel} over frame {run['frames'][0]} of {run['label']}: {len(per_launch)} launches, "
+        f"{frame_ms:.4f} ms of kernel, {frame_compaction_ms:.4f} ms of compaction, bound "
+        f"{frame_bound_ms:.4f} ms (estimate)"
+    )
+    if trace.mesh is not None:
+        megakernel = lambda: trace.kernels.trace_paths_fused_mesh(  # noqa: E731
+            trace.scene, trace.mesh, *rays, max_bounces=BOUNCES
+        )
+        cuda_ms(megakernel, 1)
+        mega_ms = statistics.median(cuda_ms(megakernel, 3) for _ in range(3))
+        masked = lambda: trace.masked(*rays, BOUNCES)  # noqa: E731
+        cuda_ms(masked, 1)
+        masked_ms = statistics.median(cuda_ms(masked, 2) for _ in range(3))
+        wavefront_ms = statistics.median(cuda_ms(lambda: trace.run(*rays, BOUNCES), 2) for _ in range(3))
+        print(
+            f"[5] {run['path'].scene} frame {run['frames'][0]}, whole trace on the card (CUDA "
+            f"events, comparison only; the dispatch stays the reference's): wavefront driver "
+            f"{wavefront_ms:.4f} ms, masked deep loop {masked_ms:.4f} ms, mesh megakernel "
+            f"(trace_fused_mesh) {mega_ms:.4f} ms"
+        )
+    return {
+        "name": kernel,
+        "route": "cuda",
+        "source": f"tpu_render_cluster_torch/render/csrc/{kernel}.cu",
+        "replaces": REPLACES[kernel],
+        "launches": run["launches"],
+        "max_abs_err": max(max_abs_err, checked["max_abs_err"]),
+        "ms": first["ms"],
+        "plain_ms": first["plain_ms"],
+        "plain_rays": first["plain_rays"],
+        "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"],
+        "bound_flat_sweep_ms": first["bound_flat_sweep_ms"],
+        "world_aabb_share": first["world_aabb_share"],
+        "bound_is_estimate": f"work counted on {first['plain_rays']} rays drawn from the launch, scaled to it",
+        "library_ms": None,
+        "rays": first["bucket"],
+        "host_ms": wrapper_host_ms,
+        "kernel_only_ms": kernel_only_ms,
+        "frame_ms": frame_ms,
+        "frame_bound_ms": frame_bound_ms,
+        "frame_compaction_ms": frame_compaction_ms,
+        "per_launch": per_launch,
+        "agree_fraction_min": agree,
+        "tolerance": TOLERANCE[kernel],
+        "build_s": build_s,
+    }
 
 
 def main() -> int:
@@ -425,6 +898,7 @@ def main() -> int:
     from tpu_render_cluster_torch.render import _build
 
     device = torch.device("cuda", 0)
+    script_started = time.perf_counter()
 
     # -- 1. the card --------------------------------------------------------
     card = subprocess.run(
@@ -438,7 +912,8 @@ def main() -> int:
     libraries = _build.build()
     build_s = time.perf_counter() - started
     print(f"[2] built {sorted(libraries)} in {build_s:.2f} s")
-    check(sorted(libraries) == sorted(PATHS), f"kernels {sorted(libraries)} != {sorted(PATHS)}")
+    expected = sorted(path.kernel for path in PATHS)
+    check(sorted(libraries) == expected, f"kernels {sorted(libraries)} != {expected}")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -448,71 +923,37 @@ def main() -> int:
     checks = {
         "trace_fused": ("04_very-simple", "03_physics-2"),
         "trace_fused_mesh": ("02_physics-mesh", "03_physics-2-mesh"),
+        "mesh_bounce": ("03_physics-2-mesh",),
+        "sphere_bounce": ("04_very-simple", "03_physics-2"),
     }
     agree: dict[str, float] = {}
     max_abs_err: dict[str, float] = {}
     for kernel, scene_names in checks.items():
         started = time.perf_counter()
-        results = [kernel_vs_plain(kernel, name, device) for name in scene_names]
+        compare = kernel_vs_plain if kernel in MEGAKERNELS else bounce_kernel_vs_plain
+        results = [compare(kernel, name, device) for name in scene_names]
         print(f"[3] {kernel} checked in {time.perf_counter() - started:.1f} s")
         agree[kernel] = min(r[0] for r in results)
         max_abs_err[kernel] = max(r[1] for r in results)
 
-    # -- 4. the main paths, 5. their timings ----------------------------------
+    # -- 4. the main paths, 5. their timings, 6. the profiler ----------------
     record = {"kernels": []}
-    for kernel in PATHS:
+    runs = {}
+    for path in PATHS:
         started = time.perf_counter()
-        run = drive_main_path(kernel, device)
-        trace, rays, stats, plain_ms = frame_vs_plain(kernel, run, device)
-        phase_times(kernel, run, device)
-        kernel_call = lambda: trace.run(*rays, BOUNCES)  # noqa: E731
-        # The median of 10 batches of 20 calls: the card's clocks vary with
-        # the idle time before a batch.
-        cuda_ms(kernel_call, 3)
-        batches = [cuda_ms(kernel_call, 20) for _ in range(10)]
-        kernel_ms = statistics.median(batches)
-        wrapper_host_ms = host_ms(kernel_call, 20)
-        call_profile = profiled(
-            lambda: [kernel_call() for _ in range(20)], f"{kernel}_kernel", f"{kernel} calls"
-        )
-        kernel_only_ms = None
-        if call_profile is not None:
-            kernel_only_ms = call_profile["kernel_ms"] / 20
-            print(
-                f"[6] {kernel}, 20 wrapper calls under the profiler: the kernel alone "
-                f"{kernel_only_ms:.4f} ms per call; all device work "
-                f"{call_profile['device_ms'] / 20:.4f} ms per call "
-                f"({call_profile['kernels'] / 20:.1f} kernels per call)"
+        run = drive_main_path(path, device)
+        runs[path.kernel] = run
+        if path.kernel in MEGAKERNELS:
+            entry = megakernel_record(run, device, agree[path.kernel], max_abs_err[path.kernel], build_s)
+        else:
+            checked = wavefront_frame_checks(run, runs["trace_fused"]["images"], device)
+            entry = bounce_record(
+                run, checked, device, agree[path.kernel], max_abs_err[path.kernel], build_s
             )
-        n_rays = rays[0].shape[0]
-        bound_ms, bound_by, operations, bytes_moved = bound(stats, n_rays)
-        print(
-            f"[5] {kernel} at {n_rays} rays, {run['scene']}: {kernel_ms:.4f} ms "
-            f"(median of 10 batches of 20 calls: {', '.join(f'{b:.4f}' for b in batches)}; "
-            f"host {wrapper_host_ms:.4f} ms per call); plain version {plain_ms:.3f} ms; bound "
-            f"{bound_ms:.4f} ms by {bound_by} ({operations / 1e9:.3f} GFLOP, "
-            f"{bytes_moved / 1e6:.2f} MB); work: {stats}"
-        )
-        record["kernels"].append({
-            "name": kernel,
-            "route": "cuda",
-            "source": f"tpu_render_cluster_torch/render/csrc/{kernel}.cu",
-            "replaces": REPLACES[kernel],
-            "launches": run["launches"],
-            "max_abs_err": max_abs_err[kernel],
-            "ms": kernel_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": None,
-            "host_ms": wrapper_host_ms,
-            "kernel_only_ms": kernel_only_ms,
-            "agree_fraction_min": agree[kernel],
-            "tolerance": TOLERANCE[kernel],
-            "build_s": build_s,
-        })
-        print(f"[5] {kernel} path phases 4-5 in {time.perf_counter() - started:.1f} s")
+        record["kernels"].append(entry)
+        print(f"[5] {run['label']} path phases 4-6 in {time.perf_counter() - started:.1f} s")
 
+    print(f"[5] chip_smoke phases 1-6 in {time.perf_counter() - script_started:.1f} s")
     print(json.dumps(record))
     print(card)
     print(json.dumps({

@@ -28,7 +28,7 @@ from tpu_render_cluster.harness.local import run_local_job
 from tpu_render_cluster.jobs.models import BlenderJob as RefJob
 from tpu_render_cluster.jobs.models import DistributionStrategy
 from tpu_render_cluster_torch.jobs.models import BlenderJob as PortJob
-from tpu_render_cluster_torch.render import cli
+from tpu_render_cluster_torch.render import cli, kernels
 from tpu_render_cluster_torch.render.integrator import fused_frame_renderer
 from tpu_render_cluster_torch.worker.backends.torch_raytrace import TorchRaytraceBackend
 
@@ -128,15 +128,33 @@ def test_two_port_workers_serve_a_mesh_job_through_the_harness(tmp_path):
 
 
 def test_backend_refuses_a_deep_mesh_job_before_rendering(tmp_path):
-    backend = TorchRaytraceBackend(device="cpu", width=8, height=8, base_directory=tmp_path)
-    with pytest.raises(NotImplementedError, match="deep-mesh slice"):
-        backend.warm("03_physics-2-mesh_240f-4w")
-    job = PortJob.from_dict(
-        {**_job(DistributionStrategy.naive_fine(), name="03_physics-2-mesh_x").to_dict()}
+    """Since the deep-mesh slice the backend serves deep mesh jobs: two
+    port workers through the harness, each frame through the wavefront
+    driver (the default tier for a scene past the mesh megakernel's
+    bound), equal to the port's masked deep loop's render to the bit
+    (tests/test_torch_wavefront.py holds both against the reference)."""
+    job = _job(
+        DistributionStrategy.eager_naive_coarse(2), frames=2, name="03_physics-2-mesh_torch-port"
     )
-    with pytest.raises(NotImplementedError, match="deep-mesh slice"):
-        asyncio.run(backend.render_frame(job, 1))
-    assert not (tmp_path / "frames").exists()
+    width, height, samples, bounces = 8, 6, 1, 3
+    backends = [
+        TorchRaytraceBackend(
+            device="cpu", width=width, height=height, samples=samples, max_bounces=bounces,
+            base_directory=tmp_path,
+        )
+        for _ in range(2)
+    ]
+    backends[0].warm("03_physics-2-mesh_240f-4w")
+    kernels.reset_counts()
+    _master_trace, worker_traces = run_local_job(job, backends, timeout=300.0)
+    rendered = [t for _name, trace in worker_traces for t in trace.frame_render_traces]
+    assert sorted(t.frame_index for t in rendered) == [1, 2]
+    assert kernels.counts["mesh_bounce_reference"] > 0
+    assert kernels.counts["trace_fused_mesh_reference"] == 0
+    masked = fused_frame_renderer("03_physics-2-mesh", width, height, samples, bounces, "cpu")
+    for frame in (1, 2):
+        image = np.asarray(Image.open(tmp_path / "frames" / f"rendered-{frame:05d}.png"))
+        np.testing.assert_array_equal(image, masked(frame).numpy())
 
 
 def test_backend_phases_and_jpeg_output(tmp_path):
@@ -169,6 +187,15 @@ def test_backend_warm_renders_a_frame():
      ("wavefront", "force", "wavefront"), ("raypool", "force", "ray-pool")],
 )
 def test_backend_options_of_later_slices_raise(option, value, slice_name):
+    """Tiles, sharding and the ray pool raise, naming their slice. The
+    wavefront option is ported (the wavefront slice): its three modes are
+    taken, and any other value raises naming them."""
+    if option == "wavefront":
+        for mode in ("auto", "off", "force"):
+            assert TorchRaytraceBackend(device="cpu", wavefront=mode).wavefront == mode
+        with pytest.raises(ValueError, match="auto"):
+            TorchRaytraceBackend(device="cpu", wavefront="sideways")
+        return
     with pytest.raises(NotImplementedError, match=slice_name):
         TorchRaytraceBackend(device="cpu", **{option: value})
 

@@ -1,6 +1,7 @@
-"""Whole frames of a mesh scene: the port's ``fused_frame_renderer`` on the
-CPU against the JAX package's, with its Pallas mesh megakernel in
-interpret mode.
+"""Whole frames of the mesh scenes: the port's renderers on the CPU against
+the JAX package's, with its Pallas mesh kernels in interpret mode (the
+megakernel for 02_physics-mesh, the per-bounce kernel under its deep loop
+for 03_physics-2-mesh).
 
 Tolerance as in tests/test_torch_frame.py: at least 99.5% of uint8 channel
 values within +-1, and image means within 0.5. Both renderers trace the
@@ -46,18 +47,45 @@ def test_mesh_frames_match_reference(reference_renderer):
         assert kernels.counts == {
             "trace_fused": 0, "trace_fused_reference": 0,
             "trace_fused_mesh": 0, "trace_fused_mesh_reference": 1,
+            "sphere_bounce": 0, "sphere_bounce_reference": 0,
+            "mesh_bounce": 0, "mesh_bounce_reference": 0,
         }
         assert_images_match(got.numpy(), expected)
         assert got.numpy().std() > 5.0
 
 
 def test_deep_mesh_renderer_names_its_slice():
-    with pytest.raises(NotImplementedError, match="deep-mesh slice"):
-        port_integrator.fused_frame_renderer("03_physics-2-mesh", 8, 8, 1, 1, "cpu")
-    with pytest.raises(NotImplementedError, match="deep-mesh slice"):
-        port_integrator.render_frame(
-            "03_physics-2-mesh", 2, width=8, height=8, samples=1, max_bounces=1, device="cpu"
-        )
+    """The deep mesh scene, past the mesh megakernel's bound, renders
+    through the per-bounce mesh kernel once per bounce (the deep-mesh
+    slice); tests/test_torch_wavefront.py holds its frames against the
+    reference."""
+    kernels.reset_counts()
+    image = port_integrator.fused_frame_renderer("03_physics-2-mesh", 8, 8, 1, 2, "cpu")(2)
+    assert image.shape == (8, 8, 3) and image.dtype == torch.uint8
+    assert kernels.counts == {k: 2 * (k == "mesh_bounce_reference") for k in kernels.counts}
+    linear = port_integrator.render_frame(
+        "03_physics-2-mesh", 2, width=8, height=8, samples=1, max_bounces=2, device="cpu"
+    )
+    assert torch.equal(port_integrator.tonemap(linear), image)
+
+
+def test_deep_mesh_frame_matches_reference(reference_renderer):
+    """03_physics-2-mesh frame 30 at 16x16 x 2 spp through the port's
+    masked deep loop, against the reference's ``render_frame`` (its TLAS
+    default tier)."""
+    from tpu_render_cluster.render import integrator as ref_integrator
+
+    kwargs = dict(width=16, height=16, samples=2, max_bounces=4)
+    expected = np.asarray(
+        ref_integrator.tonemap(ref_integrator.render_frame("03_physics-2-mesh", 30, **kwargs))
+    )
+    kernels.reset_counts()
+    got = port_integrator.tonemap(
+        port_integrator.render_frame("03_physics-2-mesh", 30, device="cpu", **kwargs)
+    )
+    assert kernels.counts["mesh_bounce_reference"] == 4
+    assert_images_match(got.numpy(), expected)
+    assert got.numpy().std() > 5.0
 
 
 def test_render_frame_of_a_mesh_scene():

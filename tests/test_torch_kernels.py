@@ -121,6 +121,8 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
     assert kernels.counts == {
         "trace_fused": 0, "trace_fused_reference": 1,
         "trace_fused_mesh": 0, "trace_fused_mesh_reference": 0,
+        "sphere_bounce": 0, "sphere_bounce_reference": 0,
+        "mesh_bounce": 0, "mesh_bounce_reference": 0,
     }
 
 

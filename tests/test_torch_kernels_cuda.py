@@ -1,5 +1,5 @@
-"""The CUDA path-trace megakernels (sphere and mesh) against their plain
-PyTorch versions, on a GPU.
+"""The CUDA path-trace kernels (the sphere and mesh megakernels and their
+per-bounce forms) against their plain PyTorch versions, on a GPU.
 
 Needs a CUDA GPU and nvcc (the kernels have no CPU mode); skipped elsewhere.
 Imports no jax, so it runs on a GPU machine without the JAX package's
@@ -7,7 +7,8 @@ dependencies: ``python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py``.
 
 Tolerance as in tests/test_torch_kernels.py, rtol = atol = 1e-4 per ray:
 every ray at 1 bounce (the mesh kernel: all but an edge-tie budget of
-max(1, round(0.001 R)) rays), at least 99.9% at 4 bounces.
+max(1, round(0.001 R)) rays), at least 99.9% at 4 bounces. A per-bounce
+kernel: all five outputs of every ray but that budget.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from tpu_render_cluster_torch.render import integrator, kernels
+from tpu_render_cluster_torch.render import compaction, integrator, kernels
 from tpu_render_cluster_torch.render.mesh import (
     MeshInstances,
     MeshSet,
@@ -132,3 +133,83 @@ def test_cuda_mesh_frame_renderer_goes_through_the_kernel(cuda_device):
     cpu = integrator.fused_frame_renderer("02_physics-mesh", 64, 48, 2, 4, "cpu")(3)
     diff = (image.cpu().int() - cpu.int()).abs()
     assert (diff <= 1).float().mean().item() >= 0.995
+
+
+@pytest.mark.parametrize(
+    "kernel,name",
+    [("mesh_bounce", "03_physics-2-mesh"), ("sphere_bounce", "04_very-simple"),
+     ("sphere_bounce", "03_physics-2")],
+)
+def test_cuda_bounce_kernel_matches_plain_version(cuda_device, kernel, name):
+    """Each launch of a wavefront frame (bounce 0: every lane alive, lanes
+    re-sorted; later bounces: a sorted dead tail) again through the kernel
+    and through its plain version, on the same state."""
+    scene = build_scene(name, 30, cuda_device)
+    mesh = scene_mesh_set(name, 30, device=cuda_device) if kernel == "mesh_bounce" else None
+    camera = integrator.scene_camera(name, 30, cuda_device)
+    origins, directions, seed = integrator.frame_rays_and_seed(
+        camera, 30, width=128, height=128, samples=4
+    )
+    launches: list = []
+    compaction.trace_paths_wavefront(
+        scene, origins, directions, seed, max_bounces=4, mesh=mesh, on_launch=launches.append
+    )
+    assert len(launches) >= 2 and launches[-1].live < launches[-1].bucket
+    for launch in launches:
+        args = (*launch.state, launch.live, seed, launch.bounce)
+        kernels.reset_counts()
+        if mesh is None:
+            got = kernels.sphere_bounce(scene, *args, total_bounces=4)
+            torch.cuda.synchronize()
+            expected = kernels.sphere_bounce_reference(scene, *args, total_bounces=4)
+        else:
+            got = kernels.mesh_bounce(scene, mesh, *args, total_bounces=4)
+            torch.cuda.synchronize()
+            expected = kernels.mesh_bounce_reference(scene, mesh, *args, total_bounces=4)
+        assert kernels.counts == {
+            k: int(k in (kernel, f"{kernel}_reference")) for k in kernels.counts
+        }
+        close = torch.ones(launch.bucket, dtype=torch.bool, device=cuda_device)
+        for have, want in zip(got[:4], expected[:4]):
+            close &= torch.isclose(have, want, rtol=1e-4, atol=1e-4).all(dim=1)
+        budget = max(1, round(0.001 * launch.bucket))
+        assert (~close).sum().item() <= budget
+        assert (got.alive != expected.alive).sum().item() <= budget
+        assert not got.alive[launch.live:].any()
+        assert (got.contribution[launch.live:] == 0).all()
+
+
+def test_cuda_deep_mesh_tiers_go_through_the_kernel(cuda_device):
+    """A deep mesh frame through the masked deep loop launches the
+    per-bounce mesh kernel once per bounce; the wavefront driver gives the
+    same image to the bit; both agree with the CPU render."""
+    name = "03_physics-2-mesh"
+    kernels.reset_counts()
+    image = integrator.fused_frame_renderer(name, 64, 48, 2, 4)(3)
+    assert image.device.type == "cuda" and image.shape == (48, 64, 3)
+    assert kernels.counts == {k: 4 * (k == "mesh_bounce") for k in kernels.counts}
+    kernels.reset_counts()
+    launches: list = []
+    wavefront = compaction.render_frame_wavefront(
+        name, 3, width=64, height=48, samples=2, max_bounces=4, on_launch=launches.append
+    )
+    assert kernels.counts == {k: len(launches) * (k == "mesh_bounce") for k in kernels.counts}
+    assert torch.equal(integrator.tonemap(wavefront), image)
+    cpu = integrator.fused_frame_renderer(name, 64, 48, 2, 4, "cpu")(3)
+    diff = (image.cpu().int() - cpu.int()).abs()
+    assert (diff <= 1).float().mean().item() >= 0.995
+
+
+def test_cuda_sphere_wavefront_goes_through_the_kernel(cuda_device):
+    kernels.reset_counts()
+    launches: list = []
+    wavefront = compaction.render_frame_wavefront(
+        "04_very-simple", 3, width=64, height=48, samples=2, max_bounces=4,
+        on_launch=launches.append,
+    )
+    assert kernels.counts == {k: len(launches) * (k == "sphere_bounce") for k in kernels.counts}
+    masked = integrator.render_frame(
+        "04_very-simple", 3, width=64, height=48, samples=2, max_bounces=4
+    )
+    close = torch.isclose(wavefront, masked, rtol=1e-4, atol=1e-4).all(dim=-1)
+    assert close.float().mean().item() >= 0.999

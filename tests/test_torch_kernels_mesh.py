@@ -149,6 +149,12 @@ def test_plain_version_counts_the_mesh_work():
     # rays test at most every instance.
     nearest_tests = k * stats["alive_lane_bounces"]
     assert nearest_tests < stats["world_aabb_tests"] <= nearest_tests + k * stats["hit_lane_bounces"]
+    # Each of those searches starts once: every alive lane's nearest ray,
+    # and the shadow rays that no sphere blocks.
+    assert stats["instances"] == k
+    searches = stats["broadphase_rays"]
+    assert stats["alive_lane_bounces"] < searches <= stats["alive_lane_bounces"] + stats["hit_lane_bounces"]
+    assert stats["world_aabb_tests"] <= k * searches
     # One node (the box's root leaf): one slab test per instance walk.
     assert 0 < stats["node_tests"] == stats["instance_walks"]
     assert 0 < stats["triangle_tests"] <= 12 * stats["node_tests"]
@@ -180,6 +186,8 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
     assert kernels.counts == {
         "trace_fused": 0, "trace_fused_reference": 0,
         "trace_fused_mesh": 0, "trace_fused_mesh_reference": 1,
+        "sphere_bounce": 0, "sphere_bounce_reference": 0,
+        "mesh_bounce": 0, "mesh_bounce_reference": 0,
     }
 
 
@@ -200,6 +208,16 @@ def test_bvh_tables_are_packed_once_per_bvh():
     # Another BVH (equal tables, another object) gets its own packing.
     copy = port_mesh.MeshBVH(*(t.clone() for t in bvh[:-1]), octant=bvh.octant)
     assert kernels._bvh_operands(copy)[0] is not triangles
+    # A frame's instance table and sphere operands: once per frame's
+    # objects, which every bounce of the frame shares.
+    mesh_set = port_mesh.scene_mesh_set(SCENE, 2)
+    table = kernels.instance_operands(mesh_set)
+    assert kernels.instance_operands(mesh_set) is table
+    torch.testing.assert_close(table, kernels.instance_table(mesh_set), rtol=0, atol=0)
+    assert kernels.instance_operands(port_mesh.scene_mesh_set(SCENE, 2)) is not table
+    scene = port_scene.build_scene(SCENE, 2, "cpu")
+    spheres, params = kernels._sphere_operands(scene)
+    assert all(a is b for a, b in zip(kernels._sphere_operands(scene), (spheres, params)))
 
 
 def test_trace_paths_dispatches_like_the_reference():
@@ -215,12 +233,13 @@ def test_trace_paths_dispatches_like_the_reference():
     )
     assert kernels.counts["trace_fused_mesh_reference"] == 1
     deep = port_mesh.scene_mesh_set("03_physics-2-mesh", 2)
-    with pytest.raises(NotImplementedError, match="deep-mesh slice"):
-        integrator.trace_paths(
-            port_scene.build_scene("03_physics-2-mesh", 2, "cpu"), origins, directions, 7,
-            max_bounces=1, mesh=deep,
-        )
+    assert not kernels.mesh_megakernel_eligible(deep)
+    integrator.trace_paths(
+        port_scene.build_scene("03_physics-2-mesh", 2, "cpu"), origins, directions, 7,
+        max_bounces=2, mesh=deep,
+    )
     assert kernels.counts["trace_fused_mesh_reference"] == 1
+    assert kernels.counts["mesh_bounce_reference"] == 2  # once per bounce
 
 
 def test_mesh_and_rays_must_share_a_device():
@@ -240,7 +259,7 @@ def test_build_digest_covers_shared_headers(tmp_path, monkeypatch):
         (csrc / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", csrc / "build")
-    assert _build.sources() == ["trace_fused", "trace_fused_mesh"]
+    assert _build.sources() == ["mesh_bounce", "sphere_bounce", "trace_fused", "trace_fused_mesh"]
     before = {name: _build.library_path(name) for name in _build.sources()}
     header = csrc / "path_common.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")

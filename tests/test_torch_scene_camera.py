@@ -77,17 +77,20 @@ def test_scene_from_arrays_round_trip():
 @pytest.mark.parametrize("name", port_scene.MESH_SCENE_NAMES)
 def test_mesh_scenes_name_their_slice(name):
     """Both mesh scenes build; the one whose mesh is past the mesh
-    megakernel's bound names the slice that will render it."""
-    from tpu_render_cluster_torch.render.integrator import check_mesh_supported
+    megakernel's bound goes to the deep-mesh slice's per-bounce tiers, as
+    in the reference."""
+    from tpu_render_cluster.render import mesh as ref_mesh
+    from tpu_render_cluster.render import pallas_kernels as ref_kernels
+    from tpu_render_cluster_torch.render.compaction import wavefront_eligible
+    from tpu_render_cluster_torch.render.kernels import mesh_megakernel_eligible
     from tpu_render_cluster_torch.render.mesh import scene_mesh_set
 
     port_scene.build_scene(name, 1, "cpu")
     mesh = scene_mesh_set(name, 1)
-    if name == "02_physics-mesh":
-        check_mesh_supported(mesh)
-    else:
-        with pytest.raises(NotImplementedError, match="deep-mesh slice"):
-            check_mesh_supported(mesh)
+    reference = ref_mesh.scene_mesh_set(name, 1, "sah", 4)
+    assert mesh_megakernel_eligible(mesh) == ref_kernels.mesh_megakernel_eligible(reference)
+    assert mesh_megakernel_eligible(mesh) == (name == "02_physics-mesh")
+    assert wavefront_eligible(mesh) == ref_kernels.wavefront_eligible(reference)
 
 
 def _job_names() -> list[str]:

@@ -3,8 +3,12 @@
 The JAX package ``tpu_render_cluster`` stays the reference; this package
 holds its own copies of every module it needs and imports nothing of it.
 It renders whole frames of the sphere scenes through the path-trace
-megakernel (``render/csrc/trace_fused.cu``) and of the mesh scenes whose
-mesh fits the mesh megakernel (``render/csrc/trace_fused_mesh.cu``).
+megakernel (``render/csrc/trace_fused.cu``), of the mesh scenes whose mesh
+fits the mesh megakernel (``render/csrc/trace_fused_mesh.cu``), and of the
+deeper mesh scenes through the per-bounce mesh kernel
+(``render/csrc/mesh_bounce.cu``), under the masked deep loop or the
+wavefront driver (``render/compaction.py``, which also takes sphere scenes
+through ``render/csrc/sphere_bounce.cu``).
 
 Entry points run on the GPU. They take the CPU only when the caller asks
 for it explicitly (``device="cpu"``), as the CPU tests do; without a GPU

@@ -4,8 +4,9 @@ Usage:
   python -m tpu_render_cluster_torch.render.cli --scene 04_very-simple \
       --frame 1 --width 256 --height 256 --samples 4 --out frame.png
 
-Sphere scenes and ``02_physics-mesh``; ``--obj`` (user meshes) is not
-ported yet. Runs on the GPU; ``--device cpu`` runs the plain PyTorch
+Sphere scenes and the mesh scenes (``02_physics-mesh``, and
+``03_physics-2-mesh`` through the masked deep loop); ``--obj`` (user
+meshes) is not ported yet. Runs on the GPU; ``--device cpu`` runs the plain PyTorch
 versions on the CPU instead. Prints the same ``RESULTS=`` phase-timing line as the
 reference CLI, which worker daemons parse.
 """

@@ -1,0 +1,189 @@
+"""Wavefront path tracing: active-ray compaction and bucketed relaunch.
+
+Port of ``tpu_render_cluster/render/compaction.py``'s host-driven tier.
+The masked loops march every lane through every bounce; this driver, after
+each bounce, compacts the live rays to the front, reads the live count back
+(one device sync per bounce), rounds it up to a bucket of a power-of-two
+ladder, and relaunches the per-bounce kernel over the bucket alone.
+Radiance scatters back through the carried original lane ids, which also
+key the kernels' RNG, so a ray's stream is the one it has in the masked
+loop or the megakernel, and the images agree ray for ray.
+
+Sphere scenes compact with a stable partition (the sphere kernel culls no
+packets); mesh scenes with the integrator's coherence sort, whose dead flag
+parks the dead lanes at the tail, so one gather buys both the partition and
+packet coherence.
+
+The reference's occupancy gauges, survival histograms and per-bounce spans
+come with the port of its ``obs`` package. Until then a caller may pass
+``on_launch`` to see each launch: its bounce, live count, bucket and input
+state.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, NamedTuple
+
+import torch
+
+from tpu_render_cluster_torch import resolve_device
+from tpu_render_cluster_torch.render import kernels
+from tpu_render_cluster_torch.render.camera import scene_camera
+from tpu_render_cluster_torch.render.integrator import _ray_sort_order, frame_rays_and_seed
+from tpu_render_cluster_torch.render.mesh import MeshSet, scene_mesh_set
+from tpu_render_cluster_torch.render.scene import Scene, build_scene
+
+# The bucket quantum: the per-bounce kernels' thread block.
+BUCKET_BLOCK = 256
+
+
+class WavefrontLaunch(NamedTuple):
+    """One bounce's launch: its ``live`` rays padded with dead ones to
+    ``bucket`` lanes, and the kernel's inputs (the compacted state)."""
+
+    bounce: int
+    live: int
+    bucket: int
+    state: tuple  # (origins, directions, throughput, alive, lane)
+
+
+def bucket_for(live: int, cap: int, block: int) -> int:
+    """Smallest power-of-two multiple of ``block`` >= ``live``, <= ``cap``."""
+    size = block
+    while size < live:
+        size *= 2
+    return min(size, cap)
+
+
+def compaction_order(alive: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable partition through prefix sums: (perm, live) with
+    ``x[perm]`` holding the alive lanes in their order, then the dead ones
+    in theirs; ``live`` stays on the device."""
+    alive_i = alive.to(torch.int64)
+    live = alive_i.sum()
+    front = torch.cumsum(alive_i, 0) - 1
+    back = live + torch.cumsum(1 - alive_i, 0) - 1
+    n = alive.shape[0]
+    perm = torch.empty(n, dtype=torch.int64, device=alive.device)
+    perm[torch.where(alive, front, back)] = torch.arange(n, device=alive.device)
+    return perm, live
+
+
+def compact(origins, directions, throughput, alive, lane, mesh):
+    """The state reordered (live lanes first) by one packed gather, and the
+    device count of live lanes."""
+    if mesh is None:
+        order, live = compaction_order(alive)
+    else:
+        order = _ray_sort_order(origins, directions, alive, mesh)
+        live = alive.sum()
+    packed = torch.cat([origins, directions, throughput], dim=1)[order]
+    return (
+        packed[:, 0:3], packed[:, 3:6], packed[:, 6:9], alive[order], lane[order], live
+    )
+
+
+def trace_paths_wavefront(
+    scene: Scene,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    seed: int,
+    *,
+    max_bounces: int,
+    mesh: MeshSet | None = None,
+    on_launch: Callable[[WavefrontLaunch], None] | None = None,
+) -> torch.Tensor:
+    """Trace one sample per ray, wavefront-style; radiance [R, 3].
+
+    Per bounce: compact, read the live count, round it up to a bucket,
+    launch ``kernels.mesh_bounce`` (or ``sphere_bounce`` without a mesh)
+    over the bucket, and add the contribution into each ray's original
+    lane. An all-dead wavefront ends the loop. ``on_launch``, when given,
+    is called with each launch before it runs.
+    """
+    n0 = origins.shape[0]
+    device = origins.device
+    radiance = torch.zeros((n0, 3), dtype=torch.float32, device=device)
+    throughput = torch.ones((n0, 3), dtype=torch.float32, device=device)
+    alive = torch.ones((n0,), dtype=torch.bool, device=device)
+    lane = torch.arange(n0, dtype=torch.int32, device=device)
+    for bounce in range(max_bounces):
+        origins, directions, throughput, alive, lane, live_dev = compact(
+            origins, directions, throughput, alive, lane, mesh
+        )
+        live = int(live_dev)  # the one device sync of the bounce
+        if live == 0:
+            break
+        bucket = bucket_for(live, cap=origins.shape[0], block=BUCKET_BLOCK)
+        state = (
+            origins[:bucket], directions[:bucket], throughput[:bucket], alive[:bucket],
+            lane[:bucket],
+        )
+        if on_launch is not None:
+            on_launch(WavefrontLaunch(bounce, live, bucket, state))
+        if mesh is None:
+            step = kernels.sphere_bounce(
+                scene, *state, live, seed, bounce, total_bounces=max_bounces
+            )
+        else:
+            step = kernels.mesh_bounce(
+                scene, mesh, *state, live, seed, bounce, total_bounces=max_bounces
+            )
+        origins, directions, throughput, alive = (
+            step.origins, step.directions, step.throughput, step.alive
+        )
+        lane = state[4]
+        radiance.index_add_(0, lane.to(torch.int64), step.contribution)
+    return radiance
+
+
+def render_frame_wavefront(
+    scene_name: str,
+    frame_index: int,
+    *,
+    width: int = 512,
+    height: int = 512,
+    samples: int = 8,
+    max_bounces: int = 4,
+    device: str | torch.device | None = None,
+    on_launch: Callable[[WavefrontLaunch], None] | None = None,
+) -> torch.Tensor:
+    """Render one frame through the wavefront driver; [H, W, 3] linear
+    radiance on ``device`` (CUDA unless ``cpu`` is asked for). The same
+    rays and trace seed as ``integrator.render_frame``."""
+    device = resolve_device(device)
+    scene = build_scene(scene_name, frame_index, device)
+    camera = scene_camera(scene_name, frame_index, device)
+    origins, directions, seed = frame_rays_and_seed(
+        camera, frame_index, width=width, height=height, samples=samples
+    )
+    radiance = trace_paths_wavefront(
+        scene, origins, directions, seed, max_bounces=max_bounces,
+        mesh=scene_mesh_set(scene_name, frame_index, device=device), on_launch=on_launch,
+    )
+    return radiance.reshape(samples, height * width, 3).mean(dim=0).reshape(height, width, 3)
+
+
+def wavefront_eligible(mesh: MeshSet | None) -> bool:
+    """The auto tier's rule: the deep-walk mesh scenes, those past the mesh
+    megakernel's bound, where masked dead lanes still pay for walks."""
+    return mesh is not None and not kernels.mesh_megakernel_eligible(mesh)
+
+
+WAVEFRONT_MODES = ("auto", "off", "force")
+
+
+@functools.lru_cache(maxsize=64)
+def wavefront_active(scene_name: str, *, mode: str | None = None) -> bool:
+    """Whether the wavefront driver renders this scene: ``off`` never,
+    ``force`` always (sphere scenes through the per-bounce sphere kernel),
+    ``auto`` (or None) for the scenes ``wavefront_eligible`` picks. A
+    scene's BVH and instance count do not change with the frame, so the
+    choice is made once per scene and mode."""
+    mode = "auto" if mode is None else mode
+    if mode not in WAVEFRONT_MODES:
+        raise ValueError(f"wavefront mode {mode!r} is not one of {WAVEFRONT_MODES}")
+    if mode != "auto":
+        return mode == "force"
+    return wavefront_eligible(scene_mesh_set(scene_name, 1))

@@ -1,9 +1,11 @@
-// Per-path device code shared by the path-trace megakernels
-// (trace_fused.cu, trace_fused_mesh.cu): the sphere table, nearest sphere
+// Per-path device code shared by the path-trace kernels (the megakernels
+// trace_fused.cu and trace_fused_mesh.cu, the per-bounce kernels
+// sphere_bounce.cu and mesh_bounce.cu): the sphere table, nearest sphere
 // and ground-plane hits, the sky, the sphere shadow any-hit, the
-// emission/albedo shading of a sphere or plane hit, and the counter-PCG
-// cosine resample. One thread owns one path; every function works on that
-// thread's registers and the block's shared sphere table.
+// emission/albedo shading of a sphere or plane hit, the counter-PCG cosine
+// resample, and the whole sphere-scene bounce built from them. One thread
+// owns one path; every function works on that thread's registers and the
+// block's shared sphere table.
 //
 // Rounding follows the reference's compiler (XLA on the CPU): every product
 // that feeds one add is an explicit fmaf, dot products are fma chains, the
@@ -207,6 +209,61 @@ __device__ __forceinline__ float3v resample(float3v n, uint32_t lane, int bounce
   const float bz = fmaf(n.x, ty, -(n.y * tx));
   return {fmaf(lz, n.x, fmaf(lx, tx, ly * bx)), fmaf(lz, n.y, fmaf(lx, ty, ly * by)),
           fmaf(lz, n.z, fmaf(lx, tz, ly * bz))};
+}
+
+// One bounce of a sphere-scene path, in the reference's order: nearest
+// sphere and ground-plane hit, sky plus sun disc on escape, emission,
+// checker albedo, sun NEE (any-hit against the spheres), cosine resample.
+// Adds this bounce's radiance into rad and advances o, d and thr. Returns
+// false when the path escaped: o, d and thr are then left as they were,
+// which is what the reference's masked update leaves in a lane that dies.
+// `lane` is the ray's original lane (its RNG counter).
+__device__ __forceinline__ bool sphere_bounce(const SceneShared& s, int n_spheres, uint32_t lane,
+                                              int bounce, uint32_t counter_stride, uint32_t seed,
+                                              float3v& o, float3v& d, float3v& thr,
+                                              float3v& rad) {
+  const float* sun = s.params;
+  int idx;
+  const float t_sphere = nearest_sphere(s, n_spheres, o, d, &idx);
+  const float t_plane = plane_hit(o, d);
+  const bool is_plane = t_plane < t_sphere;
+  const float t = fminf(t_sphere, t_plane);
+
+  if (!(t < kInf)) {
+    add_sky(s, d, thr, &rad);
+    return false;
+  }
+
+  const float3v p = {fmaf(d.x, t, o.x), fmaf(d.y, t, o.y), fmaf(d.z, t, o.z)};
+  float3v normal, albedo;
+  if (is_plane) {
+    normal = {0.0f, 1.0f, 0.0f};
+    albedo = plane_albedo(s, p);
+  } else {
+    shade_sphere(s, idx, p, thr, &rad, &normal, &albedo);
+  }
+
+  const float3v so = {fmaf(normal.x, kOffset, p.x), fmaf(normal.y, kOffset, p.y),
+                      fmaf(normal.z, kOffset, p.z)};
+  const float cos_sun = fmaxf(dot3(normal.x, normal.y, normal.z, sun[0], sun[1], sun[2]), 0.0f);
+  if (cos_sun > 0.0f && !sphere_shadowed(s, n_spheres, so)) {
+    add_direct(s, albedo, cos_sun, thr, &rad);
+  }
+
+  thr = {thr.x * albedo.x, thr.y * albedo.y, thr.z * albedo.z};
+  d = resample(normal, lane, bounce, counter_stride, seed);
+  o = so;
+  return true;
+}
+
+__device__ __forceinline__ float3v load3(const float* rows, int64_t i) {
+  return {rows[3 * i + 0], rows[3 * i + 1], rows[3 * i + 2]};
+}
+
+__device__ __forceinline__ void store3(float* rows, int64_t i, float3v v) {
+  rows[3 * i + 0] = v.x;
+  rows[3 * i + 1] = v.y;
+  rows[3 * i + 2] = v.z;
 }
 
 }  // namespace path

@@ -28,8 +28,9 @@
 // expanded algebra (d.c - o.d, |o|^2 - 2 o.c + |c|^2), ties take the lowest
 // sphere index, the checker parity uses `& 1` (floor-mod, also for negative
 // sums), PCG wraps mod 2^32, and only IEEE-accurate math is used (no fast
-// math). The per-path code, rounded as the reference's compiler rounds, is
-// shared with the mesh megakernel in path_common.cuh.
+// math). The bounce itself, rounded as the reference's compiler rounds, is
+// path::sphere_bounce in path_common.cuh, shared with the per-bounce sphere
+// kernel (sphere_bounce.cu).
 
 #include "path_common.cuh"
 
@@ -50,53 +51,20 @@ trace_fused_kernel(const float* __restrict__ origins,
   const int64_t ray = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (ray >= n_rays) return;
   const uint32_t lane = static_cast<uint32_t>(ray);
-  const float* sun = scene.params;
 
-  float3v o = {origins[3 * ray + 0], origins[3 * ray + 1], origins[3 * ray + 2]};
-  float3v d = {directions[3 * ray + 0], directions[3 * ray + 1], directions[3 * ray + 2]};
+  float3v o = path::load3(origins, ray);
+  float3v d = path::load3(directions, ray);
   float3v thr = {1.0f, 1.0f, 1.0f};
   float3v rad = {0.0f, 0.0f, 0.0f};
   const uint32_t counter_stride = 2u * static_cast<uint32_t>(max_bounces) + 2u;
 
   for (int bounce = 0; bounce < max_bounces; ++bounce) {
-    int idx;
-    const float t_sphere = path::nearest_sphere(scene, n_spheres, o, d, &idx);
-    const float t_plane = path::plane_hit(o, d);
-    const bool is_plane = t_plane < t_sphere;
-    const float t = fminf(t_sphere, t_plane);
-
-    // -- sky on escape: the path ends here -----------------------------------
-    if (!(t < path::kInf)) {
-      path::add_sky(scene, d, thr, &rad);
-      break;
+    if (!path::sphere_bounce(scene, n_spheres, lane, bounce, counter_stride, seed, o, d, thr,
+                             rad)) {
+      break;  // the path escaped
     }
-
-    const float3v p = {fmaf(d.x, t, o.x), fmaf(d.y, t, o.y), fmaf(d.z, t, o.z)};
-    float3v normal, albedo;
-    if (is_plane) {
-      normal = {0.0f, 1.0f, 0.0f};
-      albedo = path::plane_albedo(scene, p);
-    } else {
-      path::shade_sphere(scene, idx, p, thr, &rad, &normal, &albedo);
-    }
-
-    // -- sun NEE: one any-hit shadow ray toward the (uniform) sun ----------
-    const float3v so = {fmaf(normal.x, path::kOffset, p.x), fmaf(normal.y, path::kOffset, p.y),
-                        fmaf(normal.z, path::kOffset, p.z)};
-    const float cos_sun = fmaxf(path::dot3(normal.x, normal.y, normal.z, sun[0], sun[1], sun[2]), 0.0f);
-    if (cos_sun > 0.0f && !path::sphere_shadowed(scene, n_spheres, so)) {
-      path::add_direct(scene, albedo, cos_sun, thr, &rad);
-    }
-
-    // -- continue the path: cosine-weighted resample --------------------------
-    thr = {thr.x * albedo.x, thr.y * albedo.y, thr.z * albedo.z};
-    d = path::resample(normal, lane, bounce, counter_stride, seed);
-    o = so;
   }
-
-  radiance_out[3 * ray + 0] = rad.x;
-  radiance_out[3 * ray + 1] = rad.y;
-  radiance_out[3 * ray + 2] = rad.z;
+  path::store3(radiance_out, ray, rad);
 }
 
 }  // namespace

@@ -1,12 +1,14 @@
-"""Whole-frame path tracing: primary rays, the megakernel, tonemapping.
+"""Whole-frame path tracing: primary rays, the kernels, tonemapping.
 
-Port of the masked megakernel tier of ``tpu_render_cluster/render/
-integrator.py`` for whole frames of the sphere scenes and of the mesh
-scenes whose mesh fits the mesh megakernel. A frame's samples ride the ray
+Port of the masked tier of ``tpu_render_cluster/render/integrator.py`` for
+whole frames of the sphere and mesh scenes. A frame's samples ride the ray
 axis (the reference's flattened-samples branch of ``render_tile``): every
-sample's jittered camera rays are traced in ONE launch of a path-trace
-megakernel (``trace_paths`` picks which), then averaged per pixel and
-tonemapped.
+sample's jittered camera rays are traced together, then averaged per pixel
+and tonemapped. ``trace_paths`` dispatches as the reference does: sphere
+scenes and shallow meshes take ONE launch of a path-trace megakernel; a
+deep mesh (past the mesh megakernel's walk bound) takes the per-bounce
+mesh kernel once per bounce, the rays re-sorted by a coherence key between
+bounces (``_ray_sort_order``), dead lanes at the tail.
 
 RNG: the jitter and the kernel's trace seed derive from the reference's
 ``jax.random`` key schedule, reproduced bit for bit by ``render/rng.py``.
@@ -27,11 +29,6 @@ from tpu_render_cluster_torch.render.mesh import MeshSet, scene_mesh_set
 from tpu_render_cluster_torch.render.scene import Scene, build_scene
 
 _TILES_SLICE = "tiled rendering arrives with the tiles slice of the port (ROADMAP.md, queue 1)"
-_DEEP_MESH_SLICE = (
-    "its BVH nodes x instances exceed the mesh megakernel's bound "
-    f"({kernels.MESH_MEGAKERNEL_MAX_WALK}); deep mesh scenes take the per-bounce "
-    "mesh kernel, which arrives with the deep-mesh slice of the port (ROADMAP.md, queue 1)"
-)
 
 
 def _int32(value) -> int:
@@ -100,14 +97,49 @@ def frame_rays_and_seed(camera: Camera, frame, *, width, height, samples):
     return origins, directions, trace_seed(tile_trace_key(base_key))
 
 
-def check_mesh_supported(mesh: MeshSet | None) -> None:
-    """Raise ``NotImplementedError`` for a mesh the ported kernels cannot
-    trace yet (beyond the mesh megakernel's walk bound)."""
-    if mesh is not None and not kernels.mesh_megakernel_eligible(mesh):
-        nodes, instances = mesh.bvh.skip.shape[0], mesh.instances.translation.shape[0]
-        raise NotImplementedError(
-            f"A mesh of {nodes} BVH nodes x {instances} instances: {_DEEP_MESH_SLICE}."
+def ray_sort_key(
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    alive: torch.Tensor,
+    mesh: MeshSet | None = None,
+) -> torch.Tensor:
+    """The reference's coherence key of each ray ([R] int64 holding the
+    uint32 key; torch's CPU lacks uint32 operations): direction octant in
+    bits 0-2, the 5-bit-per-axis Morton cell of ``origin + direction`` in
+    bits 3-17, the ray's first-entered instance (``instance_entry_candidates``,
+    K for none, clamped to 13 bits) in bits 18-30, and the dead flag in bit
+    31, so sorting by it puts every dead lane after every live one."""
+    candidate = torch.zeros(origins.shape[0], dtype=torch.int64, device=origins.device)
+    if mesh is not None:
+        table = kernels.instance_operands(mesh)
+        candidate = kernels.instance_entry_candidates(
+            origins, directions, table[:, 13:16], table[:, 16:19]
         )
+    point = origins + directions
+    lo = point.min(dim=0).values
+    span = torch.clamp_min(point.max(dim=0).values - lo, 1e-6)
+    cell = ((point - lo) / span * 31.999).to(torch.int64)  # 5 bits per axis
+
+    def part1by2(v):  # spread 5 bits to every third position
+        v = (v | (v << 8)) & 0x0300F
+        v = (v | (v << 4)) & 0x030C3
+        return (v | (v << 2)) & 0x09249
+
+    morton = part1by2(cell[:, 0]) | (part1by2(cell[:, 1]) << 1) | (part1by2(cell[:, 2]) << 2)
+    octant = (
+        (directions[:, 0] > 0).to(torch.int64)
+        | ((directions[:, 1] > 0).to(torch.int64) << 1)
+        | ((directions[:, 2] > 0).to(torch.int64) << 2)
+    )
+    dead = (~alive).to(torch.int64) << 31
+    return (torch.clamp_max(candidate, 0x1FFF) << 18) | (morton << 3) | octant | dead
+
+
+def _ray_sort_order(origins, directions, alive, mesh=None) -> torch.Tensor:
+    """The permutation that sorts the rays by ``ray_sort_key``, stably (as
+    ``jnp.argsort``): rays of a packet then mostly want the same instance
+    first and share an origin cell and octant, and dead lanes go last."""
+    return torch.argsort(ray_sort_key(origins, directions, alive, mesh), stable=True)
 
 
 def trace_paths(
@@ -121,16 +153,48 @@ def trace_paths(
 ) -> torch.Tensor:
     """Trace one sample per ray through the whole bounce loop; radiance
     [R, 3]. The reference's dispatch: no mesh -> the sphere megakernel; a
-    mesh within the walk bound -> the mesh megakernel; a deeper mesh
-    raises ``NotImplementedError`` (its kernel is not ported yet)."""
+    mesh within the walk bound -> the mesh megakernel; a deeper mesh ->
+    the per-bounce mesh kernel under the masked deep loop."""
     if mesh is None:
         return kernels.trace_paths_fused(
             scene, origins, directions, seed, max_bounces=max_bounces
         )
-    check_mesh_supported(mesh)
-    return kernels.trace_paths_fused_mesh(
-        scene, mesh, origins, directions, seed, max_bounces=max_bounces
-    )
+    if kernels.mesh_megakernel_eligible(mesh):
+        return kernels.trace_paths_fused_mesh(
+            scene, mesh, origins, directions, seed, max_bounces=max_bounces
+        )
+    return _trace_paths_deep(scene, mesh, origins, directions, seed, max_bounces)
+
+
+def _trace_paths_deep(scene, mesh, origins, directions, seed, max_bounces):
+    """The reference's masked deep loop: per bounce, re-sort the rays by the
+    coherence key (dead lanes to the tail) with ONE packed [n, 12] gather
+    of the travelling state, count the live lanes, and launch the
+    per-bounce kernel over every lane; the carried original lane is the RNG
+    counter and, at the end, unsorts the radiance. The live count stays on
+    the device: the loop never waits for the card."""
+    n = origins.shape[0]
+    device = origins.device
+    throughput = torch.ones((n, 3), dtype=torch.float32, device=device)
+    radiance = torch.zeros((n, 3), dtype=torch.float32, device=device)
+    alive = torch.ones((n,), dtype=torch.bool, device=device)
+    lane = torch.arange(n, dtype=torch.int32, device=device)
+    for bounce in range(max_bounces):
+        order = _ray_sort_order(origins, directions, alive, mesh)
+        packed = torch.cat([origins, directions, throughput, radiance], dim=1)[order]
+        origins, directions = packed[:, 0:3], packed[:, 3:6]
+        throughput, radiance = packed[:, 6:9], packed[:, 9:12]
+        alive, lane = alive[order], lane[order]
+        live = alive.sum(dtype=torch.int32)
+        step = kernels.mesh_bounce(
+            scene, mesh, origins, directions, throughput, alive, lane, live, seed, bounce,
+            total_bounces=max_bounces,
+        )
+        origins, directions, throughput, alive = (
+            step.origins, step.directions, step.throughput, step.alive
+        )
+        radiance = radiance + step.contribution
+    return torch.zeros_like(radiance).index_copy_(0, lane.to(torch.int64), radiance)
 
 
 def render_tile(
@@ -205,10 +269,6 @@ def _fused_frame_renderer(
     scene_name: str, width: int, height: int, samples: int, max_bounces: int,
     device: torch.device,
 ):
-    # A mesh's BVH and instance count are the same in every frame: a mesh
-    # the ported kernels cannot trace fails here, before any frame renders.
-    check_mesh_supported(scene_mesh_set(scene_name, 0, device=device))
-
     def render(frame: int) -> torch.Tensor:
         scene = build_scene(scene_name, frame, device)
         camera = scene_camera(scene_name, frame, device)
@@ -235,8 +295,7 @@ def fused_frame_renderer(
 
     The image stays on ``device``: the caller copies it back when it needs
     the pixels. The device resolves here (CUDA unless ``cpu`` is asked
-    for) and is part of the cache key. A mesh scene beyond the mesh
-    megakernel's bound raises ``NotImplementedError`` here.
+    for) and is part of the cache key.
     """
     return _fused_frame_renderer(
         scene_name, width, height, samples, max_bounces, resolve_device(device)

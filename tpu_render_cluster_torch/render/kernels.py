@@ -1,25 +1,31 @@
 """The render path's kernels and their plain PyTorch versions.
 
-Counterpart of ``tpu_render_cluster/render/pallas_kernels.py``. Two
+Counterpart of ``tpu_render_cluster/render/pallas_kernels.py``. Four
 kernels, written in CUDA C++ for Hopper and built by ``_build.py``:
 
 - ``csrc/trace_fused.cu``, the sphere path-trace megakernel that replaces
   the TPU's ``_trace_fused`` in its positional-counter mode;
 - ``csrc/trace_fused_mesh.cu``, the mesh megakernel that replaces
   ``_trace_fused_mesh``: spheres, the plane and K rigid instances of one
-  mesh walked through its threaded BVH, over the whole bounce loop.
+  mesh walked through its threaded BVH, over the whole bounce loop;
+- ``csrc/sphere_bounce.cu`` and ``csrc/mesh_bounce.cu``, one bounce of
+  each megakernel with the path state streamed in and out (the TPU's
+  ``_sphere_bounce`` and ``_mesh_bounce_io``, flat instance variant), for
+  the deep-mesh loop of ``integrator.trace_paths`` and the wavefront
+  driver of ``compaction.py``.
 
-``trace_paths_fused`` / ``trace_paths_fused_mesh`` launch their kernel for
-CUDA tensors, and raise if they cannot. For CPU tensors they run the plain
-versions, ``trace_paths_fused_reference`` / ``_mesh_reference``, which
-repeat the reference's masked bounce loop operation for operation; there is
-no fallback from one to the other. ``counts`` records kernel launches and
-plain-version calls, so a run can show which one the main path went
-through.
+``trace_paths_fused`` / ``trace_paths_fused_mesh`` / ``sphere_bounce`` /
+``mesh_bounce`` launch their kernel for CUDA tensors, and raise if they
+cannot. For CPU tensors they run the plain versions (``..._reference``),
+which repeat the reference's masked bounce loop operation for operation;
+there is no fallback from one to the other. ``counts`` records kernel
+launches and plain-version calls, so a run can show which one the main
+path went through.
 
 RNG: a counter-based PCG hash of (lane, bounce, seed), the same portable
 integer hash the TPU kernel uses, so the kernel and the plain version draw
-the reference's random numbers bit for bit.
+the reference's random numbers bit for bit. The per-bounce kernels take
+each ray's original lane, so a ray's stream survives re-sorts.
 """
 
 from __future__ import annotations
@@ -44,13 +50,18 @@ _SPHERE_ALIGN = 8  # the reference pads the sphere count to a multiple of 8
 MESH_MEGAKERNEL_MAX_WALK = 1024
 _DET_EPS = 1e-12  # Moller-Trumbore's parallel-ray threshold
 
-# Kernel launches ("trace_fused", "trace_fused_mesh") and plain-version
-# calls ("..._reference") since the last reset_counts().
+# Kernel launches ("trace_fused", "trace_fused_mesh", "sphere_bounce",
+# "mesh_bounce") and plain-version calls ("..._reference") since the last
+# reset_counts().
 counts = {
     "trace_fused": 0,
     "trace_fused_reference": 0,
     "trace_fused_mesh": 0,
     "trace_fused_mesh_reference": 0,
+    "sphere_bounce": 0,
+    "sphere_bounce_reference": 0,
+    "mesh_bounce": 0,
+    "mesh_bounce_reference": 0,
 }
 
 
@@ -175,7 +186,30 @@ def _check_status(library, name: str, status: int) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {status} ({message})")
 
 
-def _sphere_operands(scene: Scene) -> tuple[torch.Tensor, torch.Tensor]:
+class _IdentityCache:
+    """``build(obj)`` kept for the last few objects it was called with,
+    keyed by identity: a BVH, a frame's scene or MeshSet, whose tensors are
+    never changed in place. An entry holds its object, so the id is not
+    reused meanwhile. The wrappers launch once per bounce on the same
+    frame, so its operands are built once per frame, not per launch."""
+
+    def __init__(self, build, entries: int = 8) -> None:
+        self._build = build
+        self._entries: dict[int, tuple[object, object]] = {}
+        self._size = entries
+
+    def __call__(self, obj):
+        entry = self._entries.get(id(obj))
+        if entry is not None and entry[0] is obj:
+            return entry[1]
+        value = self._build(obj)
+        if len(self._entries) >= self._size:
+            del self._entries[next(iter(self._entries))]
+        self._entries[id(obj)] = (obj, value)
+        return value
+
+
+def _pack_spheres(scene: Scene) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernels' sphere table ([N, 16]: four float4 per sphere, see
     csrc/path_common.cuh) and their 18 scene parameters."""
     table = sphere_table(scene)
@@ -196,6 +230,9 @@ def _sphere_operands(scene: Scene) -> tuple[torch.Tensor, torch.Tensor]:
         ]
     ).to(torch.float32).contiguous()
     return spheres, params
+
+
+_sphere_operands = _IdentityCache(_pack_spheres)
 
 
 def _ray_operands(origins, directions):
@@ -266,6 +303,48 @@ def instance_table(mesh: MeshSet) -> torch.Tensor:
     ).contiguous()
 
 
+# ``instance_table`` once per frame's MeshSet, for the wrappers and the
+# coherence sort key.
+instance_operands = _IdentityCache(instance_table)
+
+
+def instance_entry_candidates(
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    lo_w: torch.Tensor,
+    hi_w: torch.Tensor,
+    *,
+    chunk_rays: int = 262144,
+) -> torch.Tensor:
+    """Per-ray broadphase: the instance whose world AABB (``lo_w``/``hi_w``
+    [K, 3]) the ray enters first, or K where it overlaps none; [R] int64.
+
+    The reference's ``[R, K]`` slab pass, taken over chunks of rays (a
+    whole frame's ``[R, K]`` intermediates would take about 0.4 GB each)
+    and one axis at a time; ties go to the lowest instance.
+    """
+    small = torch.abs(directions) < 1e-12
+    inv = 1.0 / torch.where(small, torch.where(directions < 0, -1e-12, 1e-12), directions)
+    k = lo_w.shape[0]
+    out = torch.empty((origins.shape[0],), dtype=torch.int64, device=origins.device)
+    for start in range(0, origins.shape[0], chunk_rays):
+        rows = slice(start, start + chunk_rays)
+        near = far = None
+        for axis in range(3):
+            o = origins[rows, axis:axis + 1]
+            i = inv[rows, axis:axis + 1]
+            t0 = (lo_w[:, axis] - o) * i
+            t1 = (hi_w[:, axis] - o) * i
+            lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+            near = lo if near is None else torch.maximum(near, lo)
+            far = hi if far is None else torch.minimum(far, hi)
+        entry = torch.clamp_min(near, 0.0)
+        overlap = far >= entry
+        entry = torch.where(overlap, entry, INF)
+        out[rows] = torch.where(overlap.any(dim=1), entry.argmin(dim=1), k)
+    return out
+
+
 def _check_mesh(mesh: MeshSet, origins: torch.Tensor) -> None:
     tensors = [*mesh.bvh[:-1], *mesh.instances]
     devices = {t.device for t in tensors} | {origins.device}
@@ -299,20 +378,10 @@ def trace_paths_fused_mesh(
     raise ValueError(f"Unsupported device {origins.device}")
 
 
-# The kernel's layout of the BVHs launched last, keyed by the MeshBVH's
-# identity; an entry holds its MeshBVH, so that id is not reused meanwhile.
-# A BVH's tables are never changed in place.
-_packed_bvh: dict[int, tuple[MeshBVH, tuple]] = {}
-_PACKED_BVH_ENTRIES = 8
-
-
-def _bvh_operands(bvh: MeshBVH) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _pack_bvh(bvh: MeshBVH) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(triangle rows [T, 16] = v0, e1, e2, normal each padded to a float4,
     node bounds [N, 8] = lo, 0, hi, 0, node links [N, 4] int32 = skip,
-    first, count, 0) in the canonical node order, packed once per BVH."""
-    entry = _packed_bvh.get(id(bvh))
-    if entry is not None and entry[0] is bvh:
-        return entry[1]
+    first, count, 0) in the canonical node order."""
     zero_t = torch.zeros_like(bvh.v0[:, :1])
     triangles = torch.cat(
         [bvh.v0, zero_t, bvh.e1, zero_t, bvh.e2, zero_t, bvh.normal, zero_t], dim=1
@@ -322,11 +391,11 @@ def _bvh_operands(bvh: MeshBVH) -> tuple[torch.Tensor, torch.Tensor, torch.Tenso
     links = torch.stack(
         [bvh.skip, bvh.first, bvh.count, torch.zeros_like(bvh.skip)], dim=1
     ).to(torch.int32).contiguous()
-    packed = (triangles, bounds.to(torch.float32).contiguous(), links)
-    if len(_packed_bvh) >= _PACKED_BVH_ENTRIES:
-        del _packed_bvh[next(iter(_packed_bvh))]
-    _packed_bvh[id(bvh)] = (bvh, packed)
-    return packed
+    return triangles, bounds.to(torch.float32).contiguous(), links
+
+
+# The kernels' layout of a BVH, packed once per BVH.
+_bvh_operands = _IdentityCache(_pack_bvh)
 
 
 def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces):
@@ -342,7 +411,7 @@ def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces
     ]
     launch.restype = ctypes.c_int
     spheres, params = _sphere_operands(scene)
-    table = instance_table(mesh)
+    table = instance_operands(mesh)
     triangles, bounds, links = _bvh_operands(mesh.bvh)
     origins, directions, radiance, stream = _ray_operands(origins, directions)
     status = launch(
@@ -356,6 +425,161 @@ def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces
     _check_status(library, "trace_fused_mesh", status)
     counts["trace_fused_mesh"] += 1
     return radiance
+
+
+# ---------------------------------------------------------------------------
+# One bounce with streamed state
+
+
+class BounceState(NamedTuple):
+    """A bounce's output: this bounce's radiance ``contribution`` [R, 3]
+    (from zero) and the path state after it."""
+
+    contribution: torch.Tensor  # [R, 3] float32
+    origins: torch.Tensor  # [R, 3] float32
+    directions: torch.Tensor  # [R, 3] float32
+    throughput: torch.Tensor  # [R, 3] float32
+    alive: torch.Tensor  # [R] bool
+
+
+def _check_state(scene, origins, directions, throughput, alive, lane, seed, bounce, total_bounces):
+    _check_inputs(scene, origins, directions, seed)
+    rays = origins.shape[0]
+    if throughput.shape != origins.shape or throughput.dtype != torch.float32:
+        raise ValueError(
+            f"throughput must be float32 [R, 3]; got {throughput.dtype} {tuple(throughput.shape)}"
+        )
+    if alive.shape != (rays,) or alive.dtype != torch.bool:
+        raise ValueError(f"alive must be bool [R]; got {alive.dtype} {tuple(alive.shape)}")
+    if lane.shape != (rays,) or lane.dtype != torch.int32:
+        raise ValueError(f"lane must be int32 [R]; got {lane.dtype} {tuple(lane.shape)}")
+    devices = {origins.device, throughput.device, alive.device, lane.device}
+    if len(devices) != 1:
+        raise ValueError(f"the path state must lie on one device, got {devices}")
+    if not 0 <= int(bounce) < int(total_bounces):
+        raise ValueError(f"bounce {bounce} is not in [0, total_bounces={total_bounces})")
+
+
+def sphere_bounce(
+    scene: Scene,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    throughput: torch.Tensor,
+    alive: torch.Tensor,
+    lane: torch.Tensor,
+    live_count,
+    seed: int,
+    bounce: int,
+    *,
+    total_bounces: int,
+) -> BounceState:
+    """One bounce of the sphere megakernel over streamed path state.
+
+    ``lane`` [R] int32 is each ray's original lane, its RNG counter.
+    ``live_count`` (an int or a one-element tensor on the rays' device) is
+    the number of leading lanes that may be alive: the caller sorts dead
+    lanes to the tail, and lanes at or past it pass through with a zero
+    contribution. ``bounce`` counts from 0 of ``total_bounces``, which
+    sets the RNG counter stride as in the megakernel. CUDA tensors go to
+    the kernel, CPU tensors to the plain version.
+    """
+    _check_state(scene, origins, directions, throughput, alive, lane, seed, bounce, total_bounces)
+    if origins.device.type == "cuda":
+        return _launch_bounce(
+            "sphere_bounce", scene, None, origins, directions, throughput, alive, lane,
+            live_count, seed, bounce, total_bounces,
+        )
+    if origins.device.type == "cpu":
+        return sphere_bounce_reference(
+            scene, origins, directions, throughput, alive, lane, live_count, seed, bounce,
+            total_bounces=total_bounces,
+        )
+    raise ValueError(f"Unsupported device {origins.device}")
+
+
+def mesh_bounce(
+    scene: Scene,
+    mesh: MeshSet,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    throughput: torch.Tensor,
+    alive: torch.Tensor,
+    lane: torch.Tensor,
+    live_count,
+    seed: int,
+    bounce: int,
+    *,
+    total_bounces: int,
+) -> BounceState:
+    """One bounce of the mesh megakernel over streamed path state; the
+    arguments are ``sphere_bounce``'s plus the mesh. Takes any mesh."""
+    _check_state(scene, origins, directions, throughput, alive, lane, seed, bounce, total_bounces)
+    _check_mesh(mesh, origins)
+    if origins.device.type == "cuda":
+        return _launch_bounce(
+            "mesh_bounce", scene, mesh, origins, directions, throughput, alive, lane,
+            live_count, seed, bounce, total_bounces,
+        )
+    if origins.device.type == "cpu":
+        return mesh_bounce_reference(
+            scene, mesh, origins, directions, throughput, alive, lane, live_count, seed, bounce,
+            total_bounces=total_bounces,
+        )
+    raise ValueError(f"Unsupported device {origins.device}")
+
+
+# The per-bounce launchers' C arguments around the tables: the five state
+# rows, n_rays and the live count; then the five outputs and the stream.
+_STATE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+_OUTPUT_ARGTYPES = [ctypes.c_void_p] * 6
+
+
+def _launch_bounce(
+    name, scene, mesh, origins, directions, throughput, alive, lane, live_count, seed, bounce,
+    total_bounces,
+):
+    library = _library(name)
+    launch = getattr(library, f"{name}_launch")
+    table_argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]  # spheres, params
+    if mesh is not None:
+        table_argtypes += [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ]
+    launch.argtypes = (
+        _STATE_ARGTYPES + table_argtypes + [ctypes.c_int] * 3 + _OUTPUT_ARGTYPES
+    )
+    launch.restype = ctypes.c_int
+    rays = origins.shape[0]
+    if rays >= 2**31:
+        raise ValueError(f"{rays} rays exceed the kernel's int32 lane index")
+    device = origins.device
+    if isinstance(live_count, torch.Tensor):
+        live = live_count.to(device=device, dtype=torch.int32).reshape(1)
+    else:  # filled on the card: a copy from pageable host memory would wait for it
+        live = torch.full((1,), int(live_count), dtype=torch.int32, device=device)
+    state = [t.contiguous() for t in (origins, directions, throughput, alive, lane)]
+    spheres, params = _sphere_operands(scene)
+    tables = [spheres.data_ptr(), spheres.shape[0], params.data_ptr()]
+    if mesh is not None:
+        table = instance_operands(mesh)
+        triangles, bounds, links = _bvh_operands(mesh.bvh)
+        tables += [
+            table.data_ptr(), table.shape[0], triangles.data_ptr(), triangles.shape[0],
+            bounds.data_ptr(), links.data_ptr(), bounds.shape[0],
+        ]
+    out = BounceState(
+        *(torch.empty((rays, 3), dtype=torch.float32, device=device) for _ in range(4)),
+        torch.empty((rays,), dtype=torch.bool, device=device),
+    )
+    status = launch(
+        *(t.data_ptr() for t in state[:5]), rays, live.data_ptr(),
+        *tables, int(seed), int(bounce), int(total_bounces),
+        *(t.data_ptr() for t in out), torch.cuda.current_stream(device).cuda_stream,
+    )
+    _check_status(library, name, status)
+    counts[name] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -413,9 +637,10 @@ def trace_paths_fused_mesh_reference(
     tested against its best t at that moment. That is the per-ray walk of
     the kernel, so the two agree ray for ray, ties included.
 
-    ``stats`` also receives the mesh work: world-AABB tests, instance
-    walks entered, node slab tests and triangle tests (the shadow walks
-    stop at the first occluder, as the kernel's do).
+    ``stats`` also receives the mesh work: the instance count, the rays
+    that search the instances (nearest and shadow rays), world-AABB tests,
+    instance walks entered, node slab tests and triangle tests (the shadow
+    walks stop at the first occluder, as the kernel's do).
     """
     _check_inputs(scene, origins, directions, seed)
     _check_mesh(mesh, origins)
@@ -426,19 +651,114 @@ def trace_paths_fused_mesh_reference(
     )
 
 
+def sphere_bounce_reference(
+    scene: Scene,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    throughput: torch.Tensor,
+    alive: torch.Tensor,
+    lane: torch.Tensor,
+    live_count,
+    seed: int,
+    bounce: int,
+    *,
+    total_bounces: int,
+    chunk_rays: int = 32768,
+    stats: dict | None = None,
+) -> BounceState:
+    """The plain PyTorch version of the per-bounce sphere kernel, on any
+    device: one bounce of the sphere megakernel's plain version over the
+    leading ``live_count`` lanes, the contribution from zero; the lanes
+    past it pass through. ``stats`` as for the megakernel's version."""
+    _check_state(scene, origins, directions, throughput, alive, lane, seed, bounce, total_bounces)
+    counts["sphere_bounce_reference"] += 1
+    return _bounce_reference(
+        sphere_table(scene), None, origins, directions, throughput, alive, lane, live_count,
+        seed, bounce, total_bounces, chunk_rays, stats,
+    )
+
+
+def mesh_bounce_reference(
+    scene: Scene,
+    mesh: MeshSet,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    throughput: torch.Tensor,
+    alive: torch.Tensor,
+    lane: torch.Tensor,
+    live_count,
+    seed: int,
+    bounce: int,
+    *,
+    total_bounces: int,
+    chunk_rays: int = 262144,
+    stats: dict | None = None,
+) -> BounceState:
+    """The plain PyTorch version of the per-bounce mesh kernel, on any
+    device: ``sphere_bounce_reference`` with the mesh megakernel's plain
+    bounce (its node sweep and its work counters)."""
+    _check_state(scene, origins, directions, throughput, alive, lane, seed, bounce, total_bounces)
+    _check_mesh(mesh, origins)
+    counts["mesh_bounce_reference"] += 1
+    return _bounce_reference(
+        sphere_table(scene), _MeshWalk.build(mesh, scene.sun_direction), origins, directions,
+        throughput, alive, lane, live_count, seed, bounce, total_bounces, chunk_rays, stats,
+    )
+
+
+def _bounce_reference(
+    table, walk, origins, directions, throughput, alive, lane, live_count, seed, bounce,
+    total_bounces, chunk_rays, stats,
+):
+    rays = origins.shape[0]
+    live = max(0, min(int(live_count), rays))
+    out = BounceState(
+        torch.zeros_like(origins), origins.clone(), directions.clone(), throughput.clone(),
+        alive.clone(),
+    )
+    if stats is not None:
+        keys = _start_stats(stats, table, walk)
+    for start in range(0, live, chunk_rays):
+        rows = slice(start, min(start + chunk_rays, live))
+        zero = torch.zeros_like(origins[rows])
+        o, d, thr, contribution, alive_f = _bounce(
+            table, walk, origins[rows], directions[rows], throughput[rows], zero,
+            alive[rows, None].to(torch.float32), lane[rows].to(torch.int64), bounce,
+            total_bounces, int(seed) & MASK32, stats,
+        )
+        out.contribution[rows] = contribution
+        out.origins[rows] = o
+        out.directions[rows] = d
+        out.throughput[rows] = thr
+        out.alive[rows] = alive_f[:, 0] > 0.5
+    if stats is not None:
+        for key in keys:
+            stats[key] = int(stats[key])
+    return out
+
+
 _STATS = ("alive_lane_bounces", "hit_lane_bounces", "shadow_sphere_tests")
-_MESH_STATS = ("world_aabb_tests", "instance_walks", "node_tests", "triangle_tests")
+_MESH_STATS = (
+    "broadphase_rays", "world_aabb_tests", "instance_walks", "node_tests", "triangle_tests"
+)
+
+
+def _start_stats(stats, table, walk):
+    keys = _STATS + (_MESH_STATS if walk is not None else ())
+    for key in keys:
+        stats.setdefault(key, 0)
+    # The scene's own pad slots (radius 0, always last) are not counted.
+    stats["spheres"] = int((table.r2 > 0.0).sum())
+    if walk is not None:
+        stats["instances"] = walk.table.shape[0]
+    return keys
 
 
 def _trace_reference(table, walk, origins, directions, seed, max_bounces, chunk_rays, stats):
     seed_word = int(seed) & MASK32
     out = torch.empty_like(origins)
     if stats is not None:
-        keys = _STATS + (_MESH_STATS if walk is not None else ())
-        for key in keys:
-            stats.setdefault(key, 0)
-        # The scene's own pad slots (radius 0, always last) are not counted.
-        stats["spheres"] = int((table.r2 > 0.0).sum())
+        keys = _start_stats(stats, table, walk)
     for start in range(0, origins.shape[0], chunk_rays):
         stop = min(start + chunk_rays, origins.shape[0])
         out[start:stop] = _reference_chunk(
@@ -454,17 +774,31 @@ def _trace_reference(table, walk, origins, directions, seed, max_bounces, chunk_
 def _reference_chunk(table, walk, o, d, lane_start, seed_word, max_bounces, stats):
     device = o.device
     rays = o.shape[0]
+    lane = torch.arange(lane_start, lane_start + rays, dtype=torch.int64, device=device)
+    throughput = torch.ones((rays, 3), dtype=torch.float32, device=device)
+    radiance = torch.zeros((rays, 3), dtype=torch.float32, device=device)
+    alive = torch.ones((rays, 1), dtype=torch.float32, device=device)
+    for bounce in range(max_bounces):
+        o, d, throughput, radiance, alive = _bounce(
+            table, walk, o, d, throughput, radiance, alive, lane, bounce, max_bounces,
+            seed_word, stats,
+        )
+    return radiance
+
+
+def _bounce(table, walk, o, d, throughput, radiance, alive, lane, bounce, total_bounces,
+            seed_word, stats):
+    """One bounce of the reference's masked loop over [n] rays: ``alive``
+    is float [n, 1] (0 or 1), ``lane`` int64 [n] the RNG counters.
+    Returns (o, d, throughput, radiance, alive) after the bounce, radiance
+    accumulated into the given one."""
+    device = o.device
     n = table.centers.shape[0]
     c = table.centers
     r2, csq, radius, dc_sun = table.r2, table.csq, table.radius, table.dc_sun
     sun = table.sun_direction
     sphere_index = torch.arange(n, device=device)
-    lane = torch.arange(lane_start, lane_start + rays, dtype=torch.int64, device=device)
     plane_normal = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=device)
-
-    throughput = torch.ones((rays, 3), dtype=torch.float32, device=device)
-    radiance = torch.zeros((rays, 3), dtype=torch.float32, device=device)
-    alive = torch.ones((rays, 1), dtype=torch.float32, device=device)
 
     def sphere_dots(points):  # [R, N]: c . points, as dot3 sums it
         return fma(
@@ -472,139 +806,138 @@ def _reference_chunk(table, walk, o, d, lane_start, seed_word, max_bounces, stat
             fma(c[:, 1], points[:, 1:2], c[:, 0] * points[:, 0:1]),
         )
 
-    for bounce in range(max_bounces):
-        # -- nearest sphere hit -------------------------------------------
-        dc = sphere_dots(d)
-        oc = sphere_dots(o)
-        od = dot3(o, d)[:, None]
-        o_sq = dot3(o, o)[:, None]
-        oc_dot_d = dc - od
-        oc_sq = o_sq - 2.0 * oc + csq
-        disc = fma(oc_dot_d, oc_dot_d, -(oc_sq - r2))
-        valid = (disc > 0.0) & (r2 > 0.0)
-        sqrt_disc = torch.sqrt(torch.clamp_min(disc, 0.0))
-        t0 = oc_dot_d - sqrt_disc
-        t1 = oc_dot_d + sqrt_disc
-        t_all = torch.where(t0 > EPS, t0, torch.where(t1 > EPS, t1, INF))
-        t_all = torch.where(valid, t_all, INF)
-        t_sphere = t_all.min(dim=1, keepdim=True).values
-        idx = torch.where(t_all == t_sphere, sphere_index, n).min(dim=1).values
-        idx = torch.clamp_max(idx, n - 1)
+    # -- nearest sphere hit -------------------------------------------
+    dc = sphere_dots(d)
+    oc = sphere_dots(o)
+    od = dot3(o, d)[:, None]
+    o_sq = dot3(o, o)[:, None]
+    oc_dot_d = dc - od
+    oc_sq = o_sq - 2.0 * oc + csq
+    disc = fma(oc_dot_d, oc_dot_d, -(oc_sq - r2))
+    valid = (disc > 0.0) & (r2 > 0.0)
+    sqrt_disc = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t0 = oc_dot_d - sqrt_disc
+    t1 = oc_dot_d + sqrt_disc
+    t_all = torch.where(t0 > EPS, t0, torch.where(t1 > EPS, t1, INF))
+    t_all = torch.where(valid, t_all, INF)
+    t_sphere = t_all.min(dim=1, keepdim=True).values
+    idx = torch.where(t_all == t_sphere, sphere_index, n).min(dim=1).values
+    idx = torch.clamp_max(idx, n - 1)
 
-        # -- ground plane y = 0 -------------------------------------------
-        d_y = d[:, 1:2]
-        o_y = o[:, 1:2]
-        denom = torch.where(torch.abs(d_y) < 1e-8, 1e-8, d_y)
-        t_plane = -o_y / denom
-        t_plane = torch.where((t_plane > EPS) & (torch.abs(d_y) >= 1e-8), t_plane, INF)
-        if walk is None:
-            is_plane = (t_plane < t_sphere).to(torch.float32)
-            t = torch.minimum(t_sphere, t_plane)
-        else:
-            # -- mesh instances, seeded with the sphere/plane hit; dead
-            # lanes carry -INF and never walk --------------------------------
-            t_sp = torch.minimum(t_sphere, t_plane)
-            seed_t = torch.where(alive > 0.5, t_sp, -INF)[:, 0]
-            t_mesh, mesh_normal, mesh_albedo = walk.nearest(o, d, seed_t, stats)
-            t_mesh = t_mesh[:, None]
-            is_plane = ((t_plane < t_sphere) & (t_mesh >= t_sp)).to(torch.float32)
-            is_mesh = t_mesh < t_sp
-            t = torch.minimum(t_sp, t_mesh)
-        hit = (t < INF).to(torch.float32)
+    # -- ground plane y = 0 -------------------------------------------
+    d_y = d[:, 1:2]
+    o_y = o[:, 1:2]
+    denom = torch.where(torch.abs(d_y) < 1e-8, 1e-8, d_y)
+    t_plane = -o_y / denom
+    t_plane = torch.where((t_plane > EPS) & (torch.abs(d_y) >= 1e-8), t_plane, INF)
+    if walk is None:
+        is_plane = (t_plane < t_sphere).to(torch.float32)
+        t = torch.minimum(t_sphere, t_plane)
+    else:
+        # -- mesh instances, seeded with the sphere/plane hit; dead
+        # lanes carry -INF and never walk --------------------------------
+        t_sp = torch.minimum(t_sphere, t_plane)
+        seed_t = torch.where(alive > 0.5, t_sp, -INF)[:, 0]
+        t_mesh, mesh_normal, mesh_albedo = walk.nearest(o, d, seed_t, stats)
+        t_mesh = t_mesh[:, None]
+        is_plane = ((t_plane < t_sphere) & (t_mesh >= t_sp)).to(torch.float32)
+        is_mesh = t_mesh < t_sp
+        t = torch.minimum(t_sp, t_mesh)
+    hit = (t < INF).to(torch.float32)
 
-        # -- sky on escape ------------------------------------------------
-        blend = torch.clamp(d_y, 0.0, 1.0)
-        sun_cos_dir = dot3(d, sun)[:, None]
-        sun_disc = torch.where(sun_cos_dir > 0.9995, 8.0, 0.0)
-        sky = fma(1.0 - blend, table.sky_horizon, blend * table.sky_zenith)
-        sky = sky + sun_disc * table.sun_color
-        radiance = radiance + throughput * sky * (alive * (1.0 - hit))
+    # -- sky on escape ------------------------------------------------
+    blend = torch.clamp(d_y, 0.0, 1.0)
+    sun_cos_dir = dot3(d, sun)[:, None]
+    sun_disc = torch.where(sun_cos_dir > 0.9995, 8.0, 0.0)
+    sky = fma(1.0 - blend, table.sky_horizon, blend * table.sky_zenith)
+    sky = sky + sun_disc * table.sun_color
+    radiance = radiance + throughput * sky * (alive * (1.0 - hit))
 
-        if stats is not None:
-            stats["alive_lane_bounces"] += alive.sum(dtype=torch.int64)
-            stats["hit_lane_bounces"] += (alive * hit).sum(dtype=torch.int64)
-        alive = alive * hit
-        p = fma(d, t, o)
+    if stats is not None:
+        stats["alive_lane_bounces"] += alive.sum(dtype=torch.int64)
+        stats["hit_lane_bounces"] += (alive * hit).sum(dtype=torch.int64)
+    alive = alive * hit
+    p = fma(d, t, o)
 
-        c_hit = c[idx]
-        r_hit = radius[idx][:, None]
-        sphere_normal = (p - c_hit) / torch.clamp_min(r_hit, 1e-6)
-        normal = is_plane * plane_normal + (1.0 - is_plane) * sphere_normal
+    c_hit = c[idx]
+    r_hit = radius[idx][:, None]
+    sphere_normal = (p - c_hit) / torch.clamp_min(r_hit, 1e-6)
+    normal = is_plane * plane_normal + (1.0 - is_plane) * sphere_normal
 
-        checker = torch.remainder(
-            torch.floor(p[:, 0:1]).to(torch.int32) + torch.floor(p[:, 2:3]).to(torch.int32),
-            2,
+    checker = torch.remainder(
+        torch.floor(p[:, 0:1]).to(torch.int32) + torch.floor(p[:, 2:3]).to(torch.int32),
+        2,
+    )
+    checker_rgb = torch.where(checker == 0, table.plane_albedo_a, table.plane_albedo_b)
+    albedo = is_plane * checker_rgb + (1.0 - is_plane) * table.albedo[idx]
+    emission = (1.0 - is_plane) * table.emission[idx]
+    if walk is not None:
+        # The reference's 0/1-weighted blends select exactly one term.
+        normal = torch.where(is_mesh, mesh_normal, normal)
+        albedo = torch.where(is_mesh, mesh_albedo, albedo)
+        emission = torch.where(is_mesh, 0.0, emission)
+    radiance = radiance + throughput * emission * alive
+
+    # -- sun NEE: one any-hit shadow test ------------------------------
+    shadow_o = fma(normal, EPS * 4.0, p)
+    oc_s = sphere_dots(shadow_o)
+    od_s = dot3(shadow_o, sun)[:, None]
+    osq_s = dot3(shadow_o, shadow_o)[:, None]
+    ocd_s = dc_sun - od_s
+    ocsq_s = osq_s - 2.0 * oc_s + csq
+    disc_s = fma(ocd_s, ocd_s, -(ocsq_s - r2))
+    valid_s = (disc_s > 0.0) & (r2 > 0.0)
+    t1_s = ocd_s + torch.sqrt(torch.clamp_min(disc_s, 0.0))
+    occluders = valid_s & (t1_s > EPS)
+    shadowed = occluders.any(dim=1, keepdim=True).to(torch.float32)
+    cos_sun = torch.clamp_min(dot3(normal, sun)[:, None], 0.0)
+    if stats is not None:
+        tested = (alive > 0.5) & (cos_sun > 0.0)
+        # Pad slots never occlude: an unoccluded ray tests the real ones.
+        first = torch.where(
+            occluders.any(dim=1, keepdim=True),
+            occluders.to(torch.int8).argmax(dim=1, keepdim=True) + 1,
+            stats["spheres"],
         )
-        checker_rgb = torch.where(checker == 0, table.plane_albedo_a, table.plane_albedo_b)
-        albedo = is_plane * checker_rgb + (1.0 - is_plane) * table.albedo[idx]
-        emission = (1.0 - is_plane) * table.emission[idx]
-        if walk is not None:
-            # The reference's 0/1-weighted blends select exactly one term.
-            normal = torch.where(is_mesh, mesh_normal, normal)
-            albedo = torch.where(is_mesh, mesh_albedo, albedo)
-            emission = torch.where(is_mesh, 0.0, emission)
-        radiance = radiance + throughput * emission * alive
+        stats["shadow_sphere_tests"] += (first * tested).sum()
+    if walk is not None:
+        # Lanes whose result cannot matter (sphere-shadowed, dead, sun
+        # below the surface) do not walk the mesh.
+        blocked = (shadowed > 0.0) | (alive <= 0.5) | (cos_sun <= 0.0)
+        shadowed = walk.occluded(shadow_o, blocked[:, 0], stats)[:, None].to(torch.float32)
+    direct = albedo * table.sun_color * (cos_sun * (1.0 - shadowed) * alive) * INV_PI
+    radiance = fma(throughput, direct, radiance)
 
-        # -- sun NEE: one any-hit shadow test ------------------------------
-        shadow_o = fma(normal, EPS * 4.0, p)
-        oc_s = sphere_dots(shadow_o)
-        od_s = dot3(shadow_o, sun)[:, None]
-        osq_s = dot3(shadow_o, shadow_o)[:, None]
-        ocd_s = dc_sun - od_s
-        ocsq_s = osq_s - 2.0 * oc_s + csq
-        disc_s = fma(ocd_s, ocd_s, -(ocsq_s - r2))
-        valid_s = (disc_s > 0.0) & (r2 > 0.0)
-        t1_s = ocd_s + torch.sqrt(torch.clamp_min(disc_s, 0.0))
-        occluders = valid_s & (t1_s > EPS)
-        shadowed = occluders.any(dim=1, keepdim=True).to(torch.float32)
-        cos_sun = torch.clamp_min(dot3(normal, sun)[:, None], 0.0)
-        if stats is not None:
-            tested = (alive > 0.5) & (cos_sun > 0.0)
-            # Pad slots never occlude: an unoccluded ray tests the real ones.
-            first = torch.where(
-                occluders.any(dim=1, keepdim=True),
-                occluders.to(torch.int8).argmax(dim=1, keepdim=True) + 1,
-                stats["spheres"],
-            )
-            stats["shadow_sphere_tests"] += (first * tested).sum()
-        if walk is not None:
-            # Lanes whose result cannot matter (sphere-shadowed, dead, sun
-            # below the surface) do not walk the mesh.
-            blocked = (shadowed > 0.0) | (alive <= 0.5) | (cos_sun <= 0.0)
-            shadowed = walk.occluded(shadow_o, blocked[:, 0], stats)[:, None].to(torch.float32)
-        direct = albedo * table.sun_color * (cos_sun * (1.0 - shadowed) * alive) * INV_PI
-        radiance = fma(throughput, direct, radiance)
-
-        # -- continue the path: cosine-weighted resample ------------------
-        throughput = throughput * (alive * albedo + (1.0 - alive))
-        counter = (lane * (2 * max_bounces + 2) + 2 * bounce) & MASK32
-        u1 = uniform_from_hash(pcg_hash(counter ^ seed_word))[:, None]
-        u2 = uniform_from_hash(pcg_hash(((counter + 1) & MASK32) ^ seed_word))[:, None]
-        r = torch.sqrt(u1)
-        phi = torch.tensor(2.0 * math.pi, dtype=torch.float32, device=device) * u2
-        # cos and sin correctly rounded to float32 (through float64), as the
-        # kernel computes them: the libraries' float32 versions differ in
-        # the last bit for a few percent of angles.
-        x = r * torch.cos(phi.double()).float()
-        y = r * torch.sin(phi.double()).float()
-        z = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0))
-        nx, ny, nz = normal[:, 0:1], normal[:, 1:2], normal[:, 2:3]
-        helper_x = torch.where(torch.abs(nx) > 0.9, 0.0, 1.0)
-        helper_y = 1.0 - helper_x
-        tangent = torch.cat([helper_y * nz, -helper_x * nz, helper_x * ny - helper_y * nx], dim=1)
-        tangent = tangent / torch.clamp_min(torch.sqrt(dot3(tangent, tangent))[:, None], 1e-8)
-        tx, ty, tz = tangent[:, 0:1], tangent[:, 1:2], tangent[:, 2:3]
-        bitangent = torch.cat(
-            [fma(ny, tz, -(nz * ty)), fma(nz, tx, -(nx * tz)), fma(nx, ty, -(ny * tx))], dim=1
-        )
-        new_d = fma(z, normal, fma(x, tangent, y * bitangent))
-        new_o = shadow_o
-        # where-select (not multiply-mask): dead lanes keep their old
-        # finite state, so no inf * 0 can poison later bounces.
-        live = alive > 0.5
-        o = torch.where(live, new_o, o)
-        d = torch.where(live, new_d, d)
-    return radiance
+    # -- continue the path: cosine-weighted resample ------------------
+    throughput = throughput * (alive * albedo + (1.0 - alive))
+    counter = (lane * (2 * total_bounces + 2) + 2 * bounce) & MASK32
+    u1 = uniform_from_hash(pcg_hash(counter ^ seed_word))[:, None]
+    u2 = uniform_from_hash(pcg_hash(((counter + 1) & MASK32) ^ seed_word))[:, None]
+    r = torch.sqrt(u1)
+    phi = torch.tensor(2.0 * math.pi, dtype=torch.float32, device=device) * u2
+    # cos and sin correctly rounded to float32 (through float64), as the
+    # kernel computes them: the libraries' float32 versions differ in
+    # the last bit for a few percent of angles.
+    x = r * torch.cos(phi.double()).float()
+    y = r * torch.sin(phi.double()).float()
+    z = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0))
+    nx, ny, nz = normal[:, 0:1], normal[:, 1:2], normal[:, 2:3]
+    helper_x = torch.where(torch.abs(nx) > 0.9, 0.0, 1.0)
+    helper_y = 1.0 - helper_x
+    tangent = torch.cat([helper_y * nz, -helper_x * nz, helper_x * ny - helper_y * nx], dim=1)
+    tangent = tangent / torch.clamp_min(torch.sqrt(dot3(tangent, tangent))[:, None], 1e-8)
+    tx, ty, tz = tangent[:, 0:1], tangent[:, 1:2], tangent[:, 2:3]
+    bitangent = torch.cat(
+        [fma(ny, tz, -(nz * ty)), fma(nz, tx, -(nx * tz)), fma(nx, ty, -(ny * tx))], dim=1
+    )
+    new_d = fma(z, normal, fma(x, tangent, y * bitangent))
+    new_o = shadow_o
+    # where-select (not multiply-mask): dead lanes keep their old
+    # finite state, so no inf * 0 can poison later bounces.
+    live = alive > 0.5
+    o = torch.where(live, new_o, o)
+    d = torch.where(live, new_d, d)
+    return o, d, throughput, radiance, alive
 
 
 def _winv(v: torch.Tensor) -> torch.Tensor:
@@ -741,6 +1074,8 @@ class _MeshWalk(NamedTuple):
         win_k = torch.full((rays,), -1, dtype=torch.int64, device=o.device)
         win_row = torch.zeros((rays,), dtype=torch.int64, device=o.device)
         inv = _winv(d)
+        if stats is not None:
+            stats["broadphase_rays"] += (seed_t > -INF).sum()
         for k in range(self.table.shape[0]):
             row = self.table[k]
             if stats is not None:
@@ -792,6 +1127,8 @@ class _MeshWalk(NamedTuple):
         at its first occluder."""
         occluded = blocked.clone()
         sun_inv = _winv(self.sun)
+        if stats is not None:
+            stats["broadphase_rays"] += (~blocked).sum()
         for k in range(self.table.shape[0]):
             idx = (~occluded).nonzero()[:, 0]
             if idx.numel() == 0:
