@@ -5,13 +5,17 @@ CUDA toolkit):
 
     python3 chip_smoke.py
 
-Four main paths, one per kernel, each through ``TorchRaytraceBackend``:
+Six main paths, one per kernel, each through ``TorchRaytraceBackend``:
 whole frames of the sphere scene 04_very-simple through ``trace_fused``,
 of the mesh scene 02_physics-mesh through ``trace_fused_mesh``, of the deep
 mesh scene 03_physics-2-mesh through the wavefront driver (the backend's
-default tier for it) and ``mesh_bounce``, and two frames of 04_very-simple
-under ``wavefront="force"`` through ``sphere_bounce``. Phases, each of
-which raises (exit code 1) if its check fails:
+default tier for a frame with none queued behind it) and ``mesh_bounce``,
+two frames of 04_very-simple under ``wavefront="force"`` through
+``sphere_bounce``, the same deep job through the ray pool (the backend's
+default tier when the worker queue's hint names more frames of the job)
+and ``pool_mesh_bounce``, and two frames of 04_very-simple under
+``raypool="force"`` through ``pool_sphere_bounce``. Phases, each of which
+raises (exit code 1) if its check fails:
 1. the card: name and power limit as nvidia-smi reports them;
 2. build every CUDA source of the port with nvcc (sm_90a), one nvcc per
    source, all at once, timed;
@@ -22,29 +26,44 @@ which raises (exit code 1) if its check fails:
    called directly); the per-bounce kernels on every launch of a wavefront
    frame (bounce 0 with every lane alive and the lanes re-sorted, later
    bounces with a sorted dead tail), all five outputs, at the tolerance of
-   tests/test_torch_mesh_bounce.py;
+   tests/test_torch_mesh_bounce.py; the pool kernels on the windows of
+   their main paths at 512x512, 8 spp (the deep job's frames 1-8 and 9-10,
+   the sphere job's frames 1-2), in each window on the first launch, at
+   every boundary between two frames the first launch with live lanes of
+   both (at mixed bounces where there is one), and the last launch (the
+   drain), all 65,536 lanes, at the same tolerance, and one chunk of the
+   pool's loop body under ``torch.cuda.set_sync_debug_mode("error")``;
 4. each main path: the first frames of a job file loaded through the
    port's job model and rendered by the backend at 512x512, 8 spp, 4
    bounces. The launch counts are zeroed just before each path and read
    just after: its kernel must have launched once per frame (a megakernel)
    or once per bounce the wavefront driver launched, and nothing else
-   ran, no plain version either. Every PNG must decode with non-trivial
-   content. Frame 1 is checked further: a megakernel's against its plain
+   ran, no plain version either; a pool kernel once per pool iteration.
+   Every PNG must decode with non-trivial content. Frame 1 is checked further: a megakernel's against its plain
    version's render; the deep path's against the masked deep loop ray for
    ray and against the mesh megakernel's render, and each of its
    launches against the plain per-bounce version on 65,536 of its rays;
-   the sphere wavefront's against the sphere megakernel and its frames;
+   the sphere wavefront's against the sphere megakernel and its frames; a
+   pool path's (the worker queue's hint given before each frame, as the
+   queue gives it: two windows, 8 and 2 frames, of the deep job) against
+   the wavefront tier's image of the same frame (atol 1e-5, the bit-equal
+   share printed) and the megakernel's PNG, and every other frame of
+   its first window against the wavefront tier's image too;
 5. timings: each path's per-frame phases and frames/s and a breakdown of
    one frame; each megakernel's time (its wrapper's calls, CUDA events, the
    median of 10 batches of 20) beside its bound, its plain version's time
    and the host time of one wrapper call; each per-bounce kernel's time at
    every launch width of a frame, with the compaction of that bounce, and
-   the mesh megakernel on the same deep frame for comparison;
+   the mesh megakernel on the same deep frame for comparison; each pool
+   kernel at its three launches, beside the glue of its iteration (sort,
+   refill, scatter), its bound from the plain version's work counters on
+   the whole launch, and the pool path's frames/s beside the wavefront's;
 6. under torch.profiler (reported, not checked: the numbers read "not
    measured" where the profiler sees no device time, or misses a launch of
    the kernel after three tries): each kernel's own device time apart from
    its wrapper's set-up work, and the card's idle share over two frames of
-   each main path (busy: the sum of the device's own events).
+   each main path, or one window of a pool path (busy: the sum of the
+   device's own events).
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -96,6 +115,8 @@ OPS_TRIANGLE = 54
 # throughput and alive.
 MEGAKERNEL_RAY_BYTES = (3 + 3 + 3) * 4
 BOUNCE_RAY_BYTES = 3 * 12 + 1 + 4 + 4 * 12 + 1
+# A pool kernel also reads each lane's frame id, seed and bounce.
+POOL_RAY_BYTES = BOUNCE_RAY_BYTES + 3 * 4
 
 SPHERE_JOB = "blender-projects/04_very-simple/04_very-simple_demo_10f-1w.toml"
 DEEP_JOB = "blender-projects/03_physics-2/03_physics-2-mesh_240f-8w_tpu-batch_tpu-raytrace.toml"
@@ -106,7 +127,8 @@ class MainPath(NamedTuple):
     job_file: str
     scene: str
     frames: int
-    wavefront: str | None  # the backend's option
+    wavefront: str | None  # the backend's options
+    raypool: str | None = None
 
 
 PATHS = [
@@ -118,13 +140,18 @@ PATHS = [
     ),
     MainPath("mesh_bounce", DEEP_JOB, "03_physics-2-mesh", 10, None),
     MainPath("sphere_bounce", SPHERE_JOB, "04_very-simple", 2, "force"),
+    MainPath("pool_mesh_bounce", DEEP_JOB, "03_physics-2-mesh", 10, None),
+    MainPath("pool_sphere_bounce", SPHERE_JOB, "04_very-simple", 2, None, "force"),
 ]
 MEGAKERNELS = ("trace_fused", "trace_fused_mesh")
+POOLS = ("pool_mesh_bounce", "pool_sphere_bounce")
 REPLACES = {
     "trace_fused": "tpu_render_cluster/render/pallas_kernels.py:901",
     "trace_fused_mesh": "tpu_render_cluster/render/pallas_kernels.py:3205",
     "mesh_bounce": "tpu_render_cluster/render/pallas_kernels.py:3345",
     "sphere_bounce": "tpu_render_cluster/render/pallas_kernels.py:1004",
+    "pool_sphere_bounce": "tpu_render_cluster/render/pallas_kernels.py:3784",
+    "pool_mesh_bounce": "tpu_render_cluster/render/pallas_kernels.py:3854",
 }
 BOUNCE_TOLERANCE = (
     "rtol=atol=1e-4 per ray on contribution, origin, direction and throughput, alive exact; "
@@ -138,6 +165,8 @@ TOLERANCE = {
     ),
     "mesh_bounce": BOUNCE_TOLERANCE,
     "sphere_bounce": BOUNCE_TOLERANCE,
+    "pool_mesh_bounce": BOUNCE_TOLERANCE,
+    "pool_sphere_bounce": BOUNCE_TOLERANCE,
 }
 
 
@@ -430,6 +459,131 @@ def bounce_kernel_vs_plain(kernel: str, scene_name: str, device) -> tuple[float,
     return min(r["fraction"] for r in results), max(r["err"] for r in results)
 
 
+def job_frames(path: MainPath):
+    """The job of a main path and the frames the path renders."""
+    from tpu_render_cluster_torch.jobs.models import BlenderJob
+    from tpu_render_cluster_torch.render.scene import scene_for_job_name
+
+    job = BlenderJob.load_from_file(REPO / path.job_file)
+    check(scene_for_job_name(job.job_name) == path.scene, f"{job.job_name} is not {path.scene}")
+    frames = list(job.frame_indices())[:path.frames]
+    check(len(frames) == path.frames, f"expected {path.frames} frames of {job.job_name}")
+    return job, frames
+
+
+def pool_launch_roles(launches, window) -> dict:
+    """The launches of one window that phase 3 checks, by role: the first;
+    for each boundary between frames f - 1 and f, the first launch whose
+    live lanes hold frame f and an earlier one, at more than one bounce
+    depth where a launch does (the last boundary is the role "mixed"); the
+    last launch (the drain, every primary served)."""
+    import torch
+
+    spans = []  # (lowest fid, highest fid, bounce depths) of each launch's live lanes
+    for launch in launches:
+        live = int(launch.live)
+        check(live > 0, f"launch {launch.iteration} runs no lane")
+        fid, bounce = launch.state[5][:live], launch.state[7][:live]
+        lo, hi, b_lo, b_hi = torch.stack([fid.min(), fid.max(), bounce.min(), bounce.max()]).tolist()
+        spans.append((lo, hi, b_hi > b_lo))
+    roles = {"first": 0}
+    frames = len(window.frames)
+    for f in range(1, frames):
+        holding = [i for i, (lo, hi, _) in enumerate(spans) if lo < f <= hi]
+        check(bool(holding), f"no launch holds lanes of frames {f - 1} and {f}")
+        mixed = [i for i in holding if spans[i][2]]
+        roles["mixed" if f == frames - 1 else f"frames {f - 1}-{f}"] = (mixed or holding)[0]
+    roles["drain"] = len(launches) - 1
+    return roles
+
+
+def pool_kernel_vs_plain(path: MainPath, device) -> dict:
+    """Phase 3 for a pool kernel: each window of its main path's frames at
+    the main path's size, iterated one step at a time, each launch's input
+    kept; the launches of ``pool_launch_roles`` through the kernel and its
+    plain version on all the pool's lanes (the plain version counting the
+    work); then one chunk of the loop body under
+    set_sync_debug_mode("error"). Returns the first window's launches and
+    states, for phase 5."""
+    import torch
+
+    from tpu_render_cluster_torch.render import kernels, raypool
+
+    kernel = path.kernel
+    _, frames = job_frames(path)
+    cap = raypool.RAYPOOL_FRAMES
+    wrapper, plain = getattr(kernels, kernel), getattr(kernels, f"{kernel}_reference")
+    results = []
+    for start in range(0, len(frames), cap):
+        window = raypool.PoolWindow(
+            path.scene, frames[start:start + cap], width=WIDTH, height=HEIGHT, samples=SAMPLES,
+            max_bounces=BOUNCES, device=device,
+        )
+        states, launches = [], []
+        state = window.initial_state()
+        while bool(window.more(state)):
+            states.append(state)
+            state = window.iteration(state, len(launches), launches.append)
+        check(int(state.counters[0]) == window.total, f"{kernel}: the window served {int(state.counters[0])}")
+        roles = pool_launch_roles(launches, window)
+        picked = {}
+        for role, index in roles.items():
+            same = [p for p in picked.values() if p["index"] == index]
+            if same:  # a launch that fills two roles is checked once
+                picked[role] = same[0]
+                continue
+            launch = launches[index]
+            live = int(launch.live)
+            got = wrapper(window.ops, *launch.state, live, total_bounces=BOUNCES)
+            stats: dict = {}
+            out: list = []
+            plain_ms = cuda_ms(
+                lambda: out.append(plain(window.ops, *launch.state, live, total_bounces=BOUNCES, stats=stats)), 1
+            )
+            result = {**bounce_agreement(got, out[0]), "plain_ms": plain_ms}
+            budget = max(1, round(0.001 * window.pool))
+            fids = sorted(set(launch.state[5][:live].unique().tolist()))
+            bounces = launch.state[7][:live].unique().numel()
+            print(
+                f"[3] {kernel} vs plain, {path.scene} window of frames {window.frames[0]}-"
+                f"{window.frames[-1]}, {role} launch (iteration {index} of {len(launches)}; live "
+                f"{live} of {window.pool}, frame ids {fids}, {bounces} bounce depth(s)): "
+                f"{result['fraction']:.6f} of lanes within 1e-4 ({result['bad']} not), "
+                f"{result['alive_bad']} alive differ, {result['bit_equal']:.6f} bit-equal, max abs "
+                f"err {result['err']:.3g}"
+            )
+            check(all(torch.isfinite(t).all().item() for t in got[:4]), f"{kernel}: non-finite state")
+            check(result["bad"] <= budget and result["alive_bad"] <= budget,
+                  f"{kernel} {role} launch: past the budget of {budget} lanes")
+            check(not got.alive[live:].any().item(), f"{kernel}: a lane past the live count lives")
+            picked[role] = {"index": index, "live": live, "stats": stats, **result}
+        if start == 0:
+            first = {"window": window, "picked": picked,
+                     "launches": {i: launches[i] for i in roles.values()},
+                     "states": {i: states[i] for i in roles.values()}}
+        results.extend({p["index"]: p for p in picked.values()}.values())
+        del states, launches
+
+    # No host read inside the loop body: one chunk under the sync check.
+    window = first["window"]
+    state = window.iteration(window.initial_state(), 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for index in range(1, 1 + raypool.CHECK_EVERY):
+            state = window.iteration(state, index)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"[3] {kernel}: {raypool.CHECK_EVERY} iterations of the pool's loop body ran under "
+          f"set_sync_debug_mode('error') without a synchronizing call")
+    return {
+        **first, "checked_launches": len(results),
+        "agree": min(r["fraction"] for r in results),
+        "max_abs_err": max(r["err"] for r in results),
+    }
+
+
 def drive_main_path(path: MainPath, device) -> dict:
     """Phase 4 for one path: its first frames through the backend, with the
     launch counts zeroed just before and read just after."""
@@ -437,37 +591,51 @@ def drive_main_path(path: MainPath, device) -> dict:
     import torch
     from PIL import Image
 
-    from tpu_render_cluster_torch.jobs.models import BlenderJob
-    from tpu_render_cluster_torch.render import compaction, kernels
-    from tpu_render_cluster_torch.render.scene import scene_for_job_name
+    from tpu_render_cluster_torch.render import compaction, kernels, raypool
     from tpu_render_cluster_torch.worker.backends.torch_raytrace import TorchRaytraceBackend
 
-    job = BlenderJob.load_from_file(REPO / path.job_file)
-    check(scene_for_job_name(job.job_name) == path.scene, f"{job.job_name} is not {path.scene}")
-    frames = list(job.frame_indices())[:path.frames]
-    check(len(frames) == path.frames, f"expected {path.frames} frames of {job.job_name}")
-    label = path.scene if path.wavefront is None else f"{path.scene} (wavefront={path.wavefront})"
-    wavefront = path.kernel not in MEGAKERNELS
+    job, frames = job_frames(path)
+    pool = path.kernel in POOLS
+    label = path.scene
+    if path.wavefront is not None:
+        label += f" (wavefront={path.wavefront})"
+    if pool:
+        label += " (ray pool" + ("" if path.raypool is None else f", raypool={path.raypool}") + ")"
+    wavefront = path.kernel not in MEGAKERNELS and not pool
     log: list = []  # (bounce, live, bucket) of each wavefront launch
+    pool_log: list = []  # the host's iteration index of each pool launch
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as base:
         backend = TorchRaytraceBackend(
             width=WIDTH, height=HEIGHT, samples=SAMPLES, max_bounces=BOUNCES,
-            base_directory=base, wavefront=path.wavefront,
+            base_directory=base, wavefront=path.wavefront, raypool=path.raypool,
             on_launch=lambda launch: log.append(tuple(launch[:3])),
+            on_iteration=lambda launch: pool_log.append(launch.iteration),
         )
         check(backend.device.type == "cuda", f"backend chose {backend.device}")
-        check(compaction.wavefront_active(path.scene, mode=path.wavefront) == wavefront,
-              f"{label}: the backend does not pick the {path.kernel} tier")
+        if not pool:
+            check(compaction.wavefront_active(path.scene, mode=path.wavefront) == wavefront,
+                  f"{label}: the backend does not pick the {path.kernel} tier")
+        # A pool path hints the frames queued behind each frame; the others
+        # hint none, as a worker with one frame queued at a time would.
+        check(raypool.raypool_active(path.scene, mode=path.raypool, frames_ahead=int(pool)) == pool,
+              f"{label}: the backend's choice of the ray pool")
         backend.warm(job.job_name)
         torch.cuda.synchronize()
         kernels.reset_counts()
         log.clear()
+        pool_log.clear()
+        backend.pool_stats.clear()
         started = time.perf_counter()
-        timings = [asyncio.run(backend.render_frame(job, f)) for f in frames]
+        timings = []
+        for index, frame in enumerate(frames):
+            if pool:  # the worker queue's hint: this job's frames queued behind
+                backend.note_upcoming_frames(job, tuple(frames[index + 1:]))
+            timings.append(asyncio.run(backend.render_frame(job, frame)))
         path_s = time.perf_counter() - started
         launches = dict(kernels.counts)
+        windows = list(backend.pool_stats)
         print(f"[4] main path: {len(frames)} frames of {job.job_name} in {path_s:.4f} s; counts {launches}")
-        expected_launches = len(log) if wavefront else len(frames)
+        expected_launches = len(log) if wavefront else len(pool_log) if pool else len(frames)
         check(expected_launches >= len(frames), f"{label}: {len(log)} wavefront launches")
         for name, count in launches.items():
             expected = expected_launches if name == path.kernel else 0
@@ -484,6 +652,20 @@ def drive_main_path(path: MainPath, device) -> dict:
                     for b in sorted({e[0] for e in log})
                 )
             )
+        if pool:
+            iterations = sum(w.iterations for w in windows)
+            served = sum(w.served for w in windows)
+            print(
+                f"[4] {label}: {len(windows)} pool windows, iterations {[w.iterations for w in windows]} "
+                f"(= the {path.kernel} launches, {len(pool_log)}), served {served}, live lanes "
+                f"summed {[w.live_sum for w in windows]}, host reads per window "
+                f"{[w.host_reads for w in windows]}, mean live share of the pool "
+                f"{[round(w.live_sum / (w.iterations * raypool.raypool_width(WIDTH * HEIGHT * SAMPLES)), 4) for w in windows]}"
+            )
+            check(iterations == len(pool_log), f"{label}: {iterations} iterations, {len(pool_log)} launches")
+            check(served == len(frames) * WIDTH * HEIGHT * SAMPLES, f"{label}: served {served}")
+            check(len(windows) == -(-len(frames) // raypool.RAYPOOL_FRAMES),
+                  f"{label}: {len(windows)} windows")
 
         outputs = sorted((Path(base) / "blender-projects").rglob("*.png"))
         check(len(outputs) == len(frames), f"{len(outputs)} PNGs for {len(frames)} frames")
@@ -494,13 +676,14 @@ def drive_main_path(path: MainPath, device) -> dict:
             check(pixels.astype(np.float32).std() > 5.0, f"{output.name} is flat")
             images.append(torch.from_numpy(pixels))
 
-        # Two frames again under the profiler, for the card's idle share.
+        # Two frames again under the profiler, for the card's idle share (a
+        # pool path: one window, in pool_record).
         profiled_frames: list = []
 
         def two_frames():
             profiled_frames[:] = [asyncio.run(backend.render_frame(job, f)) for f in frames[:2]]
 
-        frame_profile = profiled(two_frames, path.kernel, f"{label} frames")
+        frame_profile = None if pool else profiled(two_frames, path.kernel, f"{label} frames")
         if frame_profile is not None:
             render_ms = sum(
                 (t.finished_rendering_at - t.started_rendering_at) * 1e3 for t in profiled_frames
@@ -515,7 +698,7 @@ def drive_main_path(path: MainPath, device) -> dict:
             )
     return {
         "path": path, "label": label, "frames": frames, "timings": timings, "path_s": path_s,
-        "launches": launches[path.kernel], "images": images,
+        "launches": launches[path.kernel], "images": images, "windows": windows,
     }
 
 
@@ -669,7 +852,7 @@ def describe_bound(b: dict) -> str:
     return text + ")"
 
 
-def phase_times(run: dict, device) -> None:
+def phase_times(run: dict, device, breakdown: bool = True) -> None:
     """Phase 5's host-clock numbers for one path: per-frame phases over the
     job, and one frame split further (each step fenced by a synchronize;
     "scene+camera" includes the frame's mesh instances; "trace" is the
@@ -690,7 +873,9 @@ def phase_times(run: dict, device) -> None:
         f"{med([t.exited_process_at - t.started_process_at for t in timings]):.3f}; "
         f"{len(timings) / run['path_s']:.3f} frames/s over the job"
     )
-    breakdown: dict[str, list[float]] = {
+    if not breakdown:
+        return
+    steps: dict[str, list[float]] = {
         "scene+camera": [], "rays": [], "trace": [], "mean+tonemap+copy": [], "png": []
     }
     with tempfile.TemporaryDirectory(prefix="chip-smoke-png-") as scratch:
@@ -710,11 +895,11 @@ def phase_times(run: dict, device) -> None:
             marks.append(time.perf_counter())
             write_image(Path(scratch) / f"f{frame}.png", pixels, "PNG")
             marks.append(time.perf_counter())
-            for key, a, b in zip(breakdown, marks, marks[1:]):
-                breakdown[key].append((b - a) * 1e3)
+            for key, a, b in zip(steps, marks, marks[1:]):
+                steps[key].append((b - a) * 1e3)
     print(
         f"[5] {run['label']} one frame, median ms: "
-        + ", ".join(f"{k} {statistics.median(v):.3f}" for k, v in breakdown.items())
+        + ", ".join(f"{k} {statistics.median(v):.3f}" for k, v in steps.items())
     )
 
 
@@ -888,6 +1073,143 @@ def bounce_record(run: dict, checked: dict, device, agree: float, max_abs_err: f
     }
 
 
+def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) -> dict:
+    """Phases 4-6 for a pool kernel after its main path: the path's first
+    window again through the pool, each frame against the wavefront tier's
+    image of the frame, and the PNGs against the megakernel's; the per-frame
+    phases and frames/s beside the wavefront path's; the kernel at the three
+    launches of phase 3 beside the whole iteration around it (the glue:
+    sort, refill, scatter, the masked updates), each launch's bound from
+    the plain version's counters; the card's idle share over one window."""
+    from tpu_render_cluster_torch.render import compaction, kernels, raypool
+
+    path, frames = run["path"], run["frames"]
+    kernel = path.kernel
+    first_window = frames[:raypool.RAYPOOL_FRAMES]
+    images, _ = raypool.render_batch_raypool(
+        path.scene, first_window, width=WIDTH, height=HEIGHT, samples=SAMPLES,
+        max_bounces=BOUNCES, device=device,
+    )
+    wavefront = compaction.render_frame_wavefront(
+        path.scene, frames[0], width=WIDTH, height=HEIGHT, samples=SAMPLES,
+        max_bounces=BOUNCES, device=device,
+    )
+    errs, bit_equal = [], []
+    for frame, image in zip(first_window, images):
+        if frame != frames[0]:
+            wavefront = compaction.render_frame_wavefront(
+                path.scene, frame, width=WIDTH, height=HEIGHT, samples=SAMPLES,
+                max_bounces=BOUNCES, device=device,
+            )
+        errs.append((image - wavefront).abs().max().item())
+        bit_equal.append((image == wavefront).all(dim=-1).float().mean().item())
+        print(f"[4] {run['label']} frame {frame}, linear image vs the wavefront tier's: max abs err {errs[-1]:.3g}, {bit_equal[-1]:.6f} of pixels bit-equal")
+        check(errs[-1] <= 1e-5, f"{run['label']}: frame {frame} differs from the wavefront's by {errs[-1]}")
+    err = max(errs)
+    if kernel == "pool_mesh_bounce":
+        trace = Trace("trace_fused_mesh", path.scene, frames[0], device)
+        reference = [to_image(trace.run(*frame_rays(path.scene, frames[0], device), BOUNCES))]
+        against = "the mesh megakernel's render"
+    else:
+        reference = runs["trace_fused"]["images"]
+        against = "the trace_fused path's"
+    for index, (image, expected) in enumerate(zip(run["images"], reference)):
+        within = within_one(image, expected)
+        print(f"[4] {run['label']} frame {frames[index]} PNG vs {against}: {within:.6f} of uint8 values within 1")
+        check(within >= 0.995, f"{run['label']}: PNG disagrees with {against} ({within})")
+    phase_times(run, device, breakdown=False)
+    other = runs["mesh_bounce" if kernel == "pool_mesh_bounce" else "sphere_bounce"]
+    pool_fps = len(frames) / run["path_s"]
+    wavefront_fps = len(other["frames"]) / other["path_s"]
+    print(f"[5] {run['label']}: {pool_fps:.3f} frames/s over the job, the wavefront path ({other['label']}) {wavefront_fps:.3f} in this run")
+
+    window, states, launches = checked["window"], checked["states"], checked["launches"]
+    per_launch = {}
+    for role in ("first", "mixed", "drain"):
+        picked = checked["picked"][role]
+        index = picked["index"]
+        launch = launches[index]
+        call = lambda launch=launch: getattr(kernels, kernel)(  # noqa: E731
+            window.ops, *launch.state, launch.live, total_bounces=BOUNCES
+        )
+        cuda_ms(call, 2)
+        launch_ms = statistics.median(cuda_ms(call, 5) for _ in range(5))
+        step = lambda index=index: window.iteration(states[index], index)  # noqa: E731
+        cuda_ms(step, 2)
+        iteration_ms = statistics.median(cuda_ms(step, 5) for _ in range(5))
+        alone = profiled(lambda: [call() for _ in range(20)], kernel, f"{kernel} {role} launch calls")
+        least = bound(picked["stats"], window.pool, POOL_RAY_BYTES)
+        per_launch[role] = {
+            "iteration": index, "live": picked["live"], "ms": launch_ms,
+            "kernel_only_ms": None if alone is None else alone["kernel_ms"] / 20,
+            "iteration_ms": iteration_ms, "glue_ms": iteration_ms - launch_ms,
+            "bound_ms": least["ms"], "bound_by": least["by"],
+            "bound_flat_sweep_ms": least["flat_ms"], "world_aabb_share": least["world_aabb_share"],
+            "plain_ms": picked["plain_ms"],
+        }
+        print(
+            f"[5] {kernel} {role} launch (iteration {index}, {picked['live']} of {window.pool} lanes "
+            f"live): {launch_ms:.4f} ms per call; the whole iteration {iteration_ms:.4f} ms, so "
+            f"{iteration_ms - launch_ms:.4f} ms of glue (sort, refill, scatter, masking); "
+            f"{describe_bound(least)}; plain version {picked['plain_ms']:.3f} ms; work: {picked['stats']}"
+        )
+        if alone is not None:
+            print(f"[6] {kernel} {role} launch, 20 calls under the profiler: the kernel alone {alone['kernel_ms'] / 20:.4f} ms per call")
+    windows = run["windows"]
+    iterations = sum(w.iterations for w in windows)
+    print(f"[5] {kernel}: {iterations / len(frames):.2f} launches per frame ({iterations} over the path's {len(frames)} frames)")
+    window_profile = profiled(
+        lambda: raypool.render_batch_raypool(
+            path.scene, first_window, width=WIDTH, height=HEIGHT, samples=SAMPLES,
+            max_bounces=BOUNCES, device=device,
+        ),
+        kernel, f"{run['label']} one window",
+    )
+    idle = window_alone_ms = None
+    if window_profile is not None:
+        idle = 1 - window_profile["device_ms"] / window_profile["wall_ms"]
+        window_alone_ms = window_profile["kernel_ms"] / window_profile["seen"]
+        print(
+            f"[6] {run['label']}, one window of {len(first_window)} frames under the profiler: wall "
+            f"{window_profile['wall_ms']:.3f} ms, device busy {window_profile['device_ms']:.3f} ms "
+            f"({window_profile['kernels']} device operations; {kernel} {window_profile['kernel_ms']:.3f} "
+            f"ms over {window_profile['seen']} launches, {window_alone_ms:.4f} ms per launch alone); "
+            f"device idle {idle:.4f}"
+        )
+    mixed = per_launch["mixed"]
+    return {
+        "name": kernel,
+        "route": "cuda",
+        "source": f"tpu_render_cluster_torch/render/csrc/{kernel}.cu",
+        "replaces": REPLACES[kernel],
+        "launches": run["launches"],
+        "max_abs_err": checked["max_abs_err"],
+        "ms": mixed["ms"],
+        "plain_ms": mixed["plain_ms"],
+        "bound_ms": mixed["bound_ms"],
+        "bound_by": mixed["bound_by"],
+        "library_ms": None,
+        "bound_flat_sweep_ms": mixed["bound_flat_sweep_ms"],
+        "world_aabb_share": mixed["world_aabb_share"],
+        "rays": window.pool,
+        "kernel_only_ms": mixed["kernel_only_ms"],
+        "window_kernel_only_ms": window_alone_ms,
+        "glue_ms": mixed["glue_ms"],
+        "per_launch": per_launch,
+        "launches_per_frame": iterations / len(frames),
+        "frames_per_s": pool_fps,
+        "wavefront_frames_per_s": wavefront_fps,
+        "window_idle_share": idle,
+        "host_reads_per_window": [w.host_reads for w in windows],
+        "window_vs_wavefront_max_abs_err": err,
+        "window_bit_equal_share_min": min(bit_equal),
+        "checked_launches": checked["checked_launches"],
+        "agree_fraction_min": checked["agree"],
+        "tolerance": TOLERANCE[kernel],
+        "build_s": build_s,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -928,6 +1250,12 @@ def main() -> int:
     }
     agree: dict[str, float] = {}
     max_abs_err: dict[str, float] = {}
+    pool_checks = {}
+    for path in PATHS:
+        if path.kernel in POOLS:
+            started = time.perf_counter()
+            pool_checks[path.kernel] = pool_kernel_vs_plain(path, device)
+            print(f"[3] {path.kernel} checked in {time.perf_counter() - started:.1f} s")
     for kernel, scene_names in checks.items():
         started = time.perf_counter()
         compare = kernel_vs_plain if kernel in MEGAKERNELS else bounce_kernel_vs_plain
@@ -945,6 +1273,8 @@ def main() -> int:
         runs[path.kernel] = run
         if path.kernel in MEGAKERNELS:
             entry = megakernel_record(run, device, agree[path.kernel], max_abs_err[path.kernel], build_s)
+        elif path.kernel in POOLS:
+            entry = pool_record(run, pool_checks.pop(path.kernel), runs, device, build_s)
         else:
             checked = wavefront_frame_checks(run, runs["trace_fused"]["images"], device)
             entry = bounce_record(

@@ -127,12 +127,14 @@ def test_two_port_workers_serve_a_mesh_job_through_the_harness(tmp_path):
         np.testing.assert_array_equal(image, render(frame).numpy())
 
 
-def test_backend_refuses_a_deep_mesh_job_before_rendering(tmp_path):
-    """Since the deep-mesh slice the backend serves deep mesh jobs: two
-    port workers through the harness, each frame through the wavefront
-    driver (the default tier for a scene past the mesh megakernel's
-    bound), equal to the port's masked deep loop's render to the bit
-    (tests/test_torch_wavefront.py holds both against the reference)."""
+def test_backend_serves_a_deep_mesh_job_through_the_harness(tmp_path):
+    """Two port workers serve a deep mesh job through the harness. Each
+    frame takes the tier the worker queue's hint picks under auto: the ray
+    pool when more frames of the job are queued behind it, else the
+    wavefront tier (the per-frame tier of a scene past the mesh
+    megakernel's bound). Both equal the port's masked deep loop's render to
+    the bit (tests/test_torch_wavefront.py and tests/test_torch_raypool.py
+    hold them against the reference)."""
     job = _job(
         DistributionStrategy.eager_naive_coarse(2), frames=2, name="03_physics-2-mesh_torch-port"
     )
@@ -145,11 +147,21 @@ def test_backend_refuses_a_deep_mesh_job_before_rendering(tmp_path):
         for _ in range(2)
     ]
     backends[0].warm("03_physics-2-mesh_240f-4w")
+    hinted = []
+    for backend in backends:
+        def note(job, units, note=backend.note_upcoming_frames):
+            hinted.append(len(units))
+            note(job, units)
+
+        backend.note_upcoming_frames = note
     kernels.reset_counts()
     _master_trace, worker_traces = run_local_job(job, backends, timeout=300.0)
     rendered = [t for _name, trace in worker_traces for t in trace.frame_render_traces]
     assert sorted(t.frame_index for t in rendered) == [1, 2]
-    assert kernels.counts["mesh_bounce_reference"] > 0
+    assert len(hinted) == 2  # the queue hints before each frame
+    pooled = kernels.counts["pool_mesh_bounce_reference"] > 0
+    assert pooled == any(hinted)
+    assert pooled or kernels.counts["mesh_bounce_reference"] > 0
     assert kernels.counts["trace_fused_mesh_reference"] == 0
     masked = fused_frame_renderer("03_physics-2-mesh", width, height, samples, bounces, "cpu")
     for frame in (1, 2):
@@ -187,14 +199,14 @@ def test_backend_warm_renders_a_frame():
      ("wavefront", "force", "wavefront"), ("raypool", "force", "ray-pool")],
 )
 def test_backend_options_of_later_slices_raise(option, value, slice_name):
-    """Tiles, sharding and the ray pool raise, naming their slice. The
-    wavefront option is ported (the wavefront slice): its three modes are
+    """Tiles and sharding raise, naming their slice. The wavefront and
+    ray-pool options are ported (their slices): their three modes are
     taken, and any other value raises naming them."""
-    if option == "wavefront":
+    if option in ("wavefront", "raypool"):
         for mode in ("auto", "off", "force"):
-            assert TorchRaytraceBackend(device="cpu", wavefront=mode).wavefront == mode
+            assert getattr(TorchRaytraceBackend(device="cpu", **{option: mode}), option) == mode
         with pytest.raises(ValueError, match="auto"):
-            TorchRaytraceBackend(device="cpu", wavefront="sideways")
+            TorchRaytraceBackend(device="cpu", **{option: "sideways"})
         return
     with pytest.raises(NotImplementedError, match=slice_name):
         TorchRaytraceBackend(device="cpu", **{option: value})

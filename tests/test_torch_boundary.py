@@ -52,6 +52,7 @@ def test_every_port_module_imports_with_jax_blocked():
     modules = [_module_name(p) for p in _port_files()]
     assert "tpu_render_cluster_torch.render.kernels" in modules
     assert "tpu_render_cluster_torch.render.compaction" in modules
+    assert "tpu_render_cluster_torch.render.raypool" in modules
     script = textwrap.dedent(
         f"""
         import importlib, sys

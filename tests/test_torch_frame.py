@@ -55,6 +55,8 @@ def test_frame_matches_reference(reference_renderer, name, frame):
         "trace_fused_mesh": 0, "trace_fused_mesh_reference": 0,
         "sphere_bounce": 0, "sphere_bounce_reference": 0,
         "mesh_bounce": 0, "mesh_bounce_reference": 0,
+        "pool_sphere_bounce": 0, "pool_sphere_bounce_reference": 0,
+        "pool_mesh_bounce": 0, "pool_mesh_bounce_reference": 0,
     }
     assert_images_match(got.numpy(), expected)
     assert got.numpy().std() > 5.0

@@ -49,6 +49,8 @@ def test_mesh_frames_match_reference(reference_renderer):
             "trace_fused_mesh": 0, "trace_fused_mesh_reference": 1,
             "sphere_bounce": 0, "sphere_bounce_reference": 0,
             "mesh_bounce": 0, "mesh_bounce_reference": 0,
+            "pool_sphere_bounce": 0, "pool_sphere_bounce_reference": 0,
+            "pool_mesh_bounce": 0, "pool_mesh_bounce_reference": 0,
         }
         assert_images_match(got.numpy(), expected)
         assert got.numpy().std() > 5.0

@@ -123,6 +123,8 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
         "trace_fused_mesh": 0, "trace_fused_mesh_reference": 0,
         "sphere_bounce": 0, "sphere_bounce_reference": 0,
         "mesh_bounce": 0, "mesh_bounce_reference": 0,
+        "pool_sphere_bounce": 0, "pool_sphere_bounce_reference": 0,
+        "pool_mesh_bounce": 0, "pool_mesh_bounce_reference": 0,
     }
 
 

@@ -1,5 +1,6 @@
-"""The CUDA path-trace kernels (the sphere and mesh megakernels and their
-per-bounce forms) against their plain PyTorch versions, on a GPU.
+"""The CUDA path-trace kernels (the sphere and mesh megakernels, their
+per-bounce forms and the ray-pool bounces) against their plain PyTorch
+versions, on a GPU.
 
 Needs a CUDA GPU and nvcc (the kernels have no CPU mode); skipped elsewhere.
 Imports no jax, so it runs on a GPU machine without the JAX package's
@@ -16,7 +17,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from tpu_render_cluster_torch.render import compaction, integrator, kernels
+from tpu_render_cluster_torch.render import compaction, integrator, kernels, raypool
 from tpu_render_cluster_torch.render.mesh import (
     MeshInstances,
     MeshSet,
@@ -213,3 +214,114 @@ def test_cuda_sphere_wavefront_goes_through_the_kernel(cuda_device):
     )
     close = torch.isclose(wavefront, masked, rtol=1e-4, atol=1e-4).all(dim=-1)
     assert close.float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize(
+    "kernel,name,frames,size",
+    [("pool_mesh_bounce", "03_physics-2-mesh", (30, 31), (64, 48, 2, 4096)),
+     ("pool_sphere_bounce", "04_very-simple", (30, 31, 32), (64, 48, 2, 4096)),
+     # The default window of 8 frames (the stacked tables take about 70 KB
+     # of shared memory, past the default 48 KB) and the cap of 32 (too
+     # large to stage, so read from global memory), the lanes of each
+     # launch carrying many frame ids.
+     ("pool_mesh_bounce", "03_physics-2-mesh", tuple(range(1, 9)), (16, 16, 1, 1024)),
+     ("pool_mesh_bounce", "03_physics-2-mesh", tuple(range(1, 33)), (16, 16, 1, 1024))],
+)
+def test_cuda_pool_kernel_matches_plain_version(cuda_device, kernel, name, frames, size):
+    """Every launch of a pool window (lanes of several frames at mixed
+    bounces, a dead tail) again through the kernel and its plain version,
+    and each frame's image against the CPU wavefront's."""
+    width, height, samples, pool_width = size
+    launches: list = []
+    kernels.reset_counts()
+    images, stats = raypool.render_batch_raypool(
+        name, frames, width=width, height=height, samples=samples, max_bounces=4,
+        pool_width=pool_width, frame_cap=len(frames), on_iteration=launches.append,
+    )
+    assert kernels.counts == {k: stats[0].iterations * (k == kernel) for k in kernels.counts}
+    assert len(launches) == stats[0].iterations >= 4
+    window = raypool.PoolWindow(
+        name, frames, width=width, height=height, samples=samples, max_bounces=4,
+        pool_width=pool_width, device=cuda_device,
+    )
+    wrapper, plain = getattr(kernels, kernel), getattr(kernels, f"{kernel}_reference")
+    for launch in launches:
+        live = int(launch.live)
+        got = wrapper(window.ops, *launch.state, live, total_bounces=4)
+        expected = plain(window.ops, *launch.state, live, total_bounces=4)
+        torch.cuda.synchronize()
+        close = torch.ones(window.pool, dtype=torch.bool, device=cuda_device)
+        for have, want in zip(got[:4], expected[:4]):
+            close &= torch.isclose(have, want, rtol=1e-4, atol=1e-4).all(dim=1)
+        budget = max(1, round(0.001 * window.pool))
+        assert (~close).sum().item() <= budget
+        assert (got.alive != expected.alive).sum().item() <= budget
+        assert not got.alive[live:].any() and (got.contribution[live:] == 0).all()
+    for frame, image in zip(frames, images):
+        # On the card, the wavefront runs the same bounce step on the same
+        # rays; on the CPU, the rays differ in the last bits, and a few
+        # rays meet a surface at an edge tie (the budget of the kernel
+        # checks, per pixel).
+        card, cpu = (
+            compaction.render_frame_wavefront(
+                name, frame, width=width, height=height, samples=samples, max_bounces=4,
+                device=device,
+            )
+            for device in (cuda_device, "cpu")
+        )
+        assert (image - card).abs().max().item() <= 1e-5
+        close = torch.isclose(image.cpu(), cpu, rtol=1e-4, atol=1e-4).all(dim=-1)
+        assert (~close).sum().item() <= max(1, round(0.001 * close.numel()))
+
+
+def test_cuda_backend_pool_tier_goes_through_the_kernel(cuda_device, tmp_path):
+    """A deep mesh job's frame with two more queued: one pool window, every
+    iteration one pool_mesh_bounce launch and nothing else; the queued
+    frames come from the cache without a launch."""
+    from tpu_render_cluster_torch.jobs.models import BlenderJob
+    from tpu_render_cluster_torch.worker.backends.torch_raytrace import TorchRaytraceBackend
+
+    job = BlenderJob.from_dict({
+        "job_name": "03_physics-2-mesh_cuda", "job_description": None,
+        "project_file_path": "%BASE%/p.blend", "render_script_path": "%BASE%/s.py",
+        "frame_range_from": 1, "frame_range_to": 3, "wait_for_number_of_workers": 1,
+        "frame_distribution_strategy": {"strategy_type": "naive-fine"},
+        "output_directory_path": "%BASE%/frames", "output_file_name_format": "f-#####",
+        "output_file_format": "PNG",
+    })
+    launches: list = []
+    backend = TorchRaytraceBackend(
+        width=64, height=48, samples=2, max_bounces=4, base_directory=tmp_path,
+        on_iteration=launches.append,
+    )
+    import asyncio
+
+    kernels.reset_counts()
+    backend.note_upcoming_frames(job, (2, 3))
+    asyncio.run(backend.render_frame(job, 1))
+    backend.note_upcoming_frames(job, (3,))
+    asyncio.run(backend.render_frame(job, 2))
+    backend.note_upcoming_frames(job, ())
+    asyncio.run(backend.render_frame(job, 3))
+    assert launches and kernels.counts == {
+        k: len(launches) * (k == "pool_mesh_bounce") for k in kernels.counts
+    }
+    assert len(list((tmp_path / "frames").glob("*.png"))) == 3
+
+
+def test_cuda_pool_iterations_read_nothing_back(cuda_device):
+    """A chunk of the loop's body under torch.cuda.set_sync_debug_mode
+    ("error"): any synchronizing call inside it raises."""
+    window = raypool.PoolWindow(  # 65,536 rays: at least 16 iterations serve rays
+        "03_physics-2-mesh", (30, 31), width=128, height=128, samples=2, max_bounces=4,
+        pool_width=4096, device=cuda_device,
+    )
+    state = window.iteration(window.initial_state(), 0)  # builds the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for index in range(1, 1 + raypool.CHECK_EVERY):
+            state = window.iteration(state, index)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(state.counters[1]) == 1 + raypool.CHECK_EVERY

@@ -188,6 +188,8 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
         "trace_fused_mesh": 0, "trace_fused_mesh_reference": 1,
         "sphere_bounce": 0, "sphere_bounce_reference": 0,
         "mesh_bounce": 0, "mesh_bounce_reference": 0,
+        "pool_sphere_bounce": 0, "pool_sphere_bounce_reference": 0,
+        "pool_mesh_bounce": 0, "pool_mesh_bounce_reference": 0,
     }
 
 
@@ -259,7 +261,10 @@ def test_build_digest_covers_shared_headers(tmp_path, monkeypatch):
         (csrc / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", csrc / "build")
-    assert _build.sources() == ["mesh_bounce", "sphere_bounce", "trace_fused", "trace_fused_mesh"]
+    assert _build.sources() == [
+        "mesh_bounce", "pool_mesh_bounce", "pool_sphere_bounce", "sphere_bounce", "trace_fused",
+        "trace_fused_mesh",
+    ]
     before = {name: _build.library_path(name) for name in _build.sources()}
     header = csrc / "path_common.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")

@@ -8,7 +8,10 @@ fits the mesh megakernel (``render/csrc/trace_fused_mesh.cu``), and of the
 deeper mesh scenes through the per-bounce mesh kernel
 (``render/csrc/mesh_bounce.cu``), under the masked deep loop or the
 wavefront driver (``render/compaction.py``, which also takes sphere scenes
-through ``render/csrc/sphere_bounce.cu``).
+through ``render/csrc/sphere_bounce.cu``). Several frames of one scene
+render together in the device-resident ray pool (``render/raypool.py``)
+through ``render/csrc/pool_mesh_bounce.cu`` and
+``render/csrc/pool_sphere_bounce.cu``.
 
 Entry points run on the GPU. They take the CPU only when the caller asks
 for it explicitly (``device="cpu"``), as the CPU tests do; without a GPU

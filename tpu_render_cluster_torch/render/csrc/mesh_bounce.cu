@@ -71,8 +71,9 @@ mesh_bounce_kernel(const float* __restrict__ origins, const float* __restrict__ 
     path::load_scene(scene, spheres, n_spheres, params);  // ends with __syncthreads()
     if (is_alive && ray < live) {
       const uint32_t counter_stride = 2u * static_cast<uint32_t>(total_bounces) + 2u;
-      is_alive = mesh::bounce(scene, n_spheres, tables, static_cast<uint32_t>(lanes[ray]),
-                              bounce, counter_stride, seed, o, d, thr, rad);
+      is_alive = mesh::bounce(scene, 0, n_spheres, tables, 0, tables.n_instances,
+                              static_cast<uint32_t>(lanes[ray]), bounce, counter_stride, seed,
+                              o, d, thr, rad);
     }
   }
   if (ray >= n_rays) return;
@@ -116,8 +117,9 @@ extern "C" int mesh_bounce_launch(const float* origins, const float* directions,
                                    n_nodes};
   size_t shared_bytes;
   bool staged;
-  const cudaError_t status = mesh::staging_for(mesh_bounce_kernel, n_tri_rows, n_nodes,
-                                               n_instances, &shared_bytes, &staged);
+  const cudaError_t status = path::staging_for(
+      mesh_bounce_kernel, mesh::table_bytes(n_tri_rows, n_nodes, n_instances), &shared_bytes,
+      &staged);
   if (status != cudaSuccess) return static_cast<int>(status);
   const int blocks = (n_rays + kThreads - 1) / kThreads;
   mesh_bounce_kernel<<<blocks, kThreads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(

@@ -1,9 +1,11 @@
 // Mesh-scene device code shared by the mesh path-trace kernels (the
-// megakernel trace_fused_mesh.cu and the per-bounce kernel mesh_bounce.cu):
-// the instance and BVH tables, their staging in shared memory, the nearest
-// hit and the shadow any-hit over K rigid instances of one mesh walked
-// through its threaded BVH, and the whole mesh-scene bounce built from them
-// and path_common.cuh.
+// megakernel trace_fused_mesh.cu, the per-bounce kernel mesh_bounce.cu and
+// the ray-pool kernel pool_mesh_bounce.cu): the instance and BVH tables,
+// their staging in shared memory, the nearest hit and the shadow any-hit
+// over the rigid instances [first, first + count) of one mesh walked
+// through its threaded BVH (a frame's K instances, or a lane's own frame's
+// rows of a pool's frame-major stacked table), and the whole mesh-scene
+// bounce built from them and path_common.cuh.
 //
 // Walk order: instances in table order, nodes in canonical DFS preorder
 // entered at node 0, strict `<` updates of a best t seeded with the
@@ -26,10 +28,6 @@ namespace mesh {
 using path::float3v;
 constexpr int kInstanceWidth = 22;
 constexpr float kDetEps = 1e-12f;
-// Stage the mesh tables in shared memory up to this many bytes (above 48 KB
-// the launcher raises the kernel's dynamic shared-memory limit).
-constexpr int kMaxStagedBytes = 96 * 1024;
-
 __device__ __forceinline__ float sum3(float a0, float b0, float a1, float b1, float a2,
                                       float b2) {
   return fmaf(a2, b2, fmaf(a0, b0, a1 * b1));
@@ -108,27 +106,12 @@ struct MeshTables {
   int n_nodes;
 };
 
-// Bytes of the tables staged in shared memory, in stage_tables' layout.
+// Bytes of the tables staged in shared memory, in stage_tables' layout
+// (path::staging_for decides whether they are).
 __host__ __device__ inline size_t table_bytes(int n_tri_rows, int n_nodes, int n_instances) {
   return sizeof(float4) * (4 * static_cast<size_t>(n_tri_rows) + 2 * static_cast<size_t>(n_nodes)) +
          sizeof(int4) * static_cast<size_t>(n_nodes) +
          sizeof(float) * kInstanceWidth * static_cast<size_t>(n_instances);
-}
-
-// The dynamic shared memory a launch of `kernel` takes: the tables when
-// they fit in kMaxStagedBytes (then *staged is true), else none. Raises the
-// kernel's limit above the default 48 KB where needed.
-template <typename Kernel>
-inline cudaError_t staging_for(Kernel kernel, int n_tri_rows, int n_nodes, int n_instances,
-                               size_t* shared_bytes, bool* staged) {
-  const size_t bytes = table_bytes(n_tri_rows, n_nodes, n_instances);
-  *staged = bytes <= static_cast<size_t>(kMaxStagedBytes);
-  *shared_bytes = *staged ? bytes : 0;
-  if (*shared_bytes > 48 * 1024) {
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(*shared_bytes));
-  }
-  return cudaSuccess;
 }
 
 // Copy the tables into `staging` (layout: triangle rows, node bounds, node
@@ -157,12 +140,13 @@ struct MeshHit {
   int row;
 };
 
-// Nearest hit over every instance, seeded with t_seed (strict < updates).
-__device__ __forceinline__ MeshHit nearest(const MeshTables& m, float3v o, float3v d,
-                                           float t_seed) {
+// Nearest hit over instances [first, first + count), seeded with t_seed
+// (strict < updates); `instance` is the winning row of the whole table.
+__device__ __forceinline__ MeshHit nearest(const MeshTables& m, int first, int count, float3v o,
+                                           float3v d, float t_seed) {
   MeshHit best = {t_seed, -1, 0};
   const float3v inv = winv3(d);
-  for (int k = 0; k < m.n_instances; ++k) {
+  for (int k = first; k < first + count; ++k) {
     const float* inst = m.inst + kInstanceWidth * k;
     if (!world_box(inst, o, inv, best.t)) continue;
     const float3v lo = point_to_object(inst, o);
@@ -187,10 +171,12 @@ __device__ __forceinline__ MeshHit nearest(const MeshTables& m, float3v o, float
   return best;
 }
 
-// Any triangle of any instance between the shadow origin and the sun?
-__device__ __forceinline__ bool occluded(const MeshTables& m, float3v so, float3v sun) {
+// Any triangle of instances [first, first + count) between the shadow
+// origin and the sun?
+__device__ __forceinline__ bool occluded(const MeshTables& m, int first, int count, float3v so,
+                                         float3v sun) {
   const float3v inv = winv3(sun);
-  for (int k = 0; k < m.n_instances; ++k) {
+  for (int k = first; k < first + count; ++k) {
     const float* inst = m.inst + kInstanceWidth * k;
     if (!world_box(inst, so, inv, path::kInf)) continue;
     const float3v lo = point_to_object(inst, so);
@@ -220,17 +206,21 @@ __device__ __forceinline__ bool occluded(const MeshTables& m, float3v so, float3
 // sky on escape; emission and albedo of the sphere, plane or instance hit;
 // sun NEE with the sphere any-hit and the mesh any-hit; cosine resample.
 // Same contract as path::sphere_bounce: adds into rad, advances o, d and
-// thr, and returns false (leaving o, d and thr) when the path escaped.
-__device__ __forceinline__ bool bounce(const path::SceneShared& scene, int n_spheres,
-                                       const MeshTables& mesh, uint32_t lane, int bounce_index,
-                                       uint32_t counter_stride, uint32_t seed, float3v& o,
-                                       float3v& d, float3v& thr, float3v& rad) {
+// thr, and returns false (leaving o, d and thr) when the path escaped. The
+// path sees spheres [sphere_first, sphere_first + n_spheres) and instances
+// [inst_first, inst_first + inst_count).
+template <typename Scene>
+__device__ __forceinline__ bool bounce(const Scene& scene, int sphere_first, int n_spheres,
+                                       const MeshTables& mesh, int inst_first, int inst_count,
+                                       uint32_t lane, int bounce_index, uint32_t counter_stride,
+                                       uint32_t seed, float3v& o, float3v& d, float3v& thr,
+                                       float3v& rad) {
   const float3v sun = {scene.params[0], scene.params[1], scene.params[2]};
   int idx;
-  const float t_sphere = path::nearest_sphere(scene, n_spheres, o, d, &idx);
+  const float t_sphere = path::nearest_sphere(scene, sphere_first, n_spheres, o, d, &idx);
   const float t_plane = path::plane_hit(o, d);
   const float t_sp = fminf(t_sphere, t_plane);
-  const MeshHit hit = nearest(mesh, o, d, t_sp);
+  const MeshHit hit = nearest(mesh, inst_first, inst_count, o, d, t_sp);
   const bool is_mesh = hit.instance >= 0;
   const bool is_plane = !is_mesh && t_plane < t_sphere;
   const float t = is_mesh ? hit.t : t_sp;
@@ -265,8 +255,8 @@ __device__ __forceinline__ bool bounce(const path::SceneShared& scene, int n_sph
                       fmaf(normal.z, path::kOffset, p.z)};
   const float cos_sun =
       fmaxf(path::dot3(normal.x, normal.y, normal.z, sun.x, sun.y, sun.z), 0.0f);
-  if (cos_sun > 0.0f && !path::sphere_shadowed(scene, n_spheres, so) &&
-      !occluded(mesh, so, sun)) {
+  if (cos_sun > 0.0f && !path::sphere_shadowed(scene, sphere_first, n_spheres, so) &&
+      !occluded(mesh, inst_first, inst_count, so, sun)) {
     path::add_direct(scene, albedo, cos_sun, thr, &rad);
   }
 

@@ -1,11 +1,15 @@
 // Per-path device code shared by the path-trace kernels (the megakernels
 // trace_fused.cu and trace_fused_mesh.cu, the per-bounce kernels
-// sphere_bounce.cu and mesh_bounce.cu): the sphere table, nearest sphere
-// and ground-plane hits, the sky, the sphere shadow any-hit, the
-// emission/albedo shading of a sphere or plane hit, the counter-PCG cosine
-// resample, and the whole sphere-scene bounce built from them. One thread
-// owns one path; every function works on that thread's registers and the
-// block's shared sphere table.
+// sphere_bounce.cu and mesh_bounce.cu, the ray-pool kernels
+// pool_sphere_bounce.cu and pool_mesh_bounce.cu): the sphere tables, the
+// staging rule for tables in shared memory,
+// nearest sphere and ground-plane hits, the sky, the sphere shadow any-hit,
+// the emission/albedo shading of a sphere or plane hit, the counter-PCG
+// cosine resample, and the whole sphere-scene bounce built from them. One
+// thread owns one path; every function works on that thread's registers
+// and a sphere table (SceneShared or SceneRows), of which it sweeps the
+// range [first, first + count): the whole table for one frame's scene, the
+// lane's own frame's rows of a ray pool's stacked multi-frame table.
 //
 // Rounding follows the reference's compiler (XLA on the CPU): every product
 // that feeds one add is an explicit fmaf, dot products are fma chains, the
@@ -28,6 +32,9 @@ constexpr float kInvPi = 0.318309873f;  // float32(1 / float32(pi))
 constexpr float kTwoPi = 6.28318548f;  // float32(2 pi)
 constexpr float kOffset = 0.004f;  // EPS * 4: surface offset
 constexpr int kParams = 18;
+// Stage a kernel's tables in dynamic shared memory up to this many bytes
+// (above the default 48 KB the launcher raises the kernel's limit).
+constexpr int kMaxStagedBytes = 96 * 1024;
 
 __device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
   const uint32_t state = x * 747796405u + 2891336453u;
@@ -64,6 +71,22 @@ struct SceneShared {
   float4 albedo[kMaxSpheres];
   float4 emission[kMaxSpheres];
   float params[kParams];
+  __device__ __forceinline__ float4 geo_at(int i) const { return geo[i]; }
+  __device__ __forceinline__ float4 aux_at(int i) const { return aux[i]; }
+  __device__ __forceinline__ float4 albedo_at(int i) const { return albedo[i]; }
+  __device__ __forceinline__ float4 emission_at(int i) const { return emission[i]; }
+};
+
+// A stacked table of any length in the wrappers' layout (four float4 per
+// sphere, in the order above), in shared or global memory, with the same
+// accessors as SceneShared.
+struct SceneRows {
+  const float4* rows;  // [n, 4]
+  const float* params;  // [kParams]
+  __device__ __forceinline__ float4 geo_at(int i) const { return rows[4 * i + 0]; }
+  __device__ __forceinline__ float4 aux_at(int i) const { return rows[4 * i + 1]; }
+  __device__ __forceinline__ float4 albedo_at(int i) const { return rows[4 * i + 2]; }
+  __device__ __forceinline__ float4 emission_at(int i) const { return rows[4 * i + 3]; }
 };
 
 // Every thread of the block takes part; ends with __syncthreads().
@@ -79,16 +102,18 @@ __device__ __forceinline__ void load_scene(SceneShared& s, const float4* spheres
   __syncthreads();
 }
 
-// Nearest sphere hit: t (kInf on a miss) and the lowest index among ties.
-__device__ __forceinline__ float nearest_sphere(const SceneShared& s, int n_spheres,
+// Nearest hit among spheres [first, first + count): t (kInf on a miss) and
+// the lowest index among ties.
+template <typename Scene>
+__device__ __forceinline__ float nearest_sphere(const Scene& s, int first, int count,
                                                float3v o, float3v d, int* idx_out) {
   const float od = dot3(o.x, o.y, o.z, d.x, d.y, d.z);
   const float o_sq = dot3(o.x, o.y, o.z, o.x, o.y, o.z);
   float t_sphere = kInf;
-  int idx = 0;
-  for (int i = 0; i < n_spheres; ++i) {
-    const float4 g = s.geo[i];
-    const float csq = s.aux[i].x;
+  int idx = first;
+  for (int i = first; i < first + count; ++i) {
+    const float4 g = s.geo_at(i);
+    const float csq = s.aux_at(i).x;
     const float dc = dot3(g.x, g.y, g.z, d.x, d.y, d.z);
     const float oc = dot3(g.x, g.y, g.z, o.x, o.y, o.z);
     const float oc_dot_d = dc - od;
@@ -118,7 +143,8 @@ __device__ __forceinline__ float plane_hit(float3v o, float3v d) {
 }
 
 // Sky gradient plus sun disc seen along d, weighted by the throughput.
-__device__ __forceinline__ void add_sky(const SceneShared& s, float3v d, float3v thr,
+template <typename Scene>
+__device__ __forceinline__ void add_sky(const Scene& s, float3v d, float3v thr,
                                         float3v* rad) {
   const float* p = s.params;
   const float blend = fminf(fmaxf(d.y, 0.0f), 1.0f);
@@ -133,7 +159,8 @@ __device__ __forceinline__ void add_sky(const SceneShared& s, float3v d, float3v
 }
 
 // Checker albedo of the plane at p; normal (0, 1, 0).
-__device__ __forceinline__ float3v plane_albedo(const SceneShared& s, float3v p) {
+template <typename Scene>
+__device__ __forceinline__ float3v plane_albedo(const Scene& s, float3v p) {
   const uint32_t cell = static_cast<uint32_t>(__float2int_rd(p.x)) +
                         static_cast<uint32_t>(__float2int_rd(p.z));
   const int base = (cell & 1u) == 0u ? 12 : 15;
@@ -141,30 +168,32 @@ __device__ __forceinline__ float3v plane_albedo(const SceneShared& s, float3v p)
 }
 
 // Sphere idx hit at p: its normal and albedo; adds its emission.
-__device__ __forceinline__ void shade_sphere(const SceneShared& s, int idx, float3v p,
+template <typename Scene>
+__device__ __forceinline__ void shade_sphere(const Scene& s, int idx, float3v p,
                                              float3v thr, float3v* rad, float3v* normal,
                                              float3v* albedo) {
-  const float4 g = s.geo[idx];
-  const float radius = fmaxf(s.aux[idx].z, 1e-6f);
+  const float4 g = s.geo_at(idx);
+  const float radius = fmaxf(s.aux_at(idx).z, 1e-6f);
   *normal = {(p.x - g.x) / radius, (p.y - g.y) / radius, (p.z - g.z) / radius};
-  const float4 a = s.albedo[idx];
-  const float4 e = s.emission[idx];
+  const float4 a = s.albedo_at(idx);
+  const float4 e = s.emission_at(idx);
   *albedo = {a.x, a.y, a.z};
   rad->x = rad->x + thr.x * e.x;
   rad->y = rad->y + thr.y * e.y;
   rad->z = rad->z + thr.z * e.z;
 }
 
-// Any sphere between the shadow origin and the (uniform) sun? Stops at the
-// first occluder.
-__device__ __forceinline__ bool sphere_shadowed(const SceneShared& s, int n_spheres,
+// Any sphere of [first, first + count) between the shadow origin and the
+// (uniform) sun? Stops at the first occluder.
+template <typename Scene>
+__device__ __forceinline__ bool sphere_shadowed(const Scene& s, int first, int count,
                                                 float3v so) {
   const float* p = s.params;
   const float od_s = dot3(so.x, so.y, so.z, p[0], p[1], p[2]);
   const float osq_s = dot3(so.x, so.y, so.z, so.x, so.y, so.z);
-  for (int i = 0; i < n_spheres; ++i) {
-    const float4 g = s.geo[i];
-    const float4 aux = s.aux[i];
+  for (int i = first; i < first + count; ++i) {
+    const float4 g = s.geo_at(i);
+    const float4 aux = s.aux_at(i);
     const float oc_s = dot3(g.x, g.y, g.z, so.x, so.y, so.z);
     const float ocd_s = aux.y - od_s;
     const float ocsq_s = osq_s - 2.0f * oc_s + aux.x;
@@ -175,7 +204,8 @@ __device__ __forceinline__ bool sphere_shadowed(const SceneShared& s, int n_sphe
 }
 
 // The sun's direct term at an unshadowed hit.
-__device__ __forceinline__ void add_direct(const SceneShared& s, float3v albedo,
+template <typename Scene>
+__device__ __forceinline__ void add_direct(const Scene& s, float3v albedo,
                                            float cos_sun, float3v thr, float3v* rad) {
   const float* p = s.params;
   rad->x = fmaf(thr.x, albedo.x * p[3] * cos_sun * kInvPi, rad->x);
@@ -184,7 +214,8 @@ __device__ __forceinline__ void add_direct(const SceneShared& s, float3v albedo,
 }
 
 // Cosine-weighted direction about the normal from the counter PCG stream
-// of (lane, bounce, seed).
+// of (lane, bounce, seed): the ray's own lane, depth and frame seed, which
+// a ray pool carries per lane.
 __device__ __forceinline__ float3v resample(float3v n, uint32_t lane, int bounce,
                                             uint32_t counter_stride, uint32_t seed) {
   const uint32_t counter = lane * counter_stride + 2u * static_cast<uint32_t>(bounce);
@@ -217,14 +248,16 @@ __device__ __forceinline__ float3v resample(float3v n, uint32_t lane, int bounce
 // Adds this bounce's radiance into rad and advances o, d and thr. Returns
 // false when the path escaped: o, d and thr are then left as they were,
 // which is what the reference's masked update leaves in a lane that dies.
-// `lane` is the ray's original lane (its RNG counter).
-__device__ __forceinline__ bool sphere_bounce(const SceneShared& s, int n_spheres, uint32_t lane,
-                                              int bounce, uint32_t counter_stride, uint32_t seed,
-                                              float3v& o, float3v& d, float3v& thr,
-                                              float3v& rad) {
+// The path sees spheres [first, first + n_spheres); `lane` is the ray's
+// original lane (its RNG counter).
+template <typename Scene>
+__device__ __forceinline__ bool sphere_bounce(const Scene& s, int first, int n_spheres,
+                                              uint32_t lane, int bounce, uint32_t counter_stride,
+                                              uint32_t seed, float3v& o, float3v& d,
+                                              float3v& thr, float3v& rad) {
   const float* sun = s.params;
   int idx;
-  const float t_sphere = nearest_sphere(s, n_spheres, o, d, &idx);
+  const float t_sphere = nearest_sphere(s, first, n_spheres, o, d, &idx);
   const float t_plane = plane_hit(o, d);
   const bool is_plane = t_plane < t_sphere;
   const float t = fminf(t_sphere, t_plane);
@@ -246,7 +279,7 @@ __device__ __forceinline__ bool sphere_bounce(const SceneShared& s, int n_sphere
   const float3v so = {fmaf(normal.x, kOffset, p.x), fmaf(normal.y, kOffset, p.y),
                       fmaf(normal.z, kOffset, p.z)};
   const float cos_sun = fmaxf(dot3(normal.x, normal.y, normal.z, sun[0], sun[1], sun[2]), 0.0f);
-  if (cos_sun > 0.0f && !sphere_shadowed(s, n_spheres, so)) {
+  if (cos_sun > 0.0f && !sphere_shadowed(s, first, n_spheres, so)) {
     add_direct(s, albedo, cos_sun, thr, &rad);
   }
 
@@ -264,6 +297,21 @@ __device__ __forceinline__ void store3(float* rows, int64_t i, float3v v) {
   rows[3 * i + 0] = v.x;
   rows[3 * i + 1] = v.y;
   rows[3 * i + 2] = v.z;
+}
+
+// The dynamic shared memory a launch of `kernel` takes to stage `bytes` of
+// tables: all of them when they fit in kMaxStagedBytes (then *staged is
+// true), else none, the tables then read from global memory. Raises the
+// kernel's limit above the default 48 KB where needed.
+template <typename Kernel>
+inline cudaError_t staging_for(Kernel kernel, size_t bytes, size_t* shared_bytes, bool* staged) {
+  *staged = bytes <= static_cast<size_t>(kMaxStagedBytes);
+  *shared_bytes = *staged ? bytes : 0;
+  if (*shared_bytes > 48 * 1024) {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(*shared_bytes));
+  }
+  return cudaSuccess;
 }
 
 }  // namespace path

@@ -1,0 +1,96 @@
+// Ray-pool mesh-scene bounce kernel for Hopper (sm_90a).
+//
+// Replaces the TPU kernel `pool_mesh_bounce` / `_mesh_trace_kernel_factory`
+// with pool_io=True, flat instance variant (use_tlas=False;
+// tpu_render_cluster/render/pallas_kernels.py): one mesh bounce over a
+// pool of lanes from several frames of one mesh scene. The contract, the
+// staging and the body are pool_common.cuh's; the bounce is mesh::bounce
+// over the lane's own frame's spheres and instances, with one BVH shared by
+// every frame and the window's instance tables stacked frame-major, frame
+// f's K instances at rows [f K, (f + 1) K) of a [F K, 22] table (the layout
+// of mesh_bounce.cu's, see kernels.instance_table).
+//
+// The reference bounds each block's sweep to the window of frame ids its
+// lanes carry and masks every instance test per lane by frame id; a lane
+// here sweeps only its own frame's K instances. Instances are walked in
+// table order: the reference's near-first order within each frame changes
+// which instances a ray block culls, never a ray's nearest hit, ties aside.
+//
+// Bound: operations, as mesh_bounce.cu for one bounce (world-AABB slab
+// tests over the lane's frame's instances, object-space transforms, node
+// slab tests, Moller-Trumbore tests), against 53 bytes of state in and 49
+// out per lane. The sphere rows and the mesh tables are staged when they
+// fit in 96 KB (8 frames of 03_physics-2-mesh: 8 KB of spheres, 33 KB of
+// instances, 28 KB of BVH; 32 frames do not fit). Built with --fmad=false.
+
+#include "mesh_common.cuh"
+#include "pool_common.cuh"
+
+namespace {
+
+using path::float3v;
+
+struct MeshBounce {
+  mesh::MeshTables tables;  // instances: the stacked [F K, 22] table
+  int per_frame;  // K
+  int n_tri_rows;
+  size_t bytes() const {
+    return mesh::table_bytes(n_tri_rows, tables.n_nodes, tables.n_instances);
+  }
+  __device__ __forceinline__ void stage(float4* staging) {
+    mesh::stage_tables(tables, staging, n_tri_rows);
+  }
+  template <typename Scene>
+  __device__ __forceinline__ bool run(const Scene& scene, int sphere_first, int n_spheres,
+                                      int frame, uint32_t lane, int bounce,
+                                      uint32_t counter_stride, uint32_t seed, float3v& o,
+                                      float3v& d, float3v& thr, float3v& rad) const {
+    return mesh::bounce(scene, sphere_first, n_spheres, tables,
+                        frame >= 0 ? frame * per_frame : 0, frame >= 0 ? per_frame : 0, lane,
+                        bounce, counter_stride, seed, o, d, thr, rad);
+  }
+};
+
+__global__ void __launch_bounds__(pool::kThreads)
+pool_mesh_bounce_kernel(pool::State in, pool::Spheres spheres, MeshBounce bounce, bool staged,
+                        int total_bounces, pool::Outputs out) {
+  __shared__ float scene_params[path::kParams];
+  extern __shared__ float4 staging[];
+  pool::bounce_lanes(in, spheres, bounce, staged, total_bounces, out, staging, scene_params);
+}
+
+}  // namespace
+
+// Plain C entry for ctypes, as pool_sphere_bounce_launch plus the mesh:
+// instances [n_frames * instances_per_frame, 22] (frame-major), and the
+// shared BVH as for mesh_bounce_launch.
+extern "C" int pool_mesh_bounce_launch(
+    const float* origins, const float* directions, const float* throughput,
+    const unsigned char* alive, const int* lanes, const int* fids, const int* seeds,
+    const int* bounces, int n_rays, const int* live_count, const float* spheres,
+    int spheres_per_frame, int n_frames, const float* params, const float* instances,
+    int instances_per_frame, const float* triangles, int n_tri_rows, const float* node_bounds,
+    const int* node_links, int n_nodes, int total_bounces, float* contribution,
+    float* origins_out, float* directions_out, float* throughput_out, unsigned char* alive_out,
+    void* stream) {
+  if (n_rays > 0 && (instances_per_frame < 0 || n_tri_rows < 1 || n_nodes < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const pool::State in = {origins, directions, throughput, alive, lanes, fids,
+                          seeds,   bounces,    n_rays,     live_count};
+  const pool::Spheres table = {reinterpret_cast<const float4*>(spheres), spheres_per_frame,
+                               n_frames, params};
+  const MeshBounce bounce = {{instances, reinterpret_cast<const float4*>(triangles),
+                              reinterpret_cast<const float4*>(node_bounds),
+                              reinterpret_cast<const int4*>(node_links),
+                              n_frames * instances_per_frame, n_nodes},
+                             instances_per_frame,
+                             n_tri_rows};
+  const pool::Outputs out = {contribution, origins_out, directions_out, throughput_out,
+                             alive_out};
+  return pool::launch(pool_mesh_bounce_kernel, in, table, bounce, total_bounces, out, stream);
+}
+
+extern "C" const char* pool_mesh_bounce_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -50,8 +50,8 @@ sphere_bounce_kernel(const float* __restrict__ origins, const float* __restrict_
     path::load_scene(scene, spheres, n_spheres, params);  // ends with __syncthreads()
     if (is_alive && ray < live) {
       const uint32_t counter_stride = 2u * static_cast<uint32_t>(total_bounces) + 2u;
-      is_alive = path::sphere_bounce(scene, n_spheres, static_cast<uint32_t>(lanes[ray]), bounce,
-                                     counter_stride, seed, o, d, thr, rad);
+      is_alive = path::sphere_bounce(scene, 0, n_spheres, static_cast<uint32_t>(lanes[ray]),
+                                     bounce, counter_stride, seed, o, d, thr, rad);
     }
   }
   if (ray >= n_rays) return;

@@ -59,7 +59,7 @@ trace_fused_kernel(const float* __restrict__ origins,
   const uint32_t counter_stride = 2u * static_cast<uint32_t>(max_bounces) + 2u;
 
   for (int bounce = 0; bounce < max_bounces; ++bounce) {
-    if (!path::sphere_bounce(scene, n_spheres, lane, bounce, counter_stride, seed, o, d, thr,
+    if (!path::sphere_bounce(scene, 0, n_spheres, lane, bounce, counter_stride, seed, o, d, thr,
                              rad)) {
       break;  // the path escaped
     }

@@ -65,8 +65,8 @@ trace_fused_mesh_kernel(const float* __restrict__ origins,
   const uint32_t counter_stride = 2u * static_cast<uint32_t>(max_bounces) + 2u;
 
   for (int bounce = 0; bounce < max_bounces; ++bounce) {
-    if (!mesh::bounce(scene, n_spheres, tables, lane, bounce, counter_stride, seed, o, d, thr,
-                      rad)) {
+    if (!mesh::bounce(scene, 0, n_spheres, tables, 0, tables.n_instances, lane, bounce,
+                      counter_stride, seed, o, d, thr, rad)) {
       break;  // the path escaped
     }
   }
@@ -100,8 +100,9 @@ extern "C" int trace_fused_mesh_launch(const float* origins, const float* direct
                                    n_nodes};
   size_t shared_bytes;
   bool staged;
-  const cudaError_t status = mesh::staging_for(trace_fused_mesh_kernel, n_tri_rows, n_nodes,
-                                               n_instances, &shared_bytes, &staged);
+  const cudaError_t status = path::staging_for(
+      trace_fused_mesh_kernel, mesh::table_bytes(n_tri_rows, n_nodes, n_instances), &shared_bytes,
+      &staged);
   if (status != cudaSuccess) return static_cast<int>(status);
   const int blocks = (n_rays + kThreads - 1) / kThreads;
   trace_fused_mesh_kernel<<<blocks, kThreads, shared_bytes,

@@ -1,6 +1,6 @@
 """The render path's kernels and their plain PyTorch versions.
 
-Counterpart of ``tpu_render_cluster/render/pallas_kernels.py``. Four
+Counterpart of ``tpu_render_cluster/render/pallas_kernels.py``. Six
 kernels, written in CUDA C++ for Hopper and built by ``_build.py``:
 
 - ``csrc/trace_fused.cu``, the sphere path-trace megakernel that replaces
@@ -12,13 +12,21 @@ kernels, written in CUDA C++ for Hopper and built by ``_build.py``:
   each megakernel with the path state streamed in and out (the TPU's
   ``_sphere_bounce`` and ``_mesh_bounce_io``, flat instance variant), for
   the deep-mesh loop of ``integrator.trace_paths`` and the wavefront
-  driver of ``compaction.py``.
+  tier of ``compaction.py``;
+- ``csrc/pool_sphere_bounce.cu`` and ``csrc/pool_mesh_bounce.cu``, one
+  bounce over a ray pool whose lanes come from several frames of one
+  scene (the TPU's ``pool_sphere_bounce`` and ``pool_mesh_bounce``, flat
+  instance variant), for the device-resident ray pool of ``raypool.py``:
+  each lane carries its frame id, frame seed and bounce, and sees only its
+  own frame's rows of the stacked scene (``PoolSphereOperands``,
+  ``PoolMeshOperands``).
 
 ``trace_paths_fused`` / ``trace_paths_fused_mesh`` / ``sphere_bounce`` /
-``mesh_bounce`` launch their kernel for CUDA tensors, and raise if they
-cannot. For CPU tensors they run the plain versions (``..._reference``),
-which repeat the reference's masked bounce loop operation for operation;
-there is no fallback from one to the other. ``counts`` records kernel
+``mesh_bounce`` / ``pool_sphere_bounce`` / ``pool_mesh_bounce`` launch
+their kernel for CUDA tensors, and raise if they cannot. For CPU tensors
+they run the plain versions (``..._reference``), which repeat the
+reference's masked bounce loop operation for operation; there is no
+fallback from one to the other. ``counts`` records kernel
 launches and plain-version calls, so a run can show which one the main
 path went through.
 
@@ -31,8 +39,9 @@ each ray's original lane, so a ray's stream survives re-sorts.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -51,8 +60,8 @@ MESH_MEGAKERNEL_MAX_WALK = 1024
 _DET_EPS = 1e-12  # Moller-Trumbore's parallel-ray threshold
 
 # Kernel launches ("trace_fused", "trace_fused_mesh", "sphere_bounce",
-# "mesh_bounce") and plain-version calls ("..._reference") since the last
-# reset_counts().
+# "mesh_bounce", "pool_sphere_bounce", "pool_mesh_bounce") and plain-version
+# calls ("..._reference") since the last reset_counts().
 counts = {
     "trace_fused": 0,
     "trace_fused_reference": 0,
@@ -62,6 +71,10 @@ counts = {
     "sphere_bounce_reference": 0,
     "mesh_bounce": 0,
     "mesh_bounce_reference": 0,
+    "pool_sphere_bounce": 0,
+    "pool_sphere_bounce_reference": 0,
+    "pool_mesh_bounce": 0,
+    "pool_mesh_bounce_reference": 0,
 }
 
 
@@ -170,11 +183,47 @@ def trace_paths_fused(
     raise ValueError(f"Unsupported device {origins.device}")
 
 
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# Each kernel's C entry ``<name>_launch`` (csrc/<name>.cu): its argument
+# types. A per-bounce launch takes the five state rows, n_rays and the live
+# count, the tables, three ints (seed, bounce, total_bounces; a pool launch
+# only total_bounces), the five outputs and the stream.
+_STATE_ARGTYPES = [_PTR] * 5 + [_INT, _PTR]
+_POOL_STATE_ARGTYPES = [_PTR] * 8 + [_INT, _PTR]
+_SPHERE_ARGTYPES = [_PTR, _INT, _PTR]  # spheres, their count, params
+_POOL_SPHERE_ARGTYPES = [_PTR, _INT, _INT, _PTR]  # spheres, per frame, frames, params
+# instances, their count, triangle rows, their count, node bounds, links, nodes
+_MESH_ARGTYPES = [_PTR, _INT, _PTR, _INT, _PTR, _PTR, _INT]
+_OUTPUT_ARGTYPES = [_PTR] * 6
+_LAUNCH_ARGTYPES = {
+    "trace_fused": [_PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _INT, _INT, _PTR, _PTR],
+    "trace_fused_mesh": [
+        _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, _INT, _PTR, _PTR,
+    ],
+    "sphere_bounce": [*_STATE_ARGTYPES, *_SPHERE_ARGTYPES, _INT, _INT, _INT, *_OUTPUT_ARGTYPES],
+    "mesh_bounce": [
+        *_STATE_ARGTYPES, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, _INT, _INT,
+        *_OUTPUT_ARGTYPES,
+    ],
+    "pool_sphere_bounce": [
+        *_POOL_STATE_ARGTYPES, *_POOL_SPHERE_ARGTYPES, _INT, *_OUTPUT_ARGTYPES,
+    ],
+    "pool_mesh_bounce": [
+        *_POOL_STATE_ARGTYPES, *_POOL_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, *_OUTPUT_ARGTYPES,
+    ],
+}
+
+
+@functools.cache
 def _library(name: str) -> ctypes.CDLL:
-    """The kernel's library with its C entry points typed."""
+    """The kernel's library, built first if needed, with its C entry points
+    typed once, when it loads."""
     from tpu_render_cluster_torch.render import _build
 
     library = _build.load(name)
+    launch = getattr(library, f"{name}_launch")
+    launch.argtypes = _LAUNCH_ARGTYPES[name]
+    launch.restype = ctypes.c_int
     getattr(library, f"{name}_error_string").argtypes = [ctypes.c_int]
     getattr(library, f"{name}_error_string").restype = ctypes.c_char_p
     return library
@@ -247,12 +296,6 @@ def _ray_operands(origins, directions):
 def _launch_trace_fused(scene, origins, directions, seed, max_bounces):
     library = _library("trace_fused")
     launch = library.trace_fused_launch
-    launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    launch.restype = ctypes.c_int
     spheres, params = _sphere_operands(scene)
     origins, directions, radiance, stream = _ray_operands(origins, directions)
     status = launch(
@@ -401,15 +444,6 @@ _bvh_operands = _IdentityCache(_pack_bvh)
 def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces):
     library = _library("trace_fused_mesh")
     launch = library.trace_fused_mesh_launch
-    launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    launch.restype = ctypes.c_int
     spheres, params = _sphere_operands(scene)
     table = instance_operands(mesh)
     triangles, bounds, links = _bvh_operands(mesh.bvh)
@@ -528,36 +562,17 @@ def mesh_bounce(
     raise ValueError(f"Unsupported device {origins.device}")
 
 
-# The per-bounce launchers' C arguments around the tables: the five state
-# rows, n_rays and the live count; then the five outputs and the stream.
-_STATE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-_OUTPUT_ARGTYPES = [ctypes.c_void_p] * 6
-
-
 def _launch_bounce(
     name, scene, mesh, origins, directions, throughput, alive, lane, live_count, seed, bounce,
     total_bounces,
 ):
     library = _library(name)
     launch = getattr(library, f"{name}_launch")
-    table_argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]  # spheres, params
-    if mesh is not None:
-        table_argtypes += [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ]
-    launch.argtypes = (
-        _STATE_ARGTYPES + table_argtypes + [ctypes.c_int] * 3 + _OUTPUT_ARGTYPES
-    )
-    launch.restype = ctypes.c_int
     rays = origins.shape[0]
     if rays >= 2**31:
         raise ValueError(f"{rays} rays exceed the kernel's int32 lane index")
     device = origins.device
-    if isinstance(live_count, torch.Tensor):
-        live = live_count.to(device=device, dtype=torch.int32).reshape(1)
-    else:  # filled on the card: a copy from pageable host memory would wait for it
-        live = torch.full((1,), int(live_count), dtype=torch.int32, device=device)
+    live = _live_tensor(live_count, device)
     state = [t.contiguous() for t in (origins, directions, throughput, alive, lane)]
     spheres, params = _sphere_operands(scene)
     tables = [spheres.data_ptr(), spheres.shape[0], params.data_ptr()]
@@ -575,6 +590,207 @@ def _launch_bounce(
     status = launch(
         *(t.data_ptr() for t in state[:5]), rays, live.data_ptr(),
         *tables, int(seed), int(bounce), int(total_bounces),
+        *(t.data_ptr() for t in out), torch.cuda.current_stream(device).cuda_stream,
+    )
+    _check_status(library, name, status)
+    counts[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# One bounce over a ray pool of several frames
+
+
+class PoolSphereOperands(NamedTuple):
+    """A window of F frames of one sphere scene stacked for the pool
+    kernels (the reference's ``PoolSphereOperands``): frame f's N spheres
+    (the scene's count padded to 8) are rows [f N, (f + 1) N) of
+    ``spheres``. The lighting is frame-invariant (the scenes'
+    ``_default_lighting``); ``params`` are frame 0's."""
+
+    tables: tuple[SphereTable, ...]  # per frame, as the plain version reads them
+    spheres: torch.Tensor  # [F N, 16]: _pack_spheres' rows, frame-major
+    params: torch.Tensor  # [18]
+    per_frame: int  # N
+
+
+class PoolMeshOperands(NamedTuple):
+    """``PoolSphereOperands`` plus the window's meshes (the reference's
+    ``PoolMeshOperands``): one BVH shared by every frame, and the frames'
+    instance tables stacked frame-major, frame f's K instances at rows
+    [f K, (f + 1) K) of ``instances``."""
+
+    spheres: PoolSphereOperands
+    meshes: tuple[MeshSet, ...]  # per frame; the BVH is frame 0's
+    instances: torch.Tensor  # [F K, 22]: instance_table rows, frame-major
+    per_frame: int  # K
+
+
+def pool_sphere_operands(scenes: Sequence[Scene]) -> PoolSphereOperands:
+    """Stack the window's per-frame scenes (one scene family, so one padded
+    sphere count) for ``pool_sphere_bounce``."""
+    if not scenes:
+        raise ValueError("a pool window holds at least one frame")
+    packed = [_pack_spheres(scene) for scene in scenes]
+    per_frame = packed[0][0].shape[0]
+    if any(rows.shape[0] != per_frame for rows, _ in packed):
+        raise ValueError("every frame of a pool window must pad to the same sphere count")
+    return PoolSphereOperands(
+        tables=tuple(sphere_table(scene) for scene in scenes),
+        spheres=torch.cat([rows for rows, _ in packed]).contiguous(),
+        params=packed[0][1],
+        per_frame=per_frame,
+    )
+
+
+def pool_mesh_operands(scenes: Sequence[Scene], meshes: Sequence[MeshSet]) -> PoolMeshOperands:
+    """Stack the window's scenes and MeshSets (one BVH, K instances per
+    frame) for ``pool_mesh_bounce``."""
+    if len(meshes) != len(scenes):
+        raise ValueError(f"{len(scenes)} scenes but {len(meshes)} meshes")
+    bvh = meshes[0].bvh
+    per_frame = meshes[0].instances.translation.shape[0]
+    for mesh in meshes:
+        if mesh.bvh.skip.shape != bvh.skip.shape or mesh.bvh.v0.shape != bvh.v0.shape:
+            raise ValueError("the frames of a pool window must share one BVH")
+        if mesh.instances.translation.shape[0] != per_frame:
+            raise ValueError("every frame of a pool window must hold the same instance count")
+    return PoolMeshOperands(
+        spheres=pool_sphere_operands(scenes),
+        meshes=tuple(meshes),
+        instances=torch.cat([instance_table(mesh) for mesh in meshes]).contiguous(),
+        per_frame=per_frame,
+    )
+
+
+def pool_instance_aabbs(ops: PoolMeshOperands) -> tuple[torch.Tensor, torch.Tensor]:
+    """World AABBs (lo, hi) [F K, 3] of the stacked instances: the
+    broadphase input of the pool's coherence sort."""
+    return ops.instances[:, 13:16], ops.instances[:, 16:19]
+
+
+def _check_pool_state(
+    spheres: PoolSphereOperands, origins, directions, throughput, alive, lane, fid, seed_row,
+    bounce_row, total_bounces,
+):
+    rays = origins.shape[0]
+    if origins.ndim != 2 or origins.shape[1] != 3:
+        raise ValueError(f"origins must be [P, 3]; got {tuple(origins.shape)}")
+    for name, tensor in (("directions", directions), ("throughput", throughput)):
+        if tensor.shape != origins.shape:
+            raise ValueError(f"{name} must be [P, 3] like origins; got {tuple(tensor.shape)}")
+    for name, tensor in (("origins", origins), ("directions", directions),
+                         ("throughput", throughput)):
+        if tensor.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {tensor.dtype}")
+    if alive.shape != (rays,) or alive.dtype != torch.bool:
+        raise ValueError(f"alive must be bool [P]; got {alive.dtype} {tuple(alive.shape)}")
+    for name, row in (("lane", lane), ("fid", fid), ("seed_row", seed_row),
+                      ("bounce_row", bounce_row)):
+        if row.shape != (rays,) or row.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32 [P]; got {row.dtype} {tuple(row.shape)}")
+    devices = {t.device for t in (origins, directions, throughput, alive, lane, fid, seed_row,
+                                  bounce_row, spheres.spheres)}
+    if len(devices) != 1:
+        raise ValueError(f"the pool state and the scene must lie on one device, got {devices}")
+    if int(total_bounces) < 1:
+        raise ValueError(f"total_bounces must be at least 1, got {total_bounces}")
+
+
+def pool_sphere_bounce(
+    ops: PoolSphereOperands,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    throughput: torch.Tensor,
+    alive: torch.Tensor,
+    lane: torch.Tensor,
+    fid: torch.Tensor,
+    seed_row: torch.Tensor,
+    bounce_row: torch.Tensor,
+    live_count,
+    *,
+    total_bounces: int,
+) -> BounceState:
+    """One bounce over a pool of P lanes from the window's frames.
+
+    As ``sphere_bounce``, with per-lane rows in place of the scalars:
+    ``fid`` the lane's frame in the window (it sees only that frame's
+    spheres), ``seed_row`` its frame's int32 trace seed and ``bounce_row``
+    its own depth (0 <= bounce < ``total_bounces``), all int32 [P].
+    ``live_count`` (an int or a one-element tensor on the pool's device)
+    bounds the live prefix; lanes past it pass through. CUDA tensors go to
+    the kernel, CPU tensors to the plain version.
+    """
+    _check_pool_state(ops, origins, directions, throughput, alive, lane, fid, seed_row,
+                      bounce_row, total_bounces)
+    state = (origins, directions, throughput, alive, lane, fid, seed_row, bounce_row)
+    if origins.device.type == "cuda":
+        return _launch_pool("pool_sphere_bounce", ops, None, state, live_count, total_bounces)
+    if origins.device.type == "cpu":
+        return pool_sphere_bounce_reference(ops, *state, live_count, total_bounces=total_bounces)
+    raise ValueError(f"Unsupported device {origins.device}")
+
+
+def pool_mesh_bounce(
+    ops: PoolMeshOperands,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    throughput: torch.Tensor,
+    alive: torch.Tensor,
+    lane: torch.Tensor,
+    fid: torch.Tensor,
+    seed_row: torch.Tensor,
+    bounce_row: torch.Tensor,
+    live_count,
+    *,
+    total_bounces: int,
+) -> BounceState:
+    """One mesh bounce over a pool of P lanes from the window's frames; the
+    arguments are ``pool_sphere_bounce``'s, a lane seeing its own frame's
+    spheres and K instances."""
+    _check_pool_state(ops.spheres, origins, directions, throughput, alive, lane, fid, seed_row,
+                      bounce_row, total_bounces)
+    _check_mesh(ops.meshes[0], origins)
+    state = (origins, directions, throughput, alive, lane, fid, seed_row, bounce_row)
+    if origins.device.type == "cuda":
+        return _launch_pool("pool_mesh_bounce", ops.spheres, ops, state, live_count, total_bounces)
+    if origins.device.type == "cpu":
+        return pool_mesh_bounce_reference(ops, *state, live_count, total_bounces=total_bounces)
+    raise ValueError(f"Unsupported device {origins.device}")
+
+
+def _live_tensor(live_count, device) -> torch.Tensor:
+    """The live count as one int32 on the card."""
+    if isinstance(live_count, torch.Tensor):
+        return live_count.to(device=device, dtype=torch.int32).reshape(1)
+    # Filled on the card: a copy from pageable host memory would wait for it.
+    return torch.full((1,), int(live_count), dtype=torch.int32, device=device)
+
+
+def _launch_pool(name, spheres, mesh_ops, state, live_count, total_bounces):
+    library = _library(name)
+    launch = getattr(library, f"{name}_launch")
+    rays = state[0].shape[0]
+    if rays >= 2**31:
+        raise ValueError(f"{rays} lanes exceed the kernel's int32 lane index")
+    device = state[0].device
+    live = _live_tensor(live_count, device)
+    state = [t.contiguous() for t in state]
+    frames = len(spheres.tables)
+    tables = [spheres.spheres.data_ptr(), spheres.per_frame, frames, spheres.params.data_ptr()]
+    if mesh_ops is not None:
+        triangles, bounds, links = _bvh_operands(mesh_ops.meshes[0].bvh)
+        tables += [
+            mesh_ops.instances.data_ptr(), mesh_ops.per_frame,
+            triangles.data_ptr(), triangles.shape[0],
+            bounds.data_ptr(), links.data_ptr(), bounds.shape[0],
+        ]
+    out = BounceState(
+        *(torch.empty((rays, 3), dtype=torch.float32, device=device) for _ in range(4)),
+        torch.empty((rays,), dtype=torch.bool, device=device),
+    )
+    status = launch(
+        *(t.data_ptr() for t in state), rays, live.data_ptr(), *tables, int(total_bounces),
         *(t.data_ptr() for t in out), torch.cuda.current_stream(device).cuda_stream,
     )
     _check_status(library, name, status)
@@ -706,6 +922,118 @@ def mesh_bounce_reference(
     )
 
 
+def pool_sphere_bounce_reference(
+    ops: PoolSphereOperands,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    throughput: torch.Tensor,
+    alive: torch.Tensor,
+    lane: torch.Tensor,
+    fid: torch.Tensor,
+    seed_row: torch.Tensor,
+    bounce_row: torch.Tensor,
+    live_count,
+    *,
+    total_bounces: int,
+    chunk_rays: int = 32768,
+    stats: dict | None = None,
+) -> BounceState:
+    """The plain PyTorch version of the pool sphere kernel, on any device:
+    the live lanes of the leading ``live_count`` grouped by frame, each
+    group through one bounce of the sphere megakernel's plain version
+    against its own frame's table, with each lane's own seed and bounce.
+    Per lane that is the masked loop's arithmetic. Dead lanes and lanes
+    past the count pass through with a zero contribution. ``stats`` as for
+    the megakernel's version, counting one frame's spheres per test."""
+    _check_pool_state(ops, origins, directions, throughput, alive, lane, fid, seed_row,
+                      bounce_row, total_bounces)
+    counts["pool_sphere_bounce_reference"] += 1
+    return _pool_reference(
+        ops.tables, None, origins, directions, throughput, alive, lane, fid, seed_row,
+        bounce_row, live_count, total_bounces, chunk_rays, stats,
+    )
+
+
+def pool_mesh_bounce_reference(
+    ops: PoolMeshOperands,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    throughput: torch.Tensor,
+    alive: torch.Tensor,
+    lane: torch.Tensor,
+    fid: torch.Tensor,
+    seed_row: torch.Tensor,
+    bounce_row: torch.Tensor,
+    live_count,
+    *,
+    total_bounces: int,
+    chunk_rays: int = 262144,
+    stats: dict | None = None,
+) -> BounceState:
+    """The plain PyTorch version of the pool mesh kernel, on any device:
+    ``pool_sphere_bounce_reference`` with each frame's mesh walk (the mesh
+    megakernel's plain bounce and its work counters)."""
+    _check_pool_state(ops.spheres, origins, directions, throughput, alive, lane, fid, seed_row,
+                      bounce_row, total_bounces)
+    _check_mesh(ops.meshes[0], origins)
+    counts["pool_mesh_bounce_reference"] += 1
+    return _pool_reference(
+        ops.spheres.tables, _pool_walks(ops), origins, directions, throughput, alive, lane, fid,
+        seed_row, bounce_row, live_count, total_bounces, chunk_rays, stats,
+    )
+
+
+# The plain version's mesh walk of each frame of a pool window.
+_pool_walks = _IdentityCache(
+    lambda ops: tuple(
+        _MeshWalk.build(mesh, table.sun_direction)
+        for mesh, table in zip(ops.meshes, ops.spheres.tables)
+    )
+)
+
+
+def _pool_reference(
+    tables, walks, origins, directions, throughput, alive, lane, fid, seed_row, bounce_row,
+    live_count, total_bounces, chunk_rays, stats,
+):
+    rays = origins.shape[0]
+    live = max(0, min(int(live_count), rays))
+    out = BounceState(
+        torch.zeros_like(origins), origins.clone(), directions.clone(), throughput.clone(),
+        alive.clone(),
+    )
+    if stats is not None:
+        keys = _start_stats(stats, tables[0], None if walks is None else walks[0])
+    frame = fid[:live].to(torch.int64)
+    running = alive[:live]
+    outside = running & ((frame < 0) | (frame >= len(tables)))
+    if outside.any():
+        raise ValueError(
+            f"live lanes carry frame ids outside the window of {len(tables)} frames"
+        )
+    for f, table in enumerate(tables):
+        # A dead lane adds zero and keeps its state, so only live lanes run.
+        rows_f = (running & (frame == f)).nonzero()[:, 0]
+        for start in range(0, rows_f.numel(), chunk_rays):
+            rows = rows_f[start:start + chunk_rays]
+            zero = torch.zeros_like(origins[rows])
+            o, d, thr, contribution, alive_f = _bounce(
+                table, None if walks is None else walks[f], origins[rows], directions[rows],
+                throughput[rows], zero, alive[rows, None].to(torch.float32),
+                lane[rows].to(torch.int64), bounce_row[rows].to(torch.int64), total_bounces,
+                seed_row[rows].to(torch.int64) & MASK32, stats,
+            )
+            out.contribution[rows] = contribution
+            out.origins[rows] = o
+            out.directions[rows] = d
+            out.throughput[rows] = thr
+            out.alive[rows] = alive_f[:, 0] > 0.5
+    if stats is not None:
+        for key in keys:
+            stats[key] = int(stats[key])
+    return out
+
+
 def _bounce_reference(
     table, walk, origins, directions, throughput, alive, lane, live_count, seed, bounce,
     total_bounces, chunk_rays, stats,
@@ -789,7 +1117,9 @@ def _reference_chunk(table, walk, o, d, lane_start, seed_word, max_bounces, stat
 def _bounce(table, walk, o, d, throughput, radiance, alive, lane, bounce, total_bounces,
             seed_word, stats):
     """One bounce of the reference's masked loop over [n] rays: ``alive``
-    is float [n, 1] (0 or 1), ``lane`` int64 [n] the RNG counters.
+    is float [n, 1] (0 or 1), ``lane`` int64 [n] the RNG counters;
+    ``bounce`` and ``seed_word`` (the uint32 seed in int64) are scalars or
+    per-ray int64 [n] rows.
     Returns (o, d, throughput, radiance, alive) after the bounce, radiance
     accumulated into the given one."""
     device = o.device

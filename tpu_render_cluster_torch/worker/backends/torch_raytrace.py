@@ -1,7 +1,7 @@
 """The ``torch-raytrace`` render backend: the path tracer on a CUDA GPU.
 
 Counterpart of ``tpu_render_cluster/worker/backends/tpu_raytrace.py`` for
-whole frames, with two of its execution tiers:
+whole frames, with three of its execution tiers:
 
 - the masked tier: each frame is one call of the cached frame renderer
   (primary rays, the path trace, sample mean, tonemap). Sphere scenes and
@@ -10,16 +10,23 @@ whole frames, with two of its execution tiers:
   kernel once per bounce, the rays re-sorted between bounces;
 - the wavefront tier (``render/compaction.py``): per bounce the live rays
   are compacted, their count read back, and the per-bounce kernel
-  relaunched over a bucket of them alone.
+  relaunched over a bucket of them alone;
+- the ray-pool tier (``render/raypool.py``): the frame asked for and the
+  next frames of the same job still queued on this worker render together
+  in one pool window, one pool-kernel launch per iteration and no host
+  read inside it. The frames rendered ahead wait, linear, in a cache
+  bounded at 64 MB, and their own requests only tonemap and save them.
 
-The ``wavefront`` option chooses between them as the reference's does:
-``None`` or ``"auto"`` takes the wavefront for the scenes past the mesh
-megakernel's bound, ``"off"`` never, ``"force"`` for every scene (sphere
-scenes then through the per-bounce sphere kernel). Where the reference's
-auto would pick its ray pool instead (a multi-frame queue of a deep-mesh
-job), the port takes the wavefront until the ray-pool slice lands. The
-tier is chosen once per scene. ``on_launch``, when given, is called with
-each wavefront launch (``compaction.WavefrontLaunch``).
+The ``raypool`` and ``wavefront`` options choose as the reference's do.
+``raypool``: ``None`` or ``"auto"`` pools a deep-mesh job's frame when the
+worker's queue hint (``note_upcoming_frames``, which the worker queue calls
+before each frame) names at least one more frame of the job, ``"off"``
+never, ``"force"`` every frame. Otherwise ``wavefront``: ``None`` or
+``"auto"`` takes the wavefront for the scenes past the mesh megakernel's
+bound, ``"off"`` never, ``"force"`` for every scene (sphere scenes then
+through the per-bounce sphere kernel). ``on_launch``, when given, is
+called with each wavefront launch (``compaction.WavefrontLaunch``),
+``on_iteration`` with each pool launch (``raypool.PoolLaunch``).
 
 It emits the same 7-phase ``FrameRenderTime``:
 
@@ -30,15 +37,20 @@ It emits the same 7-phase ``FrameRenderTime``:
 - file_saving: PNG/JPEG encode + atomic write;
 - exited_process: after the output file is on disk.
 
+A frame served from the pool's cache spends its render phase on the
+tonemap and the copy back; the window's device time was spent in the
+render phase of the frame that started it.
+
 Rendering runs in a thread (``asyncio.to_thread``) so a worker's heartbeats
-and queue RPCs stay responsive while a frame renders. Tiles, local sharding
-and ray-pool execution wait for later slices of the port and raise
+and queue RPCs stay responsive while a frame renders. Tiles and local
+sharding wait for later slices of the port and raise
 ``NotImplementedError`` instead of rendering anything in their place.
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import time
 from pathlib import Path
 from typing import Callable
@@ -55,6 +67,14 @@ from tpu_render_cluster_torch.render.compaction import (
     wavefront_active,
 )
 from tpu_render_cluster_torch.render.integrator import fused_frame_renderer, tonemap
+from tpu_render_cluster_torch.render.raypool import (
+    RAYPOOL_FRAMES,
+    RAYPOOL_MODES,
+    PoolLaunch,
+    PoolStats,
+    raypool_active,
+    render_batch_raypool,
+)
 from tpu_render_cluster_torch.render.scene import scene_for_job_name
 from tpu_render_cluster_torch.traces.worker_trace import FrameRenderTime
 from tpu_render_cluster_torch.utils.paths import parse_with_base_directory_prefix
@@ -63,11 +83,15 @@ from tpu_render_cluster_torch.worker.backends.base import RenderBackend
 _LATER_SLICES = {
     "tile_size": "the tiles slice (ROADMAP.md, queue 1)",
     "sharding": "the multi-GPU slice (ROADMAP.md, queue 1)",
-    "raypool": "the ray-pool slice (ROADMAP.md, queue 1)",
 }
 
 
 class TorchRaytraceBackend(RenderBackend):
+    # A bound on stale entries, not a working set: the frames of a window
+    # are asked for within the window, so what pushes the cache past this
+    # is frames rendered ahead and then stolen or removed.
+    _RAYPOOL_CACHE_MAX_BYTES = 64 * 1024 * 1024
+
     def __init__(
         self,
         *,
@@ -82,8 +106,9 @@ class TorchRaytraceBackend(RenderBackend):
         wavefront: str | None = None,
         raypool: str | None = None,
         on_launch: Callable[[WavefrontLaunch], None] | None = None,
+        on_iteration: Callable[[PoolLaunch], None] | None = None,
     ) -> None:
-        requested = dict(tile_size=tile_size, sharding=sharding, raypool=raypool)
+        requested = dict(tile_size=tile_size, sharding=sharding)
         for option, value in requested.items():
             if value is not None:
                 raise NotImplementedError(
@@ -92,8 +117,19 @@ class TorchRaytraceBackend(RenderBackend):
                 )
         if wavefront is not None and wavefront not in WAVEFRONT_MODES:
             raise ValueError(f"wavefront={wavefront!r} is not one of {WAVEFRONT_MODES}")
+        if raypool is not None and raypool not in RAYPOOL_MODES:
+            raise ValueError(f"raypool={raypool!r} is not one of {RAYPOOL_MODES}")
         self.wavefront = wavefront
+        self.raypool = raypool
         self.on_launch = on_launch
+        self.on_iteration = on_iteration
+        # job name -> the frames of the job still queued on this worker.
+        self._upcoming: dict[str, tuple[int, ...]] = {}
+        # (job name, frame) -> linear image a pool window rendered ahead.
+        self._raypool_cache: dict[tuple[str, int], torch.Tensor] = {}
+        # The last pool windows' statistics, until the port's obs registry
+        # carries them.
+        self.pool_stats: collections.deque[PoolStats] = collections.deque(maxlen=64)
         self.device = resolve_device(device)
         self.base_directory = Path(base_directory) if base_directory else None
         self.width = width
@@ -121,13 +157,53 @@ class TorchRaytraceBackend(RenderBackend):
 
         return render
 
+    def note_upcoming_frames(self, job: BlenderJob, units) -> None:
+        """The worker queue's hint: the units of ``job`` still queued on this
+        worker, i.e. what a pool window may render ahead. Units are read by
+        their ``frame_index`` and ``tile`` attributes (the queue's work
+        units) or given as bare frame indices; tiled units are left to the
+        tiles slice. An empty hint drops the job."""
+        frames = tuple(
+            unit if isinstance(unit, int) else unit.frame_index
+            for unit in units
+            if isinstance(unit, int) or getattr(unit, "tile", None) is None
+        )
+        if frames:
+            self._upcoming[job.job_name] = frames
+        else:
+            self._upcoming.pop(job.job_name, None)
+
     def warm(self, scene_name: str) -> None:
-        """Build the kernel and render one frame, outside any job window.
+        """Build the kernels and render one frame through each tier the
+        scene may take, outside any job window: the pool (where a queue
+        would choose it) and the per-frame tier, which renders a job's last
+        frame.
 
         Accepts job names as well as scene names, resolving them exactly
         like the render path does.
         """
-        self._renderer(scene_for_job_name(scene_name))(1).cpu()
+        scene_name = scene_for_job_name(scene_name)
+        if raypool_active(scene_name, mode=self.raypool, frames_ahead=1):
+            self._render_window(scene_name, [1])[0].cpu()
+        self._renderer(scene_name)(1).cpu()
+
+    def _render_window(self, scene_name: str, frames: list[int]) -> list[torch.Tensor]:
+        images, stats = render_batch_raypool(
+            scene_name, frames, width=self.width, height=self.height, samples=self.samples,
+            max_bounces=self.max_bounces, frame_cap=len(frames), device=self.device,
+            on_iteration=self.on_iteration,
+        )
+        self.pool_stats.extend(stats)
+        return images
+
+    def _trim_raypool_cache(self) -> None:
+        """Drop the oldest rendered-ahead frames past the byte bound."""
+        excess = sum(
+            image.numel() * image.element_size() for image in self._raypool_cache.values()
+        ) - self._RAYPOOL_CACHE_MAX_BYTES
+        while self._raypool_cache and excess > 0:
+            victim = self._raypool_cache.pop(next(iter(self._raypool_cache)))
+            excess -= victim.numel() * victim.element_size()
 
     async def render_frame(
         self, job: BlenderJob, frame_index: int, tile: int | None = None
@@ -143,11 +219,36 @@ class TorchRaytraceBackend(RenderBackend):
                 f"ported yet; they arrive with {_LATER_SLICES['tile_size']}."
             )
         started_process_at = time.time()
-        renderer = self._renderer(scene_for_job_name(job.job_name))
+        scene_name = scene_for_job_name(job.job_name)
+        cached = self._raypool_cache.pop((job.job_name, frame_index), None)
+        # A pool window: this frame and the job's next frames queued here,
+        # all this worker's own work, so nothing is rendered speculatively.
+        upcoming = [
+            frame
+            for frame in self._upcoming.get(job.job_name, ())
+            if frame != frame_index and (job.job_name, frame) not in self._raypool_cache
+        ]
+        use_raypool = cached is None and raypool_active(
+            scene_name, mode=self.raypool, frames_ahead=len(upcoming)
+        )
+        renderer = None
+        if cached is None and not use_raypool:
+            renderer = self._renderer(scene_name)
         finished_loading_at = time.time()
 
         started_rendering_at = time.time()
-        pixels = renderer(frame_index).cpu().numpy()  # waits for the device
+        if cached is not None:
+            display = tonemap(cached)
+        elif use_raypool:
+            window = [frame_index] + upcoming[:RAYPOOL_FRAMES - 1]
+            images = self._render_window(scene_name, window)
+            for ahead, image in zip(window[1:], images[1:]):
+                self._raypool_cache[(job.job_name, ahead)] = image
+            self._trim_raypool_cache()
+            display = tonemap(images[0])
+        else:
+            display = renderer(frame_index)
+        pixels = display.cpu().numpy()  # waits for the device
         finished_rendering_at = time.time()
 
         file_saving_started_at = time.time()
