@@ -5,8 +5,8 @@ CUDA toolkit):
 
     python3 chip_smoke.py
 
-Six main paths, one per kernel, each through ``TorchRaytraceBackend``:
-whole frames of the sphere scene 04_very-simple through ``trace_fused``,
+Eight main paths, each through ``TorchRaytraceBackend``, six of them one per
+kernel: whole frames of the sphere scene 04_very-simple through ``trace_fused``,
 of the mesh scene 02_physics-mesh through ``trace_fused_mesh``, of the deep
 mesh scene 03_physics-2-mesh through the wavefront driver (the backend's
 default tier for a frame with none queued behind it) and ``mesh_bounce``,
@@ -14,8 +14,12 @@ two frames of 04_very-simple under ``wavefront="force"`` through
 ``sphere_bounce``, the same deep job through the ray pool (the backend's
 default tier when the worker queue's hint names more frames of the job)
 and ``pool_mesh_bounce``, and two frames of 04_very-simple under
-``raypool="force"`` through ``pool_sphere_bounce``. Phases, each of which
-raises (exit code 1) if its check fails:
+``raypool="force"`` through ``pool_sphere_bounce``; and two through the
+per-bounce scan renderer (``bounce_scan=True``), one bounce of eager tensor
+code per sample around the unit kernels: 10 frames of the deep job through
+``intersect_spheres``, ``occluded_spheres``, ``intersect_instances`` and
+``occluded_instances``, and 2 frames of 04_very-simple through the first
+two. Phases, each of which raises (exit code 1) if its check fails:
 1. the card: name and power limit as nvidia-smi reports them;
 2. build every CUDA source of the port with nvcc (sm_90a), one nvcc per
    source, all at once, timed;
@@ -32,7 +36,11 @@ raises (exit code 1) if its check fails:
    every boundary between two frames the first launch with live lanes of
    both (at mixed bounces where there is one), and the last launch (the
    drain), all 65,536 lanes, at the same tolerance, and one chunk of the
-   pool's loop body under ``torch.cuda.set_sync_debug_mode("error")``;
+   pool's loop body under ``torch.cuda.set_sync_debug_mode("error")``; the
+   unit kernels on every launch of frame 1 of each scan path at 128x128, 4
+   spp (their wrappers recorded in place on ``kernels``), each on the
+   launch's own inputs, at the tolerances of tests/test_torch_geometry.py
+   and tests/test_torch_instances.py;
 4. each main path: the first frames of a job file loaded through the
    port's job model and rendered by the backend at 512x512, 8 spp, 4
    bounces. The launch counts are zeroed just before each path and read
@@ -48,7 +56,10 @@ raises (exit code 1) if its check fails:
    queue gives it: two windows, 8 and 2 frames, of the deep job) against
    the wavefront tier's image of the same frame (atol 1e-5, the bit-equal
    share printed) and the megakernel's PNG, and every other frame of
-   its first window against the wavefront tier's image too;
+   its first window against the wavefront tier's image too; a scan path's
+   unit kernels each once per sample and bounce, and its frame against the
+   scan tier's render with the plain versions on the card (the bit-equal
+   share printed);
 5. timings: each path's per-frame phases and frames/s and a breakdown of
    one frame; each megakernel's time (its wrapper's calls, CUDA events, the
    median of 10 batches of 20) beside its bound, its plain version's time
@@ -58,12 +69,16 @@ raises (exit code 1) if its check fails:
    kernel at its three launches, beside the glue of its iteration (sort,
    refill, scatter), its bound from the plain version's work counters on
    the whole launch, and the pool path's frames/s beside the wavefront's;
+   each unit kernel at the four launches of frame 1's first sample (262,144
+   rays), its bound from its plain version's counters on the bounce-0
+   launch, and each scan path's frames/s and split of a frame beside the
+   megakernel and wavefront paths of the same run;
 6. under torch.profiler (reported, not checked: the numbers read "not
    measured" where the profiler sees no device time, or misses a launch of
    the kernel after three tries): each kernel's own device time apart from
    its wrapper's set-up work, and the card's idle share over two frames of
    each main path, or one window of a pool path (busy: the sum of the
-   device's own events).
+   device's own events; a scan path's also split by unit kernel).
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -73,6 +88,7 @@ without the port beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import math
 import re
@@ -105,6 +121,9 @@ MEMORY_BYTES_PER_S = 3.35e12
 # 54).
 OPS_NEAREST_SPHERE = 26
 OPS_SHADOW_SPHERE = 17
+# A shadow test along the ray's own direction (the unit kernel
+# occluded_spheres) also takes c . d: one more 3-dot.
+OPS_ANY_HIT_SPHERE = 22
 OPS_SHADE_HIT = 200
 OPS_SLAB = 25
 OPS_INSTANCE_WALK = 48
@@ -117,18 +136,39 @@ MEGAKERNEL_RAY_BYTES = (3 + 3 + 3) * 4
 BOUNCE_RAY_BYTES = 3 * 12 + 1 + 4 + 4 * 12 + 1
 # A pool kernel also reads each lane's frame id, seed and bounce.
 POOL_RAY_BYTES = BOUNCE_RAY_BYTES + 3 * 4
+# The unit kernels of the bounce scan read origin and direction (24) and
+# their per-ray input (the seed t: 4, already: 1) and write t and index (8),
+# the any-hit (1), or t, triangle row and instance (12). The any-hit over the
+# instances reads a lane's origin and direction only where it walks
+# (``already`` unset): ``unit_bound`` adds those 24 bytes per walking lane.
+UNIT_KERNELS = ("intersect_spheres", "occluded_spheres", "intersect_instances", "occluded_instances")
+UNIT_RAY_BYTES = {
+    "intersect_spheres": 24 + 8,
+    "occluded_spheres": 24 + 1,
+    "intersect_instances": 24 + 4 + 12,
+    "occluded_instances": 1 + 1,
+}
 
 SPHERE_JOB = "blender-projects/04_very-simple/04_very-simple_demo_10f-1w.toml"
 DEEP_JOB = "blender-projects/03_physics-2/03_physics-2-mesh_240f-8w_tpu-batch_tpu-raytrace.toml"
 
 
 class MainPath(NamedTuple):
-    kernel: str
+    kernel: str  # the path's kernel; a scan path's name
     job_file: str
     scene: str
     frames: int
     wavefront: str | None  # the backend's options
     raypool: str | None = None
+    bounce_scan: bool = False
+
+    @property
+    def launched(self) -> tuple[str, ...]:
+        """The kernels the path launches: a scan path's unit kernels (the
+        instanced ones only for a mesh scene), else its one kernel."""
+        if not self.bounce_scan:
+            return (self.kernel,)
+        return UNIT_KERNELS if self.scene.endswith("-mesh") else UNIT_KERNELS[:2]
 
 
 PATHS = [
@@ -142,6 +182,8 @@ PATHS = [
     MainPath("sphere_bounce", SPHERE_JOB, "04_very-simple", 2, "force"),
     MainPath("pool_mesh_bounce", DEEP_JOB, "03_physics-2-mesh", 10, None),
     MainPath("pool_sphere_bounce", SPHERE_JOB, "04_very-simple", 2, None, "force"),
+    MainPath("bounce_scan 03_physics-2-mesh", DEEP_JOB, "03_physics-2-mesh", 10, None, bounce_scan=True),
+    MainPath("bounce_scan 04_very-simple", SPHERE_JOB, "04_very-simple", 2, None, bounce_scan=True),
 ]
 MEGAKERNELS = ("trace_fused", "trace_fused_mesh")
 POOLS = ("pool_mesh_bounce", "pool_sphere_bounce")
@@ -152,6 +194,10 @@ REPLACES = {
     "sphere_bounce": "tpu_render_cluster/render/pallas_kernels.py:1004",
     "pool_sphere_bounce": "tpu_render_cluster/render/pallas_kernels.py:3784",
     "pool_mesh_bounce": "tpu_render_cluster/render/pallas_kernels.py:3854",
+    "intersect_instances": "tpu_render_cluster/render/pallas_kernels.py:1869",
+    "occluded_instances": "tpu_render_cluster/render/pallas_kernels.py:1926",
+    "intersect_spheres": "tpu_render_cluster/render/pallas_kernels.py:447",
+    "occluded_spheres": "tpu_render_cluster/render/pallas_kernels.py:533",
 }
 BOUNCE_TOLERANCE = (
     "rtol=atol=1e-4 per ray on contribution, origin, direction and throughput, alive exact; "
@@ -167,6 +213,13 @@ TOLERANCE = {
     "sphere_bounce": BOUNCE_TOLERANCE,
     "pool_mesh_bounce": BOUNCE_TOLERANCE,
     "pool_sphere_bounce": BOUNCE_TOLERANCE,
+    "intersect_spheres": "t within rtol 2e-5 / atol 2e-4 and the index equal on every ray that hits",
+    "occluded_spheres": "equal on every ray",
+    "intersect_instances": (
+        "t within rtol=atol=1e-4 on every ray; triangle row and instance equal on every hit ray "
+        "but max(1, round(0.001 R)) exact-tie rays"
+    ),
+    "occluded_instances": "equal on every ray but max(1, round(0.001 R)) edge-tie rays",
 }
 
 
@@ -233,14 +286,15 @@ def host_ms(fn, repeats: int) -> float:
     return elapsed * 1e3 / repeats
 
 
-def device_time(fn, kernel: str) -> dict | None:
+def device_time(fn, kernel: str | tuple[str, ...]) -> dict | None:
     """One run of ``fn`` under torch.profiler (CUPTI): its wall ms, the
     summed device ms of every device operation it ran (kernels, copies,
     fills: the device's own events; a PyTorch operator's events repeat the
     device time of the kernels it launched and are left out), and that of
     ``kernel``'s own launches (the events of its CUDA function
-    ``<kernel>_kernel``), with the launches the profile saw and those the
-    wrapper counted. None where the profiler records no device time (then
+    ``<kernel>_kernel``; several kernels: summed, and each in
+    ``per_kernel``), with the launches the profile saw and those the
+    wrappers counted. None where the profiler records no device time (then
     these numbers are not measured)."""
     import torch
     from torch.autograd import DeviceType
@@ -248,8 +302,9 @@ def device_time(fn, kernel: str) -> dict | None:
 
     from tpu_render_cluster_torch.render import kernels
 
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     torch.cuda.synchronize()
-    counted = kernels.counts[kernel]
+    counted = {name: kernels.counts[name] for name in names}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
         # Idle margins inside the window: the profiler has dropped device
         # events that lie next to its start or stop.
@@ -262,18 +317,20 @@ def device_time(fn, kernel: str) -> dict | None:
     events = [e for e in trace.events() if e.device_type == DeviceType.CUDA]
     if not events:
         return None
-    own = [e for e in events if re.search(rf"\b{kernel}_kernel\b", e.name)]
+    own = {name: [e for e in events if re.search(rf"\b{name}_kernel\b", e.name)] for name in names}
+    per_kernel = {name: sum(e.device_time_total for e in own[name]) / 1e3 for name in names}
     return {
         "wall_ms": wall_ms,
         "device_ms": sum(e.device_time_total for e in events) / 1e3,
-        "kernel_ms": sum(e.device_time_total for e in own) / 1e3,
+        "kernel_ms": sum(per_kernel.values()),
+        "per_kernel": per_kernel,
         "kernels": len(events),
-        "seen": len(own),
-        "launched": kernels.counts[kernel] - counted,
+        "seen": sum(len(found) for found in own.values()),
+        "launched": sum(kernels.counts[name] - counted[name] for name in names),
     }
 
 
-def profiled(fn, kernel: str, label: str) -> dict | None:
+def profiled(fn, kernel: str | tuple[str, ...], label: str) -> dict | None:
     """``device_time`` that reports, and does not raise, when the
     profiler cannot trace the card, and that trusts a profile only where it
     saw every launch of ``kernel`` that ``fn`` made: it profiles ``fn`` up
@@ -601,7 +658,9 @@ def drive_main_path(path: MainPath, device) -> dict:
         label += f" (wavefront={path.wavefront})"
     if pool:
         label += " (ray pool" + ("" if path.raypool is None else f", raypool={path.raypool}") + ")"
-    wavefront = path.kernel not in MEGAKERNELS and not pool
+    if path.bounce_scan:
+        label += " (bounce scan)"
+    wavefront = path.kernel not in MEGAKERNELS and not pool and not path.bounce_scan
     log: list = []  # (bounce, live, bucket) of each wavefront launch
     pool_log: list = []  # the host's iteration index of each pool launch
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as base:
@@ -610,14 +669,17 @@ def drive_main_path(path: MainPath, device) -> dict:
             base_directory=base, wavefront=path.wavefront, raypool=path.raypool,
             on_launch=lambda launch: log.append(tuple(launch[:3])),
             on_iteration=lambda launch: pool_log.append(launch.iteration),
+            bounce_scan=path.bounce_scan,
         )
         check(backend.device.type == "cuda", f"backend chose {backend.device}")
-        if not pool:
+        if not pool and not path.bounce_scan:
             check(compaction.wavefront_active(path.scene, mode=path.wavefront) == wavefront,
                   f"{label}: the backend does not pick the {path.kernel} tier")
         # A pool path hints the frames queued behind each frame; the others
-        # hint none, as a worker with one frame queued at a time would.
-        check(raypool.raypool_active(path.scene, mode=path.raypool, frames_ahead=int(pool)) == pool,
+        # hint none, as a worker with one frame queued at a time would (the
+        # scan paths take no pool whatever the hint).
+        check(path.bounce_scan or raypool.raypool_active(
+                  path.scene, mode=path.raypool, frames_ahead=int(pool)) == pool,
               f"{label}: the backend's choice of the ray pool")
         backend.warm(job.job_name)
         torch.cuda.synchronize()
@@ -635,10 +697,13 @@ def drive_main_path(path: MainPath, device) -> dict:
         launches = dict(kernels.counts)
         windows = list(backend.pool_stats)
         print(f"[4] main path: {len(frames)} frames of {job.job_name} in {path_s:.4f} s; counts {launches}")
-        expected_launches = len(log) if wavefront else len(pool_log) if pool else len(frames)
+        if path.bounce_scan:  # each unit kernel once per sample and bounce
+            expected_launches = len(frames) * SAMPLES * BOUNCES
+        else:
+            expected_launches = len(log) if wavefront else len(pool_log) if pool else len(frames)
         check(expected_launches >= len(frames), f"{label}: {len(log)} wavefront launches")
         for name, count in launches.items():
-            expected = expected_launches if name == path.kernel else 0
+            expected = expected_launches if name in path.launched else 0
             check(count == expected, f"{job.job_name}: {name} ran {count} times, not {expected}")
         if wavefront:
             starts = [i for i, entry in enumerate(log) if entry[0] == 0] + [len(log)]
@@ -683,22 +748,27 @@ def drive_main_path(path: MainPath, device) -> dict:
         def two_frames():
             profiled_frames[:] = [asyncio.run(backend.render_frame(job, f)) for f in frames[:2]]
 
-        frame_profile = None if pool else profiled(two_frames, path.kernel, f"{label} frames")
+        frame_profile = None if pool else profiled(two_frames, path.launched, f"{label} frames")
         if frame_profile is not None:
             render_ms = sum(
                 (t.finished_rendering_at - t.started_rendering_at) * 1e3 for t in profiled_frames
             )
+            own = ", ".join(f"{k} {v:.3f}" for k, v in frame_profile["per_kernel"].items())
             print(
                 f"[6] {label}, 2 frames under the profiler: wall {frame_profile['wall_ms']:.3f} "
                 f"ms, device busy {frame_profile['device_ms']:.3f} ms "
-                f"({frame_profile['kernels']} device operations; {path.kernel} {frame_profile['kernel_ms']:.3f} "
+                f"({frame_profile['kernels']} device operations; {own} "
                 f"ms); device idle {1 - frame_profile['device_ms'] / frame_profile['wall_ms']:.4f} "
                 f"of the frames, {1 - frame_profile['device_ms'] / render_ms:.4f} of their render "
                 f"phases ({render_ms:.3f} ms)"
             )
     return {
         "path": path, "label": label, "frames": frames, "timings": timings, "path_s": path_s,
-        "launches": launches[path.kernel], "images": images, "windows": windows,
+        "launches": (
+            {name: launches[name] for name in path.launched} if path.bounce_scan
+            else launches[path.kernel]
+        ),
+        "images": images, "windows": windows, "frame_profile": frame_profile,
     }
 
 
@@ -800,10 +870,13 @@ def wavefront_frame_checks(run: dict, reference_images, device) -> dict:
     }
 
 
-def bound(stats: dict, rays: int, ray_bytes: int, scale: float = 1.0) -> dict:
+def bound(stats: dict, bytes_moved: float, scale: float = 1.0,
+          sphere_operations: float | None = None) -> dict:
     """The least time of the work counted by a plain version, times
-    ``scale``, for ``rays`` rays: the larger of its operations over the
-    float32 peak and its bytes over the memory rate.
+    ``scale``, that moves ``bytes_moved``: the larger of its operations over
+    the float32 peak and its bytes over the memory rate. ``sphere_operations``,
+    when given, replaces the path-trace counters' sphere and shading work
+    (a unit kernel's own count).
 
     A mesh kernel's instance search is counted two ways. "flat": every
     world-AABB test of the kernels' per-thread sweep over the instance
@@ -812,15 +885,18 @@ def bound(stats: dict, rays: int, ray_bytes: int, scale: float = 1.0) -> dict:
     instances entered as counted. The bound is the needed count's, the
     lower; the flat one and the world-AABB tests' share of it are kept
     beside it. A sphere kernel has one count."""
+    if sphere_operations is None:
+        sphere_operations = (
+            OPS_NEAREST_SPHERE * stats["spheres"] * stats["alive_lane_bounces"]
+            + OPS_SHADE_HIT * stats["hit_lane_bounces"]
+            + OPS_SHADOW_SPHERE * stats["shadow_sphere_tests"]
+        )
     rest = scale * (
-        OPS_NEAREST_SPHERE * stats["spheres"] * stats["alive_lane_bounces"]
-        + OPS_SHADE_HIT * stats["hit_lane_bounces"]
-        + OPS_SHADOW_SPHERE * stats["shadow_sphere_tests"]
+        sphere_operations
         + OPS_SLAB * stats.get("node_tests", 0)
         + OPS_INSTANCE_WALK * stats.get("instance_walks", 0)
         + OPS_TRIANGLE * stats.get("triangle_tests", 0)
     )
-    bytes_moved = rays * ray_bytes
     bytes_ms = bytes_moved / MEMORY_BYTES_PER_S * 1e3
 
     def least(operations):
@@ -929,7 +1005,7 @@ def megakernel_record(run: dict, device, agree: float, max_abs_err: float, build
             f"({call_profile['kernels'] / 20:.1f} device operations per call)"
         )
     n_rays = rays[0].shape[0]
-    least = bound(stats, n_rays, MEGAKERNEL_RAY_BYTES)
+    least = bound(stats, n_rays * MEGAKERNEL_RAY_BYTES)
     print(
         f"[5] {kernel} at {n_rays} rays, {run['path'].scene}: {kernel_ms:.4f} ms "
         f"(median of 10 batches of 20 calls: {', '.join(f'{b:.4f}' for b in batches)}; "
@@ -989,7 +1065,7 @@ def bounce_record(run: dict, checked: dict, device, agree: float, max_abs_err: f
         compact_ms = statistics.median(
             cuda_ms(lambda: compaction.compact(*before, trace.mesh), 3) for _ in range(3)
         )
-        least = bound(stats, launch.bucket, BOUNCE_RAY_BYTES, scale=launch.bucket / drawn)
+        least = bound(stats, launch.bucket * BOUNCE_RAY_BYTES, scale=launch.bucket / drawn)
         alone = profiled(
             lambda: [call() for _ in range(5)], kernel, f"{kernel} bounce {launch.bounce} calls"
         )
@@ -1138,7 +1214,7 @@ def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) ->
         cuda_ms(step, 2)
         iteration_ms = statistics.median(cuda_ms(step, 5) for _ in range(5))
         alone = profiled(lambda: [call() for _ in range(20)], kernel, f"{kernel} {role} launch calls")
-        least = bound(picked["stats"], window.pool, POOL_RAY_BYTES)
+        least = bound(picked["stats"], window.pool * POOL_RAY_BYTES)
         per_launch[role] = {
             "iteration": index, "live": picked["live"], "ms": launch_ms,
             "kernel_only_ms": None if alone is None else alone["kernel_ms"] / 20,
@@ -1210,6 +1286,346 @@ def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) ->
     }
 
 
+@contextlib.contextmanager
+def unit_wrappers(replace):
+    """Each unit-kernel wrapper of ``kernels`` replaced by ``replace(name,
+    wrapper)`` while the block runs. The scan tier's callers
+    (``render/integrator.py``, ``render/geometry.py``, ``render/mesh.py``)
+    look the wrappers up on the module at every call."""
+    from tpu_render_cluster_torch.render import kernels
+
+    saved = {name: getattr(kernels, name) for name in UNIT_KERNELS}
+    try:
+        for name, wrapper in saved.items():
+            setattr(kernels, name, replace(name, wrapper))
+        yield
+    finally:
+        for name, wrapper in saved.items():
+            setattr(kernels, name, wrapper)
+
+
+def recording(log: list, keep: int | None = None):
+    """The wrappers, each launch also logged as (name, arguments, outputs);
+    with ``keep``, only the first ``keep`` launches of each kernel."""
+
+    def replace(name, wrapper):
+        def record(*args):
+            out = wrapper(*args)
+            if keep is None or sum(entry[0] == name for entry in log) < keep:
+                log.append((name, args, out))
+            return out
+
+        return record
+
+    return unit_wrappers(replace)
+
+
+def plain_versions():
+    """The scan tier with its four geometry queries through the unit
+    kernels' plain versions, on the card."""
+    from tpu_render_cluster_torch.render import kernels
+
+    return unit_wrappers(lambda name, _wrapper: getattr(kernels, f"{name}_reference"))
+
+
+def unit_agreement(name: str, args: tuple, got, stats: dict | None = None) -> dict:
+    """One unit-kernel launch ``name(*args) -> got`` against its plain
+    version on the same inputs (on the card, counting the work into
+    ``stats``): the rays outside the tolerance (``TOLERANCE[name]``) and the
+    budget they may use, the bit-equal share, the max abs error (of t; of
+    the 0/1 any-hit) and the plain version's ms."""
+    import torch
+
+    from tpu_render_cluster_torch.render import kernels
+
+    out: list = []
+    plain_ms = cuda_ms(
+        lambda: out.append(getattr(kernels, f"{name}_reference")(*args, stats=stats)), 1
+    )
+    expected = out[0]
+    rays = args[1].shape[0]
+    if name.startswith("intersect"):
+        t_close = torch.isclose(got[0], expected[0], **(
+            {"rtol": 2e-5, "atol": 2e-4} if name == "intersect_spheres" else {"rtol": 1e-4, "atol": 1e-4}
+        ))
+        seed = 1e29 if name == "intersect_spheres" else args[3]
+        hit = expected[0] < seed
+        ids_differ = hit & torch.stack([a != b for a, b in zip(got[1:], expected[1:])]).any(dim=0)
+        equal = torch.stack([a == b for a, b in zip(got, expected)]).all(dim=0)
+        err = (got[0] - expected[0]).abs().max().item()
+        bad, budget = int((~t_close | ids_differ).sum()), 0
+        if name == "intersect_instances":  # t on every ray, the ids but exact ties
+            bad, budget = int(ids_differ.sum()), max(1, round(0.001 * rays))
+            check(bool(t_close.all()), f"{name}: t outside 1e-4 on {int((~t_close).sum())} rays")
+    else:
+        equal = got == expected
+        err = float(not bool(equal.all()))
+        bad = int((~equal).sum())
+        budget = max(1, round(0.001 * rays)) if name == "occluded_instances" else 0
+    return {
+        "rays": rays, "bad": bad, "budget": budget, "bit_equal": equal.float().mean().item(),
+        "err": err, "plain_ms": plain_ms,
+    }
+
+
+def unit_bound(name: str, stats: dict, rays: int) -> dict:
+    """The least time of one unit-kernel launch's work, as counted by its
+    plain version: every real sphere tested per ray (nearest hit), the
+    sphere tests up to each ray's first occluder (any-hit), or the mesh
+    walk's counters (an instance search counted as a two-level walk).
+    The any-hit over the instances reads a lane's origin and direction only
+    where it walks (``already`` unset); any other lane reads and writes its
+    one byte."""
+    bytes_moved = rays * UNIT_RAY_BYTES[name]
+    if name == "intersect_spheres":
+        operations = OPS_NEAREST_SPHERE * stats["spheres"] * stats["rays"]
+    elif name == "occluded_spheres":
+        operations = OPS_ANY_HIT_SPHERE * stats["sphere_tests"]
+    else:
+        operations = 0.0
+    if name == "occluded_instances":
+        bytes_moved += 24 * stats["broadphase_rays"]
+    return bound(stats, bytes_moved, sphere_operations=operations)
+
+
+def scan_kernels_vs_plain(path: MainPath, device) -> dict:
+    """Phase 3 for a scan path's unit kernels: frame 1 of its job through the
+    scan tier at CHECK_SIDE x CHECK_SIDE x CHECK_SAMPLES spp, every launch
+    of each unit kernel again through its plain version on the launch's own
+    inputs. Returns per kernel the launches checked, the lowest agreeing
+    share and the max abs error."""
+    import torch
+
+    from tpu_render_cluster_torch.render import integrator
+
+    _, frames = job_frames(path)
+    log: list = []
+    with recording(log):
+        integrator.render_frame(
+            path.scene, frames[0], width=CHECK_SIDE, height=CHECK_SIDE, samples=CHECK_SAMPLES,
+            max_bounces=BOUNCES, device=device, bounce_scan=True,
+        )
+    torch.cuda.synchronize()
+    results: dict[str, list] = {name: [] for name in path.launched}
+    for name, args, got in log:
+        result = unit_agreement(name, args, got)
+        check(result["bad"] <= result["budget"],
+              f"{name} on {path.scene}: {result['bad']} rays outside the tolerance, budget {result['budget']}")
+        results[name].append(result)
+    summary = {}
+    for name, checked in results.items():
+        check(len(checked) == CHECK_SAMPLES * BOUNCES, f"{name}: {len(checked)} launches in the scan")
+        summary[name] = {
+            "launches": len(checked),
+            "agree": min(1 - r["bad"] / r["rays"] for r in checked),
+            "max_abs_err": max(r["err"] for r in checked),
+        }
+        print(
+            f"[3] {name} vs plain, {path.scene} frame {frames[0]} through the bounce scan at "
+            f"{CHECK_SIDE}x{CHECK_SIDE}x{CHECK_SAMPLES} spp: every launch ({len(checked)}, "
+            f"{checked[0]['rays']} rays each); worst {max(r['bad'] for r in checked)} rays outside "
+            f"the tolerance (budget {checked[0]['budget']}), lowest bit-equal share "
+            f"{min(r['bit_equal'] for r in checked):.6f}, max abs err {summary[name]['max_abs_err']:.3g}"
+        )
+    return summary
+
+
+def scan_breakdown(run: dict, device) -> None:
+    """Phase 5's split of one frame of a scan path, each step fenced by a
+    synchronize: scene+camera (and instances), the samples' jittered rays,
+    their traces (``trace_paths_scan``: the unit kernels and the eager glue
+    around them), mean+tonemap+copy, png."""
+    import torch
+
+    from tpu_render_cluster_torch.render import integrator, rng
+    from tpu_render_cluster_torch.render.camera import scene_camera
+    from tpu_render_cluster_torch.render.image_io import write_image
+    from tpu_render_cluster_torch.render.mesh import scene_mesh_set
+    from tpu_render_cluster_torch.render.scene import build_scene
+
+    scene_name = run["path"].scene
+    steps: dict[str, list[float]] = {
+        "scene+camera": [], "rays": [], "trace": [], "mean+tonemap+copy": [], "png": []
+    }
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-png-") as scratch:
+        for frame in run["frames"][:3]:
+            marks = [time.perf_counter()]
+            scene = build_scene(scene_name, frame, device)
+            camera = scene_camera(scene_name, frame, device)
+            mesh = scene_mesh_set(scene_name, frame, device=device)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            keys = rng.fold_in(integrator.tile_base_key(frame, 0, 0), torch.arange(SAMPLES)).to(device)
+            rays = [
+                integrator.sample_jitter_rays(
+                    camera, keys[s], width=WIDTH, height=HEIGHT, y0=0, x0=0,
+                    tile_height=HEIGHT, tile_width=WIDTH,
+                )
+                for s in range(SAMPLES)
+            ]
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            total = sum(
+                integrator.trace_paths_scan(
+                    scene, *rays[s], rng.split(keys[s])[1], max_bounces=BOUNCES, mesh=mesh
+                )
+                for s in range(SAMPLES)
+            )
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            pixels = integrator.tonemap((total / SAMPLES).reshape(HEIGHT, WIDTH, 3)).cpu().numpy()
+            marks.append(time.perf_counter())
+            write_image(Path(scratch) / f"f{frame}.png", pixels, "PNG")
+            marks.append(time.perf_counter())
+            for key, a, b in zip(steps, marks, marks[1:]):
+                steps[key].append((b - a) * 1e3)
+    print(
+        f"[5] {run['label']} one frame, median ms: "
+        + ", ".join(f"{k} {statistics.median(v):.3f}" for k, v in steps.items())
+    )
+
+
+def scan_record(run: dict, runs: dict, device) -> dict[str, dict]:
+    """Phases 4-6 for a scan path after its run: frame 1 against the scan
+    tier's plain render on the card; the per-frame phases, a frame's split
+    and frames/s beside the megakernel and wavefront paths of this run;
+    each unit kernel at the launches of frame 1's first sample on the main
+    path's shapes (262,144 rays): its ms per launch at each bounce (CUDA
+    events), the host time of a call, its time alone (profiler), its bound
+    from the plain version's counters on the bounce-0 launch and that plain
+    version's ms. Returns those numbers per kernel."""
+    import torch
+
+    from tpu_render_cluster_torch.render import integrator, kernels
+
+    path, frames = run["path"], run["frames"]
+    render = lambda: integrator.render_frame(  # noqa: E731
+        path.scene, frames[0], width=WIDTH, height=HEIGHT, samples=SAMPLES, max_bounces=BOUNCES,
+        device=device, bounce_scan=True,
+    )
+    out: list = []
+    with plain_versions():
+        plain_frame_ms = cuda_ms(lambda: out.append(render()), 1)
+    plain_image = integrator.tonemap(out[0]).cpu()
+    image = run["images"][0]
+    within = within_one(image, plain_image)
+    print(
+        f"[4] {run['label']} frame {frames[0]}: PNG vs the scan tier's render with the plain "
+        f"versions on the card ({plain_frame_ms:.1f} ms): {within:.6f} of uint8 values within 1, "
+        f"{(image == plain_image).float().mean().item():.6f} bit-equal"
+    )
+    check(within >= 0.995, f"{run['label']}: frame disagrees with the plain scan render ({within})")
+    other = runs["trace_fused" if path.scene == "04_very-simple" else "mesh_bounce"]
+    mean_diff = (image.float() - other["images"][0].float()).abs().mean().item()
+    print(
+        f"[4] {run['label']} frame {frames[0]} vs the {other['label']} path's PNG (other random "
+        f"numbers: threefry against the kernels' PCG; reported, not checked): mean |uint8 "
+        f"difference| {mean_diff:.3f}"
+    )
+    phase_times(run, device, breakdown=False)
+    scan_breakdown(run, device)
+    scan_fps = len(frames) / run["path_s"]
+    compared = ", ".join(
+        f"{runs[key]['label']} {len(runs[key]['frames']) / runs[key]['path_s']:.3f}"
+        for key in (("trace_fused", "sphere_bounce") if path.scene == "04_very-simple"
+                    else ("mesh_bounce", "pool_mesh_bounce"))
+    )
+    print(f"[5] {run['label']}: {scan_fps:.3f} frames/s over the job; in this run {compared}")
+
+    log: list = []
+    with recording(log, keep=BOUNCES):
+        render()
+    torch.cuda.synchronize()
+    record = {}
+    for name in path.launched:
+        launches = [(args, got) for entry, args, got in log if entry == name]
+        wrapper = getattr(kernels, name)
+        per_bounce = []
+        for bounce, (args, _) in enumerate(launches):
+            call = lambda args=args: wrapper(*args)  # noqa: E731
+            cuda_ms(call, 3)
+            per_bounce.append(statistics.median(cuda_ms(call, 20) for _ in range(10 if bounce == 0 else 3)))
+        args, got = launches[0]
+        stats: dict = {}
+        result = unit_agreement(name, args, got, stats=stats)
+        check(result["bad"] <= result["budget"], f"{name} bounce 0 at full size: {result['bad']} rays")
+        call = lambda args=args: wrapper(*args)  # noqa: E731
+        wrapper_host_ms = host_ms(call, 20)
+        least = unit_bound(name, stats, result["rays"])
+        alone = profiled(lambda: [call() for _ in range(20)], name, f"{name} calls ({path.scene})")
+        kernel_only_ms = None if alone is None else alone["kernel_ms"] / 20
+        # The mean alone over every launch of the two profiled frames.
+        frame_profile = run["frame_profile"]
+        frames_alone_ms = (
+            None if frame_profile is None
+            else frame_profile["per_kernel"][name] / (2 * SAMPLES * BOUNCES)
+        )
+        print(
+            f"[5] {name} on {path.scene} frame {frames[0]}, sample 0, {result['rays']} rays per "
+            f"launch: {', '.join(f'bounce {b} {ms:.4f}' for b, ms in enumerate(per_bounce))} ms per "
+            f"launch (CUDA events; bounce 0 the median of 10 batches of 20); host "
+            f"{wrapper_host_ms:.4f} ms per call; alone "
+            f"{'not measured' if kernel_only_ms is None else f'{kernel_only_ms:.4f} ms'} (the mean "
+            f"over the two profiled frames' launches "
+            f"{'not measured' if frames_alone_ms is None else f'{frames_alone_ms:.4f} ms'}); plain "
+            f"version {result['plain_ms']:.3f} ms; {describe_bound(least)}; work: {stats}"
+        )
+        record[name] = {
+            "scene": path.scene, "rays": result["rays"], "launches": run["launches"][name],
+            "launches_per_frame": run["launches"][name] / len(run["frames"]),
+            "ms": per_bounce[0], "per_bounce_ms": per_bounce, "host_ms": wrapper_host_ms,
+            "kernel_only_ms": kernel_only_ms, "frames_kernel_only_ms": frames_alone_ms,
+            "plain_ms": result["plain_ms"],
+            "bound_ms": least["ms"], "bound_by": least["by"],
+            "bound_flat_sweep_ms": least["flat_ms"], "world_aabb_share": least["world_aabb_share"],
+            "max_abs_err": result["err"], "frames_per_s": scan_fps,
+        }
+    kernel_frame_ms = SAMPLES * sum(statistics.mean(r["per_bounce_ms"]) for r in record.values())
+    print(
+        f"[5] {run['label']}: the unit kernels take about {kernel_frame_ms:.3f} ms of a frame "
+        f"({SAMPLES} samples x the launches of sample 0); the rest of the trace is the eager glue"
+    )
+    return record
+
+
+def unit_entry(name: str, records: dict, checks: dict, build_s: float) -> dict:
+    """The kernels line's entry of a unit kernel: its numbers on the scan
+    path that carries it (rows 11 and 12 on 04_very-simple's 64 spheres,
+    with 03_physics-2-mesh's beside them), its launches summed over both
+    scan paths."""
+    carrying = [records[scene][name] for scene in records if name in records[scene]]
+    main = next(r for r in carrying if r["scene"] == ("03_physics-2-mesh" if "instances" in name else "04_very-simple"))
+    entry = {
+        "name": name,
+        "route": "cuda",
+        "source": f"tpu_render_cluster_torch/render/csrc/{name}.cu",
+        "replaces": REPLACES[name],
+        "launches": sum(r["launches"] for r in carrying),
+        "launches_per_frame": main["launches_per_frame"],
+        "max_abs_err": max([r["max_abs_err"] for r in carrying] + [c[name]["max_abs_err"] for c in checks.values() if name in c]),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,
+        **{key: main[key] for key in (
+            "scene", "rays", "per_bounce_ms", "host_ms", "kernel_only_ms", "frames_kernel_only_ms",
+            "bound_flat_sweep_ms", "world_aabb_share",
+        )},
+        "by_scene": {
+            r["scene"]: {k: r[k] for k in (
+                "launches", "launches_per_frame", "ms", "kernel_only_ms", "frames_kernel_only_ms", "plain_ms", "bound_ms",
+                "frames_per_s",
+            )}
+            for r in carrying
+        },
+        "agree_fraction_min": min(c[name]["agree"] for c in checks.values() if name in c),
+        "tolerance": TOLERANCE[name],
+        "build_s": build_s,
+    }
+    return entry
+
+
 def main() -> int:
     import torch
 
@@ -1234,7 +1650,7 @@ def main() -> int:
     libraries = _build.build()
     build_s = time.perf_counter() - started
     print(f"[2] built {sorted(libraries)} in {build_s:.2f} s")
-    expected = sorted(path.kernel for path in PATHS)
+    expected = sorted({kernel for path in PATHS for kernel in path.launched})
     check(sorted(libraries) == expected, f"kernels {sorted(libraries)} != {expected}")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
@@ -1251,11 +1667,16 @@ def main() -> int:
     agree: dict[str, float] = {}
     max_abs_err: dict[str, float] = {}
     pool_checks = {}
+    scan_checks = {}
     for path in PATHS:
+        started = time.perf_counter()
         if path.kernel in POOLS:
-            started = time.perf_counter()
             pool_checks[path.kernel] = pool_kernel_vs_plain(path, device)
-            print(f"[3] {path.kernel} checked in {time.perf_counter() - started:.1f} s")
+        elif path.bounce_scan:
+            scan_checks[path.scene] = scan_kernels_vs_plain(path, device)
+        else:
+            continue
+        print(f"[3] {path.kernel} checked in {time.perf_counter() - started:.1f} s")
     for kernel, scene_names in checks.items():
         started = time.perf_counter()
         compare = kernel_vs_plain if kernel in MEGAKERNELS else bounce_kernel_vs_plain
@@ -1267,11 +1688,14 @@ def main() -> int:
     # -- 4. the main paths, 5. their timings, 6. the profiler ----------------
     record = {"kernels": []}
     runs = {}
+    scan_records = {}
     for path in PATHS:
         started = time.perf_counter()
         run = drive_main_path(path, device)
         runs[path.kernel] = run
-        if path.kernel in MEGAKERNELS:
+        if path.bounce_scan:
+            scan_records[path.scene] = scan_record(run, runs, device)
+        elif path.kernel in MEGAKERNELS:
             entry = megakernel_record(run, device, agree[path.kernel], max_abs_err[path.kernel], build_s)
         elif path.kernel in POOLS:
             entry = pool_record(run, pool_checks.pop(path.kernel), runs, device, build_s)
@@ -1280,8 +1704,12 @@ def main() -> int:
             entry = bounce_record(
                 run, checked, device, agree[path.kernel], max_abs_err[path.kernel], build_s
             )
-        record["kernels"].append(entry)
+        if not path.bounce_scan:
+            record["kernels"].append(entry)
         print(f"[5] {run['label']} path phases 4-6 in {time.perf_counter() - started:.1f} s")
+    record["kernels"] += [
+        unit_entry(name, scan_records, scan_checks, build_s) for name in UNIT_KERNELS
+    ]
 
     print(f"[5] chip_smoke phases 1-6 in {time.perf_counter() - script_started:.1f} s")
     print(json.dumps(record))

@@ -125,6 +125,10 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
         "mesh_bounce": 0, "mesh_bounce_reference": 0,
         "pool_sphere_bounce": 0, "pool_sphere_bounce_reference": 0,
         "pool_mesh_bounce": 0, "pool_mesh_bounce_reference": 0,
+        "intersect_spheres": 0, "intersect_spheres_reference": 0,
+        "occluded_spheres": 0, "occluded_spheres_reference": 0,
+        "intersect_instances": 0, "intersect_instances_reference": 0,
+        "occluded_instances": 0, "occluded_instances_reference": 0,
     }
 
 

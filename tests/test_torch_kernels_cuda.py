@@ -325,3 +325,164 @@ def test_cuda_pool_iterations_read_nothing_back(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(state.counters[1]) == 1 + raypool.CHECK_EVERY
+
+
+# ---------------------------------------------------------------------------
+# The unit kernels of the per-bounce scan renderer (rows 7, 8, 11 and 12).
+# Tolerances: the sphere nearest hit's t within rtol 2e-5 / atol 2e-4 and its
+# index equal on every ray that hits, the sphere any-hit equal on every ray;
+# the instanced nearest hit's t within 1e-4, its row and instance equal on
+# every hit ray but an exact-tie budget of max(1, round(0.001 R)), the
+# instanced any-hit equal on every ray but that budget.
+
+UNIT_KERNELS = ("intersect_spheres", "occluded_spheres", "intersect_instances", "occluded_instances")
+
+
+def _unit_launched(launches: dict[str, int]) -> dict[str, int]:
+    """``kernels.counts`` after ``launches`` of the unit kernels and
+    nothing else: no other kernel and no plain version."""
+    return {name: launches.get(name, 0) for name in kernels.counts}
+
+
+def _assert_unit_matches_plain(name: str, args: tuple, got) -> None:
+    """One unit-kernel launch ``name(*args) -> got`` against its plain
+    version on the same inputs, at the tolerances above."""
+    expected = getattr(kernels, f"{name}_reference")(*args)
+    if name == "intersect_spheres":
+        assert torch.isclose(got[0], expected[0], rtol=2e-5, atol=2e-4).all()
+        hit = expected[0] < 1e29
+        assert torch.equal(got[1][hit], expected[1][hit])
+    elif name == "intersect_instances":
+        assert torch.isclose(got[0], expected[0], rtol=1e-4, atol=1e-4).all()
+        hit = expected[0] < args[3]
+        differ = hit & ((got[1] != expected[1]) | (got[2] != expected[2]))
+        assert differ.sum().item() <= max(1, round(0.001 * hit.numel()))
+    elif name == "occluded_spheres":
+        assert torch.equal(got, expected)
+    else:
+        assert (got != expected).sum().item() <= max(1, round(0.001 * got.numel()))
+
+
+def _frame_state(name: str, device, width=128, height=64):
+    """Frame 30's camera rays (one sample) with a seed t from the scene's
+    spheres and plane, a tenth of the lanes dead and parked as the scan
+    parks them, and shadow rays toward the sun from the hit points."""
+    from tpu_render_cluster_torch.render import geometry
+
+    scene = build_scene(name, 30, device)
+    camera = integrator.scene_camera(name, 30, device)
+    origins, directions, _ = integrator.frame_rays_and_seed(
+        camera, 30, width=width, height=height, samples=1
+    )
+    t, _, _ = geometry.intersect_scene(scene, origins, directions)
+    generator = torch.Generator(device=device).manual_seed(7)
+    dead = torch.rand(origins.shape[0], generator=generator, device=device) < 0.1
+    up = torch.tensor([0.0, 1.0, 0.0], device=device)
+    parked_o = torch.where(dead[:, None], 1e7, origins)
+    parked_d = torch.where(dead[:, None], up, directions)
+    init_t = torch.where(dead, 1e30, t)
+    points = origins + directions * torch.clamp_max(t, 50.0)[:, None]
+    sun = scene.sun_direction.expand_as(points).contiguous()
+    already = dead | (torch.rand(origins.shape[0], generator=generator, device=device) < 0.2)
+    return scene, (origins, directions), (parked_o, parked_d, init_t), (points + 0.004 * up, sun, already)
+
+
+@pytest.mark.parametrize("name", ["04_very-simple", "03_physics-2", "03_physics-2-mesh"])
+def test_cuda_sphere_unit_kernels_match_plain_versions(cuda_device, name):
+    scene, rays, _, (shadow_o, sun, _) = _frame_state(name, cuda_device)
+    for origins, directions in (rays, (shadow_o, sun)):
+        kernels.reset_counts()
+        got_hit = kernels.intersect_spheres(scene, origins, directions)
+        got_shadow = kernels.occluded_spheres(scene, origins, directions)
+        torch.cuda.synchronize()
+        assert kernels.counts == _unit_launched({"intersect_spheres": 1, "occluded_spheres": 1})
+        assert got_hit[0].is_cuda and got_hit[1].dtype == torch.int32
+        _assert_unit_matches_plain("intersect_spheres", (scene, origins, directions), got_hit)
+        _assert_unit_matches_plain("occluded_spheres", (scene, origins, directions), got_shadow)
+        assert (got_hit[0] < 1e29).any() and got_shadow.any()
+
+
+@pytest.mark.parametrize("name", ["03_physics-2-mesh", "02_physics-mesh"])
+def test_cuda_instance_unit_kernels_match_plain_versions(cuda_device, name):
+    _, _, (origins, directions, init_t), (shadow_o, sun, already) = _frame_state(name, cuda_device)
+    mesh = scene_mesh_set(name, 30, device=cuda_device)
+    kernels.reset_counts()
+    nearest = kernels.intersect_instances(mesh, origins, directions, init_t)
+    shadow = kernels.occluded_instances(mesh, shadow_o, sun, already)
+    torch.cuda.synchronize()
+    assert kernels.counts == _unit_launched({"intersect_instances": 1, "occluded_instances": 1})
+    _assert_unit_matches_plain("intersect_instances", (mesh, origins, directions, init_t), nearest)
+    _assert_unit_matches_plain("occluded_instances", (mesh, shadow_o, sun, already), shadow)
+    assert (nearest[0] < init_t).any() and shadow[~already].any() and shadow[already].all()
+
+
+@pytest.mark.parametrize(
+    "n_faces,low,high",
+    # As test_cuda_mesh_kernel_with_large_tables: 48-96 KB of tables, staged
+    # past the default limit; beyond 96 KB, read from device memory.
+    [(700, 48 * 1024, 96 * 1024), (None, 96 * 1024, 1 << 30)],
+)
+def test_cuda_instance_unit_kernels_with_large_tables(cuda_device, n_faces, low, high):
+    vertices, faces = make_icosphere(3)
+    bvh = build_bvh(vertices, faces[:n_faces], device=cuda_device)
+    instances = build_mesh_instances("02_physics-mesh", 30, cuda_device)
+    mesh = MeshSet(bvh, MeshInstances(*(field[:3] for field in instances)))
+    table_bytes = 64 * bvh.v0.shape[0] + 48 * bvh.skip.shape[0] + 88 * 3
+    assert low < table_bytes <= high, table_bytes
+    _, _, (origins, directions, init_t), (shadow_o, sun, already) = _frame_state(
+        "02_physics-mesh", cuda_device, 64, 64
+    )
+    nearest = kernels.intersect_instances(mesh, origins, directions, init_t)
+    shadow = kernels.occluded_instances(mesh, shadow_o, sun, already)
+    torch.cuda.synchronize()
+    _assert_unit_matches_plain("intersect_instances", (mesh, origins, directions, init_t), nearest)
+    _assert_unit_matches_plain("occluded_instances", (mesh, shadow_o, sun, already), shadow)
+    assert (nearest[0] < init_t).any()
+
+
+@pytest.mark.parametrize("name", ["03_physics-2-mesh", "04_very-simple"])
+def test_cuda_backend_scan_tier_launches_the_unit_kernels(cuda_device, tmp_path, monkeypatch, name):
+    """A frame through ``TorchRaytraceBackend(bounce_scan=True)``: each of
+    the scene's unit kernels launches samples x max_bounces times and
+    nothing else runs, no plain version and no path-trace kernel; every
+    launch agrees with its plain version on its own inputs; the frame
+    agrees with the scan tier's render on the CPU."""
+    import asyncio
+
+    from tpu_render_cluster_torch.jobs.models import BlenderJob
+    from tpu_render_cluster_torch.worker.backends.torch_raytrace import TorchRaytraceBackend
+
+    samples, bounces = 2, 4
+    launches: list = []
+    for unit in UNIT_KERNELS:
+        def record(*args, _wrapper=getattr(kernels, unit), _unit=unit):
+            out = _wrapper(*args)
+            launches.append((_unit, args, out))
+            return out
+
+        monkeypatch.setattr(kernels, unit, record)
+    job = BlenderJob.from_dict({
+        "job_name": f"{name}_cuda-scan", "job_description": None,
+        "project_file_path": "%BASE%/p.blend", "render_script_path": "%BASE%/s.py",
+        "frame_range_from": 1, "frame_range_to": 2, "wait_for_number_of_workers": 1,
+        "frame_distribution_strategy": {"strategy_type": "naive-fine"},
+        "output_directory_path": "%BASE%/frames", "output_file_name_format": "f-#####",
+        "output_file_format": "PNG",
+    })
+    backend = TorchRaytraceBackend(
+        width=64, height=48, samples=samples, max_bounces=bounces, base_directory=tmp_path,
+        bounce_scan=True, raypool="force",
+    )
+    backend.note_upcoming_frames(job, (2,))
+    kernels.reset_counts()
+    asyncio.run(backend.render_frame(job, 1))
+    per_frame = samples * bounces
+    used = UNIT_KERNELS if name.endswith("-mesh") else UNIT_KERNELS[:2]
+    assert kernels.counts == _unit_launched({unit: per_frame for unit in used})
+    assert len(launches) == per_frame * len(used)
+    for unit, args, out in launches:
+        _assert_unit_matches_plain(unit, args, out)
+    monkeypatch.undo()
+    card = integrator.fused_frame_renderer(name, 64, 48, samples, bounces, bounce_scan=True)(1)
+    cpu = integrator.fused_frame_renderer(name, 64, 48, samples, bounces, "cpu", bounce_scan=True)(1)
+    assert ((card.cpu().int() - cpu.int()).abs() <= 1).float().mean().item() >= 0.995

@@ -1,6 +1,7 @@
 // Mesh-scene device code shared by the mesh path-trace kernels (the
-// megakernel trace_fused_mesh.cu, the per-bounce kernel mesh_bounce.cu and
-// the ray-pool kernel pool_mesh_bounce.cu): the instance and BVH tables,
+// megakernel trace_fused_mesh.cu, the per-bounce kernel mesh_bounce.cu, the
+// ray-pool kernel pool_mesh_bounce.cu and the bounce scan's unit kernels
+// intersect_instances.cu and occluded_instances.cu): the instance and BVH tables,
 // their staging in shared memory, the nearest hit and the shadow any-hit
 // over the rigid instances [first, first + count) of one mesh walked
 // through its threaded BVH (a frame's K instances, or a lane's own frame's
@@ -171,8 +172,8 @@ __device__ __forceinline__ MeshHit nearest(const MeshTables& m, int first, int c
   return best;
 }
 
-// Any triangle of instances [first, first + count) between the shadow
-// origin and the sun?
+// Any triangle of instances [first, first + count) ahead of the shadow
+// origin along `sun` (the sun's direction, or a unit kernel's ray's own)?
 __device__ __forceinline__ bool occluded(const MeshTables& m, int first, int count, float3v so,
                                          float3v sun) {
   const float3v inv = winv3(sun);

@@ -1,7 +1,9 @@
 // Per-path device code shared by the path-trace kernels (the megakernels
 // trace_fused.cu and trace_fused_mesh.cu, the per-bounce kernels
 // sphere_bounce.cu and mesh_bounce.cu, the ray-pool kernels
-// pool_sphere_bounce.cu and pool_mesh_bounce.cu): the sphere tables, the
+// pool_sphere_bounce.cu and pool_mesh_bounce.cu, the unit kernels of the
+// bounce scan intersect_spheres.cu, occluded_spheres.cu,
+// intersect_instances.cu and occluded_instances.cu): the sphere tables, the
 // staging rule for tables in shared memory,
 // nearest sphere and ground-plane hits, the sky, the sphere shadow any-hit,
 // the emission/albedo shading of a sphere or plane hit, the counter-PCG
@@ -199,6 +201,26 @@ __device__ __forceinline__ bool sphere_shadowed(const Scene& s, int first, int c
     const float ocsq_s = osq_s - 2.0f * oc_s + aux.x;
     const float disc_s = fmaf(ocd_s, ocd_s, -(ocsq_s - g.w));
     if (disc_s > 0.0f && g.w > 0.0f && ocd_s + sqrtf(disc_s) > kEps) return true;
+  }
+  return false;
+}
+
+// Any sphere of [first, first + count) ahead of o along d (its far root
+// past kEps)? The shadow test of sphere_shadowed along any direction, with
+// c . d computed per sphere; stops at the first such sphere.
+template <typename Scene>
+__device__ __forceinline__ bool sphere_any_hit(const Scene& s, int first, int count, float3v o,
+                                               float3v d) {
+  const float od = dot3(o.x, o.y, o.z, d.x, d.y, d.z);
+  const float o_sq = dot3(o.x, o.y, o.z, o.x, o.y, o.z);
+  for (int i = first; i < first + count; ++i) {
+    const float4 g = s.geo_at(i);
+    const float dc = dot3(g.x, g.y, g.z, d.x, d.y, d.z);
+    const float oc = dot3(g.x, g.y, g.z, o.x, o.y, o.z);
+    const float oc_dot_d = dc - od;
+    const float oc_sq = o_sq - 2.0f * oc + s.aux_at(i).x;
+    const float disc = fmaf(oc_dot_d, oc_dot_d, -(oc_sq - g.w));
+    if (disc > 0.0f && g.w > 0.0f && oc_dot_d + sqrtf(disc) > kEps) return true;
   }
   return false;
 }

@@ -14,18 +14,33 @@ RNG: the jitter and the kernel's trace seed derive from the reference's
 ``jax.random`` key schedule, reproduced bit for bit by ``render/rng.py``.
 The keys are a handful of words and are derived on the host; only the
 bulk jitter bits are drawn on the render device.
+
+``bounce_scan=True`` takes instead the reference's per-bounce scan renderer,
+its tier wherever Pallas is off (``TRC_PALLAS=0``, every backend but a
+TPU): samples one after another, each traced by ``trace_paths_scan``, one
+``_shade_bounce`` per bounce in eager tensor code around four launches of
+the unit kernels (the sphere nearest hit and any-hit, the instanced nearest
+hit and any-hit), and threefry random numbers for the cosine resample, so
+it reproduces the reference's own CPU render.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
 from tpu_render_cluster_torch import resolve_device
-from tpu_render_cluster_torch.render import kernels, rng
+from tpu_render_cluster_torch.render import geometry, kernels, rng
 from tpu_render_cluster_torch.render.camera import Camera, camera_rays, scene_camera
-from tpu_render_cluster_torch.render.mesh import MeshSet, scene_mesh_set
+from tpu_render_cluster_torch.render.fp32 import dot3
+from tpu_render_cluster_torch.render.mesh import (
+    MeshSet,
+    intersect_instances,
+    occluded_instances,
+    scene_mesh_set,
+)
 from tpu_render_cluster_torch.render.scene import Scene, build_scene
 
 _TILES_SLICE = "tiled rendering arrives with the tiles slice of the port (ROADMAP.md, queue 1)"
@@ -95,6 +110,137 @@ def frame_rays_and_seed(camera: Camera, frame, *, width, height, samples):
         tile_height=height, tile_width=width, samples=samples,
     )
     return origins, directions, trace_seed(tile_trace_key(base_key))
+
+
+def _cosine_sample_hemisphere(normals: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Cosine-weighted directions [R, 3] about unit normals [R, 3], from
+    the threefry uniforms ``uniform(key, (2, R))``."""
+    u1, u2 = rng.uniform(key, (2, normals.shape[0]))
+    r = torch.sqrt(u1)
+    phi = (2.0 * math.pi) * u2
+    # cos and sin correctly rounded to float32 (through float64) on every
+    # device: the libraries' float32 versions differ in the last bit.
+    x = (r * torch.cos(phi.double()).float())[:, None]
+    y = (r * torch.sin(phi.double()).float())[:, None]
+    z = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0))[:, None]
+    nx, ny, nz = normals[:, 0], normals[:, 1], normals[:, 2]
+    # The tangent frame: cross(helper, n) with helper (0, 1, 0) where |n_x|
+    # > 0.9, else (1, 0, 0), normalised; the bitangent cross(n, tangent).
+    hx = torch.where(torch.abs(nx) > 0.9, 0.0, 1.0)
+    hy = 1.0 - hx
+    tangent = torch.stack([hy * nz, -(hx * nz), hx * ny - hy * nx], dim=1)
+    tx, ty, tz = tangent[:, 0], tangent[:, 1], tangent[:, 2]
+    tangent = tangent / torch.sqrt(tx * tx + ty * ty + tz * tz)[:, None]
+    tx, ty, tz = tangent[:, 0], tangent[:, 1], tangent[:, 2]
+    bitangent = torch.stack([ny * tz - nz * ty, nz * tx - nx * tz, nx * ty - ny * tx], dim=1)
+    return x * tangent + y * bitangent + z * normals
+
+
+@functools.lru_cache(maxsize=8)
+def _up(device: torch.device) -> torch.Tensor:
+    """(0, 1, 0) on ``device``, copied there once: a copy from host memory
+    would make the host wait for the card at every bounce."""
+    return torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=device)
+
+
+def _shade_bounce(scene: Scene, state, key: torch.Tensor, mesh: MeshSet | None = None):
+    """One bounce of the scan renderer over every lane ``state`` = (origins,
+    directions, throughput [R, 3], alive [R] bool): the new (origins,
+    directions, throughput), this bounce's radiance contribution [R, 3]
+    (from zero) and alive. Dead lanes keep their state and add nothing.
+
+    The geometry queries are the unit kernels: the sphere nearest hit and
+    any-hit, and for a mesh scene the instanced nearest hit, seeded with
+    the sphere/plane t, and the instanced any-hit, which skips the lanes
+    whose answer cannot matter. The mesh walks see dead lanes as rays
+    parked at 1e7 heading up, which miss every instance.
+    """
+    origins, directions, throughput, alive = state
+    t, sphere_index, is_plane = geometry.intersect_scene(scene, origins, directions)
+    up = _up(origins.device)
+    mesh_closer = None
+    if mesh is not None:
+        parked = ~alive[:, None]
+        t_mesh, mesh_normals, mesh_albedo = intersect_instances(
+            mesh,
+            torch.where(parked, 1e7, origins),
+            torch.where(parked, up, directions),
+            init_t=torch.where(alive, t, geometry.INF),
+        )
+        # A mesh miss returns the seed, which the strict < reads as not closer.
+        mesh_closer = alive & (t_mesh < t)
+        t = torch.minimum(t, t_mesh)
+        is_plane = is_plane & ~mesh_closer
+    hit = t < geometry.INF
+
+    # Escaped rays pick up the sky and die.
+    radiance = throughput * geometry.sky_color(scene, directions) * (alive & ~hit)[:, None]
+    alive = alive & hit
+    points = origins + directions * t[:, None]
+    sphere_index = sphere_index.to(torch.int64)
+    sphere_normals = (points - scene.centers[sphere_index]) / torch.clamp_min(
+        scene.radii[sphere_index][:, None], 1e-6
+    )
+    plane = is_plane[:, None]
+    normals = torch.where(plane, up, sphere_normals)
+    albedo = torch.where(plane, geometry.checker_albedo(scene, points), scene.albedo[sphere_index])
+    emission = torch.where(plane, 0.0, scene.emission[sphere_index])
+    if mesh_closer is not None:
+        closer = mesh_closer[:, None]
+        normals = torch.where(closer, mesh_normals, normals)
+        albedo = torch.where(closer, mesh_albedo, albedo)
+        emission = torch.where(closer, 0.0, emission)
+    radiance = radiance + throughput * emission * alive[:, None]
+
+    # Sun next-event estimation: one shadow ray toward the delta light.
+    cos_sun = torch.clamp_min(dot3(normals, scene.sun_direction), 0.0)
+    shadow_origin = points + normals * geometry.EPS * 4.0
+    sun_dir = scene.sun_direction.expand_as(normals)
+    in_shadow = kernels.occluded_spheres(scene, shadow_origin, sun_dir)
+    if mesh is not None:
+        # Lanes already shadowed, dead or facing away from the sun do not
+        # walk; their spurious True is multiplied by cos_sun * alive = 0.
+        in_shadow = occluded_instances(
+            mesh, shadow_origin, sun_dir, already=in_shadow | ~alive | (cos_sun <= 0.0)
+        )
+    direct = albedo * scene.sun_color * (cos_sun * ~in_shadow * alive)[:, None] / math.pi
+    radiance = radiance + throughput * direct
+
+    # Continue the path: cosine sample (BRDF/pi * cos / pdf == albedo).
+    throughput = throughput * torch.where(alive[:, None], albedo, 1.0)
+    new_directions = _cosine_sample_hemisphere(normals, key)
+    live = alive[:, None]
+    origins = torch.where(live, shadow_origin, origins)
+    directions = torch.where(live, new_directions, directions)
+    return origins, directions, throughput, radiance, alive
+
+
+def trace_paths_scan(
+    scene: Scene,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    key: torch.Tensor,
+    *,
+    max_bounces: int,
+    mesh: MeshSet | None = None,
+) -> torch.Tensor:
+    """Trace one sample per ray through the reference's bounce scan;
+    radiance [R, 3]. ``key`` is the sample's threefry trace key: bounce
+    ``b`` draws its resample from ``split(key, max_bounces)[b]``. Every
+    lane runs every bounce under its ``alive`` mask, in place: no sorting,
+    the contribution summed per lane."""
+    n = origins.shape[0]
+    device = origins.device
+    throughput = torch.ones((n, 3), dtype=torch.float32, device=device)
+    radiance = torch.zeros((n, 3), dtype=torch.float32, device=device)
+    alive = torch.ones((n,), dtype=torch.bool, device=device)
+    keys = rng.split(key.to(device), max_bounces)
+    for bounce in range(max_bounces):
+        origins, directions, throughput, contribution, alive = _shade_bounce(
+            scene, (origins, directions, throughput, alive), keys[bounce], mesh
+        )
+        radiance = radiance + contribution
+    return radiance
 
 
 def ray_sort_key(
@@ -211,15 +357,34 @@ def render_tile(
     samples: int = 8,
     max_bounces: int = 4,
     mesh: MeshSet | None = None,
+    bounce_scan: bool = False,
 ) -> torch.Tensor:
     """Render a tile; returns [tile_height, tile_width, 3] linear radiance.
 
-    The reference's flattened-samples branch: the RNG key derives from
-    (frame, y0, x0, sample), all samples are traced in one launch and
-    averaged per pixel.
+    The RNG key derives from (frame, y0, x0, sample). By default the
+    reference's flattened-samples branch: all samples are traced in one
+    launch and averaged per pixel. ``bounce_scan`` takes its per-sample
+    branch instead: sample ``s`` draws its jitter from ``fold_in(base_key,
+    s)`` and traces through ``trace_paths_scan`` with that key's second
+    split, and the samples' radiance is summed, then divided by ``samples``.
     """
     n = tile_height * tile_width
     base_key = tile_base_key(frame, y0, x0)
+    if bounce_scan:
+        device = camera.origin.device
+        sample_keys = rng.fold_in(base_key, torch.arange(samples)).to(device)
+        total = torch.zeros((n, 3), dtype=torch.float32, device=device)
+        for sample in range(samples):
+            key = sample_keys[sample]
+            origins, directions = sample_jitter_rays(
+                camera, key, width=width, height=height, y0=y0, x0=x0,
+                tile_height=tile_height, tile_width=tile_width,
+            )
+            total = total + trace_paths_scan(
+                scene, origins, directions, rng.split(key)[1], max_bounces=max_bounces,
+                mesh=mesh,
+            )
+        return (total / samples).reshape(tile_height, tile_width, 3)
     origins, directions = flat_sample_rays(
         camera, base_key, width=width, height=height, y0=y0, x0=x0,
         tile_height=tile_height, tile_width=tile_width, samples=samples,
@@ -242,8 +407,10 @@ def render_frame(
     max_bounces: int = 4,
     tile_size: int | None = None,
     device: str | torch.device | None = None,
+    bounce_scan: bool = False,
 ) -> torch.Tensor:
-    """Render a whole frame; returns [H, W, 3] linear radiance on ``device``."""
+    """Render a whole frame; returns [H, W, 3] linear radiance on ``device``
+    (``bounce_scan``: through the per-bounce scan renderer)."""
     if tile_size is not None:
         raise NotImplementedError(f"tile_size={tile_size}: {_TILES_SLICE}.")
     device = resolve_device(device)
@@ -253,7 +420,7 @@ def render_frame(
         scene, camera, frame_index, 0, 0,
         width=width, height=height, tile_height=height, tile_width=width,
         samples=samples, max_bounces=max_bounces,
-        mesh=scene_mesh_set(scene_name, frame_index, device=device),
+        mesh=scene_mesh_set(scene_name, frame_index, device=device), bounce_scan=bounce_scan,
     )
 
 
@@ -267,7 +434,7 @@ def tonemap(image: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=32)
 def _fused_frame_renderer(
     scene_name: str, width: int, height: int, samples: int, max_bounces: int,
-    device: torch.device,
+    device: torch.device, bounce_scan: bool,
 ):
     def render(frame: int) -> torch.Tensor:
         scene = build_scene(scene_name, frame, device)
@@ -276,7 +443,7 @@ def _fused_frame_renderer(
             scene, camera, frame, 0, 0,
             width=width, height=height, tile_height=height, tile_width=width,
             samples=samples, max_bounces=max_bounces,
-            mesh=scene_mesh_set(scene_name, frame, device=device),
+            mesh=scene_mesh_set(scene_name, frame, device=device), bounce_scan=bounce_scan,
         )
         return tonemap(linear)
 
@@ -290,13 +457,16 @@ def fused_frame_renderer(
     samples: int,
     max_bounces: int,
     device: str | torch.device | None = None,
+    bounce_scan: bool = False,
 ):
     """A cached ``frame -> uint8 [H, W, 3]`` callable for one scene/config.
 
     The image stays on ``device``: the caller copies it back when it needs
     the pixels. The device resolves here (CUDA unless ``cpu`` is asked
-    for) and is part of the cache key.
+    for) and is part of the cache key, as is ``bounce_scan`` (the
+    per-bounce scan renderer in place of the kernel dispatch of
+    ``trace_paths``).
     """
     return _fused_frame_renderer(
-        scene_name, width, height, samples, max_bounces, resolve_device(device)
+        scene_name, width, height, samples, max_bounces, resolve_device(device), bool(bounce_scan)
     )

@@ -19,16 +19,23 @@ kernels, written in CUDA C++ for Hopper and built by ``_build.py``:
   instance variant), for the device-resident ray pool of ``raypool.py``:
   each lane carries its frame id, frame seed and bounce, and sees only its
   own frame's rows of the stacked scene (``PoolSphereOperands``,
-  ``PoolMeshOperands``).
+  ``PoolMeshOperands``);
+- the unit kernels of the per-bounce scan renderer (``integrator``'s
+  ``bounce_scan`` tier): ``csrc/intersect_spheres.cu`` and
+  ``csrc/occluded_spheres.cu``, rays against the spheres (the TPU's
+  ``_nearest_hit`` and ``_any_hit``), and ``csrc/intersect_instances.cu``
+  and ``csrc/occluded_instances.cu``, rays against every instance of a
+  mesh (``_bvh_nearest_instanced`` and ``_bvh_anyhit_instanced``).
 
 ``trace_paths_fused`` / ``trace_paths_fused_mesh`` / ``sphere_bounce`` /
-``mesh_bounce`` / ``pool_sphere_bounce`` / ``pool_mesh_bounce`` launch
-their kernel for CUDA tensors, and raise if they cannot. For CPU tensors
-they run the plain versions (``..._reference``), which repeat the
-reference's masked bounce loop operation for operation; there is no
-fallback from one to the other. ``counts`` records kernel
-launches and plain-version calls, so a run can show which one the main
-path went through.
+``mesh_bounce`` / ``pool_sphere_bounce`` / ``pool_mesh_bounce`` and the
+unit kernels' ``intersect_spheres`` / ``occluded_spheres`` /
+``intersect_instances`` / ``occluded_instances`` launch their kernel for
+CUDA tensors, and raise if they cannot. For CPU tensors they run the plain
+versions (``..._reference``), which repeat the reference's arithmetic
+operation for operation; there is no fallback from one to the other.
+``counts`` records kernel launches and plain-version calls, so a run can
+show which one the main path went through.
 
 RNG: a counter-based PCG hash of (lane, bounce, seed), the same portable
 integer hash the TPU kernel uses, so the kernel and the plain version draw
@@ -60,8 +67,10 @@ MESH_MEGAKERNEL_MAX_WALK = 1024
 _DET_EPS = 1e-12  # Moller-Trumbore's parallel-ray threshold
 
 # Kernel launches ("trace_fused", "trace_fused_mesh", "sphere_bounce",
-# "mesh_bounce", "pool_sphere_bounce", "pool_mesh_bounce") and plain-version
-# calls ("..._reference") since the last reset_counts().
+# "mesh_bounce", "pool_sphere_bounce", "pool_mesh_bounce" and the unit kernels
+# "intersect_spheres", "occluded_spheres", "intersect_instances",
+# "occluded_instances") and plain-version calls ("..._reference") since the
+# last reset_counts().
 counts = {
     "trace_fused": 0,
     "trace_fused_reference": 0,
@@ -75,6 +84,14 @@ counts = {
     "pool_sphere_bounce_reference": 0,
     "pool_mesh_bounce": 0,
     "pool_mesh_bounce_reference": 0,
+    "intersect_spheres": 0,
+    "intersect_spheres_reference": 0,
+    "occluded_spheres": 0,
+    "occluded_spheres_reference": 0,
+    "intersect_instances": 0,
+    "intersect_instances_reference": 0,
+    "occluded_instances": 0,
+    "occluded_instances_reference": 0,
 }
 
 
@@ -146,6 +163,11 @@ def sphere_table(scene: Scene) -> SphereTable:
 def _check_inputs(scene: Scene, origins: torch.Tensor, directions: torch.Tensor, seed) -> None:
     if not -(2**31) <= int(seed) < 2**31:
         raise ValueError(f"seed {seed} is not an int32")
+    _check_rays(scene.centers, origins, directions)
+
+
+def _check_rays(table: torch.Tensor, origins: torch.Tensor, directions: torch.Tensor) -> None:
+    """Rays [R, 3] float32, on the device of ``table`` (a scene or mesh tensor)."""
     if origins.ndim != 2 or origins.shape[1] != 3 or origins.shape != directions.shape:
         raise ValueError(
             f"origins and directions must both be [R, 3]; got "
@@ -154,7 +176,7 @@ def _check_inputs(scene: Scene, origins: torch.Tensor, directions: torch.Tensor,
     for name, tensor in (("origins", origins), ("directions", directions)):
         if tensor.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {tensor.dtype}")
-    devices = {origins.device, directions.device, scene.centers.device}
+    devices = {origins.device, directions.device, table.device}
     if len(devices) != 1:
         raise ValueError(f"rays and scene must share one device, got {devices}")
 
@@ -211,6 +233,12 @@ _LAUNCH_ARGTYPES = {
     "pool_mesh_bounce": [
         *_POOL_STATE_ARGTYPES, *_POOL_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, *_OUTPUT_ARGTYPES,
     ],
+    # A unit kernel: the rays (and its per-ray input), n_rays, the tables,
+    # its outputs and the stream.
+    "intersect_spheres": [_PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _PTR, _PTR, _PTR],
+    "occluded_spheres": [_PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _PTR, _PTR],
+    "intersect_instances": [_PTR, _PTR, _PTR, _INT, *_MESH_ARGTYPES, _PTR, _PTR, _PTR, _PTR],
+    "occluded_instances": [_PTR, _PTR, _PTR, _INT, *_MESH_ARGTYPES, _PTR, _PTR],
 }
 
 
@@ -441,19 +469,24 @@ def _pack_bvh(bvh: MeshBVH) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
 _bvh_operands = _IdentityCache(_pack_bvh)
 
 
+def _mesh_tables(mesh: MeshSet) -> list:
+    """The mesh arguments of a launch (``_MESH_ARGTYPES``)."""
+    table = instance_operands(mesh)
+    triangles, bounds, links = _bvh_operands(mesh.bvh)
+    return [
+        table.data_ptr(), table.shape[0], triangles.data_ptr(), triangles.shape[0],
+        bounds.data_ptr(), links.data_ptr(), bounds.shape[0],
+    ]
+
+
 def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces):
     library = _library("trace_fused_mesh")
     launch = library.trace_fused_mesh_launch
     spheres, params = _sphere_operands(scene)
-    table = instance_operands(mesh)
-    triangles, bounds, links = _bvh_operands(mesh.bvh)
     origins, directions, radiance, stream = _ray_operands(origins, directions)
     status = launch(
         origins.data_ptr(), directions.data_ptr(), origins.shape[0],
-        spheres.data_ptr(), spheres.shape[0], params.data_ptr(),
-        table.data_ptr(), table.shape[0],
-        triangles.data_ptr(), triangles.shape[0],
-        bounds.data_ptr(), links.data_ptr(), bounds.shape[0],
+        spheres.data_ptr(), spheres.shape[0], params.data_ptr(), *_mesh_tables(mesh),
         int(seed), int(max_bounces), radiance.data_ptr(), stream,
     )
     _check_status(library, "trace_fused_mesh", status)
@@ -577,12 +610,7 @@ def _launch_bounce(
     spheres, params = _sphere_operands(scene)
     tables = [spheres.data_ptr(), spheres.shape[0], params.data_ptr()]
     if mesh is not None:
-        table = instance_operands(mesh)
-        triangles, bounds, links = _bvh_operands(mesh.bvh)
-        tables += [
-            table.data_ptr(), table.shape[0], triangles.data_ptr(), triangles.shape[0],
-            bounds.data_ptr(), links.data_ptr(), bounds.shape[0],
-        ]
+        tables += _mesh_tables(mesh)
     out = BounceState(
         *(torch.empty((rays, 3), dtype=torch.float32, device=device) for _ in range(4)),
         torch.empty((rays,), dtype=torch.bool, device=device),
@@ -796,6 +824,122 @@ def _launch_pool(name, spheres, mesh_ops, state, live_count, total_bounces):
     _check_status(library, name, status)
     counts[name] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Unit kernels: rays against the spheres or against every mesh instance
+
+
+def _check_instance_rays(mesh: MeshSet, origins, directions, row, dtype, name) -> None:
+    _check_rays(mesh.instances.translation, origins, directions)
+    _check_mesh(mesh, origins)
+    if row.shape != (origins.shape[0],) or row.dtype != dtype or row.device != origins.device:
+        raise ValueError(
+            f"{name} must be {dtype} [R] on the rays' device; got {row.dtype} "
+            f"{tuple(row.shape)} on {row.device}"
+        )
+
+
+def intersect_spheres(
+    scene: Scene, origins: torch.Tensor, directions: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest sphere hit of each ray ([R, 3] float32): (t [R] float32,
+    ``INF`` on a miss; index [R] int32, the first sphere reaching the
+    minimum, 0 on a miss). The ground plane is not tested. CUDA tensors go
+    to the kernel, CPU tensors to the plain version."""
+    _check_rays(scene.centers, origins, directions)
+    if origins.device.type == "cuda":
+        spheres, params = _sphere_operands(scene)
+        t = torch.empty(origins.shape[0], dtype=torch.float32, device=origins.device)
+        index = torch.empty(origins.shape[0], dtype=torch.int32, device=origins.device)
+        _launch_unit(
+            "intersect_spheres", (origins, directions),
+            [spheres.data_ptr(), spheres.shape[0], params.data_ptr()], (t, index),
+        )
+        return t, index
+    if origins.device.type == "cpu":
+        return intersect_spheres_reference(scene, origins, directions)
+    raise ValueError(f"Unsupported device {origins.device}")
+
+
+def occluded_spheres(
+    scene: Scene, origins: torch.Tensor, directions: torch.Tensor
+) -> torch.Tensor:
+    """Shadow any-hit of each ray against the spheres: bool [R], true where
+    some real sphere has its far root past ``EPS`` ahead of the origin.
+    CUDA tensors go to the kernel, CPU tensors to the plain version."""
+    _check_rays(scene.centers, origins, directions)
+    if origins.device.type == "cuda":
+        spheres, params = _sphere_operands(scene)
+        hit = torch.empty(origins.shape[0], dtype=torch.bool, device=origins.device)
+        _launch_unit(
+            "occluded_spheres", (origins, directions),
+            [spheres.data_ptr(), spheres.shape[0], params.data_ptr()], (hit,),
+        )
+        return hit
+    if origins.device.type == "cpu":
+        return occluded_spheres_reference(scene, origins, directions)
+    raise ValueError(f"Unsupported device {origins.device}")
+
+
+def intersect_instances(
+    mesh: MeshSet, origins: torch.Tensor, directions: torch.Tensor, init_t: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Nearest hit of each world-space ray over every instance of ``mesh``,
+    seeded with ``init_t`` [R] float32 (only a hit strictly nearer counts):
+    (t [R], ``init_t`` on a miss; triangle row [R] int32, a row of the
+    BVH's tables; instance [R] int32), row and instance 0 on a miss. CUDA
+    tensors go to the kernel, CPU tensors to the plain version."""
+    _check_instance_rays(mesh, origins, directions, init_t, torch.float32, "init_t")
+    if origins.device.type == "cuda":
+        rays, device = origins.shape[0], origins.device
+        t = torch.empty(rays, dtype=torch.float32, device=device)
+        tri = torch.empty(rays, dtype=torch.int32, device=device)
+        inst = torch.empty(rays, dtype=torch.int32, device=device)
+        _launch_unit(
+            "intersect_instances", (origins, directions, init_t), _mesh_tables(mesh),
+            (t, tri, inst),
+        )
+        return t, tri, inst
+    if origins.device.type == "cpu":
+        return intersect_instances_reference(mesh, origins, directions, init_t)
+    raise ValueError(f"Unsupported device {origins.device}")
+
+
+def occluded_instances(
+    mesh: MeshSet, origins: torch.Tensor, directions: torch.Tensor, already: torch.Tensor
+) -> torch.Tensor:
+    """Shadow any-hit of each world-space ray over every instance of
+    ``mesh`` (a triangle ahead of the origin, t > ``EPS``, unbounded): bool
+    [R], OR-ed with ``already`` [R] bool, whose lanes do not walk. CUDA
+    tensors go to the kernel, CPU tensors to the plain version."""
+    _check_instance_rays(mesh, origins, directions, already, torch.bool, "already")
+    if origins.device.type == "cuda":
+        hit = torch.empty(origins.shape[0], dtype=torch.bool, device=origins.device)
+        _launch_unit(
+            "occluded_instances", (origins, directions, already), _mesh_tables(mesh), (hit,)
+        )
+        return hit
+    if origins.device.type == "cpu":
+        return occluded_instances_reference(mesh, origins, directions, already)
+    raise ValueError(f"Unsupported device {origins.device}")
+
+
+def _launch_unit(name: str, rays: tuple, tables: list, outputs: tuple) -> None:
+    """Launch unit kernel ``name`` on ``rays`` (origins, directions and its
+    per-ray input) and ``tables`` into ``outputs``, on the current stream."""
+    library = _library(name)
+    launch = getattr(library, f"{name}_launch")
+    n_rays = rays[0].shape[0]
+    if n_rays >= 2**31:
+        raise ValueError(f"{n_rays} rays exceed the kernel's int32 lane index")
+    rays = [t.contiguous() for t in rays]
+    status = launch(
+        *(t.data_ptr() for t in rays), n_rays, *tables, *(t.data_ptr() for t in outputs),
+        torch.cuda.current_stream(rays[0].device).cuda_stream,
+    )
+    _check_status(library, name, status)
+    counts[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -1034,6 +1178,122 @@ def _pool_reference(
     return out
 
 
+def intersect_spheres_reference(
+    scene: Scene,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    *,
+    chunk_rays: int = 32768,
+    stats: dict | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the sphere nearest-hit kernel, on any
+    device: the megakernels' sphere pass (``_nearest_sphere``) over chunks
+    of rays (a frame's ``[rays, spheres]`` intermediates would take about
+    70 MB each). ``stats``, when given, receives the work: the real spheres
+    and the rays, each of which tests every sphere."""
+    _check_rays(scene.centers, origins, directions)
+    counts["intersect_spheres_reference"] += 1
+    table = sphere_table(scene)
+    rays = origins.shape[0]
+    t = torch.empty(rays, dtype=torch.float32, device=origins.device)
+    index = torch.empty(rays, dtype=torch.int32, device=origins.device)
+    for start in range(0, rays, chunk_rays):
+        rows = slice(start, start + chunk_rays)
+        t_rows, index_rows = _nearest_sphere(table, origins[rows], directions[rows])
+        t[rows] = t_rows[:, 0]
+        index[rows] = index_rows.to(torch.int32)
+    if stats is not None:
+        stats.update(spheres=int((table.r2 > 0.0).sum()), rays=rays)
+    return t, index
+
+
+def occluded_spheres_reference(
+    scene: Scene,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    *,
+    chunk_rays: int = 32768,
+    stats: dict | None = None,
+) -> torch.Tensor:
+    """The plain PyTorch version of the sphere shadow any-hit kernel, on
+    any device: the megakernels' shadow test (``_sphere_occluders``) along
+    each ray's own direction. ``stats`` receives the real spheres, the rays
+    and the sphere tests, each ray's ending at its first occluder."""
+    _check_rays(scene.centers, origins, directions)
+    counts["occluded_spheres_reference"] += 1
+    table = sphere_table(scene)
+    spheres = int((table.r2 > 0.0).sum())
+    rays = origins.shape[0]
+    hit = torch.empty(rays, dtype=torch.bool, device=origins.device)
+    tests = 0
+    for start in range(0, rays, chunk_rays):
+        rows = slice(start, start + chunk_rays)
+        o, d = origins[rows], directions[rows]
+        occluders = _sphere_occluders(table, o, _sphere_dots(table.centers, d), dot3(o, d)[:, None])
+        hit[rows] = occluders.any(dim=1)
+        if stats is not None:
+            tests = tests + _sphere_tests(occluders, spheres).sum()
+    if stats is not None:
+        stats.update(spheres=spheres, rays=rays, sphere_tests=int(tests))
+    return hit
+
+
+def _unit_mesh_stats(stats: dict | None, walk: "_MeshWalk", run):
+    """``run(stats)`` with the mesh work counters set up in ``stats`` (when
+    given) and read once at the end."""
+    if stats is None:
+        return run(None)
+    for key in _MESH_STATS:
+        stats.setdefault(key, 0)
+    stats["instances"] = walk.table.shape[0]
+    result = run(stats)
+    for key in _MESH_STATS:
+        stats[key] = int(stats[key])
+    return result
+
+
+def intersect_instances_reference(
+    mesh: MeshSet,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    init_t: torch.Tensor,
+    *,
+    stats: dict | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the instanced nearest-hit kernel, on
+    any device: the mesh megakernel's plain instance walk
+    (``_MeshWalk.nearest_rows``), seeded with ``init_t``. ``stats`` as for
+    the mesh megakernel's version (its mesh counters)."""
+    _check_instance_rays(mesh, origins, directions, init_t, torch.float32, "init_t")
+    counts["intersect_instances_reference"] += 1
+    walk = _MeshWalk.build(mesh)
+    t, k, row = _unit_mesh_stats(
+        stats, walk, lambda stats: walk.nearest_rows(origins, directions, init_t, stats)
+    )
+    return t, row.to(torch.int32), k.clamp_min(0).to(torch.int32)
+
+
+def occluded_instances_reference(
+    mesh: MeshSet,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    already: torch.Tensor,
+    *,
+    stats: dict | None = None,
+) -> torch.Tensor:
+    """The plain PyTorch version of the instanced shadow any-hit kernel, on
+    any device: the mesh megakernel's plain shadow walk
+    (``_MeshWalk.occluded``) along each ray's own direction, ``already``
+    lanes True without walking. ``stats`` as for
+    ``intersect_instances_reference``."""
+    _check_instance_rays(mesh, origins, directions, already, torch.bool, "already")
+    counts["occluded_instances_reference"] += 1
+    walk = _MeshWalk.build(mesh)
+    return _unit_mesh_stats(
+        stats, walk, lambda stats: walk.occluded(origins, already, stats, directions=directions)
+    )
+
+
 def _bounce_reference(
     table, walk, origins, directions, throughput, alive, lane, live_count, seed, bounce,
     total_bounces, chunk_rays, stats,
@@ -1123,36 +1383,13 @@ def _bounce(table, walk, o, d, throughput, radiance, alive, lane, bounce, total_
     Returns (o, d, throughput, radiance, alive) after the bounce, radiance
     accumulated into the given one."""
     device = o.device
-    n = table.centers.shape[0]
     c = table.centers
-    r2, csq, radius, dc_sun = table.r2, table.csq, table.radius, table.dc_sun
+    radius = table.radius
     sun = table.sun_direction
-    sphere_index = torch.arange(n, device=device)
     plane_normal = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=device)
 
-    def sphere_dots(points):  # [R, N]: c . points, as dot3 sums it
-        return fma(
-            c[:, 2], points[:, 2:3],
-            fma(c[:, 1], points[:, 1:2], c[:, 0] * points[:, 0:1]),
-        )
-
     # -- nearest sphere hit -------------------------------------------
-    dc = sphere_dots(d)
-    oc = sphere_dots(o)
-    od = dot3(o, d)[:, None]
-    o_sq = dot3(o, o)[:, None]
-    oc_dot_d = dc - od
-    oc_sq = o_sq - 2.0 * oc + csq
-    disc = fma(oc_dot_d, oc_dot_d, -(oc_sq - r2))
-    valid = (disc > 0.0) & (r2 > 0.0)
-    sqrt_disc = torch.sqrt(torch.clamp_min(disc, 0.0))
-    t0 = oc_dot_d - sqrt_disc
-    t1 = oc_dot_d + sqrt_disc
-    t_all = torch.where(t0 > EPS, t0, torch.where(t1 > EPS, t1, INF))
-    t_all = torch.where(valid, t_all, INF)
-    t_sphere = t_all.min(dim=1, keepdim=True).values
-    idx = torch.where(t_all == t_sphere, sphere_index, n).min(dim=1).values
-    idx = torch.clamp_max(idx, n - 1)
+    t_sphere, idx = _nearest_sphere(table, o, d)
 
     # -- ground plane y = 0 -------------------------------------------
     d_y = d[:, 1:2]
@@ -1210,25 +1447,12 @@ def _bounce(table, walk, o, d, throughput, radiance, alive, lane, bounce, total_
 
     # -- sun NEE: one any-hit shadow test ------------------------------
     shadow_o = fma(normal, EPS * 4.0, p)
-    oc_s = sphere_dots(shadow_o)
-    od_s = dot3(shadow_o, sun)[:, None]
-    osq_s = dot3(shadow_o, shadow_o)[:, None]
-    ocd_s = dc_sun - od_s
-    ocsq_s = osq_s - 2.0 * oc_s + csq
-    disc_s = fma(ocd_s, ocd_s, -(ocsq_s - r2))
-    valid_s = (disc_s > 0.0) & (r2 > 0.0)
-    t1_s = ocd_s + torch.sqrt(torch.clamp_min(disc_s, 0.0))
-    occluders = valid_s & (t1_s > EPS)
+    occluders = _sphere_occluders(table, shadow_o, table.dc_sun, dot3(shadow_o, sun)[:, None])
     shadowed = occluders.any(dim=1, keepdim=True).to(torch.float32)
     cos_sun = torch.clamp_min(dot3(normal, sun)[:, None], 0.0)
     if stats is not None:
         tested = (alive > 0.5) & (cos_sun > 0.0)
-        # Pad slots never occlude: an unoccluded ray tests the real ones.
-        first = torch.where(
-            occluders.any(dim=1, keepdim=True),
-            occluders.to(torch.int8).argmax(dim=1, keepdim=True) + 1,
-            stats["spheres"],
-        )
+        first = _sphere_tests(occluders, stats["spheres"])[:, None]
         stats["shadow_sphere_tests"] += (first * tested).sum()
     if walk is not None:
         # Lanes whose result cannot matter (sphere-shadowed, dead, sun
@@ -1268,6 +1492,52 @@ def _bounce(table, walk, o, d, throughput, radiance, alive, lane, bounce, total_
     o = torch.where(live, new_o, o)
     d = torch.where(live, new_d, d)
     return o, d, throughput, radiance, alive
+
+
+def _sphere_dots(c: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """[R, N]: c . points of the centers ``c`` [N, 3] and ``points`` [R, 3],
+    as dot3 sums it."""
+    return fma(c[:, 2], points[:, 2:3], fma(c[:, 1], points[:, 1:2], c[:, 0] * points[:, 0:1]))
+
+
+def _nearest_sphere(table: SphereTable, o: torch.Tensor, d: torch.Tensor):
+    """The kernels' sphere pass for rays ``o``/``d`` [R, 3]: (t [R, 1],
+    ``INF`` on a miss; index [R], the lowest sphere among ties, 0 on a
+    miss). d . (c - o) is c.d - o.d and |o - c|^2 is |o|^2 - 2 o.c + |c|^2,
+    the algebra of the reference's ``_nearest_hit_kernel``."""
+    n = table.centers.shape[0]
+    oc_dot_d = _sphere_dots(table.centers, d) - dot3(o, d)[:, None]
+    oc_sq = dot3(o, o)[:, None] - 2.0 * _sphere_dots(table.centers, o) + table.csq
+    disc = fma(oc_dot_d, oc_dot_d, -(oc_sq - table.r2))
+    valid = (disc > 0.0) & (table.r2 > 0.0)
+    sqrt_disc = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t0 = oc_dot_d - sqrt_disc
+    t1 = oc_dot_d + sqrt_disc
+    t_all = torch.where(t0 > EPS, t0, torch.where(t1 > EPS, t1, INF))
+    t_all = torch.where(valid, t_all, INF)
+    t_sphere = t_all.min(dim=1, keepdim=True).values
+    sphere_index = torch.arange(n, device=o.device)
+    idx = torch.where(t_all == t_sphere, sphere_index, n).min(dim=1).values
+    return t_sphere, torch.clamp_max(idx, n - 1)
+
+
+def _sphere_occluders(table: SphereTable, so: torch.Tensor, dc: torch.Tensor, od: torch.Tensor):
+    """[R, N]: whether sphere i has its far root past ``EPS`` ahead of the
+    shadow origins ``so`` [R, 3] along a direction whose dots are ``dc``
+    (with the centers; [N] for the sun, [R, N] per ray) and ``od`` [R, 1]
+    (with ``so``)."""
+    ocd_s = dc - od
+    ocsq_s = dot3(so, so)[:, None] - 2.0 * _sphere_dots(table.centers, so) + table.csq
+    disc_s = fma(ocd_s, ocd_s, -(ocsq_s - table.r2))
+    valid_s = (disc_s > 0.0) & (table.r2 > 0.0)
+    return valid_s & (ocd_s + torch.sqrt(torch.clamp_min(disc_s, 0.0)) > EPS)
+
+
+def _sphere_tests(occluders: torch.Tensor, spheres) -> torch.Tensor:
+    """[R]: the spheres a shadow ray tests, stopping at its first occluder.
+    Pad slots, which never occlude, come last: an unoccluded ray tests the
+    ``spheres`` real ones."""
+    return torch.where(occluders.any(dim=1), occluders.to(torch.int8).argmax(dim=1) + 1, spheres)
 
 
 def _winv(v: torch.Tensor) -> torch.Tensor:
@@ -1320,11 +1590,11 @@ class _MeshWalk(NamedTuple):
     first: list[int]
     count: list[int]
     children: list[list[int]]
-    sun: torch.Tensor  # [3] world sun direction
-    sun_object: torch.Tensor  # [K, 3]: the sun direction in object space
+    sun: torch.Tensor | None  # [3] world sun direction
+    sun_object: torch.Tensor | None  # [K, 3]: the sun direction in object space
 
     @classmethod
-    def build(cls, mesh: MeshSet, sun: torch.Tensor) -> "_MeshWalk":
+    def build(cls, mesh: MeshSet, sun: torch.Tensor | None = None) -> "_MeshWalk":
         bvh = mesh.bvh
         skip = bvh.skip.tolist()
         count = bvh.count.tolist()
@@ -1340,7 +1610,9 @@ class _MeshWalk(NamedTuple):
             table=table, v0=bvh.v0, e1=bvh.e1, e2=bvh.e2, normal=bvh.normal,
             bounds_min=bvh.bounds_min, bounds_max=bvh.bounds_max,
             first=bvh.first.tolist(), count=count, children=children, sun=sun,
-            sun_object=torch.cat([_to_object(row, sun[None, :], shift=False) for row in table]),
+            sun_object=None if sun is None else torch.cat(
+                [_to_object(row, sun[None, :], shift=False) for row in table]
+            ),
         )
 
     def _walk(self, o, inv, best_t, on_leaf, stats):
@@ -1395,10 +1667,11 @@ class _MeshWalk(NamedTuple):
         hit = (torch.abs(det) > _DET_EPS) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > EPS)
         return hit, t
 
-    def nearest(self, o, d, seed_t, stats):
+    def nearest_rows(self, o, d, seed_t, stats):
         """Nearest mesh hit over all instances for world rays ``o``/``d``
         [R, 3], seeded with ``seed_t`` [R]: (t [R] (== seed_t on a miss),
-        world normal facing the ray [R, 3], albedo [R, 3])."""
+        the winning instance [R] int64 (-1 on a miss), the winning triangle
+        row [R] int64 (0 on a miss))."""
         rays = o.shape[0]
         best_t = seed_t.clone()
         win_k = torch.full((rays,), -1, dtype=torch.int64, device=o.device)
@@ -1435,7 +1708,12 @@ class _MeshWalk(NamedTuple):
                 win_row[idx[hit_pos]] = self.first[node] + local[closer]
 
             self._walk(lo, _winv(ld), local_t, on_leaf, stats)
+        return best_t, win_k, win_row
 
+    def nearest(self, o, d, seed_t, stats):
+        """``nearest_rows``' hit as (t [R] (== seed_t on a miss), world
+        normal facing the ray [R, 3], albedo [R, 3])."""
+        best_t, win_k, win_row = self.nearest_rows(o, d, seed_t, stats)
         hit = win_k >= 0
         k_hit = win_k.clamp_min(0)
         rot = self.table[k_hit, 0:9]
@@ -1451,12 +1729,13 @@ class _MeshWalk(NamedTuple):
         world = world * torch.where(facing, 1.0, -1.0)[:, None]
         return best_t, world, albedo
 
-    def occluded(self, so, blocked, stats):
-        """Any-hit toward the sun from shadow origins ``so`` [R, 3];
-        ``blocked`` [R] lanes come back True without walking. A ray stops
-        at its first occluder."""
+    def occluded(self, so, blocked, stats, directions=None):
+        """Any-hit from the origins ``so`` [R, 3] toward the sun or, given,
+        along the rays' own ``directions`` [R, 3]; ``blocked`` [R] lanes
+        come back True without walking. A ray stops at its first
+        occluder."""
         occluded = blocked.clone()
-        sun_inv = _winv(self.sun)
+        world_inv = _winv(self.sun if directions is None else directions)
         if stats is not None:
             stats["broadphase_rays"] += (~blocked).sum()
         for k in range(self.table.shape[0]):
@@ -1466,17 +1745,21 @@ class _MeshWalk(NamedTuple):
             if stats is not None:
                 stats["world_aabb_tests"] += idx.numel()
             row = self.table[k]
-            idx = idx[_slab(row[13:16], row[16:19], so[idx], sun_inv, INF)]
+            inv = world_inv if directions is None else world_inv[idx]
+            idx = idx[_slab(row[13:16], row[16:19], so[idx], inv, INF)]
             if idx.numel() == 0:
                 continue
             if stats is not None:
                 stats["instance_walks"] += idx.numel()
             lo = _to_object(row, so[idx], shift=True)
-            ld = self.sun_object[k]
+            if directions is None:
+                ld = self.sun_object[k]
+            else:
+                ld = _to_object(row, directions[idx], shift=False)
             limit = torch.full((idx.numel(),), INF, device=so.device)
 
             def on_leaf(node, pos, lo=lo, ld=ld, limit=limit):
-                hit, _ = self._leaf(node, lo[pos], ld)
+                hit, _ = self._leaf(node, lo[pos], ld if ld.ndim == 1 else ld[pos])
                 any_hit = hit.any(dim=1)
                 if stats is not None:
                     first = torch.where(any_hit, hit.to(torch.int8).argmax(dim=1) + 1, hit.shape[1])

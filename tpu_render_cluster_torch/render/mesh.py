@@ -18,6 +18,10 @@ Layout (the traversal contract every kernel reads):
 - ``first`` / ``count`` give a leaf's slot and its real triangle count
   (0 for inner nodes).
 
+It also holds the scan renderer's ray queries against every instance,
+``intersect_instances`` and ``occluded_instances``, each one launch of a
+unit kernel of ``render/kernels.py`` (the reference's kernel branches).
+
 Left out of this slice: the TLAS topology and the quantized node tables
 (``mesh.py:928-1222`` of the reference), which change no per-ray result.
 """
@@ -399,6 +403,74 @@ def cached_mesh_bvh(
         bvh = build_bvh(*geometry, builder=builder, wide=wide, device=device)
         _geometry_cache[key] = bvh
     return bvh
+
+
+# ---------------------------------------------------------------------------
+# Ray queries against every instance (the per-bounce scan renderer)
+
+
+def _normals_to_world(rotation: torch.Tensor, normal_obj: torch.Tensor) -> torch.Tensor:
+    """World normals R n_obj [R, 3] (rigid: the inverse transpose is R) of
+    object normals ``normal_obj`` [R, 3] under per-ray rotations [R, 3, 3]."""
+    return (
+        rotation[..., :, 0] * normal_obj[:, 0:1]
+        + rotation[..., :, 1] * normal_obj[:, 1:2]
+        + rotation[..., :, 2] * normal_obj[:, 2:3]
+    )
+
+
+def intersect_instances(
+    mesh: MeshSet,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    init_t: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Nearest hit over all instances: (t [R], world normal facing the ray
+    [R, 3], albedo [R, 3]).
+
+    ``init_t`` (optional [R]) seeds the best t with a hit the caller already
+    knows (the same bounce's sphere/plane t): a mesh miss returns t ==
+    init_t, never closer. One launch of the instanced nearest-hit kernel
+    (``kernels.intersect_instances``), then the gathers of the winning
+    triangle's normal and the instance's rotation and albedo, as the
+    reference's kernel branch does. The hit test compares with the seed,
+    not INF, so a seeded miss keeps a zero normal and a zero albedo.
+    """
+    from tpu_render_cluster_torch.render import kernels
+
+    if init_t is None:
+        init_t = torch.full((origins.shape[0],), kernels.INF, device=origins.device)
+    t, tri, inst = kernels.intersect_instances(mesh, origins, directions, init_t)
+    hit = (t < init_t)[:, None]
+    tri, inst = tri.to(torch.int64), inst.to(torch.int64)
+    normal = _normals_to_world(mesh.instances.rotation[inst], mesh.bvh.normal[tri])
+    facing = (
+        normal[:, 0] * directions[:, 0] + normal[:, 1] * directions[:, 1]
+        + normal[:, 2] * directions[:, 2]
+    ) < 0.0
+    normal = torch.where(facing[:, None], normal, -normal)
+    return (
+        t,
+        torch.where(hit, normal, 0.0),
+        torch.where(hit, mesh.instances.albedo[inst], 0.0),
+    )
+
+
+def occluded_instances(
+    mesh: MeshSet,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    already: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Any-hit over all instances (shadow rays): bool [R]. ``already``
+    (optional [R] bool) marks lanes the caller knows are occluded, or whose
+    answer cannot matter: they do not walk and come back True. One launch
+    of the instanced any-hit kernel (``kernels.occluded_instances``)."""
+    from tpu_render_cluster_torch.render import kernels
+
+    if already is None:
+        already = torch.zeros((origins.shape[0],), dtype=torch.bool, device=origins.device)
+    return kernels.occluded_instances(mesh, origins, directions, already)
 
 
 def rotation_y(angle: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """The ``torch-raytrace`` render backend: the path tracer on a CUDA GPU.
 
 Counterpart of ``tpu_render_cluster/worker/backends/tpu_raytrace.py`` for
-whole frames, with three of its execution tiers:
+whole frames, with four of its execution tiers:
 
 - the masked tier: each frame is one call of the cached frame renderer
   (primary rays, the path trace, sample mean, tonemap). Sphere scenes and
@@ -15,9 +15,16 @@ whole frames, with three of its execution tiers:
   next frames of the same job still queued on this worker render together
   in one pool window, one pool-kernel launch per iteration and no host
   read inside it. The frames rendered ahead wait, linear, in a cache
-  bounded at 64 MB, and their own requests only tonemap and save them.
+  bounded at 64 MB, and their own requests only tonemap and save them;
+- the per-bounce scan tier (``bounce_scan=True``, the reference's tier
+  with Pallas off, ``TRC_PALLAS=0``): each frame through the cached frame
+  renderer's per-sample branch, one ``_shade_bounce`` per bounce around
+  four unit-kernel launches. It takes neither the wavefront nor the pool,
+  whatever their options say, as the reference takes neither without
+  Pallas.
 
-The ``raypool`` and ``wavefront`` options choose as the reference's do.
+Otherwise the ``raypool`` and ``wavefront`` options choose as the
+reference's do.
 ``raypool``: ``None`` or ``"auto"`` pools a deep-mesh job's frame when the
 worker's queue hint (``note_upcoming_frames``, which the worker queue calls
 before each frame) names at least one more frame of the job, ``"off"``
@@ -107,6 +114,7 @@ class TorchRaytraceBackend(RenderBackend):
         raypool: str | None = None,
         on_launch: Callable[[WavefrontLaunch], None] | None = None,
         on_iteration: Callable[[PoolLaunch], None] | None = None,
+        bounce_scan: bool = False,
     ) -> None:
         requested = dict(tile_size=tile_size, sharding=sharding)
         for option, value in requested.items():
@@ -121,6 +129,7 @@ class TorchRaytraceBackend(RenderBackend):
             raise ValueError(f"raypool={raypool!r} is not one of {RAYPOOL_MODES}")
         self.wavefront = wavefront
         self.raypool = raypool
+        self.bounce_scan = bool(bounce_scan)
         self.on_launch = on_launch
         self.on_iteration = on_iteration
         # job name -> the frames of the job still queued on this worker.
@@ -138,12 +147,12 @@ class TorchRaytraceBackend(RenderBackend):
         self.max_bounces = max_bounces
 
     def _renderer(self, scene_name: str):
-        """``frame -> uint8 [H, W, 3]`` on the device, through the tier the
-        ``wavefront`` option picks for this scene."""
-        if not wavefront_active(scene_name, mode=self.wavefront):
+        """``frame -> uint8 [H, W, 3]`` on the device, through the bounce
+        scan or else the tier the ``wavefront`` option picks for this scene."""
+        if self.bounce_scan or not wavefront_active(scene_name, mode=self.wavefront):
             return fused_frame_renderer(
                 scene_name, self.width, self.height, self.samples, self.max_bounces,
-                self.device,
+                self.device, bounce_scan=self.bounce_scan,
             )
 
         def render(frame: int):
@@ -183,9 +192,16 @@ class TorchRaytraceBackend(RenderBackend):
         like the render path does.
         """
         scene_name = scene_for_job_name(scene_name)
-        if raypool_active(scene_name, mode=self.raypool, frames_ahead=1):
+        if self._pools(scene_name, frames_ahead=1):
             self._render_window(scene_name, [1])[0].cpu()
         self._renderer(scene_name)(1).cpu()
+
+    def _pools(self, scene_name: str, *, frames_ahead: int) -> bool:
+        """Whether a frame with ``frames_ahead`` of its job queued behind it
+        renders in a pool window (never under the bounce scan)."""
+        return not self.bounce_scan and raypool_active(
+            scene_name, mode=self.raypool, frames_ahead=frames_ahead
+        )
 
     def _render_window(self, scene_name: str, frames: list[int]) -> list[torch.Tensor]:
         images, stats = render_batch_raypool(
@@ -228,9 +244,7 @@ class TorchRaytraceBackend(RenderBackend):
             for frame in self._upcoming.get(job.job_name, ())
             if frame != frame_index and (job.job_name, frame) not in self._raypool_cache
         ]
-        use_raypool = cached is None and raypool_active(
-            scene_name, mode=self.raypool, frames_ahead=len(upcoming)
-        )
+        use_raypool = cached is None and self._pools(scene_name, frames_ahead=len(upcoming))
         renderer = None
         if cached is None and not use_raypool:
             renderer = self._renderer(scene_name)
