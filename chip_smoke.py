@@ -5,7 +5,7 @@ CUDA toolkit):
 
     python3 chip_smoke.py
 
-Eight main paths, each through ``TorchRaytraceBackend``, six of them one per
+Nine main paths, each through ``TorchRaytraceBackend``, six of them one per
 kernel: whole frames of the sphere scene 04_very-simple through ``trace_fused``,
 of the mesh scene 02_physics-mesh through ``trace_fused_mesh``, of the deep
 mesh scene 03_physics-2-mesh through the wavefront driver (the backend's
@@ -19,11 +19,18 @@ per-bounce scan renderer (``bounce_scan=True``), one bounce of eager tensor
 code per sample around the unit kernels: 10 frames of the deep job through
 ``intersect_spheres``, ``occluded_spheres``, ``intersect_instances`` and
 ``occluded_instances``, and 2 frames of 04_very-simple through the first
-two. Phases, each of which raises (exit code 1) if its check fails:
+two; and one through the scan's per-instance branch (``bounce_scan=True,
+per_instance=True``): 2 frames of the deep job through the sphere unit
+kernels and ``intersect_mesh`` and ``occluded_mesh``, each launched once per
+instance (48 times per sample and bounce). Phases, each of which raises
+(exit code 1) if its check fails:
 1. the card: name and power limit as nvidia-smi reports them;
 2. build every CUDA source of the port with nvcc (sm_90a), one nvcc per
-   source, all at once, timed;
-3. each kernel against its plain PyTorch version on the card at 128x128,
+   source, all at once, timed, and print each kernel's registers and spills;
+3. the inputs of every frame of the main paths (scene, camera, mesh
+   instances, the primary rays of the three ray builders) on the card
+   against the CPU's, bit for bit: the number of differing elements must be
+   0. Each kernel against its plain PyTorch version on the card at 128x128,
    4 spp: the megakernels at 1 and 4 bounces, at the tolerances of
    tests/test_torch_kernels.py and tests/test_torch_kernels_mesh.py (the
    mesh kernel also on the deep icosphere tree of 03_physics-2-mesh,
@@ -39,8 +46,10 @@ two. Phases, each of which raises (exit code 1) if its check fails:
    pool's loop body under ``torch.cuda.set_sync_debug_mode("error")``; the
    unit kernels on every launch of frame 1 of each scan path at 128x128, 4
    spp (their wrappers recorded in place on ``kernels``), each on the
-   launch's own inputs, at the tolerances of tests/test_torch_geometry.py
-   and tests/test_torch_instances.py;
+   launch's own inputs, at the tolerances of tests/test_torch_geometry.py,
+   tests/test_torch_instances.py and tests/test_torch_bvh.py (the
+   single-BVH kernels: every launch of the first sample, 4 bounces x 48
+   instances);
 4. each main path: the first frames of a job file loaded through the
    port's job model and rendered by the backend at 512x512, 8 spp, 4
    bounces. The launch counts are zeroed just before each path and read
@@ -57,9 +66,12 @@ two. Phases, each of which raises (exit code 1) if its check fails:
    the wavefront tier's image of the same frame (atol 1e-5, the bit-equal
    share printed) and the megakernel's PNG, and every other frame of
    its first window against the wavefront tier's image too; a scan path's
-   unit kernels each once per sample and bounce, and its frame against the
-   scan tier's render with the plain versions on the card (the bit-equal
-   share printed);
+   unit kernels each once per sample and bounce (the single-BVH ones once
+   per instance too), and its frame against the scan tier's render with the
+   plain versions on the card (the deep scan: both renders of frame 1 at
+   128x128, 2 spp; the bit-equal share printed); the per-instance scan's frame 1
+   against the instanced scan's of this run (never rendered with the plain
+   versions: their walks take seconds per launch);
 5. timings: each path's per-frame phases and frames/s and a breakdown of
    one frame; each megakernel's time (its wrapper's calls, CUDA events, the
    median of 10 batches of 20) beside its bound, its plain version's time
@@ -70,15 +82,17 @@ two. Phases, each of which raises (exit code 1) if its check fails:
    refill, scatter), its bound from the plain version's work counters on
    the whole launch, and the pool path's frames/s beside the wavefront's;
    each unit kernel at the four launches of frame 1's first sample (262,144
-   rays), its bound from its plain version's counters on the bounce-0
-   launch, and each scan path's frames/s and split of a frame beside the
-   megakernel and wavefront paths of the same run;
+   rays; a single-BVH kernel: the 48 of its bounce 0), its bound from its
+   plain version's counters on the bounce-0 launch (instance 0's), and each
+   scan path's frames/s and split of a frame beside the megakernel,
+   wavefront and instanced scan paths of the same run;
 6. under torch.profiler (reported, not checked: the numbers read "not
    measured" where the profiler sees no device time, or misses a launch of
    the kernel after three tries): each kernel's own device time apart from
    its wrapper's set-up work, and the card's idle share over two frames of
-   each main path, or one window of a pool path (busy: the sum of the
-   device's own events; a scan path's also split by unit kernel).
+   each main path, or one window of a pool path, or one 128x128 frame at 2
+   spp of the per-instance scan (busy: the sum of the device's own events;
+   a scan path's also split by unit kernel).
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -138,16 +152,32 @@ BOUNCE_RAY_BYTES = 3 * 12 + 1 + 4 + 4 * 12 + 1
 POOL_RAY_BYTES = BOUNCE_RAY_BYTES + 3 * 4
 # The unit kernels of the bounce scan read origin and direction (24) and
 # their per-ray input (the seed t: 4, already: 1) and write t and index (8),
-# the any-hit (1), or t, triangle row and instance (12). The any-hit over the
-# instances reads a lane's origin and direction only where it walks
-# (``already`` unset): ``unit_bound`` adds those 24 bytes per walking lane.
-UNIT_KERNELS = ("intersect_spheres", "occluded_spheres", "intersect_instances", "occluded_instances")
+# the any-hit (1), t, triangle row and instance (12), or t and triangle row
+# (8). The any-hits over the instances or one BVH read a lane's origin and
+# direction only where it walks (``already`` unset): ``unit_bound`` adds
+# those 24 bytes per walking lane.
+SPHERE_UNITS = ("intersect_spheres", "occluded_spheres")
+INSTANCE_UNITS = ("intersect_instances", "occluded_instances")
+BVH_UNITS = ("intersect_mesh", "occluded_mesh")  # once per instance: the per-instance scan
+UNIT_KERNELS = SPHERE_UNITS + INSTANCE_UNITS + BVH_UNITS
 UNIT_RAY_BYTES = {
     "intersect_spheres": 24 + 8,
     "occluded_spheres": 24 + 1,
     "intersect_instances": 24 + 4 + 12,
     "occluded_instances": 1 + 1,
+    "intersect_mesh": 24 + 4 + 8,
+    "occluded_mesh": 1 + 1,
 }
+DEEP_INSTANCES = 48  # 03_physics-2-mesh's icospheres: a BVH unit kernel's launches per query
+# The scene whose scan path carries a unit kernel's numbers in the kernels line.
+UNIT_SCENE = {name: "04_very-simple" for name in SPHERE_UNITS} | {
+    name: "03_physics-2-mesh" for name in INSTANCE_UNITS + BVH_UNITS
+}
+# The deep scan's frame 1 is held against its plain render at this size and
+# sample count: the plain instance walks take 3-5 s per call on the card at
+# 65,536 or 262,144 rays alike (a Python sweep over 48 instances x 39
+# nodes), so the calls, not the rays, set the plain render's time.
+PLAIN_SCAN_SIDE, PLAIN_SCAN_SAMPLES = 128, 2
 
 SPHERE_JOB = "blender-projects/04_very-simple/04_very-simple_demo_10f-1w.toml"
 DEEP_JOB = "blender-projects/03_physics-2/03_physics-2-mesh_240f-8w_tpu-batch_tpu-raytrace.toml"
@@ -161,14 +191,23 @@ class MainPath(NamedTuple):
     wavefront: str | None  # the backend's options
     raypool: str | None = None
     bounce_scan: bool = False
+    per_instance: bool = False
 
     @property
     def launched(self) -> tuple[str, ...]:
-        """The kernels the path launches: a scan path's unit kernels (the
-        instanced ones only for a mesh scene), else its one kernel."""
+        """The kernels the path launches: a scan path's unit kernels (for a
+        mesh scene also the instanced ones, or with ``per_instance`` the
+        single-BVH ones), else its one kernel."""
         if not self.bounce_scan:
             return (self.kernel,)
-        return UNIT_KERNELS if self.scene.endswith("-mesh") else UNIT_KERNELS[:2]
+        if not self.scene.endswith("-mesh"):
+            return SPHERE_UNITS
+        return SPHERE_UNITS + (BVH_UNITS if self.per_instance else INSTANCE_UNITS)
+
+    def launches_per_step(self, name: str) -> int:
+        """A scan path's launches of unit kernel ``name`` per sample and
+        bounce: one per instance for a single-BVH kernel, else one."""
+        return DEEP_INSTANCES if name in BVH_UNITS else 1
 
 
 PATHS = [
@@ -184,7 +223,12 @@ PATHS = [
     MainPath("pool_sphere_bounce", SPHERE_JOB, "04_very-simple", 2, None, "force"),
     MainPath("bounce_scan 03_physics-2-mesh", DEEP_JOB, "03_physics-2-mesh", 10, None, bounce_scan=True),
     MainPath("bounce_scan 04_very-simple", SPHERE_JOB, "04_very-simple", 2, None, bounce_scan=True),
+    MainPath(
+        "bounce_scan per_instance 03_physics-2-mesh", DEEP_JOB, "03_physics-2-mesh", 2, None,
+        bounce_scan=True, per_instance=True,
+    ),
 ]
+INSTANCED_SCAN = "bounce_scan 03_physics-2-mesh"  # the per-instance scan's comparison
 MEGAKERNELS = ("trace_fused", "trace_fused_mesh")
 POOLS = ("pool_mesh_bounce", "pool_sphere_bounce")
 REPLACES = {
@@ -198,6 +242,8 @@ REPLACES = {
     "occluded_instances": "tpu_render_cluster/render/pallas_kernels.py:1926",
     "intersect_spheres": "tpu_render_cluster/render/pallas_kernels.py:447",
     "occluded_spheres": "tpu_render_cluster/render/pallas_kernels.py:533",
+    "intersect_mesh": "tpu_render_cluster/render/pallas_kernels.py:1291",
+    "occluded_mesh": "tpu_render_cluster/render/pallas_kernels.py:1444",
 }
 BOUNCE_TOLERANCE = (
     "rtol=atol=1e-4 per ray on contribution, origin, direction and throughput, alive exact; "
@@ -220,6 +266,11 @@ TOLERANCE = {
         "but max(1, round(0.001 R)) exact-tie rays"
     ),
     "occluded_instances": "equal on every ray but max(1, round(0.001 R)) edge-tie rays",
+    "intersect_mesh": (
+        "t within rtol=atol=1e-4 on every ray; triangle row equal on every hit ray but "
+        "max(1, round(0.001 R)) exact-tie rays"
+    ),
+    "occluded_mesh": "equal on every ray but max(1, round(0.001 R)) edge-tie rays",
 }
 
 
@@ -528,6 +579,37 @@ def job_frames(path: MainPath):
     return job, frames
 
 
+def frame_input_parity(device) -> None:
+    """Phase 3's check that the card renders from the CPU's inputs: for
+    every frame of every main path, the scene, the camera, the mesh
+    instances and the primary rays of the three ray builders
+    (``render/parity.py`` ``frame_inputs``) at the main paths' 512x512, the
+    flattened builder at 2 samples (the first two of its 8: its rays are
+    sample-major), on the card against the CPU's, bit for bit: no element
+    may differ."""
+    from tpu_render_cluster_torch.render import parity
+
+    frames = sorted({(path.scene, frame) for path in PATHS for frame in job_frames(path)[1]})
+    differing: dict[str, int] = {}
+    elements = 0
+    for scene_name, frame in frames:
+        card, host = (
+            parity.frame_inputs(scene_name, frame, where, width=WIDTH, height=HEIGHT, samples=2)
+            for where in (device, "cpu")
+        )
+        for name, count in parity.differing_elements(card, host).items():
+            differing[name] = differing.get(name, 0) + count
+        elements += sum(t.numel() for t in host.values())
+    total = sum(differing.values())
+    scenes = sorted({scene_name for scene_name, _ in frames})
+    print(
+        f"[3] frame inputs on the card vs the CPU, bit for bit: {len(frames)} frames of "
+        f"{scenes}, {len(differing)} kinds of tensor, {elements} elements: {total} differ"
+        + ("" if total == 0 else f" ({ {k: v for k, v in differing.items() if v} })")
+    )
+    check(total == 0, f"{total} elements of the frame inputs differ between the card and the CPU")
+
+
 def pool_launch_roles(launches, window) -> dict:
     """The launches of one window that phase 3 checks, by role: the first;
     for each boundary between frames f - 1 and f, the first launch whose
@@ -659,7 +741,7 @@ def drive_main_path(path: MainPath, device) -> dict:
     if pool:
         label += " (ray pool" + ("" if path.raypool is None else f", raypool={path.raypool}") + ")"
     if path.bounce_scan:
-        label += " (bounce scan)"
+        label += " (bounce scan, per instance)" if path.per_instance else " (bounce scan)"
     wavefront = path.kernel not in MEGAKERNELS and not pool and not path.bounce_scan
     log: list = []  # (bounce, live, bucket) of each wavefront launch
     pool_log: list = []  # the host's iteration index of each pool launch
@@ -669,7 +751,7 @@ def drive_main_path(path: MainPath, device) -> dict:
             base_directory=base, wavefront=path.wavefront, raypool=path.raypool,
             on_launch=lambda launch: log.append(tuple(launch[:3])),
             on_iteration=lambda launch: pool_log.append(launch.iteration),
-            bounce_scan=path.bounce_scan,
+            bounce_scan=path.bounce_scan, per_instance=path.per_instance,
         )
         check(backend.device.type == "cuda", f"backend chose {backend.device}")
         if not pool and not path.bounce_scan:
@@ -697,13 +779,13 @@ def drive_main_path(path: MainPath, device) -> dict:
         launches = dict(kernels.counts)
         windows = list(backend.pool_stats)
         print(f"[4] main path: {len(frames)} frames of {job.job_name} in {path_s:.4f} s; counts {launches}")
-        if path.bounce_scan:  # each unit kernel once per sample and bounce
+        if path.bounce_scan:  # each unit kernel once per sample and bounce (and instance)
             expected_launches = len(frames) * SAMPLES * BOUNCES
         else:
             expected_launches = len(log) if wavefront else len(pool_log) if pool else len(frames)
         check(expected_launches >= len(frames), f"{label}: {len(log)} wavefront launches")
         for name, count in launches.items():
-            expected = expected_launches if name in path.launched else 0
+            expected = expected_launches * path.launches_per_step(name) if name in path.launched else 0
             check(count == expected, f"{job.job_name}: {name} ran {count} times, not {expected}")
         if wavefront:
             starts = [i for i, entry in enumerate(log) if entry[0] == 0] + [len(log)]
@@ -748,7 +830,12 @@ def drive_main_path(path: MainPath, device) -> dict:
         def two_frames():
             profiled_frames[:] = [asyncio.run(backend.render_frame(job, f)) for f in frames[:2]]
 
-        frame_profile = None if pool else profiled(two_frames, path.launched, f"{label} frames")
+        # A per-instance scan frame runs about 140,000 device operations: its
+        # idle share comes from one smaller frame (per_instance_record).
+        frame_profile = (
+            None if pool or path.per_instance
+            else profiled(two_frames, path.launched, f"{label} frames")
+        )
         if frame_profile is not None:
             render_ms = sum(
                 (t.finished_rendering_at - t.started_rendering_at) * 1e3 for t in profiled_frames
@@ -1354,14 +1441,14 @@ def unit_agreement(name: str, args: tuple, got, stats: dict | None = None) -> di
         equal = torch.stack([a == b for a, b in zip(got, expected)]).all(dim=0)
         err = (got[0] - expected[0]).abs().max().item()
         bad, budget = int((~t_close | ids_differ).sum()), 0
-        if name == "intersect_instances":  # t on every ray, the ids but exact ties
+        if name in ("intersect_instances", "intersect_mesh"):  # t on every ray, the ids but exact ties
             bad, budget = int(ids_differ.sum()), max(1, round(0.001 * rays))
             check(bool(t_close.all()), f"{name}: t outside 1e-4 on {int((~t_close).sum())} rays")
     else:
         equal = got == expected
         err = float(not bool(equal.all()))
         bad = int((~equal).sum())
-        budget = max(1, round(0.001 * rays)) if name == "occluded_instances" else 0
+        budget = max(1, round(0.001 * rays)) if name in ("occluded_instances", "occluded_mesh") else 0
     return {
         "rays": rays, "bad": bad, "budget": budget, "bit_equal": equal.float().mean().item(),
         "err": err, "plain_ms": plain_ms,
@@ -1372,10 +1459,10 @@ def unit_bound(name: str, stats: dict, rays: int) -> dict:
     """The least time of one unit-kernel launch's work, as counted by its
     plain version: every real sphere tested per ray (nearest hit), the
     sphere tests up to each ray's first occluder (any-hit), or the mesh
-    walk's counters (an instance search counted as a two-level walk).
-    The any-hit over the instances reads a lane's origin and direction only
-    where it walks (``already`` unset); any other lane reads and writes its
-    one byte."""
+    walk's counters (an instance search counted as a two-level walk; one
+    BVH: its node and triangle tests). The any-hits over the instances or
+    one BVH read a lane's origin and direction only where it walks
+    (``already`` unset); any other lane reads and writes its one byte."""
     bytes_moved = rays * UNIT_RAY_BYTES[name]
     if name == "intersect_spheres":
         operations = OPS_NEAREST_SPHERE * stats["spheres"] * stats["rays"]
@@ -1385,6 +1472,8 @@ def unit_bound(name: str, stats: dict, rays: int) -> dict:
         operations = 0.0
     if name == "occluded_instances":
         bytes_moved += 24 * stats["broadphase_rays"]
+    elif name == "occluded_mesh":
+        bytes_moved += 24 * stats["walking_rays"]
     return bound(stats, bytes_moved, sphere_operations=operations)
 
 
@@ -1392,18 +1481,20 @@ def scan_kernels_vs_plain(path: MainPath, device) -> dict:
     """Phase 3 for a scan path's unit kernels: frame 1 of its job through the
     scan tier at CHECK_SIDE x CHECK_SIDE x CHECK_SAMPLES spp, every launch
     of each unit kernel again through its plain version on the launch's own
-    inputs. Returns per kernel the launches checked, the lowest agreeing
-    share and the max abs error."""
+    inputs (the per-instance scan's single-BVH kernels: every launch of the
+    first sample, BOUNCES x DEEP_INSTANCES each). Returns per kernel the
+    launches checked, the lowest agreeing share and the max abs error."""
     import torch
 
     from tpu_render_cluster_torch.render import integrator
 
     _, frames = job_frames(path)
     log: list = []
-    with recording(log):
+    keep = BOUNCES * DEEP_INSTANCES if path.per_instance else None
+    with recording(log, keep=keep):
         integrator.render_frame(
             path.scene, frames[0], width=CHECK_SIDE, height=CHECK_SIDE, samples=CHECK_SAMPLES,
-            max_bounces=BOUNCES, device=device, bounce_scan=True,
+            max_bounces=BOUNCES, device=device, bounce_scan=True, per_instance=path.per_instance,
         )
     torch.cuda.synchronize()
     results: dict[str, list] = {name: [] for name in path.launched}
@@ -1414,7 +1505,8 @@ def scan_kernels_vs_plain(path: MainPath, device) -> dict:
         results[name].append(result)
     summary = {}
     for name, checked in results.items():
-        check(len(checked) == CHECK_SAMPLES * BOUNCES, f"{name}: {len(checked)} launches in the scan")
+        launches = CHECK_SAMPLES * BOUNCES * path.launches_per_step(name)
+        check(len(checked) == min(launches, keep or launches), f"{name}: {len(checked)} launches in the scan")
         summary[name] = {
             "launches": len(checked),
             "agree": min(1 - r["bad"] / r["rays"] for r in checked),
@@ -1422,7 +1514,8 @@ def scan_kernels_vs_plain(path: MainPath, device) -> dict:
         }
         print(
             f"[3] {name} vs plain, {path.scene} frame {frames[0]} through the bounce scan at "
-            f"{CHECK_SIDE}x{CHECK_SIDE}x{CHECK_SAMPLES} spp: every launch ({len(checked)}, "
+            f"{CHECK_SIDE}x{CHECK_SIDE}x{CHECK_SAMPLES} spp: "
+            f"{'every launch' if len(checked) == launches else 'every launch of sample 0'} ({len(checked)}, "
             f"{checked[0]['rays']} rays each); worst {max(r['bad'] for r in checked)} rays outside "
             f"the tolerance (budget {checked[0]['budget']}), lowest bit-equal share "
             f"{min(r['bit_equal'] for r in checked):.6f}, max abs err {summary[name]['max_abs_err']:.3g}"
@@ -1430,11 +1523,11 @@ def scan_kernels_vs_plain(path: MainPath, device) -> dict:
     return summary
 
 
-def scan_breakdown(run: dict, device) -> None:
+def scan_breakdown(run: dict, device) -> dict[str, float]:
     """Phase 5's split of one frame of a scan path, each step fenced by a
     synchronize: scene+camera (and instances), the samples' jittered rays,
     their traces (``trace_paths_scan``: the unit kernels and the eager glue
-    around them), mean+tonemap+copy, png."""
+    around them), mean+tonemap+copy, png. Returns each step's median ms."""
     import torch
 
     from tpu_render_cluster_torch.render import integrator, rng
@@ -1467,7 +1560,8 @@ def scan_breakdown(run: dict, device) -> None:
             marks.append(time.perf_counter())
             total = sum(
                 integrator.trace_paths_scan(
-                    scene, *rays[s], rng.split(keys[s])[1], max_bounces=BOUNCES, mesh=mesh
+                    scene, *rays[s], rng.split(keys[s])[1], max_bounces=BOUNCES, mesh=mesh,
+                    per_instance=run["path"].per_instance,
                 )
                 for s in range(SAMPLES)
             )
@@ -1479,10 +1573,12 @@ def scan_breakdown(run: dict, device) -> None:
             marks.append(time.perf_counter())
             for key, a, b in zip(steps, marks, marks[1:]):
                 steps[key].append((b - a) * 1e3)
+    medians = {k: statistics.median(v) for k, v in steps.items()}
     print(
         f"[5] {run['label']} one frame, median ms: "
-        + ", ".join(f"{k} {statistics.median(v):.3f}" for k, v in steps.items())
+        + ", ".join(f"{k} {v:.3f}" for k, v in medians.items())
     )
+    return medians
 
 
 def scan_record(run: dict, runs: dict, device) -> dict[str, dict]:
@@ -1499,24 +1595,33 @@ def scan_record(run: dict, runs: dict, device) -> dict[str, dict]:
     from tpu_render_cluster_torch.render import integrator, kernels
 
     path, frames = run["path"], run["frames"]
-    render = lambda: integrator.render_frame(  # noqa: E731
-        path.scene, frames[0], width=WIDTH, height=HEIGHT, samples=SAMPLES, max_bounces=BOUNCES,
-        device=device, bounce_scan=True,
-    )
+
+    def render(side: int = WIDTH, samples: int = SAMPLES):
+        return integrator.render_frame(
+            path.scene, frames[0], width=side, height=side, samples=samples,
+            max_bounces=BOUNCES, device=device, bounce_scan=True,
+        )
+
+    # The deep scan's plain render at PLAIN_SCAN_SIDE and PLAIN_SCAN_SAMPLES,
+    # against the kernels' render of the same frame; the sphere scan's at
+    # the main path's size, against its PNG.
+    size = (PLAIN_SCAN_SIDE, PLAIN_SCAN_SAMPLES) if path.scene.endswith("-mesh") else (WIDTH, SAMPLES)
     out: list = []
     with plain_versions():
-        plain_frame_ms = cuda_ms(lambda: out.append(render()), 1)
+        plain_frame_ms = cuda_ms(lambda: out.append(render(*size)), 1)
     plain_image = integrator.tonemap(out[0]).cpu()
-    image = run["images"][0]
+    image = run["images"][0] if size == (WIDTH, SAMPLES) else integrator.tonemap(render(*size)).cpu()
     within = within_one(image, plain_image)
     print(
-        f"[4] {run['label']} frame {frames[0]}: PNG vs the scan tier's render with the plain "
-        f"versions on the card ({plain_frame_ms:.1f} ms): {within:.6f} of uint8 values within 1, "
+        f"[4] {run['label']} frame {frames[0]}"
+        f"{': PNG' if size == (WIDTH, SAMPLES) else f' at {size[0]}x{size[0]}, {size[1]} spp: the kernels render'} "
+        f"vs the scan tier's render with the plain versions on the card ({plain_frame_ms:.1f} ms): "
+        f"{within:.6f} of uint8 values within 1, "
         f"{(image == plain_image).float().mean().item():.6f} bit-equal"
     )
     check(within >= 0.995, f"{run['label']}: frame disagrees with the plain scan render ({within})")
     other = runs["trace_fused" if path.scene == "04_very-simple" else "mesh_bounce"]
-    mean_diff = (image.float() - other["images"][0].float()).abs().mean().item()
+    mean_diff = (run["images"][0].float() - other["images"][0].float()).abs().mean().item()
     print(
         f"[4] {run['label']} frame {frames[0]} vs the {other['label']} path's PNG (other random "
         f"numbers: threefry against the kernels' PCG; reported, not checked): mean |uint8 "
@@ -1571,7 +1676,8 @@ def scan_record(run: dict, runs: dict, device) -> dict[str, dict]:
             f"version {result['plain_ms']:.3f} ms; {describe_bound(least)}; work: {stats}"
         )
         record[name] = {
-            "scene": path.scene, "rays": result["rays"], "launches": run["launches"][name],
+            "path": run["label"], "scene": path.scene, "rays": result["rays"],
+            "launches": run["launches"][name],
             "launches_per_frame": run["launches"][name] / len(run["frames"]),
             "ms": per_bounce[0], "per_bounce_ms": per_bounce, "host_ms": wrapper_host_ms,
             "kernel_only_ms": kernel_only_ms, "frames_kernel_only_ms": frames_alone_ms,
@@ -1588,21 +1694,132 @@ def scan_record(run: dict, runs: dict, device) -> dict[str, dict]:
     return record
 
 
-def unit_entry(name: str, records: dict, checks: dict, build_s: float) -> dict:
+def per_instance_record(run: dict, runs: dict, device) -> dict[str, dict]:
+    """Phases 4-6 for the per-instance scan path after its run: frame 1
+    against the instanced scan's frame 1 (rows 7 and 8) of this run; the
+    per-frame phases, a frame's split and frames/s beside the instanced
+    scan's; rows 9 and 10 at the DEEP_INSTANCES launches of bounce 0 of
+    frame 1's first sample (262,144 rays each): ms per call (CUDA events,
+    the mean over those launches), host ms per call, alone (profiler), and
+    the bound and the plain version's ms of instance 0's launch; the card's
+    idle share over one 128x128 frame at 2 spp under the profiler (a
+    512x512 frame runs about 140,000 device operations). The path's frames
+    are not rendered with the plain versions: the plain walks take seconds
+    per launch."""
+    import torch
+
+    from tpu_render_cluster_torch.render import integrator, kernels
+
+    path, frames = run["path"], run["frames"]
+    instanced = runs[INSTANCED_SCAN]
+    image, other = run["images"][0], instanced["images"][0]
+    within = within_one(image, other)
+    print(
+        f"[4] {run['label']} frame {frames[0]} PNG vs the {instanced['label']} path's (rows 7 "
+        f"and 8), this run: {within:.6f} of uint8 values within 1, "
+        f"{(image == other).float().mean().item():.6f} bit-equal"
+    )
+    check(within >= 0.995, f"{run['label']}: frame disagrees with the instanced scan's ({within})")
+    phase_times(run, device, breakdown=False)
+    split = scan_breakdown(run, device)
+    fps = len(frames) / run["path_s"]
+    instanced_fps = len(instanced["frames"]) / instanced["path_s"]
+    print(f"[5] {run['label']}: {fps:.3f} frames/s over the job; in this run {instanced['label']} {instanced_fps:.3f}")
+
+    def render(side: int = WIDTH, samples: int = SAMPLES):
+        return integrator.render_frame(
+            path.scene, frames[0], width=side, height=side, samples=samples,
+            max_bounces=BOUNCES, device=device, bounce_scan=True, per_instance=True,
+        )
+
+    small = profiled(
+        lambda: render(128, 2), path.launched, f"{run['label']} one 128x128 frame at 2 spp"
+    )
+    if small is not None:
+        own = ", ".join(f"{k} {v:.3f}" for k, v in small["per_kernel"].items())
+        print(
+            f"[6] {run['label']}, one 128x128 frame at 2 spp under the profiler (a 512x512 "
+            f"frame at {SAMPLES} spp runs about 140,000 device operations, too many to "
+            f"profile here): wall {small['wall_ms']:.3f} ms, device busy {small['device_ms']:.3f} "
+            f"ms ({small['kernels']} device operations; {own} ms); device idle "
+            f"{1 - small['device_ms'] / small['wall_ms']:.4f}"
+        )
+    log: list = []
+    with recording(log, keep=DEEP_INSTANCES):  # bounce 0 of sample 0
+        render()
+    torch.cuda.synchronize()
+    record = {}
+    for name in BVH_UNITS:
+        launches = [(args, got) for entry, args, got in log if entry == name]
+        check(len(launches) == DEEP_INSTANCES, f"{name}: {len(launches)} launches at bounce 0")
+        wrapper = getattr(kernels, name)
+        calls = lambda wrapper=wrapper, launches=launches: [wrapper(*a) for a, _ in launches]  # noqa: E731
+        cuda_ms(calls, 1)
+        ms = statistics.median(cuda_ms(calls, 3) for _ in range(5)) / DEEP_INSTANCES
+        call_host_ms = host_ms(calls, 3) / DEEP_INSTANCES
+        args, got = launches[0]
+        stats: dict = {}
+        result = unit_agreement(name, args, got, stats=stats)
+        check(result["bad"] <= result["budget"], f"{name} at full size: {result['bad']} rays")
+        least = unit_bound(name, stats, result["rays"])
+        alone = profiled(calls, name, f"{name}, the {DEEP_INSTANCES} bounce-0 calls")
+        kernel_only_ms = None if alone is None else alone["kernel_ms"] / alone["launched"]
+        frame_alone_ms = (
+            None if small is None
+            else small["per_kernel"][name] / (2 * BOUNCES * DEEP_INSTANCES)
+        )
+        print(
+            f"[5] {name} on {path.scene} frame {frames[0]}, sample 0, bounce 0, {result['rays']} "
+            f"rays per launch: {ms:.4f} ms per launch (CUDA events, the mean over the "
+            f"{DEEP_INSTANCES} launches, median of 5 batches); host {call_host_ms:.4f} ms per "
+            f"call; alone {'not measured' if kernel_only_ms is None else f'{kernel_only_ms:.4f} ms'} "
+            f"(the mean over the 128x128 frame's launches "
+            f"{'not measured' if frame_alone_ms is None else f'{frame_alone_ms:.4f} ms'}); plain "
+            f"version {result['plain_ms']:.3f} ms (instance 0); {describe_bound(least)}; work "
+            f"(instance 0): {stats}"
+        )
+        record[name] = {
+            "path": run["label"], "scene": path.scene, "rays": result["rays"],
+            "launches": run["launches"][name],
+            "launches_per_frame": run["launches"][name] / len(frames),
+            "ms": ms, "per_bounce_ms": [ms], "host_ms": call_host_ms,
+            "kernel_only_ms": kernel_only_ms, "frames_kernel_only_ms": frame_alone_ms,
+            "plain_ms": result["plain_ms"],
+            "bound_ms": least["ms"], "bound_by": least["by"],
+            "bound_flat_sweep_ms": least["flat_ms"], "world_aabb_share": least["world_aabb_share"],
+            "max_abs_err": result["err"], "frames_per_s": fps,
+        }
+    # Per launch: the kernel alone where the profiler saw it, else the call.
+    alone = all(r["kernel_only_ms"] is not None for r in record.values())
+    per_launch = sum(r["kernel_only_ms"] if alone else r["ms"] for r in record.values())
+    kernel_ms = SAMPLES * BOUNCES * DEEP_INSTANCES * per_launch
+    print(
+        f"[5] {run['label']}: rows 9 and 10 take about {kernel_ms:.3f} ms of a frame's "
+        f"{split['trace']:.3f} ms trace ({SAMPLES * BOUNCES * DEEP_INSTANCES} launches of each at "
+        f"bounce 0's mean {'alone' if alone else 'per call'}); the glue (object-space "
+        f"transforms, gathers, selects) about {1 - kernel_ms / split['trace']:.3f} of it"
+    )
+    return record
+
+
+def unit_entry(name: str, records: dict, runs: dict, checks: dict, build_s: float) -> dict:
     """The kernels line's entry of a unit kernel: its numbers on the scan
-    path that carries it (rows 11 and 12 on 04_very-simple's 64 spheres,
-    with 03_physics-2-mesh's beside them), its launches summed over both
-    scan paths."""
-    carrying = [records[scene][name] for scene in records if name in records[scene]]
-    main = next(r for r in carrying if r["scene"] == ("03_physics-2-mesh" if "instances" in name else "04_very-simple"))
+    path of UNIT_SCENE[name] that times it (rows 11 and 12 on
+    04_very-simple's 64 spheres, the deep scan's beside them), its launches
+    summed over every scan path."""
+    timed = {key: numbers[name] for key, numbers in records.items() if name in numbers}
+    main = next(r for r in timed.values() if r["scene"] == UNIT_SCENE[name])
+    checked = [c[name] for c in checks.values() if name in c]
     entry = {
         "name": name,
         "route": "cuda",
         "source": f"tpu_render_cluster_torch/render/csrc/{name}.cu",
         "replaces": REPLACES[name],
-        "launches": sum(r["launches"] for r in carrying),
+        "launches": sum(
+            run["launches"].get(name, 0) for run in runs.values() if run["path"].bounce_scan
+        ),
         "launches_per_frame": main["launches_per_frame"],
-        "max_abs_err": max([r["max_abs_err"] for r in carrying] + [c[name]["max_abs_err"] for c in checks.values() if name in c]),
+        "max_abs_err": max([r["max_abs_err"] for r in timed.values()] + [c["max_abs_err"] for c in checked]),
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
@@ -1612,14 +1829,14 @@ def unit_entry(name: str, records: dict, checks: dict, build_s: float) -> dict:
             "scene", "rays", "per_bounce_ms", "host_ms", "kernel_only_ms", "frames_kernel_only_ms",
             "bound_flat_sweep_ms", "world_aabb_share",
         )},
-        "by_scene": {
-            r["scene"]: {k: r[k] for k in (
+        "by_path": {
+            r["path"]: {k: r[k] for k in (
                 "launches", "launches_per_frame", "ms", "kernel_only_ms", "frames_kernel_only_ms", "plain_ms", "bound_ms",
                 "frames_per_s",
             )}
-            for r in carrying
+            for r in timed.values()
         },
-        "agree_fraction_min": min(c[name]["agree"] for c in checks.values() if name in c),
+        "agree_fraction_min": min(c["agree"] for c in checked),
         "tolerance": TOLERANCE[name],
         "build_s": build_s,
     }
@@ -1653,11 +1870,11 @@ def main() -> int:
     expected = sorted({kernel for path in PATHS for kernel in path.launched})
     check(sorted(libraries) == expected, f"kernels {sorted(libraries)} != {expected}")
     for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"    {name}: {line.strip()}")
+        for line in _build.resource_lines(log):
+            print(f"    {name}: {line}")
 
-    # -- 3. each kernel against its plain version on the card ---------------
+    # -- 3. the frames' inputs, and each kernel against its plain version ----
+    frame_input_parity(device)
     checks = {
         "trace_fused": ("04_very-simple", "03_physics-2"),
         "trace_fused_mesh": ("02_physics-mesh", "03_physics-2-mesh"),
@@ -1673,7 +1890,7 @@ def main() -> int:
         if path.kernel in POOLS:
             pool_checks[path.kernel] = pool_kernel_vs_plain(path, device)
         elif path.bounce_scan:
-            scan_checks[path.scene] = scan_kernels_vs_plain(path, device)
+            scan_checks[path.kernel] = scan_kernels_vs_plain(path, device)
         else:
             continue
         print(f"[3] {path.kernel} checked in {time.perf_counter() - started:.1f} s")
@@ -1693,8 +1910,10 @@ def main() -> int:
         started = time.perf_counter()
         run = drive_main_path(path, device)
         runs[path.kernel] = run
-        if path.bounce_scan:
-            scan_records[path.scene] = scan_record(run, runs, device)
+        if path.per_instance:
+            scan_records[path.kernel] = per_instance_record(run, runs, device)
+        elif path.bounce_scan:
+            scan_records[path.kernel] = scan_record(run, runs, device)
         elif path.kernel in MEGAKERNELS:
             entry = megakernel_record(run, device, agree[path.kernel], max_abs_err[path.kernel], build_s)
         elif path.kernel in POOLS:
@@ -1708,7 +1927,7 @@ def main() -> int:
             record["kernels"].append(entry)
         print(f"[5] {run['label']} path phases 4-6 in {time.perf_counter() - started:.1f} s")
     record["kernels"] += [
-        unit_entry(name, scan_records, scan_checks, build_s) for name in UNIT_KERNELS
+        unit_entry(name, scan_records, runs, scan_checks, build_s) for name in UNIT_KERNELS
     ]
 
     print(f"[5] chip_smoke phases 1-6 in {time.perf_counter() - script_started:.1f} s")

@@ -55,6 +55,8 @@ def test_mesh_frames_match_reference(reference_renderer):
             "occluded_spheres": 0, "occluded_spheres_reference": 0,
             "intersect_instances": 0, "intersect_instances_reference": 0,
             "occluded_instances": 0, "occluded_instances_reference": 0,
+            "intersect_mesh": 0, "intersect_mesh_reference": 0,
+            "occluded_mesh": 0, "occluded_mesh_reference": 0,
         }
         assert_images_match(got.numpy(), expected)
         assert got.numpy().std() > 5.0

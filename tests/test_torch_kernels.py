@@ -129,6 +129,8 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
         "occluded_spheres": 0, "occluded_spheres_reference": 0,
         "intersect_instances": 0, "intersect_instances_reference": 0,
         "occluded_instances": 0, "occluded_instances_reference": 0,
+        "intersect_mesh": 0, "intersect_mesh_reference": 0,
+        "occluded_mesh": 0, "occluded_mesh_reference": 0,
     }
 
 

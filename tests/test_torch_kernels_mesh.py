@@ -194,6 +194,8 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
         "occluded_spheres": 0, "occluded_spheres_reference": 0,
         "intersect_instances": 0, "intersect_instances_reference": 0,
         "occluded_instances": 0, "occluded_instances_reference": 0,
+        "intersect_mesh": 0, "intersect_mesh_reference": 0,
+        "occluded_mesh": 0, "occluded_mesh_reference": 0,
     }
 
 
@@ -266,9 +268,9 @@ def test_build_digest_covers_shared_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", csrc / "build")
     assert _build.sources() == [
-        "intersect_instances", "intersect_spheres", "mesh_bounce", "occluded_instances",
-        "occluded_spheres", "pool_mesh_bounce", "pool_sphere_bounce", "sphere_bounce",
-        "trace_fused", "trace_fused_mesh",
+        "intersect_instances", "intersect_mesh", "intersect_spheres", "mesh_bounce",
+        "occluded_instances", "occluded_mesh", "occluded_spheres", "pool_mesh_bounce",
+        "pool_sphere_bounce", "sphere_bounce", "trace_fused", "trace_fused_mesh",
     ]
     before = {name: _build.library_path(name) for name in _build.sources()}
     header = csrc / "path_common.cuh"

@@ -7,6 +7,10 @@ the flags, so an edited kernel or shared header is rebuilt and a stale
 library is never loaded. The build directory is listed in
 ``.gitignore``; nothing is built when this module is imported.
 
+``python -m tpu_render_cluster_torch.render._build [CSRC]`` builds every
+kernel of ``CSRC`` (default: this package's ``csrc/``) into ``CSRC/build``
+and prints what ptxas reports of each: registers, stack, spills.
+
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3``, no ``--use_fast_math``
 (the kernels keep IEEE sqrt, division, sin and cos for parity with the
 plain versions), and ``--fmad=false``: the kernels write out the fused
@@ -21,7 +25,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
+import time
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -113,3 +119,26 @@ def load(name: str) -> ctypes.CDLL:
             library = ctypes.CDLL(str(build([name])[name]))
             _libraries[name] = library
         return library
+
+
+def resource_lines(log: str) -> list[str]:
+    """The lines of a ptxas report that give registers, stack and spills."""
+    return [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
+
+
+def main(argv: list[str]) -> int:
+    global CSRC_DIR, BUILD_DIR
+    if argv:
+        CSRC_DIR = Path(argv[0]).resolve()
+        BUILD_DIR = CSRC_DIR / "build"
+    started = time.perf_counter()
+    build()
+    print(f"built {len(build_logs)} kernels of {CSRC_DIR} in {time.perf_counter() - started:.2f} s")
+    for name, log in sorted(build_logs.items()):
+        for line in resource_lines(log):
+            print(f"  {name}: {line}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,7 +1,10 @@
 """Pinhole camera: frame-animated orbit, pixel-grid ray generation.
 
 Port of ``tpu_render_cluster/render/camera.py``; float32 throughout, in the
-reference's order of operations.
+reference's order of operations. A camera is computed on the host and copied
+to the render device (``scene.on_device``), so the card's rays start from
+the CPU's camera bit for bit; the rays themselves are computed on the
+device.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ import numpy as np
 import torch
 
 from tpu_render_cluster_torch.render.fp32 import dot3, fma
+from tpu_render_cluster_torch.render.fp32 import sqrt as fp32_sqrt
+from tpu_render_cluster_torch.render.scene import on_device
 
 _F32 = torch.float32
 
@@ -41,6 +46,12 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def look_at_camera(origin, target, *, fov_degrees: float = 45.0, device="cpu") -> Camera:
+    """The camera at ``origin`` looking at ``target``, on ``device``
+    (computed on the host)."""
+    return on_device(_look_at_on(origin, target, fov_degrees, "cpu"), device)
+
+
+def _look_at_on(origin, target, fov_degrees: float, device) -> Camera:
     origin = torch.as_tensor(origin, dtype=_F32, device=device)
     target = torch.as_tensor(target, dtype=_F32, device=device)
     forward = target - origin
@@ -56,7 +67,13 @@ def look_at_camera(origin, target, *, fov_degrees: float = 45.0, device="cpu") -
 
 
 def scene_camera(scene_name: str, frame, device="cpu") -> Camera:
-    """Default camera per scene family; orbits slowly for animation scenes."""
+    """Default camera per scene family; orbits slowly for animation scenes.
+    Computed on the host and copied to ``device``."""
+    return on_device(scene_camera_on(scene_name, frame, "cpu"), device)
+
+
+def scene_camera_on(scene_name: str, frame, device) -> Camera:
+    """``scene_camera``'s arithmetic carried out on ``device`` itself."""
     frame = torch.as_tensor(frame, dtype=_F32, device=device)
     if scene_name == "01_simple-animation":
         angle = frame * (2.0 * math.pi / 600.0)
@@ -67,11 +84,11 @@ def scene_camera(scene_name: str, frame, device="cpu") -> Camera:
                 9.0 * torch.sin(angle),
             ]
         )
-        return look_at_camera(origin, [0.0, 0.8, 0.0], device=device)
+        return _look_at_on(origin, [0.0, 0.8, 0.0], 45.0, device)
     if scene_name.startswith(("02_physics", "03_physics-2")):
-        return look_at_camera([10.0, 6.0, 10.0], [0.0, 1.0, 0.0], device=device)
+        return _look_at_on([10.0, 6.0, 10.0], [0.0, 1.0, 0.0], 45.0, device)
     # 04_very-simple: fixed three-quarter view of the grid.
-    return look_at_camera([8.0, 6.5, 8.0], [0.0, 0.4, 0.0], device=device)
+    return _look_at_on([8.0, 6.5, 8.0], [0.0, 0.4, 0.0], 45.0, device)
 
 
 def camera_from_arrays(arrays: dict[str, np.ndarray], device) -> Camera:
@@ -125,6 +142,6 @@ def camera_rays(
     directions = fma(
         ndc_y[..., None], camera.up, fma(ndc_x[..., None], camera.right, camera.forward)
     )
-    directions = directions / torch.sqrt(dot3(directions, directions))[..., None]
+    directions = directions / fp32_sqrt(dot3(directions, directions))[..., None]
     origins = camera.origin.expand(directions.shape)
     return origins, directions

@@ -1,12 +1,14 @@
 // Mesh-scene device code shared by the mesh path-trace kernels (the
 // megakernel trace_fused_mesh.cu, the per-bounce kernel mesh_bounce.cu, the
 // ray-pool kernel pool_mesh_bounce.cu and the bounce scan's unit kernels
-// intersect_instances.cu and occluded_instances.cu): the instance and BVH tables,
-// their staging in shared memory, the nearest hit and the shadow any-hit
-// over the rigid instances [first, first + count) of one mesh walked
-// through its threaded BVH (a frame's K instances, or a lane's own frame's
-// rows of a pool's frame-major stacked table), and the whole mesh-scene
-// bounce built from them and path_common.cuh.
+// intersect_instances.cu, occluded_instances.cu, intersect_mesh.cu and
+// occluded_mesh.cu): the instance and BVH tables, their staging in shared
+// memory, the walk of one object-space ray through the threaded BVH
+// (blas_nearest, blas_occluded), the nearest hit and the shadow any-hit over
+// the rigid instances [first, first + count) of one mesh built on it (a
+// frame's K instances, or a lane's own frame's rows of a pool's frame-major
+// stacked table), and the whole mesh-scene bounce built from them and
+// path_common.cuh.
 //
 // Walk order: instances in table order, nodes in canonical DFS preorder
 // entered at node 0, strict `<` updates of a best t seeded with the
@@ -141,6 +143,52 @@ struct MeshHit {
   int row;
 };
 
+// Nearest hit of one object-space ray (lo, ld) in the BVH of `instance`:
+// nodes in DFS preorder from node 0, each culled by its box against best.t,
+// and each triangle hit strictly nearer than best.t makes best = {t,
+// instance, row} (the first row of a leaf reaching the minimum wins).
+__device__ __forceinline__ void blas_nearest(const MeshTables& m, float3v lo, float3v ld,
+                                             int instance, MeshHit& best) {
+  const float3v linv = winv3(ld);
+  int node = 0;
+  while (node < m.n_nodes) {
+    const int4 link = m.links[node];
+    if (!node_box(m.bounds, node, lo, linv, best.t)) {
+      node = link.x;
+    } else if (link.z > 0) {
+      for (int r = link.y; r < link.y + link.z; ++r) {
+        float t;
+        if (triangle_hit(m.tris + 4 * r, lo, ld, &t) && t < best.t) best = {t, instance, r};
+      }
+      node = link.x;
+    } else {
+      node = node + 1;
+    }
+  }
+}
+
+// Any triangle of the BVH ahead of the object-space ray (lo, ld) (t > EPS,
+// unbounded)? The walk ends at the first one found.
+__device__ __forceinline__ bool blas_occluded(const MeshTables& m, float3v lo, float3v ld) {
+  const float3v linv = winv3(ld);
+  int node = 0;
+  while (node < m.n_nodes) {
+    const int4 link = m.links[node];
+    if (!node_box(m.bounds, node, lo, linv, path::kInf)) {
+      node = link.x;
+    } else if (link.z > 0) {
+      for (int r = link.y; r < link.y + link.z; ++r) {
+        float t;
+        if (triangle_hit(m.tris + 4 * r, lo, ld, &t)) return true;
+      }
+      node = link.x;
+    } else {
+      node = node + 1;
+    }
+  }
+  return false;
+}
+
 // Nearest hit over instances [first, first + count), seeded with t_seed
 // (strict < updates); `instance` is the winning row of the whole table.
 __device__ __forceinline__ MeshHit nearest(const MeshTables& m, int first, int count, float3v o,
@@ -150,24 +198,7 @@ __device__ __forceinline__ MeshHit nearest(const MeshTables& m, int first, int c
   for (int k = first; k < first + count; ++k) {
     const float* inst = m.inst + kInstanceWidth * k;
     if (!world_box(inst, o, inv, best.t)) continue;
-    const float3v lo = point_to_object(inst, o);
-    const float3v ld = to_object(inst, d.x, d.y, d.z);
-    const float3v linv = winv3(ld);
-    int node = 0;
-    while (node < m.n_nodes) {
-      const int4 link = m.links[node];
-      if (!node_box(m.bounds, node, lo, linv, best.t)) {
-        node = link.x;
-      } else if (link.z > 0) {
-        for (int r = link.y; r < link.y + link.z; ++r) {
-          float t;
-          if (triangle_hit(m.tris + 4 * r, lo, ld, &t) && t < best.t) best = {t, k, r};
-        }
-        node = link.x;
-      } else {
-        node = node + 1;
-      }
-    }
+    blas_nearest(m, point_to_object(inst, o), to_object(inst, d.x, d.y, d.z), k, best);
   }
   return best;
 }
@@ -180,23 +211,8 @@ __device__ __forceinline__ bool occluded(const MeshTables& m, int first, int cou
   for (int k = first; k < first + count; ++k) {
     const float* inst = m.inst + kInstanceWidth * k;
     if (!world_box(inst, so, inv, path::kInf)) continue;
-    const float3v lo = point_to_object(inst, so);
-    const float3v ld = to_object(inst, sun.x, sun.y, sun.z);
-    const float3v linv = winv3(ld);
-    int node = 0;
-    while (node < m.n_nodes) {
-      const int4 link = m.links[node];
-      if (!node_box(m.bounds, node, lo, linv, path::kInf)) {
-        node = link.x;
-      } else if (link.z > 0) {
-        for (int r = link.y; r < link.y + link.z; ++r) {
-          float t;
-          if (triangle_hit(m.tris + 4 * r, lo, ld, &t)) return true;
-        }
-        node = link.x;
-      } else {
-        node = node + 1;
-      }
+    if (blas_occluded(m, point_to_object(inst, so), to_object(inst, sun.x, sun.y, sun.z))) {
+      return true;
     }
   }
   return false;

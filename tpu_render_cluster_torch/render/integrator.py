@@ -21,7 +21,10 @@ TPU): samples one after another, each traced by ``trace_paths_scan``, one
 ``_shade_bounce`` per bounce in eager tensor code around four launches of
 the unit kernels (the sphere nearest hit and any-hit, the instanced nearest
 hit and any-hit), and threefry random numbers for the cosine resample, so
-it reproduces the reference's own CPU render.
+it reproduces the reference's own CPU render. With ``per_instance=True`` as
+well, the two mesh queries take the reference's own CPU structure, a scan
+over the instances, each instance one launch of the single-BVH unit kernels
+(``intersect_mesh``, ``occluded_mesh``) in place of one instanced launch.
 """
 
 from __future__ import annotations
@@ -143,7 +146,18 @@ def _up(device: torch.device) -> torch.Tensor:
     return torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=device)
 
 
-def _shade_bounce(scene: Scene, state, key: torch.Tensor, mesh: MeshSet | None = None):
+def _check_per_instance(per_instance: bool, bounce_scan: bool) -> None:
+    if per_instance and not bounce_scan:
+        raise ValueError(
+            "per_instance=True selects the scan renderer's per-instance mesh queries; "
+            "it needs bounce_scan=True (the other tiers have no instance query)"
+        )
+
+
+def _shade_bounce(
+    scene: Scene, state, key: torch.Tensor, mesh: MeshSet | None = None,
+    per_instance: bool = False,
+):
     """One bounce of the scan renderer over every lane ``state`` = (origins,
     directions, throughput [R, 3], alive [R] bool): the new (origins,
     directions, throughput), this bounce's radiance contribution [R, 3]
@@ -152,8 +166,9 @@ def _shade_bounce(scene: Scene, state, key: torch.Tensor, mesh: MeshSet | None =
     The geometry queries are the unit kernels: the sphere nearest hit and
     any-hit, and for a mesh scene the instanced nearest hit, seeded with
     the sphere/plane t, and the instanced any-hit, which skips the lanes
-    whose answer cannot matter. The mesh walks see dead lanes as rays
-    parked at 1e7 heading up, which miss every instance.
+    whose answer cannot matter (``per_instance``: both as a scan over the
+    instances). The mesh walks see dead lanes as rays parked at 1e7 heading
+    up, which miss every instance.
     """
     origins, directions, throughput, alive = state
     t, sphere_index, is_plane = geometry.intersect_scene(scene, origins, directions)
@@ -165,7 +180,7 @@ def _shade_bounce(scene: Scene, state, key: torch.Tensor, mesh: MeshSet | None =
             mesh,
             torch.where(parked, 1e7, origins),
             torch.where(parked, up, directions),
-            init_t=torch.where(alive, t, geometry.INF),
+            init_t=torch.where(alive, t, geometry.INF), per_instance=per_instance,
         )
         # A mesh miss returns the seed, which the strict < reads as not closer.
         mesh_closer = alive & (t_mesh < t)
@@ -201,7 +216,8 @@ def _shade_bounce(scene: Scene, state, key: torch.Tensor, mesh: MeshSet | None =
         # Lanes already shadowed, dead or facing away from the sun do not
         # walk; their spurious True is multiplied by cos_sun * alive = 0.
         in_shadow = occluded_instances(
-            mesh, shadow_origin, sun_dir, already=in_shadow | ~alive | (cos_sun <= 0.0)
+            mesh, shadow_origin, sun_dir, already=in_shadow | ~alive | (cos_sun <= 0.0),
+            per_instance=per_instance,
         )
     direct = albedo * scene.sun_color * (cos_sun * ~in_shadow * alive)[:, None] / math.pi
     radiance = radiance + throughput * direct
@@ -223,12 +239,14 @@ def trace_paths_scan(
     *,
     max_bounces: int,
     mesh: MeshSet | None = None,
+    per_instance: bool = False,
 ) -> torch.Tensor:
     """Trace one sample per ray through the reference's bounce scan;
     radiance [R, 3]. ``key`` is the sample's threefry trace key: bounce
     ``b`` draws its resample from ``split(key, max_bounces)[b]``. Every
     lane runs every bounce under its ``alive`` mask, in place: no sorting,
-    the contribution summed per lane."""
+    the contribution summed per lane. ``per_instance``: the mesh queries
+    as a scan over the instances (``_shade_bounce``)."""
     n = origins.shape[0]
     device = origins.device
     throughput = torch.ones((n, 3), dtype=torch.float32, device=device)
@@ -237,7 +255,7 @@ def trace_paths_scan(
     keys = rng.split(key.to(device), max_bounces)
     for bounce in range(max_bounces):
         origins, directions, throughput, contribution, alive = _shade_bounce(
-            scene, (origins, directions, throughput, alive), keys[bounce], mesh
+            scene, (origins, directions, throughput, alive), keys[bounce], mesh, per_instance
         )
         radiance = radiance + contribution
     return radiance
@@ -358,6 +376,7 @@ def render_tile(
     max_bounces: int = 4,
     mesh: MeshSet | None = None,
     bounce_scan: bool = False,
+    per_instance: bool = False,
 ) -> torch.Tensor:
     """Render a tile; returns [tile_height, tile_width, 3] linear radiance.
 
@@ -367,7 +386,10 @@ def render_tile(
     branch instead: sample ``s`` draws its jitter from ``fold_in(base_key,
     s)`` and traces through ``trace_paths_scan`` with that key's second
     split, and the samples' radiance is summed, then divided by ``samples``.
+    ``per_instance`` (with ``bounce_scan`` only) walks the instances one
+    by one.
     """
+    _check_per_instance(per_instance, bounce_scan)
     n = tile_height * tile_width
     base_key = tile_base_key(frame, y0, x0)
     if bounce_scan:
@@ -382,7 +404,7 @@ def render_tile(
             )
             total = total + trace_paths_scan(
                 scene, origins, directions, rng.split(key)[1], max_bounces=max_bounces,
-                mesh=mesh,
+                mesh=mesh, per_instance=per_instance,
             )
         return (total / samples).reshape(tile_height, tile_width, 3)
     origins, directions = flat_sample_rays(
@@ -408,9 +430,11 @@ def render_frame(
     tile_size: int | None = None,
     device: str | torch.device | None = None,
     bounce_scan: bool = False,
+    per_instance: bool = False,
 ) -> torch.Tensor:
     """Render a whole frame; returns [H, W, 3] linear radiance on ``device``
-    (``bounce_scan``: through the per-bounce scan renderer)."""
+    (``bounce_scan``: through the per-bounce scan renderer; ``per_instance``
+    as well: its mesh queries as a scan over the instances)."""
     if tile_size is not None:
         raise NotImplementedError(f"tile_size={tile_size}: {_TILES_SLICE}.")
     device = resolve_device(device)
@@ -421,6 +445,7 @@ def render_frame(
         width=width, height=height, tile_height=height, tile_width=width,
         samples=samples, max_bounces=max_bounces,
         mesh=scene_mesh_set(scene_name, frame_index, device=device), bounce_scan=bounce_scan,
+        per_instance=per_instance,
     )
 
 
@@ -434,7 +459,7 @@ def tonemap(image: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=32)
 def _fused_frame_renderer(
     scene_name: str, width: int, height: int, samples: int, max_bounces: int,
-    device: torch.device, bounce_scan: bool,
+    device: torch.device, bounce_scan: bool, per_instance: bool,
 ):
     def render(frame: int) -> torch.Tensor:
         scene = build_scene(scene_name, frame, device)
@@ -444,6 +469,7 @@ def _fused_frame_renderer(
             width=width, height=height, tile_height=height, tile_width=width,
             samples=samples, max_bounces=max_bounces,
             mesh=scene_mesh_set(scene_name, frame, device=device), bounce_scan=bounce_scan,
+            per_instance=per_instance,
         )
         return tonemap(linear)
 
@@ -458,15 +484,19 @@ def fused_frame_renderer(
     max_bounces: int,
     device: str | torch.device | None = None,
     bounce_scan: bool = False,
+    per_instance: bool = False,
 ):
     """A cached ``frame -> uint8 [H, W, 3]`` callable for one scene/config.
 
     The image stays on ``device``: the caller copies it back when it needs
     the pixels. The device resolves here (CUDA unless ``cpu`` is asked
-    for) and is part of the cache key, as is ``bounce_scan`` (the
+    for) and is part of the cache key, as are ``bounce_scan`` (the
     per-bounce scan renderer in place of the kernel dispatch of
-    ``trace_paths``).
+    ``trace_paths``) and ``per_instance`` (the scan's mesh queries walked
+    instance by instance; needs ``bounce_scan``).
     """
+    _check_per_instance(per_instance, bounce_scan)
     return _fused_frame_renderer(
-        scene_name, width, height, samples, max_bounces, resolve_device(device), bool(bounce_scan)
+        scene_name, width, height, samples, max_bounces, resolve_device(device),
+        bool(bounce_scan), bool(per_instance),
     )

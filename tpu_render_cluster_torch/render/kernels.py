@@ -1,6 +1,6 @@
 """The render path's kernels and their plain PyTorch versions.
 
-Counterpart of ``tpu_render_cluster/render/pallas_kernels.py``. Six
+Counterpart of ``tpu_render_cluster/render/pallas_kernels.py``. Twelve
 kernels, written in CUDA C++ for Hopper and built by ``_build.py``:
 
 - ``csrc/trace_fused.cu``, the sphere path-trace megakernel that replaces
@@ -25,12 +25,16 @@ kernels, written in CUDA C++ for Hopper and built by ``_build.py``:
   ``csrc/occluded_spheres.cu``, rays against the spheres (the TPU's
   ``_nearest_hit`` and ``_any_hit``), and ``csrc/intersect_instances.cu``
   and ``csrc/occluded_instances.cu``, rays against every instance of a
-  mesh (``_bvh_nearest_instanced`` and ``_bvh_anyhit_instanced``).
+  mesh (``_bvh_nearest_instanced`` and ``_bvh_anyhit_instanced``), and
+  ``csrc/intersect_mesh.cu`` and ``csrc/occluded_mesh.cu``, object-space
+  rays against one mesh's BVH (``_bvh_nearest`` and ``_bvh_anyhit``), which
+  the scan's per-instance branch launches once per instance.
 
 ``trace_paths_fused`` / ``trace_paths_fused_mesh`` / ``sphere_bounce`` /
 ``mesh_bounce`` / ``pool_sphere_bounce`` / ``pool_mesh_bounce`` and the
 unit kernels' ``intersect_spheres`` / ``occluded_spheres`` /
-``intersect_instances`` / ``occluded_instances`` launch their kernel for
+``intersect_instances`` / ``occluded_instances`` / ``intersect_mesh`` /
+``occluded_mesh`` launch their kernel for
 CUDA tensors, and raise if they cannot. For CPU tensors they run the plain
 versions (``..._reference``), which repeat the reference's arithmetic
 operation for operation; there is no fallback from one to the other.
@@ -53,6 +57,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from tpu_render_cluster_torch.render.fp32 import INV_PI, dot3, fma
+from tpu_render_cluster_torch.render.fp32 import sqrt as fp32_sqrt
 from tpu_render_cluster_torch.render.mesh import LEAF_SIZE, MeshBVH, MeshSet
 from tpu_render_cluster_torch.render.rng import MASK32
 from tpu_render_cluster_torch.render.scene import Scene
@@ -69,8 +74,8 @@ _DET_EPS = 1e-12  # Moller-Trumbore's parallel-ray threshold
 # Kernel launches ("trace_fused", "trace_fused_mesh", "sphere_bounce",
 # "mesh_bounce", "pool_sphere_bounce", "pool_mesh_bounce" and the unit kernels
 # "intersect_spheres", "occluded_spheres", "intersect_instances",
-# "occluded_instances") and plain-version calls ("..._reference") since the
-# last reset_counts().
+# "occluded_instances", "intersect_mesh", "occluded_mesh") and plain-version
+# calls ("..._reference") since the last reset_counts().
 counts = {
     "trace_fused": 0,
     "trace_fused_reference": 0,
@@ -92,6 +97,10 @@ counts = {
     "intersect_instances_reference": 0,
     "occluded_instances": 0,
     "occluded_instances_reference": 0,
+    "intersect_mesh": 0,
+    "intersect_mesh_reference": 0,
+    "occluded_mesh": 0,
+    "occluded_mesh_reference": 0,
 }
 
 
@@ -214,8 +223,10 @@ _STATE_ARGTYPES = [_PTR] * 5 + [_INT, _PTR]
 _POOL_STATE_ARGTYPES = [_PTR] * 8 + [_INT, _PTR]
 _SPHERE_ARGTYPES = [_PTR, _INT, _PTR]  # spheres, their count, params
 _POOL_SPHERE_ARGTYPES = [_PTR, _INT, _INT, _PTR]  # spheres, per frame, frames, params
-# instances, their count, triangle rows, their count, node bounds, links, nodes
-_MESH_ARGTYPES = [_PTR, _INT, _PTR, _INT, _PTR, _PTR, _INT]
+# triangle rows, their count, node bounds, links, nodes
+_BVH_ARGTYPES = [_PTR, _INT, _PTR, _PTR, _INT]
+# instances, their count, and the BVH
+_MESH_ARGTYPES = [_PTR, _INT, *_BVH_ARGTYPES]
 _OUTPUT_ARGTYPES = [_PTR] * 6
 _LAUNCH_ARGTYPES = {
     "trace_fused": [_PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _INT, _INT, _PTR, _PTR],
@@ -239,6 +250,8 @@ _LAUNCH_ARGTYPES = {
     "occluded_spheres": [_PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _PTR, _PTR],
     "intersect_instances": [_PTR, _PTR, _PTR, _INT, *_MESH_ARGTYPES, _PTR, _PTR, _PTR, _PTR],
     "occluded_instances": [_PTR, _PTR, _PTR, _INT, *_MESH_ARGTYPES, _PTR, _PTR],
+    "intersect_mesh": [_PTR, _PTR, _PTR, _INT, *_BVH_ARGTYPES, _PTR, _PTR, _PTR],
+    "occluded_mesh": [_PTR, _PTR, _PTR, _INT, *_BVH_ARGTYPES, _PTR, _PTR],
 }
 
 
@@ -416,13 +429,16 @@ def instance_entry_candidates(
     return out
 
 
-def _check_mesh(mesh: MeshSet, origins: torch.Tensor) -> None:
-    tensors = [*mesh.bvh[:-1], *mesh.instances]
-    devices = {t.device for t in tensors} | {origins.device}
+def _check_bvh(bvh: MeshBVH, origins: torch.Tensor, more: Sequence[torch.Tensor] = ()) -> None:
+    devices = {t.device for t in (*bvh[:-1], *more)} | {origins.device}
     if len(devices) != 1:
         raise ValueError(f"rays and mesh must share one device, got {devices}")
-    if mesh.bvh.v0.shape[0] % LEAF_SIZE:
+    if bvh.v0.shape[0] % LEAF_SIZE:
         raise ValueError(f"triangle rows must come in {LEAF_SIZE}-row leaf slots")
+
+
+def _check_mesh(mesh: MeshSet, origins: torch.Tensor) -> None:
+    _check_bvh(mesh.bvh, origins, mesh.instances)
 
 
 def trace_paths_fused_mesh(
@@ -469,14 +485,19 @@ def _pack_bvh(bvh: MeshBVH) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
 _bvh_operands = _IdentityCache(_pack_bvh)
 
 
+def _bvh_tables(bvh: MeshBVH) -> list:
+    """The BVH arguments of a launch (``_BVH_ARGTYPES``)."""
+    triangles, bounds, links = _bvh_operands(bvh)
+    return [
+        triangles.data_ptr(), triangles.shape[0], bounds.data_ptr(), links.data_ptr(),
+        bounds.shape[0],
+    ]
+
+
 def _mesh_tables(mesh: MeshSet) -> list:
     """The mesh arguments of a launch (``_MESH_ARGTYPES``)."""
     table = instance_operands(mesh)
-    triangles, bounds, links = _bvh_operands(mesh.bvh)
-    return [
-        table.data_ptr(), table.shape[0], triangles.data_ptr(), triangles.shape[0],
-        bounds.data_ptr(), links.data_ptr(), bounds.shape[0],
-    ]
+    return [table.data_ptr(), table.shape[0], *_bvh_tables(mesh.bvh)]
 
 
 def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces):
@@ -833,6 +854,17 @@ def _launch_pool(name, spheres, mesh_ops, state, live_count, total_bounces):
 def _check_instance_rays(mesh: MeshSet, origins, directions, row, dtype, name) -> None:
     _check_rays(mesh.instances.translation, origins, directions)
     _check_mesh(mesh, origins)
+    _check_ray_row(origins, row, dtype, name)
+
+
+def _check_bvh_rays(bvh: MeshBVH, origins, directions, row, dtype, name) -> None:
+    _check_rays(bvh.v0, origins, directions)
+    _check_bvh(bvh, origins)
+    _check_ray_row(origins, row, dtype, name)
+
+
+def _check_ray_row(origins, row, dtype, name) -> None:
+    """A per-ray input ``row``: ``dtype`` [R] on the rays' device."""
     if row.shape != (origins.shape[0],) or row.dtype != dtype or row.device != origins.device:
         raise ValueError(
             f"{name} must be {dtype} [R] on the rays' device; got {row.dtype} "
@@ -922,6 +954,43 @@ def occluded_instances(
         return hit
     if origins.device.type == "cpu":
         return occluded_instances_reference(mesh, origins, directions, already)
+    raise ValueError(f"Unsupported device {origins.device}")
+
+
+def intersect_mesh(
+    bvh: MeshBVH, origins: torch.Tensor, directions: torch.Tensor, init_t: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest hit of each object-space ray ([R, 3] float32) in one mesh's
+    BVH, seeded with ``init_t`` [R] float32 (only a hit strictly nearer
+    counts): (t [R], ``init_t`` on a miss; triangle row [R] int32, a row of
+    the BVH's tables, 0 on a miss). CUDA tensors go to the kernel, CPU
+    tensors to the plain version."""
+    _check_bvh_rays(bvh, origins, directions, init_t, torch.float32, "init_t")
+    if origins.device.type == "cuda":
+        rays, device = origins.shape[0], origins.device
+        t = torch.empty(rays, dtype=torch.float32, device=device)
+        tri = torch.empty(rays, dtype=torch.int32, device=device)
+        _launch_unit("intersect_mesh", (origins, directions, init_t), _bvh_tables(bvh), (t, tri))
+        return t, tri
+    if origins.device.type == "cpu":
+        return intersect_mesh_reference(bvh, origins, directions, init_t)
+    raise ValueError(f"Unsupported device {origins.device}")
+
+
+def occluded_mesh(
+    bvh: MeshBVH, origins: torch.Tensor, directions: torch.Tensor, already: torch.Tensor
+) -> torch.Tensor:
+    """Shadow any-hit of each object-space ray in one mesh's BVH (a
+    triangle ahead of the origin, t > ``EPS``, unbounded): bool [R], OR-ed
+    with ``already`` [R] bool, whose lanes do not walk. CUDA tensors go to
+    the kernel, CPU tensors to the plain version."""
+    _check_bvh_rays(bvh, origins, directions, already, torch.bool, "already")
+    if origins.device.type == "cuda":
+        hit = torch.empty(origins.shape[0], dtype=torch.bool, device=origins.device)
+        _launch_unit("occluded_mesh", (origins, directions, already), _bvh_tables(bvh), (hit,))
+        return hit
+    if origins.device.type == "cpu":
+        return occluded_mesh_reference(bvh, origins, directions, already)
     raise ValueError(f"Unsupported device {origins.device}")
 
 
@@ -1238,16 +1307,18 @@ def occluded_spheres_reference(
     return hit
 
 
-def _unit_mesh_stats(stats: dict | None, walk: "_MeshWalk", run):
-    """``run(stats)`` with the mesh work counters set up in ``stats`` (when
-    given) and read once at the end."""
+def _unit_mesh_stats(stats: dict | None, run, keys: tuple[str, ...] = None, **fixed):
+    """``run(stats)`` with the mesh work counters ``keys`` (default: all of
+    them) set up in ``stats`` (when given) beside the ``fixed`` entries, and
+    read once at the end."""
     if stats is None:
         return run(None)
-    for key in _MESH_STATS:
+    keys = _MESH_STATS if keys is None else keys
+    for key in keys:
         stats.setdefault(key, 0)
-    stats["instances"] = walk.table.shape[0]
+    stats.update(fixed)
     result = run(stats)
-    for key in _MESH_STATS:
+    for key in keys:
         stats[key] = int(stats[key])
     return result
 
@@ -1268,7 +1339,8 @@ def intersect_instances_reference(
     counts["intersect_instances_reference"] += 1
     walk = _MeshWalk.build(mesh)
     t, k, row = _unit_mesh_stats(
-        stats, walk, lambda stats: walk.nearest_rows(origins, directions, init_t, stats)
+        stats, lambda stats: walk.nearest_rows(origins, directions, init_t, stats),
+        instances=walk.table.shape[0],
     )
     return t, row.to(torch.int32), k.clamp_min(0).to(torch.int32)
 
@@ -1290,8 +1362,63 @@ def occluded_instances_reference(
     counts["occluded_instances_reference"] += 1
     walk = _MeshWalk.build(mesh)
     return _unit_mesh_stats(
-        stats, walk, lambda stats: walk.occluded(origins, already, stats, directions=directions)
+        stats, lambda stats: walk.occluded(origins, already, stats, directions=directions),
+        instances=walk.table.shape[0],
     )
+
+
+_BLAS_STATS = ("node_tests", "triangle_tests")
+
+
+def intersect_mesh_reference(
+    bvh: MeshBVH,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    init_t: torch.Tensor,
+    *,
+    stats: dict | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the single-BVH nearest-hit kernel, on
+    any device: the other plain versions' mesh walk over one BVH
+    (``_MeshWalk.blas_nearest``), no instance loop and no world box, seeded
+    with ``init_t``. ``stats``, when given, receives the work: the rays, the
+    node slab tests and the triangle tests."""
+    _check_bvh_rays(bvh, origins, directions, init_t, torch.float32, "init_t")
+    counts["intersect_mesh_reference"] += 1
+    walk = _blas_walks(bvh)
+    t, row = _unit_mesh_stats(
+        stats, lambda stats: walk.blas_nearest(origins, directions, init_t, stats),
+        _BLAS_STATS, rays=origins.shape[0],
+    )
+    return t, row.to(torch.int32)
+
+
+def occluded_mesh_reference(
+    bvh: MeshBVH,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    already: torch.Tensor,
+    *,
+    stats: dict | None = None,
+) -> torch.Tensor:
+    """The plain PyTorch version of the single-BVH shadow any-hit kernel,
+    on any device: ``_MeshWalk.blas_occluded`` for the lanes without
+    ``already``, the others True without walking. ``stats`` as for
+    ``intersect_mesh_reference``, with the lanes that walk."""
+    _check_bvh_rays(bvh, origins, directions, already, torch.bool, "already")
+    counts["occluded_mesh_reference"] += 1
+    walk = _blas_walks(bvh)
+    lanes = (~already).nonzero()[:, 0]
+    hit = already.clone()
+    hit[lanes] = _unit_mesh_stats(
+        stats, lambda stats: walk.blas_occluded(origins[lanes], directions[lanes], stats),
+        _BLAS_STATS, rays=origins.shape[0], walking_rays=lanes.numel(),
+    )
+    return hit
+
+
+# The plain walk of a BVH, built once per BVH.
+_blas_walks = _IdentityCache(lambda bvh: _MeshWalk.for_bvh(bvh))
 
 
 def _bounce_reference(
@@ -1467,19 +1594,19 @@ def _bounce(table, walk, o, d, throughput, radiance, alive, lane, bounce, total_
     counter = (lane * (2 * total_bounces + 2) + 2 * bounce) & MASK32
     u1 = uniform_from_hash(pcg_hash(counter ^ seed_word))[:, None]
     u2 = uniform_from_hash(pcg_hash(((counter + 1) & MASK32) ^ seed_word))[:, None]
-    r = torch.sqrt(u1)
+    r = fp32_sqrt(u1)
     phi = torch.tensor(2.0 * math.pi, dtype=torch.float32, device=device) * u2
     # cos and sin correctly rounded to float32 (through float64), as the
     # kernel computes them: the libraries' float32 versions differ in
     # the last bit for a few percent of angles.
     x = r * torch.cos(phi.double()).float()
     y = r * torch.sin(phi.double()).float()
-    z = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0))
+    z = fp32_sqrt(torch.clamp_min(1.0 - u1, 0.0))
     nx, ny, nz = normal[:, 0:1], normal[:, 1:2], normal[:, 2:3]
     helper_x = torch.where(torch.abs(nx) > 0.9, 0.0, 1.0)
     helper_y = 1.0 - helper_x
     tangent = torch.cat([helper_y * nz, -helper_x * nz, helper_x * ny - helper_y * nx], dim=1)
-    tangent = tangent / torch.clamp_min(torch.sqrt(dot3(tangent, tangent))[:, None], 1e-8)
+    tangent = tangent / torch.clamp_min(fp32_sqrt(dot3(tangent, tangent))[:, None], 1e-8)
     tx, ty, tz = tangent[:, 0:1], tangent[:, 1:2], tangent[:, 2:3]
     bitangent = torch.cat(
         [fma(ny, tz, -(nz * ty)), fma(nz, tx, -(nx * tz)), fma(nx, ty, -(ny * tx))], dim=1
@@ -1510,7 +1637,7 @@ def _nearest_sphere(table: SphereTable, o: torch.Tensor, d: torch.Tensor):
     oc_sq = dot3(o, o)[:, None] - 2.0 * _sphere_dots(table.centers, o) + table.csq
     disc = fma(oc_dot_d, oc_dot_d, -(oc_sq - table.r2))
     valid = (disc > 0.0) & (table.r2 > 0.0)
-    sqrt_disc = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sqrt_disc = fp32_sqrt(torch.clamp_min(disc, 0.0))
     t0 = oc_dot_d - sqrt_disc
     t1 = oc_dot_d + sqrt_disc
     t_all = torch.where(t0 > EPS, t0, torch.where(t1 > EPS, t1, INF))
@@ -1530,7 +1657,7 @@ def _sphere_occluders(table: SphereTable, so: torch.Tensor, dc: torch.Tensor, od
     ocsq_s = dot3(so, so)[:, None] - 2.0 * _sphere_dots(table.centers, so) + table.csq
     disc_s = fma(ocd_s, ocd_s, -(ocsq_s - table.r2))
     valid_s = (disc_s > 0.0) & (table.r2 > 0.0)
-    return valid_s & (ocd_s + torch.sqrt(torch.clamp_min(disc_s, 0.0)) > EPS)
+    return valid_s & (ocd_s + fp32_sqrt(torch.clamp_min(disc_s, 0.0)) > EPS)
 
 
 def _sphere_tests(occluders: torch.Tensor, spheres) -> torch.Tensor:
@@ -1580,7 +1707,7 @@ class _MeshWalk(NamedTuple):
     """The plain version's mesh geometry: the device tables plus the
     tree's links on the host (canonical DFS preorder)."""
 
-    table: torch.Tensor  # [K, 22] (instance_table)
+    table: torch.Tensor | None  # [K, 22] (instance_table); None: one BVH alone
     v0: torch.Tensor
     e1: torch.Tensor
     e2: torch.Tensor
@@ -1595,7 +1722,17 @@ class _MeshWalk(NamedTuple):
 
     @classmethod
     def build(cls, mesh: MeshSet, sun: torch.Tensor | None = None) -> "_MeshWalk":
-        bvh = mesh.bvh
+        table = instance_table(mesh)
+        return cls.for_bvh(mesh.bvh)._replace(
+            table=table, sun=sun,
+            sun_object=None if sun is None else torch.cat(
+                [_to_object(row, sun[None, :], shift=False) for row in table]
+            ),
+        )
+
+    @classmethod
+    def for_bvh(cls, bvh: MeshBVH) -> "_MeshWalk":
+        """The walk of one BVH, with no instance table."""
         skip = bvh.skip.tolist()
         count = bvh.count.tolist()
         children: list[list[int]] = [[] for _ in skip]
@@ -1605,14 +1742,11 @@ class _MeshWalk(NamedTuple):
                 while child < node_skip:
                     children[node].append(child)
                     child = skip[child]
-        table = instance_table(mesh)
         return cls(
-            table=table, v0=bvh.v0, e1=bvh.e1, e2=bvh.e2, normal=bvh.normal,
+            table=None, v0=bvh.v0, e1=bvh.e1, e2=bvh.e2, normal=bvh.normal,
             bounds_min=bvh.bounds_min, bounds_max=bvh.bounds_max,
-            first=bvh.first.tolist(), count=count, children=children, sun=sun,
-            sun_object=None if sun is None else torch.cat(
-                [_to_object(row, sun[None, :], shift=False) for row in table]
-            ),
+            first=bvh.first.tolist(), count=count, children=children, sun=None,
+            sun_object=None,
         )
 
     def _walk(self, o, inv, best_t, on_leaf, stats):
@@ -1667,6 +1801,46 @@ class _MeshWalk(NamedTuple):
         hit = (torch.abs(det) > _DET_EPS) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > EPS)
         return hit, t
 
+    def blas_nearest(self, o, d, seed_t, stats):
+        """Nearest hit in the BVH of object-space rays ``o``/``d`` [n, 3],
+        seeded with ``seed_t`` [n] (strict < updates, the first row of a
+        leaf reaching the minimum): (t [n] (== seed_t on a miss), the
+        winning triangle row [n] int64 (0 on a miss))."""
+        best_t = seed_t.clone()
+        best_row = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
+
+        def on_leaf(node, pos):
+            hit, t = self._leaf(node, o[pos], d[pos])
+            if stats is not None:
+                stats["triangle_tests"] += hit.numel()
+            t = torch.where(hit, t, INF)
+            t_leaf = t.min(dim=1).values
+            rows = torch.arange(t.shape[1], device=t.device)
+            local = torch.where(t == t_leaf[:, None], rows, t.shape[1]).min(dim=1).values
+            closer = t_leaf < best_t[pos]
+            best_t[pos[closer]] = t_leaf[closer]
+            best_row[pos[closer]] = self.first[node] + local[closer]
+
+        self._walk(o, _winv(d), best_t, on_leaf, stats)
+        return best_t, best_row
+
+    def blas_occluded(self, o, d, stats):
+        """Whether each object-space ray ``o`` [n, 3] along ``d`` ([n, 3],
+        or one direction [3]) has a triangle of the BVH ahead of it (t >
+        EPS, unbounded): bool [n]. A ray stops at its first occluder."""
+        limit = torch.full((o.shape[0],), INF, device=o.device)
+
+        def on_leaf(node, pos):
+            hit, _ = self._leaf(node, o[pos], d if d.ndim == 1 else d[pos])
+            any_hit = hit.any(dim=1)
+            if stats is not None:
+                first = torch.where(any_hit, hit.to(torch.int8).argmax(dim=1) + 1, hit.shape[1])
+                stats["triangle_tests"] += first.sum()
+            limit[pos[any_hit]] = -INF  # found: this ray's walk ends
+
+        self._walk(o, _winv(d), limit, on_leaf, stats)
+        return limit == -INF
+
     def nearest_rows(self, o, d, seed_t, stats):
         """Nearest mesh hit over all instances for world rays ``o``/``d``
         [R, 3], seeded with ``seed_t`` [R]: (t [R] (== seed_t on a miss),
@@ -1690,24 +1864,12 @@ class _MeshWalk(NamedTuple):
                 stats["instance_walks"] += idx.numel()
             lo = _to_object(row, o[idx], shift=True)
             ld = _to_object(row, d[idx], shift=False)
-            local_t = best_t[idx]
-
-            def on_leaf(node, pos, k=k, lo=lo, ld=ld, idx=idx, local_t=local_t):
-                hit, t = self._leaf(node, lo[pos], ld[pos])
-                if stats is not None:
-                    stats["triangle_tests"] += hit.numel()
-                t = torch.where(hit, t, INF)
-                t_leaf = t.min(dim=1).values
-                rows = torch.arange(t.shape[1], device=t.device)
-                local = torch.where(t == t_leaf[:, None], rows, t.shape[1]).min(dim=1).values
-                closer = t_leaf < local_t[pos]
-                hit_pos = pos[closer]
-                local_t[hit_pos] = t_leaf[closer]
-                best_t[idx[hit_pos]] = t_leaf[closer]
-                win_k[idx[hit_pos]] = k
-                win_row[idx[hit_pos]] = self.first[node] + local[closer]
-
-            self._walk(lo, _winv(ld), local_t, on_leaf, stats)
+            t_k, row_k = self.blas_nearest(lo, ld, best_t[idx], stats)
+            closer = t_k < best_t[idx]
+            won = idx[closer]
+            best_t[won] = t_k[closer]
+            win_k[won] = k
+            win_row[won] = row_k[closer]
         return best_t, win_k, win_row
 
     def nearest(self, o, d, seed_t, stats):
@@ -1756,16 +1918,5 @@ class _MeshWalk(NamedTuple):
                 ld = self.sun_object[k]
             else:
                 ld = _to_object(row, directions[idx], shift=False)
-            limit = torch.full((idx.numel(),), INF, device=so.device)
-
-            def on_leaf(node, pos, lo=lo, ld=ld, limit=limit):
-                hit, _ = self._leaf(node, lo[pos], ld if ld.ndim == 1 else ld[pos])
-                any_hit = hit.any(dim=1)
-                if stats is not None:
-                    first = torch.where(any_hit, hit.to(torch.int8).argmax(dim=1) + 1, hit.shape[1])
-                    stats["triangle_tests"] += first.sum()
-                limit[pos[any_hit]] = -INF  # found: this ray's walk ends
-
-            self._walk(lo, _winv(ld), limit, on_leaf, stats)
-            occluded[idx[limit == -INF]] = True
+            occluded[idx[self.blas_occluded(lo, ld, stats)]] = True
         return occluded

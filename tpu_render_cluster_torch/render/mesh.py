@@ -19,8 +19,13 @@ Layout (the traversal contract every kernel reads):
   (0 for inner nodes).
 
 It also holds the scan renderer's ray queries against every instance,
-``intersect_instances`` and ``occluded_instances``, each one launch of a
-unit kernel of ``render/kernels.py`` (the reference's kernel branches).
+``intersect_instances`` and ``occluded_instances``: by default each one
+launch of an instanced unit kernel of ``render/kernels.py`` (the reference's
+kernel branches); with ``per_instance=True`` the reference's scan over the
+instances (its branch with Pallas off), each instance's rays pulled into
+object space (``_rays_to_object_space``) and walked through the one BVH by
+``intersect_mesh`` / ``occluded_mesh``, one unit-kernel launch per instance.
+``intersect_triangles_brute`` tests every triangle: the tests' oracle.
 
 Left out of this slice: the TLAS topology and the quantized node tables
 (``mesh.py:928-1222`` of the reference), which change no per-ray result.
@@ -32,6 +37,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from tpu_render_cluster_torch.render.fp32 import fma
 
 LEAF_SIZE = 16
 SAH_BINS = 16
@@ -406,7 +413,81 @@ def cached_mesh_bvh(
 
 
 # ---------------------------------------------------------------------------
+# Ray queries against one mesh
+
+
+def _moller_trumbore(origins, directions, v0, e1, e2) -> torch.Tensor:
+    """Batched ray x triangle test: [R, T] hit distances (INF = miss)."""
+    from tpu_render_cluster_torch.render.kernels import EPS, INF
+
+    d = directions[:, None, :].expand(-1, e2.shape[0], -1)
+    pvec = torch.linalg.cross(d, e2[None, :, :].expand_as(d), dim=-1)
+    det = (e1[None, :, :] * pvec).sum(dim=-1)
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1e-12, det)
+    tvec = origins[:, None, :] - v0[None, :, :]
+    u = (tvec * pvec).sum(dim=-1) * inv_det
+    qvec = torch.linalg.cross(tvec, e1[None, :, :].expand_as(tvec), dim=-1)
+    v = (directions[:, None, :] * qvec).sum(dim=-1) * inv_det
+    t = (e2[None, :, :] * qvec).sum(dim=-1) * inv_det
+    hit = (torch.abs(det) > 1e-12) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > EPS)
+    return torch.where(hit, t, INF)
+
+
+def intersect_triangles_brute(bvh: MeshBVH, origins, directions):
+    """Nearest triangle hit by brute force, the tests' oracle: (t [R],
+    triangle row [R] int32, the first row reaching the minimum; INF and 0
+    on a miss)."""
+    t = _moller_trumbore(origins, directions, bvh.v0, bvh.e1, bvh.e2)
+    best = torch.argmin(t, dim=-1)
+    return t.gather(1, best[:, None])[:, 0], best.to(torch.int32)
+
+
+def intersect_mesh(bvh: MeshBVH, origins, directions, init_t=None):
+    """Nearest hit of object-space rays in the BVH: (t [R], ``init_t`` or
+    INF on a miss; triangle row [R] int32, 0 on a miss), through the
+    single-BVH unit kernel (``kernels.intersect_mesh``)."""
+    from tpu_render_cluster_torch.render import kernels
+
+    if init_t is None:
+        init_t = torch.full((origins.shape[0],), kernels.INF, device=origins.device)
+    return kernels.intersect_mesh(bvh, origins, directions, init_t)
+
+
+def occluded_mesh(bvh: MeshBVH, origins, directions, already) -> torch.Tensor:
+    """Any-hit of object-space rays in the BVH (bool [R]); ``already``
+    lanes come back True without walking. Through the single-BVH unit
+    kernel (``kernels.occluded_mesh``)."""
+    from tpu_render_cluster_torch.render import kernels
+
+    return kernels.occluded_mesh(bvh, origins, directions, already)
+
+
+# ---------------------------------------------------------------------------
 # Ray queries against every instance (the per-bounce scan renderer)
+
+
+def _rays_to_object_space(instances: MeshInstances, k: int, origins, directions):
+    """World -> object space for instance ``k``: x' = R^T (x - t) / s, the
+    direction scaled by 1/s too, which keeps the ray parameter t in world
+    units. Rounded as the reference's compiler rounds its elementwise
+    ``x0 * R[0] + x1 * R[1] + x2 * R[2]``: fma(x2, R[2], fma(x0, R[0], x1 *
+    R[1])), then the product with 1/s."""
+    rot = instances.rotation[k]
+    inv_scale = 1.0 / instances.scale[k]
+
+    def turn(x):
+        return fma(x[:, 2:3], rot[2], fma(x[:, 0:1], rot[0], x[:, 1:2] * rot[1])) * inv_scale
+
+    return turn(origins - instances.translation[k]), turn(directions)
+
+
+def _normal_to_world(rotation: torch.Tensor, normal_obj: torch.Tensor) -> torch.Tensor:
+    """World normals R n_obj [R, 3] of object normals [R, 3] under one
+    rotation [3, 3], rounded as ``_rays_to_object_space``."""
+    return fma(
+        normal_obj[:, 2:3], rotation[:, 2],
+        fma(normal_obj[:, 0:1], rotation[:, 0], normal_obj[:, 1:2] * rotation[:, 1]),
+    )
 
 
 def _normals_to_world(rotation: torch.Tensor, normal_obj: torch.Tensor) -> torch.Tensor:
@@ -424,22 +505,27 @@ def intersect_instances(
     origins: torch.Tensor,
     directions: torch.Tensor,
     init_t: torch.Tensor | None = None,
+    *,
+    per_instance: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Nearest hit over all instances: (t [R], world normal facing the ray
     [R, 3], albedo [R, 3]).
 
     ``init_t`` (optional [R]) seeds the best t with a hit the caller already
     knows (the same bounce's sphere/plane t): a mesh miss returns t ==
-    init_t, never closer. One launch of the instanced nearest-hit kernel
-    (``kernels.intersect_instances``), then the gathers of the winning
-    triangle's normal and the instance's rotation and albedo, as the
-    reference's kernel branch does. The hit test compares with the seed,
-    not INF, so a seeded miss keeps a zero normal and a zero albedo.
+    init_t, never closer. By default one launch of the instanced
+    nearest-hit kernel (``kernels.intersect_instances``), then the gathers
+    of the winning triangle's normal and the instance's rotation and
+    albedo, as the reference's kernel branch does; the hit test compares
+    with the seed, not INF, so a seeded miss keeps a zero normal and a zero
+    albedo. ``per_instance`` takes the reference's scan branch instead.
     """
     from tpu_render_cluster_torch.render import kernels
 
     if init_t is None:
         init_t = torch.full((origins.shape[0],), kernels.INF, device=origins.device)
+    if per_instance:
+        return _intersect_each_instance(mesh, origins, directions, init_t)
     t, tri, inst = kernels.intersect_instances(mesh, origins, directions, init_t)
     hit = (t < init_t)[:, None]
     tri, inst = tri.to(torch.int64), inst.to(torch.int64)
@@ -456,21 +542,58 @@ def intersect_instances(
     )
 
 
+def _intersect_each_instance(mesh: MeshSet, origins, directions, init_t):
+    """``intersect_instances`` as the reference's scan over the instances:
+    per instance the rays in its object space, the BVH walk seeded with the
+    best t so far, the winning normal to world space and the strict-<
+    selects; at the end the normals turned toward the ray, the facing test
+    summed as the reference's ``jnp.sum`` reduces: fma(n2, d2, fma(n1, d1,
+    n0 * d0)). A miss keeps a zero normal (negated) and albedo."""
+    bvh, instances = mesh.bvh, mesh.instances
+    best_t = init_t
+    best_normal = torch.zeros_like(origins)
+    best_albedo = torch.zeros_like(origins)
+    for k in range(instances.translation.shape[0]):
+        local_origins, local_directions = _rays_to_object_space(instances, k, origins, directions)
+        t, tri = intersect_mesh(bvh, local_origins, local_directions, best_t)
+        normal = _normal_to_world(instances.rotation[k], bvh.normal[tri])
+        closer = (t < best_t)[:, None]
+        best_t = torch.where(closer[:, 0], t, best_t)
+        best_normal = torch.where(closer, normal, best_normal)
+        best_albedo = torch.where(closer, instances.albedo[k], best_albedo)
+    n, d = best_normal, directions
+    facing = fma(n[:, 2], d[:, 2], fma(n[:, 1], d[:, 1], n[:, 0] * d[:, 0])) < 0.0
+    return best_t, torch.where(facing[:, None], best_normal, -best_normal), best_albedo
+
+
 def occluded_instances(
     mesh: MeshSet,
     origins: torch.Tensor,
     directions: torch.Tensor,
     already: torch.Tensor | None = None,
+    *,
+    per_instance: bool = False,
 ) -> torch.Tensor:
     """Any-hit over all instances (shadow rays): bool [R]. ``already``
     (optional [R] bool) marks lanes the caller knows are occluded, or whose
-    answer cannot matter: they do not walk and come back True. One launch
-    of the instanced any-hit kernel (``kernels.occluded_instances``)."""
+    answer cannot matter: they do not walk and come back True. By default
+    one launch of the instanced any-hit kernel
+    (``kernels.occluded_instances``); ``per_instance`` takes the
+    reference's scan over the instances, one ``occluded_mesh`` walk per
+    instance with the running mask as its ``already``."""
     from tpu_render_cluster_torch.render import kernels
 
     if already is None:
         already = torch.zeros((origins.shape[0],), dtype=torch.bool, device=origins.device)
-    return kernels.occluded_instances(mesh, origins, directions, already)
+    if not per_instance:
+        return kernels.occluded_instances(mesh, origins, directions, already)
+    occluded = already
+    for k in range(mesh.instances.translation.shape[0]):
+        local_origins, local_directions = _rays_to_object_space(
+            mesh.instances, k, origins, directions
+        )
+        occluded = occluded_mesh(mesh.bvh, local_origins, local_directions, occluded)
+    return occluded
 
 
 def rotation_y(angle: torch.Tensor) -> torch.Tensor:

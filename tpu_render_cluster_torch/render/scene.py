@@ -7,6 +7,13 @@ closed-form function of the frame index. The two mesh families
 shared mesh (``build_mesh_instances``; the BVH is in ``mesh.py``). The
 arithmetic follows the reference expression by expression in float32, so
 the arrays agree to rounding.
+
+A frame's arrays are computed on the host whatever the render device, and
+copied to the device in one transfer (``on_device``): on the card, PyTorch's
+float32 sin, cos, log, pow and clamp, and its division by a Python number
+(a multiplication by the reciprocal there), give other bits than on the CPU
+for some inputs (``render/parity.py`` lists them), and the card must render
+from the same scene as the CPU.
 """
 
 from __future__ import annotations
@@ -187,8 +194,33 @@ def _frame_tensor(frame, device) -> torch.Tensor:
     return torch.as_tensor(frame, dtype=_F32, device=device)
 
 
+def on_device(fields: tuple, device: str | torch.device) -> tuple:
+    """A NamedTuple of float32 host tensors on ``device``, in one copy: the
+    tensors are packed into one pinned buffer, copied without making the
+    host wait, and split into views of the copy. The values stay the host's
+    bit for bit."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return fields
+    flat = torch.cat([tensor.reshape(-1) for tensor in fields])
+    if flat.dtype != _F32:
+        raise TypeError(f"on_device packs float32 tensors, got {flat.dtype}")
+    copy = flat.pin_memory().to(device, non_blocking=True)
+    views, start = [], 0
+    for tensor in fields:
+        views.append(copy[start:start + tensor.numel()].view(tensor.shape))
+        start += tensor.numel()
+    return type(fields)(*views)
+
+
 def build_scene(name: str, frame, device: str | torch.device = "cpu") -> Scene:
-    """Build the scene tensors for one frame on ``device``."""
+    """Build the scene tensors for one frame on ``device`` (computed on the
+    host, see ``on_device``)."""
+    return on_device(scene_on(name, frame, "cpu"), device)
+
+
+def scene_on(name: str, frame, device: str | torch.device) -> Scene:
+    """``build_scene``'s arithmetic carried out on ``device`` itself."""
     frame = _frame_tensor(frame, device)
     if name == "04_very-simple":
         spheres = _very_simple(frame, device)
@@ -223,10 +255,17 @@ def build_mesh_instances(name: str, frame, device: str | torch.device = "cpu"):
 
     02_physics-mesh: 24 tumbling boxes dropped ballistically;
     03_physics-2-mesh: 48 smaller icospheres with a chaotic spread. Only
-    the rigid transforms depend on the frame.
+    the rigid transforms depend on the frame. Computed on the host, see
+    ``on_device``.
     """
     if name not in MESH_SCENE_NAMES:
         return None
+    return on_device(mesh_instances_on(name, frame, "cpu"), device)
+
+
+def mesh_instances_on(name: str, frame, device: str | torch.device):
+    """``build_mesh_instances``' arithmetic carried out on ``device``
+    itself (a mesh scene only)."""
     from tpu_render_cluster_torch.render.mesh import MeshInstances, rotation_y
 
     t = _frame_tensor(frame, device) / _FPS

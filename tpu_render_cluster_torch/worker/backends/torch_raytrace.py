@@ -21,7 +21,10 @@ whole frames, with four of its execution tiers:
   renderer's per-sample branch, one ``_shade_bounce`` per bounce around
   four unit-kernel launches. It takes neither the wavefront nor the pool,
   whatever their options say, as the reference takes neither without
-  Pallas.
+  Pallas. With ``per_instance=True`` as well, its two mesh queries walk the
+  instances one by one, the reference's own structure there: one launch of
+  the single-BVH unit kernels per instance (a check path; it claims no
+  speed).
 
 Otherwise the ``raypool`` and ``wavefront`` options choose as the
 reference's do.
@@ -115,6 +118,7 @@ class TorchRaytraceBackend(RenderBackend):
         on_launch: Callable[[WavefrontLaunch], None] | None = None,
         on_iteration: Callable[[PoolLaunch], None] | None = None,
         bounce_scan: bool = False,
+        per_instance: bool = False,
     ) -> None:
         requested = dict(tile_size=tile_size, sharding=sharding)
         for option, value in requested.items():
@@ -129,7 +133,10 @@ class TorchRaytraceBackend(RenderBackend):
             raise ValueError(f"raypool={raypool!r} is not one of {RAYPOOL_MODES}")
         self.wavefront = wavefront
         self.raypool = raypool
+        if per_instance and not bounce_scan:
+            raise ValueError("per_instance=True needs bounce_scan=True")
         self.bounce_scan = bool(bounce_scan)
+        self.per_instance = bool(per_instance)
         self.on_launch = on_launch
         self.on_iteration = on_iteration
         # job name -> the frames of the job still queued on this worker.
@@ -152,7 +159,7 @@ class TorchRaytraceBackend(RenderBackend):
         if self.bounce_scan or not wavefront_active(scene_name, mode=self.wavefront):
             return fused_frame_renderer(
                 scene_name, self.width, self.height, self.samples, self.max_bounces,
-                self.device, bounce_scan=self.bounce_scan,
+                self.device, bounce_scan=self.bounce_scan, per_instance=self.per_instance,
             )
 
         def render(frame: int):
