@@ -5,18 +5,23 @@ CUDA toolkit):
 
     python3 chip_smoke.py
 
-Nine main paths, each through ``TorchRaytraceBackend``, six of them one per
+Twelve main paths, each through ``TorchRaytraceBackend``, nine of them one per
 kernel: whole frames of the sphere scene 04_very-simple through ``trace_fused``,
-of the mesh scene 02_physics-mesh through ``trace_fused_mesh``, of the deep
-mesh scene 03_physics-2-mesh through the wavefront driver (the backend's
-default tier for a frame with none queued behind it) and ``mesh_bounce``,
-two frames of 04_very-simple under ``wavefront="force"`` through
-``sphere_bounce``, the same deep job through the ray pool (the backend's
-default tier when the worker queue's hint names more frames of the job)
-and ``pool_mesh_bounce``, and two frames of 04_very-simple under
-``raypool="force"`` through ``pool_sphere_bounce``; and two through the
-per-bounce scan renderer (``bounce_scan=True``), one bounce of eager tensor
-code per sample around the unit kernels: 10 frames of the deep job through
+of the mesh scene 02_physics-mesh through ``trace_fused_mesh_tlas``, of the
+deep mesh scene 03_physics-2-mesh through the wavefront driver (the
+backend's default tier for a frame with none queued behind it) and
+``mesh_bounce_tlas``, two frames of 04_very-simple under ``wavefront="force"``
+through ``sphere_bounce``, the same deep job through the ray pool (the
+backend's default tier when the worker queue's hint names more frames of the
+job) and ``pool_mesh_bounce_tlas``, two frames of 04_very-simple under
+``raypool="force"`` through ``pool_sphere_bounce``, and the flat variants of
+the three mesh kernels, the reference's ``TRC_TLAS=0`` tier, under
+``use_tlas=False`` (2 frames of 02 through ``trace_fused_mesh``, 2 of the deep
+wavefront through ``mesh_bounce``, one 2-frame pool window through
+``pool_mesh_bounce``); the mesh paths at the backend's default
+(``use_tlas=None``) run the TLAS variants, the reference's default; and two
+through the per-bounce scan renderer (``bounce_scan=True``), one bounce of
+eager tensor code per sample around the unit kernels: 10 frames of the deep job through
 ``intersect_spheres``, ``occluded_spheres``, ``intersect_instances`` and
 ``occluded_instances``, and 2 frames of 04_very-simple through the first
 two; and one through the scan's per-instance branch (``bounce_scan=True,
@@ -37,7 +42,11 @@ instance (48 times per sample and bounce). Phases, each of which raises
    called directly); the per-bounce kernels on every launch of a wavefront
    frame (bounce 0 with every lane alive and the lanes re-sorted, later
    bounces with a sorted dead tail), all five outputs, at the tolerance of
-   tests/test_torch_mesh_bounce.py; the pool kernels on the windows of
+   tests/test_torch_mesh_bounce.py, and a TLAS kernel's key column bit for
+   bit on every lane and, on the lanes alive below the live count, equal to
+   ``kernels.mesh_sort_keys`` of the launch's own outputs (with
+   ``instance_entry_candidates`` over the slot-ordered world boxes; the TLAS
+   megakernel too at 1 and 4 bounces); the pool kernels on the windows of
    their main paths at 512x512, 8 spp (the deep job's frames 1-8 and 9-10,
    the sphere job's frames 1-2), in each window on the first launch, at
    every boundary between two frames the first launch with live lanes of
@@ -61,6 +70,8 @@ instance (48 times per sample and bounce). Phases, each of which raises
    ray and against the mesh megakernel's render, and each of its
    launches against the plain per-bounce version on 65,536 of its rays;
    the sphere wavefront's against the sphere megakernel and its frames; a
+   TLAS path's frame 1 against the flat kernels' on the same rays (a pool:
+   a window of its first two frames), within atol 1e-5; a
    pool path's (the worker queue's hint given before each frame, as the
    queue gives it: two windows, 8 and 2 frames, of the deep job) against
    the wavefront tier's image of the same frame (atol 1e-5, the bit-equal
@@ -150,6 +161,8 @@ MEGAKERNEL_RAY_BYTES = (3 + 3 + 3) * 4
 BOUNCE_RAY_BYTES = 3 * 12 + 1 + 4 + 4 * 12 + 1
 # A pool kernel also reads each lane's frame id, seed and bounce.
 POOL_RAY_BYTES = BOUNCE_RAY_BYTES + 3 * 4
+# The TLAS per-bounce and pool kernels also write each lane's sort key.
+KEY_BYTES = 4
 # The unit kernels of the bounce scan read origin and direction (24) and
 # their per-ray input (the seed t: 4, already: 1) and write t and index (8),
 # the any-hit (1), t, triangle row and instance (12), or t and triangle row
@@ -192,6 +205,7 @@ class MainPath(NamedTuple):
     raypool: str | None = None
     bounce_scan: bool = False
     per_instance: bool = False
+    use_tlas: bool | None = None
 
     @property
     def launched(self) -> tuple[str, ...]:
@@ -210,16 +224,16 @@ class MainPath(NamedTuple):
         return DEEP_INSTANCES if name in BVH_UNITS else 1
 
 
+MESH_JOB = "blender-projects/02_physics/02_physics-mesh_240f-4w_tpu-batch_tpu-raytrace.toml"
+# The mesh main paths run the reference's default, the TLAS variants of the
+# mesh kernels; each flat variant keeps a check path of 2 frames
+# (use_tlas=False), after its TLAS path and the scans.
 PATHS = [
     MainPath("trace_fused", SPHERE_JOB, "04_very-simple", 10, None),
-    MainPath(
-        "trace_fused_mesh",
-        "blender-projects/02_physics/02_physics-mesh_240f-4w_tpu-batch_tpu-raytrace.toml",
-        "02_physics-mesh", 10, None,
-    ),
-    MainPath("mesh_bounce", DEEP_JOB, "03_physics-2-mesh", 10, None),
+    MainPath("trace_fused_mesh_tlas", MESH_JOB, "02_physics-mesh", 10, None),
+    MainPath("mesh_bounce_tlas", DEEP_JOB, "03_physics-2-mesh", 10, None),
     MainPath("sphere_bounce", SPHERE_JOB, "04_very-simple", 2, "force"),
-    MainPath("pool_mesh_bounce", DEEP_JOB, "03_physics-2-mesh", 10, None),
+    MainPath("pool_mesh_bounce_tlas", DEEP_JOB, "03_physics-2-mesh", 10, None),
     MainPath("pool_sphere_bounce", SPHERE_JOB, "04_very-simple", 2, None, "force"),
     MainPath("bounce_scan 03_physics-2-mesh", DEEP_JOB, "03_physics-2-mesh", 10, None, bounce_scan=True),
     MainPath("bounce_scan 04_very-simple", SPHERE_JOB, "04_very-simple", 2, None, bounce_scan=True),
@@ -227,17 +241,24 @@ PATHS = [
         "bounce_scan per_instance 03_physics-2-mesh", DEEP_JOB, "03_physics-2-mesh", 2, None,
         bounce_scan=True, per_instance=True,
     ),
+    MainPath("trace_fused_mesh", MESH_JOB, "02_physics-mesh", 2, None, use_tlas=False),
+    MainPath("mesh_bounce", DEEP_JOB, "03_physics-2-mesh", 2, None, use_tlas=False),
+    MainPath("pool_mesh_bounce", DEEP_JOB, "03_physics-2-mesh", 2, None, use_tlas=False),
 ]
 INSTANCED_SCAN = "bounce_scan 03_physics-2-mesh"  # the per-instance scan's comparison
-MEGAKERNELS = ("trace_fused", "trace_fused_mesh")
-POOLS = ("pool_mesh_bounce", "pool_sphere_bounce")
+MEGAKERNELS = ("trace_fused", "trace_fused_mesh", "trace_fused_mesh_tlas")
+POOLS = ("pool_mesh_bounce", "pool_sphere_bounce", "pool_mesh_bounce_tlas")
+TLAS_KERNELS = ("trace_fused_mesh_tlas", "mesh_bounce_tlas", "pool_mesh_bounce_tlas")
 REPLACES = {
     "trace_fused": "tpu_render_cluster/render/pallas_kernels.py:901",
     "trace_fused_mesh": "tpu_render_cluster/render/pallas_kernels.py:3205",
+    "trace_fused_mesh_tlas": "tpu_render_cluster/render/pallas_kernels.py:3205",
     "mesh_bounce": "tpu_render_cluster/render/pallas_kernels.py:3345",
+    "mesh_bounce_tlas": "tpu_render_cluster/render/pallas_kernels.py:3345",
     "sphere_bounce": "tpu_render_cluster/render/pallas_kernels.py:1004",
     "pool_sphere_bounce": "tpu_render_cluster/render/pallas_kernels.py:3784",
     "pool_mesh_bounce": "tpu_render_cluster/render/pallas_kernels.py:3854",
+    "pool_mesh_bounce_tlas": "tpu_render_cluster/render/pallas_kernels.py:3854",
     "intersect_instances": "tpu_render_cluster/render/pallas_kernels.py:1869",
     "occluded_instances": "tpu_render_cluster/render/pallas_kernels.py:1926",
     "intersect_spheres": "tpu_render_cluster/render/pallas_kernels.py:447",
@@ -249,15 +270,23 @@ BOUNCE_TOLERANCE = (
     "rtol=atol=1e-4 per ray on contribution, origin, direction and throughput, alive exact; "
     "all rays but max(1, round(0.001 R)) edge-tie rays"
 )
+KEY_TOLERANCE = (
+    BOUNCE_TOLERANCE + "; the key column bit-equal on every lane, and on live lanes equal to "
+    "mesh_sort_keys of the launch's outputs"
+)
+MESH_MEGAKERNEL_TOLERANCE = (
+    "rtol=atol=1e-4 per ray; at 1 bounce all but max(1, round(0.001 R)) edge-tie rays, "
+    ">=99.9% at 4"
+)
 TOLERANCE = {
     "trace_fused": "rtol=atol=1e-4 per ray; all rays at 1 bounce, >=99.9% at 4",
-    "trace_fused_mesh": (
-        "rtol=atol=1e-4 per ray; at 1 bounce all but max(1, round(0.001 R)) edge-tie rays, "
-        ">=99.9% at 4"
-    ),
+    "trace_fused_mesh": MESH_MEGAKERNEL_TOLERANCE,
+    "trace_fused_mesh_tlas": MESH_MEGAKERNEL_TOLERANCE,
     "mesh_bounce": BOUNCE_TOLERANCE,
+    "mesh_bounce_tlas": KEY_TOLERANCE,
     "sphere_bounce": BOUNCE_TOLERANCE,
     "pool_mesh_bounce": BOUNCE_TOLERANCE,
+    "pool_mesh_bounce_tlas": KEY_TOLERANCE,
     "pool_sphere_bounce": BOUNCE_TOLERANCE,
     "intersect_spheres": "t within rtol 2e-5 / atol 2e-4 and the index equal on every ray that hits",
     "occluded_spheres": "equal on every ray",
@@ -408,7 +437,9 @@ def profiled(fn, kernel: str | tuple[str, ...], label: str) -> dict | None:
 class Trace:
     """One kernel's path trace and plain version, bound to a scene's inputs:
     a megakernel's wrapper, or for a per-bounce kernel the wavefront driver
-    (``run``), the masked deep loop (``masked``) and one bounce."""
+    (``run``), the masked deep loop (``masked``) and one bounce. A mesh
+    kernel's name picks its variant: ``..._tlas`` the TLAS one, else the
+    flat one (``use_tlas=False``)."""
 
     def __init__(self, kernel: str, scene_name: str, frame: int, device):
         from tpu_render_cluster_torch.render import kernels
@@ -417,33 +448,37 @@ class Trace:
 
         self.kernels = kernels
         self.kernel = kernel
+        self.base = kernel.removesuffix("_tlas")
+        self.use_tlas = kernel in TLAS_KERNELS
         self.scene = build_scene(scene_name, frame, device)
         self.mesh = None
-        if kernel in ("trace_fused_mesh", "mesh_bounce"):
+        if self.base in ("trace_fused_mesh", "mesh_bounce"):
             # Any mesh, also one past the dispatch bound (a direct call).
             self.mesh = scene_mesh_set(scene_name, frame, device=device)
 
     def run(self, origins, directions, seed, max_bounces, on_launch=None):
         from tpu_render_cluster_torch.render import compaction
 
-        if self.kernel in ("sphere_bounce", "mesh_bounce"):
+        if self.base in ("sphere_bounce", "mesh_bounce"):
             return compaction.trace_paths_wavefront(
                 self.scene, origins, directions, seed, max_bounces=max_bounces,
-                mesh=self.mesh, on_launch=on_launch,
+                mesh=self.mesh, on_launch=on_launch, use_tlas=self.use_tlas,
             )
         if self.mesh is None:
             return self.kernels.trace_paths_fused(
                 self.scene, origins, directions, seed, max_bounces=max_bounces
             )
         return self.kernels.trace_paths_fused_mesh(
-            self.scene, self.mesh, origins, directions, seed, max_bounces=max_bounces
+            self.scene, self.mesh, origins, directions, seed, max_bounces=max_bounces,
+            use_tlas=self.use_tlas,
         )
 
     def masked(self, origins, directions, seed, max_bounces):
         from tpu_render_cluster_torch.render import integrator
 
         return integrator.trace_paths(
-            self.scene, origins, directions, seed, max_bounces=max_bounces, mesh=self.mesh
+            self.scene, origins, directions, seed, max_bounces=max_bounces, mesh=self.mesh,
+            use_tlas=self.use_tlas,
         )
 
     def plain(self, origins, directions, seed, max_bounces, stats=None):
@@ -453,7 +488,7 @@ class Trace:
             )
         return self.kernels.trace_paths_fused_mesh_reference(
             self.scene, self.mesh, origins, directions, seed, max_bounces=max_bounces,
-            stats=stats,
+            use_tlas=self.use_tlas, stats=stats,
         )
 
     def bounce(self, state, live, seed, bounce, *, plain=False, stats=None):
@@ -469,9 +504,12 @@ class Trace:
             return kernels.sphere_bounce(self.scene, *args, total_bounces=BOUNCES)
         if plain:
             return kernels.mesh_bounce_reference(
-                self.scene, self.mesh, *args, total_bounces=BOUNCES, stats=stats
+                self.scene, self.mesh, *args, total_bounces=BOUNCES, use_tlas=self.use_tlas,
+                stats=stats,
             )
-        return kernels.mesh_bounce(self.scene, self.mesh, *args, total_bounces=BOUNCES)
+        return kernels.mesh_bounce(
+            self.scene, self.mesh, *args, total_bounces=BOUNCES, use_tlas=self.use_tlas
+        )
 
 
 def kernel_vs_plain(kernel: str, scene_name: str, device) -> tuple[float, float]:
@@ -545,7 +583,57 @@ def check_bounce(label: str, trace: Trace, launch, seed, rows=None, stats=None) 
     check(result["bad"] <= budget and result["alive_bad"] <= budget,
           f"{trace.kernel} bounce {launch.bounce}: past the budget of {budget} rays")
     check(not got.alive[live:].any().item(), f"{trace.kernel}: a lane past the live count lives")
+    if trace.use_tlas:
+        frame = trace.kernels.tlas_frame(trace.mesh)
+        result.update(check_keys(
+            label, trace.kernel, got, expected, live, launch.bounce < BOUNCES - 1, frame.slots,
+            frame.key_window,
+        ))
     return result
+
+
+def check_keys(label: str, kernel: str, got, expected, live: int, keyed: bool, slots, window,
+               fid=None, per_frame: int = 0) -> dict:
+    """A TLAS launch's key column against its plain version's, bit for bit
+    on every lane; on the lanes that walked for a candidate (alive after
+    the bounce, below the live count; not on the last bounce) also against
+    the key computed outside the kernel from the launch's own outputs
+    (``mesh_sort_keys`` with ``instance_entry_candidates`` over the
+    slot-ordered world boxes ``slots``; a pool, with each lane's frame id
+    ``fid``: its frame's ``per_frame`` rows of the stack, the candidate
+    frame-local). Raises on any difference."""
+    import torch
+
+    from tpu_render_cluster_torch.render import kernels
+
+    differ = int((got.key != expected.key).sum())
+    lanes = got.alive & (torch.arange(got.alive.shape[0], device=got.alive.device) < live)
+    twin_differ, walked = 0, int(lanes.sum()) if keyed else 0
+    if keyed:
+        if fid is None:
+            candidate = kernels.instance_entry_candidates(
+                got.origins, got.directions, slots[:, 13:16], slots[:, 16:19]
+            )
+        else:
+            candidate = torch.full(fid.shape, per_frame, dtype=torch.int64, device=fid.device)
+            for f in range(slots.shape[0] // per_frame):
+                rows = (fid == f).nonzero()[:, 0]
+                boxes = slots[f * per_frame:(f + 1) * per_frame]
+                candidate[rows] = kernels.instance_entry_candidates(
+                    got.origins[rows], got.directions[rows], boxes[:, 13:16], boxes[:, 16:19]
+                )
+        twin = kernels.mesh_sort_keys(
+            got.origins, got.directions, got.alive, window, fid=fid, candidate=candidate,
+        )
+        twin_differ = int((twin != got.key)[lanes].sum())
+    print(
+        f"[{label}] {kernel} key column: {differ} of {got.key.shape[0]} lanes differ from the "
+        f"plain version's; on the {walked} lanes that walked for a candidate, {twin_differ} "
+        f"differ from mesh_sort_keys of the launch's outputs"
+    )
+    check(differ == 0, f"{kernel}: {differ} keys differ from the plain version's")
+    check(twin_differ == 0, f"{kernel}: {twin_differ} live keys differ from mesh_sort_keys")
+    return {"key_lanes_differ": differ, "key_twin_lanes": walked}
 
 
 def bounce_kernel_vs_plain(kernel: str, scene_name: str, device) -> tuple[float, float]:
@@ -636,6 +724,21 @@ def pool_launch_roles(launches, window) -> dict:
     return roles
 
 
+def pool_functions(kernel: str):
+    """(wrapper, plain version) of a pool kernel; a mesh one's at its
+    variant (``..._tlas``: the TLAS one)."""
+    import functools
+
+    from tpu_render_cluster_torch.render import kernels
+
+    base = kernel.removesuffix("_tlas")
+    wrapper, plain = getattr(kernels, base), getattr(kernels, f"{base}_reference")
+    if base != "pool_mesh_bounce":
+        return wrapper, plain
+    options = {"use_tlas": kernel in TLAS_KERNELS}
+    return functools.partial(wrapper, **options), functools.partial(plain, **options)
+
+
 def pool_kernel_vs_plain(path: MainPath, device) -> dict:
     """Phase 3 for a pool kernel: each window of its main path's frames at
     the main path's size, iterated one step at a time, each launch's input
@@ -651,12 +754,12 @@ def pool_kernel_vs_plain(path: MainPath, device) -> dict:
     kernel = path.kernel
     _, frames = job_frames(path)
     cap = raypool.RAYPOOL_FRAMES
-    wrapper, plain = getattr(kernels, kernel), getattr(kernels, f"{kernel}_reference")
+    wrapper, plain = pool_functions(kernel)
     results = []
     for start in range(0, len(frames), cap):
         window = raypool.PoolWindow(
             path.scene, frames[start:start + cap], width=WIDTH, height=HEIGHT, samples=SAMPLES,
-            max_bounces=BOUNCES, device=device,
+            max_bounces=BOUNCES, device=device, use_tlas=path.use_tlas,
         )
         states, launches = [], []
         state = window.initial_state()
@@ -695,6 +798,12 @@ def pool_kernel_vs_plain(path: MainPath, device) -> dict:
             check(result["bad"] <= budget and result["alive_bad"] <= budget,
                   f"{kernel} {role} launch: past the budget of {budget} lanes")
             check(not got.alive[live:].any().item(), f"{kernel}: a lane past the live count lives")
+            if kernel in TLAS_KERNELS:
+                pool_tlas = kernels.pool_tlas_operands(window.ops)
+                result.update(check_keys(
+                    "3", kernel, got, out[0], live, True, pool_tlas.slots, pool_tlas.key_window,
+                    fid=launch.state[5], per_frame=window.ops.per_frame,
+                ))
             picked[role] = {"index": index, "live": live, "stats": stats, **result}
         if start == 0:
             first = {"window": window, "picked": picked,
@@ -742,6 +851,8 @@ def drive_main_path(path: MainPath, device) -> dict:
         label += " (ray pool" + ("" if path.raypool is None else f", raypool={path.raypool}") + ")"
     if path.bounce_scan:
         label += " (bounce scan, per instance)" if path.per_instance else " (bounce scan)"
+    if path.use_tlas is False:
+        label += " (flat, use_tlas=False)"
     wavefront = path.kernel not in MEGAKERNELS and not pool and not path.bounce_scan
     log: list = []  # (bounce, live, bucket) of each wavefront launch
     pool_log: list = []  # the host's iteration index of each pool launch
@@ -751,7 +862,7 @@ def drive_main_path(path: MainPath, device) -> dict:
             base_directory=base, wavefront=path.wavefront, raypool=path.raypool,
             on_launch=lambda launch: log.append(tuple(launch[:3])),
             on_iteration=lambda launch: pool_log.append(launch.iteration),
-            bounce_scan=path.bounce_scan, per_instance=path.per_instance,
+            bounce_scan=path.bounce_scan, per_instance=path.per_instance, use_tlas=path.use_tlas,
         )
         check(backend.device.type == "cuda", f"backend chose {backend.device}")
         if not pool and not path.bounce_scan:
@@ -857,6 +968,43 @@ def drive_main_path(path: MainPath, device) -> dict:
         ),
         "images": images, "windows": windows, "frame_profile": frame_profile,
     }
+
+
+def tlas_vs_flat(run: dict, device) -> dict:
+    """Phase 4 for a TLAS main path: frame 1 through the path's tier with
+    the TLAS kernels and again with the flat ones (``use_tlas=False``) on
+    the card, ray for ray (a pool path: the linear images of a window of
+    its first two frames), within atol 1e-5, the bit-equal share printed."""
+    import torch
+
+    from tpu_render_cluster_torch.render import raypool
+
+    path, frame = run["path"], run["frames"][0]
+    if path.kernel in POOLS:
+        got, want = (
+            torch.stack(raypool.render_batch_raypool(
+                path.scene, run["frames"][:2], width=WIDTH, height=HEIGHT, samples=SAMPLES,
+                max_bounces=BOUNCES, device=device, use_tlas=use_tlas,
+            )[0])
+            for use_tlas in (None, False)
+        )
+        what = f"frames {run['frames'][:2]} of a pool window, linear images"
+    else:
+        rays = frame_rays(path.scene, frame, device)
+        got, want = (
+            Trace(kernel, path.scene, frame, device).run(*rays, BOUNCES)
+            for kernel in (path.kernel, path.kernel.removesuffix("_tlas"))
+        )
+        what = f"frame {frame}, radiance per ray"
+    err = (got - want).abs().max().item()
+    bit_equal = (got == want).all(dim=-1).float().mean().item()
+    print(
+        f"[4] {run['label']} {what}: TLAS ({path.kernel}) vs flat "
+        f"({path.kernel.removesuffix('_tlas')}) on the card: max abs err {err:.3g}, "
+        f"{bit_equal:.6f} bit-equal"
+    )
+    check(err <= 1e-5, f"{run['label']}: TLAS and flat differ by {err}")
+    return {"max_abs_err": err, "bit_equal_share": bit_equal}
 
 
 def frame_rays(scene_name: str, frame: int, device):
@@ -967,11 +1115,15 @@ def bound(stats: dict, bytes_moved: float, scale: float = 1.0,
 
     A mesh kernel's instance search is counted two ways. "flat": every
     world-AABB test of the kernels' per-thread sweep over the instance
-    table. "needed": what the search needs, about 2 ceil(log2 K) box tests
-    of a two-level walk per ray that searches the K instances, plus the
-    instances entered as counted. The bound is the needed count's, the
-    lower; the flat one and the world-AABB tests' share of it are kept
-    beside it. A sphere kernel has one count."""
+    table (for a TLAS kernel: K tests per search, what the flat sweep would
+    test). "needed": what the search needs, about 2 ceil(log2 K) box tests
+    of a two-level walk per ray that searches the K instances (a TLAS
+    kernel's entry walk for the key is one more search per lane that
+    walks it), plus the instances entered as counted. The bound is the
+    needed count's, the lower; the flat one and the world-AABB tests' share
+    of it are kept beside it, and for a TLAS kernel "walk": the box tests
+    its walks made as counted (nodes, leaf slots, the entry walk's). A
+    sphere kernel has one count."""
     if sphere_operations is None:
         sphere_operations = (
             OPS_NEAREST_SPHERE * stats["spheres"] * stats["alive_lane_bounces"]
@@ -993,15 +1145,22 @@ def bound(stats: dict, bytes_moved: float, scale: float = 1.0,
     if "instances" not in stats:
         bound_ms, bound_by = least(rest)
         return {"ms": bound_ms, "by": bound_by, "operations": rest, "bytes": bytes_moved,
-                "flat_ms": None, "world_aabb_share": None}
-    flat_search = scale * OPS_SLAB * stats["world_aabb_tests"]
+                "flat_ms": None, "world_aabb_share": None, "walk_ms": None}
+    searches = stats["broadphase_rays"] + stats.get("entry_rays", 0)
+    walk_ms = None
+    if "tlas_node_tests" in stats:
+        flat_search = scale * OPS_SLAB * stats["instances"] * searches
+        walked = stats["world_aabb_tests"] + stats["tlas_node_tests"] + stats["entry_tests"]
+        walk_ms = least(rest + scale * OPS_SLAB * walked)[0]
+    else:
+        flat_search = scale * OPS_SLAB * stats["world_aabb_tests"]
     tests_per_search = max(1, 2 * math.ceil(math.log2(stats["instances"])))
-    needed_search = scale * OPS_SLAB * tests_per_search * stats["broadphase_rays"]
+    needed_search = scale * OPS_SLAB * tests_per_search * searches
     bound_ms, bound_by = least(rest + needed_search)
     return {
         "ms": bound_ms, "by": bound_by, "operations": rest + needed_search, "bytes": bytes_moved,
         "flat_ms": least(rest + flat_search)[0],
-        "world_aabb_share": flat_search / (rest + flat_search),
+        "world_aabb_share": flat_search / (rest + flat_search), "walk_ms": walk_ms,
     }
 
 
@@ -1012,6 +1171,8 @@ def describe_bound(b: dict) -> str:
             f"; with the flat instance sweep {b['flat_ms']:.4f} ms, of whose operations the "
             f"world-AABB tests are {b['world_aabb_share']:.3f}"
         )
+    if b["walk_ms"] is not None:
+        text += f"; with the box tests the TLAS walks made {b['walk_ms']:.4f} ms"
     return text + ")"
 
 
@@ -1112,6 +1273,7 @@ def megakernel_record(run: dict, device, agree: float, max_abs_err: float, build
         "bound_by": least["by"],
         "library_ms": None,
         "bound_flat_sweep_ms": least["flat_ms"],
+        "bound_walk_ms": least["walk_ms"],
         "world_aabb_share": least["world_aabb_share"],
         "host_ms": wrapper_host_ms,
         "kernel_only_ms": kernel_only_ms,
@@ -1136,13 +1298,23 @@ def bounce_record(run: dict, checked: dict, device, agree: float, max_abs_err: f
     seed = rays[2]
     phase_times(run, device)
     # The compaction's input before each bounce: the primary rays, then the
-    # previous launch's output.
+    # previous launch's output; under TLAS with the keys it sorts by: bounce
+    # 0's computed in the compaction (initial_mesh_sort_keys), later ones
+    # the previous launch's key column.
     n0 = rays[0].shape[0]
     before = (
         rays[0], rays[1], torch.ones((n0, 3), device=device),
         torch.ones(n0, dtype=torch.bool, device=device),
         torch.arange(n0, dtype=torch.int32, device=device),
     )
+    keys = None
+
+    def compact(before, keys):
+        if trace.use_tlas and keys is None:
+            keys = trace.kernels.initial_mesh_sort_keys(trace.mesh, before[0], before[1], before[3])
+        return compaction.compact(*before, trace.mesh, keys)
+
+    ray_bytes = BOUNCE_RAY_BYTES + KEY_BYTES * trace.use_tlas
     per_launch = []
     for launch, (stats, drawn), plain_ms in zip(checked["launches"], checked["work"], checked["plain_ms"]):
         call = lambda launch=launch: trace.bounce(launch.state, launch.live, seed, launch.bounce)  # noqa: E731
@@ -1150,20 +1322,22 @@ def bounce_record(run: dict, checked: dict, device, agree: float, max_abs_err: f
         launch_ms = statistics.median(cuda_ms(call, 5) for _ in range(5))
         launch_host_ms = host_ms(call, 5)
         compact_ms = statistics.median(
-            cuda_ms(lambda: compaction.compact(*before, trace.mesh), 3) for _ in range(3)
+            cuda_ms(lambda: compact(before, keys), 3) for _ in range(3)
         )
-        least = bound(stats, launch.bucket * BOUNCE_RAY_BYTES, scale=launch.bucket / drawn)
+        least = bound(stats, launch.bucket * ray_bytes, scale=launch.bucket / drawn)
         alone = profiled(
             lambda: [call() for _ in range(5)], kernel, f"{kernel} bounce {launch.bounce} calls"
         )
         step = call()
         before = (step.origins, step.directions, step.throughput, step.alive, launch.state[4])
+        keys = step.key
         per_launch.append({
             "bounce": launch.bounce, "live": launch.live, "bucket": launch.bucket,
             "ms": launch_ms, "host_ms": launch_host_ms,
             "kernel_only_ms": None if alone is None else alone["kernel_ms"] / 5,
             "compaction_ms": compact_ms, "bound_ms": least["ms"], "bound_by": least["by"],
-            "bound_flat_sweep_ms": least["flat_ms"], "world_aabb_share": least["world_aabb_share"],
+            "bound_flat_sweep_ms": least["flat_ms"], "bound_walk_ms": least["walk_ms"],
+            "world_aabb_share": least["world_aabb_share"],
             "plain_ms": plain_ms, "plain_rays": drawn,
         })
         print(
@@ -1193,7 +1367,7 @@ def bounce_record(run: dict, checked: dict, device, agree: float, max_abs_err: f
     )
     if trace.mesh is not None:
         megakernel = lambda: trace.kernels.trace_paths_fused_mesh(  # noqa: E731
-            trace.scene, trace.mesh, *rays, max_bounces=BOUNCES
+            trace.scene, trace.mesh, *rays, max_bounces=BOUNCES, use_tlas=trace.use_tlas
         )
         cuda_ms(megakernel, 1)
         mega_ms = statistics.median(cuda_ms(megakernel, 3) for _ in range(3))
@@ -1205,7 +1379,7 @@ def bounce_record(run: dict, checked: dict, device, agree: float, max_abs_err: f
             f"[5] {run['path'].scene} frame {run['frames'][0]}, whole trace on the card (CUDA "
             f"events, comparison only; the dispatch stays the reference's): wavefront driver "
             f"{wavefront_ms:.4f} ms, masked deep loop {masked_ms:.4f} ms, mesh megakernel "
-            f"(trace_fused_mesh) {mega_ms:.4f} ms"
+            f"(trace_fused_mesh{'_tlas' if trace.use_tlas else ''}) {mega_ms:.4f} ms"
         )
     return {
         "name": kernel,
@@ -1220,6 +1394,7 @@ def bounce_record(run: dict, checked: dict, device, agree: float, max_abs_err: f
         "bound_ms": first["bound_ms"],
         "bound_by": first["bound_by"],
         "bound_flat_sweep_ms": first["bound_flat_sweep_ms"],
+        "bound_walk_ms": first["bound_walk_ms"],
         "world_aabb_share": first["world_aabb_share"],
         "bound_is_estimate": f"work counted on {first['plain_rays']} rays drawn from the launch, scaled to it",
         "library_ms": None,
@@ -1244,33 +1419,35 @@ def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) ->
     launches of phase 3 beside the whole iteration around it (the glue:
     sort, refill, scatter, the masked updates), each launch's bound from
     the plain version's counters; the card's idle share over one window."""
-    from tpu_render_cluster_torch.render import compaction, kernels, raypool
+    from tpu_render_cluster_torch.render import compaction, raypool
 
     path, frames = run["path"], run["frames"]
     kernel = path.kernel
+    mesh_variant = {} if kernel == "pool_sphere_bounce" else {"use_tlas": path.use_tlas}
     first_window = frames[:raypool.RAYPOOL_FRAMES]
     images, _ = raypool.render_batch_raypool(
         path.scene, first_window, width=WIDTH, height=HEIGHT, samples=SAMPLES,
-        max_bounces=BOUNCES, device=device,
+        max_bounces=BOUNCES, device=device, **mesh_variant,
     )
     wavefront = compaction.render_frame_wavefront(
         path.scene, frames[0], width=WIDTH, height=HEIGHT, samples=SAMPLES,
-        max_bounces=BOUNCES, device=device,
+        max_bounces=BOUNCES, device=device, **mesh_variant,
     )
     errs, bit_equal = [], []
     for frame, image in zip(first_window, images):
         if frame != frames[0]:
             wavefront = compaction.render_frame_wavefront(
                 path.scene, frame, width=WIDTH, height=HEIGHT, samples=SAMPLES,
-                max_bounces=BOUNCES, device=device,
+                max_bounces=BOUNCES, device=device, **mesh_variant,
             )
         errs.append((image - wavefront).abs().max().item())
         bit_equal.append((image == wavefront).all(dim=-1).float().mean().item())
         print(f"[4] {run['label']} frame {frame}, linear image vs the wavefront tier's: max abs err {errs[-1]:.3g}, {bit_equal[-1]:.6f} of pixels bit-equal")
         check(errs[-1] <= 1e-5, f"{run['label']}: frame {frame} differs from the wavefront's by {errs[-1]}")
     err = max(errs)
-    if kernel == "pool_mesh_bounce":
-        trace = Trace("trace_fused_mesh", path.scene, frames[0], device)
+    if kernel != "pool_sphere_bounce":
+        megakernel = "trace_fused_mesh_tlas" if kernel in TLAS_KERNELS else "trace_fused_mesh"
+        trace = Trace(megakernel, path.scene, frames[0], device)
         reference = [to_image(trace.run(*frame_rays(path.scene, frames[0], device), BOUNCES))]
         against = "the mesh megakernel's render"
     else:
@@ -1281,18 +1458,20 @@ def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) ->
         print(f"[4] {run['label']} frame {frames[index]} PNG vs {against}: {within:.6f} of uint8 values within 1")
         check(within >= 0.995, f"{run['label']}: PNG disagrees with {against} ({within})")
     phase_times(run, device, breakdown=False)
-    other = runs["mesh_bounce" if kernel == "pool_mesh_bounce" else "sphere_bounce"]
+    other = runs[{"pool_mesh_bounce": "mesh_bounce", "pool_mesh_bounce_tlas": "mesh_bounce_tlas"}
+                 .get(kernel, "sphere_bounce")]
     pool_fps = len(frames) / run["path_s"]
     wavefront_fps = len(other["frames"]) / other["path_s"]
     print(f"[5] {run['label']}: {pool_fps:.3f} frames/s over the job, the wavefront path ({other['label']}) {wavefront_fps:.3f} in this run")
 
     window, states, launches = checked["window"], checked["states"], checked["launches"]
+    wrapper = pool_functions(kernel)[0]
     per_launch = {}
     for role in ("first", "mixed", "drain"):
         picked = checked["picked"][role]
         index = picked["index"]
         launch = launches[index]
-        call = lambda launch=launch: getattr(kernels, kernel)(  # noqa: E731
+        call = lambda launch=launch: wrapper(  # noqa: E731
             window.ops, *launch.state, launch.live, total_bounces=BOUNCES
         )
         cuda_ms(call, 2)
@@ -1301,13 +1480,14 @@ def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) ->
         cuda_ms(step, 2)
         iteration_ms = statistics.median(cuda_ms(step, 5) for _ in range(5))
         alone = profiled(lambda: [call() for _ in range(20)], kernel, f"{kernel} {role} launch calls")
-        least = bound(picked["stats"], window.pool * POOL_RAY_BYTES)
+        least = bound(picked["stats"], window.pool * (POOL_RAY_BYTES + KEY_BYTES * window.tlas))
         per_launch[role] = {
             "iteration": index, "live": picked["live"], "ms": launch_ms,
             "kernel_only_ms": None if alone is None else alone["kernel_ms"] / 20,
             "iteration_ms": iteration_ms, "glue_ms": iteration_ms - launch_ms,
             "bound_ms": least["ms"], "bound_by": least["by"],
-            "bound_flat_sweep_ms": least["flat_ms"], "world_aabb_share": least["world_aabb_share"],
+            "bound_flat_sweep_ms": least["flat_ms"], "bound_walk_ms": least["walk_ms"],
+            "world_aabb_share": least["world_aabb_share"],
             "plain_ms": picked["plain_ms"],
         }
         print(
@@ -1324,7 +1504,7 @@ def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) ->
     window_profile = profiled(
         lambda: raypool.render_batch_raypool(
             path.scene, first_window, width=WIDTH, height=HEIGHT, samples=SAMPLES,
-            max_bounces=BOUNCES, device=device,
+            max_bounces=BOUNCES, device=device, **mesh_variant,
         ),
         kernel, f"{run['label']} one window",
     )
@@ -1353,6 +1533,7 @@ def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) ->
         "bound_by": mixed["bound_by"],
         "library_ms": None,
         "bound_flat_sweep_ms": mixed["bound_flat_sweep_ms"],
+        "bound_walk_ms": mixed["bound_walk_ms"],
         "world_aabb_share": mixed["world_aabb_share"],
         "rays": window.pool,
         "kernel_only_ms": mixed["kernel_only_ms"],
@@ -1620,7 +1801,7 @@ def scan_record(run: dict, runs: dict, device) -> dict[str, dict]:
         f"{(image == plain_image).float().mean().item():.6f} bit-equal"
     )
     check(within >= 0.995, f"{run['label']}: frame disagrees with the plain scan render ({within})")
-    other = runs["trace_fused" if path.scene == "04_very-simple" else "mesh_bounce"]
+    other = runs["trace_fused" if path.scene == "04_very-simple" else "mesh_bounce_tlas"]
     mean_diff = (run["images"][0].float() - other["images"][0].float()).abs().mean().item()
     print(
         f"[4] {run['label']} frame {frames[0]} vs the {other['label']} path's PNG (other random "
@@ -1633,7 +1814,7 @@ def scan_record(run: dict, runs: dict, device) -> dict[str, dict]:
     compared = ", ".join(
         f"{runs[key]['label']} {len(runs[key]['frames']) / runs[key]['path_s']:.3f}"
         for key in (("trace_fused", "sphere_bounce") if path.scene == "04_very-simple"
-                    else ("mesh_bounce", "pool_mesh_bounce"))
+                    else ("mesh_bounce_tlas", "pool_mesh_bounce_tlas"))
     )
     print(f"[5] {run['label']}: {scan_fps:.3f} frames/s over the job; in this run {compared}")
 
@@ -1878,7 +2059,9 @@ def main() -> int:
     checks = {
         "trace_fused": ("04_very-simple", "03_physics-2"),
         "trace_fused_mesh": ("02_physics-mesh", "03_physics-2-mesh"),
+        "trace_fused_mesh_tlas": ("02_physics-mesh", "03_physics-2-mesh"),
         "mesh_bounce": ("03_physics-2-mesh",),
+        "mesh_bounce_tlas": ("03_physics-2-mesh",),
         "sphere_bounce": ("04_very-simple", "03_physics-2"),
     }
     agree: dict[str, float] = {}
@@ -1923,6 +2106,8 @@ def main() -> int:
             entry = bounce_record(
                 run, checked, device, agree[path.kernel], max_abs_err[path.kernel], build_s
             )
+        if path.kernel in TLAS_KERNELS:
+            entry["tlas_vs_flat"] = tlas_vs_flat(run, device)
         if not path.bounce_scan:
             record["kernels"].append(entry)
         print(f"[5] {run['label']} path phases 4-6 in {time.perf_counter() - started:.1f} s")

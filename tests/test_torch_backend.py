@@ -159,10 +159,10 @@ def test_backend_serves_a_deep_mesh_job_through_the_harness(tmp_path):
     rendered = [t for _name, trace in worker_traces for t in trace.frame_render_traces]
     assert sorted(t.frame_index for t in rendered) == [1, 2]
     assert len(hinted) == 2  # the queue hints before each frame
-    pooled = kernels.counts["pool_mesh_bounce_reference"] > 0
+    pooled = kernels.counts["pool_mesh_bounce_tlas_reference"] > 0
     assert pooled == any(hinted)
-    assert pooled or kernels.counts["mesh_bounce_reference"] > 0
-    assert kernels.counts["trace_fused_mesh_reference"] == 0
+    assert pooled or kernels.counts["mesh_bounce_tlas_reference"] > 0
+    assert kernels.counts["trace_fused_mesh_tlas_reference"] == 0
     masked = fused_frame_renderer("03_physics-2-mesh", width, height, samples, bounces, "cpu")
     for frame in (1, 2):
         image = np.asarray(Image.open(tmp_path / "frames" / f"rendered-{frame:05d}.png"))

@@ -63,6 +63,9 @@ def test_frame_matches_reference(reference_renderer, name, frame):
         "occluded_instances": 0, "occluded_instances_reference": 0,
         "intersect_mesh": 0, "intersect_mesh_reference": 0,
         "occluded_mesh": 0, "occluded_mesh_reference": 0,
+        "trace_fused_mesh_tlas": 0, "trace_fused_mesh_tlas_reference": 0,
+        "mesh_bounce_tlas": 0, "mesh_bounce_tlas_reference": 0,
+        "pool_mesh_bounce_tlas": 0, "pool_mesh_bounce_tlas_reference": 0,
     }
     assert_images_match(got.numpy(), expected)
     assert got.numpy().std() > 5.0

@@ -46,7 +46,7 @@ def test_mesh_frames_match_reference(reference_renderer):
         assert got.shape == (HEIGHT, WIDTH, 3) and got.device.type == "cpu"
         assert kernels.counts == {
             "trace_fused": 0, "trace_fused_reference": 0,
-            "trace_fused_mesh": 0, "trace_fused_mesh_reference": 1,
+            "trace_fused_mesh": 0, "trace_fused_mesh_reference": 0,
             "sphere_bounce": 0, "sphere_bounce_reference": 0,
             "mesh_bounce": 0, "mesh_bounce_reference": 0,
             "pool_sphere_bounce": 0, "pool_sphere_bounce_reference": 0,
@@ -57,6 +57,9 @@ def test_mesh_frames_match_reference(reference_renderer):
             "occluded_instances": 0, "occluded_instances_reference": 0,
             "intersect_mesh": 0, "intersect_mesh_reference": 0,
             "occluded_mesh": 0, "occluded_mesh_reference": 0,
+            "trace_fused_mesh_tlas": 0, "trace_fused_mesh_tlas_reference": 1,
+            "mesh_bounce_tlas": 0, "mesh_bounce_tlas_reference": 0,
+            "pool_mesh_bounce_tlas": 0, "pool_mesh_bounce_tlas_reference": 0,
         }
         assert_images_match(got.numpy(), expected)
         assert got.numpy().std() > 5.0
@@ -65,16 +68,23 @@ def test_mesh_frames_match_reference(reference_renderer):
 def test_deep_mesh_renderer_names_its_slice():
     """The deep mesh scene, past the mesh megakernel's bound, renders
     through the per-bounce mesh kernel once per bounce (the deep-mesh
-    slice); tests/test_torch_wavefront.py holds its frames against the
-    reference."""
+    slice), by default its TLAS variant, with ``use_tlas=False`` the flat
+    one, to the same image; tests/test_torch_wavefront.py holds its frames
+    against the reference."""
     kernels.reset_counts()
     image = port_integrator.fused_frame_renderer("03_physics-2-mesh", 8, 8, 1, 2, "cpu")(2)
     assert image.shape == (8, 8, 3) and image.dtype == torch.uint8
-    assert kernels.counts == {k: 2 * (k == "mesh_bounce_reference") for k in kernels.counts}
+    assert kernels.counts == {k: 2 * (k == "mesh_bounce_tlas_reference") for k in kernels.counts}
     linear = port_integrator.render_frame(
         "03_physics-2-mesh", 2, width=8, height=8, samples=1, max_bounces=2, device="cpu"
     )
     assert torch.equal(port_integrator.tonemap(linear), image)
+    kernels.reset_counts()
+    flat = port_integrator.fused_frame_renderer(
+        "03_physics-2-mesh", 8, 8, 1, 2, "cpu", use_tlas=False
+    )(2)
+    assert kernels.counts == {k: 2 * (k == "mesh_bounce_reference") for k in kernels.counts}
+    assert torch.equal(flat, image)
 
 
 def test_deep_mesh_frame_matches_reference(reference_renderer):
@@ -91,7 +101,7 @@ def test_deep_mesh_frame_matches_reference(reference_renderer):
     got = port_integrator.tonemap(
         port_integrator.render_frame("03_physics-2-mesh", 30, device="cpu", **kwargs)
     )
-    assert kernels.counts["mesh_bounce_reference"] == 4
+    assert kernels.counts["mesh_bounce_tlas_reference"] == 4
     assert_images_match(got.numpy(), expected)
     assert got.numpy().std() > 5.0
 
@@ -102,4 +112,4 @@ def test_render_frame_of_a_mesh_scene():
         "02_physics-mesh", 40, width=12, height=10, samples=1, max_bounces=2, device="cpu"
     )
     assert linear.shape == (10, 12, 3) and torch.isfinite(linear).all()
-    assert kernels.counts["trace_fused_mesh_reference"] == 1
+    assert kernels.counts["trace_fused_mesh_tlas_reference"] == 1

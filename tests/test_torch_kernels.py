@@ -131,6 +131,9 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
         "occluded_instances": 0, "occluded_instances_reference": 0,
         "intersect_mesh": 0, "intersect_mesh_reference": 0,
         "occluded_mesh": 0, "occluded_mesh_reference": 0,
+        "trace_fused_mesh_tlas": 0, "trace_fused_mesh_tlas_reference": 0,
+        "mesh_bounce_tlas": 0, "mesh_bounce_tlas_reference": 0,
+        "pool_mesh_bounce_tlas": 0, "pool_mesh_bounce_tlas_reference": 0,
     }
 
 

@@ -10,6 +10,10 @@ Tolerance as in tests/test_torch_kernels.py, rtol = atol = 1e-4 per ray:
 every ray at 1 bounce (the mesh kernel: all but an edge-tie budget of
 max(1, round(0.001 R)) rays), at least 99.9% at 4 bounces. A per-bounce
 kernel: all five outputs of every ray but that budget.
+
+The mesh kernels' tests run with ``use_tlas=False`` (the flat kernels) and
+``use_tlas=None`` (the default, their TLAS variants on these scenes); the
+TLAS variants' own checks are in tests/test_torch_tlas_cuda.py.
 """
 
 from __future__ import annotations
@@ -43,6 +47,12 @@ def _launched(kernel: str) -> dict[str, int]:
     return {name: int(name == kernel) for name in kernels.counts}
 
 
+def _variant(kernel: str, use_tlas) -> str:
+    """The mesh kernel a scene of these tests launches: the TLAS variant by
+    default (more instances than a TLAS leaf), the flat one with False."""
+    return kernel if use_tlas is False else f"{kernel}_tlas"
+
+
 @pytest.mark.parametrize("max_bounces", [1, 4])
 @pytest.mark.parametrize("name", ["04_very-simple", "03_physics-2"])
 def test_cuda_kernel_matches_plain_version(cuda_device, name, max_bounces):
@@ -72,9 +82,10 @@ def test_cuda_frame_renderer_goes_through_the_kernel(cuda_device):
     assert (diff <= 1).float().mean().item() >= 0.995
 
 
+@pytest.mark.parametrize("use_tlas", [False, None])
 @pytest.mark.parametrize("max_bounces", [1, 4])
 @pytest.mark.parametrize("name", ["02_physics-mesh", "03_physics-2-mesh"])
-def test_cuda_mesh_kernel_matches_plain_version(cuda_device, name, max_bounces):
+def test_cuda_mesh_kernel_matches_plain_version(cuda_device, name, max_bounces, use_tlas):
     """02_physics-mesh is the main path's mesh; 03_physics-2-mesh's deep
     icosphere tree is past the dispatch bound and called directly."""
     scene = build_scene(name, 30, cuda_device)
@@ -85,12 +96,12 @@ def test_cuda_mesh_kernel_matches_plain_version(cuda_device, name, max_bounces):
     )
     kernels.reset_counts()
     got = kernels.trace_paths_fused_mesh(
-        scene, mesh, origins, directions, seed, max_bounces=max_bounces
+        scene, mesh, origins, directions, seed, max_bounces=max_bounces, use_tlas=use_tlas
     )
     torch.cuda.synchronize()
-    assert kernels.counts == _launched("trace_fused_mesh")
+    assert kernels.counts == _launched(_variant("trace_fused_mesh", use_tlas))
     expected = kernels.trace_paths_fused_mesh_reference(
-        scene, mesh, origins, directions, seed, max_bounces=max_bounces
+        scene, mesh, origins, directions, seed, max_bounces=max_bounces, use_tlas=use_tlas
     )
     close = torch.isclose(got, expected, rtol=1e-4, atol=1e-4).all(dim=1)
     if max_bounces == 1:
@@ -126,22 +137,27 @@ def test_cuda_mesh_kernel_with_large_tables(cuda_device, n_faces, low, high):
     assert close.float().mean().item() >= 0.999
 
 
-def test_cuda_mesh_frame_renderer_goes_through_the_kernel(cuda_device):
+@pytest.mark.parametrize("use_tlas", [False, None])
+def test_cuda_mesh_frame_renderer_goes_through_the_kernel(cuda_device, use_tlas):
     kernels.reset_counts()
-    image = integrator.fused_frame_renderer("02_physics-mesh", 64, 48, 2, 4)(3)
+    image = integrator.fused_frame_renderer(
+        "02_physics-mesh", 64, 48, 2, 4, use_tlas=use_tlas
+    )(3)
     assert image.device.type == "cuda" and image.shape == (48, 64, 3)
-    assert kernels.counts == _launched("trace_fused_mesh")
-    cpu = integrator.fused_frame_renderer("02_physics-mesh", 64, 48, 2, 4, "cpu")(3)
+    assert kernels.counts == _launched(_variant("trace_fused_mesh", use_tlas))
+    cpu = integrator.fused_frame_renderer(
+        "02_physics-mesh", 64, 48, 2, 4, "cpu", use_tlas=use_tlas
+    )(3)
     diff = (image.cpu().int() - cpu.int()).abs()
     assert (diff <= 1).float().mean().item() >= 0.995
 
 
 @pytest.mark.parametrize(
-    "kernel,name",
-    [("mesh_bounce", "03_physics-2-mesh"), ("sphere_bounce", "04_very-simple"),
-     ("sphere_bounce", "03_physics-2")],
+    "kernel,name,use_tlas",
+    [("mesh_bounce", "03_physics-2-mesh", False), ("mesh_bounce", "03_physics-2-mesh", None),
+     ("sphere_bounce", "04_very-simple", None), ("sphere_bounce", "03_physics-2", None)],
 )
-def test_cuda_bounce_kernel_matches_plain_version(cuda_device, kernel, name):
+def test_cuda_bounce_kernel_matches_plain_version(cuda_device, kernel, name, use_tlas):
     """Each launch of a wavefront frame (bounce 0: every lane alive, lanes
     re-sorted; later bounces: a sorted dead tail) again through the kernel
     and through its plain version, on the same state."""
@@ -153,9 +169,12 @@ def test_cuda_bounce_kernel_matches_plain_version(cuda_device, kernel, name):
     )
     launches: list = []
     compaction.trace_paths_wavefront(
-        scene, origins, directions, seed, max_bounces=4, mesh=mesh, on_launch=launches.append
+        scene, origins, directions, seed, max_bounces=4, mesh=mesh, on_launch=launches.append,
+        use_tlas=use_tlas,
     )
     assert len(launches) >= 2 and launches[-1].live < launches[-1].bucket
+    if mesh is not None:
+        kernel = _variant(kernel, use_tlas)
     for launch in launches:
         args = (*launch.state, launch.live, seed, launch.bounce)
         kernels.reset_counts()
@@ -164,9 +183,11 @@ def test_cuda_bounce_kernel_matches_plain_version(cuda_device, kernel, name):
             torch.cuda.synchronize()
             expected = kernels.sphere_bounce_reference(scene, *args, total_bounces=4)
         else:
-            got = kernels.mesh_bounce(scene, mesh, *args, total_bounces=4)
+            got = kernels.mesh_bounce(scene, mesh, *args, total_bounces=4, use_tlas=use_tlas)
             torch.cuda.synchronize()
-            expected = kernels.mesh_bounce_reference(scene, mesh, *args, total_bounces=4)
+            expected = kernels.mesh_bounce_reference(
+                scene, mesh, *args, total_bounces=4, use_tlas=use_tlas
+            )
         assert kernels.counts == {
             k: int(k in (kernel, f"{kernel}_reference")) for k in kernels.counts
         }
@@ -180,23 +201,26 @@ def test_cuda_bounce_kernel_matches_plain_version(cuda_device, kernel, name):
         assert (got.contribution[launch.live:] == 0).all()
 
 
-def test_cuda_deep_mesh_tiers_go_through_the_kernel(cuda_device):
+@pytest.mark.parametrize("use_tlas", [False, None])
+def test_cuda_deep_mesh_tiers_go_through_the_kernel(cuda_device, use_tlas):
     """A deep mesh frame through the masked deep loop launches the
     per-bounce mesh kernel once per bounce; the wavefront driver gives the
     same image to the bit; both agree with the CPU render."""
     name = "03_physics-2-mesh"
+    kernel = _variant("mesh_bounce", use_tlas)
     kernels.reset_counts()
-    image = integrator.fused_frame_renderer(name, 64, 48, 2, 4)(3)
+    image = integrator.fused_frame_renderer(name, 64, 48, 2, 4, use_tlas=use_tlas)(3)
     assert image.device.type == "cuda" and image.shape == (48, 64, 3)
-    assert kernels.counts == {k: 4 * (k == "mesh_bounce") for k in kernels.counts}
+    assert kernels.counts == {k: 4 * (k == kernel) for k in kernels.counts}
     kernels.reset_counts()
     launches: list = []
     wavefront = compaction.render_frame_wavefront(
-        name, 3, width=64, height=48, samples=2, max_bounces=4, on_launch=launches.append
+        name, 3, width=64, height=48, samples=2, max_bounces=4, on_launch=launches.append,
+        use_tlas=use_tlas,
     )
-    assert kernels.counts == {k: len(launches) * (k == "mesh_bounce") for k in kernels.counts}
+    assert kernels.counts == {k: len(launches) * (k == kernel) for k in kernels.counts}
     assert torch.equal(integrator.tonemap(wavefront), image)
-    cpu = integrator.fused_frame_renderer(name, 64, 48, 2, 4, "cpu")(3)
+    cpu = integrator.fused_frame_renderer(name, 64, 48, 2, 4, "cpu", use_tlas=use_tlas)(3)
     diff = (image.cpu().int() - cpu.int()).abs()
     assert (diff <= 1).float().mean().item() >= 0.995
 
@@ -216,6 +240,7 @@ def test_cuda_sphere_wavefront_goes_through_the_kernel(cuda_device):
     assert close.float().mean().item() >= 0.999
 
 
+@pytest.mark.parametrize("use_tlas", [False, None])
 @pytest.mark.parametrize(
     "kernel,name,frames,size",
     [("pool_mesh_bounce", "03_physics-2-mesh", (30, 31), (64, 48, 2, 4096)),
@@ -227,28 +252,32 @@ def test_cuda_sphere_wavefront_goes_through_the_kernel(cuda_device):
      ("pool_mesh_bounce", "03_physics-2-mesh", tuple(range(1, 9)), (16, 16, 1, 1024)),
      ("pool_mesh_bounce", "03_physics-2-mesh", tuple(range(1, 33)), (16, 16, 1, 1024))],
 )
-def test_cuda_pool_kernel_matches_plain_version(cuda_device, kernel, name, frames, size):
+def test_cuda_pool_kernel_matches_plain_version(
+    cuda_device, kernel, name, frames, size, use_tlas
+):
     """Every launch of a pool window (lanes of several frames at mixed
     bounces, a dead tail) again through the kernel and its plain version,
     and each frame's image against the CPU wavefront's."""
     width, height, samples, pool_width = size
+    options = {} if kernel == "pool_sphere_bounce" else {"use_tlas": use_tlas}
+    launched = kernel if not options else _variant(kernel, use_tlas)
     launches: list = []
     kernels.reset_counts()
     images, stats = raypool.render_batch_raypool(
         name, frames, width=width, height=height, samples=samples, max_bounces=4,
-        pool_width=pool_width, frame_cap=len(frames), on_iteration=launches.append,
+        pool_width=pool_width, frame_cap=len(frames), on_iteration=launches.append, **options,
     )
-    assert kernels.counts == {k: stats[0].iterations * (k == kernel) for k in kernels.counts}
+    assert kernels.counts == {k: stats[0].iterations * (k == launched) for k in kernels.counts}
     assert len(launches) == stats[0].iterations >= 4
     window = raypool.PoolWindow(
         name, frames, width=width, height=height, samples=samples, max_bounces=4,
-        pool_width=pool_width, device=cuda_device,
+        pool_width=pool_width, device=cuda_device, **options,
     )
     wrapper, plain = getattr(kernels, kernel), getattr(kernels, f"{kernel}_reference")
     for launch in launches:
         live = int(launch.live)
-        got = wrapper(window.ops, *launch.state, live, total_bounces=4)
-        expected = plain(window.ops, *launch.state, live, total_bounces=4)
+        got = wrapper(window.ops, *launch.state, live, total_bounces=4, **options)
+        expected = plain(window.ops, *launch.state, live, total_bounces=4, **options)
         torch.cuda.synchronize()
         close = torch.ones(window.pool, dtype=torch.bool, device=cuda_device)
         for have, want in zip(got[:4], expected[:4]):
@@ -265,7 +294,7 @@ def test_cuda_pool_kernel_matches_plain_version(cuda_device, kernel, name, frame
         card, cpu = (
             compaction.render_frame_wavefront(
                 name, frame, width=width, height=height, samples=samples, max_bounces=4,
-                device=device,
+                device=device, **options,
             )
             for device in (cuda_device, "cpu")
         )
@@ -274,10 +303,11 @@ def test_cuda_pool_kernel_matches_plain_version(cuda_device, kernel, name, frame
         assert (~close).sum().item() == 0
 
 
-def test_cuda_backend_pool_tier_goes_through_the_kernel(cuda_device, tmp_path):
+@pytest.mark.parametrize("use_tlas", [False, None])
+def test_cuda_backend_pool_tier_goes_through_the_kernel(cuda_device, tmp_path, use_tlas):
     """A deep mesh job's frame with two more queued: one pool window, every
-    iteration one pool_mesh_bounce launch and nothing else; the queued
-    frames come from the cache without a launch."""
+    iteration one pool_mesh_bounce launch (its TLAS variant by default) and
+    nothing else; the queued frames come from the cache without a launch."""
     from tpu_render_cluster_torch.jobs.models import BlenderJob
     from tpu_render_cluster_torch.worker.backends.torch_raytrace import TorchRaytraceBackend
 
@@ -292,7 +322,7 @@ def test_cuda_backend_pool_tier_goes_through_the_kernel(cuda_device, tmp_path):
     launches: list = []
     backend = TorchRaytraceBackend(
         width=64, height=48, samples=2, max_bounces=4, base_directory=tmp_path,
-        on_iteration=launches.append,
+        on_iteration=launches.append, use_tlas=use_tlas,
     )
     import asyncio
 
@@ -304,7 +334,7 @@ def test_cuda_backend_pool_tier_goes_through_the_kernel(cuda_device, tmp_path):
     backend.note_upcoming_frames(job, ())
     asyncio.run(backend.render_frame(job, 3))
     assert launches and kernels.counts == {
-        k: len(launches) * (k == "pool_mesh_bounce") for k in kernels.counts
+        k: len(launches) * (k == _variant("pool_mesh_bounce", use_tlas)) for k in kernels.counts
     }
     assert len(list((tmp_path / "frames").glob("*.png"))) == 3
 

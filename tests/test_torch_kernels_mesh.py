@@ -90,7 +90,7 @@ def test_plain_version_matches_pallas_interpret(pallas_on, source, use_tlas, max
     )
     got = kernels.trace_paths_fused_mesh_reference(
         port, port_mesh_set, torch.from_numpy(origins), torch.from_numpy(directions), seed,
-        max_bounces=max_bounces,
+        max_bounces=max_bounces, use_tlas=use_tlas,
     ).numpy()
     assert got.shape == expected.shape and np.isfinite(got).all()
     close = np.isclose(got, expected, rtol=1e-4, atol=1e-4).all(axis=1)
@@ -138,7 +138,7 @@ def test_plain_version_counts_the_mesh_work():
     stats: dict = {}
     kernels.trace_paths_fused_mesh_reference(
         port, port_mesh_set, torch.from_numpy(origins), torch.from_numpy(directions), seed,
-        max_bounces=4, stats=stats,
+        max_bounces=4, use_tlas=False, stats=stats,
     )
     k = port_mesh_set.instances.translation.shape[0]
     rays = origins.shape[0]
@@ -183,6 +183,11 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
         scene, mesh, torch.from_numpy(origins), torch.from_numpy(directions), 5, max_bounces=2
     )
     assert out.shape == (origins.shape[0], 3)
+    flat = kernels.trace_paths_fused_mesh(
+        scene, mesh, torch.from_numpy(origins), torch.from_numpy(directions), 5, max_bounces=2,
+        use_tlas=False,
+    )
+    torch.testing.assert_close(flat, out, rtol=0, atol=0)
     assert kernels.counts == {
         "trace_fused": 0, "trace_fused_reference": 0,
         "trace_fused_mesh": 0, "trace_fused_mesh_reference": 1,
@@ -196,6 +201,9 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
         "occluded_instances": 0, "occluded_instances_reference": 0,
         "intersect_mesh": 0, "intersect_mesh_reference": 0,
         "occluded_mesh": 0, "occluded_mesh_reference": 0,
+        "trace_fused_mesh_tlas": 0, "trace_fused_mesh_tlas_reference": 1,
+        "mesh_bounce_tlas": 0, "mesh_bounce_tlas_reference": 0,
+        "pool_mesh_bounce_tlas": 0, "pool_mesh_bounce_tlas_reference": 0,
     }
 
 
@@ -239,15 +247,21 @@ def test_trace_paths_dispatches_like_the_reference():
         mesh_scene, origins, directions, 7, max_bounces=1,
         mesh=port_mesh.scene_mesh_set(SCENE, 2),
     )
-    assert kernels.counts["trace_fused_mesh_reference"] == 1
+    assert kernels.counts["trace_fused_mesh_tlas_reference"] == 1
     deep = port_mesh.scene_mesh_set("03_physics-2-mesh", 2)
     assert not kernels.mesh_megakernel_eligible(deep)
     integrator.trace_paths(
         port_scene.build_scene("03_physics-2-mesh", 2, "cpu"), origins, directions, 7,
         max_bounces=2, mesh=deep,
     )
-    assert kernels.counts["trace_fused_mesh_reference"] == 1
-    assert kernels.counts["mesh_bounce_reference"] == 2  # once per bounce
+    assert kernels.counts["trace_fused_mesh_tlas_reference"] == 1
+    assert kernels.counts["mesh_bounce_tlas_reference"] == 2  # once per bounce
+    # use_tlas=False: the flat kernels, at the same dispatch.
+    integrator.trace_paths(
+        port_scene.build_scene("03_physics-2-mesh", 2, "cpu"), origins, directions, 7,
+        max_bounces=2, mesh=deep, use_tlas=False,
+    )
+    assert kernels.counts["mesh_bounce_reference"] == 2
 
 
 def test_mesh_and_rays_must_share_a_device():
@@ -269,8 +283,9 @@ def test_build_digest_covers_shared_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", csrc / "build")
     assert _build.sources() == [
         "intersect_instances", "intersect_mesh", "intersect_spheres", "mesh_bounce",
-        "occluded_instances", "occluded_mesh", "occluded_spheres", "pool_mesh_bounce",
-        "pool_sphere_bounce", "sphere_bounce", "trace_fused", "trace_fused_mesh",
+        "mesh_bounce_tlas", "occluded_instances", "occluded_mesh", "occluded_spheres",
+        "pool_mesh_bounce", "pool_mesh_bounce_tlas", "pool_sphere_bounce", "sphere_bounce",
+        "trace_fused", "trace_fused_mesh", "trace_fused_mesh_tlas",
     ]
     before = {name: _build.library_path(name) for name in _build.sources()}
     header = csrc / "path_common.cuh"

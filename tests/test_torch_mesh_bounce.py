@@ -143,7 +143,9 @@ def test_bounce_plain_version_matches_pallas_interpret(pallas_on, name, bounce):
     if mesh_set is None:
         out = kernels.sphere_bounce(port, *tensors, live, SEED, bounce, total_bounces=BOUNCES)
     else:
-        out = kernels.mesh_bounce(port, port_mesh, *tensors, live, SEED, bounce, total_bounces=BOUNCES)
+        out = kernels.mesh_bounce(
+            port, port_mesh, *tensors, live, SEED, bounce, total_bounces=BOUNCES, use_tlas=False
+        )
     name_called = "sphere_bounce_reference" if mesh_set is None else "mesh_bounce_reference"
     assert kernels.counts == {k: int(k == name_called) for k in kernels.counts}
     got = tuple(a.numpy() for a in out)
@@ -158,7 +160,8 @@ def test_bounce_plain_version_matches_pallas_interpret(pallas_on, name, bounce):
 
 def check_deep_loop(*, max_bounces: int, use_tlas):
     """The port's deep loop against the reference's ``trace_paths`` on
-    the deep scene's camera rays (``TRC_PALLAS=1`` set by the caller)."""
+    the deep scene's camera rays (``TRC_PALLAS=1`` set by the caller), both
+    at the instance walk ``use_tlas`` (None: each one's default, TLAS)."""
     scene, mesh_set, port, port_mesh = _mesh_inputs(DEEP, FRAME)
     origins, directions = camera_rays(DEEP)
     key = jax.random.PRNGKey(3)
@@ -172,10 +175,10 @@ def check_deep_loop(*, max_bounces: int, use_tlas):
     got = integrator.trace_paths(
         port, torch.from_numpy(origins), torch.from_numpy(directions),
         int(ref_integrator.trace_seed(key)), max_bounces=max_bounces, mesh=port_mesh,
+        use_tlas=use_tlas,
     ).numpy()
-    assert kernels.counts == {
-        k: (max_bounces if k == "mesh_bounce_reference" else 0) for k in kernels.counts
-    }
+    plain = "mesh_bounce_reference" if use_tlas is False else "mesh_bounce_tlas_reference"
+    assert kernels.counts == {k: (max_bounces if k == plain else 0) for k in kernels.counts}
     assert got.shape == expected.shape and np.isfinite(got).all()
     close = np.isclose(got, expected, rtol=1e-4, atol=1e-4).all(axis=1)
     if max_bounces == 1:

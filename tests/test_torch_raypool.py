@@ -236,7 +236,10 @@ def test_pool_bounce_plain_version_matches_pallas_interpret(name, frames):
     expected = [np.asarray(a) for a in expected]
     ops = _port_ops(name, frames)
     kernels.reset_counts()
-    got = wrapper(ops, *(torch.from_numpy(a) for a in state), live, total_bounces=TOTAL_BOUNCES)
+    options = {"use_tlas": False} if name == DEEP else {}  # the reference's flat kernel
+    got = wrapper(
+        ops, *(torch.from_numpy(a) for a in state), live, total_bounces=TOTAL_BOUNCES, **options
+    )
     called = f"{wrapper.__name__}_reference"
     assert kernels.counts == {k: int(k == called) for k in kernels.counts}
     got = [a.numpy() for a in got]
@@ -523,8 +526,8 @@ def test_the_queue_hint_drives_the_auto_tier_through_the_harness(tmp_path):
     _master_trace, worker_traces = run_local_job(job, [backend], timeout=300.0)
     rendered = [t for _name, trace in worker_traces for t in trace.frame_render_traces]
     assert sorted(t.frame_index for t in rendered) == [1, 2, 3, 4, 5]
-    assert kernels.counts["pool_mesh_bounce_reference"] > 0
-    assert kernels.counts["trace_fused_mesh_reference"] == 0
+    assert kernels.counts["pool_mesh_bounce_tlas_reference"] > 0
+    assert kernels.counts["trace_fused_mesh_tlas_reference"] == 0
     assert not backend._raypool_cache
     masked = integrator.fused_frame_renderer(DEEP, width, height, samples, bounces, "cpu")
     for frame in range(1, 6):

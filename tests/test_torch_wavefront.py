@@ -69,7 +69,7 @@ def test_wavefront_equals_the_masked_deep_loop():
     for launch in launches:
         o, d, thr, alive, lane = launch.state
         assert launch.live <= launch.bucket == o.shape[0]
-        assert launch.bucket == compaction.bucket_for(launch.live, rays, compaction.BUCKET_BLOCK)
+        assert launch.bucket == compaction.bucket_for(launch.live, rays, kernels.TLAS_BLOCK_R)
         assert alive[:launch.live].all() and not alive[launch.live:].any()
         assert lane.unique().numel() == lane.numel()
     lives = [launch.live for launch in launches]
@@ -94,7 +94,7 @@ def test_wavefront_launch_log_records_each_launch():
     launches: list = []
 
     def on_launch(launch):
-        assert kernels.counts["mesh_bounce_reference"] == len(launches)
+        assert kernels.counts["mesh_bounce_tlas_reference"] == len(launches)
         launches.append(launch)
 
     port = port_scene.build_scene(DEEP, 2, "cpu")
@@ -104,7 +104,7 @@ def test_wavefront_launch_log_records_each_launch():
         port, origins, directions, 9, max_bounces=3, mesh=scene_mesh_set(DEEP, 2),
         on_launch=on_launch,
     )
-    assert kernels.counts["mesh_bounce_reference"] == len(launches) >= 2
+    assert kernels.counts["mesh_bounce_tlas_reference"] == len(launches) >= 2
     assert [launch.bounce for launch in launches] == list(range(len(launches)))
     assert launches[0][1:3] == (100, 100)  # capped at the wavefront's width
 

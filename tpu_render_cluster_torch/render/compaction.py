@@ -10,9 +10,12 @@ key the kernels' RNG, so a ray's stream is the one it has in the masked
 loop or the megakernel, and the images agree ray for ray.
 
 Sphere scenes compact with a stable partition (the sphere kernel culls no
-packets); mesh scenes with the integrator's coherence sort, whose dead flag
-parks the dead lanes at the tail, so one gather buys both the partition and
-packet coherence.
+packets); mesh scenes with a coherence sort whose dead flag parks the dead
+lanes at the tail, so one gather buys both the partition and packet
+coherence: under the mesh kernels' TLAS variant (the default) a stable
+argsort of the key column the previous launch wrote (bounce 0:
+``kernels.initial_mesh_sort_keys``), under the flat variant the
+integrator's ``ray_sort_key`` with its ``[R, K]`` broadphase each bounce.
 
 The reference's occupancy gauges, survival histograms and per-bounce spans
 come with the port of its ``obs`` package. Until then a caller may pass
@@ -34,8 +37,11 @@ from tpu_render_cluster_torch.render.integrator import _ray_sort_order, frame_ra
 from tpu_render_cluster_torch.render.mesh import MeshSet, scene_mesh_set
 from tpu_render_cluster_torch.render.scene import Scene, build_scene
 
-# The bucket quantum: the per-bounce kernels' thread block.
+# The bucket quantum of sphere scenes: the per-bounce kernels' thread block.
 BUCKET_BLOCK = 256
+# The flat mesh variant's quantum: the reference's ray block (BVH_BLOCK_R);
+# the TLAS variant's is kernels.TLAS_BLOCK_R.
+FLAT_MESH_BUCKET_BLOCK = 1024
 
 
 class WavefrontLaunch(NamedTuple):
@@ -70,10 +76,15 @@ def compaction_order(alive: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return perm, live
 
 
-def compact(origins, directions, throughput, alive, lane, mesh):
+def compact(origins, directions, throughput, alive, lane, mesh, keys=None):
     """The state reordered (live lanes first) by one packed gather, and the
-    device count of live lanes."""
-    if mesh is None:
+    device count of live lanes. ``keys`` (the TLAS variant's key column):
+    the order is their stable argsort (the reference's
+    ``_compact_mesh_keyed``)."""
+    if keys is not None:
+        order = torch.argsort(keys, stable=True)
+        live = alive.sum()
+    elif mesh is None:
         order, live = compaction_order(alive)
     else:
         order = _ray_sort_order(origins, directions, alive, mesh)
@@ -93,6 +104,7 @@ def trace_paths_wavefront(
     max_bounces: int,
     mesh: MeshSet | None = None,
     on_launch: Callable[[WavefrontLaunch], None] | None = None,
+    use_tlas: bool | None = None,
 ) -> torch.Tensor:
     """Trace one sample per ray, wavefront-style; radiance [R, 3].
 
@@ -100,7 +112,10 @@ def trace_paths_wavefront(
     launch ``kernels.mesh_bounce`` (or ``sphere_bounce`` without a mesh)
     over the bucket, and add the contribution into each ray's original
     lane. An all-dead wavefront ends the loop. ``on_launch``, when given,
-    is called with each launch before it runs.
+    is called with each launch before it runs. ``use_tlas`` (None:
+    ``kernels.use_tlas_for``) picks the mesh kernel's variant and, with it,
+    the compaction's key and the bucket quantum (``kernels.TLAS_BLOCK_R``,
+    else ``FLAT_MESH_BUCKET_BLOCK``).
     """
     n0 = origins.shape[0]
     device = origins.device
@@ -108,14 +123,22 @@ def trace_paths_wavefront(
     throughput = torch.ones((n0, 3), dtype=torch.float32, device=device)
     alive = torch.ones((n0,), dtype=torch.bool, device=device)
     lane = torch.arange(n0, dtype=torch.int32, device=device)
+    tlas = mesh is not None and kernels.use_tlas_for(
+        mesh.instances.translation.shape[0], use_tlas
+    )
+    if mesh is None:
+        block = BUCKET_BLOCK
+    else:
+        block = kernels.TLAS_BLOCK_R if tlas else FLAT_MESH_BUCKET_BLOCK
+    keys = kernels.initial_mesh_sort_keys(mesh, origins, directions, alive) if tlas else None
     for bounce in range(max_bounces):
         origins, directions, throughput, alive, lane, live_dev = compact(
-            origins, directions, throughput, alive, lane, mesh
+            origins, directions, throughput, alive, lane, mesh, keys
         )
         live = int(live_dev)  # the one device sync of the bounce
         if live == 0:
             break
-        bucket = bucket_for(live, cap=origins.shape[0], block=BUCKET_BLOCK)
+        bucket = bucket_for(live, cap=origins.shape[0], block=block)
         state = (
             origins[:bucket], directions[:bucket], throughput[:bucket], alive[:bucket],
             lane[:bucket],
@@ -128,11 +151,13 @@ def trace_paths_wavefront(
             )
         else:
             step = kernels.mesh_bounce(
-                scene, mesh, *state, live, seed, bounce, total_bounces=max_bounces
+                scene, mesh, *state, live, seed, bounce, total_bounces=max_bounces,
+                use_tlas=tlas,
             )
         origins, directions, throughput, alive = (
             step.origins, step.directions, step.throughput, step.alive
         )
+        keys = step.key
         lane = state[4]
         radiance.index_add_(0, lane.to(torch.int64), step.contribution)
     return radiance
@@ -148,10 +173,12 @@ def render_frame_wavefront(
     max_bounces: int = 4,
     device: str | torch.device | None = None,
     on_launch: Callable[[WavefrontLaunch], None] | None = None,
+    use_tlas: bool | None = None,
 ) -> torch.Tensor:
     """Render one frame through the wavefront driver; [H, W, 3] linear
     radiance on ``device`` (CUDA unless ``cpu`` is asked for). The same
-    rays and trace seed as ``integrator.render_frame``."""
+    rays and trace seed as ``integrator.render_frame``; ``use_tlas`` as for
+    ``trace_paths_wavefront``."""
     device = resolve_device(device)
     scene = build_scene(scene_name, frame_index, device)
     camera = scene_camera(scene_name, frame_index, device)
@@ -161,6 +188,7 @@ def render_frame_wavefront(
     radiance = trace_paths_wavefront(
         scene, origins, directions, seed, max_bounces=max_bounces,
         mesh=scene_mesh_set(scene_name, frame_index, device=device), on_launch=on_launch,
+        use_tlas=use_tlas,
     )
     return radiance.reshape(samples, height * width, 3).mean(dim=0).reshape(height, width, 3)
 

@@ -71,7 +71,8 @@ mesh_bounce_kernel(const float* __restrict__ origins, const float* __restrict__ 
     path::load_scene(scene, spheres, n_spheres, params);  // ends with __syncthreads()
     if (is_alive && ray < live) {
       const uint32_t counter_stride = 2u * static_cast<uint32_t>(total_bounces) + 2u;
-      is_alive = mesh::bounce(scene, 0, n_spheres, tables, 0, tables.n_instances,
+      const mesh::FlatInstances instances = {0, tables.n_instances};
+      is_alive = mesh::bounce(scene, 0, n_spheres, tables, instances,
                               static_cast<uint32_t>(lanes[ray]), bounce, counter_stride, seed,
                               o, d, thr, rad);
     }

@@ -1,21 +1,28 @@
 // Mesh-scene device code shared by the mesh path-trace kernels (the
-// megakernel trace_fused_mesh.cu, the per-bounce kernel mesh_bounce.cu, the
-// ray-pool kernel pool_mesh_bounce.cu and the bounce scan's unit kernels
-// intersect_instances.cu, occluded_instances.cu, intersect_mesh.cu and
-// occluded_mesh.cu): the instance and BVH tables, their staging in shared
-// memory, the walk of one object-space ray through the threaded BVH
-// (blas_nearest, blas_occluded), the nearest hit and the shadow any-hit over
-// the rigid instances [first, first + count) of one mesh built on it (a
-// frame's K instances, or a lane's own frame's rows of a pool's frame-major
-// stacked table), and the whole mesh-scene bounce built from them and
+// megakernels trace_fused_mesh.cu and trace_fused_mesh_tlas.cu, the
+// per-bounce kernels mesh_bounce.cu and mesh_bounce_tlas.cu, the ray-pool
+// kernels pool_mesh_bounce.cu and pool_mesh_bounce_tlas.cu, and the bounce
+// scan's unit kernels intersect_instances.cu, occluded_instances.cu,
+// intersect_mesh.cu and occluded_mesh.cu): the instance and BVH tables,
+// their staging in shared memory, the walk of one object-space ray through
+// the threaded BVH (blas_nearest, blas_occluded), the nearest hit and the
+// shadow any-hit over the rigid instances of one mesh built on it, in two
+// variants (FlatInstances: the instances [first, first + count) in table
+// order, a frame's K or a lane's own frame's rows of a pool's frame-major
+// stacked table; TlasInstances: the two-level walk of a frame's TLAS over
+// the instance table in Morton slot order), the TLAS variants' entry walk
+// and coherence key, and the whole mesh-scene bounce built from them and
 // path_common.cuh.
 //
-// Walk order: instances in table order, nodes in canonical DFS preorder
-// entered at node 0, strict `<` updates of a best t seeded with the
-// sphere/plane t, the first tying row of a leaf winning. Per ray that is the
-// nearest hit the reference's packet walk finds, ties aside: the TPU's
-// block-wide `any` culls and its near-first instance order change which
-// nodes a packet visits, never a ray's nearest hit.
+// Walk order: instances in table order (or the TLAS's leaves in preorder,
+// their slots in order), nodes in canonical DFS preorder entered at the
+// first node, strict `<` updates of a best t seeded with the sphere/plane
+// t, the first tying row of a leaf winning. Per ray that is the nearest hit
+// the reference's packet walk finds, ties aside: the TPU's block-wide `any`
+// culls and its near-first instance order change which nodes a packet
+// visits, never a ray's nearest hit. A TLAS node's box is the union of its
+// slots' world boxes and the slab arithmetic is monotone in the box, so a
+// node test never rejects a ray that one of its slots' tests would accept.
 //
 // Rounding follows the reference's compiler as in path_common.cuh: each
 // written-out sum of three products a*b + c*d + e*f is
@@ -218,17 +225,188 @@ __device__ __forceinline__ bool occluded(const MeshTables& m, int first, int cou
   return false;
 }
 
+// The flat instance sweep: instances [first, first + count) in table order.
+struct FlatInstances {
+  int first;
+  int count;
+  __device__ __forceinline__ MeshHit nearest(const MeshTables& m, float3v o, float3v d,
+                                             float t_seed) const {
+    return mesh::nearest(m, first, count, o, d, t_seed);
+  }
+  __device__ __forceinline__ bool occluded(const MeshTables& m, float3v so, float3v sun) const {
+    return mesh::occluded(m, first, count, so, sun);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The two-level walk (TLAS): a threaded tree over the instance table's
+// slots, whose leaves hold contiguous slot ranges, in _pack_bvh's layout
+// (kernels.tlas_links: a pool stacks one window of nodes per frame, its
+// skip links and leaf starts offset into the stacked rows).
+
+struct TlasTables {
+  const float4* bounds;  // [M, 2]: lo, hi
+  const int4* links;  // [M]: skip, first slot, slot count, 0
+  int n_nodes;  // M (a pool: per frame)
+  int n_rows;  // the stacked rows (a pool: frames x M)
+};
+
+// The staged tables: the mesh tables (stage_tables), then at the next
+// 16-byte boundary the TLAS's bounds and links.
+__host__ __device__ inline size_t tlas_offset(int n_tri_rows, int n_nodes, int n_instances) {
+  return (table_bytes(n_tri_rows, n_nodes, n_instances) + 15) / 16;  // in float4
+}
+
+__host__ __device__ inline size_t two_level_bytes(int n_tri_rows, int n_nodes, int n_instances,
+                                                  int n_tlas_rows) {
+  return sizeof(float4) * tlas_offset(n_tri_rows, n_nodes, n_instances) +
+         (2 * sizeof(float4) + sizeof(int4)) * static_cast<size_t>(n_tlas_rows);
+}
+
+__device__ __forceinline__ void stage_two_level(MeshTables& m, TlasTables& t, float4* staging,
+                                                int n_tri_rows) {
+  float4* bounds = staging + tlas_offset(n_tri_rows, m.n_nodes, m.n_instances);
+  int4* links = reinterpret_cast<int4*>(bounds + 2 * t.n_rows);
+  stage_tables(m, staging, n_tri_rows);
+  for (int i = threadIdx.x; i < 2 * t.n_rows; i += blockDim.x) bounds[i] = t.bounds[i];
+  for (int i = threadIdx.x; i < t.n_rows; i += blockDim.x) links[i] = t.links[i];
+  t.bounds = bounds;
+  t.links = links;
+}
+
+// THE threaded walk of nodes [node, node_end), shared by the nearest, the
+// shadow and the entry walks (the reference's `tlas_walk`): a node whose box
+// the ray misses, or enters at or past limit(), is skipped with its subtree;
+// a leaf's slot range goes to leaf(first, end), which returns true to end
+// the walk.
+template <typename Limit, typename Leaf>
+__device__ __forceinline__ void tlas_walk(const TlasTables& t, int node, int node_end, float3v o,
+                                          float3v inv, Limit limit, Leaf leaf) {
+  while (node < node_end) {
+    const int4 link = t.links[node];
+    if (!node_box(t.bounds, node, o, inv, limit())) {
+      node = link.x;
+    } else if (link.z > 0) {
+      if (leaf(link.y, link.y + link.z)) return;
+      node = link.x;
+    } else {
+      node = node + 1;
+    }
+  }
+}
+
+// The two-level walk over nodes [node0, node_end).
+struct TlasInstances {
+  TlasTables tlas;
+  int node0;
+  int node_end;
+
+  // Nearest hit, seeded with t_seed: each node culled by its box against
+  // best.t, then a leaf's slots as the flat sweep tests an instance.
+  __device__ __forceinline__ MeshHit nearest(const MeshTables& m, float3v o, float3v d,
+                                             float t_seed) const {
+    MeshHit best = {t_seed, -1, 0};
+    const float3v inv = winv3(d);
+    tlas_walk(tlas, node0, node_end, o, inv, [&] { return best.t; }, [&](int first, int end) {
+      for (int k = first; k < end; ++k) {
+        const float* inst = m.inst + kInstanceWidth * k;
+        if (!world_box(inst, o, inv, best.t)) continue;
+        blas_nearest(m, point_to_object(inst, o), to_object(inst, d.x, d.y, d.z), k, best);
+      }
+      return false;
+    });
+    return best;
+  }
+
+  // Any triangle ahead of the shadow origin along `sun`: unbounded node
+  // tests, the walk ending at the first occluder.
+  __device__ __forceinline__ bool occluded(const MeshTables& m, float3v so, float3v sun) const {
+    const float3v inv = winv3(sun);
+    bool hit = false;
+    tlas_walk(tlas, node0, node_end, so, inv, [] { return path::kInf; }, [&](int first, int end) {
+      for (int k = first; k < end; ++k) {
+        const float* inst = m.inst + kInstanceWidth * k;
+        if (!world_box(inst, so, inv, path::kInf)) continue;
+        if (blas_occluded(m, point_to_object(inst, so), to_object(inst, sun.x, sun.y, sun.z))) {
+          hit = true;
+          return true;
+        }
+      }
+      return false;
+    });
+    return hit;
+  }
+
+  // The entry walk of the coherence key (the reference's AABB-only TLAS
+  // walk, `pallas_kernels.py:2983-3065`): the slot, less slot_offset, whose
+  // world box the ray enters first (entry max(near, 0), strict `<`, so the
+  // lowest slot wins a tie), `sentinel` where it overlaps none. Nodes are
+  // culled against the best entry so far; no BVH is entered.
+  __device__ __forceinline__ int entry_candidate(const MeshTables& m, float3v o, float3v d,
+                                                 int slot_offset, int sentinel) const {
+    const float3v inv = winv3(d);
+    float best_entry = path::kInf;
+    int best = sentinel;
+    tlas_walk(tlas, node0, node_end, o, inv, [&] { return best_entry; }, [&](int first, int end) {
+      for (int k = first; k < end; ++k) {
+        const float* inst = m.inst + kInstanceWidth * k;
+        const float lox = (inst[13] - o.x) * inv.x, hix = (inst[16] - o.x) * inv.x;
+        const float loy = (inst[14] - o.y) * inv.y, hiy = (inst[17] - o.y) * inv.y;
+        const float loz = (inst[15] - o.z) * inv.z, hiz = (inst[18] - o.z) * inv.z;
+        const float t_near = fmaxf(fmaxf(fminf(lox, hix), fminf(loy, hiy)), fminf(loz, hiz));
+        const float t_far = fminf(fminf(fmaxf(lox, hix), fmaxf(loy, hiy)), fmaxf(loz, hiz));
+        const float entry = fmaxf(t_near, 0.0f);
+        if (t_far >= entry && entry < best_entry) {
+          best_entry = entry;
+          best = k - slot_offset;
+        }
+      }
+      return false;
+    });
+    return best;
+  }
+};
+
+// The reference's Morton dilation of the key (`morton_dilate5`): the low 5
+// bits of v to every third bit.
+__device__ __forceinline__ uint32_t dilate5(uint32_t v) {
+  v = (v | (v << 8)) & 0x0300Fu;
+  v = (v | (v << 4)) & 0x030C3u;
+  return (v | (v << 2)) & 0x09249u;
+}
+
+__device__ __forceinline__ uint32_t key_cell(float p, float lo, float inv) {
+  return static_cast<uint32_t>(static_cast<int>(fminf(fmaxf((p - lo) * inv * 32.0f, 0.0f), 31.0f)));
+}
+
+// The coherence sort key of a lane's state (`coherence_key_u32`), bit for
+// bit: p = o + d; LSB to MSB the direction octant [0:3), the 5-bit Morton
+// cell of p in the key window (lo[3], 1/span[3]) [3:18), the candidate
+// clamped to 63 [18:24), the frame id clamped to 31 [24:29), the dead flag
+// at bit 29.
+__device__ __forceinline__ int coherence_key(float3v o, float3v d, bool dead, int fid,
+                                             int candidate, const float* window) {
+  const uint32_t morton = dilate5(key_cell(o.x + d.x, window[0], window[3])) |
+                          (dilate5(key_cell(o.y + d.y, window[1], window[4])) << 1) |
+                          (dilate5(key_cell(o.z + d.z, window[2], window[5])) << 2);
+  const uint32_t octant = (d.x > 0.0f ? 1u : 0u) | (d.y > 0.0f ? 2u : 0u) | (d.z > 0.0f ? 4u : 0u);
+  const uint32_t cand = min(static_cast<uint32_t>(candidate), 63u);
+  const uint32_t frame = min(static_cast<uint32_t>(fid), 31u);
+  return static_cast<int>(octant | (morton << 3) | (cand << 18) | (frame << 24) |
+                          (dead ? 1u << 29 : 0u));
+}
+
 // One bounce of a mesh-scene path, in the reference's order: nearest sphere
 // and ground-plane hit, then the nearest instance hit seeded with that t;
 // sky on escape; emission and albedo of the sphere, plane or instance hit;
 // sun NEE with the sphere any-hit and the mesh any-hit; cosine resample.
 // Same contract as path::sphere_bounce: adds into rad, advances o, d and
 // thr, and returns false (leaving o, d and thr) when the path escaped. The
-// path sees spheres [sphere_first, sphere_first + n_spheres) and instances
-// [inst_first, inst_first + inst_count).
-template <typename Scene>
+// path sees spheres [sphere_first, sphere_first + n_spheres) and the
+// instances `instances` walks (FlatInstances or TlasInstances).
+template <typename Scene, typename Instances>
 __device__ __forceinline__ bool bounce(const Scene& scene, int sphere_first, int n_spheres,
-                                       const MeshTables& mesh, int inst_first, int inst_count,
+                                       const MeshTables& mesh, const Instances& instances,
                                        uint32_t lane, int bounce_index, uint32_t counter_stride,
                                        uint32_t seed, float3v& o, float3v& d, float3v& thr,
                                        float3v& rad) {
@@ -237,7 +415,7 @@ __device__ __forceinline__ bool bounce(const Scene& scene, int sphere_first, int
   const float t_sphere = path::nearest_sphere(scene, sphere_first, n_spheres, o, d, &idx);
   const float t_plane = path::plane_hit(o, d);
   const float t_sp = fminf(t_sphere, t_plane);
-  const MeshHit hit = nearest(mesh, inst_first, inst_count, o, d, t_sp);
+  const MeshHit hit = instances.nearest(mesh, o, d, t_sp);
   const bool is_mesh = hit.instance >= 0;
   const bool is_plane = !is_mesh && t_plane < t_sphere;
   const float t = is_mesh ? hit.t : t_sp;
@@ -273,7 +451,7 @@ __device__ __forceinline__ bool bounce(const Scene& scene, int sphere_first, int
   const float cos_sun =
       fmaxf(path::dot3(normal.x, normal.y, normal.z, sun.x, sun.y, sun.z), 0.0f);
   if (cos_sun > 0.0f && !path::sphere_shadowed(scene, sphere_first, n_spheres, so) &&
-      !occluded(mesh, inst_first, inst_count, so, sun)) {
+      !instances.occluded(mesh, so, sun)) {
     path::add_direct(scene, albedo, cos_sun, thr, &rad);
   }
 

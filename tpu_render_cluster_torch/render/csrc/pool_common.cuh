@@ -1,5 +1,6 @@
-// Ray-pool device code shared by the pool kernels (pool_sphere_bounce.cu
-// and pool_mesh_bounce.cu): ONE bounce over a fixed-width pool of lanes
+// Ray-pool device code shared by the pool kernels (pool_sphere_bounce.cu,
+// pool_mesh_bounce.cu and pool_mesh_bounce_tlas.cu): ONE bounce over a
+// fixed-width pool of lanes
 // that come from several frames of one scene, for the device-resident ray
 // pool of render/raypool.py. The contract is sphere_bounce.cu's, except
 // that each lane carries its own frame id, its frame's trace seed and its
@@ -34,7 +35,13 @@
 //                       bounce, counter_stride, seed, o, d, thr, rad)
 //                                         one bounce on the lane's frame
 //                                         (frame -1: none), as
-//                                         path::sphere_bounce.
+//                                         path::sphere_bounce;
+//   __device__ void finish(in, ray, frame, o, d, alive)
+//                                         after the lane's outputs are
+//                                         stored, with its state after the
+//                                         bounce and `frame` its frame where
+//                                         it ran a bounce and lives on, else
+//                                         -1 (the TLAS kernel's key).
 
 #pragma once
 
@@ -87,6 +94,8 @@ struct SphereBounce {
     return path::sphere_bounce(scene, sphere_first, n_spheres, lane, bounce, counter_stride,
                                seed, o, d, thr, rad);
   }
+  __device__ __forceinline__ void finish(const State&, int64_t, int, float3v, float3v,
+                                         bool) const {}
 };
 
 // The body of a pool kernel: `staging` is its dynamic shared memory and
@@ -107,6 +116,7 @@ __device__ __forceinline__ void bounce_lanes(const State& in, const Spheres& sph
     is_alive = in.alive[ray] != 0;
   }
   float3v rad = {0.0f, 0.0f, 0.0f};
+  int walked_frame = -1;
 
   // Uniform per block: a block wholly past the live count stages nothing.
   if (static_cast<int64_t>(blockIdx.x) * blockDim.x < live) {
@@ -128,6 +138,7 @@ __device__ __forceinline__ void bounce_lanes(const State& in, const Spheres& sph
                             in_window ? spheres.per_frame : 0, in_window ? fid : -1,
                             static_cast<uint32_t>(in.lanes[ray]), in.bounces[ray],
                             counter_stride, static_cast<uint32_t>(in.seeds[ray]), o, d, thr, rad);
+      if (is_alive && in_window) walked_frame = fid;
     }
   }
   if (ray >= in.n_rays) return;
@@ -136,6 +147,7 @@ __device__ __forceinline__ void bounce_lanes(const State& in, const Spheres& sph
   path::store3(out.directions, ray, d);
   path::store3(out.throughput, ray, thr);
   out.alive[ray] = is_alive ? 1 : 0;
+  bounce.finish(in, ray, walked_frame, o, d, is_alive);
 }
 
 // Launch `kernel` (a __global__ wrapper of bounce_lanes taking

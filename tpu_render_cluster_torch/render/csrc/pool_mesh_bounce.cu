@@ -45,10 +45,13 @@ struct MeshBounce {
                                       int frame, uint32_t lane, int bounce,
                                       uint32_t counter_stride, uint32_t seed, float3v& o,
                                       float3v& d, float3v& thr, float3v& rad) const {
-    return mesh::bounce(scene, sphere_first, n_spheres, tables,
-                        frame >= 0 ? frame * per_frame : 0, frame >= 0 ? per_frame : 0, lane,
-                        bounce, counter_stride, seed, o, d, thr, rad);
+    const mesh::FlatInstances instances = {frame >= 0 ? frame * per_frame : 0,
+                                           frame >= 0 ? per_frame : 0};
+    return mesh::bounce(scene, sphere_first, n_spheres, tables, instances, lane, bounce,
+                        counter_stride, seed, o, d, thr, rad);
   }
+  __device__ __forceinline__ void finish(const pool::State&, int64_t, int, float3v, float3v,
+                                         bool) const {}
 };
 
 __global__ void __launch_bounds__(pool::kThreads)

@@ -64,9 +64,10 @@ trace_fused_mesh_kernel(const float* __restrict__ origins,
   float3v rad = {0.0f, 0.0f, 0.0f};
   const uint32_t counter_stride = 2u * static_cast<uint32_t>(max_bounces) + 2u;
 
+  const mesh::FlatInstances instances = {0, tables.n_instances};
   for (int bounce = 0; bounce < max_bounces; ++bounce) {
-    if (!mesh::bounce(scene, 0, n_spheres, tables, 0, tables.n_instances, lane, bounce,
-                      counter_stride, seed, o, d, thr, rad)) {
+    if (!mesh::bounce(scene, 0, n_spheres, tables, instances, lane, bounce, counter_stride, seed,
+                      o, d, thr, rad)) {
       break;  // the path escaped
     }
   }

@@ -314,37 +314,48 @@ def trace_paths(
     *,
     max_bounces: int,
     mesh: MeshSet | None = None,
+    use_tlas: bool | None = None,
 ) -> torch.Tensor:
     """Trace one sample per ray through the whole bounce loop; radiance
     [R, 3]. The reference's dispatch: no mesh -> the sphere megakernel; a
     mesh within the walk bound -> the mesh megakernel; a deeper mesh ->
-    the per-bounce mesh kernel under the masked deep loop."""
+    the per-bounce mesh kernel under the masked deep loop. ``use_tlas``
+    (None: ``kernels.use_tlas_for``) picks the mesh kernels' TLAS variant."""
     if mesh is None:
         return kernels.trace_paths_fused(
             scene, origins, directions, seed, max_bounces=max_bounces
         )
     if kernels.mesh_megakernel_eligible(mesh):
         return kernels.trace_paths_fused_mesh(
-            scene, mesh, origins, directions, seed, max_bounces=max_bounces
+            scene, mesh, origins, directions, seed, max_bounces=max_bounces, use_tlas=use_tlas
         )
-    return _trace_paths_deep(scene, mesh, origins, directions, seed, max_bounces)
+    return _trace_paths_deep(scene, mesh, origins, directions, seed, max_bounces, use_tlas)
 
 
-def _trace_paths_deep(scene, mesh, origins, directions, seed, max_bounces):
+def _trace_paths_deep(scene, mesh, origins, directions, seed, max_bounces, use_tlas=None):
     """The reference's masked deep loop: per bounce, re-sort the rays by the
     coherence key (dead lanes to the tail) with ONE packed [n, 12] gather
     of the travelling state, count the live lanes, and launch the
     per-bounce kernel over every lane; the carried original lane is the RNG
     counter and, at the end, unsorts the radiance. The live count stays on
-    the device: the loop never waits for the card."""
+    the device: the loop never waits for the card. Under the TLAS variant
+    (``integrator.py:475-525`` of the reference) bounce 0 sorts by
+    ``kernels.initial_mesh_sort_keys`` and every later bounce by the key
+    column the previous launch wrote; the flat variant sorts by
+    ``ray_sort_key``. Both sorts are stable, as ``jnp.argsort``."""
     n = origins.shape[0]
     device = origins.device
     throughput = torch.ones((n, 3), dtype=torch.float32, device=device)
     radiance = torch.zeros((n, 3), dtype=torch.float32, device=device)
     alive = torch.ones((n,), dtype=torch.bool, device=device)
     lane = torch.arange(n, dtype=torch.int32, device=device)
+    tlas = kernels.use_tlas_for(mesh.instances.translation.shape[0], use_tlas)
+    keys = kernels.initial_mesh_sort_keys(mesh, origins, directions, alive) if tlas else None
     for bounce in range(max_bounces):
-        order = _ray_sort_order(origins, directions, alive, mesh)
+        if tlas:
+            order = torch.argsort(keys, stable=True)
+        else:
+            order = _ray_sort_order(origins, directions, alive, mesh)
         packed = torch.cat([origins, directions, throughput, radiance], dim=1)[order]
         origins, directions = packed[:, 0:3], packed[:, 3:6]
         throughput, radiance = packed[:, 6:9], packed[:, 9:12]
@@ -352,11 +363,12 @@ def _trace_paths_deep(scene, mesh, origins, directions, seed, max_bounces):
         live = alive.sum(dtype=torch.int32)
         step = kernels.mesh_bounce(
             scene, mesh, origins, directions, throughput, alive, lane, live, seed, bounce,
-            total_bounces=max_bounces,
+            total_bounces=max_bounces, use_tlas=tlas,
         )
         origins, directions, throughput, alive = (
             step.origins, step.directions, step.throughput, step.alive
         )
+        keys = step.key
         radiance = radiance + step.contribution
     return torch.zeros_like(radiance).index_copy_(0, lane.to(torch.int64), radiance)
 
@@ -377,6 +389,7 @@ def render_tile(
     mesh: MeshSet | None = None,
     bounce_scan: bool = False,
     per_instance: bool = False,
+    use_tlas: bool | None = None,
 ) -> torch.Tensor:
     """Render a tile; returns [tile_height, tile_width, 3] linear radiance.
 
@@ -387,7 +400,8 @@ def render_tile(
     s)`` and traces through ``trace_paths_scan`` with that key's second
     split, and the samples' radiance is summed, then divided by ``samples``.
     ``per_instance`` (with ``bounce_scan`` only) walks the instances one
-    by one.
+    by one. ``use_tlas`` goes to ``trace_paths`` (the scan has no TLAS
+    variant).
     """
     _check_per_instance(per_instance, bounce_scan)
     n = tile_height * tile_width
@@ -413,7 +427,7 @@ def render_tile(
     )
     radiance = trace_paths(
         scene, origins, directions, trace_seed(tile_trace_key(base_key)),
-        max_bounces=max_bounces, mesh=mesh,
+        max_bounces=max_bounces, mesh=mesh, use_tlas=use_tlas,
     )
     image = radiance.reshape(samples, n, 3).mean(dim=0)
     return image.reshape(tile_height, tile_width, 3)
@@ -431,10 +445,12 @@ def render_frame(
     device: str | torch.device | None = None,
     bounce_scan: bool = False,
     per_instance: bool = False,
+    use_tlas: bool | None = None,
 ) -> torch.Tensor:
     """Render a whole frame; returns [H, W, 3] linear radiance on ``device``
     (``bounce_scan``: through the per-bounce scan renderer; ``per_instance``
-    as well: its mesh queries as a scan over the instances)."""
+    as well: its mesh queries as a scan over the instances; ``use_tlas``:
+    the mesh kernels' variant, None for ``kernels.use_tlas_for``)."""
     if tile_size is not None:
         raise NotImplementedError(f"tile_size={tile_size}: {_TILES_SLICE}.")
     device = resolve_device(device)
@@ -445,7 +461,7 @@ def render_frame(
         width=width, height=height, tile_height=height, tile_width=width,
         samples=samples, max_bounces=max_bounces,
         mesh=scene_mesh_set(scene_name, frame_index, device=device), bounce_scan=bounce_scan,
-        per_instance=per_instance,
+        per_instance=per_instance, use_tlas=use_tlas,
     )
 
 
@@ -459,7 +475,7 @@ def tonemap(image: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=32)
 def _fused_frame_renderer(
     scene_name: str, width: int, height: int, samples: int, max_bounces: int,
-    device: torch.device, bounce_scan: bool, per_instance: bool,
+    device: torch.device, bounce_scan: bool, per_instance: bool, use_tlas: bool | None,
 ):
     def render(frame: int) -> torch.Tensor:
         scene = build_scene(scene_name, frame, device)
@@ -469,7 +485,7 @@ def _fused_frame_renderer(
             width=width, height=height, tile_height=height, tile_width=width,
             samples=samples, max_bounces=max_bounces,
             mesh=scene_mesh_set(scene_name, frame, device=device), bounce_scan=bounce_scan,
-            per_instance=per_instance,
+            per_instance=per_instance, use_tlas=use_tlas,
         )
         return tonemap(linear)
 
@@ -485,6 +501,7 @@ def fused_frame_renderer(
     device: str | torch.device | None = None,
     bounce_scan: bool = False,
     per_instance: bool = False,
+    use_tlas: bool | None = None,
 ):
     """A cached ``frame -> uint8 [H, W, 3]`` callable for one scene/config.
 
@@ -492,11 +509,12 @@ def fused_frame_renderer(
     the pixels. The device resolves here (CUDA unless ``cpu`` is asked
     for) and is part of the cache key, as are ``bounce_scan`` (the
     per-bounce scan renderer in place of the kernel dispatch of
-    ``trace_paths``) and ``per_instance`` (the scan's mesh queries walked
-    instance by instance; needs ``bounce_scan``).
+    ``trace_paths``), ``per_instance`` (the scan's mesh queries walked
+    instance by instance; needs ``bounce_scan``) and ``use_tlas`` (the mesh
+    kernels' variant; None for ``kernels.use_tlas_for``).
     """
     _check_per_instance(per_instance, bounce_scan)
     return _fused_frame_renderer(
         scene_name, width, height, samples, max_bounces, resolve_device(device),
-        bool(bounce_scan), bool(per_instance),
+        bool(bounce_scan), bool(per_instance), None if use_tlas is None else bool(use_tlas),
     )

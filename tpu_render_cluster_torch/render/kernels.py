@@ -28,7 +28,17 @@ kernels, written in CUDA C++ for Hopper and built by ``_build.py``:
   mesh (``_bvh_nearest_instanced`` and ``_bvh_anyhit_instanced``), and
   ``csrc/intersect_mesh.cu`` and ``csrc/occluded_mesh.cu``, object-space
   rays against one mesh's BVH (``_bvh_nearest`` and ``_bvh_anyhit``), which
-  the scan's per-instance branch launches once per instance.
+  the scan's per-instance branch launches once per instance;
+- the two-level (TLAS) variants of the three mesh path kernels,
+  ``csrc/trace_fused_mesh_tlas.cu``, ``csrc/mesh_bounce_tlas.cu`` and
+  ``csrc/pool_mesh_bounce_tlas.cu`` (the TPU kernels with ``use_tlas``, the
+  reference's default): the instances in Morton slot order
+  (``tlas_frame``), walked through a threaded tree of their world boxes;
+  the per-bounce and pool variants also write the next sort's coherence key
+  of each lane (``coherence_key``), whose candidate comes from a walk of
+  the same tree over the instances' world boxes alone. ``use_tlas=None``
+  takes them wherever the reference does (``use_tlas_for``: more instances
+  than a TLAS leaf holds); ``use_tlas=False`` the flat instance sweep.
 
 ``trace_paths_fused`` / ``trace_paths_fused_mesh`` / ``sphere_bounce`` /
 ``mesh_bounce`` / ``pool_sphere_bounce`` / ``pool_mesh_bounce`` and the
@@ -39,7 +49,8 @@ CUDA tensors, and raise if they cannot. For CPU tensors they run the plain
 versions (``..._reference``), which repeat the reference's arithmetic
 operation for operation; there is no fallback from one to the other.
 ``counts`` records kernel launches and plain-version calls, so a run can
-show which one the main path went through.
+show which one the main path went through; a TLAS variant counts under its
+own name (``..._tlas``, ``..._tlas_reference``).
 
 RNG: a counter-based PCG hash of (lane, bounce, seed), the same portable
 integer hash the TPU kernel uses, so the kernel and the plain version draw
@@ -54,11 +65,22 @@ import functools
 import math
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from tpu_render_cluster_torch.render.fp32 import INV_PI, dot3, fma
 from tpu_render_cluster_torch.render.fp32 import sqrt as fp32_sqrt
-from tpu_render_cluster_torch.render.mesh import LEAF_SIZE, MeshBVH, MeshSet
+from tpu_render_cluster_torch.render.mesh import (
+    LEAF_SIZE,
+    MeshBVH,
+    MeshSet,
+    TlasFrame,
+    TlasTopology,
+    cached_tlas_topology,
+    instance_morton_order,
+    morton_dilate5,
+    tlas_node_bounds,
+)
 from tpu_render_cluster_torch.render.rng import MASK32
 from tpu_render_cluster_torch.render.scene import Scene
 
@@ -70,10 +92,19 @@ _SPHERE_ALIGN = 8  # the reference pads the sphere count to a multiple of 8
 # scene when BVH nodes x instances is at most this (the reference's rule).
 MESH_MEGAKERNEL_MAX_WALK = 1024
 _DET_EPS = 1e-12  # Moller-Trumbore's parallel-ray threshold
+# The two-level walk: instances per TLAS leaf (the reference's
+# ``tlas_leaf_size()`` default), and its ray block (``tlas_block_r()``'s
+# default), the TLAS tiers' bucket and lane quantum.
+TLAS_LEAF = 4
+TLAS_BLOCK_R = 256
+# The coherence key's dead flag; the key stays below 2^30, so it sorts as
+# a positive int32.
+KEY_DEAD_BIT = 29
 
 # Kernel launches ("trace_fused", "trace_fused_mesh", "sphere_bounce",
-# "mesh_bounce", "pool_sphere_bounce", "pool_mesh_bounce" and the unit kernels
-# "intersect_spheres", "occluded_spheres", "intersect_instances",
+# "mesh_bounce", "pool_sphere_bounce", "pool_mesh_bounce", the TLAS variants
+# "trace_fused_mesh_tlas", "mesh_bounce_tlas", "pool_mesh_bounce_tlas" and the
+# unit kernels "intersect_spheres", "occluded_spheres", "intersect_instances",
 # "occluded_instances", "intersect_mesh", "occluded_mesh") and plain-version
 # calls ("..._reference") since the last reset_counts().
 counts = {
@@ -101,12 +132,26 @@ counts = {
     "intersect_mesh_reference": 0,
     "occluded_mesh": 0,
     "occluded_mesh_reference": 0,
+    "trace_fused_mesh_tlas": 0,
+    "trace_fused_mesh_tlas_reference": 0,
+    "mesh_bounce_tlas": 0,
+    "mesh_bounce_tlas_reference": 0,
+    "pool_mesh_bounce_tlas": 0,
+    "pool_mesh_bounce_tlas_reference": 0,
 }
 
 
 def reset_counts() -> None:
     for name in counts:
         counts[name] = 0
+
+
+def use_tlas_for(k_count: int, use_tlas: bool | None = None) -> bool:
+    """Whether a field of ``k_count`` instances takes the two-level walk:
+    ``use_tlas`` (None: on, the reference's default) and more instances
+    than one TLAS leaf holds (a smaller field is the flat sweep plus a root
+    test). The reference's rule, its environment knob an argument here."""
+    return (True if use_tlas is None else bool(use_tlas)) and k_count > TLAS_LEAF
 
 
 def pcg_hash(x: torch.Tensor) -> torch.Tensor:
@@ -227,7 +272,11 @@ _POOL_SPHERE_ARGTYPES = [_PTR, _INT, _INT, _PTR]  # spheres, per frame, frames, 
 _BVH_ARGTYPES = [_PTR, _INT, _PTR, _PTR, _INT]
 # instances, their count, and the BVH
 _MESH_ARGTYPES = [_PTR, _INT, *_BVH_ARGTYPES]
+# TLAS node bounds, links, nodes (a pool: per frame)
+_TLAS_ARGTYPES = [_PTR, _PTR, _INT]
 _OUTPUT_ARGTYPES = [_PTR] * 6
+# A TLAS bounce: the key window, after the tables; the key, after the outputs.
+_KEYED_OUTPUT_ARGTYPES = [_PTR] * 7
 _LAUNCH_ARGTYPES = {
     "trace_fused": [_PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _INT, _INT, _PTR, _PTR],
     "trace_fused_mesh": [
@@ -243,6 +292,18 @@ _LAUNCH_ARGTYPES = {
     ],
     "pool_mesh_bounce": [
         *_POOL_STATE_ARGTYPES, *_POOL_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, *_OUTPUT_ARGTYPES,
+    ],
+    "trace_fused_mesh_tlas": [
+        _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, *_TLAS_ARGTYPES, _INT, _INT, _PTR,
+        _PTR,
+    ],
+    "mesh_bounce_tlas": [
+        *_STATE_ARGTYPES, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, *_TLAS_ARGTYPES, _PTR, _INT, _INT,
+        _INT, *_KEYED_OUTPUT_ARGTYPES,
+    ],
+    "pool_mesh_bounce_tlas": [
+        *_POOL_STATE_ARGTYPES, *_POOL_SPHERE_ARGTYPES, *_MESH_ARGTYPES, *_TLAS_ARGTYPES, _PTR,
+        _INT, *_KEYED_OUTPUT_ARGTYPES,
     ],
     # A unit kernel: the rays (and its per-ray input), n_rays, the tables,
     # its outputs and the stream.
@@ -449,18 +510,21 @@ def trace_paths_fused_mesh(
     seed: int,
     *,
     max_bounces: int,
+    use_tlas: bool | None = None,
 ) -> torch.Tensor:
     """Path-trace each ray of a mesh scene through the whole bounce loop;
     radiance ``[R, 3]``. CUDA tensors go to the mesh megakernel, CPU
     tensors to its plain version. Takes any mesh: the eligibility rule is
-    the caller's (``integrator.trace_paths``)."""
+    the caller's (``integrator.trace_paths``). ``use_tlas`` (None:
+    ``use_tlas_for``) picks the two-level variant."""
     _check_inputs(scene, origins, directions, seed)
     _check_mesh(mesh, origins)
+    tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas)
     if origins.device.type == "cuda":
-        return _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces)
+        return _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces, tlas)
     if origins.device.type == "cpu":
         return trace_paths_fused_mesh_reference(
-            scene, mesh, origins, directions, seed, max_bounces=max_bounces
+            scene, mesh, origins, directions, seed, max_bounces=max_bounces, use_tlas=tlas
         )
     raise ValueError(f"Unsupported device {origins.device}")
 
@@ -494,25 +558,162 @@ def _bvh_tables(bvh: MeshBVH) -> list:
     ]
 
 
-def _mesh_tables(mesh: MeshSet) -> list:
-    """The mesh arguments of a launch (``_MESH_ARGTYPES``)."""
-    table = instance_operands(mesh)
-    return [table.data_ptr(), table.shape[0], *_bvh_tables(mesh.bvh)]
+def _mesh_tables(mesh: MeshSet, tlas: bool = False) -> list:
+    """The mesh arguments of a launch (``_MESH_ARGTYPES``; with ``tlas``,
+    the instances in slot order, then the frame's TLAS, ``_TLAS_ARGTYPES``)."""
+    if not tlas:
+        table = instance_operands(mesh)
+        return [table.data_ptr(), table.shape[0], *_bvh_tables(mesh.bvh)]
+    frame = tlas_frame(mesh)
+    links = tlas_links(frame.slots.shape[0], 1, frame.slots.device)
+    return [
+        frame.slots.data_ptr(), frame.slots.shape[0], *_bvh_tables(mesh.bvh),
+        frame.node_bounds.data_ptr(), links.data_ptr(), links.shape[0],
+    ]
 
 
-def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces):
-    library = _library("trace_fused_mesh")
-    launch = library.trace_fused_mesh_launch
+def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces, tlas):
+    name = "trace_fused_mesh_tlas" if tlas else "trace_fused_mesh"
+    library = _library(name)
+    launch = getattr(library, f"{name}_launch")
     spheres, params = _sphere_operands(scene)
     origins, directions, radiance, stream = _ray_operands(origins, directions)
     status = launch(
         origins.data_ptr(), directions.data_ptr(), origins.shape[0],
-        spheres.data_ptr(), spheres.shape[0], params.data_ptr(), *_mesh_tables(mesh),
+        spheres.data_ptr(), spheres.shape[0], params.data_ptr(), *_mesh_tables(mesh, tlas),
         int(seed), int(max_bounces), radiance.data_ptr(), stream,
     )
-    _check_status(library, "trace_fused_mesh", status)
-    counts["trace_fused_mesh"] += 1
+    _check_status(library, name, status)
+    counts[name] += 1
     return radiance
+
+
+# ---------------------------------------------------------------------------
+# The two-level walk's per-frame operands and the coherence key
+
+
+def tlas_frame_on_host(mesh: MeshSet) -> TlasFrame:
+    """A frame's TLAS operands from its MeshSet, computed where its
+    instances lie (``mesh.scene_mesh_set`` computes them on the host and
+    copies them to the card with the instances). The instance table's rows in Morton slot order (a row
+    gather: each row is its instance's own function), the union boxes of
+    the TLAS nodes over the slot-ordered world boxes, and the key window
+    of the instance field; the reference's per-frame operands of its TLAS
+    kernels (``pallas_kernels.py:3263-3272``, ``:3413-3421``)."""
+    table = instance_table(mesh)
+    lo_w, hi_w = table[:, 13:16], table[:, 16:19]
+    slots = table[instance_morton_order(lo_w, hi_w)]
+    node_lo, node_hi = tlas_node_bounds(
+        cached_tlas_topology(table.shape[0], TLAS_LEAF), slots[:, 13:16], slots[:, 16:19]
+    )
+    zero = torch.zeros_like(node_lo[:, :1])
+    return TlasFrame(
+        slots=slots.contiguous(),
+        node_bounds=torch.cat([node_lo, zero, node_hi, zero], dim=1).contiguous(),
+        key_window=mesh_key_bounds(lo_w, hi_w),
+    )
+
+
+# A frame's TLAS operands: the MeshSet's own (``scene_mesh_set``'s, from the
+# host), else derived once per MeshSet where its instances lie.
+tlas_frame = _IdentityCache(lambda mesh: mesh.tlas or tlas_frame_on_host(mesh))
+
+
+def tlas_links(k_count: int, frames: int, device: torch.device) -> torch.Tensor:
+    """[F M, 4] int32 TLAS links of ``frames`` stacked windows of the
+    K-slot topology (``_pack_bvh``'s layout: skip, first, count, 0): frame
+    f's nodes at rows [f M, (f + 1) M), its skip links offset by f M and
+    its leaf starts by f K (``pallas_kernels.py:3915-3958``). Static per
+    (K, leaf, F): copied to the device once."""
+    return _tlas_links(k_count, TLAS_LEAF, frames, torch.device(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _tlas_links(k_count: int, leaf: int, frames: int, device: torch.device) -> torch.Tensor:
+    topology = cached_tlas_topology(k_count, leaf)
+    m = len(topology.skip)
+    windows = [
+        np.stack([topology.skip + f * m, topology.first + f * k_count, topology.count,
+                  np.zeros_like(topology.count)], axis=1)
+        for f in range(frames)
+    ]
+    return torch.as_tensor(np.concatenate(windows).astype(np.int32), device=device)
+
+
+def mesh_key_bounds(lo_w: torch.Tensor, hi_w: torch.Tensor) -> torch.Tensor:
+    """The coherence key's window [6] (lo, then 1 / span) of instance world
+    boxes ``lo_w`` / ``hi_w`` [K, 3]: their union padded by one unit (a
+    floor bounce's origin sits on the field's boundary; escaped rays clamp
+    to edge cells). Frame-dependent, never ray-dependent."""
+    lo = lo_w.amin(dim=0) - 1.0
+    hi = hi_w.amax(dim=0) + 1.0
+    return torch.cat([lo, 1.0 / torch.clamp_min(hi - lo, 1e-6)]).contiguous()
+
+
+def coherence_key(
+    points: torch.Tensor,
+    directions: torch.Tensor,
+    dead: torch.Tensor,
+    fid: torch.Tensor,
+    candidate: torch.Tensor,
+    window: torch.Tensor,
+) -> torch.Tensor:
+    """The reference's coherence sort key (``coherence_key_u32``), [R]
+    int32, of ``points`` = origin + direction and ``directions`` [R, 3],
+    the ``dead`` flags, frame ids ``fid`` and candidate instances
+    ``candidate`` [R] under the key ``window`` [6]. LSB to MSB: direction
+    octant [0:3), the 5-bit-per-axis Morton cell of the point [3:18), the
+    candidate clamped to 63 [18:24), the frame id clamped to 31 [24:29),
+    the dead flag at ``KEY_DEAD_BIT``."""
+    cell = torch.clamp((points - window[0:3]) * window[3:6] * 32.0, 0.0, 31.0).to(torch.int64)
+    morton = (
+        morton_dilate5(cell[:, 0]) | (morton_dilate5(cell[:, 1]) << 1)
+        | (morton_dilate5(cell[:, 2]) << 2)
+    )
+    octant = (
+        (directions[:, 0] > 0).to(torch.int64)
+        | ((directions[:, 1] > 0).to(torch.int64) << 1)
+        | ((directions[:, 2] > 0).to(torch.int64) << 2)
+    )
+    candidate_bits = torch.clamp_max(candidate.to(torch.int64) & MASK32, 63)
+    fid_bits = torch.clamp_max(fid.to(torch.int64) & MASK32, 31)
+    key = (
+        octant | (morton << 3) | (candidate_bits << 18) | (fid_bits << 24)
+        | (dead.to(torch.int64) << KEY_DEAD_BIT)
+    )
+    return key.to(torch.int32)
+
+
+def mesh_sort_keys(
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    alive: torch.Tensor,
+    window: torch.Tensor,
+    fid: torch.Tensor | None = None,
+    candidate: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The key of a lane's state outside a kernel ([R] int32), the twin of
+    the TLAS kernels' key column; ``fid`` and ``candidate`` default to 0."""
+    zero = torch.zeros(origins.shape[0], dtype=torch.int64, device=origins.device)
+    return coherence_key(
+        origins + directions, directions, ~alive, zero if fid is None else fid,
+        zero if candidate is None else candidate, window,
+    )
+
+
+def initial_mesh_sort_keys(
+    mesh: MeshSet, origins: torch.Tensor, directions: torch.Tensor, alive: torch.Tensor
+) -> torch.Tensor:
+    """Bounce 0's keys of a TLAS launch ([R] int32), before any kernel has
+    written a key column: the candidate is the slot whose world box each
+    ray enters first (``instance_entry_candidates`` over the slot-ordered
+    boxes), the window the frame's. The one site the masked deep loop and
+    the wavefront driver key bounce 0 through."""
+    frame = tlas_frame(mesh)
+    candidate = instance_entry_candidates(
+        origins, directions, frame.slots[:, 13:16], frame.slots[:, 16:19]
+    )
+    return mesh_sort_keys(origins, directions, alive, frame.key_window, candidate=candidate)
 
 
 # ---------------------------------------------------------------------------
@@ -528,6 +729,24 @@ class BounceState(NamedTuple):
     directions: torch.Tensor  # [R, 3] float32
     throughput: torch.Tensor  # [R, 3] float32
     alive: torch.Tensor  # [R] bool
+
+    @property
+    def key(self) -> None:
+        """The sphere and flat mesh kernels write no coherence key."""
+        return None
+
+
+class KeyedBounceState(NamedTuple):
+    """A TLAS bounce's output: ``BounceState``'s fields and the coherence
+    key of the state after the bounce (``coherence_key``), the next sort's
+    key."""
+
+    contribution: torch.Tensor  # [R, 3] float32
+    origins: torch.Tensor  # [R, 3] float32
+    directions: torch.Tensor  # [R, 3] float32
+    throughput: torch.Tensor  # [R, 3] float32
+    alive: torch.Tensor  # [R] bool
+    key: torch.Tensor  # [R] int32
 
 
 def _check_state(scene, origins, directions, throughput, alive, lane, seed, bounce, total_bounces):
@@ -598,20 +817,27 @@ def mesh_bounce(
     bounce: int,
     *,
     total_bounces: int,
-) -> BounceState:
+    use_tlas: bool | None = None,
+) -> BounceState | KeyedBounceState:
     """One bounce of the mesh megakernel over streamed path state; the
-    arguments are ``sphere_bounce``'s plus the mesh. Takes any mesh."""
+    arguments are ``sphere_bounce``'s plus the mesh. Takes any mesh.
+    ``use_tlas`` (None: ``use_tlas_for``) picks the two-level variant,
+    whose output also holds the key of each lane's new state: a lane alive
+    after the bounce and below the live count keys with the slot it enters
+    first (K for none), any other lane and every lane of the last bounce
+    with K (``.key`` is None on the flat variant)."""
     _check_state(scene, origins, directions, throughput, alive, lane, seed, bounce, total_bounces)
     _check_mesh(mesh, origins)
+    tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas)
     if origins.device.type == "cuda":
         return _launch_bounce(
-            "mesh_bounce", scene, mesh, origins, directions, throughput, alive, lane,
-            live_count, seed, bounce, total_bounces,
+            "mesh_bounce_tlas" if tlas else "mesh_bounce", scene, mesh, origins, directions,
+            throughput, alive, lane, live_count, seed, bounce, total_bounces,
         )
     if origins.device.type == "cpu":
         return mesh_bounce_reference(
             scene, mesh, origins, directions, throughput, alive, lane, live_count, seed, bounce,
-            total_bounces=total_bounces,
+            total_bounces=total_bounces, use_tlas=tlas,
         )
     raise ValueError(f"Unsupported device {origins.device}")
 
@@ -630,12 +856,12 @@ def _launch_bounce(
     state = [t.contiguous() for t in (origins, directions, throughput, alive, lane)]
     spheres, params = _sphere_operands(scene)
     tables = [spheres.data_ptr(), spheres.shape[0], params.data_ptr()]
+    tlas = name == "mesh_bounce_tlas"
     if mesh is not None:
-        tables += _mesh_tables(mesh)
-    out = BounceState(
-        *(torch.empty((rays, 3), dtype=torch.float32, device=device) for _ in range(4)),
-        torch.empty((rays,), dtype=torch.bool, device=device),
-    )
+        tables += _mesh_tables(mesh, tlas)
+    if tlas:
+        tables.append(tlas_frame(mesh).key_window.data_ptr())
+    out = _bounce_outputs(rays, device, tlas)
     status = launch(
         *(t.data_ptr() for t in state[:5]), rays, live.data_ptr(),
         *tables, int(seed), int(bounce), int(total_bounces),
@@ -793,19 +1019,69 @@ def pool_mesh_bounce(
     live_count,
     *,
     total_bounces: int,
-) -> BounceState:
+    use_tlas: bool | None = None,
+) -> BounceState | KeyedBounceState:
     """One mesh bounce over a pool of P lanes from the window's frames; the
     arguments are ``pool_sphere_bounce``'s, a lane seeing its own frame's
-    spheres and K instances."""
+    spheres and K instances. ``use_tlas`` (None: ``use_tlas_for``) picks
+    the two-level variant: a lane walks its own frame's TLAS, and the
+    output holds each lane's key (its frame id in the key; the candidate
+    its frame's slot, K for none or for a lane not alive after the bounce
+    below the live count; no last-bounce rule: the pool's lanes sit at
+    mixed depths)."""
     _check_pool_state(ops.spheres, origins, directions, throughput, alive, lane, fid, seed_row,
                       bounce_row, total_bounces)
     _check_mesh(ops.meshes[0], origins)
     state = (origins, directions, throughput, alive, lane, fid, seed_row, bounce_row)
+    tlas = use_tlas_for(ops.per_frame, use_tlas)
     if origins.device.type == "cuda":
-        return _launch_pool("pool_mesh_bounce", ops.spheres, ops, state, live_count, total_bounces)
+        return _launch_pool(
+            "pool_mesh_bounce_tlas" if tlas else "pool_mesh_bounce", ops.spheres, ops, state,
+            live_count, total_bounces,
+        )
     if origins.device.type == "cpu":
-        return pool_mesh_bounce_reference(ops, *state, live_count, total_bounces=total_bounces)
+        return pool_mesh_bounce_reference(
+            ops, *state, live_count, total_bounces=total_bounces, use_tlas=tlas
+        )
     raise ValueError(f"Unsupported device {origins.device}")
+
+
+def _bounce_outputs(rays: int, device, keyed: bool) -> BounceState | KeyedBounceState:
+    """A bounce launch's outputs, allocated for the kernel to fill."""
+    state = [torch.empty((rays, 3), dtype=torch.float32, device=device) for _ in range(4)]
+    alive = torch.empty((rays,), dtype=torch.bool, device=device)
+    if keyed:
+        return KeyedBounceState(*state, alive, torch.empty((rays,), dtype=torch.int32, device=device))
+    return BounceState(*state, alive)
+
+
+class PoolTlasOperands(NamedTuple):
+    """A pool window's TLAS operands: its frames' ``TlasFrame``s stacked
+    frame-major, frame f's K slots at rows [f K, (f + 1) K) and its M nodes
+    at rows [f M, (f + 1) M), and one key window over every frame's
+    instances (the reference's pool key, ``pallas_kernels.py:3903-3960``)."""
+
+    slots: torch.Tensor  # [F K, 22]
+    node_bounds: torch.Tensor  # [F M, 8]
+    links: torch.Tensor  # [F M, 4] int32, offset into the stacked rows (tlas_links)
+    key_window: torch.Tensor  # [6]
+
+
+def _stack_pool_tlas(ops: "PoolMeshOperands") -> PoolTlasOperands:
+    frames = [tlas_frame(mesh) for mesh in ops.meshes]
+    slots = torch.cat([frame.slots for frame in frames]).contiguous()
+    # The window's key window: the min and max of the frames' world boxes,
+    # then the frame rule's padding and reciprocal (on the window's device).
+    return PoolTlasOperands(
+        slots=slots,
+        node_bounds=torch.cat([frame.node_bounds for frame in frames]).contiguous(),
+        links=tlas_links(ops.per_frame, len(frames), slots.device),
+        key_window=mesh_key_bounds(slots[:, 13:16], slots[:, 16:19]),
+    )
+
+
+# A pool window's TLAS operands, stacked once per PoolMeshOperands.
+pool_tlas_operands = _IdentityCache(_stack_pool_tlas)
 
 
 def _live_tensor(live_count, device) -> torch.Tensor:
@@ -827,17 +1103,22 @@ def _launch_pool(name, spheres, mesh_ops, state, live_count, total_bounces):
     state = [t.contiguous() for t in state]
     frames = len(spheres.tables)
     tables = [spheres.spheres.data_ptr(), spheres.per_frame, frames, spheres.params.data_ptr()]
+    tlas = name == "pool_mesh_bounce_tlas"
     if mesh_ops is not None:
         triangles, bounds, links = _bvh_operands(mesh_ops.meshes[0].bvh)
+        pool_tlas = pool_tlas_operands(mesh_ops) if tlas else None
+        instances = mesh_ops.instances if pool_tlas is None else pool_tlas.slots
         tables += [
-            mesh_ops.instances.data_ptr(), mesh_ops.per_frame,
+            instances.data_ptr(), mesh_ops.per_frame,
             triangles.data_ptr(), triangles.shape[0],
             bounds.data_ptr(), links.data_ptr(), bounds.shape[0],
         ]
-    out = BounceState(
-        *(torch.empty((rays, 3), dtype=torch.float32, device=device) for _ in range(4)),
-        torch.empty((rays,), dtype=torch.bool, device=device),
-    )
+        if pool_tlas is not None:
+            tables += [
+                pool_tlas.node_bounds.data_ptr(), pool_tlas.links.data_ptr(),
+                pool_tlas.links.shape[0] // frames, pool_tlas.key_window.data_ptr(),
+            ]
+    out = _bounce_outputs(rays, device, tlas)
     status = launch(
         *(t.data_ptr() for t in state), rays, live.data_ptr(), *tables, int(total_bounces),
         *(t.data_ptr() for t in out), torch.cuda.current_stream(device).cuda_stream,
@@ -1053,6 +1334,7 @@ def trace_paths_fused_mesh_reference(
     seed: int,
     *,
     max_bounces: int,
+    use_tlas: bool | None = None,
     chunk_rays: int = 262144,
     stats: dict | None = None,
 ) -> torch.Tensor:
@@ -1066,17 +1348,24 @@ def trace_paths_fused_mesh_reference(
     tested against its best t at that moment. That is the per-ray walk of
     the kernel, so the two agree ray for ray, ties included.
 
+    ``use_tlas`` (None: ``use_tlas_for``) walks the instances as the TLAS
+    variant does: the slot-ordered table through the frame's TLAS, each
+    ray reaching a node when it passed its parent's box with its best t
+    (shadow rays: until their first occluder), the leaves' slots in order.
+
     ``stats`` also receives the mesh work: the instance count, the rays
     that search the instances (nearest and shadow rays), world-AABB tests,
     instance walks entered, node slab tests and triangle tests (the shadow
-    walks stop at the first occluder, as the kernel's do).
+    walks stop at the first occluder, as the kernel's do), and the TLAS
+    node tests.
     """
     _check_inputs(scene, origins, directions, seed)
     _check_mesh(mesh, origins)
-    counts["trace_fused_mesh_reference"] += 1
+    tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas)
+    counts["trace_fused_mesh_tlas_reference" if tlas else "trace_fused_mesh_reference"] += 1
     return _trace_reference(
-        sphere_table(scene), _MeshWalk.build(mesh, scene.sun_direction), origins, directions, seed,
-        max_bounces, chunk_rays, stats,
+        sphere_table(scene), _MeshWalk.build(mesh, scene.sun_direction, use_tlas=tlas), origins,
+        directions, seed, max_bounces, chunk_rays, stats,
     )
 
 
@@ -1120,18 +1409,24 @@ def mesh_bounce_reference(
     bounce: int,
     *,
     total_bounces: int,
+    use_tlas: bool | None = None,
     chunk_rays: int = 262144,
     stats: dict | None = None,
-) -> BounceState:
+) -> BounceState | KeyedBounceState:
     """The plain PyTorch version of the per-bounce mesh kernel, on any
     device: ``sphere_bounce_reference`` with the mesh megakernel's plain
-    bounce (its node sweep and its work counters)."""
+    bounce (its node sweep and its work counters). ``use_tlas`` (None:
+    ``use_tlas_for``) walks as the TLAS variant and keys its output as the
+    kernel does (``mesh_bounce``), the candidates from the plain entry walk
+    (counted as ``entry_rays`` and ``entry_tests``)."""
     _check_state(scene, origins, directions, throughput, alive, lane, seed, bounce, total_bounces)
     _check_mesh(mesh, origins)
-    counts["mesh_bounce_reference"] += 1
+    tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas)
+    counts["mesh_bounce_tlas_reference" if tlas else "mesh_bounce_reference"] += 1
     return _bounce_reference(
-        sphere_table(scene), _MeshWalk.build(mesh, scene.sun_direction), origins, directions,
-        throughput, alive, lane, live_count, seed, bounce, total_bounces, chunk_rays, stats,
+        sphere_table(scene), _MeshWalk.build(mesh, scene.sun_direction, use_tlas=tlas), origins,
+        directions, throughput, alive, lane, live_count, seed, bounce, total_bounces, chunk_rays,
+        stats,
     )
 
 
@@ -1180,41 +1475,55 @@ def pool_mesh_bounce_reference(
     live_count,
     *,
     total_bounces: int,
+    use_tlas: bool | None = None,
     chunk_rays: int = 262144,
     stats: dict | None = None,
-) -> BounceState:
+) -> BounceState | KeyedBounceState:
     """The plain PyTorch version of the pool mesh kernel, on any device:
     ``pool_sphere_bounce_reference`` with each frame's mesh walk (the mesh
-    megakernel's plain bounce and its work counters)."""
+    megakernel's plain bounce and its work counters). ``use_tlas`` (None:
+    ``use_tlas_for``) walks each frame's TLAS and keys the output as the
+    kernel does (``pool_mesh_bounce``)."""
     _check_pool_state(ops.spheres, origins, directions, throughput, alive, lane, fid, seed_row,
                       bounce_row, total_bounces)
     _check_mesh(ops.meshes[0], origins)
-    counts["pool_mesh_bounce_reference"] += 1
+    tlas = use_tlas_for(ops.per_frame, use_tlas)
+    counts["pool_mesh_bounce_tlas_reference" if tlas else "pool_mesh_bounce_reference"] += 1
     return _pool_reference(
-        ops.spheres.tables, _pool_walks(ops), origins, directions, throughput, alive, lane, fid,
-        seed_row, bounce_row, live_count, total_bounces, chunk_rays, stats,
+        ops.spheres.tables, (_pool_tlas_walks if tlas else _pool_walks)(ops), origins, directions,
+        throughput, alive, lane, fid, seed_row, bounce_row, live_count, total_bounces, chunk_rays,
+        stats, window=pool_tlas_operands(ops).key_window if tlas else None,
     )
 
 
-# The plain version's mesh walk of each frame of a pool window.
-_pool_walks = _IdentityCache(
-    lambda ops: tuple(
-        _MeshWalk.build(mesh, table.sun_direction)
+def _frame_walks(ops: PoolMeshOperands, use_tlas: bool) -> tuple:
+    return tuple(
+        _MeshWalk.build(mesh, table.sun_direction, use_tlas=use_tlas)
         for mesh, table in zip(ops.meshes, ops.spheres.tables)
     )
-)
+
+
+# The plain version's mesh walk of each frame of a pool window (flat, TLAS).
+_pool_walks = _IdentityCache(lambda ops: _frame_walks(ops, False))
+_pool_tlas_walks = _IdentityCache(lambda ops: _frame_walks(ops, True))
 
 
 def _pool_reference(
     tables, walks, origins, directions, throughput, alive, lane, fid, seed_row, bounce_row,
-    live_count, total_bounces, chunk_rays, stats,
+    live_count, total_bounces, chunk_rays, stats, window=None,
 ):
+    """The pool's plain bounce; with a key ``window``, also the TLAS
+    variant's key (the walks then TLAS walks)."""
     rays = origins.shape[0]
     live = max(0, min(int(live_count), rays))
     out = BounceState(
         torch.zeros_like(origins), origins.clone(), directions.clone(), throughput.clone(),
         alive.clone(),
     )
+    candidate = None
+    if window is not None:
+        candidate = torch.full((rays,), walks[0].table.shape[0], dtype=torch.int64,
+                               device=origins.device)
     if stats is not None:
         keys = _start_stats(stats, tables[0], None if walks is None else walks[0])
     frame = fid[:live].to(torch.int64)
@@ -1241,10 +1550,18 @@ def _pool_reference(
             out.directions[rows] = d
             out.throughput[rows] = thr
             out.alive[rows] = alive_f[:, 0] > 0.5
+            if candidate is not None:  # the frame-local slot each new ray enters first
+                lives = alive_f[:, 0] > 0.5
+                candidate[rows[lives]] = walks[f].entry_candidates(o[lives], d[lives], stats)
     if stats is not None:
         for key in keys:
             stats[key] = int(stats[key])
-    return out
+    if candidate is None:
+        return out
+    return KeyedBounceState(
+        *out, coherence_key(out.origins + out.directions, out.directions, ~out.alive, fid,
+                            candidate, window),
+    )
 
 
 def intersect_spheres_reference(
@@ -1446,20 +1763,42 @@ def _bounce_reference(
         out.directions[rows] = d
         out.throughput[rows] = thr
         out.alive[rows] = alive_f[:, 0] > 0.5
+    keyed = walk is not None and walk.tlas is not None
+    if keyed:
+        # The kernel's key: the slot each live new ray enters first, K for
+        # the others and on the last bounce (its key is never sorted by).
+        candidate = torch.full((rays,), walk.table.shape[0], dtype=torch.int64,
+                               device=origins.device)
+        if int(bounce) < int(total_bounces) - 1:
+            lives = out.alive[:live].nonzero()[:, 0]
+            for start in range(0, lives.numel(), chunk_rays):
+                rows = lives[start:start + chunk_rays]
+                candidate[rows] = walk.entry_candidates(
+                    out.origins[rows], out.directions[rows], stats
+                )
+        key = coherence_key(
+            out.origins + out.directions, out.directions, ~out.alive,
+            torch.zeros_like(candidate), candidate, walk.key_window,
+        )
     if stats is not None:
-        for key in keys:
-            stats[key] = int(stats[key])
-    return out
+        for key_name in keys:
+            stats[key_name] = int(stats[key_name])
+    return KeyedBounceState(*out, key) if keyed else out
 
 
 _STATS = ("alive_lane_bounces", "hit_lane_bounces", "shadow_sphere_tests")
 _MESH_STATS = (
     "broadphase_rays", "world_aabb_tests", "instance_walks", "node_tests", "triangle_tests"
 )
+# The TLAS walks' work: node tests of the nearest and shadow walks, and the
+# entry walk's rays and its node and world-box tests.
+_TLAS_STATS = ("tlas_node_tests", "entry_rays", "entry_tests")
 
 
 def _start_stats(stats, table, walk):
     keys = _STATS + (_MESH_STATS if walk is not None else ())
+    if walk is not None and walk.tlas is not None:
+        keys += _TLAS_STATS
     for key in keys:
         stats.setdefault(key, 0)
     # The scene's own pad slots (radius 0, always last) are not counted.
@@ -1703,9 +2042,81 @@ def _to_object(row: torch.Tensor, points: torch.Tensor, *, shift: bool) -> torch
     ) * row[12]
 
 
+def _children(skip: list[int], count: list[int]) -> list[list[int]]:
+    """Each node's children in a threaded tree: an inner node's run from
+    node + 1 to its skip link, hopping by skip links."""
+    children: list[list[int]] = [[] for _ in skip]
+    for node, node_skip in enumerate(skip):
+        if count[node] == 0:
+            child = node + 1
+            while child < node_skip:
+                children[node].append(child)
+                child = skip[child]
+    return children
+
+
+def _sweep(bounds_min, bounds_max, count, children, o, inv, limit, on_leaf, stats, stat):
+    """Walk a threaded tree for every ray at once: the nodes in preorder,
+    each with the rays that reach it. A ray reaches a node when it passed
+    the slab test of the node's parent against its ``limit`` [n] at that
+    moment (the caller's leaves update it in place, or set it to -INF to
+    end a ray's walk), which is the order of one ray's own walk. ``o`` [n,
+    3]; ``inv`` [n, 3] or [3]; ``on_leaf(node, positions)`` visits a leaf;
+    ``stats[stat]`` counts the node tests."""
+    reach = {0: torch.arange(o.shape[0], device=o.device)}
+    for node in range(len(count)):
+        pos = reach.pop(node, None)
+        if pos is None or pos.numel() == 0:
+            continue
+        pos = pos[limit[pos] > -INF]  # drop rays whose walk has ended
+        if stats is not None:
+            stats[stat] += pos.numel()
+        inv_pos = inv if inv.ndim == 1 else inv[pos]
+        pos = pos[_slab(bounds_min[node], bounds_max[node], o[pos], inv_pos, limit[pos])]
+        if count[node] > 0:
+            if pos.numel():
+                on_leaf(node, pos)
+        else:
+            for child in children[node]:
+                reach[child] = pos
+
+
+class _TlasWalk(NamedTuple):
+    """A frame's TLAS as the plain versions walk it: the node boxes on the
+    device, the topology's links on the host."""
+
+    bounds_min: torch.Tensor  # [M, 3]
+    bounds_max: torch.Tensor  # [M, 3]
+    first: list[int]
+    count: list[int]
+    children: list[list[int]]
+
+    @classmethod
+    def build(cls, node_bounds: torch.Tensor, topology: TlasTopology) -> "_TlasWalk":
+        count = topology.count.tolist()
+        return cls(
+            bounds_min=node_bounds[:, 0:3], bounds_max=node_bounds[:, 4:7],
+            first=topology.first.tolist(), count=count,
+            children=_children(topology.skip.tolist(), count),
+        )
+
+    def walk(self, o, inv, limit, visit, stats, stat="tlas_node_tests"):
+        """``_sweep`` over the TLAS, ``visit(k, positions)`` for each slot
+        of a leaf in order, with the rays that reached the leaf."""
+
+        def on_leaf(node, pos):
+            for k in range(self.first[node], self.first[node] + self.count[node]):
+                visit(k, pos)
+
+        _sweep(self.bounds_min, self.bounds_max, self.count, self.children, o, inv, limit,
+               on_leaf, stats, stat)
+
+
 class _MeshWalk(NamedTuple):
     """The plain version's mesh geometry: the device tables plus the
-    tree's links on the host (canonical DFS preorder)."""
+    tree's links on the host (canonical DFS preorder); for the TLAS
+    variants the instances in slot order, the frame's TLAS and its key
+    window."""
 
     table: torch.Tensor | None  # [K, 22] (instance_table); None: one BVH alone
     v0: torch.Tensor
@@ -1719,12 +2130,24 @@ class _MeshWalk(NamedTuple):
     children: list[list[int]]
     sun: torch.Tensor | None  # [3] world sun direction
     sun_object: torch.Tensor | None  # [K, 3]: the sun direction in object space
+    tlas: _TlasWalk | None = None  # the TLAS variant's tree; None: the flat sweep
+    key_window: torch.Tensor | None = None  # [6], with ``tlas``
 
     @classmethod
-    def build(cls, mesh: MeshSet, sun: torch.Tensor | None = None) -> "_MeshWalk":
-        table = instance_table(mesh)
+    def build(
+        cls, mesh: MeshSet, sun: torch.Tensor | None = None, use_tlas: bool = False
+    ) -> "_MeshWalk":
+        tlas = key_window = None
+        if use_tlas:
+            frame = tlas_frame(mesh)
+            table, key_window = frame.slots, frame.key_window
+            tlas = _TlasWalk.build(
+                frame.node_bounds, cached_tlas_topology(table.shape[0], TLAS_LEAF)
+            )
+        else:
+            table = instance_table(mesh)
         return cls.for_bvh(mesh.bvh)._replace(
-            table=table, sun=sun,
+            table=table, sun=sun, tlas=tlas, key_window=key_window,
             sun_object=None if sun is None else torch.cat(
                 [_to_object(row, sun[None, :], shift=False) for row in table]
             ),
@@ -1733,47 +2156,19 @@ class _MeshWalk(NamedTuple):
     @classmethod
     def for_bvh(cls, bvh: MeshBVH) -> "_MeshWalk":
         """The walk of one BVH, with no instance table."""
-        skip = bvh.skip.tolist()
         count = bvh.count.tolist()
-        children: list[list[int]] = [[] for _ in skip]
-        for node, node_skip in enumerate(skip):
-            if count[node] == 0:  # inner: children run from node+1 to skip
-                child = node + 1
-                while child < node_skip:
-                    children[node].append(child)
-                    child = skip[child]
         return cls(
             table=None, v0=bvh.v0, e1=bvh.e1, e2=bvh.e2, normal=bvh.normal,
             bounds_min=bvh.bounds_min, bounds_max=bvh.bounds_max,
-            first=bvh.first.tolist(), count=count, children=children, sun=None,
-            sun_object=None,
+            first=bvh.first.tolist(), count=count, children=_children(bvh.skip.tolist(), count),
+            sun=None, sun_object=None,
         )
 
     def _walk(self, o, inv, best_t, on_leaf, stats):
-        """Sweep the nodes in preorder with the rays that reach each one.
-        ``o`` [n, 3] and ``inv`` [n, 3] or [3] are in object space;
-        ``best_t`` [n] is read at each node (the caller's leaves update it
-        in place, or set it to -INF to stop a ray). ``on_leaf(node,
-        positions)`` tests a leaf."""
-        reach = {0: torch.arange(o.shape[0], device=o.device)}
-        for node in range(len(self.count)):
-            pos = reach.pop(node, None)
-            if pos is None or pos.numel() == 0:
-                continue
-            pos = pos[best_t[pos] > -INF]  # drop rays whose walk has ended
-            if stats is not None:
-                stats["node_tests"] += pos.numel()
-            inv_pos = inv if inv.ndim == 1 else inv[pos]
-            passed = _slab(
-                self.bounds_min[node], self.bounds_max[node], o[pos], inv_pos, best_t[pos]
-            )
-            pos = pos[passed]
-            if self.count[node] > 0:
-                if pos.numel():
-                    on_leaf(node, pos)
-            else:
-                for child in self.children[node]:
-                    reach[child] = pos
+        """``_sweep`` over the BVH: ``o`` [n, 3] and ``inv`` [n, 3] or [3]
+        in object space, ``best_t`` [n] the rays' limits."""
+        _sweep(self.bounds_min, self.bounds_max, self.count, self.children, o, inv, best_t,
+               on_leaf, stats, "node_tests")
 
     def _leaf(self, node, o, d):
         """Moller-Trumbore of ``o``/``d`` [n, 3] against the leaf's real
@@ -1853,15 +2248,12 @@ class _MeshWalk(NamedTuple):
         inv = _winv(d)
         if stats is not None:
             stats["broadphase_rays"] += (seed_t > -INF).sum()
-        for k in range(self.table.shape[0]):
-            row = self.table[k]
-            if stats is not None:
-                stats["world_aabb_tests"] += (seed_t > -INF).sum()
-            idx = _slab(row[13:16], row[16:19], o, inv, best_t).nonzero()[:, 0]
-            if idx.numel() == 0:
-                continue
+
+        def enter(k, idx):
+            """Instance k's BVH for the rays ``idx`` that passed its box."""
             if stats is not None:
                 stats["instance_walks"] += idx.numel()
+            row = self.table[k]
             lo = _to_object(row, o[idx], shift=True)
             ld = _to_object(row, d[idx], shift=False)
             t_k, row_k = self.blas_nearest(lo, ld, best_t[idx], stats)
@@ -1870,6 +2262,25 @@ class _MeshWalk(NamedTuple):
             best_t[won] = t_k[closer]
             win_k[won] = k
             win_row[won] = row_k[closer]
+
+        if self.tlas is not None:
+            def visit(k, pos):
+                row = self.table[k]
+                if stats is not None:
+                    stats["world_aabb_tests"] += pos.numel()
+                idx = pos[_slab(row[13:16], row[16:19], o[pos], inv[pos], best_t[pos])]
+                if idx.numel():
+                    enter(k, idx)
+
+            self.tlas.walk(o, inv, best_t, visit, stats)
+            return best_t, win_k, win_row
+        for k in range(self.table.shape[0]):
+            row = self.table[k]
+            if stats is not None:
+                stats["world_aabb_tests"] += (seed_t > -INF).sum()
+            idx = _slab(row[13:16], row[16:19], o, inv, best_t).nonzero()[:, 0]
+            if idx.numel():
+                enter(k, idx)
         return best_t, win_k, win_row
 
     def nearest(self, o, d, seed_t, stats):
@@ -1900,17 +2311,19 @@ class _MeshWalk(NamedTuple):
         world_inv = _winv(self.sun if directions is None else directions)
         if stats is not None:
             stats["broadphase_rays"] += (~blocked).sum()
-        for k in range(self.table.shape[0]):
-            idx = (~occluded).nonzero()[:, 0]
+
+        def visit(k, idx):
+            """Instance k for the unoccluded rays among ``idx``."""
+            idx = idx[~occluded[idx]]
             if idx.numel() == 0:
-                break
+                return
             if stats is not None:
                 stats["world_aabb_tests"] += idx.numel()
             row = self.table[k]
             inv = world_inv if directions is None else world_inv[idx]
             idx = idx[_slab(row[13:16], row[16:19], so[idx], inv, INF)]
             if idx.numel() == 0:
-                continue
+                return
             if stats is not None:
                 stats["instance_walks"] += idx.numel()
             lo = _to_object(row, so[idx], shift=True)
@@ -1919,4 +2332,53 @@ class _MeshWalk(NamedTuple):
             else:
                 ld = _to_object(row, directions[idx], shift=False)
             occluded[idx[self.blas_occluded(lo, ld, stats)]] = True
+
+        if self.tlas is not None:
+            # A ray's walk ends at its first occluder: its limit turns -INF.
+            limit = torch.full((so.shape[0],), INF, device=so.device)
+
+            def visit_leaf_slot(k, pos):
+                visit(k, pos)
+                limit[pos[occluded[pos]]] = -INF
+
+            limit[occluded] = -INF
+            self.tlas.walk(so, world_inv, limit, visit_leaf_slot, stats)
+            return occluded
+        everyone = torch.arange(so.shape[0], device=so.device)
+        for k in range(self.table.shape[0]):
+            if bool(occluded.all()):
+                break
+            visit(k, everyone)
         return occluded
+
+    def entry_candidates(self, o, d, stats):
+        """The TLAS variants' entry walk for rays ``o``/``d`` [n, 3]: the
+        slot whose world box each ray enters first (strict ``<``, the
+        lowest slot among ties), K where it overlaps none; [n] int64. The
+        tree is walked against the best entry so far, the leaves' world
+        boxes tested alone (no BVH)."""
+        n = o.shape[0]
+        best_e = torch.full((n,), INF, device=o.device)
+        best = torch.full((n,), self.table.shape[0], dtype=torch.int64, device=o.device)
+        inv = _winv(d)
+        if stats is not None:
+            stats["entry_rays"] += n
+
+        def visit(k, pos):
+            row = self.table[k]
+            if stats is not None:
+                stats["entry_tests"] += pos.numel()
+            t_lo = (row[13:16] - o[pos]) * inv[pos]
+            t_hi = (row[16:19] - o[pos]) * inv[pos]
+            near = torch.minimum(t_lo, t_hi)
+            far = torch.maximum(t_lo, t_hi)
+            near = torch.maximum(torch.maximum(near[:, 0], near[:, 1]), near[:, 2])
+            far = torch.minimum(torch.minimum(far[:, 0], far[:, 1]), far[:, 2])
+            entry = torch.clamp_min(near, 0.0)
+            entry = torch.where(far >= entry, entry, INF)
+            better = entry < best_e[pos]
+            best_e[pos[better]] = entry[better]
+            best[pos[better]] = k
+
+        self.tlas.walk(o, inv, best_e, visit, stats, "entry_tests")
+        return best

@@ -27,8 +27,15 @@ object space (``_rays_to_object_space``) and walked through the one BVH by
 ``intersect_mesh`` / ``occluded_mesh``, one unit-kernel launch per instance.
 ``intersect_triangles_brute`` tests every triangle: the tests' oracle.
 
-Left out of this slice: the TLAS topology and the quantized node tables
-(``mesh.py:928-1222`` of the reference), which change no per-ray result.
+The two-level hierarchy over the instances (TLAS, ``mesh.py:912-1222`` of
+the reference): ``build_tlas_topology`` threads a static median-split tree
+over instance slots, memoized per (instance count, leaf size) by
+``cached_tlas_topology``; per frame, ``instance_morton_order`` assigns the
+instances to slots by the Morton code of their world-box centers and
+``tlas_node_bounds`` unions the slot-ordered boxes into node boxes. A
+``MeshSet`` from ``scene_mesh_set`` carries its frame's ``TlasFrame``,
+computed on the host with the instances and copied with them. Left out:
+the quantized node tables (``quant``), which change no per-ray result.
 """
 
 from __future__ import annotations
@@ -84,11 +91,24 @@ class MeshInstances(NamedTuple):
     scale: torch.Tensor  # [K]
 
 
+class TlasFrame(NamedTuple):
+    """A frame's two-level-walk operands in the kernels' layout, float32
+    (``kernels.tlas_frame_on_host``)."""
+
+    slots: torch.Tensor  # [K, 22]: kernels.instance_table's rows in Morton slot order
+    node_bounds: torch.Tensor  # [M, 8]: each TLAS node's lo, 0, hi, 0
+    key_window: torch.Tensor  # [6]: the coherence key's window, lo then 1 / span
+
+
 class MeshSet(NamedTuple):
-    """A mesh-backed scene's geometry: one shared BVH + its instances."""
+    """A mesh-backed scene's geometry: one shared BVH + its instances, and
+    (``scene_mesh_set``) the frame's TLAS operands, computed on the host
+    and copied to the device with the instances; None: derived at first
+    use (``kernels.tlas_frame``)."""
 
     bvh: MeshBVH
     instances: MeshInstances
+    tlas: TlasFrame | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -413,6 +433,147 @@ def cached_mesh_bvh(
 
 
 # ---------------------------------------------------------------------------
+# The two-level hierarchy (TLAS) over the instances
+
+_INF = 1e30
+
+
+class TlasTopology(NamedTuple):
+    """Static threaded TLAS topology over ``k_count`` instance slots (the
+    reference's): DFS preorder, skip links, leaves covering contiguous slot
+    ranges; ``member`` is the [M, K] node -> slot incidence mask of the
+    per-frame bounds. ``octant_*`` are the eight near-first re-threadings
+    (octant o at rows [o M, (o + 1) M), local skip links, ``octant_perm``
+    the canonical node of each row); the port walks the canonical order."""
+
+    skip: np.ndarray  # [M] int32: next subtree root (M = done)
+    first: np.ndarray  # [M] int32: leaf slot start (0 for inner)
+    count: np.ndarray  # [M] int32: leaf slot count (0 for inner)
+    member: np.ndarray  # [M, K] bool: node covers instance slot
+    depth: int  # tree depth (root = 1)
+    octant_skip: np.ndarray  # [8M] int32
+    octant_first: np.ndarray  # [8M] int32
+    octant_count: np.ndarray  # [8M] int32
+    octant_perm: np.ndarray  # [8M] int32
+
+
+def build_tlas_topology(k_count: int, leaf_size: int) -> TlasTopology:
+    """Median split over instance slot ranges, threaded like ``build_bvh``."""
+    if k_count < 1:
+        raise ValueError("TLAS needs at least one instance")
+    leaf_size = max(1, leaf_size)
+    nodes: list[dict] = []
+
+    def emit(lo: int, hi: int, level: int) -> int:
+        node_index = len(nodes)
+        nodes.append({"lo": lo, "hi": hi, "leaf": hi - lo <= leaf_size, "level": level,
+                      "children": None})
+        if nodes[node_index]["leaf"]:
+            return level
+        mid = (lo + hi) // 2
+        left = len(nodes)
+        left_depth = emit(lo, mid, level + 1)
+        right = len(nodes)
+        right_depth = emit(mid, hi, level + 1)
+        nodes[node_index]["children"] = (left, right)
+        return max(left_depth, right_depth)
+
+    depth = emit(0, k_count, 1)
+    m = len(nodes)
+    skip = np.zeros(m, np.int32)
+    first = np.zeros(m, np.int32)
+    count = np.zeros(m, np.int32)
+    member = np.zeros((m, k_count), bool)
+    for i, node in enumerate(nodes):
+        j = i + 1
+        while j < m and nodes[j]["lo"] >= node["lo"] and nodes[j]["hi"] <= node["hi"]:
+            j += 1
+        skip[i] = j
+        member[i, node["lo"]:node["hi"]] = True
+        if node["leaf"]:
+            first[i] = node["lo"]
+            count[i] = node["hi"] - node["lo"]
+    subtree = skip - np.arange(m, dtype=np.int32)
+    octant_skip = np.zeros(8 * m, np.int32)
+    octant_first = np.zeros(8 * m, np.int32)
+    octant_count = np.zeros(8 * m, np.int32)
+    octant_perm = np.zeros(8 * m, np.int32)
+    for octant in range(8):
+        order: list[int] = []
+
+        def emit_octant(i: int) -> None:
+            order.append(i)
+            children = nodes[i]["children"]
+            if children is None:
+                return
+            # Morton MSB cycle: depth 1 splits z, then y, then x.
+            axis = (2, 1, 0)[(nodes[i]["level"] - 1) % 3]
+            left, right = children if octant & (1 << axis) else children[::-1]
+            emit_octant(left)
+            emit_octant(right)
+
+        emit_octant(0)
+        rows = slice(octant * m, (octant + 1) * m)
+        octant_skip[rows] = np.arange(m) + subtree[order]
+        octant_first[rows] = first[order]
+        octant_count[rows] = count[order]
+        octant_perm[rows] = order
+    return TlasTopology(
+        skip=skip, first=first, count=count, member=member, depth=depth,
+        octant_skip=octant_skip, octant_first=octant_first, octant_count=octant_count,
+        octant_perm=octant_perm,
+    )
+
+
+_tlas_topologies: dict[tuple[int, int], TlasTopology] = {}
+
+
+def cached_tlas_topology(k_count: int, leaf_size: int) -> TlasTopology:
+    """Memoized ``build_tlas_topology``, process-wide per (K, leaf)."""
+    key = (int(k_count), int(leaf_size))
+    topology = _tlas_topologies.get(key)
+    if topology is None:
+        topology = _tlas_topologies[key] = build_tlas_topology(*key)
+    return topology
+
+
+def tlas_node_bounds(
+    topology: TlasTopology, lo_sorted: torch.Tensor, hi_sorted: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-frame node boxes ([M, 3], [M, 3]): masked min / max of the
+    instance world boxes ``lo_sorted`` / ``hi_sorted`` [K, 3] in slot order."""
+    mask = torch.as_tensor(topology.member, device=lo_sorted.device)[:, :, None]
+    node_lo = torch.where(mask, lo_sorted[None], _INF).amin(dim=1)
+    node_hi = torch.where(mask, hi_sorted[None], -_INF).amax(dim=1)
+    return node_lo, node_hi
+
+
+def morton_dilate5(v: torch.Tensor) -> torch.Tensor:
+    """Spread the low 5 bits of an integer tensor to every third bit: the
+    one dilation of the slot order and the coherence key."""
+    v = (v | (v << 8)) & 0x0300F
+    v = (v | (v << 4)) & 0x030C3
+    return (v | (v << 2)) & 0x09249
+
+
+def instance_morton_order(lo_w: torch.Tensor, hi_w: torch.Tensor) -> torch.Tensor:
+    """The slot order ([K] int64, slot -> instance) of instance world boxes
+    ``lo_w`` / ``hi_w`` [K, 3]: a stable argsort (as ``jnp.argsort``) of the
+    Morton code of their centers on a 32-cell grid over the centers' span,
+    so equal codes keep the table order. Ray-independent, so every launch
+    of a frame derives the same order."""
+    centers = 0.5 * (lo_w + hi_w)
+    lo = centers.amin(dim=0)
+    span = torch.clamp_min(centers.amax(dim=0) - lo, 1e-6)
+    cell = torch.clamp((centers - lo) / span * 32.0, 0.0, 31.0).to(torch.int64)
+    code = (
+        morton_dilate5(cell[:, 0]) | (morton_dilate5(cell[:, 1]) << 1)
+        | (morton_dilate5(cell[:, 2]) << 2)
+    )
+    return torch.argsort(code, stable=True)
+
+
+# ---------------------------------------------------------------------------
 # Ray queries against one mesh
 
 
@@ -615,16 +776,40 @@ def scene_mesh_set(
     device: str | torch.device = "cpu",
 ) -> MeshSet | None:
     """The MeshSet of a scene on ``device`` (None for sphere-only scenes):
-    the cached BVH plus this frame's instance transforms."""
-    from tpu_render_cluster_torch.render.scene import build_mesh_instances, mesh_kind_for_scene
+    the cached BVH plus this frame's instance transforms and TLAS operands,
+    both computed on the host and copied in one (``scene.on_device``)."""
+    from tpu_render_cluster_torch.render.kernels import tlas_frame_on_host
+    from tpu_render_cluster_torch.render.scene import (
+        mesh_instances_on,
+        mesh_kind_for_scene,
+        on_device,
+    )
 
     kind = mesh_kind_for_scene(scene_name)
     if kind is None:
         return None
+    host = MeshSet(
+        bvh=cached_mesh_bvh(kind, builder, wide, "cpu"),
+        instances=mesh_instances_on(scene_name, frame, "cpu"),
+    )
+    copy = on_device(_FrameTables(*host.instances, *tlas_frame_on_host(host)), device)
     return MeshSet(
         bvh=cached_mesh_bvh(kind, builder, wide, device),
-        instances=build_mesh_instances(scene_name, frame, device),
+        instances=MeshInstances(*copy[:4]),
+        tlas=TlasFrame(*copy[4:]),
     )
+
+
+class _FrameTables(NamedTuple):
+    """A frame's instances and TLAS operands, as ``on_device`` copies them."""
+
+    rotation: torch.Tensor
+    translation: torch.Tensor
+    albedo: torch.Tensor
+    scale: torch.Tensor
+    slots: torch.Tensor
+    node_bounds: torch.Tensor
+    key_window: torch.Tensor
 
 
 def mesh_from_arrays(

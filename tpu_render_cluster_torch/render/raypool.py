@@ -8,10 +8,13 @@ rays of the batch, across frames, so a window of frames runs as one loop
 whose iterations each do, on the device:
 
 1. permutation: dead lanes to the tail. Mesh scenes fold the coherence
-   re-sort into the same permutation (``_pool_sort_order``: one stable
-   argsort of a key of dead flag, frame id, first-entered instance, Morton
-   cell and direction octant); sphere scenes take the stable partition of
-   ``compaction.compaction_order``;
+   re-sort into the same permutation: under the mesh kernel's TLAS variant
+   (the default) one stable argsort of the key column the previous
+   iteration's launch wrote (dead flag, frame id, first-entered slot,
+   Morton cell and direction octant; all lanes dead-keyed at the start),
+   under the flat variant ``_pool_sort_order`` (the same kind of key,
+   computed here with its ``[P, K]`` broadphase); sphere scenes take the
+   stable partition of ``compaction.compaction_order``;
 2. refill: the freed tail gathers the next unserved primaries of the
    window, pre-generated per frame by ``integrator.frame_rays_and_seed``,
    the rays and seeds of the masked per-frame renderer;
@@ -21,7 +24,8 @@ whose iterations each do, on the device:
    masked loop, against its own frame's rows of the stacked scene;
 4. scatter-back: each lane's contribution lands in its frame's buffer at
    ``fid * n + lane``, whatever the order of service;
-5. lifecycle: bounce + 1, lanes at the bounce cap die.
+5. lifecycle: bounce + 1, lanes at the bounce cap die (and, under TLAS,
+   get the dead flag stamped onto their key).
 
 The host reads nothing inside an iteration: the counts stay device tensors,
 the shapes are fixed, and there is no ``.item()``, boolean-mask indexing or
@@ -39,10 +43,11 @@ Telemetry (``PoolStats``): iterations, primaries served and refilled, the
 live lanes summed over iterations and the refill log depend only on the
 paths' lifetimes and equal the reference's. Launched lanes count the live
 prefix rounded up to the port kernels' thread block (256 lanes), their
-granularity of skipping a dead tail, where the reference rounds to its
-1,024-lane ray block; the occupancy log follows that count. The
-reference's registry and trace emission (``_emit_batch_obs``) come with
-the port of its ``obs`` package. ``on_iteration`` sees each launch's input
+granularity of skipping a dead tail; the reference rounds to its TLAS ray
+block (``kernels.TLAS_BLOCK_R``, 256: the same count) under TLAS and to its
+1,024-lane ray block under the flat variant. The occupancy log follows
+that count. The reference's registry and trace emission
+(``_emit_batch_obs``) come with the port of its ``obs`` package. ``on_iteration`` sees each launch's input
 state without reading it back.
 
 Differences of form from the reference: a window stacks only its real
@@ -187,6 +192,7 @@ class PoolState(NamedTuple):
     occ_log: torch.Tensor  # [RAYPOOL_LOG_CAP] float32
     refill_log: torch.Tensor  # [RAYPOOL_LOG_CAP] int64
     radiance: torch.Tensor  # [F n, 3]
+    key: torch.Tensor | None = None  # [P] int32: the TLAS kernel's key column
 
 
 class PoolWindow:
@@ -206,6 +212,7 @@ class PoolWindow:
         max_bounces: int,
         pool_width: int | None = None,
         device: torch.device,
+        use_tlas: bool | None = None,
     ) -> None:
         frames = [int(f) for f in frames]
         if not 1 <= len(frames) <= RAYPOOL_MAX_FRAMES:
@@ -230,20 +237,26 @@ class PoolWindow:
         self.primary_origins = torch.cat([r[0] for r in rays])
         self.primary_directions = torch.cat([r[1] for r in rays])
         self.seeds = torch.tensor([r[2] for r in rays], dtype=torch.int32, device=device)
+        self.tlas = False
         if mesh_kind_for_scene(scene_name) is None:
             self.mesh_ops = None
             self.ops = kernels.pool_sphere_operands(scenes)
         else:
             meshes = [scene_mesh_set(scene_name, f, device=device) for f in frames]
             self.mesh_ops = self.ops = kernels.pool_mesh_operands(scenes, meshes)
-            # The sort key's broadphase over SLOT-UNION boxes: instance k's
-            # world box unioned over the window's frames, [K, 3] not [F K, 3].
-            # The frame id sits above the candidate in the key, so within a
-            # frame's group the union box only dilates the frame's own.
-            lo, hi = kernels.pool_instance_aabbs(self.mesh_ops)
-            k = self.mesh_ops.per_frame
-            self.slot_lo = lo.reshape(len(frames), k, 3).amin(dim=0)
-            self.slot_hi = hi.reshape(len(frames), k, 3).amax(dim=0)
+            self.tlas = kernels.use_tlas_for(self.mesh_ops.per_frame, use_tlas)
+            if not self.tlas:
+                # The flat sort key's broadphase over SLOT-UNION boxes:
+                # instance k's world box unioned over the window's frames,
+                # [K, 3] not [F K, 3]. The frame id sits above the candidate
+                # in the key, so within a frame's group the union box only
+                # dilates the frame's own.
+                lo, hi = kernels.pool_instance_aabbs(self.mesh_ops)
+                k = self.mesh_ops.per_frame
+                self.slot_lo = lo.reshape(len(frames), k, 3).amin(dim=0)
+                self.slot_hi = hi.reshape(len(frames), k, 3).amax(dim=0)
+        # The lane quantum of the launched-lane count.
+        self.block = kernels.TLAS_BLOCK_R if self.tlas else KERNEL_BLOCK
 
     def initial_state(self) -> PoolState:
         """Every lane dead with a ray that misses everything (far origin,
@@ -261,6 +274,10 @@ class PoolWindow:
             occ_log=torch.zeros((RAYPOOL_LOG_CAP,), dtype=torch.float32, device=device),
             refill_log=torch.zeros((RAYPOOL_LOG_CAP,), dtype=torch.int64, device=device),
             radiance=torch.zeros((self.total, 3), dtype=torch.float32, device=device),
+            # Every lane starts dead: one dead-flag key for all, so the first
+            # sort keeps the order and the refill fills the pool's head.
+            key=torch.full((pool,), 1 << kernels.KEY_DEAD_BIT, dtype=torch.int32, device=device)
+            if self.tlas else None,
         )
 
     def more(self, state: PoolState) -> torch.Tensor:
@@ -281,6 +298,8 @@ class PoolWindow:
         # 1. One permutation, dead lanes to the tail, and ONE packed gather.
         if self.mesh_ops is None:
             perm, _ = compaction_order(state.alive)
+        elif self.tlas:
+            perm = torch.argsort(state.key, stable=True)
         else:
             perm = _pool_sort_order(
                 state.origins, state.directions, state.alive, state.fid, self.slot_lo,
@@ -319,7 +338,7 @@ class PoolWindow:
             )
         else:
             step = kernels.pool_mesh_bounce(
-                self.ops, *inputs, live2, total_bounces=self.max_bounces
+                self.ops, *inputs, live2, total_bounces=self.max_bounces, use_tlas=self.tlas
             )
 
         # 4. Scatter-back into each lane's frame buffer. The ids are unique
@@ -334,7 +353,12 @@ class PoolWindow:
         # 5. Lifecycle and telemetry, masked by `active`.
         bounce = bounce + 1
         alive = step.alive & (bounce < self.max_bounces)
-        launched = (live2 + KERNEL_BLOCK - 1) // KERNEL_BLOCK * KERNEL_BLOCK
+        key = None
+        if self.tlas:
+            # The kernel keyed its own post-bounce alive; a lane the bounce
+            # cap kills here gets the dead flag, so the next sort parks it.
+            key = torch.where(alive, step.key, step.key | (1 << kernels.KEY_DEAD_BIT))
+        launched = (live2 + self.block - 1) // self.block * self.block
         occupancy = live2.to(torch.float32) / torch.clamp_min(launched, 1).to(torch.float32)
         at = torch.clamp_max(it, RAYPOOL_LOG_CAP - 1).reshape(1)
         occ_log = state.occ_log.index_copy(
@@ -357,6 +381,7 @@ class PoolWindow:
             fid=keep(fid, state.fid),
             bounce=keep(bounce, state.bounce),
             counters=counters, occ_log=occ_log, refill_log=refill_log, radiance=radiance,
+            key=None if key is None else keep(key, state.key),
         )
 
     def run(
@@ -418,12 +443,14 @@ def render_batch_raypool(
     frame_cap: int = RAYPOOL_FRAMES,
     device: str | torch.device | None = None,
     on_iteration: Callable[[PoolLaunch], None] | None = None,
+    use_tlas: bool | None = None,
 ) -> tuple[list[torch.Tensor], list[PoolStats]]:
     """Render a batch of frames through the pool, in windows of at most
     ``frame_cap`` frames: (linear [H, W, 3] images on ``device`` (CUDA
     unless ``cpu`` is asked for), one per frame in order, and one PoolStats
     per window). Each window's rays and trace seeds are the masked per-frame
-    renderer's."""
+    renderer's. ``use_tlas`` (None: ``kernels.use_tlas_for``) picks the mesh
+    pool kernel's variant."""
     device = resolve_device(device)
     frames = [int(f) for f in frame_indices]
     cap = raypool_frame_cap(frame_cap)
@@ -433,6 +460,7 @@ def render_batch_raypool(
         window = PoolWindow(
             scene_name, frames[start:start + cap], width=width, height=height,
             samples=samples, max_bounces=max_bounces, pool_width=pool_width, device=device,
+            use_tlas=use_tlas,
         )
         window_images, window_stats = window.run(on_iteration=on_iteration)
         images.extend(window_images)

@@ -37,6 +37,11 @@ bound, ``"off"`` never, ``"force"`` for every scene (sphere scenes then
 through the per-bounce sphere kernel). ``on_launch``, when given, is
 called with each wavefront launch (``compaction.WavefrontLaunch``),
 ``on_iteration`` with each pool launch (``raypool.PoolLaunch``).
+``use_tlas`` goes to every mesh tier but the scan: ``None``, the
+reference's default, walks the instances of a field of more than
+``kernels.TLAS_LEAF`` through the two-level (TLAS) variant of the mesh
+kernels, ``False`` through the flat instance sweep (the reference reads
+this choice from ``TRC_TLAS``).
 
 It emits the same 7-phase ``FrameRenderTime``:
 
@@ -119,6 +124,7 @@ class TorchRaytraceBackend(RenderBackend):
         on_iteration: Callable[[PoolLaunch], None] | None = None,
         bounce_scan: bool = False,
         per_instance: bool = False,
+        use_tlas: bool | None = None,
     ) -> None:
         requested = dict(tile_size=tile_size, sharding=sharding)
         for option, value in requested.items():
@@ -137,6 +143,7 @@ class TorchRaytraceBackend(RenderBackend):
             raise ValueError("per_instance=True needs bounce_scan=True")
         self.bounce_scan = bool(bounce_scan)
         self.per_instance = bool(per_instance)
+        self.use_tlas = None if use_tlas is None else bool(use_tlas)
         self.on_launch = on_launch
         self.on_iteration = on_iteration
         # job name -> the frames of the job still queued on this worker.
@@ -160,6 +167,7 @@ class TorchRaytraceBackend(RenderBackend):
             return fused_frame_renderer(
                 scene_name, self.width, self.height, self.samples, self.max_bounces,
                 self.device, bounce_scan=self.bounce_scan, per_instance=self.per_instance,
+                use_tlas=self.use_tlas,
             )
 
         def render(frame: int):
@@ -167,7 +175,7 @@ class TorchRaytraceBackend(RenderBackend):
                 render_frame_wavefront(
                     scene_name, frame, width=self.width, height=self.height,
                     samples=self.samples, max_bounces=self.max_bounces, device=self.device,
-                    on_launch=self.on_launch,
+                    on_launch=self.on_launch, use_tlas=self.use_tlas,
                 )
             )
 
@@ -214,7 +222,7 @@ class TorchRaytraceBackend(RenderBackend):
         images, stats = render_batch_raypool(
             scene_name, frames, width=self.width, height=self.height, samples=self.samples,
             max_bounces=self.max_bounces, frame_cap=len(frames), device=self.device,
-            on_iteration=self.on_iteration,
+            on_iteration=self.on_iteration, use_tlas=self.use_tlas,
         )
         self.pool_stats.extend(stats)
         return images
