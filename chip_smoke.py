@@ -27,8 +27,15 @@ eager tensor code per sample around the unit kernels: 10 frames of the deep job 
 two; and one through the scan's per-instance branch (``bounce_scan=True,
 per_instance=True``): 2 frames of the deep job through the sphere unit
 kernels and ``intersect_mesh`` and ``occluded_mesh``, each launched once per
-instance (48 times per sample and bounce). Phases, each of which raises
-(exit code 1) if its check fails:
+instance (48 times per sample and bounce). Then four tile paths, tiled work
+units ``(frame, tile)`` of a job given a 2x2 ``tiles`` grid, through the
+same backend: 2 frames of 04_very-simple, each tile one launch of
+``trace_fused_lanes`` (row 1's lane mode, whole-frame lanes as RNG
+counters), 2 frames of the deep job through the wavefront's region path, 4
+frames of the deep job with the queue's hint before each unit (one pool
+window of the 4 frames per tile), and 2 frames of 02_physics-mesh through
+the masked region loop (``mesh_bounce_tlas``, never the mesh megakernel).
+Phases, each of which raises (exit code 1) if its check fails:
 1. the card: name and power limit as nvidia-smi reports them;
 2. build every CUDA source of the port with nvcc (sm_90a), one nvcc per
    source, all at once, timed, and print each kernel's registers and spills;
@@ -58,7 +65,9 @@ instance (48 times per sample and bounce). Phases, each of which raises
    launch's own inputs, at the tolerances of tests/test_torch_geometry.py,
    tests/test_torch_instances.py and tests/test_torch_bvh.py (the
    single-BVH kernels: every launch of the first sample, 4 bounces x 48
-   instances);
+   instances); the lane kernel on the rays and lanes of tile 3 of a 2x2
+   grid at 128x128, 4 spp, 1 and 4 bounces, bit for bit against its plain
+   version, and on lanes 0..R-1 bit for bit against ``trace_fused``;
 4. each main path: the first frames of a job file loaded through the
    port's job model and rendered by the backend at 512x512, 8 spp, 4
    bounces. The launch counts are zeroed just before each path and read
@@ -82,7 +91,16 @@ instance (48 times per sample and bounce). Phases, each of which raises
    plain versions on the card (the deep scan: both renders of frame 1 at
    128x128, 2 spp; the bit-equal share printed); the per-instance scan's frame 1
    against the instanced scan's of this run (never rendered with the plain
-   versions: their walks take seconds per launch);
+   versions: their walks take seconds per launch); a tile path's kernel
+   once per tile (the lane kernel), per wavefront bounce, per pool
+   iteration or per tile and bounce (02), nothing else; its tile PNGs
+   stitched as the master's assembler stitches them, against the
+   whole-frame path's PNGs (04 and the 03 wavefront bit for bit, the pool
+   and 02 >= 99.5% within 1, the bit-equal share printed), and its region
+   renders stitched against the whole-frame render of the same tier on the
+   card (bit for bit; the pool's against the whole-frame pool's bit for bit
+   and the wavefront's within atol 1e-5; 02's region loop against row 3,
+   the bit-equal share printed);
 5. timings: each path's per-frame phases and frames/s and a breakdown of
    one frame; each megakernel's time (its wrapper's calls, CUDA events, the
    median of 10 batches of 20) beside its bound, its plain version's time
@@ -96,14 +114,19 @@ instance (48 times per sample and bounce). Phases, each of which raises
    rays; a single-BVH kernel: the 48 of its bounce 0), its bound from its
    plain version's counters on the bounce-0 launch (instance 0's), and each
    scan path's frames/s and split of a frame beside the megakernel,
-   wavefront and instanced scan paths of the same run;
+   wavefront and instanced scan paths of the same run; each tile path's
+   per-tile render and save ms, a tile's rays beside a whole frame's, and
+   the tiled job's frames/s beside its whole-frame path's; the lane kernel
+   at a tile's 524,288 rays beside ``trace_fused`` on the same rays, its
+   plain version and its bound at 40 bytes a ray;
 6. under torch.profiler (reported, not checked: the numbers read "not
    measured" where the profiler sees no device time, or misses a launch of
    the kernel after three tries): each kernel's own device time apart from
    its wrapper's set-up work, and the card's idle share over two frames of
    each main path, or one window of a pool path, or one 128x128 frame at 2
    spp of the per-instance scan (busy: the sum of the device's own events;
-   a scan path's also split by unit kernel).
+   a scan path's also split by unit kernel; a tile path: frame 1's four
+   tiles, the pool tile path all its units).
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -251,6 +274,7 @@ POOLS = ("pool_mesh_bounce", "pool_sphere_bounce", "pool_mesh_bounce_tlas")
 TLAS_KERNELS = ("trace_fused_mesh_tlas", "mesh_bounce_tlas", "pool_mesh_bounce_tlas")
 REPLACES = {
     "trace_fused": "tpu_render_cluster/render/pallas_kernels.py:901",
+    "trace_fused_lanes": "tpu_render_cluster/render/pallas_kernels.py:901",
     "trace_fused_mesh": "tpu_render_cluster/render/pallas_kernels.py:3205",
     "trace_fused_mesh_tlas": "tpu_render_cluster/render/pallas_kernels.py:3205",
     "mesh_bounce": "tpu_render_cluster/render/pallas_kernels.py:3345",
@@ -2024,6 +2048,420 @@ def unit_entry(name: str, records: dict, runs: dict, checks: dict, build_s: floa
     return entry
 
 
+# -- the tile paths (tiled work units (frame, tile) through the backend) -------
+
+TILE_GRID = (2, 2)
+# The lane kernel reads a 4-byte lane row more than the positional one.
+LANE_RAY_BYTES = MEGAKERNEL_RAY_BYTES + 4
+
+
+class TilePath(NamedTuple):
+    kernel: str  # the kernel the path launches
+    job_file: str
+    scene: str
+    frames: int
+    hint: bool  # the worker queue's hint before each unit (the pool)
+    whole: str  # the whole-frame main path the stitched frames are held against
+
+
+TILE_PATHS = [
+    TilePath("trace_fused_lanes", SPHERE_JOB, "04_very-simple", 2, False, "trace_fused"),
+    TilePath("mesh_bounce_tlas", DEEP_JOB, "03_physics-2-mesh", 2, False, "mesh_bounce_tlas"),
+    TilePath("pool_mesh_bounce_tlas", DEEP_JOB, "03_physics-2-mesh", 4, True, "mesh_bounce_tlas"),
+    TilePath("mesh_bounce_tlas", MESH_JOB, "02_physics-mesh", 2, False, "trace_fused_mesh_tlas"),
+]
+
+
+def tile_regions() -> list[tuple[int, int, int, int]]:
+    from tpu_render_cluster_torch.jobs.tiles import tile_bounds
+
+    return [
+        tile_bounds(tile, TILE_GRID, width=WIDTH, height=HEIGHT)
+        for tile in range(TILE_GRID[0] * TILE_GRID[1])
+    ]
+
+
+def stitch(tiles_of_frame) -> "torch.Tensor":
+    """[H, W, C] from a frame's tile images, in tile order."""
+    import torch
+
+    first = tiles_of_frame[0]
+    out = torch.zeros((HEIGHT, WIDTH, first.shape[-1]), dtype=first.dtype, device=first.device)
+    for (y0, x0, th, tw), image in zip(tile_regions(), tiles_of_frame):
+        out[y0:y0 + th, x0:x0 + tw] = image
+    return out
+
+
+def lane_kernel_vs_plain(device) -> float:
+    """Phase 3 for the lane kernel: frame 7 of 04_very-simple at
+    CHECK_SIDE x CHECK_SIDE x CHECK_SAMPLES spp, the rays and whole-frame
+    lanes of one interior tile (tile 3 of the 2x2 grid: its lanes do not
+    start at 0), at 1 and 4 bounces: bit for bit against its plain version,
+    and, with lanes 0..R-1, bit for bit against the positional kernel.
+    Returns the max abs error."""
+    import torch
+
+    from tpu_render_cluster_torch.jobs.tiles import tile_bounds
+    from tpu_render_cluster_torch.render import kernels
+    from tpu_render_cluster_torch.render.camera import scene_camera
+    from tpu_render_cluster_torch.render.integrator import region_rays_and_seed
+    from tpu_render_cluster_torch.render.scene import build_scene
+
+    scene = build_scene("04_very-simple", 7, device)
+    y0, x0, th, tw = tile_bounds(3, TILE_GRID, width=CHECK_SIDE, height=CHECK_SIDE)
+    origins, directions, lanes, seed = region_rays_and_seed(
+        scene_camera("04_very-simple", 7, device), 7, width=CHECK_SIDE, height=CHECK_SIDE,
+        samples=CHECK_SAMPLES, y0=y0, x0=x0, tile_height=th, tile_width=tw,
+    )
+    check(int(lanes.min()) > 0, "the checked tile's lanes start at 0")
+    arange = torch.arange(origins.shape[0], dtype=torch.int32, device=device)
+    max_err = 0.0
+    for max_bounces in (1, 4):
+        got = kernels.trace_paths_fused(
+            scene, origins, directions, seed, max_bounces=max_bounces, lane=lanes
+        )
+        expected = kernels.trace_paths_fused_reference(
+            scene, origins, directions, seed, max_bounces=max_bounces, lane=lanes
+        )
+        positional = kernels.trace_paths_fused(
+            scene, origins, directions, seed, max_bounces=max_bounces
+        )
+        on_arange = kernels.trace_paths_fused(
+            scene, origins, directions, seed, max_bounces=max_bounces, lane=arange
+        )
+        torch.cuda.synchronize()
+        err = (got - expected).abs().max().item()
+        differ = int((got != expected).any(dim=1).sum())
+        arange_differ = int((on_arange != positional).any(dim=1).sum())
+        print(
+            f"[3] trace_fused_lanes vs plain, 04_very-simple tile 3 of {CHECK_SIDE}x{CHECK_SIDE}x"
+            f"{CHECK_SAMPLES} spp (lanes {int(lanes.min())}..{int(lanes.max())}), {max_bounces} "
+            f"bounce(s): {differ} of {got.shape[0]} rays differ, max abs err {err:.3g}; with lanes "
+            f"0..R-1 vs trace_fused: {arange_differ} rays differ"
+        )
+        check(torch.isfinite(got).all().item() and got.max().item() > 0.1, "lane kernel: bad radiance")
+        check(differ == 0, f"trace_fused_lanes: {differ} rays differ from the plain version")
+        check(arange_differ == 0, f"trace_fused_lanes on lanes 0..R-1: {arange_differ} rays differ")
+        max_err = max(max_err, err)
+    return max_err
+
+
+def drive_tile_path(path: TilePath, runs: dict, device) -> dict:
+    """Phase 4 for a tile path: ``path.frames`` frames of the job with a
+    2x2 tile grid, every (frame, tile) unit through the backend in the
+    worker queue's order (frame-major, tile-minor), the counts zeroed just
+    before and read just after: the path's kernel alone, once per tile (the
+    lane kernel), per wavefront bounce or per pool iteration, no plain
+    version. The tile PNGs are stitched as the master's assembler stitches
+    them and held against the whole-frame main path's PNGs of the same
+    frames."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from tpu_render_cluster_torch.jobs.models import BlenderJob
+    from tpu_render_cluster_torch.jobs.tiles import WorkUnit
+    from tpu_render_cluster_torch.render import kernels
+    from tpu_render_cluster_torch.render.image_io import output_path_for_tile
+    from tpu_render_cluster_torch.utils.paths import parse_with_base_directory_prefix
+    from tpu_render_cluster_torch.worker.backends.torch_raytrace import TorchRaytraceBackend
+
+    whole_job, frames = job_frames(MainPath(path.kernel, path.job_file, path.scene, path.frames, None))
+    job = BlenderJob.from_dict({**whole_job.to_dict(), "tiles": list(TILE_GRID)})
+    label = f"{path.scene} tiles {TILE_GRID[0]}x{TILE_GRID[1]} ({'ray pool' if path.hint else path.kernel})"
+    units = [WorkUnit(frame, tile) for frame in frames for tile in range(len(tile_regions()))]
+    log: list = []
+    pool_log: list = []
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-tiles-") as base:
+        backend = TorchRaytraceBackend(
+            width=WIDTH, height=HEIGHT, samples=SAMPLES, max_bounces=BOUNCES, base_directory=base,
+            on_launch=lambda launch: log.append(tuple(launch[:3])),
+            on_iteration=lambda launch: pool_log.append(launch.iteration),
+        )
+        # Warm: one tile of frame 1 through the tier, outside the counts.
+        warm = BlenderJob.from_dict({**job.to_dict(), "output_directory_path": f"{base}/warm"})
+        if path.hint:
+            backend.note_upcoming_frames(warm, (WorkUnit(frames[1], 0),))
+        asyncio.run(backend.render_frame(warm, frames[0], 0))
+        backend.note_upcoming_frames(warm, ())
+        backend._raypool_cache.clear()
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        log.clear()
+        pool_log.clear()
+        backend.pool_stats.clear()
+        timings = []
+        started = time.perf_counter()
+        for index, unit in enumerate(units):
+            if path.hint:  # the worker queue's hint: the units queued behind this one
+                backend.note_upcoming_frames(job, tuple(units[index + 1:]))
+            timings.append(asyncio.run(backend.render_frame(job, unit.frame_index, unit.tile)))
+        path_s = time.perf_counter() - started
+        launches = dict(kernels.counts)
+        windows = list(backend.pool_stats)
+        print(f"[4] tile path: {len(units)} units of {job.job_name} in {path_s:.4f} s; counts {launches}")
+        if path.hint:  # one launch per pool iteration
+            expected = len(pool_log)
+        elif log:  # one per wavefront bounce
+            expected = len(log)
+        elif path.kernel == "trace_fused_lanes":  # one per tile
+            expected = len(units)
+        else:  # the masked region loop: one per tile and bounce
+            expected = len(units) * BOUNCES
+        check(path.hint or expected >= len(units), f"{label}: {expected} launches for {len(units)} units")
+        for name, count in launches.items():
+            want = expected if name == path.kernel else 0
+            check(count == want, f"{label}: {name} ran {count} times, not {want}")
+        if path.kernel == "trace_fused_lanes":
+            check(not log and not pool_log, f"{label}: a wavefront or pool launch")
+        if path.hint:
+            served = sum(w.served for w in windows)
+            print(
+                f"[4] {label}: {len(windows)} pool windows (one per tile), iterations "
+                f"{[w.iterations for w in windows]}, served {served}"
+            )
+            check(len(windows) == len(tile_regions()), f"{label}: {len(windows)} windows")
+            check(served == len(frames) * WIDTH * HEIGHT * SAMPLES, f"{label}: served {served}")
+        elif log:
+            print(f"[4] {label}: {len(log)} wavefront launches over {len(units)} tiles")
+
+        output_directory = parse_with_base_directory_prefix(job.output_directory_path, Path(base))
+        stitched = []
+        for frame in frames:
+            tiles_of_frame = []
+            for tile, (_, _, th, tw) in enumerate(tile_regions()):
+                file = output_path_for_tile(
+                    output_directory, job.output_file_name_format, job.output_file_format,
+                    frame, tile, TILE_GRID,
+                )
+                pixels = np.array(Image.open(file))
+                check(pixels.shape == (th, tw, 3), f"{file.name}: {pixels.shape}")
+                tiles_of_frame.append(torch.from_numpy(pixels))
+            stitched.append(stitch(tiles_of_frame))
+        whole = runs[path.whole]
+        for frame, image in zip(frames, stitched):
+            if frame not in whole["frames"]:
+                continue
+            expected_png = whole["images"][whole["frames"].index(frame)]
+            within = within_one(image, expected_png)
+            equal = (image == expected_png).all(dim=-1).float().mean().item()
+            print(
+                f"[4] {label} frame {frame}: stitched PNG vs {whole['label']}'s: {within:.6f} of "
+                f"uint8 values within 1, {equal:.6f} of pixels bit-equal"
+            )
+            if path.scene == "02_physics-mesh" or path.hint:
+                check(within >= 0.995, f"{label}: stitched frame {frame} disagrees ({within})")
+            else:
+                check(equal == 1.0, f"{label}: stitched frame {frame} is not the whole frame's")
+
+        # The card's idle share over frame 1's tiles, under the profiler (a
+        # pool path: its 4 windows of the frames).
+        def frame_tiles():
+            for index, unit in enumerate(units if path.hint else units[:len(tile_regions())]):
+                if path.hint:
+                    backend.note_upcoming_frames(job, tuple(units[index + 1:]))
+                asyncio.run(backend.render_frame(job, unit.frame_index, unit.tile))
+
+        profile = profiled(frame_tiles, path.kernel, f"{label} frame tiles")
+        idle = None
+        if profile is not None:
+            idle = 1 - profile["device_ms"] / profile["wall_ms"]
+            print(
+                f"[6] {label}, {'all units' if path.hint else 'frame 1' + chr(39) + 's tiles'} under "
+                f"the profiler: wall {profile['wall_ms']:.3f} ms, device busy "
+                f"{profile['device_ms']:.3f} ms ({profile['kernels']} device operations); device "
+                f"idle {idle:.4f}"
+            )
+    return {
+        "path": path, "label": label, "frames": frames, "units": units, "timings": timings,
+        "path_s": path_s, "launches": launches[path.kernel], "stitched": stitched,
+        "windows": windows, "idle": idle,
+    }
+
+
+def tile_linear_checks(run: dict, device) -> dict:
+    """Phase 4's linear check of a tile path: the region renders of the
+    path's tier stitched, against the whole-frame render of the same tier
+    on the card (the lane kernel's tiles against the positional kernel's
+    frame, the wavefront's against the wavefront's: bit for bit; the 02
+    masked region loop against the mesh megakernel: the bit-equal share
+    printed; the pool's windows of the frames, one per tile, against the
+    wavefront's frames 1-2 within atol 1e-5 and against the whole-frame
+    pool window of the same frames bit for bit)."""
+    import torch
+
+    from tpu_render_cluster_torch.render import compaction, integrator, raypool
+
+    path, frames = run["path"], run["frames"]
+    options = dict(width=WIDTH, height=HEIGHT, samples=SAMPLES, max_bounces=BOUNCES, device=device)
+    regions = tile_regions()
+    if path.hint:
+        per_tile = [
+            raypool.render_batch_raypool(path.scene, frames, region=region, **options)[0]
+            for region in regions
+        ]
+        got = [stitch([tiles[i] for tiles in per_tile]) for i in range(len(frames))]
+        pool_whole = raypool.render_batch_raypool(path.scene, frames, **options)[0]
+        wavefront = [compaction.render_frame_wavefront(path.scene, f, **options) for f in frames[:2]]
+        pool_equal = [(g == w).all(dim=-1).float().mean().item() for g, w in zip(got, pool_whole)]
+        errs = [(g - w).abs().max().item() for g, w in zip(got, wavefront)]
+        shares = [(g == w).all(dim=-1).float().mean().item() for g, w in zip(got, wavefront)]
+        print(
+            f"[4] {run['label']}: stitched linear frames {frames} vs the whole-frame pool window: "
+            f"bit-equal shares {pool_equal}; frames {frames[:2]} vs the whole wavefront frames: max "
+            f"abs err {errs}, bit-equal shares {shares}"
+        )
+        check(min(pool_equal) == 1.0, f"{run['label']}: stitched pool tiles differ from the pool's frames")
+        check(max(errs) <= 1e-5, f"{run['label']}: stitched pool tiles differ from the wavefront by {max(errs)}")
+        return {"max_abs_err": max(errs), "bit_equal_share": min(shares)}
+    errs, shares = [], []
+    for frame in frames:
+        if path.kernel == "mesh_bounce_tlas" and path.scene == "03_physics-2-mesh":
+            whole = compaction.render_frame_wavefront(path.scene, frame, **options)
+            tiles = [
+                compaction.render_region_wavefront(
+                    path.scene, frame, y0=y0, x0=x0, tile_height=th, tile_width=tw, **options
+                )
+                for y0, x0, th, tw in regions
+            ]
+        else:  # the masked tier: whole frames through the megakernels
+            whole = integrator.render_frame(path.scene, frame, **options)
+            tiles = [
+                integrator.render_frame_region(
+                    path.scene, frame, y0=y0, x0=x0, tile_height=th, tile_width=tw, **options
+                )
+                for y0, x0, th, tw in regions
+            ]
+        got = stitch(tiles)
+        errs.append((got - whole).abs().max().item())
+        shares.append((got == whole).all(dim=-1).float().mean().item())
+    print(
+        f"[4] {run['label']}: stitched linear frames {frames} vs the whole frames on the card: max "
+        f"abs err {errs}, bit-equal shares {shares}"
+    )
+    if path.scene != "02_physics-mesh":
+        check(max(errs) == 0.0, f"{run['label']}: stitched linear frames are not the whole frames")
+    return {"max_abs_err": max(errs), "bit_equal_share": min(shares)}
+
+
+def tile_times(run: dict, runs: dict, device) -> dict:
+    """Phase 5 for a tile path: per-tile render and save ms (median over
+    the units), the rays of one tile (``region_rays_and_seed``, fenced)
+    beside a whole frame's, and the tiled job's frames/s beside the
+    whole-frame path's of this run."""
+    import torch
+
+    from tpu_render_cluster_torch.render.camera import scene_camera
+    from tpu_render_cluster_torch.render.integrator import frame_rays_and_seed, region_rays_and_seed
+
+    path, timings = run["path"], run["timings"]
+    med = lambda xs: statistics.median(xs) * 1e3  # noqa: E731
+    render_ms = med([t.finished_rendering_at - t.started_rendering_at for t in timings])
+    save_ms = med([t.file_saving_finished_at - t.file_saving_started_at for t in timings])
+    camera = scene_camera(path.scene, run["frames"][0], device)
+    y0, x0, th, tw = tile_regions()[0]
+    region = lambda: region_rays_and_seed(  # noqa: E731
+        camera, run["frames"][0], width=WIDTH, height=HEIGHT, samples=SAMPLES, y0=y0, x0=x0,
+        tile_height=th, tile_width=tw,
+    )
+    whole = lambda: frame_rays_and_seed(  # noqa: E731
+        camera, run["frames"][0], width=WIDTH, height=HEIGHT, samples=SAMPLES
+    )
+    def fenced_ms(fn) -> float:
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - started) * 1e3
+
+    fenced_ms(region)
+    rays_ms, whole_rays_ms = (statistics.median(fenced_ms(fn) for _ in range(5)) for fn in (region, whole))
+    fps = len(run["frames"]) / run["path_s"]
+    other = runs[path.whole]
+    whole_fps = len(other["frames"]) / other["path_s"]
+    print(
+        f"[5] {run['label']}: per tile (median over {len(timings)} units) render "
+        f"{render_ms:.3f} ms, save (PNG) {save_ms:.3f} ms; a tile's rays {rays_ms:.3f} ms, a "
+        f"whole frame's {whole_rays_ms:.3f} ms; {fps:.3f} frames/s over the tiled job on one "
+        f"worker, the whole-frame path ({other['label']}) {whole_fps:.3f} in this run"
+    )
+    return {
+        "tile_render_ms": render_ms, "tile_save_ms": save_ms, "tile_rays_ms": rays_ms,
+        "whole_rays_ms": whole_rays_ms, "frames_per_s": fps, "whole_frames_per_s": whole_fps,
+    }
+
+
+def lane_kernel_record(run: dict, device, max_abs_err: float, build_s: float) -> dict:
+    """Phases 5-6 for the lane kernel at the tile path's shape (tile 0 of
+    frame 1: 256x256 x 8 spp = 524,288 rays): its wrapper's calls (CUDA
+    events, the median of 10 batches of 20) beside the positional kernel on
+    the same rays, the kernel alone under the profiler, the plain version
+    on the card, and the bound from the plain version's work counters at 40
+    bytes a ray."""
+    import torch
+
+    from tpu_render_cluster_torch.render import kernels
+    from tpu_render_cluster_torch.render.camera import scene_camera
+    from tpu_render_cluster_torch.render.integrator import region_rays_and_seed
+    from tpu_render_cluster_torch.render.scene import build_scene
+
+    frame = run["frames"][0]
+    scene = build_scene("04_very-simple", frame, device)
+    y0, x0, th, tw = tile_regions()[0]
+    origins, directions, lanes, seed = region_rays_and_seed(
+        scene_camera("04_very-simple", frame, device), frame, width=WIDTH, height=HEIGHT,
+        samples=SAMPLES, y0=y0, x0=x0, tile_height=th, tile_width=tw,
+    )
+    call = lambda: kernels.trace_paths_fused(  # noqa: E731
+        scene, origins, directions, seed, max_bounces=BOUNCES, lane=lanes
+    )
+    positional = lambda: kernels.trace_paths_fused(  # noqa: E731
+        scene, origins, directions, seed, max_bounces=BOUNCES
+    )
+    cuda_ms(call, 3)
+    batches = [cuda_ms(call, 20) for _ in range(10)]
+    positional_batches = [cuda_ms(positional, 20) for _ in range(10)]
+    kernel_ms, positional_ms = statistics.median(batches), statistics.median(positional_batches)
+    wrapper_host_ms = host_ms(call, 20)
+    alone = profiled(lambda: [call() for _ in range(20)], "trace_fused_lanes", "trace_fused_lanes calls")
+    kernel_only_ms = None if alone is None else alone["kernel_ms"] / alone["launched"]
+    stats: dict = {}
+    out: list = []
+    plain_ms = cuda_ms(lambda: out.append(kernels.trace_paths_fused_reference(
+        scene, origins, directions, seed, max_bounces=BOUNCES, lane=lanes, stats=stats
+    )), 1)
+    check(torch.equal(call(), out[0]), "trace_fused_lanes differs from its plain version on the tile")
+    n_rays = origins.shape[0]
+    least = bound(stats, n_rays * LANE_RAY_BYTES)
+    print(
+        f"[5] trace_fused_lanes at {n_rays} rays (tile 0 of {run['label']}): {kernel_ms:.4f} ms "
+        f"(median of 10 batches of 20 calls: {', '.join(f'{b:.4f}' for b in batches)}; host "
+        f"{wrapper_host_ms:.4f} ms per call); trace_fused on the same rays {positional_ms:.4f} ms; "
+        f"plain version {plain_ms:.3f} ms (bit-equal); {describe_bound(least)}; work: {stats}"
+    )
+    if kernel_only_ms is not None:
+        print(f"[6] trace_fused_lanes, 20 wrapper calls under the profiler: the kernel alone {kernel_only_ms:.4f} ms per call")
+    return {
+        "name": "trace_fused_lanes",
+        "route": "cuda",
+        "source": "tpu_render_cluster_torch/render/csrc/trace_fused_lanes.cu",
+        "replaces": REPLACES["trace_fused_lanes"],
+        "launches": run["launches"],
+        "max_abs_err": max_abs_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": least["ms"],
+        "bound_by": least["by"],
+        "library_ms": None,
+        "rays": n_rays,
+        "positional_ms": positional_ms,
+        "host_ms": wrapper_host_ms,
+        "kernel_only_ms": kernel_only_ms,
+        "tolerance": "bit-equal to the plain version; on lanes 0..R-1 bit-equal to trace_fused",
+        "build_s": build_s,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -2048,7 +2486,9 @@ def main() -> int:
     libraries = _build.build()
     build_s = time.perf_counter() - started
     print(f"[2] built {sorted(libraries)} in {build_s:.2f} s")
-    expected = sorted({kernel for path in PATHS for kernel in path.launched})
+    expected = sorted(
+        {kernel for path in PATHS for kernel in path.launched} | {p.kernel for p in TILE_PATHS}
+    )
     check(sorted(libraries) == expected, f"kernels {sorted(libraries)} != {expected}")
     for name, log in _build.build_logs.items():
         for line in _build.resource_lines(log):
@@ -2077,6 +2517,9 @@ def main() -> int:
         else:
             continue
         print(f"[3] {path.kernel} checked in {time.perf_counter() - started:.1f} s")
+    started = time.perf_counter()
+    lane_err = lane_kernel_vs_plain(device)
+    print(f"[3] trace_fused_lanes checked in {time.perf_counter() - started:.1f} s")
     for kernel, scene_names in checks.items():
         started = time.perf_counter()
         compare = kernel_vs_plain if kernel in MEGAKERNELS else bounce_kernel_vs_plain
@@ -2114,6 +2557,21 @@ def main() -> int:
     record["kernels"] += [
         unit_entry(name, scan_records, runs, scan_checks, build_s) for name in UNIT_KERNELS
     ]
+    tile_summary = []
+    for path in TILE_PATHS:
+        started = time.perf_counter()
+        run = drive_tile_path(path, runs, device)
+        linear = tile_linear_checks(run, device)
+        times = tile_times(run, runs, device)
+        if path.kernel == "trace_fused_lanes":
+            record["kernels"].append(lane_kernel_record(run, device, lane_err, build_s))
+        tile_summary.append({
+            "path": run["label"], "kernel": path.kernel, "frames": run["frames"],
+            "units": len(run["units"]), "launches": run["launches"], "idle_share": run["idle"],
+            **linear, **times,
+        })
+        print(f"[5] {run['label']} tile path phases 4-6 in {time.perf_counter() - started:.1f} s")
+    print(f"[5] tile paths: {json.dumps(tile_summary)}")
 
     print(f"[5] chip_smoke phases 1-6 in {time.perf_counter() - script_started:.1f} s")
     print(json.dumps(record))

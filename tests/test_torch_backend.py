@@ -29,7 +29,11 @@ from tpu_render_cluster.jobs.models import BlenderJob as RefJob
 from tpu_render_cluster.jobs.models import DistributionStrategy
 from tpu_render_cluster_torch.jobs.models import BlenderJob as PortJob
 from tpu_render_cluster_torch.render import cli, kernels
-from tpu_render_cluster_torch.render.integrator import fused_frame_renderer
+from tpu_render_cluster_torch.render.integrator import (
+    fused_frame_renderer,
+    render_frame_region,
+    tonemap,
+)
 from tpu_render_cluster_torch.worker.backends.torch_raytrace import TorchRaytraceBackend
 
 REPO = Path(__file__).resolve().parent.parent
@@ -199,9 +203,13 @@ def test_backend_warm_renders_a_frame():
      ("wavefront", "force", "wavefront"), ("raypool", "force", "ray-pool")],
 )
 def test_backend_options_of_later_slices_raise(option, value, slice_name):
-    """Tiles and sharding raise, naming their slice. The wavefront and
+    """Sharding raises, naming its slice. ``tile_size`` is ported (the tiles
+    slice): taken and stored, as the reference stores it. The wavefront and
     ray-pool options are ported (their slices): their three modes are
     taken, and any other value raises naming them."""
+    if option == "tile_size":
+        assert TorchRaytraceBackend(device="cpu", tile_size=value).tile_size == value
+        return
     if option in ("wavefront", "raypool"):
         for mode in ("auto", "off", "force"):
             assert getattr(TorchRaytraceBackend(device="cpu", **{option: mode}), option) == mode
@@ -213,11 +221,26 @@ def test_backend_options_of_later_slices_raise(option, value, slice_name):
 
 
 def test_backend_refuses_tiles(tmp_path):
-    backend = TorchRaytraceBackend(device="cpu", width=8, height=8, base_directory=tmp_path)
-    job = PortJob.from_dict({**_job(DistributionStrategy.naive_fine()).to_dict(), "tiles": [2, 2]})
-    with pytest.raises(NotImplementedError, match="tiles slice"):
-        asyncio.run(backend.render_frame(job, 1, tile=0))
+    """A tile of a job without a tile grid is refused and writes nothing; a
+    tile of a tiled job renders its region, written as a PNG tile file
+    whatever the job's format (tests/test_torch_tiles.py covers the tiers)."""
+    backend = TorchRaytraceBackend(device="cpu", width=8, height=6, base_directory=tmp_path)
+    untiled = PortJob.from_dict(_job(DistributionStrategy.naive_fine()).to_dict())
+    with pytest.raises(RuntimeError, match="no tile grid"):
+        asyncio.run(backend.render_frame(untiled, 1, tile=0))
     assert not (tmp_path / "frames").exists()
+    job = PortJob.from_dict(
+        {**_job(DistributionStrategy.naive_fine()).to_dict(), "tiles": [2, 2],
+         "output_file_format": "JPEG"}
+    )
+    asyncio.run(backend.render_frame(job, 1, tile=3))
+    assert [p.name for p in (tmp_path / "frames").iterdir()] == ["rendered-00001.tile_r1c1.png"]
+    pixels = np.asarray(Image.open(tmp_path / "frames" / "rendered-00001.tile_r1c1.png"))
+    region = render_frame_region(
+        "04_very-simple", 1, y0=3, x0=4, tile_height=3, tile_width=4, width=8, height=6,
+        device="cpu",
+    )
+    np.testing.assert_array_equal(pixels, tonemap(region).numpy())
 
 
 def test_backend_needs_cuda_unless_cpu_is_asked(monkeypatch):

@@ -16,8 +16,10 @@ import pytest
 import torch
 
 import tpu_render_cluster_torch
+from tpu_render_cluster_torch.render import camera as port_camera
 from tpu_render_cluster_torch.render import integrator as port_integrator
 from tpu_render_cluster_torch.render import kernels
+from tpu_render_cluster_torch.render import scene as port_scene
 
 WIDTH, HEIGHT, SAMPLES, BOUNCES = 32, 24, 2, 4
 
@@ -66,6 +68,7 @@ def test_frame_matches_reference(reference_renderer, name, frame):
         "trace_fused_mesh_tlas": 0, "trace_fused_mesh_tlas_reference": 0,
         "mesh_bounce_tlas": 0, "mesh_bounce_tlas_reference": 0,
         "pool_mesh_bounce_tlas": 0, "pool_mesh_bounce_tlas_reference": 0,
+        "trace_fused_lanes": 0, "trace_fused_lanes_reference": 0,
     }
     assert_images_match(got.numpy(), expected)
     assert got.numpy().std() > 5.0
@@ -79,12 +82,23 @@ def test_renderer_is_cached_per_config():
 
 
 def test_render_frame_whole_frame_only():
+    """A whole frame, and with ``tile_size`` the reference's local tiling:
+    one ``render_tile`` per square (its own RNG root), concatenated."""
     linear = port_integrator.render_frame(
         "02_physics", 3, width=12, height=10, samples=1, max_bounces=2, device="cpu"
     )
     assert linear.shape == (10, 12, 3) and torch.isfinite(linear).all()
-    with pytest.raises(NotImplementedError, match="tiles slice"):
-        port_integrator.render_frame("02_physics", 3, width=12, height=10, tile_size=4, device="cpu")
+    tiled = port_integrator.render_frame(
+        "02_physics", 3, width=12, height=10, samples=1, max_bounces=2, tile_size=4, device="cpu"
+    )
+    assert tiled.shape == (10, 12, 3) and torch.isfinite(tiled).all()
+    scene = port_scene.build_scene("02_physics", 3, "cpu")
+    camera = port_camera.scene_camera("02_physics", 3, "cpu")
+    edge = port_integrator.render_tile(
+        scene, camera, 3, 8, 4, width=12, height=10, tile_height=2, tile_width=4, samples=1,
+        max_bounces=2,
+    )
+    assert torch.equal(tiled[8:10, 4:8], edge)
 
 
 def test_tonemap_matches_reference():

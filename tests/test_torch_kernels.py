@@ -134,6 +134,7 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
         "trace_fused_mesh_tlas": 0, "trace_fused_mesh_tlas_reference": 0,
         "mesh_bounce_tlas": 0, "mesh_bounce_tlas_reference": 0,
         "pool_mesh_bounce_tlas": 0, "pool_mesh_bounce_tlas_reference": 0,
+        "trace_fused_lanes": 0, "trace_fused_lanes_reference": 0,
     }
 
 

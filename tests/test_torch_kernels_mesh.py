@@ -204,6 +204,7 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
         "trace_fused_mesh_tlas": 0, "trace_fused_mesh_tlas_reference": 1,
         "mesh_bounce_tlas": 0, "mesh_bounce_tlas_reference": 0,
         "pool_mesh_bounce_tlas": 0, "pool_mesh_bounce_tlas_reference": 0,
+        "trace_fused_lanes": 0, "trace_fused_lanes_reference": 0,
     }
 
 
@@ -285,7 +286,7 @@ def test_build_digest_covers_shared_headers(tmp_path, monkeypatch):
         "intersect_instances", "intersect_mesh", "intersect_spheres", "mesh_bounce",
         "mesh_bounce_tlas", "occluded_instances", "occluded_mesh", "occluded_spheres",
         "pool_mesh_bounce", "pool_mesh_bounce_tlas", "pool_sphere_bounce", "sphere_bounce",
-        "trace_fused", "trace_fused_mesh", "trace_fused_mesh_tlas",
+        "trace_fused", "trace_fused_lanes", "trace_fused_mesh", "trace_fused_mesh_tlas",
     ]
     before = {name: _build.library_path(name) for name in _build.sources()}
     header = csrc / "path_common.cuh"

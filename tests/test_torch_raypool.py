@@ -482,12 +482,15 @@ def test_backend_batches_the_queue_and_serves_the_cache(tmp_path):
     job = _job(DistributionStrategy.naive_fine(), frames=3, workers=1, name="04vs_raypool")
     options = dict(device="cpu", width=8, height=8, samples=1, max_bounces=2, raypool="force")
     backend = TorchRaytraceBackend(base_directory=tmp_path / "batched", **options)
-    # The queue's own work units, by attribute; tiled units are not pooled.
+    # The queue's own work units, by attribute; a unit's window takes only
+    # units of its own tile (here: whole frames, not tile 0).
     backend.note_upcoming_frames(job, (WorkUnit(2), WorkUnit(3), WorkUnit(2, tile=0)))
     kernels.reset_counts()
     asyncio.run(backend.render_frame(job, 1))
     launches = kernels.counts["pool_sphere_bounce_reference"]
-    assert launches > 0 and set(backend._raypool_cache) == {(job.job_name, 2), (job.job_name, 3)}
+    assert launches > 0 and set(backend._raypool_cache) == {
+        (job.job_name, 2, None), (job.job_name, 3, None)
+    }
     backend.note_upcoming_frames(job, (3,))
     asyncio.run(backend.render_frame(job, 2))
     backend.note_upcoming_frames(job, ())
@@ -505,7 +508,7 @@ def test_backend_batches_the_queue_and_serves_the_cache(tmp_path):
     bounded._RAYPOOL_CACHE_MAX_BYTES = 8 * 8 * 3 * 4  # one linear image
     bounded.note_upcoming_frames(job, (2, 3))
     asyncio.run(bounded.render_frame(job, 1))
-    assert set(bounded._raypool_cache) == {(job.job_name, 3)}  # frame 2, the oldest, went
+    assert set(bounded._raypool_cache) == {(job.job_name, 3, None)}  # frame 2, the oldest, went
 
 
 def test_the_queue_hint_drives_the_auto_tier_through_the_harness(tmp_path):

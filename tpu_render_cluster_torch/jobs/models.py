@@ -7,9 +7,9 @@ frame range, the worker-count barrier, an internally-tagged distribution
 strategy, and output directory / name format / file format; plus this
 repo's ``tpu-batch`` strategy, ``render_backend`` hint, ``tiles`` grid and
 ``[slo]`` table. Every job file under ``blender-projects/`` loads, and
-serialises to the same dictionary as in the JAX package.
-
-Left for the tiles slice: work units and the load-time default tile grid.
+serialises to the same dictionary as in the JAX package. A job's work units
+are ``jobs.tiles.WorkUnit``s; ``TRC_TILE_GRID`` gives a job loaded from a
+file without a ``tiles`` key its grid, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ except ModuleNotFoundError:  # Python < 3.11
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any
+
+from tpu_render_cluster_torch.jobs.tiles import WorkUnit, env_tile_grid, validate_tile_grid
 
 
 @dataclass(frozen=True)
@@ -126,9 +128,6 @@ class JobSlo:
             deadline_seconds=_num("deadline_seconds"),
         )
 
-
-# The largest tile-grid side the reference accepts (jobs/tiles.py).
-MAX_TILE_GRID_DIM = 16
 
 STRATEGY_NAIVE_FINE = "naive-fine"
 STRATEGY_EAGER_NAIVE_COARSE = "eager-naive-coarse"
@@ -314,12 +313,10 @@ class BlenderJob:
                 )
             else:
                 object.__setattr__(self, "tile_grid", grid)
-                rows, cols = grid
-                if not (1 <= rows <= MAX_TILE_GRID_DIM and 1 <= cols <= MAX_TILE_GRID_DIM):
-                    problems.append(
-                        f"tile grid {rows}x{cols} must have dimensions in "
-                        f"1..{MAX_TILE_GRID_DIM}"
-                    )
+                try:
+                    validate_tile_grid(grid)
+                except ValueError as e:
+                    problems.append(str(e))
         if self.slo is not None and not isinstance(self.slo, JobSlo):
             # Raw TOML table through from_dict: normalize like tile_grid,
             # landing malformed declarations in the aggregated report.
@@ -340,6 +337,24 @@ class BlenderJob:
 
     def frame_count(self) -> int:
         return self.frame_range_to - self.frame_range_from + 1
+
+    def tiles_per_frame(self) -> int:
+        if self.tile_grid is None:
+            return 1
+        return self.tile_grid[0] * self.tile_grid[1]
+
+    def work_units(self):
+        """Every schedulable unit: frames, or (frame, tile) pairs, in
+        frame-major tile-minor order."""
+        for frame_index in self.frame_indices():
+            if self.tile_grid is None:
+                yield WorkUnit(frame_index)
+            else:
+                for tile in range(self.tiles_per_frame()):
+                    yield WorkUnit(frame_index, tile)
+
+    def unit_count(self) -> int:
+        return self.frame_count() * self.tiles_per_frame()
 
     # -- serde -------------------------------------------------------------
 
@@ -398,4 +413,11 @@ class BlenderJob:
             raise FileNotFoundError(f"No such job file: {path}")
         with path.open("rb") as f:
             data = tomllib.load(f)
-        return cls.from_dict(data)
+        job = cls.from_dict(data)
+        if job.tile_grid is None:
+            # The default grid applies at load time only: decoding a job
+            # from the wire never reads the environment.
+            grid = env_tile_grid()
+            if grid is not None:
+                job = cls.from_dict({**data, "tiles": list(grid)})
+        return job

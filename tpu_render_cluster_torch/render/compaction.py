@@ -7,7 +7,10 @@ each bounce, compacts the live rays to the front, reads the live count back
 ladder, and relaunches the per-bounce kernel over the bucket alone.
 Radiance scatters back through the carried original lane ids, which also
 key the kernels' RNG, so a ray's stream is the one it has in the masked
-loop or the megakernel, and the images agree ray for ray.
+loop or the megakernel, and the images agree ray for ray. A region (one
+tile of a frame, ``render_region_wavefront``) carries its rays' whole-frame
+lanes beside the local ones, as the RNG counters, so a stitched grid of
+regions equals the whole-frame wavefront image.
 
 Sphere scenes compact with a stable partition (the sphere kernel culls no
 packets); mesh scenes with a coherence sort whose dead flag parks the dead
@@ -33,7 +36,11 @@ import torch
 from tpu_render_cluster_torch import resolve_device
 from tpu_render_cluster_torch.render import kernels
 from tpu_render_cluster_torch.render.camera import scene_camera
-from tpu_render_cluster_torch.render.integrator import _ray_sort_order, frame_rays_and_seed
+from tpu_render_cluster_torch.render.integrator import (
+    _ray_sort_order,
+    frame_rays_and_seed,
+    region_rays_and_seed,
+)
 from tpu_render_cluster_torch.render.mesh import MeshSet, scene_mesh_set
 from tpu_render_cluster_torch.render.scene import Scene, build_scene
 
@@ -51,7 +58,7 @@ class WavefrontLaunch(NamedTuple):
     bounce: int
     live: int
     bucket: int
-    state: tuple  # (origins, directions, throughput, alive, lane)
+    state: tuple  # (origins, directions, throughput, alive, lane: the RNG counters)
 
 
 def bucket_for(live: int, cap: int, block: int) -> int:
@@ -105,6 +112,7 @@ def trace_paths_wavefront(
     mesh: MeshSet | None = None,
     on_launch: Callable[[WavefrontLaunch], None] | None = None,
     use_tlas: bool | None = None,
+    rng_lanes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Trace one sample per ray, wavefront-style; radiance [R, 3].
 
@@ -115,7 +123,10 @@ def trace_paths_wavefront(
     is called with each launch before it runs. ``use_tlas`` (None:
     ``kernels.use_tlas_for``) picks the mesh kernel's variant and, with it,
     the compaction's key and the bucket quantum (``kernels.TLAS_BLOCK_R``,
-    else ``FLAT_MESH_BUCKET_BLOCK``).
+    else ``FLAT_MESH_BUCKET_BLOCK``). ``rng_lanes`` (int32 [R]): each
+    ray's RNG counter (a region's whole-frame lanes): each launch's
+    ``lane`` argument is ``rng_lanes`` at the carried lanes, which the
+    radiance still scatters to.
     """
     n0 = origins.shape[0]
     device = origins.device
@@ -139,9 +150,10 @@ def trace_paths_wavefront(
         if live == 0:
             break
         bucket = bucket_for(live, cap=origins.shape[0], block=block)
+        lane = lane[:bucket]
         state = (
             origins[:bucket], directions[:bucket], throughput[:bucket], alive[:bucket],
-            lane[:bucket],
+            lane if rng_lanes is None else rng_lanes[lane],
         )
         if on_launch is not None:
             on_launch(WavefrontLaunch(bounce, live, bucket, state))
@@ -158,7 +170,6 @@ def trace_paths_wavefront(
             step.origins, step.directions, step.throughput, step.alive
         )
         keys = step.key
-        lane = state[4]
         radiance.index_add_(0, lane.to(torch.int64), step.contribution)
     return radiance
 
@@ -191,6 +202,43 @@ def render_frame_wavefront(
         use_tlas=use_tlas,
     )
     return radiance.reshape(samples, height * width, 3).mean(dim=0).reshape(height, width, 3)
+
+
+def render_region_wavefront(
+    scene_name: str,
+    frame_index: int,
+    *,
+    y0: int,
+    x0: int,
+    tile_height: int,
+    tile_width: int,
+    width: int = 512,
+    height: int = 512,
+    samples: int = 8,
+    max_bounces: int = 4,
+    device: str | torch.device | None = None,
+    on_launch: Callable[[WavefrontLaunch], None] | None = None,
+    use_tlas: bool | None = None,
+) -> torch.Tensor:
+    """Render one region of a frame through the wavefront driver;
+    [tile_height, tile_width, 3] linear radiance on ``device``: the region's
+    rays with their whole-frame lanes as RNG counters
+    (``integrator.region_rays_and_seed``), so a stitched grid of regions
+    equals ``render_frame_wavefront``'s image."""
+    device = resolve_device(device)
+    scene = build_scene(scene_name, frame_index, device)
+    camera = scene_camera(scene_name, frame_index, device)
+    origins, directions, lanes, seed = region_rays_and_seed(
+        camera, frame_index, width=width, height=height, samples=samples, y0=y0, x0=x0,
+        tile_height=tile_height, tile_width=tile_width,
+    )
+    radiance = trace_paths_wavefront(
+        scene, origins, directions, seed, max_bounces=max_bounces,
+        mesh=scene_mesh_set(scene_name, frame_index, device=device), on_launch=on_launch,
+        use_tlas=use_tlas, rng_lanes=lanes,
+    )
+    n = tile_height * tile_width
+    return radiance.reshape(samples, n, 3).mean(dim=0).reshape(tile_height, tile_width, 3)
 
 
 def wavefront_eligible(mesh: MeshSet | None) -> bool:

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel `_trace_fused` / `_trace_kernel_factory`
 // (tpu_render_cluster/render/pallas_kernels.py) in its positional-counter
-// mode: one launch runs the whole bounce loop for every ray and writes
+// mode (its lane_io mode: trace_fused_lanes.cu; the body both share:
+// trace_fused.cuh): one launch runs the whole bounce loop for every ray and writes
 // radiance once. Per bounce, in the reference's order: nearest sphere and
 // ground-plane hit, sky plus sun disc on escape, emission, checker albedo,
 // sun next-event estimation (any-hit against the spheres), and a cosine
@@ -32,39 +33,19 @@
 // path::sphere_bounce in path_common.cuh, shared with the per-bounce sphere
 // kernel (sphere_bounce.cu).
 
-#include "path_common.cuh"
+#include "trace_fused.cuh"
 
 namespace {
 
-using path::float3v;
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(trace_fused::kThreads)
 trace_fused_kernel(const float* __restrict__ origins,
                    const float* __restrict__ directions, int n_rays,
                    const float4* __restrict__ spheres, int n_spheres,
                    const float* __restrict__ params, uint32_t seed,
                    int max_bounces, float* __restrict__ radiance_out) {
   __shared__ path::SceneShared scene;
-  path::load_scene(scene, spheres, n_spheres, params);
-
-  const int64_t ray = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (ray >= n_rays) return;
-  const uint32_t lane = static_cast<uint32_t>(ray);
-
-  float3v o = path::load3(origins, ray);
-  float3v d = path::load3(directions, ray);
-  float3v thr = {1.0f, 1.0f, 1.0f};
-  float3v rad = {0.0f, 0.0f, 0.0f};
-  const uint32_t counter_stride = 2u * static_cast<uint32_t>(max_bounces) + 2u;
-
-  for (int bounce = 0; bounce < max_bounces; ++bounce) {
-    if (!path::sphere_bounce(scene, 0, n_spheres, lane, bounce, counter_stride, seed, o, d, thr,
-                             rad)) {
-      break;  // the path escaped
-    }
-  }
-  path::store3(radiance_out, ray, rad);
+  trace_fused::trace_ray<false>(scene, origins, directions, nullptr, n_rays, spheres, n_spheres,
+                                params, seed, max_bounces, radiance_out);
 }
 
 }  // namespace
@@ -76,11 +57,11 @@ extern "C" int trace_fused_launch(const float* origins, const float* directions,
                                   const float* params, int seed, int max_bounces,
                                   float* radiance, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaSuccess);
-  if (n_spheres < 1 || n_spheres > path::kMaxSpheres || max_bounces < 0) {
+  if (!trace_fused::valid_launch(n_spheres, max_bounces)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  trace_fused_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  trace_fused_kernel<<<trace_fused::blocks_for(n_rays), trace_fused::kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       origins, directions, n_rays, reinterpret_cast<const float4*>(spheres), n_spheres,
       params, static_cast<uint32_t>(seed), max_bounces, radiance);
   return static_cast<int>(cudaGetLastError());

@@ -1,6 +1,6 @@
 """Image output: frame-placeholder expansion + PNG/JPEG writing.
 
-Own copy of the reference's ``render/image_io.py`` (whole-frame parts).
+Own copy of the reference's ``render/image_io.py``.
 The ``#####`` placeholder convention matches the reference's render script
 (reference: scripts/render-timing-script.py:69-79): the run of ``#`` is
 replaced by the zero-padded frame number.
@@ -14,6 +14,8 @@ import tempfile
 from pathlib import Path
 
 import numpy as np
+
+from tpu_render_cluster_torch.jobs.tiles import tile_rc
 
 _HASH_RUN = re.compile(r"#+")
 
@@ -46,6 +48,24 @@ def output_path_for_frame(
     return output_directory / (
         format_frame_placeholders(name_format, frame_number) + extension
     )
+
+
+def output_path_for_tile(
+    output_directory: Path,
+    name_format: str,
+    file_format: str,
+    frame_number: int,
+    tile: int,
+    grid: tuple[int, int],
+) -> Path:
+    """Where one tile of a tiled frame lands: the frame's own output path
+    with a ``.tile_r{row}c{col}`` infix, always ``.png``. Tiles are
+    lossless whatever the job's format: a JPEG tile would be quantised
+    twice, once here and once when the master encodes the stitched frame.
+    The master's assembler finds the tiles by exactly this name."""
+    frame_path = output_path_for_frame(output_directory, name_format, file_format, frame_number)
+    row, col = tile_rc(tile, grid)
+    return frame_path.with_name(f"{frame_path.stem}.tile_r{row}c{col}.png")
 
 
 def write_image(path: Path, pixels: np.ndarray, file_format: str = "PNG") -> None:

@@ -10,6 +10,15 @@ deep mesh (past the mesh megakernel's walk bound) takes the per-bounce
 mesh kernel once per bounce, the rays re-sorted by a coherence key between
 bounces (``_ray_sort_order``), dead lanes at the tail.
 
+Regions (one tile of a frame, the cluster's tiled work unit):
+``region_rays_and_seed`` gives a region's rows of the whole frame's rays
+with their whole-frame lanes, and ``render_frame_region`` traces them with
+those lanes as RNG counters (``trace_paths(rng_lanes=)``: the sphere
+megakernel's lane mode, or for any mesh the masked deep loop), so a
+stitched grid of regions equals the whole frame bit for bit.
+``render_frame(tile_size=)`` is the reference's other, local tiling, where
+each tile draws its own RNG root.
+
 RNG: the jitter and the kernel's trace seed derive from the reference's
 ``jax.random`` key schedule, reproduced bit for bit by ``render/rng.py``.
 The keys are a handful of words and are derived on the host; only the
@@ -45,8 +54,6 @@ from tpu_render_cluster_torch.render.mesh import (
     scene_mesh_set,
 )
 from tpu_render_cluster_torch.render.scene import Scene, build_scene
-
-_TILES_SLICE = "tiled rendering arrives with the tiles slice of the port (ROADMAP.md, queue 1)"
 
 
 def _int32(value) -> int:
@@ -113,6 +120,67 @@ def frame_rays_and_seed(camera: Camera, frame, *, width, height, samples):
         tile_height=height, tile_width=width, samples=samples,
     )
     return origins, directions, trace_seed(tile_trace_key(base_key))
+
+
+def region_pixel_indices(*, y0, x0, tile_height, tile_width, width, device="cpu"):
+    """Row-major whole-frame pixel indices of one region ([th*tw] int32)."""
+    ys = torch.arange(tile_height, dtype=torch.int32, device=device)[:, None] + int(y0)
+    xs = torch.arange(tile_width, dtype=torch.int32, device=device)[None, :] + int(x0)
+    return (ys * width + xs).reshape(-1)
+
+
+def region_lane_map(
+    *, y0, x0, tile_height, tile_width, width, height, samples, device="cpu"
+):
+    """Local region-ray index -> whole-frame lane ([samples*th*tw] int32):
+    sample-major over row-major pixels, ``s*H*W + y*W + x``, the layout of
+    ``flat_sample_rays`` over the whole frame. The region renderers and the
+    pool's region mode all take their RNG counters from here."""
+    pix = region_pixel_indices(
+        y0=y0, x0=x0, tile_height=tile_height, tile_width=tile_width, width=width,
+        device=device,
+    )
+    samples_base = torch.arange(samples, dtype=torch.int32, device=device)[:, None]
+    return (samples_base * (height * width) + pix[None, :]).reshape(-1)
+
+
+def region_rays_and_seed(
+    camera: Camera, frame, *, width, height, samples, y0, x0, tile_height, tile_width,
+):
+    """One region's rows of the whole frame's flattened primary rays, their
+    whole-frame lanes (``region_lane_map``) and the frame's trace seed.
+
+    The region inherits the whole frame's RNG: per sample the whole frame's
+    jitter is drawn and sliced to the region's pixels, and the camera rays
+    are built from the same global pixel coordinates, so the rays equal the
+    whole frame's rows bit for bit. Traced with these lanes as RNG counters
+    they give the whole frame's radiance on the region's pixels (a tile
+    render that draws its own RNG root is ``render_tile``)."""
+    base_key = tile_base_key(frame, 0, 0)
+    device = camera.origin.device
+    pix = region_pixel_indices(
+        y0=y0, x0=x0, tile_height=tile_height, tile_width=tile_width, width=width,
+        device=device,
+    )
+    sample_keys = rng.fold_in(base_key, torch.arange(samples))
+    jitter_keys = rng.split(sample_keys)[..., 0, :].to(device)
+    # The whole frame's jitter of each sample, sliced to the region.
+    jitter = rng.uniform(jitter_keys, (height * width, 2))[:, pix.to(torch.int64)]
+    origins, directions = camera_rays(
+        camera, width, height, y0=y0, x0=x0, tile_height=tile_height,
+        tile_width=tile_width, jitter=jitter,
+    )
+    n = tile_height * tile_width
+    lanes = region_lane_map(
+        y0=y0, x0=x0, tile_height=tile_height, tile_width=tile_width, width=width,
+        height=height, samples=samples, device=device,
+    )
+    return (
+        origins.reshape(samples * n, 3).contiguous(),
+        directions.reshape(samples * n, 3),
+        lanes,
+        trace_seed(tile_trace_key(base_key)),
+    )
 
 
 def _cosine_sample_hemisphere(normals: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
@@ -315,29 +383,42 @@ def trace_paths(
     max_bounces: int,
     mesh: MeshSet | None = None,
     use_tlas: bool | None = None,
+    rng_lanes: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Trace one sample per ray through the whole bounce loop; radiance
     [R, 3]. The reference's dispatch: no mesh -> the sphere megakernel; a
     mesh within the walk bound -> the mesh megakernel; a deeper mesh ->
     the per-bounce mesh kernel under the masked deep loop. ``use_tlas``
-    (None: ``kernels.use_tlas_for``) picks the mesh kernels' TLAS variant."""
+    (None: ``kernels.use_tlas_for``) picks the mesh kernels' TLAS variant.
+
+    ``rng_lanes`` (int32 [R]) gives each ray its RNG counter, the region
+    path's whole-frame lanes: the sphere megakernel then runs in its lane
+    mode, and every mesh scene, within the walk bound or not, takes the
+    masked deep loop, whose per-bounce kernel reads lanes (the reference's
+    routing: its mesh megakernel has no lane mode)."""
     if mesh is None:
         return kernels.trace_paths_fused(
-            scene, origins, directions, seed, max_bounces=max_bounces
+            scene, origins, directions, seed, max_bounces=max_bounces, lane=rng_lanes
         )
-    if kernels.mesh_megakernel_eligible(mesh):
+    if rng_lanes is None and kernels.mesh_megakernel_eligible(mesh):
         return kernels.trace_paths_fused_mesh(
             scene, mesh, origins, directions, seed, max_bounces=max_bounces, use_tlas=use_tlas
         )
-    return _trace_paths_deep(scene, mesh, origins, directions, seed, max_bounces, use_tlas)
+    return _trace_paths_deep(
+        scene, mesh, origins, directions, seed, max_bounces, use_tlas, rng_lanes
+    )
 
 
-def _trace_paths_deep(scene, mesh, origins, directions, seed, max_bounces, use_tlas=None):
+def _trace_paths_deep(
+    scene, mesh, origins, directions, seed, max_bounces, use_tlas=None, rng_lanes=None
+):
     """The reference's masked deep loop: per bounce, re-sort the rays by the
     coherence key (dead lanes to the tail) with ONE packed [n, 12] gather
     of the travelling state, count the live lanes, and launch the
-    per-bounce kernel over every lane; the carried original lane is the RNG
-    counter and, at the end, unsorts the radiance. The live count stays on
+    per-bounce kernel over every lane; the carried original lane unsorts
+    the radiance at the end, and is the RNG counter too unless
+    ``rng_lanes`` gives the counters: then ``rng_lanes`` at the carried
+    lanes. The live count stays on
     the device: the loop never waits for the card. Under the TLAS variant
     (``integrator.py:475-525`` of the reference) bounce 0 sorts by
     ``kernels.initial_mesh_sort_keys`` and every later bounce by the key
@@ -360,9 +441,10 @@ def _trace_paths_deep(scene, mesh, origins, directions, seed, max_bounces, use_t
         origins, directions = packed[:, 0:3], packed[:, 3:6]
         throughput, radiance = packed[:, 6:9], packed[:, 9:12]
         alive, lane = alive[order], lane[order]
+        counter = lane if rng_lanes is None else rng_lanes[lane]
         live = alive.sum(dtype=torch.int32)
         step = kernels.mesh_bounce(
-            scene, mesh, origins, directions, throughput, alive, lane, live, seed, bounce,
+            scene, mesh, origins, directions, throughput, alive, counter, live, seed, bounce,
             total_bounces=max_bounces, use_tlas=tlas,
         )
         origins, directions, throughput, alive = (
@@ -450,19 +532,35 @@ def render_frame(
     """Render a whole frame; returns [H, W, 3] linear radiance on ``device``
     (``bounce_scan``: through the per-bounce scan renderer; ``per_instance``
     as well: its mesh queries as a scan over the instances; ``use_tlas``:
-    the mesh kernels' variant, None for ``kernels.use_tlas_for``)."""
-    if tile_size is not None:
-        raise NotImplementedError(f"tile_size={tile_size}: {_TILES_SLICE}.")
+    the mesh kernels' variant, None for ``kernels.use_tlas_for``).
+
+    ``tile_size``: the reference's local tiling, one ``render_tile`` per
+    ``tile_size`` square (smaller at the right and bottom edges), each with
+    its own RNG root ``tile_base_key(frame, y0, x0)``, concatenated. The
+    image differs from the untiled one in its noise, not its content."""
     device = resolve_device(device)
     scene = build_scene(scene_name, frame_index, device)
     camera = scene_camera(scene_name, frame_index, device)
-    return render_tile(
-        scene, camera, frame_index, 0, 0,
-        width=width, height=height, tile_height=height, tile_width=width,
-        samples=samples, max_bounces=max_bounces,
-        mesh=scene_mesh_set(scene_name, frame_index, device=device), bounce_scan=bounce_scan,
+    mesh = scene_mesh_set(scene_name, frame_index, device=device)
+    tile = functools.partial(
+        render_tile, scene, camera, frame_index, width=width, height=height,
+        samples=samples, max_bounces=max_bounces, mesh=mesh, bounce_scan=bounce_scan,
         per_instance=per_instance, use_tlas=use_tlas,
     )
+    if tile_size is None:
+        return tile(0, 0, tile_height=height, tile_width=width)
+    rows = [
+        torch.cat(
+            [
+                tile(y0, x0, tile_height=min(tile_size, height - y0),
+                     tile_width=min(tile_size, width - x0))
+                for x0 in range(0, width, tile_size)
+            ],
+            dim=1,
+        )
+        for y0 in range(0, height, tile_size)
+    ]
+    return torch.cat(rows, dim=0)
 
 
 def tonemap(image: torch.Tensor) -> torch.Tensor:
@@ -518,3 +616,95 @@ def fused_frame_renderer(
         scene_name, width, height, samples, max_bounces, resolve_device(device),
         bool(bounce_scan), bool(per_instance), None if use_tlas is None else bool(use_tlas),
     )
+
+
+@functools.lru_cache(maxsize=64)
+def _fused_region_renderer(
+    scene_name: str, width: int, height: int, tile_height: int, tile_width: int,
+    samples: int, max_bounces: int, device: torch.device, bounce_scan: bool,
+    per_instance: bool, use_tlas: bool | None,
+):
+    def render(frame: int, y0: int, x0: int) -> torch.Tensor:
+        scene = build_scene(scene_name, frame, device)
+        camera = scene_camera(scene_name, frame, device)
+        mesh = scene_mesh_set(scene_name, frame, device=device)
+        origins, directions, lanes, seed = region_rays_and_seed(
+            camera, frame, width=width, height=height, samples=samples, y0=y0, x0=x0,
+            tile_height=tile_height, tile_width=tile_width,
+        )
+        if bounce_scan:
+            # The scan draws its random numbers by shape (threefry), not by
+            # lane: the region gets its own stream, so it matches the whole
+            # frame statistically, not bit for bit (the reference's
+            # Pallas-off branch).
+            radiance = trace_paths_scan(
+                scene, origins, directions, tile_trace_key(tile_base_key(frame, 0, 0)),
+                max_bounces=max_bounces, mesh=mesh, per_instance=per_instance,
+            )
+        else:
+            radiance = trace_paths(
+                scene, origins, directions, seed, max_bounces=max_bounces, mesh=mesh,
+                use_tlas=use_tlas, rng_lanes=lanes,
+            )
+        n = tile_height * tile_width
+        return radiance.reshape(samples, n, 3).mean(dim=0).reshape(tile_height, tile_width, 3)
+
+    return render
+
+
+def fused_region_renderer(
+    scene_name: str,
+    width: int,
+    height: int,
+    tile_height: int,
+    tile_width: int,
+    samples: int,
+    max_bounces: int,
+    device: str | torch.device | None = None,
+    bounce_scan: bool = False,
+    per_instance: bool = False,
+    use_tlas: bool | None = None,
+):
+    """A cached ``(frame, y0, x0) -> [th, tw, 3] linear`` region renderer,
+    one per tile shape and device: every tile position and frame of a grid
+    shares it.
+
+    The region traces the whole frame's rays and RNG restricted to its
+    pixels (``region_rays_and_seed``), so a stitched grid of regions equals
+    the whole-frame render bit for bit: sphere scenes through the lane mode
+    of the sphere megakernel, mesh scenes through the masked deep loop with
+    the lanes as RNG counters. ``bounce_scan`` (and ``per_instance``) take
+    the scan renderer over the region's rays instead. The result is linear,
+    not tonemapped.
+    """
+    _check_per_instance(per_instance, bounce_scan)
+    return _fused_region_renderer(
+        scene_name, width, height, tile_height, tile_width, samples, max_bounces,
+        resolve_device(device), bool(bounce_scan), bool(per_instance),
+        None if use_tlas is None else bool(use_tlas),
+    )
+
+
+def render_frame_region(
+    scene_name: str,
+    frame_index: int,
+    *,
+    y0: int,
+    x0: int,
+    tile_height: int,
+    tile_width: int,
+    width: int = 512,
+    height: int = 512,
+    samples: int = 8,
+    max_bounces: int = 4,
+    device: str | torch.device | None = None,
+    bounce_scan: bool = False,
+    per_instance: bool = False,
+    use_tlas: bool | None = None,
+) -> torch.Tensor:
+    """Render one region of a frame; [tile_height, tile_width, 3] linear on
+    ``device``, the whole frame's pixels there (``fused_region_renderer``)."""
+    return fused_region_renderer(
+        scene_name, width, height, tile_height, tile_width, samples, max_bounces, device,
+        bounce_scan=bounce_scan, per_instance=per_instance, use_tlas=use_tlas,
+    )(frame_index, y0, x0)

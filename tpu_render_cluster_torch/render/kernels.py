@@ -4,7 +4,10 @@ Counterpart of ``tpu_render_cluster/render/pallas_kernels.py``. Twelve
 kernels, written in CUDA C++ for Hopper and built by ``_build.py``:
 
 - ``csrc/trace_fused.cu``, the sphere path-trace megakernel that replaces
-  the TPU's ``_trace_fused`` in its positional-counter mode;
+  the TPU's ``_trace_fused`` in its positional-counter mode, and
+  ``csrc/trace_fused_lanes.cu``, the same kernel in the TPU kernel's
+  ``lane_io`` mode (the RNG counters from a per-ray lane row, for the
+  region path of a tile; its body shared through ``csrc/trace_fused.cuh``);
 - ``csrc/trace_fused_mesh.cu``, the mesh megakernel that replaces
   ``_trace_fused_mesh``: spheres, the plane and K rigid instances of one
   mesh walked through its threaded BVH, over the whole bounce loop;
@@ -101,10 +104,11 @@ TLAS_BLOCK_R = 256
 # a positive int32.
 KEY_DEAD_BIT = 29
 
-# Kernel launches ("trace_fused", "trace_fused_mesh", "sphere_bounce",
-# "mesh_bounce", "pool_sphere_bounce", "pool_mesh_bounce", the TLAS variants
-# "trace_fused_mesh_tlas", "mesh_bounce_tlas", "pool_mesh_bounce_tlas" and the
-# unit kernels "intersect_spheres", "occluded_spheres", "intersect_instances",
+# Kernel launches ("trace_fused", its lane mode "trace_fused_lanes",
+# "trace_fused_mesh", "sphere_bounce", "mesh_bounce", "pool_sphere_bounce",
+# "pool_mesh_bounce", the TLAS variants "trace_fused_mesh_tlas",
+# "mesh_bounce_tlas", "pool_mesh_bounce_tlas" and the unit kernels
+# "intersect_spheres", "occluded_spheres", "intersect_instances",
 # "occluded_instances", "intersect_mesh", "occluded_mesh") and plain-version
 # calls ("..._reference") since the last reset_counts().
 counts = {
@@ -138,6 +142,8 @@ counts = {
     "mesh_bounce_tlas_reference": 0,
     "pool_mesh_bounce_tlas": 0,
     "pool_mesh_bounce_tlas_reference": 0,
+    "trace_fused_lanes": 0,
+    "trace_fused_lanes_reference": 0,
 }
 
 
@@ -235,6 +241,18 @@ def _check_rays(table: torch.Tensor, origins: torch.Tensor, directions: torch.Te
         raise ValueError(f"rays and scene must share one device, got {devices}")
 
 
+def _check_lane(origins: torch.Tensor, lane: torch.Tensor | None) -> None:
+    """A lane row: int32 ``[R]`` on the rays' device."""
+    if lane is None:
+        return
+    if lane.dtype != torch.int32:
+        raise TypeError(f"lane must be int32, got {lane.dtype}")
+    if lane.shape != (origins.shape[0],):
+        raise ValueError(f"lane must be [{origins.shape[0]}], got {tuple(lane.shape)}")
+    if lane.device != origins.device:
+        raise ValueError(f"lane is on {lane.device}, the rays on {origins.device}")
+
+
 def trace_paths_fused(
     scene: Scene,
     origins: torch.Tensor,
@@ -242,19 +260,24 @@ def trace_paths_fused(
     seed: int,
     *,
     max_bounces: int,
+    lane: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Path-trace each ray through the whole bounce loop; radiance ``[R, 3]``.
 
     ``seed`` is the frame's int32 trace seed (``integrator.trace_seed``);
-    ray ``i``'s random numbers come from lane ``i``. CUDA tensors go to the
-    kernel, CPU tensors to the plain version.
+    ray ``i``'s random numbers come from lane ``i``, or with ``lane`` (int32
+    ``[R]``, the TPU kernel's ``lane_io`` mode) from lane ``lane[i]``: the
+    region path gives each ray its lane in the whole frame. CUDA tensors go
+    to the kernel (``trace_fused``, with ``lane`` ``trace_fused_lanes``),
+    CPU tensors to the plain version.
     """
     _check_inputs(scene, origins, directions, seed)
+    _check_lane(origins, lane)
     if origins.device.type == "cuda":
-        return _launch_trace_fused(scene, origins, directions, seed, max_bounces)
+        return _launch_trace_fused(scene, origins, directions, seed, max_bounces, lane)
     if origins.device.type == "cpu":
         return trace_paths_fused_reference(
-            scene, origins, directions, seed, max_bounces=max_bounces
+            scene, origins, directions, seed, max_bounces=max_bounces, lane=lane
         )
     raise ValueError(f"Unsupported device {origins.device}")
 
@@ -279,6 +302,7 @@ _OUTPUT_ARGTYPES = [_PTR] * 6
 _KEYED_OUTPUT_ARGTYPES = [_PTR] * 7
 _LAUNCH_ARGTYPES = {
     "trace_fused": [_PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _INT, _INT, _PTR, _PTR],
+    "trace_fused_lanes": [_PTR, _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _INT, _INT, _PTR, _PTR],
     "trace_fused_mesh": [
         _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, _INT, _PTR, _PTR,
     ],
@@ -395,18 +419,21 @@ def _ray_operands(origins, directions):
     return origins.contiguous(), directions.contiguous(), radiance, stream
 
 
-def _launch_trace_fused(scene, origins, directions, seed, max_bounces):
-    library = _library("trace_fused")
-    launch = library.trace_fused_launch
+def _launch_trace_fused(scene, origins, directions, seed, max_bounces, lane=None):
+    name = "trace_fused" if lane is None else "trace_fused_lanes"
+    library = _library(name)
     spheres, params = _sphere_operands(scene)
     origins, directions, radiance, stream = _ray_operands(origins, directions)
-    status = launch(
-        origins.data_ptr(), directions.data_ptr(), origins.shape[0],
-        spheres.data_ptr(), spheres.shape[0], params.data_ptr(),
+    rays = (origins.data_ptr(), directions.data_ptr())
+    if lane is not None:
+        lane = lane.contiguous()
+        rays += (lane.data_ptr(),)
+    status = getattr(library, f"{name}_launch")(
+        *rays, origins.shape[0], spheres.data_ptr(), spheres.shape[0], params.data_ptr(),
         int(seed), int(max_bounces), radiance.data_ptr(), stream,
     )
-    _check_status(library, "trace_fused", status)
-    counts["trace_fused"] += 1
+    _check_status(library, name, status)
+    counts[name] += 1
     return radiance
 
 
@@ -1305,13 +1332,16 @@ def trace_paths_fused_reference(
     max_bounces: int,
     chunk_rays: int = 32768,
     stats: dict | None = None,
+    lane: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The plain PyTorch version of the sphere megakernel, on any device.
 
     It repeats the reference's masked loop (every lane runs every bounce
     under an ``alive`` mask) over chunks of rays: a whole frame's
     ``[rays, spheres]`` intermediates would take about 0.5 GB each. Lanes
-    keep their global index, so chunking changes no result.
+    keep their global index, so chunking changes no result. ``lane`` (int32
+    ``[R]``): the lane mode, each chunk's RNG counters from its rows of
+    ``lane`` in place of the rays' positions.
 
     ``stats``, when given, receives the work this input needs, counted the
     way the kernel does it: the scene's spheres (its radius-0 pad slots are
@@ -1320,9 +1350,11 @@ def trace_paths_fused_reference(
     the device and are read once, at the end.
     """
     _check_inputs(scene, origins, directions, seed)
-    counts["trace_fused_reference"] += 1
+    _check_lane(origins, lane)
+    counts["trace_fused_reference" if lane is None else "trace_fused_lanes_reference"] += 1
     return _trace_reference(
-        sphere_table(scene), None, origins, directions, seed, max_bounces, chunk_rays, stats
+        sphere_table(scene), None, origins, directions, seed, max_bounces, chunk_rays, stats,
+        lane,
     )
 
 
@@ -1808,15 +1840,21 @@ def _start_stats(stats, table, walk):
     return keys
 
 
-def _trace_reference(table, walk, origins, directions, seed, max_bounces, chunk_rays, stats):
+def _trace_reference(
+    table, walk, origins, directions, seed, max_bounces, chunk_rays, stats, lane=None
+):
     seed_word = int(seed) & MASK32
     out = torch.empty_like(origins)
     if stats is not None:
         keys = _start_stats(stats, table, walk)
     for start in range(0, origins.shape[0], chunk_rays):
         stop = min(start + chunk_rays, origins.shape[0])
+        if lane is None:
+            lanes = torch.arange(start, stop, dtype=torch.int64, device=origins.device)
+        else:
+            lanes = lane[start:stop].to(torch.int64)
         out[start:stop] = _reference_chunk(
-            table, walk, origins[start:stop], directions[start:stop], start,
+            table, walk, origins[start:stop], directions[start:stop], lanes,
             seed_word, max_bounces, stats,
         )
     if stats is not None:
@@ -1825,10 +1863,9 @@ def _trace_reference(table, walk, origins, directions, seed, max_bounces, chunk_
     return out
 
 
-def _reference_chunk(table, walk, o, d, lane_start, seed_word, max_bounces, stats):
+def _reference_chunk(table, walk, o, d, lane, seed_word, max_bounces, stats):
     device = o.device
     rays = o.shape[0]
-    lane = torch.arange(lane_start, lane_start + rays, dtype=torch.int64, device=device)
     throughput = torch.ones((rays, 3), dtype=torch.float32, device=device)
     radiance = torch.zeros((rays, 3), dtype=torch.float32, device=device)
     alive = torch.ones((rays, 1), dtype=torch.float32, device=device)

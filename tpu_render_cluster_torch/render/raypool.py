@@ -50,11 +50,16 @@ that count. The reference's registry and trace emission
 (``_emit_batch_obs``) come with the port of its ``obs`` package. ``on_iteration`` sees each launch's input
 state without reading it back.
 
+A window may render one region of its frames (``region``: one tile of
+each frame, the same tile in every frame): it serves the region's rays
+(``integrator.region_rays_and_seed``), scatters by the local lane, and
+keys each lane's RNG with its whole-frame lane (``region_lane_map``), so
+the region's images equal the whole-frame pool's pixels there.
+
 Differences of form from the reference: a window stacks only its real
 frames (the reference pads the window to its cap with the last frame,
 which changes no lane and no min or max of the instance boxes); the frame
-cap and pool width are arguments, not environment knobs; regions (tiles)
-wait for the tiles slice.
+cap and pool width are arguments, not environment knobs.
 """
 
 from __future__ import annotations
@@ -67,7 +72,7 @@ from tpu_render_cluster_torch import resolve_device
 from tpu_render_cluster_torch.render import kernels
 from tpu_render_cluster_torch.render.camera import scene_camera
 from tpu_render_cluster_torch.render.compaction import compaction_order, wavefront_active
-from tpu_render_cluster_torch.render.integrator import frame_rays_and_seed
+from tpu_render_cluster_torch.render.integrator import frame_rays_and_seed, region_rays_and_seed
 from tpu_render_cluster_torch.render.mesh import scene_mesh_set
 from tpu_render_cluster_torch.render.rng import MASK32
 from tpu_render_cluster_torch.render.scene import build_scene, mesh_kind_for_scene
@@ -175,7 +180,8 @@ class PoolLaunch(NamedTuple):
 
     iteration: int
     live: torch.Tensor  # int64 [] on the device
-    state: tuple  # (origins, directions, throughput, alive, lane, fid, seed_row, bounce_row)
+    # (origins, directions, throughput, alive, lane: the RNG counters, fid, seed_row, bounce_row)
+    state: tuple
 
 
 class PoolState(NamedTuple):
@@ -185,7 +191,7 @@ class PoolState(NamedTuple):
     directions: torch.Tensor  # [P, 3]
     throughput: torch.Tensor  # [P, 3]
     alive: torch.Tensor  # [P] bool
-    lane: torch.Tensor  # [P] int32
+    lane: torch.Tensor  # [P] int32: the local lane, the scatter's index
     fid: torch.Tensor  # [P] int32
     bounce: torch.Tensor  # [P] int32
     counters: torch.Tensor  # int64 [5]: served, it, refilled, live_sum, launched_sum
@@ -199,7 +205,9 @@ class PoolWindow:
     """One window of frames of one scene through the pool: its stacked
     scene, pre-generated primaries and trace seeds, and the loop.
     ``run`` renders the window; ``iteration`` is one step of the loop,
-    ``more`` its condition, both without a host read."""
+    ``more`` its condition, both without a host read. ``region`` (y0, x0,
+    tile_height, tile_width): the window renders that region of each of
+    its frames."""
 
     def __init__(
         self,
@@ -213,6 +221,7 @@ class PoolWindow:
         pool_width: int | None = None,
         device: torch.device,
         use_tlas: bool | None = None,
+        region: tuple[int, int, int, int] | None = None,
     ) -> None:
         frames = [int(f) for f in frames]
         if not 1 <= len(frames) <= RAYPOOL_MAX_FRAMES:
@@ -220,20 +229,37 @@ class PoolWindow:
         self.frames, self.device = frames, device
         self.width, self.height, self.samples = width, height, samples
         self.max_bounces = max_bounces
-        self.n = samples * height * width  # rays per frame
+        y0, x0, self.tile_height, self.tile_width = (
+            (0, 0, height, width) if region is None else (int(v) for v in region)
+        )
+        self.n = samples * self.tile_height * self.tile_width  # rays per frame
         self.total = len(frames) * self.n
         self.pool = raypool_width(self.n, pool_width)
         # The reference's backstop against a loop that does not end: every
         # iteration serves rays or ages the live lanes toward the cap.
         self.iter_cap = (self.total // self.pool + 2) * (max_bounces + 1) + 4
         scenes = [build_scene(scene_name, f, device) for f in frames]
-        rays = [
-            frame_rays_and_seed(
-                scene_camera(scene_name, f, device), f, width=width, height=height,
-                samples=samples,
-            )
-            for f in frames
-        ]
+        # A region's local lane -> its whole-frame lane, the RNG counter.
+        self.glane_map = None
+        if region is None:
+            rays = [
+                frame_rays_and_seed(
+                    scene_camera(scene_name, f, device), f, width=width, height=height,
+                    samples=samples,
+                )
+                for f in frames
+            ]
+        else:
+            rays = [
+                region_rays_and_seed(
+                    scene_camera(scene_name, f, device), f, width=width, height=height,
+                    samples=samples, y0=y0, x0=x0, tile_height=self.tile_height,
+                    tile_width=self.tile_width,
+                )
+                for f in frames
+            ]
+            self.glane_map = rays[0][2]
+            rays = [(o, d, seed) for o, d, _, seed in rays]
         self.primary_origins = torch.cat([r[0] for r in rays])
         self.primary_directions = torch.cat([r[1] for r in rays])
         self.seeds = torch.tensor([r[2] for r in rays], dtype=torch.int32, device=device)
@@ -327,9 +353,13 @@ class PoolWindow:
         # An iteration past the end launches over no lane.
         live2 = torch.where(active, live + take, 0)
 
-        # 3. One pool bounce over the live prefix.
+        # 3. One pool bounce over the live prefix; a region's lanes draw
+        # their whole-frame lanes' random numbers.
         seed_row = self.seeds[fid.clamp(0, len(self.frames) - 1)]
-        inputs = (o, d, thr, alive, lane, fid, seed_row, bounce)
+        counter = lane
+        if self.glane_map is not None:
+            counter = self.glane_map[lane.clamp(0, self.n - 1)]
+        inputs = (o, d, thr, alive, counter, fid, seed_row, bounce)
         if on_iteration is not None:
             on_iteration(PoolLaunch(index, live2, inputs))
         if self.mesh_ops is None:
@@ -387,8 +417,8 @@ class PoolWindow:
     def run(
         self, *, on_iteration: Callable[[PoolLaunch], None] | None = None
     ) -> tuple[list[torch.Tensor], PoolStats]:
-        """Render the window: (linear images [H, W, 3] on the device, one
-        per frame in order, and its PoolStats)."""
+        """Render the window: (linear images [H, W, 3] (a region's [th, tw,
+        3]) on the device, one per frame in order, and its PoolStats)."""
         state = self.initial_state()
         index, reads = 0, 0
         while True:
@@ -420,13 +450,14 @@ class PoolWindow:
         return self.images(state), stats
 
     def images(self, state: PoolState) -> list[torch.Tensor]:
-        """The window's linear images [H, W, 3], one per frame in order,
-        from the radiance the loop has scattered so far."""
+        """The window's linear images [th, tw, 3] (the whole frame's size
+        without a region), one per frame in order, from the radiance the
+        loop has scattered so far."""
         return [
             state.radiance[f * self.n:(f + 1) * self.n]
-            .reshape(self.samples, self.height * self.width, 3)
+            .reshape(self.samples, self.tile_height * self.tile_width, 3)
             .mean(dim=0)
-            .reshape(self.height, self.width, 3)
+            .reshape(self.tile_height, self.tile_width, 3)
             for f in range(len(self.frames))
         ]
 
@@ -444,13 +475,16 @@ def render_batch_raypool(
     device: str | torch.device | None = None,
     on_iteration: Callable[[PoolLaunch], None] | None = None,
     use_tlas: bool | None = None,
+    region: tuple[int, int, int, int] | None = None,
 ) -> tuple[list[torch.Tensor], list[PoolStats]]:
     """Render a batch of frames through the pool, in windows of at most
     ``frame_cap`` frames: (linear [H, W, 3] images on ``device`` (CUDA
     unless ``cpu`` is asked for), one per frame in order, and one PoolStats
     per window). Each window's rays and trace seeds are the masked per-frame
     renderer's. ``use_tlas`` (None: ``kernels.use_tlas_for``) picks the mesh
-    pool kernel's variant."""
+    pool kernel's variant. ``region`` (y0, x0, tile_height, tile_width):
+    every frame is rendered on that region only, [th, tw, 3] each, equal to
+    the whole-frame pool's pixels there (a tiled job's same-tile units)."""
     device = resolve_device(device)
     frames = [int(f) for f in frame_indices]
     cap = raypool_frame_cap(frame_cap)
@@ -460,7 +494,7 @@ def render_batch_raypool(
         window = PoolWindow(
             scene_name, frames[start:start + cap], width=width, height=height,
             samples=samples, max_bounces=max_bounces, pool_width=pool_width, device=device,
-            use_tlas=use_tlas,
+            use_tlas=use_tlas, region=region,
         )
         window_images, window_stats = window.run(on_iteration=on_iteration)
         images.extend(window_images)

@@ -56,10 +56,21 @@ A frame served from the pool's cache spends its render phase on the
 tonemap and the copy back; the window's device time was spent in the
 render phase of the frame that started it.
 
+A tiled work unit ``(frame, tile)`` (a job with a ``tiles`` grid) is
+rendered on its tile's pixels only (``jobs.tiles.tile_bounds``), through
+the region path of the tier the frame would take: the pool's region mode
+(a window of the same tile of the job's queued frames; the cache is keyed
+by job, frame and tile), ``render_region_wavefront``, or
+``integrator.render_frame_region`` (the masked tier, and the scan with
+``bounce_scan``). Each traces the whole frame's rays and random numbers
+restricted to the tile, so the master's stitched frame equals the untiled
+one (the scan's regions: statistically, as in the reference). A tile is
+written as ``output_path_for_tile``, always PNG.
+
 Rendering runs in a thread (``asyncio.to_thread``) so a worker's heartbeats
-and queue RPCs stay responsive while a frame renders. Tiles and local
-sharding wait for later slices of the port and raise
-``NotImplementedError`` instead of rendering anything in their place.
+and queue RPCs stay responsive while a frame renders. Local sharding waits
+for a later slice of the port and raises ``NotImplementedError`` instead of
+rendering anything in its place.
 """
 
 from __future__ import annotations
@@ -74,14 +85,24 @@ import torch
 
 from tpu_render_cluster_torch import resolve_device
 from tpu_render_cluster_torch.jobs.models import BlenderJob
-from tpu_render_cluster_torch.render.image_io import output_path_for_frame, write_image
+from tpu_render_cluster_torch.jobs.tiles import WorkUnit, tile_bounds
 from tpu_render_cluster_torch.render.compaction import (
     WAVEFRONT_MODES,
     WavefrontLaunch,
     render_frame_wavefront,
+    render_region_wavefront,
     wavefront_active,
 )
-from tpu_render_cluster_torch.render.integrator import fused_frame_renderer, tonemap
+from tpu_render_cluster_torch.render.image_io import (
+    output_path_for_frame,
+    output_path_for_tile,
+    write_image,
+)
+from tpu_render_cluster_torch.render.integrator import (
+    fused_frame_renderer,
+    fused_region_renderer,
+    tonemap,
+)
 from tpu_render_cluster_torch.render.raypool import (
     RAYPOOL_FRAMES,
     RAYPOOL_MODES,
@@ -94,11 +115,6 @@ from tpu_render_cluster_torch.render.scene import scene_for_job_name
 from tpu_render_cluster_torch.traces.worker_trace import FrameRenderTime
 from tpu_render_cluster_torch.utils.paths import parse_with_base_directory_prefix
 from tpu_render_cluster_torch.worker.backends.base import RenderBackend
-
-_LATER_SLICES = {
-    "tile_size": "the tiles slice (ROADMAP.md, queue 1)",
-    "sharding": "the multi-GPU slice (ROADMAP.md, queue 1)",
-}
 
 
 class TorchRaytraceBackend(RenderBackend):
@@ -126,13 +142,11 @@ class TorchRaytraceBackend(RenderBackend):
         per_instance: bool = False,
         use_tlas: bool | None = None,
     ) -> None:
-        requested = dict(tile_size=tile_size, sharding=sharding)
-        for option, value in requested.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"{option}={value!r} is not ported yet; it arrives with "
-                    f"{_LATER_SLICES[option]}."
-                )
+        if sharding is not None:
+            raise NotImplementedError(
+                f"sharding={sharding!r} is not ported yet; it arrives with the multi-GPU "
+                "slice (ROADMAP.md, queue 1)."
+            )
         if wavefront is not None and wavefront not in WAVEFRONT_MODES:
             raise ValueError(f"wavefront={wavefront!r} is not one of {WAVEFRONT_MODES}")
         if raypool is not None and raypool not in RAYPOOL_MODES:
@@ -146,10 +160,12 @@ class TorchRaytraceBackend(RenderBackend):
         self.use_tlas = None if use_tlas is None else bool(use_tlas)
         self.on_launch = on_launch
         self.on_iteration = on_iteration
-        # job name -> the frames of the job still queued on this worker.
-        self._upcoming: dict[str, tuple[int, ...]] = {}
-        # (job name, frame) -> linear image a pool window rendered ahead.
-        self._raypool_cache: dict[tuple[str, int], torch.Tensor] = {}
+        # Stored as the reference stores it; the backend does not read it.
+        self.tile_size = tile_size
+        # job name -> the work units of the job still queued on this worker.
+        self._upcoming: dict[str, tuple[WorkUnit, ...]] = {}
+        # (job name, frame, tile) -> linear image a pool window rendered ahead.
+        self._raypool_cache: dict[tuple[str, int, int | None], torch.Tensor] = {}
         # The last pool windows' statistics, until the port's obs registry
         # carries them.
         self.pool_stats: collections.deque[PoolStats] = collections.deque(maxlen=64)
@@ -160,40 +176,53 @@ class TorchRaytraceBackend(RenderBackend):
         self.samples = samples
         self.max_bounces = max_bounces
 
-    def _renderer(self, scene_name: str):
-        """``frame -> uint8 [H, W, 3]`` on the device, through the bounce
-        scan or else the tier the ``wavefront`` option picks for this scene."""
-        if self.bounce_scan or not wavefront_active(scene_name, mode=self.wavefront):
+    def _renderer(self, scene_name: str, region: tuple[int, int, int, int] | None = None):
+        """``frame -> uint8 [H, W, 3]`` on the device (a region's [th, tw,
+        3]), through the bounce scan or else the tier the ``wavefront``
+        option picks for this scene."""
+        masked = self.bounce_scan or not wavefront_active(scene_name, mode=self.wavefront)
+        if masked and region is None:
             return fused_frame_renderer(
                 scene_name, self.width, self.height, self.samples, self.max_bounces,
                 self.device, bounce_scan=self.bounce_scan, per_instance=self.per_instance,
                 use_tlas=self.use_tlas,
             )
-
-        def render(frame: int):
-            return tonemap(
-                render_frame_wavefront(
-                    scene_name, frame, width=self.width, height=self.height,
-                    samples=self.samples, max_bounces=self.max_bounces, device=self.device,
-                    on_launch=self.on_launch, use_tlas=self.use_tlas,
-                )
+        if masked:
+            y0, x0, tile_height, tile_width = region
+            render_region = fused_region_renderer(
+                scene_name, self.width, self.height, tile_height, tile_width, self.samples,
+                self.max_bounces, self.device, bounce_scan=self.bounce_scan,
+                per_instance=self.per_instance, use_tlas=self.use_tlas,
             )
-
-        return render
+            return lambda frame: tonemap(render_region(frame, y0, x0))
+        options = dict(
+            width=self.width, height=self.height, samples=self.samples,
+            max_bounces=self.max_bounces, device=self.device, on_launch=self.on_launch,
+            use_tlas=self.use_tlas,
+        )
+        if region is None:
+            return lambda frame: tonemap(render_frame_wavefront(scene_name, frame, **options))
+        y0, x0, tile_height, tile_width = region
+        return lambda frame: tonemap(
+            render_region_wavefront(
+                scene_name, frame, y0=y0, x0=x0, tile_height=tile_height,
+                tile_width=tile_width, **options,
+            )
+        )
 
     def note_upcoming_frames(self, job: BlenderJob, units) -> None:
         """The worker queue's hint: the units of ``job`` still queued on this
-        worker, i.e. what a pool window may render ahead. Units are read by
-        their ``frame_index`` and ``tile`` attributes (the queue's work
-        units) or given as bare frame indices; tiled units are left to the
-        tiles slice. An empty hint drops the job."""
-        frames = tuple(
-            unit if isinstance(unit, int) else unit.frame_index
-            for unit in units
-            if isinstance(unit, int) or getattr(unit, "tile", None) is None
-        )
-        if frames:
-            self._upcoming[job.job_name] = frames
+        worker, i.e. what a pool window may render ahead (for a tiled job:
+        the same tile of other frames). Units are read by their
+        ``frame_index`` and ``tile`` attributes (the queue's work units, of
+        either package) or given as bare frame indices, whole frames. An
+        empty hint drops the job."""
+        if units:
+            self._upcoming[job.job_name] = tuple(
+                WorkUnit(unit) if isinstance(unit, int)
+                else WorkUnit(unit.frame_index, getattr(unit, "tile", None))
+                for unit in units
+            )
         else:
             self._upcoming.pop(job.job_name, None)
 
@@ -218,11 +247,13 @@ class TorchRaytraceBackend(RenderBackend):
             scene_name, mode=self.raypool, frames_ahead=frames_ahead
         )
 
-    def _render_window(self, scene_name: str, frames: list[int]) -> list[torch.Tensor]:
+    def _render_window(
+        self, scene_name: str, frames: list[int], region: tuple[int, int, int, int] | None = None
+    ) -> list[torch.Tensor]:
         images, stats = render_batch_raypool(
             scene_name, frames, width=self.width, height=self.height, samples=self.samples,
             max_bounces=self.max_bounces, frame_cap=len(frames), device=self.device,
-            on_iteration=self.on_iteration, use_tlas=self.use_tlas,
+            on_iteration=self.on_iteration, use_tlas=self.use_tlas, region=region,
         )
         self.pool_stats.extend(stats)
         return images
@@ -244,25 +275,30 @@ class TorchRaytraceBackend(RenderBackend):
     def _render_sync(
         self, job: BlenderJob, frame_index: int, tile: int | None = None
     ) -> FrameRenderTime:
-        if tile is not None:
-            raise NotImplementedError(
-                f"Tile {tile} of job {job.job_name!r}: tiled work units are not "
-                f"ported yet; they arrive with {_LATER_SLICES['tile_size']}."
-            )
         started_process_at = time.time()
         scene_name = scene_for_job_name(job.job_name)
-        cached = self._raypool_cache.pop((job.job_name, frame_index), None)
-        # A pool window: this frame and the job's next frames queued here,
-        # all this worker's own work, so nothing is rendered speculatively.
+        region = None
+        if tile is not None:
+            if job.tile_grid is None:
+                raise RuntimeError(
+                    f"Tile {tile} requested but job {job.job_name!r} carries no tile grid."
+                )
+            region = tile_bounds(tile, job.tile_grid, width=self.width, height=self.height)
+        cached = self._raypool_cache.pop((job.job_name, frame_index, tile), None)
+        # A pool window: this unit and the job's next frames of the same
+        # tile queued here, all this worker's own work, so nothing is
+        # rendered speculatively.
         upcoming = [
-            frame
-            for frame in self._upcoming.get(job.job_name, ())
-            if frame != frame_index and (job.job_name, frame) not in self._raypool_cache
+            unit.frame_index
+            for unit in self._upcoming.get(job.job_name, ())
+            if unit.tile == tile
+            and unit.frame_index != frame_index
+            and (job.job_name, unit.frame_index, tile) not in self._raypool_cache
         ]
         use_raypool = cached is None and self._pools(scene_name, frames_ahead=len(upcoming))
         renderer = None
         if cached is None and not use_raypool:
-            renderer = self._renderer(scene_name)
+            renderer = self._renderer(scene_name, region)
         finished_loading_at = time.time()
 
         started_rendering_at = time.time()
@@ -270,9 +306,9 @@ class TorchRaytraceBackend(RenderBackend):
             display = tonemap(cached)
         elif use_raypool:
             window = [frame_index] + upcoming[:RAYPOOL_FRAMES - 1]
-            images = self._render_window(scene_name, window)
+            images = self._render_window(scene_name, window, region)
             for ahead, image in zip(window[1:], images[1:]):
-                self._raypool_cache[(job.job_name, ahead)] = image
+                self._raypool_cache[(job.job_name, ahead, tile)] = image
             self._trim_raypool_cache()
             display = tonemap(images[0])
         else:
@@ -284,13 +320,19 @@ class TorchRaytraceBackend(RenderBackend):
         output_directory = parse_with_base_directory_prefix(
             job.output_directory_path, self.base_directory
         )
-        path = output_path_for_frame(
-            output_directory,
-            job.output_file_name_format,
-            job.output_file_format,
-            frame_index,
-        )
-        write_image(path, pixels, job.output_file_format)
+        if tile is None:
+            path = output_path_for_frame(
+                output_directory, job.output_file_name_format, job.output_file_format,
+                frame_index,
+            )
+        else:
+            # One file per tile, always PNG; the master's assembler stitches
+            # the grid into the frame file in the job's format.
+            path = output_path_for_tile(
+                output_directory, job.output_file_name_format, job.output_file_format,
+                frame_index, tile, job.tile_grid,
+            )
+        write_image(path, pixels, "PNG" if tile is not None else job.output_file_format)
         file_saving_finished_at = time.time()
         return FrameRenderTime(
             started_process_at=started_process_at,
