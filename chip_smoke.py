@@ -67,7 +67,13 @@ Phases, each of which raises (exit code 1) if its check fails:
    single-BVH kernels: every launch of the first sample, 4 bounces x 48
    instances); the lane kernel on the rays and lanes of tile 3 of a 2x2
    grid at 128x128, 4 spp, 1 and 4 bounces, bit for bit against its plain
-   version, and on lanes 0..R-1 bit for bit against ``trace_fused``;
+   version, and on lanes 0..R-1 bit for bit against ``trace_fused``; the
+   group-walk kernels (``mesh_bounce_tlas``, ``pool_mesh_bounce_tlas``)
+   bit for bit on every lane of every launch checked, here and in phase 4,
+   and also on the pool's mixed launch with its lanes shuffled over all 8
+   frames (every block reads the frame tables from global memory) and on
+   the narrowest launch of a 512x512 8 spp deep wavefront frame (131,072
+   lanes, a group of 4 threads a ray), all lanes;
 4. each main path: the first frames of a job file loaded through the
    port's job model and rendered by the backend at 512x512, 8 spp, 4
    bounces. The launch counts are zeroed just before each path and read
@@ -118,7 +124,10 @@ Phases, each of which raises (exit code 1) if its check fails:
    per-tile render and save ms, a tile's rays beside a whole frame's, and
    the tiled job's frames/s beside its whole-frame path's; the lane kernel
    at a tile's 524,288 rays beside ``trace_fused`` on the same rays, its
-   plain version and its bound at 40 bytes a ray;
+   plain version and its bound at 40 bytes a ray; each group-walk kernel's
+   group size G, resident blocks per SM, time alone against its bound and
+   beside its one-thread predecessor's (PERF.md), and alone at every G
+   (the sweep: each per-bounce launch, each pool launch of phase 3);
 6. under torch.profiler (reported, not checked: the numbers read "not
    measured" where the profiler sees no device time, or misses a launch of
    the kernel after three tries): each kernel's own device time apart from
@@ -272,6 +281,18 @@ INSTANCED_SCAN = "bounce_scan 03_physics-2-mesh"  # the per-instance scan's comp
 MEGAKERNELS = ("trace_fused", "trace_fused_mesh", "trace_fused_mesh_tlas")
 POOLS = ("pool_mesh_bounce", "pool_sphere_bounce", "pool_mesh_bounce_tlas")
 TLAS_KERNELS = ("trace_fused_mesh_tlas", "mesh_bounce_tlas", "pool_mesh_bounce_tlas")
+# The group-walk kernels (csrc/mesh_common.cuh, GroupTlas): held bit-equal to
+# their plain versions on every lane of every launch checked, and timed at
+# every group size G. Their earlier one-thread-a-lane times on NVIDIA H100
+# 80GB HBM3, 700 W (PERF.md section 6; row 4 by bounce, the wrapper's ms and
+# the kernel alone), printed beside this run's on the [5] lines only: the
+# kernels line carries this run's measurements.
+GROUP_KERNELS = ("mesh_bounce_tlas", "pool_mesh_bounce_tlas")
+EARLIER = {
+    "mesh_bounce_tlas": {0: (0.8993, 0.7536), 1: (0.8018, 0.6519), 2: (0.4109, 0.3511),
+                         3: (0.2947, 0.2404)},
+    "pool_mesh_bounce_tlas": {"mixed": (0.2607, 0.2000)},
+}
 REPLACES = {
     "trace_fused": "tpu_render_cluster/render/pallas_kernels.py:901",
     "trace_fused_lanes": "tpu_render_cluster/render/pallas_kernels.py:901",
@@ -298,6 +319,10 @@ KEY_TOLERANCE = (
     BOUNCE_TOLERANCE + "; the key column bit-equal on every lane, and on live lanes equal to "
     "mesh_sort_keys of the launch's outputs"
 )
+GROUP_TOLERANCE = (
+    "every output bit-equal on every lane (the five state outputs, alive and the key column); "
+    "the key on live lanes equal to mesh_sort_keys of the launch's outputs"
+)
 MESH_MEGAKERNEL_TOLERANCE = (
     "rtol=atol=1e-4 per ray; at 1 bounce all but max(1, round(0.001 R)) edge-tie rays, "
     ">=99.9% at 4"
@@ -307,10 +332,10 @@ TOLERANCE = {
     "trace_fused_mesh": MESH_MEGAKERNEL_TOLERANCE,
     "trace_fused_mesh_tlas": MESH_MEGAKERNEL_TOLERANCE,
     "mesh_bounce": BOUNCE_TOLERANCE,
-    "mesh_bounce_tlas": KEY_TOLERANCE,
+    "mesh_bounce_tlas": GROUP_TOLERANCE,
     "sphere_bounce": BOUNCE_TOLERANCE,
     "pool_mesh_bounce": BOUNCE_TOLERANCE,
-    "pool_mesh_bounce_tlas": KEY_TOLERANCE,
+    "pool_mesh_bounce_tlas": GROUP_TOLERANCE,
     "pool_sphere_bounce": BOUNCE_TOLERANCE,
     "intersect_spheres": "t within rtol 2e-5 / atol 2e-4 and the index equal on every ray that hits",
     "occluded_spheres": "equal on every ray",
@@ -607,6 +632,9 @@ def check_bounce(label: str, trace: Trace, launch, seed, rows=None, stats=None) 
     check(result["bad"] <= budget and result["alive_bad"] <= budget,
           f"{trace.kernel} bounce {launch.bounce}: past the budget of {budget} rays")
     check(not got.alive[live:].any().item(), f"{trace.kernel}: a lane past the live count lives")
+    if trace.kernel in GROUP_KERNELS:
+        check(result["bit_equal"] == 1.0 and result["alive_bad"] == 0,
+              f"{trace.kernel} bounce {launch.bounce}: not bit-equal to its plain version")
     if trace.use_tlas:
         frame = trace.kernels.tlas_frame(trace.mesh)
         result.update(check_keys(
@@ -822,6 +850,9 @@ def pool_kernel_vs_plain(path: MainPath, device) -> dict:
             check(result["bad"] <= budget and result["alive_bad"] <= budget,
                   f"{kernel} {role} launch: past the budget of {budget} lanes")
             check(not got.alive[live:].any().item(), f"{kernel}: a lane past the live count lives")
+            if kernel in GROUP_KERNELS:
+                check(result["bit_equal"] == 1.0 and result["alive_bad"] == 0,
+                      f"{kernel} {role} launch: not bit-equal to its plain version")
             if kernel in TLAS_KERNELS:
                 pool_tlas = kernels.pool_tlas_operands(window.ops)
                 result.update(check_keys(
@@ -835,6 +866,9 @@ def pool_kernel_vs_plain(path: MainPath, device) -> dict:
                      "states": {i: states[i] for i in roles.values()}}
         results.extend({p["index"]: p for p in picked.values()}.values())
         del states, launches
+
+    if kernel in GROUP_KERNELS:
+        results.append(unsorted_pool_vs_plain(kernel, first, device))
 
     # No host read inside the loop body: one chunk under the sync check.
     window = first["window"]
@@ -854,6 +888,64 @@ def pool_kernel_vs_plain(path: MainPath, device) -> dict:
         "agree": min(r["fraction"] for r in results),
         "max_abs_err": max(r["err"] for r in results),
     }
+
+
+def unsorted_pool_vs_plain(kernel: str, first: dict, device) -> dict:
+    """Phase 3 for the group-walk pool kernel: the first window's mixed
+    launch with its lanes given frame ids 0-7 at random (each its frame's
+    seed) and shuffled, so that every block holds lanes of all 8 frames
+    and reads the frame tables from global memory, through the kernel and
+    its plain version on all the pool's lanes, bit for bit."""
+    import torch
+
+    from tpu_render_cluster_torch.render import kernels
+
+    window = first["window"]
+    launch = first["launches"][first["picked"]["mixed"]["index"]]
+    generator = torch.Generator(device=device).manual_seed(8)
+    pool = window.pool
+    fid = torch.randint(0, len(window.frames), (pool,), generator=generator, device=device,
+                        dtype=torch.int32)
+    state = list(launch.state)
+    state[5], state[6] = fid, window.seeds[fid.long()]
+    perm = torch.randperm(pool, generator=generator, device=device)
+    state = [t[perm] for t in state]
+    wrapper, plain = pool_functions(kernel)
+    got = wrapper(window.ops, *state, pool, total_bounces=BOUNCES)
+    out: list = []
+    plain_ms = cuda_ms(lambda: out.append(plain(window.ops, *state, pool, total_bounces=BOUNCES)), 1)
+    result = {**bounce_agreement(got, out[0]), "plain_ms": plain_ms}
+    per_block = 256 // kernels.POOL_GROUP
+    blocks = state[5][: pool // per_block * per_block].reshape(-1, per_block)
+    frames_per_block = min(int(row.unique().numel()) for row in blocks[:64])
+    print(
+        f"[3] {kernel} vs plain, unsorted launch (the mixed launch's lanes shuffled, frame ids "
+        f"0-{len(window.frames) - 1} at random; at least {frames_per_block} frames in each of the "
+        f"first 64 blocks of {per_block} lanes): {result['bit_equal']:.6f} bit-equal, "
+        f"{result['alive_bad']} alive differ, max abs err {result['err']:.3g}"
+    )
+    check(result["bit_equal"] == 1.0 and result["alive_bad"] == 0,
+          f"{kernel} unsorted launch: not bit-equal to its plain version")
+    pool_tlas = kernels.pool_tlas_operands(window.ops)
+    result.update(check_keys(
+        "3", kernel, got, out[0], pool, True, pool_tlas.slots, pool_tlas.key_window,
+        fid=state[5], per_frame=window.ops.per_frame,
+    ))
+    return result
+
+
+def narrow_bounce_vs_plain(kernel: str, device) -> tuple[float, float]:
+    """Phase 3 for the group-walk per-bounce kernel at a main path's narrow
+    launch: the last (narrowest) launch of a 512x512 8 spp wavefront frame
+    of the deep scene, through the kernel (at the group size its width
+    takes) and its plain version on all its rays, bit for bit."""
+    scene = PATHS[2].scene
+    trace = Trace(kernel, scene, 1, device)
+    rays = frame_rays(scene, 1, device)
+    launches: list = []
+    trace.run(*rays, BOUNCES, on_launch=launches.append)
+    result = check_bounce("3", trace, launches[-1], rays[2])
+    return result["fraction"], result["err"]
 
 
 def drive_main_path(path: MainPath, device) -> dict:
@@ -1352,10 +1444,13 @@ def bounce_record(run: dict, checked: dict, device, agree: float, max_abs_err: f
         alone = profiled(
             lambda: [call() for _ in range(5)], kernel, f"{kernel} bounce {launch.bounce} calls"
         )
+        groups = {}
+        if kernel in GROUP_KERNELS:
+            groups = bounce_groups(trace, launch, seed, alone, least["ms"])
         step = call()
         before = (step.origins, step.directions, step.throughput, step.alive, launch.state[4])
         keys = step.key
-        per_launch.append({
+        per_launch.append({**groups,
             "bounce": launch.bounce, "live": launch.live, "bucket": launch.bucket,
             "ms": launch_ms, "host_ms": launch_host_ms,
             "kernel_only_ms": None if alone is None else alone["kernel_ms"] / 5,
@@ -1382,12 +1477,14 @@ def bounce_record(run: dict, checked: dict, device, agree: float, max_abs_err: f
     first = per_launch[0]
     wrapper_host_ms, kernel_only_ms = first["host_ms"], first["kernel_only_ms"]
     frame_ms = sum(p["ms"] for p in per_launch)
+    alone = [p["kernel_only_ms"] for p in per_launch]
+    frame_kernel_only_ms = None if None in alone else sum(alone)
     frame_compaction_ms = sum(p["compaction_ms"] for p in per_launch)
     frame_bound_ms = sum(p["bound_ms"] for p in per_launch)
     print(
         f"[5] {kernel} over frame {run['frames'][0]} of {run['label']}: {len(per_launch)} launches, "
-        f"{frame_ms:.4f} ms of kernel, {frame_compaction_ms:.4f} ms of compaction, bound "
-        f"{frame_bound_ms:.4f} ms (estimate)"
+        f"{frame_ms:.4f} ms of kernel ({frame_kernel_only_ms} alone), {frame_compaction_ms:.4f} ms "
+        f"of compaction, bound {frame_bound_ms:.4f} ms (estimate)"
     )
     if trace.mesh is not None:
         megakernel = lambda: trace.kernels.trace_paths_fused_mesh(  # noqa: E731
@@ -1426,13 +1523,107 @@ def bounce_record(run: dict, checked: dict, device, agree: float, max_abs_err: f
         "host_ms": wrapper_host_ms,
         "kernel_only_ms": kernel_only_ms,
         "frame_ms": frame_ms,
+        "frame_kernel_only_ms": frame_kernel_only_ms,
         "frame_bound_ms": frame_bound_ms,
+        **{key: first[key] for key in ("group", "blocks_per_sm", "shared_bytes",
+                                       "bound_share_alone", "group_sweep") if key in first},
         "frame_compaction_ms": frame_compaction_ms,
         "per_launch": per_launch,
         "agree_fraction_min": agree,
         "tolerance": TOLERANCE[kernel],
         "build_s": build_s,
     }
+
+
+def group_sweep(kernel: str, label: str, call) -> dict:
+    """The kernel at every group size G: ``call(group)`` launches it once.
+    Per G the wrapper's ms per call on CUDA events (the median of 5 batches
+    of 5 calls) and the kernel alone under the profiler over 20 calls
+    (None where no profile saw all 20: not measured)."""
+    from tpu_render_cluster_torch.render import kernels
+
+    sweep = {}
+    for group in kernels.GROUPS:
+        once = lambda group=group: call(group)  # noqa: E731
+        cuda_ms(once, 2)
+        ms = statistics.median(cuda_ms(once, 5) for _ in range(5))
+        alone = profiled(lambda: [once() for _ in range(20)], kernel, f"{label} at G {group}")
+        sweep[group] = {"ms": ms, "alone_ms": None if alone is None else alone["kernel_ms"] / 20}
+    return sweep
+
+
+def occupancy_entry(name: str, argtypes: list):
+    """The kernel's ``<name>_occupancy`` C entry: the blocks of its group-G
+    kernel resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    import ctypes
+
+    from tpu_render_cluster_torch.render import kernels
+
+    entry = getattr(kernels._library(name), f"{name}_occupancy")
+    entry.argtypes = argtypes
+    entry.restype = ctypes.c_int
+    return entry
+
+
+def bounce_occupancy(mesh, group: int) -> dict:
+    """Resident blocks per SM of ``mesh_bounce_tlas`` at group size
+    ``group`` on ``mesh``'s tables, and its dynamic shared memory."""
+    import ctypes
+
+    from tpu_render_cluster_torch.render import kernels
+
+    triangles, bounds, _ = kernels._bvh_operands(mesh.bvh)
+    shared = ctypes.c_int()
+    query = occupancy_entry("mesh_bounce_tlas", [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    blocks = query(group, mesh.instances.translation.shape[0], triangles.shape[0],
+                   bounds.shape[0], kernels.tlas_frame(mesh).node_bounds.shape[0],
+                   ctypes.addressof(shared))
+    check(blocks > 0, f"mesh_bounce_tlas_occupancy at G {group} failed ({blocks})")
+    return {"blocks_per_sm": blocks, "shared_bytes": shared.value}
+
+
+def pool_occupancy(ops, group: int) -> dict:
+    """Resident blocks per SM of ``pool_mesh_bounce_tlas`` at group size
+    ``group`` on the pool window ``ops``, its dynamic shared memory and the
+    frames a block stages at most (-1: none, the BVH is not staged either)."""
+    import ctypes
+
+    from tpu_render_cluster_torch.render import kernels
+
+    frames = len(ops.spheres.tables)
+    triangles, bounds, _ = kernels._bvh_operands(ops.meshes[0].bvh)
+    tlas_nodes = kernels.pool_tlas_operands(ops).links.shape[0] // frames
+    shared, staged = ctypes.c_int(), ctypes.c_int()
+    query = occupancy_entry("pool_mesh_bounce_tlas", [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
+    blocks = query(group, ops.spheres.per_frame, frames, ops.per_frame, triangles.shape[0],
+                   bounds.shape[0], tlas_nodes, ctypes.addressof(shared), ctypes.addressof(staged))
+    check(blocks > 0, f"pool_mesh_bounce_tlas_occupancy at G {group} failed ({blocks})")
+    return {"blocks_per_sm": blocks, "shared_bytes": shared.value, "staged_frames": staged.value}
+
+
+def bounce_groups(trace: Trace, launch, seed, alone, bound_ms: float) -> dict:
+    """Phase 5 for a launch of the group-walk per-bounce kernel: the group
+    size its width takes, the blocks resident per SM, its share of the
+    bound and the G sweep, printed beside the earlier kernel's time."""
+    from tpu_render_cluster_torch.render import kernels
+
+    kernel = trace.kernel
+    group = kernels.bounce_group(launch.bucket, kernels.thread_slots(0))
+    occupancy = bounce_occupancy(trace.mesh, group)
+    sweep = group_sweep(kernel, f"{kernel} bounce {launch.bounce}", lambda g: kernels.mesh_bounce(
+        trace.scene, trace.mesh, *launch.state, launch.live, seed, launch.bounce,
+        total_bounces=BOUNCES, use_tlas=True, _group=g,
+    ))
+    alone_ms = None if alone is None else alone["kernel_ms"] / 5
+    earlier_ms, earlier_alone_ms = EARLIER[kernel][launch.bounce]
+    share = None if alone_ms is None else bound_ms / alone_ms
+    print(
+        f"[5] {kernel} bounce {launch.bounce} ({launch.bucket} lanes): G {group}, "
+        f"{occupancy['blocks_per_sm']} resident blocks per SM ({occupancy['shared_bytes']} bytes "
+        f"of shared memory), alone {alone_ms} ms, {share} of its bound; the one-thread kernel "
+        f"(PERF.md) {earlier_ms} ms, alone {earlier_alone_ms}; G sweep: {sweep}"
+    )
+    return {"group": group, **occupancy, "bound_share_alone": share, "group_sweep": sweep}
 
 
 def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) -> dict:
@@ -1522,6 +1713,13 @@ def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) ->
         )
         if alone is not None:
             print(f"[6] {kernel} {role} launch, 20 calls under the profiler: the kernel alone {alone['kernel_ms'] / 20:.4f} ms per call")
+        if kernel in GROUP_KERNELS:
+            per_launch[role]["group_sweep"] = group_sweep(
+                kernel, f"{kernel} {role} launch", lambda g, launch=launch: wrapper(
+                    window.ops, *launch.state, launch.live, total_bounces=BOUNCES, _group=g
+                ),
+            )
+            print(f"[5] {kernel} {role} launch, G sweep: {per_launch[role]['group_sweep']}")
     windows = run["windows"]
     iterations = sum(w.iterations for w in windows)
     print(f"[5] {kernel}: {iterations / len(frames):.2f} launches per frame ({iterations} over the path's {len(frames)} frames)")
@@ -1544,7 +1742,27 @@ def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) ->
             f"device idle {idle:.4f}"
         )
     mixed = per_launch["mixed"]
+    groups = {}
+    if kernel in GROUP_KERNELS:
+        from tpu_render_cluster_torch.render import kernels
+
+        occupancy = pool_occupancy(window.ops, kernels.POOL_GROUP)
+        earlier_ms, earlier_alone_ms = EARLIER[kernel]["mixed"]
+        alone = window_alone_ms if window_alone_ms is not None else mixed["kernel_only_ms"]
+        share = None if alone is None else mixed["bound_ms"] / alone
+        frame_ms = None if window_alone_ms is None else window_alone_ms * iterations / len(frames)
+        groups = {"group": kernels.POOL_GROUP, **occupancy, "bound_share_alone": share,
+                  "frame_kernel_only_ms": frame_ms, "group_sweep": mixed["group_sweep"]}
+        print(
+            f"[5] {kernel}: G {kernels.POOL_GROUP}, {occupancy['blocks_per_sm']} resident blocks "
+            f"per SM ({occupancy['shared_bytes']} bytes of shared memory, up to "
+            f"{occupancy['staged_frames']} frames staged a block); mixed launch {mixed['ms']:.4f} "
+            f"ms, window mean alone {window_alone_ms} ms, {share} of its bound, {frame_ms} ms a "
+            f"frame alone; the one-thread kernel (PERF.md) {earlier_ms} ms, window mean alone "
+            f"{earlier_alone_ms}"
+        )
     return {
+        **groups,
         "name": kernel,
         "route": "cuda",
         "source": f"tpu_render_cluster_torch/render/csrc/{kernel}.cu",
@@ -2524,6 +2742,8 @@ def main() -> int:
         started = time.perf_counter()
         compare = kernel_vs_plain if kernel in MEGAKERNELS else bounce_kernel_vs_plain
         results = [compare(kernel, name, device) for name in scene_names]
+        if kernel in GROUP_KERNELS:
+            results.append(narrow_bounce_vs_plain(kernel, device))
         print(f"[3] {kernel} checked in {time.perf_counter() - started:.1f} s")
         agree[kernel] = min(r[0] for r in results)
         max_abs_err[kernel] = max(r[1] for r in results)

@@ -122,8 +122,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def resource_lines(log: str) -> list[str]:
-    """The lines of a ptxas report that give registers, stack and spills."""
-    return [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
+    """The lines of a ptxas report that give registers, stack and spills,
+    each kernel's after the line naming it (a source may instantiate one
+    template kernel several times)."""
+    keep = ("registers", "spill", "Compiling entry function")
+    return [line.strip() for line in log.splitlines() if any(word in line for word in keep)]
 
 
 def main(argv: list[str]) -> int:

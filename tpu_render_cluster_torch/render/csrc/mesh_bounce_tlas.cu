@@ -6,10 +6,10 @@
 // (tpu_render_cluster/render/pallas_kernels.py): mesh_bounce.cu's contract
 // (one bounce, the path state streamed in and out, lanes at or past the
 // live count passed through) with the instances walked through the frame's
-// TLAS (mesh_common.cuh, TlasInstances; the instance table in Morton slot
-// order), and one more output, each lane's coherence sort key of its state
-// after the bounce (`key_out_ref`, pallas_kernels.py:2974-3115), so the
-// caller's next sort is one argsort of this column:
+// TLAS (the instance table in Morton slot order), and one more output, each
+// lane's coherence sort key of its state after the bounce (`key_out_ref`,
+// pallas_kernels.py:2974-3115), so the caller's next sort is one argsort of
+// this column:
 //   - a lane alive after the bounce and below the live count keys with the
 //     slot its new ray enters first (the TLAS entry walk over the slots'
 //     world boxes alone), or K where the ray overlaps none;
@@ -24,9 +24,25 @@
 // Bound: operations, as mesh_bounce.cu with the instance search a
 // two-level walk (about 2 ceil(log2 K) box tests per search, the entry walk
 // one more search per live lane), against 90 bytes of state and 4 of key
-// per ray. Design: one thread per ray, no stack; the BVH, the slot-ordered
-// instance table and the TLAS (about 1.5 KB for 48 instances) staged per
-// block; the key window read from global memory. Built with --fmad=false.
+// per ray. What holds it back: the work per ray varies widely (sky rays
+// against rays that enter several instances), and the narrow launches of
+// the later bounces leave most of the card idle. Design:
+//   - persistent blocks: the launch starts as many blocks as are resident
+//     at once (occupancy x SMs, fewer for a narrow launch); each stages the
+//     BVH, the slot-ordered instance table and the TLAS (about 34 KB for 48
+//     icospheres) once, by bulk copy (mesh::stage_ranges), and each warp
+//     then takes the next 32 / G rays from a counter in global memory until
+//     the launch's rays run out, so a slow warp holds no block slot and a
+//     launch stages its tables a few hundred times, not once per 256 rays.
+//     The counter is a scratch int of the caller's, cleared on the launch's
+//     stream before the kernel;
+//   - a group of G threads walks each ray (mesh::GroupTlas, G = 1, 2, 4 or
+//     8, chosen per launch by the wrapper from the launch's width), bit for
+//     bit the one-thread walk.
+// The key window is read from global memory. Built with --fmad=false.
+
+#include <mutex>
+#include <vector>
 
 #include "mesh_common.cuh"
 
@@ -34,56 +50,178 @@ namespace {
 
 using path::float3v;
 constexpr int kThreads = 256;
+// At least 3 resident blocks an SM: ptxas keeps a thread within 80
+// registers. Without it ptxas takes 64 (4 blocks) and spills 104-196 bytes;
+// with 1 or 2 it takes 94-108 registers, no spill, and 2 blocks run slower
+// (PERF.md section 6).
+constexpr int kMinBlocks = 3;
 
-__global__ void __launch_bounds__(kThreads)
+// Byte offsets of the staged regions in the dynamic shared memory
+// (mesh::stage_region each); bytes 0: nothing is staged.
+struct Layout {
+  uint32_t tris, bounds, links, slots, tlas_bounds, tlas_links;
+  uint32_t bytes;
+};
+
+Layout plan(int n_tri_rows, int n_nodes, int n_instances, int n_tlas_nodes) {
+  const size_t sizes[6] = {
+      sizeof(float4) * 4 * static_cast<size_t>(n_tri_rows),
+      sizeof(float4) * 2 * static_cast<size_t>(n_nodes),
+      sizeof(int4) * static_cast<size_t>(n_nodes),
+      sizeof(float) * mesh::kInstanceWidth * static_cast<size_t>(n_instances),
+      sizeof(float4) * 2 * static_cast<size_t>(n_tlas_nodes),
+      sizeof(int4) * static_cast<size_t>(n_tlas_nodes),
+  };
+  uint32_t offsets[6];
+  size_t total = 0;
+  for (int i = 0; i < 6; ++i) {
+    offsets[i] = static_cast<uint32_t>(total);
+    total += mesh::stage_region(sizes[i]);
+  }
+  if (total > static_cast<size_t>(path::kMaxStagedBytes)) return {0, 0, 0, 0, 0, 0, 0};
+  return {offsets[0], offsets[1], offsets[2], offsets[3], offsets[4], offsets[5],
+          static_cast<uint32_t>(total)};
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 mesh_bounce_tlas_kernel(const float* __restrict__ origins, const float* __restrict__ directions,
                         const float* __restrict__ throughput, const uint8_t* __restrict__ alive,
                         const int* __restrict__ lanes, int n_rays,
                         const int* __restrict__ live_count, const float4* __restrict__ spheres,
                         int n_spheres, const float* __restrict__ params, mesh::MeshTables tables,
                         mesh::TlasTables tlas, const float* __restrict__ key_window,
-                        int n_tri_rows, bool staged, uint32_t seed, int bounce,
+                        int n_tri_rows, Layout layout, uint32_t seed, int bounce,
                         int total_bounces, float* __restrict__ contribution,
                         float* __restrict__ origins_out, float* __restrict__ directions_out,
                         float* __restrict__ throughput_out, uint8_t* __restrict__ alive_out,
-                        int* __restrict__ key_out) {
+                        int* __restrict__ key_out, int* __restrict__ next_ray) {
   __shared__ path::SceneShared scene;
+  __shared__ uint64_t barrier;
   extern __shared__ float4 staging[];
   const int live = *live_count;
-  const int64_t ray = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float3v o = {0.0f, 0.0f, 0.0f}, d = o, thr = o;
-  bool is_alive = false;
-  if (ray < n_rays) {
-    o = path::load3(origins, ray);
-    d = path::load3(directions, ray);
-    thr = path::load3(throughput, ray);
-    is_alive = alive[ray] != 0;
-  }
-  float3v rad = {0.0f, 0.0f, 0.0f};
-  int candidate = tables.n_instances;
 
-  // Uniform per block: a block wholly past the live count skips the tables.
-  if (static_cast<int64_t>(blockIdx.x) * blockDim.x < live) {
-    if (staged) mesh::stage_two_level(tables, tlas, staging, n_tri_rows);
-    path::load_scene(scene, spheres, n_spheres, params);  // ends with __syncthreads()
-    if (is_alive && ray < live) {
-      const uint32_t counter_stride = 2u * static_cast<uint32_t>(total_bounces) + 2u;
-      const mesh::TlasInstances instances = {tlas, 0, tlas.n_nodes};
-      is_alive = mesh::bounce(scene, 0, n_spheres, tables, instances,
-                              static_cast<uint32_t>(lanes[ray]), bounce, counter_stride, seed,
-                              o, d, thr, rad);
-      if (is_alive && bounce < total_bounces - 1) {
-        candidate = instances.entry_candidate(tables, o, d, 0, tables.n_instances);
+  // Uniform per launch: with no live lane every ray passes through.
+  if (live > 0 && layout.bytes > 0) {
+    char* smem = reinterpret_cast<char*>(staging);
+    const mesh::Range ranges[6] = {
+        {smem + layout.tris, reinterpret_cast<const char*>(tables.tris),
+         static_cast<uint32_t>(sizeof(float4) * 4 * n_tri_rows)},
+        {smem + layout.bounds, reinterpret_cast<const char*>(tables.bounds),
+         static_cast<uint32_t>(sizeof(float4) * 2 * tables.n_nodes)},
+        {smem + layout.links, reinterpret_cast<const char*>(tables.links),
+         static_cast<uint32_t>(sizeof(int4) * tables.n_nodes)},
+        {smem + layout.slots, reinterpret_cast<const char*>(tables.inst),
+         static_cast<uint32_t>(sizeof(float) * mesh::kInstanceWidth * tables.n_instances)},
+        {smem + layout.tlas_bounds, reinterpret_cast<const char*>(tlas.bounds),
+         static_cast<uint32_t>(sizeof(float4) * 2 * tlas.n_rows)},
+        {smem + layout.tlas_links, reinterpret_cast<const char*>(tlas.links),
+         static_cast<uint32_t>(sizeof(int4) * tlas.n_rows)},
+    };
+    mesh::stage_ranges(ranges, &barrier);
+    tables.tris = reinterpret_cast<const float4*>(ranges[0].staged());
+    tables.bounds = reinterpret_cast<const float4*>(ranges[1].staged());
+    tables.links = reinterpret_cast<const int4*>(ranges[2].staged());
+    tables.inst = reinterpret_cast<const float*>(ranges[3].staged());
+    tlas.bounds = reinterpret_cast<const float4*>(ranges[4].staged());
+    tlas.links = reinterpret_cast<const int4*>(ranges[5].staged());
+  }
+  path::load_scene(scene, spheres, n_spheres, params);  // ends with __syncthreads()
+
+  const mesh::Group<G> g = mesh::Group<G>::of_thread();
+  const mesh::GroupTlas<G> walk = {g, tlas.bounds, tlas.links, 0, 0, 0, tlas.n_nodes};
+  const uint32_t counter_stride = 2u * static_cast<uint32_t>(total_bounces) + 2u;
+  const int lane_in_warp = static_cast<int>(threadIdx.x & 31u);
+  for (;;) {
+    // The warp's next 32 / G rays.
+    int start = 0;
+    if (lane_in_warp == 0) start = atomicAdd(next_ray, 32 / G);
+    start = __shfl_sync(0xffffffffu, start, 0);
+    if (start >= n_rays) break;
+    const int64_t ray = static_cast<int64_t>(start) + lane_in_warp / G;
+    if (ray < n_rays) {
+      float3v o = path::load3(origins, ray);
+      float3v d = path::load3(directions, ray);
+      float3v thr = path::load3(throughput, ray);
+      bool is_alive = alive[ray] != 0;
+      float3v rad = {0.0f, 0.0f, 0.0f};
+      int candidate = tables.n_instances;
+      if (is_alive && ray < live) {
+        is_alive = mesh::bounce(scene, 0, n_spheres, tables, walk,
+                                static_cast<uint32_t>(lanes[ray]), bounce, counter_stride, seed,
+                                o, d, thr, rad);
+        if (is_alive && bounce < total_bounces - 1) {
+          candidate = walk.entry_candidate(tables, o, d, 0, tables.n_instances);
+        }
+      }
+      if (g.rank == 0) {
+        path::store3(contribution, ray, rad);
+        path::store3(origins_out, ray, o);
+        path::store3(directions_out, ray, d);
+        path::store3(throughput_out, ray, thr);
+        alive_out[ray] = is_alive ? 1 : 0;
+        key_out[ray] = mesh::coherence_key(o, d, !is_alive, 0, candidate, key_window);
       }
     }
+    __syncwarp();
   }
-  if (ray >= n_rays) return;
-  path::store3(contribution, ray, rad);
-  path::store3(origins_out, ray, o);
-  path::store3(directions_out, ray, d);
-  path::store3(throughput_out, ray, thr);
-  alive_out[ray] = is_alive ? 1 : 0;
-  key_out[ray] = mesh::coherence_key(o, d, !is_alive, 0, candidate, key_window);
+}
+
+template <int G>
+cudaError_t prepare(const Layout& layout, int* blocks_per_sm) {
+  const auto kernel = mesh_bounce_tlas_kernel<G>;
+  if (layout.bytes > 48 * 1024) {
+    const cudaError_t status = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(layout.bytes));
+    if (status != cudaSuccess) return status;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads,
+                                                       layout.bytes);
+}
+
+cudaError_t prepare_group(int group, const Layout& layout, int* blocks_per_sm) {
+  switch (group) {
+    case 1: return prepare<1>(layout, blocks_per_sm);
+    case 2: return prepare<2>(layout, blocks_per_sm);
+    case 4: return prepare<4>(layout, blocks_per_sm);
+    case 8: return prepare<8>(layout, blocks_per_sm);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The blocks resident on the whole card at once for a launch of the
+// group-G kernel with `layout.bytes` of dynamic shared memory on the current
+// device. The runtime's queries (the shared-memory limit past 48 KB, the
+// occupancy, the SM count) depend on nothing else, so each (device, G,
+// bytes) asks them once and later launches reuse the answer.
+cudaError_t card_blocks(int group, const Layout& layout, int* blocks) {
+  struct Known {
+    int device, group;
+    uint32_t bytes;
+    int blocks;
+  };
+  static std::mutex mutex;
+  static std::vector<Known> known;
+  int device = 0;
+  cudaError_t status = cudaGetDevice(&device);
+  if (status != cudaSuccess) return status;
+  const std::lock_guard<std::mutex> lock(mutex);
+  for (const Known& k : known) {
+    if (k.device == device && k.group == group && k.bytes == layout.bytes) {
+      *blocks = k.blocks;
+      return cudaSuccess;
+    }
+  }
+  int blocks_per_sm = 0, sms = 0;
+  status = prepare_group(group, layout, &blocks_per_sm);
+  if (status == cudaSuccess) {
+    status = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (status != cudaSuccess) return status;
+  if (blocks_per_sm < 1) return cudaErrorInvalidConfiguration;
+  known.push_back({device, group, layout.bytes, blocks_per_sm * sms});
+  *blocks = blocks_per_sm * sms;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -91,7 +229,10 @@ mesh_bounce_tlas_kernel(const float* __restrict__ origins, const float* __restri
 // Plain C entry for ctypes, as mesh_bounce_launch with the instances in
 // slot order and, after the BVH, the frame's TLAS (node bounds
 // [n_tlas_nodes, 8], links [n_tlas_nodes, 4] int32) and its key window
-// [6] (lo, 1 / span); after the five outputs the key [n_rays] int32.
+// [6] (lo, 1 / span); after the five outputs the key [n_rays] int32; then
+// the group size G (1, 2, 4 or 8 threads a ray) and the work counter, one
+// int32 in device memory that no other launch uses meanwhile (cleared here
+// on `stream` before the kernel).
 extern "C" int mesh_bounce_tlas_launch(
     const float* origins, const float* directions, const float* throughput,
     const unsigned char* alive, const int* lanes, int n_rays, const int* live_count,
@@ -100,7 +241,7 @@ extern "C" int mesh_bounce_tlas_launch(
     const int* node_links, int n_nodes, const float* tlas_bounds, const int* tlas_links,
     int n_tlas_nodes, const float* key_window, int seed, int bounce, int total_bounces,
     float* contribution, float* origins_out, float* directions_out, float* throughput_out,
-    unsigned char* alive_out, int* key_out, void* stream) {
+    unsigned char* alive_out, int* key_out, int group, int* work_counter, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaSuccess);
   if (n_spheres < 1 || n_spheres > path::kMaxSpheres || bounce < 0 ||
       bounce >= total_bounces || n_instances < 1 || n_tri_rows < 1 || n_nodes < 1 ||
@@ -116,20 +257,44 @@ extern "C" int mesh_bounce_tlas_launch(
   const mesh::TlasTables tlas = {reinterpret_cast<const float4*>(tlas_bounds),
                                  reinterpret_cast<const int4*>(tlas_links), n_tlas_nodes,
                                  n_tlas_nodes};
-  size_t shared_bytes;
-  bool staged;
-  const cudaError_t status = path::staging_for(
-      mesh_bounce_tlas_kernel,
-      mesh::two_level_bytes(n_tri_rows, n_nodes, n_instances, n_tlas_nodes), &shared_bytes,
-      &staged);
+  const Layout layout = plan(n_tri_rows, n_nodes, n_instances, n_tlas_nodes);
+  int resident = 0;
+  cudaError_t status = card_blocks(group, layout, &resident);
   if (status != cudaSuccess) return static_cast<int>(status);
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  mesh_bounce_tlas_kernel<<<blocks, kThreads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
-      origins, directions, throughput, alive, lanes, n_rays, live_count,
-      reinterpret_cast<const float4*>(spheres), n_spheres, params, tables, tlas, key_window,
-      n_tri_rows, staged, static_cast<uint32_t>(seed), bounce, total_bounces, contribution,
-      origins_out, directions_out, throughput_out, alive_out, key_out);
+  // As many blocks as are resident at once, and no more than the rays need.
+  const int64_t needed = (static_cast<int64_t>(n_rays) * group + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(needed < resident ? needed : resident);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  status = cudaMemsetAsync(work_counter, 0, sizeof(int), s);
+  if (status != cudaSuccess) return static_cast<int>(status);
+#define MESH_BOUNCE_TLAS_LAUNCH(G)                                                             \
+  mesh_bounce_tlas_kernel<G><<<blocks, kThreads, layout.bytes, s>>>(                           \
+      origins, directions, throughput, alive, lanes, n_rays, live_count,                       \
+      reinterpret_cast<const float4*>(spheres), n_spheres, params, tables, tlas, key_window,   \
+      n_tri_rows, layout, static_cast<uint32_t>(seed), bounce, total_bounces, contribution,    \
+      origins_out, directions_out, throughput_out, alive_out, key_out, work_counter)
+  switch (group) {
+    case 1: MESH_BOUNCE_TLAS_LAUNCH(1); break;
+    case 2: MESH_BOUNCE_TLAS_LAUNCH(2); break;
+    case 4: MESH_BOUNCE_TLAS_LAUNCH(4); break;
+    case 8: MESH_BOUNCE_TLAS_LAUNCH(8); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef MESH_BOUNCE_TLAS_LAUNCH
   return static_cast<int>(cudaGetLastError());
+}
+
+// The blocks of the group-G kernel resident on one SM at a launch of these
+// tables (a negative CUDA error code on failure), with the launch's dynamic
+// shared memory in *shared_bytes (0: the tables are read from global
+// memory).
+extern "C" int mesh_bounce_tlas_occupancy(int group, int n_instances, int n_tri_rows,
+                                          int n_nodes, int n_tlas_nodes, int* shared_bytes) {
+  const Layout layout = plan(n_tri_rows, n_nodes, n_instances, n_tlas_nodes);
+  *shared_bytes = static_cast<int>(layout.bytes);
+  int blocks_per_sm = 0;
+  const cudaError_t status = prepare_group(group, layout, &blocks_per_sm);
+  return status == cudaSuccess ? blocks_per_sm : -static_cast<int>(status);
 }
 
 extern "C" const char* mesh_bounce_tlas_error_string(int code) {

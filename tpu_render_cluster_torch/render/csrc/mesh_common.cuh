@@ -10,9 +10,11 @@
 // variants (FlatInstances: the instances [first, first + count) in table
 // order, a frame's K or a lane's own frame's rows of a pool's frame-major
 // stacked table; TlasInstances: the two-level walk of a frame's TLAS over
-// the instance table in Morton slot order), the TLAS variants' entry walk
-// and coherence key, and the whole mesh-scene bounce built from them and
-// path_common.cuh.
+// the instance table in Morton slot order), the coherence key, and the
+// whole mesh-scene bounce built from them and path_common.cuh; for the
+// per-bounce and pool TLAS kernels alone, the group walk (GroupTlas: G
+// threads of a warp share one ray, with the key's entry walk) and the bulk
+// staging of tables in shared memory (stage_ranges).
 //
 // Walk order: instances in table order (or the TLAS's leaves in preorder,
 // their slots in order), nodes in canonical DFS preorder entered at the
@@ -274,8 +276,8 @@ __device__ __forceinline__ void stage_two_level(MeshTables& m, TlasTables& t, fl
   t.links = links;
 }
 
-// THE threaded walk of nodes [node, node_end), shared by the nearest, the
-// shadow and the entry walks (the reference's `tlas_walk`): a node whose box
+// THE threaded walk of nodes [node, node_end), shared by the nearest and
+// the shadow walks (the reference's `tlas_walk`): a node whose box
 // the ray misses, or enters at or past limit(), is skipped with its subtree;
 // a leaf's slot range goes to leaf(first, end), which returns true to end
 // the walk.
@@ -335,35 +337,6 @@ struct TlasInstances {
       return false;
     });
     return hit;
-  }
-
-  // The entry walk of the coherence key (the reference's AABB-only TLAS
-  // walk, `pallas_kernels.py:2983-3065`): the slot, less slot_offset, whose
-  // world box the ray enters first (entry max(near, 0), strict `<`, so the
-  // lowest slot wins a tie), `sentinel` where it overlaps none. Nodes are
-  // culled against the best entry so far; no BVH is entered.
-  __device__ __forceinline__ int entry_candidate(const MeshTables& m, float3v o, float3v d,
-                                                 int slot_offset, int sentinel) const {
-    const float3v inv = winv3(d);
-    float best_entry = path::kInf;
-    int best = sentinel;
-    tlas_walk(tlas, node0, node_end, o, inv, [&] { return best_entry; }, [&](int first, int end) {
-      for (int k = first; k < end; ++k) {
-        const float* inst = m.inst + kInstanceWidth * k;
-        const float lox = (inst[13] - o.x) * inv.x, hix = (inst[16] - o.x) * inv.x;
-        const float loy = (inst[14] - o.y) * inv.y, hiy = (inst[17] - o.y) * inv.y;
-        const float loz = (inst[15] - o.z) * inv.z, hiz = (inst[18] - o.z) * inv.z;
-        const float t_near = fmaxf(fmaxf(fminf(lox, hix), fminf(loy, hiy)), fminf(loz, hiz));
-        const float t_far = fminf(fminf(fmaxf(lox, hix), fmaxf(loy, hiy)), fmaxf(loz, hiz));
-        const float entry = fmaxf(t_near, 0.0f);
-        if (t_far >= entry && entry < best_entry) {
-          best_entry = entry;
-          best = k - slot_offset;
-        }
-      }
-      return false;
-    });
-    return best;
   }
 };
 
@@ -460,5 +433,352 @@ __device__ __forceinline__ bool bounce(const Scene& scene, int sphere_first, int
   o = so;
   return true;
 }
+
+// ---------------------------------------------------------------------------
+// Bulk staging (mesh_bounce_tlas.cu, pool_mesh_bounce_tlas.cu): contiguous
+// table ranges copied from global into shared memory by Hopper's bulk
+// asynchronous copy (cp.async.bulk), issued by one thread and completed on
+// one mbarrier, in place of a copy loop over the whole block. A bulk copy
+// moves a 16-byte-aligned range whose size is a multiple of 16; a range here
+// only needs 4-byte alignment (a slot row is 88 bytes), so its ragged ends
+// (under 16 bytes each) are copied word by word by the block's threads and
+// its staged copy keeps the source's offset modulo 16: range i lands at
+// region_i + (src_i % 16), each region stage_region(bytes) long.
+
+struct Range {
+  char* region;  // in shared memory, 16-byte aligned
+  const char* src;  // in global memory, 4-byte aligned
+  uint32_t bytes;  // a multiple of 4; 0: nothing to stage
+
+  // Where the range's copy lands.
+  __device__ __forceinline__ char* staged() const {
+    return region + (reinterpret_cast<uintptr_t>(src) & 15u);
+  }
+  // [lo, hi): the part of the range a bulk copy moves (offsets into it).
+  __device__ __forceinline__ void middle(uint32_t* lo, uint32_t* hi) const {
+    const uint32_t offset = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(src) & 15u);
+    const uint32_t head = (16u - offset) & 15u;
+    const uint32_t tail = static_cast<uint32_t>((reinterpret_cast<uintptr_t>(src) + bytes) & 15u);
+    *lo = min(head, bytes);
+    *hi = max(*lo, bytes - min(tail, bytes));
+  }
+};
+
+// Shared-memory bytes to reserve for `bytes` staged at any 4-byte offset.
+__host__ __device__ inline size_t stage_region(size_t bytes) { return (bytes + 15) / 16 * 16 + 16; }
+
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Stage the N ranges; every thread of the block takes part, and the copies
+// are complete and visible to the whole block on return.
+template <int N>
+__device__ __forceinline__ void stage_ranges(const Range (&ranges)[N], uint64_t* barrier) {
+  const uint32_t bar = shared_address(barrier);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t total = 0;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      uint32_t lo, hi;
+      ranges[i].middle(&lo, &hi);
+      total += hi - lo;
+    }
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(total)
+                 : "memory");
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      uint32_t lo, hi;
+      ranges[i].middle(&lo, &hi);
+      if (hi > lo) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+            "[%3];\n" ::"r"(shared_address(ranges[i].staged() + lo)),
+            "l"(reinterpret_cast<uint64_t>(ranges[i].src + lo)), "r"(hi - lo), "r"(bar)
+            : "memory");
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    uint32_t lo, hi;
+    ranges[i].middle(&lo, &hi);
+    char* dst = ranges[i].staged();
+    const uint32_t ends = lo + (ranges[i].bytes - hi);  // the ragged words, head then tail
+    for (uint32_t w = 4 * threadIdx.x; w < ends; w += 4 * blockDim.x) {
+      const uint32_t at = w < lo ? w : hi + (w - lo);
+      *reinterpret_cast<uint32_t*>(dst + at) =
+          *reinterpret_cast<const uint32_t*>(ranges[i].src + at);
+    }
+  }
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar)
+        : "memory");
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// The group walk (mesh_bounce_tlas.cu, pool_mesh_bounce_tlas.cu): G threads
+// of a warp (G = 1, 2, 4 or 8, an aligned run of lanes) share one ray. They
+// follow the same node sequence of the TLAS walk and of every BLAS walk and
+// split the work of a leaf: a BLAS leaf's triangle rows and a TLAS leaf's
+// slots' world-box tests go to the G threads strided. A nearest walk's
+// threads each keep their first minimum of the leaf (strict `<`, the group's
+// best t as seed) and reduce it by (t, slot, row) through __shfl_xor_sync
+// before the next node test; a leaf's slots are entered in order, each
+// against the group's best t so far; the any-hit walk ends on an any-vote of
+// the group; the entry walk reduces by (entry, slot). The sequential walk
+// (TlasInstances) reduces a leaf to its minimum t, the first row winning a
+// tie, and culls each node with the best t after the last leaf, so the
+// group visits the same nodes and finds the same hit, row and candidate,
+// ties included. Every thread of a group computes the ray's bounce, so all
+// hold the same state; one thread stores it.
+
+template <int G>
+struct Group {
+  static_assert(G == 1 || G == 2 || G == 4 || G == 8, "a group is 1, 2, 4 or 8 threads");
+  unsigned mask;  // the group's lanes in the warp
+  int rank;  // this thread's place in the group
+
+  __device__ __forceinline__ static Group of_thread() {
+    const int lane = static_cast<int>(threadIdx.x & 31u);
+    return {((1u << G) - 1u) << (lane & ~(G - 1)), lane & (G - 1)};
+  }
+  __device__ __forceinline__ bool any(bool p) const {
+    if (G == 1) return p;
+    return __any_sync(mask, p) != 0;
+  }
+  template <typename T>
+  __device__ __forceinline__ T exchange(T v, int offset) const {
+    return __shfl_xor_sync(mask, v, offset, G);
+  }
+  template <typename T>
+  __device__ __forceinline__ T from(T v, int src) const {
+    if (G == 1) return v;
+    return __shfl_sync(mask, v, src, G);
+  }
+  // The group's least (t, instance, row); every thread gets it.
+  __device__ __forceinline__ void least(MeshHit& h) const {
+    for (int offset = G / 2; offset > 0; offset >>= 1) {
+      const float t = exchange(h.t, offset);
+      const int k = exchange(h.instance, offset);
+      const int r = exchange(h.row, offset);
+      if (t < h.t || (t == h.t && (k < h.instance || (k == h.instance && r < h.row)))) {
+        h = {t, k, r};
+      }
+    }
+  }
+  // The group's least (entry, slot).
+  __device__ __forceinline__ void least(float& entry, int& slot) const {
+    for (int offset = G / 2; offset > 0; offset >>= 1) {
+      const float e = exchange(entry, offset);
+      const int k = exchange(slot, offset);
+      if (e < entry || (e == entry && k < slot)) {
+        entry = e;
+        slot = k;
+      }
+    }
+  }
+};
+
+// blas_nearest with the group: best is the group's on entry and on return.
+template <int G>
+__device__ __forceinline__ void group_blas_nearest(const Group<G>& g, const MeshTables& m,
+                                                   float3v lo, float3v ld, int instance,
+                                                   MeshHit& best) {
+  const float3v linv = winv3(ld);
+  int node = 0;
+  while (node < m.n_nodes) {
+    const int4 link = m.links[node];
+    if (!node_box(m.bounds, node, lo, linv, best.t)) {
+      node = link.x;
+    } else if (link.z > 0) {
+      MeshHit mine = best;
+      for (int r = link.y + g.rank; r < link.y + link.z; r += G) {
+        float t;
+        if (triangle_hit(m.tris + 4 * r, lo, ld, &t) && t < mine.t) mine = {t, instance, r};
+      }
+      g.least(mine);
+      best = mine;
+      node = link.x;
+    } else {
+      node = node + 1;
+    }
+  }
+}
+
+// blas_occluded with the group.
+template <int G>
+__device__ __forceinline__ bool group_blas_occluded(const Group<G>& g, const MeshTables& m,
+                                                    float3v lo, float3v ld) {
+  const float3v linv = winv3(ld);
+  int node = 0;
+  while (node < m.n_nodes) {
+    const int4 link = m.links[node];
+    if (!node_box(m.bounds, node, lo, linv, path::kInf)) {
+      node = link.x;
+    } else if (link.z > 0) {
+      bool hit = false;
+      for (int r = link.y + g.rank; r < link.y + link.z && !hit; r += G) {
+        float t;
+        hit = triangle_hit(m.tris + 4 * r, lo, ld, &t);
+      }
+      if (g.any(hit)) return true;
+      node = link.x;
+    } else {
+      node = node + 1;
+    }
+  }
+  return false;
+}
+
+// A slot's world box against a ray, all of the slab test but the limit:
+// the box is hit when `reached` and near < limit.
+__device__ __forceinline__ void slot_box(const float* inst, float3v o, float3v inv, bool* reached,
+                                         float* near) {
+  const float lox = (inst[13] - o.x) * inv.x, hix = (inst[16] - o.x) * inv.x;
+  const float loy = (inst[14] - o.y) * inv.y, hiy = (inst[17] - o.y) * inv.y;
+  const float loz = (inst[15] - o.z) * inv.z, hiz = (inst[18] - o.z) * inv.z;
+  const float tnear = fmaxf(fmaxf(fminf(lox, hix), fminf(loy, hiy)), fminf(loz, hiz));
+  const float tfar = fminf(fminf(fmaxf(lox, hix), fmaxf(loy, hiy)), fmaxf(loz, hiz));
+  *reached = tfar >= fmaxf(tnear, 0.0f);
+  *near = tnear;
+}
+
+// The two-level walk of one frame's TLAS window by a group: nodes [node0,
+// node_end) of the stacked TLAS rows, node n at bounds/links[n - node_base];
+// slot k's row at mesh.inst + 22 (k - slot_base). A staged copy of a range
+// of frames sets the bases to its first frame's rows; a hit's `instance` is
+// k - slot_base, the row of mesh.inst that mesh::bounce shades.
+template <int G>
+struct GroupTlas {
+  Group<G> g;
+  const float4* bounds;
+  const int4* links;
+  int node_base;
+  int slot_base;
+  int node0;
+  int node_end;
+
+  __device__ __forceinline__ const float* slot(const MeshTables& m, int k) const {
+    return m.inst + kInstanceWidth * (k - slot_base);
+  }
+
+  __device__ __forceinline__ MeshHit nearest(const MeshTables& m, float3v o, float3v d,
+                                             float t_seed) const {
+    MeshHit best = {t_seed, -1, 0};
+    const float3v inv = winv3(d);
+    int node = node0;
+    while (node < node_end) {
+      const int4 link = links[node - node_base];
+      if (!node_box(bounds, node - node_base, o, inv, best.t)) {
+        node = link.x;
+        continue;
+      }
+      for (int chunk = link.y; chunk < link.y + link.z; chunk += G) {
+        // The chunk's world-box tests, one slot a thread; then its slots in
+        // order, each against the best t so far.
+        bool reached = false;
+        float near = 0.0f;
+        if (chunk + g.rank < link.y + link.z) {
+          slot_box(slot(m, chunk + g.rank), o, inv, &reached, &near);
+        }
+        for (int j = 0; j < G && chunk + j < link.y + link.z; ++j) {
+          const bool hit_box = g.from(static_cast<int>(reached), j) != 0;
+          const float box_near = g.from(near, j);
+          if (!(hit_box && box_near < best.t)) continue;
+          const float* inst = slot(m, chunk + j);
+          group_blas_nearest(g, m, point_to_object(inst, o), to_object(inst, d.x, d.y, d.z),
+                             chunk + j - slot_base, best);
+        }
+      }
+      node = link.z > 0 ? link.x : node + 1;
+    }
+    return best;
+  }
+
+  __device__ __forceinline__ bool occluded(const MeshTables& m, float3v so, float3v sun) const {
+    const float3v inv = winv3(sun);
+    int node = node0;
+    while (node < node_end) {
+      const int4 link = links[node - node_base];
+      if (!node_box(bounds, node - node_base, so, inv, path::kInf)) {
+        node = link.x;
+        continue;
+      }
+      for (int chunk = link.y; chunk < link.y + link.z; chunk += G) {
+        bool reached = false;
+        float near = 0.0f;
+        if (chunk + g.rank < link.y + link.z) {
+          slot_box(slot(m, chunk + g.rank), so, inv, &reached, &near);
+        }
+        for (int j = 0; j < G && chunk + j < link.y + link.z; ++j) {
+          const bool hit_box = g.from(static_cast<int>(reached), j) != 0;
+          const float box_near = g.from(near, j);
+          if (!(hit_box && box_near < path::kInf)) continue;
+          const float* inst = slot(m, chunk + j);
+          if (group_blas_occluded(g, m, point_to_object(inst, so),
+                                  to_object(inst, sun.x, sun.y, sun.z))) {
+            return true;
+          }
+        }
+      }
+      node = link.z > 0 ? link.x : node + 1;
+    }
+    return false;
+  }
+
+  // The entry walk of the coherence key (the reference's AABB-only TLAS
+  // walk, `pallas_kernels.py:2983-3065`): the slot, less slot_offset, whose
+  // world box the ray enters first (entry max(near, 0), strict `<`, so the
+  // lowest slot wins a tie), `sentinel` where it enters none. Nodes are
+  // culled against the best entry so far; no BVH is entered.
+  __device__ __forceinline__ int entry_candidate(const MeshTables& m, float3v o, float3v d,
+                                                 int slot_offset, int sentinel) const {
+    const float3v inv = winv3(d);
+    float best_entry = path::kInf;
+    int best = sentinel;
+    int node = node0;
+    while (node < node_end) {
+      const int4 link = links[node - node_base];
+      if (!node_box(bounds, node - node_base, o, inv, best_entry)) {
+        node = link.x;
+        continue;
+      }
+      if (link.z > 0) {
+        float entry_min = best_entry;
+        int slot_min = best;
+        for (int k = link.y + g.rank; k < link.y + link.z; k += G) {
+          bool reached;
+          float near;
+          slot_box(slot(m, k), o, inv, &reached, &near);
+          const float entry = fmaxf(near, 0.0f);
+          if (reached && entry < entry_min) {
+            entry_min = entry;
+            slot_min = k - slot_offset;
+          }
+        }
+        g.least(entry_min, slot_min);
+        best_entry = entry_min;
+        best = slot_min;
+        node = link.x;
+      } else {
+        node = node + 1;
+      }
+    }
+    return best;
+  }
+};
 
 }  // namespace mesh

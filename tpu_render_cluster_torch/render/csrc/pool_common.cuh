@@ -35,13 +35,10 @@
 //                       bounce, counter_stride, seed, o, d, thr, rad)
 //                                         one bounce on the lane's frame
 //                                         (frame -1: none), as
-//                                         path::sphere_bounce;
-//   __device__ void finish(in, ray, frame, o, d, alive)
-//                                         after the lane's outputs are
-//                                         stored, with its state after the
-//                                         bounce and `frame` its frame where
-//                                         it ran a bounce and lives on, else
-//                                         -1 (the TLAS kernel's key).
+//                                         path::sphere_bounce.
+// pool_mesh_bounce_tlas.cu has a body of its own (G threads a lane, only a
+// block's frames staged) and shares a lane's load and store (load_lane,
+// store_lane).
 
 #pragma once
 
@@ -94,9 +91,32 @@ struct SphereBounce {
     return path::sphere_bounce(scene, sphere_first, n_spheres, lane, bounce, counter_stride,
                                seed, o, d, thr, rad);
   }
-  __device__ __forceinline__ void finish(const State&, int64_t, int, float3v, float3v,
-                                         bool) const {}
 };
+
+// A lane's state before the bounce; a ray past n_rays is zero and dead.
+__device__ __forceinline__ void load_lane(const State& in, int64_t ray, float3v& o, float3v& d,
+                                          float3v& thr, bool& is_alive) {
+  o = {0.0f, 0.0f, 0.0f};
+  d = o;
+  thr = o;
+  is_alive = false;
+  if (ray < in.n_rays) {
+    o = path::load3(in.origins, ray);
+    d = path::load3(in.directions, ray);
+    thr = path::load3(in.throughput, ray);
+    is_alive = in.alive[ray] != 0;
+  }
+}
+
+// A lane's five outputs.
+__device__ __forceinline__ void store_lane(const Outputs& out, int64_t ray, float3v rad,
+                                           float3v o, float3v d, float3v thr, bool is_alive) {
+  path::store3(out.contribution, ray, rad);
+  path::store3(out.origins, ray, o);
+  path::store3(out.directions, ray, d);
+  path::store3(out.throughput, ray, thr);
+  out.alive[ray] = is_alive ? 1 : 0;
+}
 
 // The body of a pool kernel: `staging` is its dynamic shared memory and
 // `scene_params` a __shared__ array of path::kParams floats.
@@ -107,16 +127,10 @@ __device__ __forceinline__ void bounce_lanes(const State& in, const Spheres& sph
                                              float* scene_params) {
   const int live = *in.live_count;
   const int64_t ray = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float3v o = {0.0f, 0.0f, 0.0f}, d = o, thr = o;
-  bool is_alive = false;
-  if (ray < in.n_rays) {
-    o = path::load3(in.origins, ray);
-    d = path::load3(in.directions, ray);
-    thr = path::load3(in.throughput, ray);
-    is_alive = in.alive[ray] != 0;
-  }
+  float3v o, d, thr;
+  bool is_alive;
+  load_lane(in, ray, o, d, thr, is_alive);
   float3v rad = {0.0f, 0.0f, 0.0f};
-  int walked_frame = -1;
 
   // Uniform per block: a block wholly past the live count stages nothing.
   if (static_cast<int64_t>(blockIdx.x) * blockDim.x < live) {
@@ -138,16 +152,10 @@ __device__ __forceinline__ void bounce_lanes(const State& in, const Spheres& sph
                             in_window ? spheres.per_frame : 0, in_window ? fid : -1,
                             static_cast<uint32_t>(in.lanes[ray]), in.bounces[ray],
                             counter_stride, static_cast<uint32_t>(in.seeds[ray]), o, d, thr, rad);
-      if (is_alive && in_window) walked_frame = fid;
     }
   }
   if (ray >= in.n_rays) return;
-  path::store3(out.contribution, ray, rad);
-  path::store3(out.origins, ray, o);
-  path::store3(out.directions, ray, d);
-  path::store3(out.throughput, ray, thr);
-  out.alive[ray] = is_alive ? 1 : 0;
-  bounce.finish(in, ray, walked_frame, o, d, is_alive);
+  store_lane(out, ray, rad, o, d, thr, is_alive);
 }
 
 // Launch `kernel` (a __global__ wrapper of bounce_lanes taking

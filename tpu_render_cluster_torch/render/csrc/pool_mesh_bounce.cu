@@ -50,8 +50,6 @@ struct MeshBounce {
     return mesh::bounce(scene, sphere_first, n_spheres, tables, instances, lane, bounce,
                         counter_stride, seed, o, d, thr, rad);
   }
-  __device__ __forceinline__ void finish(const pool::State&, int64_t, int, float3v, float3v,
-                                         bool) const {}
 };
 
 __global__ void __launch_bounds__(pool::kThreads)

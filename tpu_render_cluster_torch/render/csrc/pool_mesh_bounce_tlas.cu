@@ -4,7 +4,9 @@
 // Replaces the TPU kernel `pool_mesh_bounce` / `_mesh_trace_kernel_factory`
 // with pool_io=True and use_tlas=True, the reference's default
 // (tpu_render_cluster/render/pallas_kernels.py): pool_mesh_bounce.cu's
-// contract and body (pool_common.cuh) with each frame's instances in Morton
+// contract (pool_common.cuh: one bounce over a pool of lanes from several
+// frames, each lane with its frame id, frame seed and bounce; lanes at or
+// past the live count pass through) with each frame's instances in Morton
 // slot order within the frame's rows of the stacked table, and one TLAS
 // window per frame stacked the same way (frame f's M nodes at rows
 // [f M, (f + 1) M), skip links offset by f M and leaf starts by f K:
@@ -24,10 +26,28 @@
 //
 // Bound: operations, as pool_mesh_bounce.cu with the instance search a
 // two-level walk of the lane's frame (and the entry walk per live lane),
-// against 53 bytes of state in and 53 out per lane. The sphere rows, the
-// BVH, the stacked slot tables and TLAS windows (an 8-frame window of
-// 03_physics-2-mesh: about 8 + 28 + 34 + 12 KB) are staged when they fit in
-// 96 KB. Built with --fmad=false.
+// against 53 bytes of state in and 53 out per lane. What holds it back is
+// latency: each lane's walk is a chain of dependent shared-memory loads,
+// the pool (65,536 lanes at 512x512x8) fills a quarter of the card's
+// thread slots at one thread a lane, and a block's slowest lane sets its
+// time. Design:
+//   - a group of G threads walks each lane (mesh::GroupTlas, G = 1, 2, 4 or
+//     8, chosen per launch by the wrapper), splitting every leaf's triangle
+//     rows and slot tests, so a launch runs G times the threads and each
+//     lane's chain is shorter; the result is bit for bit the one-thread
+//     walk's;
+//   - the pool sorts lanes by the key, whose frame id sits above all but
+//     the dead bit, so a block's live lanes hold one frame or two. A block
+//     reduces its live lanes' frame ids to [lo, hi] and stages the BVH and
+//     frames lo..hi of the sphere rows, slot table and TLAS windows, each
+//     one contiguous range, by bulk copy (mesh::stage_ranges), up to
+//     kStagedFrames frames (03_physics-2-mesh: 28 KB of BVH and 7 KB a
+//     frame, against 82 KB for all 8 frames before). A block whose range
+//     is wider reads the frame tables from global memory, and every block
+//     does where the BVH alone passes 96 KB.
+// Built with --fmad=false.
+
+#include <limits.h>
 
 #include "mesh_common.cuh"
 #include "pool_common.cuh"
@@ -35,49 +55,192 @@
 namespace {
 
 using path::float3v;
+constexpr int kThreads = 256;
+// At least 3 resident blocks an SM: ptxas keeps a thread within 80
+// registers. Without it ptxas takes 64 (4 blocks) and spills 104-196 bytes;
+// with 1 or 2 it takes 94-108 registers, no spill, and 2 blocks run slower
+// (PERF.md section 6).
+constexpr int kMinBlocks = 3;
+// Frames of per-frame tables a block stages at most.
+constexpr int kStagedFrames = 2;
 
-struct TlasMeshBounce {
-  mesh::MeshTables tables;  // instances: the stacked [F K, 22] slot tables
-  mesh::TlasTables tlas;  // the stacked windows: n_nodes M per frame, n_rows F M
-  const float* key_window;  // [6]
-  int* keys;  // [P]
+struct Tables {
+  mesh::MeshTables mesh;  // instances: the stacked [F K, 22] slot tables
+  const float4* tlas_bounds;  // the stacked windows [F M, 2]
+  const int4* tlas_links;  // [F M]
+  int tlas_nodes;  // M
   int per_frame;  // K
   int n_tri_rows;
-  size_t bytes() const {
-    return mesh::two_level_bytes(n_tri_rows, tables.n_nodes, tables.n_instances, tlas.n_rows);
-  }
-  __device__ __forceinline__ void stage(float4* staging) {
-    mesh::stage_two_level(tables, tlas, staging, n_tri_rows);
-  }
-  __device__ __forceinline__ mesh::TlasInstances window(int frame) const {
-    return {tlas, frame * tlas.n_nodes, (frame + 1) * tlas.n_nodes};
-  }
-  template <typename Scene>
-  __device__ __forceinline__ bool run(const Scene& scene, int sphere_first, int n_spheres,
-                                      int frame, uint32_t lane, int bounce,
-                                      uint32_t counter_stride, uint32_t seed, float3v& o,
-                                      float3v& d, float3v& thr, float3v& rad) const {
-    // A lane outside the window sees no node (frame -1: the empty range).
-    const mesh::TlasInstances instances =
-        frame >= 0 ? window(frame) : mesh::TlasInstances{tlas, 0, 0};
-    return mesh::bounce(scene, sphere_first, n_spheres, tables, instances, lane, bounce,
-                        counter_stride, seed, o, d, thr, rad);
-  }
-  __device__ __forceinline__ void finish(const pool::State& in, int64_t ray, int frame,
-                                         float3v o, float3v d, bool alive) const {
-    const int candidate =
-        frame >= 0 ? window(frame).entry_candidate(tables, o, d, frame * per_frame, per_frame)
-                   : per_frame;
-    keys[ray] = mesh::coherence_key(o, d, !alive, in.fids[ray], candidate, key_window);
-  }
+  const float* key_window;  // [6]
+  int* keys;  // [P]
 };
 
-__global__ void __launch_bounds__(pool::kThreads)
-pool_mesh_bounce_tlas_kernel(pool::State in, pool::Spheres spheres, TlasMeshBounce bounce,
-                             bool staged, int total_bounces, pool::Outputs out) {
+// The dynamic shared memory of a launch: byte offsets of the staged
+// regions (mesh::stage_region each); bvh 0: nothing is staged.
+struct Layout {
+  int bvh;
+  int frames;  // frames a block may stage, 0 to kStagedFrames
+  uint32_t tris, bounds, links, spheres, slots, tlas_bounds, tlas_links;
+  uint32_t bytes;
+};
+
+Layout plan(int n_tri_rows, int n_nodes, int spheres_per_frame, int per_frame, int tlas_nodes,
+            int n_frames) {
+  for (int frames = kStagedFrames < n_frames ? kStagedFrames : n_frames; frames >= 0; --frames) {
+    const size_t sizes[7] = {
+        sizeof(float4) * 4 * static_cast<size_t>(n_tri_rows),
+        sizeof(float4) * 2 * static_cast<size_t>(n_nodes),
+        sizeof(int4) * static_cast<size_t>(n_nodes),
+        sizeof(float4) * 4 * static_cast<size_t>(spheres_per_frame) * frames,
+        sizeof(float) * mesh::kInstanceWidth * static_cast<size_t>(per_frame) * frames,
+        sizeof(float4) * 2 * static_cast<size_t>(tlas_nodes) * frames,
+        sizeof(int4) * static_cast<size_t>(tlas_nodes) * frames,
+    };
+    uint32_t offsets[7];
+    size_t total = 0;
+    for (int i = 0; i < 7; ++i) {
+      offsets[i] = static_cast<uint32_t>(total);
+      total += sizes[i] ? mesh::stage_region(sizes[i]) : 0;
+    }
+    if (total <= static_cast<size_t>(path::kMaxStagedBytes)) {
+      return {1,          frames,     offsets[0], offsets[1], offsets[2], offsets[3],
+              offsets[4], offsets[5], offsets[6], static_cast<uint32_t>(total)};
+    }
+  }
+  return {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+pool_mesh_bounce_tlas_kernel(pool::State in, pool::Spheres spheres, Tables t, Layout layout,
+                             int total_bounces, pool::Outputs out) {
   __shared__ float scene_params[path::kParams];
+  __shared__ uint64_t barrier;
+  __shared__ int warp_lo[kThreads / 32], warp_hi[kThreads / 32];
   extern __shared__ float4 staging[];
-  pool::bounce_lanes(in, spheres, bounce, staged, total_bounces, out, staging, scene_params);
+  const mesh::Group<G> g = mesh::Group<G>::of_thread();
+  const int live = *in.live_count;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * (kThreads / G);
+  const int64_t ray = first + threadIdx.x / G;
+  float3v o, d, thr;
+  bool is_alive;
+  pool::load_lane(in, ray, o, d, thr, is_alive);
+  float3v rad = {0.0f, 0.0f, 0.0f};
+  int candidate = t.per_frame;
+
+  // Uniform per block: a block wholly past the live count stages nothing.
+  if (first < live) {
+    const bool walks = is_alive && ray < live;
+    const int fid = walks ? in.fids[ray] : -1;
+    const bool in_window = fid >= 0 && fid < spheres.n_frames;
+    int lo = __reduce_min_sync(0xffffffffu, in_window ? fid : INT_MAX);
+    int hi = __reduce_max_sync(0xffffffffu, in_window ? fid : -1);
+    if ((threadIdx.x & 31u) == 0) {
+      warp_lo[threadIdx.x / 32] = lo;
+      warp_hi[threadIdx.x / 32] = hi;
+    }
+    if (threadIdx.x < path::kParams) scene_params[threadIdx.x] = spheres.params[threadIdx.x];
+    __syncthreads();
+    for (int w = 0; w < kThreads / 32; ++w) {
+      lo = min(lo, warp_lo[w]);
+      hi = max(hi, warp_hi[w]);
+    }
+    // The frame tables of [lo, hi], staged where they fit, else global.
+    const bool frames_staged = layout.frames > 0 && hi >= lo && hi - lo < layout.frames;
+    const int base = frames_staged ? lo : 0;
+    const uint32_t span = frames_staged ? static_cast<uint32_t>(hi - lo + 1) : 0u;
+    mesh::MeshTables m = t.mesh;
+    const float4* sphere_rows = spheres.rows;
+    const float4* tlas_bounds = t.tlas_bounds;
+    const int4* tlas_links = t.tlas_links;
+    if (layout.bvh) {
+      char* smem = reinterpret_cast<char*>(staging);
+      const size_t k_rows = static_cast<size_t>(t.per_frame) * base;
+      const size_t m_rows = static_cast<size_t>(t.tlas_nodes) * base;
+      const size_t s_rows = static_cast<size_t>(spheres.per_frame) * base;
+      const mesh::Range ranges[7] = {
+          {smem + layout.tris, reinterpret_cast<const char*>(m.tris),
+           static_cast<uint32_t>(sizeof(float4) * 4 * t.n_tri_rows)},
+          {smem + layout.bounds, reinterpret_cast<const char*>(m.bounds),
+           static_cast<uint32_t>(sizeof(float4) * 2 * m.n_nodes)},
+          {smem + layout.links, reinterpret_cast<const char*>(m.links),
+           static_cast<uint32_t>(sizeof(int4) * m.n_nodes)},
+          {smem + layout.spheres,
+           reinterpret_cast<const char*>(spheres.rows + 4 * s_rows),
+           static_cast<uint32_t>(sizeof(float4) * 4 * spheres.per_frame) * span},
+          {smem + layout.slots,
+           reinterpret_cast<const char*>(m.inst + mesh::kInstanceWidth * k_rows),
+           static_cast<uint32_t>(sizeof(float) * mesh::kInstanceWidth * t.per_frame) * span},
+          {smem + layout.tlas_bounds, reinterpret_cast<const char*>(t.tlas_bounds + 2 * m_rows),
+           static_cast<uint32_t>(sizeof(float4) * 2 * t.tlas_nodes) * span},
+          {smem + layout.tlas_links, reinterpret_cast<const char*>(t.tlas_links + m_rows),
+           static_cast<uint32_t>(sizeof(int4) * t.tlas_nodes) * span},
+      };
+      mesh::stage_ranges(ranges, &barrier);  // ends with __syncthreads()
+      m.tris = reinterpret_cast<const float4*>(ranges[0].staged());
+      m.bounds = reinterpret_cast<const float4*>(ranges[1].staged());
+      m.links = reinterpret_cast<const int4*>(ranges[2].staged());
+      if (frames_staged) {
+        sphere_rows = reinterpret_cast<const float4*>(ranges[3].staged());
+        m.inst = reinterpret_cast<const float*>(ranges[4].staged());
+        tlas_bounds = reinterpret_cast<const float4*>(ranges[5].staged());
+        tlas_links = reinterpret_cast<const int4*>(ranges[6].staged());
+      }
+    }
+    if (walks) {
+      // A lane outside the window sees no sphere and no node.
+      const int n = in_window ? spheres.per_frame : 0;
+      const mesh::GroupTlas<G> walk = {g,
+                                       tlas_bounds,
+                                       tlas_links,
+                                       t.tlas_nodes * base,
+                                       t.per_frame * base,
+                                       in_window ? t.tlas_nodes * fid : 0,
+                                       in_window ? t.tlas_nodes * (fid + 1) : 0};
+      const path::SceneRows scene = {sphere_rows, scene_params};
+      const uint32_t counter_stride = 2u * static_cast<uint32_t>(total_bounces) + 2u;
+      is_alive = mesh::bounce(scene, in_window ? (fid - base) * n : 0, n, m, walk,
+                              static_cast<uint32_t>(in.lanes[ray]), in.bounces[ray],
+                              counter_stride, static_cast<uint32_t>(in.seeds[ray]), o, d, thr,
+                              rad);
+      if (is_alive && in_window) {
+        candidate = walk.entry_candidate(m, o, d, t.per_frame * fid, t.per_frame);
+      }
+    }
+  }
+  if (ray >= in.n_rays || g.rank != 0) return;
+  pool::store_lane(out, ray, rad, o, d, thr, is_alive);
+  t.keys[ray] = mesh::coherence_key(o, d, !is_alive, in.fids[ray], candidate, t.key_window);
+}
+
+template <int G>
+int launch_group(const pool::State& in, const pool::Spheres& spheres, const Tables& t,
+                 const Layout& layout, int total_bounces, const pool::Outputs& out,
+                 cudaStream_t stream) {
+  const auto kernel = pool_mesh_bounce_tlas_kernel<G>;
+  if (layout.bytes > 48 * 1024) {
+    const cudaError_t status = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(layout.bytes));
+    if (status != cudaSuccess) return static_cast<int>(status);
+  }
+  const int64_t threads = static_cast<int64_t>(in.n_rays) * G;
+  const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
+  kernel<<<blocks, kThreads, layout.bytes, stream>>>(in, spheres, t, layout, total_bounces, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int G>
+int occupancy_group(const Layout& layout) {
+  const auto kernel = pool_mesh_bounce_tlas_kernel<G>;
+  if (layout.bytes > 48 * 1024) {
+    const cudaError_t status = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(layout.bytes));
+    if (status != cudaSuccess) return -static_cast<int>(status);
+  }
+  int blocks = 0;
+  const cudaError_t status =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, layout.bytes);
+  return status == cudaSuccess ? blocks : -static_cast<int>(status);
 }
 
 }  // namespace
@@ -86,7 +249,7 @@ pool_mesh_bounce_tlas_kernel(pool::State in, pool::Spheres spheres, TlasMeshBoun
 // instances in slot order and, after the BVH, the stacked TLAS windows
 // (node bounds [n_frames * tlas_nodes_per_frame, 8], links likewise [.., 4]
 // int32) and the window's key window [6]; after the five outputs the key
-// [n_rays] int32.
+// [n_rays] int32; then the group size G (1, 2, 4 or 8 threads a lane).
 extern "C" int pool_mesh_bounce_tlas_launch(
     const float* origins, const float* directions, const float* throughput,
     const unsigned char* alive, const int* lanes, const int* fids, const int* seeds,
@@ -96,30 +259,61 @@ extern "C" int pool_mesh_bounce_tlas_launch(
     const int* node_links, int n_nodes, const float* tlas_bounds, const int* tlas_links,
     int tlas_nodes_per_frame, const float* key_window, int total_bounces, float* contribution,
     float* origins_out, float* directions_out, float* throughput_out, unsigned char* alive_out,
-    int* key_out, void* stream) {
-  if (n_rays > 0 && (instances_per_frame < 1 || n_tri_rows < 1 || n_nodes < 1 ||
-                     tlas_nodes_per_frame < 1)) {
+    int* key_out, int group, void* stream) {
+  if (n_rays <= 0) return static_cast<int>(cudaSuccess);
+  if (spheres_per_frame < 1 || n_frames < 1 || total_bounces < 1 || instances_per_frame < 1 ||
+      n_tri_rows < 1 || n_nodes < 1 || tlas_nodes_per_frame < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const pool::State in = {origins, directions, throughput, alive, lanes, fids,
                           seeds,   bounces,    n_rays,     live_count};
   const pool::Spheres table = {reinterpret_cast<const float4*>(spheres), spheres_per_frame,
                                n_frames, params};
-  const TlasMeshBounce bounce = {{instances, reinterpret_cast<const float4*>(triangles),
-                                  reinterpret_cast<const float4*>(node_bounds),
-                                  reinterpret_cast<const int4*>(node_links),
-                                  n_frames * instances_per_frame, n_nodes},
-                                 {reinterpret_cast<const float4*>(tlas_bounds),
-                                  reinterpret_cast<const int4*>(tlas_links), tlas_nodes_per_frame,
-                                  n_frames * tlas_nodes_per_frame},
-                                 key_window,
-                                 key_out,
-                                 instances_per_frame,
-                                 n_tri_rows};
+  const Tables t = {{instances, reinterpret_cast<const float4*>(triangles),
+                     reinterpret_cast<const float4*>(node_bounds),
+                     reinterpret_cast<const int4*>(node_links), n_frames * instances_per_frame,
+                     n_nodes},
+                    reinterpret_cast<const float4*>(tlas_bounds),
+                    reinterpret_cast<const int4*>(tlas_links),
+                    tlas_nodes_per_frame,
+                    instances_per_frame,
+                    n_tri_rows,
+                    key_window,
+                    key_out};
+  const Layout layout = plan(n_tri_rows, n_nodes, spheres_per_frame, instances_per_frame,
+                             tlas_nodes_per_frame, n_frames);
   const pool::Outputs out = {contribution, origins_out, directions_out, throughput_out,
                              alive_out};
-  return pool::launch(pool_mesh_bounce_tlas_kernel, in, table, bounce, total_bounces, out,
-                      stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (group) {
+    case 1: return launch_group<1>(in, table, t, layout, total_bounces, out, s);
+    case 2: return launch_group<2>(in, table, t, layout, total_bounces, out, s);
+    case 4: return launch_group<4>(in, table, t, layout, total_bounces, out, s);
+    case 8: return launch_group<8>(in, table, t, layout, total_bounces, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The blocks of the group-G kernel resident on one SM at a launch of these
+// tables (cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative CUDA
+// error code on failure), with the launch's dynamic shared memory in
+// *shared_bytes and the frames a block may stage in *staged_frames (-1:
+// the BVH is not staged, nothing is).
+extern "C" int pool_mesh_bounce_tlas_occupancy(int group, int spheres_per_frame, int n_frames,
+                                               int instances_per_frame, int n_tri_rows,
+                                               int n_nodes, int tlas_nodes_per_frame,
+                                               int* shared_bytes, int* staged_frames) {
+  const Layout layout = plan(n_tri_rows, n_nodes, spheres_per_frame, instances_per_frame,
+                             tlas_nodes_per_frame, n_frames);
+  *shared_bytes = static_cast<int>(layout.bytes);
+  *staged_frames = layout.bvh ? layout.frames : -1;
+  switch (group) {
+    case 1: return occupancy_group<1>(layout);
+    case 2: return occupancy_group<2>(layout);
+    case 4: return occupancy_group<4>(layout);
+    case 8: return occupancy_group<8>(layout);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* pool_mesh_bounce_tlas_error_string(int code) {

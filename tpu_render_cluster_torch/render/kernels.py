@@ -41,7 +41,12 @@ kernels, written in CUDA C++ for Hopper and built by ``_build.py``:
   of each lane (``coherence_key``), whose candidate comes from a walk of
   the same tree over the instances' world boxes alone. ``use_tlas=None``
   takes them wherever the reference does (``use_tlas_for``: more instances
-  than a TLAS leaf holds); ``use_tlas=False`` the flat instance sweep.
+  than a TLAS leaf holds); ``use_tlas=False`` the flat instance sweep. The
+  per-bounce and pool ones walk each ray with a group of G threads
+  (``GROUPS``; the pool's ``POOL_GROUP``, the per-bounce one's
+  ``bounce_group`` of the launch's width), bit for bit the one-thread walk;
+  the per-bounce one runs persistent blocks that take rays from a work
+  counter (``_work_counter``), the pool one stages only its blocks' frames.
 
 ``trace_paths_fused`` / ``trace_paths_fused_mesh`` / ``sphere_bounce`` /
 ``mesh_bounce`` / ``pool_sphere_bounce`` / ``pool_mesh_bounce`` and the
@@ -103,6 +108,12 @@ TLAS_BLOCK_R = 256
 # The coherence key's dead flag; the key stays below 2^30, so it sorts as
 # a positive int32.
 KEY_DEAD_BIT = 29
+# The group walk of the TLAS per-bounce and pool kernels: G threads of a
+# warp walk one ray (csrc/mesh_common.cuh, GroupTlas). The pool kernel's G
+# is the best of a measured sweep on the H100 (PERF.md); the per-bounce
+# kernel's follows each launch's width (``bounce_group``).
+GROUPS = (1, 2, 4, 8)
+POOL_GROUP = 4
 
 # Kernel launches ("trace_fused", its lane mode "trace_fused_lanes",
 # "trace_fused_mesh", "sphere_bounce", "mesh_bounce", "pool_sphere_bounce",
@@ -150,6 +161,35 @@ counts = {
 def reset_counts() -> None:
     for name in counts:
         counts[name] = 0
+
+
+def bounce_group(rays: int, card_threads: int) -> int:
+    """The group size of a ``mesh_bounce_tlas`` launch of ``rays`` rays:
+    the smallest G whose ``rays * G`` reaches ``card_threads``, at most 8.
+    The threshold the wrapper passes is the card's thread slots
+    (``thread_slots``: 270,336 on an H100), a tuned constant, not the
+    threads this kernel holds resident (3 blocks of 256 an SM, 101,376 on
+    an H100). On the G sweep of the four launch widths of a 512x512x8 frame
+    of 03_physics-2-mesh (2,097,152 twice, 262,144, 131,072) it picks the
+    best G or one within 1% at every width; the resident threads would put
+    the two narrow launches at G = 1, 1.3x and 2.5x slower (PERF.md). Other
+    widths, such as the tile paths' launches, were not swept."""
+    for group in GROUPS[:-1]:
+        if rays * group >= card_threads:
+            return group
+    return GROUPS[-1]
+
+
+@functools.cache
+def thread_slots(device_index: int) -> int:
+    """The threads a CUDA card can hold at once: SMs x threads per SM."""
+    props = torch.cuda.get_device_properties(device_index)
+    return props.multi_processor_count * getattr(props, "max_threads_per_multi_processor", 2048)
+
+
+def _check_group(group: int | None) -> None:
+    if group is not None and group not in GROUPS:
+        raise ValueError(f"_group must be one of {GROUPS}, got {group}")
 
 
 def use_tlas_for(k_count: int, use_tlas: bool | None = None) -> bool:
@@ -321,13 +361,15 @@ _LAUNCH_ARGTYPES = {
         _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, *_TLAS_ARGTYPES, _INT, _INT, _PTR,
         _PTR,
     ],
+    # The group walk's kernels: after the key, the group size G; the
+    # per-bounce one then its work counter.
     "mesh_bounce_tlas": [
         *_STATE_ARGTYPES, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, *_TLAS_ARGTYPES, _PTR, _INT, _INT,
-        _INT, *_KEYED_OUTPUT_ARGTYPES,
+        _INT, *_KEYED_OUTPUT_ARGTYPES[:-1], _INT, _PTR, _PTR,
     ],
     "pool_mesh_bounce_tlas": [
         *_POOL_STATE_ARGTYPES, *_POOL_SPHERE_ARGTYPES, *_MESH_ARGTYPES, *_TLAS_ARGTYPES, _PTR,
-        _INT, *_KEYED_OUTPUT_ARGTYPES,
+        _INT, *_KEYED_OUTPUT_ARGTYPES[:-1], _INT, _PTR,
     ],
     # A unit kernel: the rays (and its per-ray input), n_rays, the tables,
     # its outputs and the stream.
@@ -845,6 +887,7 @@ def mesh_bounce(
     *,
     total_bounces: int,
     use_tlas: bool | None = None,
+    _group: int | None = None,
 ) -> BounceState | KeyedBounceState:
     """One bounce of the mesh megakernel over streamed path state; the
     arguments are ``sphere_bounce``'s plus the mesh. Takes any mesh.
@@ -852,14 +895,17 @@ def mesh_bounce(
     whose output also holds the key of each lane's new state: a lane alive
     after the bounce and below the live count keys with the slot it enters
     first (K for none), any other lane and every lane of the last bounce
-    with K (``.key`` is None on the flat variant)."""
+    with K (``.key`` is None on the flat variant). ``_group`` (tests and
+    measurements only) fixes the TLAS kernel's group size, else
+    ``bounce_group`` of the launch; it changes no output."""
     _check_state(scene, origins, directions, throughput, alive, lane, seed, bounce, total_bounces)
     _check_mesh(mesh, origins)
+    _check_group(_group)
     tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas)
     if origins.device.type == "cuda":
         return _launch_bounce(
             "mesh_bounce_tlas" if tlas else "mesh_bounce", scene, mesh, origins, directions,
-            throughput, alive, lane, live_count, seed, bounce, total_bounces,
+            throughput, alive, lane, live_count, seed, bounce, total_bounces, _group,
         )
     if origins.device.type == "cpu":
         return mesh_bounce_reference(
@@ -871,7 +917,7 @@ def mesh_bounce(
 
 def _launch_bounce(
     name, scene, mesh, origins, directions, throughput, alive, lane, live_count, seed, bounce,
-    total_bounces,
+    total_bounces, group=None,
 ):
     library = _library(name)
     launch = getattr(library, f"{name}_launch")
@@ -889,14 +935,28 @@ def _launch_bounce(
     if tlas:
         tables.append(tlas_frame(mesh).key_window.data_ptr())
     out = _bounce_outputs(rays, device, tlas)
+    stream = torch.cuda.current_stream(device)
+    walk = []
+    if tlas:  # the group size, then the persistent blocks' work counter
+        if group is None:
+            group = bounce_group(rays, thread_slots(device.index or 0))
+        walk = [group, _work_counter(device, stream.cuda_stream).data_ptr()]
     status = launch(
         *(t.data_ptr() for t in state[:5]), rays, live.data_ptr(),
         *tables, int(seed), int(bounce), int(total_bounces),
-        *(t.data_ptr() for t in out), torch.cuda.current_stream(device).cuda_stream,
+        *(t.data_ptr() for t in out), *walk, stream.cuda_stream,
     )
     _check_status(library, name, status)
     counts[name] += 1
     return out
+
+
+@functools.cache
+def _work_counter(device: torch.device, stream: int) -> torch.Tensor:
+    """The work counter of ``mesh_bounce_tlas``'s persistent blocks: one
+    int32 per device and stream, allocated once; each launch clears it on
+    its stream, so launches in a row on one stream share it safely."""
+    return torch.zeros((1,), dtype=torch.int32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -1047,6 +1107,7 @@ def pool_mesh_bounce(
     *,
     total_bounces: int,
     use_tlas: bool | None = None,
+    _group: int | None = None,
 ) -> BounceState | KeyedBounceState:
     """One mesh bounce over a pool of P lanes from the window's frames; the
     arguments are ``pool_sphere_bounce``'s, a lane seeing its own frame's
@@ -1055,16 +1116,18 @@ def pool_mesh_bounce(
     output holds each lane's key (its frame id in the key; the candidate
     its frame's slot, K for none or for a lane not alive after the bounce
     below the live count; no last-bounce rule: the pool's lanes sit at
-    mixed depths)."""
+    mixed depths). ``_group`` (tests and measurements only) fixes the TLAS
+    kernel's group size, else ``POOL_GROUP``; it changes no output."""
     _check_pool_state(ops.spheres, origins, directions, throughput, alive, lane, fid, seed_row,
                       bounce_row, total_bounces)
     _check_mesh(ops.meshes[0], origins)
+    _check_group(_group)
     state = (origins, directions, throughput, alive, lane, fid, seed_row, bounce_row)
     tlas = use_tlas_for(ops.per_frame, use_tlas)
     if origins.device.type == "cuda":
         return _launch_pool(
             "pool_mesh_bounce_tlas" if tlas else "pool_mesh_bounce", ops.spheres, ops, state,
-            live_count, total_bounces,
+            live_count, total_bounces, _group,
         )
     if origins.device.type == "cpu":
         return pool_mesh_bounce_reference(
@@ -1119,7 +1182,7 @@ def _live_tensor(live_count, device) -> torch.Tensor:
     return torch.full((1,), int(live_count), dtype=torch.int32, device=device)
 
 
-def _launch_pool(name, spheres, mesh_ops, state, live_count, total_bounces):
+def _launch_pool(name, spheres, mesh_ops, state, live_count, total_bounces, group=None):
     library = _library(name)
     launch = getattr(library, f"{name}_launch")
     rays = state[0].shape[0]
@@ -1148,7 +1211,8 @@ def _launch_pool(name, spheres, mesh_ops, state, live_count, total_bounces):
     out = _bounce_outputs(rays, device, tlas)
     status = launch(
         *(t.data_ptr() for t in state), rays, live.data_ptr(), *tables, int(total_bounces),
-        *(t.data_ptr() for t in out), torch.cuda.current_stream(device).cuda_stream,
+        *(t.data_ptr() for t in out), *([POOL_GROUP if group is None else group] if tlas else []),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _check_status(library, name, status)
     counts[name] += 1
