@@ -62,10 +62,11 @@ Phases, each of which raises (exit code 1) if its check fails:
    pool's loop body under ``torch.cuda.set_sync_debug_mode("error")``; the
    unit kernels on every launch of frame 1 of each scan path at 128x128, 4
    spp (their wrappers recorded in place on ``kernels``), each on the
-   launch's own inputs, at the tolerances of tests/test_torch_geometry.py,
-   tests/test_torch_instances.py and tests/test_torch_bvh.py (the
-   single-BVH kernels: every launch of the first sample, 4 bounces x 48
-   instances); the lane kernel on the rays and lanes of tile 3 of a 2x2
+   launch's own inputs, at the tolerances of tests/test_torch_geometry.py
+   and tests/test_torch_bvh.py (the single-BVH kernels: every launch of the
+   first sample, 4 bounces x 48 instances), the instanced ones (rows 7 and
+   8) bit for bit on every output of every lane; the lane kernel on the
+   rays and lanes of tile 3 of a 2x2
    grid at 128x128, 4 spp, 1 and 4 bounces, bit for bit against its plain
    version, and on lanes 0..R-1 bit for bit against ``trace_fused``; the
    group-walk kernels (``mesh_bounce_tlas``, ``pool_mesh_bounce_tlas``)
@@ -127,11 +128,15 @@ Phases, each of which raises (exit code 1) if its check fails:
    plain version and its bound at 40 bytes a ray; each group-walk kernel's
    group size G, resident blocks per SM, time alone against its bound and
    beside its one-thread predecessor's (PERF.md), and alone at every G
-   (the sweep: each per-bounce launch, each pool launch of phase 3);
+   (the sweep: each per-bounce launch, each pool launch of phase 3, and
+   the instanced unit kernels' four launches of a 512x512 sample and of a
+   256x256 one);
 6. under torch.profiler (reported, not checked: the numbers read "not
-   measured" where the profiler sees no device time, or misses a launch of
-   the kernel after three tries): each kernel's own device time apart from
-   its wrapper's set-up work, and the card's idle share over two frames of
+   measured" where the profiler records no device time or misses a launch
+   of the kernel, three tries in a row; a G sweep and the unit kernels'
+   alone times per bounce profile windows of 5 calls, up to six times):
+   each kernel's own device time apart from its wrapper's set-up work, and
+   the card's idle share over two frames of
    each main path, or one window of a pool path, or one 128x128 frame at 2
    spp of the per-instance scan (busy: the sum of the device's own events;
    a scan path's also split by unit kernel; a tile path: frame 1's four
@@ -288,10 +293,16 @@ TLAS_KERNELS = ("trace_fused_mesh_tlas", "mesh_bounce_tlas", "pool_mesh_bounce_t
 # the kernel alone), printed beside this run's on the [5] lines only: the
 # kernels line carries this run's measurements.
 GROUP_KERNELS = ("mesh_bounce_tlas", "pool_mesh_bounce_tlas")
+# The scan's instance kernels (rows 7 and 8, GroupFlat) have their earlier
+# one-thread times by bounce too, at frame 1's first 512x512 sample.
 EARLIER = {
     "mesh_bounce_tlas": {0: (0.8993, 0.7536), 1: (0.8018, 0.6519), 2: (0.4109, 0.3511),
                          3: (0.2947, 0.2404)},
     "pool_mesh_bounce_tlas": {"mixed": (0.2607, 0.2000)},
+    "intersect_instances": {0: (0.0869, 0.0831), 1: (0.1556, 0.1498), 2: (0.1026, 0.0995),
+                            3: (0.0602, 0.0573)},
+    "occluded_instances": {0: (0.0741, 0.0661), 1: (0.0684, 0.0554), 2: (0.0553, 0.0428),
+                           3: (0.0386, 0.0245)},
 }
 REPLACES = {
     "trace_fused": "tpu_render_cluster/render/pallas_kernels.py:901",
@@ -339,11 +350,8 @@ TOLERANCE = {
     "pool_sphere_bounce": BOUNCE_TOLERANCE,
     "intersect_spheres": "t within rtol 2e-5 / atol 2e-4 and the index equal on every ray that hits",
     "occluded_spheres": "equal on every ray",
-    "intersect_instances": (
-        "t within rtol=atol=1e-4 on every ray; triangle row and instance equal on every hit ray "
-        "but max(1, round(0.001 R)) exact-tie rays"
-    ),
-    "occluded_instances": "equal on every ray but max(1, round(0.001 R)) edge-tie rays",
+    "intersect_instances": "t, triangle row and instance bit-equal on every ray",
+    "occluded_instances": "bit-equal on every ray",
     "intersect_mesh": (
         "t within rtol=atol=1e-4 on every ray; triangle row equal on every hit ray but "
         "max(1, round(0.001 R)) exact-tie rays"
@@ -459,20 +467,22 @@ def device_time(fn, kernel: str | tuple[str, ...]) -> dict | None:
     }
 
 
-def profiled(fn, kernel: str | tuple[str, ...], label: str) -> dict | None:
+def profiled(fn, kernel: str | tuple[str, ...], label: str, tries: int = 3) -> dict | None:
     """``device_time`` that reports, and does not raise, when the
     profiler cannot trace the card, and that trusts a profile only where it
     saw every launch of ``kernel`` that ``fn`` made: it profiles ``fn`` up
-    to three times, and else reports not measured."""
-    for _ in range(3):
+    to ``tries`` times (also after a profile that recorded no device time
+    at all, which on the H100 machine every other profile in a row can be),
+    and else reports not measured."""
+    for _ in range(tries):
         try:
             result = device_time(fn, kernel)
         except Exception as error:  # noqa: BLE001 - the profiler is optional here
             print(f"[6] {label}: profiler failed ({type(error).__name__}: {error}); not measured")
             return None
         if result is None:
-            print(f"[6] {label}: the profiler recorded no device time; not measured")
-            return None
+            print(f"[6] {label}: the profiler recorded no device time; profiling again")
+            continue
         if result["seen"] == result["launched"] > 0:
             return result
         print(
@@ -481,6 +491,14 @@ def profiled(fn, kernel: str | tuple[str, ...], label: str) -> dict | None:
         )
     print(f"[6] {label}: no profile saw every launch; not measured")
     return None
+
+
+def alone_ms(once, kernel: str, label: str, calls: int = 5) -> float | None:
+    """The kernel alone per call of ``once`` (one launch of ``kernel``),
+    from a window of ``calls`` calls that the profiler saw whole, profiled
+    up to six times. None: not measured."""
+    result = profiled(lambda: [once() for _ in range(calls)], kernel, label, tries=6)
+    return None if result is None else result["kernel_ms"] / calls
 
 
 class Trace:
@@ -1535,20 +1553,20 @@ def bounce_record(run: dict, checked: dict, device, agree: float, max_abs_err: f
     }
 
 
-def group_sweep(kernel: str, label: str, call) -> dict:
-    """The kernel at every group size G: ``call(group)`` launches it once.
-    Per G the wrapper's ms per call on CUDA events (the median of 5 batches
-    of 5 calls) and the kernel alone under the profiler over 20 calls
-    (None where no profile saw all 20: not measured)."""
+def group_sweep(kernel: str, label: str, call, groups: tuple | None = None) -> dict:
+    """The kernel at every group size G (``groups``, default ``GROUPS``):
+    ``call(group)`` launches it once. Per G the wrapper's ms per call on
+    CUDA events (the median of 5 batches of 5 calls) and the kernel alone
+    (``alone_ms``: None where no profile saw a window whole, not
+    measured)."""
     from tpu_render_cluster_torch.render import kernels
 
     sweep = {}
-    for group in kernels.GROUPS:
+    for group in kernels.GROUPS if groups is None else groups:
         once = lambda group=group: call(group)  # noqa: E731
         cuda_ms(once, 2)
         ms = statistics.median(cuda_ms(once, 5) for _ in range(5))
-        alone = profiled(lambda: [once() for _ in range(20)], kernel, f"{label} at G {group}")
-        sweep[group] = {"ms": ms, "alone_ms": None if alone is None else alone["kernel_ms"] / 20}
+        sweep[group] = {"ms": ms, "alone_ms": alone_ms(once, kernel, f"{label} at G {group}")}
     return sweep
 
 
@@ -1599,6 +1617,54 @@ def pool_occupancy(ops, group: int) -> dict:
                    bounds.shape[0], tlas_nodes, ctypes.addressof(shared), ctypes.addressof(staged))
     check(blocks > 0, f"pool_mesh_bounce_tlas_occupancy at G {group} failed ({blocks})")
     return {"blocks_per_sm": blocks, "shared_bytes": shared.value, "staged_frames": staged.value}
+
+
+def instance_occupancy(name: str, mesh, group: int) -> dict:
+    """Resident blocks per SM of instance unit kernel ``name`` at group size
+    ``group`` on ``mesh``'s tables, and its dynamic shared memory."""
+    import ctypes
+
+    from tpu_render_cluster_torch.render import kernels
+
+    triangles, bounds, _ = kernels._bvh_operands(mesh.bvh)
+    shared = ctypes.c_int()
+    query = occupancy_entry(name, [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    blocks = query(group, mesh.instances.translation.shape[0], triangles.shape[0],
+                   bounds.shape[0], ctypes.addressof(shared))
+    check(blocks > 0, f"{name}_occupancy at G {group} failed ({blocks})")
+    return {"blocks_per_sm": blocks, "shared_bytes": shared.value}
+
+
+def instance_groups(name: str, launches: list, label: str) -> list[dict]:
+    """Phase 5 for an instance unit kernel (rows 7, 8) at each of
+    ``launches`` (one per bounce): the group size it takes (row 7: by its
+    width; row 8: 0, each warp's pick for its batch), the blocks resident
+    per SM and the G sweep (row 8's with its G = 0), printed beside the
+    one-thread kernel's times (EARLIER, at 262,144 rays)."""
+    from tpu_render_cluster_torch.render import kernels
+
+    wrapper = getattr(kernels, name)
+    groups = kernels.GROUPS
+    if name == "occluded_instances":
+        groups = (*groups, kernels.OCCLUDED_GROUP)
+    out = []
+    for bounce, (args, _) in enumerate(launches):
+        rays = args[1].shape[0]
+        group = (kernels.OCCLUDED_GROUP if name == "occluded_instances"
+                 else kernels.instance_group(rays, kernels.thread_slots(0)))
+        occupancy = instance_occupancy(name, args[0], group)
+        sweep = group_sweep(name, f"{name} {label} bounce {bounce}",
+                            lambda g, args=args: wrapper(*args, _group=g), groups)
+        earlier = EARLIER[name][bounce] if rays == WIDTH * HEIGHT else None
+        out.append({"bounce": bounce, "rays": rays, "group": group, **occupancy,
+                    "group_sweep": sweep})
+        print(
+            f"[5] {name} {label} bounce {bounce} ({rays} rays): G {group}, "
+            f"{occupancy['blocks_per_sm']} resident blocks per SM ({occupancy['shared_bytes']} "
+            f"bytes of shared memory); the one-thread kernel (PERF.md) "
+            f"{'n/a' if earlier is None else f'{earlier[0]} ms, alone {earlier[1]}'}; G sweep: {sweep}"
+        )
+    return out
 
 
 def bounce_groups(trace: Trace, launch, seed, alone, bound_ms: float) -> dict:
@@ -1864,14 +1930,16 @@ def unit_agreement(name: str, args: tuple, got, stats: dict | None = None) -> di
         equal = torch.stack([a == b for a, b in zip(got, expected)]).all(dim=0)
         err = (got[0] - expected[0]).abs().max().item()
         bad, budget = int((~t_close | ids_differ).sum()), 0
-        if name in ("intersect_instances", "intersect_mesh"):  # t on every ray, the ids but exact ties
+        if name == "intersect_mesh":  # t on every ray, the row but exact ties
             bad, budget = int(ids_differ.sum()), max(1, round(0.001 * rays))
             check(bool(t_close.all()), f"{name}: t outside 1e-4 on {int((~t_close).sum())} rays")
     else:
         equal = got == expected
         err = float(not bool(equal.all()))
         bad = int((~equal).sum())
-        budget = max(1, round(0.001 * rays)) if name in ("occluded_instances", "occluded_mesh") else 0
+        budget = max(1, round(0.001 * rays)) if name == "occluded_mesh" else 0
+    if name in INSTANCE_UNITS:  # every output bit-equal on every lane
+        bad, budget = int((~equal).sum()), 0
     return {
         "rays": rays, "bad": bad, "budget": budget, "bit_equal": equal.float().mean().item(),
         "err": err, "plain_ms": plain_ms,
@@ -2073,6 +2141,11 @@ def scan_record(run: dict, runs: dict, device) -> dict[str, dict]:
             call = lambda args=args: wrapper(*args)  # noqa: E731
             cuda_ms(call, 3)
             per_bounce.append(statistics.median(cuda_ms(call, 20) for _ in range(10 if bounce == 0 else 3)))
+        # The kernel alone at each bounce: windows of 5 calls seen whole.
+        per_bounce_alone = [
+            alone_ms(lambda args=args: wrapper(*args), name, f"{name} bounce {b} ({path.scene})")
+            for b, (args, _) in enumerate(launches)
+        ]
         args, got = launches[0]
         stats: dict = {}
         result = unit_agreement(name, args, got, stats=stats)
@@ -2080,8 +2153,7 @@ def scan_record(run: dict, runs: dict, device) -> dict[str, dict]:
         call = lambda args=args: wrapper(*args)  # noqa: E731
         wrapper_host_ms = host_ms(call, 20)
         least = unit_bound(name, stats, result["rays"])
-        alone = profiled(lambda: [call() for _ in range(20)], name, f"{name} calls ({path.scene})")
-        kernel_only_ms = None if alone is None else alone["kernel_ms"] / 20
+        kernel_only_ms = per_bounce_alone[0]
         # The mean alone over every launch of the two profiled frames.
         frame_profile = run["frame_profile"]
         frames_alone_ms = (
@@ -2093,8 +2165,9 @@ def scan_record(run: dict, runs: dict, device) -> dict[str, dict]:
             f"launch: {', '.join(f'bounce {b} {ms:.4f}' for b, ms in enumerate(per_bounce))} ms per "
             f"launch (CUDA events; bounce 0 the median of 10 batches of 20); host "
             f"{wrapper_host_ms:.4f} ms per call; alone "
-            f"{'not measured' if kernel_only_ms is None else f'{kernel_only_ms:.4f} ms'} (the mean "
-            f"over the two profiled frames' launches "
+            + ", ".join(f"bounce {b} {'not measured' if ms is None else f'{ms:.4f}'}"
+                        for b, ms in enumerate(per_bounce_alone))
+            + f" ms (the mean over the two profiled frames' launches "
             f"{'not measured' if frames_alone_ms is None else f'{frames_alone_ms:.4f} ms'}); plain "
             f"version {result['plain_ms']:.3f} ms; {describe_bound(least)}; work: {stats}"
         )
@@ -2103,12 +2176,28 @@ def scan_record(run: dict, runs: dict, device) -> dict[str, dict]:
             "launches": run["launches"][name],
             "launches_per_frame": run["launches"][name] / len(run["frames"]),
             "ms": per_bounce[0], "per_bounce_ms": per_bounce, "host_ms": wrapper_host_ms,
-            "kernel_only_ms": kernel_only_ms, "frames_kernel_only_ms": frames_alone_ms,
+            "kernel_only_ms": kernel_only_ms, "per_bounce_kernel_only_ms": per_bounce_alone,
+            "frames_kernel_only_ms": frames_alone_ms,
             "plain_ms": result["plain_ms"],
             "bound_ms": least["ms"], "bound_by": least["by"],
             "bound_flat_sweep_ms": least["flat_ms"], "world_aabb_share": least["world_aabb_share"],
             "max_abs_err": result["err"], "frames_per_s": scan_fps,
         }
+        if name in INSTANCE_UNITS:
+            record[name]["groups"] = instance_groups(name, launches, f"{WIDTH}x{HEIGHT}")
+            if kernel_only_ms is not None:
+                record[name]["bound_share_alone"] = least["ms"] / kernel_only_ms
+    if INSTANCE_UNITS[0] in record:
+        # The G sweep at a 256x256 scan tile's launches (65,536 rays).
+        log = []
+        with recording(log, keep=BOUNCES):
+            render(WIDTH // 2, 1)
+        torch.cuda.synchronize()
+        for name in INSTANCE_UNITS:
+            record[name]["tile_groups"] = instance_groups(
+                name, [(args, got) for entry, args, got in log if entry == name],
+                f"{WIDTH // 2}x{HEIGHT // 2}",
+            )
     kernel_frame_ms = SAMPLES * sum(statistics.mean(r["per_bounce_ms"]) for r in record.values())
     print(
         f"[5] {run['label']}: the unit kernels take about {kernel_frame_ms:.3f} ms of a frame "
@@ -2250,8 +2339,9 @@ def unit_entry(name: str, records: dict, runs: dict, checks: dict, build_s: floa
         "library_ms": None,
         **{key: main[key] for key in (
             "scene", "rays", "per_bounce_ms", "host_ms", "kernel_only_ms", "frames_kernel_only_ms",
-            "bound_flat_sweep_ms", "world_aabb_share",
-        )},
+            "bound_flat_sweep_ms", "world_aabb_share", "per_bounce_kernel_only_ms",
+            "bound_share_alone", "groups", "tile_groups",
+        ) if key in main},
         "by_path": {
             r["path"]: {k: r[k] for k in (
                 "launches", "launches_per_frame", "ms", "kernel_only_ms", "frames_kernel_only_ms", "plain_ms", "bound_ms",

@@ -24,9 +24,24 @@ whose slots 0 and 1 hold the same instance (equal world boxes, so equal
 entry distances and equal hits). Tolerance: none, every output to the bit.
 Also the per-bounce kernel's group policy (``kernels.bounce_group``) and the
 wrappers' ``_group`` check.
+
+The flat sweep of the scan's instance kernels (``csrc/intersect_instances.cu``,
+``csrc/occluded_instances.cu``: ``GroupFlat``, one leaf of K slots walked as
+a TLAS leaf's) is modelled the same way (``GroupWalk.flat_nearest_rows``,
+``flat_occluded``, with the any-hit kernel's compaction of a warp's walking
+lanes, ``warp_schedule``) and held to ``_MeshWalk.nearest_rows`` and
+``_MeshWalk.occluded`` bit for bit at every G: on the rays of every bounce
+of a 32x24 scan frame of ``03_physics-2-mesh`` with their own seeds and
+``already`` masks, on built exact ties (two slots holding one instance, two
+equal rows of one leaf), with K = 47 and K = 3 (a ragged last chunk, K < G),
+and with ``already`` all set, none set and mixed, also under the any-hit
+kernel's default, each warp's pick of G for its batch (``warp_group``); and
+the nearest-hit kernel's group policy (``kernels.instance_group``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import pytest
@@ -121,25 +136,77 @@ class GroupWalk:
 
         def on_leaf(node, pos):
             first = walk.tlas.first[node]
-            end = first + walk.tlas.count[node]
-            for chunk in range(first, end, group):
-                # The chunk's box tests, one slot a thread, then its slots
-                # in order against the best t so far.
-                tests = [(k, *_box(walk.table[k], o[pos], inv[pos]))
-                         for k in range(chunk, min(chunk + group, end))]
-                for k, reached, near in tests:
-                    enter = pos[reached & (near < best[0][pos])]
-                    if enter.numel() == 0:
-                        continue
-                    row = walk.table[k]
-                    part = [b[enter].clone() for b in best]
-                    self._blas_nearest(_to_object(row, o[enter], shift=True),
-                                       _to_object(row, d[enter], shift=False), part, k)
-                    for b, value in zip(best, part):
-                        b[enter] = value
+            self._slots_nearest(first, first + walk.tlas.count[node], pos, o, d, inv, best)
 
         self._tlas(o, inv, best[0], on_leaf)
         return tuple(best)
+
+    def _slots_nearest(self, first, end, pos, o, d, inv, best):
+        """Slots [first, end) for the rays ``pos`` (``group_slots_nearest``):
+        each chunk's box tests, one slot a thread, then its slots in order
+        against the best t so far."""
+        walk = self.walk
+        for chunk in range(first, end, self.group):
+            tests = [(k, *_box(walk.table[k], o[pos], inv[pos]))
+                     for k in range(chunk, min(chunk + self.group, end))]
+            for k, reached, near in tests:
+                enter = pos[reached & (near < best[0][pos])]
+                if enter.numel() == 0:
+                    continue
+                row = walk.table[k]
+                part = [b[enter].clone() for b in best]
+                self._blas_nearest(_to_object(row, o[enter], shift=True),
+                                   _to_object(row, d[enter], shift=False), part, k)
+                for b, value in zip(best, part):
+                    b[enter] = value
+
+    def flat_nearest_rows(self, o, d, seed_t):
+        """``GroupFlat<G>::nearest``: the flat sweep as one leaf of all K
+        slots; (t, instance (-1: none), triangle row) [n]."""
+        n = o.shape[0]
+        best = [seed_t.clone(), torch.full((n,), -1, dtype=torch.int64),
+                torch.zeros((n,), dtype=torch.int64)]
+        self._slots_nearest(0, self.walk.table.shape[0], torch.arange(n), o, d, _winv(d), best)
+        return tuple(best)
+
+    def _blas_occluded(self, o, d):
+        """``group_blas_occluded`` of object-space rays [n, 3]: each thread
+        tests its strided rows of a leaf up to its first hit, and the walk
+        ends on the group's any-vote."""
+        walk, group = self.walk, self.group
+        limit = torch.full((o.shape[0],), INF)
+
+        def on_leaf(node, pos):
+            hit, _ = walk._leaf(node, o[pos], d[pos])
+            votes = [hit[:, rank::group].any(dim=1) for rank in range(group)]
+            found = torch.stack(votes).any(dim=0)
+            limit[pos[found]] = -INF
+
+        walk._walk(o, _winv(d), limit, on_leaf, None)
+        return limit == -INF
+
+    def flat_occluded(self, o, d, already):
+        """``occluded_instances``' kernel: ``already`` lanes 1 without a
+        walk; the others, in the order ``warp_schedule`` hands them to the
+        groups, through ``GroupFlat<G>::occluded`` along their own
+        direction, ending at their first occluder."""
+        walk, group = self.walk, self.group
+        order = warp_schedule(already, group)
+        occluded = already.clone()
+        inv = _winv(d)
+        k_count = walk.table.shape[0]
+        for chunk in range(0, k_count, group):
+            tests = [(k, *_box(walk.table[k], o[order], inv[order]))
+                     for k in range(chunk, min(chunk + group, k_count))]
+            for k, reached, near in tests:
+                enter = order[reached & (near < INF) & ~occluded[order]]
+                if enter.numel() == 0:
+                    continue
+                row = walk.table[k]
+                found = self._blas_occluded(_to_object(row, o[enter], shift=True),
+                                            _to_object(row, d[enter], shift=False))
+                occluded[enter[found]] = True
+        return occluded
 
     def entry_candidates(self, o, d):
         """The entry walk's slot [n] (K: none), as ``entry_candidates``."""
@@ -165,6 +232,60 @@ class GroupWalk:
 
         self._tlas(o, inv, best[0], on_leaf)
         return best[1]
+
+
+def nth_set_bit(mask: int, n: int) -> int:
+    """``occluded_instances.cu``'s search for the n-th (from 0) set bit."""
+    position = 0
+    width = 16
+    while width > 0:
+        low = mask & ((1 << width) - 1)
+        below = bin(low).count("1")
+        if n >= below:
+            n -= below
+            mask >>= width
+            position += width
+        else:
+            mask = low
+        width >>= 1
+    return position
+
+
+def warp_schedule(already: torch.Tensor, group: int) -> torch.Tensor:
+    """The walking rays (``already`` unset) in the order the any-hit
+    kernel's warps hand them to their groups: a warp takes 32 lanes,
+    numbers its walkers by ballot, and its 32 / G groups take walker
+    ``base + g`` for base = 0, 32 / G, ... (ray start + nth_set_bit)."""
+    order = []
+    rays = already.shape[0]
+    for start in range(0, rays, 32):
+        lanes = (~already[start:start + 32]).tolist()
+        mask = sum(1 << i for i, walks in enumerate(lanes) if walks)
+        walking = bin(mask).count("1")
+        for base in range(0, walking, 32 // group):
+            for taken in range(base, min(base + 32 // group, walking)):
+                order.append(start + nth_set_bit(mask, taken))
+    return torch.tensor(order, dtype=torch.int64)
+
+
+def warp_group(n_walking: int) -> int:
+    """The any-hit kernel's default group size for a warp's batch (its G =
+    0): the largest G that takes the batch's walking rays in one round."""
+    return 1 if n_walking > 16 else 2 if n_walking > 8 else 4 if n_walking > 4 else 8
+
+
+def adaptive_occluded(walk: _MeshWalk, o, d, already) -> torch.Tensor:
+    """The any-hit kernel's default: each batch of 32 rays walked by groups
+    of ``warp_group`` of its walking rays."""
+    groups = torch.ones(already.shape[0], dtype=torch.int64)
+    for start in range(0, already.shape[0], 32):
+        groups[start:start + 32] = warp_group(int((~already[start:start + 32]).sum()))
+    out = already.clone()
+    for group in GROUPS:
+        batch = groups == group
+        if batch.any():
+            out[batch] = GroupWalk(walk, group).flat_occluded(o, d, already | ~batch)[batch]
+    return out
 
 
 def _assert_walks_agree(walk: _MeshWalk, o, d, seeds=None) -> None:
@@ -300,9 +421,201 @@ def test_group_argument_checked_and_cpu_unchanged():
              torch.arange(n, dtype=torch.int32))
     with pytest.raises(ValueError, match="_group"):
         kernels.mesh_bounce(scene, mesh, *state, n, seed, 0, total_bounces=BOUNCES, _group=3)
+    with pytest.raises(ValueError, match="_group"):
+        kernels.intersect_instances(mesh, origins, directions, torch.full((n,), INF), _group=0)
+    already = torch.zeros((n,), dtype=torch.bool)
+    with pytest.raises(ValueError, match="_group"):
+        kernels.occluded_instances(mesh, origins, directions, already, _group=16)
+    assert torch.equal(
+        kernels.occluded_instances(mesh, origins, directions, already, _group=0),
+        kernels.occluded_instances(mesh, origins, directions, already),
+    )
     kernels.reset_counts()
     plain = kernels.mesh_bounce(scene, mesh, *state, n, seed, 0, total_bounces=BOUNCES)
     grouped = kernels.mesh_bounce(scene, mesh, *state, n, seed, 0, total_bounces=BOUNCES, _group=8)
     assert kernels.counts["mesh_bounce_tlas_reference"] == 2
     for have, want in zip(grouped, plain):
         assert torch.equal(have, want)
+
+
+# -- the flat sweep of the scan's instance kernels ---------------------------
+
+
+def _assert_flat_walks_agree(walk: _MeshWalk, o, d, seed_t, already) -> None:
+    """Every G's flat group walk against the sequential flat sweep, to the
+    bit: the nearest hit unseeded and seeded with ``seed_t``, and the
+    any-hit along the rays' own directions under ``already``."""
+    n = o.shape[0]
+    expected = {
+        "unseeded": walk.nearest_rows(o, d, torch.full((n,), INF), None),
+        "seeded": walk.nearest_rows(o, d, seed_t, None),
+    }
+    shadow = walk.occluded(o, already, None, directions=d)
+    for group in GROUPS:
+        model = GroupWalk(walk, group)
+        for label, seeds in (("unseeded", torch.full((n,), INF)), ("seeded", seed_t)):
+            got = model.flat_nearest_rows(o, d, seeds)
+            for have, want in zip(got, expected[label]):
+                assert torch.equal(have, want), f"G={group}: the {label} nearest hit differs"
+        got = model.flat_occluded(o, d, already)
+        assert torch.equal(got, shadow), f"G={group}: the any-hit differs"
+    assert torch.equal(adaptive_occluded(walk, o, d, already), shadow), "the warps' pick differs"
+
+
+@functools.cache
+def _scan_launches():
+    """The instanced unit kernels' inputs at every bounce of a 32x24 scan
+    frame (1 spp) of 03_physics-2-mesh on the CPU: {bounce: (intersect's
+    (origins, directions, init_t), occluded's (origins, directions,
+    already))}, and the frame's mesh."""
+    log = {"intersect_instances": [], "occluded_instances": []}
+    saved = {name: getattr(kernels, name) for name in log}
+
+    def recorder(name):
+        def record(mesh, *args):
+            log[name].append((mesh, args))
+            return saved[name](mesh, *args)
+        return record
+
+    try:
+        for name in log:
+            setattr(kernels, name, recorder(name))
+        integrator.render_frame("03_physics-2-mesh", FRAME, width=WIDTH, height=HEIGHT,
+                                samples=1, max_bounces=BOUNCES, device="cpu", bounce_scan=True)
+    finally:
+        for name, wrapper in saved.items():
+            setattr(kernels, name, wrapper)
+    mesh = log["intersect_instances"][0][0]
+    launches = {b: (log["intersect_instances"][b][1], log["occluded_instances"][b][1])
+                for b in range(BOUNCES)}
+    return mesh, launches
+
+
+@pytest.mark.parametrize("bounce", range(BOUNCES))
+def test_flat_group_walk_matches_sequential_sweep(bounce):
+    """The scan's own launches: bounce 0's camera rays seeded with the
+    sphere/plane hits, the later bounces' with parked dead lanes; the
+    any-hit under the scan's ``already`` (shadowed by a sphere, dead, or
+    facing away from the sun)."""
+    mesh, launches = _scan_launches()
+    walk = _MeshWalk.build(mesh)
+    (o, d, seed_t), (so, sun, already) = launches[bounce]
+    _assert_flat_walks_agree(walk, o, d, seed_t, torch.zeros_like(already))
+    _assert_flat_walks_agree(walk, so, sun, seed_t, already)
+
+
+def _flat_tied_walk():
+    """The flat sweep of 03's frame with instance 1 a copy of instance 0
+    (equal world boxes and hits) and a BVH leaf's second row equal to its
+    first, with the leaf's first row."""
+    mesh = scene_mesh_set("03_physics-2-mesh", FRAME, device="cpu")
+    walk = _MeshWalk.build(mesh)
+    table = walk.table.clone()
+    table[1] = table[0]
+    leaf = next(n for n, c in enumerate(walk.count) if c >= 2)
+    first = walk.first[leaf]
+    v0, e1, e2, normal = (t.clone() for t in (walk.v0, walk.e1, walk.e2, walk.normal))
+    for column in (v0, e1, e2, normal):
+        column[first + 1] = column[first]
+    return walk._replace(table=table, v0=v0, e1=e1, e2=e2, normal=normal), first
+
+
+def test_flat_group_walk_exact_ties():
+    """Ties built on purpose: two instances hit at the same t (slot 1 a copy
+    of slot 0, so slot 0 wins) and two equal rows of one leaf, which land on
+    different threads of a group (the first row wins), and the midpoints of
+    edges two triangles share."""
+    rng = np.random.default_rng(910)
+    tied, first = _flat_tied_walk()
+    rows = torch.as_tensor(rng.integers(0, tied.v0.shape[0], 24))
+    rows[:8] = first
+    weights = torch.tensor([[1 / 3, 1 / 3], [0.5, 0.0], [0.0, 0.5], [0.5, 0.5]])
+    local = torch.cat([tied.v0[rows] + w[0] * tied.e1[rows] + w[1] * tied.e2[rows]
+                       for w in weights])
+    faces = tied.normal[rows].repeat(len(weights), 1)
+    slots = torch.as_tensor(rng.integers(0, tied.table.shape[0], local.shape[0]))
+    slots[: local.shape[0] // 2] = torch.arange(local.shape[0] // 2) % 2
+    o, d = _aimed_rays(tied, slots, local, faces)
+    n = o.shape[0]
+    hits = tied.nearest_rows(o, d, torch.full((n,), INF), None)
+    already = torch.as_tensor(rng.random(n) < 0.3)
+    _assert_flat_walks_agree(tied, o, d, torch.where(hits[1] >= 0, hits[0] * 1.5, INF), already)
+    assert (hits[1] >= 0).sum() >= n // 2  # most aimed rays hit
+    assert ((hits[1] == 0) & (hits[2] == first)).sum() >= 4  # the duplicated row's tie occurs
+    assert not (hits[1] == 1).any()  # slot 1 ties slot 0 everywhere and loses
+    assert not ((hits[1] == 0) & (hits[2] == first + 1)).any()  # the second row loses
+
+
+@pytest.mark.parametrize("k_count", [47, 3])
+def test_flat_group_walk_ragged_and_small_tables(k_count):
+    """K = 47 (a ragged last chunk at G = 2, 4, 8) and K = 3 (fewer slots
+    than a group of 4 or 8 has threads), on bounce 0 and bounce 1 rays."""
+    mesh, launches = _scan_launches()
+    walk = _MeshWalk.build(mesh)
+    walk = walk._replace(table=walk.table[:k_count])
+    for bounce in (0, 1):
+        (o, d, seed_t), (so, sun, already) = launches[bounce]
+        hits = walk.nearest_rows(o, d, torch.full((o.shape[0],), INF), None)
+        assert (hits[1] >= 0).any()
+        _assert_flat_walks_agree(walk, o, d, seed_t, already)
+
+
+@pytest.mark.parametrize("mode", ["all", "none", "mixed"])
+def test_flat_any_hit_already(mode):
+    """``already`` all set (no lane walks, every output 1), none set (every
+    lane walks) and mixed at random, on bounce 0's shadow rays."""
+    mesh, launches = _scan_launches()
+    walk = _MeshWalk.build(mesh)
+    (o, d, seed_t), (so, sun, scan_already) = launches[0]
+    n = so.shape[0]
+    already = {
+        "all": torch.ones(n, dtype=torch.bool),
+        "none": torch.zeros(n, dtype=torch.bool),
+        "mixed": torch.as_tensor(np.random.default_rng(911).random(n) < 0.7),
+    }[mode]
+    for group in GROUPS:
+        assert warp_schedule(already, group).numel() == int((~already).sum())
+    _assert_flat_walks_agree(walk, so, sun, seed_t, already)
+    if mode == "all":
+        assert walk.occluded(so, already, None, directions=sun).all()
+
+
+def test_warp_schedule_takes_each_walker_once():
+    """The warp's numbering of its walkers (ballot, the n-th set bit), on
+    every mask of a few bits and on random ones: each walking lane once, in
+    lane order."""
+    rng = np.random.default_rng(912)
+    masks = [0, 1, 1 << 31, 0xFFFFFFFF, 0x80000001, 0x55555555] + list(
+        rng.integers(0, 2**32, 64, dtype=np.uint64)
+    )
+    for mask in masks:
+        mask = int(mask)
+        lanes = [i for i in range(32) if mask >> i & 1]
+        assert [nth_set_bit(mask, n) for n in range(len(lanes))] == lanes
+    already = torch.as_tensor(rng.random(100) < 0.5)
+    for group in GROUPS:
+        assert warp_schedule(already, group).tolist() == (~already).nonzero()[:, 0].tolist()
+
+
+@pytest.mark.parametrize(
+    "rays,group",
+    [(2_097_152, 1), (262_144, 1), (135_168, 1), (131_072, 2), (65_536, 4), (33_792, 4),
+     (16_384, 8), (1, 8)],
+)
+def test_instance_group_policy(rays, group):
+    """The nearest-hit instance kernel's group size on an H100's 270,336
+    thread slots: G = 1 for a 512x512 scan sample (262,144 rays), G = 4 for
+    a 256x256 one (65,536 rays); the smallest G whose rays x G reach half
+    the slots. The any-hit's default is each warp's pick (G = 0)."""
+    assert kernels.instance_group(rays, 132 * 2048) == group
+    assert kernels.OCCLUDED_GROUP == 0
+
+
+@pytest.mark.parametrize(
+    "walking,group", [(32, 1), (17, 1), (16, 2), (9, 2), (8, 4), (5, 4), (4, 8), (1, 8)]
+)
+def test_warp_group_takes_the_batch_in_one_round(walking, group):
+    """The any-hit kernel's pick for a warp's batch: one round of its 32 / G
+    groups takes every walking ray, with the largest such G."""
+    assert warp_group(walking) == group
+    assert walking <= 32 // group and (group == 8 or walking > 32 // (2 * group))

@@ -41,9 +41,6 @@
 //     bit the one-thread walk.
 // The key window is read from global memory. Built with --fmad=false.
 
-#include <mutex>
-#include <vector>
-
 #include "mesh_common.cuh"
 
 namespace {
@@ -167,61 +164,17 @@ mesh_bounce_tlas_kernel(const float* __restrict__ origins, const float* __restri
   }
 }
 
-template <int G>
-cudaError_t prepare(const Layout& layout, int* blocks_per_sm) {
-  const auto kernel = mesh_bounce_tlas_kernel<G>;
-  if (layout.bytes > 48 * 1024) {
-    const cudaError_t status = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(layout.bytes));
-    if (status != cudaSuccess) return status;
-  }
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads,
-                                                       layout.bytes);
-}
+using Kernel = decltype(&mesh_bounce_tlas_kernel<1>);
 
-cudaError_t prepare_group(int group, const Layout& layout, int* blocks_per_sm) {
+// The group-G kernel (nullptr for another G).
+Kernel kernel_for(int group) {
   switch (group) {
-    case 1: return prepare<1>(layout, blocks_per_sm);
-    case 2: return prepare<2>(layout, blocks_per_sm);
-    case 4: return prepare<4>(layout, blocks_per_sm);
-    case 8: return prepare<8>(layout, blocks_per_sm);
-    default: return cudaErrorInvalidValue;
+    case 1: return mesh_bounce_tlas_kernel<1>;
+    case 2: return mesh_bounce_tlas_kernel<2>;
+    case 4: return mesh_bounce_tlas_kernel<4>;
+    case 8: return mesh_bounce_tlas_kernel<8>;
+    default: return nullptr;
   }
-}
-
-// The blocks resident on the whole card at once for a launch of the
-// group-G kernel with `layout.bytes` of dynamic shared memory on the current
-// device. The runtime's queries (the shared-memory limit past 48 KB, the
-// occupancy, the SM count) depend on nothing else, so each (device, G,
-// bytes) asks them once and later launches reuse the answer.
-cudaError_t card_blocks(int group, const Layout& layout, int* blocks) {
-  struct Known {
-    int device, group;
-    uint32_t bytes;
-    int blocks;
-  };
-  static std::mutex mutex;
-  static std::vector<Known> known;
-  int device = 0;
-  cudaError_t status = cudaGetDevice(&device);
-  if (status != cudaSuccess) return status;
-  const std::lock_guard<std::mutex> lock(mutex);
-  for (const Known& k : known) {
-    if (k.device == device && k.group == group && k.bytes == layout.bytes) {
-      *blocks = k.blocks;
-      return cudaSuccess;
-    }
-  }
-  int blocks_per_sm = 0, sms = 0;
-  status = prepare_group(group, layout, &blocks_per_sm);
-  if (status == cudaSuccess) {
-    status = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (status != cudaSuccess) return status;
-  if (blocks_per_sm < 1) return cudaErrorInvalidConfiguration;
-  known.push_back({device, group, layout.bytes, blocks_per_sm * sms});
-  *blocks = blocks_per_sm * sms;
-  return cudaSuccess;
 }
 
 }  // namespace
@@ -258,8 +211,10 @@ extern "C" int mesh_bounce_tlas_launch(
                                  reinterpret_cast<const int4*>(tlas_links), n_tlas_nodes,
                                  n_tlas_nodes};
   const Layout layout = plan(n_tri_rows, n_nodes, n_instances, n_tlas_nodes);
+  const Kernel kernel = kernel_for(group);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int resident = 0;
-  cudaError_t status = card_blocks(group, layout, &resident);
+  cudaError_t status = mesh::card_blocks(kernel, kThreads, layout.bytes, &resident);
   if (status != cudaSuccess) return static_cast<int>(status);
   // As many blocks as are resident at once, and no more than the rays need.
   const int64_t needed = (static_cast<int64_t>(n_rays) * group + kThreads - 1) / kThreads;
@@ -267,20 +222,11 @@ extern "C" int mesh_bounce_tlas_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   status = cudaMemsetAsync(work_counter, 0, sizeof(int), s);
   if (status != cudaSuccess) return static_cast<int>(status);
-#define MESH_BOUNCE_TLAS_LAUNCH(G)                                                             \
-  mesh_bounce_tlas_kernel<G><<<blocks, kThreads, layout.bytes, s>>>(                           \
-      origins, directions, throughput, alive, lanes, n_rays, live_count,                       \
-      reinterpret_cast<const float4*>(spheres), n_spheres, params, tables, tlas, key_window,   \
-      n_tri_rows, layout, static_cast<uint32_t>(seed), bounce, total_bounces, contribution,    \
-      origins_out, directions_out, throughput_out, alive_out, key_out, work_counter)
-  switch (group) {
-    case 1: MESH_BOUNCE_TLAS_LAUNCH(1); break;
-    case 2: MESH_BOUNCE_TLAS_LAUNCH(2); break;
-    case 4: MESH_BOUNCE_TLAS_LAUNCH(4); break;
-    case 8: MESH_BOUNCE_TLAS_LAUNCH(8); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef MESH_BOUNCE_TLAS_LAUNCH
+  kernel<<<blocks, kThreads, layout.bytes, s>>>(
+      origins, directions, throughput, alive, lanes, n_rays, live_count,
+      reinterpret_cast<const float4*>(spheres), n_spheres, params, tables, tlas, key_window,
+      n_tri_rows, layout, static_cast<uint32_t>(seed), bounce, total_bounces, contribution,
+      origins_out, directions_out, throughput_out, alive_out, key_out, work_counter);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -292,8 +238,10 @@ extern "C" int mesh_bounce_tlas_occupancy(int group, int n_instances, int n_tri_
                                           int n_nodes, int n_tlas_nodes, int* shared_bytes) {
   const Layout layout = plan(n_tri_rows, n_nodes, n_instances, n_tlas_nodes);
   *shared_bytes = static_cast<int>(layout.bytes);
+  const Kernel kernel = kernel_for(group);
+  if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
   int blocks_per_sm = 0;
-  const cudaError_t status = prepare_group(group, layout, &blocks_per_sm);
+  const cudaError_t status = mesh::blocks_per_sm(kernel, kThreads, layout.bytes, &blocks_per_sm);
   return status == cudaSuccess ? blocks_per_sm : -static_cast<int>(status);
 }
 

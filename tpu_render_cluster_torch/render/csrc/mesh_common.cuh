@@ -12,9 +12,11 @@
 // stacked table; TlasInstances: the two-level walk of a frame's TLAS over
 // the instance table in Morton slot order), the coherence key, and the
 // whole mesh-scene bounce built from them and path_common.cuh; for the
-// per-bounce and pool TLAS kernels alone, the group walk (GroupTlas: G
-// threads of a warp share one ray, with the key's entry walk) and the bulk
-// staging of tables in shared memory (stage_ranges).
+// per-bounce and pool TLAS kernels and the scan's instance kernels alone,
+// the group walk (G threads of a warp share one ray: GroupTlas, with the
+// key's entry walk, and GroupFlat, the flat sweep), the bulk staging of
+// tables in shared memory (stage_ranges) and the persistent blocks' work
+// fetch and occupancy queries.
 //
 // Walk order: instances in table order (or the TLAS's leaves in preorder,
 // their slots in order), nodes in canonical DFS preorder entered at the
@@ -32,6 +34,9 @@
 // the object-space transform, Moller-Trumbore and the normal rotation.
 
 #pragma once
+
+#include <mutex>
+#include <vector>
 
 #include "path_common.cuh"
 
@@ -435,7 +440,8 @@ __device__ __forceinline__ bool bounce(const Scene& scene, int sphere_first, int
 }
 
 // ---------------------------------------------------------------------------
-// Bulk staging (mesh_bounce_tlas.cu, pool_mesh_bounce_tlas.cu): contiguous
+// Bulk staging (mesh_bounce_tlas.cu, pool_mesh_bounce_tlas.cu,
+// intersect_instances.cu, occluded_instances.cu): contiguous
 // table ranges copied from global into shared memory by Hopper's bulk
 // asynchronous copy (cp.async.bulk), issued by one thread and completed on
 // one mbarrier, in place of a copy loop over the whole block. A bulk copy
@@ -529,11 +535,13 @@ __device__ __forceinline__ void stage_ranges(const Range (&ranges)[N], uint64_t*
 }
 
 // ---------------------------------------------------------------------------
-// The group walk (mesh_bounce_tlas.cu, pool_mesh_bounce_tlas.cu): G threads
-// of a warp (G = 1, 2, 4 or 8, an aligned run of lanes) share one ray. They
-// follow the same node sequence of the TLAS walk and of every BLAS walk and
-// split the work of a leaf: a BLAS leaf's triangle rows and a TLAS leaf's
-// slots' world-box tests go to the G threads strided. A nearest walk's
+// The group walk (mesh_bounce_tlas.cu, pool_mesh_bounce_tlas.cu and, over
+// the flat sweep, intersect_instances.cu and occluded_instances.cu): G
+// threads of a warp (G = 1, 2, 4 or 8, an aligned run of lanes) share one
+// ray. They follow the same node sequence of the TLAS walk and of every BLAS
+// walk and split the work of a leaf: a BLAS leaf's triangle rows and a TLAS
+// leaf's slots' world-box tests (the flat sweep: one leaf of all K slots)
+// go to the G threads strided. A nearest walk's
 // threads each keep their first minimum of the leaf (strict `<`, the group's
 // best t as seed) and reduce it by (t, slot, row) through __shfl_xor_sync
 // before the next node test; a leaf's slots are entered in order, each
@@ -656,6 +664,86 @@ __device__ __forceinline__ void slot_box(const float* inst, float3v o, float3v i
   *near = tnear;
 }
 
+// Slots [first, end) of one leaf by a group, the flat sweep's and a TLAS
+// leaf's loop: each chunk of G slots has its world boxes tested one a thread
+// (slot_box, no limit), then the group enters the chunk's reached slots in
+// order, each against the group's best t so far. Slot k's row is at
+// m.inst + 22 (k - slot_base); a hit's `instance` is k - slot_base.
+template <int G>
+__device__ __forceinline__ void group_slots_nearest(const Group<G>& g, const MeshTables& m,
+                                                    int first, int end, int slot_base, float3v o,
+                                                    float3v d, float3v inv, MeshHit& best) {
+  for (int chunk = first; chunk < end; chunk += G) {
+    bool reached = false;
+    float near = 0.0f;
+    if (chunk + g.rank < end) {
+      slot_box(m.inst + kInstanceWidth * (chunk + g.rank - slot_base), o, inv, &reached, &near);
+    }
+    for (int j = 0; j < G && chunk + j < end; ++j) {
+      const bool hit_box = g.from(static_cast<int>(reached), j) != 0;
+      const float box_near = g.from(near, j);
+      if (!(hit_box && box_near < best.t)) continue;
+      const float* inst = m.inst + kInstanceWidth * (chunk + j - slot_base);
+      group_blas_nearest(g, m, point_to_object(inst, o), to_object(inst, d.x, d.y, d.z),
+                         chunk + j - slot_base, best);
+    }
+  }
+}
+
+// The any-hit over slots [first, end) by a group: true at the first occluder.
+template <int G>
+__device__ __forceinline__ bool group_slots_occluded(const Group<G>& g, const MeshTables& m,
+                                                     int first, int end, int slot_base,
+                                                     float3v so, float3v sun, float3v inv) {
+  for (int chunk = first; chunk < end; chunk += G) {
+    bool reached = false;
+    float near = 0.0f;
+    if (chunk + g.rank < end) {
+      slot_box(m.inst + kInstanceWidth * (chunk + g.rank - slot_base), so, inv, &reached, &near);
+    }
+    for (int j = 0; j < G && chunk + j < end; ++j) {
+      const bool hit_box = g.from(static_cast<int>(reached), j) != 0;
+      const float box_near = g.from(near, j);
+      if (!(hit_box && box_near < path::kInf)) continue;
+      const float* inst = m.inst + kInstanceWidth * (chunk + j - slot_base);
+      if (group_blas_occluded(g, m, point_to_object(inst, so),
+                              to_object(inst, sun.x, sun.y, sun.z))) {
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// The flat sweep by a group: instances [first, first + count) in table
+// order, one leaf of `count` slots; bit for bit FlatInstances, which a
+// group of one thread runs itself (the same walk in fewer registers).
+template <int G>
+struct GroupFlat {
+  Group<G> g;
+  int first;
+  int count;
+
+  __device__ __forceinline__ MeshHit nearest(const MeshTables& m, float3v o, float3v d,
+                                             float t_seed) const {
+    if constexpr (G == 1) {
+      return mesh::nearest(m, first, count, o, d, t_seed);
+    } else {
+      MeshHit best = {t_seed, -1, 0};
+      group_slots_nearest(g, m, first, first + count, 0, o, d, winv3(d), best);
+      return best;
+    }
+  }
+
+  __device__ __forceinline__ bool occluded(const MeshTables& m, float3v so, float3v sun) const {
+    if constexpr (G == 1) {
+      return mesh::occluded(m, first, count, so, sun);
+    } else {
+      return group_slots_occluded(g, m, first, first + count, 0, so, sun, winv3(sun));
+    }
+  }
+};
+
 // The two-level walk of one frame's TLAS window by a group: nodes [node0,
 // node_end) of the stacked TLAS rows, node n at bounds/links[n - node_base];
 // slot k's row at mesh.inst + 22 (k - slot_base). A staged copy of a range
@@ -686,23 +774,7 @@ struct GroupTlas {
         node = link.x;
         continue;
       }
-      for (int chunk = link.y; chunk < link.y + link.z; chunk += G) {
-        // The chunk's world-box tests, one slot a thread; then its slots in
-        // order, each against the best t so far.
-        bool reached = false;
-        float near = 0.0f;
-        if (chunk + g.rank < link.y + link.z) {
-          slot_box(slot(m, chunk + g.rank), o, inv, &reached, &near);
-        }
-        for (int j = 0; j < G && chunk + j < link.y + link.z; ++j) {
-          const bool hit_box = g.from(static_cast<int>(reached), j) != 0;
-          const float box_near = g.from(near, j);
-          if (!(hit_box && box_near < best.t)) continue;
-          const float* inst = slot(m, chunk + j);
-          group_blas_nearest(g, m, point_to_object(inst, o), to_object(inst, d.x, d.y, d.z),
-                             chunk + j - slot_base, best);
-        }
-      }
+      group_slots_nearest(g, m, link.y, link.y + link.z, slot_base, o, d, inv, best);
       node = link.z > 0 ? link.x : node + 1;
     }
     return best;
@@ -717,22 +789,8 @@ struct GroupTlas {
         node = link.x;
         continue;
       }
-      for (int chunk = link.y; chunk < link.y + link.z; chunk += G) {
-        bool reached = false;
-        float near = 0.0f;
-        if (chunk + g.rank < link.y + link.z) {
-          slot_box(slot(m, chunk + g.rank), so, inv, &reached, &near);
-        }
-        for (int j = 0; j < G && chunk + j < link.y + link.z; ++j) {
-          const bool hit_box = g.from(static_cast<int>(reached), j) != 0;
-          const float box_near = g.from(near, j);
-          if (!(hit_box && box_near < path::kInf)) continue;
-          const float* inst = slot(m, chunk + j);
-          if (group_blas_occluded(g, m, point_to_object(inst, so),
-                                  to_object(inst, sun.x, sun.y, sun.z))) {
-            return true;
-          }
-        }
+      if (group_slots_occluded(g, m, link.y, link.y + link.z, slot_base, so, sun, inv)) {
+        return true;
       }
       node = link.z > 0 ? link.x : node + 1;
     }
@@ -780,5 +838,123 @@ struct GroupTlas {
     return best;
   }
 };
+
+// ---------------------------------------------------------------------------
+// Persistent blocks (mesh_bounce_tlas.cu, intersect_instances.cu,
+// occluded_instances.cu): a launch starts as many blocks as are resident at
+// once (occupancy x SMs, fewer for a narrow launch); each stages its tables
+// once by bulk copy, and each warp then takes the next rays from a counter
+// in global memory until the launch's rays run out, so a slow warp holds no
+// block slot and a launch stages its tables a few hundred times, not once
+// per block of rays. The counter is a scratch int of the caller's, cleared
+// on the launch's stream before the kernel.
+
+// The staged regions of the unit kernels' tables (triangle rows, node
+// bounds, node links, instance rows): byte offsets into the dynamic shared
+// memory (stage_region each) and their total; all 0 where the total passes
+// kMaxStagedBytes: nothing is staged and the tables are read from global
+// memory.
+struct MeshStaging {
+  uint32_t offset[4];
+  uint32_t bytes;
+};
+
+inline MeshStaging plan_mesh(int n_tri_rows, int n_nodes, int n_instances) {
+  const size_t sizes[4] = {
+      sizeof(float4) * 4 * static_cast<size_t>(n_tri_rows),
+      sizeof(float4) * 2 * static_cast<size_t>(n_nodes),
+      sizeof(int4) * static_cast<size_t>(n_nodes),
+      sizeof(float) * kInstanceWidth * static_cast<size_t>(n_instances),
+  };
+  MeshStaging plan = {};
+  size_t total = 0;
+  for (int i = 0; i < 4; ++i) {
+    plan.offset[i] = static_cast<uint32_t>(total);
+    total += stage_region(sizes[i]);
+  }
+  if (total > static_cast<size_t>(path::kMaxStagedBytes)) return MeshStaging{};
+  plan.bytes = static_cast<uint32_t>(total);
+  return plan;
+}
+
+// Stage the tables of plan_mesh in `smem` and point `m` at the copies
+// (nothing where plan.bytes is 0); every thread of the block takes part.
+__device__ __forceinline__ void stage_mesh(MeshTables& m, int n_tri_rows, const MeshStaging& plan,
+                                           char* smem, uint64_t* barrier) {
+  if (plan.bytes == 0) return;
+  const Range ranges[4] = {
+      {smem + plan.offset[0], reinterpret_cast<const char*>(m.tris),
+       static_cast<uint32_t>(sizeof(float4) * 4 * n_tri_rows)},
+      {smem + plan.offset[1], reinterpret_cast<const char*>(m.bounds),
+       static_cast<uint32_t>(sizeof(float4) * 2 * m.n_nodes)},
+      {smem + plan.offset[2], reinterpret_cast<const char*>(m.links),
+       static_cast<uint32_t>(sizeof(int4) * m.n_nodes)},
+      {smem + plan.offset[3], reinterpret_cast<const char*>(m.inst),
+       static_cast<uint32_t>(sizeof(float) * kInstanceWidth * m.n_instances)},
+  };
+  stage_ranges(ranges, barrier);
+  m.tris = reinterpret_cast<const float4*>(ranges[0].staged());
+  m.bounds = reinterpret_cast<const float4*>(ranges[1].staged());
+  m.links = reinterpret_cast<const int4*>(ranges[2].staged());
+  m.inst = reinterpret_cast<const float*>(ranges[3].staged());
+}
+
+// The first of the warp's next `count` items (every lane gets it): lane 0
+// takes them from the counter.
+__device__ __forceinline__ int warp_fetch(int* counter, int count) {
+  int start = 0;
+  if ((threadIdx.x & 31u) == 0) start = atomicAdd(counter, count);
+  return __shfl_sync(0xffffffffu, start, 0);
+}
+
+// The blocks of `kernel` (a launch of `threads` threads and `bytes` of
+// dynamic shared memory) resident on one SM of the current device, its
+// shared-memory limit raised to kMaxStagedBytes first where `bytes` passes
+// the default 48 KB.
+template <typename Kernel>
+inline cudaError_t blocks_per_sm(Kernel kernel, int threads, uint32_t bytes, int* blocks) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t status = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, path::kMaxStagedBytes);
+    if (status != cudaSuccess) return status;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, bytes);
+}
+
+// The blocks of `kernel` resident on the whole card at once (blocks_per_sm
+// x SMs). The runtime's queries depend on nothing else, so each (device,
+// kernel, bytes) asks them once and later launches reuse the answer.
+template <typename Kernel>
+inline cudaError_t card_blocks(Kernel kernel, int threads, uint32_t bytes, int* blocks) {
+  struct Known {
+    int device;
+    const void* kernel;
+    uint32_t bytes;
+    int blocks;
+  };
+  static std::mutex mutex;
+  static std::vector<Known> known;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  int device = 0;
+  cudaError_t status = cudaGetDevice(&device);
+  if (status != cudaSuccess) return status;
+  const std::lock_guard<std::mutex> lock(mutex);
+  for (const Known& k : known) {
+    if (k.device == device && k.kernel == key && k.bytes == bytes) {
+      *blocks = k.blocks;
+      return cudaSuccess;
+    }
+  }
+  int per_sm = 0, sms = 0;
+  status = blocks_per_sm(kernel, threads, bytes, &per_sm);
+  if (status == cudaSuccess) {
+    status = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (status != cudaSuccess) return status;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  known.push_back({device, key, bytes, per_sm * sms});
+  *blocks = per_sm * sms;
+  return cudaSuccess;
+}
 
 }  // namespace mesh

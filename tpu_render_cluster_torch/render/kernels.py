@@ -28,7 +28,10 @@ kernels, written in CUDA C++ for Hopper and built by ``_build.py``:
   ``csrc/occluded_spheres.cu``, rays against the spheres (the TPU's
   ``_nearest_hit`` and ``_any_hit``), and ``csrc/intersect_instances.cu``
   and ``csrc/occluded_instances.cu``, rays against every instance of a
-  mesh (``_bvh_nearest_instanced`` and ``_bvh_anyhit_instanced``), and
+  mesh (``_bvh_nearest_instanced`` and ``_bvh_anyhit_instanced``; persistent
+  blocks, a group of G threads a ray: ``instance_group`` of the launch's
+  width, or in the any-hit each warp's pick for its compacted walking
+  rays), and
   ``csrc/intersect_mesh.cu`` and ``csrc/occluded_mesh.cu``, object-space
   rays against one mesh's BVH (``_bvh_nearest`` and ``_bvh_anyhit``), which
   the scan's per-instance branch launches once per instance;
@@ -114,6 +117,9 @@ KEY_DEAD_BIT = 29
 # kernel's follows each launch's width (``bounce_group``).
 GROUPS = (1, 2, 4, 8)
 POOL_GROUP = 4
+# The scan's instanced any-hit kernel's default G: 0, each warp's pick for
+# its batch of walking rays (the nearest hit's G: ``instance_group``).
+OCCLUDED_GROUP = 0
 
 # Kernel launches ("trace_fused", its lane mode "trace_fused_lanes",
 # "trace_fused_mesh", "sphere_bounce", "mesh_bounce", "pool_sphere_bounce",
@@ -180,6 +186,16 @@ def bounce_group(rays: int, card_threads: int) -> int:
     return GROUPS[-1]
 
 
+def instance_group(rays: int, card_threads: int) -> int:
+    """The group size of an ``intersect_instances`` launch of ``rays``
+    rays: ``bounce_group``'s rule with half the card's thread slots as its
+    threshold (135,168 on an H100). On the G sweep at the four bounces of a
+    512x512 scan sample (262,144 rays) and of a 256x256 one (65,536) it
+    picks G = 1 and G = 4, the best summed over the four bounces at each
+    width (PERF.md); the whole slots would put 262,144 rays at G = 2."""
+    return bounce_group(rays, card_threads // 2)
+
+
 @functools.cache
 def thread_slots(device_index: int) -> int:
     """The threads a CUDA card can hold at once: SMs x threads per SM."""
@@ -187,9 +203,9 @@ def thread_slots(device_index: int) -> int:
     return props.multi_processor_count * getattr(props, "max_threads_per_multi_processor", 2048)
 
 
-def _check_group(group: int | None) -> None:
-    if group is not None and group not in GROUPS:
-        raise ValueError(f"_group must be one of {GROUPS}, got {group}")
+def _check_group(group: int | None, allowed: tuple = GROUPS) -> None:
+    if group is not None and group not in allowed:
+        raise ValueError(f"_group must be one of {allowed}, got {group}")
 
 
 def use_tlas_for(k_count: int, use_tlas: bool | None = None) -> bool:
@@ -375,8 +391,12 @@ _LAUNCH_ARGTYPES = {
     # its outputs and the stream.
     "intersect_spheres": [_PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _PTR, _PTR, _PTR],
     "occluded_spheres": [_PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _PTR, _PTR],
-    "intersect_instances": [_PTR, _PTR, _PTR, _INT, *_MESH_ARGTYPES, _PTR, _PTR, _PTR, _PTR],
-    "occluded_instances": [_PTR, _PTR, _PTR, _INT, *_MESH_ARGTYPES, _PTR, _PTR],
+    # The instanced ones: after the outputs, the group size G and the work
+    # counter.
+    "intersect_instances": [
+        _PTR, _PTR, _PTR, _INT, *_MESH_ARGTYPES, _PTR, _PTR, _PTR, _INT, _PTR, _PTR,
+    ],
+    "occluded_instances": [_PTR, _PTR, _PTR, _INT, *_MESH_ARGTYPES, _PTR, _INT, _PTR, _PTR],
     "intersect_mesh": [_PTR, _PTR, _PTR, _INT, *_BVH_ARGTYPES, _PTR, _PTR, _PTR],
     "occluded_mesh": [_PTR, _PTR, _PTR, _INT, *_BVH_ARGTYPES, _PTR, _PTR],
 }
@@ -953,9 +973,10 @@ def _launch_bounce(
 
 @functools.cache
 def _work_counter(device: torch.device, stream: int) -> torch.Tensor:
-    """The work counter of ``mesh_bounce_tlas``'s persistent blocks: one
-    int32 per device and stream, allocated once; each launch clears it on
-    its stream, so launches in a row on one stream share it safely."""
+    """The work counter of the persistent blocks of ``mesh_bounce_tlas``,
+    ``intersect_instances`` and ``occluded_instances``: one int32 per
+    device and stream, allocated once; each launch clears it on its stream,
+    so launches in a row on one stream share it safely."""
     return torch.zeros((1,), dtype=torch.int32, device=device)
 
 
@@ -1287,22 +1308,32 @@ def occluded_spheres(
 
 
 def intersect_instances(
-    mesh: MeshSet, origins: torch.Tensor, directions: torch.Tensor, init_t: torch.Tensor
+    mesh: MeshSet,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    init_t: torch.Tensor,
+    *,
+    _group: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Nearest hit of each world-space ray over every instance of ``mesh``,
     seeded with ``init_t`` [R] float32 (only a hit strictly nearer counts):
     (t [R], ``init_t`` on a miss; triangle row [R] int32, a row of the
     BVH's tables; instance [R] int32), row and instance 0 on a miss. CUDA
-    tensors go to the kernel, CPU tensors to the plain version."""
+    tensors go to the kernel, CPU tensors to the plain version. ``_group``
+    (tests and measurements only) fixes the kernel's group size, else
+    ``instance_group`` of the launch; it changes no output."""
     _check_instance_rays(mesh, origins, directions, init_t, torch.float32, "init_t")
+    _check_group(_group)
     if origins.device.type == "cuda":
         rays, device = origins.shape[0], origins.device
         t = torch.empty(rays, dtype=torch.float32, device=device)
         tri = torch.empty(rays, dtype=torch.int32, device=device)
         inst = torch.empty(rays, dtype=torch.int32, device=device)
+        if _group is None:
+            _group = instance_group(rays, thread_slots(device.index or 0))
         _launch_unit(
             "intersect_instances", (origins, directions, init_t), _mesh_tables(mesh),
-            (t, tri, inst),
+            (t, tri, inst), _group,
         )
         return t, tri, inst
     if origins.device.type == "cpu":
@@ -1311,17 +1342,27 @@ def intersect_instances(
 
 
 def occluded_instances(
-    mesh: MeshSet, origins: torch.Tensor, directions: torch.Tensor, already: torch.Tensor
+    mesh: MeshSet,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    already: torch.Tensor,
+    *,
+    _group: int | None = None,
 ) -> torch.Tensor:
     """Shadow any-hit of each world-space ray over every instance of
     ``mesh`` (a triangle ahead of the origin, t > ``EPS``, unbounded): bool
     [R], OR-ed with ``already`` [R] bool, whose lanes do not walk. CUDA
-    tensors go to the kernel, CPU tensors to the plain version."""
+    tensors go to the kernel, CPU tensors to the plain version. ``_group``
+    (tests and measurements only) fixes the kernel's group size, else
+    (or with ``OCCLUDED_GROUP``) each warp picks it for its batch of
+    walking rays; it changes no output."""
     _check_instance_rays(mesh, origins, directions, already, torch.bool, "already")
+    _check_group(_group, (*GROUPS, OCCLUDED_GROUP))
     if origins.device.type == "cuda":
         hit = torch.empty(origins.shape[0], dtype=torch.bool, device=origins.device)
         _launch_unit(
-            "occluded_instances", (origins, directions, already), _mesh_tables(mesh), (hit,)
+            "occluded_instances", (origins, directions, already), _mesh_tables(mesh), (hit,),
+            OCCLUDED_GROUP if _group is None else _group,
         )
         return hit
     if origins.device.type == "cpu":
@@ -1366,18 +1407,26 @@ def occluded_mesh(
     raise ValueError(f"Unsupported device {origins.device}")
 
 
-def _launch_unit(name: str, rays: tuple, tables: list, outputs: tuple) -> None:
+def _launch_unit(
+    name: str, rays: tuple, tables: list, outputs: tuple, group: int | None = None
+) -> None:
     """Launch unit kernel ``name`` on ``rays`` (origins, directions and its
-    per-ray input) and ``tables`` into ``outputs``, on the current stream."""
+    per-ray input) and ``tables`` into ``outputs``, on the current stream;
+    a group-walk kernel (``group`` given: ``intersect_instances``,
+    ``occluded_instances``) then takes its group size and its persistent
+    blocks' work counter."""
     library = _library(name)
     launch = getattr(library, f"{name}_launch")
     n_rays = rays[0].shape[0]
     if n_rays >= 2**31:
         raise ValueError(f"{n_rays} rays exceed the kernel's int32 lane index")
     rays = [t.contiguous() for t in rays]
+    device = rays[0].device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    walk = [] if group is None else [group, _work_counter(device, stream).data_ptr()]
     status = launch(
-        *(t.data_ptr() for t in rays), n_rays, *tables, *(t.data_ptr() for t in outputs),
-        torch.cuda.current_stream(rays[0].device).cuda_stream,
+        *(t.data_ptr() for t in rays), n_rays, *tables, *(t.data_ptr() for t in outputs), *walk,
+        stream,
     )
     _check_status(library, name, status)
     counts[name] += 1
