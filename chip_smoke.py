@@ -35,6 +35,12 @@ counters), 2 frames of the deep job through the wavefront's region path, 4
 frames of the deep job with the queue's hint before each unit (one pool
 window of the 4 frames per tile), and 2 frames of 02_physics-mesh through
 the masked region loop (``mesh_bounce_tlas``, never the mesh megakernel).
+Every scene's BVH carries octant tables, so the mesh kernels of rows 3, 4
+and 6 walk the octant-ordered tables of their packets' votes (the
+reference's default), and each per-bounce or pool mesh launch brings its
+passes (``kernels.ORDERED_PASSES``): the packet vote ``packet_octants`` and,
+for ``mesh_bounce_tlas``, the key pass ``mesh_entry_keys``; a path's counts
+include them.
 Phases, each of which raises (exit code 1) if its check fails:
 1. the card: name and power limit as nvidia-smi reports them;
 2. build every CUDA source of the port with nvcc (sm_90a), one nvcc per
@@ -74,7 +80,13 @@ Phases, each of which raises (exit code 1) if its check fails:
    and also on the pool's mixed launch with its lanes shuffled over all 8
    frames (every block reads the frame tables from global memory) and on
    the narrowest launch of a 512x512 8 spp deep wavefront frame (131,072
-   lanes, a group of 4 threads a ray), all lanes;
+   lanes, a group of 4 threads a ray), all lanes; on the octant-ordered
+   walk every launch of the six mesh kernels checked bit for bit on every
+   output of every lane (a per-bounce launch's SUBSET rays drawn as whole
+   packets, whose votes they keep), and its passes against their plain
+   versions exactly; a TLAS launch's key against ``mesh_sort_keys`` but
+   exact entry ties (the twin gives a tie to the lowest slot, the ordered
+   entry walk to the slot its packet's table meets first; counted);
 4. each main path: the first frames of a job file loaded through the
    port's job model and rendered by the backend at 512x512, 8 spp, 4
    bounces. The launch counts are zeroed just before each path and read
@@ -131,6 +143,8 @@ Phases, each of which raises (exit code 1) if its check fails:
    (the sweep: each per-bounce launch, each pool launch of phase 3, and
    the instanced unit kernels' four launches of a 512x512 sample and of a
    256x256 one);
+   The passes at the deep wavefront's bounce-0 launch: each wrapper, its
+   plain version, its bound and its launches on the main paths;
 6. under torch.profiler (reported, not checked: the numbers read "not
    measured" where the profiler records no device time or misses a launch
    of the kernel, three tries in a row; a G sweep and the unit kernels'
@@ -140,7 +154,15 @@ Phases, each of which raises (exit code 1) if its check fails:
    each main path, or one window of a pool path, or one 128x128 frame at 2
    spp of the per-instance scan (busy: the sum of the device's own events;
    a scan path's also split by unit kernel; a tile path: frame 1's four
-   tiles, the pool tile path all its units).
+   tiles, the pool tile path all its units);
+7. the octant-ordered walk against the canonical order (the wrappers'
+   ``kernels.walks_ordered`` answering False, as for a BVH without octant
+   tables), in turns ordered, canonical, canonical, ordered: each of the six
+   kernels of rows 3, 4 and 6 on CUDA events and alone under the profiler
+   at the widths of PERF.md section 6 (rows 3: frame 1 of the 02 path;
+   rows 4: the deep wavefront's bounce-0 launch; rows 6: the mixed launch
+   of the pool paths' first windows), with the passes alone; and frames/s
+   of the 02 path, the deep wavefront and the deep pool, 4 frames a turn.
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -190,6 +212,17 @@ OPS_SHADE_HIT = 200
 OPS_SLAB = 25
 OPS_INSTANCE_WALK = 48
 OPS_TRIANGLE = 54
+# The packet vote (packet_octants.cu): a direction into one instance's
+# object space (three 3-dots as 2 FMAs and a product each, three products
+# by 1/s: 18) and three sign tests, per lane and instance row; a world vote
+# three sign tests per lane.
+OPS_VOTE_ROW = 21
+OPS_VOTE_WORLD = 3
+# The key pass (mesh_entry_keys.cu) reads a lane's origin, direction and
+# alive byte and writes its key; the vote reads directions (12 bytes a
+# lane) and writes a byte per packet and row.
+KEY_PASS_RAY_BYTES = 24 + 1 + 4
+VOTE_RAY_BYTES = 12
 # Bytes per ray: a megakernel reads origin and direction and writes
 # radiance; a per-bounce kernel reads origin, direction, throughput, alive
 # (1 byte) and lane (4) and writes the contribution, origin, direction,
@@ -248,9 +281,13 @@ class MainPath(NamedTuple):
     def launched(self) -> tuple[str, ...]:
         """The kernels the path launches: a scan path's unit kernels (for a
         mesh scene also the instanced ones, or with ``per_instance`` the
-        single-BVH ones), else its one kernel."""
+        single-BVH ones), else its one kernel, with a per-bounce or pool
+        mesh kernel the passes of its octant-ordered walk (every scene's
+        BVH carries octant tables)."""
         if not self.bounce_scan:
-            return (self.kernel,)
+            from tpu_render_cluster_torch.render.kernels import launch_names
+
+            return launch_names(self.kernel)
         if not self.scene.endswith("-mesh"):
             return SPHERE_UNITS
         return SPHERE_UNITS + (BVH_UNITS if self.per_instance else INSTANCE_UNITS)
@@ -293,6 +330,18 @@ TLAS_KERNELS = ("trace_fused_mesh_tlas", "mesh_bounce_tlas", "pool_mesh_bounce_t
 # the kernel alone), printed beside this run's on the [5] lines only: the
 # kernels line carries this run's measurements.
 GROUP_KERNELS = ("mesh_bounce_tlas", "pool_mesh_bounce_tlas")
+# The kernels of the octant-ordered walk (rows 3, 4 and 6, TLAS and flat):
+# on a BVH with octant tables (every scene's) each is held bit-equal to its
+# plain version on every output of every lane it is checked on, and
+# phase 7 times each in both walk orders. The passes their per-bounce and
+# pool launches bring (kernels.ORDERED_PASSES): the packet vote
+# (csrc/packet_octants.cu) and the per-bounce TLAS kernel's key
+# (csrc/mesh_entry_keys.cu), each held to its plain version exactly.
+ORDERED_KERNELS = MEGAKERNELS[1:] + ("mesh_bounce", "mesh_bounce_tlas", "pool_mesh_bounce",
+                                     "pool_mesh_bounce_tlas")
+PASSES = ("packet_octants", "mesh_entry_keys")
+# Passes' checks of phases 3 and 4: (launches checked, max abs error).
+PASS_CHECKS = {name: 0 for name in PASSES}  # launches held to the plain version
 # The scan's instance kernels (rows 7 and 8, GroupFlat) have their earlier
 # one-thread times by bounce too, at frame 1's first 512x512 sample.
 EARLIER = {
@@ -306,6 +355,10 @@ EARLIER = {
 }
 REPLACES = {
     "trace_fused": "tpu_render_cluster/render/pallas_kernels.py:901",
+    # _octant_of, the packet vote inside _mesh_trace_kernel_factory (rows 3, 4, 6)
+    "packet_octants": "tpu_render_cluster/render/pallas_kernels.py:2263",
+    # the ordered key epilogue's entry walk, tlas_base(edx, edy, edz) (row 4)
+    "mesh_entry_keys": "tpu_render_cluster/render/pallas_kernels.py:3044",
     "trace_fused_lanes": "tpu_render_cluster/render/pallas_kernels.py:901",
     "trace_fused_mesh": "tpu_render_cluster/render/pallas_kernels.py:3205",
     "trace_fused_mesh_tlas": "tpu_render_cluster/render/pallas_kernels.py:3205",
@@ -338,14 +391,17 @@ MESH_MEGAKERNEL_TOLERANCE = (
     "rtol=atol=1e-4 per ray; at 1 bounce all but max(1, round(0.001 R)) edge-tie rays, "
     ">=99.9% at 4"
 )
+ORDERED_TOLERANCE = "; on the octant-ordered walk every output bit-equal on every lane"
 TOLERANCE = {
     "trace_fused": "rtol=atol=1e-4 per ray; all rays at 1 bounce, >=99.9% at 4",
-    "trace_fused_mesh": MESH_MEGAKERNEL_TOLERANCE,
-    "trace_fused_mesh_tlas": MESH_MEGAKERNEL_TOLERANCE,
-    "mesh_bounce": BOUNCE_TOLERANCE,
+    "packet_octants": "every vote byte equal, on every launch checked",
+    "mesh_entry_keys": "every key equal, and equal to the launch's key column",
+    "trace_fused_mesh": MESH_MEGAKERNEL_TOLERANCE + ORDERED_TOLERANCE,
+    "trace_fused_mesh_tlas": MESH_MEGAKERNEL_TOLERANCE + ORDERED_TOLERANCE,
+    "mesh_bounce": BOUNCE_TOLERANCE + ORDERED_TOLERANCE,
     "mesh_bounce_tlas": GROUP_TOLERANCE,
     "sphere_bounce": BOUNCE_TOLERANCE,
-    "pool_mesh_bounce": BOUNCE_TOLERANCE,
+    "pool_mesh_bounce": BOUNCE_TOLERANCE + ORDERED_TOLERANCE,
     "pool_mesh_bounce_tlas": GROUP_TOLERANCE,
     "pool_sphere_bounce": BOUNCE_TOLERANCE,
     "intersect_spheres": "t within rtol 2e-5 / atol 2e-4 and the index equal on every ray that hits",
@@ -606,6 +662,9 @@ def kernel_vs_plain(kernel: str, scene_name: str, device) -> tuple[float, float]
             f"max abs err {err:.3g}"
         )
         check(torch.isfinite(got).all().item(), f"non-finite radiance ({kernel}, {scene_name})")
+        if kernel in ORDERED_KERNELS and trace.kernels.walks_ordered(trace.mesh.bvh):
+            check(bit_equal == 1.0, f"{kernel} {scene_name}: the ordered walk is not bit-equal "
+                                    f"to its plain version")
         if max_bounces == 4:
             check(fraction >= 0.999, f"{kernel} {scene_name} 4 bounces: {fraction} < 0.999")
         elif kernel == "trace_fused":
@@ -650,9 +709,14 @@ def check_bounce(label: str, trace: Trace, launch, seed, rows=None, stats=None) 
     check(result["bad"] <= budget and result["alive_bad"] <= budget,
           f"{trace.kernel} bounce {launch.bounce}: past the budget of {budget} rays")
     check(not got.alive[live:].any().item(), f"{trace.kernel}: a lane past the live count lives")
-    if trace.kernel in GROUP_KERNELS:
+    ordered = trace.mesh is not None and trace.kernels.walks_ordered(trace.mesh.bvh)
+    if trace.kernel in GROUP_KERNELS or ordered:
         check(result["bit_equal"] == 1.0 and result["alive_bad"] == 0,
               f"{trace.kernel} bounce {launch.bounce}: not bit-equal to its plain version")
+    if ordered:
+        tables = trace.kernels.tlas_frame(trace.mesh).slots if trace.use_tlas else None
+        check_passes(label, trace.kernel, trace.mesh, state, live, launch.bounce, got, tables,
+                     expected)
     if trace.use_tlas:
         frame = trace.kernels.tlas_frame(trace.mesh)
         result.update(check_keys(
@@ -660,6 +724,54 @@ def check_bounce(label: str, trace: Trace, launch, seed, rows=None, stats=None) 
             frame.key_window,
         ))
     return result
+
+
+def check_passes(label: str, kernel: str, mesh, state, live: int, bounce: int | None, got,
+                 table=None, expected=None) -> None:
+    """The passes of an ordered launch of ``kernel`` on its input ``state``
+    and output ``got``, each through its kernel against its plain version on
+    the card, exactly: the packet votes (over ``table``'s rows: the slots
+    under TLAS, else ``mesh``'s instance table; a pool's stacked rows) and,
+    for the per-bounce TLAS kernel, the key pass on ``got`` against the key
+    column of the plain bounce ``expected`` (the plain key pass's
+    arithmetic, ``kernels._keys_reference``) and the launch's own. ``bounce``
+    None: a pool launch (no world vote)."""
+    import torch
+
+    from tpu_render_cluster_torch.render import kernels
+
+    tlas = kernel in TLAS_KERNELS
+    block = kernels.TLAS_BLOCK_R if tlas else kernels.BVH_BLOCK_R
+    table = kernels.instance_table(mesh) if table is None else table
+    world = tlas and bounce is not None
+    votes = kernels.packet_votes(state[1], table, live, block=block, world=world)
+    plain = kernels.packet_votes_reference(state[1], table, live, block=block, world=world)
+    differ = sum(int((a != b).sum()) for a, b in zip(votes, plain) if a is not None)
+    check(differ == 0, f"{kernel}: {differ} packet votes differ from the plain version's")
+    PASS_CHECKS["packet_octants"] += 1
+    packets = -(-state[1].shape[0] // block)
+    message = f"[{label}] {kernel}'s passes: the packet votes ({packets} packets) equal the plain version's"
+    if tlas and bounce is not None:
+        keys = kernels.entry_keys(mesh, got.origins, got.directions, got.alive, live, bounce,
+                                  total_bounces=BOUNCES)
+        differ = int((keys != expected.key).sum()) + int((keys != got.key).sum())
+        check(differ == 0, f"{kernel}: {differ} keys of the key pass differ")
+        PASS_CHECKS["mesh_entry_keys"] += 1
+        message += f"; the key pass's {keys.shape[0]} keys equal the plain version's and the launch's"
+    torch.cuda.synchronize()
+    print(message)
+
+
+def packet_rows(bucket: int, block: int, count: int, generator, device):
+    """``count`` lanes of a launch of ``bucket`` lanes drawn as whole
+    packets of ``block`` (ascending): on the octant-ordered walk a lane's
+    result depends on its packet's votes, which a subset of whole packets
+    keeps."""
+    import torch
+
+    packets = torch.randperm(bucket // block, generator=generator, device=device)
+    chosen = packets[:max(1, count // block)].sort().values
+    return (chosen[:, None] * block + torch.arange(block, device=device)).reshape(-1)
 
 
 def check_keys(label: str, kernel: str, got, expected, live: int, keyed: bool, slots, window,
@@ -671,14 +783,19 @@ def check_keys(label: str, kernel: str, got, expected, live: int, keyed: bool, s
     (``mesh_sort_keys`` with ``instance_entry_candidates`` over the
     slot-ordered world boxes ``slots``; a pool, with each lane's frame id
     ``fid``: its frame's ``per_frame`` rows of the stack, the candidate
-    frame-local). Raises on any difference."""
+    frame-local). ``instance_entry_candidates`` gives an exact entry tie to
+    the lowest slot; the octant-ordered entry walk (the reference's default)
+    to the slot its packet's table meets first: a lane may differ from the
+    twin only so, in the candidate bits alone, between two slots the ray
+    enters at the same distance (counted as ties). Raises on any other
+    difference."""
     import torch
 
     from tpu_render_cluster_torch.render import kernels
 
     differ = int((got.key != expected.key).sum())
     lanes = got.alive & (torch.arange(got.alive.shape[0], device=got.alive.device) < live)
-    twin_differ, walked = 0, int(lanes.sum()) if keyed else 0
+    twin_differ, walked, ties = 0, int(lanes.sum()) if keyed else 0, 0
     if keyed:
         if fid is None:
             candidate = kernels.instance_entry_candidates(
@@ -695,15 +812,32 @@ def check_keys(label: str, kernel: str, got, expected, live: int, keyed: bool, s
         twin = kernels.mesh_sort_keys(
             got.origins, got.directions, got.alive, window, fid=fid, candidate=candidate,
         )
-        twin_differ = int((twin != got.key)[lanes].sum())
+        mismatch = (twin != got.key) & lanes
+        if bool(mismatch.any()):
+            rows = mismatch.nonzero()[:, 0]
+            cand_bits = 0x3F << 18
+            offset = 0 if fid is None else fid[rows].long() * per_frame
+            count = slots.shape[0] if fid is None else per_frame
+            picked = [((key[rows] >> 18) & 63).long() for key in (got.key, twin)]
+            entries = [
+                kernels.slot_entries(got.origins[rows], got.directions[rows], slots[:, 13:16],
+                                     slots[:, 16:19], offset + slot)
+                for slot in picked
+            ]
+            tie = (((got.key[rows] ^ twin[rows]) & ~cand_bits) == 0) & (
+                entries[0] == entries[1]) & (entries[0] < kernels.INF) & (
+                picked[0] < count) & (picked[1] < count)
+            ties = int(tie.sum())
+        twin_differ = int(mismatch.sum()) - ties
     print(
         f"[{label}] {kernel} key column: {differ} of {got.key.shape[0]} lanes differ from the "
         f"plain version's; on the {walked} lanes that walked for a candidate, {twin_differ} "
-        f"differ from mesh_sort_keys of the launch's outputs"
+        f"differ from mesh_sort_keys of the launch's outputs but exact entry ties ({ties} "
+        f"ties, met in the packet's octant order)"
     )
     check(differ == 0, f"{kernel}: {differ} keys differ from the plain version's")
     check(twin_differ == 0, f"{kernel}: {twin_differ} live keys differ from mesh_sort_keys")
-    return {"key_lanes_differ": differ, "key_twin_lanes": walked}
+    return {"key_lanes_differ": differ, "key_twin_lanes": walked, "key_entry_ties": ties}
 
 
 def bounce_kernel_vs_plain(kernel: str, scene_name: str, device) -> tuple[float, float]:
@@ -868,9 +1002,15 @@ def pool_kernel_vs_plain(path: MainPath, device) -> dict:
             check(result["bad"] <= budget and result["alive_bad"] <= budget,
                   f"{kernel} {role} launch: past the budget of {budget} lanes")
             check(not got.alive[live:].any().item(), f"{kernel}: a lane past the live count lives")
-            if kernel in GROUP_KERNELS:
+            ordered = kernel in ORDERED_KERNELS and kernels.walks_ordered(window.ops.meshes[0].bvh)
+            if kernel in GROUP_KERNELS or ordered:
                 check(result["bit_equal"] == 1.0 and result["alive_bad"] == 0,
                       f"{kernel} {role} launch: not bit-equal to its plain version")
+            if ordered:
+                stacked = (kernels.pool_tlas_operands(window.ops).slots
+                           if kernel in TLAS_KERNELS else window.ops.instances)
+                check_passes("3", kernel, window.ops.meshes[0], launch.state, live, None, got,
+                             stacked)
             if kernel in TLAS_KERNELS:
                 pool_tlas = kernels.pool_tlas_operands(window.ops)
                 result.update(check_keys(
@@ -1100,6 +1240,7 @@ def drive_main_path(path: MainPath, device) -> dict:
             {name: launches[name] for name in path.launched} if path.bounce_scan
             else launches[path.kernel]
         ),
+        "pass_launches": {name: launches[name] for name in PASSES},
         "images": images, "windows": windows, "frame_profile": frame_profile,
     }
 
@@ -1226,8 +1367,9 @@ def wavefront_frame_checks(run: dict, reference_images, device) -> dict:
             check(within >= 0.995, f"{run['label']}: PNG disagrees with trace_fused's ({within})")
     generator = torch.Generator(device=device).manual_seed(frame)
     work, plain_ms, errors = [], [], []
+    block = 256 if trace.mesh is None or trace.use_tlas else trace.kernels.BVH_BLOCK_R
     for launch in launches:
-        rows = torch.randperm(launch.bucket, generator=generator, device=device)[:SUBSET].sort().values
+        rows = packet_rows(launch.bucket, block, SUBSET, generator, device)
         stats: dict = {}
         result = check_bounce("4", trace, launch, rays[2], rows=rows, stats=stats)
         plain_ms.append(result["plain_ms"])
@@ -1374,18 +1516,12 @@ def megakernel_record(run: dict, device, agree: float, max_abs_err: float, build
     batches = [cuda_ms(kernel_call, 20) for _ in range(10)]
     kernel_ms = statistics.median(batches)
     wrapper_host_ms = host_ms(kernel_call, 20)
-    call_profile = profiled(
-        lambda: [kernel_call() for _ in range(20)], kernel, f"{kernel} calls"
-    )
-    kernel_only_ms = None
-    if call_profile is not None:
-        kernel_only_ms = call_profile["kernel_ms"] / call_profile["launched"]
-        print(
-            f"[6] {kernel}, 20 wrapper calls under the profiler: the kernel alone "
-            f"{kernel_only_ms:.4f} ms per call; all device work "
-            f"{call_profile['device_ms'] / 20:.4f} ms per call "
-            f"({call_profile['kernels'] / 20:.1f} device operations per call)"
-        )
+    # Windows of 5 calls, profiled up to six times: a long profile of 20
+    # calls missed launches (PRs 7-10 read "not measured" for row 3 TLAS).
+    kernel_only_ms = alone_ms(kernel_call, kernel, f"{kernel} calls")
+    if kernel_only_ms is not None:
+        print(f"[6] {kernel}, windows of 5 wrapper calls under the profiler: the kernel alone "
+              f"{kernel_only_ms:.4f} ms per call")
     n_rays = rays[0].shape[0]
     least = bound(stats, n_rays * MEGAKERNEL_RAY_BYTES)
     print(
@@ -1592,10 +1728,10 @@ def bounce_occupancy(mesh, group: int) -> dict:
 
     triangles, bounds, _ = kernels._bvh_operands(mesh.bvh)
     shared = ctypes.c_int()
-    query = occupancy_entry("mesh_bounce_tlas", [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    query = occupancy_entry("mesh_bounce_tlas", [ctypes.c_int] * 6 + [ctypes.c_void_p])
     blocks = query(group, mesh.instances.translation.shape[0], triangles.shape[0],
                    bounds.shape[0], kernels.tlas_frame(mesh).node_bounds.shape[0],
-                   ctypes.addressof(shared))
+                   int(kernels.walks_ordered(mesh.bvh)), ctypes.addressof(shared))
     check(blocks > 0, f"mesh_bounce_tlas_occupancy at G {group} failed ({blocks})")
     return {"blocks_per_sm": blocks, "shared_bytes": shared.value}
 
@@ -1612,9 +1748,10 @@ def pool_occupancy(ops, group: int) -> dict:
     triangles, bounds, _ = kernels._bvh_operands(ops.meshes[0].bvh)
     tlas_nodes = kernels.pool_tlas_operands(ops).links.shape[0] // frames
     shared, staged = ctypes.c_int(), ctypes.c_int()
-    query = occupancy_entry("pool_mesh_bounce_tlas", [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
+    query = occupancy_entry("pool_mesh_bounce_tlas", [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
     blocks = query(group, ops.spheres.per_frame, frames, ops.per_frame, triangles.shape[0],
-                   bounds.shape[0], tlas_nodes, ctypes.addressof(shared), ctypes.addressof(staged))
+                   bounds.shape[0], tlas_nodes, int(kernels.walks_ordered(ops.meshes[0].bvh)),
+                   ctypes.addressof(shared), ctypes.addressof(staged))
     check(blocks > 0, f"pool_mesh_bounce_tlas_occupancy at G {group} failed ({blocks})")
     return {"blocks_per_sm": blocks, "shared_bytes": shared.value, "staged_frames": staged.value}
 
@@ -2517,8 +2654,9 @@ def drive_tile_path(path: TilePath, runs: dict, device) -> dict:
         else:  # the masked region loop: one per tile and bounce
             expected = len(units) * BOUNCES
         check(path.hint or expected >= len(units), f"{label}: {expected} launches for {len(units)} units")
+        launched = kernels.launch_names(path.kernel)
         for name, count in launches.items():
-            want = expected if name == path.kernel else 0
+            want = expected if name in launched else 0
             check(count == want, f"{label}: {name} ran {count} times, not {want}")
         if path.kernel == "trace_fused_lanes":
             check(not log and not pool_log, f"{label}: a wavefront or pool launch")
@@ -2770,6 +2908,235 @@ def lane_kernel_record(run: dict, device, max_abs_err: float, build_s: float) ->
     }
 
 
+# -- the octant-ordered walk's passes and its A/B against the canonical order -
+
+
+@contextlib.contextmanager
+def walk_order(ordered: bool):
+    """The wrappers' walk order for the block: ordered, as every scene's BVH
+    carries octant tables (the default), or the canonical order, as for a
+    BVH without them (``kernels.walks_ordered`` answers False meanwhile)."""
+    from tpu_render_cluster_torch.render import kernels
+
+    saved = kernels.walks_ordered
+    if not ordered:
+        kernels.walks_ordered = lambda bvh: False
+    try:
+        yield
+    finally:
+        kernels.walks_ordered = saved
+
+
+def deep_bounce_launch(kernel: str, device):
+    """(trace, rays, launch) of the bounce-0 launch of frame 1 of the deep
+    wavefront path through ``kernel`` (its whole width, 2,097,152 lanes)."""
+    scene = PATHS[2].scene
+    frame = job_frames(PATHS[2])[1][0]
+    trace = Trace(kernel, scene, frame, device)
+    rays = frame_rays(scene, frame, device)
+    launches: list = []
+    trace.run(*rays, BOUNCES, on_launch=launches.append)
+    return trace, rays, launches[0]
+
+
+def pass_records(runs: dict, device, build_s: float) -> list[dict]:
+    """Phases 5-6 for the ordered walk's two passes at the deep wavefront's
+    bounce-0 launch (row 4 TLAS's widest): the vote over its 8,192 packets
+    of 256 lanes and 48 slots, and the key pass on the launch's outputs;
+    each wrapper on CUDA events, alone under the profiler, its plain version
+    on the card, and its bound from the work these inputs need."""
+    import torch
+
+    from tpu_render_cluster_torch.render import kernels
+
+    trace, rays, launch = deep_bounce_launch("mesh_bounce_tlas", device)
+    state, live = launch.state, launch.live
+    slots = kernels.tlas_frame(trace.mesh).slots
+    lanes, k = state[0].shape[0], slots.shape[0]
+    packets = -(-lanes // kernels.TLAS_BLOCK_R)
+    out = trace.bounce(state, live, rays[2], launch.bounce)
+    vote = lambda: kernels.packet_votes(state[1], slots, live, block=kernels.TLAS_BLOCK_R)  # noqa: E731
+    plain_vote = lambda: kernels.packet_votes_reference(  # noqa: E731
+        state[1], slots, live, block=kernels.TLAS_BLOCK_R
+    )
+    key = lambda: kernels.entry_keys(  # noqa: E731
+        trace.mesh, out.origins, out.directions, out.alive, live, launch.bounce,
+        total_bounces=BOUNCES,
+    )
+    stats: dict = {}
+    plain_key = lambda: kernels.entry_keys_reference(  # noqa: E731
+        trace.mesh, out.origins, out.directions, out.alive, live, launch.bounce,
+        total_bounces=BOUNCES, stats=stats,
+    )
+    records = []
+    for name, call, plain, ops, moved in (
+        ("packet_octants", vote, plain_vote,
+         lambda: lanes * (k * OPS_VOTE_ROW + OPS_VOTE_WORLD),
+         lambda: lanes * VOTE_RAY_BYTES + packets * (k + 1)),
+        ("mesh_entry_keys", key, plain_key,
+         lambda: OPS_SLAB * stats["entry_tests"] + lanes * OPS_VOTE_WORLD,
+         lambda: lanes * KEY_PASS_RAY_BYTES),
+    ):
+        cuda_ms(call, 2)
+        ms = statistics.median(cuda_ms(call, 5) for _ in range(5))
+        plain_ms = cuda_ms(plain, 1)
+        stats.clear()  # the work of one plain call, counted below
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in pairs if a is not None)
+        check(err == 0, f"{name}: differs from its plain version at the deep bounce-0 launch")
+        alone = alone_ms(call, name, f"{name} at the deep bounce-0 launch")
+        ops_ms = ops() / FP32_PEAK_FLOPS * 1e3
+        bytes_ms = moved() / MEMORY_BYTES_PER_S * 1e3
+        launched = sum(run.get("pass_launches", {}).get(name, 0) for run in runs.values())
+        print(
+            f"[5] {name} at {lanes} lanes ({packets} packets, {k} slots): {ms:.4f} ms per call, "
+            f"alone {alone}; plain version {plain_ms:.3f} ms; bound {max(ops_ms, bytes_ms):.4f} "
+            f"ms by {'operations' if ops_ms >= bytes_ms else 'bytes'} ({ops() / 1e9:.3f} GFLOP, "
+            f"{moved() / 1e6:.2f} MB); {launched} launches on the main paths, "
+            f"{PASS_CHECKS[name]} held to the plain version in phases 3-4"
+        )
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"tpu_render_cluster_torch/render/csrc/{name}.cu",
+            "replaces": REPLACES[name],
+            "launches": launched,
+            "max_abs_err": float(err),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None,
+            "kernel_only_ms": alone,
+            "rays": lanes,
+            "checked_launches": PASS_CHECKS[name],
+            "tolerance": TOLERANCE[name],
+            "build_s": build_s,
+        })
+    return records
+
+
+def backend_fps(path: MainPath, frames: int, device) -> dict:
+    """``frames`` frames of a main path's job through a fresh backend (a
+    pool path with the queue's hint before each: one window), timed on the
+    host: frames/s and the median render ms."""
+    from tpu_render_cluster_torch.worker.backends.torch_raytrace import TorchRaytraceBackend
+
+    job, all_frames = job_frames(path)
+    chosen = all_frames[:frames]
+    pool = path.kernel in POOLS
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ab-") as base:
+        backend = TorchRaytraceBackend(
+            width=WIDTH, height=HEIGHT, samples=SAMPLES, max_bounces=BOUNCES,
+            base_directory=base, wavefront=path.wavefront, raypool=path.raypool,
+            use_tlas=path.use_tlas,
+        )
+        backend.warm(job.job_name)
+        import torch
+
+        torch.cuda.synchronize()
+        timings = []
+        started = time.perf_counter()
+        for index, frame in enumerate(chosen):
+            if pool:
+                backend.note_upcoming_frames(job, tuple(chosen[index + 1:]))
+            timings.append(asyncio.run(backend.render_frame(job, frame)))
+        elapsed = time.perf_counter() - started
+    render = [(t.finished_rendering_at - t.started_rendering_at) * 1e3 for t in timings]
+    return {"fps": len(chosen) / elapsed, "render_ms": statistics.median(render)}
+
+
+def octant_ab(pool_inputs: dict, device) -> dict:
+    """Phase 7: the octant-ordered walk against the canonical order in this
+    one run, in turns (ordered, canonical, canonical, ordered): each of the
+    six kernels of rows 3, 4 and 6 alone under the profiler (windows of 5
+    calls) and its wrapper on CUDA events at the widths of PERF.md section
+    6 (rows 3: frame 1 of the 02 path, 2,097,152 rays; rows 4: bounce 0 of
+    frame 1 of the deep wavefront; rows 6: the mixed launch of the pool
+    path's first window, 65,536 lanes), with the passes' share of the
+    ordered wrapper's time; and frames/s of the 02 path, the deep wavefront
+    and the deep pool, 4 frames each a turn."""
+    from tpu_render_cluster_torch.render import kernels
+
+    calls = {}
+    mesh_path = PATHS[1]
+    frame = job_frames(mesh_path)[1][0]
+    for kernel in ("trace_fused_mesh_tlas", "trace_fused_mesh"):
+        trace = Trace(kernel, mesh_path.scene, frame, device)
+        rays = frame_rays(mesh_path.scene, frame, device)
+        calls[kernel] = lambda trace=trace, rays=rays: trace.run(*rays, BOUNCES)
+    occupancy = {}
+    for kernel in ("mesh_bounce_tlas", "mesh_bounce"):
+        trace, rays, launch = deep_bounce_launch(kernel, device)
+        calls[kernel] = lambda trace=trace, launch=launch, seed=rays[2]: trace.bounce(
+            launch.state, launch.live, seed, launch.bounce
+        )
+        if kernel == "mesh_bounce_tlas":
+            group = kernels.bounce_group(launch.bucket, kernels.thread_slots(device.index or 0))
+            for ordered in (True, False):
+                with walk_order(ordered):
+                    occupancy[f"{kernel} {'ordered' if ordered else 'canonical'}"] = {
+                        "group": group, **bounce_occupancy(trace.mesh, group)}
+    for kernel in ("pool_mesh_bounce_tlas", "pool_mesh_bounce"):
+        first = pool_inputs[kernel]
+        window = first["window"]
+        launch = first["launches"][first["picked"]["mixed"]["index"]]
+        wrapper, _ = pool_functions(kernel)
+        calls[kernel] = lambda wrapper=wrapper, ops=window.ops, launch=launch: wrapper(
+            ops, *launch.state, int(launch.live), total_bounces=BOUNCES
+        )
+        if kernel == "pool_mesh_bounce_tlas":
+            for ordered in (True, False):
+                with walk_order(ordered):
+                    occupancy[f"{kernel} {'ordered' if ordered else 'canonical'}"] = {
+                        "group": kernels.POOL_GROUP,
+                        **pool_occupancy(window.ops, kernels.POOL_GROUP)}
+    print(f"[7] resident blocks per SM and staged bytes, ordered and canonical: "
+          f"{json.dumps(occupancy)}")
+    result = {}
+    for kernel, call in calls.items():
+        turns = []
+        for ordered in (True, False, False, True):
+            with walk_order(ordered):
+                cuda_ms(call, 2)
+                ms = statistics.median(cuda_ms(call, 5) for _ in range(3))
+                names = kernels.launch_names(kernel, ordered)
+                profile = profiled(lambda: [call() for _ in range(5)], names,
+                                   f"[7] {kernel} {'ordered' if ordered else 'canonical'}",
+                                   tries=6)
+            alone = None if profile is None else profile["per_kernel"][kernel] / 5
+            passes = None if profile is None or not ordered else {
+                name: profile["per_kernel"][name] / 5 for name in names[1:]
+            }
+            turns.append({"ordered": ordered, "ms": ms, "alone_ms": alone, "passes_ms": passes})
+        pick = lambda ordered, key: [t[key] for t in turns if t["ordered"] == ordered]  # noqa: E731
+        mean = lambda xs: None if None in xs else statistics.mean(xs)  # noqa: E731
+        result[kernel] = {
+            "ordered_ms": mean(pick(True, "ms")), "canonical_ms": mean(pick(False, "ms")),
+            "ordered_alone_ms": mean(pick(True, "alone_ms")),
+            "canonical_alone_ms": mean(pick(False, "alone_ms")),
+            "passes_alone_ms": [t["passes_ms"] for t in turns if t["ordered"]],
+            "turns": turns,
+        }
+        print(f"[7] {kernel}, ordered against canonical in turns: {json.dumps(result[kernel])}")
+    fps = {}
+    for path in (PATHS[1], PATHS[2], PATHS[4]):
+        turns = []
+        for ordered in (True, False, False, True):
+            with walk_order(ordered):
+                turns.append({"ordered": ordered, **backend_fps(path, 4, device)})
+        fps[path.kernel] = {
+            "ordered_fps": statistics.mean(t["fps"] for t in turns if t["ordered"]),
+            "canonical_fps": statistics.mean(t["fps"] for t in turns if not t["ordered"]),
+            "turns": turns,
+        }
+        print(f"[7] {path.scene} ({path.kernel}) frames/s, ordered against canonical, 4 frames a "
+              f"turn: {json.dumps(fps[path.kernel])}")
+    return {"kernels": result, "frames_per_s": fps, "occupancy": occupancy}
+
+
 def main() -> int:
     import torch
 
@@ -2815,11 +3182,13 @@ def main() -> int:
     agree: dict[str, float] = {}
     max_abs_err: dict[str, float] = {}
     pool_checks = {}
+    pool_inputs = {}  # the first windows of the pool paths, for phase 7
     scan_checks = {}
     for path in PATHS:
         started = time.perf_counter()
         if path.kernel in POOLS:
             pool_checks[path.kernel] = pool_kernel_vs_plain(path, device)
+            pool_inputs[path.kernel] = pool_checks[path.kernel]
         elif path.bounce_scan:
             scan_checks[path.kernel] = scan_kernels_vs_plain(path, device)
         else:
@@ -2882,6 +3251,16 @@ def main() -> int:
         })
         print(f"[5] {run['label']} tile path phases 4-6 in {time.perf_counter() - started:.1f} s")
     print(f"[5] tile paths: {json.dumps(tile_summary)}")
+    record["kernels"] += pass_records(runs, device, build_s)
+
+    # -- 7. the octant-ordered walk against the canonical order -------------
+    started = time.perf_counter()
+    ab = octant_ab(pool_inputs, device)
+    for entry in record["kernels"]:
+        if entry["name"] in ab["kernels"]:
+            entry["octant_ab"] = ab["kernels"][entry["name"]]
+    print(f"[7] octant A/B in {time.perf_counter() - started:.1f} s: "
+          f"{json.dumps(ab['frames_per_s'])}")
 
     print(f"[5] chip_smoke phases 1-6 in {time.perf_counter() - script_started:.1f} s")
     print(json.dumps(record))

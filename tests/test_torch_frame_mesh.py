@@ -61,6 +61,8 @@ def test_mesh_frames_match_reference(reference_renderer):
             "mesh_bounce_tlas": 0, "mesh_bounce_tlas_reference": 0,
             "pool_mesh_bounce_tlas": 0, "pool_mesh_bounce_tlas_reference": 0,
             "trace_fused_lanes": 0, "trace_fused_lanes_reference": 0,
+            "packet_octants": 0, "packet_octants_reference": 0,
+            "mesh_entry_keys": 0, "mesh_entry_keys_reference": 0,
         }
         assert_images_match(got.numpy(), expected)
         assert got.numpy().std() > 5.0

@@ -135,6 +135,8 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
         "mesh_bounce_tlas": 0, "mesh_bounce_tlas_reference": 0,
         "pool_mesh_bounce_tlas": 0, "pool_mesh_bounce_tlas_reference": 0,
         "trace_fused_lanes": 0, "trace_fused_lanes_reference": 0,
+        "packet_octants": 0, "packet_octants_reference": 0,
+        "mesh_entry_keys": 0, "mesh_entry_keys_reference": 0,
     }
 
 

@@ -9,8 +9,9 @@ full-precision node tables. Inputs travel across as numpy arrays.
 Tolerances, per ray over its three channels, rtol = atol = 1e-4:
 - 1 bounce: every ray, except an edge-tie budget of max(1, round(0.001 R))
   rays: a ray through the shared edge of two triangles may take either
-  face's normal, and the reference walks the octant-ordered node tables
-  where the port walks the canonical order.
+  face's normal. Both sides walk the octant-ordered node tables of their
+  packets' votes (the scene's sah BVH carries them), so an exact tie goes
+  the same way on both; the budget stays for the rounding at an edge.
 - 4 bounces: at least 99.9% of rays (a path tracer is chaotic).
 
 The deep tree (03_physics-2-mesh's icosphere, 39 nodes x 48 instances, past
@@ -205,6 +206,8 @@ def test_wrapper_routes_cpu_tensors_to_the_plain_version():
         "mesh_bounce_tlas": 0, "mesh_bounce_tlas_reference": 0,
         "pool_mesh_bounce_tlas": 0, "pool_mesh_bounce_tlas_reference": 0,
         "trace_fused_lanes": 0, "trace_fused_lanes_reference": 0,
+        "packet_octants": 0, "packet_octants_reference": 0,
+        "mesh_entry_keys": 0, "mesh_entry_keys_reference": 0,
     }
 
 
@@ -284,9 +287,10 @@ def test_build_digest_covers_shared_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", csrc / "build")
     assert _build.sources() == [
         "intersect_instances", "intersect_mesh", "intersect_spheres", "mesh_bounce",
-        "mesh_bounce_tlas", "occluded_instances", "occluded_mesh", "occluded_spheres",
-        "pool_mesh_bounce", "pool_mesh_bounce_tlas", "pool_sphere_bounce", "sphere_bounce",
-        "trace_fused", "trace_fused_lanes", "trace_fused_mesh", "trace_fused_mesh_tlas",
+        "mesh_bounce_tlas", "mesh_entry_keys", "occluded_instances", "occluded_mesh",
+        "occluded_spheres", "packet_octants", "pool_mesh_bounce", "pool_mesh_bounce_tlas",
+        "pool_sphere_bounce", "sphere_bounce", "trace_fused", "trace_fused_lanes",
+        "trace_fused_mesh", "trace_fused_mesh_tlas",
     ]
     before = {name: _build.library_path(name) for name in _build.sources()}
     header = csrc / "path_common.cuh"

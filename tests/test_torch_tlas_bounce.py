@@ -3,14 +3,16 @@ and the port's TLAS tiers against its flat ones.
 
 The reference runs with ``TRC_PALLAS=1`` (its kernels in interpret mode).
 Its TLAS kernels walk the octant-ordered node tables when the BVH carries
-them; the port walks the canonical order, so the reference's kernel-level
-calls here get the same BVH without its octant tables (its canonical
-variant): per ray the two orders change no result but exact ties, and a
-tie between two slots' entry distances would change the key's candidate.
-Fields, as tests/test_tlas.py builds them over the deep scene's icosphere
-BVH: random-12, random-48, overlapping-8 (eight equal instances) and a
-2-instance field walked with TLAS leaves of one instance; 256 rays aimed
-down into the field. Inputs are made with numpy from seeds.
+them (its default), and so does the port: each kernel-level case runs
+both ways, on the BVH with its octant tables ("ordered") and on the same
+BVH without them (the canonical variant of both sides). Per ray the two
+orders change no result but exact ties; a tie between two slots' entry
+distances (the overlapping field's) changes the key's candidate, which each
+side then picks by the same order. Fields, as tests/test_tlas.py builds
+them over the deep scene's icosphere BVH: random-12, random-48,
+overlapping-8 (eight equal instances) and a 2-instance field walked with
+TLAS leaves of one instance; 256 rays aimed down into the field. Inputs are
+made with numpy from seeds.
 
 Tolerances:
 - a bounce, port against reference: the five state outputs within atol
@@ -47,6 +49,7 @@ from tests.test_torch_raypool import (
     _port_ops,
     _reference_ops,
     _reference_pool,
+    _window_inputs,
 )
 from tpu_render_cluster.render import integrator as ref_integrator
 from tpu_render_cluster.render import mesh as ref_mesh
@@ -77,8 +80,9 @@ def field_leaf(monkeypatch, request):
 
 
 @functools.lru_cache(maxsize=None)
-def _field(field: str):
-    """(reference MeshSet in the canonical node order, port MeshSet)."""
+def _field(field: str, ordered: bool = False):
+    """(reference MeshSet, port MeshSet): the BVH without its octant tables
+    (the canonical node order), or with them (``ordered``)."""
     if field == "overlapping-8":
         k = 8
         rotation = np.tile(np.eye(3, dtype=np.float32), (k, 1, 1))
@@ -94,7 +98,9 @@ def _field(field: str):
         translation = rng.uniform(-4, 4, (k, 3)).astype(np.float32)
         albedo = rng.uniform(0.2, 0.9, (k, 3)).astype(np.float32)
         scale = rng.uniform(0.4, 1.2, k).astype(np.float32)
-    bvh = ref_mesh.cached_mesh_bvh("icosphere", "sah", 4)._replace(octant=None)
+    bvh = ref_mesh.cached_mesh_bvh("icosphere", "sah", 4)
+    if not ordered:
+        bvh = bvh._replace(octant=None)
     mesh_set = ref_mesh.MeshSet(
         bvh=bvh,
         instances=ref_mesh.MeshInstances(
@@ -125,8 +131,8 @@ def _state(seed: int = 29):
     return origins, directions.astype(np.float32)
 
 
-def _reference_bounce(field: str, bounce: int):
-    mesh_set, _ = _field(field)
+def _reference_bounce(field: str, bounce: int, ordered: bool = False):
+    mesh_set, _ = _field(field, ordered)
     origins, directions = _state()
     out = ref_kernels.mesh_bounce_pallas(
         _scene()[0], mesh_set, jnp.asarray(origins), jnp.asarray(directions),
@@ -136,8 +142,8 @@ def _reference_bounce(field: str, bounce: int):
     return [np.asarray(a) for a in out]
 
 
-def _port_bounce(field: str, bounce: int, use_tlas: bool):
-    _, mesh = _field(field)
+def _port_bounce(field: str, bounce: int, use_tlas: bool, ordered: bool = False):
+    _, mesh = _field(field, ordered)
     origins, directions = (torch.from_numpy(a) for a in _state())
     return kernels.mesh_bounce(
         _scene()[1], mesh, origins, directions, torch.ones((RAYS, 3)),
@@ -151,12 +157,13 @@ def _assert_keys(got: np.ndarray, expected: np.ndarray, alive: np.ndarray) -> No
     np.testing.assert_array_equal(got[~alive] & ~CANDIDATE_BITS, expected[~alive] & ~CANDIDATE_BITS)
 
 
+@pytest.mark.parametrize("ordered", [False, True], ids=["canonical", "ordered"])
 @pytest.mark.parametrize("field_leaf", FIELDS, indirect=True)
-def test_tlas_bounce_matches_the_reference_and_the_flat_bounce(pallas_on, field_leaf):
+def test_tlas_bounce_matches_the_reference_and_the_flat_bounce(pallas_on, field_leaf, ordered):
     field = field_leaf
-    expected = _reference_bounce(field, 0)
+    expected = _reference_bounce(field, 0, ordered)
     kernels.reset_counts()
-    got = _port_bounce(field, 0, True)
+    got = _port_bounce(field, 0, True, ordered)
     assert kernels.counts["mesh_bounce_tlas_reference"] == 1
     labels = ("contribution", "origins", "directions", "throughput", "alive")
     for label, have, want in zip(labels, got[:5], expected[:5]):
@@ -168,7 +175,9 @@ def test_tlas_bounce_matches_the_reference_and_the_flat_bounce(pallas_on, field_
     k = _field(field)[1].instances.translation.shape[0]
     candidate = (got.key >> 18) & 63
     assert (candidate[~got.alive] == k).all() and (candidate <= k).all()
-    # The twin outside the kernel: the same key on the live lanes.
+    # The twin outside the kernel (the lowest slot wins an entry tie): the
+    # same key on the live lanes, but the ties the ordered walk meets in
+    # another slot order.
     tlas = kernels.tlas_frame(_field(field)[1])
     twin = kernels.mesh_sort_keys(
         got.origins, got.directions, got.alive, tlas.key_window,
@@ -176,9 +185,10 @@ def test_tlas_bounce_matches_the_reference_and_the_flat_bounce(pallas_on, field_
             got.origins, got.directions, tlas.slots[:, 13:16], tlas.slots[:, 16:19]
         ),
     )
-    assert torch.equal(twin[got.alive], got.key[got.alive])
+    if not ordered or field != "overlapping-8":
+        assert torch.equal(twin[got.alive], got.key[got.alive])
     # The port's flat bounce: the same state to the bit, and no key.
-    flat = _port_bounce(field, 0, False)
+    flat = _port_bounce(field, 0, False, ordered)
     assert flat.key is None
     for have, want in zip(got[:5], flat):
         assert torch.equal(have, want)
@@ -210,17 +220,25 @@ def test_tlas_plain_version_counts_its_walks():
     assert stats["instance_walks"] <= stats["world_aabb_tests"]
 
 
-def test_pool_tlas_bounce_matches_the_reference(pallas_on):
+@pytest.mark.parametrize("ordered", [False, True], ids=["canonical", "ordered"])
+def test_pool_tlas_bounce_matches_the_reference(pallas_on, ordered):
     """One row 6 launch on a mixed pool state (two frames at every bounce,
-    dead lanes inside the live prefix and a dead tail), with its key."""
+    dead lanes inside the live prefix and a dead tail), with its key; the
+    ordered pool orders its BLAS walks alone, as the reference's."""
     frames = (30, 31)
     state, live = _mixed_state(DEEP, frames)
-    ref_ops = _reference_ops(DEEP, frames)._replace(octant=None)
+    ref_ops = _reference_ops(DEEP, frames)
+    ops = _port_ops(DEEP, frames)
+    if not ordered:
+        ref_ops = ref_ops._replace(octant=None)
+        _, _, port_scenes, port_meshes = _window_inputs(DEEP, frames)
+        ops = kernels.pool_mesh_operands(
+            port_scenes, [m._replace(bvh=m.bvh._replace(octant=None)) for m in port_meshes]
+        )
     args = [jnp.asarray(a) for a in state] + [jnp.int32(live)]
     expected = [np.asarray(a) for a in ref_kernels.pool_mesh_bounce(
         ref_ops, *args, total_bounces=TOTAL_BOUNCES, use_tlas=True, quant=0
     )]
-    ops = _port_ops(DEEP, frames)
     kernels.reset_counts()
     got = kernels.pool_mesh_bounce(
         ops, *(torch.from_numpy(a) for a in state), live, total_bounces=TOTAL_BOUNCES

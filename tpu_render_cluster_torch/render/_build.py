@@ -10,6 +10,11 @@ library is never loaded. The build directory is listed in
 ``python -m tpu_render_cluster_torch.render._build [CSRC]`` builds every
 kernel of ``CSRC`` (default: this package's ``csrc/``) into ``CSRC/build``
 and prints what ptxas reports of each: registers, stack, spills.
+``python -m tpu_render_cluster_torch.render._build --compare OTHER`` builds
+this package's kernels and those of the ``csrc/`` directory ``OTHER`` (for
+example an older checkout's) with the same flags, and says for each kernel
+of both whether ptxas reported the same, line for line (the anonymous
+namespaces' per-file ids aside).
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3``, no ``--use_fast_math``
 (the kernels keep IEEE sqrt, division, sin and cos for parity with the
@@ -23,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -129,8 +135,37 @@ def resource_lines(log: str) -> list[str]:
     return [line.strip() for line in log.splitlines() if any(word in line for word in keep)]
 
 
+def comparable_report(log: str) -> list[str]:
+    """``resource_lines`` with each anonymous namespace's per-file id (part
+    of the kernels' mangled names) taken out."""
+    return [re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", line) for line in resource_lines(log)]
+
+
+def compare(other: Path) -> int:
+    """Build this package's kernels and those of ``other``, each afresh into
+    ``build/compare`` beside its sources (so ptxas reports on every one),
+    and print, per kernel of both, whether ptxas reported the same."""
+    global CSRC_DIR, BUILD_DIR
+    reports = []
+    for csrc in (CSRC_DIR, other.resolve()):
+        CSRC_DIR, BUILD_DIR = csrc, csrc / "build" / "compare"
+        shutil.rmtree(BUILD_DIR, ignore_errors=True)
+        build_logs.clear()
+        build()
+        reports.append({name: comparable_report(log) for name, log in build_logs.items()})
+    ours, theirs = reports
+    for name in sorted(set(ours) | set(theirs)):
+        if name not in ours or name not in theirs:
+            print(f"  {name}: only in {'this package' if name in ours else other}")
+        else:
+            print(f"  {name}: ptxas reports {'equal' if ours[name] == theirs[name] else 'differ'}")
+    return 0
+
+
 def main(argv: list[str]) -> int:
     global CSRC_DIR, BUILD_DIR
+    if argv[:1] == ["--compare"]:
+        return compare(Path(argv[1]))
     if argv:
         CSRC_DIR = Path(argv[0]).resolve()
         BUILD_DIR = CSRC_DIR / "build"

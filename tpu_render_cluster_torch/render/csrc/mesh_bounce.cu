@@ -32,7 +32,14 @@
 // (mesh_common.cuh), the megakernel's loop body. Instances are walked in
 // table order: the reference's near-first instance order changes which
 // instances a ray block culls, never a ray's nearest hit, ties aside.
-// Built with --fmad=false.
+//
+// Walk order: on a BVH with octant tables (every sah build; the
+// reference's default) the node tables are its eight octant orders stacked,
+// [8N] rows, and each ray's BLAS walks take the table of its packet (1024
+// lanes of the launch, BVH_BLOCK_R): the packet's object-space octant per
+// instance, voted by the pre-pass packet_octants.cu over all its lanes
+// (mesh::Octants); the shadow walks take the sun's. Built with
+// --fmad=false.
 
 #include "mesh_common.cuh"
 
@@ -40,14 +47,20 @@ namespace {
 
 using path::float3v;
 constexpr int kThreads = 256;
+// The reference's packet of the flat variants (BVH_BLOCK_R).
+constexpr int kPacket = 1024;
 
+// kOrdered: the octant-ordered walk, `slot_votes` [P, K] the packets'
+// votes (nullptr on a one-node BVH), the node tables' rows n_node_rows.
+template <bool kOrdered>
 __global__ void __launch_bounds__(kThreads)
 mesh_bounce_kernel(const float* __restrict__ origins, const float* __restrict__ directions,
                    const float* __restrict__ throughput, const uint8_t* __restrict__ alive,
                    const int* __restrict__ lanes, int n_rays, const int* __restrict__ live_count,
                    const float4* __restrict__ spheres, int n_spheres,
                    const float* __restrict__ params, mesh::MeshTables tables, int n_tri_rows,
-                   bool staged, uint32_t seed, int bounce, int total_bounces,
+                   int n_node_rows, const uint8_t* __restrict__ slot_votes, bool staged,
+                   uint32_t seed, int bounce, int total_bounces,
                    float* __restrict__ contribution, float* __restrict__ origins_out,
                    float* __restrict__ directions_out, float* __restrict__ throughput_out,
                    uint8_t* __restrict__ alive_out) {
@@ -67,14 +80,24 @@ mesh_bounce_kernel(const float* __restrict__ origins, const float* __restrict__ 
 
   // Uniform per block: a block wholly past the live count skips the tables.
   if (static_cast<int64_t>(blockIdx.x) * blockDim.x < live) {
-    if (staged) mesh::stage_tables(tables, staging, n_tri_rows);
+    if (staged) mesh::stage_tables(tables, staging, n_tri_rows, n_node_rows);
     path::load_scene(scene, spheres, n_spheres, params);  // ends with __syncthreads()
     if (is_alive && ray < live) {
       const uint32_t counter_stride = 2u * static_cast<uint32_t>(total_bounces) + 2u;
-      const mesh::FlatInstances instances = {0, tables.n_instances};
-      is_alive = mesh::bounce(scene, 0, n_spheres, tables, instances,
-                              static_cast<uint32_t>(lanes[ray]), bounce, counter_stride, seed,
-                              o, d, thr, rad);
+      if constexpr (kOrdered) {
+        const uint8_t* votes =
+            slot_votes == nullptr ? nullptr : slot_votes + (ray / kPacket) * tables.n_instances;
+        const mesh::FlatInstances<mesh::Octants> instances = {0, tables.n_instances,
+                                                              {votes, 0, 0}};
+        is_alive = mesh::bounce(scene, 0, n_spheres, tables, instances,
+                                static_cast<uint32_t>(lanes[ray]), bounce, counter_stride, seed,
+                                o, d, thr, rad);
+      } else {
+        const mesh::FlatInstances<> instances = {0, tables.n_instances};
+        is_alive = mesh::bounce(scene, 0, n_spheres, tables, instances,
+                                static_cast<uint32_t>(lanes[ray]), bounce, counter_stride, seed,
+                                o, d, thr, rad);
+      }
     }
   }
   if (ray >= n_rays) return;
@@ -87,13 +110,44 @@ mesh_bounce_kernel(const float* __restrict__ origins, const float* __restrict__ 
 
 }  // namespace
 
+namespace {
+
+template <bool kOrdered>
+int launch(const float* origins, const float* directions, const float* throughput,
+           const unsigned char* alive, const int* lanes, int n_rays, const int* live_count,
+           const float* spheres, int n_spheres, const float* params,
+           const mesh::MeshTables& tables, int n_tri_rows, int n_node_rows,
+           const unsigned char* slot_votes, int seed, int bounce, int total_bounces,
+           float* contribution, float* origins_out, float* directions_out,
+           float* throughput_out, unsigned char* alive_out, cudaStream_t stream) {
+  const auto kernel = mesh_bounce_kernel<kOrdered>;
+  size_t shared_bytes;
+  bool staged;
+  const cudaError_t status = path::staging_for(
+      kernel, mesh::table_bytes(n_tri_rows, n_node_rows, tables.n_instances), &shared_bytes,
+      &staged);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  const int blocks = (n_rays + kThreads - 1) / kThreads;
+  kernel<<<blocks, kThreads, shared_bytes, stream>>>(
+      origins, directions, throughput, alive, lanes, n_rays, live_count,
+      reinterpret_cast<const float4*>(spheres), n_spheres, params, tables, n_tri_rows,
+      n_node_rows, slot_votes, staged, static_cast<uint32_t>(seed), bounce, total_bounces,
+      contribution, origins_out, directions_out, throughput_out, alive_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // Plain C entry for ctypes. Launches on `stream`, does not synchronise, and
 // returns cudaGetLastError() so the caller sees a refused launch at once.
 // State as render/kernels.py passes it: origins, directions, throughput
 // [n_rays, 3] float32, alive [n_rays] bytes, lanes [n_rays] int32, and
 // live_count, one int32 in device memory. Tables as for
-// trace_fused_mesh_launch. Outputs are [n_rays, 3] float32 and [n_rays]
-// bytes and may not alias the inputs.
+// trace_fused_mesh_launch, then `ordered` (nonzero: the node tables are the
+// eight octant orders stacked, [8 n_nodes] rows) and the packets' votes per
+// instance of packet_octants.cu, [P, n_instances] (nullptr on a one-node
+// BVH). Outputs are [n_rays, 3] float32 and [n_rays] bytes and may not
+// alias the inputs.
 extern "C" int mesh_bounce_launch(const float* origins, const float* directions,
                                   const float* throughput, const unsigned char* alive,
                                   const int* lanes, int n_rays, const int* live_count,
@@ -101,7 +155,8 @@ extern "C" int mesh_bounce_launch(const float* origins, const float* directions,
                                   const float* instances, int n_instances,
                                   const float* triangles, int n_tri_rows,
                                   const float* node_bounds, const int* node_links, int n_nodes,
-                                  int seed, int bounce, int total_bounces, float* contribution,
+                                  int ordered, const unsigned char* slot_votes, int seed,
+                                  int bounce, int total_bounces, float* contribution,
                                   float* origins_out, float* directions_out,
                                   float* throughput_out, unsigned char* alive_out,
                                   void* stream) {
@@ -116,19 +171,17 @@ extern "C" int mesh_bounce_launch(const float* origins, const float* directions,
                                    reinterpret_cast<const int4*>(node_links),
                                    n_instances,
                                    n_nodes};
-  size_t shared_bytes;
-  bool staged;
-  const cudaError_t status = path::staging_for(
-      mesh_bounce_kernel, mesh::table_bytes(n_tri_rows, n_nodes, n_instances), &shared_bytes,
-      &staged);
-  if (status != cudaSuccess) return static_cast<int>(status);
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  mesh_bounce_kernel<<<blocks, kThreads, shared_bytes, static_cast<cudaStream_t>(stream)>>>(
-      origins, directions, throughput, alive, lanes, n_rays, live_count,
-      reinterpret_cast<const float4*>(spheres), n_spheres, params, tables, n_tri_rows, staged,
-      static_cast<uint32_t>(seed), bounce, total_bounces, contribution, origins_out,
-      directions_out, throughput_out, alive_out);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ordered) {
+    return launch<true>(origins, directions, throughput, alive, lanes, n_rays, live_count,
+                        spheres, n_spheres, params, tables, n_tri_rows, 8 * n_nodes, slot_votes,
+                        seed, bounce, total_bounces, contribution, origins_out, directions_out,
+                        throughput_out, alive_out, s);
+  }
+  return launch<false>(origins, directions, throughput, alive, lanes, n_rays, live_count,
+                       spheres, n_spheres, params, tables, n_tri_rows, n_nodes, nullptr, seed,
+                       bounce, total_bounces, contribution, origins_out, directions_out,
+                       throughput_out, alive_out, s);
 }
 
 extern "C" const char* mesh_bounce_error_string(int code) {

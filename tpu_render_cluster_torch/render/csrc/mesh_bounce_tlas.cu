@@ -39,7 +39,18 @@
 //   - a group of G threads walks each ray (mesh::GroupTlas, G = 1, 2, 4 or
 //     8, chosen per launch by the wrapper from the launch's width), bit for
 //     bit the one-thread walk.
-// The key window is read from global memory. Built with --fmad=false.
+// The key window is read from global memory.
+//
+// Walk order: on a BVH with octant tables (every sah build; the
+// reference's default) the staged BVH and TLAS are their eight octant orders
+// stacked, [8N] and [8M] rows, and each ray's walks take the tables of its
+// packet (256 lanes of the launch, tlas_block_r()): the packet's votes come
+// from the pre-pass packet_octants.cu, its world octant for the TLAS and
+// its object-space octant per slot for the BLAS (mesh::Octants); the shadow
+// walks take the sun's. The key's entry walk votes over the packet's new
+// directions, known only when all its lanes have bounced, so on this walk
+// the key is written by the pass after this kernel (mesh_entry_keys.cu) and
+// this kernel writes none. Built with --fmad=false.
 
 #include "mesh_common.cuh"
 
@@ -60,14 +71,15 @@ struct Layout {
   uint32_t bytes;
 };
 
-Layout plan(int n_tri_rows, int n_nodes, int n_instances, int n_tlas_nodes) {
+// The node tables' rows: N and M, or 8N and 8M for the octant orders.
+Layout plan(int n_tri_rows, int n_node_rows, int n_instances, int n_tlas_rows) {
   const size_t sizes[6] = {
       sizeof(float4) * 4 * static_cast<size_t>(n_tri_rows),
-      sizeof(float4) * 2 * static_cast<size_t>(n_nodes),
-      sizeof(int4) * static_cast<size_t>(n_nodes),
+      sizeof(float4) * 2 * static_cast<size_t>(n_node_rows),
+      sizeof(int4) * static_cast<size_t>(n_node_rows),
       sizeof(float) * mesh::kInstanceWidth * static_cast<size_t>(n_instances),
-      sizeof(float4) * 2 * static_cast<size_t>(n_tlas_nodes),
-      sizeof(int4) * static_cast<size_t>(n_tlas_nodes),
+      sizeof(float4) * 2 * static_cast<size_t>(n_tlas_rows),
+      sizeof(int4) * static_cast<size_t>(n_tlas_rows),
   };
   uint32_t offsets[6];
   size_t total = 0;
@@ -80,7 +92,18 @@ Layout plan(int n_tri_rows, int n_nodes, int n_instances, int n_tlas_nodes) {
           static_cast<uint32_t>(total)};
 }
 
-template <int G>
+// The reference's packet of the TLAS variants (tlas_block_r()).
+constexpr int kPacket = 256;
+
+// The packet votes of an ordered launch (packet_octants.cu): per packet its
+// world octant, and its octant per slot (nullptr on a one-node BVH).
+struct Votes {
+  const uint8_t* tlas;  // [P]
+  const uint8_t* slots;  // [P, K]
+};
+
+// kOrdered: the octant-ordered walk (`votes`; node rows 8N and 8M), no key.
+template <int G, bool kOrdered>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 mesh_bounce_tlas_kernel(const float* __restrict__ origins, const float* __restrict__ directions,
                         const float* __restrict__ throughput, const uint8_t* __restrict__ alive,
@@ -88,11 +111,12 @@ mesh_bounce_tlas_kernel(const float* __restrict__ origins, const float* __restri
                         const int* __restrict__ live_count, const float4* __restrict__ spheres,
                         int n_spheres, const float* __restrict__ params, mesh::MeshTables tables,
                         mesh::TlasTables tlas, const float* __restrict__ key_window,
-                        int n_tri_rows, Layout layout, uint32_t seed, int bounce,
-                        int total_bounces, float* __restrict__ contribution,
-                        float* __restrict__ origins_out, float* __restrict__ directions_out,
-                        float* __restrict__ throughput_out, uint8_t* __restrict__ alive_out,
-                        int* __restrict__ key_out, int* __restrict__ next_ray) {
+                        int n_tri_rows, int n_node_rows, Layout layout, Votes votes,
+                        uint32_t seed, int bounce, int total_bounces,
+                        float* __restrict__ contribution, float* __restrict__ origins_out,
+                        float* __restrict__ directions_out, float* __restrict__ throughput_out,
+                        uint8_t* __restrict__ alive_out, int* __restrict__ key_out,
+                        int* __restrict__ next_ray) {
   __shared__ path::SceneShared scene;
   __shared__ uint64_t barrier;
   extern __shared__ float4 staging[];
@@ -105,9 +129,9 @@ mesh_bounce_tlas_kernel(const float* __restrict__ origins, const float* __restri
         {smem + layout.tris, reinterpret_cast<const char*>(tables.tris),
          static_cast<uint32_t>(sizeof(float4) * 4 * n_tri_rows)},
         {smem + layout.bounds, reinterpret_cast<const char*>(tables.bounds),
-         static_cast<uint32_t>(sizeof(float4) * 2 * tables.n_nodes)},
+         static_cast<uint32_t>(sizeof(float4) * 2 * n_node_rows)},
         {smem + layout.links, reinterpret_cast<const char*>(tables.links),
-         static_cast<uint32_t>(sizeof(int4) * tables.n_nodes)},
+         static_cast<uint32_t>(sizeof(int4) * n_node_rows)},
         {smem + layout.slots, reinterpret_cast<const char*>(tables.inst),
          static_cast<uint32_t>(sizeof(float) * mesh::kInstanceWidth * tables.n_instances)},
         {smem + layout.tlas_bounds, reinterpret_cast<const char*>(tlas.bounds),
@@ -126,8 +150,9 @@ mesh_bounce_tlas_kernel(const float* __restrict__ origins, const float* __restri
   path::load_scene(scene, spheres, n_spheres, params);  // ends with __syncthreads()
 
   const mesh::Group<G> g = mesh::Group<G>::of_thread();
-  const mesh::GroupTlas<G> walk = {g, tlas.bounds, tlas.links, 0, 0, 0, tlas.n_nodes};
   const uint32_t counter_stride = 2u * static_cast<uint32_t>(total_bounces) + 2u;
+  const float3v sun = {scene.params[0], scene.params[1], scene.params[2]};
+  const int sun_row = mesh::octant_of(sun) * tlas.n_nodes;
   const int lane_in_warp = static_cast<int>(threadIdx.x & 31u);
   for (;;) {
     // The warp's next 32 / G rays.
@@ -144,11 +169,23 @@ mesh_bounce_tlas_kernel(const float* __restrict__ origins, const float* __restri
       float3v rad = {0.0f, 0.0f, 0.0f};
       int candidate = tables.n_instances;
       if (is_alive && ray < live) {
-        is_alive = mesh::bounce(scene, 0, n_spheres, tables, walk,
-                                static_cast<uint32_t>(lanes[ray]), bounce, counter_stride, seed,
-                                o, d, thr, rad);
-        if (is_alive && bounce < total_bounces - 1) {
-          candidate = walk.entry_candidate(tables, o, d, 0, tables.n_instances);
+        if constexpr (kOrdered) {
+          const int64_t packet = ray / kPacket;
+          const mesh::GroupTlas<G, mesh::Octants> walk = {
+              g, tlas.bounds, tlas.links, 0, 0, 0, tlas.n_nodes,
+              {votes.slots == nullptr ? nullptr : votes.slots + packet * tables.n_instances,
+               votes.tlas[packet] * tlas.n_nodes, sun_row}};
+          is_alive = mesh::bounce(scene, 0, n_spheres, tables, walk,
+                                  static_cast<uint32_t>(lanes[ray]), bounce, counter_stride,
+                                  seed, o, d, thr, rad);
+        } else {
+          const mesh::GroupTlas<G> walk = {g, tlas.bounds, tlas.links, 0, 0, 0, tlas.n_nodes};
+          is_alive = mesh::bounce(scene, 0, n_spheres, tables, walk,
+                                  static_cast<uint32_t>(lanes[ray]), bounce, counter_stride,
+                                  seed, o, d, thr, rad);
+          if (is_alive && bounce < total_bounces - 1) {
+            candidate = walk.entry_candidate(tables, o, d, 0, tables.n_instances);
+          }
         }
       }
       if (g.rank == 0) {
@@ -157,24 +194,31 @@ mesh_bounce_tlas_kernel(const float* __restrict__ origins, const float* __restri
         path::store3(directions_out, ray, d);
         path::store3(throughput_out, ray, thr);
         alive_out[ray] = is_alive ? 1 : 0;
-        key_out[ray] = mesh::coherence_key(o, d, !is_alive, 0, candidate, key_window);
+        if (!kOrdered) {
+          key_out[ray] = mesh::coherence_key(o, d, !is_alive, 0, candidate, key_window);
+        }
       }
     }
     __syncwarp();
   }
 }
 
-using Kernel = decltype(&mesh_bounce_tlas_kernel<1>);
+using Kernel = decltype(&mesh_bounce_tlas_kernel<1, false>);
 
-// The group-G kernel (nullptr for another G).
-Kernel kernel_for(int group) {
+// The group-G kernel of the walk order (nullptr for another G).
+template <bool kOrdered>
+Kernel kernel_of(int group) {
   switch (group) {
-    case 1: return mesh_bounce_tlas_kernel<1>;
-    case 2: return mesh_bounce_tlas_kernel<2>;
-    case 4: return mesh_bounce_tlas_kernel<4>;
-    case 8: return mesh_bounce_tlas_kernel<8>;
+    case 1: return mesh_bounce_tlas_kernel<1, kOrdered>;
+    case 2: return mesh_bounce_tlas_kernel<2, kOrdered>;
+    case 4: return mesh_bounce_tlas_kernel<4, kOrdered>;
+    case 8: return mesh_bounce_tlas_kernel<8, kOrdered>;
     default: return nullptr;
   }
+}
+
+Kernel kernel_for(int group, bool ordered) {
+  return ordered ? kernel_of<true>(group) : kernel_of<false>(group);
 }
 
 }  // namespace
@@ -182,17 +226,22 @@ Kernel kernel_for(int group) {
 // Plain C entry for ctypes, as mesh_bounce_launch with the instances in
 // slot order and, after the BVH, the frame's TLAS (node bounds
 // [n_tlas_nodes, 8], links [n_tlas_nodes, 4] int32) and its key window
-// [6] (lo, 1 / span); after the five outputs the key [n_rays] int32; then
-// the group size G (1, 2, 4 or 8 threads a ray) and the work counter, one
-// int32 in device memory that no other launch uses meanwhile (cleared here
-// on `stream` before the kernel).
+// [6] (lo, 1 / span); then the packet votes of packet_octants.cu, the world
+// octants [P] and the slots' [P, n_instances] (slots nullptr on a one-node
+// BVH), both nullptr on the canonical walk: given, the node tables are the
+// eight octant orders stacked, [8 n_nodes] and [8 n_tlas_nodes] rows, and
+// the kernel writes no key (mesh_entry_keys.cu does); after the five
+// outputs the key [n_rays] int32; then the group size G (1, 2, 4 or 8
+// threads a ray) and the work counter, one int32 in device memory that no
+// other launch uses meanwhile (cleared here on `stream` before the kernel).
 extern "C" int mesh_bounce_tlas_launch(
     const float* origins, const float* directions, const float* throughput,
     const unsigned char* alive, const int* lanes, int n_rays, const int* live_count,
     const float* spheres, int n_spheres, const float* params, const float* instances,
     int n_instances, const float* triangles, int n_tri_rows, const float* node_bounds,
     const int* node_links, int n_nodes, const float* tlas_bounds, const int* tlas_links,
-    int n_tlas_nodes, const float* key_window, int seed, int bounce, int total_bounces,
+    int n_tlas_nodes, const float* key_window, const unsigned char* tlas_votes,
+    const unsigned char* slot_votes, int seed, int bounce, int total_bounces,
     float* contribution, float* origins_out, float* directions_out, float* throughput_out,
     unsigned char* alive_out, int* key_out, int group, int* work_counter, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaSuccess);
@@ -207,11 +256,13 @@ extern "C" int mesh_bounce_tlas_launch(
                                    reinterpret_cast<const int4*>(node_links),
                                    n_instances,
                                    n_nodes};
+  const bool ordered = tlas_votes != nullptr;
+  const int orders = ordered ? 8 : 1;
   const mesh::TlasTables tlas = {reinterpret_cast<const float4*>(tlas_bounds),
                                  reinterpret_cast<const int4*>(tlas_links), n_tlas_nodes,
-                                 n_tlas_nodes};
-  const Layout layout = plan(n_tri_rows, n_nodes, n_instances, n_tlas_nodes);
-  const Kernel kernel = kernel_for(group);
+                                 orders * n_tlas_nodes};
+  const Layout layout = plan(n_tri_rows, orders * n_nodes, n_instances, orders * n_tlas_nodes);
+  const Kernel kernel = kernel_for(group, ordered);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int resident = 0;
   cudaError_t status = mesh::card_blocks(kernel, kThreads, layout.bytes, &resident);
@@ -225,20 +276,23 @@ extern "C" int mesh_bounce_tlas_launch(
   kernel<<<blocks, kThreads, layout.bytes, s>>>(
       origins, directions, throughput, alive, lanes, n_rays, live_count,
       reinterpret_cast<const float4*>(spheres), n_spheres, params, tables, tlas, key_window,
-      n_tri_rows, layout, static_cast<uint32_t>(seed), bounce, total_bounces, contribution,
-      origins_out, directions_out, throughput_out, alive_out, key_out, work_counter);
+      n_tri_rows, orders * n_nodes, layout, Votes{tlas_votes, slot_votes},
+      static_cast<uint32_t>(seed), bounce, total_bounces, contribution, origins_out,
+      directions_out, throughput_out, alive_out, key_out, work_counter);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The blocks of the group-G kernel resident on one SM at a launch of these
-// tables (a negative CUDA error code on failure), with the launch's dynamic
-// shared memory in *shared_bytes (0: the tables are read from global
-// memory).
+// tables (`ordered`: the octant-ordered walk's kernel and tables; a
+// negative CUDA error code on failure), with the launch's dynamic shared
+// memory in *shared_bytes (0: the tables are read from global memory).
 extern "C" int mesh_bounce_tlas_occupancy(int group, int n_instances, int n_tri_rows,
-                                          int n_nodes, int n_tlas_nodes, int* shared_bytes) {
-  const Layout layout = plan(n_tri_rows, n_nodes, n_instances, n_tlas_nodes);
+                                          int n_nodes, int n_tlas_nodes, int ordered,
+                                          int* shared_bytes) {
+  const int orders = ordered ? 8 : 1;
+  const Layout layout = plan(n_tri_rows, orders * n_nodes, n_instances, orders * n_tlas_nodes);
   *shared_bytes = static_cast<int>(layout.bytes);
-  const Kernel kernel = kernel_for(group);
+  const Kernel kernel = kernel_for(group, ordered != 0);
   if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
   int blocks_per_sm = 0;
   const cudaError_t status = mesh::blocks_per_sm(kernel, kThreads, layout.bytes, &blocks_per_sm);

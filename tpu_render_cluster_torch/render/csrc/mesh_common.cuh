@@ -19,14 +19,21 @@
 // fetch and occupancy queries.
 //
 // Walk order: instances in table order (or the TLAS's leaves in preorder,
-// their slots in order), nodes in canonical DFS preorder entered at the
-// first node, strict `<` updates of a best t seeded with the sphere/plane
-// t, the first tying row of a leaf winning. Per ray that is the nearest hit
-// the reference's packet walk finds, ties aside: the TPU's block-wide `any`
-// culls and its near-first instance order change which nodes a packet
-// visits, never a ray's nearest hit. A TLAS node's box is the union of its
-// slots' world boxes and the slab arithmetic is monotone in the box, so a
-// node test never rejects a ray that one of its slots' tests would accept.
+// their slots in order), nodes in DFS preorder of one node table, strict
+// `<` updates of a best t seeded with the sphere/plane t, the first tying
+// row of a leaf winning. Per ray that is the nearest hit the reference's
+// packet walk finds, ties included, when both walk the same table: the
+// TPU's block-wide `any` culls change which nodes a packet visits, never
+// the order in which a ray meets the leaves it needs. The table is the
+// reference's (the Order policy): the canonical one (Canonical), or on a
+// BVH with octant tables, as the reference's default, one of eight
+// near-first re-threadings stacked [8N] (and [8M] for a TLAS), picked per
+// packet of the launch by a majority vote over its lanes' directions
+// (Octants: the votes come from the caller), a BLAS walk entering below the
+// root, whose box the instance's world box stands for. A TLAS node's box
+// is the union of its slots' world boxes and the slab arithmetic is
+// monotone in the box, so a node test never rejects a ray that one of its
+// slots' tests would accept.
 //
 // Rounding follows the reference's compiler as in path_common.cuh: each
 // written-out sum of three products a*b + c*d + e*f is
@@ -78,6 +85,12 @@ __device__ __forceinline__ bool node_box(const float4* bounds, int node, float3v
   const float4 lo = bounds[2 * node];
   const float4 hi = bounds[2 * node + 1];
   return slab(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, o, inv, limit);
+}
+
+// The octant of a direction: bit i set where component i is positive (0.0
+// and -0.0 give 0); the vote of a packet of one lane, the uniform sun's.
+__device__ __forceinline__ int octant_of(float3v v) {
+  return (v.x > 0.0f ? 1 : 0) | (v.y > 0.0f ? 2 : 0) | (v.z > 0.0f ? 4 : 0);
 }
 
 // x' = R^T (x - t) / s (a point) or R^T x / s (a direction).
@@ -132,16 +145,18 @@ __host__ __device__ inline size_t table_bytes(int n_tri_rows, int n_nodes, int n
 }
 
 // Copy the tables into `staging` (layout: triangle rows, node bounds, node
-// links, instance table) and point `m` at the copies. Every thread of the
-// block takes part; the caller synchronises before the tables are read.
-__device__ __forceinline__ void stage_tables(MeshTables& m, float4* staging, int n_tri_rows) {
+// links, instance table) and point `m` at the copies; `n_node_rows` rows of
+// node tables (8N: the octant tables). Every thread of the block takes part;
+// the caller synchronises before the tables are read.
+__device__ __forceinline__ void stage_tables(MeshTables& m, float4* staging, int n_tri_rows,
+                                             int n_node_rows) {
   float4* tris = staging;
   float4* bounds = tris + 4 * n_tri_rows;
-  int4* links = reinterpret_cast<int4*>(bounds + 2 * m.n_nodes);
-  float* inst = reinterpret_cast<float*>(links + m.n_nodes);
+  int4* links = reinterpret_cast<int4*>(bounds + 2 * n_node_rows);
+  float* inst = reinterpret_cast<float*>(links + n_node_rows);
   for (int i = threadIdx.x; i < 4 * n_tri_rows; i += blockDim.x) tris[i] = m.tris[i];
-  for (int i = threadIdx.x; i < 2 * m.n_nodes; i += blockDim.x) bounds[i] = m.bounds[i];
-  for (int i = threadIdx.x; i < m.n_nodes; i += blockDim.x) links[i] = m.links[i];
+  for (int i = threadIdx.x; i < 2 * n_node_rows; i += blockDim.x) bounds[i] = m.bounds[i];
+  for (int i = threadIdx.x; i < n_node_rows; i += blockDim.x) links[i] = m.links[i];
   for (int i = threadIdx.x; i < kInstanceWidth * m.n_instances; i += blockDim.x) {
     inst[i] = m.inst[i];
   }
@@ -151,23 +166,67 @@ __device__ __forceinline__ void stage_tables(MeshTables& m, float4* staging, int
   m.inst = inst;
 }
 
+__device__ __forceinline__ void stage_tables(MeshTables& m, float4* staging, int n_tri_rows) {
+  stage_tables(m, staging, n_tri_rows, m.n_nodes);
+}
+
 struct MeshHit {
   float t;  // the seed t when nothing closer was hit
   int instance;  // -1: no mesh hit closer than the seed
   int row;
 };
 
+// The node table a walk takes (the reference's `blas_base` and `tlas_base`,
+// pallas_kernels.py:2263-2295): blas(m, k) the (row base, entry node) of the
+// nearest walk through instance row k, blas_sun(m, ld) those of a shadow
+// walk along object-space direction ld, tlas() and tlas_sun() the row base
+// of the nearest and the shadow TLAS walks.
+//
+// Canonical: one table, entered at its root (a BVH without octant tables,
+// and the scan's unit kernels, whose reference reads none).
+struct Canonical {
+  __device__ __forceinline__ int2 blas(const MeshTables&, int) const { return {0, 0}; }
+  __device__ __forceinline__ int2 blas_sun(const MeshTables&, float3v) const { return {0, 0}; }
+  __device__ __forceinline__ int tlas() const { return 0; }
+  __device__ __forceinline__ int tlas_sun() const { return 0; }
+};
+
+// Octants: the octant-ordered tables of one packet of the launch. A BLAS
+// walk reads table o at rows o N and enters at node 1 (node 0 when N = 1);
+// its octant is the packet's vote for the instance row (slot_octants[k],
+// the votes of the object-space directions; nullptr where N = 1, whose
+// eight tables are one node alike), or the sun's own in object space. The
+// TLAS rows come from the caller: the packet's world vote times M, 0 where
+// the TLAS stays canonical (the pool).
+struct Octants {
+  const uint8_t* slot_octants;
+  int tlas_row;
+  int tlas_sun_row;
+  __device__ __forceinline__ int2 blas(const MeshTables& m, int k) const {
+    const int octant = slot_octants == nullptr ? 0 : slot_octants[k];
+    return {octant * m.n_nodes, m.n_nodes > 1 ? 1 : 0};
+  }
+  __device__ __forceinline__ int2 blas_sun(const MeshTables& m, float3v ld) const {
+    return {octant_of(ld) * m.n_nodes, m.n_nodes > 1 ? 1 : 0};
+  }
+  __device__ __forceinline__ int tlas() const { return tlas_row; }
+  __device__ __forceinline__ int tlas_sun() const { return tlas_sun_row; }
+};
+
 // Nearest hit of one object-space ray (lo, ld) in the BVH of `instance`:
-// nodes in DFS preorder from node 0, each culled by its box against best.t,
-// and each triangle hit strictly nearer than best.t makes best = {t,
-// instance, row} (the first row of a leaf reaching the minimum wins).
+// nodes in DFS preorder from node `entry` of the table at rows `base` (the
+// canonical table: 0, 0; skip links are local to a table, so only the
+// reads add the base), each culled by its box against best.t, and each
+// triangle hit strictly nearer than best.t makes best = {t, instance, row}
+// (the first row of a leaf reaching the minimum wins).
 __device__ __forceinline__ void blas_nearest(const MeshTables& m, float3v lo, float3v ld,
-                                             int instance, MeshHit& best) {
+                                             int instance, MeshHit& best, int base = 0,
+                                             int entry = 0) {
   const float3v linv = winv3(ld);
-  int node = 0;
+  int node = entry;
   while (node < m.n_nodes) {
-    const int4 link = m.links[node];
-    if (!node_box(m.bounds, node, lo, linv, best.t)) {
+    const int4 link = m.links[base + node];
+    if (!node_box(m.bounds, base + node, lo, linv, best.t)) {
       node = link.x;
     } else if (link.z > 0) {
       for (int r = link.y; r < link.y + link.z; ++r) {
@@ -182,13 +241,18 @@ __device__ __forceinline__ void blas_nearest(const MeshTables& m, float3v lo, fl
 }
 
 // Any triangle of the BVH ahead of the object-space ray (lo, ld) (t > EPS,
-// unbounded)? The walk ends at the first one found.
-__device__ __forceinline__ bool blas_occluded(const MeshTables& m, float3v lo, float3v ld) {
+// unbounded)? The walk ends at the first one found; it takes the table of
+// order.blas_sun(m, ld).
+template <typename Order = Canonical>
+__device__ __forceinline__ bool blas_occluded(const MeshTables& m, float3v lo, float3v ld,
+                                              const Order& order = Order()) {
+  const int2 at = order.blas_sun(m, ld);
+  const int base = at.x;
   const float3v linv = winv3(ld);
-  int node = 0;
+  int node = at.y;
   while (node < m.n_nodes) {
-    const int4 link = m.links[node];
-    if (!node_box(m.bounds, node, lo, linv, path::kInf)) {
+    const int4 link = m.links[base + node];
+    if (!node_box(m.bounds, base + node, lo, linv, path::kInf)) {
       node = link.x;
     } else if (link.z > 0) {
       for (int r = link.y; r < link.y + link.z; ++r) {
@@ -205,27 +269,32 @@ __device__ __forceinline__ bool blas_occluded(const MeshTables& m, float3v lo, f
 
 // Nearest hit over instances [first, first + count), seeded with t_seed
 // (strict < updates); `instance` is the winning row of the whole table.
+template <typename Order = Canonical>
 __device__ __forceinline__ MeshHit nearest(const MeshTables& m, int first, int count, float3v o,
-                                           float3v d, float t_seed) {
+                                           float3v d, float t_seed, const Order& order = Order()) {
   MeshHit best = {t_seed, -1, 0};
   const float3v inv = winv3(d);
   for (int k = first; k < first + count; ++k) {
     const float* inst = m.inst + kInstanceWidth * k;
     if (!world_box(inst, o, inv, best.t)) continue;
-    blas_nearest(m, point_to_object(inst, o), to_object(inst, d.x, d.y, d.z), k, best);
+    const int2 at = order.blas(m, k);
+    blas_nearest(m, point_to_object(inst, o), to_object(inst, d.x, d.y, d.z), k, best, at.x,
+                 at.y);
   }
   return best;
 }
 
 // Any triangle of instances [first, first + count) ahead of the shadow
 // origin along `sun` (the sun's direction, or a unit kernel's ray's own)?
+template <typename Order = Canonical>
 __device__ __forceinline__ bool occluded(const MeshTables& m, int first, int count, float3v so,
-                                         float3v sun) {
+                                         float3v sun, const Order& order = Order()) {
   const float3v inv = winv3(sun);
   for (int k = first; k < first + count; ++k) {
     const float* inst = m.inst + kInstanceWidth * k;
     if (!world_box(inst, so, inv, path::kInf)) continue;
-    if (blas_occluded(m, point_to_object(inst, so), to_object(inst, sun.x, sun.y, sun.z))) {
+    if (blas_occluded(m, point_to_object(inst, so), to_object(inst, sun.x, sun.y, sun.z),
+                      order)) {
       return true;
     }
   }
@@ -233,15 +302,17 @@ __device__ __forceinline__ bool occluded(const MeshTables& m, int first, int cou
 }
 
 // The flat instance sweep: instances [first, first + count) in table order.
+template <typename Order = Canonical>
 struct FlatInstances {
   int first;
   int count;
+  Order order;
   __device__ __forceinline__ MeshHit nearest(const MeshTables& m, float3v o, float3v d,
                                              float t_seed) const {
-    return mesh::nearest(m, first, count, o, d, t_seed);
+    return mesh::nearest(m, first, count, o, d, t_seed, order);
   }
   __device__ __forceinline__ bool occluded(const MeshTables& m, float3v so, float3v sun) const {
-    return mesh::occluded(m, first, count, so, sun);
+    return mesh::occluded(m, first, count, so, sun, order);
   }
 };
 
@@ -258,23 +329,24 @@ struct TlasTables {
   int n_rows;  // the stacked rows (a pool: frames x M)
 };
 
-// The staged tables: the mesh tables (stage_tables), then at the next
-// 16-byte boundary the TLAS's bounds and links.
-__host__ __device__ inline size_t tlas_offset(int n_tri_rows, int n_nodes, int n_instances) {
-  return (table_bytes(n_tri_rows, n_nodes, n_instances) + 15) / 16;  // in float4
+// The staged tables: the mesh tables (stage_tables, `n_node_rows` rows of
+// node tables), then at the next 16-byte boundary the TLAS's bounds and
+// links.
+__host__ __device__ inline size_t tlas_offset(int n_tri_rows, int n_node_rows, int n_instances) {
+  return (table_bytes(n_tri_rows, n_node_rows, n_instances) + 15) / 16;  // in float4
 }
 
-__host__ __device__ inline size_t two_level_bytes(int n_tri_rows, int n_nodes, int n_instances,
-                                                  int n_tlas_rows) {
-  return sizeof(float4) * tlas_offset(n_tri_rows, n_nodes, n_instances) +
+__host__ __device__ inline size_t two_level_bytes(int n_tri_rows, int n_node_rows,
+                                                  int n_instances, int n_tlas_rows) {
+  return sizeof(float4) * tlas_offset(n_tri_rows, n_node_rows, n_instances) +
          (2 * sizeof(float4) + sizeof(int4)) * static_cast<size_t>(n_tlas_rows);
 }
 
 __device__ __forceinline__ void stage_two_level(MeshTables& m, TlasTables& t, float4* staging,
-                                                int n_tri_rows) {
-  float4* bounds = staging + tlas_offset(n_tri_rows, m.n_nodes, m.n_instances);
+                                                int n_tri_rows, int n_node_rows) {
+  float4* bounds = staging + tlas_offset(n_tri_rows, n_node_rows, m.n_instances);
   int4* links = reinterpret_cast<int4*>(bounds + 2 * t.n_rows);
-  stage_tables(m, staging, n_tri_rows);
+  stage_tables(m, staging, n_tri_rows, n_node_rows);
   for (int i = threadIdx.x; i < 2 * t.n_rows; i += blockDim.x) bounds[i] = t.bounds[i];
   for (int i = threadIdx.x; i < t.n_rows; i += blockDim.x) links[i] = t.links[i];
   t.bounds = bounds;
@@ -285,13 +357,13 @@ __device__ __forceinline__ void stage_two_level(MeshTables& m, TlasTables& t, fl
 // the shadow walks (the reference's `tlas_walk`): a node whose box
 // the ray misses, or enters at or past limit(), is skipped with its subtree;
 // a leaf's slot range goes to leaf(first, end), which returns true to end
-// the walk.
+// the walk. The nodes are read at rows `base` + node (an octant table).
 template <typename Limit, typename Leaf>
 __device__ __forceinline__ void tlas_walk(const TlasTables& t, int node, int node_end, float3v o,
-                                          float3v inv, Limit limit, Leaf leaf) {
+                                          float3v inv, Limit limit, Leaf leaf, int base = 0) {
   while (node < node_end) {
-    const int4 link = t.links[node];
-    if (!node_box(t.bounds, node, o, inv, limit())) {
+    const int4 link = t.links[base + node];
+    if (!node_box(t.bounds, base + node, o, inv, limit())) {
       node = link.x;
     } else if (link.z > 0) {
       if (leaf(link.y, link.y + link.z)) return;
@@ -303,10 +375,12 @@ __device__ __forceinline__ void tlas_walk(const TlasTables& t, int node, int nod
 }
 
 // The two-level walk over nodes [node0, node_end).
+template <typename Order = Canonical>
 struct TlasInstances {
   TlasTables tlas;
   int node0;
   int node_end;
+  Order order;
 
   // Nearest hit, seeded with t_seed: each node culled by its box against
   // best.t, then a leaf's slots as the flat sweep tests an instance.
@@ -314,14 +388,19 @@ struct TlasInstances {
                                              float t_seed) const {
     MeshHit best = {t_seed, -1, 0};
     const float3v inv = winv3(d);
-    tlas_walk(tlas, node0, node_end, o, inv, [&] { return best.t; }, [&](int first, int end) {
-      for (int k = first; k < end; ++k) {
-        const float* inst = m.inst + kInstanceWidth * k;
-        if (!world_box(inst, o, inv, best.t)) continue;
-        blas_nearest(m, point_to_object(inst, o), to_object(inst, d.x, d.y, d.z), k, best);
-      }
-      return false;
-    });
+    tlas_walk(
+        tlas, node0, node_end, o, inv, [&] { return best.t; },
+        [&](int first, int end) {
+          for (int k = first; k < end; ++k) {
+            const float* inst = m.inst + kInstanceWidth * k;
+            if (!world_box(inst, o, inv, best.t)) continue;
+            const int2 at = order.blas(m, k);
+            blas_nearest(m, point_to_object(inst, o), to_object(inst, d.x, d.y, d.z), k, best,
+                         at.x, at.y);
+          }
+          return false;
+        },
+        order.tlas());
     return best;
   }
 
@@ -330,17 +409,21 @@ struct TlasInstances {
   __device__ __forceinline__ bool occluded(const MeshTables& m, float3v so, float3v sun) const {
     const float3v inv = winv3(sun);
     bool hit = false;
-    tlas_walk(tlas, node0, node_end, so, inv, [] { return path::kInf; }, [&](int first, int end) {
-      for (int k = first; k < end; ++k) {
-        const float* inst = m.inst + kInstanceWidth * k;
-        if (!world_box(inst, so, inv, path::kInf)) continue;
-        if (blas_occluded(m, point_to_object(inst, so), to_object(inst, sun.x, sun.y, sun.z))) {
-          hit = true;
-          return true;
-        }
-      }
-      return false;
-    });
+    tlas_walk(
+        tlas, node0, node_end, so, inv, [] { return path::kInf; },
+        [&](int first, int end) {
+          for (int k = first; k < end; ++k) {
+            const float* inst = m.inst + kInstanceWidth * k;
+            if (!world_box(inst, so, inv, path::kInf)) continue;
+            if (blas_occluded(m, point_to_object(inst, so), to_object(inst, sun.x, sun.y, sun.z),
+                              order)) {
+              hit = true;
+              return true;
+            }
+          }
+          return false;
+        },
+        order.tlas_sun());
     return hit;
   }
 };
@@ -437,6 +520,85 @@ __device__ __forceinline__ bool bounce(const Scene& scene, int sphere_first, int
   d = path::resample(normal, lane, bounce_index, counter_stride, seed);
   o = so;
   return true;
+}
+
+// ---------------------------------------------------------------------------
+// The packet vote inside a block (the megakernels trace_fused_mesh.cu and
+// trace_fused_mesh_tlas.cu, whose block of threads is the reference's packet
+// of lanes): every thread of the block calls these together, each with the
+// direction its lane carries (a finished path's last one, a lane past the
+// launch the reference's pad direction (0, 1, 0)).
+
+// The block's octant of the directions d: bit i set when strictly more
+// than half of its threads (at most 512) have component i > 0
+// (`_octant_of`). One barrier: each warp adds its counts of the three axes,
+// in fields of 10 bits of one sum, to counters[round % 3], and thread 0
+// clears the counter of the next round, which every thread read before the
+// last round's barrier. `counters`: 3 ints of shared memory, zero before
+// round 0; `round` counts the block's votes from 0.
+__device__ __forceinline__ int block_octant(float3v d, int* counters, int round) {
+  const unsigned packed =
+      (d.x > 0.0f ? 1u : 0u) | (d.y > 0.0f ? 1u << 10 : 0u) | (d.z > 0.0f ? 1u << 20 : 0u);
+  const unsigned warp_sum = __reduce_add_sync(0xffffffffu, packed);
+  if ((threadIdx.x & 31u) == 0) atomicAdd(&counters[round % 3], static_cast<int>(warp_sum));
+  if (threadIdx.x == 0) counters[(round + 1) % 3] = 0;
+  __syncthreads();
+  const unsigned sum = static_cast<unsigned>(counters[round % 3]);
+  const unsigned n = blockDim.x;
+  return (2 * (sum & 1023u) > n ? 1 : 0) | (2 * ((sum >> 10) & 1023u) > n ? 2 : 0) |
+         (2 * ((sum >> 20) & 1023u) > n ? 4 : 0);
+}
+
+// The block's octant of d in the object space of each instance row k of m
+// (to_object, as the walk takes it) into octants[k]; counts, 3 K ints of
+// shared memory, are zero on entry and on return. Each warp sums a row's
+// positive components (the three axes in fields of 10 bits of one sum) and
+// adds them in.
+__device__ __forceinline__ void block_instance_octants(const MeshTables& m, float3v d, int* counts,
+                                                       uint8_t* octants) {
+  const bool leader = (threadIdx.x & 31u) == 0;
+  for (int k = 0; k < m.n_instances; ++k) {
+    const float3v od = to_object(m.inst + kInstanceWidth * k, d.x, d.y, d.z);
+    const unsigned packed =
+        (od.x > 0.0f ? 1u : 0u) | (od.y > 0.0f ? 1u << 10 : 0u) | (od.z > 0.0f ? 1u << 20 : 0u);
+    const unsigned sum = __reduce_add_sync(0xffffffffu, packed);
+    if (leader) {
+      atomicAdd(&counts[3 * k + 0], static_cast<int>(sum & 1023u));
+      atomicAdd(&counts[3 * k + 1], static_cast<int>((sum >> 10) & 1023u));
+      atomicAdd(&counts[3 * k + 2], static_cast<int>(sum >> 20));
+    }
+  }
+  __syncthreads();
+  const int n = static_cast<int>(blockDim.x);
+  for (int k = threadIdx.x; k < m.n_instances; k += blockDim.x) {
+    octants[k] = static_cast<uint8_t>((2 * counts[3 * k + 0] > n ? 1 : 0) |
+                                      (2 * counts[3 * k + 1] > n ? 2 : 0) |
+                                      (2 * counts[3 * k + 2] > n ? 4 : 0));
+    counts[3 * k + 0] = counts[3 * k + 1] = counts[3 * k + 2] = 0;
+  }
+  __syncthreads();
+}
+
+// Bytes of the per-instance vote's shared memory (counts, then octants), 0
+// where no vote is taken.
+inline size_t instance_vote_bytes(bool votes, int n_instances) {
+  if (!votes) return 0;
+  return ((sizeof(int) * 3 + 1) * static_cast<size_t>(n_instances) + 15) &
+         ~static_cast<size_t>(15);
+}
+
+// The dynamic shared memory of a megakernel launch: its tables (`bytes`,
+// staged when they fit in kMaxStagedBytes beside the vote's `vote_bytes`)
+// and the vote's counters after them, at *vote_offset; the kernel's limit
+// raised where needed (path::allow_shared).
+template <typename Kernel>
+inline cudaError_t megakernel_shared(Kernel kernel, size_t bytes, size_t vote_bytes,
+                                     size_t* shared_bytes, bool* staged, size_t* vote_offset) {
+  const size_t tables = (bytes + 15) & ~static_cast<size_t>(15);
+  *staged = tables + vote_bytes <= static_cast<size_t>(path::kMaxStagedBytes);
+  *vote_offset = *staged ? tables : 0;
+  *shared_bytes = *vote_offset + vote_bytes;
+  return path::allow_shared(kernel, *shared_bytes);
 }
 
 // ---------------------------------------------------------------------------
@@ -604,12 +766,12 @@ struct Group {
 template <int G>
 __device__ __forceinline__ void group_blas_nearest(const Group<G>& g, const MeshTables& m,
                                                    float3v lo, float3v ld, int instance,
-                                                   MeshHit& best) {
+                                                   MeshHit& best, int base = 0, int entry = 0) {
   const float3v linv = winv3(ld);
-  int node = 0;
+  int node = entry;
   while (node < m.n_nodes) {
-    const int4 link = m.links[node];
-    if (!node_box(m.bounds, node, lo, linv, best.t)) {
+    const int4 link = m.links[base + node];
+    if (!node_box(m.bounds, base + node, lo, linv, best.t)) {
       node = link.x;
     } else if (link.z > 0) {
       MeshHit mine = best;
@@ -627,14 +789,17 @@ __device__ __forceinline__ void group_blas_nearest(const Group<G>& g, const Mesh
 }
 
 // blas_occluded with the group.
-template <int G>
+template <int G, typename Order = Canonical>
 __device__ __forceinline__ bool group_blas_occluded(const Group<G>& g, const MeshTables& m,
-                                                    float3v lo, float3v ld) {
+                                                    float3v lo, float3v ld,
+                                                    const Order& order = Order()) {
+  const int2 at = order.blas_sun(m, ld);
+  const int base = at.x;
   const float3v linv = winv3(ld);
-  int node = 0;
+  int node = at.y;
   while (node < m.n_nodes) {
-    const int4 link = m.links[node];
-    if (!node_box(m.bounds, node, lo, linv, path::kInf)) {
+    const int4 link = m.links[base + node];
+    if (!node_box(m.bounds, base + node, lo, linv, path::kInf)) {
       node = link.x;
     } else if (link.z > 0) {
       bool hit = false;
@@ -669,10 +834,11 @@ __device__ __forceinline__ void slot_box(const float* inst, float3v o, float3v i
 // (slot_box, no limit), then the group enters the chunk's reached slots in
 // order, each against the group's best t so far. Slot k's row is at
 // m.inst + 22 (k - slot_base); a hit's `instance` is k - slot_base.
-template <int G>
+template <int G, typename Order = Canonical>
 __device__ __forceinline__ void group_slots_nearest(const Group<G>& g, const MeshTables& m,
                                                     int first, int end, int slot_base, float3v o,
-                                                    float3v d, float3v inv, MeshHit& best) {
+                                                    float3v d, float3v inv, MeshHit& best,
+                                                    const Order& order = Order()) {
   for (int chunk = first; chunk < end; chunk += G) {
     bool reached = false;
     float near = 0.0f;
@@ -684,17 +850,19 @@ __device__ __forceinline__ void group_slots_nearest(const Group<G>& g, const Mes
       const float box_near = g.from(near, j);
       if (!(hit_box && box_near < best.t)) continue;
       const float* inst = m.inst + kInstanceWidth * (chunk + j - slot_base);
+      const int2 at = order.blas(m, chunk + j);
       group_blas_nearest(g, m, point_to_object(inst, o), to_object(inst, d.x, d.y, d.z),
-                         chunk + j - slot_base, best);
+                         chunk + j - slot_base, best, at.x, at.y);
     }
   }
 }
 
 // The any-hit over slots [first, end) by a group: true at the first occluder.
-template <int G>
+template <int G, typename Order = Canonical>
 __device__ __forceinline__ bool group_slots_occluded(const Group<G>& g, const MeshTables& m,
                                                      int first, int end, int slot_base,
-                                                     float3v so, float3v sun, float3v inv) {
+                                                     float3v so, float3v sun, float3v inv,
+                                                     const Order& order = Order()) {
   for (int chunk = first; chunk < end; chunk += G) {
     bool reached = false;
     float near = 0.0f;
@@ -707,7 +875,7 @@ __device__ __forceinline__ bool group_slots_occluded(const Group<G>& g, const Me
       if (!(hit_box && box_near < path::kInf)) continue;
       const float* inst = m.inst + kInstanceWidth * (chunk + j - slot_base);
       if (group_blas_occluded(g, m, point_to_object(inst, so),
-                              to_object(inst, sun.x, sun.y, sun.z))) {
+                              to_object(inst, sun.x, sun.y, sun.z), order)) {
         return true;
       }
     }
@@ -745,11 +913,12 @@ struct GroupFlat {
 };
 
 // The two-level walk of one frame's TLAS window by a group: nodes [node0,
-// node_end) of the stacked TLAS rows, node n at bounds/links[n - node_base];
-// slot k's row at mesh.inst + 22 (k - slot_base). A staged copy of a range
-// of frames sets the bases to its first frame's rows; a hit's `instance` is
-// k - slot_base, the row of mesh.inst that mesh::bounce shades.
-template <int G>
+// node_end) of the stacked TLAS rows, node n at bounds/links[n - node_base]
+// (an octant table's: at order.tlas() + n - node_base); slot k's row at
+// mesh.inst + 22 (k - slot_base). A staged copy of a range of frames sets
+// the bases to its first frame's rows; a hit's `instance` is k - slot_base,
+// the row of mesh.inst that mesh::bounce shades.
+template <int G, typename Order = Canonical>
 struct GroupTlas {
   Group<G> g;
   const float4* bounds;
@@ -758,6 +927,7 @@ struct GroupTlas {
   int slot_base;
   int node0;
   int node_end;
+  Order order;
 
   __device__ __forceinline__ const float* slot(const MeshTables& m, int k) const {
     return m.inst + kInstanceWidth * (k - slot_base);
@@ -767,14 +937,15 @@ struct GroupTlas {
                                              float t_seed) const {
     MeshHit best = {t_seed, -1, 0};
     const float3v inv = winv3(d);
+    const int row = order.tlas() - node_base;
     int node = node0;
     while (node < node_end) {
-      const int4 link = links[node - node_base];
-      if (!node_box(bounds, node - node_base, o, inv, best.t)) {
+      const int4 link = links[row + node];
+      if (!node_box(bounds, row + node, o, inv, best.t)) {
         node = link.x;
         continue;
       }
-      group_slots_nearest(g, m, link.y, link.y + link.z, slot_base, o, d, inv, best);
+      group_slots_nearest(g, m, link.y, link.y + link.z, slot_base, o, d, inv, best, order);
       node = link.z > 0 ? link.x : node + 1;
     }
     return best;
@@ -782,14 +953,15 @@ struct GroupTlas {
 
   __device__ __forceinline__ bool occluded(const MeshTables& m, float3v so, float3v sun) const {
     const float3v inv = winv3(sun);
+    const int row = order.tlas_sun() - node_base;
     int node = node0;
     while (node < node_end) {
-      const int4 link = links[node - node_base];
-      if (!node_box(bounds, node - node_base, so, inv, path::kInf)) {
+      const int4 link = links[row + node];
+      if (!node_box(bounds, row + node, so, inv, path::kInf)) {
         node = link.x;
         continue;
       }
-      if (group_slots_occluded(g, m, link.y, link.y + link.z, slot_base, so, sun, inv)) {
+      if (group_slots_occluded(g, m, link.y, link.y + link.z, slot_base, so, sun, inv, order)) {
         return true;
       }
       node = link.z > 0 ? link.x : node + 1;
@@ -800,17 +972,21 @@ struct GroupTlas {
   // The entry walk of the coherence key (the reference's AABB-only TLAS
   // walk, `pallas_kernels.py:2983-3065`): the slot, less slot_offset, whose
   // world box the ray enters first (entry max(near, 0), strict `<`, so the
-  // lowest slot wins a tie), `sentinel` where it enters none. Nodes are
-  // culled against the best entry so far; no BVH is entered.
+  // first slot met wins a tie), `sentinel` where it enters none. Nodes are
+  // culled against the best entry so far; no BVH is entered. The nodes are
+  // read at rows `tlas_row` + n - node_base (the entry walk's own octant
+  // table; 0: canonical).
   __device__ __forceinline__ int entry_candidate(const MeshTables& m, float3v o, float3v d,
-                                                 int slot_offset, int sentinel) const {
+                                                 int slot_offset, int sentinel,
+                                                 int tlas_row = 0) const {
     const float3v inv = winv3(d);
+    const int row = tlas_row - node_base;
     float best_entry = path::kInf;
     int best = sentinel;
     int node = node0;
     while (node < node_end) {
-      const int4 link = links[node - node_base];
-      if (!node_box(bounds, node - node_base, o, inv, best_entry)) {
+      const int4 link = links[row + node];
+      if (!node_box(bounds, row + node, o, inv, best_entry)) {
         node = link.x;
         continue;
       }
@@ -909,15 +1085,12 @@ __device__ __forceinline__ int warp_fetch(int* counter, int count) {
 
 // The blocks of `kernel` (a launch of `threads` threads and `bytes` of
 // dynamic shared memory) resident on one SM of the current device, its
-// shared-memory limit raised to kMaxStagedBytes first where `bytes` passes
-// the default 48 KB.
+// shared-memory limit raised to kMaxStagedBytes first where that and its
+// static shared memory pass the default 48 KB.
 template <typename Kernel>
 inline cudaError_t blocks_per_sm(Kernel kernel, int threads, uint32_t bytes, int* blocks) {
-  if (bytes > 48 * 1024) {
-    const cudaError_t status = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, path::kMaxStagedBytes);
-    if (status != cudaSuccess) return status;
-  }
+  const cudaError_t status = path::allow_shared(kernel, bytes, path::kMaxStagedBytes);
+  if (status != cudaSuccess) return status;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, bytes);
 }
 

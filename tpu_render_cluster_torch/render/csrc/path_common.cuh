@@ -321,19 +321,28 @@ __device__ __forceinline__ void store3(float* rows, int64_t i, float3v v) {
   rows[3 * i + 2] = v.z;
 }
 
+// Lets a launch of `kernel` take `bytes` of dynamic shared memory: where
+// they and its static shared memory pass the default 48 KB a block, raises
+// the kernel's limit to `limit` (at least `bytes`).
+template <typename Kernel>
+inline cudaError_t allow_shared(Kernel kernel, size_t bytes, size_t limit = 0) {
+  cudaFuncAttributes attributes;
+  const cudaError_t status = cudaFuncGetAttributes(&attributes, kernel);
+  if (status != cudaSuccess) return status;
+  if (attributes.sharedSizeBytes + bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(limit > bytes ? limit : bytes));
+}
+
 // The dynamic shared memory a launch of `kernel` takes to stage `bytes` of
 // tables: all of them when they fit in kMaxStagedBytes (then *staged is
-// true), else none, the tables then read from global memory. Raises the
-// kernel's limit above the default 48 KB where needed.
+// true), else none, the tables then read from global memory; the kernel's
+// limit raised where needed (allow_shared).
 template <typename Kernel>
 inline cudaError_t staging_for(Kernel kernel, size_t bytes, size_t* shared_bytes, bool* staged) {
   *staged = bytes <= static_cast<size_t>(kMaxStagedBytes);
   *shared_bytes = *staged ? bytes : 0;
-  if (*shared_bytes > 48 * 1024) {
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(*shared_bytes));
-  }
-  return cudaSuccess;
+  return allow_shared(kernel, *shared_bytes);
 }
 
 }  // namespace path

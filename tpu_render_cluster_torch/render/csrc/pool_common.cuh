@@ -31,10 +31,10 @@
 // adds is its Bounce: a type with
 //   size_t bytes() const                  the bytes of its staged tables;
 //   __device__ void stage(float4* dst)    stage them at dst (every thread);
-//   __device__ bool run(scene, sphere_first, n_spheres, frame, lane,
+//   __device__ bool run(scene, sphere_first, n_spheres, frame, ray, lane,
 //                       bounce, counter_stride, seed, o, d, thr, rad)
-//                                         one bounce on the lane's frame
-//                                         (frame -1: none), as
+//                                         one bounce of pool lane `ray` on
+//                                         its frame (frame -1: none), as
 //                                         path::sphere_bounce.
 // pool_mesh_bounce_tlas.cu has a body of its own (G threads a lane, only a
 // block's frames staged) and shares a lane's load and store (load_lane,
@@ -85,7 +85,7 @@ struct SphereBounce {
   __device__ __forceinline__ void stage(float4*) {}
   template <typename Scene>
   __device__ __forceinline__ bool run(const Scene& scene, int sphere_first, int n_spheres, int,
-                                      uint32_t lane, int bounce, uint32_t counter_stride,
+                                      int64_t, uint32_t lane, int bounce, uint32_t counter_stride,
                                       uint32_t seed, float3v& o, float3v& d, float3v& thr,
                                       float3v& rad) const {
     return path::sphere_bounce(scene, sphere_first, n_spheres, lane, bounce, counter_stride,
@@ -149,7 +149,7 @@ __device__ __forceinline__ void bounce_lanes(const State& in, const Spheres& sph
       const path::SceneRows scene = {rows, scene_params};
       const uint32_t counter_stride = 2u * static_cast<uint32_t>(total_bounces) + 2u;
       is_alive = bounce.run(scene, in_window ? fid * spheres.per_frame : 0,
-                            in_window ? spheres.per_frame : 0, in_window ? fid : -1,
+                            in_window ? spheres.per_frame : 0, in_window ? fid : -1, ray,
                             static_cast<uint32_t>(in.lanes[ray]), in.bounces[ray],
                             counter_stride, static_cast<uint32_t>(in.seeds[ray]), o, d, thr, rad);
     }

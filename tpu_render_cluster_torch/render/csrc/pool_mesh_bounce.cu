@@ -21,7 +21,15 @@
 // slab tests, Moller-Trumbore tests), against 53 bytes of state in and 49
 // out per lane. The sphere rows and the mesh tables are staged when they
 // fit in 96 KB (8 frames of 03_physics-2-mesh: 8 KB of spheres, 33 KB of
-// instances, 28 KB of BVH; 32 frames do not fit). Built with --fmad=false.
+// instances, 28 KB of BVH; 32 frames do not fit).
+//
+// Walk order: on a BVH with octant tables (every sah build; the
+// reference's default) the BVH's node tables are its eight octant orders
+// stacked, [8N] rows, and each lane's BLAS walks take the table of its
+// packet (1024 lanes of the pool, BVH_BLOCK_R): the packet's object-space
+// octant per row of the stacked table, voted by the pre-pass
+// packet_octants.cu over all its lanes (mesh::Octants); the shadow walks take
+// the sun's. Built with --fmad=false.
 
 #include "mesh_common.cuh"
 #include "pool_common.cuh"
@@ -30,31 +38,49 @@ namespace {
 
 using path::float3v;
 
+// The reference's packet of the flat variants (BVH_BLOCK_R).
+constexpr int kPacket = 1024;
+
+// kOrdered: the octant-ordered walk, `slot_votes` [P, F K] the packets'
+// votes (nullptr on a one-node BVH).
+template <bool kOrdered>
 struct MeshBounce {
   mesh::MeshTables tables;  // instances: the stacked [F K, 22] table
   int per_frame;  // K
   int n_tri_rows;
+  int n_node_rows;  // N, or 8N for the octant orders
+  const uint8_t* slot_votes;
   size_t bytes() const {
-    return mesh::table_bytes(n_tri_rows, tables.n_nodes, tables.n_instances);
+    return mesh::table_bytes(n_tri_rows, n_node_rows, tables.n_instances);
   }
   __device__ __forceinline__ void stage(float4* staging) {
-    mesh::stage_tables(tables, staging, n_tri_rows);
+    mesh::stage_tables(tables, staging, n_tri_rows, n_node_rows);
   }
   template <typename Scene>
   __device__ __forceinline__ bool run(const Scene& scene, int sphere_first, int n_spheres,
-                                      int frame, uint32_t lane, int bounce,
+                                      int frame, int64_t ray, uint32_t lane, int bounce,
                                       uint32_t counter_stride, uint32_t seed, float3v& o,
                                       float3v& d, float3v& thr, float3v& rad) const {
-    const mesh::FlatInstances instances = {frame >= 0 ? frame * per_frame : 0,
-                                           frame >= 0 ? per_frame : 0};
-    return mesh::bounce(scene, sphere_first, n_spheres, tables, instances, lane, bounce,
-                        counter_stride, seed, o, d, thr, rad);
+    const int first = frame >= 0 ? frame * per_frame : 0;
+    const int count = frame >= 0 ? per_frame : 0;
+    if constexpr (kOrdered) {
+      const uint8_t* votes =
+          slot_votes == nullptr ? nullptr : slot_votes + (ray / kPacket) * tables.n_instances;
+      const mesh::FlatInstances<mesh::Octants> instances = {first, count, {votes, 0, 0}};
+      return mesh::bounce(scene, sphere_first, n_spheres, tables, instances, lane, bounce,
+                          counter_stride, seed, o, d, thr, rad);
+    } else {
+      const mesh::FlatInstances<> instances = {first, count};
+      return mesh::bounce(scene, sphere_first, n_spheres, tables, instances, lane, bounce,
+                          counter_stride, seed, o, d, thr, rad);
+    }
   }
 };
 
+template <bool kOrdered>
 __global__ void __launch_bounds__(pool::kThreads)
-pool_mesh_bounce_kernel(pool::State in, pool::Spheres spheres, MeshBounce bounce, bool staged,
-                        int total_bounces, pool::Outputs out) {
+pool_mesh_bounce_kernel(pool::State in, pool::Spheres spheres, MeshBounce<kOrdered> bounce,
+                        bool staged, int total_bounces, pool::Outputs out) {
   __shared__ float scene_params[path::kParams];
   extern __shared__ float4 staging[];
   pool::bounce_lanes(in, spheres, bounce, staged, total_bounces, out, staging, scene_params);
@@ -63,17 +89,20 @@ pool_mesh_bounce_kernel(pool::State in, pool::Spheres spheres, MeshBounce bounce
 }  // namespace
 
 // Plain C entry for ctypes, as pool_sphere_bounce_launch plus the mesh:
-// instances [n_frames * instances_per_frame, 22] (frame-major), and the
-// shared BVH as for mesh_bounce_launch.
+// instances [n_frames * instances_per_frame, 22] (frame-major), the shared
+// BVH as for mesh_bounce_launch, then `ordered` (nonzero: the node tables
+// are the eight octant orders stacked, [8 n_nodes] rows) and the packets'
+// votes per instance row of packet_octants.cu, [P, n_frames *
+// instances_per_frame] (nullptr on a one-node BVH).
 extern "C" int pool_mesh_bounce_launch(
     const float* origins, const float* directions, const float* throughput,
     const unsigned char* alive, const int* lanes, const int* fids, const int* seeds,
     const int* bounces, int n_rays, const int* live_count, const float* spheres,
     int spheres_per_frame, int n_frames, const float* params, const float* instances,
     int instances_per_frame, const float* triangles, int n_tri_rows, const float* node_bounds,
-    const int* node_links, int n_nodes, int total_bounces, float* contribution,
-    float* origins_out, float* directions_out, float* throughput_out, unsigned char* alive_out,
-    void* stream) {
+    const int* node_links, int n_nodes, int ordered, const unsigned char* slot_votes,
+    int total_bounces, float* contribution, float* origins_out, float* directions_out,
+    float* throughput_out, unsigned char* alive_out, void* stream) {
   if (n_rays > 0 && (instances_per_frame < 0 || n_tri_rows < 1 || n_nodes < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -81,15 +110,21 @@ extern "C" int pool_mesh_bounce_launch(
                           seeds,   bounces,    n_rays,     live_count};
   const pool::Spheres table = {reinterpret_cast<const float4*>(spheres), spheres_per_frame,
                                n_frames, params};
-  const MeshBounce bounce = {{instances, reinterpret_cast<const float4*>(triangles),
-                              reinterpret_cast<const float4*>(node_bounds),
-                              reinterpret_cast<const int4*>(node_links),
-                              n_frames * instances_per_frame, n_nodes},
-                             instances_per_frame,
-                             n_tri_rows};
+  const mesh::MeshTables tables = {instances, reinterpret_cast<const float4*>(triangles),
+                                   reinterpret_cast<const float4*>(node_bounds),
+                                   reinterpret_cast<const int4*>(node_links),
+                                   n_frames * instances_per_frame, n_nodes};
   const pool::Outputs out = {contribution, origins_out, directions_out, throughput_out,
                              alive_out};
-  return pool::launch(pool_mesh_bounce_kernel, in, table, bounce, total_bounces, out, stream);
+  if (ordered) {
+    const MeshBounce<true> bounce = {tables, instances_per_frame, n_tri_rows, 8 * n_nodes,
+                                     slot_votes};
+    return pool::launch(pool_mesh_bounce_kernel<true>, in, table, bounce, total_bounces, out,
+                        stream);
+  }
+  const MeshBounce<false> bounce = {tables, instances_per_frame, n_tri_rows, n_nodes, nullptr};
+  return pool::launch(pool_mesh_bounce_kernel<false>, in, table, bounce, total_bounces, out,
+                      stream);
 }
 
 extern "C" const char* pool_mesh_bounce_error_string(int code) {

@@ -45,9 +45,19 @@
 //     frame, against 82 KB for all 8 frames before). A block whose range
 //     is wider reads the frame tables from global memory, and every block
 //     does where the BVH alone passes 96 KB.
+// Walk order: on a BVH with octant tables (every sah build; the
+// reference's default) the staged BVH is its eight octant orders stacked,
+// [8N] rows, and each lane's BLAS walks take the table of its packet (256
+// lanes of the pool, tlas_block_r()): the packet's object-space octant per
+// slot of the stacked table, voted by the pre-pass packet_octants.cu over
+// all its lanes, other frames' included (mesh::Octants); the shadow walks
+// take the sun's. The TLAS and the key's entry walk stay canonical, as the
+// reference's pool kernel orders its BLAS only (pallas_kernels.py:4027).
 // Built with --fmad=false.
 
 #include <limits.h>
+
+#include <type_traits>
 
 #include "mesh_common.cuh"
 #include "pool_common.cuh"
@@ -84,13 +94,14 @@ struct Layout {
   uint32_t bytes;
 };
 
-Layout plan(int n_tri_rows, int n_nodes, int spheres_per_frame, int per_frame, int tlas_nodes,
-            int n_frames) {
+// n_node_rows: the BVH's node rows (8N for the octant orders).
+Layout plan(int n_tri_rows, int n_node_rows, int spheres_per_frame, int per_frame,
+            int tlas_nodes, int n_frames) {
   for (int frames = kStagedFrames < n_frames ? kStagedFrames : n_frames; frames >= 0; --frames) {
     const size_t sizes[7] = {
         sizeof(float4) * 4 * static_cast<size_t>(n_tri_rows),
-        sizeof(float4) * 2 * static_cast<size_t>(n_nodes),
-        sizeof(int4) * static_cast<size_t>(n_nodes),
+        sizeof(float4) * 2 * static_cast<size_t>(n_node_rows),
+        sizeof(int4) * static_cast<size_t>(n_node_rows),
         sizeof(float4) * 4 * static_cast<size_t>(spheres_per_frame) * frames,
         sizeof(float) * mesh::kInstanceWidth * static_cast<size_t>(per_frame) * frames,
         sizeof(float4) * 2 * static_cast<size_t>(tlas_nodes) * frames,
@@ -110,9 +121,15 @@ Layout plan(int n_tri_rows, int n_nodes, int spheres_per_frame, int per_frame, i
   return {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
 }
 
-template <int G>
+// The reference's packet of the TLAS variants (tlas_block_r()).
+constexpr int kPacket = 256;
+
+// kOrdered: the octant-ordered BLAS walk, `slot_votes` [P, F K] the
+// packets' votes (nullptr on a one-node BVH), the BVH's rows n_node_rows.
+template <int G, bool kOrdered>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 pool_mesh_bounce_tlas_kernel(pool::State in, pool::Spheres spheres, Tables t, Layout layout,
+                             int n_node_rows, const uint8_t* __restrict__ slot_votes,
                              int total_bounces, pool::Outputs out) {
   __shared__ float scene_params[path::kParams];
   __shared__ uint64_t barrier;
@@ -162,9 +179,9 @@ pool_mesh_bounce_tlas_kernel(pool::State in, pool::Spheres spheres, Tables t, La
           {smem + layout.tris, reinterpret_cast<const char*>(m.tris),
            static_cast<uint32_t>(sizeof(float4) * 4 * t.n_tri_rows)},
           {smem + layout.bounds, reinterpret_cast<const char*>(m.bounds),
-           static_cast<uint32_t>(sizeof(float4) * 2 * m.n_nodes)},
+           static_cast<uint32_t>(sizeof(float4) * 2 * n_node_rows)},
           {smem + layout.links, reinterpret_cast<const char*>(m.links),
-           static_cast<uint32_t>(sizeof(int4) * m.n_nodes)},
+           static_cast<uint32_t>(sizeof(int4) * n_node_rows)},
           {smem + layout.spheres,
            reinterpret_cast<const char*>(spheres.rows + 4 * s_rows),
            static_cast<uint32_t>(sizeof(float4) * 4 * spheres.per_frame) * span},
@@ -190,13 +207,20 @@ pool_mesh_bounce_tlas_kernel(pool::State in, pool::Spheres spheres, Tables t, La
     if (walks) {
       // A lane outside the window sees no sphere and no node.
       const int n = in_window ? spheres.per_frame : 0;
-      const mesh::GroupTlas<G> walk = {g,
-                                       tlas_bounds,
-                                       tlas_links,
-                                       t.tlas_nodes * base,
-                                       t.per_frame * base,
-                                       in_window ? t.tlas_nodes * fid : 0,
-                                       in_window ? t.tlas_nodes * (fid + 1) : 0};
+      using Order = std::conditional_t<kOrdered, mesh::Octants, mesh::Canonical>;
+      Order order{};
+      if constexpr (kOrdered) {
+        const int64_t votes = (ray / kPacket) * m.n_instances;
+        order = {slot_votes == nullptr ? nullptr : slot_votes + votes, 0, 0};
+      }
+      const mesh::GroupTlas<G, Order> walk = {g,
+                                              tlas_bounds,
+                                              tlas_links,
+                                              t.tlas_nodes * base,
+                                              t.per_frame * base,
+                                              in_window ? t.tlas_nodes * fid : 0,
+                                              in_window ? t.tlas_nodes * (fid + 1) : 0,
+                                              order};
       const path::SceneRows scene = {sphere_rows, scene_params};
       const uint32_t counter_stride = 2u * static_cast<uint32_t>(total_bounces) + 2u;
       is_alive = mesh::bounce(scene, in_window ? (fid - base) * n : 0, n, m, walk,
@@ -213,30 +237,37 @@ pool_mesh_bounce_tlas_kernel(pool::State in, pool::Spheres spheres, Tables t, La
   t.keys[ray] = mesh::coherence_key(o, d, !is_alive, in.fids[ray], candidate, t.key_window);
 }
 
-template <int G>
+template <int G, bool kOrdered>
 int launch_group(const pool::State& in, const pool::Spheres& spheres, const Tables& t,
-                 const Layout& layout, int total_bounces, const pool::Outputs& out,
-                 cudaStream_t stream) {
-  const auto kernel = pool_mesh_bounce_tlas_kernel<G>;
-  if (layout.bytes > 48 * 1024) {
-    const cudaError_t status = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(layout.bytes));
-    if (status != cudaSuccess) return static_cast<int>(status);
-  }
+                 const Layout& layout, int n_node_rows, const uint8_t* slot_votes,
+                 int total_bounces, const pool::Outputs& out, cudaStream_t stream) {
+  const auto kernel = pool_mesh_bounce_tlas_kernel<G, kOrdered>;
+  const cudaError_t status = path::allow_shared(kernel, layout.bytes);
+  if (status != cudaSuccess) return static_cast<int>(status);
   const int64_t threads = static_cast<int64_t>(in.n_rays) * G;
   const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
-  kernel<<<blocks, kThreads, layout.bytes, stream>>>(in, spheres, t, layout, total_bounces, out);
+  kernel<<<blocks, kThreads, layout.bytes, stream>>>(in, spheres, t, layout, n_node_rows,
+                                                     slot_votes, total_bounces, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int G>
-int occupancy_group(const Layout& layout) {
-  const auto kernel = pool_mesh_bounce_tlas_kernel<G>;
-  if (layout.bytes > 48 * 1024) {
-    const cudaError_t status = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(layout.bytes));
-    if (status != cudaSuccess) return -static_cast<int>(status);
+int launch_order(const pool::State& in, const pool::Spheres& spheres, const Tables& t,
+                 const Layout& layout, int n_node_rows, bool ordered, const uint8_t* slot_votes,
+                 int total_bounces, const pool::Outputs& out, cudaStream_t stream) {
+  if (ordered) {
+    return launch_group<G, true>(in, spheres, t, layout, n_node_rows, slot_votes, total_bounces,
+                                 out, stream);
   }
+  return launch_group<G, false>(in, spheres, t, layout, n_node_rows, nullptr, total_bounces, out,
+                                stream);
+}
+
+template <int G, bool kOrdered>
+int occupancy_group(const Layout& layout) {
+  const auto kernel = pool_mesh_bounce_tlas_kernel<G, kOrdered>;
+  const cudaError_t allowed = path::allow_shared(kernel, layout.bytes);
+  if (allowed != cudaSuccess) return -static_cast<int>(allowed);
   int blocks = 0;
   const cudaError_t status =
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, layout.bytes);
@@ -248,8 +279,12 @@ int occupancy_group(const Layout& layout) {
 // Plain C entry for ctypes, as pool_mesh_bounce_launch with each frame's
 // instances in slot order and, after the BVH, the stacked TLAS windows
 // (node bounds [n_frames * tlas_nodes_per_frame, 8], links likewise [.., 4]
-// int32) and the window's key window [6]; after the five outputs the key
-// [n_rays] int32; then the group size G (1, 2, 4 or 8 threads a lane).
+// int32) and the window's key window [6]; then `ordered` (nonzero: the
+// BVH's node tables are its eight octant orders stacked, [8 n_nodes] rows)
+// and the packets' votes per slot of packet_octants.cu, [P, n_frames *
+// instances_per_frame] (nullptr on a one-node BVH); after the five outputs
+// the key [n_rays] int32; then the group size G (1, 2, 4 or 8 threads a
+// lane).
 extern "C" int pool_mesh_bounce_tlas_launch(
     const float* origins, const float* directions, const float* throughput,
     const unsigned char* alive, const int* lanes, const int* fids, const int* seeds,
@@ -257,9 +292,10 @@ extern "C" int pool_mesh_bounce_tlas_launch(
     int spheres_per_frame, int n_frames, const float* params, const float* instances,
     int instances_per_frame, const float* triangles, int n_tri_rows, const float* node_bounds,
     const int* node_links, int n_nodes, const float* tlas_bounds, const int* tlas_links,
-    int tlas_nodes_per_frame, const float* key_window, int total_bounces, float* contribution,
-    float* origins_out, float* directions_out, float* throughput_out, unsigned char* alive_out,
-    int* key_out, int group, void* stream) {
+    int tlas_nodes_per_frame, const float* key_window, int ordered,
+    const unsigned char* slot_votes, int total_bounces, float* contribution, float* origins_out,
+    float* directions_out, float* throughput_out, unsigned char* alive_out, int* key_out,
+    int group, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaSuccess);
   if (spheres_per_frame < 1 || n_frames < 1 || total_bounces < 1 || instances_per_frame < 1 ||
       n_tri_rows < 1 || n_nodes < 1 || tlas_nodes_per_frame < 1) {
@@ -280,38 +316,47 @@ extern "C" int pool_mesh_bounce_tlas_launch(
                     n_tri_rows,
                     key_window,
                     key_out};
-  const Layout layout = plan(n_tri_rows, n_nodes, spheres_per_frame, instances_per_frame,
+  const int n_node_rows = (ordered ? 8 : 1) * n_nodes;
+  const Layout layout = plan(n_tri_rows, n_node_rows, spheres_per_frame, instances_per_frame,
                              tlas_nodes_per_frame, n_frames);
   const pool::Outputs out = {contribution, origins_out, directions_out, throughput_out,
                              alive_out};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool o = ordered != 0;
   switch (group) {
-    case 1: return launch_group<1>(in, table, t, layout, total_bounces, out, s);
-    case 2: return launch_group<2>(in, table, t, layout, total_bounces, out, s);
-    case 4: return launch_group<4>(in, table, t, layout, total_bounces, out, s);
-    case 8: return launch_group<8>(in, table, t, layout, total_bounces, out, s);
+    case 1: return launch_order<1>(in, table, t, layout, n_node_rows, o, slot_votes,
+                                   total_bounces, out, s);
+    case 2: return launch_order<2>(in, table, t, layout, n_node_rows, o, slot_votes,
+                                   total_bounces, out, s);
+    case 4: return launch_order<4>(in, table, t, layout, n_node_rows, o, slot_votes,
+                                   total_bounces, out, s);
+    case 8: return launch_order<8>(in, table, t, layout, n_node_rows, o, slot_votes,
+                                   total_bounces, out, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The blocks of the group-G kernel resident on one SM at a launch of these
-// tables (cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative CUDA
-// error code on failure), with the launch's dynamic shared memory in
-// *shared_bytes and the frames a block may stage in *staged_frames (-1:
-// the BVH is not staged, nothing is).
+// tables (`ordered`: the octant-ordered walk's kernel and tables;
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative CUDA error code
+// on failure), with the launch's dynamic shared memory in *shared_bytes and
+// the frames a block may stage in *staged_frames (-1: the BVH is not
+// staged, nothing is).
 extern "C" int pool_mesh_bounce_tlas_occupancy(int group, int spheres_per_frame, int n_frames,
                                                int instances_per_frame, int n_tri_rows,
                                                int n_nodes, int tlas_nodes_per_frame,
-                                               int* shared_bytes, int* staged_frames) {
-  const Layout layout = plan(n_tri_rows, n_nodes, spheres_per_frame, instances_per_frame,
-                             tlas_nodes_per_frame, n_frames);
+                                               int ordered, int* shared_bytes,
+                                               int* staged_frames) {
+  const Layout layout = plan(n_tri_rows, (ordered ? 8 : 1) * n_nodes, spheres_per_frame,
+                             instances_per_frame, tlas_nodes_per_frame, n_frames);
   *shared_bytes = static_cast<int>(layout.bytes);
   *staged_frames = layout.bvh ? layout.frames : -1;
+  const bool o = ordered != 0;
   switch (group) {
-    case 1: return occupancy_group<1>(layout);
-    case 2: return occupancy_group<2>(layout);
-    case 4: return occupancy_group<4>(layout);
-    case 8: return occupancy_group<8>(layout);
+    case 1: return o ? occupancy_group<1, true>(layout) : occupancy_group<1, false>(layout);
+    case 2: return o ? occupancy_group<2, true>(layout) : occupancy_group<2, false>(layout);
+    case 4: return o ? occupancy_group<4, true>(layout) : occupancy_group<4, false>(layout);
+    case 8: return o ? occupancy_group<8, true>(layout) : occupancy_group<8, false>(layout);
     default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,7 +1,8 @@
 """The render path's kernels and their plain PyTorch versions.
 
-Counterpart of ``tpu_render_cluster/render/pallas_kernels.py``. Twelve
-kernels, written in CUDA C++ for Hopper and built by ``_build.py``:
+Counterpart of ``tpu_render_cluster/render/pallas_kernels.py``. The
+kernels of its twelve ``pallas_call`` sites, written in CUDA C++ for Hopper
+and built by ``_build.py``:
 
 - ``csrc/trace_fused.cu``, the sphere path-trace megakernel that replaces
   the TPU's ``_trace_fused`` in its positional-counter mode, and
@@ -50,6 +51,22 @@ kernels, written in CUDA C++ for Hopper and built by ``_build.py``:
   ``bounce_group`` of the launch's width), bit for bit the one-thread walk;
   the per-bounce one runs persistent blocks that take rays from a work
   counter (``_work_counter``), the pool one stages only its blocks' frames.
+
+The walk order of rows 3, 4 and 6 (the three mesh path kernels, flat and
+TLAS) is the reference's default: on a BVH with octant tables (every
+``sah`` build; ``walks_ordered``) each walk takes one of eight near-first
+re-threadings of the node tables, the one of its packet's majority vote
+over its lanes' directions (``packet_octants``: a packet is the reference
+kernel's ray block, ``TLAS_BLOCK_R`` lanes under the TLAS, else
+``BVH_BLOCK_R``, in launch order), a BLAS walk by the packet's directions
+in the instance's object space (``packet_instance_octants``), a TLAS walk by
+the world directions, a shadow walk by the sun's; the pool orders its BLAS
+only. A megakernel votes inside the launch (its block is the packet). A
+per-bounce or pool launch brings its passes (``ORDERED_PASSES``): the vote
+pass ``csrc/packet_octants.cu`` before it and, for the per-bounce TLAS
+kernel, the key pass ``csrc/mesh_entry_keys.cu`` after it, whose entry walk
+votes over the packet's new directions (``entry_keys``). A BVH without
+octant tables takes the canonical order, as in the reference.
 
 ``trace_paths_fused`` / ``trace_paths_fused_mesh`` / ``sphere_bounce`` /
 ``mesh_bounce`` / ``pool_sphere_bounce`` / ``pool_mesh_bounce`` and the
@@ -108,6 +125,9 @@ _DET_EPS = 1e-12  # Moller-Trumbore's parallel-ray threshold
 # default), the TLAS tiers' bucket and lane quantum.
 TLAS_LEAF = 4
 TLAS_BLOCK_R = 256
+# The flat instance sweep's ray block (the reference's ``BVH_BLOCK_R``): the
+# packet of the flat variants' octant vote.
+BVH_BLOCK_R = 1024
 # The coherence key's dead flag; the key stays below 2^30, so it sorts as
 # a positive int32.
 KEY_DEAD_BIT = 29
@@ -126,7 +146,8 @@ OCCLUDED_GROUP = 0
 # "pool_mesh_bounce", the TLAS variants "trace_fused_mesh_tlas",
 # "mesh_bounce_tlas", "pool_mesh_bounce_tlas" and the unit kernels
 # "intersect_spheres", "occluded_spheres", "intersect_instances",
-# "occluded_instances", "intersect_mesh", "occluded_mesh") and plain-version
+# "occluded_instances", "intersect_mesh", "occluded_mesh", and the ordered
+# walk's passes "packet_octants" and "mesh_entry_keys") and plain-version
 # calls ("..._reference") since the last reset_counts().
 counts = {
     "trace_fused": 0,
@@ -161,7 +182,28 @@ counts = {
     "pool_mesh_bounce_tlas_reference": 0,
     "trace_fused_lanes": 0,
     "trace_fused_lanes_reference": 0,
+    "packet_octants": 0,
+    "packet_octants_reference": 0,
+    "mesh_entry_keys": 0,
+    "mesh_entry_keys_reference": 0,
 }
+
+
+# The passes one launch of a per-bounce or pool mesh kernel brings with it
+# on the octant-ordered walk (a BVH with octant tables): the packet vote
+# before it and, for the per-bounce TLAS kernel, the key's entry walk after.
+ORDERED_PASSES = {
+    "mesh_bounce": ("packet_octants",),
+    "mesh_bounce_tlas": ("packet_octants", "mesh_entry_keys"),
+    "pool_mesh_bounce": ("packet_octants",),
+    "pool_mesh_bounce_tlas": ("packet_octants",),
+}
+
+
+def launch_names(kernel: str, ordered: bool = True) -> tuple[str, ...]:
+    """The counts one launch of ``kernel`` through its wrapper adds one to:
+    its own and, on the octant-ordered walk, its passes'."""
+    return (kernel, *ORDERED_PASSES.get(kernel, ())) if ordered else (kernel,)
 
 
 def reset_counts() -> None:
@@ -356,36 +398,53 @@ _TLAS_ARGTYPES = [_PTR, _PTR, _INT]
 _OUTPUT_ARGTYPES = [_PTR] * 6
 # A TLAS bounce: the key window, after the tables; the key, after the outputs.
 _KEYED_OUTPUT_ARGTYPES = [_PTR] * 7
+# The walk order of rows 3, 4 and 6, after their tables: `ordered` (the
+# node tables are the eight octant orders stacked) and, per bounce and
+# pool, the packet votes of ``packet_octants`` (the per-bounce TLAS
+# kernel: the world octants, then the slots'; the others the slots'; an
+# ordered per-bounce TLAS launch takes the votes for its flag).
 _LAUNCH_ARGTYPES = {
     "trace_fused": [_PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _INT, _INT, _PTR, _PTR],
     "trace_fused_lanes": [_PTR, _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _INT, _INT, _PTR, _PTR],
     "trace_fused_mesh": [
-        _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, _INT, _PTR, _PTR,
+        _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, _INT, _INT, _PTR, _PTR,
     ],
     "sphere_bounce": [*_STATE_ARGTYPES, *_SPHERE_ARGTYPES, _INT, _INT, _INT, *_OUTPUT_ARGTYPES],
     "mesh_bounce": [
-        *_STATE_ARGTYPES, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, _INT, _INT,
+        *_STATE_ARGTYPES, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, _PTR, _INT, _INT, _INT,
         *_OUTPUT_ARGTYPES,
     ],
     "pool_sphere_bounce": [
         *_POOL_STATE_ARGTYPES, *_POOL_SPHERE_ARGTYPES, _INT, *_OUTPUT_ARGTYPES,
     ],
     "pool_mesh_bounce": [
-        *_POOL_STATE_ARGTYPES, *_POOL_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, *_OUTPUT_ARGTYPES,
+        *_POOL_STATE_ARGTYPES, *_POOL_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, _PTR, _INT,
+        *_OUTPUT_ARGTYPES,
     ],
     "trace_fused_mesh_tlas": [
-        _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, *_TLAS_ARGTYPES, _INT, _INT, _PTR,
-        _PTR,
+        _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, *_TLAS_ARGTYPES, _INT, _INT, _INT,
+        _PTR, _PTR,
     ],
     # The group walk's kernels: after the key, the group size G; the
     # per-bounce one then its work counter.
     "mesh_bounce_tlas": [
-        *_STATE_ARGTYPES, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, *_TLAS_ARGTYPES, _PTR, _INT, _INT,
-        _INT, *_KEYED_OUTPUT_ARGTYPES[:-1], _INT, _PTR, _PTR,
+        *_STATE_ARGTYPES, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, *_TLAS_ARGTYPES, _PTR, _PTR, _PTR,
+        _INT, _INT, _INT, *_KEYED_OUTPUT_ARGTYPES[:-1], _INT, _PTR, _PTR,
     ],
     "pool_mesh_bounce_tlas": [
         *_POOL_STATE_ARGTYPES, *_POOL_SPHERE_ARGTYPES, *_MESH_ARGTYPES, *_TLAS_ARGTYPES, _PTR,
-        _INT, *_KEYED_OUTPUT_ARGTYPES[:-1], _INT, _PTR,
+        _INT, _PTR, _INT, *_KEYED_OUTPUT_ARGTYPES[:-1], _INT, _PTR,
+    ],
+    # The ordered walk's vote pre-pass: directions, n_rays, the live count,
+    # the packet, the instance rows and their count, the world octants and
+    # the slots' (each may be null), the stream.
+    "packet_octants": [_PTR, _INT, _PTR, _INT, _PTR, _INT, _PTR, _PTR, _PTR],
+    # The ordered per-bounce TLAS launch's keys: its outputs' origins,
+    # directions and alive, n_rays, the live count, the slots and their
+    # count, the ordered TLAS (bounds, links, M), the key window, bounce,
+    # total_bounces, the key, the stream.
+    "mesh_entry_keys": [
+        _PTR, _PTR, _PTR, _INT, _PTR, _PTR, _INT, _PTR, _PTR, _INT, _PTR, _INT, _INT, _PTR, _PTR,
     ],
     # A unit kernel: the rays (and its per-ray input), n_rays, the tables,
     # its outputs and the stream.
@@ -579,6 +638,30 @@ def instance_entry_candidates(
     return out
 
 
+def slot_entries(
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    lo_w: torch.Tensor,
+    hi_w: torch.Tensor,
+    slot: torch.Tensor,
+) -> torch.Tensor:
+    """[R]: the distance max(near, 0) at which each ray enters the world box
+    of its ``slot`` [R] (rows of ``lo_w`` / ``hi_w`` [K, 3]), as
+    ``instance_entry_candidates`` computes it; INF where the ray misses the
+    box or the slot is K (none). Two candidates of an entry walk tie
+    exactly where their entries are equal."""
+    small = torch.abs(directions) < 1e-12
+    inv = 1.0 / torch.where(small, torch.where(directions < 0, -1e-12, 1e-12), directions)
+    k = lo_w.shape[0]
+    row = slot.clamp_max(k - 1)
+    t0 = (lo_w[row] - origins) * inv
+    t1 = (hi_w[row] - origins) * inv
+    near = torch.minimum(t0, t1).amax(dim=1)
+    far = torch.maximum(t0, t1).amin(dim=1)
+    entry = torch.clamp_min(near, 0.0)
+    return torch.where((far >= entry) & (slot < k), entry, INF)
+
+
 def _check_bvh(bvh: MeshBVH, origins: torch.Tensor, more: Sequence[torch.Tensor] = ()) -> None:
     devices = {t.device for t in (*bvh[:-1], *more)} | {origins.device}
     if len(devices) != 1:
@@ -618,46 +701,68 @@ def trace_paths_fused_mesh(
     raise ValueError(f"Unsupported device {origins.device}")
 
 
-def _pack_bvh(bvh: MeshBVH) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _pack_bvh(
+    bvh: MeshBVH, ordered: bool = False
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(triangle rows [T, 16] = v0, e1, e2, normal each padded to a float4,
     node bounds [N, 8] = lo, 0, hi, 0, node links [N, 4] int32 = skip,
-    first, count, 0) in the canonical node order."""
+    first, count, 0) in the canonical node order; ``ordered``: the node
+    tables of the eight octant orders stacked [8N] (``bvh.octant``, local
+    skip links, the same leaf rows)."""
     zero_t = torch.zeros_like(bvh.v0[:, :1])
     triangles = torch.cat(
         [bvh.v0, zero_t, bvh.e1, zero_t, bvh.e2, zero_t, bvh.normal, zero_t], dim=1
     ).to(torch.float32).contiguous()
-    zero_n = torch.zeros_like(bvh.bounds_min[:, :1])
-    bounds = torch.cat([bvh.bounds_min, zero_n, bvh.bounds_max, zero_n], dim=1)
+    nodes = bvh.octant if ordered else bvh
+    zero_n = torch.zeros_like(nodes.bounds_min[:, :1])
+    bounds = torch.cat([nodes.bounds_min, zero_n, nodes.bounds_max, zero_n], dim=1)
     links = torch.stack(
-        [bvh.skip, bvh.first, bvh.count, torch.zeros_like(bvh.skip)], dim=1
+        [nodes.skip, nodes.first, nodes.count, torch.zeros_like(nodes.skip)], dim=1
     ).to(torch.int32).contiguous()
     return triangles, bounds.to(torch.float32).contiguous(), links
 
 
-# The kernels' layout of a BVH, packed once per BVH.
+# The kernels' layout of a BVH, packed once per BVH: the canonical order
+# (every kernel's without octant tables, and the scan's unit kernels'), and
+# the octant-ordered tables of rows 3, 4 and 6.
 _bvh_operands = _IdentityCache(_pack_bvh)
+_ordered_bvh_operands = _IdentityCache(functools.partial(_pack_bvh, ordered=True))
 
 
-def _bvh_tables(bvh: MeshBVH) -> list:
-    """The BVH arguments of a launch (``_BVH_ARGTYPES``)."""
-    triangles, bounds, links = _bvh_operands(bvh)
+def walks_ordered(bvh: MeshBVH) -> bool:
+    """Whether the path kernels (rows 3, 4 and 6) walk this BVH in the
+    octant order: wherever it carries octant tables (every ``sah`` build),
+    as the reference's default does (``_blas_node_arrays``)."""
+    return bvh.octant is not None
+
+
+def _bvh_tables(bvh: MeshBVH, ordered: bool = False) -> list:
+    """The BVH arguments of a launch (``_BVH_ARGTYPES``): the node count is
+    N, and an ordered launch's tables hold 8N rows."""
+    triangles, bounds, links = (_ordered_bvh_operands if ordered else _bvh_operands)(bvh)
     return [
         triangles.data_ptr(), triangles.shape[0], bounds.data_ptr(), links.data_ptr(),
-        bounds.shape[0],
+        bvh.skip.shape[0],
     ]
 
 
-def _mesh_tables(mesh: MeshSet, tlas: bool = False) -> list:
+def _mesh_tables(mesh: MeshSet, tlas: bool = False, ordered: bool = False) -> list:
     """The mesh arguments of a launch (``_MESH_ARGTYPES``; with ``tlas``,
-    the instances in slot order, then the frame's TLAS, ``_TLAS_ARGTYPES``)."""
+    the instances in slot order, then the frame's TLAS, ``_TLAS_ARGTYPES``:
+    with ``ordered``, its eight octant orders stacked [8M], the node count
+    M)."""
     if not tlas:
         table = instance_operands(mesh)
-        return [table.data_ptr(), table.shape[0], *_bvh_tables(mesh.bvh)]
+        return [table.data_ptr(), table.shape[0], *_bvh_tables(mesh.bvh, ordered)]
     frame = tlas_frame(mesh)
-    links = tlas_links(frame.slots.shape[0], 1, frame.slots.device)
+    k_count = frame.slots.shape[0]
+    if ordered:
+        bounds, links = frame.octant_node_bounds, tlas_octant_links(k_count, frame.slots.device)
+    else:
+        bounds, links = frame.node_bounds, tlas_links(k_count, 1, frame.slots.device)
     return [
-        frame.slots.data_ptr(), frame.slots.shape[0], *_bvh_tables(mesh.bvh),
-        frame.node_bounds.data_ptr(), links.data_ptr(), links.shape[0],
+        frame.slots.data_ptr(), k_count, *_bvh_tables(mesh.bvh, ordered),
+        bounds.data_ptr(), links.data_ptr(), frame.node_bounds.shape[0],
     ]
 
 
@@ -667,10 +772,12 @@ def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces
     launch = getattr(library, f"{name}_launch")
     spheres, params = _sphere_operands(scene)
     origins, directions, radiance, stream = _ray_operands(origins, directions)
+    ordered = walks_ordered(mesh.bvh)
     status = launch(
         origins.data_ptr(), directions.data_ptr(), origins.shape[0],
-        spheres.data_ptr(), spheres.shape[0], params.data_ptr(), *_mesh_tables(mesh, tlas),
-        int(seed), int(max_bounces), radiance.data_ptr(), stream,
+        spheres.data_ptr(), spheres.shape[0], params.data_ptr(),
+        *_mesh_tables(mesh, tlas, ordered), int(ordered), int(seed), int(max_bounces),
+        radiance.data_ptr(), stream,
     )
     _check_status(library, name, status)
     counts[name] += 1
@@ -696,10 +803,13 @@ def tlas_frame_on_host(mesh: MeshSet) -> TlasFrame:
         cached_tlas_topology(table.shape[0], TLAS_LEAF), slots[:, 13:16], slots[:, 16:19]
     )
     zero = torch.zeros_like(node_lo[:, :1])
+    node_bounds = torch.cat([node_lo, zero, node_hi, zero], dim=1).contiguous()
+    perm = cached_tlas_topology(table.shape[0], TLAS_LEAF).octant_perm
     return TlasFrame(
         slots=slots.contiguous(),
-        node_bounds=torch.cat([node_lo, zero, node_hi, zero], dim=1).contiguous(),
+        node_bounds=node_bounds,
         key_window=mesh_key_bounds(lo_w, hi_w),
+        octant_node_bounds=node_bounds[torch.as_tensor(perm, dtype=torch.int64)].contiguous(),
     )
 
 
@@ -715,6 +825,22 @@ def tlas_links(k_count: int, frames: int, device: torch.device) -> torch.Tensor:
     its leaf starts by f K (``pallas_kernels.py:3915-3958``). Static per
     (K, leaf, F): copied to the device once."""
     return _tlas_links(k_count, TLAS_LEAF, frames, torch.device(device))
+
+
+def tlas_octant_links(k_count: int, device: torch.device) -> torch.Tensor:
+    """[8M, 4] int32 links of the K-slot topology's eight octant orders
+    (``TlasTopology.octant_*``): order o at rows [o M, (o + 1) M), its skip
+    links local to them (``_tlas_node_arrays``, ``pallas_kernels.py:3130``).
+    Static per (K, leaf): copied to the device once."""
+    return _tlas_octant_links(k_count, TLAS_LEAF, torch.device(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _tlas_octant_links(k_count: int, leaf: int, device: torch.device) -> torch.Tensor:
+    topology = cached_tlas_topology(k_count, leaf)
+    links = np.stack([topology.octant_skip, topology.octant_first, topology.octant_count,
+                      np.zeros_like(topology.octant_count)], axis=1)
+    return torch.as_tensor(links.astype(np.int32), device=device)
 
 
 @functools.lru_cache(maxsize=16)
@@ -950,10 +1076,18 @@ def _launch_bounce(
     spheres, params = _sphere_operands(scene)
     tables = [spheres.data_ptr(), spheres.shape[0], params.data_ptr()]
     tlas = name == "mesh_bounce_tlas"
+    ordered = mesh is not None and walks_ordered(mesh.bvh)
     if mesh is not None:
-        tables += _mesh_tables(mesh, tlas)
+        tables += _mesh_tables(mesh, tlas, ordered)
     if tlas:
-        tables.append(tlas_frame(mesh).key_window.data_ptr())
+        frame = tlas_frame(mesh)
+        tables.append(frame.key_window.data_ptr())
+        votes = _packet_votes(state[1], live, frame.slots, TLAS_BLOCK_R, mesh.bvh, ordered, True)
+        tables += [0, 0] if votes is None else [votes[0].data_ptr(), _pointer(votes[1])]
+    elif mesh is not None:
+        votes = _packet_votes(state[1], live, instance_operands(mesh), BVH_BLOCK_R, mesh.bvh,
+                              ordered, False)
+        tables += [int(ordered), 0 if votes is None else _pointer(votes[1])]
     out = _bounce_outputs(rays, device, tlas)
     stream = torch.cuda.current_stream(device)
     walk = []
@@ -968,7 +1102,147 @@ def _launch_bounce(
     )
     _check_status(library, name, status)
     counts[name] += 1
+    if tlas and ordered:
+        _launch_entry_keys(mesh, out.origins, out.directions, out.alive, out.key, live, bounce,
+                           total_bounces)
     return out
+
+
+def _pointer(tensor: torch.Tensor | None) -> int:
+    return 0 if tensor is None else tensor.data_ptr()
+
+
+def _packet_votes(directions, live, table, block, bvh, ordered, world):
+    """The packet votes of an ordered launch on the card (``packet_votes``:
+    ``world`` the packets' world octants [P], and their octants per row of
+    ``table`` [P, K], None on a one-node BVH, whose eight tables are one
+    node alike); None on the canonical walk."""
+    if not ordered:
+        return None
+    return _launch_packet_votes(directions, live, table, block, world, bvh.skip.shape[0] > 1)
+
+
+def _launch_packet_votes(directions, live, table, block, world, rows):
+    library = _library("packet_octants")
+    rays = directions.shape[0]
+    packets = -(-rays // block)
+    device = directions.device
+    k = table.shape[0]
+    tlas_out = torch.empty((packets,), dtype=torch.uint8, device=device) if world else None
+    slot_out = torch.empty((packets, k), dtype=torch.uint8, device=device) if rows else None
+    status = library.packet_octants_launch(
+        directions.data_ptr(), rays, live.data_ptr(), block, table.data_ptr(), k,
+        _pointer(tlas_out), _pointer(slot_out), torch.cuda.current_stream(device).cuda_stream,
+    )
+    _check_status(library, "packet_octants", status)
+    counts["packet_octants"] += 1
+    return tlas_out, slot_out
+
+
+def _launch_entry_keys(mesh, origins, directions, alive, key, live, bounce,
+                       total_bounces) -> None:
+    """The key column of an ordered per-bounce TLAS launch's outputs
+    (``mesh_entry_keys``), written into ``key``."""
+    library = _library("mesh_entry_keys")
+    frame = tlas_frame(mesh)
+    k_count = frame.slots.shape[0]
+    links = tlas_octant_links(k_count, frame.slots.device)
+    status = library.mesh_entry_keys_launch(
+        origins.data_ptr(), directions.data_ptr(), alive.data_ptr(), origins.shape[0],
+        live.data_ptr(), frame.slots.data_ptr(), k_count, frame.octant_node_bounds.data_ptr(),
+        links.data_ptr(), frame.node_bounds.shape[0], frame.key_window.data_ptr(), int(bounce),
+        int(total_bounces), key.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream,
+    )
+    _check_status(library, "mesh_entry_keys", status)
+    counts["mesh_entry_keys"] += 1
+
+
+def packet_votes(
+    directions: torch.Tensor,
+    table: torch.Tensor,
+    live_count,
+    *,
+    block: int,
+    world: bool = True,
+    rows: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """The packet votes of the octant-ordered walk of a launch of rays
+    along ``directions`` [R, 3]: (``world``: each packet's world octant [P],
+    the TLAS walks'; ``rows``: its octant in the object space of each row of
+    the instance ``table`` [K, 22], [P, K], the BLAS walks'), uint8, None
+    where not asked for; P = ceil(R / ``block``) packets of ``block`` lanes
+    (``packet_octants`` and ``packet_instance_octants``), those at or past
+    ``live_count`` 0 (no kernel walks them). CUDA tensors go to the vote
+    pass (``csrc/packet_octants.cu``), CPU tensors to its plain version."""
+    if directions.device.type == "cuda":
+        live = _live_tensor(live_count, directions.device)
+        return _launch_packet_votes(directions.contiguous(), live, table, block, world, rows)
+    if directions.device.type == "cpu":
+        return packet_votes_reference(directions, table, live_count, block=block, world=world,
+                                      rows=rows)
+    raise ValueError(f"Unsupported device {directions.device}")
+
+
+def packet_votes_reference(directions, table, live_count, *, block, world=True, rows=True):
+    """The plain version of ``packet_votes``, on any device."""
+    counts["packet_octants_reference"] += 1
+    packets = -(-directions.shape[0] // block)
+    walked = (torch.arange(packets, device=directions.device) * block < int(live_count))
+    out = []
+    if world:
+        out.append((packet_octants(directions, block) * walked).to(torch.uint8))
+    else:
+        out.append(None)
+    if rows:
+        votes = packet_instance_octants(directions, table, block)
+        out.append((votes * walked[:, None]).to(torch.uint8))
+    else:
+        out.append(None)
+    return tuple(out)
+
+
+def entry_keys(
+    mesh: MeshSet,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    alive: torch.Tensor,
+    live_count,
+    bounce: int,
+    *,
+    total_bounces: int,
+) -> torch.Tensor:
+    """The key column [R] int32 of an ordered per-bounce TLAS launch from
+    its outputs (``origins``, ``directions`` [R, 3], ``alive`` [R]): the
+    coherence key with the slot each live new ray below ``live_count``
+    enters first, walked through the TLAS table of its packet's vote (256
+    lanes) over every lane's new direction; K for the others and on the
+    last bounce. The mesh's BVH must carry octant tables. CUDA tensors go
+    to ``csrc/mesh_entry_keys.cu``, CPU tensors to its plain version."""
+    if not walks_ordered(mesh.bvh):
+        raise ValueError("entry_keys is the octant-ordered walk's: the BVH has no octant tables")
+    if origins.device.type == "cuda":
+        key = torch.empty(origins.shape[0], dtype=torch.int32, device=origins.device)
+        _launch_entry_keys(mesh, origins.contiguous(), directions.contiguous(), alive.contiguous(),
+                           key, _live_tensor(live_count, origins.device), bounce, total_bounces)
+        return key
+    if origins.device.type == "cpu":
+        return entry_keys_reference(mesh, origins, directions, alive, live_count, bounce,
+                                    total_bounces=total_bounces)
+    raise ValueError(f"Unsupported device {origins.device}")
+
+
+def entry_keys_reference(mesh, origins, directions, alive, live_count, bounce, *,
+                         total_bounces, stats=None):
+    """The plain version of ``entry_keys``, on any device; ``stats`` counts
+    the entry walk's rays and box tests (``entry_rays``, ``entry_tests``)."""
+    counts["mesh_entry_keys_reference"] += 1
+    if stats is not None:
+        for key in ("entry_rays", "entry_tests"):
+            stats.setdefault(key, 0)
+    walk = _entry_walks(mesh)
+    live = max(0, min(int(live_count), origins.shape[0]))
+    return _keys_reference(walk, origins, directions, alive, live, bounce, total_bounces,
+                           262144, stats, True)
 
 
 @functools.cache
@@ -1216,19 +1490,20 @@ def _launch_pool(name, spheres, mesh_ops, state, live_count, total_bounces, grou
     tables = [spheres.spheres.data_ptr(), spheres.per_frame, frames, spheres.params.data_ptr()]
     tlas = name == "pool_mesh_bounce_tlas"
     if mesh_ops is not None:
-        triangles, bounds, links = _bvh_operands(mesh_ops.meshes[0].bvh)
+        bvh = mesh_ops.meshes[0].bvh
+        ordered = walks_ordered(bvh)
         pool_tlas = pool_tlas_operands(mesh_ops) if tlas else None
         instances = mesh_ops.instances if pool_tlas is None else pool_tlas.slots
-        tables += [
-            instances.data_ptr(), mesh_ops.per_frame,
-            triangles.data_ptr(), triangles.shape[0],
-            bounds.data_ptr(), links.data_ptr(), bounds.shape[0],
-        ]
+        tables += [instances.data_ptr(), mesh_ops.per_frame, *_bvh_tables(bvh, ordered)]
         if pool_tlas is not None:
             tables += [
                 pool_tlas.node_bounds.data_ptr(), pool_tlas.links.data_ptr(),
                 pool_tlas.links.shape[0] // frames, pool_tlas.key_window.data_ptr(),
             ]
+        # The pool orders its BLAS only: votes per row of the stacked table.
+        votes = _packet_votes(state[1], live, instances, TLAS_BLOCK_R if tlas else BVH_BLOCK_R,
+                              bvh, ordered, False)
+        tables += [int(ordered), 0 if votes is None else _pointer(votes[1])]
     out = _bounce_outputs(rays, device, tlas)
     status = launch(
         *(t.data_ptr() for t in state), rays, live.data_ptr(), *tables, int(total_bounces),
@@ -1671,6 +1946,10 @@ def _pool_reference(
                                device=origins.device)
     if stats is not None:
         keys = _start_stats(stats, tables[0], None if walks is None else walks[0])
+    # The packets' BLAS votes over every lane of the pool, per frame's table
+    # (the pool's TLAS walks stay canonical, as the reference's).
+    orders = [None if walk is None else walk.order(directions, tlas=False)
+              for walk in (walks or ())]
     frame = fid[:live].to(torch.int64)
     running = alive[:live]
     outside = running & ((frame < 0) | (frame >= len(tables)))
@@ -1689,6 +1968,7 @@ def _pool_reference(
                 throughput[rows], zero, alive[rows, None].to(torch.float32),
                 lane[rows].to(torch.int64), bounce_row[rows].to(torch.int64), total_bounces,
                 seed_row[rows].to(torch.int64) & MASK32, stats,
+                None if walks is None or orders[f] is None else orders[f].rows(rows),
             )
             out.contribution[rows] = contribution
             out.origins[rows] = o
@@ -1879,8 +2159,10 @@ def occluded_mesh_reference(
     return hit
 
 
-# The plain walk of a BVH, built once per BVH.
+# The plain walk of a BVH, built once per BVH; a frame's TLAS walk for the
+# key pass, once per MeshSet.
 _blas_walks = _IdentityCache(lambda bvh: _MeshWalk.for_bvh(bvh))
+_entry_walks = _IdentityCache(lambda mesh: _MeshWalk.build(mesh, use_tlas=True))
 
 
 def _bounce_reference(
@@ -1895,13 +2177,15 @@ def _bounce_reference(
     )
     if stats is not None:
         keys = _start_stats(stats, table, walk)
+    # The packets' votes over every lane of the launch, as it came in.
+    order = None if walk is None else walk.order(directions)
     for start in range(0, live, chunk_rays):
         rows = slice(start, min(start + chunk_rays, live))
         zero = torch.zeros_like(origins[rows])
         o, d, thr, contribution, alive_f = _bounce(
             table, walk, origins[rows], directions[rows], throughput[rows], zero,
             alive[rows, None].to(torch.float32), lane[rows].to(torch.int64), bounce,
-            total_bounces, int(seed) & MASK32, stats,
+            total_bounces, int(seed) & MASK32, stats, None if order is None else order.rows(rows),
         )
         out.contribution[rows] = contribution
         out.origins[rows] = o
@@ -1910,25 +2194,37 @@ def _bounce_reference(
         out.alive[rows] = alive_f[:, 0] > 0.5
     keyed = walk is not None and walk.tlas is not None
     if keyed:
-        # The kernel's key: the slot each live new ray enters first, K for
-        # the others and on the last bounce (its key is never sorted by).
-        candidate = torch.full((rays,), walk.table.shape[0], dtype=torch.int64,
-                               device=origins.device)
-        if int(bounce) < int(total_bounces) - 1:
-            lives = out.alive[:live].nonzero()[:, 0]
-            for start in range(0, lives.numel(), chunk_rays):
-                rows = lives[start:start + chunk_rays]
-                candidate[rows] = walk.entry_candidates(
-                    out.origins[rows], out.directions[rows], stats
-                )
-        key = coherence_key(
-            out.origins + out.directions, out.directions, ~out.alive,
-            torch.zeros_like(candidate), candidate, walk.key_window,
-        )
+        key = _keys_reference(walk, out.origins, out.directions, out.alive, live, bounce,
+                              total_bounces, chunk_rays, stats, order is not None)
     if stats is not None:
         for key_name in keys:
             stats[key_name] = int(stats[key_name])
     return KeyedBounceState(*out, key) if keyed else out
+
+
+def _keys_reference(walk, origins, directions, alive, live, bounce, total_bounces, chunk_rays,
+                    stats, ordered):
+    """The per-bounce TLAS kernel's key of its outputs: the slot each live
+    new ray below ``live`` enters first, K for the others and on the last
+    bounce (its key is never sorted by); ``ordered``: the entry walk takes
+    the TLAS table of its packet's vote over every lane's new direction."""
+    rays = origins.shape[0]
+    candidate = torch.full((rays,), walk.table.shape[0], dtype=torch.int64, device=origins.device)
+    if int(bounce) < int(total_bounces) - 1:
+        lives = alive[:live].nonzero()[:, 0]
+        entry = None
+        if ordered:
+            packet = torch.arange(rays, device=origins.device) // walk.block
+            entry = packet_octants(directions, walk.block)[packet]
+        for start in range(0, lives.numel(), chunk_rays):
+            rows = lives[start:start + chunk_rays]
+            candidate[rows] = walk.entry_candidates(
+                origins[rows], directions[rows], stats, None if entry is None else entry[rows],
+            )
+    return coherence_key(
+        origins + directions, directions, ~alive, torch.zeros_like(candidate), candidate,
+        walk.key_window,
+    )
 
 
 _STATS = ("alive_lane_bounces", "hit_lane_bounces", "shadow_sphere_tests")
@@ -1960,6 +2256,9 @@ def _trace_reference(
     out = torch.empty_like(origins)
     if stats is not None:
         keys = _start_stats(stats, table, walk)
+    if walk is not None:
+        # Chunks of whole packets: each packet votes over its own lanes.
+        chunk_rays = -(-chunk_rays // walk.block) * walk.block
     for start in range(0, origins.shape[0], chunk_rays):
         stop = min(start + chunk_rays, origins.shape[0])
         if lane is None:
@@ -1977,6 +2276,10 @@ def _trace_reference(
 
 
 def _reference_chunk(table, walk, o, d, lane, seed_word, max_bounces, stats):
+    """The masked loop over a chunk of whole packets (the last one padded
+    by the vote as the reference pads the launch); the packets vote at
+    each bounce over their lanes' directions, dead lanes' kept ones
+    included."""
     device = o.device
     rays = o.shape[0]
     throughput = torch.ones((rays, 3), dtype=torch.float32, device=device)
@@ -1985,17 +2288,18 @@ def _reference_chunk(table, walk, o, d, lane, seed_word, max_bounces, stats):
     for bounce in range(max_bounces):
         o, d, throughput, radiance, alive = _bounce(
             table, walk, o, d, throughput, radiance, alive, lane, bounce, max_bounces,
-            seed_word, stats,
+            seed_word, stats, None if walk is None else walk.order(d),
         )
     return radiance
 
 
 def _bounce(table, walk, o, d, throughput, radiance, alive, lane, bounce, total_bounces,
-            seed_word, stats):
+            seed_word, stats, order=None):
     """One bounce of the reference's masked loop over [n] rays: ``alive``
     is float [n, 1] (0 or 1), ``lane`` int64 [n] the RNG counters;
     ``bounce`` and ``seed_word`` (the uint32 seed in int64) are scalars or
-    per-ray int64 [n] rows.
+    per-ray int64 [n] rows; ``order`` the rays' ``_Order`` (None: the
+    canonical walk).
     Returns (o, d, throughput, radiance, alive) after the bounce, radiance
     accumulated into the given one."""
     device = o.device
@@ -2021,7 +2325,7 @@ def _bounce(table, walk, o, d, throughput, radiance, alive, lane, bounce, total_
         # lanes carry -INF and never walk --------------------------------
         t_sp = torch.minimum(t_sphere, t_plane)
         seed_t = torch.where(alive > 0.5, t_sp, -INF)[:, 0]
-        t_mesh, mesh_normal, mesh_albedo = walk.nearest(o, d, seed_t, stats)
+        t_mesh, mesh_normal, mesh_albedo = walk.nearest(o, d, seed_t, stats, order)
         t_mesh = t_mesh[:, None]
         is_plane = ((t_plane < t_sphere) & (t_mesh >= t_sp)).to(torch.float32)
         is_mesh = t_mesh < t_sp
@@ -2074,7 +2378,9 @@ def _bounce(table, walk, o, d, throughput, radiance, alive, lane, bounce, total_
         # Lanes whose result cannot matter (sphere-shadowed, dead, sun
         # below the surface) do not walk the mesh.
         blocked = (shadowed > 0.0) | (alive <= 0.5) | (cos_sun <= 0.0)
-        shadowed = walk.occluded(shadow_o, blocked[:, 0], stats)[:, None].to(torch.float32)
+        shadowed = walk.occluded(
+            shadow_o, blocked[:, 0], stats, order=order
+        )[:, None].to(torch.float32)
     direct = albedo * table.sun_color * (cos_sun * (1.0 - shadowed) * alive) * INV_PI
     radiance = fma(throughput, direct, radiance)
 
@@ -2192,6 +2498,17 @@ def _to_object(row: torch.Tensor, points: torch.Tensor, *, shift: bool) -> torch
     ) * row[12]
 
 
+def _to_object_rows(rows: torch.Tensor, points: torch.Tensor, *, shift: bool) -> torch.Tensor:
+    """``_to_object`` with one instance-table row a point: ``rows`` [n, 22],
+    ``points`` [n, 3]."""
+    if shift:
+        points = points - rows[:, 9:12]
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    return torch.stack(
+        [_sum3(x, rows[:, 0 + j], y, rows[:, 3 + j], z, rows[:, 6 + j]) for j in range(3)], dim=1
+    ) * rows[:, 12:13]
+
+
 def _children(skip: list[int], count: list[int]) -> list[list[int]]:
     """Each node's children in a threaded tree: an inner node's run from
     node + 1 to its skip link, hopping by skip links."""
@@ -2205,16 +2522,21 @@ def _children(skip: list[int], count: list[int]) -> list[list[int]]:
     return children
 
 
-def _sweep(bounds_min, bounds_max, count, children, o, inv, limit, on_leaf, stats, stat):
+def _sweep(bounds_min, bounds_max, count, children, o, inv, limit, on_leaf, stats, stat,
+           positions=None, starts=(0,)):
     """Walk a threaded tree for every ray at once: the nodes in preorder,
     each with the rays that reach it. A ray reaches a node when it passed
     the slab test of the node's parent against its ``limit`` [n] at that
     moment (the caller's leaves update it in place, or set it to -INF to
     end a ray's walk), which is the order of one ray's own walk. ``o`` [n,
     3]; ``inv`` [n, 3] or [3]; ``on_leaf(node, positions)`` visits a leaf;
-    ``stats[stat]`` counts the node tests."""
-    reach = {0: torch.arange(o.shape[0], device=o.device)}
-    for node in range(len(count)):
+    ``stats[stat]`` counts the node tests. ``positions`` (default: every
+    ray) are the rays that walk; they enter at the nodes ``starts``
+    (default: the root)."""
+    if positions is None:
+        positions = torch.arange(o.shape[0], device=o.device)
+    reach = {node: positions for node in starts}
+    for node in range(min(starts), len(count)):
         pos = reach.pop(node, None)
         if pos is None or pos.numel() == 0:
             continue
@@ -2231,42 +2553,250 @@ def _sweep(bounds_min, bounds_max, count, children, o, inv, limit, on_leaf, stat
                 reach[child] = pos
 
 
+class _Tree(NamedTuple):
+    """One node order of a threaded tree as the plain versions walk it:
+    the node boxes on the device, the links on the host, and the nodes a
+    walk enters at."""
+
+    bounds_min: torch.Tensor  # [N, 3]
+    bounds_max: torch.Tensor  # [N, 3]
+    first: list[int]
+    count: list[int]
+    children: list[list[int]]
+    starts: tuple[int, ...]
+
+    @classmethod
+    def build(cls, bounds_min, bounds_max, skip, first, count, below_root=False) -> "_Tree":
+        """The tree of these tables; ``below_root`` enters a tree of more
+        than one node at the root's children, without the root's test."""
+        count = [int(c) for c in count]
+        children = _children([int(s) for s in skip], count)
+        return cls(
+            bounds_min=bounds_min, bounds_max=bounds_max, first=[int(f) for f in first],
+            count=count, children=children,
+            starts=tuple(children[0]) if below_root and len(count) > 1 else (0,),
+        )
+
+    @classmethod
+    def octants(cls, bounds_min, bounds_max, skip, first, count, below_root=False) -> tuple:
+        """The eight octant-ordered trees of tables stacked [8N] (octant o
+        at rows [o N, (o + 1) N), local skip links)."""
+        n = len(skip) // 8
+        return tuple(
+            cls.build(bounds_min[o * n:(o + 1) * n], bounds_max[o * n:(o + 1) * n],
+                      skip[o * n:(o + 1) * n], first[o * n:(o + 1) * n],
+                      count[o * n:(o + 1) * n], below_root)
+            for o in range(8)
+        )
+
+    def sweep(self, o, inv, limit, on_leaf, stats, stat, positions=None):
+        _sweep(self.bounds_min, self.bounds_max, self.count, self.children, o, inv, limit,
+               on_leaf, stats, stat, positions, self.starts)
+
+
+def _walk_trees(trees, octant, o, inv, limit, on_leaves, stats, stat):
+    """``_sweep`` each ray through its own order: ``trees[0]`` for every ray
+    where ``octant`` is None, else ``trees[octant[i]]`` for ray i (``octant``
+    [n] int64). ``on_leaves(node, [(tree, positions), ...])`` visits the
+    leaves at node index ``node`` of the trees whose rays reached one. The
+    trees are orders of one tree, so they hold as many nodes: the groups of
+    rays of each octant are swept in step, node index by node index, one
+    slab test and one visit of the leaves for all of them (each group meets
+    its nodes in its own preorder, and no ray sees another's)."""
+    values = [0] if octant is None else torch.unique(octant).tolist()
+    if len(values) == 1:
+        tree = trees[values[0]]
+        tree.sweep(o, inv, limit, lambda node, pos: on_leaves(node, [(tree, pos)]), stats, stat)
+        return
+    groups = [trees[v] for v in values]
+    bounds_min = torch.stack([tree.bounds_min for tree in groups])
+    bounds_max = torch.stack([tree.bounds_max for tree in groups])
+    reach = []
+    for value, tree in zip(values, groups):
+        pos = (octant == value).nonzero()[:, 0]
+        reach.append({node: pos for node in tree.starts})
+    for node in range(min(min(tree.starts) for tree in groups), len(groups[0].count)):
+        parts = [(g, r.pop(node)) for g, r in enumerate(reach) if node in r]
+        parts = [(g, pos) for g, pos in parts if pos.numel()]
+        if not parts:
+            continue
+        # The groups' rays in group order: a filter keeps the order, so one
+        # count per group splits them again.
+        pos = torch.cat([p for _, p in parts])
+        group = torch.cat([torch.full_like(p, g) for g, p in parts])
+        alive = limit[pos] > -INF  # drop rays whose walk has ended
+        pos, group = pos[alive], group[alive]
+        if stats is not None:
+            stats[stat] += pos.numel()
+        inv_pos = inv if inv.ndim == 1 else inv[pos]
+        hit = _slab(bounds_min[group, node], bounds_max[group, node], o[pos], inv_pos, limit[pos])
+        pos, group = pos[hit], group[hit]
+        sizes = torch.bincount(group, minlength=len(groups))[[g for g, _ in parts]].tolist()
+        leaves = []
+        for (g, _), mine in zip(parts, torch.split(pos, sizes)):
+            tree = groups[g]
+            if tree.count[node] > 0:
+                if mine.numel():
+                    leaves.append((tree, mine))
+            else:
+                for child in tree.children[node]:
+                    reach[g][child] = mine
+        if leaves:
+            on_leaves(node, leaves)
+
+
+def _leaf_rays(node, leaves):
+    """(positions [n], first triangle row [n], real rows [n]) of the rays
+    at the leaves ``leaves`` ([(tree, positions), ...], node index
+    ``node``), or (positions, first, count) as ints for one leaf."""
+    if len(leaves) == 1:
+        tree, pos = leaves[0]
+        return pos, tree.first[node], tree.count[node]
+    pos = torch.cat([p for _, p in leaves])
+    first = torch.cat([torch.full_like(p, tree.first[node]) for tree, p in leaves])
+    count = torch.cat([torch.full_like(p, tree.count[node]) for tree, p in leaves])
+    return pos, first, count
+
+
+def octant_bits(v: torch.Tensor) -> torch.Tensor:
+    """The octant of vectors ``v`` [..., 3] (int64): bit i set where
+    component i is positive (0.0 and -0.0 give 0)."""
+    positive = (v > 0).to(torch.int64)
+    return positive[..., 0] | (positive[..., 1] << 1) | (positive[..., 2] << 2)
+
+
+def _pad_directions(directions: torch.Tensor, block: int) -> torch.Tensor:
+    """The directions padded to whole packets of ``block`` lanes with the
+    reference's pad rays' direction (0, 1, 0) (``_pad_rays_to_miss``)."""
+    pad = -directions.shape[0] % block
+    if not pad:
+        return directions
+    pads = torch.zeros((pad, 3), dtype=directions.dtype, device=directions.device)
+    pads[:, 1] = 1.0
+    return torch.cat([directions, pads])
+
+
+def _vote(padded: torch.Tensor, block: int) -> torch.Tensor:
+    """[P] octants of packet-padded vectors [P block, 3]: bit i set when
+    strictly more than half of a packet's lanes have component i > 0."""
+    positive = (padded > 0).to(torch.int64).reshape(-1, block, 3).sum(dim=1)
+    bits = (positive * 2 > block).to(torch.int64)
+    return bits[:, 0] | (bits[:, 1] << 1) | (bits[:, 2] << 2)
+
+
+def packet_octants(directions: torch.Tensor, block: int) -> torch.Tensor:
+    """The reference's packet vote (``_octant_of``,
+    ``pallas_kernels.py:2263-2275``) of world directions [R, 3]: [P] int64,
+    P = ceil(R / block). A packet is ``block`` consecutive lanes in launch
+    order, every lane counted (dead, parked or of another frame, each with
+    the direction it carries; the last packet's missing lanes as the
+    reference's pad rays, direction (0, 1, 0)); bit i of its octant is set
+    when strictly more than half of them have a positive component i, so a
+    tie, 0.0 and -0.0 give 0. The TLAS walks take the table of their
+    packet's octant."""
+    return _vote(_pad_directions(directions, block), block)
+
+
+def packet_instance_octants(
+    directions: torch.Tensor, table: torch.Tensor, block: int
+) -> torch.Tensor:
+    """The vote of each packet of world directions [R, 3] in the object
+    space of each instance of ``table`` [K, 22] (``instance_table`` rows):
+    [P, K] int64, the octant-ordered BLAS table of the nearest walk of the
+    packet's rays through instance k (``blas_base``,
+    ``pallas_kernels.py:2451-2455``). The directions, pad rays included,
+    go to object space as the walk takes them (``_to_object``, the
+    reference's fp32 FMA chain), so a component near 0 keeps its sign."""
+    padded = _pad_directions(directions, block)
+    if table.shape[0] == 0:
+        return torch.zeros((padded.shape[0] // block, 0), dtype=torch.int64,
+                           device=directions.device)
+    return torch.stack([_vote(_to_object(row, padded, shift=False), block) for row in table],
+                       dim=1)
+
+
+class _Order(NamedTuple):
+    """The octant-ordered walk of a launch's rays (the reference's default
+    on a BVH with octant tables): each ray's packet, and per packet the
+    octant of the nearest walk's BLAS table for each instance row of the
+    walk's table and of its TLAS table. None: that level walks the
+    canonical order; the shadow walks take the same level's order, with the
+    sun's octant (one direction: a vote of one)."""
+
+    packet: torch.Tensor  # [n] int64
+    blas: torch.Tensor | None  # [P, K] int64
+    tlas: torch.Tensor | None  # [P] int64
+
+    def rows(self, rows) -> "_Order":
+        return self._replace(packet=self.packet[rows])
+
+
 class _TlasWalk(NamedTuple):
     """A frame's TLAS as the plain versions walk it: the node boxes on the
-    device, the topology's links on the host."""
+    device, the topology's links on the host; ``octants`` the eight
+    near-first orders (``TlasTopology.octant_*``, the boxes gathered through
+    ``octant_perm``)."""
 
     bounds_min: torch.Tensor  # [M, 3]
     bounds_max: torch.Tensor  # [M, 3]
     first: list[int]
     count: list[int]
     children: list[list[int]]
+    octants: tuple[_Tree, ...] | None = None
 
     @classmethod
-    def build(cls, node_bounds: torch.Tensor, topology: TlasTopology) -> "_TlasWalk":
+    def build(
+        cls, node_bounds: torch.Tensor, topology: TlasTopology, ordered: bool = False
+    ) -> "_TlasWalk":
         count = topology.count.tolist()
+        octants = None
+        if ordered:
+            perm = torch.as_tensor(topology.octant_perm, dtype=torch.int64,
+                                   device=node_bounds.device)
+            octants = _Tree.octants(
+                node_bounds[perm, 0:3], node_bounds[perm, 4:7], topology.octant_skip,
+                topology.octant_first, topology.octant_count,
+            )
         return cls(
             bounds_min=node_bounds[:, 0:3], bounds_max=node_bounds[:, 4:7],
             first=topology.first.tolist(), count=count,
-            children=_children(topology.skip.tolist(), count),
+            children=_children(topology.skip.tolist(), count), octants=octants,
         )
 
-    def walk(self, o, inv, limit, visit, stats, stat="tlas_node_tests"):
+    def walk(self, o, inv, limit, visit, stats, stat="tlas_node_tests", octant=None,
+             visit_rows=None):
         """``_sweep`` over the TLAS, ``visit(k, positions)`` for each slot
-        of a leaf in order, with the rays that reached the leaf."""
+        of a leaf in order, with the rays that reached the leaf; ``octant``
+        [n] (None: the canonical order) picks each ray's ordered table, and
+        then ``visit_rows(slots, positions)`` takes the j-th slot of the
+        leaves that the groups of rays reached at one step together (the
+        slot of each ray), j in order."""
 
-        def on_leaf(node, pos):
-            for k in range(self.first[node], self.first[node] + self.count[node]):
-                visit(k, pos)
+        def on_leaves(node, leaves):
+            if octant is None:
+                (tree, pos), = leaves
+                for k in range(tree.first[node], tree.first[node] + tree.count[node]):
+                    visit(k, pos)
+                return
+            for j in range(max(tree.count[node] for tree, _ in leaves)):
+                held = [(tree, p) for tree, p in leaves if tree.count[node] > j]
+                visit_rows(
+                    torch.cat([torch.full_like(p, tree.first[node] + j) for tree, p in held]),
+                    torch.cat([p for _, p in held]),
+                )
 
-        _sweep(self.bounds_min, self.bounds_max, self.count, self.children, o, inv, limit,
-               on_leaf, stats, stat)
+        canonical = _Tree(self.bounds_min, self.bounds_max, self.first, self.count,
+                          self.children, (0,))
+        trees = (canonical,) if octant is None else self.octants
+        _walk_trees(trees, octant, o, inv, limit, on_leaves, stats, stat)
 
 
 class _MeshWalk(NamedTuple):
     """The plain version's mesh geometry: the device tables plus the
-    tree's links on the host (canonical DFS preorder); for the TLAS
-    variants the instances in slot order, the frame's TLAS and its key
-    window."""
+    tree's links on the host (canonical DFS preorder; ``octants`` the eight
+    octant-ordered trees of a BVH that carries them, each entered below its
+    root); for the TLAS variants the instances in slot order, the frame's
+    TLAS and its key window."""
 
     table: torch.Tensor | None  # [K, 22] (instance_table); None: one BVH alone
     v0: torch.Tensor
@@ -2282,22 +2812,30 @@ class _MeshWalk(NamedTuple):
     sun_object: torch.Tensor | None  # [K, 3]: the sun direction in object space
     tlas: _TlasWalk | None = None  # the TLAS variant's tree; None: the flat sweep
     key_window: torch.Tensor | None = None  # [6], with ``tlas``
+    octants: tuple[_Tree, ...] | None = None
 
     @classmethod
     def build(
         cls, mesh: MeshSet, sun: torch.Tensor | None = None, use_tlas: bool = False
     ) -> "_MeshWalk":
-        tlas = key_window = None
+        tlas = key_window = octants = None
+        octant = mesh.bvh.octant
+        if octant is not None:
+            octants = _Tree.octants(
+                octant.bounds_min, octant.bounds_max, octant.skip.tolist(),
+                octant.first.tolist(), octant.count.tolist(), below_root=True,
+            )
         if use_tlas:
             frame = tlas_frame(mesh)
             table, key_window = frame.slots, frame.key_window
             tlas = _TlasWalk.build(
-                frame.node_bounds, cached_tlas_topology(table.shape[0], TLAS_LEAF)
+                frame.node_bounds, cached_tlas_topology(table.shape[0], TLAS_LEAF),
+                ordered=octant is not None,
             )
         else:
             table = instance_table(mesh)
         return cls.for_bvh(mesh.bvh)._replace(
-            table=table, sun=sun, tlas=tlas, key_window=key_window,
+            table=table, sun=sun, tlas=tlas, key_window=key_window, octants=octants,
             sun_object=None if sun is None else torch.cat(
                 [_to_object(row, sun[None, :], shift=False) for row in table]
             ),
@@ -2305,7 +2843,8 @@ class _MeshWalk(NamedTuple):
 
     @classmethod
     def for_bvh(cls, bvh: MeshBVH) -> "_MeshWalk":
-        """The walk of one BVH, with no instance table."""
+        """The walk of one BVH in its canonical order, with no instance
+        table."""
         count = bvh.count.tolist()
         return cls(
             table=None, v0=bvh.v0, e1=bvh.e1, e2=bvh.e2, normal=bvh.normal,
@@ -2314,23 +2853,69 @@ class _MeshWalk(NamedTuple):
             sun=None, sun_object=None,
         )
 
+    @property
+    def block(self) -> int:
+        """The reference kernel's packet: ``TLAS_BLOCK_R`` lanes under the
+        TLAS, else ``BVH_BLOCK_R``."""
+        return TLAS_BLOCK_R if self.tlas is not None else BVH_BLOCK_R
+
+    def order(self, directions: torch.Tensor, tlas: bool = True) -> "_Order | None":
+        """The octant order of a launch of rays along ``directions`` [R, 3]
+        (their packets in launch order, ``block`` lanes each), None on a
+        BVH without octant tables (the canonical walk). ``tlas=False``
+        keeps the TLAS canonical (the pool's rule)."""
+        if self.octants is None:
+            return None
+        block = self.block
+        packet = torch.arange(directions.shape[0], device=directions.device) // block
+        blas = None
+        if len(self.count) > 1:  # a one-node tree reads the same row in every octant
+            blas = packet_instance_octants(directions, self.table, block)
+        return _Order(
+            packet=packet, blas=blas,
+            tlas=packet_octants(directions, block) if tlas and self.tlas is not None else None,
+        )
+
+    def _trees(self, octant) -> tuple:
+        if octant is None:
+            return (_Tree(self.bounds_min, self.bounds_max, self.first, self.count,
+                          self.children, (0,)),)
+        return self.octants
+
     def _walk(self, o, inv, best_t, on_leaf, stats):
-        """``_sweep`` over the BVH: ``o`` [n, 3] and ``inv`` [n, 3] or [3]
-        in object space, ``best_t`` [n] the rays' limits."""
-        _sweep(self.bounds_min, self.bounds_max, self.count, self.children, o, inv, best_t,
-               on_leaf, stats, "node_tests")
+        """``_sweep`` over the BVH in its canonical order: ``o`` [n, 3] and
+        ``inv`` [n, 3] or [3] in object space, ``best_t`` [n] the rays'
+        limits, ``on_leaf(node, positions)``."""
+        _walk_trees(self._trees(None), None, o, inv, best_t,
+                    lambda node, leaves: on_leaf(node, leaves[0][1]), stats, "node_tests")
 
     def _leaf(self, node, o, d):
+        """``_leaf_rows`` of a leaf of the canonical order."""
+        return self._leaf_rows(self.first[node], self.count[node], o, d)
+
+    def _leaf_rows(self, first, count, o, d):
         """Moller-Trumbore of ``o``/``d`` [n, 3] against the leaf's real
-        rows: (hit [n, L], t [n, L]), rounded as XLA rounds the
-        reference's expressions."""
-        rows = slice(self.first[node], self.first[node] + self.count[node])
-        v0, e1, e2 = self.v0[rows], self.e1[rows], self.e2[rows]
+        rows [first, first + count): (hit [n, L], t [n, L]), rounded as XLA
+        rounds the reference's expressions. ``first`` and ``count`` may be
+        per-ray [n] rows (rays at several leaves): then L is a leaf slot's
+        LEAF_SIZE rows, those past a ray's count missed."""
+        if isinstance(first, torch.Tensor):
+            lanes = torch.arange(LEAF_SIZE, device=o.device)
+            rows = first[:, None] + lanes
+            v0, e1, e2 = self.v0[rows], self.e1[rows], self.e2[rows]
+            hit, t = self._moller_trumbore(o, d, v0, e1, e2)
+            return hit & (lanes < count[:, None]), t
+        rows = slice(first, first + count)
+        return self._moller_trumbore(o, d, self.v0[rows], self.e1[rows], self.e2[rows])
+
+    def _moller_trumbore(self, o, d, v0, e1, e2):
+        """Moller-Trumbore of ``o``/``d`` [n, 3] against triangle rows
+        ``v0``, ``e1``, ``e2`` ([L, 3], or per ray [n, L, 3])."""
         ox, oy, oz = (o[:, i:i + 1] for i in range(3))
         dx, dy, dz = (d[..., i:i + 1] for i in range(3))
-        v0x, v0y, v0z = (v0[:, i] for i in range(3))
-        e1x, e1y, e1z = (e1[:, i] for i in range(3))
-        e2x, e2y, e2z = (e2[:, i] for i in range(3))
+        v0x, v0y, v0z = (v0[..., i] for i in range(3))
+        e1x, e1y, e1z = (e1[..., i] for i in range(3))
+        e2x, e2y, e2z = (e2[..., i] for i in range(3))
         pvx = fma(dy, e2z, -(dz * e2y))
         pvy = fma(dz, e2x, -(dx * e2z))
         pvz = fma(dx, e2y, -(dy * e2x))
@@ -2346,56 +2931,70 @@ class _MeshWalk(NamedTuple):
         hit = (torch.abs(det) > _DET_EPS) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > EPS)
         return hit, t
 
-    def blas_nearest(self, o, d, seed_t, stats):
+    def blas_nearest(self, o, d, seed_t, stats, octant=None):
         """Nearest hit in the BVH of object-space rays ``o``/``d`` [n, 3],
         seeded with ``seed_t`` [n] (strict < updates, the first row of a
         leaf reaching the minimum): (t [n] (== seed_t on a miss), the
-        winning triangle row [n] int64 (0 on a miss))."""
+        winning triangle row [n] int64 (0 on a miss)). ``octant`` [n]: each
+        ray's octant-ordered tree (None: the canonical order)."""
         best_t = seed_t.clone()
         best_row = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
 
-        def on_leaf(node, pos):
-            hit, t = self._leaf(node, o[pos], d[pos])
+        def on_leaves(node, leaves):
+            pos, first, count = _leaf_rays(node, leaves)
+            hit, t = self._leaf_rows(first, count, o[pos], d[pos])
             if stats is not None:
-                stats["triangle_tests"] += hit.numel()
+                stats["triangle_tests"] += (
+                    count.sum() if isinstance(count, torch.Tensor) else hit.numel()
+                )
             t = torch.where(hit, t, INF)
             t_leaf = t.min(dim=1).values
             rows = torch.arange(t.shape[1], device=t.device)
             local = torch.where(t == t_leaf[:, None], rows, t.shape[1]).min(dim=1).values
             closer = t_leaf < best_t[pos]
             best_t[pos[closer]] = t_leaf[closer]
-            best_row[pos[closer]] = self.first[node] + local[closer]
+            row = first[closer] if isinstance(first, torch.Tensor) else first
+            best_row[pos[closer]] = row + local[closer]
 
-        self._walk(o, _winv(d), best_t, on_leaf, stats)
+        _walk_trees(self._trees(octant), octant, o, _winv(d), best_t, on_leaves, stats,
+                    "node_tests")
         return best_t, best_row
 
-    def blas_occluded(self, o, d, stats):
+    def blas_occluded(self, o, d, stats, octant=None):
         """Whether each object-space ray ``o`` [n, 3] along ``d`` ([n, 3],
         or one direction [3]) has a triangle of the BVH ahead of it (t >
-        EPS, unbounded): bool [n]. A ray stops at its first occluder."""
+        EPS, unbounded): bool [n]. A ray stops at its first occluder.
+        ``octant`` (an int, or [n]): the octant-ordered tree (None: the
+        canonical order)."""
         limit = torch.full((o.shape[0],), INF, device=o.device)
 
-        def on_leaf(node, pos):
-            hit, _ = self._leaf(node, o[pos], d if d.ndim == 1 else d[pos])
+        def on_leaves(node, leaves):
+            pos, first, count = _leaf_rays(node, leaves)
+            hit, _ = self._leaf_rows(first, count, o[pos], d if d.ndim == 1 else d[pos])
             any_hit = hit.any(dim=1)
             if stats is not None:
-                first = torch.where(any_hit, hit.to(torch.int8).argmax(dim=1) + 1, hit.shape[1])
-                stats["triangle_tests"] += first.sum()
+                tested = torch.where(any_hit, hit.to(torch.int8).argmax(dim=1) + 1, count)
+                stats["triangle_tests"] += tested.sum()
             limit[pos[any_hit]] = -INF  # found: this ray's walk ends
 
-        self._walk(o, _winv(d), limit, on_leaf, stats)
+        if isinstance(octant, int):
+            octant = torch.full((o.shape[0],), octant, dtype=torch.int64, device=o.device)
+        _walk_trees(self._trees(octant), octant, o, _winv(d), limit, on_leaves, stats,
+                    "node_tests")
         return limit == -INF
 
-    def nearest_rows(self, o, d, seed_t, stats):
+    def nearest_rows(self, o, d, seed_t, stats, order=None):
         """Nearest mesh hit over all instances for world rays ``o``/``d``
         [R, 3], seeded with ``seed_t`` [R]: (t [R] (== seed_t on a miss),
         the winning instance [R] int64 (-1 on a miss), the winning triangle
-        row [R] int64 (0 on a miss))."""
+        row [R] int64 (0 on a miss)). ``order`` (``_Order`` of these rays;
+        None: canonical) picks each ray's BLAS and TLAS tables."""
         rays = o.shape[0]
         best_t = seed_t.clone()
         win_k = torch.full((rays,), -1, dtype=torch.int64, device=o.device)
         win_row = torch.zeros((rays,), dtype=torch.int64, device=o.device)
         inv = _winv(d)
+        blas = None if order is None else order.blas
         if stats is not None:
             stats["broadphase_rays"] += (seed_t > -INF).sum()
 
@@ -2406,11 +3005,28 @@ class _MeshWalk(NamedTuple):
             row = self.table[k]
             lo = _to_object(row, o[idx], shift=True)
             ld = _to_object(row, d[idx], shift=False)
-            t_k, row_k = self.blas_nearest(lo, ld, best_t[idx], stats)
+            octant = None if blas is None else blas[order.packet[idx], k]
+            t_k, row_k = self.blas_nearest(lo, ld, best_t[idx], stats, octant)
             closer = t_k < best_t[idx]
             won = idx[closer]
             best_t[won] = t_k[closer]
             win_k[won] = k
+            win_row[won] = row_k[closer]
+
+        def enter_rows(slots, idx):
+            """The instances ``slots`` [n] of the rays ``idx`` that passed
+            their boxes (an ordered TLAS walk's step: one slot a ray)."""
+            if stats is not None:
+                stats["instance_walks"] += idx.numel()
+            rows = self.table[slots]
+            lo = _to_object_rows(rows, o[idx], shift=True)
+            ld = _to_object_rows(rows, d[idx], shift=False)
+            octant = None if blas is None else blas[order.packet[idx], slots]
+            t_k, row_k = self.blas_nearest(lo, ld, best_t[idx], stats, octant)
+            closer = t_k < best_t[idx]
+            won = idx[closer]
+            best_t[won] = t_k[closer]
+            win_k[won] = slots[closer]
             win_row[won] = row_k[closer]
 
         if self.tlas is not None:
@@ -2422,7 +3038,19 @@ class _MeshWalk(NamedTuple):
                 if idx.numel():
                     enter(k, idx)
 
-            self.tlas.walk(o, inv, best_t, visit, stats)
+            def visit_rows(slots, pos):
+                rows = self.table[slots]
+                if stats is not None:
+                    stats["world_aabb_tests"] += pos.numel()
+                hit = _slab(rows[:, 13:16], rows[:, 16:19], o[pos], inv[pos], best_t[pos])
+                if bool(hit.any()):
+                    enter_rows(slots[hit], pos[hit])
+
+            tlas_octant = None
+            if order is not None and order.tlas is not None:
+                tlas_octant = order.tlas[order.packet]
+            self.tlas.walk(o, inv, best_t, visit, stats, octant=tlas_octant,
+                           visit_rows=visit_rows)
             return best_t, win_k, win_row
         for k in range(self.table.shape[0]):
             row = self.table[k]
@@ -2433,10 +3061,10 @@ class _MeshWalk(NamedTuple):
                 enter(k, idx)
         return best_t, win_k, win_row
 
-    def nearest(self, o, d, seed_t, stats):
+    def nearest(self, o, d, seed_t, stats, order=None):
         """``nearest_rows``' hit as (t [R] (== seed_t on a miss), world
         normal facing the ray [R, 3], albedo [R, 3])."""
-        best_t, win_k, win_row = self.nearest_rows(o, d, seed_t, stats)
+        best_t, win_k, win_row = self.nearest_rows(o, d, seed_t, stats, order)
         hit = win_k >= 0
         k_hit = win_k.clamp_min(0)
         rot = self.table[k_hit, 0:9]
@@ -2452,13 +3080,15 @@ class _MeshWalk(NamedTuple):
         world = world * torch.where(facing, 1.0, -1.0)[:, None]
         return best_t, world, albedo
 
-    def occluded(self, so, blocked, stats, directions=None):
+    def occluded(self, so, blocked, stats, directions=None, order=None):
         """Any-hit from the origins ``so`` [R, 3] toward the sun or, given,
         along the rays' own ``directions`` [R, 3]; ``blocked`` [R] lanes
         come back True without walking. A ray stops at its first
-        occluder."""
+        occluder. ``order``: the launch's ``_Order`` (None: canonical); the
+        sun's walks take its octant at each level the order orders."""
         occluded = blocked.clone()
         world_inv = _winv(self.sun if directions is None else directions)
+        ordered_blas = order is not None and order.blas is not None
         if stats is not None:
             stats["broadphase_rays"] += (~blocked).sum()
 
@@ -2481,7 +3111,30 @@ class _MeshWalk(NamedTuple):
                 ld = self.sun_object[k]
             else:
                 ld = _to_object(row, directions[idx], shift=False)
-            occluded[idx[self.blas_occluded(lo, ld, stats)]] = True
+            octant = int(octant_bits(ld)) if ordered_blas else None
+            occluded[idx[self.blas_occluded(lo, ld, stats, octant)]] = True
+
+        def visit_rows(slots, idx):
+            """The instances ``slots`` [n] for the unoccluded rays among
+            ``idx`` (an ordered TLAS walk's step: one slot a ray; the sun's
+            walk)."""
+            keep = ~occluded[idx]
+            slots, idx = slots[keep], idx[keep]
+            if idx.numel() == 0:
+                return
+            if stats is not None:
+                stats["world_aabb_tests"] += idx.numel()
+            rows = self.table[slots]
+            hit = _slab(rows[:, 13:16], rows[:, 16:19], so[idx], world_inv, INF)
+            slots, idx, rows = slots[hit], idx[hit], rows[hit]
+            if idx.numel() == 0:
+                return
+            if stats is not None:
+                stats["instance_walks"] += idx.numel()
+            lo = _to_object_rows(rows, so[idx], shift=True)
+            ld = self.sun_object[slots]
+            octant = octant_bits(ld) if ordered_blas else None
+            occluded[idx[self.blas_occluded(lo, ld, stats, octant)]] = True
 
         if self.tlas is not None:
             # A ray's walk ends at its first occluder: its limit turns -INF.
@@ -2491,8 +3144,17 @@ class _MeshWalk(NamedTuple):
                 visit(k, pos)
                 limit[pos[occluded[pos]]] = -INF
 
+            def visit_leaf_rows(slots, pos):
+                visit_rows(slots, pos)
+                limit[pos[occluded[pos]]] = -INF
+
             limit[occluded] = -INF
-            self.tlas.walk(so, world_inv, limit, visit_leaf_slot, stats)
+            tlas_octant = None
+            if order is not None and order.tlas is not None:
+                tlas_octant = torch.full((so.shape[0],), int(octant_bits(self.sun)),
+                                         dtype=torch.int64, device=so.device)
+            self.tlas.walk(so, world_inv, limit, visit_leaf_slot, stats, octant=tlas_octant,
+                           visit_rows=visit_leaf_rows)
             return occluded
         everyone = torch.arange(so.shape[0], device=so.device)
         for k in range(self.table.shape[0]):
@@ -2501,12 +3163,13 @@ class _MeshWalk(NamedTuple):
             visit(k, everyone)
         return occluded
 
-    def entry_candidates(self, o, d, stats):
+    def entry_candidates(self, o, d, stats, octant=None):
         """The TLAS variants' entry walk for rays ``o``/``d`` [n, 3]: the
         slot whose world box each ray enters first (strict ``<``, the
         lowest slot among ties), K where it overlaps none; [n] int64. The
         tree is walked against the best entry so far, the leaves' world
-        boxes tested alone (no BVH)."""
+        boxes tested alone (no BVH). ``octant`` [n]: each ray's ordered
+        TLAS table (None: canonical)."""
         n = o.shape[0]
         best_e = torch.full((n,), INF, device=o.device)
         best = torch.full((n,), self.table.shape[0], dtype=torch.int64, device=o.device)
@@ -2515,11 +3178,12 @@ class _MeshWalk(NamedTuple):
             stats["entry_rays"] += n
 
         def visit(k, pos):
+            """Slot k (or one slot a ray, [n]) for the rays ``pos``."""
             row = self.table[k]
             if stats is not None:
                 stats["entry_tests"] += pos.numel()
-            t_lo = (row[13:16] - o[pos]) * inv[pos]
-            t_hi = (row[16:19] - o[pos]) * inv[pos]
+            t_lo = (row[..., 13:16] - o[pos]) * inv[pos]
+            t_hi = (row[..., 16:19] - o[pos]) * inv[pos]
             near = torch.minimum(t_lo, t_hi)
             far = torch.maximum(t_lo, t_hi)
             near = torch.maximum(torch.maximum(near[:, 0], near[:, 1]), near[:, 2])
@@ -2528,7 +3192,11 @@ class _MeshWalk(NamedTuple):
             entry = torch.where(far >= entry, entry, INF)
             better = entry < best_e[pos]
             best_e[pos[better]] = entry[better]
-            best[pos[better]] = k
+            best[pos[better]] = k if isinstance(k, int) else k[better]
 
-        self.tlas.walk(o, inv, best_e, visit, stats, "entry_tests")
+        def visit_rows(slots, pos):
+            visit(slots, pos)
+
+        self.tlas.walk(o, inv, best_e, visit, stats, "entry_tests", octant=octant,
+                       visit_rows=visit_rows)
         return best

@@ -98,6 +98,9 @@ class TlasFrame(NamedTuple):
     slots: torch.Tensor  # [K, 22]: kernels.instance_table's rows in Morton slot order
     node_bounds: torch.Tensor  # [M, 8]: each TLAS node's lo, 0, hi, 0
     key_window: torch.Tensor  # [6]: the coherence key's window, lo then 1 / span
+    # [8M, 8]: node_bounds gathered through TlasTopology.octant_perm, the
+    # rows of the eight octant orders that the ordered walk takes
+    octant_node_bounds: torch.Tensor | None = None
 
 
 class MeshSet(NamedTuple):
@@ -444,7 +447,8 @@ class TlasTopology(NamedTuple):
     ranges; ``member`` is the [M, K] node -> slot incidence mask of the
     per-frame bounds. ``octant_*`` are the eight near-first re-threadings
     (octant o at rows [o M, (o + 1) M), local skip links, ``octant_perm``
-    the canonical node of each row); the port walks the canonical order."""
+    the canonical node of each row), which the ordered walks take when the
+    BVH carries octant tables."""
 
     skip: np.ndarray  # [M] int32: next subtree root (M = done)
     first: np.ndarray  # [M] int32: leaf slot start (0 for inner)
@@ -810,6 +814,7 @@ class _FrameTables(NamedTuple):
     slots: torch.Tensor
     node_bounds: torch.Tensor
     key_window: torch.Tensor
+    octant_node_bounds: torch.Tensor
 
 
 def mesh_from_arrays(

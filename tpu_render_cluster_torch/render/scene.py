@@ -196,21 +196,25 @@ def _frame_tensor(frame, device) -> torch.Tensor:
 
 def on_device(fields: tuple, device: str | torch.device) -> tuple:
     """A NamedTuple of float32 host tensors on ``device``, in one copy: the
-    tensors are packed into one pinned buffer, copied without making the
-    host wait, and split into views of the copy. The values stay the host's
-    bit for bit."""
+    tensors are packed into one pinned buffer, each from a 16-byte boundary
+    (the kernels read tables as float4), copied without making the host
+    wait, and split into views of the copy. The values stay the host's bit
+    for bit."""
     device = torch.device(device)
     if device.type == "cpu":
         return fields
-    flat = torch.cat([tensor.reshape(-1) for tensor in fields])
-    if flat.dtype != _F32:
-        raise TypeError(f"on_device packs float32 tensors, got {flat.dtype}")
-    copy = flat.pin_memory().to(device, non_blocking=True)
-    views, start = [], 0
+    parts, starts, start = [], [], 0
     for tensor in fields:
-        views.append(copy[start:start + tensor.numel()].view(tensor.shape))
-        start += tensor.numel()
-    return type(fields)(*views)
+        if tensor.dtype != _F32:
+            raise TypeError(f"on_device packs float32 tensors, got {tensor.dtype}")
+        pad = -tensor.numel() % 4
+        parts += [tensor.reshape(-1), torch.zeros(pad, dtype=_F32)]
+        starts.append(start)
+        start += tensor.numel() + pad
+    copy = torch.cat(parts).pin_memory().to(device, non_blocking=True)
+    return type(fields)(*(
+        copy[at:at + tensor.numel()].view(tensor.shape) for at, tensor in zip(starts, fields)
+    ))
 
 
 def build_scene(name: str, frame, device: str | torch.device = "cpu") -> Scene:
