@@ -84,7 +84,9 @@ Phases, each of which raises (exit code 1) if its check fails:
    walk every launch of the six mesh kernels checked bit for bit on every
    output of every lane (a per-bounce launch's SUBSET rays drawn as whole
    packets, whose votes they keep), and its passes against their plain
-   versions exactly; a TLAS launch's key against ``mesh_sort_keys`` but
+   versions exactly (a pool launch's vote only on the rows of the frames
+   each packet carries, also on the shuffled 8-frame launch); a TLAS
+   launch's key against ``mesh_sort_keys`` but
    exact entry ties (the twin gives a tie to the lowest slot, the ordered
    entry walk to the slot its packet's table meets first; counted);
 4. each main path: the first frames of a job file loaded through the
@@ -144,25 +146,37 @@ Phases, each of which raises (exit code 1) if its check fails:
    the instanced unit kernels' four launches of a 512x512 sample and of a
    256x256 one);
    The passes at the deep wavefront's bounce-0 launch: each wrapper, its
-   plain version, its bound and its launches on the main paths;
+   plain version, its bound and its launches on the main paths; the frames
+   a walked packet carries at the deep pool's checked launches;
 6. under torch.profiler (reported, not checked: the numbers read "not
    measured" where the profiler records no device time or misses a launch
    of the kernel, three tries in a row; a G sweep and the unit kernels'
-   alone times per bounce profile windows of 5 calls, up to six times):
+   alone times per bounce profile windows of 5 calls, rows 9 and 10 the 48
+   bounce-0 calls in windows of 6, up to six times each):
    each kernel's own device time apart from its wrapper's set-up work, and
    the card's idle share over two frames of
    each main path, or one window of a pool path, or one 128x128 frame at 2
    spp of the per-instance scan (busy: the sum of the device's own events;
    a scan path's also split by unit kernel; a tile path: frame 1's four
    tiles, the pool tile path all its units);
-7. the octant-ordered walk against the canonical order (the wrappers'
-   ``kernels.walks_ordered`` answering False, as for a BVH without octant
-   tables), in turns ordered, canonical, canonical, ordered: each of the six
-   kernels of rows 3, 4 and 6 on CUDA events and alone under the profiler
-   at the widths of PERF.md section 6 (rows 3: frame 1 of the 02 path;
-   rows 4: the deep wavefront's bounce-0 launch; rows 6: the mixed launch
-   of the pool paths' first windows), with the passes alone; and frames/s
-   of the 02 path, the deep wavefront and the deep pool, 4 frames a turn.
+7. the two kernels last redesigned for Hopper, the packet vote
+   ``packet_octants`` and ``trace_fused_mesh_tlas``: each one's ptxas
+   lines and resident blocks per SM; the vote exactly against its plain
+   version, on CUDA events and alone under the profiler at row 4 TLAS's
+   four launches of a deep wavefront frame and at the deep pool's first
+   window's checked launches and its 8-frame shuffled launch (rows voted,
+   frames a packet, the bound from the rows voted beside the every-row
+   one). Then the octant-ordered walk against the canonical order (the
+   wrappers' ``kernels.walks_ordered`` answering False, as for a BVH
+   without octant tables), in turns ordered, canonical, canonical,
+   ordered: each of the six kernels of rows 3, 4 and 6 on CUDA events and
+   alone under the profiler at the widths of PERF.md section 6 (rows 3:
+   frame 1 of the 02 path, row 3 TLAS frame 2 too, for the two frames'
+   mean; rows 4: the deep wavefront's bounce-0 launch; rows 6: the mixed
+   launch of the pool paths' first windows), with the passes alone; and
+   frames/s of the 02 path, the deep wavefront and the deep pool, 4 frames
+   a turn. (``chip_ab.py`` times the two redesigned kernels against the
+   builds of the sources they replaced.)
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -479,7 +493,7 @@ def host_ms(fn, repeats: int) -> float:
     return elapsed * 1e3 / repeats
 
 
-def device_time(fn, kernel: str | tuple[str, ...]) -> dict | None:
+def device_time(fn, kernel: str | tuple[str, ...], launches: int | None = None) -> dict | None:
     """One run of ``fn`` under torch.profiler (CUPTI): its wall ms, the
     summed device ms of every device operation it ran (kernels, copies,
     fills: the device's own events; a PyTorch operator's events repeat the
@@ -487,8 +501,9 @@ def device_time(fn, kernel: str | tuple[str, ...]) -> dict | None:
     ``kernel``'s own launches (the events of its CUDA function
     ``<kernel>_kernel``; several kernels: summed, and each in
     ``per_kernel``), with the launches the profile saw and those the
-    wrappers counted. None where the profiler records no device time (then
-    these numbers are not measured)."""
+    wrappers counted (``launches``: those ``fn`` makes where no wrapper
+    counts them, an earlier build of the kernel, chip_ab.py). None where the profiler
+    records no device time (then these numbers are not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -519,11 +534,14 @@ def device_time(fn, kernel: str | tuple[str, ...]) -> dict | None:
         "per_kernel": per_kernel,
         "kernels": len(events),
         "seen": sum(len(found) for found in own.values()),
-        "launched": sum(kernels.counts[name] - counted[name] for name in names),
+        "launched": launches if launches is not None else sum(
+            kernels.counts[name] - counted[name] for name in names
+        ),
     }
 
 
-def profiled(fn, kernel: str | tuple[str, ...], label: str, tries: int = 3) -> dict | None:
+def profiled(fn, kernel: str | tuple[str, ...], label: str, tries: int = 3,
+             launches: int | None = None) -> dict | None:
     """``device_time`` that reports, and does not raise, when the
     profiler cannot trace the card, and that trusts a profile only where it
     saw every launch of ``kernel`` that ``fn`` made: it profiles ``fn`` up
@@ -532,7 +550,7 @@ def profiled(fn, kernel: str | tuple[str, ...], label: str, tries: int = 3) -> d
     and else reports not measured."""
     for _ in range(tries):
         try:
-            result = device_time(fn, kernel)
+            result = device_time(fn, kernel, launches)
         except Exception as error:  # noqa: BLE001 - the profiler is optional here
             print(f"[6] {label}: profiler failed ({type(error).__name__}: {error}); not measured")
             return None
@@ -549,11 +567,13 @@ def profiled(fn, kernel: str | tuple[str, ...], label: str, tries: int = 3) -> d
     return None
 
 
-def alone_ms(once, kernel: str, label: str, calls: int = 5) -> float | None:
+def alone_ms(once, kernel: str, label: str, calls: int = 5, counted: bool = True) -> float | None:
     """The kernel alone per call of ``once`` (one launch of ``kernel``),
     from a window of ``calls`` calls that the profiler saw whole, profiled
-    up to six times. None: not measured."""
-    result = profiled(lambda: [once() for _ in range(calls)], kernel, label, tries=6)
+    up to six times (``counted`` False: a launch no wrapper counts). None:
+    not measured."""
+    result = profiled(lambda: [once() for _ in range(calls)], kernel, label, tries=6,
+                      launches=None if counted else calls)
     return None if result is None else result["kernel_ms"] / calls
 
 
@@ -727,11 +747,12 @@ def check_bounce(label: str, trace: Trace, launch, seed, rows=None, stats=None) 
 
 
 def check_passes(label: str, kernel: str, mesh, state, live: int, bounce: int | None, got,
-                 table=None, expected=None) -> None:
+                 table=None, expected=None, per_frame: int = 0) -> None:
     """The passes of an ordered launch of ``kernel`` on its input ``state``
     and output ``got``, each through its kernel against its plain version on
     the card, exactly: the packet votes (over ``table``'s rows: the slots
-    under TLAS, else ``mesh``'s instance table; a pool's stacked rows) and,
+    under TLAS, else ``mesh``'s instance table; a pool's stacked rows,
+    ``per_frame`` a frame, for the frames of each packet's lanes) and,
     for the per-bounce TLAS kernel, the key pass on ``got`` against the key
     column of the plain bounce ``expected`` (the plain key pass's
     arithmetic, ``kernels._keys_reference``) and the launch's own. ``bounce``
@@ -744,8 +765,11 @@ def check_passes(label: str, kernel: str, mesh, state, live: int, bounce: int | 
     block = kernels.TLAS_BLOCK_R if tlas else kernels.BVH_BLOCK_R
     table = kernels.instance_table(mesh) if table is None else table
     world = tlas and bounce is not None
-    votes = kernels.packet_votes(state[1], table, live, block=block, world=world)
-    plain = kernels.packet_votes_reference(state[1], table, live, block=block, world=world)
+    # A pool launch votes only the rows of the frames each packet carries.
+    frames = {} if bounce is not None else {"frames": state[5], "per_frame": per_frame}
+    votes = kernels.packet_votes(state[1], table, live, block=block, world=world, **frames)
+    plain = kernels.packet_votes_reference(state[1], table, live, block=block, world=world,
+                                           **frames)
     differ = sum(int((a != b).sum()) for a, b in zip(votes, plain) if a is not None)
     check(differ == 0, f"{kernel}: {differ} packet votes differ from the plain version's")
     PASS_CHECKS["packet_octants"] += 1
@@ -1010,7 +1034,7 @@ def pool_kernel_vs_plain(path: MainPath, device) -> dict:
                 stacked = (kernels.pool_tlas_operands(window.ops).slots
                            if kernel in TLAS_KERNELS else window.ops.instances)
                 check_passes("3", kernel, window.ops.meshes[0], launch.state, live, None, got,
-                             stacked)
+                             stacked, per_frame=window.ops.per_frame)
             if kernel in TLAS_KERNELS:
                 pool_tlas = kernels.pool_tlas_operands(window.ops)
                 result.update(check_keys(
@@ -1089,6 +1113,10 @@ def unsorted_pool_vs_plain(kernel: str, first: dict, device) -> dict:
         "3", kernel, got, out[0], pool, True, pool_tlas.slots, pool_tlas.key_window,
         fid=state[5], per_frame=window.ops.per_frame,
     ))
+    # Every packet carries all 8 frames: the vote's frame skip saves nothing.
+    check_passes("3", kernel, window.ops.meshes[0], state, pool, None, got, pool_tlas.slots,
+                 per_frame=window.ops.per_frame)
+    first["unsorted"] = state  # for phase 7
     return result
 
 
@@ -1926,6 +1954,10 @@ def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) ->
     windows = run["windows"]
     iterations = sum(w.iterations for w in windows)
     print(f"[5] {kernel}: {iterations / len(frames):.2f} launches per frame ({iterations} over the path's {len(frames)} frames)")
+    carried = frames_per_packet(kernel, checked) if kernel != "pool_sphere_bounce" else None
+    if carried is not None:
+        print(f"[5] {kernel}: frames per walked packet at the first window's checked launches "
+              f"(the vote pass votes only their rows): {json.dumps(carried)}")
     window_profile = profiled(
         lambda: raypool.render_batch_raypool(
             path.scene, first_window, width=WIDTH, height=HEIGHT, samples=SAMPLES,
@@ -1990,6 +2022,7 @@ def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) ->
         "wavefront_frames_per_s": wavefront_fps,
         "window_idle_share": idle,
         "host_reads_per_window": [w.host_reads for w in windows],
+        "frames_per_packet": carried,
         "window_vs_wavefront_max_abs_err": err,
         "window_bit_equal_share_min": min(bit_equal),
         "checked_launches": checked["checked_launches"],
@@ -1997,6 +2030,24 @@ def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) ->
         "tolerance": TOLERANCE[kernel],
         "build_s": build_s,
     }
+
+
+def frames_per_packet(kernel: str, checked: dict) -> dict:
+    """Per checked launch of a mesh pool kernel's first window (first, each
+    frame boundary, the mixed launch, the drain), the mean and the most
+    frames that a walked packet's lanes carry: the frames whose rows its
+    vote pass votes."""
+    from tpu_render_cluster_torch.render import kernels
+
+    window = checked["window"]
+    block = kernels.TLAS_BLOCK_R if kernel in TLAS_KERNELS else kernels.BVH_BLOCK_R
+    counts = {}
+    for role, picked in checked["picked"].items():
+        launch = checked["launches"][picked["index"]]
+        carried = kernels.carried_frames(launch.state[5], block, len(window.frames)).sum(dim=1)
+        walked = carried[: -(-int(launch.live) // block)].float()
+        counts[role] = {"mean": walked.mean().item(), "max": int(walked.max())}
+    return counts
 
 
 @contextlib.contextmanager
@@ -2350,7 +2401,9 @@ def per_instance_record(run: dict, runs: dict, device) -> dict[str, dict]:
     scan's; rows 9 and 10 at the DEEP_INSTANCES launches of bounce 0 of
     frame 1's first sample (262,144 rays each): ms per call (CUDA events,
     the mean over those launches), host ms per call, alone (profiler), and
-    the bound and the plain version's ms of instance 0's launch; the card's
+    the bound and the plain version's ms of instance 0's launch (alone:
+    windows of 6 calls, each profiled up to six times, the mean over the
+    launches of the windows seen whole); the card's
     idle share over one 128x128 frame at 2 spp under the profiler (a
     512x512 frame runs about 140,000 device operations). The path's frames
     are not rendered with the plain versions: the plain walks take seconds
@@ -2411,8 +2464,20 @@ def per_instance_record(run: dict, runs: dict, device) -> dict[str, dict]:
         result = unit_agreement(name, args, got, stats=stats)
         check(result["bad"] <= result["budget"], f"{name} at full size: {result['bad']} rays")
         least = unit_bound(name, stats, result["rays"])
-        alone = profiled(calls, name, f"{name}, the {DEEP_INSTANCES} bounce-0 calls")
-        kernel_only_ms = None if alone is None else alone["kernel_ms"] / alone["launched"]
+        # Windows of 6 of the 48 calls, each profiled up to six times, as
+        # phase 6's windows (one window of all 48 missed launches); the mean
+        # over the launches of the windows seen whole.
+        windows = [launches[i:i + 6] for i in range(0, DEEP_INSTANCES, 6)]
+        profiles = [
+            profiled(lambda window=window: [wrapper(*a) for a, _ in window], name,
+                     f"{name}, bounce-0 calls {6 * i}-{6 * i + len(window) - 1}", tries=6)
+            for i, window in enumerate(windows)
+        ]
+        seen = [p for p in profiles if p is not None]
+        kernel_only_ms = (sum(p["kernel_ms"] for p in seen) / sum(p["launched"] for p in seen)
+                          if seen else None)
+        print(f"[6] {name}: {len(seen)} of {len(windows)} windows of the bounce-0 calls seen "
+              f"whole ({sum(p['launched'] for p in seen)} of {DEEP_INSTANCES} launches)")
         frame_alone_ms = (
             None if small is None
             else small["per_kernel"][name] / (2 * BOUNCES * DEEP_INSTANCES)
@@ -2908,7 +2973,7 @@ def lane_kernel_record(run: dict, device, max_abs_err: float, build_s: float) ->
     }
 
 
-# -- the octant-ordered walk's passes and its A/B against the canonical order -
+# -- the octant-ordered walk's passes ----------------------------------------
 
 
 @contextlib.contextmanager
@@ -2927,16 +2992,17 @@ def walk_order(ordered: bool):
         kernels.walks_ordered = saved
 
 
-def deep_bounce_launch(kernel: str, device):
-    """(trace, rays, launch) of the bounce-0 launch of frame 1 of the deep
-    wavefront path through ``kernel`` (its whole width, 2,097,152 lanes)."""
+def deep_launches(kernel: str, device):
+    """(trace, rays, launches) of frame 1 of the deep wavefront path through
+    ``kernel``: its four launches, bounce 0's its whole width (2,097,152
+    lanes)."""
     scene = PATHS[2].scene
     frame = job_frames(PATHS[2])[1][0]
     trace = Trace(kernel, scene, frame, device)
     rays = frame_rays(scene, frame, device)
     launches: list = []
     trace.run(*rays, BOUNCES, on_launch=launches.append)
-    return trace, rays, launches[0]
+    return trace, rays, launches
 
 
 def pass_records(runs: dict, device, build_s: float) -> list[dict]:
@@ -2949,7 +3015,8 @@ def pass_records(runs: dict, device, build_s: float) -> list[dict]:
 
     from tpu_render_cluster_torch.render import kernels
 
-    trace, rays, launch = deep_bounce_launch("mesh_bounce_tlas", device)
+    trace, rays, launches = deep_launches("mesh_bounce_tlas", device)
+    launch = launches[0]
     state, live = launch.state, launch.live
     slots = kernels.tlas_frame(trace.mesh).slots
     lanes, k = state[0].shape[0], slots.shape[0]
@@ -3048,31 +3115,185 @@ def backend_fps(path: MainPath, frames: int, device) -> dict:
     return {"fps": len(chosen) / elapsed, "render_ms": statistics.median(render)}
 
 
+# -- 7. the redesigned kernels, and the ordered walk against the canonical --
+
+# The kernels last redesigned for Hopper; chip_ab.py times them against the
+# builds of the sources they replaced.
+REDESIGNED = ("packet_octants", "trace_fused_mesh_tlas")
+
+
+def vote_bound(lanes: int, block: int, rows: int, voted, world: bool, frames: bool) -> dict:
+    """The vote pass's least time on a launch of ``lanes`` lanes in packets
+    of ``block``: 21 flops a lane and row voted (``voted`` [P], the rows
+    each packet votes) and 3 a lane for the world vote, against 12 bytes of
+    directions a lane (and 4 of frame id with ``frames``) and a byte a
+    packet and row of the ``rows`` (and its world octant)."""
+    ops = OPS_VOTE_ROW * block * int(voted.sum()) + OPS_VOTE_WORLD * lanes * world
+    moved = lanes * (VOTE_RAY_BYTES + 4 * frames) + voted.shape[0] * (rows + world)
+    ops_ms, bytes_ms = ops / FP32_PEAK_FLOPS * 1e3, moved / MEMORY_BYTES_PER_S * 1e3
+    return {"ms": max(ops_ms, bytes_ms), "by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def vote_launches(pool_first: dict, device) -> list[dict]:
+    """The vote pass's launches that phase 7 times: row 4 TLAS's four of
+    frame 1 of the deep wavefront (every row, with the world vote) and the
+    pool's first window's (first, each frame boundary, the mixed launch,
+    the drain, and the mixed launch shuffled over all 8 frames; the rows of
+    each packet's frames, no world vote). Each: the arguments of
+    ``kernels.packet_votes`` (``args``, ``options``) and its label."""
+    from tpu_render_cluster_torch.render import kernels
+
+    launches = []
+    block = kernels.TLAS_BLOCK_R
+    trace, rays, deep = deep_launches("mesh_bounce_tlas", device)
+    slots = kernels.tlas_frame(trace.mesh).slots
+    for launch in deep:
+        launches.append({
+            "label": f"row 4 TLAS bounce {launch.bounce}",
+            "args": (launch.state[1], slots, int(launch.live)),
+            "options": {"block": block, "world": True},
+        })
+    window = pool_first["window"]
+    stacked = kernels.pool_tlas_operands(window.ops).slots
+    roles = {}  # a launch that fills two roles is timed once
+    for role, picked in pool_first["picked"].items():
+        roles.setdefault(picked["index"], (role, picked))
+    pool_states = [(role, pool_first["launches"][index].state, int(picked["live"]))
+                   for index, (role, picked) in roles.items()]
+    pool_states.append(("unsorted (8 frames a packet)", pool_first["unsorted"],
+                        window.pool))
+    for role, state, live in pool_states:
+        launches.append({
+            "label": f"row 6 TLAS {role}", "args": (state[1], stacked, live),
+            "options": {"block": block, "world": False, "frames": state[5],
+                        "per_frame": window.ops.per_frame},
+        })
+    return launches
+
+
+def vote_rows(launch: dict, device) -> dict:
+    """The rows a launch of ``vote_launches`` votes, the frames its walked
+    packets carry, and its bound from the rows voted beside the bound of
+    every row's vote; ``carried`` [P, frames] (None without frame ids)."""
+    import torch
+
+    from tpu_render_cluster_torch.render import kernels
+
+    directions, table, live = launch["args"]
+    options = launch["options"]
+    block, world = options["block"], options["world"]
+    packets = -(-directions.shape[0] // block)
+    walked = torch.arange(packets, device=device) * block < live
+    if "frames" in options:
+        per_frame = options["per_frame"]
+        carried = (kernels.carried_frames(options["frames"], block, table.shape[0] // per_frame)
+                   & walked[:, None])
+        voted = carried.sum(dim=1) * per_frame
+        per_packet = carried.sum(dim=1)[walked].float()
+    else:
+        carried, per_packet = None, None
+        voted = walked.long() * table.shape[0]
+    return {
+        "carried": carried,
+        "lanes": directions.shape[0], "live": live, "rows": table.shape[0],
+        "rows_voted_mean": voted[walked].float().mean().item() if walked.any() else 0.0,
+        "frames_per_packet_mean": None if per_packet is None else per_packet.mean().item(),
+        "frames_per_packet_max": None if per_packet is None else int(per_packet.max()),
+        "bound": vote_bound(directions.shape[0], block, table.shape[0], voted, world,
+                            carried is not None),
+        "bound_every_row": vote_bound(directions.shape[0], block, table.shape[0],
+                                      walked.long() * table.shape[0], world, False),
+    }
+
+
+def vote_times(pool_first: dict, device) -> dict:
+    """Phase 7 for the vote pass: on each launch of ``vote_launches`` the
+    kernel exactly against its plain version, the rows it votes and its
+    bound (``vote_rows``), its wrapper on CUDA events (the median of 3
+    batches of 5) and the kernel alone."""
+    from tpu_render_cluster_torch.render import kernels
+
+    results = {}
+    for launch in vote_launches(pool_first, device):
+        args, options = launch["args"], launch["options"]
+        call = lambda args=args, options=options: kernels.packet_votes(*args, **options)  # noqa: E731
+        got = call()
+        plain = kernels.packet_votes_reference(*args, **options)
+        differ = sum(int((a != b).sum()) for a, b in zip(got, plain) if a is not None)
+        check(differ == 0, f"packet_octants {launch['label']}: {differ} votes differ from plain")
+        result = vote_rows(launch, device)
+        del result["carried"]
+        cuda_ms(call, 2)
+        result["ms"] = statistics.median(cuda_ms(call, 5) for _ in range(3))
+        result["alone_ms"] = alone_ms(call, "packet_octants", f"[7] packet_octants "
+                                                              f"{launch['label']}")
+        results[launch["label"]] = result
+        print(f"[7] packet_octants {launch['label']}: {json.dumps(result)}")
+    return results
+
+
+def redesign_resources(pool_first: dict, device) -> dict:
+    """Each redesigned kernel's ptxas lines and its resident blocks per SM
+    at phase 7's launches (row 3 TLAS on 02's tables in the default walk
+    order, with its dynamic shared memory; the vote at 48 rows and at the
+    pool's stacked rows)."""
+    import ctypes
+
+    from tpu_render_cluster_torch.render import _build, kernels
+
+    mesh = Trace("trace_fused_mesh_tlas", PATHS[1].scene, 1, device).mesh
+    triangles, bounds, _ = kernels._bvh_operands(mesh.bvh)
+    shared = ctypes.c_int()
+    query = occupancy_entry("trace_fused_mesh_tlas", [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    mega_blocks = query(mesh.instances.translation.shape[0], triangles.shape[0], bounds.shape[0],
+                        kernels.tlas_frame(mesh).node_bounds.shape[0],
+                        int(kernels.walks_ordered(mesh.bvh)), ctypes.addressof(shared))
+    vote_query = occupancy_entry("packet_octants", [ctypes.c_int] * 2)
+    stacked = kernels.pool_tlas_operands(pool_first["window"].ops).slots
+    blocks = {
+        "trace_fused_mesh_tlas": {"02 ordered": mega_blocks, "shared_bytes": shared.value},
+        "packet_octants": {"48 rows": vote_query(kernels.TLAS_BLOCK_R, 48),
+                           f"{stacked.shape[0]} rows": vote_query(kernels.TLAS_BLOCK_R,
+                                                                  stacked.shape[0])},
+    }
+    resources = {}
+    for name in REDESIGNED:
+        check(all(b > 0 for b in blocks[name].values()), f"{name}_occupancy failed")
+        resources[name] = {"ptxas": _build.resource_lines(_build.build_logs.get(name, "")),
+                           "blocks_per_sm": blocks[name]}
+        print(f"[7] {name} registers, spills, resident blocks: {json.dumps(resources[name])}")
+    return resources
+
+
 def octant_ab(pool_inputs: dict, device) -> dict:
     """Phase 7: the octant-ordered walk against the canonical order in this
     one run, in turns (ordered, canonical, canonical, ordered): each of the
     six kernels of rows 3, 4 and 6 alone under the profiler (windows of 5
     calls) and its wrapper on CUDA events at the widths of PERF.md section
-    6 (rows 3: frame 1 of the 02 path, 2,097,152 rays; rows 4: bounce 0 of
-    frame 1 of the deep wavefront; rows 6: the mixed launch of the pool
-    path's first window, 65,536 lanes), with the passes' share of the
-    ordered wrapper's time; and frames/s of the 02 path, the deep wavefront
-    and the deep pool, 4 frames each a turn."""
+    6 (rows 3: frame 1 of the 02 path, 2,097,152 rays, and row 3 TLAS at
+    frame 2 too; rows 4: bounce 0 of frame 1 of the deep wavefront; rows 6:
+    the mixed launch of the pool path's first window, 65,536 lanes), with
+    the passes alone on the ordered turns; and frames/s of the 02 path, the
+    deep wavefront and the deep pool, 4 frames each a turn."""
     from tpu_render_cluster_torch.render import kernels
 
-    calls = {}
+    calls = []  # (label, kernel, call)
     mesh_path = PATHS[1]
-    frame = job_frames(mesh_path)[1][0]
-    for kernel in ("trace_fused_mesh_tlas", "trace_fused_mesh"):
+    frames = job_frames(mesh_path)[1]
+    for kernel, frame in (("trace_fused_mesh_tlas", frames[0]), ("trace_fused_mesh_tlas",
+                                                                 frames[1]),
+                          ("trace_fused_mesh", frames[0])):
         trace = Trace(kernel, mesh_path.scene, frame, device)
         rays = frame_rays(mesh_path.scene, frame, device)
-        calls[kernel] = lambda trace=trace, rays=rays: trace.run(*rays, BOUNCES)
+        label = kernel if frame == frames[0] else f"{kernel} 02 frame {frame}"
+        calls.append((label, kernel, lambda trace=trace, rays=rays: trace.run(*rays, BOUNCES)))
     occupancy = {}
     for kernel in ("mesh_bounce_tlas", "mesh_bounce"):
-        trace, rays, launch = deep_bounce_launch(kernel, device)
-        calls[kernel] = lambda trace=trace, launch=launch, seed=rays[2]: trace.bounce(
+        trace, rays, launches = deep_launches(kernel, device)
+        launch = launches[0]
+        calls.append((kernel, kernel, lambda trace=trace, launch=launch, seed=rays[2]: trace.bounce(
             launch.state, launch.live, seed, launch.bounce
-        )
+        )))
         if kernel == "mesh_bounce_tlas":
             group = kernels.bounce_group(launch.bucket, kernels.thread_slots(device.index or 0))
             for ordered in (True, False):
@@ -3084,9 +3305,9 @@ def octant_ab(pool_inputs: dict, device) -> dict:
         window = first["window"]
         launch = first["launches"][first["picked"]["mixed"]["index"]]
         wrapper, _ = pool_functions(kernel)
-        calls[kernel] = lambda wrapper=wrapper, ops=window.ops, launch=launch: wrapper(
+        calls.append((kernel, kernel, lambda wrapper=wrapper, ops=window.ops, launch=launch: wrapper(
             ops, *launch.state, int(launch.live), total_bounces=BOUNCES
-        )
+        )))
         if kernel == "pool_mesh_bounce_tlas":
             for ordered in (True, False):
                 with walk_order(ordered):
@@ -3096,7 +3317,7 @@ def octant_ab(pool_inputs: dict, device) -> dict:
     print(f"[7] resident blocks per SM and staged bytes, ordered and canonical: "
           f"{json.dumps(occupancy)}")
     result = {}
-    for kernel, call in calls.items():
+    for label, kernel, call in calls:
         turns = []
         for ordered in (True, False, False, True):
             with walk_order(ordered):
@@ -3104,7 +3325,7 @@ def octant_ab(pool_inputs: dict, device) -> dict:
                 ms = statistics.median(cuda_ms(call, 5) for _ in range(3))
                 names = kernels.launch_names(kernel, ordered)
                 profile = profiled(lambda: [call() for _ in range(5)], names,
-                                   f"[7] {kernel} {'ordered' if ordered else 'canonical'}",
+                                   f"[7] {label} {'ordered' if ordered else 'canonical'}",
                                    tries=6)
             alone = None if profile is None else profile["per_kernel"][kernel] / 5
             passes = None if profile is None or not ordered else {
@@ -3113,14 +3334,19 @@ def octant_ab(pool_inputs: dict, device) -> dict:
             turns.append({"ordered": ordered, "ms": ms, "alone_ms": alone, "passes_ms": passes})
         pick = lambda ordered, key: [t[key] for t in turns if t["ordered"] == ordered]  # noqa: E731
         mean = lambda xs: None if None in xs else statistics.mean(xs)  # noqa: E731
-        result[kernel] = {
+        result[label] = {
             "ordered_ms": mean(pick(True, "ms")), "canonical_ms": mean(pick(False, "ms")),
             "ordered_alone_ms": mean(pick(True, "alone_ms")),
             "canonical_alone_ms": mean(pick(False, "alone_ms")),
             "passes_alone_ms": [t["passes_ms"] for t in turns if t["ordered"]],
             "turns": turns,
         }
-        print(f"[7] {kernel}, ordered against canonical in turns: {json.dumps(result[kernel])}")
+        print(f"[7] {label}, ordered against canonical in turns: {json.dumps(result[label])}")
+    two = [result["trace_fused_mesh_tlas"], result[f"trace_fused_mesh_tlas 02 frame {frames[1]}"]]
+    for order in ("ordered", "canonical"):
+        values = [r[f"{order}_alone_ms"] for r in two]
+        result["trace_fused_mesh_tlas"][f"two_frames_{order}_alone_ms"] = (
+            None if None in values else statistics.mean(values))
     fps = {}
     for path in (PATHS[1], PATHS[2], PATHS[4]):
         turns = []
@@ -3253,16 +3479,23 @@ def main() -> int:
     print(f"[5] tile paths: {json.dumps(tile_summary)}")
     record["kernels"] += pass_records(runs, device, build_s)
 
-    # -- 7. the octant-ordered walk against the canonical order -------------
+    # -- 7. the redesigned kernels; the ordered walk against the canonical ----
     started = time.perf_counter()
+    pool_first = pool_inputs["pool_mesh_bounce_tlas"]
+    resources = redesign_resources(pool_first, device)
+    votes = vote_times(pool_first, device)
     ab = octant_ab(pool_inputs, device)
     for entry in record["kernels"]:
+        if entry["name"] in REDESIGNED:
+            entry["resources"] = resources[entry["name"]]
+        if entry["name"] == "packet_octants":
+            entry["phase_7_launches"] = votes
         if entry["name"] in ab["kernels"]:
             entry["octant_ab"] = ab["kernels"][entry["name"]]
-    print(f"[7] octant A/B in {time.perf_counter() - started:.1f} s: "
+    print(f"[7] phase 7 in {time.perf_counter() - started:.1f} s: "
           f"{json.dumps(ab['frames_per_s'])}")
 
-    print(f"[5] chip_smoke phases 1-6 in {time.perf_counter() - script_started:.1f} s")
+    print(f"[5] chip_smoke phases 1-7 in {time.perf_counter() - script_started:.1f} s")
     print(json.dumps(record))
     print(card)
     print(json.dumps({

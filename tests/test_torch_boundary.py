@@ -1,9 +1,9 @@
 """The PyTorch port imports neither jax nor anything of the JAX package.
 
 Two checks: a fresh interpreter imports every module of
-``tpu_render_cluster_torch`` (and ``chip_smoke.py``) while ``jax`` and
-``tpu_render_cluster`` are blocked in ``sys.meta_path``, and an AST scan
-of the same files finds no import of them. Note that the port's name
+``tpu_render_cluster_torch`` (and ``chip_smoke.py``, ``chip_ab.py``) while
+``jax`` and ``tpu_render_cluster`` are blocked in ``sys.meta_path``, and an
+AST scan of the same files finds no import of them. Note that the port's name
 starts with the reference's, so the checks match the names exactly.
 """
 
@@ -21,6 +21,7 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "tpu_render_cluster_torch"
 CHIP_SMOKE = REPO / "chip_smoke.py"
+CHIP_AB = REPO / "chip_ab.py"
 FORBIDDEN = ("jax", "jaxlib", "tpu_render_cluster")
 
 
@@ -29,7 +30,7 @@ def _forbidden(name: str) -> bool:
 
 
 def _port_files() -> list[Path]:
-    return sorted(PORT.rglob("*.py")) + [CHIP_SMOKE]
+    return sorted(PORT.rglob("*.py")) + [CHIP_SMOKE, CHIP_AB]
 
 
 def _module_name(path: Path) -> str:

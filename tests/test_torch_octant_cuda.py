@@ -15,7 +15,12 @@ frame 30 of 02_physics-mesh and of 03_physics-2-mesh (its icosphere BVH
 called directly through the megakernels, past the dispatch bound), camera
 rays and 1,000 random ones (no multiple of a packet: the last packet votes
 with pad rays), every launch of a deep wavefront frame and of a 2-frame
-pool window.
+pool window. The redesigned vote pass is also held exactly at 2,097,152
+lanes, on an 8-frame pool window's launches (with frame ids: only the rows
+of each packet's frames) and on 1,024-lane packets of one sign; row 3 TLAS
+at 0, 1 and 4 bounces, on ragged launches and on one whose paths all end
+at bounce 0, in both walk orders. The vote is also held on instance rows of
+scale above 1 (its object-space product by 1/s).
 """
 
 from __future__ import annotations
@@ -222,3 +227,176 @@ def test_cuda_unit_kernels_walk_the_canonical_order(cuda_device):
     hit = kernels.occluded_mesh(mesh.bvh, lo, ld, already)
     assert torch.equal(hit, kernels.occluded_mesh(canonical.bvh, lo, ld, already))
     assert torch.equal(hit, kernels.occluded_mesh_reference(canonical.bvh, lo, ld, already))
+
+
+# -- the redesigned vote pass and row 3 TLAS ------------------------------------
+
+
+def _random_directions(count: int, seed: int, device) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=(count, 3)).astype(np.float32)).to(device)
+
+
+def _assert_votes_equal(got, expected, what: str) -> None:
+    for have, want in zip(got, expected):
+        assert (have is None) == (want is None), what
+        assert have is None or torch.equal(have, want), f"{what}: {int((have != want).sum())} differ"
+
+
+@pytest.mark.parametrize("live", [2_097_152, 1_000_000])
+def test_cuda_vote_pass_at_full_width(cuda_device, live):
+    """Row 4 TLAS's widest launch: 2,097,152 lanes, the world vote and 48
+    rows, all packets walked or those past a live count zeroed."""
+    mesh = scene_mesh_set(DEEP, 30, device=cuda_device)
+    slots = kernels.tlas_frame(mesh).slots
+    assert slots.shape[0] == 48
+    directions = _random_directions(2_097_152, 5, cuda_device)
+    kernels.reset_counts()
+    got = kernels.packet_votes(directions, slots, live, block=kernels.TLAS_BLOCK_R)
+    torch.cuda.synchronize()
+    assert kernels.counts["packet_octants"] == 1
+    _assert_votes_equal(got, kernels.packet_votes_reference(directions, slots, live,
+                                                            block=kernels.TLAS_BLOCK_R), "votes")
+
+
+@pytest.mark.parametrize("block", [256, 1024])
+def test_cuda_vote_pass_on_scaled_instances(cuda_device, block):
+    """Instance rows of scale above 1 (1/s in [0.3, 0.8) on every other row
+    of 03's table): each row's vote goes through to_object's product by 1/s,
+    exactly as the plain version's."""
+    mesh = scene_mesh_set(DEEP, 30, device=cuda_device)
+    table = kernels.tlas_frame(mesh).slots.clone()
+    rng = np.random.default_rng(11)
+    scaled = torch.from_numpy(rng.uniform(0.3, 0.8, size=table[::2].shape[0]).astype(np.float32))
+    table[::2, 12] = scaled.to(cuda_device)
+    directions = _random_directions(262_144 + 77, 12, cuda_device)
+    live = 200_000
+    got = kernels.packet_votes(directions, table, live, block=block)
+    _assert_votes_equal(got, kernels.packet_votes_reference(directions, table, live, block=block),
+                        "scaled rows")
+
+
+def _pool_launches(device):
+    """Every launch of an 8-frame pool window at a small size."""
+    window = raypool.PoolWindow(
+        DEEP, list(range(30, 38)), width=32, height=24, samples=2, max_bounces=BOUNCES,
+        pool_width=2048, device=device,
+    )
+    launches: list = []
+    state = window.initial_state()
+    while bool(window.more(state)):
+        state = window.iteration(state, len(launches), launches.append)
+    return window, launches
+
+
+def test_cuda_vote_pass_on_pool_launches(cuda_device):
+    """The pool's votes, only the rows of the frames each packet carries:
+    the launch whose live lanes hold the most frames, the drain, and the
+    former with its lanes' frame ids drawn over all 8 frames and shuffled
+    (every packet carries every frame)."""
+    window, launches = _pool_launches(cuda_device)
+    slots = kernels.pool_tlas_operands(window.ops).slots
+    k = window.ops.per_frame
+
+    def frames_of(launch):
+        return int(launch.state[5][:int(launch.live)].unique().numel())
+
+    mixed = max(launches, key=frames_of)
+    assert frames_of(mixed) >= 2
+    generator = torch.Generator(device=cuda_device).manual_seed(8)
+    fid = torch.randint(0, 8, (window.pool,), generator=generator, device=cuda_device,
+                        dtype=torch.int32)
+    perm = torch.randperm(window.pool, generator=generator, device=cuda_device)
+    shuffled = (mixed.state[1][perm], fid[perm], window.pool)
+    cases = {
+        "mixed": (mixed.state[1], mixed.state[5], int(mixed.live)),
+        "drain": (launches[-1].state[1], launches[-1].state[5], int(launches[-1].live)),
+        "shuffled": shuffled,
+    }
+    for what, (directions, frames, live) in cases.items():
+        args = dict(block=kernels.TLAS_BLOCK_R, world=False, frames=frames, per_frame=k)
+        got = kernels.packet_votes(directions, slots, live, **args)
+        _assert_votes_equal(got, kernels.packet_votes_reference(directions, slots, live, **args),
+                            what)
+    carried = kernels.carried_frames(fid[perm], kernels.TLAS_BLOCK_R, 8)
+    assert bool(carried.all())
+
+
+def test_cuda_vote_pass_on_flat_packets_of_one_sign(cuda_device):
+    """1,024-lane packets with every lane positive along x (a count of 1,024,
+    past a 10-bit field), exactly half along y (a tie) and none along z:
+    every whole packet's world octant is 1."""
+    mesh = scene_mesh_set(DEEP, 30, device=cuda_device)
+    table = kernels.instance_table(mesh)
+    directions = _random_directions(100_000, 6, cuda_device)
+    directions[:, 0] = directions[:, 0].abs() + 0.5
+    directions[:, 1] = -directions[:, 1].abs() - 0.5
+    directions[::2, 1] = -directions[::2, 1]  # y: every other lane positive, a tie: no y bit
+    directions[:, 2] = -directions[:, 2].abs() - 0.5
+    got = kernels.packet_votes(directions, table, 100_000, block=kernels.BVH_BLOCK_R)
+    expected = kernels.packet_votes_reference(directions, table, 100_000,
+                                              block=kernels.BVH_BLOCK_R)
+    _assert_votes_equal(got, expected, "flat packets")
+    assert bool((got[0][:-1] == 1).all())
+
+
+@pytest.mark.parametrize("ordered", [True, False], ids=["ordered", "canonical"])
+@pytest.mark.parametrize("max_bounces", [1, 4])
+@pytest.mark.parametrize("name", [MESH, DEEP])
+def test_cuda_tlas_megakernel_on_ragged_launches(cuda_device, name, max_bounces, ordered):
+    """Row 3 TLAS bit for bit against its plain version at 1 and 4 bounces,
+    on 02 and on 03's deep tree called directly, at 1,000 random rays (a
+    ragged last packet), in both walk orders."""
+    scene = build_scene(name, 30, cuda_device)
+    mesh = scene_mesh_set(name, 30, device=cuda_device)
+    if not ordered:
+        mesh = _canonical(mesh)
+    origins, directions, seed = _rays(name, "random", cuda_device)
+    kernels.reset_counts()
+    got = kernels.trace_paths_fused_mesh(scene, mesh, origins, directions, seed,
+                                         max_bounces=max_bounces, use_tlas=True)
+    torch.cuda.synchronize()
+    assert kernels.counts == {k: int(k == "trace_fused_mesh_tlas") for k in kernels.counts}
+    expected = kernels.trace_paths_fused_mesh_reference(scene, mesh, origins, directions, seed,
+                                                        max_bounces=max_bounces, use_tlas=True)
+    assert torch.equal(got, expected), f"{int((got != expected).any(dim=1).sum())} rays differ"
+
+
+def test_cuda_tlas_megakernel_when_every_path_ends_at_bounce_0(cuda_device):
+    """Rays above everything aimed at the sky: every packet's paths end at
+    bounce 0, and each lane keeps the sky's radiance."""
+    scene = build_scene(MESH, 30, cuda_device)
+    mesh = scene_mesh_set(MESH, 30, device=cuda_device)
+    rays = 3 * 256 + 17
+    origins = torch.tensor([[0.0, 500.0, 0.0]], device=cuda_device).expand(rays, 3).contiguous()
+    directions = torch.nn.functional.normalize(
+        _random_directions(rays, 7, cuda_device).abs() + torch.tensor([0.0, 2.0, 0.0],
+                                                                       device=cuda_device), dim=1)
+    got = kernels.trace_paths_fused_mesh(scene, mesh, origins, directions, 9, max_bounces=BOUNCES,
+                                         use_tlas=True)
+    expected = kernels.trace_paths_fused_mesh_reference(scene, mesh, origins, directions, 9,
+                                                        max_bounces=BOUNCES, use_tlas=True)
+    assert torch.equal(got, expected)
+    one = kernels.trace_paths_fused_mesh_reference(scene, mesh, origins, directions, 9,
+                                                   max_bounces=1, use_tlas=True)
+    assert torch.equal(got, one) and got.max() > 0.0
+
+
+@pytest.mark.parametrize("ordered", [True, False], ids=["ordered", "canonical"])
+def test_cuda_tlas_megakernel_at_zero_bounces(cuda_device, ordered):
+    """max_bounces 0 on more packets than the card holds blocks (each block
+    takes several from the work counter): every lane's radiance is 0, as the
+    plain version's."""
+    scene = build_scene(MESH, 30, cuda_device)
+    mesh = scene_mesh_set(MESH, 30, device=cuda_device)
+    if not ordered:
+        mesh = _canonical(mesh)
+    rays = 600_000
+    origins = torch.zeros((rays, 3), device=cuda_device)
+    origins[:, 1] = 2.0
+    directions = _random_directions(rays, 13, cuda_device)
+    got = kernels.trace_paths_fused_mesh(scene, mesh, origins, directions, 5, max_bounces=0,
+                                         use_tlas=True)
+    expected = kernels.trace_paths_fused_mesh_reference(scene, mesh, origins, directions, 5,
+                                                        max_bounces=0, use_tlas=True)
+    assert torch.equal(got, expected) and not bool(got.any())

@@ -579,6 +579,36 @@ __device__ __forceinline__ void block_instance_octants(const MeshTables& m, floa
   __syncthreads();
 }
 
+// The packet votes of the vote pass (packet_octants.cu) and of the TLAS
+// megakernel (trace_fused_mesh_tlas.cu), whose threads count several lanes
+// each: a direction's positive components as 1s in three fields of 10 bits
+// (summed over a packet of at most 1,023 lanes in one int), and the octant
+// of such counts over a packet of n lanes.
+__device__ __forceinline__ unsigned positive_bits(float3v v) {
+  return (v.x > 0.0f ? 1u : 0u) | (v.y > 0.0f ? 1u << 10 : 0u) | (v.z > 0.0f ? 1u << 20 : 0u);
+}
+
+__device__ __forceinline__ uint8_t octant_of_counts(unsigned counts, int n) {
+  return static_cast<uint8_t>((2 * static_cast<int>(counts & 1023u) > n ? 1 : 0) |
+                              (2 * static_cast<int>((counts >> 10) & 1023u) > n ? 2 : 0) |
+                              (2 * static_cast<int>((counts >> 20) & 1023u) > n ? 4 : 0));
+}
+
+// The position of the n-th set bit of `bits` (n from 0, below its popc).
+__device__ __forceinline__ int nth_bit(unsigned bits, int n) {
+  int at = 0;
+#pragma unroll
+  for (int width = 16; width > 0; width >>= 1) {
+    const int low = __popc(bits & ((1u << width) - 1u));
+    if (n >= low) {
+      n -= low;
+      bits >>= width;
+      at += width;
+    }
+  }
+  return at;
+}
+
 // Bytes of the per-instance vote's shared memory (counts, then octants), 0
 // where no vote is taken.
 inline size_t instance_vote_bytes(bool votes, int n_instances) {

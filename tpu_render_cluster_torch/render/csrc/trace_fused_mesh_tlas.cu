@@ -15,97 +15,316 @@
 // (kernels.tlas_frame), so a ray's instance order is the slots', not the
 // table's: the nearest hit is the flat sweep's, exact ties aside.
 //
-// Bound: operations, as trace_fused_mesh.cu, with the instance search a
-// two-level walk (about 2 ceil(log2 K) box tests per search where the
-// flat sweep pays K). Design: one thread per ray, no stack (the links are
-// threaded); the BVH, the slot-ordered instance table and the TLAS (about
-// 0.7 KB for 24 instances) staged once per block in shared memory beside
-// the spheres. The TPU's packet culls (a subtree skipped when no lane of a
-// 256-ray block wants it) become per-thread culls, which change which
-// nodes a ray visits, never its nearest hit.
-//
 // Walk order: on a BVH with octant tables (every sah build; the
 // reference's default) the launch's tables hold the BVH's and the TLAS's
 // eight octant orders stacked [8N] and [8M], and each walk takes the one of
-// its packet's octant (mesh::Octants). A block of 256 threads is the
-// reference's packet (tlas_block_r() lanes in launch order): at every
-// bounce all its threads vote, each with the direction its lane carries (a
-// finished path's last one, a lane past the launch (0, 1, 0)), on the
-// TLAS's octant (block_octant: a warp sum and one barrier) and, on a BVH of
-// more than one node, on each instance's BLAS octant in object space
-// (block_instance_octants: a ballot per warp, K x 3 counters in shared
-// memory); the shadow walks take the sun's octant. Without octant tables
-// the canonical order, the kernel as before. Built with --fmad=false.
+// its packet's octant (mesh::Octants). A packet is the reference's ray
+// block, 256 lanes of the launch in launch order (tlas_block_r()): at every
+// bounce all its lanes vote, each with the direction it carries (a finished
+// path's last one, a lane past the launch (0, 1, 0)), on the TLAS's octant
+// and, on a BVH of more than one node, on each instance's BLAS octant in
+// object space; the shadow walks take the sun's octant. Without octant
+// tables the canonical order.
+//
+// Bound: operations, as trace_fused_mesh.cu, with the instance search a
+// two-level walk (about 2 ceil(log2 K) box tests per search where the
+// flat sweep pays K). What held it back (one thread a ray, a block of 256 a
+// packet): on the ordered walk every thread stayed in the bounce loop to
+// each bounce's vote barrier, finished paths and lanes past the launch
+// included; each warp ran as long as its slowest path at every bounce;
+// __launch_bounds__(256) alone let ptxas settle on 64 registers and spill
+// 108-144 bytes; every block of 256 rays staged the tables again. Design:
+//   - persistent blocks, as many as are resident at once (fewer for a
+//     narrow launch), each staging the BVH, the slot-ordered instance table
+//     and the TLAS once by bulk copy (mesh::stage_ranges), then taking
+//     packets from a work counter in global memory (a scratch int of the
+//     caller's, cleared on the launch's stream before the kernel);
+//   - a packet's carried state (origin, direction, throughput, radiance,
+//     alive: 49 bytes a lane, 12.3 KB) in shared memory, so registers hold
+//     only the bounce of the ray a thread is on;
+//   - 128 threads a packet, 2 lanes a thread, 7 blocks an SM (72
+//     registers): a bounce waits at a barrier for its slowest warp, so more
+//     packets in flight keep the SM busy (measured: 256 threads a packet at
+//     3 blocks an SM ran 25% slower than the parent, 128 at 6-8 blocks
+//     10-15% faster; PERF.md section 6);
+//   - each bounce, the vote over the 256 staged directions (each thread
+//     counting its 2 positional lanes: packet_octant,
+//     packet_instance_octants), whose barrier also publishes the packet's
+//     live mask (a ballot a warp); the live lanes are then walked in lane
+//     order, thread t taking the t-th and the (t + 128)-th (nth_live), so
+//     finished lanes hold no thread and walking warps are full; the packet
+//     ends at the first bounce with no live lane. A path's bounce depends
+//     only on its own lane index (its RNG counter) and state, so any thread
+//     may take any lane and the result is the one-thread-a-ray kernel's,
+//     bit for bit.
+// The canonical order (no octant tables) runs the same structure without
+// the votes: the compaction, the staging and the packets in flight serve it
+// alike (as fast as the one-thread-a-ray kernel or up to 4% faster), and one
+// kernel body keeps the two orders' walks the same code. Built with
+// --fmad=false.
 
 #include "mesh_common.cuh"
 
 namespace {
 
 using path::float3v;
-constexpr int kThreads = 256;
+// The reference's ray block (tlas_block_r()): a packet of 256 lanes.
+constexpr int kPacket = 256;
+// A block walks one packet at a time with kThreads threads, each voting for
+// kLanes positional lanes (lane t + j kThreads) and walking up to kLanes of
+// the packet's live lanes a bounce.
+constexpr int kThreads = 128;
+constexpr int kLanes = kPacket / kThreads;
+constexpr int kWords = kPacket / 32;  // the packet's live mask, a word a 32 lanes
+// Resident blocks an SM: ptxas keeps a thread within 72 registers.
+constexpr int kMinBlocks = 7;
 
-// kOrdered: the octant-ordered walk, its votes in `vote` (counters and
-// octants of block_instance_octants; nullptr on a one-node BVH).
+// A packet's carried state, lane i at [i], and the bounce's live lanes: the
+// origin and direction with the axes apart (neighbouring lanes in
+// neighbouring banks), copied into registers for a bounce; the throughput
+// and radiance as float3 (a stride of 3 words, free of bank conflicts),
+// which the bounce reads and writes in place, so that registers do not hold
+// them across the walk.
+struct PacketState {
+  float o[3][kPacket];
+  float d[3][kPacket];
+  float3v thr[kPacket];
+  float3v rad[kPacket];
+  uint8_t alive[kPacket];
+  unsigned live[kWords];  // bit l of word w: lane 32 w + l is alive
+  int packet;  // the block's packet
+};
+
+__device__ __forceinline__ float3v get(const float (&rows)[3][kPacket], int i) {
+  return {rows[0][i], rows[1][i], rows[2][i]};
+}
+
+__device__ __forceinline__ void put(float (&rows)[3][kPacket], int i, float3v v) {
+  rows[0][i] = v.x;
+  rows[1][i] = v.y;
+  rows[2][i] = v.z;
+}
+
+// The packet's world octant (`_octant_of`), every thread taking part with
+// its kLanes positional lanes' directions. One barrier: each warp adds its
+// packed counts to counters[round % 3], and thread 0 clears the counter of
+// the next round, which every thread read before this round's barrier.
+// `counters`: 3 ints of shared memory, zero before round 0.
+__device__ __forceinline__ int packet_octant(const PacketState& s, int* counters, int round) {
+  unsigned packed = 0;
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) {
+    packed += mesh::positive_bits(get(s.d, threadIdx.x + j * kThreads));
+  }
+  const unsigned sum = __reduce_add_sync(0xffffffffu, packed);
+  if ((threadIdx.x & 31u) == 0) atomicAdd(&counters[round % 3], static_cast<int>(sum));
+  if (threadIdx.x == 0) counters[(round + 1) % 3] = 0;
+  __syncthreads();
+  return mesh::octant_of_counts(static_cast<unsigned>(counters[round % 3]), kPacket);
+}
+
+// The packet's octant in the object space of each instance row k of m
+// (mesh::to_object, as the walk takes it) into octants[k]; counts, K ints
+// of shared memory (packed as the world vote's), are zero on entry and on
+// return.
+__device__ __forceinline__ void packet_instance_octants(const mesh::MeshTables& m,
+                                                        const PacketState& s, int* counts,
+                                                        uint8_t* octants) {
+  float3v d[kLanes];
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) d[j] = get(s.d, threadIdx.x + j * kThreads);
+  for (int k = 0; k < m.n_instances; ++k) {
+    const float* row = m.inst + mesh::kInstanceWidth * k;
+    unsigned packed = 0;
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) {
+      packed += mesh::positive_bits(mesh::to_object(row, d[j].x, d[j].y, d[j].z));
+    }
+    const unsigned sum = __reduce_add_sync(0xffffffffu, packed);
+    if ((threadIdx.x & 31u) == 0) atomicAdd(&counts[k], static_cast<int>(sum));
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < m.n_instances; k += kThreads) {
+    octants[k] = mesh::octant_of_counts(static_cast<unsigned>(counts[k]), kPacket);
+    counts[k] = 0;
+  }
+  __syncthreads();
+}
+
+// The n-th live lane of the packet (n from 0), in lane order.
+__device__ __forceinline__ int nth_live(const unsigned (&live)[kWords], int n) {
+  int w = 0;
+  for (; w < kWords - 1; ++w) {
+    const int c = __popc(live[w]);
+    if (n < c) break;
+    n -= c;
+  }
+  return 32 * w + mesh::nth_bit(live[w], n);
+}
+
+// Byte offsets in the dynamic shared memory (mesh::stage_region each): the
+// six table regions (staged false: the tables are read from global memory),
+// then the per-instance vote's counts and octants.
+struct Layout {
+  uint32_t offset[6];
+  bool staged;
+  uint32_t vote;
+  uint32_t bytes;
+};
+
+// The node tables' rows: N and M, or 8N and 8M for the octant orders.
+Layout plan(int n_tri_rows, int n_node_rows, int n_instances, int n_tlas_rows,
+            bool instance_votes) {
+  const size_t sizes[6] = {
+      sizeof(float4) * 4 * static_cast<size_t>(n_tri_rows),
+      sizeof(float4) * 2 * static_cast<size_t>(n_node_rows),
+      sizeof(int4) * static_cast<size_t>(n_node_rows),
+      sizeof(float) * mesh::kInstanceWidth * static_cast<size_t>(n_instances),
+      sizeof(float4) * 2 * static_cast<size_t>(n_tlas_rows),
+      sizeof(int4) * static_cast<size_t>(n_tlas_rows),
+  };
+  Layout layout = {};
+  size_t total = 0;
+  for (int i = 0; i < 6; ++i) {
+    layout.offset[i] = static_cast<uint32_t>(total);
+    total += mesh::stage_region(sizes[i]);
+  }
+  const size_t vote_bytes =
+      instance_votes ? (5 * static_cast<size_t>(n_instances) + 15) / 16 * 16 : 0;
+  layout.staged = total + vote_bytes <= static_cast<size_t>(path::kMaxStagedBytes);
+  layout.vote = layout.staged ? static_cast<uint32_t>(total) : 0u;
+  layout.bytes = layout.vote + static_cast<uint32_t>(vote_bytes);
+  return layout;
+}
+
+// kOrdered: the octant-ordered walk, each bounce's per-instance votes in
+// the vote region (`instance_votes`: the BVH has more than one node).
 template <bool kOrdered>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 trace_fused_mesh_tlas_kernel(const float* __restrict__ origins,
                              const float* __restrict__ directions, int n_rays,
                              const float4* __restrict__ spheres, int n_spheres,
                              const float* __restrict__ params, mesh::MeshTables tables,
-                             mesh::TlasTables tlas, int n_tri_rows, int n_node_rows, bool staged,
-                             size_t vote_offset, bool instance_votes, uint32_t seed,
-                             int max_bounces, float* __restrict__ radiance_out) {
+                             mesh::TlasTables tlas, int n_tri_rows, int n_node_rows,
+                             Layout layout, bool instance_votes, uint32_t seed, int max_bounces,
+                             float* __restrict__ radiance_out, int* __restrict__ next_packet) {
   __shared__ path::SceneShared scene;
+  __shared__ PacketState state;
   __shared__ int world_votes[3];
+  __shared__ uint64_t barrier;
   extern __shared__ float4 staging[];
-  if (staged) mesh::stage_two_level(tables, tlas, staging, n_tri_rows, n_node_rows);
-  if (kOrdered && threadIdx.x < 3) world_votes[threadIdx.x] = 0;
-  int* counts = reinterpret_cast<int*>(reinterpret_cast<char*>(staging) + vote_offset);
-  uint8_t* octants = reinterpret_cast<uint8_t*>(counts + 3 * tables.n_instances);
-  if (kOrdered && instance_votes) {
-    for (int i = threadIdx.x; i < 3 * tables.n_instances; i += blockDim.x) counts[i] = 0;
+  char* smem = reinterpret_cast<char*>(staging);
+  if (layout.staged) {
+    const mesh::Range ranges[6] = {
+        {smem + layout.offset[0], reinterpret_cast<const char*>(tables.tris),
+         static_cast<uint32_t>(sizeof(float4) * 4 * n_tri_rows)},
+        {smem + layout.offset[1], reinterpret_cast<const char*>(tables.bounds),
+         static_cast<uint32_t>(sizeof(float4) * 2 * n_node_rows)},
+        {smem + layout.offset[2], reinterpret_cast<const char*>(tables.links),
+         static_cast<uint32_t>(sizeof(int4) * n_node_rows)},
+        {smem + layout.offset[3], reinterpret_cast<const char*>(tables.inst),
+         static_cast<uint32_t>(sizeof(float) * mesh::kInstanceWidth * tables.n_instances)},
+        {smem + layout.offset[4], reinterpret_cast<const char*>(tlas.bounds),
+         static_cast<uint32_t>(sizeof(float4) * 2 * tlas.n_rows)},
+        {smem + layout.offset[5], reinterpret_cast<const char*>(tlas.links),
+         static_cast<uint32_t>(sizeof(int4) * tlas.n_rows)},
+    };
+    mesh::stage_ranges(ranges, &barrier);
+    tables.tris = reinterpret_cast<const float4*>(ranges[0].staged());
+    tables.bounds = reinterpret_cast<const float4*>(ranges[1].staged());
+    tables.links = reinterpret_cast<const int4*>(ranges[2].staged());
+    tables.inst = reinterpret_cast<const float*>(ranges[3].staged());
+    tlas.bounds = reinterpret_cast<const float4*>(ranges[4].staged());
+    tlas.links = reinterpret_cast<const int4*>(ranges[5].staged());
+  }
+  int* counts = reinterpret_cast<int*>(smem + layout.vote);
+  uint8_t* octants = reinterpret_cast<uint8_t*>(counts + tables.n_instances);
+  if (kOrdered) {
+    if (threadIdx.x < 3) world_votes[threadIdx.x] = 0;
+    if (instance_votes) {
+      for (int k = threadIdx.x; k < tables.n_instances; k += kThreads) counts[k] = 0;
+    }
   }
   path::load_scene(scene, spheres, n_spheres, params);  // ends with __syncthreads()
 
-  const int64_t ray = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const bool in_launch = ray < n_rays;
-  if (!kOrdered && !in_launch) return;
-  const uint32_t lane = static_cast<uint32_t>(ray);
-
-  float3v o = {0.0f, 0.0f, 0.0f};
-  float3v d = {0.0f, 1.0f, 0.0f};  // a lane past the launch: the reference's pad ray
-  if (in_launch) {
-    o = path::load3(origins, ray);
-    d = path::load3(directions, ray);
-  }
-  float3v thr = {1.0f, 1.0f, 1.0f};
-  float3v rad = {0.0f, 0.0f, 0.0f};
+  const int t = static_cast<int>(threadIdx.x);
+  const int packets = (n_rays + kPacket - 1) / kPacket;
   const uint32_t counter_stride = 2u * static_cast<uint32_t>(max_bounces) + 2u;
-
-  if constexpr (kOrdered) {
-    const float3v sun = {scene.params[0], scene.params[1], scene.params[2]};
-    const int sun_row = mesh::octant_of(sun) * tlas.n_nodes;
-    bool alive = in_launch;
-    for (int bounce = 0; bounce < max_bounces; ++bounce) {
-      const int tlas_row = mesh::block_octant(d, world_votes, bounce) * tlas.n_nodes;
-      if (instance_votes) mesh::block_instance_octants(tables, d, counts, octants);
-      const mesh::TlasInstances<mesh::Octants> instances = {
-          tlas, 0, tlas.n_nodes, {instance_votes ? octants : nullptr, tlas_row, sun_row}};
-      if (alive) {
-        alive = mesh::bounce(scene, 0, n_spheres, tables, instances, lane, bounce,
-                             counter_stride, seed, o, d, thr, rad);
-      }
+  const float3v sun = {scene.params[0], scene.params[1], scene.params[2]};
+  const int sun_row = mesh::octant_of(sun) * tlas.n_nodes;
+  int round = 0;  // the block's world votes so far
+  for (;;) {
+    if (t == 0) state.packet = atomicAdd(next_packet, 1);
+    __syncthreads();  // also: the last packet's state is read and written
+    const int packet = state.packet;
+    if (packet >= packets) break;  // uniform per block
+    const int first = packet * kPacket;  // the launch's lanes fit an int
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) {
+      // A lane past the launch: the reference's pad ray, never alive.
+      const int lane = t + j * kThreads;
+      const bool in_launch = first + lane < n_rays;
+      put(state.o, lane,
+          in_launch ? path::load3(origins, first + lane) : float3v{0.0f, 0.0f, 0.0f});
+      put(state.d, lane,
+          in_launch ? path::load3(directions, first + lane) : float3v{0.0f, 1.0f, 0.0f});
+      state.thr[lane] = {1.0f, 1.0f, 1.0f};
+      state.rad[lane] = {0.0f, 0.0f, 0.0f};
+      state.alive[lane] = in_launch ? 1 : 0;
     }
-    if (in_launch) path::store3(radiance_out, ray, rad);
-  } else {
-    const mesh::TlasInstances<> instances = {tlas, 0, tlas.n_nodes};
     for (int bounce = 0; bounce < max_bounces; ++bounce) {
-      if (!mesh::bounce(scene, 0, n_spheres, tables, instances, lane, bounce, counter_stride,
-                        seed, o, d, thr, rad)) {
-        break;  // the path escaped
+      // The live mask: positional lanes' alive flags (this thread's own
+      // writes, or a walker's before the last barrier), a ballot a warp and
+      // positional word.
+#pragma unroll
+      for (int j = 0; j < kLanes; ++j) {
+        const int lane = t + j * kThreads;
+        const unsigned word = __ballot_sync(0xffffffffu, state.alive[lane] != 0);
+        if ((lane & 31) == 0) state.live[lane / 32] = word;
       }
+      int tlas_row = 0;
+      if constexpr (kOrdered) {
+        // Every lane votes with the direction it carries; the vote's
+        // barrier also publishes the live mask.
+        tlas_row = packet_octant(state, world_votes, round++) * tlas.n_nodes;
+        if (instance_votes) packet_instance_octants(tables, state, counts, octants);
+      } else {
+        __syncthreads();
+      }
+      int walkers = 0;
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) walkers += __popc(state.live[w]);
+      if (walkers == 0) break;  // uniform: no path of the packet is left
+      // The live lanes in lane order, thread t taking the t-th, t + kThreads-th...
+      for (int n = t; n < walkers; n += kThreads) {
+        const int i = nth_live(state.live, n);
+        float3v o = get(state.o, i), d = get(state.d, i);
+        const uint32_t path_lane = static_cast<uint32_t>(first + i);
+        bool still;
+        if constexpr (kOrdered) {
+          const mesh::TlasInstances<mesh::Octants> instances = {
+              tlas, 0, tlas.n_nodes, {instance_votes ? octants : nullptr, tlas_row, sun_row}};
+          still = mesh::bounce(scene, 0, n_spheres, tables, instances, path_lane, bounce,
+                               counter_stride, seed, o, d, state.thr[i], state.rad[i]);
+        } else {
+          const mesh::TlasInstances<> instances = {tlas, 0, tlas.n_nodes};
+          still = mesh::bounce(scene, 0, n_spheres, tables, instances, path_lane, bounce,
+                               counter_stride, seed, o, d, state.thr[i], state.rad[i]);
+        }
+        put(state.o, i, o);
+        put(state.d, i, d);
+        state.alive[i] = still ? 1 : 0;
+      }
+      __syncthreads();
     }
-    path::store3(radiance_out, ray, rad);
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) {
+      const int lane = t + j * kThreads;
+      if (first + lane < n_rays) path::store3(radiance_out, first + lane, state.rad[lane]);
+    }
+    // Every thread has read state.packet before thread 0 takes the next
+    // (at max_bounces 0 no barrier of the bounce loop stands between).
+    __syncthreads();
   }
 }
 
@@ -113,21 +332,23 @@ template <bool kOrdered>
 int launch(const float* origins, const float* directions, int n_rays, const float* spheres,
            int n_spheres, const float* params, const mesh::MeshTables& tables,
            const mesh::TlasTables& tlas, int n_tri_rows, int n_node_rows, int seed,
-           int max_bounces, float* radiance, cudaStream_t stream) {
+           int max_bounces, float* radiance, int* work_counter, cudaStream_t stream) {
   const auto kernel = trace_fused_mesh_tlas_kernel<kOrdered>;
   const bool instance_votes = kOrdered && tables.n_nodes > 1;
-  size_t shared_bytes, vote_offset;
-  bool staged;
-  const cudaError_t status = mesh::megakernel_shared(
-      kernel, mesh::two_level_bytes(n_tri_rows, n_node_rows, tables.n_instances, tlas.n_rows),
-      mesh::instance_vote_bytes(instance_votes, tables.n_instances), &shared_bytes, &staged,
-      &vote_offset);
+  const Layout layout =
+      plan(n_tri_rows, n_node_rows, tables.n_instances, tlas.n_rows, instance_votes);
+  int resident = 0;
+  cudaError_t status = mesh::card_blocks(kernel, kThreads, layout.bytes, &resident);
   if (status != cudaSuccess) return static_cast<int>(status);
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  kernel<<<blocks, kThreads, shared_bytes, stream>>>(
+  // As many blocks as are resident at once, and no more than the packets.
+  const int packets = (n_rays + kPacket - 1) / kPacket;
+  const int blocks = packets < resident ? packets : resident;
+  status = cudaMemsetAsync(work_counter, 0, sizeof(int), stream);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  kernel<<<blocks, kThreads, layout.bytes, stream>>>(
       origins, directions, n_rays, reinterpret_cast<const float4*>(spheres), n_spheres, params,
-      tables, tlas, n_tri_rows, n_node_rows, staged, vote_offset, instance_votes,
-      static_cast<uint32_t>(seed), max_bounces, radiance);
+      tables, tlas, n_tri_rows, n_node_rows, layout, instance_votes, static_cast<uint32_t>(seed),
+      max_bounces, radiance, work_counter);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -138,16 +359,18 @@ int launch(const float* origins, const float* directions, int n_rays, const floa
 // [n_tlas_nodes, 8] (lo, 0, hi, 0) and links [n_tlas_nodes, 4] (int32 skip,
 // first slot, slot count, 0; kernels.tlas_links), then `ordered`: nonzero
 // when the BVH's and the TLAS's tables are their eight octant orders
-// stacked, [8 n_nodes] and [8 n_tlas_nodes] rows (kernels.tlas_octant_links).
+// stacked, [8 n_nodes] and [8 n_tlas_nodes] rows (kernels.tlas_octant_links);
+// after the radiance the work counter, one int32 in device memory that no
+// other launch uses meanwhile (cleared here on `stream` before the kernel).
 extern "C" int trace_fused_mesh_tlas_launch(
     const float* origins, const float* directions, int n_rays, const float* spheres,
     int n_spheres, const float* params, const float* instances, int n_instances,
     const float* triangles, int n_tri_rows, const float* node_bounds, const int* node_links,
     int n_nodes, const float* tlas_bounds, const int* tlas_links, int n_tlas_nodes, int ordered,
-    int seed, int max_bounces, float* radiance, void* stream) {
+    int seed, int max_bounces, float* radiance, int* work_counter, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaSuccess);
-  if (n_spheres < 1 || n_spheres > path::kMaxSpheres || max_bounces < 0 ||
-      n_instances < 1 || n_tri_rows < 1 || n_nodes < 1 || n_tlas_nodes < 1) {
+  if (n_rays > INT32_MAX - kPacket || n_spheres < 1 || n_spheres > path::kMaxSpheres ||
+      max_bounces < 0 || n_instances < 1 || n_tri_rows < 1 || n_nodes < 1 || n_tlas_nodes < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int orders = ordered ? 8 : 1;
@@ -163,10 +386,29 @@ extern "C" int trace_fused_mesh_tlas_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ordered) {
     return launch<true>(origins, directions, n_rays, spheres, n_spheres, params, tables, tlas,
-                        n_tri_rows, orders * n_nodes, seed, max_bounces, radiance, s);
+                        n_tri_rows, orders * n_nodes, seed, max_bounces, radiance, work_counter,
+                        s);
   }
   return launch<false>(origins, directions, n_rays, spheres, n_spheres, params, tables, tlas,
-                       n_tri_rows, n_nodes, seed, max_bounces, radiance, s);
+                       n_tri_rows, n_nodes, seed, max_bounces, radiance, work_counter, s);
+}
+
+// The blocks of the kernel of the walk order resident on one SM at a launch
+// of these tables (a negative CUDA error code on failure), with the
+// launch's dynamic shared memory in *shared_bytes.
+extern "C" int trace_fused_mesh_tlas_occupancy(int n_instances, int n_tri_rows, int n_nodes,
+                                               int n_tlas_nodes, int ordered, int* shared_bytes) {
+  const int orders = ordered ? 8 : 1;
+  const Layout layout = plan(n_tri_rows, orders * n_nodes, n_instances, orders * n_tlas_nodes,
+                             ordered && n_nodes > 1);
+  *shared_bytes = static_cast<int>(layout.bytes);
+  int blocks_per_sm = 0;
+  const cudaError_t status =
+      ordered ? mesh::blocks_per_sm(trace_fused_mesh_tlas_kernel<true>, kThreads, layout.bytes,
+                                    &blocks_per_sm)
+              : mesh::blocks_per_sm(trace_fused_mesh_tlas_kernel<false>, kThreads, layout.bytes,
+                                    &blocks_per_sm);
+  return status == cudaSuccess ? blocks_per_sm : -static_cast<int>(status);
 }
 
 extern "C" const char* trace_fused_mesh_tlas_error_string(int code) {

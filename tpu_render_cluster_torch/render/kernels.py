@@ -50,7 +50,10 @@ and built by ``_build.py``:
   (``GROUPS``; the pool's ``POOL_GROUP``, the per-bounce one's
   ``bounce_group`` of the launch's width), bit for bit the one-thread walk;
   the per-bounce one runs persistent blocks that take rays from a work
-  counter (``_work_counter``), the pool one stages only its blocks' frames.
+  counter (``_work_counter``), the pool one stages only its blocks' frames;
+  the megakernel runs persistent blocks that take packets from a work
+  counter, each packet's state in shared memory and its live lanes
+  compacted each bounce.
 
 The walk order of rows 3, 4 and 6 (the three mesh path kernels, flat and
 TLAS) is the reference's default: on a BVH with octant tables (every
@@ -61,9 +64,10 @@ kernel's ray block, ``TLAS_BLOCK_R`` lanes under the TLAS, else
 ``BVH_BLOCK_R``, in launch order), a BLAS walk by the packet's directions
 in the instance's object space (``packet_instance_octants``), a TLAS walk by
 the world directions, a shadow walk by the sun's; the pool orders its BLAS
-only. A megakernel votes inside the launch (its block is the packet). A
-per-bounce or pool launch brings its passes (``ORDERED_PASSES``): the vote
-pass ``csrc/packet_octants.cu`` before it and, for the per-bounce TLAS
+only. A megakernel votes inside the launch (a block walks a packet at a
+time). A per-bounce or pool launch brings its passes (``ORDERED_PASSES``):
+the vote pass ``csrc/packet_octants.cu`` before it (a pool's only for the
+frames each packet's lanes carry) and, for the per-bounce TLAS
 kernel, the key pass ``csrc/mesh_entry_keys.cu`` after it, whose entry walk
 votes over the packet's new directions (``entry_keys``). A BVH without
 octant tables takes the canonical order, as in the reference.
@@ -421,9 +425,11 @@ _LAUNCH_ARGTYPES = {
         *_POOL_STATE_ARGTYPES, *_POOL_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, _PTR, _INT,
         *_OUTPUT_ARGTYPES,
     ],
+    # The TLAS megakernel's persistent blocks: after the radiance, the work
+    # counter.
     "trace_fused_mesh_tlas": [
         _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, *_TLAS_ARGTYPES, _INT, _INT, _INT,
-        _PTR, _PTR,
+        _PTR, _PTR, _PTR,
     ],
     # The group walk's kernels: after the key, the group size G; the
     # per-bounce one then its work counter.
@@ -436,9 +442,10 @@ _LAUNCH_ARGTYPES = {
         _INT, _PTR, _INT, *_KEYED_OUTPUT_ARGTYPES[:-1], _INT, _PTR,
     ],
     # The ordered walk's vote pre-pass: directions, n_rays, the live count,
-    # the packet, the instance rows and their count, the world octants and
-    # the slots' (each may be null), the stream.
-    "packet_octants": [_PTR, _INT, _PTR, _INT, _PTR, _INT, _PTR, _PTR, _PTR],
+    # the packet, the lanes' frame ids (null: every row) and the rows per
+    # frame, the instance rows and their count, the world octants and the
+    # slots' (each may be null), the stream.
+    "packet_octants": [_PTR, _INT, _PTR, _INT, _PTR, _INT, _PTR, _INT, _PTR, _PTR, _PTR],
     # The ordered per-bounce TLAS launch's keys: its outputs' origins,
     # directions and alive, n_rays, the live count, the slots and their
     # count, the ordered TLAS (bounds, links, M), the key window, bounce,
@@ -773,11 +780,12 @@ def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces
     spheres, params = _sphere_operands(scene)
     origins, directions, radiance, stream = _ray_operands(origins, directions)
     ordered = walks_ordered(mesh.bvh)
+    counter = [_work_counter(origins.device, stream).data_ptr()] if tlas else []
     status = launch(
         origins.data_ptr(), directions.data_ptr(), origins.shape[0],
         spheres.data_ptr(), spheres.shape[0], params.data_ptr(),
         *_mesh_tables(mesh, tlas, ordered), int(ordered), int(seed), int(max_bounces),
-        radiance.data_ptr(), stream,
+        radiance.data_ptr(), *counter, stream,
     )
     _check_status(library, name, status)
     counts[name] += 1
@@ -1112,17 +1120,20 @@ def _pointer(tensor: torch.Tensor | None) -> int:
     return 0 if tensor is None else tensor.data_ptr()
 
 
-def _packet_votes(directions, live, table, block, bvh, ordered, world):
+def _packet_votes(directions, live, table, block, bvh, ordered, world, frames=None,
+                  per_frame=0):
     """The packet votes of an ordered launch on the card (``packet_votes``:
     ``world`` the packets' world octants [P], and their octants per row of
     ``table`` [P, K], None on a one-node BVH, whose eight tables are one
-    node alike); None on the canonical walk."""
+    node alike; a pool's with its lanes' ``frames``); None on the canonical
+    walk."""
     if not ordered:
         return None
-    return _launch_packet_votes(directions, live, table, block, world, bvh.skip.shape[0] > 1)
+    return _launch_packet_votes(directions, live, table, block, world, bvh.skip.shape[0] > 1,
+                                frames, per_frame)
 
 
-def _launch_packet_votes(directions, live, table, block, world, rows):
+def _launch_packet_votes(directions, live, table, block, world, rows, frames=None, per_frame=0):
     library = _library("packet_octants")
     rays = directions.shape[0]
     packets = -(-rays // block)
@@ -1131,8 +1142,9 @@ def _launch_packet_votes(directions, live, table, block, world, rows):
     tlas_out = torch.empty((packets,), dtype=torch.uint8, device=device) if world else None
     slot_out = torch.empty((packets, k), dtype=torch.uint8, device=device) if rows else None
     status = library.packet_octants_launch(
-        directions.data_ptr(), rays, live.data_ptr(), block, table.data_ptr(), k,
-        _pointer(tlas_out), _pointer(slot_out), torch.cuda.current_stream(device).cuda_stream,
+        directions.data_ptr(), rays, live.data_ptr(), block, _pointer(frames), int(per_frame),
+        table.data_ptr(), k, _pointer(tlas_out), _pointer(slot_out),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _check_status(library, "packet_octants", status)
     counts["packet_octants"] += 1
@@ -1165,6 +1177,8 @@ def packet_votes(
     block: int,
     world: bool = True,
     rows: bool = True,
+    frames: torch.Tensor | None = None,
+    per_frame: int | None = None,
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
     """The packet votes of the octant-ordered walk of a launch of rays
     along ``directions`` [R, 3]: (``world``: each packet's world octant [P],
@@ -1172,20 +1186,50 @@ def packet_votes(
     the instance ``table`` [K, 22], [P, K], the BLAS walks'), uint8, None
     where not asked for; P = ceil(R / ``block``) packets of ``block`` lanes
     (``packet_octants`` and ``packet_instance_octants``), those at or past
-    ``live_count`` 0 (no kernel walks them). CUDA tensors go to the vote
-    pass (``csrc/packet_octants.cu``), CPU tensors to its plain version."""
+    ``live_count`` 0 (no kernel walks them).
+
+    ``frames`` (a pool launch): the lanes' frame ids [R] int32, the table's
+    rows ``per_frame`` to a frame, frame-major (at most 32 frames). A lane of
+    frame f reads only rows [f per_frame, (f + 1) per_frame), so a packet's
+    entry of a row of a frame that none of its lanes carries is 0, not its
+    vote (ids outside the table's frames count for none): no walk reads
+    those entries, and the walks' outputs are those of the votes of every
+    row. CUDA tensors go to the vote pass (``csrc/packet_octants.cu``), CPU
+    tensors to its plain version."""
     if directions.device.type == "cuda":
+        _check_vote_frames(directions, table, frames, per_frame)
         live = _live_tensor(live_count, directions.device)
-        return _launch_packet_votes(directions.contiguous(), live, table, block, world, rows)
+        if frames is not None:
+            frames = frames.to(torch.int32).contiguous()
+        return _launch_packet_votes(directions.contiguous(), live, table.contiguous(), block,
+                                    world, rows, frames, per_frame or 0)
     if directions.device.type == "cpu":
         return packet_votes_reference(directions, table, live_count, block=block, world=world,
-                                      rows=rows)
+                                      rows=rows, frames=frames, per_frame=per_frame)
     raise ValueError(f"Unsupported device {directions.device}")
 
 
-def packet_votes_reference(directions, table, live_count, *, block, world=True, rows=True):
+def _check_vote_frames(directions, table, frames, per_frame) -> None:
+    if frames is None:
+        return
+    if frames.shape != (directions.shape[0],):
+        raise ValueError(f"frames {tuple(frames.shape)}: one id a lane of {directions.shape[0]}")
+    if per_frame is None or per_frame < 1 or table.shape[0] % per_frame:
+        raise ValueError(f"per_frame {per_frame} must divide the table's {table.shape[0]} rows")
+    if table.shape[0] // per_frame > 32:
+        raise ValueError(f"{table.shape[0] // per_frame} frames: a vote takes at most 32")
+
+
+def packet_votes_reference(directions, table, live_count, *, block, world=True, rows=True,
+                           frames=None, per_frame=None):
     """The plain version of ``packet_votes``, on any device."""
+    _check_vote_frames(directions, table, frames, per_frame)
     counts["packet_octants_reference"] += 1
+    return _votes(directions, table, live_count, block, world, rows, frames, per_frame)
+
+
+def _votes(directions, table, live_count, block, world, rows, frames, per_frame):
+    """``packet_votes_reference`` uncounted (the plain pool bounce's)."""
     packets = -(-directions.shape[0] // block)
     walked = (torch.arange(packets, device=directions.device) * block < int(live_count))
     out = []
@@ -1194,11 +1238,27 @@ def packet_votes_reference(directions, table, live_count, *, block, world=True, 
     else:
         out.append(None)
     if rows:
-        votes = packet_instance_octants(directions, table, block)
-        out.append((votes * walked[:, None]).to(torch.uint8))
+        votes = packet_instance_octants(directions, table, block) * walked[:, None]
+        if frames is not None:
+            row_frame = torch.arange(table.shape[0], device=directions.device) // per_frame
+            votes = votes * carried_frames(frames, block, table.shape[0] // per_frame)[:, row_frame]
+        out.append(votes.to(torch.uint8))
     else:
         out.append(None)
     return tuple(out)
+
+
+def carried_frames(frames: torch.Tensor, block: int, n_frames: int) -> torch.Tensor:
+    """[P, n_frames] bool: whether some lane of each packet of ``block``
+    lanes carries frame f (``frames`` [R], the lanes' ids; ids outside [0,
+    n_frames) count for none)."""
+    packets = -(-frames.shape[0] // block)
+    packet = torch.arange(frames.shape[0], device=frames.device) // block
+    fid = frames.to(torch.int64)
+    inside = (fid >= 0) & (fid < n_frames)
+    carried = torch.zeros((packets, n_frames), dtype=torch.bool, device=frames.device)
+    carried[packet[inside], fid[inside]] = True
+    return carried
 
 
 def entry_keys(
@@ -1247,10 +1307,11 @@ def entry_keys_reference(mesh, origins, directions, alive, live_count, bounce, *
 
 @functools.cache
 def _work_counter(device: torch.device, stream: int) -> torch.Tensor:
-    """The work counter of the persistent blocks of ``mesh_bounce_tlas``,
-    ``intersect_instances`` and ``occluded_instances``: one int32 per
-    device and stream, allocated once; each launch clears it on its stream,
-    so launches in a row on one stream share it safely."""
+    """The work counter of the persistent blocks of
+    ``trace_fused_mesh_tlas``, ``mesh_bounce_tlas``, ``intersect_instances``
+    and ``occluded_instances``: one int32 per device and stream, allocated
+    once; each launch clears it on its stream, so launches in a row on one
+    stream share it safely."""
     return torch.zeros((1,), dtype=torch.int32, device=device)
 
 
@@ -1500,9 +1561,10 @@ def _launch_pool(name, spheres, mesh_ops, state, live_count, total_bounces, grou
                 pool_tlas.node_bounds.data_ptr(), pool_tlas.links.data_ptr(),
                 pool_tlas.links.shape[0] // frames, pool_tlas.key_window.data_ptr(),
             ]
-        # The pool orders its BLAS only: votes per row of the stacked table.
+        # The pool orders its BLAS only: votes per row of the stacked table,
+        # for the frames each packet's lanes carry.
         votes = _packet_votes(state[1], live, instances, TLAS_BLOCK_R if tlas else BVH_BLOCK_R,
-                              bvh, ordered, False)
+                              bvh, ordered, False, state[5], mesh_ops.per_frame)
         tables += [int(ordered), 0 if votes is None else _pointer(votes[1])]
     out = _bounce_outputs(rays, device, tlas)
     status = launch(
@@ -1946,10 +2008,7 @@ def _pool_reference(
                                device=origins.device)
     if stats is not None:
         keys = _start_stats(stats, tables[0], None if walks is None else walks[0])
-    # The packets' BLAS votes over every lane of the pool, per frame's table
-    # (the pool's TLAS walks stay canonical, as the reference's).
-    orders = [None if walk is None else walk.order(directions, tlas=False)
-              for walk in (walks or ())]
+    orders = _pool_orders(walks, directions, fid, live)
     frame = fid[:live].to(torch.int64)
     running = alive[:live]
     outside = running & ((frame < 0) | (frame >= len(tables)))
@@ -1987,6 +2046,27 @@ def _pool_reference(
         *out, coherence_key(out.origins + out.directions, out.directions, ~out.alive, fid,
                             candidate, window),
     )
+
+
+def _pool_orders(walks, directions, fid, live) -> list:
+    """Each frame's order of a pool launch: the packets' BLAS votes over
+    every lane of the pool, in the stacked table of the frames' walks, for
+    the frames each packet's lanes carry (``packet_votes`` with ``frames``:
+    a lane reads only its own frame's rows); the pool's TLAS walks stay
+    canonical, as the reference's. None per frame on the canonical walk."""
+    if not walks:
+        return []
+    walk = walks[0]
+    if walk.octants is None:
+        return [None] * len(walks)
+    packet = torch.arange(directions.shape[0], device=directions.device) // walk.block
+    if len(walk.count) <= 1:  # a one-node tree reads the same row in every octant
+        return [_Order(packet=packet, blas=None, tlas=None)] * len(walks)
+    k = walk.table.shape[0]
+    _, votes = _votes(directions, torch.cat([w.table for w in walks]), live, walk.block, False,
+                      True, fid, k)
+    return [_Order(packet=packet, blas=votes[:, f * k:(f + 1) * k].to(torch.int64), tlas=None)
+            for f in range(len(walks))]
 
 
 def intersect_spheres_reference(
@@ -2859,11 +2939,11 @@ class _MeshWalk(NamedTuple):
         TLAS, else ``BVH_BLOCK_R``."""
         return TLAS_BLOCK_R if self.tlas is not None else BVH_BLOCK_R
 
-    def order(self, directions: torch.Tensor, tlas: bool = True) -> "_Order | None":
+    def order(self, directions: torch.Tensor) -> "_Order | None":
         """The octant order of a launch of rays along ``directions`` [R, 3]
         (their packets in launch order, ``block`` lanes each), None on a
-        BVH without octant tables (the canonical walk). ``tlas=False``
-        keeps the TLAS canonical (the pool's rule)."""
+        BVH without octant tables (the canonical walk); the pool's orders
+        are ``_pool_orders``."""
         if self.octants is None:
             return None
         block = self.block
@@ -2873,7 +2953,7 @@ class _MeshWalk(NamedTuple):
             blas = packet_instance_octants(directions, self.table, block)
         return _Order(
             packet=packet, blas=blas,
-            tlas=packet_octants(directions, block) if tlas and self.tlas is not None else None,
+            tlas=packet_octants(directions, block) if self.tlas is not None else None,
         )
 
     def _trees(self, octant) -> tuple:
