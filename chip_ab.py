@@ -1,33 +1,44 @@
-"""Time the two kernels last redesigned for Hopper against the builds of the
-sources they replaced, in one run on one CUDA GPU: the packet vote
-(``csrc/packet_octants.cu``) and row 3 TLAS (``csrc/trace_fused_mesh_tlas.cu``).
+"""Time row 1, the sphere path-trace megakernel, in both its modes
+(``csrc/trace_fused.cu``, whole frames, and ``csrc/trace_fused_lanes.cu``,
+one launch a tile) against the builds of the sources they replaced, in one
+run on one CUDA GPU.
 
 Usage (from the repository root, on a machine with an NVIDIA H100 and the
-CUDA toolkit; the earlier sources are those of commit a5c1792):
+CUDA toolkit; the earlier sources are those of commit 66abd34):
 
     mkdir -p .chip_scratch/parent_csrc
-    git archive a5c1792 tpu_render_cluster_torch/render/csrc \\
+    git archive 66abd34 tpu_render_cluster_torch/render/csrc \\
         | tar -x --strip-components=3 -C .chip_scratch/parent_csrc
-    python3 chip_ab.py .chip_scratch/parent_csrc
+    python3 chip_ab.py .chip_scratch/parent_csrc [--variant NAME=CSRC ...] \
+        [--fps-tree PARENT_CHECKOUT]
 
-The earlier C entries differ from the port's (the vote takes no frame ids,
-the megakernel no work counter), so the script binds them only to the
-sources it was written for, checked by their sha256, and refuses others.
-Each is built with the port's nvcc flags. Then, at the widths of PERF.md
-section 6:
+The earlier C entries take no work counter, so the script binds them only
+to the sources it was written for, checked by their sha256, and refuses
+others. A ``--variant`` is another ``csrc/`` directory whose two kernels
+take the port's C entries (a design variant under test); it is built and
+timed beside the others. Each build uses the port's nvcc flags. Then:
 
-- the vote at row 4 TLAS's four launches of a deep wavefront frame and at
-  the deep pool's first window's launches of ``chip_smoke.pool_launch_roles``
-  and its 8-frame shuffled launch: the new kernel exactly against its plain
-  version and against the earlier one on the rows it votes (the earlier
-  votes every row), with the rows voted and the bound (``chip_smoke.vote_rows``);
-- row 3 TLAS at frames 1 and 2 of the 02 path in both walk orders, bit-equal
-  to the earlier kernel on every ray;
-- each call in turns earlier, new, new, earlier: its wrapper on CUDA events
-  (the median of 3 batches of 5) and the kernel alone under the profiler
-  (windows of 5 calls), and the means of each side's two turns;
-- both kernels' ptxas lines, earlier and new, with the new one's resident
-  blocks per SM (``chip_smoke.redesign_resources``).
+- bit-equal on every ray, new against earlier (and each variant against
+  new): row 1 on frames 1 and 2 of the 04_very-simple job at 512x512 x 8
+  spp, the lane mode on all four 256x256 tiles of frame 1 (a 2x2 grid),
+  both at max_bounces 0, 1 and 4; the new kernels against their plain
+  versions on frame 1 and on each tile at the same bounces;
+- each mode timed (row 1 on frame 1, 2,097,152 rays; the lane mode on tile
+  0, 524,288 rays; 4 bounces) in turns earlier, new, variants..., variants
+  reversed, new, earlier: its wrapper on CUDA events (the median of 3
+  batches of 5) and the kernel alone under the profiler (windows of 5
+  calls), and the means of each side's turns;
+- each build's ptxas lines, and each build with a work counter its
+  resident blocks per SM and the grid of a frame's and a tile's launch;
+- with ``--fps-tree`` (the parent commit's ``git archive``, unpacked into
+  an ignored directory), the 04 whole-frame and tiled paths' frames/s of
+  both checkouts through the backend, in turns parent, new, new, parent,
+  twice, each in a fresh process (``TREE_FPS``);
+- the share of the nearest sweeps' lane-slots that the one-thread-a-ray
+  schedule spent on finished paths on frame 1: from each ray's path length
+  (the bounces it starts alive, from the plain per-bounce sphere version
+  on the card), a warp of 32 consecutive rays running as long as its
+  longest path.
 
 Prints the card's name and power limit, a ``[ab]`` line a measurement, and
 as its last line one JSON object of all of them. Exits non-zero on a failed
@@ -36,6 +47,7 @@ check and without CUDA.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import hashlib
 import json
@@ -49,53 +61,87 @@ import chip_smoke as smoke
 
 # The sources the earlier entries below are bound to.
 EARLIER_SHA256 = {
-    "packet_octants.cu": "9efdc96bc374ea8e1d617e7981054ca9692d54847a501f5bfe59d17ecf4e9659",
-    "trace_fused_mesh_tlas.cu": "f520ca0dd172b778c88df4954e87fc96a368a8ea38efe30c4b6a7bf33f848c1e",
-    "mesh_common.cuh": "b10f0200a614241bc45164313a6d2c693555a1aa662b116df57c0a7ead90f7fe",
+    "trace_fused.cu": "3546ad44f2e59465c9c82cf8220d3c4ebba4a43a8c71e8fabe5b46f55e9b8a9b",
+    "trace_fused_lanes.cu": "2babfbbc55ca52bedfdc37f54377b24fbe0f3d6fe495943be6b0c1f5670d308e",
+    "trace_fused.cuh": "dc7a4c7e6d7583c13a0821b474eecad396e0fd9c1e4b2fb660afd52ee2cacd79",
     "path_common.cuh": "3be1d00b5e296855a5a7842d704bd840db3b9364b3f7010bd3813d3a1d48212e",
 }
 _P, _I = ctypes.c_void_p, ctypes.c_int
 EARLIER_ARGTYPES = {
-    # directions, n_rays, live count, block, instances, n_instances,
-    # tlas_out, slot_out, stream
-    "packet_octants": [_P, _I, _P, _I, _P, _I, _P, _P, _P],
-    # origins, directions, n_rays, spheres, n_spheres, params, instances,
-    # n_instances, triangles, n_tri_rows, node bounds and links, n_nodes,
-    # TLAS bounds and links, n_tlas_nodes, ordered, seed, max_bounces,
-    # radiance, stream
-    "trace_fused_mesh_tlas": [_P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I,
-                              _I, _I, _P, _P],
+    # origins, directions, n_rays, spheres, n_spheres, params, seed,
+    # max_bounces, radiance, stream
+    "trace_fused": [_P, _P, _I, _P, _I, _P, _I, _I, _P, _P],
+    # the same with the lane row after the directions
+    "trace_fused_lanes": [_P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P],
 }
+BOUNCE_SET = (0, 1, 4)
+THREADS = 256  # the earlier kernels' block
+# Run in a checkout's root (its own chip_smoke.py and package): frames/s of
+# the 04 whole-frame path (4 frames through the backend, chip_smoke's
+# backend_fps) and of its tiled job (2 frames of 2x2 tiles, each tile one
+# lane-mode launch), as one JSON line.
+TREE_FPS = """
+import asyncio, json, tempfile, time
+import torch
+import chip_smoke as smoke
+from tpu_render_cluster_torch.jobs.models import BlenderJob
+from tpu_render_cluster_torch.jobs.tiles import WorkUnit
+from tpu_render_cluster_torch.worker.backends.torch_raytrace import TorchRaytraceBackend
+whole = smoke.backend_fps(smoke.PATHS[0], 4, torch.device("cuda", 0))
+job, frames = smoke.job_frames(smoke.PATHS[0])
+tiled = BlenderJob.from_dict({**job.to_dict(), "tiles": list(smoke.TILE_GRID)})
+units = [WorkUnit(f, t) for f in frames[:2] for t in range(len(smoke.tile_regions()))]
+with tempfile.TemporaryDirectory(prefix="chip-ab-tiles-") as base:
+    backend = TorchRaytraceBackend(width=smoke.WIDTH, height=smoke.HEIGHT, samples=smoke.SAMPLES,
+                                   max_bounces=smoke.BOUNCES, base_directory=base)
+    warm = BlenderJob.from_dict({**tiled.to_dict(), "output_directory_path": f"{base}/warm"})
+    asyncio.run(backend.render_frame(warm, frames[0], 0))
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    for unit in units:
+        asyncio.run(backend.render_frame(tiled, unit.frame_index, unit.tile))
+    elapsed = time.perf_counter() - started
+print(json.dumps({"whole_fps": whole["fps"], "tiled_fps": 2 / elapsed}))
+"""
 
 
-def build_earlier(directory: Path) -> dict:
-    """The earlier builds of the two kernels, one nvcc each, at once: name
-    -> (its C launch entry, ptxas's resource lines)."""
+def build(directories: dict, argtypes: dict) -> dict:
+    """Both kernels of each ``csrc/`` directory (side -> directory), one nvcc
+    each, all at once: side -> name -> (its C launch entry, its occupancy
+    entry or None, ptxas's resource lines). ``argtypes``: side -> the C
+    entries' argument types."""
     from tpu_render_cluster_torch.render import _build
 
+    jobs = {}
+    for side, directory in directories.items():
+        out = directory / "build"
+        out.mkdir(parents=True, exist_ok=True)
+        for name in smoke.ROW1:
+            jobs[side, name] = (out / f"lib{name}.so", subprocess.Popen(
+                [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"),
+                 str(directory / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+    built: dict = {side: {} for side in directories}
+    for (side, name), (library_path, job) in jobs.items():
+        log, _ = job.communicate()
+        smoke.check(job.returncode == 0, f"{directories[side]}/{name}.cu did not build:\n{log}")
+        library = ctypes.CDLL(str(library_path))
+        entry = getattr(library, f"{name}_launch")
+        entry.argtypes = argtypes[side][name]
+        entry.restype = ctypes.c_int
+        occupancy = getattr(library, f"{name}_occupancy", None)
+        if occupancy is not None:
+            occupancy.argtypes, occupancy.restype = [_I, _P], ctypes.c_int
+        built[side][name] = (entry, occupancy, _build.resource_lines(log))
+    return built
+
+
+def check_earlier(directory: Path) -> None:
     for name, digest in EARLIER_SHA256.items():
         path = directory / name
         smoke.check(path.is_file() and hashlib.sha256(path.read_bytes()).hexdigest() == digest,
                     f"{path}: not the source that chip_ab.py's earlier entries are bound to")
-    out = directory / "build"
-    out.mkdir(parents=True, exist_ok=True)
-    jobs = {
-        name: subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"),
-             str(directory / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        for name in smoke.REDESIGNED
-    }
-    built = {}
-    for name, job in jobs.items():
-        log, _ = job.communicate()
-        smoke.check(job.returncode == 0, f"the earlier {name}.cu did not build:\n{log}")
-        entry = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), f"{name}_launch")
-        entry.argtypes = EARLIER_ARGTYPES[name]
-        entry.restype = ctypes.c_int
-        built[name] = (entry, _build.resource_lines(log))
-    return built
 
 
 def register_blocks(lines: list[str], threads: int) -> int | None:
@@ -107,50 +153,112 @@ def register_blocks(lines: list[str], threads: int) -> int | None:
     return 65536 // (-(-max(counts) // 8) * 8 * threads) if counts else None
 
 
-def earlier_votes(entry, directions, table, live: int, block: int, world: bool):
-    """The earlier vote pass: every row voted."""
+def bound_call(entry, counted: bool, scene, origins, directions, seed, max_bounces, lane=None):
+    """One launch of a built kernel (``counted``: with a work counter, the
+    port's C entry; else the earlier one), as the port's wrapper makes it."""
     import torch
 
     from tpu_render_cluster_torch.render import kernels
 
-    device = directions.device
-    directions = directions.contiguous()
-    packets = -(-directions.shape[0] // block)
-    tlas_out = torch.empty((packets,), dtype=torch.uint8, device=device) if world else None
-    slot_out = torch.empty((packets, table.shape[0]), dtype=torch.uint8, device=device)
-    status = entry(
-        directions.data_ptr(), directions.shape[0],
-        kernels._live_tensor(live, device).data_ptr(), block, table.data_ptr(), table.shape[0],
-        kernels._pointer(tlas_out), slot_out.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    smoke.check(status == 0, f"the earlier packet_octants failed ({status})")
-    return tlas_out, slot_out
-
-
-def earlier_megakernel(entry, scene, mesh, origins, directions, seed):
-    """The earlier TLAS megakernel on one launch's rays."""
-    from tpu_render_cluster_torch.render import kernels
-
     spheres, params = kernels._sphere_operands(scene)
     origins, directions, radiance, stream = kernels._ray_operands(origins, directions)
-    ordered = kernels.walks_ordered(mesh.bvh)
-    status = entry(
-        origins.data_ptr(), directions.data_ptr(), origins.shape[0], spheres.data_ptr(),
-        spheres.shape[0], params.data_ptr(), *kernels._mesh_tables(mesh, True, ordered),
-        int(ordered), int(seed), smoke.BOUNCES, radiance.data_ptr(), stream,
-    )
-    smoke.check(status == 0, f"the earlier trace_fused_mesh_tlas failed ({status})")
+    rays = (origins.data_ptr(), directions.data_ptr())
+    if lane is not None:
+        rays += (lane.contiguous().data_ptr(),)
+    counter = ()
+    if counted:
+        counter = (torch.empty((1,), dtype=torch.int32, device=origins.device).data_ptr(),)
+    status = entry(*rays, origins.shape[0], spheres.data_ptr(), spheres.shape[0],
+                   params.data_ptr(), int(seed), int(max_bounces), radiance.data_ptr(), *counter,
+                   stream)
+    smoke.check(status == 0, f"a built row 1 kernel failed ({status})")
     return radiance
 
 
+def shapes(device) -> dict:
+    """Row 1's inputs: frames 1 and 2 of the 04 job whole, and frame 1's
+    four tiles with their whole-frame lanes; label -> (kernel, scene,
+    origins, directions, seed, lane)."""
+    from tpu_render_cluster_torch.render.camera import scene_camera
+    from tpu_render_cluster_torch.render.integrator import region_rays_and_seed
+    from tpu_render_cluster_torch.render.scene import build_scene
+
+    path = smoke.PATHS[0]
+    frames = smoke.job_frames(path)[1][:2]
+    out = {}
+    for frame in frames:
+        scene = build_scene(path.scene, frame, device)
+        out[f"04 frame {frame}"] = ("trace_fused", scene,
+                                    *smoke.frame_rays(path.scene, frame, device), None)
+    scene = build_scene(path.scene, frames[0], device)
+    camera = scene_camera(path.scene, frames[0], device)
+    for tile, (y0, x0, th, tw) in enumerate(smoke.tile_regions()):
+        origins, directions, lanes, seed = region_rays_and_seed(
+            camera, frames[0], width=smoke.WIDTH, height=smoke.HEIGHT, samples=smoke.SAMPLES,
+            y0=y0, x0=x0, tile_height=th, tile_width=tw,
+        )
+        out[f"04 frame {frames[0]} tile {tile}"] = ("trace_fused_lanes", scene, origins,
+                                                    directions, seed, lanes)
+    return out
+
+
+def sides_of(built: dict, variants: dict) -> dict:
+    """Per side, ``call(kernel, scene, origins, directions, seed, lane,
+    max_bounces)``: the earlier build, the port's wrapper, each variant."""
+    from tpu_render_cluster_torch.render import kernels
+
+    def port(kernel, scene, o, d, seed, lane, bounces):
+        return kernels.trace_paths_fused(scene, o, d, seed, max_bounces=bounces, lane=lane)
+
+    def of(builds, counted):
+        return lambda kernel, scene, o, d, seed, lane, bounces: bound_call(
+            builds[kernel][0], counted, scene, o, d, seed, bounces, lane)
+
+    sides = {"earlier": of(built, False), "new": port}
+    for name, builds in variants.items():
+        sides[name] = of(builds, True)
+    return sides
+
+
+def check_bits(sides: dict, inputs: dict) -> dict:
+    """Every side bit-equal on every ray at max_bounces 0, 1 and 4 (the
+    earlier and each variant against the new), the new against its plain
+    version; rays that differ per label and bounce count."""
+    import torch
+
+    from tpu_render_cluster_torch.render import kernels
+
+    result = {}
+    for label, (kernel, scene, o, d, seed, lane) in inputs.items():
+        for bounces in BOUNCE_SET:
+            new = sides["new"](kernel, scene, o, d, seed, lane, bounces)
+            plain = kernels.trace_paths_fused_reference(scene, o, d, seed, max_bounces=bounces,
+                                                        lane=lane)
+            differ = {"plain": int((new != plain).any(dim=1).sum())}
+            for side, call in sides.items():
+                if side != "new":
+                    got = call(kernel, scene, o, d, seed, lane, bounces)
+                    differ[side] = int((got != new).any(dim=1).sum())
+            torch.cuda.synchronize()
+            smoke.check(torch.isfinite(new).all().item(), f"{kernel} {label}: non-finite radiance")
+            result[f"{label}, {bounces} bounce(s)"] = differ
+            print(f"[ab] {kernel} {label}, {bounces} bounce(s), {o.shape[0]} rays: rays differing "
+                  f"from the new kernel's: {json.dumps(differ)}")
+            smoke.check(not any(differ.values()), f"{kernel} {label} at {bounces} bounce(s): "
+                                                  f"not bit-equal ({differ})")
+    return result
+
+
 def in_turns(kernel: str, label: str, calls: dict) -> dict:
-    """``calls`` ("earlier" and "new", one launch each) in turns earlier,
-    new, new, earlier: per turn the call on CUDA events (the median of 3
-    batches of 5) and the kernel alone (windows of 5 calls under the
-    profiler); the means of each side's two turns (None: not measured)."""
+    """``calls`` (one launch each, "earlier", "new" and any variants) in
+    turns earlier, new, variants..., the variants reversed, new, earlier:
+    per turn the call on CUDA events (the median of 3 batches of 5) and
+    the kernel alone (windows of 5 calls under the profiler); the means of
+    each side's turns (None: not measured)."""
+    middle = [side for side in calls if side not in ("earlier", "new")]
+    order = ["earlier", "new", *middle, *reversed(middle), "new", "earlier"]
     turns = []
-    for side in ("earlier", "new", "new", "earlier"):
+    for side in order:
         call = calls[side]
         smoke.cuda_ms(call, 2)
         ms = statistics.median(smoke.cuda_ms(call, 5) for _ in range(3))
@@ -158,114 +266,80 @@ def in_turns(kernel: str, label: str, calls: dict) -> dict:
                                counted=side == "new")
         turns.append({"side": side, "ms": ms, "alone_ms": alone})
     result = {"turns": turns}
-    for side in ("earlier", "new"):
+    for side in calls:
         for key in ("ms", "alone_ms"):
             values = [t[key] for t in turns if t["side"] == side]
             result[f"{side}_{key}"] = None if None in values else statistics.mean(values)
     return result
 
 
-def pool_first(device) -> dict:
-    """The deep pool path's first window at the main path's size, iterated
-    to its end: its launches of ``chip_smoke.pool_launch_roles`` and the
-    mixed launch with its lanes given frame ids 0-7 at random (each its
-    frame's seed) and shuffled, as ``chip_smoke.vote_launches`` takes them."""
-    import torch
-
-    from tpu_render_cluster_torch.render import raypool
-
-    path = smoke.PATHS[4]
-    _, frames = smoke.job_frames(path)
-    window = raypool.PoolWindow(
-        path.scene, frames[:raypool.RAYPOOL_FRAMES], width=smoke.WIDTH, height=smoke.HEIGHT,
-        samples=smoke.SAMPLES, max_bounces=smoke.BOUNCES, device=device, use_tlas=path.use_tlas,
-    )
-    launches: list = []
-    state = window.initial_state()
-    while bool(window.more(state)):
-        state = window.iteration(state, len(launches), launches.append)
-    roles = smoke.pool_launch_roles(launches, window)
-    picked = {role: {"index": index, "live": int(launches[index].live)}
-              for role, index in roles.items()}
-    generator = torch.Generator(device=device).manual_seed(8)
-    mixed = list(launches[roles["mixed"]].state)
-    fid = torch.randint(0, len(window.frames), (window.pool,), generator=generator,
-                        device=device, dtype=torch.int32)
-    mixed[5], mixed[6] = fid, window.seeds[fid.long()]
-    perm = torch.randperm(window.pool, generator=generator, device=device)
-    return {"window": window, "picked": picked,
-            "launches": {i: launches[i] for i in roles.values()},
-            "unsorted": [t[perm] for t in mixed]}
+def timings(sides: dict, inputs: dict) -> dict:
+    """Row 1 on frame 1 and the lane mode on tile 0, 4 bounces, in turns."""
+    results = {}
+    for label in (next(iter(inputs)), next(k for k in inputs if k.endswith("tile 0"))):
+        kernel, scene, o, d, seed, lane = inputs[label]
+        calls = {side: (lambda call=call: call(kernel, scene, o, d, seed, lane, smoke.BOUNCES))
+                 for side, call in sides.items()}
+        results[label] = {"kernel": kernel, "rays": o.shape[0],
+                          **in_turns(kernel, label, calls)}
+        print(f"[ab] {kernel} {label}: {json.dumps(results[label])}")
+    return results
 
 
-def vote_ab(built: dict, first: dict, device) -> dict:
-    """The vote pass on each launch of ``chip_smoke.vote_launches``: exact
-    against its plain version and the earlier kernel (on the rows it
-    votes; 0 elsewhere), its rows and bound, and the turns."""
+def wasted_share(scene, origins, directions, seed) -> dict:
+    """Frame 1's path lengths (the bounces each ray starts alive, from the
+    plain per-bounce sphere version) and the share of the nearest sweeps'
+    lane-slots that a warp of 32 consecutive rays, running as long as its
+    longest path, spends on finished paths."""
     import torch
 
     from tpu_render_cluster_torch.render import kernels
 
-    entry = built["packet_octants"][0]
-    results = {}
-    for launch in smoke.vote_launches(first, device):
-        args, options = launch["args"], launch["options"]
-        directions, table, live = args
-        block, world = options["block"], options["world"]
-        new = lambda args=args, options=options: kernels.packet_votes(*args, **options)  # noqa: E731
-        old = lambda d=directions, t=table, live=live, world=world: earlier_votes(  # noqa: E731
-            entry, d, t, live, block, world)
-        got, plain, earlier = new(), kernels.packet_votes_reference(*args, **options), old()
-        differ = sum(int((a != b).sum()) for a, b in zip(got, plain) if a is not None)
-        smoke.check(differ == 0, f"packet_octants {launch['label']}: {differ} votes differ "
-                                 f"from plain")
-        result = smoke.vote_rows(launch, device)
-        carried = result.pop("carried")
-        mask = (torch.ones_like(got[1], dtype=torch.bool) if carried is None else
-                carried[:, torch.arange(table.shape[0], device=device) // options["per_frame"]])
-        differ = int((got[1] != torch.where(mask, earlier[1], 0)).sum())
-        if world:
-            differ += int((got[0] != earlier[0]).sum())
-        smoke.check(differ == 0, f"packet_octants {launch['label']}: {differ} votes differ from "
-                                 f"the earlier kernel's on the rows voted")
-        result.update(in_turns("packet_octants", launch["label"], {"earlier": old, "new": new}))
-        results[launch["label"]] = result
-        print(f"[ab] packet_octants {launch['label']}: {json.dumps(result)}")
-    return results
+    rays = origins.shape[0]
+    device = origins.device
+    state = (origins, directions, torch.ones_like(origins),
+             torch.ones((rays,), dtype=torch.bool, device=device))
+    lane = torch.arange(rays, dtype=torch.int32, device=device)
+    lengths = torch.zeros((rays,), dtype=torch.int64, device=device)
+    alive_share = []
+    for bounce in range(smoke.BOUNCES):
+        alive = state[3]
+        alive_share.append(alive.float().mean().item())
+        lengths += alive
+        out = kernels.sphere_bounce_reference(scene, *state, lane, rays, seed, bounce,
+                                              total_bounces=smoke.BOUNCES)
+        state = (out.origins, out.directions, out.throughput, out.alive)
+    pad = -rays % 32
+    warps = torch.nn.functional.pad(lengths, (0, pad)).view(-1, 32)
+    needed = int(lengths.sum())
+    issued = 32 * int(warps.max(dim=1).values.sum())
+    return {
+        "rays": rays, "alive_share_by_bounce": alive_share, "needed_lane_sweeps": needed,
+        "one_thread_a_ray_lane_slots": issued, "wasted_share": 1.0 - needed / issued,
+        "needed_sweeps_per_ray": needed / rays, "issued_sweeps_per_ray": issued / rays,
+    }
 
 
-def megakernel_ab(built: dict, device) -> dict:
-    """Row 3 TLAS at frames 1 and 2 of the 02 path (2,097,152 rays each) in
-    both walk orders: bit-equal to the earlier kernel, and the turns; the
-    two frames' means alone."""
-    import torch
-
-    entry = built["trace_fused_mesh_tlas"][0]
-    path = smoke.PATHS[1]
-    results = {}
-    for ordered in (True, False):
-        order = "ordered" if ordered else "canonical"
-        for frame in smoke.job_frames(path)[1][:2]:
-            trace = smoke.Trace("trace_fused_mesh_tlas", path.scene, frame, device)
-            rays = smoke.frame_rays(path.scene, frame, device)
-            label = f"02 frame {frame} {order}"
-            with smoke.walk_order(ordered):
-                new = lambda trace=trace, rays=rays: trace.run(*rays, smoke.BOUNCES)  # noqa: E731
-                old = lambda trace=trace, rays=rays: earlier_megakernel(  # noqa: E731
-                    entry, trace.scene, trace.mesh, *rays)
-                differ = int((new() != old()).any(dim=1).sum())
-                torch.cuda.synchronize()
-                smoke.check(differ == 0, f"trace_fused_mesh_tlas {label}: {differ} rays differ "
-                                         f"from the earlier kernel's")
-                results[label] = in_turns("trace_fused_mesh_tlas", label,
-                                          {"earlier": old, "new": new})
-            print(f"[ab] trace_fused_mesh_tlas {label}: {json.dumps(results[label])}")
-        for side in ("earlier", "new"):
-            values = [r[f"{side}_alone_ms"] for label, r in results.items()
-                      if label.endswith(order)]
-            results[f"two frames' mean, {order}, {side} alone ms"] = (
-                None if None in values else statistics.mean(values))
-    return results
+def frames_per_s(parent_tree: Path) -> dict:
+    """The 04 whole-frame and tiled paths' frames/s of the parent's checkout
+    and of this one (``TREE_FPS``, a fresh process in each checkout's root)
+    in turns parent, new, new, parent, twice; each side's turns and their
+    range, the host's spread."""
+    trees = {"earlier": parent_tree.resolve(), "new": smoke.REPO}
+    turns = []
+    for side in ("earlier", "new", "new", "earlier") * 2:
+        done = subprocess.run([sys.executable, "-c", TREE_FPS], cwd=trees[side],
+                              capture_output=True, text=True, timeout=600)
+        smoke.check(done.returncode == 0, f"frames/s in {trees[side]} failed:\n{done.stderr}")
+        turns.append({"side": side, **json.loads(done.stdout.strip().splitlines()[-1])})
+    result = {"turns": turns}
+    for side in trees:
+        for key in ("whole_fps", "tiled_fps"):
+            values = [t[key] for t in turns if t["side"] == side]
+            result[f"{side}_{key}"] = {"mean": statistics.mean(values), "min": min(values),
+                                       "max": max(values)}
+    print(f"[ab] 04 frames/s, whole and tiled, parent and new in turns: {json.dumps(result)}")
+    return result
 
 
 def main(argv: list[str]) -> int:
@@ -274,11 +348,14 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_ab: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
         return 1
-    if len(argv) != 1:
-        print("usage: python3 chip_ab.py EARLIER_CSRC", file=sys.stderr)
-        return 2
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("earlier", type=Path)
+    parser.add_argument("--variant", action="append", default=[], metavar="NAME=CSRC")
+    parser.add_argument("--fps-tree", type=Path, metavar="PARENT_CHECKOUT",
+                        help="the parent commit's checkout: also the 04 paths' frames/s in turns")
+    args = parser.parse_args(argv)
 
-    from tpu_render_cluster_torch.render import _build
+    from tpu_render_cluster_torch.render import _build, kernels
 
     device = torch.device("cuda", 0)
     card = subprocess.run(
@@ -286,21 +363,45 @@ def main(argv: list[str]) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card)
-    built = build_earlier(Path(argv[0]))
-    _build.build()
-    first = pool_first(device)
-    resources = smoke.redesign_resources(first, device)
-    for name, threads in (("packet_octants", 256), ("trace_fused_mesh_tlas", 256)):
-        lines = built[name][1]
-        resources[name]["earlier"] = {
-            "ptxas": lines, "register_limited_blocks_per_sm": register_blocks(lines, threads)}
-        print(f"[ab] {name} ptxas, earlier: {json.dumps(resources[name]['earlier'])}")
+    check_earlier(args.earlier)
+    # The new sources are built here too, for their ptxas report and
+    # occupancy; the port's wrappers launch their own build.
+    directories = {"earlier": args.earlier, "new": _build.CSRC_DIR}
+    directories.update((name, Path(directory)) for name, _, directory in
+                       (spec.partition("=") for spec in args.variant))
+    builds = build(directories, {side: EARLIER_ARGTYPES if side == "earlier" else
+                                 kernels._LAUNCH_ARGTYPES for side in directories})
+    built = builds.pop("earlier")
+    variants = {side: b for side, b in builds.items() if side != "new"}
+    inputs = shapes(device)
+    frame_rays = inputs[next(iter(inputs))][2].shape[0]
+    tile_rays = inputs[next(k for k in inputs if k.endswith("tile 0"))][2].shape[0]
+    resources = {}
+    for name, rays in zip(smoke.ROW1, (frame_rays, tile_rays)):
+        resources[name] = {"earlier": {
+            "ptxas": built[name][2],
+            "register_limited_blocks_per_sm": register_blocks(built[name][2], THREADS)}}
+        for side, sources in builds.items():
+            occupancy, grid = sources[name][1], ctypes.c_int()
+            resources[name][side] = {
+                "ptxas": sources[name][2],
+                "blocks_per_sm": None if occupancy is None else occupancy(
+                    rays, ctypes.addressof(grid)),
+                "rays": rays, "grid_blocks": grid.value}
+        print(f"[ab] {name} ptxas, resident blocks and grid: {json.dumps(resources[name])}")
+    sides = sides_of(built, variants)
+    frame = inputs[next(iter(inputs))]
     result = {
         "card": card,
         "resources": resources,
-        "packet_octants": vote_ab(built, first, device),
-        "trace_fused_mesh_tlas": megakernel_ab(built, device),
+        "one_thread_a_ray_schedule": wasted_share(frame[1], *frame[2:5]),
     }
+    print(f"[ab] one-thread-a-ray schedule on frame 1: "
+          f"{json.dumps(result['one_thread_a_ray_schedule'])}")
+    result["bit_equal"] = check_bits(sides, inputs)
+    result["timings"] = timings(sides, inputs)
+    if args.fps_tree is not None:
+        result["frames_per_s"] = frames_per_s(args.fps_tree)
     print(json.dumps(result))
     return 0
 

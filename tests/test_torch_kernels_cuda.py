@@ -72,6 +72,68 @@ def test_cuda_kernel_matches_plain_version(cuda_device, name, max_bounces):
     assert close >= (1.0 if max_bounces == 1 else 0.999), close
 
 
+def _row1_rays(device, rays: int):
+    """The first ``rays`` primary rays of 04_very-simple's frame 7 at
+    256x256 x 8 spp (524,288: several waves of the kernel's resident
+    threads), with its scene and seed."""
+    scene = build_scene("04_very-simple", 7, device)
+    camera = integrator.scene_camera("04_very-simple", 7, device)
+    origins, directions, seed = integrator.frame_rays_and_seed(
+        camera, 7, width=256, height=256, samples=8
+    )
+    return scene, origins[:rays], directions[:rays], seed
+
+
+# Row 1 runs persistent blocks that take rays from a work counter: ragged
+# widths, fewer rays than one wave of resident threads (4,097 and 65,536)
+# and several waves (524,288), each bit-equal to the plain version.
+@pytest.mark.parametrize("max_bounces", [0, 1, 4])
+@pytest.mark.parametrize("rays", [1, 31, 33, 4097, 65536, 524288])
+def test_cuda_row1_bit_equal_to_plain_version(cuda_device, rays, max_bounces):
+    scene, origins, directions, seed = _row1_rays(cuda_device, rays)
+    kernels.reset_counts()
+    got = kernels.trace_paths_fused(scene, origins, directions, seed, max_bounces=max_bounces)
+    torch.cuda.synchronize()
+    assert kernels.counts == _launched("trace_fused")
+    expected = kernels.trace_paths_fused_reference(
+        scene, origins, directions, seed, max_bounces=max_bounces
+    )
+    assert torch.equal(got, expected)
+    assert (got == 0).all() if max_bounces == 0 else (got > 0).any()
+
+
+def test_cuda_row1_launches_in_a_row_reset_the_work_counter(cuda_device):
+    """Back-to-back launches on one stream, no synchronisation between:
+    through the wrapper, and through the C entry with one shared counter
+    (which the entry clears on the stream before each kernel)."""
+    scene, origins, directions, seed = _row1_rays(cuda_device, 300001)
+    expected = kernels.trace_paths_fused_reference(scene, origins, directions, seed, max_bounces=4)
+    kernels.reset_counts()
+    first = kernels.trace_paths_fused(scene, origins, directions, seed, max_bounces=4)
+    second = kernels.trace_paths_fused(scene, origins, directions, seed, max_bounces=4)
+    torch.cuda.synchronize()
+    assert kernels.counts["trace_fused"] == 2
+    assert torch.equal(first, expected) and torch.equal(second, expected)
+    library = kernels._library("trace_fused")
+    spheres, params = kernels._sphere_operands(scene)
+    counter = torch.full((1,), 7, dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    outputs = []
+    for _ in range(2):
+        radiance = torch.full_like(origins, float("nan"))
+        status = library.trace_fused_launch(
+            origins.data_ptr(), directions.data_ptr(), origins.shape[0], spheres.data_ptr(),
+            spheres.shape[0], params.data_ptr(), int(seed), 4, radiance.data_ptr(),
+            counter.data_ptr(), stream,
+        )
+        assert status == 0
+        outputs.append(radiance)
+    torch.cuda.synchronize()
+    assert all(torch.equal(out, expected) for out in outputs)
+    # The counter ends past the last ray: every ray was taken.
+    assert int(counter) >= origins.shape[0]
+
+
 def test_cuda_frame_renderer_goes_through_the_kernel(cuda_device):
     kernels.reset_counts()
     image = integrator.fused_frame_renderer("01_simple-animation", 64, 48, 2, 4)(3)

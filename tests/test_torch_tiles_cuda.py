@@ -4,9 +4,10 @@ paths on a GPU.
 Needs a CUDA GPU and nvcc (the kernels have no CPU mode); skipped elsewhere.
 Imports no jax: ``python -m pytest -q -m cuda tests/test_torch_tiles_cuda.py``.
 
-Tolerances: the lane kernel against its plain version on the card and
-against the positional kernel on lanes 0..R-1: bit for bit; stitched
-region renders against the whole frame's: bit for bit.
+Tolerances: the lane kernel against its plain version on the card (also on
+ragged widths and a permuted lane row) and against the positional kernel on
+lanes 0..R-1: bit for bit; stitched region renders against the whole
+frame's: bit for bit.
 """
 
 from __future__ import annotations
@@ -52,6 +53,38 @@ def test_cuda_lane_kernel_matches_plain_and_positional(cuda_device, max_bounces)
                                   lane=arange),
         kernels.trace_paths_fused(scene, origins, directions, seed, max_bounces=max_bounces),
     )
+
+
+# Row 1's lane mode takes rays from a work counter in persistent blocks:
+# ragged widths and a permuted lane row (the lanes of a shuffled frame, so
+# no two neighbouring rays have neighbouring lanes), bit-equal to the plain
+# version at 0, 1 and 4 bounces.
+@pytest.mark.parametrize("max_bounces", [0, 1, 4])
+@pytest.mark.parametrize("rays", [1, 31, 33, 4097, 524288])
+def test_cuda_lane_kernel_on_a_permuted_lane_row(cuda_device, rays, max_bounces):
+    scene = build_scene("04_very-simple", 7, cuda_device)
+    camera = integrator.scene_camera("04_very-simple", 7, cuda_device)
+    origins, directions, seed = integrator.frame_rays_and_seed(
+        camera, 7, width=256, height=256, samples=8
+    )
+    generator = torch.Generator(device=cuda_device).manual_seed(rays)
+    order = torch.randperm(origins.shape[0], generator=generator, device=cuda_device)[:rays]
+    lanes = order.to(torch.int32)
+    kernels.reset_counts()
+    got = kernels.trace_paths_fused(
+        scene, origins[order], directions[order], seed, max_bounces=max_bounces, lane=lanes
+    )
+    torch.cuda.synchronize()
+    assert kernels.counts == {name: int(name == "trace_fused_lanes") for name in kernels.counts}
+    expected = kernels.trace_paths_fused_reference(
+        scene, origins[order], directions[order], seed, max_bounces=max_bounces, lane=lanes
+    )
+    assert torch.equal(got, expected)
+    if rays > 1 and max_bounces > 0:
+        # The whole frame's rays in shuffled order give the shuffled radiance.
+        whole = kernels.trace_paths_fused(scene, origins, directions, seed,
+                                          max_bounces=max_bounces)
+        assert torch.equal(got, whole[order])
 
 
 @pytest.mark.parametrize("scene_name", ["04_very-simple", "03_physics-2-mesh"])

@@ -8,7 +8,9 @@ and built by ``_build.py``:
   the TPU's ``_trace_fused`` in its positional-counter mode, and
   ``csrc/trace_fused_lanes.cu``, the same kernel in the TPU kernel's
   ``lane_io`` mode (the RNG counters from a per-ray lane row, for the
-  region path of a tile; its body shared through ``csrc/trace_fused.cuh``);
+  region path of a tile; its body shared through ``csrc/trace_fused.cuh``:
+  persistent blocks whose threads take a new ray from a work counter
+  whenever their path ends);
 - ``csrc/trace_fused_mesh.cu``, the mesh megakernel that replaces
   ``_trace_fused_mesh``: spheres, the plane and K rigid instances of one
   mesh walked through its threaded BVH, over the whole bounce loop;
@@ -408,8 +410,11 @@ _KEYED_OUTPUT_ARGTYPES = [_PTR] * 7
 # kernel: the world octants, then the slots'; the others the slots'; an
 # ordered per-bounce TLAS launch takes the votes for its flag).
 _LAUNCH_ARGTYPES = {
-    "trace_fused": [_PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _INT, _INT, _PTR, _PTR],
-    "trace_fused_lanes": [_PTR, _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _INT, _INT, _PTR, _PTR],
+    # Row 1's persistent blocks: after the radiance, the work counter.
+    "trace_fused": [_PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _INT, _INT, _PTR, _PTR, _PTR],
+    "trace_fused_lanes": [
+        _PTR, _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _INT, _INT, _PTR, _PTR, _PTR,
+    ],
     "trace_fused_mesh": [
         _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, _INT, _INT, _PTR, _PTR,
     ],
@@ -556,9 +561,12 @@ def _launch_trace_fused(scene, origins, directions, seed, max_bounces, lane=None
     if lane is not None:
         lane = lane.contiguous()
         rays += (lane.data_ptr(),)
+    # The persistent blocks' work counter, this call's own (the C entry
+    # clears it on the stream before the kernel).
+    counter = torch.empty((1,), dtype=torch.int32, device=origins.device)
     status = getattr(library, f"{name}_launch")(
         *rays, origins.shape[0], spheres.data_ptr(), spheres.shape[0], params.data_ptr(),
-        int(seed), int(max_bounces), radiance.data_ptr(), stream,
+        int(seed), int(max_bounces), radiance.data_ptr(), counter.data_ptr(), stream,
     )
     _check_status(library, name, status)
     counts[name] += 1
