@@ -160,17 +160,23 @@ Phases, each of which raises (exit code 1) if its check fails:
    spp of the per-instance scan (busy: the sum of the device's own events;
    a scan path's also split by unit kernel; a tile path: frame 1's four
    tiles, the pool tile path all its units);
-7. the kernels redesigned for Hopper in the last two slices, the packet
-   vote ``packet_octants`` and ``trace_fused_mesh_tlas``, then row 1 in both
-   modes (``trace_fused``, ``trace_fused_lanes``): each one's ptxas lines
-   and resident blocks per SM, row 1 also its persistent grid at a whole
-   frame's and a tile's rays (these on the kernels line's entries under
-   ``resources``); the vote exactly against its plain
+7. the kernels redesigned for Hopper in the last three slices, the packet
+   vote ``packet_octants`` and ``trace_fused_mesh_tlas``, row 1 in both
+   modes (``trace_fused``, ``trace_fused_lanes``), then the key pass
+   ``mesh_entry_keys``: each one's ptxas lines and resident blocks per SM,
+   row 1 also its persistent grid at a whole frame's and a tile's rays, the
+   key pass its mode (persistent or a block a packet), staged bytes and grid
+   at each launch it is timed at (these on the kernels line's entries under
+   ``resources``); the
+   vote exactly against its plain
    version, on CUDA events and alone under the profiler at row 4 TLAS's
    four launches of a deep wavefront frame and at the deep pool's first
    window's checked launches and its 8-frame shuffled launch (rows voted,
    frames a packet, the bound from the rows voted beside the every-row
-   one). Then the octant-ordered walk against the canonical order (the
+   one); the key pass exactly against its plain version and the launch's
+   key column, on CUDA events and alone at row 4 TLAS's four launches of a
+   deep wavefront frame and of a deep wavefront tile (the region path), and
+   its alone time summed over each. Then the octant-ordered walk against the canonical order (the
    wrappers' ``kernels.walks_ordered`` answering False, as for a BVH
    without octant tables), in turns ordered, canonical, canonical,
    ordered: each of the six kernels of rows 3, 4 and 6 on CUDA events and
@@ -179,8 +185,8 @@ Phases, each of which raises (exit code 1) if its check fails:
    mean; rows 4: the deep wavefront's bounce-0 launch; rows 6: the mixed
    launch of the pool paths' first windows), with the passes alone; and
    frames/s of the 02 path, the deep wavefront and the deep pool, 4 frames
-   a turn. (``chip_ab.py`` times row 1 in both modes against the builds of
-   the sources it replaced.)
+   a turn. (``chip_ab.py`` times row 1 in both modes and the key pass
+   against the builds of the sources they replaced.)
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -3122,9 +3128,10 @@ def backend_fps(path: MainPath, frames: int, device) -> dict:
 
 # -- 7. the redesigned kernels, and the ordered walk against the canonical --
 
-# The kernels redesigned for Hopper in the last two slices: the vote pass
-# and row 3 TLAS, then row 1 in both its modes (ROW1), which chip_ab.py
-# times against the builds of the sources they replaced.
+# The kernels redesigned for Hopper in earlier slices: the vote pass and
+# row 3 TLAS, then row 1 in both its modes (ROW1), which chip_ab.py times
+# against the builds of the sources they replaced, as it does the key pass
+# (phase 7's key_pass_times).
 REDESIGNED = ("packet_octants", "trace_fused_mesh_tlas")
 ROW1 = ("trace_fused", "trace_fused_lanes")
 
@@ -3149,6 +3156,98 @@ def row1_resources(frame_rays: int, tile_rays: int) -> dict:
         }
     print(f"[7] row 1 registers, spills, resident blocks and grid: {json.dumps(resources)}")
     return resources
+
+
+def key_pass_launches(device, frames: int = 1) -> list[dict]:
+    """Every ``mesh_bounce_tlas`` launch of the deep wavefront path's first
+    ``frames`` frames whole and of tile 0 of its frame 1 (a 2x2 grid: the
+    region's rays, their whole-frame lanes as RNG counters): per launch its
+    label, its frame or tile (``unit``), the mesh, the bounce's outputs
+    (with the key column of the port's key pass), the live count, the
+    bounce and the lanes."""
+    from tpu_render_cluster_torch.render import compaction
+    from tpu_render_cluster_torch.render.camera import scene_camera
+    from tpu_render_cluster_torch.render.integrator import region_rays_and_seed
+
+    path = PATHS[2]
+    chosen = job_frames(path)[1][:frames]
+    jobs = [(f"03 frame {frame}", Trace("mesh_bounce_tlas", path.scene, frame, device),
+             frame_rays(path.scene, frame, device), None) for frame in chosen]
+    y0, x0, th, tw = tile_regions()[0]
+    origins, directions, lanes, seed = region_rays_and_seed(
+        scene_camera(path.scene, chosen[0], device), chosen[0], width=WIDTH, height=HEIGHT,
+        samples=SAMPLES, y0=y0, x0=x0, tile_height=th, tile_width=tw,
+    )
+    jobs.append((f"03 frame {chosen[0]} tile 0",
+                 Trace("mesh_bounce_tlas", path.scene, chosen[0], device),
+                 (origins, directions, seed), lanes))
+    out = []
+    for unit, trace, (origins, directions, seed), lanes in jobs:
+        launches: list = []
+        compaction.trace_paths_wavefront(
+            trace.scene, origins, directions, seed, max_bounces=BOUNCES, mesh=trace.mesh,
+            on_launch=launches.append, use_tlas=True, rng_lanes=lanes,
+        )
+        for launch in launches:
+            out.append({
+                "label": f"{unit} bounce {launch.bounce}", "unit": unit, "mesh": trace.mesh,
+                "out": trace.bounce(launch.state, launch.live, seed, launch.bounce),
+                "live": int(launch.live), "bounce": launch.bounce,
+                "lanes": launch.state[0].shape[0],
+            })
+    return out
+
+
+def key_pass_times(device) -> dict:
+    """Phase 7 for the key pass (``mesh_entry_keys``) at row 4 TLAS's four
+    launches of a deep wavefront frame and the four of a deep wavefront
+    tile: each launch's keys exactly against its plain version and the key
+    column the bounce's wrapper wrote, whether it runs persistent blocks,
+    its resident blocks per SM, staged bytes and its grid (the kernel's
+    ``mesh_entry_keys_occupancy`` entry), its wrapper on CUDA events (the
+    median of 3 batches of 5) and the kernel alone."""
+    import ctypes
+
+    import torch
+
+    from tpu_render_cluster_torch.render import kernels
+
+    query = occupancy_entry("mesh_entry_keys", [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
+    results = {}
+    for launch in key_pass_launches(device):
+        out, mesh = launch["out"], launch["mesh"]
+        args = (mesh, out.origins, out.directions, out.alive, launch["live"], launch["bounce"])
+        call = lambda args=args: kernels.entry_keys(*args, total_bounces=BOUNCES)  # noqa: E731
+        got = call()
+        plain = kernels.entry_keys_reference(*args, total_bounces=BOUNCES)
+        torch.cuda.synchronize()
+        differ = {"plain": int((got != plain).sum()), "bounce": int((got != out.key).sum())}
+        check(not any(differ.values()), f"mesh_entry_keys {launch['label']}: keys differ "
+                                        f"({differ})")
+        frame = kernels.tlas_frame(mesh)
+        persistent, shared, grid = (ctypes.c_int() for _ in range(3))
+        blocks = query(launch["lanes"], frame.slots.shape[0], frame.node_bounds.shape[0],
+                       ctypes.addressof(persistent), ctypes.addressof(shared),
+                       ctypes.addressof(grid))
+        check(blocks > 0, f"mesh_entry_keys_occupancy failed ({blocks})")
+        cuda_ms(call, 2)
+        result = {
+            "lanes": launch["lanes"], "live": launch["live"],
+            "persistent": bool(persistent.value), "blocks_per_sm": blocks,
+            "shared_bytes": shared.value, "grid_blocks": grid.value,
+            "ms": statistics.median(cuda_ms(call, 5) for _ in range(3)),
+            "alone_ms": alone_ms(call, "mesh_entry_keys", f"[7] mesh_entry_keys "
+                                                          f"{launch['label']}"),
+        }
+        results[launch["label"]] = result
+        print(f"[7] mesh_entry_keys {launch['label']}: {json.dumps(result)}")
+    units: dict = {}
+    for label, result in results.items():
+        units.setdefault(label.rsplit(" bounce ", 1)[0], []).append(result["alone_ms"])
+    for unit, values in units.items():
+        total = None if None in values else sum(values)
+        print(f"[7] mesh_entry_keys alone over the launches of {unit}: {total}")
+    return results
 
 
 def vote_bound(lanes: int, block: int, rows: int, voted, world: bool, frames: bool) -> dict:
@@ -3515,12 +3614,23 @@ def main() -> int:
     tile_rays = next(e for e in record["kernels"] if e["name"] == "trace_fused_lanes")["rays"]
     resources.update(row1_resources(WIDTH * HEIGHT * SAMPLES, tile_rays))
     votes = vote_times(pool_first, device)
+    keys = key_pass_times(device)
+    resources["mesh_entry_keys"] = {
+        "ptxas": _build.resource_lines(_build.build_logs.get("mesh_entry_keys", "")),
+        "launches": {label: {k: r[k] for k in ("persistent", "blocks_per_sm", "shared_bytes",
+                                                "grid_blocks")}
+                     for label, r in keys.items()},
+    }
+    print(f"[7] mesh_entry_keys registers and spills: "
+          f"{json.dumps(resources['mesh_entry_keys']['ptxas'])}")
     ab = octant_ab(pool_inputs, device)
     for entry in record["kernels"]:
         if entry["name"] in resources:
             entry["resources"] = resources[entry["name"]]
         if entry["name"] == "packet_octants":
             entry["phase_7_launches"] = votes
+        if entry["name"] == "mesh_entry_keys":
+            entry["phase_7_launches"] = keys
         if entry["name"] in ab["kernels"]:
             entry["octant_ab"] = ab["kernels"][entry["name"]]
     print(f"[7] phase 7 in {time.perf_counter() - started:.1f} s: "

@@ -125,26 +125,33 @@ def test_vote_passes_plain_versions_zero_the_packets_past_the_live_count():
 
 @functools.lru_cache(maxsize=None)
 def _ordered_field(field: str):
-    """(reference MeshSet with its octant tables, port MeshSet)."""
-    mesh_set = _field(field)[0]._replace(bvh=ref_mesh.cached_mesh_bvh("icosphere", "sah", 4))
+    """(reference MeshSet with its octant tables, port MeshSet); "one-1":
+    random-48's first instance alone, a one-node TLAS."""
+    if field == "one-1":
+        mesh_set = _ordered_field("random-48")[0]
+        mesh_set = mesh_set._replace(instances=type(mesh_set.instances)(
+            *(v[:1] for v in mesh_set.instances)
+        ))
+    else:
+        mesh_set = _field(field)[0]._replace(bvh=ref_mesh.cached_mesh_bvh("icosphere", "sah", 4))
     assert mesh_set.bvh.octant is not None
     return mesh_set, port_mesh.mesh_from_arrays(*reference_mesh_arrays(mesh_set), "cpu")
 
 
 @functools.lru_cache(maxsize=None)
-def _bounce_state(seed: int = 41):
-    """300 rays above the field aimed down, the first LIVE alive and a dead
-    tail past it (the wavefront's sorted launch)."""
+def _bounce_state(seed: int = 41, rays: int = RAYS, live: int = LIVE):
+    """``rays`` rays above the field aimed down, the first ``live`` alive
+    but 20 and a dead tail past them (the wavefront's sorted launch)."""
     rng = np.random.default_rng(seed)
-    origins = rng.uniform(-5, 5, (RAYS, 3)).astype(np.float32)
-    origins[:, 1] = rng.uniform(0.5, 6.0, RAYS).astype(np.float32)
-    directions = rng.normal(size=(RAYS, 3)).astype(np.float32)
+    origins = rng.uniform(-5, 5, (rays, 3)).astype(np.float32)
+    origins[:, 1] = rng.uniform(0.5, 6.0, rays).astype(np.float32)
+    directions = rng.normal(size=(rays, 3)).astype(np.float32)
     directions[:, 1] -= 1.0
     directions /= np.linalg.norm(directions, axis=1, keepdims=True)
-    throughput = rng.uniform(0.2, 1.0, (RAYS, 3)).astype(np.float32)
-    alive = np.arange(RAYS) < LIVE
-    alive[rng.choice(LIVE, 20, replace=False)] = False  # dead lanes inside the live prefix
-    lane = rng.permutation(RAYS).astype(np.int32)
+    throughput = rng.uniform(0.2, 1.0, (rays, 3)).astype(np.float32)
+    alive = np.arange(rays) < live
+    alive[rng.choice(live, 20, replace=False)] = False  # dead lanes inside the live prefix
+    lane = rng.permutation(rays).astype(np.int32)
     return origins, directions.astype(np.float32), throughput, alive, lane
 
 
@@ -214,6 +221,75 @@ def test_entry_keys_plain_version_is_the_bounces_key(pallas_on):
     with pytest.raises(ValueError, match="octant tables"):
         kernels.entry_keys(_field("random-48")[1], got.origins, got.directions, got.alive, LIVE,
                            1, total_bounces=TOTAL_BOUNCES)
+
+
+# (field, rays, live count, bounce) of the key pass's cases.
+KEY_CASES = {
+    "live-inside-packet-0": ("random-48", RAYS, 100, 1),
+    "all-live-300": ("random-48", RAYS, RAYS, 1),
+    "last-bounce": ("random-48", RAYS, LIVE, TOTAL_BOUNCES - 1),
+    "one-node-tlas": ("one-1", RAYS, LIVE, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(KEY_CASES))
+def test_entry_keys_plain_version_is_the_references_key_column(pallas_on, case):
+    """The plain key pass on the reference's own bounce outputs gives the
+    reference's key column (interpret mode): equal on every live lane, and
+    on dead lanes outside the candidate bits (tests/test_torch_tlas_bounce.py).
+    One instance fits one TLAS leaf, so the reference's kernel takes the flat
+    sweep and writes no key (``use_tlas_for``): the one-node TLAS is held on
+    the bounce's state against the reference's XLA twin of the key,
+    ``initial_mesh_sort_keys`` (one slot: no entry ties)."""
+    field, rays, live, bounce = KEY_CASES[case]
+    mesh_set, mesh = _ordered_field(field)
+    state = _bounce_state(41, rays, live)
+    if field == "one-1":
+        expected = [None, *state[:2], None, state[3], np.asarray(ref_kernels.initial_mesh_sort_keys(
+            mesh_set, *(jnp.asarray(a) for a in (state[0], state[1], state[3]))
+        ))]
+    else:
+        expected = [np.asarray(a) for a in ref_kernels.mesh_bounce_pallas(
+            _scene()[0], mesh_set, *(jnp.asarray(a) for a in state[:4]), jnp.int32(SEED),
+            bounce, total_bounces=TOTAL_BOUNCES, lane=jnp.asarray(state[4]),
+            live_count=jnp.int32(live), use_tlas=True, quant=0,
+        )]
+    kernels.reset_counts()
+    keys = kernels.entry_keys(mesh, *(torch.from_numpy(np.array(expected[i])) for i in (1, 2, 4)),
+                              live, bounce, total_bounces=TOTAL_BOUNCES)
+    assert kernels.counts["mesh_entry_keys_reference"] == 1
+    alive = expected[4]
+    assert 0 < alive.sum() and not alive[live:].any()
+    _assert_keys(keys.numpy(), expected[5], alive)
+    k = mesh.instances.translation.shape[0]
+    candidate = (keys.numpy() >> 18) & 63
+    if bounce == TOTAL_BOUNCES - 1:
+        assert (candidate == k).all()
+    else:
+        assert (candidate[alive] < k).any() and (candidate[~alive] == k).all()
+
+
+@pytest.mark.parametrize("bounce", [1, TOTAL_BOUNCES - 1])
+def test_entry_keys_of_each_packet_alone_are_the_whole_calls(bounce):
+    """A packet's keys depend only on its own lanes, the live count and the
+    bounce: the plain key pass on each 256-lane packet alone, the packets in
+    a shuffled order, gives the whole call's keys bit for bit (1,000 lanes,
+    no multiple of a packet, the live count inside the third packet)."""
+    mesh = _ordered_field("random-48")[1]
+    rays, live = 1000, 700
+    origins, directions, _, alive, _ = (torch.from_numpy(a) for a in _bounce_state(7, rays, live))
+    whole = kernels.entry_keys(mesh, origins, directions, alive, live, bounce,
+                               total_bounces=TOTAL_BOUNCES)
+    block = kernels.TLAS_BLOCK_R
+    got = torch.full_like(whole, -1)
+    for packet in np.random.default_rng(5).permutation(-(-rays // block)):
+        lo, hi = packet * block, min((packet + 1) * block, rays)
+        got[lo:hi] = kernels.entry_keys(mesh, origins[lo:hi], directions[lo:hi], alive[lo:hi],
+                                        max(0, min(live - lo, hi - lo)), bounce,
+                                        total_bounces=TOTAL_BOUNCES)
+    assert torch.equal(got, whole)
+    if bounce < TOTAL_BOUNCES - 1:
+        assert (((whole >> 18) & 63) < mesh.instances.translation.shape[0]).any()
 
 
 @pytest.mark.parametrize("use_tlas", [True, False], ids=["tlas", "flat"])

@@ -20,17 +20,30 @@ lanes, on an 8-frame pool window's launches (with frame ids: only the rows
 of each packet's frames) and on 1,024-lane packets of one sign; row 3 TLAS
 at 0, 1 and 4 bounces, on ragged launches and on one whose paths all end
 at bounce 0, in both walk orders. The vote is also held on instance rows of
-scale above 1 (its object-space product by 1/s).
+scale above 1 (its object-space product by 1/s). The redesigned key pass is
+held on random bounce outputs at 1 to 1,200,000 lanes, live counts 0,
+mid-packet and whole, on the last bounce, on each side of its width rule
+(a block a packet, persistent blocks), at the largest K the earlier design
+took (narrow and wide: a block a packet), and twice in a row on one
+stream.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import pytest
 import torch
 
 from tpu_render_cluster_torch.render import compaction, integrator, kernels, raypool
-from tpu_render_cluster_torch.render.mesh import MeshSet, scene_mesh_set
+from tpu_render_cluster_torch.render.mesh import (
+    MeshInstances,
+    MeshSet,
+    cached_mesh_bvh,
+    cached_tlas_topology,
+    scene_mesh_set,
+)
 from tpu_render_cluster_torch.render.scene import build_scene
 
 pytestmark = pytest.mark.cuda
@@ -400,3 +413,127 @@ def test_cuda_tlas_megakernel_at_zero_bounces(cuda_device, ordered):
     expected = kernels.trace_paths_fused_mesh_reference(scene, mesh, origins, directions, 5,
                                                         max_bounces=0, use_tlas=True)
     assert torch.equal(got, expected) and not bool(got.any())
+
+
+# -- the key pass (csrc/mesh_entry_keys.cu) -------------------------------------
+
+
+def _key_state(lanes: int, seed: int, device, spread: float = 3.0):
+    """Random outputs of a bounce: origins around the field, unit
+    directions, about one lane in ten dead."""
+    rng = np.random.default_rng(seed)
+    origins = (rng.normal(size=(lanes, 3)) * spread + [0.0, 2.0, 0.0]).astype(np.float32)
+    directions = rng.normal(size=(lanes, 3))
+    directions = (directions / np.linalg.norm(directions, axis=1, keepdims=True)).astype(np.float32)
+    alive = rng.random(lanes) > 0.1
+    return tuple(torch.from_numpy(a).to(device) for a in (origins, directions, alive))
+
+
+def _assert_keys_equal(mesh, state, live: int, bounce: int) -> None:
+    kernels.reset_counts()
+    got = kernels.entry_keys(mesh, *state, live, bounce, total_bounces=BOUNCES)
+    torch.cuda.synchronize()
+    assert kernels.counts == {k: int(k == "mesh_entry_keys") for k in kernels.counts}
+    expected = kernels.entry_keys_reference(mesh, *state, live, bounce, total_bounces=BOUNCES)
+    assert torch.equal(got, expected), f"{int((got != expected).sum())} keys differ"
+
+
+@pytest.mark.parametrize("live", ["none", "mid-packet", "all"])
+@pytest.mark.parametrize("lanes", [1, 255, 257, 1000, 1_200_000])
+def test_cuda_key_pass_at_each_width_and_live_count(cuda_device, lanes, live):
+    """The keys of 03's 48 slots bit for bit, at bounce 1 and on the last
+    bounce (every candidate K); 1,200,000 lanes are more packets than the
+    card holds resident warps, so warps take several from the counter."""
+    mesh = scene_mesh_set(DEEP, 30, device=cuda_device)
+    state = _key_state(lanes, lanes % 97, cuda_device)
+    count = {"none": 0, "mid-packet": min(lanes, lanes * 5 // 8 + 1), "all": lanes}[live]
+    for bounce in (1, BOUNCES - 1):
+        _assert_keys_equal(mesh, state, count, bounce)
+
+
+def _key_launch(mesh, lanes: int) -> dict:
+    """The key pass's plan for a launch of ``lanes`` lanes over the mesh's
+    tables (its ``mesh_entry_keys_occupancy`` entry)."""
+    frame = kernels.tlas_frame(mesh)
+    occupancy = kernels._library("mesh_entry_keys").mesh_entry_keys_occupancy
+    occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    occupancy.restype = ctypes.c_int
+    persistent, shared, grid = (ctypes.c_int() for _ in range(3))
+    blocks = occupancy(lanes, frame.slots.shape[0], frame.node_bounds.shape[0],
+                       ctypes.addressof(persistent), ctypes.addressof(shared),
+                       ctypes.addressof(grid))
+    assert blocks > 0
+    return {"persistent": bool(persistent.value), "grid": grid.value}
+
+
+def test_cuda_key_pass_on_each_side_of_the_width_rule(cuda_device):
+    """The widest launch that runs a block a packet and the narrowest that
+    runs persistent blocks (a block then takes several packets from the
+    work counter), the last packet ragged."""
+    mesh = scene_mesh_set(DEEP, 30, device=cuda_device)
+    block = kernels.TLAS_BLOCK_R
+    lo, hi = 1, 2**22  # packets: a block a packet at lo, persistent at hi
+    assert not _key_launch(mesh, lo * block)["persistent"]
+    assert _key_launch(mesh, hi * block)["persistent"]
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if _key_launch(mesh, mid * block)["persistent"]:
+            hi = mid
+        else:
+            lo = mid
+    plan = _key_launch(mesh, hi * block - 19)
+    assert plan["persistent"] and plan["grid"] < hi
+    for lanes in (lo * block - 19, hi * block - 19):
+        state = _key_state(lanes, lanes % 89, cuda_device)
+        _assert_keys_equal(mesh, state, lanes - block // 3, 1)
+
+
+@pytest.mark.parametrize("lanes", [100_000, 1_000_000])
+def test_cuda_key_pass_at_the_largest_k(cuda_device, lanes):
+    """The largest K whose one octant's TLAS rows and slot rows fit the 96 KB
+    that the earlier one-block-a-packet design staged: its eight octant
+    tables do not fit, so even a launch of more packets than the card holds
+    blocks runs a block a packet, each staging its octant's rows. Half the
+    rays aim at slots' boxes, so walks enter leaves."""
+    def staged_by_the_earlier_design(k: int) -> bool:
+        nodes = len(cached_tlas_topology(k, kernels.TLAS_LEAF).skip)
+        return 48 * nodes + 88 * k <= 96 * 1024
+
+    k = 48
+    while staged_by_the_earlier_design(k + 1):
+        k += 1
+    assert k > 500
+    rng = np.random.default_rng(17)
+    translation = rng.uniform(-40.0, 40.0, (k, 3)).astype(np.float32)
+    instances = MeshInstances(
+        rotation=torch.eye(3).repeat(k, 1, 1), translation=torch.from_numpy(translation),
+        albedo=torch.full((k, 3), 0.5), scale=torch.from_numpy(
+            rng.uniform(0.5, 1.5, k).astype(np.float32)),
+    )
+    mesh = MeshSet(bvh=cached_mesh_bvh("icosphere", "sah", 4, cuda_device),
+                   instances=MeshInstances(*(t.to(cuda_device) for t in instances)))
+    plan = _key_launch(mesh, lanes)
+    assert not plan["persistent"]
+    origins, directions, alive = _key_state(lanes, 23, cuda_device, spread=30.0)
+    aim = torch.from_numpy(translation[rng.integers(0, k, lanes // 2)]).to(cuda_device)
+    toward = aim - origins[: lanes // 2]
+    directions[: lanes // 2] = toward / toward.norm(dim=1, keepdim=True)
+    state = (origins, directions, alive)
+    _assert_keys_equal(mesh, state, lanes - 100, 1)
+    keys = kernels.entry_keys(mesh, *state, lanes - 100, 1, total_bounces=BOUNCES)
+    assert (((keys >> 18) & 63) < 63).sum() > 100  # candidates below the key's clamp
+
+
+def test_cuda_key_pass_twice_in_a_row_on_one_stream(cuda_device):
+    """Two launches back to back on one stream share the work counter, which
+    each clears before its kernel: both equal their plain versions."""
+    mesh = scene_mesh_set(DEEP, 30, device=cuda_device)
+    first = _key_state(300_000, 31, cuda_device)
+    second = _key_state(70_000, 37, cuda_device)
+    got = [kernels.entry_keys(mesh, *first, 250_000, 0, total_bounces=BOUNCES),
+           kernels.entry_keys(mesh, *second, 70_000, 2, total_bounces=BOUNCES)]
+    torch.cuda.synchronize()
+    for keys, (state, live, bounce) in zip(got, ((first, 250_000, 0), (second, 70_000, 2))):
+        expected = kernels.entry_keys_reference(mesh, *state, live, bounce,
+                                                total_bounces=BOUNCES)
+        assert torch.equal(keys, expected)

@@ -71,7 +71,10 @@ time). A per-bounce or pool launch brings its passes (``ORDERED_PASSES``):
 the vote pass ``csrc/packet_octants.cu`` before it (a pool's only for the
 frames each packet's lanes carry) and, for the per-bounce TLAS
 kernel, the key pass ``csrc/mesh_entry_keys.cu`` after it, whose entry walk
-votes over the packet's new directions (``entry_keys``). A BVH without
+votes over the packet's new directions (``entry_keys``: a block of 256
+threads a packet, the walk one box test a step; a wide launch runs
+persistent blocks that stage the eight octant tables once and take packets
+from a work counter). A BVH without
 octant tables takes the canonical order, as in the reference.
 
 ``trace_paths_fused`` / ``trace_paths_fused_mesh`` / ``sphere_bounce`` /
@@ -454,9 +457,11 @@ _LAUNCH_ARGTYPES = {
     # The ordered per-bounce TLAS launch's keys: its outputs' origins,
     # directions and alive, n_rays, the live count, the slots and their
     # count, the ordered TLAS (bounds, links, M), the key window, bounce,
-    # total_bounces, the key, the stream.
+    # total_bounces, the key, its persistent blocks' work counter, the
+    # stream.
     "mesh_entry_keys": [
         _PTR, _PTR, _PTR, _INT, _PTR, _PTR, _INT, _PTR, _PTR, _INT, _PTR, _INT, _INT, _PTR, _PTR,
+        _PTR,
     ],
     # A unit kernel: the rays (and its per-ray input), n_rays, the tables,
     # its outputs and the stream.
@@ -1166,12 +1171,14 @@ def _launch_entry_keys(mesh, origins, directions, alive, key, live, bounce,
     library = _library("mesh_entry_keys")
     frame = tlas_frame(mesh)
     k_count = frame.slots.shape[0]
-    links = tlas_octant_links(k_count, frame.slots.device)
+    device = key.device
+    stream = torch.cuda.current_stream(device).cuda_stream
     status = library.mesh_entry_keys_launch(
         origins.data_ptr(), directions.data_ptr(), alive.data_ptr(), origins.shape[0],
         live.data_ptr(), frame.slots.data_ptr(), k_count, frame.octant_node_bounds.data_ptr(),
-        links.data_ptr(), frame.node_bounds.shape[0], frame.key_window.data_ptr(), int(bounce),
-        int(total_bounces), key.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream,
+        tlas_octant_links(k_count, device).data_ptr(), frame.node_bounds.shape[0],
+        frame.key_window.data_ptr(), int(bounce), int(total_bounces), key.data_ptr(),
+        _work_counter(device, stream).data_ptr(), stream,
     )
     _check_status(library, "mesh_entry_keys", status)
     counts["mesh_entry_keys"] += 1
@@ -1316,10 +1323,10 @@ def entry_keys_reference(mesh, origins, directions, alive, live_count, bounce, *
 @functools.cache
 def _work_counter(device: torch.device, stream: int) -> torch.Tensor:
     """The work counter of the persistent blocks of
-    ``trace_fused_mesh_tlas``, ``mesh_bounce_tlas``, ``intersect_instances``
-    and ``occluded_instances``: one int32 per device and stream, allocated
-    once; each launch clears it on its stream, so launches in a row on one
-    stream share it safely."""
+    ``trace_fused_mesh_tlas``, ``mesh_bounce_tlas`` and its key pass
+    ``mesh_entry_keys``, ``intersect_instances`` and ``occluded_instances``:
+    one int32 per device and stream, allocated once; each launch clears it
+    on its stream, so launches in a row on one stream share it safely."""
     return torch.zeros((1,), dtype=torch.int32, device=device)
 
 
