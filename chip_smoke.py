@@ -187,6 +187,28 @@ Phases, each of which raises (exit code 1) if its check fails:
    frames/s of the 02 path, the deep wavefront and the deep pool, 4 frames
    a turn. (``chip_ab.py`` times row 1 in both modes and the key pass
    against the builds of the sources they replaced.)
+8. the wire: the unmodified C++ master (``native/master_daemon.cpp`` and
+   ``native/wscodec.cpp``, built with g++ by its own build line into the
+   ignored ``render/csrc/build/``) serves one port worker process
+   (``python -m tpu_render_cluster_torch.worker.main --warmScene ...``, the
+   card, 512x512, 8 spp) a 10-frame 04_very-simple job (``naive-fine``: row
+   1) and a 4-frame 03_physics-2-mesh job (``eager-naive-coarse``, 4 queued:
+   the frames added while frame 1 renders are pooled through the queue's
+   hint, row 6 TLAS and the vote pass); both processes must exit 0 within
+   their timeouts (else both are killed and the phase fails); the master's
+   raw trace must hold one worker trace with the job's frames; the worker's
+   metrics snapshot must show exactly the launches and the pool cache hits
+   of the same frames rendered in this process by the backend through the
+   same tiers (04: ``trace_fused`` once a frame; 03: no hint for frame 1,
+   which the worker starts before the master's next add arrives, then the
+   rest of the job as each later frame's hint, so frame 1 takes the
+   wavefront and frames 2-4 one pool window), and no plain version; every
+   PNG the worker wrote is held against that in-process render (04 bit for
+   bit, 03 within phase 4's pool check: >= 99.5% of uint8 values within 1;
+   the bit-equal share printed). Printed: each job's frames/s over the master's job wall time
+   beside the in-process loop's, the worker's median phase times from the
+   raw trace, its launches (also on the kernels line as ``wire_launches``)
+   and the card.
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -199,6 +221,7 @@ import asyncio
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -3491,6 +3514,280 @@ def octant_ab(pool_inputs: dict, device) -> dict:
     return {"kernels": result, "frames_per_s": fps, "occupancy": occupancy}
 
 
+# -- 8. the wire: a port worker process serving the C++ master -------------
+
+# The C++ master's build line (native/master_daemon.cpp:14-16), into the
+# ignored build directory of the port's kernels.
+MASTER_SOURCES = ("native/master_daemon.cpp", "native/wscodec.cpp")
+
+
+class WireJob(NamedTuple):
+    job_name: str  # also the scene
+    frames: int
+    strategy: str  # the [frame_distribution_strategy] table's lines
+    kernels: tuple[str, ...]  # what the worker must launch for it
+    # The in-process render takes the hints the worker's queue gives: none
+    # for the first frame, which starts rendering before the master's next
+    # add arrives, then the rest of the job for each later frame.
+    hint: bool
+
+
+WIRE_JOBS = [
+    WireJob("04_very-simple", 10, 'strategy_type = "naive-fine"', ("trace_fused",), False),
+    # The master's add RPCs come one at a time, so frame 1 starts alone (the
+    # wavefront) and the frames added while it renders wait on the worker's
+    # queue, whose hint pools them.
+    WireJob(
+        "03_physics-2-mesh", 4, 'strategy_type = "eager-naive-coarse"\ntarget_queue_size = 4',
+        ("mesh_bounce_tlas", "mesh_entry_keys", "pool_mesh_bounce_tlas", "packet_octants"), True,
+    ),
+]
+WIRE_MASTER_TIMEOUT_S, WIRE_WORKER_TIMEOUT_S = 300, 60
+WIRE_PHASES = {
+    "load": ("started_process_at", "finished_loading_at"),
+    "render": ("started_rendering_at", "finished_rendering_at"),
+    "save": ("file_saving_started_at", "file_saving_finished_at"),
+    "total": ("started_process_at", "exited_process_at"),
+}
+
+
+def write_wire_job(job: WireJob, directory: Path) -> Path:
+    path = directory / f"{job.job_name}.toml"
+    path.write_text("\n".join([
+        f'job_name = "{job.job_name}"',
+        'job_description = "chip_smoke wire phase"',
+        'project_file_path = "%BASE%/project.blend"',
+        'render_script_path = "%BASE%/script.py"',
+        "frame_range_from = 1",
+        f"frame_range_to = {job.frames}",
+        "wait_for_number_of_workers = 1",
+        f'output_directory_path = "{directory / "frames"}"',
+        'output_file_name_format = "rendered-####"',
+        'output_file_format = "PNG"',
+        "",
+        "[frame_distribution_strategy]",
+        job.strategy,
+        "",
+    ]))
+    return path
+
+
+def in_process_frames(job: WireJob, job_path: Path, directory: Path) -> dict:
+    """The wire job's frames through ``TorchRaytraceBackend`` in this
+    process, on the card, through the same tiers as the worker (the 03 job
+    with the hints its queue gives): the PNGs' pixels by frame, the frames/s
+    of the loop, timed on the host after a warm-up, the kernel launches and
+    the pool's cache hits."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from tpu_render_cluster_torch.jobs.models import BlenderJob
+    from tpu_render_cluster_torch.obs import get_registry
+    from tpu_render_cluster_torch.render import kernels
+    from tpu_render_cluster_torch.worker.backends.torch_raytrace import TorchRaytraceBackend
+
+    spec = BlenderJob.load_from_file(job_path)
+    spec = BlenderJob.from_dict(
+        {**spec.to_dict(), "output_directory_path": str(directory / "expected")}
+    )
+    frames = list(spec.frame_indices())
+    backend = TorchRaytraceBackend(
+        width=WIDTH, height=HEIGHT, samples=SAMPLES, max_bounces=BOUNCES,
+        base_directory=directory,
+    )
+    backend.warm(job.job_name)
+    torch.cuda.synchronize()
+    backend.pool_stats.clear()
+    hits = get_registry().counter(
+        "render_raypool_cache_hits_total", "Frames served from the ray-pool rendered-ahead cache"
+    )
+    hits_before = hits.value()
+    kernels.reset_counts()
+    started = time.perf_counter()
+    for index, frame in enumerate(frames):
+        if job.hint:
+            backend.note_upcoming_frames(spec, tuple(frames[index + 1:]) if index else ())
+        asyncio.run(backend.render_frame(spec, frame))
+    fps = len(frames) / (time.perf_counter() - started)
+    launches = {k: v for k, v in kernels.counts.items() if v}
+    windows = [w.served // (WIDTH * HEIGHT * SAMPLES) for w in backend.pool_stats]
+    print(f"[8] {job.job_name} in process: {len(frames)} frames, {fps:.4f} frames/s, "
+          f"pool windows of {windows} frames, launches {launches}")
+    pixels = {
+        frame: np.array(Image.open(directory / "expected" / f"rendered-{frame:04d}.png"))
+        for frame in frames
+    }
+    return {"pixels": pixels, "fps": fps, "launches": launches,
+            "hits": int(hits.value() - hits_before)}
+
+
+def wire_run(job: WireJob, master_binary: Path, job_path: Path, directory: Path) -> dict:
+    """One C++ master and one port worker process (default device: the card)
+    on a free localhost port, each under ``wait(timeout=...)``, killed on
+    any failure. Returns the raw trace and the worker's metrics snapshot."""
+    import socket
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    results, base = directory / "results", directory / "worker"
+    logs = {name: directory / f"{name}.log" for name in ("master", "worker")}
+    commands = {
+        "master": [
+            str(master_binary), "--host", "127.0.0.1", "--port", str(port),
+            "run-job", str(job_path), "--resultsDirectory", str(results),
+        ],
+        "worker": [
+            sys.executable, "-m", "tpu_render_cluster_torch.worker.main",
+            "--masterServerHost", "127.0.0.1", "--masterServerPort", str(port),
+            "--baseDirectory", str(base), "--backend", "torch-raytrace",
+            "--renderSize", f"{WIDTH}x{HEIGHT}", "--renderSamples", str(SAMPLES),
+            "--warmScene", job.job_name,
+        ],
+    }
+    processes: dict[str, subprocess.Popen] = {}
+    codes: dict[str, object] = {}
+    try:
+        for name, command in commands.items():
+            with logs[name].open("w") as out:
+                processes[name] = subprocess.Popen(
+                    command, cwd=REPO, stdout=out, stderr=subprocess.STDOUT,
+                    env={**os.environ, "PYTHONPATH": str(REPO)},
+                )
+        codes["master"] = processes["master"].wait(timeout=WIRE_MASTER_TIMEOUT_S)
+        codes["worker"] = processes["worker"].wait(timeout=WIRE_WORKER_TIMEOUT_S)
+    except subprocess.TimeoutExpired as error:
+        codes["timeout"] = str(error)
+    finally:
+        for process in processes.values():
+            if process.poll() is None:
+                process.kill()
+                process.wait(timeout=30)
+    if codes != {"master": 0, "worker": 0}:
+        for name, log in logs.items():
+            print(f"[8] {job.job_name} {name} log, last lines:\n"
+                  + "\n".join(log.read_text().splitlines()[-30:]), file=sys.stderr)
+    check(codes == {"master": 0, "worker": 0}, f"{job.job_name} over the wire: {codes}")
+    (raw,) = results.glob("*_raw-trace.json")
+    (metrics,) = (base / "obs").glob("worker-*_metrics.json")
+    return {"raw": json.loads(raw.read_text()), "snapshot": json.loads(metrics.read_text())}
+
+
+def wire_checks(job: WireJob, run: dict, expected: dict, frames_directory: Path) -> dict:
+    """One wire job's checks: the master's raw trace holds one worker trace
+    with the job's frames; the worker launched exactly what the in-process
+    render of the same tiers launched (04: ``trace_fused`` once a frame; 03:
+    the wavefront's ``mesh_bounce_tlas`` and ``mesh_entry_keys`` once a
+    bounce of frame 1, the vote once a launch of either TLAS walk) and took
+    as many frames from the pool's cache; every PNG it wrote against the
+    in-process render (04 bit for bit, the pooled 03 within phase 4's pool
+    check: >= 99.5% of uint8 values within 1)."""
+    import numpy as np
+    from PIL import Image
+
+    pixels = expected["pixels"]
+    (trace,) = run["raw"]["worker_traces"].values()
+    units = trace["frame_render_traces"]
+    check(sorted(u["frame_index"] for u in units) == sorted(pixels),
+          f"{job.job_name}: the worker trace holds frames {[u['frame_index'] for u in units]}")
+    master = run["raw"]["master_trace"]
+    wall = master["job_finish_time"] - master["job_start_time"]
+    medians = {
+        phase: statistics.median((u["details"][end] - u["details"][begin]) * 1e3 for u in units)
+        for phase, (begin, end) in WIRE_PHASES.items()
+    }
+    counts = {k: v for k, v in run["snapshot"]["kernel_launches"].items() if v}
+    check(sorted(counts) == sorted(job.kernels),
+          f"{job.job_name}: the worker launched {counts}, not just {job.kernels}")
+    check(counts == expected["launches"],
+          f"{job.job_name}: the worker launched {counts}, the in-process render "
+          f"of the same tiers {expected['launches']}")
+    if job.hint:
+        walks = counts["mesh_bounce_tlas"] + counts["pool_mesh_bounce_tlas"]
+        check(counts["mesh_entry_keys"] == counts["mesh_bounce_tlas"] <= BOUNCES
+              and counts["packet_octants"] == walks,
+              f"{job.job_name}: launches {counts} are not frame 1's wavefront and one "
+              f"vote a walk")
+    else:
+        check(counts == {"trace_fused": len(pixels)},
+              f"{job.job_name}: launches {counts}, not trace_fused once a frame")
+    hits = run["snapshot"]["metrics"].get("render_raypool_cache_hits_total")
+    hits = int(sum(hits["series"].values())) if hits else 0
+    check(hits == expected["hits"] and (hits >= 1 if job.hint else hits == 0),
+          f"{job.job_name}: {hits} frames served from the pool's cache, "
+          f"{expected['hits']} in process")
+    equal, within = {}, {}
+    for frame, want in sorted(pixels.items()):
+        got = np.array(Image.open(frames_directory / f"rendered-{frame:04d}.png"))
+        check(got.shape == (HEIGHT, WIDTH, 3), f"{job.job_name} frame {frame}: {got.shape}")
+        equal[frame] = float((got == want).mean())
+        within[frame] = float((np.abs(got.astype(int) - want.astype(int)) <= 1).mean())
+        if job.hint:
+            check(within[frame] >= 0.995, f"{job.job_name} frame {frame}: {within[frame]} within 1")
+        else:
+            check(equal[frame] == 1.0, f"{job.job_name} frame {frame}: {equal[frame]} bit-equal")
+    return {
+        "frames": len(units), "master_wall_s": wall, "wire_fps": len(units) / wall,
+        "phase_median_ms": medians, "launches": counts, "raypool_cache_hits": hits,
+        "bit_equal_share": equal, "within_one_share": within,
+    }
+
+
+def wire_phase(card: str) -> dict:
+    """Phase 8: each wire job served by the unmodified C++ master to a port
+    worker process on the card, its PNGs held against the in-process
+    backend's renders, its launches read from the worker's snapshot."""
+    from tpu_render_cluster_torch.render import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    master_binary = _build.BUILD_DIR / "trc-master"
+    started = time.perf_counter()
+    compiler = subprocess.Popen(
+        ["g++", "-std=gnu++17", "-O2", "-pthread", "-o", str(master_binary),
+         *(str(REPO / source) for source in MASTER_SOURCES)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    summary: dict = {"card": card, "jobs": {}, "launches": {}}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-wire-") as scratch:
+            directories = {job.job_name: Path(scratch) / job.job_name for job in WIRE_JOBS}
+            expected = {}
+            for job in WIRE_JOBS:  # the in-process renders, while g++ runs
+                directories[job.job_name].mkdir()
+                job_path = write_wire_job(job, directories[job.job_name])
+                expected[job.job_name] = in_process_frames(job, job_path, directories[job.job_name])
+            output, _ = compiler.communicate(timeout=600)
+            check(compiler.returncode == 0, f"g++ on the C++ master failed:\n{output}")
+            print(f"[8] built {master_binary.relative_to(REPO)} with g++ "
+                  f"({time.perf_counter() - started:.1f} s, beside the in-process renders)")
+            for job in WIRE_JOBS:
+                directory = directories[job.job_name]
+                run = wire_run(job, master_binary, directory / f"{job.job_name}.toml", directory)
+                in_process_fps = expected[job.job_name]["fps"]
+                result = wire_checks(job, run, expected[job.job_name], directory / "frames")
+                result["in_process_fps"] = in_process_fps
+                summary["jobs"][job.job_name] = result
+                for kernel, count in result["launches"].items():
+                    summary["launches"][kernel] = summary["launches"].get(kernel, 0) + count
+                print(
+                    f"[8] {job.job_name} over the wire (C++ master, one port worker process): "
+                    f"{result['frames']} frames in {result['master_wall_s']:.4f} s of the master's "
+                    f"job, {result['wire_fps']:.4f} frames/s; in process {in_process_fps:.4f} "
+                    f"frames/s; worker phase medians (ms) {json.dumps(result['phase_median_ms'])}; "
+                    f"launches {result['launches']}; pool cache hits "
+                    f"{result['raypool_cache_hits']}; PNGs vs the in-process renders: bit-equal "
+                    f"share {list(result['bit_equal_share'].values())}, within 1 "
+                    f"{list(result['within_one_share'].values())}"
+                )
+    finally:
+        if compiler.poll() is None:
+            compiler.kill()
+            compiler.wait(timeout=30)
+    print(f"[8] wire phase on {card}: {json.dumps(summary)}")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -3636,7 +3933,15 @@ def main() -> int:
     print(f"[7] phase 7 in {time.perf_counter() - started:.1f} s: "
           f"{json.dumps(ab['frames_per_s'])}")
 
-    print(f"[5] chip_smoke phases 1-7 in {time.perf_counter() - script_started:.1f} s")
+    # -- 8. the wire: the C++ master and a port worker process ---------------
+    started = time.perf_counter()
+    wire = wire_phase(card)
+    for entry in record["kernels"]:
+        if entry["name"] in wire["launches"]:
+            entry["wire_launches"] = wire["launches"][entry["name"]]
+    print(f"[8] phase 8 in {time.perf_counter() - started:.1f} s")
+
+    print(f"[5] chip_smoke phases 1-8 in {time.perf_counter() - script_started:.1f} s")
     print(json.dumps(record))
     print(card)
     print(json.dumps({

@@ -13,6 +13,10 @@ render together in the device-resident ray pool (``render/raypool.py``)
 through ``render/csrc/pool_mesh_bounce.cu`` and
 ``render/csrc/pool_sphere_bounce.cu``.
 
+A worker process (``python -m tpu_render_cluster_torch.worker.main``)
+serves these renders to an unmodified master over the reference's wire
+protocol (``protocol/``, ``transport/``, ``worker/``).
+
 Entry points run on the GPU. They take the CPU only when the caller asks
 for it explicitly (``device="cpu"``), as the CPU tests do; without a GPU
 and without that request they raise instead of continuing on the CPU.
@@ -21,6 +25,12 @@ and without that request they raise instead of continuing on the CPU.
 from __future__ import annotations
 
 import torch
+
+__version__ = "1.0.0"
+
+# The protocol version exchanged during the handshake: the reference's
+# (``tpu_render_cluster/__init__.py``), which the master checks.
+PROTOCOL_VERSION = __version__
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -44,4 +54,4 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return resolved
 
 
-__all__ = ["resolve_device"]
+__all__ = ["PROTOCOL_VERSION", "resolve_device"]

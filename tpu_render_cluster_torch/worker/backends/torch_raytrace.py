@@ -86,6 +86,7 @@ import torch
 from tpu_render_cluster_torch import resolve_device
 from tpu_render_cluster_torch.jobs.models import BlenderJob
 from tpu_render_cluster_torch.jobs.tiles import WorkUnit, tile_bounds
+from tpu_render_cluster_torch.obs import get_registry, render_fps_gauge
 from tpu_render_cluster_torch.render.compaction import (
     WAVEFRONT_MODES,
     WavefrontLaunch,
@@ -166,8 +167,8 @@ class TorchRaytraceBackend(RenderBackend):
         self._upcoming: dict[str, tuple[WorkUnit, ...]] = {}
         # (job name, frame, tile) -> linear image a pool window rendered ahead.
         self._raypool_cache: dict[tuple[str, int, int | None], torch.Tensor] = {}
-        # The last pool windows' statistics, until the port's obs registry
-        # carries them.
+        # The last pool windows' statistics (the reference also feeds them
+        # to its obs registry, ``_emit_batch_obs``; the port does not yet).
         self.pool_stats: collections.deque[PoolStats] = collections.deque(maxlen=64)
         self.device = resolve_device(device)
         self.base_directory = Path(base_directory) if base_directory else None
@@ -267,6 +268,37 @@ class TorchRaytraceBackend(RenderBackend):
             victim = self._raypool_cache.pop(next(iter(self._raypool_cache)))
             excess -= victim.numel() * victim.element_size()
 
+    @staticmethod
+    def _observe_render_obs(
+        *, compile_seconds: float, execute_seconds: float, from_cache: bool = False
+    ) -> None:
+        """Feed the process-global obs registry (one GPU per process), as the
+        reference's backend does (``tpu_raytrace._observe_render_obs``).
+
+        ``render_compile_seconds`` is the loading phase (fetching, or first
+        building, the renderer); ``render_execute_seconds`` the render phase
+        (device time and the copy back). A frame served from the pool's
+        cache only counts as a cache hit: its device time was spent in the
+        window that rendered it ahead.
+        """
+        registry = get_registry()
+        registry.histogram(
+            "render_compile_seconds",
+            "Per-frame compiled-renderer fetch/build (the 'loading' phase)",
+        ).observe(max(0.0, compile_seconds))
+        if from_cache:
+            registry.counter(
+                "render_raypool_cache_hits_total",
+                "Frames served from the ray-pool rendered-ahead cache",
+            ).inc()
+            return
+        registry.histogram(
+            "render_execute_seconds",
+            "Per-frame device render + readback (block-until-ready fenced)",
+        ).observe(max(0.0, execute_seconds))
+        if execute_seconds > 0:
+            render_fps_gauge(registry).set(1.0 / execute_seconds)
+
     async def render_frame(
         self, job: BlenderJob, frame_index: int, tile: int | None = None
     ) -> FrameRenderTime:
@@ -334,6 +366,11 @@ class TorchRaytraceBackend(RenderBackend):
             )
         write_image(path, pixels, "PNG" if tile is not None else job.output_file_format)
         file_saving_finished_at = time.time()
+        self._observe_render_obs(
+            compile_seconds=finished_loading_at - started_process_at,
+            execute_seconds=finished_rendering_at - started_rendering_at,
+            from_cache=cached is not None,
+        )
         return FrameRenderTime(
             started_process_at=started_process_at,
             finished_loading_at=finished_loading_at,
