@@ -116,8 +116,8 @@ OCCUPANCY_ARGTYPES = {
     "trace_fused": [_I, _P],
     "trace_fused_lanes": [_I, _P],
     # n_rays, n_instances, tlas_nodes, then whether the launch runs
-    # persistent blocks, its shared bytes and its grid
-    "mesh_entry_keys": [_I, _I, _I, _P, _P, _P],
+    # persistent blocks, its shared bytes and its grid, and the node format
+    "mesh_entry_keys": [_I, _I, _I, _P, _P, _P, _I],
 }
 BOUNCE_SET = (0, 1, 4)
 THREADS = 256  # the earlier kernels' block
@@ -484,7 +484,9 @@ def key_call(entry, counted: bool, launch: dict):
     key = torch.empty((rays,), dtype=torch.int32, device=device)
     live = kernels._live_tensor(launch["live"], device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    walk = (kernels._work_counter(device, stream).data_ptr(),) if counted else ()
+    # A build of this package's ABI: the work counter, then the node format
+    # (fp32: tier 0, no grid, no hit column).
+    walk = (kernels._work_counter(device, stream).data_ptr(), 0, None, None) if counted else ()
     status = entry(
         out.origins.data_ptr(), out.directions.data_ptr(), out.alive.data_ptr(), rays,
         live.data_ptr(), frame.slots.data_ptr(), k, frame.octant_node_bounds.data_ptr(),
@@ -589,7 +591,7 @@ def key_resources(built: dict, builds: dict, launches: list[dict]) -> dict:
             persistent, staged, grid = (ctypes.c_int() for _ in range(3))
             blocks = occupancy(launch["lanes"], frame.slots.shape[0], frame.node_bounds.shape[0],
                                ctypes.addressof(persistent), ctypes.addressof(staged),
-                               ctypes.addressof(grid))
+                               ctypes.addressof(grid), 0)
             per_launch[launch["label"]] = {"persistent": bool(persistent.value),
                                            "blocks_per_sm": blocks,
                                            "shared_bytes": staged.value,

@@ -142,16 +142,15 @@ Phases, each of which raises (exit code 1) if its check fails:
    at a tile's 524,288 rays beside ``trace_fused`` on the same rays, its
    plain version and its bound at 40 bytes a ray; each group-walk kernel's
    group size G, resident blocks per SM, time alone against its bound and
-   beside its one-thread predecessor's (PERF.md), and alone at every G
-   (the sweep: each per-bounce launch, each pool launch of phase 3, and
-   the instanced unit kernels' four launches of a 512x512 sample and of a
-   256x256 one);
+   beside its one-thread predecessor's (PERF.md) (the sweeps over every G
+   of earlier runs, kept in PERF.md, are left out to make room for phase
+   9);
    The passes at the deep wavefront's bounce-0 launch: each wrapper, its
    plain version, its bound and its launches on the main paths; the frames
    a walked packet carries at the deep pool's checked launches;
 6. under torch.profiler (reported, not checked: the numbers read "not
    measured" where the profiler records no device time or misses a launch
-   of the kernel, three tries in a row; a G sweep and the unit kernels'
+   of the kernel, three tries in a row; the unit kernels'
    alone times per bounce profile windows of 5 calls, rows 9 and 10 the 48
    bounce-0 calls in windows of 6, up to six times each):
    each kernel's own device time apart from its wrapper's set-up work, and
@@ -184,7 +183,7 @@ Phases, each of which raises (exit code 1) if its check fails:
    frame 1 of the 02 path, row 3 TLAS frame 2 too, for the two frames'
    mean; rows 4: the deep wavefront's bounce-0 launch; rows 6: the mixed
    launch of the pool paths' first windows), with the passes alone; and
-   frames/s of the 02 path, the deep wavefront and the deep pool, 4 frames
+   frames/s of the 02 path, the deep wavefront and the deep pool, 2 frames
    a turn. (``chip_ab.py`` times row 1 in both modes and the key pass
    against the builds of the sources they replaced.)
 8. the wire: the unmodified C++ master (``native/master_daemon.cpp`` and
@@ -208,7 +207,33 @@ Phases, each of which raises (exit code 1) if its check fails:
    the bit-equal share printed). Printed: each job's frames/s over the master's job wall time
    beside the in-process loop's, the worker's median phase times from the
    raw trace, its launches (also on the kernels line as ``wire_launches``)
-   and the card.
+   and the card. A third job, the 03 job again, goes to a worker started
+   with ``TRC_BVH_QUANT=1`` in its environment: its snapshot must show the
+   quantized launches (``mesh_bounce_tlas[q1]``, ``mesh_entry_keys[q1]``,
+   ``pool_mesh_bounce_tlas[q1]``), and its PNGs must equal the in-process
+   backend's at ``quant=1`` bit for bit;
+9. the node formats, the reference's ``TRC_BVH_QUANT`` tiers 1 and 2
+   (``kernels.QUANT_KERNELS``; each count names its tier, and each path
+   prints the format it resolved to and fails where it came back 0): each
+   instantiation against its plain version at the same format, bit for bit
+   on every output, at the main paths' widths: row 4 TLAS at the deep
+   wavefront's bounce-0 launch (2,097,152 lanes, its plain version on
+   65,536 of them drawn as whole packets, the hit column too) and its key
+   pass on every lane (persistent blocks, fed the bounce's hit column), row
+   6 TLAS on every lane of the first, mixed and last launches of phase 3's
+   first deep pool window (8 frames, 65,536 lanes); and on every lane at
+   64x64, 4 spp: row 3 TLAS on 02, row 4 TLAS with its vote and key passes
+   on every launch of a deep wavefront frame, the flat rows at one format
+   each and the canonical walk of a ``median``, ``wide=2`` build; the
+   quantized TLAS words the card computes equal the CPU's; whole frames through ``TorchRaytraceBackend`` at
+   512x512, 8 spp, 4 bounces with their staged bytes a block: 02 at 1 and
+   2 bit-equal to 0, the deep wavefront and pool at 1 and 2 within the
+   reference's budget of the packed carried state (linear MAE < 1e-3,
+   uint8 within 2), a ``median``, ``wide=1`` and a ``sah``, ``wide=8``
+   build's masked frames of 02 and the deep scene bit-equal to the default
+   build's; and rows 3, 4 (with its key pass) and 6 TLAS alone at formats
+   0, 1 and 2 in turns, beside their bounds (on the kernels line under
+   ``node_formats``).
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -1742,30 +1767,13 @@ def bounce_record(run: dict, checked: dict, device, agree: float, max_abs_err: f
         "frame_kernel_only_ms": frame_kernel_only_ms,
         "frame_bound_ms": frame_bound_ms,
         **{key: first[key] for key in ("group", "blocks_per_sm", "shared_bytes",
-                                       "bound_share_alone", "group_sweep") if key in first},
+                                       "bound_share_alone") if key in first},
         "frame_compaction_ms": frame_compaction_ms,
         "per_launch": per_launch,
         "agree_fraction_min": agree,
         "tolerance": TOLERANCE[kernel],
         "build_s": build_s,
     }
-
-
-def group_sweep(kernel: str, label: str, call, groups: tuple | None = None) -> dict:
-    """The kernel at every group size G (``groups``, default ``GROUPS``):
-    ``call(group)`` launches it once. Per G the wrapper's ms per call on
-    CUDA events (the median of 5 batches of 5 calls) and the kernel alone
-    (``alone_ms``: None where no profile saw a window whole, not
-    measured)."""
-    from tpu_render_cluster_torch.render import kernels
-
-    sweep = {}
-    for group in kernels.GROUPS if groups is None else groups:
-        once = lambda group=group: call(group)  # noqa: E731
-        cuda_ms(once, 2)
-        ms = statistics.median(cuda_ms(once, 5) for _ in range(5))
-        sweep[group] = {"ms": ms, "alone_ms": alone_ms(once, kernel, f"{label} at G {group}")}
-    return sweep
 
 
 def occupancy_entry(name: str, argtypes: list):
@@ -1781,27 +1789,30 @@ def occupancy_entry(name: str, argtypes: list):
     return entry
 
 
-def bounce_occupancy(mesh, group: int) -> dict:
+def bounce_occupancy(mesh, group: int, quant: int = 0) -> dict:
     """Resident blocks per SM of ``mesh_bounce_tlas`` at group size
-    ``group`` on ``mesh``'s tables, and its dynamic shared memory."""
+    ``group`` and node format ``quant`` on ``mesh``'s tables, and its
+    dynamic shared memory (the staged bytes a block)."""
     import ctypes
 
     from tpu_render_cluster_torch.render import kernels
 
     triangles, bounds, _ = kernels._bvh_operands(mesh.bvh)
     shared = ctypes.c_int()
-    query = occupancy_entry("mesh_bounce_tlas", [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    query = occupancy_entry("mesh_bounce_tlas",
+                            [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int])
     blocks = query(group, mesh.instances.translation.shape[0], triangles.shape[0],
                    bounds.shape[0], kernels.tlas_frame(mesh).node_bounds.shape[0],
-                   int(kernels.walks_ordered(mesh.bvh)), ctypes.addressof(shared))
+                   int(kernels.walks_ordered(mesh.bvh)), ctypes.addressof(shared), quant)
     check(blocks > 0, f"mesh_bounce_tlas_occupancy at G {group} failed ({blocks})")
     return {"blocks_per_sm": blocks, "shared_bytes": shared.value}
 
 
-def pool_occupancy(ops, group: int) -> dict:
+def pool_occupancy(ops, group: int, quant: int = 0) -> dict:
     """Resident blocks per SM of ``pool_mesh_bounce_tlas`` at group size
-    ``group`` on the pool window ``ops``, its dynamic shared memory and the
-    frames a block stages at most (-1: none, the BVH is not staged either)."""
+    ``group`` and node format ``quant`` on the pool window ``ops``, its
+    dynamic shared memory and the frames a block stages at most (-1: none,
+    the BVH is not staged either)."""
     import ctypes
 
     from tpu_render_cluster_torch.render import kernels
@@ -1810,10 +1821,11 @@ def pool_occupancy(ops, group: int) -> dict:
     triangles, bounds, _ = kernels._bvh_operands(ops.meshes[0].bvh)
     tlas_nodes = kernels.pool_tlas_operands(ops).links.shape[0] // frames
     shared, staged = ctypes.c_int(), ctypes.c_int()
-    query = occupancy_entry("pool_mesh_bounce_tlas", [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
+    query = occupancy_entry("pool_mesh_bounce_tlas",
+                            [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2 + [ctypes.c_int])
     blocks = query(group, ops.spheres.per_frame, frames, ops.per_frame, triangles.shape[0],
                    bounds.shape[0], tlas_nodes, int(kernels.walks_ordered(ops.meshes[0].bvh)),
-                   ctypes.addressof(shared), ctypes.addressof(staged))
+                   ctypes.addressof(shared), ctypes.addressof(staged), quant)
     check(blocks > 0, f"pool_mesh_bounce_tlas_occupancy at G {group} failed ({blocks})")
     return {"blocks_per_sm": blocks, "shared_bytes": shared.value, "staged_frames": staged.value}
 
@@ -1837,48 +1849,40 @@ def instance_occupancy(name: str, mesh, group: int) -> dict:
 def instance_groups(name: str, launches: list, label: str) -> list[dict]:
     """Phase 5 for an instance unit kernel (rows 7, 8) at each of
     ``launches`` (one per bounce): the group size it takes (row 7: by its
-    width; row 8: 0, each warp's pick for its batch), the blocks resident
-    per SM and the G sweep (row 8's with its G = 0), printed beside the
-    one-thread kernel's times (EARLIER, at 262,144 rays)."""
+    width; row 8: 0, each warp's pick for its batch) and the blocks resident
+    per SM, printed beside the one-thread kernel's times (EARLIER, at
+    262,144 rays). (The sweep over every G, kept in PERF.md from earlier
+    runs, is left out to make room for phase 9.)"""
     from tpu_render_cluster_torch.render import kernels
 
-    wrapper = getattr(kernels, name)
-    groups = kernels.GROUPS
-    if name == "occluded_instances":
-        groups = (*groups, kernels.OCCLUDED_GROUP)
     out = []
     for bounce, (args, _) in enumerate(launches):
         rays = args[1].shape[0]
         group = (kernels.OCCLUDED_GROUP if name == "occluded_instances"
                  else kernels.instance_group(rays, kernels.thread_slots(0)))
         occupancy = instance_occupancy(name, args[0], group)
-        sweep = group_sweep(name, f"{name} {label} bounce {bounce}",
-                            lambda g, args=args: wrapper(*args, _group=g), groups)
         earlier = EARLIER[name][bounce] if rays == WIDTH * HEIGHT else None
-        out.append({"bounce": bounce, "rays": rays, "group": group, **occupancy,
-                    "group_sweep": sweep})
+        out.append({"bounce": bounce, "rays": rays, "group": group, **occupancy})
         print(
             f"[5] {name} {label} bounce {bounce} ({rays} rays): G {group}, "
             f"{occupancy['blocks_per_sm']} resident blocks per SM ({occupancy['shared_bytes']} "
             f"bytes of shared memory); the one-thread kernel (PERF.md) "
-            f"{'n/a' if earlier is None else f'{earlier[0]} ms, alone {earlier[1]}'}; G sweep: {sweep}"
+            f"{'n/a' if earlier is None else f'{earlier[0]} ms, alone {earlier[1]}'}"
         )
     return out
 
 
 def bounce_groups(trace: Trace, launch, seed, alone, bound_ms: float) -> dict:
     """Phase 5 for a launch of the group-walk per-bounce kernel: the group
-    size its width takes, the blocks resident per SM, its share of the
-    bound and the G sweep, printed beside the earlier kernel's time."""
+    size its width takes, the blocks resident per SM and its share of the
+    bound, printed beside the earlier kernel's time (the sweep over every G,
+    kept in PERF.md from earlier runs, is left out to make room for phase
+    9)."""
     from tpu_render_cluster_torch.render import kernels
 
     kernel = trace.kernel
     group = kernels.bounce_group(launch.bucket, kernels.thread_slots(0))
     occupancy = bounce_occupancy(trace.mesh, group)
-    sweep = group_sweep(kernel, f"{kernel} bounce {launch.bounce}", lambda g: kernels.mesh_bounce(
-        trace.scene, trace.mesh, *launch.state, launch.live, seed, launch.bounce,
-        total_bounces=BOUNCES, use_tlas=True, _group=g,
-    ))
     alone_ms = None if alone is None else alone["kernel_ms"] / 5
     earlier_ms, earlier_alone_ms = EARLIER[kernel][launch.bounce]
     share = None if alone_ms is None else bound_ms / alone_ms
@@ -1886,9 +1890,9 @@ def bounce_groups(trace: Trace, launch, seed, alone, bound_ms: float) -> dict:
         f"[5] {kernel} bounce {launch.bounce} ({launch.bucket} lanes): G {group}, "
         f"{occupancy['blocks_per_sm']} resident blocks per SM ({occupancy['shared_bytes']} bytes "
         f"of shared memory), alone {alone_ms} ms, {share} of its bound; the one-thread kernel "
-        f"(PERF.md) {earlier_ms} ms, alone {earlier_alone_ms}; G sweep: {sweep}"
+        f"(PERF.md) {earlier_ms} ms, alone {earlier_alone_ms}"
     )
-    return {"group": group, **occupancy, "bound_share_alone": share, "group_sweep": sweep}
+    return {"group": group, **occupancy, "bound_share_alone": share}
 
 
 def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) -> dict:
@@ -1978,13 +1982,6 @@ def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) ->
         )
         if alone is not None:
             print(f"[6] {kernel} {role} launch, 20 calls under the profiler: the kernel alone {alone['kernel_ms'] / 20:.4f} ms per call")
-        if kernel in GROUP_KERNELS:
-            per_launch[role]["group_sweep"] = group_sweep(
-                kernel, f"{kernel} {role} launch", lambda g, launch=launch: wrapper(
-                    window.ops, *launch.state, launch.live, total_bounces=BOUNCES, _group=g
-                ),
-            )
-            print(f"[5] {kernel} {role} launch, G sweep: {per_launch[role]['group_sweep']}")
     windows = run["windows"]
     iterations = sum(w.iterations for w in windows)
     print(f"[5] {kernel}: {iterations / len(frames):.2f} launches per frame ({iterations} over the path's {len(frames)} frames)")
@@ -2021,7 +2018,7 @@ def pool_record(run: dict, checked: dict, runs: dict, device, build_s: float) ->
         share = None if alone is None else mixed["bound_ms"] / alone
         frame_ms = None if window_alone_ms is None else window_alone_ms * iterations / len(frames)
         groups = {"group": kernels.POOL_GROUP, **occupancy, "bound_share_alone": share,
-                  "frame_kernel_only_ms": frame_ms, "group_sweep": mixed["group_sweep"]}
+                  "frame_kernel_only_ms": frame_ms}
         print(
             f"[5] {kernel}: G {kernels.POOL_GROUP}, {occupancy['blocks_per_sm']} resident blocks "
             f"per SM ({occupancy['shared_bytes']} bytes of shared memory, up to "
@@ -2409,17 +2406,6 @@ def scan_record(run: dict, runs: dict, device) -> dict[str, dict]:
             record[name]["groups"] = instance_groups(name, launches, f"{WIDTH}x{HEIGHT}")
             if kernel_only_ms is not None:
                 record[name]["bound_share_alone"] = least["ms"] / kernel_only_ms
-    if INSTANCE_UNITS[0] in record:
-        # The G sweep at a 256x256 scan tile's launches (65,536 rays).
-        log = []
-        with recording(log, keep=BOUNCES):
-            render(WIDTH // 2, 1)
-        torch.cuda.synchronize()
-        for name in INSTANCE_UNITS:
-            record[name]["tile_groups"] = instance_groups(
-                name, [(args, got) for entry, args, got in log if entry == name],
-                f"{WIDTH // 2}x{HEIGHT // 2}",
-            )
     kernel_frame_ms = SAMPLES * sum(statistics.mean(r["per_bounce_ms"]) for r in record.values())
     print(
         f"[5] {run['label']}: the unit kernels take about {kernel_frame_ms:.3f} ms of a frame "
@@ -2576,7 +2562,7 @@ def unit_entry(name: str, records: dict, runs: dict, checks: dict, build_s: floa
         **{key: main[key] for key in (
             "scene", "rays", "per_bounce_ms", "host_ms", "kernel_only_ms", "frames_kernel_only_ms",
             "bound_flat_sweep_ms", "world_aabb_share", "per_bounce_kernel_only_ms",
-            "bound_share_alone", "groups", "tile_groups",
+            "bound_share_alone", "groups",
         ) if key in main},
         "by_path": {
             r["path"]: {k: r[k] for k in (
@@ -3235,7 +3221,8 @@ def key_pass_times(device) -> dict:
 
     from tpu_render_cluster_torch.render import kernels
 
-    query = occupancy_entry("mesh_entry_keys", [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
+    query = occupancy_entry("mesh_entry_keys",
+                            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int])
     results = {}
     for launch in key_pass_launches(device):
         out, mesh = launch["out"], launch["mesh"]
@@ -3251,7 +3238,7 @@ def key_pass_times(device) -> dict:
         persistent, shared, grid = (ctypes.c_int() for _ in range(3))
         blocks = query(launch["lanes"], frame.slots.shape[0], frame.node_bounds.shape[0],
                        ctypes.addressof(persistent), ctypes.addressof(shared),
-                       ctypes.addressof(grid))
+                       ctypes.addressof(grid), 0)
         check(blocks > 0, f"mesh_entry_keys_occupancy failed ({blocks})")
         cuda_ms(call, 2)
         result = {
@@ -3395,10 +3382,11 @@ def redesign_resources(pool_first: dict, device) -> dict:
     mesh = Trace("trace_fused_mesh_tlas", PATHS[1].scene, 1, device).mesh
     triangles, bounds, _ = kernels._bvh_operands(mesh.bvh)
     shared = ctypes.c_int()
-    query = occupancy_entry("trace_fused_mesh_tlas", [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    query = occupancy_entry("trace_fused_mesh_tlas",
+                            [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int])
     mega_blocks = query(mesh.instances.translation.shape[0], triangles.shape[0], bounds.shape[0],
                         kernels.tlas_frame(mesh).node_bounds.shape[0],
-                        int(kernels.walks_ordered(mesh.bvh)), ctypes.addressof(shared))
+                        int(kernels.walks_ordered(mesh.bvh)), ctypes.addressof(shared), 0)
     vote_query = occupancy_entry("packet_octants", [ctypes.c_int] * 2)
     stacked = kernels.pool_tlas_operands(pool_first["window"].ops).slots
     blocks = {
@@ -3425,7 +3413,8 @@ def octant_ab(pool_inputs: dict, device) -> dict:
     frame 2 too; rows 4: bounce 0 of frame 1 of the deep wavefront; rows 6:
     the mixed launch of the pool path's first window, 65,536 lanes), with
     the passes alone on the ordered turns; and frames/s of the 02 path, the
-    deep wavefront and the deep pool, 4 frames each a turn."""
+    deep wavefront and the deep pool, 2 frames each a turn (4 before the
+    node-format phase took its time)."""
     from tpu_render_cluster_torch.render import kernels
 
     calls = []  # (label, kernel, call)
@@ -3503,13 +3492,13 @@ def octant_ab(pool_inputs: dict, device) -> dict:
         turns = []
         for ordered in (True, False, False, True):
             with walk_order(ordered):
-                turns.append({"ordered": ordered, **backend_fps(path, 4, device)})
+                turns.append({"ordered": ordered, **backend_fps(path, 2, device)})
         fps[path.kernel] = {
             "ordered_fps": statistics.mean(t["fps"] for t in turns if t["ordered"]),
             "canonical_fps": statistics.mean(t["fps"] for t in turns if not t["ordered"]),
             "turns": turns,
         }
-        print(f"[7] {path.scene} ({path.kernel}) frames/s, ordered against canonical, 4 frames a "
+        print(f"[7] {path.scene} ({path.kernel}) frames/s, ordered against canonical, 2 frames a "
               f"turn: {json.dumps(fps[path.kernel])}")
     return {"kernels": result, "frames_per_s": fps, "occupancy": occupancy}
 
@@ -3530,6 +3519,9 @@ class WireJob(NamedTuple):
     # for the first frame, which starts rendering before the master's next
     # add arrives, then the rest of the job for each later frame.
     hint: bool
+    # The node format: the worker's TRC_BVH_QUANT, the in-process
+    # backend's ``quant`` (its PNGs then bit-equal to the worker's).
+    quant: int = 0
 
 
 WIRE_JOBS = [
@@ -3540,6 +3532,14 @@ WIRE_JOBS = [
     WireJob(
         "03_physics-2-mesh", 4, 'strategy_type = "eager-naive-coarse"\ntarget_queue_size = 4',
         ("mesh_bounce_tlas", "mesh_entry_keys", "pool_mesh_bounce_tlas", "packet_octants"), True,
+    ),
+    # The same job on a worker started with TRC_BVH_QUANT=1 in its
+    # environment (the reference's way of choosing the tier): the quantized
+    # kernels' launches in its snapshot.
+    WireJob(
+        "03_physics-2-mesh", 4, 'strategy_type = "eager-naive-coarse"\ntarget_queue_size = 4',
+        ("mesh_bounce_tlas[q1]", "mesh_entry_keys[q1]", "pool_mesh_bounce_tlas[q1]",
+         "packet_octants"), True, quant=1,
     ),
 ]
 WIRE_MASTER_TIMEOUT_S, WIRE_WORKER_TIMEOUT_S = 300, 60
@@ -3594,7 +3594,7 @@ def in_process_frames(job: WireJob, job_path: Path, directory: Path) -> dict:
     frames = list(spec.frame_indices())
     backend = TorchRaytraceBackend(
         width=WIDTH, height=HEIGHT, samples=SAMPLES, max_bounces=BOUNCES,
-        base_directory=directory,
+        base_directory=directory, quant=job.quant,
     )
     backend.warm(job.job_name)
     torch.cuda.synchronize()
@@ -3612,7 +3612,7 @@ def in_process_frames(job: WireJob, job_path: Path, directory: Path) -> dict:
     fps = len(frames) / (time.perf_counter() - started)
     launches = {k: v for k, v in kernels.counts.items() if v}
     windows = [w.served // (WIDTH * HEIGHT * SAMPLES) for w in backend.pool_stats]
-    print(f"[8] {job.job_name} in process: {len(frames)} frames, {fps:.4f} frames/s, "
+    print(f"[8] {wire_label(job)} in process: {len(frames)} frames, {fps:.4f} frames/s, "
           f"pool windows of {windows} frames, launches {launches}")
     pixels = {
         frame: np.array(Image.open(directory / "expected" / f"rendered-{frame:04d}.png"))
@@ -3651,9 +3651,11 @@ def wire_run(job: WireJob, master_binary: Path, job_path: Path, directory: Path)
     try:
         for name, command in commands.items():
             with logs[name].open("w") as out:
+                env = {**os.environ, "PYTHONPATH": str(REPO)}
+                if name == "worker" and job.quant:
+                    env["TRC_BVH_QUANT"] = str(job.quant)
                 processes[name] = subprocess.Popen(
-                    command, cwd=REPO, stdout=out, stderr=subprocess.STDOUT,
-                    env={**os.environ, "PYTHONPATH": str(REPO)},
+                    command, cwd=REPO, stdout=out, stderr=subprocess.STDOUT, env=env,
                 )
         codes["master"] = processes["master"].wait(timeout=WIRE_MASTER_TIMEOUT_S)
         codes["worker"] = processes["worker"].wait(timeout=WIRE_WORKER_TIMEOUT_S)
@@ -3704,9 +3706,12 @@ def wire_checks(job: WireJob, run: dict, expected: dict, frames_directory: Path)
           f"{job.job_name}: the worker launched {counts}, the in-process render "
           f"of the same tiers {expected['launches']}")
     if job.hint:
-        walks = counts["mesh_bounce_tlas"] + counts["pool_mesh_bounce_tlas"]
-        check(counts["mesh_entry_keys"] == counts["mesh_bounce_tlas"] <= BOUNCES
-              and counts["packet_octants"] == walks,
+        from tpu_render_cluster_torch.render.kernels import quant_name
+
+        row4, row6 = (counts[quant_name(k, job.quant)] for k in ("mesh_bounce_tlas",
+                                                                 "pool_mesh_bounce_tlas"))
+        check(counts[quant_name("mesh_entry_keys", job.quant)] == row4 <= BOUNCES
+              and counts["packet_octants"] == row4 + row6,
               f"{job.job_name}: launches {counts} are not frame 1's wavefront and one "
               f"vote a walk")
     else:
@@ -3723,7 +3728,7 @@ def wire_checks(job: WireJob, run: dict, expected: dict, frames_directory: Path)
         check(got.shape == (HEIGHT, WIDTH, 3), f"{job.job_name} frame {frame}: {got.shape}")
         equal[frame] = float((got == want).mean())
         within[frame] = float((np.abs(got.astype(int) - want.astype(int)) <= 1).mean())
-        if job.hint:
+        if job.hint and not job.quant:
             check(within[frame] >= 0.995, f"{job.job_name} frame {frame}: {within[frame]} within 1")
         else:
             check(equal[frame] == 1.0, f"{job.job_name} frame {frame}: {equal[frame]} bit-equal")
@@ -3732,6 +3737,10 @@ def wire_checks(job: WireJob, run: dict, expected: dict, frames_directory: Path)
         "phase_median_ms": medians, "launches": counts, "raypool_cache_hits": hits,
         "bit_equal_share": equal, "within_one_share": within,
     }
+
+
+def wire_label(job: WireJob) -> str:
+    return job.job_name + (f" (TRC_BVH_QUANT={job.quant})" if job.quant else "")
 
 
 def wire_phase(card: str) -> dict:
@@ -3751,27 +3760,29 @@ def wire_phase(card: str) -> dict:
     summary: dict = {"card": card, "jobs": {}, "launches": {}}
     try:
         with tempfile.TemporaryDirectory(prefix="chip-smoke-wire-") as scratch:
-            directories = {job.job_name: Path(scratch) / job.job_name for job in WIRE_JOBS}
+            directories = {wire_label(job): Path(scratch) / f"{job.job_name}-q{job.quant}"
+                           for job in WIRE_JOBS}
             expected = {}
             for job in WIRE_JOBS:  # the in-process renders, while g++ runs
-                directories[job.job_name].mkdir()
-                job_path = write_wire_job(job, directories[job.job_name])
-                expected[job.job_name] = in_process_frames(job, job_path, directories[job.job_name])
+                directory = directories[wire_label(job)]
+                directory.mkdir()
+                job_path = write_wire_job(job, directory)
+                expected[wire_label(job)] = in_process_frames(job, job_path, directory)
             output, _ = compiler.communicate(timeout=600)
             check(compiler.returncode == 0, f"g++ on the C++ master failed:\n{output}")
             print(f"[8] built {master_binary.relative_to(REPO)} with g++ "
                   f"({time.perf_counter() - started:.1f} s, beside the in-process renders)")
             for job in WIRE_JOBS:
-                directory = directories[job.job_name]
+                directory = directories[wire_label(job)]
                 run = wire_run(job, master_binary, directory / f"{job.job_name}.toml", directory)
-                in_process_fps = expected[job.job_name]["fps"]
-                result = wire_checks(job, run, expected[job.job_name], directory / "frames")
+                in_process_fps = expected[wire_label(job)]["fps"]
+                result = wire_checks(job, run, expected[wire_label(job)], directory / "frames")
                 result["in_process_fps"] = in_process_fps
-                summary["jobs"][job.job_name] = result
+                summary["jobs"][wire_label(job)] = result
                 for kernel, count in result["launches"].items():
                     summary["launches"][kernel] = summary["launches"].get(kernel, 0) + count
                 print(
-                    f"[8] {job.job_name} over the wire (C++ master, one port worker process): "
+                    f"[8] {wire_label(job)} over the wire (C++ master, one port worker process): "
                     f"{result['frames']} frames in {result['master_wall_s']:.4f} s of the master's "
                     f"job, {result['wire_fps']:.4f} frames/s; in process {in_process_fps:.4f} "
                     f"frames/s; worker phase medians (ms) {json.dumps(result['phase_median_ms'])}; "
@@ -3786,6 +3797,521 @@ def wire_phase(card: str) -> dict:
             compiler.wait(timeout=30)
     print(f"[8] wire phase on {card}: {json.dumps(summary)}")
     return summary
+
+
+# -- 9. the node formats: the reference's TRC_BVH_QUANT tiers ----------------
+
+# The quantized node formats (kernels.QUANT_TIERS); tier 0 is the fp32 one.
+QUANTS = (1, 2)
+QUANT_TOLERANCE = (
+    "at node format 1 and 2 bit-equal to the plain version at the same format on every output "
+    "of every lane (radiance; state outputs, alive, key and hit columns; the key pass's keys)"
+)
+# Phase 9's checks at a small shape: QUANT_SIDE x QUANT_SIDE x
+# CHECK_SAMPLES rays a frame (a 2-frame pool window of 16,384 lanes).
+QUANT_SIDE = 64
+# The reference's budget of the packed carried state (tests/test_bvhq.py):
+# a wavefront or pool image at tier 1 or 2 against the same tier at 0.
+PACKED_MAE, PACKED_UINT8 = 1e-3, 2
+
+
+def quant_equal(label: str, got, want) -> None:
+    """Every output of a launch (a tensor or a state's fields) equal to
+    the bit."""
+    import torch
+
+    fields = got._fields if hasattr(got, "_fields") else ("out",)
+    pairs = zip(fields, got, want) if hasattr(got, "_fields") else [("out", got, want)]
+    for name, have, expected in pairs:
+        if have is None and expected is None:
+            continue
+        check(have is not None and expected is not None and torch.equal(have, expected),
+              f"{label}: {name} differs on "
+              f"{'?' if have is None or expected is None else int((have != expected).sum())} "
+              f"values")
+
+
+def quant_tier(label: str, resolved: int, quant: int) -> int:
+    """The node format a launch resolved to must be the one asked for (the
+    degrade rule would fall back to 0 silently otherwise)."""
+    print(f"[9] {label}: node format {quant} asked, {resolved} resolved")
+    check(resolved == quant, f"{label}: node format {resolved}, not {quant}")
+    return resolved
+
+
+def quant_kernel_checks(device) -> dict:
+    """Phase 9's kernels against their plain versions at node formats 1 and
+    2 (the counts read after each launch name the tier) on every lane of
+    QUANT_SIDE x QUANT_SIDE x CHECK_SAMPLES rays: row 3 TLAS on frame 1 of
+    02 (4 bounces); row 4 TLAS with its vote and key passes on every launch
+    of a deep wavefront frame (the hit column, the key pass fed it, the
+    votes); the flat rows at one format each (row 3 at 1, row 4 at 2 on
+    bounces 0 and 1, row 6 at 1 on the mixed launch of a 2-frame deep pool
+    window) and the canonical walk of a ``median``, ``wide=2`` build (row 4
+    TLAS at 1 on bounces 0 and 1, its key from the kernel's epilogue); and
+    the quantized TLAS words the card computes against the CPU's. Returns
+    the launches checked and the plain versions' work counters of row 3
+    TLAS's launch at formats 1 and 2, for its bound (format 0's: phase 5's,
+    on the kernels line)."""
+    import torch
+
+    from tpu_render_cluster_torch.render import compaction, integrator, kernels, raypool
+    from tpu_render_cluster_torch.render.camera import scene_camera
+    from tpu_render_cluster_torch.render.mesh import scene_mesh_set
+    from tpu_render_cluster_torch.render.scene import build_scene
+
+    mesh_scene, deep = PATHS[1].scene, PATHS[2].scene
+    checked: dict[str, int] = {}
+    counters: dict[str, dict] = {}
+    # The earlier phases' cached blocks slow the plain versions' allocations.
+    torch.cuda.empty_cache()
+
+    def rays(name):
+        return integrator.frame_rays_and_seed(scene_camera(name, 1, device), 1, width=QUANT_SIDE,
+                                              height=QUANT_SIDE, samples=CHECK_SAMPLES)
+
+    def launched(name, quant, expected=1):
+        got = kernels.counts.get(kernels.quant_name(name, quant), 0)
+        check(got == expected, f"{name} at format {quant}: {got} launches, not {expected}")
+
+    # A frame's TLAS quantized on the card holds the words the CPU computes
+    # (tests/test_torch_bvhq.py holds those to the reference's).
+    for name in (mesh_scene, deep):
+        card_mesh = scene_mesh_set(name, 1, device=device)
+        host_mesh = scene_mesh_set(name, 1, device="cpu")
+        for quant in QUANTS:
+            for ordered in (False, True):
+                card_table = kernels.tlas_quant_table(card_mesh, quant, ordered)
+                host_table = kernels.tlas_quant_table(host_mesh, quant, ordered)
+                check(torch.equal(card_table.words.cpu(), host_table.words)
+                      and torch.equal(card_table.grid, host_table.grid),
+                      f"{name}: the card's TLAS words at format {quant} are not the CPU's")
+
+    # Row 3 TLAS (and flat at format 1) on frame 1 of 02.
+    scene = build_scene(mesh_scene, 1, device)
+    o, d, seed = rays(mesh_scene)
+    mesh = scene_mesh_set(mesh_scene, 1, device=device)
+    for quant in QUANTS:
+        for tlas in (True, False) if quant == 1 else (True,):
+            name = "trace_fused_mesh_tlas" if tlas else "trace_fused_mesh"
+            label = f"{name} at format {quant}"
+            quant_tier(label, kernels.mesh_quant(mesh, quant, tlas), quant)
+            kernels.reset_counts()
+            got = kernels.trace_paths_fused_mesh(scene, mesh, o, d, seed, max_bounces=BOUNCES,
+                                                 use_tlas=tlas, quant=quant)
+            launched(name, quant)
+            stats: dict = {}
+            want = kernels.trace_paths_fused_mesh_reference(
+                scene, mesh, o, d, seed, max_bounces=BOUNCES, use_tlas=tlas, quant=quant,
+                stats=stats)
+            torch.cuda.synchronize()
+            quant_equal(label, got, want)
+            checked[label] = checked.get(label, 0) + 1
+            if tlas:
+                counters[f"{name} {quant}"] = {"stats": stats, "rays": o.shape[0]}
+
+    # Row 4 on every launch of a deep wavefront frame: TLAS at each format
+    # (ordered: the vote, the bounce with its hit column, the key pass), the
+    # flat kernel at 2, and the canonical walk of a median build at 1.
+    scene = build_scene(deep, 1, device)
+    o, d, seed = rays(deep)
+    cases = [(quant, True, "sah", 4) for quant in QUANTS]
+    cases += [(2, False, "sah", 4), (1, True, "median", 2)]
+    for quant, tlas, builder, wide in cases:
+        mesh = scene_mesh_set(deep, 1, builder, wide, device)
+        name = "mesh_bounce_tlas" if tlas else "mesh_bounce"
+        ordered = kernels.walks_ordered(mesh.bvh)
+        label = f"{name} at format {quant} ({builder}, wide {wide})"
+        quant_tier(label, kernels.mesh_quant(mesh, quant, tlas), quant)
+        launches: list = []
+        compaction.trace_paths_wavefront(scene, o, d, seed, max_bounces=BOUNCES, mesh=mesh,
+                                         on_launch=launches.append, use_tlas=tlas, quant=quant)
+        # The flat kernel and the canonical walk: bounces 0 and 1.
+        for launch in launches[:4 if (tlas and builder == "sah") else 2]:
+            args = (*launch.state, launch.live, seed, launch.bounce)
+            kernels.reset_counts()
+            hits: list = []
+            got = kernels.mesh_bounce(scene, mesh, *args, total_bounces=BOUNCES, use_tlas=tlas,
+                                      quant=quant, _hits=hits)
+            for kernel in kernels.launch_names(name, ordered, quant):
+                check(kernels.counts.get(kernel) == 1, f"{label}: {kernel} not launched once")
+            plain_hits: list = []
+            want = kernels.mesh_bounce_reference(
+                scene, mesh, *args, total_bounces=BOUNCES, use_tlas=tlas, quant=quant,
+                _hits=plain_hits)
+            torch.cuda.synchronize()
+            quant_equal(f"{label} bounce {launch.bounce}", got, want)
+            if tlas and ordered:
+                quant_equal(f"{label} bounce {launch.bounce} hits", hits[0], plain_hits[0])
+                table = kernels.tlas_frame(mesh).slots
+                votes = kernels.packet_votes(launch.state[1], table, launch.live,
+                                             block=kernels.TLAS_BLOCK_R)
+                plain_votes = kernels.packet_votes_reference(launch.state[1], table, launch.live,
+                                                             block=kernels.TLAS_BLOCK_R)
+                for have, expected in zip(votes, plain_votes):
+                    check(have is None or torch.equal(have, expected), f"{label}: votes differ")
+                keys = kernels.entry_keys(mesh, got.origins, got.directions, got.alive,
+                                          launch.live, launch.bounce, total_bounces=BOUNCES,
+                                          quant=quant, hits=hits[0])
+                plain_keys = kernels.entry_keys_reference(
+                    mesh, got.origins, got.directions, got.alive, launch.live, launch.bounce,
+                    total_bounces=BOUNCES, quant=quant, hits=hits[0])
+                quant_equal(f"{label} bounce {launch.bounce} key pass", keys, plain_keys)
+                quant_equal(f"{label} bounce {launch.bounce} key pass vs the launch's key",
+                            keys, got.key)
+                checked[kernels.quant_name("mesh_entry_keys", quant)] = checked.get(
+                    kernels.quant_name("mesh_entry_keys", quant), 0) + 1
+            checked[label] = checked.get(label, 0) + 1
+
+    # The flat row 6 at format 1 on the mixed launch of a 2-frame deep
+    # window (row 6 TLAS: at the main width, quant_main_checks).
+    window = raypool.PoolWindow(deep, [1, 2], width=QUANT_SIDE, height=QUANT_SIDE,
+                                samples=CHECK_SAMPLES, max_bounces=BOUNCES, device=device,
+                                use_tlas=False, quant=1)
+    label = "pool_mesh_bounce at format 1"
+    quant_tier(label, kernels.pool_quant(window.mesh_ops, 1, False), 1)
+    launches = []
+    state = window.initial_state()
+    while bool(window.more(state)):
+        state = window.iteration(state, len(launches), launches.append)
+    launch = launches[pool_launch_roles(launches, window)["mixed"]]
+    live = int(launch.live)
+    kernels.reset_counts()
+    got = kernels.pool_mesh_bounce(window.ops, *launch.state, live, total_bounces=BOUNCES,
+                                   use_tlas=False, quant=1)
+    launched("pool_mesh_bounce", 1)
+    want = kernels.pool_mesh_bounce_reference(window.ops, *launch.state, live,
+                                              total_bounces=BOUNCES, use_tlas=False, quant=1)
+    torch.cuda.synchronize()
+    quant_equal(f"{label} mixed launch", got, want)
+    checked[label] = 1
+    print(f"[9] node formats: launches held bit-equal to their plain versions: "
+          f"{json.dumps(checked)}")
+    return {"checked": checked, "counters": counters}
+
+
+def quant_main_checks(device, pool_first: dict) -> dict:
+    """Phase 9's kernels against their plain versions at node formats 1 and
+    2 at the main paths' widths, the group size, persistence and windows
+    of the main path's launches: row 4 TLAS at the deep wavefront's
+    bounce-0 launch (2,097,152 lanes; the bounce is the same at every
+    format) on every lane, its plain version on SUBSET of them drawn as
+    whole packets (a lane's result depends on its packet's votes alone),
+    the hit column too, and the key pass fed that hit column on every lane
+    (its persistent blocks) against its plain version and the launch's key
+    column; row 6 TLAS on every lane of the first, mixed and last launches
+    of phase 3's first deep window (8 frames, 65,536 lanes; phase 3's
+    inputs), its stacked TLAS quantized on the card against the CPU's
+    words. Returns the launches checked, the plain versions' work counters
+    of row 4 TLAS (the drawn lanes) and row 6 TLAS (the mixed launch) for
+    the bounds, and the inputs, for ``quant_times``."""
+    import ctypes
+
+    import torch
+
+    from tpu_render_cluster_torch.render import kernels
+    from tpu_render_cluster_torch.render.mesh import scene_mesh_set
+    from tpu_render_cluster_torch.render.scene import build_scene
+
+    deep = PATHS[2].scene
+    checked: dict[str, int] = {}
+    counters: dict[str, dict] = {}
+    trace, rays, launches = deep_launches("mesh_bounce_tlas", device)
+    launch, mesh, seed = launches[0], trace.mesh, rays[2]
+    lanes = launch.bucket
+    check(launch.bounce == 0 and lanes == WIDTH * HEIGHT * SAMPLES,
+          f"the deep bounce-0 launch holds {lanes} lanes")
+    group = kernels.bounce_group(lanes, kernels.thread_slots(device.index or 0))
+    generator = torch.Generator(device=device).manual_seed(16)
+    rows = packet_rows(lanes, kernels.TLAS_BLOCK_R, SUBSET, generator, device)
+    drawn = tuple(t[rows] for t in launch.state)
+    drawn_live = int((rows < launch.live).sum())
+    frame = kernels.tlas_frame(mesh)
+    query = occupancy_entry("mesh_entry_keys",
+                            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int])
+    for quant in QUANTS:
+        label = f"mesh_bounce_tlas at format {quant}, the deep bounce-0 launch"
+        quant_tier(label, kernels.mesh_quant(mesh, quant, True), quant)
+        kernels.reset_counts()
+        hits: list = []
+        got = kernels.mesh_bounce(trace.scene, mesh, *launch.state, launch.live, seed, 0,
+                                  total_bounces=BOUNCES, quant=quant, _hits=hits)
+        for kernel in kernels.launch_names("mesh_bounce_tlas", True, quant):
+            check(kernels.counts.get(kernel) == 1, f"{label}: {kernel} not launched once")
+        stats: dict = {}
+        plain_hits: list = []
+        want = kernels.mesh_bounce_reference(
+            trace.scene, mesh, *drawn, drawn_live, seed, 0, total_bounces=BOUNCES, quant=quant,
+            stats=stats, _hits=plain_hits)
+        torch.cuda.synchronize()
+        quant_equal(f"{label} (G {group}, {rows.numel()} lanes drawn)",
+                    type(got)(*(t[rows] for t in got)), want)
+        quant_equal(f"{label} hits", hits[0][rows], plain_hits[0])
+        counters[f"mesh_bounce_tlas {quant}"] = {"stats": stats, "rays": rows.numel()}
+        checked[label] = 1
+        persistent, staged, grid = (ctypes.c_int() for _ in range(3))
+        blocks = query(lanes, frame.slots.shape[0], frame.node_bounds.shape[0],
+                       ctypes.addressof(persistent), ctypes.addressof(staged),
+                       ctypes.addressof(grid), quant)
+        check(blocks > 0 and bool(persistent.value),
+              f"mesh_entry_keys at format {quant} and {lanes} lanes: not persistent ({blocks})")
+        args = (mesh, got.origins, got.directions, got.alive, launch.live, 0)
+        keys = kernels.entry_keys(*args, total_bounces=BOUNCES, quant=quant, hits=hits[0])
+        plain_keys = kernels.entry_keys_reference(*args, total_bounces=BOUNCES, quant=quant,
+                                                  hits=hits[0])
+        torch.cuda.synchronize()
+        key_label = f"mesh_entry_keys at format {quant}, the deep bounce-0 launch"
+        quant_equal(key_label, keys, plain_keys)
+        quant_equal(f"{key_label} vs the launch's key column", keys, got.key)
+        checked[kernels.quant_name("mesh_entry_keys", quant)] = 1
+        print(f"[9] {label}: G {group}, {lanes} lanes through the kernel, {rows.numel()} drawn "
+              f"for its plain version, bit-equal with the hit column; the key pass persistent "
+              f"({grid.value} blocks), its {lanes} keys bit-equal to its plain version's and the "
+              f"launch's")
+
+    window = pool_first["window"]
+    frames = window.frames
+    host_ops = kernels.pool_mesh_operands([build_scene(deep, f) for f in frames],
+                                          [scene_mesh_set(deep, f) for f in frames])
+    for quant in QUANTS:
+        label = f"pool_mesh_bounce_tlas at format {quant}, the deep main window"
+        quant_tier(label, kernels.pool_quant(window.ops, quant, True), quant)
+        card_table = kernels.pool_tlas_quant(window.ops, quant)
+        host_table = kernels.pool_tlas_quant(host_ops, quant)
+        check(torch.equal(card_table.words.cpu(), host_table.words)
+              and torch.equal(card_table.grid, host_table.grid),
+              f"{label}: the card's stacked TLAS words are not the CPU's")
+        done = set()
+        for role in ("first", "mixed", "drain"):
+            index = pool_first["picked"][role]["index"]
+            if index in done:
+                continue
+            done.add(index)
+            step = pool_first["launches"][index]
+            live = int(step.live)
+            kernels.reset_counts()
+            got = kernels.pool_mesh_bounce(window.ops, *step.state, live, total_bounces=BOUNCES,
+                                           quant=quant)
+            check(kernels.counts.get(kernels.quant_name("pool_mesh_bounce_tlas", quant)) == 1,
+                  f"{label}: not launched once")
+            stats = {}
+            want = kernels.pool_mesh_bounce_reference(
+                window.ops, *step.state, live, total_bounces=BOUNCES, quant=quant,
+                stats=stats if role == "mixed" else None)
+            torch.cuda.synchronize()
+            quant_equal(f"{label} {role} launch ({live} of {window.pool} lanes live)", got, want)
+            if role == "mixed":
+                counters[f"pool_mesh_bounce_tlas {quant}"] = {"stats": stats, "rays": live}
+            checked[label] = checked.get(label, 0) + 1
+        print(f"[9] {label}: {len(done)} launches of {len(frames)} frames, every lane bit-equal "
+              f"to the plain version; the stacked TLAS words the CPU's")
+    return {"checked": checked, "counters": counters,
+            "inputs": {"trace": trace, "launch": launch, "seed": seed}}
+
+
+def quant_staged_bytes(device, quant: int, pool_ops) -> dict:
+    """The staged bytes a block (and resident blocks per SM) of rows 3, 4
+    and 6 TLAS and the key pass at node format ``quant``, on the main
+    paths' tables (02's for row 3, the deep scene's for the others; row 4
+    and the key pass at the deep wavefront's bounce-0 width; row 6 on the
+    first deep window's ``pool_ops``)."""
+    import ctypes
+
+    from tpu_render_cluster_torch.render import kernels
+    from tpu_render_cluster_torch.render.mesh import scene_mesh_set
+
+    out = {}
+    mesh = scene_mesh_set(PATHS[1].scene, 1, device=device)
+    triangles, bounds, _ = kernels._bvh_operands(mesh.bvh)
+    shared = ctypes.c_int()
+    query = occupancy_entry("trace_fused_mesh_tlas",
+                            [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int])
+    blocks = query(mesh.instances.translation.shape[0], triangles.shape[0], bounds.shape[0],
+                   kernels.tlas_frame(mesh).node_bounds.shape[0],
+                   int(kernels.walks_ordered(mesh.bvh)), ctypes.addressof(shared), quant)
+    check(blocks > 0, f"trace_fused_mesh_tlas_occupancy at format {quant} failed ({blocks})")
+    out["trace_fused_mesh_tlas"] = {"blocks_per_sm": blocks, "shared_bytes": shared.value}
+    deep = scene_mesh_set(PATHS[2].scene, 1, device=device)
+    lanes = WIDTH * HEIGHT * SAMPLES
+    group = kernels.bounce_group(lanes, kernels.thread_slots(device.index or 0))
+    out["mesh_bounce_tlas"] = {"group": group, **bounce_occupancy(deep, group, quant)}
+    frame = kernels.tlas_frame(deep)
+    persistent, staged, grid = (ctypes.c_int() for _ in range(3))
+    query = occupancy_entry("mesh_entry_keys",
+                            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int])
+    blocks = query(lanes, frame.slots.shape[0], frame.node_bounds.shape[0],
+                   ctypes.addressof(persistent), ctypes.addressof(staged),
+                   ctypes.addressof(grid), quant)
+    check(blocks > 0, f"mesh_entry_keys_occupancy at format {quant} failed ({blocks})")
+    out["mesh_entry_keys"] = {"blocks_per_sm": blocks, "shared_bytes": staged.value,
+                              "persistent": bool(persistent.value)}
+    out["pool_mesh_bounce_tlas"] = {"group": kernels.POOL_GROUP,
+                                    **pool_occupancy(pool_ops, kernels.POOL_GROUP, quant)}
+    return out
+
+
+def quant_frame_checks(device, pool_ops) -> dict:
+    """Phase 9's whole frames through ``TorchRaytraceBackend`` at 512x512, 8
+    spp, 4 bounces, each with its resolved node format (the launches' count
+    names) and staged bytes a block: 02 at formats 1 and 2 bit-equal to 0;
+    the deep wavefront and the deep pool at 1 and 2 within the reference's
+    budget of the packed carried state against 0 (linear MAE < 1e-3, uint8
+    within 2); and a ``median``, ``wide=1`` and a ``sah``, ``wide=8`` build's
+    frame of 02 and of the deep scene (the masked tier) bit-equal to the
+    default build's."""
+    import torch
+
+    from tpu_render_cluster_torch.render import compaction, integrator, kernels
+    from tpu_render_cluster_torch.worker.backends.torch_raytrace import TorchRaytraceBackend
+
+    mesh_scene, deep = PATHS[1].scene, PATHS[2].scene
+    size = dict(width=WIDTH, height=HEIGHT, samples=SAMPLES, max_bounces=BOUNCES)
+    result: dict = {"formats": {}, "builds": {}}
+
+    def tiers_launched():
+        names = sorted(k for k, v in kernels.counts.items() if v)
+        return names, sorted({int(n.split("[q")[1][0]) if "[q" in n else 0 for n in names
+                              if n.split("[")[0] in kernels.QUANT_KERNELS})
+
+    base = {}
+    for quant in (0, *QUANTS):
+        backend = TorchRaytraceBackend(device=device, quant=quant, **size)
+        entry: dict = {"tiers": backend.tiers(), "staged": quant_staged_bytes(device, quant, pool_ops)}
+        kernels.reset_counts()
+        image = backend._renderer(mesh_scene)(1)
+        torch.cuda.synchronize()
+        entry["02"], formats = tiers_launched()
+        check(formats == [quant], f"02 at format {quant}: launched {entry['02']}")
+        kernels.reset_counts()
+        linear = compaction.render_frame_wavefront(deep, 1, device=device, **size,
+                                                   **backend.tiers())
+        entry["03 wavefront"], formats = tiers_launched()
+        check(formats == [quant], f"the deep wavefront at format {quant}: {entry['03 wavefront']}")
+        kernels.reset_counts()
+        window = backend._render_window(deep, [1, 2])
+        entry["03 pool"], formats = tiers_launched()
+        check(formats == [quant], f"the deep pool at format {quant}: {entry['03 pool']}")
+        if quant == 0:
+            base = {"02": image, "wavefront": linear, "pool": window}
+        else:
+            check(torch.equal(image, base["02"]), f"02 at format {quant} differs from format 0")
+            budget = {}
+            for key, have, want in [("wavefront", linear, base["wavefront"]),
+                                    *[(f"pool frame {i + 1}", h, w)
+                                      for i, (h, w) in enumerate(zip(window, base["pool"]))]]:
+                mae = (have - want).abs().mean().item()
+                delta = (integrator.tonemap(have).int() - integrator.tonemap(want).int()).abs()
+                budget[key] = {"mae": mae, "uint8_max": int(delta.max()),
+                               "bit_equal_share": float((have == want).float().mean())}
+                check(mae < PACKED_MAE and budget[key]["uint8_max"] <= PACKED_UINT8,
+                      f"{key} at format {quant}: MAE {mae}, uint8 {budget[key]['uint8_max']}")
+            entry["against_format_0"] = budget
+        result["formats"][quant] = entry
+        print(f"[9] frames at node format {quant}: {json.dumps(entry)}")
+    for name in (mesh_scene, deep):
+        frames = {}
+        for builder, wide in ((None, None), ("median", 1), ("sah", 8)):
+            backend = TorchRaytraceBackend(device=device, wavefront="off", bvh_builder=builder,
+                                           bvh_wide=wide, **size)
+            frames[builder, wide] = backend._renderer(name)(1)
+        default = frames[None, None]
+        for (builder, wide), image in frames.items():
+            check(torch.equal(image, default), f"{name} ({builder}, wide {wide}) differs")
+        result["builds"][name] = ["sah 4 (default)", "median 1", "sah 8"]
+    print(f"[9] masked frames of 02 and the deep scene: the median, wide=1 and the sah, wide=8 "
+          f"builds bit-equal to the default build's")
+    return result
+
+
+def quant_times(device, pool_first: dict, counters: dict, inputs: dict) -> dict:
+    """Phase 9's times: rows 3, 4 and 6 TLAS (with row 4's key pass) alone
+    under the profiler at node formats 0, 1 and 2 in turns (0, 1, 2, 2, 1,
+    0), at the main paths' widths: row 3 TLAS on frame 1 of 02 (2,097,152
+    rays), row 4 TLAS at the deep wavefront's bounce-0 launch (2,097,152
+    lanes, ``inputs``), row 6 TLAS at the mixed launch of phase 3's first
+    deep window (65,536 lanes); each beside its bound from the plain
+    version's counters at that format (row 3: phase 9's small check
+    launch; rows 4 and 6: ``quant_main_checks``'), scaled to the timed
+    width."""
+    import statistics as stats_module
+
+    from tpu_render_cluster_torch.render import kernels
+
+    trace = Trace("trace_fused_mesh_tlas", PATHS[1].scene, 1, device)
+    rays02 = frame_rays(PATHS[1].scene, 1, device)
+    deep_trace, bounce0, deep_seed = inputs["trace"], inputs["launch"], inputs["seed"]
+    window = pool_first["window"]
+    mixed = pool_first["launches"][pool_first["picked"]["mixed"]["index"]]
+    rows = {
+        "trace_fused_mesh_tlas": (lambda q: kernels.trace_paths_fused_mesh(
+            trace.scene, trace.mesh, *rays02, max_bounces=BOUNCES, quant=q), 1,
+            rays02[0].shape[0], MEGAKERNEL_RAY_BYTES),
+        "mesh_bounce_tlas": (lambda q: kernels.mesh_bounce(
+            deep_trace.scene, deep_trace.mesh, *bounce0.state, bounce0.live, deep_seed, 0,
+            total_bounces=BOUNCES, quant=q), 2, bounce0.bucket, BOUNCE_RAY_BYTES + KEY_BYTES),
+        "pool_mesh_bounce_tlas": (lambda q: kernels.pool_mesh_bounce(
+            window.ops, *mixed.state, int(mixed.live), total_bounces=BOUNCES, quant=q), 1,
+            int(mixed.live), POOL_RAY_BYTES + KEY_BYTES),
+    }
+    out: dict = {}
+    for row, (call, kernels_a_call, width, ray_bytes) in rows.items():
+        names = (row, "mesh_entry_keys") if row == "mesh_bounce_tlas" else (row,)
+        turns = []
+        for quant in (0, 1, 2, 2, 1, 0):
+            once = lambda q=quant: call(q)  # noqa: E731
+            cuda_ms(once, 2)
+            ms = stats_module.median(cuda_ms(once, 5) for _ in range(3))
+            profile = profiled(lambda: [once() for _ in range(5)], names,
+                               f"[9] {row} at format {quant}", tries=6,
+                               launches=5 * len(names))
+            turns.append({"quant": quant, "ms": ms, "alone_ms": None if profile is None else {
+                name: profile["per_kernel"][name] / 5 for name in names}})
+        entry = {"width": width, "turns": turns}
+        for quant in (0, *QUANTS):
+            mine = [t for t in turns if t["quant"] == quant]
+            alone = [t["alone_ms"] for t in mine]
+            entry[quant] = {
+                "ms": stats_module.mean(t["ms"] for t in mine),
+                "alone_ms": None if None in alone else {
+                    name: stats_module.mean(a[name] for a in alone) for name in names},
+            }
+            if row == "mesh_bounce_tlas":
+                # The key pass moves a lane's origin, direction, alive and key,
+                # and on a quantized format reads its hit slot too.
+                key_bytes = width * (KEY_PASS_RAY_BYTES + (4 if quant else 0))
+                entry[quant]["key_pass_bound_ms"] = key_bytes / MEMORY_BYTES_PER_S * 1e3
+            counted = counters.get(f"{row} {quant}")
+            if counted is not None:
+                scale = width / counted["rays"]
+                least = bound(counted["stats"], width * ray_bytes, scale)
+                entry[quant]["bound_ms"] = least["ms"]
+                entry[quant]["bound_by"] = least["by"]
+                entry[quant]["node_tests_per_ray"] = (
+                    counted["stats"].get("node_tests", 0) / counted["rays"])
+        out[row] = entry
+        print(f"[9] {row} at node formats 0, 1, 2 (alone ms under the profiler, in turns; the "
+              f"bound scaled from the check launch's counters): {json.dumps(entry)}")
+    return out
+
+
+def quant_phase(card: str, device, pool_first: dict) -> dict:
+    """Phase 9: the node formats, checked, framed and timed (the worker at
+    format 1 runs in phase 8, ``WIRE_JOBS``)."""
+    started = time.perf_counter()
+    checks = quant_kernel_checks(device)
+    print(f"[9] kernel checks at {QUANT_SIDE}x{QUANT_SIDE} in "
+          f"{time.perf_counter() - started:.1f} s")
+    main = quant_main_checks(device, pool_first)
+    print(f"[9] kernel checks at the main widths in {time.perf_counter() - started:.1f} s")
+    frames = quant_frame_checks(device, pool_first["window"].ops)
+    print(f"[9] frames in {time.perf_counter() - started:.1f} s")
+    times = quant_times(device, pool_first, {**checks["counters"], **main["counters"]},
+                        main["inputs"])
+    print(f"[9] node-format times on {card} in {time.perf_counter() - started:.1f} s")
+    checked = dict(checks["checked"])
+    for label, count in main["checked"].items():
+        checked[label] = checked.get(label, 0) + count
+    return {"checked": checked, "frames": frames, "times": times}
 
 
 def main() -> int:
@@ -3941,7 +4467,27 @@ def main() -> int:
             entry["wire_launches"] = wire["launches"][entry["name"]]
     print(f"[8] phase 8 in {time.perf_counter() - started:.1f} s")
 
-    print(f"[5] chip_smoke phases 1-8 in {time.perf_counter() - script_started:.1f} s")
+    # -- 9. the node formats (the reference's TRC_BVH_QUANT tiers) ----------
+    started = time.perf_counter()
+    formats = quant_phase(card, device, pool_first)
+    keys_alone = {
+        quant: {"alone_ms": (formats["times"]["mesh_bounce_tlas"][quant]["alone_ms"] or {}).get(
+            "mesh_entry_keys")}
+        for quant in (0, *QUANTS)
+    }
+    for entry in record["kernels"]:
+        name = entry["name"]
+        if name in formats["times"]:
+            entry["node_formats"] = formats["times"][name]
+        elif name == "mesh_entry_keys":
+            entry["node_formats"] = keys_alone
+        checked = {label: n for label, n in formats["checked"].items()
+                   if label.split(" ")[0].split("[")[0] == name}
+        if checked:
+            entry["node_format_checks"] = {"tolerance": QUANT_TOLERANCE, "launches": checked}
+    print(f"[9] phase 9 in {time.perf_counter() - started:.1f} s")
+
+    print(f"[5] chip_smoke phases 1-9 in {time.perf_counter() - script_started:.1f} s")
     print(json.dumps(record))
     print(card)
     print(json.dumps({

@@ -456,12 +456,12 @@ def _key_launch(mesh, lanes: int) -> dict:
     tables (its ``mesh_entry_keys_occupancy`` entry)."""
     frame = kernels.tlas_frame(mesh)
     occupancy = kernels._library("mesh_entry_keys").mesh_entry_keys_occupancy
-    occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int]
     occupancy.restype = ctypes.c_int
     persistent, shared, grid = (ctypes.c_int() for _ in range(3))
     blocks = occupancy(lanes, frame.slots.shape[0], frame.node_bounds.shape[0],
                        ctypes.addressof(persistent), ctypes.addressof(shared),
-                       ctypes.addressof(grid))
+                       ctypes.addressof(grid), 0)
     assert blocks > 0
     return {"persistent": bool(persistent.value), "grid": grid.value}
 

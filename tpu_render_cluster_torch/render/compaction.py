@@ -40,6 +40,7 @@ from tpu_render_cluster_torch.render.integrator import (
     _ray_sort_order,
     frame_rays_and_seed,
     region_rays_and_seed,
+    resolve_bvh_config,
 )
 from tpu_render_cluster_torch.render.mesh import MeshSet, scene_mesh_set
 from tpu_render_cluster_torch.render.scene import Scene, build_scene
@@ -87,7 +88,9 @@ def compact(origins, directions, throughput, alive, lane, mesh, keys=None):
     """The state reordered (live lanes first) by one packed gather, and the
     device count of live lanes. ``keys`` (the TLAS variant's key column):
     the order is their stable argsort (the reference's
-    ``_compact_mesh_keyed``)."""
+    ``_compact_mesh_keyed``). ``throughput`` is carried as it comes: [R, 3]
+    float32, or the quantized tiers' [R, 2] bf16 words
+    (``kernels.pack_throughput_bf16``), one column fewer in the gather."""
     if keys is not None:
         order = torch.argsort(keys, stable=True)
         live = alive.sum()
@@ -98,7 +101,7 @@ def compact(origins, directions, throughput, alive, lane, mesh, keys=None):
         live = alive.sum()
     packed = torch.cat([origins, directions, throughput], dim=1)[order]
     return (
-        packed[:, 0:3], packed[:, 3:6], packed[:, 6:9], alive[order], lane[order], live
+        packed[:, 0:3], packed[:, 3:6], packed[:, 6:], alive[order], lane[order], live
     )
 
 
@@ -113,6 +116,7 @@ def trace_paths_wavefront(
     on_launch: Callable[[WavefrontLaunch], None] | None = None,
     use_tlas: bool | None = None,
     rng_lanes: torch.Tensor | None = None,
+    quant: int | None = None,
 ) -> torch.Tensor:
     """Trace one sample per ray, wavefront-style; radiance [R, 3].
 
@@ -126,12 +130,20 @@ def trace_paths_wavefront(
     else ``FLAT_MESH_BUCKET_BLOCK``). ``rng_lanes`` (int32 [R]): each
     ray's RNG counter (a region's whole-frame lanes): each launch's
     ``lane`` argument is ``rng_lanes`` at the carried lanes, which the
-    radiance still scatters to.
+    radiance still scatters to. ``use_tlas`` and ``quant`` left None take
+    their environment tiers (``integrator.resolve_bvh_config``); at
+    ``quant`` 1 or 2 the mesh kernel reads quantized node tables and the
+    throughput column travels between launches as bf16 words
+    (``kernels.pack_throughput_bf16``: packed after each launch, unpacked
+    before the next), the reference's packed carried state.
     """
+    use_tlas, quant, _, _ = resolve_bvh_config(use_tlas, quant)
     n0 = origins.shape[0]
     device = origins.device
     radiance = torch.zeros((n0, 3), dtype=torch.float32, device=device)
     throughput = torch.ones((n0, 3), dtype=torch.float32, device=device)
+    if quant:
+        throughput = kernels.pack_throughput_bf16(throughput)
     alive = torch.ones((n0,), dtype=torch.bool, device=device)
     lane = torch.arange(n0, dtype=torch.int32, device=device)
     tlas = mesh is not None and kernels.use_tlas_for(
@@ -151,8 +163,10 @@ def trace_paths_wavefront(
             break
         bucket = bucket_for(live, cap=origins.shape[0], block=block)
         lane = lane[:bucket]
+        thr = throughput[:bucket]
         state = (
-            origins[:bucket], directions[:bucket], throughput[:bucket], alive[:bucket],
+            origins[:bucket], directions[:bucket],
+            kernels.unpack_throughput_bf16(thr) if quant else thr, alive[:bucket],
             lane if rng_lanes is None else rng_lanes[lane],
         )
         if on_launch is not None:
@@ -164,11 +178,13 @@ def trace_paths_wavefront(
         else:
             step = kernels.mesh_bounce(
                 scene, mesh, *state, live, seed, bounce, total_bounces=max_bounces,
-                use_tlas=tlas,
+                use_tlas=tlas, quant=quant,
             )
         origins, directions, throughput, alive = (
             step.origins, step.directions, step.throughput, step.alive
         )
+        if quant:
+            throughput = kernels.pack_throughput_bf16(throughput)
         keys = step.key
         radiance.index_add_(0, lane.to(torch.int64), step.contribution)
     return radiance
@@ -185,12 +201,17 @@ def render_frame_wavefront(
     device: str | torch.device | None = None,
     on_launch: Callable[[WavefrontLaunch], None] | None = None,
     use_tlas: bool | None = None,
+    quant: int | None = None,
+    builder: str | None = None,
+    wide: int | None = None,
 ) -> torch.Tensor:
     """Render one frame through the wavefront driver; [H, W, 3] linear
     radiance on ``device`` (CUDA unless ``cpu`` is asked for). The same
-    rays and trace seed as ``integrator.render_frame``; ``use_tlas`` as for
-    ``trace_paths_wavefront``."""
+    rays and trace seed as ``integrator.render_frame``; the BVH tiers
+    (None: the environment's) as for ``trace_paths_wavefront``, the build
+    ``builder`` and ``wide`` to ``scene_mesh_set``."""
     device = resolve_device(device)
+    use_tlas, quant, builder, wide = resolve_bvh_config(use_tlas, quant, builder, wide)
     scene = build_scene(scene_name, frame_index, device)
     camera = scene_camera(scene_name, frame_index, device)
     origins, directions, seed = frame_rays_and_seed(
@@ -198,8 +219,8 @@ def render_frame_wavefront(
     )
     radiance = trace_paths_wavefront(
         scene, origins, directions, seed, max_bounces=max_bounces,
-        mesh=scene_mesh_set(scene_name, frame_index, device=device), on_launch=on_launch,
-        use_tlas=use_tlas,
+        mesh=scene_mesh_set(scene_name, frame_index, builder, wide, device),
+        on_launch=on_launch, use_tlas=use_tlas, quant=quant,
     )
     return radiance.reshape(samples, height * width, 3).mean(dim=0).reshape(height, width, 3)
 
@@ -219,13 +240,17 @@ def render_region_wavefront(
     device: str | torch.device | None = None,
     on_launch: Callable[[WavefrontLaunch], None] | None = None,
     use_tlas: bool | None = None,
+    quant: int | None = None,
+    builder: str | None = None,
+    wide: int | None = None,
 ) -> torch.Tensor:
     """Render one region of a frame through the wavefront driver;
     [tile_height, tile_width, 3] linear radiance on ``device``: the region's
     rays with their whole-frame lanes as RNG counters
     (``integrator.region_rays_and_seed``), so a stitched grid of regions
-    equals ``render_frame_wavefront``'s image."""
+    equals ``render_frame_wavefront``'s image; the BVH tiers as there."""
     device = resolve_device(device)
+    use_tlas, quant, builder, wide = resolve_bvh_config(use_tlas, quant, builder, wide)
     scene = build_scene(scene_name, frame_index, device)
     camera = scene_camera(scene_name, frame_index, device)
     origins, directions, lanes, seed = region_rays_and_seed(
@@ -234,8 +259,8 @@ def render_region_wavefront(
     )
     radiance = trace_paths_wavefront(
         scene, origins, directions, seed, max_bounces=max_bounces,
-        mesh=scene_mesh_set(scene_name, frame_index, device=device), on_launch=on_launch,
-        use_tlas=use_tlas, rng_lanes=lanes,
+        mesh=scene_mesh_set(scene_name, frame_index, builder, wide, device),
+        on_launch=on_launch, use_tlas=use_tlas, rng_lanes=lanes, quant=quant,
     )
     n = tile_height * tile_width
     return radiance.reshape(samples, n, 3).mean(dim=0).reshape(tile_height, tile_width, 3)

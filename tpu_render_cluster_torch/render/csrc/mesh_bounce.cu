@@ -39,7 +39,9 @@
 // lanes of the launch, BVH_BLOCK_R): the packet's object-space octant per
 // instance, voted by the pre-pass packet_octants.cu over all its lanes
 // (mesh::Octants); the shadow walks take the sun's. Built with
-// --fmad=false.
+// --fmad=false. Node format: instantiated for the three formats of
+// mesh::Nodes (fp32, the reference's quantized tiers 1 and 2), the launch's
+// `quant` picking one.
 
 #include "mesh_common.cuh"
 
@@ -52,13 +54,13 @@ constexpr int kPacket = 1024;
 
 // kOrdered: the octant-ordered walk, `slot_votes` [P, K] the packets'
 // votes (nullptr on a one-node BVH), the node tables' rows n_node_rows.
-template <bool kOrdered>
+template <bool kOrdered, int Q>
 __global__ void __launch_bounds__(kThreads)
 mesh_bounce_kernel(const float* __restrict__ origins, const float* __restrict__ directions,
                    const float* __restrict__ throughput, const uint8_t* __restrict__ alive,
                    const int* __restrict__ lanes, int n_rays, const int* __restrict__ live_count,
                    const float4* __restrict__ spheres, int n_spheres,
-                   const float* __restrict__ params, mesh::MeshTables tables, int n_tri_rows,
+                   const float* __restrict__ params, mesh::MeshTablesOf<Q> tables, int n_tri_rows,
                    int n_node_rows, const uint8_t* __restrict__ slot_votes, bool staged,
                    uint32_t seed, int bounce, int total_bounces,
                    float* __restrict__ contribution, float* __restrict__ origins_out,
@@ -112,19 +114,19 @@ mesh_bounce_kernel(const float* __restrict__ origins, const float* __restrict__ 
 
 namespace {
 
-template <bool kOrdered>
+template <bool kOrdered, int Q>
 int launch(const float* origins, const float* directions, const float* throughput,
            const unsigned char* alive, const int* lanes, int n_rays, const int* live_count,
            const float* spheres, int n_spheres, const float* params,
-           const mesh::MeshTables& tables, int n_tri_rows, int n_node_rows,
+           const mesh::MeshTablesOf<Q>& tables, int n_tri_rows, int n_node_rows,
            const unsigned char* slot_votes, int seed, int bounce, int total_bounces,
            float* contribution, float* origins_out, float* directions_out,
            float* throughput_out, unsigned char* alive_out, cudaStream_t stream) {
-  const auto kernel = mesh_bounce_kernel<kOrdered>;
+  const auto kernel = mesh_bounce_kernel<kOrdered, Q>;
   size_t shared_bytes;
   bool staged;
   const cudaError_t status = path::staging_for(
-      kernel, mesh::table_bytes(n_tri_rows, n_node_rows, tables.n_instances), &shared_bytes,
+      kernel, mesh::table_bytes<Q>(n_tri_rows, n_node_rows, tables.n_instances), &shared_bytes,
       &staged);
   if (status != cudaSuccess) return static_cast<int>(status);
   const int blocks = (n_rays + kThreads - 1) / kThreads;
@@ -147,7 +149,9 @@ int launch(const float* origins, const float* directions, const float* throughpu
 // eight octant orders stacked, [8 n_nodes] rows) and the packets' votes per
 // instance of packet_octants.cu, [P, n_instances] (nullptr on a one-node
 // BVH). Outputs are [n_rays, 3] float32 and [n_rays] bytes and may not
-// alias the inputs.
+// alias the inputs. Last, the node format: `quant` 1 or 2, `node_bounds`
+// holds the quantized node words, `node_links` is unused and `grid` points
+// at the table's grid, 6 floats in host memory.
 extern "C" int mesh_bounce_launch(const float* origins, const float* directions,
                                   const float* throughput, const unsigned char* alive,
                                   const int* lanes, int n_rays, const int* live_count,
@@ -158,30 +162,31 @@ extern "C" int mesh_bounce_launch(const float* origins, const float* directions,
                                   int ordered, const unsigned char* slot_votes, int seed,
                                   int bounce, int total_bounces, float* contribution,
                                   float* origins_out, float* directions_out,
-                                  float* throughput_out, unsigned char* alive_out,
-                                  void* stream) {
+                                  float* throughput_out, unsigned char* alive_out, int quant,
+                                  const float* grid, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaSuccess);
   if (n_spheres < 1 || n_spheres > path::kMaxSpheres || bounce < 0 ||
       bounce >= total_bounces || n_instances < 0 || n_tri_rows < 1 || n_nodes < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const mesh::MeshTables tables = {instances,
-                                   reinterpret_cast<const float4*>(triangles),
-                                   reinterpret_cast<const float4*>(node_bounds),
-                                   reinterpret_cast<const int4*>(node_links),
-                                   n_instances,
-                                   n_nodes};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ordered) {
-    return launch<true>(origins, directions, throughput, alive, lanes, n_rays, live_count,
-                        spheres, n_spheres, params, tables, n_tri_rows, 8 * n_nodes, slot_votes,
-                        seed, bounce, total_bounces, contribution, origins_out, directions_out,
-                        throughput_out, alive_out, s);
-  }
-  return launch<false>(origins, directions, throughput, alive, lanes, n_rays, live_count,
-                       spheres, n_spheres, params, tables, n_tri_rows, n_nodes, nullptr, seed,
-                       bounce, total_bounces, contribution, origins_out, directions_out,
-                       throughput_out, alive_out, s);
+  return mesh::with_format(quant, {grid}, [&](auto format) {
+    constexpr int Q = decltype(format)::value;
+    const mesh::MeshTablesOf<Q> tables = {
+        instances, reinterpret_cast<const float4*>(triangles),
+        mesh::nodes_of<Q>(node_bounds, node_links, grid, mesh::kLeafRows), n_instances,
+        n_nodes};
+    if (ordered) {
+      return launch<true, Q>(origins, directions, throughput, alive, lanes, n_rays, live_count,
+                             spheres, n_spheres, params, tables, n_tri_rows, 8 * n_nodes,
+                             slot_votes, seed, bounce, total_bounces, contribution, origins_out,
+                             directions_out, throughput_out, alive_out, s);
+    }
+    return launch<false, Q>(origins, directions, throughput, alive, lanes, n_rays, live_count,
+                            spheres, n_spheres, params, tables, n_tri_rows, n_nodes, nullptr,
+                            seed, bounce, total_bounces, contribution, origins_out,
+                            directions_out, throughput_out, alive_out, s);
+  });
 }
 
 extern "C" const char* mesh_bounce_error_string(int code) {

@@ -51,6 +51,14 @@
 // directions, known only when all its lanes have bounced, so on this walk
 // the key is written by the pass after this kernel (mesh_entry_keys.cu) and
 // this kernel writes none. Built with --fmad=false.
+//
+// Node format: instantiated for the three formats of mesh::Nodes (fp32, the
+// reference's quantized tiers 1 and 2, 16 or 12 bytes a node staged in
+// place of 48), the launch's `quant` picking one. On a quantized tier the
+// key follows the reference's packed-key rule (pallas_kernels.py:3030-3036,
+// :3089-3102): a lane whose nearest hit was an instance keys with that slot,
+// on every bounce, and walks no entry; the ordered walk writes each lane's
+// winning slot (K for none) to `hits_out` for its key pass.
 
 #include "mesh_common.cuh"
 
@@ -72,14 +80,15 @@ struct Layout {
 };
 
 // The node tables' rows: N and M, or 8N and 8M for the octant orders.
+template <int Q>
 Layout plan(int n_tri_rows, int n_node_rows, int n_instances, int n_tlas_rows) {
   const size_t sizes[6] = {
       sizeof(float4) * 4 * static_cast<size_t>(n_tri_rows),
-      sizeof(float4) * 2 * static_cast<size_t>(n_node_rows),
-      sizeof(int4) * static_cast<size_t>(n_node_rows),
+      mesh::Nodes<Q>::part_bytes(0, n_node_rows),
+      mesh::Nodes<Q>::part_bytes(1, n_node_rows),
       sizeof(float) * mesh::kInstanceWidth * static_cast<size_t>(n_instances),
-      sizeof(float4) * 2 * static_cast<size_t>(n_tlas_rows),
-      sizeof(int4) * static_cast<size_t>(n_tlas_rows),
+      mesh::Nodes<Q>::part_bytes(0, n_tlas_rows),
+      mesh::Nodes<Q>::part_bytes(1, n_tlas_rows),
   };
   uint32_t offsets[6];
   size_t total = 0;
@@ -103,20 +112,21 @@ struct Votes {
 };
 
 // kOrdered: the octant-ordered walk (`votes`; node rows 8N and 8M), no key.
-template <int G, bool kOrdered>
+template <int G, bool kOrdered, int Q>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 mesh_bounce_tlas_kernel(const float* __restrict__ origins, const float* __restrict__ directions,
                         const float* __restrict__ throughput, const uint8_t* __restrict__ alive,
                         const int* __restrict__ lanes, int n_rays,
                         const int* __restrict__ live_count, const float4* __restrict__ spheres,
-                        int n_spheres, const float* __restrict__ params, mesh::MeshTables tables,
-                        mesh::TlasTables tlas, const float* __restrict__ key_window,
+                        int n_spheres, const float* __restrict__ params,
+                        mesh::MeshTablesOf<Q> tables, mesh::TlasTablesOf<Q> tlas,
+                        const float* __restrict__ key_window,
                         int n_tri_rows, int n_node_rows, Layout layout, Votes votes,
                         uint32_t seed, int bounce, int total_bounces,
                         float* __restrict__ contribution, float* __restrict__ origins_out,
                         float* __restrict__ directions_out, float* __restrict__ throughput_out,
                         uint8_t* __restrict__ alive_out, int* __restrict__ key_out,
-                        int* __restrict__ next_ray) {
+                        int* __restrict__ next_ray, int* __restrict__ hits_out) {
   __shared__ path::SceneShared scene;
   __shared__ uint64_t barrier;
   extern __shared__ float4 staging[];
@@ -128,24 +138,22 @@ mesh_bounce_tlas_kernel(const float* __restrict__ origins, const float* __restri
     const mesh::Range ranges[6] = {
         {smem + layout.tris, reinterpret_cast<const char*>(tables.tris),
          static_cast<uint32_t>(sizeof(float4) * 4 * n_tri_rows)},
-        {smem + layout.bounds, reinterpret_cast<const char*>(tables.bounds),
-         static_cast<uint32_t>(sizeof(float4) * 2 * n_node_rows)},
-        {smem + layout.links, reinterpret_cast<const char*>(tables.links),
-         static_cast<uint32_t>(sizeof(int4) * n_node_rows)},
+        {smem + layout.bounds, tables.nodes.part(0),
+         static_cast<uint32_t>(mesh::Nodes<Q>::part_bytes(0, n_node_rows))},
+        {smem + layout.links, tables.nodes.part(1),
+         static_cast<uint32_t>(mesh::Nodes<Q>::part_bytes(1, n_node_rows))},
         {smem + layout.slots, reinterpret_cast<const char*>(tables.inst),
          static_cast<uint32_t>(sizeof(float) * mesh::kInstanceWidth * tables.n_instances)},
-        {smem + layout.tlas_bounds, reinterpret_cast<const char*>(tlas.bounds),
-         static_cast<uint32_t>(sizeof(float4) * 2 * tlas.n_rows)},
-        {smem + layout.tlas_links, reinterpret_cast<const char*>(tlas.links),
-         static_cast<uint32_t>(sizeof(int4) * tlas.n_rows)},
+        {smem + layout.tlas_bounds, tlas.nodes.part(0),
+         static_cast<uint32_t>(mesh::Nodes<Q>::part_bytes(0, tlas.n_rows))},
+        {smem + layout.tlas_links, tlas.nodes.part(1),
+         static_cast<uint32_t>(mesh::Nodes<Q>::part_bytes(1, tlas.n_rows))},
     };
     mesh::stage_ranges(ranges, &barrier);
     tables.tris = reinterpret_cast<const float4*>(ranges[0].staged());
-    tables.bounds = reinterpret_cast<const float4*>(ranges[1].staged());
-    tables.links = reinterpret_cast<const int4*>(ranges[2].staged());
+    tables.nodes.set_parts(ranges[1].staged(), ranges[2].staged());
     tables.inst = reinterpret_cast<const float*>(ranges[3].staged());
-    tlas.bounds = reinterpret_cast<const float4*>(ranges[4].staged());
-    tlas.links = reinterpret_cast<const int4*>(ranges[5].staged());
+    tlas.nodes.set_parts(ranges[4].staged(), ranges[5].staged());
   }
   path::load_scene(scene, spheres, n_spheres, params);  // ends with __syncthreads()
 
@@ -168,22 +176,26 @@ mesh_bounce_tlas_kernel(const float* __restrict__ origins, const float* __restri
       bool is_alive = alive[ray] != 0;
       float3v rad = {0.0f, 0.0f, 0.0f};
       int candidate = tables.n_instances;
+      int hit = -1;  // the winning slot of the packed-key rule (Q > 0)
       if (is_alive && ray < live) {
         if constexpr (kOrdered) {
           const int64_t packet = ray / kPacket;
-          const mesh::GroupTlas<G, mesh::Octants> walk = {
-              g, tlas.bounds, tlas.links, 0, 0, 0, tlas.n_nodes,
+          const mesh::GroupTlas<G, mesh::Octants, Q> walk = {
+              g, tlas.nodes, 0, 0, 0, tlas.n_nodes,
               {votes.slots == nullptr ? nullptr : votes.slots + packet * tables.n_instances,
                votes.tlas[packet] * tlas.n_nodes, sun_row}};
           is_alive = mesh::bounce(scene, 0, n_spheres, tables, walk,
                                   static_cast<uint32_t>(lanes[ray]), bounce, counter_stride,
-                                  seed, o, d, thr, rad);
+                                  seed, o, d, thr, rad, Q > 0 ? &hit : nullptr);
         } else {
-          const mesh::GroupTlas<G> walk = {g, tlas.bounds, tlas.links, 0, 0, 0, tlas.n_nodes};
+          const mesh::GroupTlas<G, mesh::Canonical, Q> walk = {g, tlas.nodes, 0, 0, 0,
+                                                               tlas.n_nodes};
           is_alive = mesh::bounce(scene, 0, n_spheres, tables, walk,
                                   static_cast<uint32_t>(lanes[ray]), bounce, counter_stride,
-                                  seed, o, d, thr, rad);
-          if (is_alive && bounce < total_bounces - 1) {
+                                  seed, o, d, thr, rad, Q > 0 ? &hit : nullptr);
+          if (hit >= 0) {
+            candidate = hit;
+          } else if (is_alive && bounce < total_bounces - 1) {
             candidate = walk.entry_candidate(tables, o, d, 0, tables.n_instances);
           }
         }
@@ -196,6 +208,8 @@ mesh_bounce_tlas_kernel(const float* __restrict__ origins, const float* __restri
         alive_out[ray] = is_alive ? 1 : 0;
         if (!kOrdered) {
           key_out[ray] = mesh::coherence_key(o, d, !is_alive, 0, candidate, key_window);
+        } else if (Q > 0) {
+          hits_out[ray] = hit >= 0 ? hit : tables.n_instances;
         }
       }
     }
@@ -203,22 +217,25 @@ mesh_bounce_tlas_kernel(const float* __restrict__ origins, const float* __restri
   }
 }
 
-using Kernel = decltype(&mesh_bounce_tlas_kernel<1, false>);
+template <int Q>
+using Kernel = decltype(&mesh_bounce_tlas_kernel<1, false, Q>);
 
-// The group-G kernel of the walk order (nullptr for another G).
-template <bool kOrdered>
-Kernel kernel_of(int group) {
+// The group-G kernel of the walk order and node format (nullptr for another
+// G).
+template <bool kOrdered, int Q>
+Kernel<Q> kernel_of(int group) {
   switch (group) {
-    case 1: return mesh_bounce_tlas_kernel<1, kOrdered>;
-    case 2: return mesh_bounce_tlas_kernel<2, kOrdered>;
-    case 4: return mesh_bounce_tlas_kernel<4, kOrdered>;
-    case 8: return mesh_bounce_tlas_kernel<8, kOrdered>;
+    case 1: return mesh_bounce_tlas_kernel<1, kOrdered, Q>;
+    case 2: return mesh_bounce_tlas_kernel<2, kOrdered, Q>;
+    case 4: return mesh_bounce_tlas_kernel<4, kOrdered, Q>;
+    case 8: return mesh_bounce_tlas_kernel<8, kOrdered, Q>;
     default: return nullptr;
   }
 }
 
-Kernel kernel_for(int group, bool ordered) {
-  return ordered ? kernel_of<true>(group) : kernel_of<false>(group);
+template <int Q>
+Kernel<Q> kernel_for(int group, bool ordered) {
+  return ordered ? kernel_of<true, Q>(group) : kernel_of<false, Q>(group);
 }
 
 }  // namespace
@@ -234,6 +251,11 @@ Kernel kernel_for(int group, bool ordered) {
 // outputs the key [n_rays] int32; then the group size G (1, 2, 4 or 8
 // threads a ray) and the work counter, one int32 in device memory that no
 // other launch uses meanwhile (cleared here on `stream` before the kernel).
+// Last, the node format: `quant` 1 or 2, `node_bounds` and `tlas_bounds`
+// hold the quantized node words, the links are unused, `blas_grid` and
+// `tlas_grid` point at the tables' grids (6 floats each in host memory),
+// and on the ordered walk `hits_out` [n_rays] int32 receives each lane's
+// winning slot, K for none (the key pass's packed-key rule).
 extern "C" int mesh_bounce_tlas_launch(
     const float* origins, const float* directions, const float* throughput,
     const unsigned char* alive, const int* lanes, int n_rays, const int* live_count,
@@ -243,60 +265,69 @@ extern "C" int mesh_bounce_tlas_launch(
     int n_tlas_nodes, const float* key_window, const unsigned char* tlas_votes,
     const unsigned char* slot_votes, int seed, int bounce, int total_bounces,
     float* contribution, float* origins_out, float* directions_out, float* throughput_out,
-    unsigned char* alive_out, int* key_out, int group, int* work_counter, void* stream) {
+    unsigned char* alive_out, int* key_out, int group, int* work_counter, int quant,
+    const float* blas_grid, const float* tlas_grid, int* hits_out, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaSuccess);
+  const bool ordered = tlas_votes != nullptr;
   if (n_spheres < 1 || n_spheres > path::kMaxSpheres || bounce < 0 ||
       bounce >= total_bounces || n_instances < 1 || n_tri_rows < 1 || n_nodes < 1 ||
-      n_tlas_nodes < 1) {
+      n_tlas_nodes < 1 || (ordered && quant != 0 && hits_out == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const mesh::MeshTables tables = {instances,
-                                   reinterpret_cast<const float4*>(triangles),
-                                   reinterpret_cast<const float4*>(node_bounds),
-                                   reinterpret_cast<const int4*>(node_links),
-                                   n_instances,
-                                   n_nodes};
-  const bool ordered = tlas_votes != nullptr;
   const int orders = ordered ? 8 : 1;
-  const mesh::TlasTables tlas = {reinterpret_cast<const float4*>(tlas_bounds),
-                                 reinterpret_cast<const int4*>(tlas_links), n_tlas_nodes,
-                                 orders * n_tlas_nodes};
-  const Layout layout = plan(n_tri_rows, orders * n_nodes, n_instances, orders * n_tlas_nodes);
-  const Kernel kernel = kernel_for(group, ordered);
-  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  int resident = 0;
-  cudaError_t status = mesh::card_blocks(kernel, kThreads, layout.bytes, &resident);
-  if (status != cudaSuccess) return static_cast<int>(status);
-  // As many blocks as are resident at once, and no more than the rays need.
-  const int64_t needed = (static_cast<int64_t>(n_rays) * group + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(needed < resident ? needed : resident);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  status = cudaMemsetAsync(work_counter, 0, sizeof(int), s);
-  if (status != cudaSuccess) return static_cast<int>(status);
-  kernel<<<blocks, kThreads, layout.bytes, s>>>(
-      origins, directions, throughput, alive, lanes, n_rays, live_count,
-      reinterpret_cast<const float4*>(spheres), n_spheres, params, tables, tlas, key_window,
-      n_tri_rows, orders * n_nodes, layout, Votes{tlas_votes, slot_votes},
-      static_cast<uint32_t>(seed), bounce, total_bounces, contribution, origins_out,
-      directions_out, throughput_out, alive_out, key_out, work_counter);
-  return static_cast<int>(cudaGetLastError());
+  return mesh::with_format(quant, {blas_grid, tlas_grid}, [&](auto format) {
+    constexpr int Q = decltype(format)::value;
+    const mesh::MeshTablesOf<Q> tables = {
+        instances, reinterpret_cast<const float4*>(triangles),
+        mesh::nodes_of<Q>(node_bounds, node_links, blas_grid, mesh::kLeafRows), n_instances,
+        n_nodes};
+    const mesh::TlasTablesOf<Q> tlas = {mesh::nodes_of<Q>(tlas_bounds, tlas_links, tlas_grid, 1),
+                                        n_tlas_nodes, orders * n_tlas_nodes};
+    const Layout layout =
+        plan<Q>(n_tri_rows, orders * n_nodes, n_instances, orders * n_tlas_nodes);
+    const Kernel<Q> kernel = kernel_for<Q>(group, ordered);
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    int resident = 0;
+    cudaError_t status = mesh::card_blocks(kernel, kThreads, layout.bytes, &resident);
+    if (status != cudaSuccess) return static_cast<int>(status);
+    // As many blocks as are resident at once, and no more than the rays need.
+    const int64_t needed = (static_cast<int64_t>(n_rays) * group + kThreads - 1) / kThreads;
+    const int blocks = static_cast<int>(needed < resident ? needed : resident);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    status = cudaMemsetAsync(work_counter, 0, sizeof(int), s);
+    if (status != cudaSuccess) return static_cast<int>(status);
+    kernel<<<blocks, kThreads, layout.bytes, s>>>(
+        origins, directions, throughput, alive, lanes, n_rays, live_count,
+        reinterpret_cast<const float4*>(spheres), n_spheres, params, tables, tlas, key_window,
+        n_tri_rows, orders * n_nodes, layout, Votes{tlas_votes, slot_votes},
+        static_cast<uint32_t>(seed), bounce, total_bounces, contribution, origins_out,
+        directions_out, throughput_out, alive_out, key_out, work_counter, hits_out);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // The blocks of the group-G kernel resident on one SM at a launch of these
 // tables (`ordered`: the octant-ordered walk's kernel and tables; a
 // negative CUDA error code on failure), with the launch's dynamic shared
-// memory in *shared_bytes (0: the tables are read from global memory).
+// memory in *shared_bytes (0: the tables are read from global memory), at
+// node format `quant`.
 extern "C" int mesh_bounce_tlas_occupancy(int group, int n_instances, int n_tri_rows,
                                           int n_nodes, int n_tlas_nodes, int ordered,
-                                          int* shared_bytes) {
+                                          int* shared_bytes, int quant) {
+  if (quant < 0 || quant > 2) return -static_cast<int>(cudaErrorInvalidValue);
   const int orders = ordered ? 8 : 1;
-  const Layout layout = plan(n_tri_rows, orders * n_nodes, n_instances, orders * n_tlas_nodes);
-  *shared_bytes = static_cast<int>(layout.bytes);
-  const Kernel kernel = kernel_for(group, ordered != 0);
-  if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
-  int blocks_per_sm = 0;
-  const cudaError_t status = mesh::blocks_per_sm(kernel, kThreads, layout.bytes, &blocks_per_sm);
-  return status == cudaSuccess ? blocks_per_sm : -static_cast<int>(status);
+  return mesh::with_format(quant, {}, [&](auto format) {
+    constexpr int Q = decltype(format)::value;
+    const Layout layout =
+        plan<Q>(n_tri_rows, orders * n_nodes, n_instances, orders * n_tlas_nodes);
+    *shared_bytes = static_cast<int>(layout.bytes);
+    const Kernel<Q> kernel = kernel_for<Q>(group, ordered != 0);
+    if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+    int blocks_per_sm = 0;
+    const cudaError_t status =
+        mesh::blocks_per_sm(kernel, kThreads, layout.bytes, &blocks_per_sm);
+    return status == cudaSuccess ? blocks_per_sm : -static_cast<int>(status);
+  });
 }
 
 extern "C" const char* mesh_bounce_tlas_error_string(int code) {

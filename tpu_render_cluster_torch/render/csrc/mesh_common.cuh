@@ -39,10 +39,19 @@
 // written-out sum of three products a*b + c*d + e*f is
 // fma(e, f, fma(a, b, c * d)), each a*b - c*d is fma(a, b, -(c * d)), in
 // the object-space transform, Moller-Trumbore and the normal rotation.
+//
+// Node format: every node table (a BLAS's, a TLAS's) is read through
+// Nodes<Q>, the reference's TRC_BVH_QUANT tiers (below, at Nodes): Q = 0
+// the fp32 bounds and links, Q = 1 and 2 the quantized tables, whose boxes
+// contain the fp32 ones, so a walk over them finds the same hits. The
+// tables, the walks and the bounce take Q as a template parameter of the
+// tables (MeshTablesOf<Q>, TlasTablesOf<Q>, GroupTlas<G, Order, Q>); a
+// kernel instantiates the formats its C entry dispatches on (with_format).
 
 #pragma once
 
 #include <mutex>
+#include <type_traits>
 #include <vector>
 
 #include "path_common.cuh"
@@ -87,6 +96,151 @@ __device__ __forceinline__ bool node_box(const float4* bounds, int node, float3v
   return slab(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, o, inv, limit);
 }
 
+// ---------------------------------------------------------------------------
+// Node formats (the reference's `_read_packed_bounds` and `_read_meta`,
+// pallas_kernels.py:2080-2110). A node table in format Q:
+//   Q = 0: bounds [R, 2] float4 (lo, hi) and links [R] int4 (skip, first,
+//          count, 0), 48 bytes a node;
+//   Q = 1: one int4 a node, per axis lo | hi << 16 (16-bit slabs), then the
+//          meta word; 16 bytes;
+//   Q = 2: three ints a node, lo x | lo y << 8 | lo z << 16 | hi x << 24 and
+//          hi y | hi z << 8 (8-bit slabs), then the meta word; 12 bytes.
+// A quantized slab reconstructs as origin + float(q) * cell in float32, a
+// multiply then an add (mesh.dequantize_node_bounds, the plain version's;
+// the build's --fmad=false keeps them apart), and its box contains the fp32
+// one (mesh.quantize_node_tables). The meta word: skip [0:16), first / unit
+// [16:27), count [27:32), `unit` the alignment of first (a BLAS's leaf rows,
+// kLeafRows; a TLAS's slots, 1). A table stages as two parts: the fp32
+// bounds and links, or the quantized words and nothing.
+
+constexpr int kLeafRows = 16;  // mesh.LEAF_SIZE
+
+__host__ __device__ inline size_t round16(size_t bytes) { return (bytes + 15) / 16 * 16; }
+
+template <int Q>
+struct Nodes {
+  static_assert(Q == 1 || Q == 2, "the node formats are 0, 1 and 2");
+  static constexpr int kWords = Q == 1 ? 4 : 3;
+  const int* words;  // [R, kWords]
+  float ox, oy, oz;  // the grid's origin
+  float cx, cy, cz;  // and cell
+  int unit;
+
+  __host__ __device__ static size_t part_bytes(int part, size_t rows) {
+    return part == 0 ? sizeof(int) * kWords * rows : 0;
+  }
+  __host__ __device__ const char* part(int i) const {
+    return i == 0 ? reinterpret_cast<const char*>(words) : nullptr;
+  }
+  __host__ __device__ void set_parts(const char* words_at, const char*) {
+    words = reinterpret_cast<const int*>(words_at);
+  }
+  // (skip, first, count, 0) of node n.
+  __device__ __forceinline__ int4 link(int n) const {
+    const int m = words[kWords * n + kWords - 1];
+    return make_int4(m & 0xFFFF, ((m >> 16) & 0x7FF) * unit, (m >> 27) & 0x1F, 0);
+  }
+  __device__ __forceinline__ static float slab_of(float origin, int q, float cell) {
+    return __fadd_rn(origin, __fmul_rn(__int2float_rn(q), cell));
+  }
+  __device__ __forceinline__ void corners(int n, float3v& lo, float3v& hi) const {
+    int qlx, qly, qlz, qhx, qhy, qhz;
+    if constexpr (Q == 1) {
+      const int4 w = reinterpret_cast<const int4*>(words)[n];
+      qlx = w.x & 0xFFFF;
+      qhx = (w.x >> 16) & 0xFFFF;
+      qly = w.y & 0xFFFF;
+      qhy = (w.y >> 16) & 0xFFFF;
+      qlz = w.z & 0xFFFF;
+      qhz = (w.z >> 16) & 0xFFFF;
+    } else {
+      const int w0 = words[3 * n];
+      const int w1 = words[3 * n + 1];
+      qlx = w0 & 0xFF;
+      qly = (w0 >> 8) & 0xFF;
+      qlz = (w0 >> 16) & 0xFF;
+      qhx = (w0 >> 24) & 0xFF;
+      qhy = w1 & 0xFF;
+      qhz = (w1 >> 8) & 0xFF;
+    }
+    lo = {slab_of(ox, qlx, cx), slab_of(oy, qly, cy), slab_of(oz, qlz, cz)};
+    hi = {slab_of(ox, qhx, cx), slab_of(oy, qhy, cy), slab_of(oz, qhz, cz)};
+  }
+  __device__ __forceinline__ bool box(int n, float3v o, float3v inv, float limit) const {
+    float3v lo, hi;
+    corners(n, lo, hi);
+    return slab(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, o, inv, limit);
+  }
+};
+
+template <>
+struct Nodes<0> {
+  const float4* bounds;  // [R, 2]: lo, hi
+  const int4* links;  // [R]: skip, first, count, 0
+
+  __host__ __device__ static size_t part_bytes(int part, size_t rows) {
+    return (part == 0 ? 2 * sizeof(float4) : sizeof(int4)) * rows;
+  }
+  __host__ __device__ const char* part(int i) const {
+    return i == 0 ? reinterpret_cast<const char*>(bounds) : reinterpret_cast<const char*>(links);
+  }
+  __host__ __device__ void set_parts(const char* bounds_at, const char* links_at) {
+    bounds = reinterpret_cast<const float4*>(bounds_at);
+    links = reinterpret_cast<const int4*>(links_at);
+  }
+  __device__ __forceinline__ int4 link(int n) const { return links[n]; }
+  __device__ __forceinline__ bool box(int n, float3v o, float3v inv, float limit) const {
+    return node_box(bounds, n, o, inv, limit);
+  }
+};
+
+// A node table in format Q from a C entry's arguments: the fp32 bounds and
+// links, or the quantized words and the grid (6 floats in host memory:
+// origin, cell) with the alignment of `first`.
+template <int Q>
+inline Nodes<Q> nodes_of(const void* table, const int* links, const float* grid, int unit) {
+  if constexpr (Q == 0) {
+    return {static_cast<const float4*>(table), reinterpret_cast<const int4*>(links)};
+  } else {
+    return {static_cast<const int*>(table), grid[0], grid[1], grid[2], grid[3], grid[4], grid[5],
+            unit};
+  }
+}
+
+// The node format of a launch as a compile-time constant: f(format), its
+// ::value the format, for quant 0, 1 or 2; cudaErrorInvalidValue for any
+// other, and for a quantized format without its grids (each of `grids`
+// nonzero).
+template <typename F>
+inline int with_format(int quant, std::initializer_list<const float*> grids, F&& f) {
+  if (quant != 0) {
+    for (const float* grid : grids) {
+      if (grid == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (quant) {
+    case 0: return f(std::integral_constant<int, 0>());
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Copy `bytes` (a multiple of 4) from src to dst (16-byte aligned) with the
+// block's threads: as float4s where src is 16-byte aligned and the size a
+// multiple of 16, else word by word.
+__device__ __forceinline__ void copy_words(char* dst, const char* src, size_t bytes) {
+  if ((bytes & 15u) == 0 && (reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
+    for (size_t i = threadIdx.x; i < bytes / 16; i += blockDim.x) {
+      reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
+    }
+  } else {
+    for (size_t i = threadIdx.x; i < bytes / 4; i += blockDim.x) {
+      reinterpret_cast<int*>(dst)[i] = reinterpret_cast<const int*>(src)[i];
+    }
+  }
+}
+
 // The octant of a direction: bit i set where component i is positive (0.0
 // and -0.0 give 0); the vote of a packet of one lane, the uniform sun's.
 __device__ __forceinline__ int octant_of(float3v v) {
@@ -127,46 +281,51 @@ __device__ __forceinline__ bool triangle_hit(const float4* row, float3v o, float
   return fabsf(det) > kDetEps && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > path::kEps;
 }
 
-struct MeshTables {
+template <int Q>
+struct MeshTablesOf {
   const float* inst;  // [K, 22]
   const float4* tris;  // [T, 4]: v0, e1, e2, normal
-  const float4* bounds;  // [N, 2]: lo, hi
-  const int4* links;  // [N]: skip, first, count, 0
+  Nodes<Q> nodes;  // [N] (8N: the octant tables)
   int n_instances;
   int n_nodes;
 };
 
+using MeshTables = MeshTablesOf<0>;
+
 // Bytes of the tables staged in shared memory, in stage_tables' layout
 // (path::staging_for decides whether they are).
+template <int Q = 0>
 __host__ __device__ inline size_t table_bytes(int n_tri_rows, int n_nodes, int n_instances) {
-  return sizeof(float4) * (4 * static_cast<size_t>(n_tri_rows) + 2 * static_cast<size_t>(n_nodes)) +
-         sizeof(int4) * static_cast<size_t>(n_nodes) +
+  return sizeof(float4) * 4 * static_cast<size_t>(n_tri_rows) +
+         round16(Nodes<Q>::part_bytes(0, n_nodes)) + round16(Nodes<Q>::part_bytes(1, n_nodes)) +
          sizeof(float) * kInstanceWidth * static_cast<size_t>(n_instances);
 }
 
-// Copy the tables into `staging` (layout: triangle rows, node bounds, node
-// links, instance table) and point `m` at the copies; `n_node_rows` rows of
-// node tables (8N: the octant tables). Every thread of the block takes part;
-// the caller synchronises before the tables are read.
-__device__ __forceinline__ void stage_tables(MeshTables& m, float4* staging, int n_tri_rows,
+// Copy the tables into `staging` (layout: triangle rows, the node table's
+// two parts, each from a 16-byte boundary, instance table) and point `m` at
+// the copies; `n_node_rows` rows of node tables (8N: the octant tables).
+// Every thread of the block takes part; the caller synchronises before the
+// tables are read.
+template <int Q>
+__device__ __forceinline__ void stage_tables(MeshTablesOf<Q>& m, float4* staging, int n_tri_rows,
                                              int n_node_rows) {
   float4* tris = staging;
-  float4* bounds = tris + 4 * n_tri_rows;
-  int4* links = reinterpret_cast<int4*>(bounds + 2 * n_node_rows);
-  float* inst = reinterpret_cast<float*>(links + n_node_rows);
+  char* part0 = reinterpret_cast<char*>(tris + 4 * n_tri_rows);
+  char* part1 = part0 + round16(Nodes<Q>::part_bytes(0, n_node_rows));
+  float* inst = reinterpret_cast<float*>(part1 + round16(Nodes<Q>::part_bytes(1, n_node_rows)));
   for (int i = threadIdx.x; i < 4 * n_tri_rows; i += blockDim.x) tris[i] = m.tris[i];
-  for (int i = threadIdx.x; i < 2 * n_node_rows; i += blockDim.x) bounds[i] = m.bounds[i];
-  for (int i = threadIdx.x; i < n_node_rows; i += blockDim.x) links[i] = m.links[i];
+  copy_words(part0, m.nodes.part(0), Nodes<Q>::part_bytes(0, n_node_rows));
+  copy_words(part1, m.nodes.part(1), Nodes<Q>::part_bytes(1, n_node_rows));
   for (int i = threadIdx.x; i < kInstanceWidth * m.n_instances; i += blockDim.x) {
     inst[i] = m.inst[i];
   }
   m.tris = tris;
-  m.bounds = bounds;
-  m.links = links;
+  m.nodes.set_parts(part0, part1);
   m.inst = inst;
 }
 
-__device__ __forceinline__ void stage_tables(MeshTables& m, float4* staging, int n_tri_rows) {
+template <int Q>
+__device__ __forceinline__ void stage_tables(MeshTablesOf<Q>& m, float4* staging, int n_tri_rows) {
   stage_tables(m, staging, n_tri_rows, m.n_nodes);
 }
 
@@ -185,8 +344,12 @@ struct MeshHit {
 // Canonical: one table, entered at its root (a BVH without octant tables,
 // and the scan's unit kernels, whose reference reads none).
 struct Canonical {
-  __device__ __forceinline__ int2 blas(const MeshTables&, int) const { return {0, 0}; }
-  __device__ __forceinline__ int2 blas_sun(const MeshTables&, float3v) const { return {0, 0}; }
+  template <int Q>
+  __device__ __forceinline__ int2 blas(const MeshTablesOf<Q>&, int) const { return {0, 0}; }
+  template <int Q>
+  __device__ __forceinline__ int2 blas_sun(const MeshTablesOf<Q>&, float3v) const {
+    return {0, 0};
+  }
   __device__ __forceinline__ int tlas() const { return 0; }
   __device__ __forceinline__ int tlas_sun() const { return 0; }
 };
@@ -202,11 +365,13 @@ struct Octants {
   const uint8_t* slot_octants;
   int tlas_row;
   int tlas_sun_row;
-  __device__ __forceinline__ int2 blas(const MeshTables& m, int k) const {
+  template <int Q>
+  __device__ __forceinline__ int2 blas(const MeshTablesOf<Q>& m, int k) const {
     const int octant = slot_octants == nullptr ? 0 : slot_octants[k];
     return {octant * m.n_nodes, m.n_nodes > 1 ? 1 : 0};
   }
-  __device__ __forceinline__ int2 blas_sun(const MeshTables& m, float3v ld) const {
+  template <int Q>
+  __device__ __forceinline__ int2 blas_sun(const MeshTablesOf<Q>& m, float3v ld) const {
     return {octant_of(ld) * m.n_nodes, m.n_nodes > 1 ? 1 : 0};
   }
   __device__ __forceinline__ int tlas() const { return tlas_row; }
@@ -219,14 +384,15 @@ struct Octants {
 // reads add the base), each culled by its box against best.t, and each
 // triangle hit strictly nearer than best.t makes best = {t, instance, row}
 // (the first row of a leaf reaching the minimum wins).
-__device__ __forceinline__ void blas_nearest(const MeshTables& m, float3v lo, float3v ld,
+template <int Q>
+__device__ __forceinline__ void blas_nearest(const MeshTablesOf<Q>& m, float3v lo, float3v ld,
                                              int instance, MeshHit& best, int base = 0,
                                              int entry = 0) {
   const float3v linv = winv3(ld);
   int node = entry;
   while (node < m.n_nodes) {
-    const int4 link = m.links[base + node];
-    if (!node_box(m.bounds, base + node, lo, linv, best.t)) {
+    const int4 link = m.nodes.link(base + node);
+    if (!m.nodes.box(base + node, lo, linv, best.t)) {
       node = link.x;
     } else if (link.z > 0) {
       for (int r = link.y; r < link.y + link.z; ++r) {
@@ -243,16 +409,16 @@ __device__ __forceinline__ void blas_nearest(const MeshTables& m, float3v lo, fl
 // Any triangle of the BVH ahead of the object-space ray (lo, ld) (t > EPS,
 // unbounded)? The walk ends at the first one found; it takes the table of
 // order.blas_sun(m, ld).
-template <typename Order = Canonical>
-__device__ __forceinline__ bool blas_occluded(const MeshTables& m, float3v lo, float3v ld,
+template <typename Order = Canonical, int Q = 0>
+__device__ __forceinline__ bool blas_occluded(const MeshTablesOf<Q>& m, float3v lo, float3v ld,
                                               const Order& order = Order()) {
   const int2 at = order.blas_sun(m, ld);
   const int base = at.x;
   const float3v linv = winv3(ld);
   int node = at.y;
   while (node < m.n_nodes) {
-    const int4 link = m.links[base + node];
-    if (!node_box(m.bounds, base + node, lo, linv, path::kInf)) {
+    const int4 link = m.nodes.link(base + node);
+    if (!m.nodes.box(base + node, lo, linv, path::kInf)) {
       node = link.x;
     } else if (link.z > 0) {
       for (int r = link.y; r < link.y + link.z; ++r) {
@@ -269,9 +435,10 @@ __device__ __forceinline__ bool blas_occluded(const MeshTables& m, float3v lo, f
 
 // Nearest hit over instances [first, first + count), seeded with t_seed
 // (strict < updates); `instance` is the winning row of the whole table.
-template <typename Order = Canonical>
-__device__ __forceinline__ MeshHit nearest(const MeshTables& m, int first, int count, float3v o,
-                                           float3v d, float t_seed, const Order& order = Order()) {
+template <typename Order = Canonical, int Q = 0>
+__device__ __forceinline__ MeshHit nearest(const MeshTablesOf<Q>& m, int first, int count,
+                                           float3v o, float3v d, float t_seed,
+                                           const Order& order = Order()) {
   MeshHit best = {t_seed, -1, 0};
   const float3v inv = winv3(d);
   for (int k = first; k < first + count; ++k) {
@@ -286,9 +453,9 @@ __device__ __forceinline__ MeshHit nearest(const MeshTables& m, int first, int c
 
 // Any triangle of instances [first, first + count) ahead of the shadow
 // origin along `sun` (the sun's direction, or a unit kernel's ray's own)?
-template <typename Order = Canonical>
-__device__ __forceinline__ bool occluded(const MeshTables& m, int first, int count, float3v so,
-                                         float3v sun, const Order& order = Order()) {
+template <typename Order = Canonical, int Q = 0>
+__device__ __forceinline__ bool occluded(const MeshTablesOf<Q>& m, int first, int count,
+                                         float3v so, float3v sun, const Order& order = Order()) {
   const float3v inv = winv3(sun);
   for (int k = first; k < first + count; ++k) {
     const float* inst = m.inst + kInstanceWidth * k;
@@ -307,11 +474,14 @@ struct FlatInstances {
   int first;
   int count;
   Order order;
-  __device__ __forceinline__ MeshHit nearest(const MeshTables& m, float3v o, float3v d,
+  template <int Q>
+  __device__ __forceinline__ MeshHit nearest(const MeshTablesOf<Q>& m, float3v o, float3v d,
                                              float t_seed) const {
     return mesh::nearest(m, first, count, o, d, t_seed, order);
   }
-  __device__ __forceinline__ bool occluded(const MeshTables& m, float3v so, float3v sun) const {
+  template <int Q>
+  __device__ __forceinline__ bool occluded(const MeshTablesOf<Q>& m, float3v so,
+                                           float3v sun) const {
     return mesh::occluded(m, first, count, so, sun, order);
   }
 };
@@ -322,48 +492,27 @@ struct FlatInstances {
 // (kernels.tlas_links: a pool stacks one window of nodes per frame, its
 // skip links and leaf starts offset into the stacked rows).
 
-struct TlasTables {
-  const float4* bounds;  // [M, 2]: lo, hi
-  const int4* links;  // [M]: skip, first slot, slot count, 0
+template <int Q>
+struct TlasTablesOf {
+  Nodes<Q> nodes;  // [M]; a leaf's first and count are its slot range
   int n_nodes;  // M (a pool: per frame)
   int n_rows;  // the stacked rows (a pool: frames x M)
 };
 
-// The staged tables: the mesh tables (stage_tables, `n_node_rows` rows of
-// node tables), then at the next 16-byte boundary the TLAS's bounds and
-// links.
-__host__ __device__ inline size_t tlas_offset(int n_tri_rows, int n_node_rows, int n_instances) {
-  return (table_bytes(n_tri_rows, n_node_rows, n_instances) + 15) / 16;  // in float4
-}
-
-__host__ __device__ inline size_t two_level_bytes(int n_tri_rows, int n_node_rows,
-                                                  int n_instances, int n_tlas_rows) {
-  return sizeof(float4) * tlas_offset(n_tri_rows, n_node_rows, n_instances) +
-         (2 * sizeof(float4) + sizeof(int4)) * static_cast<size_t>(n_tlas_rows);
-}
-
-__device__ __forceinline__ void stage_two_level(MeshTables& m, TlasTables& t, float4* staging,
-                                                int n_tri_rows, int n_node_rows) {
-  float4* bounds = staging + tlas_offset(n_tri_rows, n_node_rows, m.n_instances);
-  int4* links = reinterpret_cast<int4*>(bounds + 2 * t.n_rows);
-  stage_tables(m, staging, n_tri_rows, n_node_rows);
-  for (int i = threadIdx.x; i < 2 * t.n_rows; i += blockDim.x) bounds[i] = t.bounds[i];
-  for (int i = threadIdx.x; i < t.n_rows; i += blockDim.x) links[i] = t.links[i];
-  t.bounds = bounds;
-  t.links = links;
-}
+using TlasTables = TlasTablesOf<0>;
 
 // THE threaded walk of nodes [node, node_end), shared by the nearest and
 // the shadow walks (the reference's `tlas_walk`): a node whose box
 // the ray misses, or enters at or past limit(), is skipped with its subtree;
 // a leaf's slot range goes to leaf(first, end), which returns true to end
 // the walk. The nodes are read at rows `base` + node (an octant table).
-template <typename Limit, typename Leaf>
-__device__ __forceinline__ void tlas_walk(const TlasTables& t, int node, int node_end, float3v o,
-                                          float3v inv, Limit limit, Leaf leaf, int base = 0) {
+template <int Q, typename Limit, typename Leaf>
+__device__ __forceinline__ void tlas_walk(const TlasTablesOf<Q>& t, int node, int node_end,
+                                          float3v o, float3v inv, Limit limit, Leaf leaf,
+                                          int base = 0) {
   while (node < node_end) {
-    const int4 link = t.links[base + node];
-    if (!node_box(t.bounds, base + node, o, inv, limit())) {
+    const int4 link = t.nodes.link(base + node);
+    if (!t.nodes.box(base + node, o, inv, limit())) {
       node = link.x;
     } else if (link.z > 0) {
       if (leaf(link.y, link.y + link.z)) return;
@@ -375,16 +524,16 @@ __device__ __forceinline__ void tlas_walk(const TlasTables& t, int node, int nod
 }
 
 // The two-level walk over nodes [node0, node_end).
-template <typename Order = Canonical>
+template <typename Order = Canonical, int Q = 0>
 struct TlasInstances {
-  TlasTables tlas;
+  TlasTablesOf<Q> tlas;
   int node0;
   int node_end;
   Order order;
 
   // Nearest hit, seeded with t_seed: each node culled by its box against
   // best.t, then a leaf's slots as the flat sweep tests an instance.
-  __device__ __forceinline__ MeshHit nearest(const MeshTables& m, float3v o, float3v d,
+  __device__ __forceinline__ MeshHit nearest(const MeshTablesOf<Q>& m, float3v o, float3v d,
                                              float t_seed) const {
     MeshHit best = {t_seed, -1, 0};
     const float3v inv = winv3(d);
@@ -406,7 +555,8 @@ struct TlasInstances {
 
   // Any triangle ahead of the shadow origin along `sun`: unbounded node
   // tests, the walk ending at the first occluder.
-  __device__ __forceinline__ bool occluded(const MeshTables& m, float3v so, float3v sun) const {
+  __device__ __forceinline__ bool occluded(const MeshTablesOf<Q>& m, float3v so,
+                                           float3v sun) const {
     const float3v inv = winv3(sun);
     bool hit = false;
     tlas_walk(
@@ -464,19 +614,23 @@ __device__ __forceinline__ int coherence_key(float3v o, float3v d, bool dead, in
 // Same contract as path::sphere_bounce: adds into rad, advances o, d and
 // thr, and returns false (leaving o, d and thr) when the path escaped. The
 // path sees spheres [sphere_first, sphere_first + n_spheres) and the
-// instances `instances` walks (FlatInstances or TlasInstances).
-template <typename Scene, typename Instances>
+// instances `instances` walks (FlatInstances or TlasInstances, or a group
+// walk). `hit_instance`, where given, receives the instance row of m that
+// the nearest hit took, -1 where no instance won (the packed-key rule's
+// slot).
+template <typename Scene, int Q, typename Instances>
 __device__ __forceinline__ bool bounce(const Scene& scene, int sphere_first, int n_spheres,
-                                       const MeshTables& mesh, const Instances& instances,
+                                       const MeshTablesOf<Q>& mesh, const Instances& instances,
                                        uint32_t lane, int bounce_index, uint32_t counter_stride,
                                        uint32_t seed, float3v& o, float3v& d, float3v& thr,
-                                       float3v& rad) {
+                                       float3v& rad, int* hit_instance = nullptr) {
   const float3v sun = {scene.params[0], scene.params[1], scene.params[2]};
   int idx;
   const float t_sphere = path::nearest_sphere(scene, sphere_first, n_spheres, o, d, &idx);
   const float t_plane = path::plane_hit(o, d);
   const float t_sp = fminf(t_sphere, t_plane);
   const MeshHit hit = instances.nearest(mesh, o, d, t_sp);
+  if (hit_instance != nullptr) *hit_instance = hit.instance;
   const bool is_mesh = hit.instance >= 0;
   const bool is_plane = !is_mesh && t_plane < t_sphere;
   const float t = is_mesh ? hit.t : t_sp;
@@ -554,8 +708,9 @@ __device__ __forceinline__ int block_octant(float3v d, int* counters, int round)
 // shared memory, are zero on entry and on return. Each warp sums a row's
 // positive components (the three axes in fields of 10 bits of one sum) and
 // adds them in.
-__device__ __forceinline__ void block_instance_octants(const MeshTables& m, float3v d, int* counts,
-                                                       uint8_t* octants) {
+template <int Q>
+__device__ __forceinline__ void block_instance_octants(const MeshTablesOf<Q>& m, float3v d,
+                                                       int* counts, uint8_t* octants) {
   const bool leader = (threadIdx.x & 31u) == 0;
   for (int k = 0; k < m.n_instances; ++k) {
     const float3v od = to_object(m.inst + kInstanceWidth * k, d.x, d.y, d.z);
@@ -793,15 +948,15 @@ struct Group {
 };
 
 // blas_nearest with the group: best is the group's on entry and on return.
-template <int G>
-__device__ __forceinline__ void group_blas_nearest(const Group<G>& g, const MeshTables& m,
+template <int G, int Q>
+__device__ __forceinline__ void group_blas_nearest(const Group<G>& g, const MeshTablesOf<Q>& m,
                                                    float3v lo, float3v ld, int instance,
                                                    MeshHit& best, int base = 0, int entry = 0) {
   const float3v linv = winv3(ld);
   int node = entry;
   while (node < m.n_nodes) {
-    const int4 link = m.links[base + node];
-    if (!node_box(m.bounds, base + node, lo, linv, best.t)) {
+    const int4 link = m.nodes.link(base + node);
+    if (!m.nodes.box(base + node, lo, linv, best.t)) {
       node = link.x;
     } else if (link.z > 0) {
       MeshHit mine = best;
@@ -819,8 +974,8 @@ __device__ __forceinline__ void group_blas_nearest(const Group<G>& g, const Mesh
 }
 
 // blas_occluded with the group.
-template <int G, typename Order = Canonical>
-__device__ __forceinline__ bool group_blas_occluded(const Group<G>& g, const MeshTables& m,
+template <int G, typename Order = Canonical, int Q = 0>
+__device__ __forceinline__ bool group_blas_occluded(const Group<G>& g, const MeshTablesOf<Q>& m,
                                                     float3v lo, float3v ld,
                                                     const Order& order = Order()) {
   const int2 at = order.blas_sun(m, ld);
@@ -828,8 +983,8 @@ __device__ __forceinline__ bool group_blas_occluded(const Group<G>& g, const Mes
   const float3v linv = winv3(ld);
   int node = at.y;
   while (node < m.n_nodes) {
-    const int4 link = m.links[base + node];
-    if (!node_box(m.bounds, base + node, lo, linv, path::kInf)) {
+    const int4 link = m.nodes.link(base + node);
+    if (!m.nodes.box(base + node, lo, linv, path::kInf)) {
       node = link.x;
     } else if (link.z > 0) {
       bool hit = false;
@@ -864,8 +1019,8 @@ __device__ __forceinline__ void slot_box(const float* inst, float3v o, float3v i
 // (slot_box, no limit), then the group enters the chunk's reached slots in
 // order, each against the group's best t so far. Slot k's row is at
 // m.inst + 22 (k - slot_base); a hit's `instance` is k - slot_base.
-template <int G, typename Order = Canonical>
-__device__ __forceinline__ void group_slots_nearest(const Group<G>& g, const MeshTables& m,
+template <int G, typename Order = Canonical, int Q = 0>
+__device__ __forceinline__ void group_slots_nearest(const Group<G>& g, const MeshTablesOf<Q>& m,
                                                     int first, int end, int slot_base, float3v o,
                                                     float3v d, float3v inv, MeshHit& best,
                                                     const Order& order = Order()) {
@@ -888,8 +1043,8 @@ __device__ __forceinline__ void group_slots_nearest(const Group<G>& g, const Mes
 }
 
 // The any-hit over slots [first, end) by a group: true at the first occluder.
-template <int G, typename Order = Canonical>
-__device__ __forceinline__ bool group_slots_occluded(const Group<G>& g, const MeshTables& m,
+template <int G, typename Order = Canonical, int Q = 0>
+__device__ __forceinline__ bool group_slots_occluded(const Group<G>& g, const MeshTablesOf<Q>& m,
                                                      int first, int end, int slot_base,
                                                      float3v so, float3v sun, float3v inv,
                                                      const Order& order = Order()) {
@@ -922,7 +1077,8 @@ struct GroupFlat {
   int first;
   int count;
 
-  __device__ __forceinline__ MeshHit nearest(const MeshTables& m, float3v o, float3v d,
+  template <int Q>
+  __device__ __forceinline__ MeshHit nearest(const MeshTablesOf<Q>& m, float3v o, float3v d,
                                              float t_seed) const {
     if constexpr (G == 1) {
       return mesh::nearest(m, first, count, o, d, t_seed);
@@ -933,7 +1089,9 @@ struct GroupFlat {
     }
   }
 
-  __device__ __forceinline__ bool occluded(const MeshTables& m, float3v so, float3v sun) const {
+  template <int Q>
+  __device__ __forceinline__ bool occluded(const MeshTablesOf<Q>& m, float3v so,
+                                           float3v sun) const {
     if constexpr (G == 1) {
       return mesh::occluded(m, first, count, so, sun);
     } else {
@@ -943,35 +1101,34 @@ struct GroupFlat {
 };
 
 // The two-level walk of one frame's TLAS window by a group: nodes [node0,
-// node_end) of the stacked TLAS rows, node n at bounds/links[n - node_base]
-// (an octant table's: at order.tlas() + n - node_base); slot k's row at
-// mesh.inst + 22 (k - slot_base). A staged copy of a range of frames sets
+// node_end) of the stacked TLAS rows, node n at row n - node_base of
+// `nodes` (an octant table's: at order.tlas() + n - node_base); slot k's row
+// at mesh.inst + 22 (k - slot_base). A staged copy of a range of frames sets
 // the bases to its first frame's rows; a hit's `instance` is k - slot_base,
 // the row of mesh.inst that mesh::bounce shades.
-template <int G, typename Order = Canonical>
+template <int G, typename Order = Canonical, int Q = 0>
 struct GroupTlas {
   Group<G> g;
-  const float4* bounds;
-  const int4* links;
+  Nodes<Q> nodes;
   int node_base;
   int slot_base;
   int node0;
   int node_end;
   Order order;
 
-  __device__ __forceinline__ const float* slot(const MeshTables& m, int k) const {
+  __device__ __forceinline__ const float* slot(const MeshTablesOf<Q>& m, int k) const {
     return m.inst + kInstanceWidth * (k - slot_base);
   }
 
-  __device__ __forceinline__ MeshHit nearest(const MeshTables& m, float3v o, float3v d,
+  __device__ __forceinline__ MeshHit nearest(const MeshTablesOf<Q>& m, float3v o, float3v d,
                                              float t_seed) const {
     MeshHit best = {t_seed, -1, 0};
     const float3v inv = winv3(d);
     const int row = order.tlas() - node_base;
     int node = node0;
     while (node < node_end) {
-      const int4 link = links[row + node];
-      if (!node_box(bounds, row + node, o, inv, best.t)) {
+      const int4 link = nodes.link(row + node);
+      if (!nodes.box(row + node, o, inv, best.t)) {
         node = link.x;
         continue;
       }
@@ -981,13 +1138,14 @@ struct GroupTlas {
     return best;
   }
 
-  __device__ __forceinline__ bool occluded(const MeshTables& m, float3v so, float3v sun) const {
+  __device__ __forceinline__ bool occluded(const MeshTablesOf<Q>& m, float3v so,
+                                           float3v sun) const {
     const float3v inv = winv3(sun);
     const int row = order.tlas_sun() - node_base;
     int node = node0;
     while (node < node_end) {
-      const int4 link = links[row + node];
-      if (!node_box(bounds, row + node, so, inv, path::kInf)) {
+      const int4 link = nodes.link(row + node);
+      if (!nodes.box(row + node, so, inv, path::kInf)) {
         node = link.x;
         continue;
       }
@@ -1006,7 +1164,7 @@ struct GroupTlas {
   // culled against the best entry so far; no BVH is entered. The nodes are
   // read at rows `tlas_row` + n - node_base (the entry walk's own octant
   // table; 0: canonical).
-  __device__ __forceinline__ int entry_candidate(const MeshTables& m, float3v o, float3v d,
+  __device__ __forceinline__ int entry_candidate(const MeshTablesOf<Q>& m, float3v o, float3v d,
                                                  int slot_offset, int sentinel,
                                                  int tlas_row = 0) const {
     const float3v inv = winv3(d);
@@ -1015,8 +1173,8 @@ struct GroupTlas {
     int best = sentinel;
     int node = node0;
     while (node < node_end) {
-      const int4 link = links[row + node];
-      if (!node_box(bounds, row + node, o, inv, best_entry)) {
+      const int4 link = nodes.link(row + node);
+      if (!nodes.box(row + node, o, inv, best_entry)) {
         node = link.x;
         continue;
       }
@@ -1091,17 +1249,16 @@ __device__ __forceinline__ void stage_mesh(MeshTables& m, int n_tri_rows, const 
   const Range ranges[4] = {
       {smem + plan.offset[0], reinterpret_cast<const char*>(m.tris),
        static_cast<uint32_t>(sizeof(float4) * 4 * n_tri_rows)},
-      {smem + plan.offset[1], reinterpret_cast<const char*>(m.bounds),
-       static_cast<uint32_t>(sizeof(float4) * 2 * m.n_nodes)},
-      {smem + plan.offset[2], reinterpret_cast<const char*>(m.links),
-       static_cast<uint32_t>(sizeof(int4) * m.n_nodes)},
+      {smem + plan.offset[1], m.nodes.part(0),
+       static_cast<uint32_t>(Nodes<0>::part_bytes(0, m.n_nodes))},
+      {smem + plan.offset[2], m.nodes.part(1),
+       static_cast<uint32_t>(Nodes<0>::part_bytes(1, m.n_nodes))},
       {smem + plan.offset[3], reinterpret_cast<const char*>(m.inst),
        static_cast<uint32_t>(sizeof(float) * kInstanceWidth * m.n_instances)},
   };
   stage_ranges(ranges, barrier);
   m.tris = reinterpret_cast<const float4*>(ranges[0].staged());
-  m.bounds = reinterpret_cast<const float4*>(ranges[1].staged());
-  m.links = reinterpret_cast<const int4*>(ranges[2].staged());
+  m.nodes.set_parts(ranges[1].staged(), ranges[2].staged());
   m.inst = reinterpret_cast<const float*>(ranges[3].staged());
 }
 

@@ -61,6 +61,15 @@
 // lanes finish, a packet split over 2-8 blocks, the node rows read through
 // L1, the next packet fetched ahead; and each mode alone at every width.
 // Built with --fmad=false.
+//
+// Node format: instantiated for the three formats of mesh::Nodes (fp32, the
+// reference's quantized tiers 1 and 2: the eight octant tables staged at 16
+// or 12 bytes a node in place of 48), the launch's `quant` picking one. On
+// a quantized tier the key follows the reference's packed-key rule
+// (pallas_kernels.py:3030-3036, :3089-3102), from the bounce's `hits`
+// column (each lane's winning slot, K for none): a lane with a hit keys
+// with it, on every bounce and past the live count alike, and walks no
+// entry.
 
 #include "mesh_common.cuh"
 
@@ -84,11 +93,12 @@ struct Layout {
   uint32_t bytes;
 };
 
+template <int Q>
 Layout plan(int n_instances, int tlas_nodes) {
   const size_t boxes = sizeof(float4) * 2 * static_cast<size_t>(n_instances);
-  const size_t bounds =
-      mesh::stage_region(sizeof(float4) * 2 * kOrders * static_cast<size_t>(tlas_nodes));
-  const size_t links = mesh::stage_region(sizeof(int4) * kOrders * static_cast<size_t>(tlas_nodes));
+  const size_t rows = kOrders * static_cast<size_t>(tlas_nodes);
+  const size_t bounds = mesh::stage_region(mesh::Nodes<Q>::part_bytes(0, rows));
+  const size_t links = mesh::stage_region(mesh::Nodes<Q>::part_bytes(1, rows));
   if (boxes + bounds + links > static_cast<size_t>(path::kMaxStagedBytes)) return {0, 0, 0};
   return {static_cast<uint32_t>(boxes), static_cast<uint32_t>(boxes + bounds),
           static_cast<uint32_t>(boxes + bounds + links)};
@@ -109,19 +119,34 @@ struct Walker {
 // far descends (a leaf: its slots next), else skips. Node and slot boxes
 // share the slab arithmetic of mesh::slab and mesh::slot_box, so each test
 // is the walk's own, bit for bit. True while the walk goes on.
-__device__ __forceinline__ bool step(Walker& w, const float4* boxes, const float4* bounds,
-                                     const int4* links, int row, int tlas_nodes) {
+template <int Q>
+__device__ __forceinline__ bool step(Walker& w, const float4* boxes, const mesh::Nodes<Q>& nodes,
+                                     int row, int tlas_nodes) {
   const bool in_leaf = w.slot < w.slot_end;
   int4 link = {0, 0, 0, 0};
-  const float4* box;
-  if (in_leaf) {
-    box = boxes + 2 * w.slot;
+  float3v lo, hi;
+  if constexpr (Q == 0) {
+    // One pointer, then two float4 loads, whichever box the step tests.
+    const float4* box;
+    if (in_leaf) {
+      box = boxes + 2 * w.slot;
+    } else {
+      link = nodes.links[row + w.node];
+      box = nodes.bounds + 2 * (row + w.node);
+    }
+    const float4 l = box[0];
+    const float4 h = box[1];
+    lo = {l.x, l.y, l.z};
+    hi = {h.x, h.y, h.z};
+  } else if (in_leaf) {
+    const float4 l = boxes[2 * w.slot];
+    const float4 h = boxes[2 * w.slot + 1];
+    lo = {l.x, l.y, l.z};
+    hi = {h.x, h.y, h.z};
   } else {
-    link = links[row + w.node];
-    box = bounds + 2 * (row + w.node);
+    link = nodes.link(row + w.node);
+    nodes.corners(row + w.node, lo, hi);
   }
-  const float4 lo = box[0];
-  const float4 hi = box[1];
   const float lox = (lo.x - w.o.x) * w.inv.x, hix = (hi.x - w.o.x) * w.inv.x;
   const float loy = (lo.y - w.o.y) * w.inv.y, hiy = (hi.y - w.o.y) * w.inv.y;
   const float loz = (lo.z - w.o.z) * w.inv.z, hiz = (hi.z - w.o.z) * w.inv.z;
@@ -149,21 +174,30 @@ __device__ __forceinline__ bool step(Walker& w, const float4* boxes, const float
 
 // The key of one lane of a packet whose table of the vote starts at node
 // row `row` (walked only when alive below the live count).
-__device__ __forceinline__ int lane_key(Walker& w, bool is_alive, bool walks,
-                                        const float4* boxes, const float4* bounds,
-                                        const int4* links, int row,
-                                        int tlas_nodes, int n_instances,
+// The lane's key: its candidate `hit` (K, or on a quantized tier the
+// bounce's winning slot), or where it `walks` the entry walk's.
+template <int Q>
+__device__ __forceinline__ int lane_key(Walker& w, bool is_alive, bool walks, int hit,
+                                        const float4* boxes, const mesh::Nodes<Q>& nodes,
+                                        int row, int tlas_nodes,
                                         const float* __restrict__ window) {
-  w.best = n_instances;
+  w.best = hit;
   if (walks) {
     w.inv = mesh::winv3(w.d);
     w.best_entry = path::kInf;
     w.node = 0;
     w.slot = w.slot_end = 0;
-    while (step(w, boxes, bounds, links, row, tlas_nodes)) {
+    while (step(w, boxes, nodes, row, tlas_nodes)) {
     }
   }
   return mesh::coherence_key(w.o, w.d, !is_alive, 0, w.best, window);
+}
+
+// A lane's candidate before its walk: its hit slot on a quantized tier (K
+// where it hit none), else K.
+__device__ __forceinline__ int hit_of(const int* __restrict__ hits, int64_t ray, int n_rays,
+                                      int n_instances) {
+  return hits == nullptr || ray >= n_rays ? n_instances : hits[ray];
 }
 
 // A lane's outputs of the bounce (a lane past the launch: the reference's
@@ -210,13 +244,13 @@ __device__ __forceinline__ void stage_boxes(float4* boxes, const float* __restri
 // A block a packet (kPersistent false): after the vote the block stages its
 // octant's node rows and the slots' boxes (bounds [2 M], links [M], boxes
 // [2 K]); `layout` and `next_packet` are not read.
+template <int Q>
 __device__ __forceinline__ void packet_block(const float* __restrict__ origins,
                                              const float* __restrict__ directions,
                                              const uint8_t* __restrict__ alive, int n_rays,
                                              int live, const float* __restrict__ slots,
-                                             int n_instances,
-                                             const float4* __restrict__ tlas_bounds,
-                                             const int4* __restrict__ tlas_links, int tlas_nodes,
+                                             int n_instances, const mesh::Nodes<Q>& tlas,
+                                             int tlas_nodes, const int* __restrict__ hits,
                                              const float* __restrict__ key_window, bool last,
                                              int* __restrict__ keys, float4* staging,
                                              unsigned* votes) {
@@ -229,75 +263,86 @@ __device__ __forceinline__ void packet_block(const float* __restrict__ origins,
   int64_t ray = first + threadIdx.x;
   Walker w;
   bool is_alive = load_lane(w, origins, directions, alive, ray, n_rays);
-  float4* bounds = staging;
-  int4* links = reinterpret_cast<int4*>(bounds + 2 * tlas_nodes);
-  float4* boxes = reinterpret_cast<float4*>(links + tlas_nodes);
+  int hit = hit_of(hits, ray, n_rays, n_instances);
+  // The staged octant's two node-table parts, then the slots' boxes.
+  char* part0 = reinterpret_cast<char*>(staging);
+  char* part1 = part0 + mesh::round16(mesh::Nodes<Q>::part_bytes(0, tlas_nodes));
+  float4* boxes = reinterpret_cast<float4*>(
+      part1 + mesh::round16(mesh::Nodes<Q>::part_bytes(1, tlas_nodes)));
+  mesh::Nodes<Q> staged = tlas;
   // Uniform per block: a packet past the live count, or the last bounce,
-  // keys every lane with K.
+  // keys every lane with its hit (K where none).
   const bool walked = !last && first < live;
   if (walked) {
     const unsigned packed = __reduce_add_sync(0xffffffffu, mesh::positive_bits(w.d));
     if ((threadIdx.x & 31u) == 0) atomicAdd(votes, packed);
     __syncthreads();
     const int row = mesh::octant_of_counts(*votes, kPacket) * tlas_nodes;
-    for (int i = threadIdx.x; i < 2 * tlas_nodes; i += kPacket) {
-      bounds[i] = tlas_bounds[2 * row + i];
+    for (int part = 0; part < 2; ++part) {
+      const char* rows = tlas.part(part);
+      if (rows != nullptr) {
+        mesh::copy_words(part == 0 ? part0 : part1,
+                         rows + mesh::Nodes<Q>::part_bytes(part, row),
+                         mesh::Nodes<Q>::part_bytes(part, tlas_nodes));
+      }
     }
-    for (int i = threadIdx.x; i < tlas_nodes; i += kPacket) links[i] = tlas_links[row + i];
+    staged.set_parts(part0, part1);
     stage_boxes(boxes, slots, n_instances);
-    ray = first + regrouped_lane(is_alive && ray < live, w.d, counts, perm);
+    ray = first + regrouped_lane(is_alive && ray < live && hit >= n_instances, w.d, counts, perm);
     is_alive = load_lane(w, origins, directions, alive, ray, n_rays);
+    hit = hit_of(hits, ray, n_rays, n_instances);
   }
-  const int key = lane_key(w, is_alive, walked && is_alive && ray < live, boxes, bounds, links, 0,
-                           tlas_nodes, n_instances, key_window);
+  const int key = lane_key(w, is_alive, walked && is_alive && ray < live && hit >= n_instances,
+                           hit, boxes, staged, 0, tlas_nodes, key_window);
   if (ray < n_rays) keys[ray] = key;
 }
 
 // A block a packet, or persistent blocks that stage the boxes and the eight
 // octant tables once.
-template <bool kPersistent>
+template <bool kPersistent, int Q>
 __global__ void __launch_bounds__(kPacket)
 mesh_entry_keys_kernel(const float* __restrict__ origins, const float* __restrict__ directions,
                        const uint8_t* __restrict__ alive, int n_rays,
                        const int* __restrict__ live_count, const float* __restrict__ slots,
-                       int n_instances, const float4* __restrict__ tlas_bounds,
-                       const int4* __restrict__ tlas_links, int tlas_nodes,
-                       const float* __restrict__ key_window, bool last, Layout layout,
-                       int* __restrict__ keys, int* __restrict__ next_packet) {
+                       int n_instances, mesh::Nodes<Q> tlas, int tlas_nodes,
+                       const int* __restrict__ hits, const float* __restrict__ key_window,
+                       bool last, Layout layout, int* __restrict__ keys,
+                       int* __restrict__ next_packet) {
   __shared__ uint64_t barrier;
   __shared__ int packet_of[2];
   __shared__ unsigned votes[2];
   extern __shared__ float4 staging[];
   const int live = min(max(*live_count, 0), n_rays);
   if constexpr (!kPersistent) {
-    packet_block(origins, directions, alive, n_rays, live, slots, n_instances, tlas_bounds,
-                 tlas_links, tlas_nodes, key_window, last, keys, staging, votes);
+    packet_block(origins, directions, alive, n_rays, live, slots, n_instances, tlas, tlas_nodes,
+                 hits, key_window, last, keys, staging, votes);
     return;
   }
   // Persistent blocks. The packets a walk reads: those below the live
   // count, none on the last bounce (uniform per launch).
   const int walked = last ? 0 : static_cast<int>((static_cast<int64_t>(live) + kPacket - 1) /
                                                  kPacket);
-  // Every lane of the other packets keys with K: grid-stride, no counter.
+  // Every lane of the other packets keys with its hit (K where none):
+  // grid-stride, no counter.
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kPacket;
   for (int64_t ray = static_cast<int64_t>(walked) * kPacket + blockIdx.x * kPacket + threadIdx.x;
        ray < n_rays; ray += stride) {
     keys[ray] = mesh::coherence_key(path::load3(origins, ray), path::load3(directions, ray),
-                                    alive[ray] == 0, 0, n_instances, key_window);
+                                    alive[ray] == 0, 0, hit_of(hits, ray, n_rays, n_instances),
+                                    key_window);
   }
   if (walked == 0) return;
   const float4* boxes = staging;
   stage_boxes(staging, slots, n_instances);
   char* smem = reinterpret_cast<char*>(staging);
   const mesh::Range ranges[2] = {
-      {smem + layout.bounds, reinterpret_cast<const char*>(tlas_bounds),
-       static_cast<uint32_t>(sizeof(float4) * 2 * kOrders * tlas_nodes)},
-      {smem + layout.links, reinterpret_cast<const char*>(tlas_links),
-       static_cast<uint32_t>(sizeof(int4) * kOrders * tlas_nodes)},
+      {smem + layout.bounds, tlas.part(0),
+       static_cast<uint32_t>(mesh::Nodes<Q>::part_bytes(0, kOrders * tlas_nodes))},
+      {smem + layout.links, tlas.part(1),
+       static_cast<uint32_t>(mesh::Nodes<Q>::part_bytes(1, kOrders * tlas_nodes))},
   };
   mesh::stage_ranges(ranges, &barrier);  // ends with a barrier: the boxes too
-  const float4* bounds = reinterpret_cast<const float4*>(ranges[0].staged());
-  const int4* links = reinterpret_cast<const int4*>(ranges[1].staged());
+  tlas.set_parts(ranges[0].staged(), ranges[1].staged());
   // Round r's packet and vote sit in slot r % 2: thread 0 fills the slot
   // of round r + 1 only after the second barrier of round r, which every
   // thread passes after its last read of the slot (from round r - 1). The
@@ -323,47 +368,53 @@ mesh_entry_keys_kernel(const float* __restrict__ origins, const float* __restric
     if (threadIdx.x < 9) counts[threadIdx.x] = 0;
     __syncthreads();
     const int row = mesh::octant_of_counts(votes[at], kPacket) * tlas_nodes;
-    ray = first + regrouped_lane(is_alive && ray < live, w.d, counts, perm);
+    int hit = hit_of(hits, ray, n_rays, n_instances);
+    ray = first + regrouped_lane(is_alive && ray < live && hit >= n_instances, w.d, counts, perm);
     is_alive = load_lane(w, origins, directions, alive, ray, n_rays);
-    const int key = lane_key(w, is_alive, is_alive && ray < live, boxes, bounds, links, row,
-                             tlas_nodes, n_instances, key_window);
+    hit = hit_of(hits, ray, n_rays, n_instances);
+    const int key = lane_key(w, is_alive, is_alive && ray < live && hit >= n_instances, hit,
+                             boxes, tlas, row, tlas_nodes, key_window);
     if (ray < n_rays) keys[ray] = key;
   }
 }
 
-using Kernel = decltype(&mesh_entry_keys_kernel<true>);
+template <int Q>
+using Kernel = decltype(&mesh_entry_keys_kernel<true, Q>);
 
 // A launch's kernel, grid and dynamic shared memory, by the width rule, and
 // the kernel's resident blocks on one SM.
+template <int Q>
 struct Launch {
   bool persistent;
-  Kernel kernel;
+  Kernel<Q> kernel;
   Layout layout;  // the persistent kernel's staging
   size_t bytes;
   int blocks;
   int blocks_per_sm;
 };
 
-cudaError_t plan_launch(int n_rays, int n_instances, int tlas_nodes, Launch* launch) {
-  launch->layout = plan(n_instances, tlas_nodes);
-  const size_t one_octant = (2 * sizeof(float4) + sizeof(int4)) * tlas_nodes +
+template <int Q>
+cudaError_t plan_launch(int n_rays, int n_instances, int tlas_nodes, Launch<Q>* launch) {
+  launch->layout = plan<Q>(n_instances, tlas_nodes);
+  const size_t one_octant = mesh::round16(mesh::Nodes<Q>::part_bytes(0, tlas_nodes)) +
+                            mesh::round16(mesh::Nodes<Q>::part_bytes(1, tlas_nodes)) +
                             sizeof(float4) * 2 * n_instances;
   if (one_octant > static_cast<size_t>(path::kMaxStagedBytes)) return cudaErrorInvalidValue;
   const int64_t packets = (static_cast<int64_t>(n_rays) + kPacket - 1) / kPacket;
   int resident = 0;
   launch->persistent = launch->layout.bytes > 0;
   if (launch->persistent) {
-    const cudaError_t status = mesh::card_blocks(mesh_entry_keys_kernel<true>, kPacket,
+    const cudaError_t status = mesh::card_blocks(mesh_entry_keys_kernel<true, Q>, kPacket,
                                                  launch->layout.bytes, &resident);
     if (status != cudaSuccess) return status;
     launch->persistent = packets >= static_cast<int64_t>(kPacketsPerBlock) * resident;
   }
   if (launch->persistent) {
-    launch->kernel = mesh_entry_keys_kernel<true>;
+    launch->kernel = mesh_entry_keys_kernel<true, Q>;
     launch->bytes = launch->layout.bytes;
     launch->blocks = static_cast<int>(packets < resident ? packets : resident);
   } else {
-    launch->kernel = mesh_entry_keys_kernel<false>;
+    launch->kernel = mesh_entry_keys_kernel<false, Q>;
     launch->bytes = one_octant;
     launch->blocks = static_cast<int>(packets);
   }
@@ -381,50 +432,63 @@ cudaError_t plan_launch(int n_rays, int n_instances, int tlas_nodes, Launch* lau
 // kernels.tlas_octant_links), in the key window [6]; `bounce` of
 // `total_bounces`; `work_counter`, one int32 in device memory that no other
 // launch uses meanwhile (the persistent blocks' packet counter, cleared
-// here on `stream` before the kernel). Launches on `stream` and returns
-// cudaGetLastError().
+// here on `stream` before the kernel). Last, the node format: `quant` 1 or
+// 2, `tlas_bounds` holds the quantized node words, `tlas_links` is unused,
+// `grid` points at the table's grid (6 floats in host memory) and `hits`
+// [n_rays] int32 holds the bounce's winning slots (K for none). Launches
+// on `stream` and returns cudaGetLastError().
 extern "C" int mesh_entry_keys_launch(const float* origins, const float* directions,
                                       const unsigned char* alive, int n_rays,
                                       const int* live_count, const float* slots,
                                       int n_instances, const float* tlas_bounds,
                                       const int* tlas_links, int tlas_nodes,
                                       const float* key_window, int bounce, int total_bounces,
-                                      int* keys, int* work_counter, void* stream) {
+                                      int* keys, int* work_counter, int quant,
+                                      const float* grid, const int* hits, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaSuccess);
-  if (n_instances < 1 || tlas_nodes < 1 || bounce < 0 || bounce >= total_bounces) {
+  if (n_instances < 1 || tlas_nodes < 1 || bounce < 0 || bounce >= total_bounces ||
+      (quant != 0 && hits == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Launch launch;
-  cudaError_t status = plan_launch(n_rays, n_instances, tlas_nodes, &launch);
-  if (status != cudaSuccess) return static_cast<int>(status);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (launch.persistent) {
-    status = cudaMemsetAsync(work_counter, 0, sizeof(int), s);
+  return mesh::with_format(quant, {grid}, [&](auto format) {
+    constexpr int Q = decltype(format)::value;
+    Launch<Q> launch;
+    cudaError_t status = plan_launch<Q>(n_rays, n_instances, tlas_nodes, &launch);
     if (status != cudaSuccess) return static_cast<int>(status);
-  }
-  launch.kernel<<<launch.blocks, kPacket, launch.bytes, s>>>(
-      origins, directions, alive, n_rays, live_count, slots, n_instances,
-      reinterpret_cast<const float4*>(tlas_bounds), reinterpret_cast<const int4*>(tlas_links),
-      tlas_nodes, key_window, bounce == total_bounces - 1, launch.layout, keys, work_counter);
-  return static_cast<int>(cudaGetLastError());
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (launch.persistent) {
+      status = cudaMemsetAsync(work_counter, 0, sizeof(int), s);
+      if (status != cudaSuccess) return static_cast<int>(status);
+    }
+    launch.kernel<<<launch.blocks, kPacket, launch.bytes, s>>>(
+        origins, directions, alive, n_rays, live_count, slots, n_instances,
+        mesh::nodes_of<Q>(tlas_bounds, tlas_links, grid, 1), tlas_nodes,
+        Q == 0 ? nullptr : hits, key_window, bounce == total_bounces - 1, launch.layout, keys,
+        work_counter);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // A launch of n_rays lanes over these tables: its kernel's resident blocks
 // on one SM (a negative CUDA error code on failure), whether it runs
 // persistent blocks in *persistent, its dynamic shared memory in
-// *shared_bytes and its grid in *grid.
+// *shared_bytes and its grid in *grid, at node format `quant`.
 extern "C" int mesh_entry_keys_occupancy(int n_rays, int n_instances, int tlas_nodes,
-                                         int* persistent, int* shared_bytes, int* grid) {
-  if (n_rays < 1 || n_instances < 1 || tlas_nodes < 1) {
+                                         int* persistent, int* shared_bytes, int* grid,
+                                         int quant) {
+  if (n_rays < 1 || n_instances < 1 || tlas_nodes < 1 || quant < 0 || quant > 2) {
     return -static_cast<int>(cudaErrorInvalidValue);
   }
-  Launch launch;
-  const cudaError_t status = plan_launch(n_rays, n_instances, tlas_nodes, &launch);
-  if (status != cudaSuccess) return -static_cast<int>(status);
-  *persistent = launch.persistent ? 1 : 0;
-  *shared_bytes = static_cast<int>(launch.bytes);
-  *grid = launch.blocks;
-  return launch.blocks_per_sm;
+  return mesh::with_format(quant, {}, [&](auto format) {
+    constexpr int Q = decltype(format)::value;
+    Launch<Q> launch;
+    const cudaError_t status = plan_launch<Q>(n_rays, n_instances, tlas_nodes, &launch);
+    if (status != cudaSuccess) return -static_cast<int>(status);
+    *persistent = launch.persistent ? 1 : 0;
+    *shared_bytes = static_cast<int>(launch.bytes);
+    *grid = launch.blocks;
+    return launch.blocks_per_sm;
+  });
 }
 
 extern "C" const char* mesh_entry_keys_error_string(int code) {

@@ -29,7 +29,9 @@
 // packet (1024 lanes of the pool, BVH_BLOCK_R): the packet's object-space
 // octant per row of the stacked table, voted by the pre-pass
 // packet_octants.cu over all its lanes (mesh::Octants); the shadow walks take
-// the sun's. Built with --fmad=false.
+// the sun's. Built with --fmad=false. Node format: instantiated for the
+// three formats of mesh::Nodes (fp32, the reference's quantized tiers 1 and
+// 2), the launch's `quant` picking one.
 
 #include "mesh_common.cuh"
 #include "pool_common.cuh"
@@ -43,15 +45,15 @@ constexpr int kPacket = 1024;
 
 // kOrdered: the octant-ordered walk, `slot_votes` [P, F K] the packets'
 // votes (nullptr on a one-node BVH).
-template <bool kOrdered>
+template <bool kOrdered, int Q>
 struct MeshBounce {
-  mesh::MeshTables tables;  // instances: the stacked [F K, 22] table
+  mesh::MeshTablesOf<Q> tables;  // instances: the stacked [F K, 22] table
   int per_frame;  // K
   int n_tri_rows;
   int n_node_rows;  // N, or 8N for the octant orders
   const uint8_t* slot_votes;
   size_t bytes() const {
-    return mesh::table_bytes(n_tri_rows, n_node_rows, tables.n_instances);
+    return mesh::table_bytes<Q>(n_tri_rows, n_node_rows, tables.n_instances);
   }
   __device__ __forceinline__ void stage(float4* staging) {
     mesh::stage_tables(tables, staging, n_tri_rows, n_node_rows);
@@ -77,9 +79,9 @@ struct MeshBounce {
   }
 };
 
-template <bool kOrdered>
+template <bool kOrdered, int Q>
 __global__ void __launch_bounds__(pool::kThreads)
-pool_mesh_bounce_kernel(pool::State in, pool::Spheres spheres, MeshBounce<kOrdered> bounce,
+pool_mesh_bounce_kernel(pool::State in, pool::Spheres spheres, MeshBounce<kOrdered, Q> bounce,
                         bool staged, int total_bounces, pool::Outputs out) {
   __shared__ float scene_params[path::kParams];
   extern __shared__ float4 staging[];
@@ -93,7 +95,8 @@ pool_mesh_bounce_kernel(pool::State in, pool::Spheres spheres, MeshBounce<kOrder
 // BVH as for mesh_bounce_launch, then `ordered` (nonzero: the node tables
 // are the eight octant orders stacked, [8 n_nodes] rows) and the packets'
 // votes per instance row of packet_octants.cu, [P, n_frames *
-// instances_per_frame] (nullptr on a one-node BVH).
+// instances_per_frame] (nullptr on a one-node BVH). Last, the node format
+// as for mesh_bounce_launch.
 extern "C" int pool_mesh_bounce_launch(
     const float* origins, const float* directions, const float* throughput,
     const unsigned char* alive, const int* lanes, const int* fids, const int* seeds,
@@ -102,7 +105,8 @@ extern "C" int pool_mesh_bounce_launch(
     int instances_per_frame, const float* triangles, int n_tri_rows, const float* node_bounds,
     const int* node_links, int n_nodes, int ordered, const unsigned char* slot_votes,
     int total_bounces, float* contribution, float* origins_out, float* directions_out,
-    float* throughput_out, unsigned char* alive_out, void* stream) {
+    float* throughput_out, unsigned char* alive_out, int quant, const float* grid,
+    void* stream) {
   if (n_rays > 0 && (instances_per_frame < 0 || n_tri_rows < 1 || n_nodes < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -110,21 +114,25 @@ extern "C" int pool_mesh_bounce_launch(
                           seeds,   bounces,    n_rays,     live_count};
   const pool::Spheres table = {reinterpret_cast<const float4*>(spheres), spheres_per_frame,
                                n_frames, params};
-  const mesh::MeshTables tables = {instances, reinterpret_cast<const float4*>(triangles),
-                                   reinterpret_cast<const float4*>(node_bounds),
-                                   reinterpret_cast<const int4*>(node_links),
-                                   n_frames * instances_per_frame, n_nodes};
   const pool::Outputs out = {contribution, origins_out, directions_out, throughput_out,
                              alive_out};
-  if (ordered) {
-    const MeshBounce<true> bounce = {tables, instances_per_frame, n_tri_rows, 8 * n_nodes,
-                                     slot_votes};
-    return pool::launch(pool_mesh_bounce_kernel<true>, in, table, bounce, total_bounces, out,
+  return mesh::with_format(quant, {grid}, [&](auto format) {
+    constexpr int Q = decltype(format)::value;
+    const mesh::MeshTablesOf<Q> tables = {
+        instances, reinterpret_cast<const float4*>(triangles),
+        mesh::nodes_of<Q>(node_bounds, node_links, grid, mesh::kLeafRows),
+        n_frames * instances_per_frame, n_nodes};
+    if (ordered) {
+      const MeshBounce<true, Q> bounce = {tables, instances_per_frame, n_tri_rows, 8 * n_nodes,
+                                          slot_votes};
+      return pool::launch(pool_mesh_bounce_kernel<true, Q>, in, table, bounce, total_bounces, out,
+                          stream);
+    }
+    const MeshBounce<false, Q> bounce = {tables, instances_per_frame, n_tri_rows, n_nodes,
+                                         nullptr};
+    return pool::launch(pool_mesh_bounce_kernel<false, Q>, in, table, bounce, total_bounces, out,
                         stream);
-  }
-  const MeshBounce<false> bounce = {tables, instances_per_frame, n_tri_rows, n_nodes, nullptr};
-  return pool::launch(pool_mesh_bounce_kernel<false>, in, table, bounce, total_bounces, out,
-                      stream);
+  });
 }
 
 extern "C" const char* pool_mesh_bounce_error_string(int code) {

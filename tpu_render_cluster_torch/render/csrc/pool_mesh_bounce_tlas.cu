@@ -54,6 +54,14 @@
 // take the sun's. The TLAS and the key's entry walk stay canonical, as the
 // reference's pool kernel orders its BLAS only (pallas_kernels.py:4027).
 // Built with --fmad=false.
+//
+// Node format: instantiated for the three formats of mesh::Nodes (fp32, the
+// reference's quantized tiers 1 and 2), the launch's `quant` picking one. A
+// quantized pool's stacked TLAS windows share one grid, their frame offsets
+// inside the meta words (kernels.pool_tlas_quant); the key follows the
+// reference's packed-key rule: a lane whose nearest hit was an instance
+// keys with that slot of its frame (pallas_kernels.py:3029) and walks no
+// entry.
 
 #include <limits.h>
 
@@ -74,10 +82,10 @@ constexpr int kMinBlocks = 3;
 // Frames of per-frame tables a block stages at most.
 constexpr int kStagedFrames = 2;
 
+template <int Q>
 struct Tables {
-  mesh::MeshTables mesh;  // instances: the stacked [F K, 22] slot tables
-  const float4* tlas_bounds;  // the stacked windows [F M, 2]
-  const int4* tlas_links;  // [F M]
+  mesh::MeshTablesOf<Q> mesh;  // instances: the stacked [F K, 22] slot tables
+  mesh::Nodes<Q> tlas;  // the stacked windows [F M]
   int tlas_nodes;  // M
   int per_frame;  // K
   int n_tri_rows;
@@ -95,17 +103,18 @@ struct Layout {
 };
 
 // n_node_rows: the BVH's node rows (8N for the octant orders).
+template <int Q>
 Layout plan(int n_tri_rows, int n_node_rows, int spheres_per_frame, int per_frame,
             int tlas_nodes, int n_frames) {
   for (int frames = kStagedFrames < n_frames ? kStagedFrames : n_frames; frames >= 0; --frames) {
     const size_t sizes[7] = {
         sizeof(float4) * 4 * static_cast<size_t>(n_tri_rows),
-        sizeof(float4) * 2 * static_cast<size_t>(n_node_rows),
-        sizeof(int4) * static_cast<size_t>(n_node_rows),
+        mesh::Nodes<Q>::part_bytes(0, n_node_rows),
+        mesh::Nodes<Q>::part_bytes(1, n_node_rows),
         sizeof(float4) * 4 * static_cast<size_t>(spheres_per_frame) * frames,
         sizeof(float) * mesh::kInstanceWidth * static_cast<size_t>(per_frame) * frames,
-        sizeof(float4) * 2 * static_cast<size_t>(tlas_nodes) * frames,
-        sizeof(int4) * static_cast<size_t>(tlas_nodes) * frames,
+        mesh::Nodes<Q>::part_bytes(0, static_cast<size_t>(tlas_nodes) * frames),
+        mesh::Nodes<Q>::part_bytes(1, static_cast<size_t>(tlas_nodes) * frames),
     };
     uint32_t offsets[7];
     size_t total = 0;
@@ -126,9 +135,9 @@ constexpr int kPacket = 256;
 
 // kOrdered: the octant-ordered BLAS walk, `slot_votes` [P, F K] the
 // packets' votes (nullptr on a one-node BVH), the BVH's rows n_node_rows.
-template <int G, bool kOrdered>
+template <int G, bool kOrdered, int Q>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-pool_mesh_bounce_tlas_kernel(pool::State in, pool::Spheres spheres, Tables t, Layout layout,
+pool_mesh_bounce_tlas_kernel(pool::State in, pool::Spheres spheres, Tables<Q> t, Layout layout,
                              int n_node_rows, const uint8_t* __restrict__ slot_votes,
                              int total_bounces, pool::Outputs out) {
   __shared__ float scene_params[path::kParams];
@@ -166,42 +175,44 @@ pool_mesh_bounce_tlas_kernel(pool::State in, pool::Spheres spheres, Tables t, La
     const bool frames_staged = layout.frames > 0 && hi >= lo && hi - lo < layout.frames;
     const int base = frames_staged ? lo : 0;
     const uint32_t span = frames_staged ? static_cast<uint32_t>(hi - lo + 1) : 0u;
-    mesh::MeshTables m = t.mesh;
+    mesh::MeshTablesOf<Q> m = t.mesh;
     const float4* sphere_rows = spheres.rows;
-    const float4* tlas_bounds = t.tlas_bounds;
-    const int4* tlas_links = t.tlas_links;
+    mesh::Nodes<Q> tlas = t.tlas;
     if (layout.bvh) {
       char* smem = reinterpret_cast<char*>(staging);
       const size_t k_rows = static_cast<size_t>(t.per_frame) * base;
       const size_t m_rows = static_cast<size_t>(t.tlas_nodes) * base;
       const size_t s_rows = static_cast<size_t>(spheres.per_frame) * base;
+      // A frame range's TLAS rows of each node-table part.
+      const auto window = [&](int part) {
+        const char* rows = t.tlas.part(part);
+        return rows == nullptr ? rows : rows + mesh::Nodes<Q>::part_bytes(part, m_rows);
+      };
       const mesh::Range ranges[7] = {
           {smem + layout.tris, reinterpret_cast<const char*>(m.tris),
            static_cast<uint32_t>(sizeof(float4) * 4 * t.n_tri_rows)},
-          {smem + layout.bounds, reinterpret_cast<const char*>(m.bounds),
-           static_cast<uint32_t>(sizeof(float4) * 2 * n_node_rows)},
-          {smem + layout.links, reinterpret_cast<const char*>(m.links),
-           static_cast<uint32_t>(sizeof(int4) * n_node_rows)},
+          {smem + layout.bounds, m.nodes.part(0),
+           static_cast<uint32_t>(mesh::Nodes<Q>::part_bytes(0, n_node_rows))},
+          {smem + layout.links, m.nodes.part(1),
+           static_cast<uint32_t>(mesh::Nodes<Q>::part_bytes(1, n_node_rows))},
           {smem + layout.spheres,
            reinterpret_cast<const char*>(spheres.rows + 4 * s_rows),
            static_cast<uint32_t>(sizeof(float4) * 4 * spheres.per_frame) * span},
           {smem + layout.slots,
            reinterpret_cast<const char*>(m.inst + mesh::kInstanceWidth * k_rows),
            static_cast<uint32_t>(sizeof(float) * mesh::kInstanceWidth * t.per_frame) * span},
-          {smem + layout.tlas_bounds, reinterpret_cast<const char*>(t.tlas_bounds + 2 * m_rows),
-           static_cast<uint32_t>(sizeof(float4) * 2 * t.tlas_nodes) * span},
-          {smem + layout.tlas_links, reinterpret_cast<const char*>(t.tlas_links + m_rows),
-           static_cast<uint32_t>(sizeof(int4) * t.tlas_nodes) * span},
+          {smem + layout.tlas_bounds, window(0),
+           static_cast<uint32_t>(mesh::Nodes<Q>::part_bytes(0, t.tlas_nodes)) * span},
+          {smem + layout.tlas_links, window(1),
+           static_cast<uint32_t>(mesh::Nodes<Q>::part_bytes(1, t.tlas_nodes)) * span},
       };
       mesh::stage_ranges(ranges, &barrier);  // ends with __syncthreads()
       m.tris = reinterpret_cast<const float4*>(ranges[0].staged());
-      m.bounds = reinterpret_cast<const float4*>(ranges[1].staged());
-      m.links = reinterpret_cast<const int4*>(ranges[2].staged());
+      m.nodes.set_parts(ranges[1].staged(), ranges[2].staged());
       if (frames_staged) {
         sphere_rows = reinterpret_cast<const float4*>(ranges[3].staged());
         m.inst = reinterpret_cast<const float*>(ranges[4].staged());
-        tlas_bounds = reinterpret_cast<const float4*>(ranges[5].staged());
-        tlas_links = reinterpret_cast<const int4*>(ranges[6].staged());
+        tlas.set_parts(ranges[5].staged(), ranges[6].staged());
       }
     }
     if (walks) {
@@ -213,21 +224,23 @@ pool_mesh_bounce_tlas_kernel(pool::State in, pool::Spheres spheres, Tables t, La
         const int64_t votes = (ray / kPacket) * m.n_instances;
         order = {slot_votes == nullptr ? nullptr : slot_votes + votes, 0, 0};
       }
-      const mesh::GroupTlas<G, Order> walk = {g,
-                                              tlas_bounds,
-                                              tlas_links,
-                                              t.tlas_nodes * base,
-                                              t.per_frame * base,
-                                              in_window ? t.tlas_nodes * fid : 0,
-                                              in_window ? t.tlas_nodes * (fid + 1) : 0,
-                                              order};
+      const mesh::GroupTlas<G, Order, Q> walk = {g,
+                                                 tlas,
+                                                 t.tlas_nodes * base,
+                                                 t.per_frame * base,
+                                                 in_window ? t.tlas_nodes * fid : 0,
+                                                 in_window ? t.tlas_nodes * (fid + 1) : 0,
+                                                 order};
       const path::SceneRows scene = {sphere_rows, scene_params};
       const uint32_t counter_stride = 2u * static_cast<uint32_t>(total_bounces) + 2u;
+      int hit = -1;  // the winning row of m.inst (the packed-key rule, Q > 0)
       is_alive = mesh::bounce(scene, in_window ? (fid - base) * n : 0, n, m, walk,
                               static_cast<uint32_t>(in.lanes[ray]), in.bounces[ray],
                               counter_stride, static_cast<uint32_t>(in.seeds[ray]), o, d, thr,
-                              rad);
-      if (is_alive && in_window) {
+                              rad, Q > 0 ? &hit : nullptr);
+      if (hit >= 0) {
+        candidate = hit - t.per_frame * (fid - base);  // its frame's slot
+      } else if (is_alive && in_window) {
         candidate = walk.entry_candidate(m, o, d, t.per_frame * fid, t.per_frame);
       }
     }
@@ -237,11 +250,11 @@ pool_mesh_bounce_tlas_kernel(pool::State in, pool::Spheres spheres, Tables t, La
   t.keys[ray] = mesh::coherence_key(o, d, !is_alive, in.fids[ray], candidate, t.key_window);
 }
 
-template <int G, bool kOrdered>
-int launch_group(const pool::State& in, const pool::Spheres& spheres, const Tables& t,
+template <int G, bool kOrdered, int Q>
+int launch_group(const pool::State& in, const pool::Spheres& spheres, const Tables<Q>& t,
                  const Layout& layout, int n_node_rows, const uint8_t* slot_votes,
                  int total_bounces, const pool::Outputs& out, cudaStream_t stream) {
-  const auto kernel = pool_mesh_bounce_tlas_kernel<G, kOrdered>;
+  const auto kernel = pool_mesh_bounce_tlas_kernel<G, kOrdered, Q>;
   const cudaError_t status = path::allow_shared(kernel, layout.bytes);
   if (status != cudaSuccess) return static_cast<int>(status);
   const int64_t threads = static_cast<int64_t>(in.n_rays) * G;
@@ -251,21 +264,21 @@ int launch_group(const pool::State& in, const pool::Spheres& spheres, const Tabl
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int G>
-int launch_order(const pool::State& in, const pool::Spheres& spheres, const Tables& t,
+template <int G, int Q>
+int launch_order(const pool::State& in, const pool::Spheres& spheres, const Tables<Q>& t,
                  const Layout& layout, int n_node_rows, bool ordered, const uint8_t* slot_votes,
                  int total_bounces, const pool::Outputs& out, cudaStream_t stream) {
   if (ordered) {
-    return launch_group<G, true>(in, spheres, t, layout, n_node_rows, slot_votes, total_bounces,
-                                 out, stream);
+    return launch_group<G, true, Q>(in, spheres, t, layout, n_node_rows, slot_votes,
+                                    total_bounces, out, stream);
   }
-  return launch_group<G, false>(in, spheres, t, layout, n_node_rows, nullptr, total_bounces, out,
-                                stream);
+  return launch_group<G, false, Q>(in, spheres, t, layout, n_node_rows, nullptr, total_bounces,
+                                   out, stream);
 }
 
-template <int G, bool kOrdered>
+template <int G, bool kOrdered, int Q>
 int occupancy_group(const Layout& layout) {
-  const auto kernel = pool_mesh_bounce_tlas_kernel<G, kOrdered>;
+  const auto kernel = pool_mesh_bounce_tlas_kernel<G, kOrdered, Q>;
   const cudaError_t allowed = path::allow_shared(kernel, layout.bytes);
   if (allowed != cudaSuccess) return -static_cast<int>(allowed);
   int blocks = 0;
@@ -295,7 +308,7 @@ extern "C" int pool_mesh_bounce_tlas_launch(
     int tlas_nodes_per_frame, const float* key_window, int ordered,
     const unsigned char* slot_votes, int total_bounces, float* contribution, float* origins_out,
     float* directions_out, float* throughput_out, unsigned char* alive_out, int* key_out,
-    int group, void* stream) {
+    int group, int quant, const float* blas_grid, const float* tlas_grid, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaSuccess);
   if (spheres_per_frame < 1 || n_frames < 1 || total_bounces < 1 || instances_per_frame < 1 ||
       n_tri_rows < 1 || n_nodes < 1 || tlas_nodes_per_frame < 1) {
@@ -305,35 +318,36 @@ extern "C" int pool_mesh_bounce_tlas_launch(
                           seeds,   bounces,    n_rays,     live_count};
   const pool::Spheres table = {reinterpret_cast<const float4*>(spheres), spheres_per_frame,
                                n_frames, params};
-  const Tables t = {{instances, reinterpret_cast<const float4*>(triangles),
-                     reinterpret_cast<const float4*>(node_bounds),
-                     reinterpret_cast<const int4*>(node_links), n_frames * instances_per_frame,
-                     n_nodes},
-                    reinterpret_cast<const float4*>(tlas_bounds),
-                    reinterpret_cast<const int4*>(tlas_links),
-                    tlas_nodes_per_frame,
-                    instances_per_frame,
-                    n_tri_rows,
-                    key_window,
-                    key_out};
   const int n_node_rows = (ordered ? 8 : 1) * n_nodes;
-  const Layout layout = plan(n_tri_rows, n_node_rows, spheres_per_frame, instances_per_frame,
-                             tlas_nodes_per_frame, n_frames);
   const pool::Outputs out = {contribution, origins_out, directions_out, throughput_out,
                              alive_out};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool o = ordered != 0;
-  switch (group) {
-    case 1: return launch_order<1>(in, table, t, layout, n_node_rows, o, slot_votes,
-                                   total_bounces, out, s);
-    case 2: return launch_order<2>(in, table, t, layout, n_node_rows, o, slot_votes,
-                                   total_bounces, out, s);
-    case 4: return launch_order<4>(in, table, t, layout, n_node_rows, o, slot_votes,
-                                   total_bounces, out, s);
-    case 8: return launch_order<8>(in, table, t, layout, n_node_rows, o, slot_votes,
-                                   total_bounces, out, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return mesh::with_format(quant, {blas_grid, tlas_grid}, [&](auto format) {
+    constexpr int Q = decltype(format)::value;
+    const Tables<Q> t = {{instances, reinterpret_cast<const float4*>(triangles),
+                          mesh::nodes_of<Q>(node_bounds, node_links, blas_grid, mesh::kLeafRows),
+                          n_frames * instances_per_frame, n_nodes},
+                         mesh::nodes_of<Q>(tlas_bounds, tlas_links, tlas_grid, 1),
+                         tlas_nodes_per_frame,
+                         instances_per_frame,
+                         n_tri_rows,
+                         key_window,
+                         key_out};
+    const Layout layout = plan<Q>(n_tri_rows, n_node_rows, spheres_per_frame,
+                                  instances_per_frame, tlas_nodes_per_frame, n_frames);
+    switch (group) {
+      case 1: return launch_order<1, Q>(in, table, t, layout, n_node_rows, o, slot_votes,
+                                        total_bounces, out, s);
+      case 2: return launch_order<2, Q>(in, table, t, layout, n_node_rows, o, slot_votes,
+                                        total_bounces, out, s);
+      case 4: return launch_order<4, Q>(in, table, t, layout, n_node_rows, o, slot_votes,
+                                        total_bounces, out, s);
+      case 8: return launch_order<8, Q>(in, table, t, layout, n_node_rows, o, slot_votes,
+                                        total_bounces, out, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  });
 }
 
 // The blocks of the group-G kernel resident on one SM at a launch of these
@@ -346,19 +360,23 @@ extern "C" int pool_mesh_bounce_tlas_occupancy(int group, int spheres_per_frame,
                                                int instances_per_frame, int n_tri_rows,
                                                int n_nodes, int tlas_nodes_per_frame,
                                                int ordered, int* shared_bytes,
-                                               int* staged_frames) {
-  const Layout layout = plan(n_tri_rows, (ordered ? 8 : 1) * n_nodes, spheres_per_frame,
-                             instances_per_frame, tlas_nodes_per_frame, n_frames);
-  *shared_bytes = static_cast<int>(layout.bytes);
-  *staged_frames = layout.bvh ? layout.frames : -1;
-  const bool o = ordered != 0;
-  switch (group) {
-    case 1: return o ? occupancy_group<1, true>(layout) : occupancy_group<1, false>(layout);
-    case 2: return o ? occupancy_group<2, true>(layout) : occupancy_group<2, false>(layout);
-    case 4: return o ? occupancy_group<4, true>(layout) : occupancy_group<4, false>(layout);
-    case 8: return o ? occupancy_group<8, true>(layout) : occupancy_group<8, false>(layout);
-    default: return -static_cast<int>(cudaErrorInvalidValue);
-  }
+                                               int* staged_frames, int quant) {
+  if (quant < 0 || quant > 2) return -static_cast<int>(cudaErrorInvalidValue);
+  return mesh::with_format(quant, {}, [&](auto format) {
+    constexpr int Q = decltype(format)::value;
+    const Layout layout = plan<Q>(n_tri_rows, (ordered ? 8 : 1) * n_nodes, spheres_per_frame,
+                                  instances_per_frame, tlas_nodes_per_frame, n_frames);
+    *shared_bytes = static_cast<int>(layout.bytes);
+    *staged_frames = layout.bvh ? layout.frames : -1;
+    const bool o = ordered != 0;
+    switch (group) {
+      case 1: return o ? occupancy_group<1, true, Q>(layout) : occupancy_group<1, false, Q>(layout);
+      case 2: return o ? occupancy_group<2, true, Q>(layout) : occupancy_group<2, false, Q>(layout);
+      case 4: return o ? occupancy_group<4, true, Q>(layout) : occupancy_group<4, false, Q>(layout);
+      case 8: return o ? occupancy_group<8, true, Q>(layout) : occupancy_group<8, false, Q>(layout);
+      default: return -static_cast<int>(cudaErrorInvalidValue);
+    }
+  });
 }
 
 extern "C" const char* pool_mesh_bounce_tlas_error_string(int code) {

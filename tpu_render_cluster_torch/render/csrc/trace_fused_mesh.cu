@@ -47,6 +47,11 @@
 // rounding are in mesh_common.cuh, shared with the per-bounce mesh kernel
 // (mesh_bounce.cu). Built with --fmad=false, so nvcc contracts nothing but
 // the fmaf written out there.
+//
+// Node format: the kernel is instantiated for the three formats of
+// mesh::Nodes (fp32, and the reference's quantized tiers 1 and 2, whose
+// staged tables take 16 or 12 bytes a node in place of 48); the launch's
+// `quant` picks one.
 
 #include "mesh_common.cuh"
 
@@ -58,12 +63,12 @@ using path::float3v;
 constexpr int kThreads = 256;
 constexpr int kPacket = 1024;
 
-template <bool kOrdered>
+template <bool kOrdered, int Q>
 __global__ void __launch_bounds__(kOrdered ? kPacket : kThreads)
 trace_fused_mesh_kernel(const float* __restrict__ origins,
                         const float* __restrict__ directions, int n_rays,
                         const float4* __restrict__ spheres, int n_spheres,
-                        const float* __restrict__ params, mesh::MeshTables tables,
+                        const float* __restrict__ params, mesh::MeshTablesOf<Q> tables,
                         int n_tri_rows, int n_node_rows, bool staged, size_t vote_offset,
                         bool instance_votes, uint32_t seed, int max_bounces,
                         float* __restrict__ radiance_out) {
@@ -116,17 +121,18 @@ trace_fused_mesh_kernel(const float* __restrict__ origins,
   }
 }
 
-template <bool kOrdered>
+template <bool kOrdered, int Q>
 int launch(const float* origins, const float* directions, int n_rays, const float* spheres,
-           int n_spheres, const float* params, const mesh::MeshTables& tables, int n_tri_rows,
-           int n_node_rows, int seed, int max_bounces, float* radiance, cudaStream_t stream) {
-  const auto kernel = trace_fused_mesh_kernel<kOrdered>;
+           int n_spheres, const float* params, const mesh::MeshTablesOf<Q>& tables,
+           int n_tri_rows, int n_node_rows, int seed, int max_bounces, float* radiance,
+           cudaStream_t stream) {
+  const auto kernel = trace_fused_mesh_kernel<kOrdered, Q>;
   const int threads = kOrdered ? kPacket : kThreads;
   const bool instance_votes = kOrdered && tables.n_nodes > 1;
   size_t shared_bytes, vote_offset;
   bool staged;
   const cudaError_t status = mesh::megakernel_shared(
-      kernel, mesh::table_bytes(n_tri_rows, n_node_rows, tables.n_instances),
+      kernel, mesh::table_bytes<Q>(n_tri_rows, n_node_rows, tables.n_instances),
       mesh::instance_vote_bytes(instance_votes, tables.n_instances), &shared_bytes, &staged,
       &vote_offset);
   if (status != cudaSuccess) return static_cast<int>(status);
@@ -146,33 +152,36 @@ int launch(const float* origins, const float* directions, int n_rays, const floa
 // params [18], instances [n_instances, 22], triangle rows [n_tri_rows, 16],
 // node bounds [n_nodes, 8] and node links [n_nodes, 4] (int32); `ordered`
 // nonzero: the node tables are the eight octant orders stacked, 8 n_nodes
-// rows.
+// rows. `quant` 1 or 2: `node_bounds` holds the quantized node words
+// (kernels.QuantTable), `node_links` is unused and `grid` points at the
+// table's grid, 6 floats in host memory.
 extern "C" int trace_fused_mesh_launch(const float* origins, const float* directions,
                                        int n_rays, const float* spheres, int n_spheres,
                                        const float* params, const float* instances,
                                        int n_instances, const float* triangles,
                                        int n_tri_rows, const float* node_bounds,
                                        const int* node_links, int n_nodes, int ordered,
-                                       int seed, int max_bounces, float* radiance,
-                                       void* stream) {
+                                       int seed, int max_bounces, float* radiance, int quant,
+                                       const float* grid, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaSuccess);
   if (n_spheres < 1 || n_spheres > path::kMaxSpheres || max_bounces < 0 ||
       n_instances < 0 || n_tri_rows < 1 || n_nodes < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const mesh::MeshTables tables = {instances,
-                                   reinterpret_cast<const float4*>(triangles),
-                                   reinterpret_cast<const float4*>(node_bounds),
-                                   reinterpret_cast<const int4*>(node_links),
-                                   n_instances,
-                                   n_nodes};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ordered) {
-    return launch<true>(origins, directions, n_rays, spheres, n_spheres, params, tables,
-                        n_tri_rows, 8 * n_nodes, seed, max_bounces, radiance, s);
-  }
-  return launch<false>(origins, directions, n_rays, spheres, n_spheres, params, tables,
-                       n_tri_rows, n_nodes, seed, max_bounces, radiance, s);
+  return mesh::with_format(quant, {grid}, [&](auto format) {
+    constexpr int Q = decltype(format)::value;
+    const mesh::MeshTablesOf<Q> tables = {
+        instances, reinterpret_cast<const float4*>(triangles),
+        mesh::nodes_of<Q>(node_bounds, node_links, grid, mesh::kLeafRows), n_instances,
+        n_nodes};
+    if (ordered) {
+      return launch<true, Q>(origins, directions, n_rays, spheres, n_spheres, params, tables,
+                             n_tri_rows, 8 * n_nodes, seed, max_bounces, radiance, s);
+    }
+    return launch<false, Q>(origins, directions, n_rays, spheres, n_spheres, params, tables,
+                            n_tri_rows, n_nodes, seed, max_bounces, radiance, s);
+  });
 }
 
 extern "C" const char* trace_fused_mesh_error_string(int code) {

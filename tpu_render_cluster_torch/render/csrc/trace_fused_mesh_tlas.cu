@@ -62,6 +62,12 @@
 // alike (as fast as the one-thread-a-ray kernel or up to 4% faster), and one
 // kernel body keeps the two orders' walks the same code. Built with
 // --fmad=false.
+//
+// Node format: the kernel is instantiated for the three formats of
+// mesh::Nodes (fp32, and the reference's quantized tiers 1 and 2: the BLAS
+// and the TLAS read 16 or 12 bytes a node in place of 48, both staged), the
+// launch's `quant` picking one; a quantized box contains the fp32 one, so
+// the radiance is the fp32 walk's.
 
 #include "mesh_common.cuh"
 
@@ -127,7 +133,8 @@ __device__ __forceinline__ int packet_octant(const PacketState& s, int* counters
 // (mesh::to_object, as the walk takes it) into octants[k]; counts, K ints
 // of shared memory (packed as the world vote's), are zero on entry and on
 // return.
-__device__ __forceinline__ void packet_instance_octants(const mesh::MeshTables& m,
+template <int Q>
+__device__ __forceinline__ void packet_instance_octants(const mesh::MeshTablesOf<Q>& m,
                                                         const PacketState& s, int* counts,
                                                         uint8_t* octants) {
   float3v d[kLanes];
@@ -173,15 +180,16 @@ struct Layout {
 };
 
 // The node tables' rows: N and M, or 8N and 8M for the octant orders.
+template <int Q>
 Layout plan(int n_tri_rows, int n_node_rows, int n_instances, int n_tlas_rows,
             bool instance_votes) {
   const size_t sizes[6] = {
       sizeof(float4) * 4 * static_cast<size_t>(n_tri_rows),
-      sizeof(float4) * 2 * static_cast<size_t>(n_node_rows),
-      sizeof(int4) * static_cast<size_t>(n_node_rows),
+      mesh::Nodes<Q>::part_bytes(0, n_node_rows),
+      mesh::Nodes<Q>::part_bytes(1, n_node_rows),
       sizeof(float) * mesh::kInstanceWidth * static_cast<size_t>(n_instances),
-      sizeof(float4) * 2 * static_cast<size_t>(n_tlas_rows),
-      sizeof(int4) * static_cast<size_t>(n_tlas_rows),
+      mesh::Nodes<Q>::part_bytes(0, n_tlas_rows),
+      mesh::Nodes<Q>::part_bytes(1, n_tlas_rows),
   };
   Layout layout = {};
   size_t total = 0;
@@ -199,13 +207,13 @@ Layout plan(int n_tri_rows, int n_node_rows, int n_instances, int n_tlas_rows,
 
 // kOrdered: the octant-ordered walk, each bounce's per-instance votes in
 // the vote region (`instance_votes`: the BVH has more than one node).
-template <bool kOrdered>
+template <bool kOrdered, int Q>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 trace_fused_mesh_tlas_kernel(const float* __restrict__ origins,
                              const float* __restrict__ directions, int n_rays,
                              const float4* __restrict__ spheres, int n_spheres,
-                             const float* __restrict__ params, mesh::MeshTables tables,
-                             mesh::TlasTables tlas, int n_tri_rows, int n_node_rows,
+                             const float* __restrict__ params, mesh::MeshTablesOf<Q> tables,
+                             mesh::TlasTablesOf<Q> tlas, int n_tri_rows, int n_node_rows,
                              Layout layout, bool instance_votes, uint32_t seed, int max_bounces,
                              float* __restrict__ radiance_out, int* __restrict__ next_packet) {
   __shared__ path::SceneShared scene;
@@ -218,24 +226,22 @@ trace_fused_mesh_tlas_kernel(const float* __restrict__ origins,
     const mesh::Range ranges[6] = {
         {smem + layout.offset[0], reinterpret_cast<const char*>(tables.tris),
          static_cast<uint32_t>(sizeof(float4) * 4 * n_tri_rows)},
-        {smem + layout.offset[1], reinterpret_cast<const char*>(tables.bounds),
-         static_cast<uint32_t>(sizeof(float4) * 2 * n_node_rows)},
-        {smem + layout.offset[2], reinterpret_cast<const char*>(tables.links),
-         static_cast<uint32_t>(sizeof(int4) * n_node_rows)},
+        {smem + layout.offset[1], tables.nodes.part(0),
+         static_cast<uint32_t>(mesh::Nodes<Q>::part_bytes(0, n_node_rows))},
+        {smem + layout.offset[2], tables.nodes.part(1),
+         static_cast<uint32_t>(mesh::Nodes<Q>::part_bytes(1, n_node_rows))},
         {smem + layout.offset[3], reinterpret_cast<const char*>(tables.inst),
          static_cast<uint32_t>(sizeof(float) * mesh::kInstanceWidth * tables.n_instances)},
-        {smem + layout.offset[4], reinterpret_cast<const char*>(tlas.bounds),
-         static_cast<uint32_t>(sizeof(float4) * 2 * tlas.n_rows)},
-        {smem + layout.offset[5], reinterpret_cast<const char*>(tlas.links),
-         static_cast<uint32_t>(sizeof(int4) * tlas.n_rows)},
+        {smem + layout.offset[4], tlas.nodes.part(0),
+         static_cast<uint32_t>(mesh::Nodes<Q>::part_bytes(0, tlas.n_rows))},
+        {smem + layout.offset[5], tlas.nodes.part(1),
+         static_cast<uint32_t>(mesh::Nodes<Q>::part_bytes(1, tlas.n_rows))},
     };
     mesh::stage_ranges(ranges, &barrier);
     tables.tris = reinterpret_cast<const float4*>(ranges[0].staged());
-    tables.bounds = reinterpret_cast<const float4*>(ranges[1].staged());
-    tables.links = reinterpret_cast<const int4*>(ranges[2].staged());
+    tables.nodes.set_parts(ranges[1].staged(), ranges[2].staged());
     tables.inst = reinterpret_cast<const float*>(ranges[3].staged());
-    tlas.bounds = reinterpret_cast<const float4*>(ranges[4].staged());
-    tlas.links = reinterpret_cast<const int4*>(ranges[5].staged());
+    tlas.nodes.set_parts(ranges[4].staged(), ranges[5].staged());
   }
   int* counts = reinterpret_cast<int*>(smem + layout.vote);
   uint8_t* octants = reinterpret_cast<uint8_t*>(counts + tables.n_instances);
@@ -302,12 +308,12 @@ trace_fused_mesh_tlas_kernel(const float* __restrict__ origins,
         const uint32_t path_lane = static_cast<uint32_t>(first + i);
         bool still;
         if constexpr (kOrdered) {
-          const mesh::TlasInstances<mesh::Octants> instances = {
+          const mesh::TlasInstances<mesh::Octants, Q> instances = {
               tlas, 0, tlas.n_nodes, {instance_votes ? octants : nullptr, tlas_row, sun_row}};
           still = mesh::bounce(scene, 0, n_spheres, tables, instances, path_lane, bounce,
                                counter_stride, seed, o, d, state.thr[i], state.rad[i]);
         } else {
-          const mesh::TlasInstances<> instances = {tlas, 0, tlas.n_nodes};
+          const mesh::TlasInstances<mesh::Canonical, Q> instances = {tlas, 0, tlas.n_nodes};
           still = mesh::bounce(scene, 0, n_spheres, tables, instances, path_lane, bounce,
                                counter_stride, seed, o, d, state.thr[i], state.rad[i]);
         }
@@ -328,15 +334,15 @@ trace_fused_mesh_tlas_kernel(const float* __restrict__ origins,
   }
 }
 
-template <bool kOrdered>
+template <bool kOrdered, int Q>
 int launch(const float* origins, const float* directions, int n_rays, const float* spheres,
-           int n_spheres, const float* params, const mesh::MeshTables& tables,
-           const mesh::TlasTables& tlas, int n_tri_rows, int n_node_rows, int seed,
+           int n_spheres, const float* params, const mesh::MeshTablesOf<Q>& tables,
+           const mesh::TlasTablesOf<Q>& tlas, int n_tri_rows, int n_node_rows, int seed,
            int max_bounces, float* radiance, int* work_counter, cudaStream_t stream) {
-  const auto kernel = trace_fused_mesh_tlas_kernel<kOrdered>;
+  const auto kernel = trace_fused_mesh_tlas_kernel<kOrdered, Q>;
   const bool instance_votes = kOrdered && tables.n_nodes > 1;
   const Layout layout =
-      plan(n_tri_rows, n_node_rows, tables.n_instances, tlas.n_rows, instance_votes);
+      plan<Q>(n_tri_rows, n_node_rows, tables.n_instances, tlas.n_rows, instance_votes);
   int resident = 0;
   cudaError_t status = mesh::card_blocks(kernel, kThreads, layout.bytes, &resident);
   if (status != cudaSuccess) return static_cast<int>(status);
@@ -362,53 +368,64 @@ int launch(const float* origins, const float* directions, int n_rays, const floa
 // stacked, [8 n_nodes] and [8 n_tlas_nodes] rows (kernels.tlas_octant_links);
 // after the radiance the work counter, one int32 in device memory that no
 // other launch uses meanwhile (cleared here on `stream` before the kernel).
+// Last, the node format: `quant` 1 or 2, `node_bounds` and `tlas_bounds`
+// hold the quantized node words (kernels.QuantTable), the links are unused,
+// and `blas_grid` and `tlas_grid` point at the tables' grids, 6 floats each
+// in host memory.
 extern "C" int trace_fused_mesh_tlas_launch(
     const float* origins, const float* directions, int n_rays, const float* spheres,
     int n_spheres, const float* params, const float* instances, int n_instances,
     const float* triangles, int n_tri_rows, const float* node_bounds, const int* node_links,
     int n_nodes, const float* tlas_bounds, const int* tlas_links, int n_tlas_nodes, int ordered,
-    int seed, int max_bounces, float* radiance, int* work_counter, void* stream) {
+    int seed, int max_bounces, float* radiance, int* work_counter, int quant,
+    const float* blas_grid, const float* tlas_grid, void* stream) {
   if (n_rays <= 0) return static_cast<int>(cudaSuccess);
   if (n_rays > INT32_MAX - kPacket || n_spheres < 1 || n_spheres > path::kMaxSpheres ||
       max_bounces < 0 || n_instances < 1 || n_tri_rows < 1 || n_nodes < 1 || n_tlas_nodes < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int orders = ordered ? 8 : 1;
-  const mesh::MeshTables tables = {instances,
-                                   reinterpret_cast<const float4*>(triangles),
-                                   reinterpret_cast<const float4*>(node_bounds),
-                                   reinterpret_cast<const int4*>(node_links),
-                                   n_instances,
-                                   n_nodes};
-  const mesh::TlasTables tlas = {reinterpret_cast<const float4*>(tlas_bounds),
-                                 reinterpret_cast<const int4*>(tlas_links), n_tlas_nodes,
-                                 orders * n_tlas_nodes};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ordered) {
-    return launch<true>(origins, directions, n_rays, spheres, n_spheres, params, tables, tlas,
-                        n_tri_rows, orders * n_nodes, seed, max_bounces, radiance, work_counter,
-                        s);
-  }
-  return launch<false>(origins, directions, n_rays, spheres, n_spheres, params, tables, tlas,
-                       n_tri_rows, n_nodes, seed, max_bounces, radiance, work_counter, s);
+  return mesh::with_format(quant, {blas_grid, tlas_grid}, [&](auto format) {
+    constexpr int Q = decltype(format)::value;
+    const mesh::MeshTablesOf<Q> tables = {
+        instances, reinterpret_cast<const float4*>(triangles),
+        mesh::nodes_of<Q>(node_bounds, node_links, blas_grid, mesh::kLeafRows), n_instances,
+        n_nodes};
+    const mesh::TlasTablesOf<Q> tlas = {mesh::nodes_of<Q>(tlas_bounds, tlas_links, tlas_grid, 1),
+                                        n_tlas_nodes, orders * n_tlas_nodes};
+    if (ordered) {
+      return launch<true, Q>(origins, directions, n_rays, spheres, n_spheres, params, tables,
+                             tlas, n_tri_rows, orders * n_nodes, seed, max_bounces, radiance,
+                             work_counter, s);
+    }
+    return launch<false, Q>(origins, directions, n_rays, spheres, n_spheres, params, tables,
+                            tlas, n_tri_rows, n_nodes, seed, max_bounces, radiance, work_counter,
+                            s);
+  });
 }
 
-// The blocks of the kernel of the walk order resident on one SM at a launch
-// of these tables (a negative CUDA error code on failure), with the
-// launch's dynamic shared memory in *shared_bytes.
+// The blocks of the kernel of the walk order and node format `quant`
+// resident on one SM at a launch of these tables (a negative CUDA error code
+// on failure), with the launch's dynamic shared memory in *shared_bytes.
 extern "C" int trace_fused_mesh_tlas_occupancy(int n_instances, int n_tri_rows, int n_nodes,
-                                               int n_tlas_nodes, int ordered, int* shared_bytes) {
+                                               int n_tlas_nodes, int ordered, int* shared_bytes,
+                                               int quant) {
+  if (quant < 0 || quant > 2) return -static_cast<int>(cudaErrorInvalidValue);
   const int orders = ordered ? 8 : 1;
-  const Layout layout = plan(n_tri_rows, orders * n_nodes, n_instances, orders * n_tlas_nodes,
-                             ordered && n_nodes > 1);
-  *shared_bytes = static_cast<int>(layout.bytes);
-  int blocks_per_sm = 0;
-  const cudaError_t status =
-      ordered ? mesh::blocks_per_sm(trace_fused_mesh_tlas_kernel<true>, kThreads, layout.bytes,
-                                    &blocks_per_sm)
-              : mesh::blocks_per_sm(trace_fused_mesh_tlas_kernel<false>, kThreads, layout.bytes,
-                                    &blocks_per_sm);
-  return status == cudaSuccess ? blocks_per_sm : -static_cast<int>(status);
+  return mesh::with_format(quant, {}, [&](auto format) {
+    constexpr int Q = decltype(format)::value;
+    const Layout layout = plan<Q>(n_tri_rows, orders * n_nodes, n_instances,
+                                  orders * n_tlas_nodes, ordered && n_nodes > 1);
+    *shared_bytes = static_cast<int>(layout.bytes);
+    int blocks_per_sm = 0;
+    const cudaError_t status =
+        ordered ? mesh::blocks_per_sm(trace_fused_mesh_tlas_kernel<true, Q>, kThreads,
+                                      layout.bytes, &blocks_per_sm)
+                : mesh::blocks_per_sm(trace_fused_mesh_tlas_kernel<false, Q>, kThreads,
+                                      layout.bytes, &blocks_per_sm);
+    return status == cudaSuccess ? blocks_per_sm : -static_cast<int>(status);
+  });
 }
 
 extern "C" const char* trace_fused_mesh_tlas_error_string(int code) {

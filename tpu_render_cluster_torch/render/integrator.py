@@ -34,6 +34,16 @@ it reproduces the reference's own CPU render. With ``per_instance=True`` as
 well, the two mesh queries take the reference's own CPU structure, a scan
 over the instances, each instance one launch of the single-BVH unit kernels
 (``intersect_mesh``, ``occluded_mesh``) in place of one instanced launch.
+
+The BVH tiers (the reference's ``TRC_TLAS``, ``TRC_BVH_QUANT``,
+``TRC_BVH_BUILDER`` and ``TRC_BVH_WIDE``) resolve at one site,
+``resolve_bvh_config``: an argument left None takes its environment tier.
+The renderer factories, the wavefront, the pool and the backend resolve
+them once per renderer or window, into their cache keys; below them every
+function takes concrete values and reads no environment. The BLAS build
+(``builder``, ``wide``) goes to ``scene_mesh_set``; the node format
+(``quant``) to the mesh kernels, whose images it leaves bit for bit as they
+are (the masked tier carries float32 throughput at every tier).
 """
 
 from __future__ import annotations
@@ -49,6 +59,8 @@ from tpu_render_cluster_torch.render.camera import Camera, camera_rays, scene_ca
 from tpu_render_cluster_torch.render.fp32 import dot3
 from tpu_render_cluster_torch.render.mesh import (
     MeshSet,
+    bvh_builder,
+    bvh_wide,
     intersect_instances,
     occluded_instances,
     scene_mesh_set,
@@ -374,6 +386,21 @@ def _ray_sort_order(origins, directions, alive, mesh=None) -> torch.Tensor:
     return torch.argsort(ray_sort_key(origins, directions, alive, mesh), stable=True)
 
 
+def resolve_bvh_config(use_tlas=None, quant=None, builder=None, wide=None):
+    """The BVH tiers as concrete values: ``(use_tlas, quant, builder,
+    wide)``, each argument left None taken from its environment tier
+    (``TRC_TLAS``, ``TRC_BVH_QUANT``, ``TRC_BVH_BUILDER``, ``TRC_BVH_WIDE``)
+    with the reference's clamps (``integrator.py:708-726``). The one site
+    the factories, drivers and the backend resolve them through, so an
+    environment change between calls takes a fresh cache key."""
+    return (
+        kernels.tlas_enabled() if use_tlas is None else bool(use_tlas),
+        kernels.bvh_quant_mode() if quant is None else max(0, min(int(quant), 2)),
+        bvh_builder() if builder is None else str(builder),
+        bvh_wide() if wide is None else max(1, min(int(wide), 8)),
+    )
+
+
 def trace_paths(
     scene: Scene,
     origins: torch.Tensor,
@@ -384,12 +411,14 @@ def trace_paths(
     mesh: MeshSet | None = None,
     use_tlas: bool | None = None,
     rng_lanes: torch.Tensor | None = None,
+    quant: int = 0,
 ) -> torch.Tensor:
     """Trace one sample per ray through the whole bounce loop; radiance
     [R, 3]. The reference's dispatch: no mesh -> the sphere megakernel; a
     mesh within the walk bound -> the mesh megakernel; a deeper mesh ->
     the per-bounce mesh kernel under the masked deep loop. ``use_tlas``
-    (None: ``kernels.use_tlas_for``) picks the mesh kernels' TLAS variant.
+    (None: ``kernels.use_tlas_for``) picks the mesh kernels' TLAS variant,
+    ``quant`` their node format.
 
     ``rng_lanes`` (int32 [R]) gives each ray its RNG counter, the region
     path's whole-frame lanes: the sphere megakernel then runs in its lane
@@ -402,15 +431,16 @@ def trace_paths(
         )
     if rng_lanes is None and kernels.mesh_megakernel_eligible(mesh):
         return kernels.trace_paths_fused_mesh(
-            scene, mesh, origins, directions, seed, max_bounces=max_bounces, use_tlas=use_tlas
+            scene, mesh, origins, directions, seed, max_bounces=max_bounces, use_tlas=use_tlas,
+            quant=quant,
         )
     return _trace_paths_deep(
-        scene, mesh, origins, directions, seed, max_bounces, use_tlas, rng_lanes
+        scene, mesh, origins, directions, seed, max_bounces, use_tlas, rng_lanes, quant
     )
 
 
 def _trace_paths_deep(
-    scene, mesh, origins, directions, seed, max_bounces, use_tlas=None, rng_lanes=None
+    scene, mesh, origins, directions, seed, max_bounces, use_tlas=None, rng_lanes=None, quant=0
 ):
     """The reference's masked deep loop: per bounce, re-sort the rays by the
     coherence key (dead lanes to the tail) with ONE packed [n, 12] gather
@@ -423,7 +453,9 @@ def _trace_paths_deep(
     (``integrator.py:475-525`` of the reference) bounce 0 sorts by
     ``kernels.initial_mesh_sort_keys`` and every later bounce by the key
     column the previous launch wrote; the flat variant sorts by
-    ``ray_sort_key``. Both sorts are stable, as ``jnp.argsort``."""
+    ``ray_sort_key``. Both sorts are stable, as ``jnp.argsort``. ``quant``
+    is the kernel's node format; the loop carries float32 throughput at
+    every tier, as the reference's (``integrator.py:478-521``)."""
     n = origins.shape[0]
     device = origins.device
     throughput = torch.ones((n, 3), dtype=torch.float32, device=device)
@@ -445,7 +477,7 @@ def _trace_paths_deep(
         live = alive.sum(dtype=torch.int32)
         step = kernels.mesh_bounce(
             scene, mesh, origins, directions, throughput, alive, counter, live, seed, bounce,
-            total_bounces=max_bounces, use_tlas=tlas,
+            total_bounces=max_bounces, use_tlas=tlas, quant=quant,
         )
         origins, directions, throughput, alive = (
             step.origins, step.directions, step.throughput, step.alive
@@ -472,6 +504,7 @@ def render_tile(
     bounce_scan: bool = False,
     per_instance: bool = False,
     use_tlas: bool | None = None,
+    quant: int = 0,
 ) -> torch.Tensor:
     """Render a tile; returns [tile_height, tile_width, 3] linear radiance.
 
@@ -482,8 +515,8 @@ def render_tile(
     s)`` and traces through ``trace_paths_scan`` with that key's second
     split, and the samples' radiance is summed, then divided by ``samples``.
     ``per_instance`` (with ``bounce_scan`` only) walks the instances one
-    by one. ``use_tlas`` goes to ``trace_paths`` (the scan has no TLAS
-    variant).
+    by one. ``use_tlas`` and ``quant`` go to ``trace_paths`` (the scan has
+    no TLAS variant and no node format).
     """
     _check_per_instance(per_instance, bounce_scan)
     n = tile_height * tile_width
@@ -509,7 +542,7 @@ def render_tile(
     )
     radiance = trace_paths(
         scene, origins, directions, trace_seed(tile_trace_key(base_key)),
-        max_bounces=max_bounces, mesh=mesh, use_tlas=use_tlas,
+        max_bounces=max_bounces, mesh=mesh, use_tlas=use_tlas, quant=quant,
     )
     image = radiance.reshape(samples, n, 3).mean(dim=0)
     return image.reshape(tile_height, tile_width, 3)
@@ -528,24 +561,29 @@ def render_frame(
     bounce_scan: bool = False,
     per_instance: bool = False,
     use_tlas: bool | None = None,
+    quant: int | None = None,
+    builder: str | None = None,
+    wide: int | None = None,
 ) -> torch.Tensor:
     """Render a whole frame; returns [H, W, 3] linear radiance on ``device``
     (``bounce_scan``: through the per-bounce scan renderer; ``per_instance``
-    as well: its mesh queries as a scan over the instances; ``use_tlas``:
-    the mesh kernels' variant, None for ``kernels.use_tlas_for``).
+    as well: its mesh queries as a scan over the instances; ``use_tlas``,
+    ``quant``, ``builder``, ``wide``: the BVH tiers, None for the
+    environment's, ``resolve_bvh_config``).
 
     ``tile_size``: the reference's local tiling, one ``render_tile`` per
     ``tile_size`` square (smaller at the right and bottom edges), each with
     its own RNG root ``tile_base_key(frame, y0, x0)``, concatenated. The
     image differs from the untiled one in its noise, not its content."""
     device = resolve_device(device)
+    use_tlas, quant, builder, wide = resolve_bvh_config(use_tlas, quant, builder, wide)
     scene = build_scene(scene_name, frame_index, device)
     camera = scene_camera(scene_name, frame_index, device)
-    mesh = scene_mesh_set(scene_name, frame_index, device=device)
+    mesh = scene_mesh_set(scene_name, frame_index, builder, wide, device)
     tile = functools.partial(
         render_tile, scene, camera, frame_index, width=width, height=height,
         samples=samples, max_bounces=max_bounces, mesh=mesh, bounce_scan=bounce_scan,
-        per_instance=per_instance, use_tlas=use_tlas,
+        per_instance=per_instance, use_tlas=use_tlas, quant=quant,
     )
     if tile_size is None:
         return tile(0, 0, tile_height=height, tile_width=width)
@@ -573,7 +611,8 @@ def tonemap(image: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=32)
 def _fused_frame_renderer(
     scene_name: str, width: int, height: int, samples: int, max_bounces: int,
-    device: torch.device, bounce_scan: bool, per_instance: bool, use_tlas: bool | None,
+    device: torch.device, bounce_scan: bool, per_instance: bool, use_tlas: bool, quant: int,
+    builder: str, wide: int,
 ):
     def render(frame: int) -> torch.Tensor:
         scene = build_scene(scene_name, frame, device)
@@ -582,8 +621,8 @@ def _fused_frame_renderer(
             scene, camera, frame, 0, 0,
             width=width, height=height, tile_height=height, tile_width=width,
             samples=samples, max_bounces=max_bounces,
-            mesh=scene_mesh_set(scene_name, frame, device=device), bounce_scan=bounce_scan,
-            per_instance=per_instance, use_tlas=use_tlas,
+            mesh=scene_mesh_set(scene_name, frame, builder, wide, device),
+            bounce_scan=bounce_scan, per_instance=per_instance, use_tlas=use_tlas, quant=quant,
         )
         return tonemap(linear)
 
@@ -600,6 +639,9 @@ def fused_frame_renderer(
     bounce_scan: bool = False,
     per_instance: bool = False,
     use_tlas: bool | None = None,
+    quant: int | None = None,
+    builder: str | None = None,
+    wide: int | None = None,
 ):
     """A cached ``frame -> uint8 [H, W, 3]`` callable for one scene/config.
 
@@ -608,26 +650,31 @@ def fused_frame_renderer(
     for) and is part of the cache key, as are ``bounce_scan`` (the
     per-bounce scan renderer in place of the kernel dispatch of
     ``trace_paths``), ``per_instance`` (the scan's mesh queries walked
-    instance by instance; needs ``bounce_scan``) and ``use_tlas`` (the mesh
-    kernels' variant; None for ``kernels.use_tlas_for``).
+    instance by instance; needs ``bounce_scan``) and the BVH tiers
+    ``use_tlas``, ``quant``, ``builder`` and ``wide``, resolved here
+    (``resolve_bvh_config``: None takes the environment's), so renderers of
+    distinct tiers live side by side.
     """
     _check_per_instance(per_instance, bounce_scan)
     return _fused_frame_renderer(
         scene_name, width, height, samples, max_bounces, resolve_device(device),
-        bool(bounce_scan), bool(per_instance), None if use_tlas is None else bool(use_tlas),
+        bool(bounce_scan), bool(per_instance), *resolve_bvh_config(use_tlas, quant, builder, wide),
     )
+
+
+fused_frame_renderer.cache_clear = _fused_frame_renderer.cache_clear
 
 
 @functools.lru_cache(maxsize=64)
 def _fused_region_renderer(
     scene_name: str, width: int, height: int, tile_height: int, tile_width: int,
     samples: int, max_bounces: int, device: torch.device, bounce_scan: bool,
-    per_instance: bool, use_tlas: bool | None,
+    per_instance: bool, use_tlas: bool, quant: int, builder: str, wide: int,
 ):
     def render(frame: int, y0: int, x0: int) -> torch.Tensor:
         scene = build_scene(scene_name, frame, device)
         camera = scene_camera(scene_name, frame, device)
-        mesh = scene_mesh_set(scene_name, frame, device=device)
+        mesh = scene_mesh_set(scene_name, frame, builder, wide, device)
         origins, directions, lanes, seed = region_rays_and_seed(
             camera, frame, width=width, height=height, samples=samples, y0=y0, x0=x0,
             tile_height=tile_height, tile_width=tile_width,
@@ -644,7 +691,7 @@ def _fused_region_renderer(
         else:
             radiance = trace_paths(
                 scene, origins, directions, seed, max_bounces=max_bounces, mesh=mesh,
-                use_tlas=use_tlas, rng_lanes=lanes,
+                use_tlas=use_tlas, rng_lanes=lanes, quant=quant,
             )
         n = tile_height * tile_width
         return radiance.reshape(samples, n, 3).mean(dim=0).reshape(tile_height, tile_width, 3)
@@ -664,6 +711,9 @@ def fused_region_renderer(
     bounce_scan: bool = False,
     per_instance: bool = False,
     use_tlas: bool | None = None,
+    quant: int | None = None,
+    builder: str | None = None,
+    wide: int | None = None,
 ):
     """A cached ``(frame, y0, x0) -> [th, tw, 3] linear`` region renderer,
     one per tile shape and device: every tile position and frame of a grid
@@ -675,14 +725,17 @@ def fused_region_renderer(
     of the sphere megakernel, mesh scenes through the masked deep loop with
     the lanes as RNG counters. ``bounce_scan`` (and ``per_instance``) take
     the scan renderer over the region's rays instead. The result is linear,
-    not tonemapped.
+    not tonemapped. The BVH tiers resolve as ``fused_frame_renderer``'s.
     """
     _check_per_instance(per_instance, bounce_scan)
     return _fused_region_renderer(
         scene_name, width, height, tile_height, tile_width, samples, max_bounces,
         resolve_device(device), bool(bounce_scan), bool(per_instance),
-        None if use_tlas is None else bool(use_tlas),
+        *resolve_bvh_config(use_tlas, quant, builder, wide),
     )
+
+
+fused_region_renderer.cache_clear = _fused_region_renderer.cache_clear
 
 
 def render_frame_region(
@@ -701,10 +754,14 @@ def render_frame_region(
     bounce_scan: bool = False,
     per_instance: bool = False,
     use_tlas: bool | None = None,
+    quant: int | None = None,
+    builder: str | None = None,
+    wide: int | None = None,
 ) -> torch.Tensor:
     """Render one region of a frame; [tile_height, tile_width, 3] linear on
     ``device``, the whole frame's pixels there (``fused_region_renderer``)."""
     return fused_region_renderer(
         scene_name, width, height, tile_height, tile_width, samples, max_bounces, device,
-        bounce_scan=bounce_scan, per_instance=per_instance, use_tlas=use_tlas,
+        bounce_scan=bounce_scan, per_instance=per_instance, use_tlas=use_tlas, quant=quant,
+        builder=builder, wide=wide,
     )(frame_index, y0, x0)

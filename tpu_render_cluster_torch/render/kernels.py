@@ -89,6 +89,23 @@ operation for operation; there is no fallback from one to the other.
 show which one the main path went through; a TLAS variant counts under its
 own name (``..._tlas``, ``..._tlas_reference``).
 
+The node format of rows 3, 4 and 6 and the key pass (the reference's
+``TRC_BVH_QUANT`` tiers, ``quant``): 0 the fp32 tables; 1 and 2 the
+quantized ones (``mesh.quantize_node_tables``: 16-bit or 8-bit slabs and
+one meta word a node, 16 or 12 bytes), which the kernels read through the
+node-format template of ``csrc/mesh_common.cuh`` and reconstruct as
+``origin + q * cell``. A quantized box contains its fp32 original, so the
+walk visits a superset of the fp32 walk's nodes and every result is the
+fp32 walk's; only the keyed launches (row 4 TLAS, its key pass, row 6
+TLAS) change a column: a lane that hit an instance keys with that slot
+and drives no entry walk (the packed-key rule). A wrapper takes the tier
+it is given (the drivers resolve it, ``integrator.resolve_bvh_config``),
+degraded to 0 by the reference's range rule (``resolve_bvh_quant``), and
+counts its launches under the tier's own name (``quant_name``). The
+quantized tables are packed once per BVH and tier, a frame's TLAS where
+its operands lie (``tlas_quant_table``), a pool window's frames against
+one grid (``pool_tlas_quant``).
+
 RNG: a counter-based PCG hash of (lane, bounce, seed), the same portable
 integer hash the TPU kernel uses, so the kernel and the plain version draw
 the reference's random numbers bit for bit. The per-bounce kernels take
@@ -99,6 +116,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import logging
 import math
 from typing import NamedTuple, Sequence
 
@@ -109,17 +127,27 @@ from tpu_render_cluster_torch.render.fp32 import INV_PI, dot3, fma
 from tpu_render_cluster_torch.render.fp32 import sqrt as fp32_sqrt
 from tpu_render_cluster_torch.render.mesh import (
     LEAF_SIZE,
+    QUANT_MAX_COUNT,
+    QUANT_MAX_FIRST_UNITS,
+    QUANT_MAX_NODES,
     MeshBVH,
     MeshSet,
     TlasFrame,
     TlasTopology,
     cached_tlas_topology,
+    dequantize_node_bounds,
     instance_morton_order,
     morton_dilate5,
+    quant_grid,
+    quantize_node_tables,
     tlas_node_bounds,
+    unpack_node_meta,
 )
 from tpu_render_cluster_torch.render.rng import MASK32
 from tpu_render_cluster_torch.render.scene import Scene
+from tpu_render_cluster_torch.utils.env import env_int, env_str
+
+logger = logging.getLogger(__name__)
 
 EPS = 1e-3
 INF = 1e30
@@ -146,6 +174,10 @@ KEY_DEAD_BIT = 29
 # kernel's follows each launch's width (``bounce_group``).
 GROUPS = (1, 2, 4, 8)
 POOL_GROUP = 4
+# The reference's default pool window (``TRC_RAYPOOL_FRAMES``): it pads a
+# window to this many frames, and its node format's degrade rule counts the
+# padded window's TLAS (``pool_quant``).
+RAYPOOL_FRAMES = 8
 # The scan's instanced any-hit kernel's default G: 0, each warp's pick for
 # its batch of walking rays (the nearest hit's G: ``instance_group``).
 OCCLUDED_GROUP = 0
@@ -197,6 +229,29 @@ counts = {
     "mesh_entry_keys_reference": 0,
 }
 
+# The kernels that read node tables, and so take a quantized node format:
+# rows 3, 4 and 6, flat and TLAS, and the key pass. A launch at tier 1 or 2
+# (and a plain-version call) counts under its name with the tier appended
+# (``quant_name``), not under the fp32 name; such a count enters ``counts``
+# with its first launch and leaves it at ``reset_counts``.
+QUANT_KERNELS = (
+    "trace_fused_mesh", "trace_fused_mesh_tlas", "mesh_bounce", "mesh_bounce_tlas",
+    "pool_mesh_bounce", "pool_mesh_bounce_tlas", "mesh_entry_keys",
+)
+QUANT_TIERS = (1, 2)
+_FP32_COUNTS = frozenset(counts)
+
+
+def quant_name(name: str, quant: int) -> str:
+    """The count of ``name`` (a kernel or its ``_reference``) at node
+    format ``quant``: ``name`` itself at 0, else ``name[q<quant>]``."""
+    return f"{name}[q{quant}]" if quant else name
+
+
+def _count(name: str, quant: int = 0) -> None:
+    key = quant_name(name, quant)
+    counts[key] = counts.get(key, 0) + 1
+
 
 # The passes one launch of a per-bounce or pool mesh kernel brings with it
 # on the octant-ordered walk (a BVH with octant tables): the packet vote
@@ -209,15 +264,20 @@ ORDERED_PASSES = {
 }
 
 
-def launch_names(kernel: str, ordered: bool = True) -> tuple[str, ...]:
+def launch_names(kernel: str, ordered: bool = True, quant: int = 0) -> tuple[str, ...]:
     """The counts one launch of ``kernel`` through its wrapper adds one to:
-    its own and, on the octant-ordered walk, its passes'."""
-    return (kernel, *ORDERED_PASSES.get(kernel, ())) if ordered else (kernel,)
+    its own and, on the octant-ordered walk, its passes', at node format
+    ``quant`` (the tier the launch resolved to)."""
+    names = (kernel, *ORDERED_PASSES.get(kernel, ())) if ordered else (kernel,)
+    return tuple(quant_name(n, quant) if n in QUANT_KERNELS else n for n in names)
 
 
 def reset_counts() -> None:
-    for name in counts:
-        counts[name] = 0
+    for name in list(counts):
+        if name in _FP32_COUNTS:
+            counts[name] = 0
+        else:
+            del counts[name]
 
 
 def bounce_group(rays: int, card_threads: int) -> int:
@@ -263,8 +323,94 @@ def use_tlas_for(k_count: int, use_tlas: bool | None = None) -> bool:
     """Whether a field of ``k_count`` instances takes the two-level walk:
     ``use_tlas`` (None: on, the reference's default) and more instances
     than one TLAS leaf holds (a smaller field is the flat sweep plus a root
-    test). The reference's rule, its environment knob an argument here."""
+    test). The reference's rule; its environment tier ``TRC_TLAS`` is
+    resolved by the drivers (``integrator.resolve_bvh_config``), never
+    here."""
     return (True if use_tlas is None else bool(use_tlas)) and k_count > TLAS_LEAF
+
+
+def tlas_enabled() -> bool:
+    """The ``TRC_TLAS`` tier: the two-level walk unless it says 0, false,
+    off or no (default on)."""
+    value = env_str("TRC_TLAS")
+    return value is None or value not in ("0", "false", "off", "no")
+
+
+def bvh_quant_mode() -> int:
+    """The ``TRC_BVH_QUANT`` tier, clamped to [0, 2] (default 0): the node
+    format of rows 3, 4 and 6 and, at 1 or 2, the bf16-packed throughput
+    the wavefront and the pool carry between launches."""
+    return max(0, min(env_int("TRC_BVH_QUANT", 0), 2))
+
+
+def resolve_bvh_quant(quant: int, *tables: tuple[int, int, int]) -> int:
+    """The node format a launch takes: ``quant`` clamped to [0, 2], or 0
+    when a node table outgrows the meta word's ranges (the reference's
+    rule, ``pallas_kernels.py:202-233``). Each table is (nodes, ``first``
+    units, largest count); the skip links range over [0, nodes], so nodes
+    must stay below 2^16. A degrade is logged once per tables."""
+    if not quant:
+        return 0
+    for n_nodes, first_units, max_count in tables:
+        if (n_nodes >= QUANT_MAX_NODES or first_units > QUANT_MAX_FIRST_UNITS
+                or max_count > QUANT_MAX_COUNT):
+            _log_degrade(int(quant), tuple(tables))
+            return 0
+    return max(0, min(int(quant), 2))
+
+
+@functools.cache
+def _log_degrade(quant: int, tables: tuple) -> None:
+    logger.warning("node format %d degraded to 0: a table of %s passes the meta word's "
+                   "ranges (nodes < %d, first units <= %d, count <= %d)", quant, tables,
+                   QUANT_MAX_NODES, QUANT_MAX_FIRST_UNITS, QUANT_MAX_COUNT)
+
+
+def _blas_counts(bvh: MeshBVH) -> tuple[int, int, int]:
+    """A BVH's node table as ``resolve_bvh_quant`` counts it (the
+    reference's: the largest count is a leaf slot's rows)."""
+    return (bvh.skip.shape[0], bvh.v0.shape[0] // LEAF_SIZE, LEAF_SIZE)
+
+
+def _tlas_counts(k_count: int, frames: int = 1) -> tuple[int, int, int]:
+    """A TLAS of ``frames`` stacked K-slot windows as ``resolve_bvh_quant``
+    counts it."""
+    m = len(cached_tlas_topology(k_count, TLAS_LEAF).skip)
+    return (frames * m, frames * k_count, TLAS_LEAF)
+
+
+def mesh_quant(mesh: MeshSet, quant: int, tlas: bool, frames: int = 1) -> int:
+    """The node format a launch over ``mesh`` (``tlas``: its TLAS too, of
+    ``frames`` stacked windows) takes at tier ``quant``."""
+    tables = [_blas_counts(mesh.bvh)]
+    if tlas:
+        tables.append(_tlas_counts(mesh.instances.translation.shape[0], frames))
+    return resolve_bvh_quant(quant, *tables)
+
+
+# ---------------------------------------------------------------------------
+# The carried state of the quantized tiers (the reference's
+# ``pallas_kernels.py:363-385``): the wavefront and the pool carry the
+# throughput column as bf16, two to a float32 word ([R, 2] words for [R, 3]
+# values, one pad). The kernels compute in float32: the drivers pack after
+# a launch and unpack before the next.
+
+
+def pack_throughput_bf16(throughput: torch.Tensor) -> torch.Tensor:
+    """[R, 3] float32 -> [R, 2] float32 words holding 4 bf16 lanes (the
+    three values rounded to nearest even, then a zero), the reference's
+    words bit for bit."""
+    half = torch.cat([
+        throughput.to(torch.bfloat16),
+        torch.zeros((throughput.shape[0], 1), dtype=torch.bfloat16, device=throughput.device),
+    ], dim=1)
+    return half.view(torch.float32)
+
+
+def unpack_throughput_bf16(packed: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pack_throughput_bf16``: [R, 2] words -> [R, 3]
+    float32."""
+    return packed.contiguous().view(torch.bfloat16)[:, :3].to(torch.float32)
 
 
 def pcg_hash(x: torch.Tensor) -> torch.Tensor:
@@ -418,36 +564,42 @@ _LAUNCH_ARGTYPES = {
     "trace_fused_lanes": [
         _PTR, _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, _INT, _INT, _PTR, _PTR, _PTR,
     ],
+    # The mesh path kernels and the key pass end with their node format:
+    # the tier and the host address of each node table's grid (BLAS, then
+    # TLAS), then the stream.
     "trace_fused_mesh": [
-        _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, _INT, _INT, _PTR, _PTR,
+        _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, _INT, _INT, _PTR, _INT,
+        _PTR, _PTR,
     ],
     "sphere_bounce": [*_STATE_ARGTYPES, *_SPHERE_ARGTYPES, _INT, _INT, _INT, *_OUTPUT_ARGTYPES],
     "mesh_bounce": [
         *_STATE_ARGTYPES, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, _PTR, _INT, _INT, _INT,
-        *_OUTPUT_ARGTYPES,
+        *_OUTPUT_ARGTYPES[:-1], _INT, _PTR, _PTR,
     ],
     "pool_sphere_bounce": [
         *_POOL_STATE_ARGTYPES, *_POOL_SPHERE_ARGTYPES, _INT, *_OUTPUT_ARGTYPES,
     ],
     "pool_mesh_bounce": [
         *_POOL_STATE_ARGTYPES, *_POOL_SPHERE_ARGTYPES, *_MESH_ARGTYPES, _INT, _PTR, _INT,
-        *_OUTPUT_ARGTYPES,
+        *_OUTPUT_ARGTYPES[:-1], _INT, _PTR, _PTR,
     ],
     # The TLAS megakernel's persistent blocks: after the radiance, the work
     # counter.
     "trace_fused_mesh_tlas": [
         _PTR, _PTR, _INT, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, *_TLAS_ARGTYPES, _INT, _INT, _INT,
-        _PTR, _PTR, _PTR,
+        _PTR, _PTR, _INT, _PTR, _PTR, _PTR,
     ],
     # The group walk's kernels: after the key, the group size G; the
-    # per-bounce one then its work counter.
+    # per-bounce one then its work counter, and after its node format the
+    # hit column of its key pass (the packed-key rule; null where none).
     "mesh_bounce_tlas": [
         *_STATE_ARGTYPES, *_SPHERE_ARGTYPES, *_MESH_ARGTYPES, *_TLAS_ARGTYPES, _PTR, _PTR, _PTR,
-        _INT, _INT, _INT, *_KEYED_OUTPUT_ARGTYPES[:-1], _INT, _PTR, _PTR,
+        _INT, _INT, _INT, *_KEYED_OUTPUT_ARGTYPES[:-1], _INT, _PTR, _INT, _PTR, _PTR, _PTR,
+        _PTR,
     ],
     "pool_mesh_bounce_tlas": [
         *_POOL_STATE_ARGTYPES, *_POOL_SPHERE_ARGTYPES, *_MESH_ARGTYPES, *_TLAS_ARGTYPES, _PTR,
-        _INT, _PTR, _INT, *_KEYED_OUTPUT_ARGTYPES[:-1], _INT, _PTR,
+        _INT, _PTR, _INT, *_KEYED_OUTPUT_ARGTYPES[:-1], _INT, _INT, _PTR, _PTR, _PTR,
     ],
     # The ordered walk's vote pre-pass: directions, n_rays, the live count,
     # the packet, the lanes' frame ids (null: every row) and the rows per
@@ -458,10 +610,11 @@ _LAUNCH_ARGTYPES = {
     # directions and alive, n_rays, the live count, the slots and their
     # count, the ordered TLAS (bounds, links, M), the key window, bounce,
     # total_bounces, the key, its persistent blocks' work counter, the
-    # stream.
+    # node format (the tier, the TLAS grid), the bounce's hit column (the
+    # packed-key rule; null at tier 0), the stream.
     "mesh_entry_keys": [
         _PTR, _PTR, _PTR, _INT, _PTR, _PTR, _INT, _PTR, _PTR, _INT, _PTR, _INT, _INT, _PTR, _PTR,
-        _PTR,
+        _INT, _PTR, _PTR, _PTR,
     ],
     # A unit kernel: the rays (and its per-ray input), n_rays, the tables,
     # its outputs and the stream.
@@ -703,20 +856,25 @@ def trace_paths_fused_mesh(
     *,
     max_bounces: int,
     use_tlas: bool | None = None,
+    quant: int = 0,
 ) -> torch.Tensor:
     """Path-trace each ray of a mesh scene through the whole bounce loop;
     radiance ``[R, 3]``. CUDA tensors go to the mesh megakernel, CPU
     tensors to its plain version. Takes any mesh: the eligibility rule is
     the caller's (``integrator.trace_paths``). ``use_tlas`` (None:
-    ``use_tlas_for``) picks the two-level variant."""
+    ``use_tlas_for``) picks the two-level variant, ``quant`` the node
+    format (``mesh_quant``: the reference's degrade rule)."""
     _check_inputs(scene, origins, directions, seed)
     _check_mesh(mesh, origins)
     tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas)
+    quant = mesh_quant(mesh, quant, tlas)
     if origins.device.type == "cuda":
-        return _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces, tlas)
+        return _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces, tlas,
+                                        quant)
     if origins.device.type == "cpu":
         return trace_paths_fused_mesh_reference(
-            scene, mesh, origins, directions, seed, max_bounces=max_bounces, use_tlas=tlas
+            scene, mesh, origins, directions, seed, max_bounces=max_bounces, use_tlas=tlas,
+            quant=quant,
         )
     raise ValueError(f"Unsupported device {origins.device}")
 
@@ -749,6 +907,50 @@ _bvh_operands = _IdentityCache(_pack_bvh)
 _ordered_bvh_operands = _IdentityCache(functools.partial(_pack_bvh, ordered=True))
 
 
+class QuantTable(NamedTuple):
+    """A node table in a quantized format, as the kernels read it: ``words``
+    [N, W] int32 on the table's device (W = 4 at tier 1: the three slab
+    words, then the meta word, 16 bytes a node; W = 3 at tier 2: two slab
+    words and the meta word, 12 bytes), and its ``grid`` [6] float32
+    (origin, cell) on the host, which a launch passes by value."""
+
+    words: torch.Tensor
+    grid: torch.Tensor
+
+
+def quant_table(lo, hi, skip, first, count, quant: int, first_unit: int,
+                grid: torch.Tensor | None = None) -> QuantTable:
+    """``quantize_node_tables`` of a table: its slab words and meta word as
+    one row a node where ``lo`` lies, and its grid on the host."""
+    bq, meta, grid = quantize_node_tables(lo, hi, skip, first, count, quant=quant,
+                                          first_unit=first_unit, grid=grid)
+    return QuantTable(torch.cat([bq, meta[:, None]], dim=1).contiguous(), grid.cpu().contiguous())
+
+
+def _pack_quant_bvh(bvh: MeshBVH, quant: int, ordered: bool) -> QuantTable:
+    """A BVH's node table (``ordered``: its eight octant orders stacked, the
+    reference's BLAS operand on a BVH with octant tables) at tier
+    ``quant``: quantized on the host, the words copied to the BVH's
+    device."""
+    nodes = bvh.octant if ordered else bvh
+    table = quant_table(*(t.cpu() for t in (nodes.bounds_min, nodes.bounds_max, nodes.skip,
+                                            nodes.first, nodes.count)), quant, LEAF_SIZE)
+    return table._replace(words=table.words.to(bvh.v0.device))
+
+
+# A BVH's quantized tables, packed once per BVH, tier and order.
+_quant_bvh_operands = {
+    (quant, ordered): _IdentityCache(functools.partial(_pack_quant_bvh, quant=quant,
+                                                       ordered=ordered))
+    for quant in QUANT_TIERS for ordered in (False, True)
+}
+
+
+def bvh_quant_table(bvh: MeshBVH, quant: int, ordered: bool) -> QuantTable:
+    """The BLAS node table of a launch at tier ``quant`` (1 or 2)."""
+    return _quant_bvh_operands[(quant, ordered)](bvh)
+
+
 def walks_ordered(bvh: MeshBVH) -> bool:
     """Whether the path kernels (rows 3, 4 and 6) walk this BVH in the
     octant order: wherever it carries octant tables (every ``sah`` build),
@@ -756,37 +958,47 @@ def walks_ordered(bvh: MeshBVH) -> bool:
     return bvh.octant is not None
 
 
-def _bvh_tables(bvh: MeshBVH, ordered: bool = False) -> list:
+def _bvh_tables(bvh: MeshBVH, ordered: bool = False, quant: int = 0) -> list:
     """The BVH arguments of a launch (``_BVH_ARGTYPES``): the node count is
-    N, and an ordered launch's tables hold 8N rows."""
+    N, and an ordered launch's tables hold 8N rows; at tier ``quant`` the
+    node words in place of the bounds, and no links."""
     triangles, bounds, links = (_ordered_bvh_operands if ordered else _bvh_operands)(bvh)
+    if quant:
+        bounds, links = bvh_quant_table(bvh, quant, ordered).words, None
     return [
-        triangles.data_ptr(), triangles.shape[0], bounds.data_ptr(), links.data_ptr(),
+        triangles.data_ptr(), triangles.shape[0], bounds.data_ptr(), _pointer(links),
         bvh.skip.shape[0],
     ]
 
 
-def _mesh_tables(mesh: MeshSet, tlas: bool = False, ordered: bool = False) -> list:
+def _mesh_tables(mesh: MeshSet, tlas: bool = False, ordered: bool = False, quant: int = 0) -> list:
     """The mesh arguments of a launch (``_MESH_ARGTYPES``; with ``tlas``,
     the instances in slot order, then the frame's TLAS, ``_TLAS_ARGTYPES``:
     with ``ordered``, its eight octant orders stacked [8M], the node count
-    M)."""
+    M; at tier ``quant`` the node words in place of bounds and links)."""
     if not tlas:
         table = instance_operands(mesh)
-        return [table.data_ptr(), table.shape[0], *_bvh_tables(mesh.bvh, ordered)]
+        return [table.data_ptr(), table.shape[0], *_bvh_tables(mesh.bvh, ordered, quant)]
     frame = tlas_frame(mesh)
     k_count = frame.slots.shape[0]
-    if ordered:
+    if quant:
+        bounds, links = tlas_quant_table(mesh, quant, ordered).words, None
+    elif ordered:
         bounds, links = frame.octant_node_bounds, tlas_octant_links(k_count, frame.slots.device)
     else:
         bounds, links = frame.node_bounds, tlas_links(k_count, 1, frame.slots.device)
     return [
-        frame.slots.data_ptr(), k_count, *_bvh_tables(mesh.bvh, ordered),
-        bounds.data_ptr(), links.data_ptr(), frame.node_bounds.shape[0],
+        frame.slots.data_ptr(), k_count, *_bvh_tables(mesh.bvh, ordered, quant),
+        bounds.data_ptr(), _pointer(links), frame.node_bounds.shape[0],
     ]
 
 
-def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces, tlas):
+def _grid(table: QuantTable | None) -> int:
+    """The host address of a quantized table's grid (0: none, tier 0)."""
+    return 0 if table is None else table.grid.data_ptr()
+
+
+def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces, tlas, quant):
     name = "trace_fused_mesh_tlas" if tlas else "trace_fused_mesh"
     library = _library(name)
     launch = getattr(library, f"{name}_launch")
@@ -797,12 +1009,22 @@ def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces
     status = launch(
         origins.data_ptr(), directions.data_ptr(), origins.shape[0],
         spheres.data_ptr(), spheres.shape[0], params.data_ptr(),
-        *_mesh_tables(mesh, tlas, ordered), int(ordered), int(seed), int(max_bounces),
-        radiance.data_ptr(), *counter, stream,
+        *_mesh_tables(mesh, tlas, ordered, quant), int(ordered), int(seed), int(max_bounces),
+        radiance.data_ptr(), *counter, *_node_format(mesh, quant, ordered, tlas), stream,
     )
     _check_status(library, name, status)
-    counts[name] += 1
+    _count(name, quant)
     return radiance
+
+
+def _node_format(mesh: MeshSet, quant: int, ordered: bool, tlas: bool) -> list:
+    """A launch's node-format arguments: the tier and the host address of
+    the BLAS grid and (``tlas``) the TLAS grid, 0 at tier 0."""
+    blas = bvh_quant_table(mesh.bvh, quant, ordered) if quant else None
+    grids = [_grid(blas)]
+    if tlas:
+        grids.append(_grid(tlas_quant_table(mesh, quant, ordered) if quant else None))
+    return [int(quant), *grids]
 
 
 # ---------------------------------------------------------------------------
@@ -816,22 +1038,55 @@ def tlas_frame_on_host(mesh: MeshSet) -> TlasFrame:
     gather: each row is its instance's own function), the union boxes of
     the TLAS nodes over the slot-ordered world boxes, and the key window
     of the instance field; the reference's per-frame operands of its TLAS
-    kernels (``pallas_kernels.py:3263-3272``, ``:3413-3421``)."""
+    kernels (``pallas_kernels.py:3263-3272``, ``:3413-3421``), and the
+    nodes' union box (on the host), the quantized tables' grid."""
     table = instance_table(mesh)
     lo_w, hi_w = table[:, 13:16], table[:, 16:19]
     slots = table[instance_morton_order(lo_w, hi_w)]
-    node_lo, node_hi = tlas_node_bounds(
-        cached_tlas_topology(table.shape[0], TLAS_LEAF), slots[:, 13:16], slots[:, 16:19]
-    )
+    topology = cached_tlas_topology(table.shape[0], TLAS_LEAF)
+    node_lo, node_hi = tlas_node_bounds(topology, slots[:, 13:16], slots[:, 16:19])
     zero = torch.zeros_like(node_lo[:, :1])
     node_bounds = torch.cat([node_lo, zero, node_hi, zero], dim=1).contiguous()
-    perm = cached_tlas_topology(table.shape[0], TLAS_LEAF).octant_perm
+    perm = topology.octant_perm
     return TlasFrame(
         slots=slots.contiguous(),
         node_bounds=node_bounds,
         key_window=mesh_key_bounds(lo_w, hi_w),
         octant_node_bounds=node_bounds[torch.as_tensor(perm, dtype=torch.int64)].contiguous(),
+        union=torch.cat([node_lo.amin(dim=0), node_hi.amax(dim=0)]).cpu(),
     )
+
+
+def _frame_quant_table(mesh: MeshSet, quant: int, ordered: bool) -> QuantTable:
+    """A frame's TLAS at tier ``quant``, canonical or its eight octant orders
+    stacked (the reference's ``_tlas_node_arrays``), against the grid of
+    the nodes' union box, where the frame's operands lie."""
+    frame = tlas_frame(mesh)
+    topology = cached_tlas_topology(frame.slots.shape[0], TLAS_LEAF)
+    grid = quant_grid(frame.union[0:3], frame.union[3:6], quant)
+    if ordered:
+        bounds = frame.octant_node_bounds
+        links = (topology.octant_skip, topology.octant_first, topology.octant_count)
+    else:
+        bounds = frame.node_bounds
+        links = (topology.skip, topology.first, topology.count)
+    return quant_table(bounds[:, 0:3], bounds[:, 4:7], *(np.asarray(v) for v in links),
+                       quant, 1, grid)
+
+
+# A frame's quantized TLAS, once per MeshSet, tier and order.
+_tlas_quant_tables = {
+    (quant, ordered): _IdentityCache(functools.partial(_frame_quant_table, quant=quant,
+                                                       ordered=ordered))
+    for quant in QUANT_TIERS for ordered in (False, True)
+}
+
+
+def tlas_quant_table(mesh: MeshSet, quant: int, ordered: bool) -> QuantTable:
+    """The frame's TLAS node table at tier ``quant`` (1 or 2): canonical, or
+    (``ordered``) its eight octant orders stacked [8M], all against the
+    grid of the nodes' union box."""
+    return _tlas_quant_tables[(quant, ordered)](mesh)
 
 
 # A frame's TLAS operands: the MeshSet's own (``scene_mesh_set``'s, from the
@@ -1054,7 +1309,9 @@ def mesh_bounce(
     *,
     total_bounces: int,
     use_tlas: bool | None = None,
+    quant: int = 0,
     _group: int | None = None,
+    _hits: list | None = None,
 ) -> BounceState | KeyedBounceState:
     """One bounce of the mesh megakernel over streamed path state; the
     arguments are ``sphere_bounce``'s plus the mesh. Takes any mesh.
@@ -1062,29 +1319,36 @@ def mesh_bounce(
     whose output also holds the key of each lane's new state: a lane alive
     after the bounce and below the live count keys with the slot it enters
     first (K for none), any other lane and every lane of the last bounce
-    with K (``.key`` is None on the flat variant). ``_group`` (tests and
-    measurements only) fixes the TLAS kernel's group size, else
-    ``bounce_group`` of the launch; it changes no output."""
+    with K (``.key`` is None on the flat variant). ``quant`` is the node
+    format (``mesh_quant``); at 1 or 2 the key follows the packed-key rule:
+    a lane whose nearest hit was an instance keys with that slot, on every
+    bounce, and walks no entry. ``_group`` (tests and measurements only)
+    fixes the TLAS kernel's group size, else ``bounce_group`` of the
+    launch; it changes no output. ``_hits`` (tests and measurements only)
+    receives the TLAS launch's hit column on the quantized tiers: each
+    lane's winning slot, K for none (what the key pass reads)."""
     _check_state(scene, origins, directions, throughput, alive, lane, seed, bounce, total_bounces)
     _check_mesh(mesh, origins)
     _check_group(_group)
     tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas)
+    quant = mesh_quant(mesh, quant, tlas)
     if origins.device.type == "cuda":
         return _launch_bounce(
             "mesh_bounce_tlas" if tlas else "mesh_bounce", scene, mesh, origins, directions,
-            throughput, alive, lane, live_count, seed, bounce, total_bounces, _group,
+            throughput, alive, lane, live_count, seed, bounce, total_bounces, _group, quant,
+            _hits,
         )
     if origins.device.type == "cpu":
         return mesh_bounce_reference(
             scene, mesh, origins, directions, throughput, alive, lane, live_count, seed, bounce,
-            total_bounces=total_bounces, use_tlas=tlas,
+            total_bounces=total_bounces, use_tlas=tlas, quant=quant, _hits=_hits,
         )
     raise ValueError(f"Unsupported device {origins.device}")
 
 
 def _launch_bounce(
     name, scene, mesh, origins, directions, throughput, alive, lane, live_count, seed, bounce,
-    total_bounces, group=None,
+    total_bounces, group=None, quant=0, hits_out=None,
 ):
     library = _library(name)
     launch = getattr(library, f"{name}_launch")
@@ -1099,7 +1363,7 @@ def _launch_bounce(
     tlas = name == "mesh_bounce_tlas"
     ordered = mesh is not None and walks_ordered(mesh.bvh)
     if mesh is not None:
-        tables += _mesh_tables(mesh, tlas, ordered)
+        tables += _mesh_tables(mesh, tlas, ordered, quant)
     if tlas:
         frame = tlas_frame(mesh)
         tables.append(frame.key_window.data_ptr())
@@ -1116,16 +1380,25 @@ def _launch_bounce(
         if group is None:
             group = bounce_group(rays, thread_slots(device.index or 0))
         walk = [group, _work_counter(device, stream.cuda_stream).data_ptr()]
+    node_format = [] if mesh is None else _node_format(mesh, quant, ordered, tlas)
+    hits = None
+    if tlas:
+        # The key pass's hit column: the packed-key rule of an ordered launch.
+        if quant and ordered:
+            hits = torch.empty((rays,), dtype=torch.int32, device=device)
+        node_format.append(_pointer(hits))
     status = launch(
         *(t.data_ptr() for t in state[:5]), rays, live.data_ptr(),
         *tables, int(seed), int(bounce), int(total_bounces),
-        *(t.data_ptr() for t in out), *walk, stream.cuda_stream,
+        *(t.data_ptr() for t in out), *walk, *node_format, stream.cuda_stream,
     )
     _check_status(library, name, status)
-    counts[name] += 1
+    _count(name, quant)
     if tlas and ordered:
         _launch_entry_keys(mesh, out.origins, out.directions, out.alive, out.key, live, bounce,
-                           total_bounces)
+                           total_bounces, quant, hits)
+    if hits_out is not None and tlas and quant:
+        hits_out.append(hits)
     return out
 
 
@@ -1165,23 +1438,29 @@ def _launch_packet_votes(directions, live, table, block, world, rows, frames=Non
 
 
 def _launch_entry_keys(mesh, origins, directions, alive, key, live, bounce,
-                       total_bounces) -> None:
+                       total_bounces, quant=0, hits=None) -> None:
     """The key column of an ordered per-bounce TLAS launch's outputs
-    (``mesh_entry_keys``), written into ``key``."""
+    (``mesh_entry_keys``), written into ``key``; at tier ``quant`` its
+    quantized TLAS and the launch's ``hits`` column."""
     library = _library("mesh_entry_keys")
     frame = tlas_frame(mesh)
     k_count = frame.slots.shape[0]
     device = key.device
     stream = torch.cuda.current_stream(device).cuda_stream
+    table = tlas_quant_table(mesh, quant, True) if quant else None
+    if table is None:
+        bounds, links = frame.octant_node_bounds, tlas_octant_links(k_count, device)
+    else:
+        bounds, links = table.words, None
     status = library.mesh_entry_keys_launch(
         origins.data_ptr(), directions.data_ptr(), alive.data_ptr(), origins.shape[0],
-        live.data_ptr(), frame.slots.data_ptr(), k_count, frame.octant_node_bounds.data_ptr(),
-        tlas_octant_links(k_count, device).data_ptr(), frame.node_bounds.shape[0],
-        frame.key_window.data_ptr(), int(bounce), int(total_bounces), key.data_ptr(),
-        _work_counter(device, stream).data_ptr(), stream,
+        live.data_ptr(), frame.slots.data_ptr(), k_count, bounds.data_ptr(), _pointer(links),
+        frame.node_bounds.shape[0], frame.key_window.data_ptr(), int(bounce),
+        int(total_bounces), key.data_ptr(), _work_counter(device, stream).data_ptr(),
+        int(quant), _grid(table), _pointer(hits), stream,
     )
     _check_status(library, "mesh_entry_keys", status)
-    counts["mesh_entry_keys"] += 1
+    _count("mesh_entry_keys", quant)
 
 
 def packet_votes(
@@ -1285,39 +1564,59 @@ def entry_keys(
     bounce: int,
     *,
     total_bounces: int,
+    quant: int = 0,
+    hits: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The key column [R] int32 of an ordered per-bounce TLAS launch from
     its outputs (``origins``, ``directions`` [R, 3], ``alive`` [R]): the
     coherence key with the slot each live new ray below ``live_count``
     enters first, walked through the TLAS table of its packet's vote (256
     lanes) over every lane's new direction; K for the others and on the
-    last bounce. The mesh's BVH must carry octant tables. CUDA tensors go
-    to ``csrc/mesh_entry_keys.cu``, CPU tensors to its plain version."""
+    last bounce. The mesh's BVH must carry octant tables. ``quant`` is the
+    node format (``mesh_quant``); at 1 or 2 the launch's ``hits`` [R]
+    int32 (each lane's winning slot, K for none) are required, and a lane
+    with a hit keys with it on every bounce and walks no entry (the
+    packed-key rule). CUDA tensors go to ``csrc/mesh_entry_keys.cu``, CPU
+    tensors to its plain version."""
     if not walks_ordered(mesh.bvh):
         raise ValueError("entry_keys is the octant-ordered walk's: the BVH has no octant tables")
+    quant = mesh_quant(mesh, quant, True)
+    _check_hits(origins, quant, hits)
     if origins.device.type == "cuda":
         key = torch.empty(origins.shape[0], dtype=torch.int32, device=origins.device)
         _launch_entry_keys(mesh, origins.contiguous(), directions.contiguous(), alive.contiguous(),
-                           key, _live_tensor(live_count, origins.device), bounce, total_bounces)
+                           key, _live_tensor(live_count, origins.device), bounce, total_bounces,
+                           quant, None if hits is None else hits.contiguous())
         return key
     if origins.device.type == "cpu":
         return entry_keys_reference(mesh, origins, directions, alive, live_count, bounce,
-                                    total_bounces=total_bounces)
+                                    total_bounces=total_bounces, quant=quant, hits=hits)
     raise ValueError(f"Unsupported device {origins.device}")
 
 
+def _check_hits(origins: torch.Tensor, quant: int, hits: torch.Tensor | None) -> None:
+    if not quant:
+        return
+    if hits is None or hits.shape != (origins.shape[0],) or hits.dtype != torch.int32:
+        raise ValueError("a quantized key pass takes its bounce's hits: int32 [R]")
+    if hits.device != origins.device:
+        raise ValueError(f"hits on {hits.device}, rays on {origins.device}")
+
+
 def entry_keys_reference(mesh, origins, directions, alive, live_count, bounce, *,
-                         total_bounces, stats=None):
+                         total_bounces, quant=0, hits=None, stats=None):
     """The plain version of ``entry_keys``, on any device; ``stats`` counts
     the entry walk's rays and box tests (``entry_rays``, ``entry_tests``)."""
-    counts["mesh_entry_keys_reference"] += 1
+    quant = mesh_quant(mesh, quant, True)
+    _check_hits(origins, quant, hits)
+    _count("mesh_entry_keys_reference", quant)
     if stats is not None:
         for key in ("entry_rays", "entry_tests"):
             stats.setdefault(key, 0)
-    walk = _entry_walks(mesh)
+    walk = _entry_walks[quant](mesh)
     live = max(0, min(int(live_count), origins.shape[0]))
     return _keys_reference(walk, origins, directions, alive, live, bounce, total_bounces,
-                           262144, stats, True)
+                           262144, stats, True, hits if quant else None)
 
 
 @functools.cache
@@ -1478,6 +1777,7 @@ def pool_mesh_bounce(
     *,
     total_bounces: int,
     use_tlas: bool | None = None,
+    quant: int = 0,
     _group: int | None = None,
 ) -> BounceState | KeyedBounceState:
     """One mesh bounce over a pool of P lanes from the window's frames; the
@@ -1487,24 +1787,36 @@ def pool_mesh_bounce(
     output holds each lane's key (its frame id in the key; the candidate
     its frame's slot, K for none or for a lane not alive after the bounce
     below the live count; no last-bounce rule: the pool's lanes sit at
-    mixed depths). ``_group`` (tests and measurements only) fixes the TLAS
-    kernel's group size, else ``POOL_GROUP``; it changes no output."""
+    mixed depths). ``quant`` is the node format: at 1 or 2 the window's
+    frames' TLAS windows quantize against one grid (``pool_tlas_quant``),
+    and a lane whose nearest hit was an instance keys with that slot of its
+    frame (the packed-key rule); the degrade rule counts the reference's
+    padded window (``pool_quant``). ``_group`` (tests and measurements only) fixes the
+    TLAS kernel's group size, else ``POOL_GROUP``; it changes no output."""
     _check_pool_state(ops.spheres, origins, directions, throughput, alive, lane, fid, seed_row,
                       bounce_row, total_bounces)
     _check_mesh(ops.meshes[0], origins)
     _check_group(_group)
     state = (origins, directions, throughput, alive, lane, fid, seed_row, bounce_row)
     tlas = use_tlas_for(ops.per_frame, use_tlas)
+    quant = pool_quant(ops, quant, tlas)
     if origins.device.type == "cuda":
         return _launch_pool(
             "pool_mesh_bounce_tlas" if tlas else "pool_mesh_bounce", ops.spheres, ops, state,
-            live_count, total_bounces, _group,
+            live_count, total_bounces, _group, quant,
         )
     if origins.device.type == "cpu":
         return pool_mesh_bounce_reference(
-            ops, *state, live_count, total_bounces=total_bounces, use_tlas=tlas
+            ops, *state, live_count, total_bounces=total_bounces, use_tlas=tlas, quant=quant,
         )
     raise ValueError(f"Unsupported device {origins.device}")
+
+
+def pool_quant(ops: "PoolMeshOperands", quant: int, tlas: bool) -> int:
+    """The node format of a pool launch at tier ``quant``: ``mesh_quant``
+    over the TLAS windows of the reference's window, padded to
+    ``RAYPOOL_FRAMES`` frames (a window that holds more: its own)."""
+    return mesh_quant(ops.meshes[0], quant, tlas, max(len(ops.meshes), RAYPOOL_FRAMES))
 
 
 def _bounce_outputs(rays: int, device, keyed: bool) -> BounceState | KeyedBounceState:
@@ -1545,6 +1857,30 @@ def _stack_pool_tlas(ops: "PoolMeshOperands") -> PoolTlasOperands:
 pool_tlas_operands = _IdentityCache(_stack_pool_tlas)
 
 
+def _stack_pool_quant(ops: "PoolMeshOperands", quant: int) -> QuantTable:
+    """The window's stacked TLAS windows at tier ``quant``, against ONE grid
+    (the union of every frame's nodes), the skip links and leaf starts with
+    their frame offsets inside the meta words (``pallas_kernels.py:3945-3957``)."""
+    union = torch.stack([tlas_frame(mesh).union for mesh in ops.meshes])
+    grid = quant_grid(union[:, 0:3].amin(dim=0), union[:, 3:6].amax(dim=0), quant)
+    stacked = pool_tlas_operands(ops)
+    links = stacked.links
+    return quant_table(stacked.node_bounds[:, 0:3], stacked.node_bounds[:, 4:7], links[:, 0],
+                       links[:, 1], links[:, 2], quant, 1, grid)
+
+
+# A pool window's quantized TLAS, once per PoolMeshOperands and tier.
+_pool_quant_tables = {
+    quant: _IdentityCache(functools.partial(_stack_pool_quant, quant=quant))
+    for quant in QUANT_TIERS
+}
+
+
+def pool_tlas_quant(ops: "PoolMeshOperands", quant: int) -> QuantTable:
+    """A pool window's stacked TLAS at tier ``quant`` (1 or 2)."""
+    return _pool_quant_tables[quant](ops)
+
+
 def _live_tensor(live_count, device) -> torch.Tensor:
     """The live count as one int32 on the card."""
     if isinstance(live_count, torch.Tensor):
@@ -1553,7 +1889,8 @@ def _live_tensor(live_count, device) -> torch.Tensor:
     return torch.full((1,), int(live_count), dtype=torch.int32, device=device)
 
 
-def _launch_pool(name, spheres, mesh_ops, state, live_count, total_bounces, group=None):
+def _launch_pool(name, spheres, mesh_ops, state, live_count, total_bounces, group=None,
+                 quant=0):
     library = _library(name)
     launch = getattr(library, f"{name}_launch")
     rays = state[0].shape[0]
@@ -1570,25 +1907,33 @@ def _launch_pool(name, spheres, mesh_ops, state, live_count, total_bounces, grou
         ordered = walks_ordered(bvh)
         pool_tlas = pool_tlas_operands(mesh_ops) if tlas else None
         instances = mesh_ops.instances if pool_tlas is None else pool_tlas.slots
-        tables += [instances.data_ptr(), mesh_ops.per_frame, *_bvh_tables(bvh, ordered)]
+        tables += [instances.data_ptr(), mesh_ops.per_frame, *_bvh_tables(bvh, ordered, quant)]
+        node_format = [int(quant), _grid(bvh_quant_table(bvh, quant, ordered) if quant else None)]
         if pool_tlas is not None:
+            table = pool_tlas_quant(mesh_ops, quant) if quant else None
+            bounds, links = pool_tlas.node_bounds, pool_tlas.links
+            if table is not None:
+                bounds, links = table.words, None
+            node_format.append(_grid(table))
             tables += [
-                pool_tlas.node_bounds.data_ptr(), pool_tlas.links.data_ptr(),
-                pool_tlas.links.shape[0] // frames, pool_tlas.key_window.data_ptr(),
+                bounds.data_ptr(), _pointer(links), pool_tlas.links.shape[0] // frames,
+                pool_tlas.key_window.data_ptr(),
             ]
         # The pool orders its BLAS only: votes per row of the stacked table,
         # for the frames each packet's lanes carry.
         votes = _packet_votes(state[1], live, instances, TLAS_BLOCK_R if tlas else BVH_BLOCK_R,
                               bvh, ordered, False, state[5], mesh_ops.per_frame)
         tables += [int(ordered), 0 if votes is None else _pointer(votes[1])]
+    else:
+        node_format = []
     out = _bounce_outputs(rays, device, tlas)
     status = launch(
         *(t.data_ptr() for t in state), rays, live.data_ptr(), *tables, int(total_bounces),
         *(t.data_ptr() for t in out), *([POOL_GROUP if group is None else group] if tlas else []),
-        torch.cuda.current_stream(device).cuda_stream,
+        *node_format, torch.cuda.current_stream(device).cuda_stream,
     )
     _check_status(library, name, status)
-    counts[name] += 1
+    _count(name, quant)
     return out
 
 
@@ -1832,6 +2177,7 @@ def trace_paths_fused_mesh_reference(
     *,
     max_bounces: int,
     use_tlas: bool | None = None,
+    quant: int = 0,
     chunk_rays: int = 262144,
     stats: dict | None = None,
 ) -> torch.Tensor:
@@ -1850,6 +2196,10 @@ def trace_paths_fused_mesh_reference(
     ray reaching a node when it passed its parent's box with its best t
     (shadow rays: until their first occluder), the leaves' slots in order.
 
+    ``quant`` (``mesh_quant``) walks the quantized tables' boxes as the
+    kernel reconstructs them (``dequantize_node_bounds``) and their
+    unpacked links.
+
     ``stats`` also receives the mesh work: the instance count, the rays
     that search the instances (nearest and shadow rays), world-AABB tests,
     instance walks entered, node slab tests and triangle tests (the shadow
@@ -1859,10 +2209,12 @@ def trace_paths_fused_mesh_reference(
     _check_inputs(scene, origins, directions, seed)
     _check_mesh(mesh, origins)
     tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas)
-    counts["trace_fused_mesh_tlas_reference" if tlas else "trace_fused_mesh_reference"] += 1
+    quant = mesh_quant(mesh, quant, tlas)
+    name = "trace_fused_mesh_tlas_reference" if tlas else "trace_fused_mesh_reference"
+    _count(name, quant)
     return _trace_reference(
-        sphere_table(scene), _MeshWalk.build(mesh, scene.sun_direction, use_tlas=tlas), origins,
-        directions, seed, max_bounces, chunk_rays, stats,
+        sphere_table(scene), _MeshWalk.build(mesh, scene.sun_direction, use_tlas=tlas, quant=quant),
+        origins, directions, seed, max_bounces, chunk_rays, stats,
     )
 
 
@@ -1907,23 +2259,28 @@ def mesh_bounce_reference(
     *,
     total_bounces: int,
     use_tlas: bool | None = None,
+    quant: int = 0,
     chunk_rays: int = 262144,
     stats: dict | None = None,
+    _hits: list | None = None,
 ) -> BounceState | KeyedBounceState:
     """The plain PyTorch version of the per-bounce mesh kernel, on any
     device: ``sphere_bounce_reference`` with the mesh megakernel's plain
     bounce (its node sweep and its work counters). ``use_tlas`` (None:
     ``use_tlas_for``) walks as the TLAS variant and keys its output as the
     kernel does (``mesh_bounce``), the candidates from the plain entry walk
-    (counted as ``entry_rays`` and ``entry_tests``)."""
+    (counted as ``entry_rays`` and ``entry_tests``); ``quant`` and
+    ``_hits`` as for ``mesh_bounce``."""
     _check_state(scene, origins, directions, throughput, alive, lane, seed, bounce, total_bounces)
     _check_mesh(mesh, origins)
     tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas)
-    counts["mesh_bounce_tlas_reference" if tlas else "mesh_bounce_reference"] += 1
+    quant = mesh_quant(mesh, quant, tlas)
+    name = "mesh_bounce_tlas_reference" if tlas else "mesh_bounce_reference"
+    _count(name, quant)
     return _bounce_reference(
-        sphere_table(scene), _MeshWalk.build(mesh, scene.sun_direction, use_tlas=tlas), origins,
-        directions, throughput, alive, lane, live_count, seed, bounce, total_bounces, chunk_rays,
-        stats,
+        sphere_table(scene), _MeshWalk.build(mesh, scene.sun_direction, use_tlas=tlas, quant=quant),
+        origins, directions, throughput, alive, lane, live_count, seed, bounce, total_bounces,
+        chunk_rays, stats, quant, _hits,
     )
 
 
@@ -1973,6 +2330,7 @@ def pool_mesh_bounce_reference(
     *,
     total_bounces: int,
     use_tlas: bool | None = None,
+    quant: int = 0,
     chunk_rays: int = 262144,
     stats: dict | None = None,
 ) -> BounceState | KeyedBounceState:
@@ -1980,37 +2338,51 @@ def pool_mesh_bounce_reference(
     ``pool_sphere_bounce_reference`` with each frame's mesh walk (the mesh
     megakernel's plain bounce and its work counters). ``use_tlas`` (None:
     ``use_tlas_for``) walks each frame's TLAS and keys the output as the
-    kernel does (``pool_mesh_bounce``)."""
+    kernel does (``pool_mesh_bounce``); ``quant`` as there, each frame's
+    TLAS boxes from the window's one grid."""
     _check_pool_state(ops.spheres, origins, directions, throughput, alive, lane, fid, seed_row,
                       bounce_row, total_bounces)
     _check_mesh(ops.meshes[0], origins)
     tlas = use_tlas_for(ops.per_frame, use_tlas)
-    counts["pool_mesh_bounce_tlas_reference" if tlas else "pool_mesh_bounce_reference"] += 1
+    quant = pool_quant(ops, quant, tlas)
+    name = "pool_mesh_bounce_tlas_reference" if tlas else "pool_mesh_bounce_reference"
+    _count(name, quant)
     return _pool_reference(
-        ops.spheres.tables, (_pool_tlas_walks if tlas else _pool_walks)(ops), origins, directions,
+        ops.spheres.tables, _pool_walks[(tlas, quant)](ops), origins, directions,
         throughput, alive, lane, fid, seed_row, bounce_row, live_count, total_bounces, chunk_rays,
-        stats, window=pool_tlas_operands(ops).key_window if tlas else None,
+        stats, window=pool_tlas_operands(ops).key_window if tlas else None, packed_keys=quant > 0,
     )
 
 
-def _frame_walks(ops: PoolMeshOperands, use_tlas: bool) -> tuple:
+def _frame_walks(ops: PoolMeshOperands, use_tlas: bool, quant: int) -> tuple:
+    tlas_bounds = [None] * len(ops.meshes)
+    if use_tlas and quant:
+        table = pool_tlas_quant(ops, quant)
+        bounds = _dequantized_rows(table, quant)
+        m = bounds.shape[0] // len(ops.meshes)
+        tlas_bounds = [bounds[f * m:(f + 1) * m] for f in range(len(ops.meshes))]
     return tuple(
-        _MeshWalk.build(mesh, table.sun_direction, use_tlas=use_tlas)
-        for mesh, table in zip(ops.meshes, ops.spheres.tables)
+        _MeshWalk.build(mesh, table.sun_direction, use_tlas=use_tlas, quant=quant,
+                        tlas_bounds=bounds)
+        for mesh, table, bounds in zip(ops.meshes, ops.spheres.tables, tlas_bounds)
     )
 
 
-# The plain version's mesh walk of each frame of a pool window (flat, TLAS).
-_pool_walks = _IdentityCache(lambda ops: _frame_walks(ops, False))
-_pool_tlas_walks = _IdentityCache(lambda ops: _frame_walks(ops, True))
+# The plain version's mesh walk of each frame of a pool window, per (TLAS,
+# node format).
+_pool_walks = {
+    (tlas, quant): _IdentityCache(functools.partial(_frame_walks, use_tlas=tlas, quant=quant))
+    for tlas in (False, True) for quant in (0, *QUANT_TIERS)
+}
 
 
 def _pool_reference(
     tables, walks, origins, directions, throughput, alive, lane, fid, seed_row, bounce_row,
-    live_count, total_bounces, chunk_rays, stats, window=None,
+    live_count, total_bounces, chunk_rays, stats, window=None, packed_keys=False,
 ):
     """The pool's plain bounce; with a key ``window``, also the TLAS
-    variant's key (the walks then TLAS walks)."""
+    variant's key (the walks then TLAS walks); ``packed_keys``: a lane that
+    hit an instance keys with that slot of its frame, walking no entry."""
     rays = origins.shape[0]
     live = max(0, min(int(live_count), rays))
     out = BounceState(
@@ -2037,12 +2409,13 @@ def _pool_reference(
         for start in range(0, rows_f.numel(), chunk_rays):
             rows = rows_f[start:start + chunk_rays]
             zero = torch.zeros_like(origins[rows])
+            hit_out = [] if packed_keys else None
             o, d, thr, contribution, alive_f = _bounce(
                 table, None if walks is None else walks[f], origins[rows], directions[rows],
                 throughput[rows], zero, alive[rows, None].to(torch.float32),
                 lane[rows].to(torch.int64), bounce_row[rows].to(torch.int64), total_bounces,
                 seed_row[rows].to(torch.int64) & MASK32, stats,
-                None if walks is None or orders[f] is None else orders[f].rows(rows),
+                None if walks is None or orders[f] is None else orders[f].rows(rows), hit_out,
             )
             out.contribution[rows] = contribution
             out.origins[rows] = o
@@ -2051,6 +2424,10 @@ def _pool_reference(
             out.alive[rows] = alive_f[:, 0] > 0.5
             if candidate is not None:  # the frame-local slot each new ray enters first
                 lives = alive_f[:, 0] > 0.5
+                if packed_keys:  # a hit's own slot, and no entry walk
+                    hit = hit_out[0] >= 0
+                    candidate[rows[hit]] = hit_out[0][hit]
+                    lives = lives & ~hit
                 candidate[rows[lives]] = walks[f].entry_candidates(o[lives], d[lives], stats)
     if stats is not None:
         for key in keys:
@@ -2257,12 +2634,16 @@ def occluded_mesh_reference(
 # The plain walk of a BVH, built once per BVH; a frame's TLAS walk for the
 # key pass, once per MeshSet.
 _blas_walks = _IdentityCache(lambda bvh: _MeshWalk.for_bvh(bvh))
-_entry_walks = _IdentityCache(lambda mesh: _MeshWalk.build(mesh, use_tlas=True))
+_entry_walks = {
+    quant: _IdentityCache(lambda mesh, quant=quant: _MeshWalk.build(mesh, use_tlas=True,
+                                                                     quant=quant))
+    for quant in (0, *QUANT_TIERS)
+}
 
 
 def _bounce_reference(
     table, walk, origins, directions, throughput, alive, lane, live_count, seed, bounce,
-    total_bounces, chunk_rays, stats,
+    total_bounces, chunk_rays, stats, quant=0, hits_out=None,
 ):
     rays = origins.shape[0]
     live = max(0, min(int(live_count), rays))
@@ -2274,23 +2655,33 @@ def _bounce_reference(
         keys = _start_stats(stats, table, walk)
     # The packets' votes over every lane of the launch, as it came in.
     order = None if walk is None else walk.order(directions)
+    keyed = walk is not None and walk.tlas is not None
+    # The packed-key rule's hit column: each lane's winning slot, K for none.
+    hits = None
+    if keyed and quant:
+        hits = torch.full((rays,), walk.table.shape[0], dtype=torch.int64, device=origins.device)
     for start in range(0, live, chunk_rays):
         rows = slice(start, min(start + chunk_rays, live))
         zero = torch.zeros_like(origins[rows])
+        hit_out = None if hits is None else []
         o, d, thr, contribution, alive_f = _bounce(
             table, walk, origins[rows], directions[rows], throughput[rows], zero,
             alive[rows, None].to(torch.float32), lane[rows].to(torch.int64), bounce,
             total_bounces, int(seed) & MASK32, stats, None if order is None else order.rows(rows),
+            hit_out,
         )
         out.contribution[rows] = contribution
         out.origins[rows] = o
         out.directions[rows] = d
         out.throughput[rows] = thr
         out.alive[rows] = alive_f[:, 0] > 0.5
-    keyed = walk is not None and walk.tlas is not None
+        if hits is not None:
+            hits[rows] = torch.where(hit_out[0] >= 0, hit_out[0], hits[rows])
+    if hits is not None and hits_out is not None:
+        hits_out.append(hits.to(torch.int32))
     if keyed:
         key = _keys_reference(walk, out.origins, out.directions, out.alive, live, bounce,
-                              total_bounces, chunk_rays, stats, order is not None)
+                              total_bounces, chunk_rays, stats, order is not None, hits)
     if stats is not None:
         for key_name in keys:
             stats[key_name] = int(stats[key_name])
@@ -2298,15 +2689,23 @@ def _bounce_reference(
 
 
 def _keys_reference(walk, origins, directions, alive, live, bounce, total_bounces, chunk_rays,
-                    stats, ordered):
+                    stats, ordered, hits=None):
     """The per-bounce TLAS kernel's key of its outputs: the slot each live
     new ray below ``live`` enters first, K for the others and on the last
     bounce (its key is never sorted by); ``ordered``: the entry walk takes
-    the TLAS table of its packet's vote over every lane's new direction."""
+    the TLAS table of its packet's vote over every lane's new direction.
+    ``hits`` [R] (the quantized tiers' packed-key rule): a lane whose hit
+    slot is below K keys with it, on every bounce, and walks no entry."""
     rays = origins.shape[0]
-    candidate = torch.full((rays,), walk.table.shape[0], dtype=torch.int64, device=origins.device)
+    k = walk.table.shape[0]
+    candidate = torch.full((rays,), k, dtype=torch.int64, device=origins.device)
+    walking = alive[:live]
+    if hits is not None:
+        hit = hits.to(torch.int64) < k
+        candidate = torch.where(hit, hits.to(torch.int64), candidate)
+        walking = walking & ~hit[:live]
     if int(bounce) < int(total_bounces) - 1:
-        lives = alive[:live].nonzero()[:, 0]
+        lives = walking.nonzero()[:, 0]
         entry = None
         if ordered:
             packet = torch.arange(rays, device=origins.device) // walk.block
@@ -2389,12 +2788,13 @@ def _reference_chunk(table, walk, o, d, lane, seed_word, max_bounces, stats):
 
 
 def _bounce(table, walk, o, d, throughput, radiance, alive, lane, bounce, total_bounces,
-            seed_word, stats, order=None):
+            seed_word, stats, order=None, hit_out=None):
     """One bounce of the reference's masked loop over [n] rays: ``alive``
     is float [n, 1] (0 or 1), ``lane`` int64 [n] the RNG counters;
     ``bounce`` and ``seed_word`` (the uint32 seed in int64) are scalars or
     per-ray int64 [n] rows; ``order`` the rays' ``_Order`` (None: the
-    canonical walk).
+    canonical walk); ``hit_out`` (a list) receives each ray's winning
+    instance row of the walk's table, -1 where no instance won.
     Returns (o, d, throughput, radiance, alive) after the bounce, radiance
     accumulated into the given one."""
     device = o.device
@@ -2420,7 +2820,7 @@ def _bounce(table, walk, o, d, throughput, radiance, alive, lane, bounce, total_
         # lanes carry -INF and never walk --------------------------------
         t_sp = torch.minimum(t_sphere, t_plane)
         seed_t = torch.where(alive > 0.5, t_sp, -INF)[:, 0]
-        t_mesh, mesh_normal, mesh_albedo = walk.nearest(o, d, seed_t, stats, order)
+        t_mesh, mesh_normal, mesh_albedo = walk.nearest(o, d, seed_t, stats, order, hit_out)
         t_mesh = t_mesh[:, None]
         is_plane = ((t_plane < t_sphere) & (t_mesh >= t_sp)).to(torch.float32)
         is_mesh = t_mesh < t_sp
@@ -2886,6 +3286,36 @@ class _TlasWalk(NamedTuple):
         _walk_trees(trees, octant, o, inv, limit, on_leaves, stats, stat)
 
 
+def _dequantized_rows(table: QuantTable, quant: int) -> torch.Tensor:
+    """A quantized table's boxes as the kernels reconstruct them, in the
+    fp32 tables' layout [N, 8] (lo, 0, hi, 0)."""
+    lo, hi = dequantize_node_bounds(table.words[:, :-1], table.grid, quant)
+    zero = torch.zeros_like(lo[:, :1])
+    return torch.cat([lo, zero, hi, zero], dim=1)
+
+
+def _dequantized_bvh(bvh: MeshBVH, quant: int) -> MeshBVH:
+    """A BVH whose node tables (canonical and octant) are those the kernels
+    read at tier ``quant``: the reconstructed boxes, the unpacked links."""
+
+    def tables(nodes, ordered):
+        table = bvh_quant_table(bvh, quant, ordered)
+        lo, hi = dequantize_node_bounds(table.words[:, :-1], table.grid, quant)
+        skip, first, count = unpack_node_meta(table.words[:, -1], first_unit=LEAF_SIZE)
+        return nodes._replace(bounds_min=lo, bounds_max=hi, skip=skip.to(torch.int32),
+                              first=first.to(torch.int32), count=count.to(torch.int32))
+
+    octant = None if bvh.octant is None else tables(bvh.octant, True)
+    return tables(bvh, False)._replace(octant=octant)
+
+
+# A BVH's dequantized tables, once per BVH and tier.
+_dequantized_bvhs = {
+    quant: _IdentityCache(functools.partial(_dequantized_bvh, quant=quant))
+    for quant in QUANT_TIERS
+}
+
+
 class _MeshWalk(NamedTuple):
     """The plain version's mesh geometry: the device tables plus the
     tree's links on the host (canonical DFS preorder; ``octants`` the eight
@@ -2911,10 +3341,16 @@ class _MeshWalk(NamedTuple):
 
     @classmethod
     def build(
-        cls, mesh: MeshSet, sun: torch.Tensor | None = None, use_tlas: bool = False
+        cls, mesh: MeshSet, sun: torch.Tensor | None = None, use_tlas: bool = False,
+        quant: int = 0, tlas_bounds: torch.Tensor | None = None,
     ) -> "_MeshWalk":
+        """The walk of a frame's mesh; at node format ``quant`` (1 or 2) over
+        the boxes the kernels reconstruct from the quantized tables and the
+        links they unpack, the TLAS's from ``tlas_bounds`` [M, 8] where
+        given (a pool window's frame), else the frame's own table."""
         tlas = key_window = octants = None
-        octant = mesh.bvh.octant
+        bvh = _dequantized_bvhs[quant](mesh.bvh) if quant else mesh.bvh
+        octant = bvh.octant
         if octant is not None:
             octants = _Tree.octants(
                 octant.bounds_min, octant.bounds_max, octant.skip.tolist(),
@@ -2923,13 +3359,17 @@ class _MeshWalk(NamedTuple):
         if use_tlas:
             frame = tlas_frame(mesh)
             table, key_window = frame.slots, frame.key_window
+            node_bounds = frame.node_bounds
+            if quant:
+                node_bounds = (_dequantized_rows(tlas_quant_table(mesh, quant, False), quant)
+                               if tlas_bounds is None else tlas_bounds)
             tlas = _TlasWalk.build(
-                frame.node_bounds, cached_tlas_topology(table.shape[0], TLAS_LEAF),
+                node_bounds, cached_tlas_topology(table.shape[0], TLAS_LEAF),
                 ordered=octant is not None,
             )
         else:
             table = instance_table(mesh)
-        return cls.for_bvh(mesh.bvh)._replace(
+        return cls.for_bvh(bvh)._replace(
             table=table, sun=sun, tlas=tlas, key_window=key_window, octants=octants,
             sun_object=None if sun is None else torch.cat(
                 [_to_object(row, sun[None, :], shift=False) for row in table]
@@ -3156,10 +3596,13 @@ class _MeshWalk(NamedTuple):
                 enter(k, idx)
         return best_t, win_k, win_row
 
-    def nearest(self, o, d, seed_t, stats, order=None):
+    def nearest(self, o, d, seed_t, stats, order=None, hit_out=None):
         """``nearest_rows``' hit as (t [R] (== seed_t on a miss), world
-        normal facing the ray [R, 3], albedo [R, 3])."""
+        normal facing the ray [R, 3], albedo [R, 3]); ``hit_out`` (a list)
+        receives the winning instance [R] (-1 on a miss)."""
         best_t, win_k, win_row = self.nearest_rows(o, d, seed_t, stats, order)
+        if hit_out is not None:
+            hit_out.append(win_k)
         hit = win_k >= 0
         k_hit = win_k.clamp_min(0)
         rot = self.table[k_hit, 0:9]

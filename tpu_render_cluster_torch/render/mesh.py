@@ -34,8 +34,16 @@ over instance slots, memoized per (instance count, leaf size) by
 instances to slots by the Morton code of their world-box centers and
 ``tlas_node_bounds`` unions the slot-ordered boxes into node boxes. A
 ``MeshSet`` from ``scene_mesh_set`` carries its frame's ``TlasFrame``,
-computed on the host with the instances and copied with them. Left out:
-the quantized node tables (``quant``), which change no per-ray result.
+computed on the host with the instances and copied with them.
+
+The quantized node tables of the reference's ``TRC_BVH_QUANT`` tiers
+(``mesh.py:1074-1187`` of the reference): ``quantize_node_tables`` packs a
+threaded node table into fixed-point slabs against its own union box,
+rounded outward so that a reconstructed box (``dequantize_node_bounds``:
+``origin + q * cell`` in float32, the kernels' arithmetic) contains the
+fp32 one, and folds skip, first and count into one meta word
+(``unpack_node_meta``). ``bvh_builder`` and ``bvh_wide`` read the build
+tiers ``TRC_BVH_BUILDER`` and ``TRC_BVH_WIDE``.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import numpy as np
 import torch
 
 from tpu_render_cluster_torch.render.fp32 import fma
+from tpu_render_cluster_torch.utils.env import env_int, env_str
 
 LEAF_SIZE = 16
 SAH_BINS = 16
@@ -101,6 +110,9 @@ class TlasFrame(NamedTuple):
     # [8M, 8]: node_bounds gathered through TlasTopology.octant_perm, the
     # rows of the eight octant orders that the ordered walk takes
     octant_node_bounds: torch.Tensor | None = None
+    # [6] on the host: the nodes' union box (lo, hi), whose grid the
+    # quantized tables are cut against (kernels.tlas_quant_table)
+    union: torch.Tensor | None = None
 
 
 class MeshSet(NamedTuple):
@@ -414,6 +426,19 @@ def _tensor(array: np.ndarray, device) -> torch.Tensor:
 _geometry_cache: dict[tuple, MeshBVH] = {}
 
 
+def bvh_builder() -> str:
+    """``TRC_BVH_BUILDER``: ``sah`` (default, binned SAH) or ``median``;
+    any other value is ``sah``."""
+    value = (env_str("TRC_BVH_BUILDER") or "sah").strip().lower()
+    return value if value in ("sah", "median") else "sah"
+
+
+def bvh_wide() -> int:
+    """``TRC_BVH_WIDE``: the BLAS branching factor after the wide collapse
+    (default 4; 1 = binary; clamped to [1, 8])."""
+    return max(1, min(env_int("TRC_BVH_WIDE", 4), 8))
+
+
 def cached_mesh_bvh(
     kind: str, builder: str = "sah", wide: int = 4, device: str | torch.device = "cpu"
 ) -> MeshBVH:
@@ -550,6 +575,103 @@ def tlas_node_bounds(
     node_lo = torch.where(mask, lo_sorted[None], _INF).amin(dim=1)
     node_hi = torch.where(mask, hi_sorted[None], -_INF).amax(dim=1)
     return node_lo, node_hi
+
+
+# ---------------------------------------------------------------------------
+# Quantized node tables (the reference's TRC_BVH_QUANT tiers)
+#
+# A node table of 36 bytes a node (six f32 slabs, three int32 links) packs
+# to 16 bytes (tier 1: 16-bit slabs two to an int32 word, three words) or
+# 12 bytes (tier 2: 8-bit slabs six to two words) plus one meta word. The
+# slabs are quantized against the table's own union box and rounded
+# outward, so a reconstructed box contains its fp32 original and a walk
+# over them visits a superset of the fp32 walk's nodes; the triangle tests
+# stay exact f32, so every result is the fp32 walk's. Meta word, LSB to
+# MSB: skip [0:16), first / first_unit [16:27), count [27:32); a table
+# whose counts pass these ranges degrades the tier to 0
+# (``kernels.resolve_bvh_quant``).
+QUANT_MAX_NODES = 1 << 16
+QUANT_MAX_FIRST_UNITS = 1 << 11
+QUANT_MAX_COUNT = 31
+# The outward pad in grid cells per tier, and the slab bits.
+_QUANT_PAD = {1: 4, 2: 1}
+_QUANT_BITS = {1: 16, 2: 8}
+_F32_EPS_SCALE = torch.tensor(2e-3, dtype=_F32)
+
+
+def _wrap_int32(v: torch.Tensor) -> torch.Tensor:
+    """int64 bit patterns of 32 bits as int32 (two's complement)."""
+    return (((v & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def quant_grid(glo: torch.Tensor, ghi: torch.Tensor, quant: int) -> torch.Tensor:
+    """The grid [6] float32 (origin, then cell) of a table whose node boxes
+    span ``glo`` .. ``ghi`` [3], in the reference's float32 arithmetic: the
+    window padded by (|lo| + |hi| + 1) * 2e-3 on each side, then cut into
+    2^bits - 1 cells."""
+    levels = torch.tensor(float((1 << _QUANT_BITS[quant]) - 1), dtype=_F32)
+    glo = glo.to(_F32)
+    ghi = ghi.to(_F32)
+    eps = (glo.abs() + ghi.abs() + 1.0) * _F32_EPS_SCALE.to(glo.device)
+    origin = glo - eps
+    cell = ((ghi + eps) - origin) / levels.to(glo.device)
+    return torch.cat([origin, cell])
+
+
+def quantize_node_tables(lo, hi, skip, first, count, *, quant: int, first_unit: int,
+                         grid: torch.Tensor | None = None):
+    """Pack a threaded node table: ``lo`` / ``hi`` [N, 3] node boxes, the
+    int32 links ``skip`` / ``first`` / ``count`` [N], ``first_unit`` the
+    alignment of ``first`` (``LEAF_SIZE`` for a BLAS, 1 for a TLAS).
+    Returns ``(bq [N, 3] (tier 1) or [N, 2] (tier 2) int32, meta [N] int32,
+    grid [6] float32)``, bit for bit the reference's. ``grid`` (default:
+    ``quant_grid`` of the table's own union box) quantizes against a given
+    grid instead: a pool window's frames against their common one."""
+    bits = _QUANT_BITS[quant]
+    levels = (1 << bits) - 1
+    pad = _QUANT_PAD[quant]
+    lo = torch.as_tensor(lo, dtype=_F32)
+    hi = torch.as_tensor(hi, dtype=_F32, device=lo.device)
+    if grid is None:
+        grid = quant_grid(lo.amin(dim=0), hi.amax(dim=0), quant)
+    grid = grid.to(lo.device)
+    origin, cell = grid[0:3], grid[3:6]
+    inv = 1.0 / cell
+    qlo = torch.clamp(torch.floor((lo - origin) * inv).to(torch.int64) - pad, 0, levels)
+    qhi = torch.clamp(torch.ceil((hi - origin) * inv).to(torch.int64) + pad, 0, levels)
+    if quant == 1:
+        bq = qlo | (qhi << 16)  # per axis: lo | hi << 16
+    else:
+        bq = torch.stack([
+            qlo[:, 0] | (qlo[:, 1] << 8) | (qlo[:, 2] << 16) | (qhi[:, 0] << 24),
+            qhi[:, 1] | (qhi[:, 2] << 8),
+        ], dim=1)
+    skip = torch.as_tensor(skip, device=lo.device).to(torch.int64)
+    first = torch.as_tensor(first, device=lo.device).to(torch.int64)
+    count = torch.as_tensor(count, device=lo.device).to(torch.int64)
+    meta = skip | (torch.div(first, first_unit, rounding_mode="floor") << 16) | (count << 27)
+    return _wrap_int32(bq), _wrap_int32(meta), grid
+
+
+def dequantize_node_bounds(bq: torch.Tensor, grid: torch.Tensor, quant: int):
+    """The kernels' slab reconstruction, ``origin + q * cell`` in float32
+    (a multiply, then an add): ([N, 3] lo, [N, 3] hi)."""
+    words = bq.to(torch.int64) & 0xFFFFFFFF
+    if quant == 1:
+        qlo, qhi = words & 0xFFFF, (words >> 16) & 0xFFFF
+    else:
+        w0, w1 = words[:, 0], words[:, 1]
+        qlo = torch.stack([w0 & 0xFF, (w0 >> 8) & 0xFF, (w0 >> 16) & 0xFF], dim=1)
+        qhi = torch.stack([(w0 >> 24) & 0xFF, w1 & 0xFF, (w1 >> 8) & 0xFF], dim=1)
+    grid = grid.to(bq.device)
+    origin, cell = grid[None, 0:3], grid[None, 3:6]
+    return origin + qlo.to(_F32) * cell, origin + qhi.to(_F32) * cell
+
+
+def unpack_node_meta(meta: torch.Tensor, *, first_unit: int):
+    """The kernels' meta-word unpack: (skip, first, count), int64 [N]."""
+    word = meta.to(torch.int64) & 0xFFFFFFFF
+    return word & 0xFFFF, ((word >> 16) & 0x7FF) * first_unit, (word >> 27) & 0x1F
 
 
 def morton_dilate5(v: torch.Tensor) -> torch.Tensor:
@@ -780,8 +902,9 @@ def scene_mesh_set(
     device: str | torch.device = "cpu",
 ) -> MeshSet | None:
     """The MeshSet of a scene on ``device`` (None for sphere-only scenes):
-    the cached BVH plus this frame's instance transforms and TLAS operands,
-    both computed on the host and copied in one (``scene.on_device``)."""
+    the cached BVH (``builder``, ``wide``) plus this frame's instance
+    transforms and TLAS operands, both computed on the host and copied in
+    one (``scene.on_device``)."""
     from tpu_render_cluster_torch.render.kernels import tlas_frame_on_host
     from tpu_render_cluster_torch.render.scene import (
         mesh_instances_on,
@@ -796,11 +919,12 @@ def scene_mesh_set(
         bvh=cached_mesh_bvh(kind, builder, wide, "cpu"),
         instances=mesh_instances_on(scene_name, frame, "cpu"),
     )
-    copy = on_device(_FrameTables(*host.instances, *tlas_frame_on_host(host)), device)
+    tlas = tlas_frame_on_host(host)
+    copy = on_device(_FrameTables(*host.instances, *tlas[:4]), device)
     return MeshSet(
         bvh=cached_mesh_bvh(kind, builder, wide, device),
         instances=MeshInstances(*copy[:4]),
-        tlas=TlasFrame(*copy[4:]),
+        tlas=TlasFrame(*copy[4:], union=tlas.union),
     )
 
 

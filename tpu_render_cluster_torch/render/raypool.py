@@ -56,10 +56,22 @@ each frame, the same tile in every frame): it serves the region's rays
 keys each lane's RNG with its whole-frame lane (``region_lane_map``), so
 the region's images equal the whole-frame pool's pixels there.
 
+The BVH tiers resolve once per window (``integrator.resolve_bvh_config``:
+None takes the environment's). At ``quant`` 1 or 2 the mesh kernel reads
+quantized node tables (the window's TLAS windows against one grid) and the
+loop carries the throughput column as bf16 words
+(``kernels.pack_throughput_bf16``, a refilled lane packed ones); the
+kernels compute in float32, unpacked at the launch and packed after it.
+
 Differences of form from the reference: a window stacks only its real
 frames (the reference pads the window to its cap with the last frame,
-which changes no lane and no min or max of the instance boxes); the frame
-cap and pool width are arguments, not environment knobs.
+which changes no lane and no min or max of the instance boxes; the node
+format's degrade rule still counts the padded window,
+``kernels.pool_quant``); the reference's quantized tiers also fold the
+alive, frame and bounce columns into one meta word a lane, which holds
+them losslessly (a frame id below 32, a bounce below 256), so the port
+keeps the columns; the frame cap and pool width are arguments, not
+environment knobs.
 """
 
 from __future__ import annotations
@@ -72,7 +84,11 @@ from tpu_render_cluster_torch import resolve_device
 from tpu_render_cluster_torch.render import kernels
 from tpu_render_cluster_torch.render.camera import scene_camera
 from tpu_render_cluster_torch.render.compaction import compaction_order, wavefront_active
-from tpu_render_cluster_torch.render.integrator import frame_rays_and_seed, region_rays_and_seed
+from tpu_render_cluster_torch.render.integrator import (
+    frame_rays_and_seed,
+    region_rays_and_seed,
+    resolve_bvh_config,
+)
 from tpu_render_cluster_torch.render.mesh import scene_mesh_set
 from tpu_render_cluster_torch.render.rng import MASK32
 from tpu_render_cluster_torch.render.scene import build_scene, mesh_kind_for_scene
@@ -82,7 +98,7 @@ from tpu_render_cluster_torch.render.scene import build_scene, mesh_kind_for_sce
 RAYPOOL_LOG_CAP = 2048
 # Ceiling of the frame window (the sort key holds 5 frame-id bits).
 RAYPOOL_MAX_FRAMES = 32
-RAYPOOL_FRAMES = 8  # the reference's default window
+RAYPOOL_FRAMES = kernels.RAYPOOL_FRAMES  # the reference's default window
 # The pool width's quantum: the reference's ray block (BVH_BLOCK_R and
 # SPHERE_BOUNCE_BLOCK_R), so the port's pool is the reference's width.
 POOL_BLOCK = 1024
@@ -189,7 +205,7 @@ class PoolState(NamedTuple):
 
     origins: torch.Tensor  # [P, 3]
     directions: torch.Tensor  # [P, 3]
-    throughput: torch.Tensor  # [P, 3]
+    throughput: torch.Tensor  # [P, 3]; at quant 1-2 [P, 2] bf16 words
     alive: torch.Tensor  # [P] bool
     lane: torch.Tensor  # [P] int32: the local lane, the scatter's index
     fid: torch.Tensor  # [P] int32
@@ -207,7 +223,8 @@ class PoolWindow:
     ``run`` renders the window; ``iteration`` is one step of the loop,
     ``more`` its condition, both without a host read. ``region`` (y0, x0,
     tile_height, tile_width): the window renders that region of each of
-    its frames."""
+    its frames. The BVH tiers (``use_tlas``, ``quant``, ``builder``,
+    ``wide``; None: the environment's) resolve here."""
 
     def __init__(
         self,
@@ -222,8 +239,12 @@ class PoolWindow:
         device: torch.device,
         use_tlas: bool | None = None,
         region: tuple[int, int, int, int] | None = None,
+        quant: int | None = None,
+        builder: str | None = None,
+        wide: int | None = None,
     ) -> None:
         frames = [int(f) for f in frames]
+        use_tlas, self.quant, builder, wide = resolve_bvh_config(use_tlas, quant, builder, wide)
         if not 1 <= len(frames) <= RAYPOOL_MAX_FRAMES:
             raise ValueError(f"a pool window holds 1 to {RAYPOOL_MAX_FRAMES} frames, not {len(frames)}")
         self.frames, self.device = frames, device
@@ -268,7 +289,7 @@ class PoolWindow:
             self.mesh_ops = None
             self.ops = kernels.pool_sphere_operands(scenes)
         else:
-            meshes = [scene_mesh_set(scene_name, f, device=device) for f in frames]
+            meshes = [scene_mesh_set(scene_name, f, builder, wide, device) for f in frames]
             self.mesh_ops = self.ops = kernels.pool_mesh_operands(scenes, meshes)
             self.tlas = kernels.use_tlas_for(self.mesh_ops.per_frame, use_tlas)
             if not self.tlas:
@@ -283,6 +304,9 @@ class PoolWindow:
                 self.slot_hi = hi.reshape(len(frames), k, 3).amax(dim=0)
         # The lane quantum of the launched-lane count.
         self.block = kernels.TLAS_BLOCK_R if self.tlas else KERNEL_BLOCK
+        # A refilled lane's throughput, in the carried form.
+        ones = torch.ones((1, 3), dtype=torch.float32, device=device)
+        self.fresh_throughput = kernels.pack_throughput_bf16(ones) if self.quant else ones
 
     def initial_state(self) -> PoolState:
         """Every lane dead with a ray that misses everything (far origin,
@@ -293,7 +317,7 @@ class PoolWindow:
         return PoolState(
             origins=torch.full((pool, 3), 1e7, dtype=torch.float32, device=device),
             directions=torch.tensor([0.0, 1.0, 0.0], device=device).expand(pool, 3).clone(),
-            throughput=torch.ones((pool, 3), dtype=torch.float32, device=device),
+            throughput=self.fresh_throughput.expand(pool, -1).clone(),
             alive=torch.zeros((pool,), dtype=torch.bool, device=device),
             lane=zeros, fid=zeros.clone(), bounce=zeros.clone(),
             counters=torch.zeros((5,), dtype=torch.int64, device=device),
@@ -332,7 +356,7 @@ class PoolWindow:
                 self.slot_hi,
             )
         packed = torch.cat([state.origins, state.directions, state.throughput], dim=1)[perm]
-        o, d, thr = packed[:, 0:3], packed[:, 3:6], packed[:, 6:9]
+        o, d, thr = packed[:, 0:3], packed[:, 3:6], packed[:, 6:]
         alive, lane = state.alive[perm], state.lane[perm]
         fid, bounce = state.fid[perm], state.bounce[perm]
         live = alive.sum(dtype=torch.int64)
@@ -344,7 +368,7 @@ class PoolWindow:
         is_new = (slot >= live) & (slot < live + take)
         o = torch.where(is_new[:, None], self.primary_origins[src], o)
         d = torch.where(is_new[:, None], self.primary_directions[src], d)
-        thr = torch.where(is_new[:, None], 1.0, thr)
+        thr = torch.where(is_new[:, None], self.fresh_throughput, thr)
         alive = alive | is_new
         new_fid = src // self.n
         fid = torch.where(is_new, new_fid.to(torch.int32), fid)
@@ -359,7 +383,10 @@ class PoolWindow:
         counter = lane
         if self.glane_map is not None:
             counter = self.glane_map[lane.clamp(0, self.n - 1)]
-        inputs = (o, d, thr, alive, counter, fid, seed_row, bounce)
+        inputs = (
+            o, d, kernels.unpack_throughput_bf16(thr) if self.quant else thr, alive, counter,
+            fid, seed_row, bounce,
+        )
         if on_iteration is not None:
             on_iteration(PoolLaunch(index, live2, inputs))
         if self.mesh_ops is None:
@@ -368,7 +395,8 @@ class PoolWindow:
             )
         else:
             step = kernels.pool_mesh_bounce(
-                self.ops, *inputs, live2, total_bounces=self.max_bounces, use_tlas=self.tlas
+                self.ops, *inputs, live2, total_bounces=self.max_bounces, use_tlas=self.tlas,
+                quant=self.quant,
             )
 
         # 4. Scatter-back into each lane's frame buffer. The ids are unique
@@ -402,10 +430,13 @@ class PoolWindow:
         keep = lambda new, old: torch.where(  # noqa: E731
             active.reshape([1] * new.ndim), new, old
         )
+        throughput = step.throughput
+        if self.quant:
+            throughput = kernels.pack_throughput_bf16(throughput)
         return PoolState(
             origins=keep(step.origins, state.origins),
             directions=keep(step.directions, state.directions),
-            throughput=keep(step.throughput, state.throughput),
+            throughput=keep(throughput, state.throughput),
             alive=keep(alive, state.alive),
             lane=keep(lane, state.lane),
             fid=keep(fid, state.fid),
@@ -476,16 +507,21 @@ def render_batch_raypool(
     on_iteration: Callable[[PoolLaunch], None] | None = None,
     use_tlas: bool | None = None,
     region: tuple[int, int, int, int] | None = None,
+    quant: int | None = None,
+    builder: str | None = None,
+    wide: int | None = None,
 ) -> tuple[list[torch.Tensor], list[PoolStats]]:
     """Render a batch of frames through the pool, in windows of at most
     ``frame_cap`` frames: (linear [H, W, 3] images on ``device`` (CUDA
     unless ``cpu`` is asked for), one per frame in order, and one PoolStats
     per window). Each window's rays and trace seeds are the masked per-frame
-    renderer's. ``use_tlas`` (None: ``kernels.use_tlas_for``) picks the mesh
-    pool kernel's variant. ``region`` (y0, x0, tile_height, tile_width):
+    renderer's. The BVH tiers ``use_tlas``, ``quant``, ``builder`` and
+    ``wide`` (None: the environment's) resolve once for the batch
+    (``integrator.resolve_bvh_config``). ``region`` (y0, x0, tile_height, tile_width):
     every frame is rendered on that region only, [th, tw, 3] each, equal to
     the whole-frame pool's pixels there (a tiled job's same-tile units)."""
     device = resolve_device(device)
+    use_tlas, quant, builder, wide = resolve_bvh_config(use_tlas, quant, builder, wide)
     frames = [int(f) for f in frame_indices]
     cap = raypool_frame_cap(frame_cap)
     images: list[torch.Tensor] = []
@@ -494,7 +530,7 @@ def render_batch_raypool(
         window = PoolWindow(
             scene_name, frames[start:start + cap], width=width, height=height,
             samples=samples, max_bounces=max_bounces, pool_width=pool_width, device=device,
-            use_tlas=use_tlas, region=region,
+            use_tlas=use_tlas, region=region, quant=quant, builder=builder, wide=wide,
         )
         window_images, window_stats = window.run(on_iteration=on_iteration)
         images.extend(window_images)

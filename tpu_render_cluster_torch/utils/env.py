@@ -2,8 +2,9 @@
 
 The port keeps the reference's names and defaults for the knobs its copied
 modules read: the reconnect budget (``transport/reconnect.py``), the
-event-loop lag probe (``obs/loopmon.py``) and the log filter
-(``utils/logging.py``). Values are read at call time, not import time, so a
+event-loop lag probe (``obs/loopmon.py``), the log filter
+(``utils/logging.py``) and the BVH tiers that ``integrator.resolve_bvh_config``
+resolves (``render/mesh.py``, ``render/kernels.py``). Values are read at call time, not import time, so a
 long-lived process and a test that patches ``os.environ`` both see the
 current value. Reference: ``tpu_render_cluster/utils/env.py``.
 """
@@ -22,7 +23,7 @@ class EnvVar:
     """One declared ``TRC_*`` knob (name, value grammar, one-line doc)."""
 
     name: str
-    kind: str  # "int" | "float" | "spec"
+    kind: str  # "int" | "float" | "flag" | "spec"
     default: object
     doc: str
 
@@ -46,6 +47,11 @@ declare("TRC_OP_DEADLINE_SECONDS", "float", 30.0, "Per-op reconnect deadline")
 # -- observability -----------------------------------------------------------
 declare("TRC_OBS_LOOPMON_INTERVAL", "float", 0.25, "Event-loop lag probe interval")
 declare("TRC_OBS_LOOPMON_THRESHOLD", "float", 0.1, "Loop lag that counts as a blocked episode")
+# -- render tiers ------------------------------------------------------------
+declare("TRC_TLAS", "flag", 1, "Two-level (TLAS) mesh traversal on/off")
+declare("TRC_BVH_QUANT", "int", 0, "Quantized BVH/TLAS node tier: 0 off, 1 16-bit, 2 8-bit slabs (+ packed carried ray state)")
+declare("TRC_BVH_BUILDER", "spec", "sah", "BLAS build strategy: sah (binned) | median")
+declare("TRC_BVH_WIDE", "int", 4, "BLAS branching factor after wide collapse (1 = binary, clamped 1..8)")
 # -- logging -----------------------------------------------------------------
 declare("TRC_LOG", "spec", None, "Log level/filter (RUST_LOG grammar; RUST_LOG also accepted)")
 

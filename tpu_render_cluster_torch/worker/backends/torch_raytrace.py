@@ -37,11 +37,17 @@ bound, ``"off"`` never, ``"force"`` for every scene (sphere scenes then
 through the per-bounce sphere kernel). ``on_launch``, when given, is
 called with each wavefront launch (``compaction.WavefrontLaunch``),
 ``on_iteration`` with each pool launch (``raypool.PoolLaunch``).
-``use_tlas`` goes to every mesh tier but the scan: ``None``, the
-reference's default, walks the instances of a field of more than
+``use_tlas``, ``quant``, ``bvh_builder`` and ``bvh_wide`` are the BVH
+tiers, each ``None`` by default, which takes its environment tier as the
+reference's worker does (``TRC_TLAS``, ``TRC_BVH_QUANT``,
+``TRC_BVH_BUILDER``, ``TRC_BVH_WIDE``; ``integrator.resolve_bvh_config``),
+resolved once per renderer or pool window, never per launch. ``use_tlas``
+(default on) walks the instances of a field of more than
 ``kernels.TLAS_LEAF`` through the two-level (TLAS) variant of the mesh
-kernels, ``False`` through the flat instance sweep (the reference reads
-this choice from ``TRC_TLAS``).
+kernels, ``False`` through the flat instance sweep; ``quant`` 1 or 2 reads
+quantized node tables (the masked tier's images bit for bit the fp32
+ones; the wavefront and the pool then carry bf16 throughput); the builder
+and width shape the BLAS. The scan takes the build tiers only.
 
 It emits the same 7-phase ``FrameRenderTime``:
 
@@ -102,6 +108,7 @@ from tpu_render_cluster_torch.render.image_io import (
 from tpu_render_cluster_torch.render.integrator import (
     fused_frame_renderer,
     fused_region_renderer,
+    resolve_bvh_config,
     tonemap,
 )
 from tpu_render_cluster_torch.render.raypool import (
@@ -142,6 +149,9 @@ class TorchRaytraceBackend(RenderBackend):
         bounce_scan: bool = False,
         per_instance: bool = False,
         use_tlas: bool | None = None,
+        quant: int | None = None,
+        bvh_builder: str | None = None,
+        bvh_wide: int | None = None,
     ) -> None:
         if sharding is not None:
             raise NotImplementedError(
@@ -159,6 +169,9 @@ class TorchRaytraceBackend(RenderBackend):
         self.bounce_scan = bool(bounce_scan)
         self.per_instance = bool(per_instance)
         self.use_tlas = None if use_tlas is None else bool(use_tlas)
+        self.quant = None if quant is None else int(quant)
+        self.bvh_builder = bvh_builder
+        self.bvh_wide = None if bvh_wide is None else int(bvh_wide)
         self.on_launch = on_launch
         self.on_iteration = on_iteration
         # Stored as the reference stores it; the backend does not read it.
@@ -177,29 +190,39 @@ class TorchRaytraceBackend(RenderBackend):
         self.samples = samples
         self.max_bounces = max_bounces
 
+    def tiers(self) -> dict:
+        """The BVH tiers this backend renders with, resolved now
+        (``integrator.resolve_bvh_config``: an option left None takes the
+        environment's): ``use_tlas``, ``quant``, ``builder``, ``wide``."""
+        return dict(zip(
+            ("use_tlas", "quant", "builder", "wide"),
+            resolve_bvh_config(self.use_tlas, self.quant, self.bvh_builder, self.bvh_wide),
+        ))
+
     def _renderer(self, scene_name: str, region: tuple[int, int, int, int] | None = None):
         """``frame -> uint8 [H, W, 3]`` on the device (a region's [th, tw,
         3]), through the bounce scan or else the tier the ``wavefront``
-        option picks for this scene."""
+        option picks for this scene; the BVH tiers resolved once, here."""
+        tiers = self.tiers()
         masked = self.bounce_scan or not wavefront_active(scene_name, mode=self.wavefront)
         if masked and region is None:
             return fused_frame_renderer(
                 scene_name, self.width, self.height, self.samples, self.max_bounces,
                 self.device, bounce_scan=self.bounce_scan, per_instance=self.per_instance,
-                use_tlas=self.use_tlas,
+                **tiers,
             )
         if masked:
             y0, x0, tile_height, tile_width = region
             render_region = fused_region_renderer(
                 scene_name, self.width, self.height, tile_height, tile_width, self.samples,
                 self.max_bounces, self.device, bounce_scan=self.bounce_scan,
-                per_instance=self.per_instance, use_tlas=self.use_tlas,
+                per_instance=self.per_instance, **tiers,
             )
             return lambda frame: tonemap(render_region(frame, y0, x0))
         options = dict(
             width=self.width, height=self.height, samples=self.samples,
             max_bounces=self.max_bounces, device=self.device, on_launch=self.on_launch,
-            use_tlas=self.use_tlas,
+            **tiers,
         )
         if region is None:
             return lambda frame: tonemap(render_frame_wavefront(scene_name, frame, **options))
@@ -254,7 +277,7 @@ class TorchRaytraceBackend(RenderBackend):
         images, stats = render_batch_raypool(
             scene_name, frames, width=self.width, height=self.height, samples=self.samples,
             max_bounces=self.max_bounces, frame_cap=len(frames), device=self.device,
-            on_iteration=self.on_iteration, use_tlas=self.use_tlas, region=region,
+            on_iteration=self.on_iteration, region=region, **self.tiers(),
         )
         self.pool_stats.extend(stats)
         return images

@@ -15,6 +15,14 @@ versions on the CPU instead, and without a GPU and without that flag the
 worker raises before it connects. Flags of the reference that the port does
 not have yet are accepted by the parser only to refuse them: a given one
 exits with an error, so none appears to work while doing nothing.
+
+The BVH tiers are chosen, as in the reference, by the environment only:
+``TRC_TLAS`` (the two-level walk, default on), ``TRC_BVH_QUANT`` (the node
+format, 0, 1 or 2), ``TRC_BVH_BUILDER`` (``sah`` or ``median``) and
+``TRC_BVH_WIDE`` (the BLAS width, 1 to 8). The backend resolves them once
+per renderer (``integrator.resolve_bvh_config``); a worker started with
+``TRC_BVH_QUANT=1`` renders that tier, and its launches count under the
+quantized kernels' names in its metrics (``kernels.quant_name``).
 """
 
 from __future__ import annotations
