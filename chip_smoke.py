@@ -211,7 +211,10 @@ Phases, each of which raises (exit code 1) if its check fails:
    with ``TRC_BVH_QUANT=1`` in its environment: its snapshot must show the
    quantized launches (``mesh_bounce_tlas[q1]``, ``mesh_entry_keys[q1]``,
    ``pool_mesh_bounce_tlas[q1]``), and its PNGs must equal the in-process
-   backend's at ``quant=1`` bit for bit;
+   backend's at ``quant=1`` bit for bit. A fourth job, 4 frames of
+   04_very-simple, goes to a worker started with ``--sharding tile``: its
+   launch map must be ``trace_fused`` 4 and its PNGs equal the in-process
+   sharded backend's bit for bit;
 9. the node formats, the reference's ``TRC_BVH_QUANT`` tiers 1 and 2
    (``kernels.QUANT_KERNELS``; each count names its tier, and each path
    prints the format it resolved to and fails where it came back 0): each
@@ -233,7 +236,23 @@ Phases, each of which raises (exit code 1) if its check fails:
    build's masked frames of 02 and the deep scene bit-equal to the default
    build's; and rows 3, 4 (with its key pass) and 6 TLAS alone at formats
    0, 1 and 2 in turns, beside their bounds (on the kernels line under
-   ``node_formats``).
+   ``node_formats``);
+10. sharding (``tpu_render_cluster_torch/parallel/``) on the one card: (a)
+   the backend with ``sharding`` tile and spp (the wavefront and the pool
+   forced on, which sharding must override) at 512x512, 8 spp: 2 frames of
+   04_very-simple and of 02_physics-mesh, 1 of 03_physics-2-mesh, each PNG
+   bit-equal to the default path's frame rendered here (the deep scene's:
+   the masked deep loop) and to phase 4's, the launches exactly one masked
+   frame's each frame, no wavefront or pool launch; frames/s of each beside
+   the default path's, run before and after them (the launches on the
+   kernels line as ``sharded_launches``); (b) 4
+   shards through ``sharded_render.render_shard`` at 128x128, 4 spp: tile
+   bands and spp subsets of 04 and 02 (4 bounces), bands of 03 (2), each shard and the
+   composed frame against the same rendered with the plain versions on the
+   card, bit for bit (row 1; rows 3 and 4 TLAS on the octant-ordered walk);
+   (c) a ``torch.distributed`` group of this one process over NCCL on a
+   free localhost port: ``render_frame_sharded`` in both modes on 04 frame
+   1, through the collectives, bit-equal to (a)'s PNGs.
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -3522,6 +3541,8 @@ class WireJob(NamedTuple):
     # The node format: the worker's TRC_BVH_QUANT, the in-process
     # backend's ``quant`` (its PNGs then bit-equal to the worker's).
     quant: int = 0
+    # The worker's --sharding, the in-process backend's ``sharding``.
+    sharding: str | None = None
 
 
 WIRE_JOBS = [
@@ -3541,6 +3562,10 @@ WIRE_JOBS = [
         ("mesh_bounce_tlas[q1]", "mesh_entry_keys[q1]", "pool_mesh_bounce_tlas[q1]",
          "packet_octants"), True, quant=1,
     ),
+    # The sphere job on a worker started with --sharding tile: its mesh the
+    # one card, a band a frame, one row 1 launch a frame.
+    WireJob("04_very-simple", 4, 'strategy_type = "naive-fine"', ("trace_fused",), False,
+            sharding="tile"),
 ]
 WIRE_MASTER_TIMEOUT_S, WIRE_WORKER_TIMEOUT_S = 300, 60
 WIRE_PHASES = {
@@ -3594,7 +3619,7 @@ def in_process_frames(job: WireJob, job_path: Path, directory: Path) -> dict:
     frames = list(spec.frame_indices())
     backend = TorchRaytraceBackend(
         width=WIDTH, height=HEIGHT, samples=SAMPLES, max_bounces=BOUNCES,
-        base_directory=directory, quant=job.quant,
+        base_directory=directory, quant=job.quant, sharding=job.sharding,
     )
     backend.warm(job.job_name)
     torch.cuda.synchronize()
@@ -3644,6 +3669,7 @@ def wire_run(job: WireJob, master_binary: Path, job_path: Path, directory: Path)
             "--baseDirectory", str(base), "--backend", "torch-raytrace",
             "--renderSize", f"{WIDTH}x{HEIGHT}", "--renderSamples", str(SAMPLES),
             "--warmScene", job.job_name,
+            *(("--sharding", job.sharding) if job.sharding else ()),
         ],
     }
     processes: dict[str, subprocess.Popen] = {}
@@ -3740,7 +3766,8 @@ def wire_checks(job: WireJob, run: dict, expected: dict, frames_directory: Path)
 
 
 def wire_label(job: WireJob) -> str:
-    return job.job_name + (f" (TRC_BVH_QUANT={job.quant})" if job.quant else "")
+    return (job.job_name + (f" (TRC_BVH_QUANT={job.quant})" if job.quant else "")
+            + (f" (--sharding {job.sharding})" if job.sharding else ""))
 
 
 def wire_phase(card: str) -> dict:
@@ -3760,8 +3787,10 @@ def wire_phase(card: str) -> dict:
     summary: dict = {"card": card, "jobs": {}, "launches": {}}
     try:
         with tempfile.TemporaryDirectory(prefix="chip-smoke-wire-") as scratch:
-            directories = {wire_label(job): Path(scratch) / f"{job.job_name}-q{job.quant}"
-                           for job in WIRE_JOBS}
+            directories = {
+                wire_label(job): Path(scratch) / f"{job.job_name}-q{job.quant}-{job.sharding}"
+                for job in WIRE_JOBS
+            }
             expected = {}
             for job in WIRE_JOBS:  # the in-process renders, while g++ runs
                 directory = directories[wire_label(job)]
@@ -4314,6 +4343,250 @@ def quant_phase(card: str, device, pool_first: dict) -> dict:
     return {"checked": checked, "frames": frames, "times": times}
 
 
+# -- 10. sharding: the multi-GPU slice on one card ---------------------------
+
+# The sharded paths of phase 10 (a): each scene's job through the backend
+# with ``sharding`` set, its PNGs held against the default path's of the
+# same frames; the launches a sharded frame must make (the deep scene:
+# the masked deep loop, a launch of row 4 TLAS and its passes a bounce).
+SHARDED_PATHS = (
+    ("04_very-simple", SPHERE_JOB, 2, {"trace_fused": 1}),
+    ("02_physics-mesh", MESH_JOB, 2, {"trace_fused_mesh_tlas": 1}),
+    ("03_physics-2-mesh", DEEP_JOB, 1,
+     {"mesh_bounce_tlas": BOUNCES, "mesh_entry_keys": BOUNCES, "packet_octants": BOUNCES}),
+)
+SHARDS = 4  # phase 10 (b): an n-shard decomposition on the one card
+# Phase 10 (b)'s bounces by scene: the deep scene's plain per-bounce walk
+# takes about 3 s a launch on an H100 whatever its width (a Python sweep),
+# and its 4 bands at 4 bounces took 51 s; at 2 they cover bounce 0 (the
+# broadphase keys) and a launch sorted by the kernel's key column.
+DECOMPOSITION_BOUNCES = {"03_physics-2-mesh": 2}
+SHARDING_TOLERANCE = (
+    "a one-card mesh's PNGs bit-equal to the default paths'; each of 4 shards and their "
+    "composition bit-equal to the same rendered with the plain versions on the card (row 1, "
+    "and rows 3 and 4 TLAS on the octant-ordered walk; else >= 99.9% of rays within 1e-4)"
+)
+
+
+@contextlib.contextmanager
+def plain_tracing():
+    """The integrator's kernel calls (rows 1, 3 and 4) through the plain
+    versions, on the tensors' device."""
+    from tpu_render_cluster_torch.render import kernels
+
+    names = ("trace_paths_fused", "trace_paths_fused_mesh", "mesh_bounce")
+    saved = {name: getattr(kernels, name) for name in names}
+    try:
+        for name in names:
+            setattr(kernels, name, getattr(kernels, f"{name}_reference"))
+        yield
+    finally:
+        for name, wrapper in saved.items():
+            setattr(kernels, name, wrapper)
+
+
+def backend_frames(scene: str, job_file: str, frames: int, **options) -> dict:
+    """The first ``frames`` frames of a job through a fresh backend on the
+    card after its warm-up, the counts zeroed just before and read just
+    after: the PNGs' pixels, frames/s on the host and the launches, and
+    every wavefront or pool launch the backend reported."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from tpu_render_cluster_torch.jobs.models import BlenderJob
+    from tpu_render_cluster_torch.render import kernels
+    from tpu_render_cluster_torch.worker.backends.torch_raytrace import TorchRaytraceBackend
+
+    job = BlenderJob.load_from_file(REPO / job_file)
+    chosen = list(job.frame_indices())[:frames]
+    reported: list = []
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-shard-") as base:
+        backend = TorchRaytraceBackend(
+            width=WIDTH, height=HEIGHT, samples=SAMPLES, max_bounces=BOUNCES,
+            base_directory=base, on_launch=reported.append, on_iteration=reported.append,
+            **options,
+        )
+        backend.warm(job.job_name)
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        reported.clear()
+        started = time.perf_counter()
+        for frame in chosen:
+            asyncio.run(backend.render_frame(job, frame))
+        elapsed = time.perf_counter() - started
+        launches = {k: v for k, v in kernels.counts.items() if v}
+        outputs = sorted((Path(base) / "blender-projects").rglob("*.png"))
+        check(len(outputs) == len(chosen), f"{scene} {options}: {len(outputs)} PNGs")
+        pixels = [np.array(Image.open(output)) for output in outputs]
+    return {"pixels": pixels, "fps": len(chosen) / elapsed, "launches": launches,
+            "reported": len(reported), "frames": chosen}
+
+
+def sharded_backend_checks(card: str, runs: dict | None) -> dict:
+    """Phase 10 (a): each scene's frames through the backend on a one-card
+    mesh, ``sharding`` tile and spp, held bit for bit against the default
+    path's frames rendered here (the deep scene's: the masked deep loop,
+    ``wavefront="off"``), and against phase 4's where it ran; no wavefront
+    or pool launch, and the launches of one masked frame each frame."""
+    import numpy as np
+
+    defaults = {"04_very-simple": "trace_fused", "02_physics-mesh": "trace_fused_mesh_tlas"}
+    result: dict = {}
+    for scene, job_file, frames, per_frame in SHARDED_PATHS:
+        default = backend_frames(scene, job_file, frames, wavefront="off", raypool="off")
+        earlier = (runs or {}).get(defaults.get(scene), {}).get("images")
+        result[scene] = {"default_fps": [default["fps"]]}
+        for mode in ("tile", "spp"):
+            # The pool and the wavefront forced on: sharding still takes neither.
+            got = backend_frames(scene, job_file, frames, sharding=mode, wavefront="force",
+                                 raypool="force")
+            expected = {name: count * frames for name, count in per_frame.items()}
+            check(got["launches"] == expected and got["reported"] == 0,
+                  f"{scene} sharding={mode}: launches {got['launches']} (expected {expected}), "
+                  f"{got['reported']} wavefront or pool launches reported")
+            for index, (image, want) in enumerate(zip(got["pixels"], default["pixels"])):
+                check(image.shape == (HEIGHT, WIDTH, 3) and image.astype(np.float32).std() > 5.0,
+                      f"{scene} sharding={mode} frame {got['frames'][index]}: {image.shape}")
+                check(np.array_equal(image, want),
+                      f"{scene} sharding={mode} frame {got['frames'][index]}: not the default "
+                      f"path's PNG")
+                if earlier is not None:
+                    check(np.array_equal(image, earlier[index].numpy()),
+                          f"{scene} sharding={mode}: not phase 4's PNG")
+            result[scene][mode] = {"fps": got["fps"], "launches": got["launches"],
+                                   "pixels": got["pixels"]}
+            print(f"[10] {scene} sharding={mode}, one-card mesh: {frames} frames at "
+                  f"{got['fps']:.4f} frames/s (the default path before it {default['fps']:.4f}); "
+                  f"launches {got['launches']}, none of the wavefront or pool; PNGs bit-equal "
+                  f"to the default path's{' and to phase 4' + chr(39) + 's' if earlier is not None else ''}; "
+                  f"{card}")
+        # The default path again: its frames/s before and after the sharded
+        # ones bracket the host's drift in this call.
+        again = backend_frames(scene, job_file, frames, wavefront="off", raypool="off")
+        check(all(np.array_equal(a, b) for a, b in zip(again["pixels"], default["pixels"])),
+              f"{scene}: the default path's PNGs changed between its two runs")
+        result[scene]["default_fps"].append(again["fps"])
+        print(f"[10] {scene} default path, frames/s before and after the sharded runs: "
+              f"{result[scene]['default_fps']}; {card}")
+    return result
+
+
+def shard_decomposition_checks(card: str, device) -> dict:
+    """Phase 10 (b): a SHARDS-shard decomposition on the one card at phase
+    3's check size, through the per-shard function: tile bands and spp
+    subsets of 04 and 02, bands of the deep scene; each shard and the
+    composed frame against the same rendered with the plain versions."""
+    import torch
+
+    from tpu_render_cluster_torch.parallel import sharded_render
+    from tpu_render_cluster_torch.render import kernels
+    from tpu_render_cluster_torch.render.mesh import scene_mesh_set
+
+    frame = 2
+    cases = [("04_very-simple", "tile"), ("04_very-simple", "spp"), ("02_physics-mesh", "tile"),
+             ("02_physics-mesh", "spp"), ("03_physics-2-mesh", "tile")]
+    result: dict = {}
+    for scene, mode in cases:
+        started = time.perf_counter()
+        plan = sharded_render.shard_plan(mode, SHARDS, height=CHECK_SIDE, samples=CHECK_SAMPLES)
+        bounces = DECOMPOSITION_BOUNCES.get(scene, BOUNCES)
+        options = dict(width=CHECK_SIDE, height=CHECK_SIDE, max_bounces=bounces, device=device)
+        kernels.reset_counts()
+        shards = [sharded_render.render_shard(scene, frame, shard, **options) for shard in plan]
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.counts.items() if v}
+        check(not any(name.endswith("_reference") for name in launches),
+              f"{scene} {mode}: a plain version ran in the kernels' shards ({launches})")
+        with plain_tracing():
+            plain = [sharded_render.render_shard(scene, frame, shard, **options) for shard in plan]
+        mesh = scene_mesh_set(scene, frame, device=device)
+        exact = mesh is None or kernels.walks_ordered(mesh.bvh)
+        shares = []
+        for index, (got, want) in enumerate(zip(shards + [sharded_render.compose(mode, shards)],
+                                                plain + [sharded_render.compose(mode, plain)])):
+            label = f"{scene} {mode} " + (f"shard {index}" if index < SHARDS else "composed")
+            check(torch.isfinite(got).all().item(), f"{label}: non-finite radiance")
+            fraction, bad, err = agreement(got.reshape(-1, 3), want.reshape(-1, 3))
+            bit_equal = torch.equal(got, want)
+            shares.append(fraction)
+            if exact:
+                check(bit_equal, f"{label}: not bit-equal to the plain versions (max abs err {err})")
+            else:
+                check(fraction >= 0.999, f"{label}: {fraction} of rays within 1e-4")
+        result[f"{scene} {mode}"] = {"launches": launches, "within_1e-4": min(shares),
+                                     "bit_equal": exact, "bounces": bounces,
+                                     "s": time.perf_counter() - started}
+        print(f"[10] {scene} {mode}, {SHARDS} shards at {CHECK_SIDE}x{CHECK_SIDE}x{CHECK_SAMPLES} "
+              f"spp, {bounces} bounces, on one card: launches {launches}; every shard and the composed frame "
+              f"{'bit-equal to' if exact else 'within 1e-4 of'} the plain versions' "
+              f"({time.perf_counter() - started:.1f} s); {card}")
+    return result
+
+
+def nccl_group_checks(card: str, expected: dict) -> dict:
+    """Phase 10 (c): a ``torch.distributed`` group of this one process over
+    NCCL on a free localhost port; ``render_frame_sharded`` in both modes
+    on 04 frame 1 (the collectives run) bit-equal to (a)'s PNG."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_render_cluster_torch.parallel import mesh, sharded_render
+    from tpu_render_cluster_torch.render.integrator import tonemap
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    started = time.perf_counter()
+    check(mesh.initialize_multihost(f"127.0.0.1:{port}", 1, 0) is True, "no process group")
+    result: dict = {}
+    try:
+        check(dist.get_backend() == "nccl", f"the group runs {dist.get_backend()}")
+        for mode in ("tile", "spp"):
+            linear = sharded_render.render_frame_sharded(
+                "04_very-simple", 1, width=WIDTH, height=HEIGHT, samples=SAMPLES,
+                max_bounces=BOUNCES, mode=mode,
+            )
+            image = tonemap(linear).cpu().numpy()
+            check(np.array_equal(image, expected[mode]["pixels"][0]),
+                  f"04 frame 1 sharding={mode} in an NCCL group: not (a)'s PNG")
+            result[mode] = "bit-equal"
+    finally:
+        dist.destroy_process_group()
+    result["s"] = time.perf_counter() - started
+    print(f"[10] an NCCL group of one process (tcp://127.0.0.1:{port}): 04 frame 1 in tile and "
+          f"spp mode bit-equal to (a)'s PNGs, in {result['s']:.1f} s; {card}")
+    return result
+
+
+def sharding_phase(card: str, device, runs: dict | None = None) -> dict:
+    """Phase 10: the sharded renderer on the one card, (a)-(c) (the wire
+    worker started with ``--sharding tile`` runs in phase 8,
+    ``WIRE_JOBS``)."""
+    started = time.perf_counter()
+    backend = sharded_backend_checks(card, runs)
+    print(f"[10] (a) in {time.perf_counter() - started:.1f} s")
+    decompositions = shard_decomposition_checks(card, device)
+    print(f"[10] (b) in {time.perf_counter() - started:.1f} s")
+    group = nccl_group_checks(card, backend["04_very-simple"])
+    summary = {
+        "card": card, "tolerance": SHARDING_TOLERANCE,
+        "one_card_mesh": {
+            scene: {"default_fps": r["default_fps"],
+                    **{mode: {"fps": r[mode]["fps"], "launches": r[mode]["launches"]}
+                       for mode in ("tile", "spp")}}
+            for scene, r in backend.items()
+        },
+        "decompositions": decompositions, "nccl_group": group,
+        "s": time.perf_counter() - started,
+    }
+    print(f"[10] sharding phase on {card}: {json.dumps(summary)}")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -4487,7 +4760,20 @@ def main() -> int:
             entry["node_format_checks"] = {"tolerance": QUANT_TOLERANCE, "launches": checked}
     print(f"[9] phase 9 in {time.perf_counter() - started:.1f} s")
 
-    print(f"[5] chip_smoke phases 1-9 in {time.perf_counter() - script_started:.1f} s")
+    # -- 10. sharding: a one-card mesh, 4-shard decompositions, NCCL -------
+    started = time.perf_counter()
+    sharding = sharding_phase(card, device, runs)
+    for entry in record["kernels"]:
+        sharded = {
+            f"{scene} {mode}": result[mode]["launches"][entry["name"]]
+            for scene, result in sharding["one_card_mesh"].items() for mode in ("tile", "spp")
+            if entry["name"] in result[mode]["launches"]
+        }
+        if sharded:
+            entry["sharded_launches"] = sharded
+    print(f"[10] phase 10 in {time.perf_counter() - started:.1f} s")
+
+    print(f"[5] chip_smoke phases 1-10 in {time.perf_counter() - script_started:.1f} s")
     print(json.dumps(record))
     print(card)
     print(json.dumps({

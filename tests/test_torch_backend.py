@@ -203,21 +203,24 @@ def test_backend_warm_renders_a_frame():
      ("wavefront", "force", "wavefront"), ("raypool", "force", "ray-pool")],
 )
 def test_backend_options_of_later_slices_raise(option, value, slice_name):
-    """Sharding raises, naming its slice. ``tile_size`` is ported (the tiles
-    slice): taken and stored, as the reference stores it. The wavefront and
-    ray-pool options are ported (their slices): their three modes are
-    taken, and any other value raises naming them."""
+    """Every option of the reference's backend is ported now, each in its
+    slice, and only a value outside its modes raises. ``tile_size`` (the
+    tiles slice) is taken and stored, as the reference stores it. The
+    wavefront and ray-pool options take their three modes, the sharding
+    option (the multi-GPU slice) ``tile``, ``spp`` and None; any other value
+    raises naming them, and so does sharding with one card named."""
     if option == "tile_size":
         assert TorchRaytraceBackend(device="cpu", tile_size=value).tile_size == value
         return
-    if option in ("wavefront", "raypool"):
-        for mode in ("auto", "off", "force"):
-            assert getattr(TorchRaytraceBackend(device="cpu", **{option: mode}), option) == mode
-        with pytest.raises(ValueError, match="auto"):
-            TorchRaytraceBackend(device="cpu", **{option: "sideways"})
-        return
-    with pytest.raises(NotImplementedError, match=slice_name):
-        TorchRaytraceBackend(device="cpu", **{option: value})
+    modes = ("tile", "spp", None) if option == "sharding" else ("auto", "off", "force")
+    for mode in modes:
+        assert getattr(TorchRaytraceBackend(device="cpu", **{option: mode}), option) == mode
+    with pytest.raises(ValueError, match=modes[0]):
+        TorchRaytraceBackend(device="cpu", **{option: "sideways"})
+    if option == "sharding":
+        # The mesh is every local card: one named card is refused.
+        with pytest.raises(ValueError, match="every local card"):
+            TorchRaytraceBackend(device="cuda:1", sharding="tile")
 
 
 def test_backend_refuses_tiles(tmp_path):

@@ -4,7 +4,8 @@
 ``--device cpu``, at a small size) serve the Python master CLI
 (``python -m tpu_render_cluster.master.main run-job``) for a whole-frame and
 a 2x2-tiled ``04_very-simple`` job, and the C++ master ``native/trc-master``
-for a whole-frame job. Every frame must equal, bit for bit, the in-process
+for a whole-frame job, and a worker started with ``--sharding tile`` the
+Python master. Every frame must equal, bit for bit, the in-process
 port backend's render of it (a tiled job's frames as the master stitched
 them); the raw trace must load with the analysis suite's loader and the
 cluster trace must validate. The drain, no-GPU and refused-flag cases are
@@ -131,7 +132,9 @@ def _cpp_master(
     pytest.fail(f"native/trc-master did not listen:\n{log.read_text()[-2000:]}")
 
 
-def _port_worker(port: int, base: Path, backend: str = "torch-raytrace") -> subprocess.Popen:
+def _port_worker(
+    port: int, base: Path, backend: str = "torch-raytrace", extra: tuple[str, ...] = ()
+) -> subprocess.Popen:
     base.mkdir(parents=True, exist_ok=True)
     with (base / "worker.log").open("w") as out:
         return subprocess.Popen(
@@ -140,7 +143,7 @@ def _port_worker(port: int, base: Path, backend: str = "torch-raytrace") -> subp
                 "--masterServerHost", "127.0.0.1", "--masterServerPort", str(port),
                 "--baseDirectory", str(base), "--backend", backend,
                 "--device", "cpu", "--renderSize", f"{WIDTH}x{HEIGHT}",
-                "--renderSamples", str(SAMPLES),
+                "--renderSamples", str(SAMPLES), *extra,
             ],
             cwd=REPO, env=ENV, stdout=out, stderr=subprocess.STDOUT,
         )
@@ -167,14 +170,18 @@ def _pixels(path: Path) -> np.ndarray:
         return np.asarray(image.convert("RGB"))
 
 
-def _in_process_frames(job_path: Path, tmp_path: Path) -> dict[int, np.ndarray]:
+def _in_process_frames(
+    job_path: Path, tmp_path: Path, sharding: str | None = None
+) -> dict[int, np.ndarray]:
     """The in-process port backend's whole-frame render of each frame."""
     job = BlenderJob.load_from_file(job_path)
     expected = tmp_path / "expected"
     job = BlenderJob.from_dict(
         {**job.to_dict(), "output_directory_path": str(expected)} | {"tiles": None}
     )
-    backend = TorchRaytraceBackend(width=WIDTH, height=HEIGHT, samples=SAMPLES, device="cpu")
+    backend = TorchRaytraceBackend(
+        width=WIDTH, height=HEIGHT, samples=SAMPLES, device="cpu", sharding=sharding
+    )
     for frame in job.frame_indices():
         asyncio.run(backend.render_frame(job, frame))
     return {
@@ -205,12 +212,12 @@ def _worker_obs(base: Path, *, renders: bool = True) -> dict[str, int]:
 
 
 def _serve_python_master(
-    tmp_path: Path, job_path: Path, workers: int
+    tmp_path: Path, job_path: Path, workers: int, extra: tuple[str, ...] = ()
 ) -> tuple[Path, list[dict[str, int]]]:
     results = tmp_path / "results"
     master, port = _python_master(job_path, results, tmp_path / "master.log")
     bases = [tmp_path / f"worker{i}" for i in range(workers)]
-    processes = [master] + [_port_worker(port, base) for base in bases]
+    processes = [master] + [_port_worker(port, base, extra=extra) for base in bases]
     try:
         assert _wait(master, 50) == 0, (tmp_path / "master.log").read_text()[-2000:]
         for process in processes[1:]:
@@ -240,6 +247,22 @@ def test_python_master_serves_port_workers(tmp_path, tiles):
     assert sum(worker[plain] for worker in launches) == units
     assert all(count == 0 for worker in launches for name, count in worker.items() if name != plain)
     assert validate_trace_file(next(results.glob("*_cluster_trace-events.json"))) == []
+
+
+def test_a_sharded_port_worker_serves_the_python_master(tmp_path):
+    """A worker started with ``--sharding tile`` (its mesh one CPU device,
+    one band a frame): its frames equal the in-process sharded backend's,
+    which equal the unsharded ones, each one plain megakernel launch."""
+    frames = 3
+    job_path = _write_job(tmp_path, frames=frames, workers=1)
+    _, (launches,) = _serve_python_master(
+        tmp_path, job_path, workers=1, extra=("--sharding", "tile")
+    )
+    expected = _in_process_frames(job_path, tmp_path, sharding="tile")
+    _assert_frames_equal(tmp_path, expected)
+    unsharded = _in_process_frames(job_path, tmp_path / "unsharded")
+    assert all(np.array_equal(expected[f], unsharded[f]) for f in expected)
+    assert {k: v for k, v in launches.items() if v} == {"trace_fused_reference": frames}
 
 
 @pytest.mark.skipif(shutil.which("g++") is None, reason="g++ unavailable")

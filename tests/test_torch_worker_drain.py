@@ -104,8 +104,61 @@ def test_worker_without_gpu_exits_before_connecting(tmp_path):
     ids=["sharding", "coordinatorAddress", "telemetryPort", "router", "blender"],
 )
 def test_unported_flags_are_refused(flags, capsys):
+    """Flags the port does not have yet exit with 2 before anything runs.
+    ``--sharding`` and the multi-host triple are ported (the multi-GPU
+    slice): taken by the parser and the refusal check, the backend built
+    sharded, and a partial triple refused as the reference refuses it."""
     args = ["--masterServerHost", "127.0.0.1", "--masterServerPort", "1", "--baseDirectory", "."]
+    if flags[0] == "--sharding":
+        parser = worker_main.build_parser()
+        parsed = parser.parse_args(args + flags + ["--device", "cpu"])
+        worker_main.refuse_unported(parsed, parser)
+        worker_main.refuse_sharding_conflicts(parsed, parser)
+        assert worker_main.make_backend(parsed).sharding == "tile"
+        return
+    if flags[0] == "--coordinatorAddress":
+        with pytest.raises(ValueError, match="incomplete"):
+            worker_main.main(args + flags + ["--device", "cpu"])
+        assert worker_main.NOT_PORTED not in capsys.readouterr().err
+        return
     with pytest.raises(SystemExit) as exit_info:
         worker_main.main(args + flags)
     assert exit_info.value.code == 2
     assert worker_main.NOT_PORTED in capsys.readouterr().err
+
+
+def test_a_bad_sharding_value_exits_2(capsys):
+    args = ["--masterServerHost", "127.0.0.1", "--masterServerPort", "1", "--baseDirectory", "."]
+    with pytest.raises(SystemExit) as exit_info:
+        worker_main.main(args + ["--sharding", "diagonal"])
+    assert exit_info.value.code == 2
+    assert "invalid choice: 'diagonal'" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize(
+    "flags,env,message",
+    [
+        (["--coordinatorAddress", "127.0.0.1:1234", "--numProcesses", "2", "--processId", "0"],
+         {}, "in a group of 2 processes"),
+        ([], {"JAX_NUM_PROCESSES": "4"}, "in a group of 4 processes"),
+        (["--device", "cuda:1"], {}, "may name only cuda or cpu"),
+    ],
+    ids=["flags", "launcher-env", "one-card"],
+)
+def test_sharding_where_it_cannot_render_exits_2(flags, env, message, monkeypatch, capsys):
+    """``--sharding`` in a group of more than one process exits 2 before
+    any group or backend comes up: the master hands each process its own
+    frames, and the collectives would mix them (ROADMAP.md, section 3);
+    so does ``--sharding`` with one card named by ``--device``."""
+    for name in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    monkeypatch.setattr(
+        worker_main, "initialize_multihost", lambda *a, **k: pytest.fail("the group came up")
+    )
+    args = ["--masterServerHost", "127.0.0.1", "--masterServerPort", "1", "--baseDirectory", "."]
+    with pytest.raises(SystemExit) as exit_info:
+        worker_main.main(args + ["--sharding", "tile"] + flags)
+    assert exit_info.value.code == 2
+    assert message in capsys.readouterr().err

@@ -505,10 +505,13 @@ def render_tile(
     per_instance: bool = False,
     use_tlas: bool | None = None,
     quant: int = 0,
+    key_x0: int | None = None,
 ) -> torch.Tensor:
     """Render a tile; returns [tile_height, tile_width, 3] linear radiance.
 
-    The RNG key derives from (frame, y0, x0, sample). By default the
+    The RNG key derives from (frame, y0, x0, sample); ``key_x0``, where
+    given, takes the place of ``x0`` in the key only, not in the pixel
+    columns (the sharded renderer's spp subsets: a shard tag). By default the
     reference's flattened-samples branch: all samples are traced in one
     launch and averaged per pixel. ``bounce_scan`` takes its per-sample
     branch instead: sample ``s`` draws its jitter from ``fold_in(base_key,
@@ -520,7 +523,7 @@ def render_tile(
     """
     _check_per_instance(per_instance, bounce_scan)
     n = tile_height * tile_width
-    base_key = tile_base_key(frame, y0, x0)
+    base_key = tile_base_key(frame, y0, x0 if key_x0 is None else key_x0)
     if bounce_scan:
         device = camera.origin.device
         sample_keys = rng.fold_in(base_key, torch.arange(samples)).to(device)

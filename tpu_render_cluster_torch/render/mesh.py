@@ -905,12 +905,27 @@ def scene_mesh_set(
     the cached BVH (``builder``, ``wide``) plus this frame's instance
     transforms and TLAS operands, both computed on the host and copied in
     one (``scene.on_device``)."""
+    return mesh_frame_on(mesh_frame_on_host(scene_name, frame, builder, wide), device)
+
+
+class MeshFrame(NamedTuple):
+    """A mesh scene's frame on the host: which cached BVH it walks, and its
+    instances and TLAS operands, ready to be copied to any device
+    (``mesh_frame_on``)."""
+
+    kind: str
+    builder: str
+    wide: int
+    tables: _FrameTables
+    union: torch.Tensor
+
+
+def mesh_frame_on_host(
+    scene_name: str, frame, builder: str = "sah", wide: int = 4
+) -> MeshFrame | None:
+    """``scene_mesh_set``'s host half (None for sphere-only scenes)."""
     from tpu_render_cluster_torch.render.kernels import tlas_frame_on_host
-    from tpu_render_cluster_torch.render.scene import (
-        mesh_instances_on,
-        mesh_kind_for_scene,
-        on_device,
-    )
+    from tpu_render_cluster_torch.render.scene import mesh_instances_on, mesh_kind_for_scene
 
     kind = mesh_kind_for_scene(scene_name)
     if kind is None:
@@ -920,11 +935,21 @@ def scene_mesh_set(
         instances=mesh_instances_on(scene_name, frame, "cpu"),
     )
     tlas = tlas_frame_on_host(host)
-    copy = on_device(_FrameTables(*host.instances, *tlas[:4]), device)
+    return MeshFrame(kind, builder, wide, _FrameTables(*host.instances, *tlas[:4]), tlas.union)
+
+
+def mesh_frame_on(frame: MeshFrame | None, device: str | torch.device) -> MeshSet | None:
+    """``scene_mesh_set``'s copy half: a host frame's MeshSet on ``device``,
+    its tables in one copy."""
+    from tpu_render_cluster_torch.render.scene import on_device
+
+    if frame is None:
+        return None
+    copy = on_device(frame.tables, device)
     return MeshSet(
-        bvh=cached_mesh_bvh(kind, builder, wide, device),
+        bvh=cached_mesh_bvh(frame.kind, frame.builder, frame.wide, device),
         instances=MeshInstances(*copy[:4]),
-        tlas=TlasFrame(*copy[4:], union=tlas.union),
+        tlas=TlasFrame(*copy[4:], union=frame.union),
     )
 
 

@@ -73,10 +73,18 @@ restricted to the tile, so the master's stitched frame equals the untiled
 one (the scan's regions: statistically, as in the reference). A tile is
 written as ``output_path_for_tile``, always PNG.
 
+``sharding`` (``"tile"`` or ``"spp"``, default None) splits each whole
+frame over the worker's mesh, every local card and, in a multi-host group
+(``parallel.mesh.initialize_multihost``), the other processes' cards:
+``parallel.sharded_render.render_frame_sharded``, tile bands or sample
+subsets, each shard through the masked tier of its scene. As in the
+reference, the wavefront and the ray pool are off under sharding, and a
+tiled unit ``(frame, tile)`` bypasses it (the unit is already sub-frame
+work) through the masked region path. The mesh is every local card, so
+under sharding ``device`` may name only ``cuda`` or ``cpu``.
+
 Rendering runs in a thread (``asyncio.to_thread``) so a worker's heartbeats
-and queue RPCs stay responsive while a frame renders. Local sharding waits
-for a later slice of the port and raises ``NotImplementedError`` instead of
-rendering anything in its place.
+and queue RPCs stay responsive while a frame renders.
 """
 
 from __future__ import annotations
@@ -93,6 +101,8 @@ from tpu_render_cluster_torch import resolve_device
 from tpu_render_cluster_torch.jobs.models import BlenderJob
 from tpu_render_cluster_torch.jobs.tiles import WorkUnit, tile_bounds
 from tpu_render_cluster_torch.obs import get_registry, render_fps_gauge
+from tpu_render_cluster_torch.parallel.sharded_render import MODES as SHARDING_MODES
+from tpu_render_cluster_torch.parallel.sharded_render import render_frame_sharded
 from tpu_render_cluster_torch.render.compaction import (
     WAVEFRONT_MODES,
     WavefrontLaunch,
@@ -153,11 +163,14 @@ class TorchRaytraceBackend(RenderBackend):
         bvh_builder: str | None = None,
         bvh_wide: int | None = None,
     ) -> None:
-        if sharding is not None:
-            raise NotImplementedError(
-                f"sharding={sharding!r} is not ported yet; it arrives with the multi-GPU "
-                "slice (ROADMAP.md, queue 1)."
+        if sharding is not None and sharding not in SHARDING_MODES:
+            raise ValueError(f"sharding={sharding!r} is not one of {SHARDING_MODES} or None")
+        if sharding is not None and device is not None and torch.device(device).index is not None:
+            raise ValueError(
+                f"sharding={sharding!r} renders on every local card: device={device!r} "
+                "may name only 'cuda' or 'cpu'"
             )
+        self.sharding = sharding
         if wavefront is not None and wavefront not in WAVEFRONT_MODES:
             raise ValueError(f"wavefront={wavefront!r} is not one of {WAVEFRONT_MODES}")
         if raypool is not None and raypool not in RAYPOOL_MODES:
@@ -202,9 +215,13 @@ class TorchRaytraceBackend(RenderBackend):
     def _renderer(self, scene_name: str, region: tuple[int, int, int, int] | None = None):
         """``frame -> uint8 [H, W, 3]`` on the device (a region's [th, tw,
         3]), through the bounce scan or else the tier the ``wavefront``
-        option picks for this scene; the BVH tiers resolved once, here."""
+        option picks for this scene (never under sharding); the BVH tiers
+        resolved once, here."""
         tiers = self.tiers()
-        masked = self.bounce_scan or not wavefront_active(scene_name, mode=self.wavefront)
+        masked = (
+            self.bounce_scan or self.sharding is not None
+            or not wavefront_active(scene_name, mode=self.wavefront)
+        )
         if masked and region is None:
             return fused_frame_renderer(
                 scene_name, self.width, self.height, self.samples, self.max_bounces,
@@ -254,21 +271,33 @@ class TorchRaytraceBackend(RenderBackend):
         """Build the kernels and render one frame through each tier the
         scene may take, outside any job window: the pool (where a queue
         would choose it) and the per-frame tier, which renders a job's last
-        frame.
+        frame; under sharding one sharded frame.
 
         Accepts job names as well as scene names, resolving them exactly
         like the render path does.
         """
         scene_name = scene_for_job_name(scene_name)
+        if self.sharding is not None:
+            self._render_sharded(scene_name, 1).cpu()
+            return
         if self._pools(scene_name, frames_ahead=1):
             self._render_window(scene_name, [1])[0].cpu()
         self._renderer(scene_name)(1).cpu()
 
     def _pools(self, scene_name: str, *, frames_ahead: int) -> bool:
         """Whether a frame with ``frames_ahead`` of its job queued behind it
-        renders in a pool window (never under the bounce scan)."""
-        return not self.bounce_scan and raypool_active(
+        renders in a pool window (never under the bounce scan or sharding)."""
+        return not self.bounce_scan and self.sharding is None and raypool_active(
             scene_name, mode=self.raypool, frames_ahead=frames_ahead
+        )
+
+    def _render_sharded(self, scene_name: str, frame_index: int) -> torch.Tensor:
+        """One whole frame over the mesh (``render_frame_sharded``), linear."""
+        return render_frame_sharded(
+            scene_name, frame_index, width=self.width, height=self.height,
+            samples=self.samples, max_bounces=self.max_bounces, mode=self.sharding,
+            device=self.device, bounce_scan=self.bounce_scan, per_instance=self.per_instance,
+            **self.tiers(),
         )
 
     def _render_window(
@@ -351,14 +380,17 @@ class TorchRaytraceBackend(RenderBackend):
             and (job.job_name, unit.frame_index, tile) not in self._raypool_cache
         ]
         use_raypool = cached is None and self._pools(scene_name, frames_ahead=len(upcoming))
+        use_sharded = self.sharding is not None and region is None
         renderer = None
-        if cached is None and not use_raypool:
+        if cached is None and not use_raypool and not use_sharded:
             renderer = self._renderer(scene_name, region)
         finished_loading_at = time.time()
 
         started_rendering_at = time.time()
         if cached is not None:
             display = tonemap(cached)
+        elif use_sharded:
+            display = tonemap(self._render_sharded(scene_name, frame_index))
         elif use_raypool:
             window = [frame_index] + upcoming[:RAYPOOL_FRAMES - 1]
             images = self._render_window(scene_name, window, region)

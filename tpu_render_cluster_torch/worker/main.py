@@ -16,6 +16,26 @@ worker raises before it connects. Flags of the reference that the port does
 not have yet are accepted by the parser only to refuse them: a given one
 exits with an error, so none appears to work while doing nothing.
 
+``--sharding tile|spp`` splits each whole frame over every card of the
+worker (``parallel/sharded_render.py``); ``--coordinatorAddress``,
+``--numProcesses`` and ``--processId`` (or the reference's launcher
+variables ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
+``JAX_PROCESS_ID``) first join the processes of several hosts into one
+``torch.distributed`` group, whose mesh then spans their cards
+(``parallel.mesh.initialize_multihost``). As in the reference, each process
+of a group is a worker of its own towards the master, and the master hands
+the processes different frames, while the sharded collectives pair every
+process's shards of whatever frame each is on: each process would write a
+frame mixed from the group's different frames, without an error. So
+``--sharding tile|spp`` in a group of more than one process exits 2
+(ROADMAP.md, section 3, item 6); a group without ``--sharding`` serves
+frames as independent workers. Under sharding the mesh is every local
+card, so ``--device`` may name only ``cuda`` or ``cpu``, not one card.
+Sharding is kept for parity with the reference and buys no frames/s yet
+(the host sets a sharded frame's time; PERF.md, section 6): a node's
+cards render the most frames as one worker process each, ``--device
+cuda:i``.
+
 The BVH tiers are chosen, as in the reference, by the environment only:
 ``TRC_TLAS`` (the two-level walk, default on), ``TRC_BVH_QUANT`` (the node
 format, 0, 1 or 2), ``TRC_BVH_BUILDER`` (``sah`` or ``median``) and
@@ -29,14 +49,19 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import os
 import signal
 import sys
 from pathlib import Path
+
+import torch
+import torch.distributed as dist
 
 from tpu_render_cluster_torch.obs import (
     export_chrome_trace,
     write_metrics_snapshot,
 )
+from tpu_render_cluster_torch.parallel.mesh import PROCESSES_ENV, initialize_multihost
 from tpu_render_cluster_torch.protocol import messages as pm
 from tpu_render_cluster_torch.render import kernels
 from tpu_render_cluster_torch.utils.logging import initialize_console_and_file_logging
@@ -47,10 +72,6 @@ NOT_PORTED = "not yet in the port"
 
 # dest -> the reference's flag, for the flags the port refuses.
 _UNPORTED_FLAGS = {
-    "sharding": "--sharding",
-    "coordinator_address": "--coordinatorAddress",
-    "num_processes": "--numProcesses",
-    "process_id": "--processId",
     "telemetry_port": "--telemetryPort",
     "telemetry_host": "--telemetryHost",
     "router": "--router",
@@ -119,10 +140,26 @@ def build_parser() -> argparse.ArgumentParser:
         "this scene BEFORE connecting to the master, so the job window holds "
         "no kernel build.",
     )
-    parser.add_argument("--sharding", help=NOT_PORTED)
-    parser.add_argument("--coordinatorAddress", dest="coordinator_address", help=NOT_PORTED)
-    parser.add_argument("--numProcesses", dest="num_processes", help=NOT_PORTED)
-    parser.add_argument("--processId", dest="process_id", help=NOT_PORTED)
+    parser.add_argument(
+        "--sharding",
+        choices=["none", "tile", "spp"],
+        default="none",
+        help="torch-raytrace only: split each frame across the worker's cards "
+        "(tile = horizontal bands, spp = sample subsets summed and averaged; "
+        "parallel/sharded_render.py).",
+    )
+    parser.add_argument(
+        "--coordinatorAddress",
+        dest="coordinator_address",
+        default=None,
+        help="torch-raytrace only: join a multi-host torch.distributed group "
+        "whose process 0 listens at this host:port; with --numProcesses and "
+        "--processId the worker's mesh then spans the cards of every host. "
+        "Env fallbacks: JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / "
+        "JAX_PROCESS_ID.",
+    )
+    parser.add_argument("--numProcesses", dest="num_processes", type=int, default=None)
+    parser.add_argument("--processId", dest="process_id", type=int, default=None)
     parser.add_argument("--telemetryPort", dest="telemetry_port", help=NOT_PORTED)
     parser.add_argument("--telemetryHost", dest="telemetry_host", help=NOT_PORTED)
     parser.add_argument("--router", help=NOT_PORTED)
@@ -145,9 +182,36 @@ def refuse_unported(args: argparse.Namespace, parser: argparse.ArgumentParser) -
         parser.error(f"{', '.join(given)}: {NOT_PORTED}")
 
 
+def refuse_sharding_conflicts(args: argparse.Namespace, parser: argparse.ArgumentParser) -> None:
+    """Exit with an error for ``--sharding`` where it cannot render right:
+    in a group of more than one process (the master hands each process its
+    own frames, and the collectives would mix them), and with ``--device``
+    naming one card (the mesh is every local card)."""
+    if args.sharding == "none":
+        return
+    processes = args.num_processes
+    if processes is None and os.environ.get(PROCESSES_ENV):
+        processes = int(os.environ[PROCESSES_ENV])
+    if processes is not None and processes > 1:
+        parser.error(
+            f"--sharding {args.sharding} in a group of {processes} processes: the master "
+            "hands each process its own frames, so the sharded collectives would mix "
+            "them (ROADMAP.md, section 3, item 6); run the group without --sharding"
+        )
+    if args.device is not None and torch.device(args.device).index is not None:
+        parser.error(
+            f"--sharding {args.sharding} renders on every local card: --device "
+            f"{args.device} may name only cuda or cpu"
+        )
+
+
 def make_backend(args: argparse.Namespace):
     if args.backend == "mock":
         return create_backend("mock")
+    # Before the backend: its mesh spans the group's cards.
+    initialize_multihost(
+        args.coordinator_address, args.num_processes, args.process_id, device=args.device
+    )
     try:
         width, height = (int(v) for v in args.render_size.lower().split("x"))
     except ValueError as e:
@@ -161,6 +225,7 @@ def make_backend(args: argparse.Namespace):
         wavefront=args.wavefront,
         raypool=args.raypool,
         device=args.device,
+        sharding=None if args.sharding == "none" else args.sharding,
     )
 
 
@@ -190,6 +255,7 @@ def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(args, parser)
+    refuse_sharding_conflicts(args, parser)
     initialize_console_and_file_logging(args.log_file_path)
     backend = make_backend(args)
     if args.warm_scene and args.backend == "torch-raytrace":
@@ -220,6 +286,8 @@ def main(argv: list[str] | None = None) -> int:
             )
         except Exception as e:  # noqa: BLE001 - obs must not mask the run error
             print(f"warning: obs artifact export failed: {e}", file=sys.stderr)
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 
