@@ -44,7 +44,9 @@ include them.
 Phases, each of which raises (exit code 1) if its check fails:
 1. the card: name and power limit as nvidia-smi reports them;
 2. build every CUDA source of the port with nvcc (sm_90a), one nvcc per
-   source, all at once, timed, and print each kernel's registers and spills;
+   source, all at once, timed, and print each kernel's registers and spills
+   (the TLAS kernels' other packet widths then build in a thread beside
+   phases 3-8, for phase 11, waited for at phase 9);
 3. the inputs of every frame of the main paths (scene, camera, mesh
    instances, the primary rays of the three ray builders) on the card
    against the CPU's, bit for bit: the number of differing elements must be
@@ -111,7 +113,7 @@ Phases, each of which raises (exit code 1) if its check fails:
    unit kernels each once per sample and bounce (the single-BVH ones once
    per instance too), and its frame against the scan tier's render with the
    plain versions on the card (the deep scan: both renders of frame 1 at
-   128x128, 2 spp; the bit-equal share printed); the per-instance scan's frame 1
+   128x128, 1 spp; the bit-equal share printed); the per-instance scan's frame 1
    against the instanced scan's of this run (never rendered with the plain
    versions: their walks take seconds per launch); a tile path's kernel
    once per tile (the lane kernel), per wavefront bounce, per pool
@@ -252,7 +254,38 @@ Phases, each of which raises (exit code 1) if its check fails:
    card, bit for bit (row 1; rows 3 and 4 TLAS on the octant-ordered walk);
    (c) a ``torch.distributed`` group of this one process over NCCL on a
    free localhost port: ``render_frame_sharded`` in both modes on 04 frame
-   1, through the collectives, bit-equal to (a)'s PNGs.
+   1, through the collectives, bit-equal to (a)'s PNGs;
+11. the TLAS tiers, the reference's ``TRC_TLAS_BLOCK`` (the TLAS kernels'
+   packet: 128, 512 and 1,024 beside the default 256, each a build of its
+   own, ``_build.variant``, started after phase 2's builds in a thread of
+   its own, beside phases 3-8, and waited for at phase 9) and
+   ``TRC_TLAS_LEAF`` (1, 8 and 16 beside the default 4), and the pool's
+   ``TRC_RAYPOOL_FRAMES`` and ``TRC_RAYPOOL_WIDTH``: rows 3, 4 and 6 TLAS,
+   the vote and the key pass at each packet and leaf bit for bit against
+   their plain versions on every lane at the main widths (row 4 TLAS, the
+   vote and the key pass at the deep wavefront's 2,097,152-lane bounce-0
+   launch; row 6 TLAS on the mixed launch of phase 3's first deep window;
+   row 3 TLAS on 02 frame 1's 2,097,152 rays; each max abs error measured),
+   in three processes of their own started at phase 9 beside phase 9's
+   checks at QUANT_SIDE (a fourth), all joined before phase 9's times;
+   each count names its width (``mesh_bounce_tlas[p128]``); each kernel's
+   staged bytes and route, resident blocks per SM and ptxas's registers
+   and spills at each packet and leaf; the tiers' main path with the tiers
+   in the environment, as a worker takes them, its launches counted from
+   0 just before each backend render and read just after, exactly (the
+   width builds' entries on the kernels line): through the backend at
+   512x512, 8 spp, 4 bounces at each packet and leaf, 02 frame 1
+   against the masked deep loop of its rays, the deep wavefront's frame 1
+   against the masked deep loop (>= 99.5% of uint8 values within 1, the
+   bit-equal share printed), the deep pool over frames 1-2 against the
+   wavefront (atol 1e-5), and at the default tiers a pool window of 16
+   frames at ``TRC_RAYPOOL_FRAMES=16`` and one of 2 frames at twice the
+   default pool width, each against the wavefront; a 4-frame 03 job over
+   the wire to a worker started with ``TRC_TLAS_BLOCK=128
+   TRC_TLAS_LEAF=8``, its launch map and PNGs equal to the in-process
+   render's in that environment; and rows 3, 4 (with its vote and key
+   pass) and 6 (with its vote) TLAS alone under the profiler and on CUDA
+   events at each packet and at leaves 1 and 16, in turns.
 
 Prints a ``{"kernels": [...]}`` line, then the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -350,8 +383,10 @@ UNIT_SCENE = {name: "04_very-simple" for name in SPHERE_UNITS} | {
 # The deep scan's frame 1 is held against its plain render at this size and
 # sample count: the plain instance walks take 3-5 s per call on the card at
 # 65,536 or 262,144 rays alike (a Python sweep over 48 instances x 39
-# nodes), so the calls, not the rays, set the plain render's time.
-PLAIN_SCAN_SIDE, PLAIN_SCAN_SAMPLES = 128, 2
+# nodes), so the calls, not the rays, set the plain render's time: one
+# sample (its launches: one a bounce and unit kernel) keeps the script in
+# its time limit beside phase 11.
+PLAIN_SCAN_SIDE, PLAIN_SCAN_SAMPLES = 128, 1
 
 SPHERE_JOB = "blender-projects/04_very-simple/04_very-simple_demo_10f-1w.toml"
 DEEP_JOB = "blender-projects/03_physics-2/03_physics-2-mesh_240f-8w_tpu-batch_tpu-raytrace.toml"
@@ -1795,23 +1830,25 @@ def bounce_record(run: dict, checked: dict, device, agree: float, max_abs_err: f
     }
 
 
-def occupancy_entry(name: str, argtypes: list):
+def occupancy_entry(name: str, argtypes: list, packet: int | None = None):
     """The kernel's ``<name>_occupancy`` C entry: the blocks of its group-G
-    kernel resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    kernel resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+    a TLAS kernel's in its build for ``packet`` (None: the default)."""
     import ctypes
 
     from tpu_render_cluster_torch.render import kernels
 
-    entry = getattr(kernels._library(name), f"{name}_occupancy")
+    entry = getattr(kernels._library(name, packet), f"{name}_occupancy")
     entry.argtypes = argtypes
     entry.restype = ctypes.c_int
     return entry
 
 
-def bounce_occupancy(mesh, group: int, quant: int = 0) -> dict:
-    """Resident blocks per SM of ``mesh_bounce_tlas`` at group size
-    ``group`` and node format ``quant`` on ``mesh``'s tables, and its
-    dynamic shared memory (the staged bytes a block)."""
+def bounce_occupancy(mesh, group: int, quant: int = 0, packet: int | None = None) -> dict:
+    """Resident blocks per SM of ``mesh_bounce_tlas`` (its build for
+    ``packet``) at group size ``group`` and node format ``quant`` on
+    ``mesh``'s tables, and its dynamic shared memory (the staged bytes a
+    block)."""
     import ctypes
 
     from tpu_render_cluster_torch.render import kernels
@@ -1819,7 +1856,7 @@ def bounce_occupancy(mesh, group: int, quant: int = 0) -> dict:
     triangles, bounds, _ = kernels._bvh_operands(mesh.bvh)
     shared = ctypes.c_int()
     query = occupancy_entry("mesh_bounce_tlas",
-                            [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int])
+                            [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int], packet)
     blocks = query(group, mesh.instances.translation.shape[0], triangles.shape[0],
                    bounds.shape[0], kernels.tlas_frame(mesh).node_bounds.shape[0],
                    int(kernels.walks_ordered(mesh.bvh)), ctypes.addressof(shared), quant)
@@ -1827,11 +1864,11 @@ def bounce_occupancy(mesh, group: int, quant: int = 0) -> dict:
     return {"blocks_per_sm": blocks, "shared_bytes": shared.value}
 
 
-def pool_occupancy(ops, group: int, quant: int = 0) -> dict:
-    """Resident blocks per SM of ``pool_mesh_bounce_tlas`` at group size
-    ``group`` and node format ``quant`` on the pool window ``ops``, its
-    dynamic shared memory and the frames a block stages at most (-1: none,
-    the BVH is not staged either)."""
+def pool_occupancy(ops, group: int, quant: int = 0, packet: int | None = None) -> dict:
+    """Resident blocks per SM of ``pool_mesh_bounce_tlas`` (its build for
+    ``packet``) at group size ``group`` and node format ``quant`` on the
+    pool window ``ops``, its dynamic shared memory and the frames a block
+    stages at most (-1: none, the BVH is not staged either)."""
     import ctypes
 
     from tpu_render_cluster_torch.render import kernels
@@ -1841,7 +1878,7 @@ def pool_occupancy(ops, group: int, quant: int = 0) -> dict:
     tlas_nodes = kernels.pool_tlas_operands(ops).links.shape[0] // frames
     shared, staged = ctypes.c_int(), ctypes.c_int()
     query = occupancy_entry("pool_mesh_bounce_tlas",
-                            [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2 + [ctypes.c_int])
+                            [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2 + [ctypes.c_int], packet)
     blocks = query(group, ops.spheres.per_frame, frames, ops.per_frame, triangles.shape[0],
                    bounds.shape[0], tlas_nodes, int(kernels.walks_ordered(ops.meshes[0].bvh)),
                    ctypes.addressof(shared), ctypes.addressof(staged), quant)
@@ -3543,6 +3580,9 @@ class WireJob(NamedTuple):
     quant: int = 0
     # The worker's --sharding, the in-process backend's ``sharding``.
     sharding: str | None = None
+    # More of the worker's environment (phase 11's job: the TLAS tiers), in
+    # which the in-process render runs too.
+    env: tuple[tuple[str, str], ...] = ()
 
 
 WIRE_JOBS = [
@@ -3617,24 +3657,26 @@ def in_process_frames(job: WireJob, job_path: Path, directory: Path) -> dict:
         {**spec.to_dict(), "output_directory_path": str(directory / "expected")}
     )
     frames = list(spec.frame_indices())
-    backend = TorchRaytraceBackend(
-        width=WIDTH, height=HEIGHT, samples=SAMPLES, max_bounces=BOUNCES,
-        base_directory=directory, quant=job.quant, sharding=job.sharding,
-    )
-    backend.warm(job.job_name)
-    torch.cuda.synchronize()
-    backend.pool_stats.clear()
-    hits = get_registry().counter(
-        "render_raypool_cache_hits_total", "Frames served from the ray-pool rendered-ahead cache"
-    )
-    hits_before = hits.value()
-    kernels.reset_counts()
-    started = time.perf_counter()
-    for index, frame in enumerate(frames):
-        if job.hint:
-            backend.note_upcoming_frames(spec, tuple(frames[index + 1:]) if index else ())
-        asyncio.run(backend.render_frame(spec, frame))
-    fps = len(frames) / (time.perf_counter() - started)
+    with environment(dict(job.env)):
+        backend = TorchRaytraceBackend(
+            width=WIDTH, height=HEIGHT, samples=SAMPLES, max_bounces=BOUNCES,
+            base_directory=directory, quant=job.quant, sharding=job.sharding,
+        )
+        backend.warm(job.job_name)
+        torch.cuda.synchronize()
+        backend.pool_stats.clear()
+        hits = get_registry().counter(
+            "render_raypool_cache_hits_total",
+            "Frames served from the ray-pool rendered-ahead cache",
+        )
+        hits_before = hits.value()
+        kernels.reset_counts()
+        started = time.perf_counter()
+        for index, frame in enumerate(frames):
+            if job.hint:
+                backend.note_upcoming_frames(spec, tuple(frames[index + 1:]) if index else ())
+            asyncio.run(backend.render_frame(spec, frame))
+        fps = len(frames) / (time.perf_counter() - started)
     launches = {k: v for k, v in kernels.counts.items() if v}
     windows = [w.served // (WIDTH * HEIGHT * SAMPLES) for w in backend.pool_stats]
     print(f"[8] {wire_label(job)} in process: {len(frames)} frames, {fps:.4f} frames/s, "
@@ -3680,6 +3722,8 @@ def wire_run(job: WireJob, master_binary: Path, job_path: Path, directory: Path)
                 env = {**os.environ, "PYTHONPATH": str(REPO)}
                 if name == "worker" and job.quant:
                     env["TRC_BVH_QUANT"] = str(job.quant)
+                if name == "worker":
+                    env.update(dict(job.env))
                 processes[name] = subprocess.Popen(
                     command, cwd=REPO, stdout=out, stderr=subprocess.STDOUT, env=env,
                 )
@@ -3732,12 +3776,13 @@ def wire_checks(job: WireJob, run: dict, expected: dict, frames_directory: Path)
           f"{job.job_name}: the worker launched {counts}, the in-process render "
           f"of the same tiers {expected['launches']}")
     if job.hint:
-        from tpu_render_cluster_torch.render.kernels import quant_name
+        from tpu_render_cluster_torch.render.kernels import packet_name, quant_name
 
-        row4, row6 = (counts[quant_name(k, job.quant)] for k in ("mesh_bounce_tlas",
-                                                                 "pool_mesh_bounce_tlas"))
-        check(counts[quant_name("mesh_entry_keys", job.quant)] == row4 <= BOUNCES
-              and counts["packet_octants"] == row4 + row6,
+        packet = int(dict(job.env).get("TRC_TLAS_BLOCK", 256))
+        row4, row6 = (counts[packet_name(quant_name(k, job.quant), packet)]
+                      for k in ("mesh_bounce_tlas", "pool_mesh_bounce_tlas"))
+        check(counts[packet_name(quant_name("mesh_entry_keys", job.quant), packet)] == row4
+              <= BOUNCES and counts[packet_name("packet_octants", packet)] == row4 + row6,
               f"{job.job_name}: launches {counts} are not frame 1's wavefront and one "
               f"vote a walk")
     else:
@@ -3754,7 +3799,7 @@ def wire_checks(job: WireJob, run: dict, expected: dict, frames_directory: Path)
         check(got.shape == (HEIGHT, WIDTH, 3), f"{job.job_name} frame {frame}: {got.shape}")
         equal[frame] = float((got == want).mean())
         within[frame] = float((np.abs(got.astype(int) - want.astype(int)) <= 1).mean())
-        if job.hint and not job.quant:
+        if job.hint and not job.quant and not job.env:
             check(within[frame] >= 0.995, f"{job.job_name} frame {frame}: {within[frame]} within 1")
         else:
             check(equal[frame] == 1.0, f"{job.job_name} frame {frame}: {equal[frame]} bit-equal")
@@ -3767,7 +3812,23 @@ def wire_checks(job: WireJob, run: dict, expected: dict, frames_directory: Path)
 
 def wire_label(job: WireJob) -> str:
     return (job.job_name + (f" (TRC_BVH_QUANT={job.quant})" if job.quant else "")
-            + (f" (--sharding {job.sharding})" if job.sharding else ""))
+            + (f" (--sharding {job.sharding})" if job.sharding else "")
+            + "".join(f" ({name}={value})" for name, value in job.env))
+
+
+@contextlib.contextmanager
+def environment(values: dict):
+    """``os.environ`` with ``values`` set, as it was again afterwards."""
+    saved = {name: os.environ.get(name) for name in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
 
 
 def wire_phase(card: str) -> dict:
@@ -4323,17 +4384,28 @@ def quant_times(device, pool_first: dict, counters: dict, inputs: dict) -> dict:
     return out
 
 
-def quant_phase(card: str, device, pool_first: dict) -> dict:
+def quant_phase(card: str, device, pool_first: dict, processes: list | None = None) -> dict:
     """Phase 9: the node formats, checked, framed and timed (the worker at
-    format 1 runs in phase 8, ``WIRE_JOBS``)."""
+    format 1 runs in phase 8, ``WIRE_JOBS``). ``processes``: check processes
+    started with it (``CheckProcess``), the first its checks at QUANT_SIDE
+    (``quant``), all joined before its times; without them those checks
+    run here."""
     started = time.perf_counter()
-    checks = quant_kernel_checks(device)
-    print(f"[9] kernel checks at {QUANT_SIDE}x{QUANT_SIDE} in "
-          f"{time.perf_counter() - started:.1f} s")
+    if processes is None:
+        checks = quant_kernel_checks(device)
+        print(f"[9] kernel checks at {QUANT_SIDE}x{QUANT_SIDE} in "
+              f"{time.perf_counter() - started:.1f} s")
     main = quant_main_checks(device, pool_first)
     print(f"[9] kernel checks at the main widths in {time.perf_counter() - started:.1f} s")
     frames = quant_frame_checks(device, pool_first["window"].ops)
     print(f"[9] frames in {time.perf_counter() - started:.1f} s")
+    if processes is not None:
+        checks = processes[0].wait()
+        for process in processes[1:]:
+            process.wait()
+        print(f"[9] kernel checks at {QUANT_SIDE}x{QUANT_SIDE} and phase 11's kernel checks "
+              f"({len(processes)} processes beside the above) joined in "
+              f"{time.perf_counter() - started:.1f} s")
     times = quant_times(device, pool_first, {**checks["counters"], **main["counters"]},
                         main["inputs"])
     print(f"[9] node-format times on {card} in {time.perf_counter() - started:.1f} s")
@@ -4587,12 +4659,812 @@ def sharding_phase(card: str, device, runs: dict | None = None) -> dict:
     return summary
 
 
+# -- 11. the TLAS tiers: the reference's TRC_TLAS_BLOCK, TRC_TLAS_LEAF,
+# TRC_RAYPOOL_FRAMES and TRC_RAYPOOL_WIDTH ----------------------------------
+
+# The TLAS kernels' packets built beside the default 256 (one library a
+# width, ``_build.variant``) and the leaves run at the default packet: phase
+# 11's (packet, leaf) configurations.
+TIER_PACKETS = (128, 512, 1024)
+TIER_LEAVES = (1, 8, 16)
+TIER_CONFIGS = (*((packet, 4) for packet in TIER_PACKETS), *((256, leaf) for leaf in TIER_LEAVES))
+# The kernels of the TLAS packet: their sources and the TPU kernel each
+# replaces (the width a build of the same source).
+TIER_KERNELS = ("trace_fused_mesh_tlas", "mesh_bounce_tlas", "mesh_entry_keys", "packet_octants",
+                "pool_mesh_bounce_tlas")
+TIER_TOLERANCE = (
+    "bit-equal to the plain version at the same packet and leaf on every output of every lane "
+    "of the main-width launch (max_abs_err: the largest difference measured over the float "
+    "outputs; integer and boolean outputs equal)"
+)
+# Phase 11's pool windows beside the per-width ones: TRC_RAYPOOL_FRAMES=16
+# over 16 frames, and TRC_RAYPOOL_WIDTH at twice the default width.
+TIER_POOL_FRAMES = 16
+TIER_POOL_WIDTH = 2 * 64 * 1024
+# One short 03 job to a worker started with the TLAS tiers in its
+# environment; its PNGs and launches against the in-process render's there.
+TIER_WIRE_JOB = WireJob(
+    "03_physics-2-mesh", 4, 'strategy_type = "eager-naive-coarse"\ntarget_queue_size = 4',
+    ("mesh_bounce_tlas[p128]", "mesh_entry_keys[p128]", "pool_mesh_bounce_tlas[p128]",
+     "packet_octants[p128]"), True, env=(("TRC_TLAS_BLOCK", "128"), ("TRC_TLAS_LEAF", "8")),
+)
+
+
+class WidthBuilds:
+    """The width builds of the TLAS kernels (``_build.packet_variants``),
+    started in a thread of their own: phases 3-8 use none of them.
+    ``wait`` joins it, checks that every one was built and prints ptxas's
+    lines of each; it returns the seconds the builds took. ``stop`` ends
+    the nvcc processes that still run and joins the thread."""
+
+    def __init__(self) -> None:
+        import threading
+
+        from tpu_render_cluster_torch.render import _build
+
+        self.names = _build.packet_variants()
+        self.error: BaseException | None = None
+        self.libraries: dict = {}
+        self.processes: list = []
+        self.seconds = 0.0
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        from tpu_render_cluster_torch.render import _build
+
+        started = time.perf_counter()
+        try:
+            self.libraries = _build.build(self.names, processes=self.processes)
+        except BaseException as error:  # noqa: BLE001 - raised in wait()
+            self.error = error
+        self.seconds = time.perf_counter() - started
+
+    def stop(self) -> None:
+        from tpu_render_cluster_torch.render import _build
+
+        while self.thread.is_alive():  # the thread may still be starting nvcc
+            for process in list(self.processes):
+                _build.end(process)
+            self.thread.join(timeout=1)
+
+    def wait(self) -> float:
+        from tpu_render_cluster_torch.render import _build
+
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        check(sorted(self.libraries) == sorted(self.names),
+              f"width builds {sorted(self.libraries)} != {sorted(self.names)}")
+        print(f"[11] built {self.names} in {self.seconds:.2f} s, beside phases 3-8")
+        for name in self.names:
+            for line in _build.resource_lines(_build.build_logs.get(name, "")):
+                print(f"    {name}: {line}")
+        return self.seconds
+
+
+def tier_label(packet: int, leaf: int) -> str:
+    return f"packet {packet}, leaf {leaf}"
+
+
+# The MeshSets and pool operands of each leaf, built once (``tier_meshes``).
+_TIER_MESHES: dict = {}
+
+
+def tier_meshes(device, leaf: int, window) -> dict:
+    """The main paths' frame-1 MeshSets of 02 and the deep scene, and the
+    first deep pool window's operands, at TLAS leaf ``leaf`` (the default
+    leaf's: the window's own), built once per leaf and window."""
+    from tpu_render_cluster_torch.render import kernels
+    from tpu_render_cluster_torch.render.mesh import scene_mesh_set
+    from tpu_render_cluster_torch.render.scene import build_scene
+
+    key = (leaf, id(window))
+    if key in _TIER_MESHES:
+        return _TIER_MESHES[key][1]
+    mesh_scene, deep = PATHS[1].scene, PATHS[2].scene
+    ops = window.ops
+    if leaf != kernels.TLAS_LEAF:
+        ops = kernels.pool_mesh_operands(
+            [build_scene(deep, f, device) for f in window.frames],
+            [scene_mesh_set(deep, f, device=device, leaf=leaf) for f in window.frames])
+    meshes = {"02": scene_mesh_set(mesh_scene, 1, device=device, leaf=leaf),
+              "deep": scene_mesh_set(deep, 1, device=device, leaf=leaf), "pool": ops}
+    _TIER_MESHES[key] = (window, meshes)  # the window held: its id is not reused
+    return meshes
+
+
+def tier_equal(label: str, got, want) -> float:
+    """``quant_equal`` of a launch against its plain version, and the
+    largest absolute difference over their float outputs, measured (0.0
+    when they are equal to the bit)."""
+    if isinstance(got, tuple) and not hasattr(got, "_fields"):  # a tuple of outputs
+        return max(tier_equal(f"{label}, output {index}", have, expected)
+                   for index, (have, expected) in enumerate(zip(got, want)))
+    pairs = list(zip(got, want)) if hasattr(got, "_fields") else [(got, want)]
+    err = 0.0
+    for have, expected in pairs:
+        if have is not None and expected is not None and have.is_floating_point():
+            err = max(err, (have.double() - expected.double()).abs().max().item())
+    print(f"[11] {label}: max abs err {err!r}")
+    quant_equal(label, got, want)
+    return err
+
+
+def tier_inputs(device, pool_first: dict) -> dict:
+    """Phase 11's launches at the main paths' widths: the deep wavefront's
+    bounce-0 launch (2,097,152 lanes), 02 frame 1's rays (2,097,152) and
+    the mixed launch of phase 3's first deep window (8 frames, 65,536
+    lanes)."""
+    trace, rays, launches = deep_launches("mesh_bounce_tlas", device)
+    launch = launches[0]
+    check(launch.bounce == 0 and launch.bucket == WIDTH * HEIGHT * SAMPLES,
+          f"the deep bounce-0 launch holds {launch.bucket} lanes")
+    return {"trace": trace, "launch": launch, "seed": rays[2],
+            "trace02": Trace("trace_fused_mesh_tlas", PATHS[1].scene, 1, device),
+            "rays02": frame_rays(PATHS[1].scene, 1, device), "window": pool_first["window"],
+            "mixed": pool_first["launches"][pool_first["picked"]["mixed"]["index"]]}
+
+
+def tier_config_check(device, inputs: dict, packet: int, leaf: int) -> dict:
+    """Phase 11's kernels against their plain versions at one (packet,
+    leaf), on every lane of ``tier_inputs``' launches: row 4 TLAS, the vote
+    and the key pass at the deep bounce 0, row 6 TLAS on the mixed pool
+    launch, row 3 TLAS on 02 frame 1. The plain versions run each launch as
+    one chunk. Each launch counts under its width's name. Returns, per
+    kernel, the measured max abs error, the plain version's ms and work
+    counters (for the bounds), and the launches checked."""
+    import torch
+
+    from tpu_render_cluster_torch.render import kernels
+
+    trace, launch, seed = inputs["trace"], inputs["launch"], inputs["seed"]
+    trace02, rays02, mixed = inputs["trace02"], inputs["rays02"], inputs["mixed"]
+    lanes, live6 = launch.bucket, int(mixed.live)
+    label = tier_label(packet, leaf)
+    checked: dict[str, int] = {}
+
+    def launched(kernel):
+        for name in kernels.launch_names(kernel, True, 0, packet):
+            got = kernels.counts.get(name, 0)
+            check(got == 1, f"{name}: {got} launches, not 1")
+            checked[name] = checked.get(name, 0) + 1
+
+    started = time.perf_counter()
+    meshes = tier_meshes(device, leaf, inputs["window"])
+    deep_mesh = meshes["deep"]
+    entry: dict = {}
+    # Row 4 TLAS, its vote and its key pass.
+    kernels.reset_counts()
+    got = kernels.mesh_bounce(trace.scene, deep_mesh, *launch.state, launch.live, seed, 0,
+                              total_bounces=BOUNCES, tlas_block=packet)
+    launched("mesh_bounce_tlas")
+    stats: dict = {}
+    out: list = []
+    ms = cuda_ms(lambda: out.append(kernels.mesh_bounce_reference(
+        trace.scene, deep_mesh, *launch.state, launch.live, seed, 0, total_bounces=BOUNCES,
+        tlas_block=packet, stats=stats, chunk_rays=lanes)), 1)
+    err = tier_equal(f"mesh_bounce_tlas at {label}", got, out[0])
+    entry["mesh_bounce_tlas"] = {"plain_ms": ms, "plain_rays": lanes, "stats": stats, "err": err}
+    del out
+    slots = kernels.tlas_frame(deep_mesh).slots
+    votes = kernels.packet_votes(launch.state[1], slots, launch.live, block=packet)
+    out = []
+    ms = cuda_ms(lambda: out.append(kernels.packet_votes_reference(
+        launch.state[1], slots, launch.live, block=packet)), 1)
+    err = tier_equal(f"packet_octants at {label}", tuple(votes), tuple(out[0]))
+    entry["packet_octants"] = {"plain_ms": ms, "plain_rays": lanes, "slots": slots.shape[0],
+                               "err": err}
+    key_stats: dict = {}
+    args = (deep_mesh, got.origins, got.directions, got.alive, launch.live, 0)
+    keys = kernels.entry_keys(*args, total_bounces=BOUNCES, tlas_block=packet)
+    out = []
+    ms = cuda_ms(lambda: out.append(kernels.entry_keys_reference(
+        *args, total_bounces=BOUNCES, tlas_block=packet, stats=key_stats)), 1)
+    err = max(tier_equal(f"mesh_entry_keys at {label}", keys, out[0]),
+              tier_equal(f"mesh_entry_keys at {label} vs the launch's key column", keys,
+                         got.key))
+    entry["mesh_entry_keys"] = {"plain_ms": ms, "plain_rays": lanes, "stats": key_stats,
+                                "err": err}
+    del got, keys, out
+    # Row 6 TLAS on the mixed launch.
+    kernels.reset_counts()
+    got6 = kernels.pool_mesh_bounce(meshes["pool"], *mixed.state, live6, total_bounces=BOUNCES,
+                                    tlas_block=packet)
+    launched("pool_mesh_bounce_tlas")
+    stats6: dict = {}
+    out = []
+    ms = cuda_ms(lambda: out.append(kernels.pool_mesh_bounce_reference(
+        meshes["pool"], *mixed.state, live6, total_bounces=BOUNCES, tlas_block=packet,
+        stats=stats6)), 1)
+    err = tier_equal(f"pool_mesh_bounce_tlas at {label}, the mixed launch", got6, out[0])
+    entry["pool_mesh_bounce_tlas"] = {"plain_ms": ms, "plain_rays": live6, "stats": stats6,
+                                      "err": err}
+    del got6, out
+    # Row 3 TLAS on 02 frame 1.
+    kernels.reset_counts()
+    got3 = kernels.trace_paths_fused_mesh(trace02.scene, meshes["02"], *rays02,
+                                          max_bounces=BOUNCES, tlas_block=packet)
+    launched("trace_fused_mesh_tlas")
+    rays3 = rays02[0].shape[0]
+    stats3: dict = {}
+    out = []
+    ms = cuda_ms(lambda: out.append(kernels.trace_paths_fused_mesh_reference(
+        trace02.scene, meshes["02"], *rays02, max_bounces=BOUNCES, tlas_block=packet,
+        stats=stats3, chunk_rays=rays3)), 1)
+    err = tier_equal(f"trace_fused_mesh_tlas at {label}, 02 frame 1", got3, out[0])
+    check(bool(torch.isfinite(got3).all()), f"trace_fused_mesh_tlas at {label}: not finite")
+    entry["trace_fused_mesh_tlas"] = {"plain_ms": ms, "plain_rays": rays3, "stats": stats3,
+                                      "err": err}
+    del got3, out
+    torch.cuda.empty_cache()
+    print(f"[11] {label}: rows 3, 4 and 6 TLAS, the vote and the key pass bit-equal to their "
+          f"plain versions on every lane at the main widths ({lanes} lanes at the deep bounce "
+          f"0; the mixed pool launch's {live6} lanes; 02 frame 1's {rays3} rays) in "
+          f"{time.perf_counter() - started:.1f} s")
+    return {"entry": entry, "checked": checked}
+
+
+# Checks that run in processes of their own (``CheckProcess``), started
+# at phase 9: phase 9's checks at QUANT_SIDE and phase 11's kernel checks,
+# TIER_CONFIGS shared among TIER_CHECK_PROCESSES. The plain walks are bound
+# by the host's Python, one core each, so side by side they take the time
+# of the longest while the parent runs phase 9's checks at the main widths;
+# all are joined before phase 9's times. Their plain versions' ms are
+# taken so, beside each other.
+CHECK_FLAG = "--checks"
+TIER_CHECK_PROCESSES = 3
+
+
+def check_process(job: str) -> int:
+    """``chip_smoke.py --checks JOB`` on the card: ``quant`` runs
+    ``quant_kernel_checks``; ``tier P:L,...`` runs ``tier_config_check`` at
+    each (packet, leaf) on this process's own ``tier_inputs`` (phase 3's
+    first deep window made again). The result as one JSON line, last."""
+    import torch
+
+    device = torch.device("cuda", 0)
+    if job == "quant":
+        result = quant_kernel_checks(device)
+    else:
+        inputs = tier_inputs(device, first_deep_window(device))
+        result = []
+        for config in job.split()[1].split(","):
+            packet, leaf = (int(v) for v in config.split(":"))
+            result.append({"packet": packet, "leaf": leaf,
+                           **tier_config_check(device, inputs, packet, leaf)})
+    print(json.dumps({"check_result": result}))
+    return 0
+
+
+class CheckProcess:
+    """``check_process(job)`` in a process of its own, started here; its
+    output goes to a file of its own (a pipe the parent does not read while
+    it renders would stall it once full). ``wait`` joins it, prints its
+    output, fails the run if it failed and returns (and keeps, as
+    ``result``) its result; ``stop`` ends it if it still runs."""
+
+    def __init__(self, job: str) -> None:
+        self.job = job
+        self.result = None
+        self.output = tempfile.TemporaryFile("w+")
+        self.process = subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), CHECK_FLAG, job], cwd=REPO,
+            stdout=self.output, stderr=subprocess.STDOUT, text=True,
+        )
+
+    def wait(self):
+        if self.result is None:
+            self.process.wait(timeout=900)
+            self.output.seek(0)
+            lines = self.output.read().strip().splitlines()
+            print("\n".join(lines[:-1]))
+            check(self.process.returncode == 0 and bool(lines)
+                  and lines[-1].startswith('{"check_result"'),
+                  f"the check process {self.job!r} exited {self.process.returncode}:\n"
+                  + "\n".join(lines[-40:]))
+            self.result = json.loads(lines[-1])["check_result"]
+        return self.result
+
+    def stop(self) -> None:
+        if self.process.poll() is None:
+            self.process.kill()
+            self.process.wait()
+        self.output.close()
+
+
+def tier_check_processes() -> list[CheckProcess]:
+    """Phase 11's kernel checks, ``TIER_CONFIGS`` shared among
+    TIER_CHECK_PROCESSES processes, started now."""
+    shares = [TIER_CONFIGS[i::TIER_CHECK_PROCESSES] for i in range(TIER_CHECK_PROCESSES)]
+    return [CheckProcess("tier " + ",".join(f"{packet}:{leaf}" for packet, leaf in share))
+            for share in shares]
+
+
+def tier_check_results(processes: list[CheckProcess]) -> tuple[dict, dict]:
+    """The joined processes' results by (packet, leaf), and the launches
+    they checked."""
+    plain: dict = {}
+    checked: dict[str, int] = {}
+    for process in processes:
+        for result in process.wait():
+            plain[(result["packet"], result["leaf"])] = result["entry"]
+            for name, count in result["checked"].items():
+                checked[name] = checked.get(name, 0) + count
+    check(sorted(plain) == sorted(TIER_CONFIGS), f"phase 11 checked {sorted(plain)}")
+    return plain, checked
+
+
+def tier_pass_times(device, inputs: dict, plain: dict) -> None:
+    """The vote's and the key pass's wrappers alone on CUDA events at each
+    (packet, leaf), at the deep bounce 0 (``timed_ms``), into ``plain``."""
+    from tpu_render_cluster_torch.render import kernels
+
+    launch, seed = inputs["launch"], inputs["seed"]
+    for packet, leaf in TIER_CONFIGS:
+        deep_mesh = tier_meshes(device, leaf, inputs["window"])["deep"]
+        got = kernels.mesh_bounce(inputs["trace"].scene, deep_mesh, *launch.state, launch.live,
+                                  seed, 0, total_bounces=BOUNCES, tlas_block=packet)
+        slots = kernels.tlas_frame(deep_mesh).slots
+        entry = plain[(packet, leaf)]
+        entry["packet_octants"]["ms"] = timed_ms(lambda: kernels.packet_votes(
+            launch.state[1], slots, launch.live, block=packet))
+        entry["mesh_entry_keys"]["ms"] = timed_ms(lambda: kernels.entry_keys(
+            deep_mesh, got.origins, got.directions, got.alive, launch.live, 0,
+            total_bounces=BOUNCES, tlas_block=packet))
+
+
+def timed_ms(call) -> float:
+    """A wrapper's ms per call on CUDA events: the median of 3 runs of 5
+    calls after 2 warm-up calls."""
+    cuda_ms(call, 2)
+    return statistics.median(cuda_ms(call, 5) for _ in range(3))
+
+
+def tier_resources(device, inputs: dict) -> dict:
+    """Per kernel of the TLAS packet and (packet, leaf): the staged bytes a
+    block, which route its tables take (staged in shared memory or read
+    from global memory), the resident blocks per SM (the ``*_occupancy`` C
+    entries of the width's library) and ptxas's registers and spills (the
+    width's build), at the main paths' tables: 02's for row 3, the deep
+    scene's for row 4 and the key pass (its bounce-0 width), the first deep
+    window's for row 6, the deep scene's 48 slots for the vote."""
+    import ctypes
+
+    from tpu_render_cluster_torch.render import _build, kernels
+
+    lanes = inputs["launch"].bucket
+    group = kernels.bounce_group(lanes, kernels.thread_slots(device.index or 0))
+    out: dict = {}
+    configs = [(p, 4) for p in (128, 256, 512, 1024)] + [(256, 1), (256, 8), (256, 16)]
+    for packet, leaf in configs:
+        meshes = tier_meshes(device, leaf, inputs["window"])
+        ptxas = {name: _build.resource_lines(_build.build_logs.get(_build.variant(name, packet), ""))
+                 for name in TIER_KERNELS}
+        row3 = meshes["02"]
+        triangles, bounds, _ = kernels._bvh_operands(row3.bvh)
+        k3 = row3.instances.translation.shape[0]
+        m3 = kernels.tlas_frame(row3).node_bounds.shape[0]
+        shared = ctypes.c_int()
+        query = occupancy_entry("trace_fused_mesh_tlas",
+                                [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int], packet)
+        blocks = query(k3, triangles.shape[0], bounds.shape[0], m3, 1, ctypes.addressof(shared), 0)
+        check(blocks > 0, f"trace_fused_mesh_tlas_occupancy at packet {packet} failed ({blocks})")
+        # The state of a packet and (a BVH of more than one node) the
+        # per-instance vote's counts and octants: the bytes a block takes
+        # whether or not it stages its tables.
+        words = 2 if packet == 1024 else 1
+        floor = packet_state_bytes(packet)
+        if bounds.shape[0] > 1:
+            floor += -(-((4 * words + 1) * k3) // 16) * 16
+        row4 = bounce_occupancy(meshes["deep"], group, 0, packet)
+        deep_frame = kernels.tlas_frame(meshes["deep"])
+        persistent, staged, grid = (ctypes.c_int() for _ in range(3))
+        query = occupancy_entry("mesh_entry_keys",
+                                [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int], packet)
+        key_blocks = query(lanes, deep_frame.slots.shape[0], deep_frame.node_bounds.shape[0],
+                           ctypes.addressof(persistent), ctypes.addressof(staged),
+                           ctypes.addressof(grid), 0)
+        check(key_blocks > 0, f"mesh_entry_keys_occupancy at packet {packet} failed ({key_blocks})")
+        vote = occupancy_entry("packet_octants", [ctypes.c_int] * 2)
+        row6 = pool_occupancy(meshes["pool"], kernels.POOL_GROUP, 0, packet)
+        vote_bytes = -(-4 * 22 * deep_frame.slots.shape[0] // 16) * 16
+        out[tier_label(packet, leaf)] = {
+            "trace_fused_mesh_tlas": {
+                "blocks_per_sm": blocks, "shared_bytes": shared.value,
+                "route": "tables staged" if shared.value > floor else "tables from global memory",
+                "packet_state_bytes": packet_state_bytes(packet), "tlas_nodes": m3,
+                "ptxas": ptxas["trace_fused_mesh_tlas"]},
+            "mesh_bounce_tlas": {**row4, "group": group,
+                                 "route": "tables staged" if row4["shared_bytes"] else
+                                 "tables from global memory",
+                                 "tlas_nodes": deep_frame.node_bounds.shape[0],
+                                 "ptxas": ptxas["mesh_bounce_tlas"]},
+            "mesh_entry_keys": {"blocks_per_sm": key_blocks, "shared_bytes": staged.value,
+                                "grid": grid.value,
+                                "route": "persistent, the eight octant tables staged"
+                                if persistent.value else "a block a packet, its octant staged",
+                                "ptxas": ptxas["mesh_entry_keys"]},
+            "packet_octants": {"blocks_per_sm": vote(packet, deep_frame.slots.shape[0]),
+                               "shared_bytes": vote_bytes, "route": "instance rows staged",
+                               "ptxas": ptxas["packet_octants"]},
+            "pool_mesh_bounce_tlas": {**row6, "group": kernels.POOL_GROUP,
+                                      "route": f"{row6['staged_frames']} frames staged"
+                                      if row6["staged_frames"] >= 0 else
+                                      "tables from global memory",
+                                      "ptxas": ptxas["pool_mesh_bounce_tlas"]},
+        }
+        print(f"[11] resources at {tier_label(packet, leaf)}: "
+              f"{json.dumps(out[tier_label(packet, leaf)])}")
+    return out
+
+
+def packet_state_bytes(packet: int) -> int:
+    """``sizeof(PacketState)`` of ``trace_fused_mesh_tlas.cu`` at ``packet``
+    lanes, rounded to 16: origin, direction, throughput and radiance (12
+    bytes each a lane), alive (1), the live mask (a bit) and the packet's
+    index."""
+    return -(-(49 * packet + packet // 8 + 4) // 16) * 16
+
+
+def tier_frames(device) -> dict:
+    """Phase 11's main path through ``TorchRaytraceBackend`` at 512x512, 8
+    spp, 4 bounces, the tiers set in the environment as a worker takes them
+    (``TRC_TLAS_BLOCK``, ``TRC_TLAS_LEAF``): at each (packet, leaf) of
+    ``TIER_CONFIGS``, 02 frame 1 (row 3 TLAS), the deep wavefront's frame 1
+    (row 4 TLAS, its vote and key pass) and the deep pool over frames 1-2
+    (row 6 TLAS and its vote); then, at the default TLAS tiers, a pool
+    window at ``TRC_RAYPOOL_FRAMES=16`` over frames 1-16 and one at
+    ``TRC_RAYPOOL_WIDTH`` twice the default over frames 1-2. The counts are
+    zeroed just before each backend render and read just after it, before
+    any comparison render, and must be exactly the render's: one row 3
+    launch; BOUNCES each of row 4, its vote and its key pass; a row 6 launch
+    and a vote each pool iteration; under the packet's names. Only these
+    counts are returned, summed per name, for the kernels line. Each image
+    is then held against the masked deep loop (the region path over the
+    whole frame for 02), or the wavefront for a pool frame, rendered in
+    the same environment. Tolerances (PERF.md section 2): a frame against
+    the masked deep loop >= 99.5% of uint8 values within 1 (the bit-equal
+    share printed), a pool frame against the wavefront within atol 1e-5."""
+    import torch
+
+    from tpu_render_cluster_torch.render import compaction, integrator, kernels, raypool
+    from tpu_render_cluster_torch.worker.backends.torch_raytrace import TorchRaytraceBackend
+
+    mesh_scene, deep = PATHS[1].scene, PATHS[2].scene
+    size = dict(width=WIDTH, height=HEIGHT, samples=SAMPLES, max_bounces=BOUNCES)
+    result: dict = {}
+    launches: dict[str, int] = {}
+
+    def within_one(image, reference) -> dict:
+        delta = (image.int() - reference.int()).abs()
+        return {"within_one": float((delta <= 1).float().mean()),
+                "bit_equal": float((delta == 0).float().mean())}
+
+    def pool_vs_wavefront(label, images, frames) -> float:
+        err = 0.0
+        for frame, image in zip(frames, images):
+            want = compaction.render_frame_wavefront(deep, frame, device=device, **size)
+            err = max(err, (image - want).abs().max().item())
+        check(err <= 1e-5, f"{label}: the pool's frames differ from the wavefront's by {err}")
+        return err
+
+    def counted(label, render, expected):
+        """``render()``'s result, its launches (counted from 0 just before
+        it, read just after) exactly ``expected(result)``."""
+        kernels.reset_counts()
+        out = render()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in kernels.counts.items() if v}
+        want = expected(out)
+        check(got == want, f"{label}: launches {got}, not {want}")
+        return out, got
+
+    def pool_window(label, backend, frames):
+        backend.pool_stats.clear()
+        images, got = counted(
+            label, lambda: backend._render_window(deep, frames),
+            lambda _: dict.fromkeys(
+                kernels.launch_names("pool_mesh_bounce_tlas", True, 0, kernels.tlas_block_r()),
+                sum(w.iterations for w in backend.pool_stats)))
+        return images, list(backend.pool_stats), got
+
+    started = time.perf_counter()
+    for packet, leaf in TIER_CONFIGS:
+        label = tier_label(packet, leaf)
+        tiers = {"TRC_TLAS_BLOCK": str(packet), "TRC_TLAS_LEAF": str(leaf)}
+        entry: dict = {}
+        with environment(tiers):
+            check(integrator.resolve_tlas_config() == (leaf, packet),
+                  f"{label}: the environment resolves to {integrator.resolve_tlas_config()}")
+            backend = TorchRaytraceBackend(device=device, **size)
+            row3 = kernels.packet_name("trace_fused_mesh_tlas", packet)
+            image02, got02 = counted(f"02 at {label}", lambda: backend._renderer(mesh_scene)(1),
+                                     lambda _: {row3: 1})
+            image03, got03 = counted(
+                f"the 03 wavefront at {label}", lambda: backend._renderer(deep)(1),
+                lambda _: dict.fromkeys(kernels.launch_names("mesh_bounce_tlas", True, 0, packet),
+                                        BOUNCES))
+            window, stats, got_pool = pool_window(f"the pool at {label}", backend, [1, 2])
+            for got in (got02, got03, got_pool):
+                for name, count in got.items():
+                    if packet != kernels.TLAS_BLOCK_R:
+                        launches[name] = launches.get(name, 0) + count
+            deep_loop = integrator.tonemap(integrator.render_frame_region(
+                mesh_scene, 1, y0=0, x0=0, tile_height=HEIGHT, tile_width=WIDTH, device=device,
+                **size))
+            entry["02"] = within_one(image02, deep_loop)
+            masked = integrator.tonemap(integrator.render_frame(deep, 1, device=device, **size))
+            entry["03 wavefront"] = within_one(image03, masked)
+            for key in ("02", "03 wavefront"):
+                check(entry[key]["within_one"] >= 0.995,
+                      f"{key} at {label}: {entry[key]} against the masked deep loop")
+            entry["03 pool, max abs err vs the wavefront"] = pool_vs_wavefront(
+                f"the pool at {label}", window, [1, 2])
+        entry["launches"] = {**got02, **got03, **{f"pool: {k}": v for k, v in got_pool.items()}}
+        entry["pool_iterations"] = stats[0].iterations
+        result[label] = entry
+        print(f"[11] frames at {label}: {json.dumps(entry)}")
+    backend = TorchRaytraceBackend(device=device, **size)
+    with environment({"TRC_RAYPOOL_FRAMES": str(TIER_POOL_FRAMES)}):
+        frames = list(range(1, TIER_POOL_FRAMES + 1))
+        images, stats, got = pool_window(f"TRC_RAYPOOL_FRAMES={TIER_POOL_FRAMES}", backend,
+                                         frames)
+    check(len(stats) == 1 and stats[0].served == TIER_POOL_FRAMES * WIDTH * HEIGHT * SAMPLES,
+          f"TRC_RAYPOOL_FRAMES={TIER_POOL_FRAMES}: windows {[w.served for w in stats]}")
+    err = pool_vs_wavefront(f"the {TIER_POOL_FRAMES}-frame window", images, frames)
+    result["TRC_RAYPOOL_FRAMES=16"] = {"windows": 1, "iterations": stats[0].iterations,
+                                       "max_abs_err": err, "launches": got}
+    with environment({"TRC_RAYPOOL_WIDTH": str(TIER_POOL_WIDTH)}):
+        check(raypool.raypool_width(WIDTH * HEIGHT * SAMPLES) == TIER_POOL_WIDTH,
+              "TRC_RAYPOOL_WIDTH is not the pool's width")
+        images, stats, got = pool_window(f"TRC_RAYPOOL_WIDTH={TIER_POOL_WIDTH}", backend, [1, 2])
+    check(stats[0].refill_log[0] == TIER_POOL_WIDTH,
+          f"TRC_RAYPOOL_WIDTH={TIER_POOL_WIDTH}: the first refill took {stats[0].refill_log[0]}")
+    err = pool_vs_wavefront("the double-width window", images, [1, 2])
+    result[f"TRC_RAYPOOL_WIDTH={TIER_POOL_WIDTH}"] = {"iterations": stats[0].iterations,
+                                                      "max_abs_err": err, "launches": got}
+    print(f"[11] the tiers' main path in {time.perf_counter() - started:.1f} s: pools "
+          f"{json.dumps({k: v for k, v in result.items() if k.startswith('TRC_')})}; "
+          f"the backend's launches at packets other than 256 {launches}")
+    for kernel in TIER_KERNELS:
+        for packet in TIER_PACKETS:
+            name = kernels.packet_name(kernel, packet)
+            check(launches.get(name, 0) > 0, f"{name} was not launched on phase 11's path")
+    return {"frames": result, "launches": launches}
+
+
+def tier_times(device, inputs: dict) -> dict:
+    """Each kernel of the TLAS packet alone under the profiler (windows of
+    5 calls) and its wrapper on CUDA events, at the main paths' widths
+    (row 4 TLAS with its vote and key pass at the deep bounce-0 launch, row
+    6 TLAS with its vote at the mixed pool launch, row 3 TLAS on 02 frame
+    1), in turns: packets 128, 256, 512, 1024, 1024, 512, 256, 128 at leaf
+    4, then leaves 1, 16, 16, 1 at packet 256."""
+    from tpu_render_cluster_torch.render import kernels
+
+    trace, launch, seed = inputs["trace"], inputs["launch"], inputs["seed"]
+    trace02, rays02, mixed = inputs["trace02"], inputs["rays02"], inputs["mixed"]
+    live6 = int(mixed.live)
+    turns = [(p, 4) for p in (128, 256, 512, 1024, 1024, 512, 256, 128)]
+    turns += [(256, 1), (256, 16), (256, 16), (256, 1)]
+    meshes = {leaf: tier_meshes(device, leaf, inputs["window"]) for leaf in (1, 4, 16)}
+    rows = {
+        "trace_fused_mesh_tlas": lambda p, m: kernels.trace_paths_fused_mesh(
+            trace02.scene, m["02"], *rays02, max_bounces=BOUNCES, tlas_block=p),
+        "mesh_bounce_tlas": lambda p, m: kernels.mesh_bounce(
+            trace.scene, m["deep"], *launch.state, launch.live, seed, 0, total_bounces=BOUNCES,
+            tlas_block=p),
+        "pool_mesh_bounce_tlas": lambda p, m: kernels.pool_mesh_bounce(
+            m["pool"], *mixed.state, live6, total_bounces=BOUNCES, tlas_block=p),
+    }
+    passes = {"trace_fused_mesh_tlas": (), "mesh_bounce_tlas": ("packet_octants",
+                                                                "mesh_entry_keys"),
+              "pool_mesh_bounce_tlas": ("packet_octants",)}
+    out: dict = {}
+    for row, call in rows.items():
+        names = (row, *passes[row])
+        measured: dict = {}
+        for packet, leaf in turns:
+            once = lambda p=packet, m=meshes[leaf]: call(p, m)  # noqa: E731
+            cuda_ms(once, 2)
+            ms = statistics.median(cuda_ms(once, 5) for _ in range(3))
+            profile = profiled(lambda: [once() for _ in range(5)], names,
+                               f"[11] {row} at {tier_label(packet, leaf)}", tries=6,
+                               launches=5 * len(names))
+            alone = None if profile is None else {n: profile["per_kernel"][n] / 5 for n in names}
+            measured.setdefault(tier_label(packet, leaf), []).append({"ms": ms, "alone_ms": alone})
+        entry = {}
+        for label, runs in measured.items():
+            alone = [r["alone_ms"] for r in runs]
+            entry[label] = {
+                "ms": statistics.mean(r["ms"] for r in runs),
+                "alone_ms": None if None in alone else {
+                    n: statistics.mean(a[n] for a in alone) for n in names},
+                "turns": runs,
+            }
+        out[row] = entry
+        print(f"[11] {row} (with {list(passes[row]) or 'no pass'}) alone ms under the profiler "
+              f"and wrapper ms on CUDA events, in turns: "
+              f"{json.dumps({k: {'ms': v['ms'], 'alone_ms': v['alone_ms']} for k, v in entry.items()})}")
+    return out
+
+
+def tier_wire(card: str) -> dict:
+    """The TLAS tiers over the wire: ``TIER_WIRE_JOB`` served by the C++
+    master (phase 8's build, or built here by its line) to a port worker
+    process started with
+    ``TRC_TLAS_BLOCK=128 TRC_TLAS_LEAF=8``; its PNGs bit-equal to, and its
+    launch map equal to, the in-process render's in the same environment."""
+    from tpu_render_cluster_torch.render import _build
+
+    master_binary = _build.BUILD_DIR / "trc-master"
+    if not master_binary.is_file():  # phase 11 alone: phase 8's build line
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        compiler = subprocess.run(
+            ["g++", "-std=gnu++17", "-O2", "-pthread", "-o", str(master_binary),
+             *(str(REPO / source) for source in MASTER_SOURCES)],
+            capture_output=True, text=True, timeout=600,
+        )
+        check(compiler.returncode == 0, f"g++ on the C++ master failed:\n{compiler.stdout}"
+                                        f"{compiler.stderr}")
+    job = TIER_WIRE_JOB
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-tiers-") as scratch:
+        directory = Path(scratch)
+        job_path = write_wire_job(job, directory)
+        expected = in_process_frames(job, job_path, directory)
+        run = wire_run(job, master_binary, job_path, directory)
+        result = wire_checks(job, run, expected, directory / "frames")
+    result["in_process_fps"] = expected["fps"]
+    print(f"[11] {wire_label(job)} over the wire (C++ master, one port worker process): "
+          f"{result['frames']} frames, {result['wire_fps']:.4f} frames/s (in process "
+          f"{expected['fps']:.4f}); launches {result['launches']}, as in process; PNGs "
+          f"bit-equal share {list(result['bit_equal_share'].values())}; {card}")
+    return result
+
+
+def tier_bound(kernel: str, plain: dict, width: int) -> dict:
+    """The least time of ``kernel``'s work at ``width`` lanes, from its
+    plain version's counters on ``plain['plain_rays']`` of them (scaled), as
+    phases 5 and 9 count it."""
+    if kernel == "packet_octants":
+        k = plain["slots"]
+        ops_ms = width * (k * OPS_VOTE_ROW + OPS_VOTE_WORLD) / FP32_PEAK_FLOPS * 1e3
+        bytes_ms = width * VOTE_RAY_BYTES / MEMORY_BYTES_PER_S * 1e3
+        return {"ms": max(ops_ms, bytes_ms), "by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    if kernel == "mesh_entry_keys":
+        ops_ms = (OPS_SLAB * plain["stats"]["entry_tests"] + width * OPS_VOTE_WORLD) \
+            / FP32_PEAK_FLOPS * 1e3
+        bytes_ms = width * KEY_PASS_RAY_BYTES / MEMORY_BYTES_PER_S * 1e3
+        return {"ms": max(ops_ms, bytes_ms), "by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    ray_bytes = {"trace_fused_mesh_tlas": MEGAKERNEL_RAY_BYTES,
+                 "mesh_bounce_tlas": BOUNCE_RAY_BYTES + KEY_BYTES,
+                 "pool_mesh_bounce_tlas": POOL_RAY_BYTES + KEY_BYTES}[kernel]
+    least = bound(plain["stats"], width * ray_bytes, width / plain["plain_rays"])
+    return {"ms": least["ms"], "by": least["by"]}
+
+
+def tier_records(checks: dict, times: dict, launches: dict, build_s: float) -> list[dict]:
+    """The kernels line's entries of the width builds (``<kernel>[p<P>]``):
+    launches on phase 11's path (the backend's renders alone), the max abs
+    error measured against the plain version on every lane, the wrapper's
+    ms and the kernel alone at the main width, the plain version's ms (in
+    one of ``TIER_CHECK_PROCESSES`` processes side by side), and the bound."""
+    from tpu_render_cluster_torch.render import kernels
+
+    inputs = checks["inputs"]
+    widths = {"trace_fused_mesh_tlas": inputs["rays02"][0].shape[0],
+              "mesh_bounce_tlas": inputs["launch"].bucket,
+              "mesh_entry_keys": inputs["launch"].bucket,
+              "packet_octants": inputs["launch"].bucket,
+              "pool_mesh_bounce_tlas": int(inputs["mixed"].live)}
+    timed_by = {"trace_fused_mesh_tlas": "trace_fused_mesh_tlas",
+                "mesh_bounce_tlas": "mesh_bounce_tlas", "mesh_entry_keys": "mesh_bounce_tlas",
+                "packet_octants": "mesh_bounce_tlas",
+                "pool_mesh_bounce_tlas": "pool_mesh_bounce_tlas"}
+    records = []
+    for kernel in TIER_KERNELS:
+        for packet in TIER_PACKETS:
+            label = tier_label(packet, 4)
+            plain = checks["plain"][(packet, 4)][kernel]
+            timed = times[timed_by[kernel]][label]
+            least = tier_bound(kernel, plain, widths[kernel])
+            alone = None if timed["alone_ms"] is None else timed["alone_ms"][kernel]
+            records.append({
+                "name": kernels.packet_name(kernel, packet),
+                "route": "cuda",
+                "source": f"tpu_render_cluster_torch/render/csrc/{kernel}.cu",
+                "replaces": REPLACES[kernel],
+                "launches": launches.get(kernels.packet_name(kernel, packet), 0),
+                "max_abs_err": plain["err"],
+                "ms": timed["ms"] if kernel == timed_by[kernel] else plain["ms"],
+                "plain_ms": plain["plain_ms"],
+                "bound_ms": least["ms"],
+                "bound_by": least["by"],
+                "library_ms": None,
+                "kernel_only_ms": alone,
+                "packet": packet,
+                "rays": widths[kernel],
+                "plain_rays": plain["plain_rays"],
+                "plain_processes": TIER_CHECK_PROCESSES,
+                "tolerance": TIER_TOLERANCE,
+                "build_s": build_s,
+            })
+    return records
+
+
+def first_deep_window(device) -> dict:
+    """Phase 3's first deep pool window (frames 1-8 at the main size),
+    iterated, its launches kept and picked by role: what phase 11 takes
+    when it runs alone."""
+    from tpu_render_cluster_torch.render import raypool
+
+    path = next(p for p in PATHS if p.kernel == "pool_mesh_bounce_tlas")
+    frames = job_frames(path)[1][:raypool.RAYPOOL_FRAMES]
+    window = raypool.PoolWindow(path.scene, frames, width=WIDTH, height=HEIGHT, samples=SAMPLES,
+                                max_bounces=BOUNCES, device=device)
+    launches: list = []
+    state = window.initial_state()
+    while bool(window.more(state)):
+        state = window.iteration(state, len(launches), launches.append)
+    roles = pool_launch_roles(launches, window)
+    return {"window": window, "launches": launches,
+            "picked": {role: {"index": index} for role, index in roles.items()}}
+
+
+def tier_phase(card: str, device, pool_first: dict, build_s: float,
+               processes: list | None = None) -> dict:
+    """Phase 11: the TLAS tiers, checked (``processes``: its kernel checks,
+    ``tier_check_processes``, started earlier; else started here, beside
+    its frames and wire job), framed, over the wire and timed (alone:
+    ``tier_phase(card, device, first_deep_window(device), 0.0)``)."""
+    started = time.perf_counter()
+    own = processes is None
+    if own:
+        processes = tier_check_processes()
+    try:
+        inputs = tier_inputs(device, pool_first)
+        resources = tier_resources(device, inputs)
+        frames = tier_frames(device)
+        print(f"[11] frames in {time.perf_counter() - started:.1f} s")
+        wire = tier_wire(card)
+        print(f"[11] the wire job in {time.perf_counter() - started:.1f} s")
+        plain, checked = tier_check_results(processes)
+    finally:
+        if own:
+            for process in processes:
+                process.stop()
+    print(f"[11] kernel checks ({TIER_CHECK_PROCESSES} processes) joined in "
+          f"{time.perf_counter() - started:.1f} s")
+    tier_pass_times(device, inputs, plain)
+    times = tier_times(device, inputs)
+    print(f"[11] times on {card} in {time.perf_counter() - started:.1f} s")
+    checks = {"plain": plain, "checked": checked, "inputs": inputs}
+    records = tier_records(checks, times, frames["launches"], build_s)
+    widths = {kernel: record["rays"] for kernel, record in
+              zip(TIER_KERNELS, records[::len(TIER_PACKETS)])}
+    bounds = {tier_label(packet, leaf): {
+        kernel: tier_bound(kernel, checks["plain"][(packet, leaf)][kernel], widths[kernel])
+        for kernel in TIER_KERNELS} for packet, leaf in TIER_CONFIGS}
+    print(f"[11] bounds at the main widths (the plain versions' counters at each packet and "
+          f"leaf, scaled): {json.dumps(bounds)}")
+    return {"records": records, "resources": resources, "frames": frames["frames"],
+            "bounds": bounds,
+            "wire": {k: wire[k] for k in ("launches", "wire_fps", "in_process_fps",
+                                          "bit_equal_share")},
+            "times": {row: {label: {"ms": v["ms"], "alone_ms": v["alone_ms"]}
+                            for label, v in entry.items()} for row, entry in times.items()},
+            "checked": checks["checked"]}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == [CHECK_FLAG]:  # one of the check processes of phases 9 and 11
+        return check_process(sys.argv[2])
 
     from tpu_render_cluster_torch.render import _build
 
@@ -4615,9 +5487,25 @@ def main() -> int:
         {kernel for path in PATHS for kernel in path.launched} | {p.kernel for p in TILE_PATHS}
     )
     check(sorted(libraries) == expected, f"kernels {sorted(libraries)} != {expected}")
-    for name, log in _build.build_logs.items():
-        for line in _build.resource_lines(log):
+    for name in sorted(libraries):
+        for line in _build.resource_lines(_build.build_logs[name]):
             print(f"    {name}: {line}")
+    # The TLAS kernels' other packet widths (phase 11), one nvcc each, built
+    # while phases 3-8 run; phase 9 waits for them. No nvcc outlives the run.
+    width_builds = WidthBuilds()
+    try:
+        return phases(card, device, build_s, width_builds, script_started)
+    finally:
+        width_builds.stop()
+
+
+def phases(card: str, device, build_s: float, width_builds: WidthBuilds,
+           script_started: float) -> int:
+    """Phases 3-11, after the card and the default builds; the contract's
+    last lines."""
+    import torch
+
+    from tpu_render_cluster_torch.render import _build
 
     # -- 3. the frames' inputs, and each kernel against its plain version ----
     frame_input_parity(device)
@@ -4742,7 +5630,14 @@ def main() -> int:
 
     # -- 9. the node formats (the reference's TRC_BVH_QUANT tiers) ----------
     started = time.perf_counter()
-    formats = quant_phase(card, device, pool_first)
+    build_s += width_builds.wait()  # phase 11's processes load the width builds
+    quant_process = CheckProcess("quant")
+    tier_processes = tier_check_processes()
+    try:
+        formats = quant_phase(card, device, pool_first, [quant_process, *tier_processes])
+    finally:
+        for process in (quant_process, *tier_processes):
+            process.stop()
     keys_alone = {
         quant: {"alone_ms": (formats["times"]["mesh_bounce_tlas"][quant]["alone_ms"] or {}).get(
             "mesh_entry_keys")}
@@ -4773,7 +5668,22 @@ def main() -> int:
             entry["sharded_launches"] = sharded
     print(f"[10] phase 10 in {time.perf_counter() - started:.1f} s")
 
-    print(f"[5] chip_smoke phases 1-10 in {time.perf_counter() - script_started:.1f} s")
+    # -- 11. the TLAS tiers (the reference's TRC_TLAS_BLOCK, TRC_TLAS_LEAF,
+    # TRC_RAYPOOL_FRAMES, TRC_RAYPOOL_WIDTH) ---------------------------------
+    started = time.perf_counter()
+    tiers = tier_phase(card, device, pool_first, build_s, tier_processes)
+    record["kernels"] += tiers["records"]
+    for entry in record["kernels"]:
+        if entry["name"] in TIER_KERNELS:
+            entry["tiers"] = {"resources": {label: r[entry["name"]]
+                                            for label, r in tiers["resources"].items()}}
+            timed = "mesh_bounce_tlas" if entry["name"] in ("packet_octants",
+                                                            "mesh_entry_keys") else entry["name"]
+            entry["tiers"]["times"] = tiers["times"][timed]
+    print(f"[11] TLAS tiers on {card}: {json.dumps({k: v for k, v in tiers.items() if k != 'records'})}")
+    print(f"[11] phase 11 in {time.perf_counter() - started:.1f} s")
+
+    print(f"[5] chip_smoke phases 1-11 in {time.perf_counter() - script_started:.1f} s")
     print(json.dumps(record))
     print(card)
     print(json.dumps({

@@ -52,7 +52,11 @@ import torch.distributed as dist
 
 from tpu_render_cluster_torch.parallel.mesh import MeshLayout, mesh_layout
 from tpu_render_cluster_torch.render.camera import Camera, scene_camera_on
-from tpu_render_cluster_torch.render.integrator import render_tile, resolve_bvh_config
+from tpu_render_cluster_torch.render.integrator import (
+    render_tile,
+    resolve_bvh_config,
+    resolve_tlas_config,
+)
 from tpu_render_cluster_torch.render.mesh import MeshFrame, mesh_frame_on, mesh_frame_on_host
 from tpu_render_cluster_torch.render.scene import Scene, on_device, scene_on
 
@@ -101,12 +105,14 @@ class FrameInputs(NamedTuple):
     mesh: MeshFrame | None
 
 
-def frame_inputs(scene_name: str, frame_index: int, builder: str, wide: int) -> FrameInputs:
-    """The inputs of one frame, computed once on the host."""
+def frame_inputs(scene_name: str, frame_index: int, builder: str, wide: int,
+                 tlas_leaf: int | None = None) -> FrameInputs:
+    """The inputs of one frame, computed once on the host (the TLAS of
+    ``tlas_leaf``-instance leaves; None: the default)."""
     return FrameInputs(
         scene_on(scene_name, frame_index, "cpu"),
         scene_camera_on(scene_name, frame_index, "cpu"),
-        mesh_frame_on_host(scene_name, frame_index, builder, wide),
+        mesh_frame_on_host(scene_name, frame_index, builder, wide, tlas_leaf),
     )
 
 
@@ -128,11 +134,13 @@ def render_shard(
     inputs: FrameInputs | None = None,
 ) -> torch.Tensor:
     """One shard on ``device``: the frame's ``inputs`` (computed here when
-    not given) copied there, then ``render_tile`` over its rows and
-    samples; [rows, W, 3] linear."""
+    not given; given, their TLAS leaf is theirs) copied there, then
+    ``render_tile`` over its rows and samples; [rows, W, 3] linear. The
+    TLAS tiers are the environment's (``resolve_tlas_config``)."""
     use_tlas, quant, builder, wide = resolve_bvh_config(use_tlas, quant, builder, wide)
+    tlas_leaf, tlas_block = resolve_tlas_config()
     if inputs is None:
-        inputs = frame_inputs(scene_name, frame_index, builder, wide)
+        inputs = frame_inputs(scene_name, frame_index, builder, wide, tlas_leaf)
     return render_tile(
         on_device(inputs.scene, device),
         on_device(inputs.camera, device),
@@ -141,7 +149,7 @@ def render_shard(
         samples=shard.samples, max_bounces=max_bounces,
         mesh=mesh_frame_on(inputs.mesh, device),
         bounce_scan=bounce_scan, per_instance=per_instance, use_tlas=use_tlas, quant=quant,
-        key_x0=shard.key_x0,
+        key_x0=shard.key_x0, tlas_block=tlas_block,
     )
 
 
@@ -224,14 +232,15 @@ def render_frame_sharded(
     """Render one frame across the mesh (``mesh.device_mesh``); [H, W, 3]
     linear on this process's first device, the whole frame in every process
     of a group. ``bounce_scan``, ``per_instance`` and the BVH tiers as
-    ``integrator.render_frame``'s, the tiers resolved once, here."""
+    ``integrator.render_frame``'s, the tiers resolved once, here; the TLAS
+    tiers the environment's."""
     layout = mesh_layout(n_devices, device=device)
     shards = shard_plan(mode, layout.n, height=height, samples=samples)
     use_tlas, quant, builder, wide = resolve_bvh_config(use_tlas, quant, builder, wide)
     options = dict(
         width=width, height=height, max_bounces=max_bounces, bounce_scan=bounce_scan,
         per_instance=per_instance, use_tlas=use_tlas, quant=quant, builder=builder, wide=wide,
-        inputs=frame_inputs(scene_name, frame_index, builder, wide),
+        inputs=frame_inputs(scene_name, frame_index, builder, wide, resolve_tlas_config()[0]),
     )
     images = _on_devices(
         lambda index, on: render_shard(

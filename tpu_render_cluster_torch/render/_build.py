@@ -7,9 +7,17 @@ the flags, so an edited kernel or shared header is rebuilt and a stale
 library is never loaded. The build directory is listed in
 ``.gitignore``; nothing is built when this module is imported.
 
+The TLAS kernels' packet (the reference's ``TRC_TLAS_BLOCK`` tier) is a
+compile-time width (``mesh::kTlasPacket``, 256 by default): each of
+``PACKET_SOURCES`` is also built at the other widths of ``PACKETS``, one
+library a width (the variant ``<name>_p<width>``, the source compiled with
+``-DTRC_PACKET=<width>``), each at its first use, so a run builds only the
+widths it launches.
+
 ``python -m tpu_render_cluster_torch.render._build [CSRC]`` builds every
-kernel of ``CSRC`` (default: this package's ``csrc/``) into ``CSRC/build``
-and prints what ptxas reports of each: registers, stack, spills.
+kernel of ``CSRC`` (default: this package's ``csrc/``) into ``CSRC/build``,
+the packet kernels at every width, and prints what ptxas reports of each:
+registers, stack, spills.
 ``python -m tpu_render_cluster_torch.render._build --compare OTHER`` builds
 this package's kernels and those of the ``csrc/`` directory ``OTHER`` (for
 example an older checkout's) with the same flags, and says for each kernel
@@ -25,11 +33,13 @@ and nvcc must fuse no others.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -43,6 +53,12 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# The sources whose kernels walk packets of the TLAS variants' width, the
+# widths they are built at, and the default one (no define).
+PACKET_SOURCES = ("trace_fused_mesh_tlas", "mesh_bounce_tlas", "mesh_entry_keys",
+                  "pool_mesh_bounce_tlas")
+PACKETS = (128, 256, 512, 1024)
+DEFAULT_PACKET = 256
 # (name) -> the nvcc/ptxas report of the build that made the library
 # (registers, shared memory, spills), or "" when an earlier build was reused.
 build_logs: dict[str, str] = {}
@@ -54,6 +70,34 @@ _libraries: dict[str, ctypes.CDLL] = {}
 def sources() -> list[str]:
     """The kernel names: one per ``csrc/*.cu``."""
     return sorted(path.stem for path in CSRC_DIR.glob("*.cu"))
+
+
+def variant(name: str, packet: int | None = None) -> str:
+    """The library of kernel ``name`` built for the TLAS packet ``packet``:
+    ``name`` itself at the default width (or None, or a kernel without a
+    packet), else ``<name>_p<packet>``. Raises for a width no build takes."""
+    if packet is None or packet == DEFAULT_PACKET or name not in PACKET_SOURCES:
+        return name
+    if packet not in PACKETS:
+        raise ValueError(f"{name}: no build for a packet of {packet} lanes (one of {PACKETS})")
+    return f"{name}_p{packet}"
+
+
+def packet_variants() -> list[str]:
+    """Every non-default width's library of the packet kernels."""
+    return [variant(name, packet) for name in PACKET_SOURCES for packet in PACKETS
+            if packet != DEFAULT_PACKET]
+
+
+_VARIANTS = {variant(name, packet): (name, packet)
+             for name in PACKET_SOURCES for packet in PACKETS}
+
+
+def _source_of(name: str) -> tuple[str, list[str]]:
+    """A library's source kernel and its extra nvcc flags (the packet
+    define of a width variant)."""
+    source, packet = _VARIANTS.get(name, (name, DEFAULT_PACKET))
+    return source, [] if packet == DEFAULT_PACKET else [f"-DTRC_PACKET={packet}"]
 
 
 def nvcc_path() -> str:
@@ -71,18 +115,24 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    source, defines = _source_of(name)
+    digest = hashlib.sha256((CSRC_DIR / f"{source}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
-    digest.update("\0".join(NVCC_FLAGS).encode())
+    digest.update("\0".join((*NVCC_FLAGS, *defines)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: list[str] | None = None) -> dict[str, Path]:
-    """Build the named kernels (default: all), one nvcc each, all at once.
+def build(names: list[str] | None = None,
+          processes: list[subprocess.Popen] | None = None) -> dict[str, Path]:
+    """Build the named kernels (default: all, at the default packet; a
+    width variant by its ``variant`` name), one nvcc each, all at once.
 
     Libraries that already exist for the current source and flags are
-    reused. Raises with nvcc's output if any build fails.
+    reused. Raises with nvcc's output if any build fails. Each nvcc runs in
+    a process group of its own, ended (``end``) if the build is left by an
+    exception; nvcc processes are also appended to ``processes`` when given,
+    so that another thread can end them.
     """
     names = sources() if names is None else list(names)
     targets = {name: library_path(name) for name in names}
@@ -94,27 +144,47 @@ def build(names: list[str] | None = None) -> dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     jobs = {}
-    for name, path in pending.items():
-        partial = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        command = [nvcc, *NVCC_FLAGS, "-o", str(partial), str(CSRC_DIR / f"{name}.cu")]
-        jobs[name] = (
-            partial,
-            subprocess.Popen(
-                command, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            ),
-        )
     failures = []
-    for name, (partial, process) in jobs.items():
-        output, _ = process.communicate()
-        build_logs[name] = output
-        if process.returncode != 0:
-            partial.unlink(missing_ok=True)
-            failures.append(f"{name}.cu (nvcc exit {process.returncode}):\n{output}")
-        else:
-            os.replace(partial, pending[name])
+    try:
+        for name, path in pending.items():
+            partial = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            source, defines = _source_of(name)
+            command = [nvcc, *NVCC_FLAGS, *defines, "-o", str(partial),
+                       str(CSRC_DIR / f"{source}.cu")]
+            jobs[name] = (
+                partial,
+                subprocess.Popen(
+                    command, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                    process_group=0,
+                ),
+            )
+            if processes is not None:
+                processes.append(jobs[name][1])
+        for name, (partial, process) in jobs.items():
+            output, _ = process.communicate()
+            build_logs[name] = output
+            if process.returncode != 0:
+                partial.unlink(missing_ok=True)
+                failures.append(f"{name} (nvcc exit {process.returncode}):\n{output}")
+            else:
+                os.replace(partial, pending[name])
+    finally:
+        for partial, process in jobs.values():
+            if process.returncode is None:
+                end(process)
+                process.wait()
+                partial.unlink(missing_ok=True)
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return targets
+
+
+def end(process: subprocess.Popen) -> None:
+    """Kill a ``build``'s nvcc process that still runs, with the compilers
+    it started (its process group)."""
+    if process.returncode is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(process.pid, signal.SIGKILL)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -170,7 +240,7 @@ def main(argv: list[str]) -> int:
         CSRC_DIR = Path(argv[0]).resolve()
         BUILD_DIR = CSRC_DIR / "build"
     started = time.perf_counter()
-    build()
+    build(sources() + packet_variants())
     print(f"built {len(build_logs)} kernels of {CSRC_DIR} in {time.perf_counter() - started:.2f} s")
     for name, log in sorted(build_logs.items()):
         for line in resource_lines(log):

@@ -41,6 +41,7 @@ from tpu_render_cluster_torch.render.integrator import (
     frame_rays_and_seed,
     region_rays_and_seed,
     resolve_bvh_config,
+    resolve_tlas_config,
 )
 from tpu_render_cluster_torch.render.mesh import MeshSet, scene_mesh_set
 from tpu_render_cluster_torch.render.scene import Scene, build_scene
@@ -48,7 +49,7 @@ from tpu_render_cluster_torch.render.scene import Scene, build_scene
 # The bucket quantum of sphere scenes: the per-bounce kernels' thread block.
 BUCKET_BLOCK = 256
 # The flat mesh variant's quantum: the reference's ray block (BVH_BLOCK_R);
-# the TLAS variant's is kernels.TLAS_BLOCK_R.
+# the TLAS variant's is its packet (the resolved TRC_TLAS_BLOCK tier).
 FLAT_MESH_BUCKET_BLOCK = 1024
 
 
@@ -125,19 +126,22 @@ def trace_paths_wavefront(
     over the bucket, and add the contribution into each ray's original
     lane. An all-dead wavefront ends the loop. ``on_launch``, when given,
     is called with each launch before it runs. ``use_tlas`` (None:
-    ``kernels.use_tlas_for``) picks the mesh kernel's variant and, with it,
-    the compaction's key and the bucket quantum (``kernels.TLAS_BLOCK_R``,
-    else ``FLAT_MESH_BUCKET_BLOCK``). ``rng_lanes`` (int32 [R]): each
+    ``kernels.use_tlas_for`` at the mesh's leaf) picks the mesh kernel's
+    variant and, with it, the compaction's key and the bucket quantum (the
+    TLAS kernel's packet, the ``TRC_TLAS_BLOCK`` tier, else
+    ``FLAT_MESH_BUCKET_BLOCK``; the reference's ``compaction.py:345-352``). ``rng_lanes`` (int32 [R]): each
     ray's RNG counter (a region's whole-frame lanes): each launch's
     ``lane`` argument is ``rng_lanes`` at the carried lanes, which the
     radiance still scatters to. ``use_tlas`` and ``quant`` left None take
-    their environment tiers (``integrator.resolve_bvh_config``); at
+    their environment tiers (``integrator.resolve_bvh_config``), the packet
+    is the environment's (``resolve_tlas_config``); at
     ``quant`` 1 or 2 the mesh kernel reads quantized node tables and the
     throughput column travels between launches as bf16 words
     (``kernels.pack_throughput_bf16``: packed after each launch, unpacked
     before the next), the reference's packed carried state.
     """
     use_tlas, quant, _, _ = resolve_bvh_config(use_tlas, quant)
+    _, tlas_block = resolve_tlas_config()
     n0 = origins.shape[0]
     device = origins.device
     radiance = torch.zeros((n0, 3), dtype=torch.float32, device=device)
@@ -147,12 +151,12 @@ def trace_paths_wavefront(
     alive = torch.ones((n0,), dtype=torch.bool, device=device)
     lane = torch.arange(n0, dtype=torch.int32, device=device)
     tlas = mesh is not None and kernels.use_tlas_for(
-        mesh.instances.translation.shape[0], use_tlas
+        mesh.instances.translation.shape[0], use_tlas, kernels.mesh_leaf(mesh)
     )
     if mesh is None:
         block = BUCKET_BLOCK
     else:
-        block = kernels.TLAS_BLOCK_R if tlas else FLAT_MESH_BUCKET_BLOCK
+        block = tlas_block if tlas else FLAT_MESH_BUCKET_BLOCK
     keys = kernels.initial_mesh_sort_keys(mesh, origins, directions, alive) if tlas else None
     for bounce in range(max_bounces):
         origins, directions, throughput, alive, lane, live_dev = compact(
@@ -178,7 +182,7 @@ def trace_paths_wavefront(
         else:
             step = kernels.mesh_bounce(
                 scene, mesh, *state, live, seed, bounce, total_bounces=max_bounces,
-                use_tlas=tlas, quant=quant,
+                use_tlas=tlas, quant=quant, tlas_block=tlas_block,
             )
         origins, directions, throughput, alive = (
             step.origins, step.directions, step.throughput, step.alive
@@ -207,11 +211,13 @@ def render_frame_wavefront(
 ) -> torch.Tensor:
     """Render one frame through the wavefront driver; [H, W, 3] linear
     radiance on ``device`` (CUDA unless ``cpu`` is asked for). The same
-    rays and trace seed as ``integrator.render_frame``; the BVH tiers
-    (None: the environment's) as for ``trace_paths_wavefront``, the build
-    ``builder`` and ``wide`` to ``scene_mesh_set``."""
+    rays and trace seed as ``integrator.render_frame``; the BVH tiers (None:
+    the environment's) and the TLAS packet as for ``trace_paths_wavefront``,
+    the build ``builder`` and ``wide`` and the environment's TLAS leaf to
+    ``scene_mesh_set``."""
     device = resolve_device(device)
     use_tlas, quant, builder, wide = resolve_bvh_config(use_tlas, quant, builder, wide)
+    tlas_leaf, _ = resolve_tlas_config()
     scene = build_scene(scene_name, frame_index, device)
     camera = scene_camera(scene_name, frame_index, device)
     origins, directions, seed = frame_rays_and_seed(
@@ -219,7 +225,7 @@ def render_frame_wavefront(
     )
     radiance = trace_paths_wavefront(
         scene, origins, directions, seed, max_bounces=max_bounces,
-        mesh=scene_mesh_set(scene_name, frame_index, builder, wide, device),
+        mesh=scene_mesh_set(scene_name, frame_index, builder, wide, device, tlas_leaf),
         on_launch=on_launch, use_tlas=use_tlas, quant=quant,
     )
     return radiance.reshape(samples, height * width, 3).mean(dim=0).reshape(height, width, 3)
@@ -248,9 +254,11 @@ def render_region_wavefront(
     [tile_height, tile_width, 3] linear radiance on ``device``: the region's
     rays with their whole-frame lanes as RNG counters
     (``integrator.region_rays_and_seed``), so a stitched grid of regions
-    equals ``render_frame_wavefront``'s image; the BVH tiers as there."""
+    equals ``render_frame_wavefront``'s image; the BVH and TLAS tiers as
+    there."""
     device = resolve_device(device)
     use_tlas, quant, builder, wide = resolve_bvh_config(use_tlas, quant, builder, wide)
+    tlas_leaf, _ = resolve_tlas_config()
     scene = build_scene(scene_name, frame_index, device)
     camera = scene_camera(scene_name, frame_index, device)
     origins, directions, lanes, seed = region_rays_and_seed(
@@ -259,7 +267,7 @@ def render_region_wavefront(
     )
     radiance = trace_paths_wavefront(
         scene, origins, directions, seed, max_bounces=max_bounces,
-        mesh=scene_mesh_set(scene_name, frame_index, builder, wide, device),
+        mesh=scene_mesh_set(scene_name, frame_index, builder, wide, device, tlas_leaf),
         on_launch=on_launch, use_tlas=use_tlas, rng_lanes=lanes, quant=quant,
     )
     n = tile_height * tile_width

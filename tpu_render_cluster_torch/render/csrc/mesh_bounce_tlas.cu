@@ -44,7 +44,10 @@
 // Walk order: on a BVH with octant tables (every sah build; the
 // reference's default) the staged BVH and TLAS are their eight octant orders
 // stacked, [8N] and [8M] rows, and each ray's walks take the tables of its
-// packet (256 lanes of the launch, tlas_block_r()): the packet's votes come
+// packet (kPacket lanes of the launch, tlas_block_r(): 256, or the width
+// the library was built for; at 128 a block of 256 threads spans two
+// packets, at 1,024 a packet spans four blocks, and the votes are the
+// packet's either way): the packet's votes come
 // from the pre-pass packet_octants.cu, its world octant for the TLAS and
 // its object-space octant per slot for the BLAS (mesh::Octants); the shadow
 // walks take the sun's. The key's entry walk votes over the packet's new
@@ -101,8 +104,9 @@ Layout plan(int n_tri_rows, int n_node_rows, int n_instances, int n_tlas_rows) {
           static_cast<uint32_t>(total)};
 }
 
-// The reference's packet of the TLAS variants (tlas_block_r()).
-constexpr int kPacket = 256;
+// The reference's packet of the TLAS variants (tlas_block_r()): 256 lanes,
+// or the library's width (mesh::kTlasPacket).
+constexpr int kPacket = mesh::kTlasPacket;
 
 // The packet votes of an ordered launch (packet_octants.cu): per packet its
 // world octant, and its octant per slot (nullptr on a one-node BVH).
@@ -329,6 +333,9 @@ extern "C" int mesh_bounce_tlas_occupancy(int group, int n_instances, int n_tri_
     return status == cudaSuccess ? blocks_per_sm : -static_cast<int>(status);
   });
 }
+
+// The packet width this library was built for (TRC_PACKET).
+extern "C" int mesh_bounce_tlas_packet() { return kPacket; }
 
 extern "C" const char* mesh_bounce_tlas_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

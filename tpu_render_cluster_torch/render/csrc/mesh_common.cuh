@@ -56,7 +56,22 @@
 
 #include "path_common.cuh"
 
+// The packet of the TLAS kernels (trace_fused_mesh_tlas.cu,
+// mesh_bounce_tlas.cu, mesh_entry_keys.cu, pool_mesh_bounce_tlas.cu): the
+// reference's ray block of its TLAS variants, tlas_block_r() (the
+// TRC_TLAS_BLOCK tier), 256 lanes by default. A build may name another
+// width (-DTRC_PACKET=128, 512 or 1024): render/_build.py builds one library
+// of each of these kernels a width, at first use, and each exports the
+// width it was built for (<name>_packet), which its wrapper checks.
+#ifndef TRC_PACKET
+#define TRC_PACKET 256
+#endif
+static_assert(TRC_PACKET == 128 || TRC_PACKET == 256 || TRC_PACKET == 512 || TRC_PACKET == 1024,
+              "TRC_PACKET is one of 128, 256, 512, 1024");
+
 namespace mesh {
+
+constexpr int kTlasPacket = TRC_PACKET;
 
 using path::float3v;
 constexpr int kInstanceWidth = 22;
@@ -748,6 +763,36 @@ __device__ __forceinline__ uint8_t octant_of_counts(unsigned counts, int n) {
                               (2 * static_cast<int>((counts >> 10) & 1023u) > n ? 2 : 0) |
                               (2 * static_cast<int>((counts >> 20) & 1023u) > n ? 4 : 0));
 }
+
+// A packet's vote counted in shared memory by several warps, each adding
+// the sum of its lanes' positive_bits (each field at most 32): N lanes in
+// kWords words. Below 1,024 lanes one word of 10-bit fields; a packet of
+// 1,024 lanes, whose counts reach 1,024, keeps x and y in 16-bit fields of
+// one word and z in a second (as packet_octants.cu's warp_octant).
+template <int N>
+struct PacketCounts {
+  static constexpr int kWords = N < 1024 ? 1 : 2;
+
+  __device__ static __forceinline__ void add(unsigned* words, unsigned warp_sum) {
+    if constexpr (kWords == 1) {
+      atomicAdd(words, warp_sum);
+    } else {
+      atomicAdd(words, (warp_sum & 1023u) | (((warp_sum >> 10) & 1023u) << 16));
+      atomicAdd(words + 1, warp_sum >> 20);
+    }
+  }
+
+  __device__ static __forceinline__ uint8_t octant(const unsigned* words) {
+    if constexpr (kWords == 1) {
+      return octant_of_counts(words[0], N);
+    } else {
+      const int cx = static_cast<int>(words[0] & 0xffffu), cy = static_cast<int>(words[0] >> 16);
+      const int cz = static_cast<int>(words[1]);
+      return static_cast<uint8_t>((2 * cx > N ? 1 : 0) | (2 * cy > N ? 2 : 0) |
+                                  (2 * cz > N ? 4 : 0));
+    }
+  }
+};
 
 // The position of the n-th set bit of `bits` (n from 0, below its popc).
 __device__ __forceinline__ int nth_bit(unsigned bits, int n) {

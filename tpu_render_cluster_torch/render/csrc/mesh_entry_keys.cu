@@ -18,9 +18,11 @@
 //     bounce, whose key no sort reads;
 //   - the key itself is mesh::coherence_key (dead flag at bit 29, frame id
 //     0) in the frame's key window.
-// A packet is 256 lanes (tlas_block_r()) in launch order; every lane votes
-// with the direction the bounce left it (a dead lane's and a lane's past the
-// live count unchanged), a lane past the launch with (0, 1, 0).
+// A packet is kPacket lanes (tlas_block_r(): 256, or the width the library
+// was built for, 128 to 1,024: a block of as many threads) in launch order;
+// every lane votes with the direction the bounce left it (a dead lane's and
+// a lane's past the live count unchanged), a lane past the launch with
+// (0, 1, 0).
 //
 // Bound: bytes at full width: 24 bytes of origin and direction, 1 of alive
 // read and 4 of key written a lane (29), against the entry walk's work,
@@ -28,7 +30,7 @@
 // per live lane. What holds it back is the walk: at the 03 wavefront's
 // bounce 0 a walking lane tests 6.3 nodes and 2.8 slots on average, but the
 // longest lane of a warp of 32 about 18 and 12; without the walk the pass
-// takes a fifth of its time. Design, a thread a lane and a block of 256
+// takes a fifth of its time. Design, a thread a lane and a block of kPacket
 // threads a packet (the vote a warp sum of the packed sign counts, then one
 // barrier):
 //   - the walk takes one box test a step (a node, or one slot of the leaf
@@ -42,7 +44,8 @@
 //   - a walk reads of a slot only its world box: the blocks stage the
 //     boxes alone, as float4 pairs like the node bounds (stage_boxes), so a
 //     step loads two float4 whether it tests a node or a slot;
-//   - a launch of at least kPacketsPerBlock packets a resident block runs
+//   - a launch of at least kPacketsPerBlock packets a resident block (1,024
+//     lanes a block: 4 packets of 256) runs
 //     persistent blocks, as many as are resident at once, each staging the
 //     slots' boxes and, by bulk copy (mesh::stage_ranges), the TLAS's eight
 //     octant tables once (13.5 KB for 48 instances), and taking packets
@@ -76,13 +79,19 @@
 namespace {
 
 using path::float3v;
-constexpr int kPacket = 256;  // the reference's TLAS packet: a block
+// The reference's TLAS packet (tlas_block_r(): 256, or the library's width):
+// a block.
+constexpr int kPacket = mesh::kTlasPacket;
 constexpr int kOrders = 8;  // the TLAS's octant tables
-// A launch of at least this many packets a resident block (03: 3,168
-// packets) runs persistent blocks (PERF.md, section 6: the 03 wavefront's
-// 8,192-packet launches 8-9% faster persistent, its and its tile's launches
-// of 2,048 packets or fewer 5-18% faster a block a packet).
-constexpr int kPacketsPerBlock = 4;
+// A vote's counts: one word up to 512 lanes, two at 1,024.
+using Counts = mesh::PacketCounts<kPacket>;
+constexpr int kVoteWords = Counts::kWords;
+// A launch of at least this many packets a resident block runs persistent
+// blocks: at 256 lanes a packet 4 (03: 3,168 packets; PERF.md, section 6:
+// the 03 wavefront's 8,192-packet launches 8-9% faster persistent, its and
+// its tile's launches of 2,048 packets or fewer 5-18% faster a block a
+// packet), and at the other widths the same 1,024 lanes a resident block.
+constexpr int kPacketsPerBlock = kPacket >= 1024 ? 1 : 1024 / kPacket;
 
 // The persistent kernel's staged tables: the slots' boxes (stage_boxes) at
 // 0, the eight octant tables' node bounds and links at their byte offsets
@@ -256,7 +265,7 @@ __device__ __forceinline__ void packet_block(const float* __restrict__ origins,
                                              unsigned* votes) {
   __shared__ int counts[9];
   __shared__ int perm[kPacket];
-  if (threadIdx.x == 0) *votes = 0;
+  if (threadIdx.x < kVoteWords) votes[threadIdx.x] = 0;
   if (threadIdx.x < 9) counts[threadIdx.x] = 0;
   __syncthreads();
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kPacket;
@@ -275,9 +284,9 @@ __device__ __forceinline__ void packet_block(const float* __restrict__ origins,
   const bool walked = !last && first < live;
   if (walked) {
     const unsigned packed = __reduce_add_sync(0xffffffffu, mesh::positive_bits(w.d));
-    if ((threadIdx.x & 31u) == 0) atomicAdd(votes, packed);
+    if ((threadIdx.x & 31u) == 0) Counts::add(votes, packed);
     __syncthreads();
-    const int row = mesh::octant_of_counts(*votes, kPacket) * tlas_nodes;
+    const int row = Counts::octant(votes) * tlas_nodes;
     for (int part = 0; part < 2; ++part) {
       const char* rows = tlas.part(part);
       if (rows != nullptr) {
@@ -310,7 +319,7 @@ mesh_entry_keys_kernel(const float* __restrict__ origins, const float* __restric
                        int* __restrict__ next_packet) {
   __shared__ uint64_t barrier;
   __shared__ int packet_of[2];
-  __shared__ unsigned votes[2];
+  __shared__ unsigned votes[2 * kVoteWords];
   extern __shared__ float4 staging[];
   const int live = min(max(*live_count, 0), n_rays);
   if constexpr (!kPersistent) {
@@ -354,7 +363,8 @@ mesh_entry_keys_kernel(const float* __restrict__ origins, const float* __restric
     const int at = round & 1;
     if (threadIdx.x == 0) {
       packet_of[at] = atomicAdd(next_packet, 1);
-      votes[at] = 0;
+#pragma unroll
+      for (int v = 0; v < kVoteWords; ++v) votes[at * kVoteWords + v] = 0;
     }
     __syncthreads();
     const int packet = packet_of[at];
@@ -364,10 +374,10 @@ mesh_entry_keys_kernel(const float* __restrict__ origins, const float* __restric
     Walker w;
     bool is_alive = load_lane(w, origins, directions, alive, ray, n_rays);
     const unsigned packed = __reduce_add_sync(0xffffffffu, mesh::positive_bits(w.d));
-    if ((threadIdx.x & 31u) == 0) atomicAdd(&votes[at], packed);
+    if ((threadIdx.x & 31u) == 0) Counts::add(votes + at * kVoteWords, packed);
     if (threadIdx.x < 9) counts[threadIdx.x] = 0;
     __syncthreads();
-    const int row = mesh::octant_of_counts(votes[at], kPacket) * tlas_nodes;
+    const int row = Counts::octant(votes + at * kVoteWords) * tlas_nodes;
     int hit = hit_of(hits, ray, n_rays, n_instances);
     ray = first + regrouped_lane(is_alive && ray < live && hit >= n_instances, w.d, counts, perm);
     is_alive = load_lane(w, origins, directions, alive, ray, n_rays);
@@ -490,6 +500,9 @@ extern "C" int mesh_entry_keys_occupancy(int n_rays, int n_instances, int tlas_n
     return launch.blocks_per_sm;
   });
 }
+
+// The packet width this library was built for (TRC_PACKET).
+extern "C" int mesh_entry_keys_packet() { return kPacket; }
 
 extern "C" const char* mesh_entry_keys_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -9,8 +9,9 @@
 // (:2451-2455, the packet's object-space directions) and as `tlas_base`
 // takes it for the nearest TLAS walk (:2572, the world directions). A
 // packet is `block` consecutive lanes of the launch in launch order (the
-// TPU kernel's ray block: tlas_block_r() = 256 for the TLAS variants,
-// BVH_BLOCK_R = 1024 for the flat ones); every lane counts with the
+// TPU kernel's ray block: tlas_block_r() for the TLAS variants, 256 by
+// default, 128 to 1,024 by TRC_TLAS_BLOCK; BVH_BLOCK_R = 1024 for the flat
+// ones); every lane counts with the
 // direction it carries (dead, parked, past the live count, of another
 // frame), and the last packet's lanes past the launch as the reference's
 // pad rays, direction (0, 1, 0). Bit i of an octant is set when strictly
@@ -205,7 +206,9 @@ using Kernel = decltype(&packet_octants_kernel<8>);
 // The kernel of a packet of `block` lanes (nullptr for another size).
 Kernel kernel_for(int block) {
   switch (block) {
+    case 128: return packet_octants_kernel<4>;
     case 256: return packet_octants_kernel<8>;
+    case 512: return packet_octants_kernel<16>;
     case 1024: return packet_octants_kernel<32>;
     default: return nullptr;
   }
@@ -214,7 +217,8 @@ Kernel kernel_for(int block) {
 }  // namespace
 
 // Plain C entry for ctypes: the votes of the ceil(n_rays / block) packets of
-// `directions` [n_rays, 3] (block 256 or 1024), those at or past
+// `directions` [n_rays, 3] (block 128, 256, 512 or 1024: the TLAS variants'
+// widths, tlas_block_r(), and the flat ones' 1,024), those at or past
 // *live_count (one int32 on the device) 0. `frames`: nullptr (every row
 // voted) or the lanes' frame ids [n_rays] int32, the rows then `per_frame`
 // per frame (n_instances a multiple of it, at most 32 frames), a row of a

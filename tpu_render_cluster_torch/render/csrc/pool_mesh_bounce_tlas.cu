@@ -130,8 +130,10 @@ Layout plan(int n_tri_rows, int n_node_rows, int spheres_per_frame, int per_fram
   return {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
 }
 
-// The reference's packet of the TLAS variants (tlas_block_r()).
-constexpr int kPacket = 256;
+// The reference's packet of the TLAS variants (tlas_block_r()): 256 lanes,
+// or the library's width (mesh::kTlasPacket). A lane's votes are its
+// packet's, whatever block of kThreads / G lanes walks it.
+constexpr int kPacket = mesh::kTlasPacket;
 
 // kOrdered: the octant-ordered BLAS walk, `slot_votes` [P, F K] the
 // packets' votes (nullptr on a one-node BVH), the BVH's rows n_node_rows.
@@ -378,6 +380,9 @@ extern "C" int pool_mesh_bounce_tlas_occupancy(int group, int spheres_per_frame,
     }
   });
 }
+
+// The packet width this library was built for (TRC_PACKET).
+extern "C" int pool_mesh_bounce_tlas_packet() { return kPacket; }
 
 extern "C" const char* pool_mesh_bounce_tlas_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

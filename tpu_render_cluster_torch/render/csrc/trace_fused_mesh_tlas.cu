@@ -19,7 +19,8 @@
 // reference's default) the launch's tables hold the BVH's and the TLAS's
 // eight octant orders stacked [8N] and [8M], and each walk takes the one of
 // its packet's octant (mesh::Octants). A packet is the reference's ray
-// block, 256 lanes of the launch in launch order (tlas_block_r()): at every
+// block, kPacket lanes of the launch in launch order (tlas_block_r(): 256,
+// or the width the library was built for, mesh::kTlasPacket): at every
 // bounce all its lanes vote, each with the direction it carries (a finished
 // path's last one, a lane past the launch (0, 1, 0)), on the TLAS's octant
 // and, on a BVH of more than one node, on each instance's BLAS octant in
@@ -40,18 +41,20 @@
 //     packets from a work counter in global memory (a scratch int of the
 //     caller's, cleared on the launch's stream before the kernel);
 //   - a packet's carried state (origin, direction, throughput, radiance,
-//     alive: 49 bytes a lane, 12.3 KB) in shared memory, so registers hold
-//     only the bounce of the ray a thread is on;
-//   - 128 threads a packet, 2 lanes a thread, 7 blocks an SM (72
+//     alive: 49 bytes a lane, 12.3 KB at 256 lanes, 50.2 KB at 1,024) in the
+//     dynamic shared memory before the staged tables (past the 48 KB of
+//     static shared memory at 1,024 lanes), so registers hold only the
+//     bounce of the ray a thread is on;
+//   - 128 threads a packet, 2 lanes a thread at 256, 7 blocks an SM (72
 //     registers): a bounce waits at a barrier for its slowest warp, so more
 //     packets in flight keep the SM busy (measured: 256 threads a packet at
 //     3 blocks an SM ran 25% slower than the parent, 128 at 6-8 blocks
 //     10-15% faster; PERF.md section 6);
-//   - each bounce, the vote over the 256 staged directions (each thread
-//     counting its 2 positional lanes: packet_octant,
+//   - each bounce, the vote over the packet's staged directions (each
+//     thread counting its kLanes positional lanes: packet_octant,
 //     packet_instance_octants), whose barrier also publishes the packet's
 //     live mask (a ballot a warp); the live lanes are then walked in lane
-//     order, thread t taking the t-th and the (t + 128)-th (nth_live), so
+//     order, thread t taking the t-th, the (t + 128)-th... (nth_live), so
 //     finished lanes hold no thread and walking warps are full; the packet
 //     ends at the first bounce with no live lane. A path's bounce depends
 //     only on its own lane index (its RNG counter) and state, so any thread
@@ -74,14 +77,18 @@
 namespace {
 
 using path::float3v;
-// The reference's ray block (tlas_block_r()): a packet of 256 lanes.
-constexpr int kPacket = 256;
+// The reference's ray block (tlas_block_r()): a packet of 256 lanes, or the
+// library's width (128, 512 or 1,024).
+constexpr int kPacket = mesh::kTlasPacket;
 // A block walks one packet at a time with kThreads threads, each voting for
 // kLanes positional lanes (lane t + j kThreads) and walking up to kLanes of
 // the packet's live lanes a bounce.
 constexpr int kThreads = 128;
 constexpr int kLanes = kPacket / kThreads;
 constexpr int kWords = kPacket / 32;  // the packet's live mask, a word a 32 lanes
+// A vote's counts: one word at 128 to 512 lanes, two at 1,024.
+using Counts = mesh::PacketCounts<kPacket>;
+constexpr int kVoteWords = Counts::kWords;
 // Resident blocks an SM: ptxas keeps a thread within 72 registers.
 constexpr int kMinBlocks = 7;
 
@@ -113,29 +120,31 @@ __device__ __forceinline__ void put(float (&rows)[3][kPacket], int i, float3v v)
 
 // The packet's world octant (`_octant_of`), every thread taking part with
 // its kLanes positional lanes' directions. One barrier: each warp adds its
-// packed counts to counters[round % 3], and thread 0 clears the counter of
+// packed counts to the counts of round % 3, and thread 0 clears those of
 // the next round, which every thread read before this round's barrier.
-// `counters`: 3 ints of shared memory, zero before round 0.
-__device__ __forceinline__ int packet_octant(const PacketState& s, int* counters, int round) {
+// `counters`: 3 x kVoteWords words of shared memory, zero before round 0.
+__device__ __forceinline__ int packet_octant(const PacketState& s, unsigned* counters,
+                                             int round) {
   unsigned packed = 0;
 #pragma unroll
   for (int j = 0; j < kLanes; ++j) {
     packed += mesh::positive_bits(get(s.d, threadIdx.x + j * kThreads));
   }
   const unsigned sum = __reduce_add_sync(0xffffffffu, packed);
-  if ((threadIdx.x & 31u) == 0) atomicAdd(&counters[round % 3], static_cast<int>(sum));
-  if (threadIdx.x == 0) counters[(round + 1) % 3] = 0;
+  unsigned* counts = counters + (round % 3) * kVoteWords;
+  if ((threadIdx.x & 31u) == 0) Counts::add(counts, sum);
+  if (threadIdx.x < kVoteWords) counters[((round + 1) % 3) * kVoteWords + threadIdx.x] = 0;
   __syncthreads();
-  return mesh::octant_of_counts(static_cast<unsigned>(counters[round % 3]), kPacket);
+  return Counts::octant(counts);
 }
 
 // The packet's octant in the object space of each instance row k of m
-// (mesh::to_object, as the walk takes it) into octants[k]; counts, K ints
-// of shared memory (packed as the world vote's), are zero on entry and on
-// return.
+// (mesh::to_object, as the walk takes it) into octants[k]; counts, K x
+// kVoteWords words of shared memory (counted as the world vote's), are
+// zero on entry and on return.
 template <int Q>
 __device__ __forceinline__ void packet_instance_octants(const mesh::MeshTablesOf<Q>& m,
-                                                        const PacketState& s, int* counts,
+                                                        const PacketState& s, unsigned* counts,
                                                         uint8_t* octants) {
   float3v d[kLanes];
 #pragma unroll
@@ -148,12 +157,13 @@ __device__ __forceinline__ void packet_instance_octants(const mesh::MeshTablesOf
       packed += mesh::positive_bits(mesh::to_object(row, d[j].x, d[j].y, d[j].z));
     }
     const unsigned sum = __reduce_add_sync(0xffffffffu, packed);
-    if ((threadIdx.x & 31u) == 0) atomicAdd(&counts[k], static_cast<int>(sum));
+    if ((threadIdx.x & 31u) == 0) Counts::add(counts + k * kVoteWords, sum);
   }
   __syncthreads();
   for (int k = threadIdx.x; k < m.n_instances; k += kThreads) {
-    octants[k] = mesh::octant_of_counts(static_cast<unsigned>(counts[k]), kPacket);
-    counts[k] = 0;
+    octants[k] = Counts::octant(counts + k * kVoteWords);
+#pragma unroll
+    for (int w = 0; w < kVoteWords; ++w) counts[k * kVoteWords + w] = 0;
   }
   __syncthreads();
 }
@@ -169,9 +179,13 @@ __device__ __forceinline__ int nth_live(const unsigned (&live)[kWords], int n) {
   return 32 * w + mesh::nth_bit(live[w], n);
 }
 
+// The packet's state at byte 0 of the dynamic shared memory.
+constexpr size_t kStateBytes = (sizeof(PacketState) + 15) / 16 * 16;
+
 // Byte offsets in the dynamic shared memory (mesh::stage_region each): the
-// six table regions (staged false: the tables are read from global memory),
-// then the per-instance vote's counts and octants.
+// packet's state at 0, the six table regions (staged false: the tables are
+// read from global memory, and none is placed), then the per-instance
+// vote's counts and octants.
 struct Layout {
   uint32_t offset[6];
   bool staged;
@@ -179,7 +193,9 @@ struct Layout {
   uint32_t bytes;
 };
 
-// The node tables' rows: N and M, or 8N and 8M for the octant orders.
+// The node tables' rows: N and M, or 8N and 8M for the octant orders. The
+// tables are staged where they fit beside the packet's state and the votes
+// in path::kMaxStagedBytes.
 template <int Q>
 Layout plan(int n_tri_rows, int n_node_rows, int n_instances, int n_tlas_rows,
             bool instance_votes) {
@@ -192,15 +208,18 @@ Layout plan(int n_tri_rows, int n_node_rows, int n_instances, int n_tlas_rows,
       mesh::Nodes<Q>::part_bytes(1, n_tlas_rows),
   };
   Layout layout = {};
-  size_t total = 0;
+  size_t total = kStateBytes;
   for (int i = 0; i < 6; ++i) {
     layout.offset[i] = static_cast<uint32_t>(total);
     total += mesh::stage_region(sizes[i]);
   }
+  // Per instance its counts (kVoteWords words) and its octant byte.
   const size_t vote_bytes =
-      instance_votes ? (5 * static_cast<size_t>(n_instances) + 15) / 16 * 16 : 0;
+      instance_votes
+          ? ((4 * kVoteWords + 1) * static_cast<size_t>(n_instances) + 15) / 16 * 16
+          : 0;
   layout.staged = total + vote_bytes <= static_cast<size_t>(path::kMaxStagedBytes);
-  layout.vote = layout.staged ? static_cast<uint32_t>(total) : 0u;
+  layout.vote = static_cast<uint32_t>(layout.staged ? total : kStateBytes);
   layout.bytes = layout.vote + static_cast<uint32_t>(vote_bytes);
   return layout;
 }
@@ -217,11 +236,11 @@ trace_fused_mesh_tlas_kernel(const float* __restrict__ origins,
                              Layout layout, bool instance_votes, uint32_t seed, int max_bounces,
                              float* __restrict__ radiance_out, int* __restrict__ next_packet) {
   __shared__ path::SceneShared scene;
-  __shared__ PacketState state;
-  __shared__ int world_votes[3];
+  __shared__ unsigned world_votes[3 * kVoteWords];
   __shared__ uint64_t barrier;
   extern __shared__ float4 staging[];
   char* smem = reinterpret_cast<char*>(staging);
+  PacketState& state = *reinterpret_cast<PacketState*>(smem);
   if (layout.staged) {
     const mesh::Range ranges[6] = {
         {smem + layout.offset[0], reinterpret_cast<const char*>(tables.tris),
@@ -243,12 +262,12 @@ trace_fused_mesh_tlas_kernel(const float* __restrict__ origins,
     tables.inst = reinterpret_cast<const float*>(ranges[3].staged());
     tlas.nodes.set_parts(ranges[4].staged(), ranges[5].staged());
   }
-  int* counts = reinterpret_cast<int*>(smem + layout.vote);
-  uint8_t* octants = reinterpret_cast<uint8_t*>(counts + tables.n_instances);
+  unsigned* counts = reinterpret_cast<unsigned*>(smem + layout.vote);
+  uint8_t* octants = reinterpret_cast<uint8_t*>(counts + kVoteWords * tables.n_instances);
   if (kOrdered) {
-    if (threadIdx.x < 3) world_votes[threadIdx.x] = 0;
+    if (threadIdx.x < 3 * kVoteWords) world_votes[threadIdx.x] = 0;
     if (instance_votes) {
-      for (int k = threadIdx.x; k < tables.n_instances; k += kThreads) counts[k] = 0;
+      for (int k = threadIdx.x; k < kVoteWords * tables.n_instances; k += kThreads) counts[k] = 0;
     }
   }
   path::load_scene(scene, spheres, n_spheres, params);  // ends with __syncthreads()
@@ -427,6 +446,9 @@ extern "C" int trace_fused_mesh_tlas_occupancy(int n_instances, int n_tri_rows, 
     return status == cudaSuccess ? blocks_per_sm : -static_cast<int>(status);
   });
 }
+
+// The packet width this library was built for (TRC_PACKET).
+extern "C" int trace_fused_mesh_tlas_packet() { return kPacket; }
 
 extern "C" const char* trace_fused_mesh_tlas_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

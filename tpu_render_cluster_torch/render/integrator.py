@@ -43,7 +43,12 @@ them once per renderer or window, into their cache keys; below them every
 function takes concrete values and reads no environment. The BLAS build
 (``builder``, ``wide``) goes to ``scene_mesh_set``; the node format
 (``quant``) to the mesh kernels, whose images it leaves bit for bit as they
-are (the masked tier carries float32 throughput at every tier).
+are (the masked tier carries float32 throughput at every tier). The TLAS
+tiers (the reference's ``TRC_TLAS_LEAF`` and ``TRC_TLAS_BLOCK``) are
+environment tiers alone, as the reference's: they resolve beside them, at
+the same sites and into the same keys, through ``resolve_tlas_config``; the
+leaf (``tlas_leaf``) goes to ``scene_mesh_set`` (the frame's TLAS and
+whether the field takes it), the packet (``tlas_block``) to the TLAS kernels.
 """
 
 from __future__ import annotations
@@ -386,6 +391,24 @@ def _ray_sort_order(origins, directions, alive, mesh=None) -> torch.Tensor:
     return torch.argsort(ray_sort_key(origins, directions, alive, mesh), stable=True)
 
 
+def resolve_tlas_config(tlas_leaf=None, tlas_block=None) -> tuple[int, int]:
+    """The TLAS tiers as concrete values: ``(tlas_leaf, tlas_block)``, each
+    argument left None taken from its environment tier (``TRC_TLAS_LEAF``,
+    clamped to [1, 16]; ``TRC_TLAS_BLOCK``, snapped to a power of two in
+    [128, 1024]: ``kernels.tlas_leaf_size``, ``kernels.tlas_block_r``, the
+    reference's resolvers). A given value (an internal driver's, as
+    ``raypool.PoolWindow`` takes them, after the reference's
+    ``_raypool_batch``) is taken as it is and must be one the kernels take
+    (a leaf of 1 to 16, a packet of ``kernels.TLAS_PACKETS``): any other
+    raises. Resolved beside ``resolve_bvh_config``, at the same sites and
+    into the same cache keys."""
+    leaf = kernels.tlas_leaf_size() if tlas_leaf is None else int(tlas_leaf)
+    if not 1 <= leaf <= kernels.TLAS_LEAF_MAX:
+        raise ValueError(f"a TLAS leaf holds 1 to {kernels.TLAS_LEAF_MAX} instances, not {leaf}")
+    block = kernels.tlas_block_r() if tlas_block is None else kernels.tlas_packet(tlas_block)
+    return leaf, block
+
+
 def resolve_bvh_config(use_tlas=None, quant=None, builder=None, wide=None):
     """The BVH tiers as concrete values: ``(use_tlas, quant, builder,
     wide)``, each argument left None taken from its environment tier
@@ -412,13 +435,15 @@ def trace_paths(
     use_tlas: bool | None = None,
     rng_lanes: torch.Tensor | None = None,
     quant: int = 0,
+    tlas_block: int = kernels.TLAS_BLOCK_R,
 ) -> torch.Tensor:
     """Trace one sample per ray through the whole bounce loop; radiance
     [R, 3]. The reference's dispatch: no mesh -> the sphere megakernel; a
     mesh within the walk bound -> the mesh megakernel; a deeper mesh ->
     the per-bounce mesh kernel under the masked deep loop. ``use_tlas``
     (None: ``kernels.use_tlas_for``) picks the mesh kernels' TLAS variant,
-    ``quant`` their node format.
+    ``quant`` their node format, ``tlas_block`` its packet (the leaf is the
+    mesh's).
 
     ``rng_lanes`` (int32 [R]) gives each ray its RNG counter, the region
     path's whole-frame lanes: the sphere megakernel then runs in its lane
@@ -432,15 +457,17 @@ def trace_paths(
     if rng_lanes is None and kernels.mesh_megakernel_eligible(mesh):
         return kernels.trace_paths_fused_mesh(
             scene, mesh, origins, directions, seed, max_bounces=max_bounces, use_tlas=use_tlas,
-            quant=quant,
+            quant=quant, tlas_block=tlas_block,
         )
     return _trace_paths_deep(
-        scene, mesh, origins, directions, seed, max_bounces, use_tlas, rng_lanes, quant
+        scene, mesh, origins, directions, seed, max_bounces, use_tlas, rng_lanes, quant,
+        tlas_block,
     )
 
 
 def _trace_paths_deep(
-    scene, mesh, origins, directions, seed, max_bounces, use_tlas=None, rng_lanes=None, quant=0
+    scene, mesh, origins, directions, seed, max_bounces, use_tlas=None, rng_lanes=None, quant=0,
+    tlas_block=kernels.TLAS_BLOCK_R,
 ):
     """The reference's masked deep loop: per bounce, re-sort the rays by the
     coherence key (dead lanes to the tail) with ONE packed [n, 12] gather
@@ -455,14 +482,16 @@ def _trace_paths_deep(
     column the previous launch wrote; the flat variant sorts by
     ``ray_sort_key``. Both sorts are stable, as ``jnp.argsort``. ``quant``
     is the kernel's node format; the loop carries float32 throughput at
-    every tier, as the reference's (``integrator.py:478-521``)."""
+    every tier, as the reference's (``integrator.py:478-521``); ``tlas_block``
+    the TLAS kernel's packet."""
     n = origins.shape[0]
     device = origins.device
     throughput = torch.ones((n, 3), dtype=torch.float32, device=device)
     radiance = torch.zeros((n, 3), dtype=torch.float32, device=device)
     alive = torch.ones((n,), dtype=torch.bool, device=device)
     lane = torch.arange(n, dtype=torch.int32, device=device)
-    tlas = kernels.use_tlas_for(mesh.instances.translation.shape[0], use_tlas)
+    tlas = kernels.use_tlas_for(mesh.instances.translation.shape[0], use_tlas,
+                                kernels.mesh_leaf(mesh))
     keys = kernels.initial_mesh_sort_keys(mesh, origins, directions, alive) if tlas else None
     for bounce in range(max_bounces):
         if tlas:
@@ -477,7 +506,7 @@ def _trace_paths_deep(
         live = alive.sum(dtype=torch.int32)
         step = kernels.mesh_bounce(
             scene, mesh, origins, directions, throughput, alive, counter, live, seed, bounce,
-            total_bounces=max_bounces, use_tlas=tlas, quant=quant,
+            total_bounces=max_bounces, use_tlas=tlas, quant=quant, tlas_block=tlas_block,
         )
         origins, directions, throughput, alive = (
             step.origins, step.directions, step.throughput, step.alive
@@ -506,6 +535,7 @@ def render_tile(
     use_tlas: bool | None = None,
     quant: int = 0,
     key_x0: int | None = None,
+    tlas_block: int = kernels.TLAS_BLOCK_R,
 ) -> torch.Tensor:
     """Render a tile; returns [tile_height, tile_width, 3] linear radiance.
 
@@ -518,8 +548,8 @@ def render_tile(
     s)`` and traces through ``trace_paths_scan`` with that key's second
     split, and the samples' radiance is summed, then divided by ``samples``.
     ``per_instance`` (with ``bounce_scan`` only) walks the instances one
-    by one. ``use_tlas`` and ``quant`` go to ``trace_paths`` (the scan has
-    no TLAS variant and no node format).
+    by one. ``use_tlas``, ``quant`` and ``tlas_block`` go to ``trace_paths``
+    (the scan has no TLAS variant and no node format).
     """
     _check_per_instance(per_instance, bounce_scan)
     n = tile_height * tile_width
@@ -546,6 +576,7 @@ def render_tile(
     radiance = trace_paths(
         scene, origins, directions, trace_seed(tile_trace_key(base_key)),
         max_bounces=max_bounces, mesh=mesh, use_tlas=use_tlas, quant=quant,
+        tlas_block=tlas_block,
     )
     image = radiance.reshape(samples, n, 3).mean(dim=0)
     return image.reshape(tile_height, tile_width, 3)
@@ -572,7 +603,8 @@ def render_frame(
     (``bounce_scan``: through the per-bounce scan renderer; ``per_instance``
     as well: its mesh queries as a scan over the instances; ``use_tlas``,
     ``quant``, ``builder``, ``wide``: the BVH tiers, None for the
-    environment's, ``resolve_bvh_config``).
+    environment's, ``resolve_bvh_config``; the TLAS tiers the environment's,
+    ``resolve_tlas_config``).
 
     ``tile_size``: the reference's local tiling, one ``render_tile`` per
     ``tile_size`` square (smaller at the right and bottom edges), each with
@@ -580,13 +612,14 @@ def render_frame(
     image differs from the untiled one in its noise, not its content."""
     device = resolve_device(device)
     use_tlas, quant, builder, wide = resolve_bvh_config(use_tlas, quant, builder, wide)
+    tlas_leaf, tlas_block = resolve_tlas_config()
     scene = build_scene(scene_name, frame_index, device)
     camera = scene_camera(scene_name, frame_index, device)
-    mesh = scene_mesh_set(scene_name, frame_index, builder, wide, device)
+    mesh = scene_mesh_set(scene_name, frame_index, builder, wide, device, tlas_leaf)
     tile = functools.partial(
         render_tile, scene, camera, frame_index, width=width, height=height,
         samples=samples, max_bounces=max_bounces, mesh=mesh, bounce_scan=bounce_scan,
-        per_instance=per_instance, use_tlas=use_tlas, quant=quant,
+        per_instance=per_instance, use_tlas=use_tlas, quant=quant, tlas_block=tlas_block,
     )
     if tile_size is None:
         return tile(0, 0, tile_height=height, tile_width=width)
@@ -615,7 +648,7 @@ def tonemap(image: torch.Tensor) -> torch.Tensor:
 def _fused_frame_renderer(
     scene_name: str, width: int, height: int, samples: int, max_bounces: int,
     device: torch.device, bounce_scan: bool, per_instance: bool, use_tlas: bool, quant: int,
-    builder: str, wide: int,
+    builder: str, wide: int, tlas_leaf: int, tlas_block: int,
 ):
     def render(frame: int) -> torch.Tensor:
         scene = build_scene(scene_name, frame, device)
@@ -624,8 +657,9 @@ def _fused_frame_renderer(
             scene, camera, frame, 0, 0,
             width=width, height=height, tile_height=height, tile_width=width,
             samples=samples, max_bounces=max_bounces,
-            mesh=scene_mesh_set(scene_name, frame, builder, wide, device),
+            mesh=scene_mesh_set(scene_name, frame, builder, wide, device, tlas_leaf),
             bounce_scan=bounce_scan, per_instance=per_instance, use_tlas=use_tlas, quant=quant,
+            tlas_block=tlas_block,
         )
         return tonemap(linear)
 
@@ -655,13 +689,15 @@ def fused_frame_renderer(
     ``trace_paths``), ``per_instance`` (the scan's mesh queries walked
     instance by instance; needs ``bounce_scan``) and the BVH tiers
     ``use_tlas``, ``quant``, ``builder`` and ``wide``, resolved here
-    (``resolve_bvh_config``: None takes the environment's), so renderers of
+    (``resolve_bvh_config``: None takes the environment's), with the
+    environment's TLAS tiers (``resolve_tlas_config``), so renderers of
     distinct tiers live side by side.
     """
     _check_per_instance(per_instance, bounce_scan)
     return _fused_frame_renderer(
         scene_name, width, height, samples, max_bounces, resolve_device(device),
         bool(bounce_scan), bool(per_instance), *resolve_bvh_config(use_tlas, quant, builder, wide),
+        *resolve_tlas_config(),
     )
 
 
@@ -672,12 +708,13 @@ fused_frame_renderer.cache_clear = _fused_frame_renderer.cache_clear
 def _fused_region_renderer(
     scene_name: str, width: int, height: int, tile_height: int, tile_width: int,
     samples: int, max_bounces: int, device: torch.device, bounce_scan: bool,
-    per_instance: bool, use_tlas: bool, quant: int, builder: str, wide: int,
+    per_instance: bool, use_tlas: bool, quant: int, builder: str, wide: int, tlas_leaf: int,
+    tlas_block: int,
 ):
     def render(frame: int, y0: int, x0: int) -> torch.Tensor:
         scene = build_scene(scene_name, frame, device)
         camera = scene_camera(scene_name, frame, device)
-        mesh = scene_mesh_set(scene_name, frame, builder, wide, device)
+        mesh = scene_mesh_set(scene_name, frame, builder, wide, device, tlas_leaf)
         origins, directions, lanes, seed = region_rays_and_seed(
             camera, frame, width=width, height=height, samples=samples, y0=y0, x0=x0,
             tile_height=tile_height, tile_width=tile_width,
@@ -694,7 +731,7 @@ def _fused_region_renderer(
         else:
             radiance = trace_paths(
                 scene, origins, directions, seed, max_bounces=max_bounces, mesh=mesh,
-                use_tlas=use_tlas, rng_lanes=lanes, quant=quant,
+                use_tlas=use_tlas, rng_lanes=lanes, quant=quant, tlas_block=tlas_block,
             )
         n = tile_height * tile_width
         return radiance.reshape(samples, n, 3).mean(dim=0).reshape(tile_height, tile_width, 3)
@@ -728,13 +765,14 @@ def fused_region_renderer(
     of the sphere megakernel, mesh scenes through the masked deep loop with
     the lanes as RNG counters. ``bounce_scan`` (and ``per_instance``) take
     the scan renderer over the region's rays instead. The result is linear,
-    not tonemapped. The BVH tiers resolve as ``fused_frame_renderer``'s.
+    not tonemapped. The BVH and TLAS tiers resolve as ``fused_frame_renderer``'s.
     """
     _check_per_instance(per_instance, bounce_scan)
     return _fused_region_renderer(
         scene_name, width, height, tile_height, tile_width, samples, max_bounces,
         resolve_device(device), bool(bounce_scan), bool(per_instance),
         *resolve_bvh_config(use_tlas, quant, builder, wide),
+        *resolve_tlas_config(),
     )
 
 

@@ -62,7 +62,7 @@ TLAS) is the reference's default: on a BVH with octant tables (every
 ``sah`` build; ``walks_ordered``) each walk takes one of eight near-first
 re-threadings of the node tables, the one of its packet's majority vote
 over its lanes' directions (``packet_octants``: a packet is the reference
-kernel's ray block, ``TLAS_BLOCK_R`` lanes under the TLAS, else
+kernel's ray block, ``tlas_block`` lanes under the TLAS, else
 ``BVH_BLOCK_R``, in launch order), a BLAS walk by the packet's directions
 in the instance's object space (``packet_instance_octants``), a TLAS walk by
 the world directions, a shadow walk by the sun's; the pool orders its BLAS
@@ -71,8 +71,8 @@ time). A per-bounce or pool launch brings its passes (``ORDERED_PASSES``):
 the vote pass ``csrc/packet_octants.cu`` before it (a pool's only for the
 frames each packet's lanes carry) and, for the per-bounce TLAS
 kernel, the key pass ``csrc/mesh_entry_keys.cu`` after it, whose entry walk
-votes over the packet's new directions (``entry_keys``: a block of 256
-threads a packet, the walk one box test a step; a wide launch runs
+votes over the packet's new directions (``entry_keys``: a block of a
+packet's lanes, 256 by default, the walk one box test a step; a wide launch runs
 persistent blocks that stage the eight octant tables once and take packets
 from a work counter). A BVH without
 octant tables takes the canonical order, as in the reference.
@@ -105,6 +105,20 @@ counts its launches under the tier's own name (``quant_name``). The
 quantized tables are packed once per BVH and tier, a frame's TLAS where
 its operands lie (``tlas_quant_table``), a pool window's frames against
 one grid (``pool_tlas_quant``).
+
+The TLAS tiers (the reference's ``TRC_TLAS_LEAF`` and ``TRC_TLAS_BLOCK``):
+a frame's TLAS holds ``mesh.tlas_leaf`` instances a leaf (``mesh_leaf``: 1
+to 16, ``TLAS_LEAF`` by default), which shapes its topology and operands and
+decides whether a field takes the TLAS at all (``use_tlas_for``); the TLAS
+kernels (rows 3, 4 and 6 TLAS, their vote and the key pass) walk packets of
+``tlas_block`` lanes (``TLAS_PACKETS``: 128, 256, 512 or 1,024;
+``TLAS_BLOCK_R`` by default), a compile-time width of their CUDA sources,
+one library a width (``_build.variant``). A wrapper takes the width it is
+given and raises for any other; a launch at a width other than
+``TLAS_BLOCK_R`` counts under its name with the width appended
+(``packet_name``: ``mesh_bounce_tlas[p128]``). The drivers resolve both
+tiers (``integrator.resolve_tlas_config``; the environment's resolvers
+``tlas_leaf_size`` and ``tlas_block_r`` are the reference's).
 
 RNG: a counter-based PCG hash of (lane, bounce, seed), the same portable
 integer hash the TPU kernel uses, so the kernel and the plain version draw
@@ -158,10 +172,14 @@ _SPHERE_ALIGN = 8  # the reference pads the sphere count to a multiple of 8
 MESH_MEGAKERNEL_MAX_WALK = 1024
 _DET_EPS = 1e-12  # Moller-Trumbore's parallel-ray threshold
 # The two-level walk: instances per TLAS leaf (the reference's
-# ``tlas_leaf_size()`` default), and its ray block (``tlas_block_r()``'s
-# default), the TLAS tiers' bucket and lane quantum.
+# ``tlas_leaf_size()`` default; ``TRC_TLAS_LEAF`` clamps to [1,
+# TLAS_LEAF_MAX]), and its ray block (``tlas_block_r()``'s default), the TLAS
+# tiers' packet and their bucket and lane quantum; the packets the kernels
+# are built for (``TRC_TLAS_BLOCK`` snaps to one of them).
 TLAS_LEAF = 4
+TLAS_LEAF_MAX = 16
 TLAS_BLOCK_R = 256
+TLAS_PACKETS = (128, 256, 512, 1024)
 # The flat instance sweep's ray block (the reference's ``BVH_BLOCK_R``): the
 # packet of the flat variants' octant vote.
 BVH_BLOCK_R = 1024
@@ -248,8 +266,23 @@ def quant_name(name: str, quant: int) -> str:
     return f"{name}[q{quant}]" if quant else name
 
 
-def _count(name: str, quant: int = 0) -> None:
-    key = quant_name(name, quant)
+# The kernels of the TLAS tiers' packet: a launch at a width other than
+# TLAS_BLOCK_R (and a plain-version call) counts under its name with the
+# width appended (``packet_name``).
+PACKET_KERNELS = (
+    "trace_fused_mesh_tlas", "mesh_bounce_tlas", "pool_mesh_bounce_tlas", "mesh_entry_keys",
+    "packet_octants",
+)
+
+
+def packet_name(name: str, packet: int | None) -> str:
+    """The count of ``name`` at the TLAS packet ``packet``: ``name`` itself
+    at ``TLAS_BLOCK_R`` (or None), else ``name[p<packet>]``."""
+    return name if packet is None or packet == TLAS_BLOCK_R else f"{name}[p{packet}]"
+
+
+def _count(name: str, quant: int = 0, packet: int | None = None) -> None:
+    key = packet_name(quant_name(name, quant), packet)
     counts[key] = counts.get(key, 0) + 1
 
 
@@ -264,12 +297,17 @@ ORDERED_PASSES = {
 }
 
 
-def launch_names(kernel: str, ordered: bool = True, quant: int = 0) -> tuple[str, ...]:
+def launch_names(kernel: str, ordered: bool = True, quant: int = 0,
+                 packet: int | None = None) -> tuple[str, ...]:
     """The counts one launch of ``kernel`` through its wrapper adds one to:
     its own and, on the octant-ordered walk, its passes', at node format
-    ``quant`` (the tier the launch resolved to)."""
+    ``quant`` (the tier the launch resolved to) and, for a TLAS kernel, at
+    the TLAS packet ``packet``."""
     names = (kernel, *ORDERED_PASSES.get(kernel, ())) if ordered else (kernel,)
-    return tuple(quant_name(n, quant) if n in QUANT_KERNELS else n for n in names)
+    names = tuple(quant_name(n, quant) if n in QUANT_KERNELS else n for n in names)
+    if kernel not in PACKET_KERNELS:
+        return names
+    return tuple(packet_name(n, packet) for n in names)
 
 
 def reset_counts() -> None:
@@ -319,14 +357,52 @@ def _check_group(group: int | None, allowed: tuple = GROUPS) -> None:
         raise ValueError(f"_group must be one of {allowed}, got {group}")
 
 
-def use_tlas_for(k_count: int, use_tlas: bool | None = None) -> bool:
+def use_tlas_for(k_count: int, use_tlas: bool | None = None, leaf: int | None = None) -> bool:
     """Whether a field of ``k_count`` instances takes the two-level walk:
     ``use_tlas`` (None: on, the reference's default) and more instances
-    than one TLAS leaf holds (a smaller field is the flat sweep plus a root
-    test). The reference's rule; its environment tier ``TRC_TLAS`` is
-    resolved by the drivers (``integrator.resolve_bvh_config``), never
-    here."""
-    return (True if use_tlas is None else bool(use_tlas)) and k_count > TLAS_LEAF
+    than one TLAS leaf of ``leaf`` holds (None: ``TLAS_LEAF``; a smaller
+    field is the flat sweep plus a root test). The reference's rule; its
+    environment tiers ``TRC_TLAS`` and ``TRC_TLAS_LEAF`` are resolved by the
+    drivers (``integrator.resolve_bvh_config``, ``resolve_tlas_config``),
+    never here."""
+    leaf = TLAS_LEAF if leaf is None else leaf
+    return (True if use_tlas is None else bool(use_tlas)) and k_count > leaf
+
+
+def mesh_leaf(mesh: MeshSet) -> int:
+    """The instances a leaf of ``mesh``'s TLAS holds (``MeshSet.tlas_leaf``;
+    None: ``TLAS_LEAF``); raises outside [1, TLAS_LEAF_MAX]."""
+    leaf = TLAS_LEAF if mesh.tlas_leaf is None else int(mesh.tlas_leaf)
+    if not 1 <= leaf <= TLAS_LEAF_MAX:
+        raise ValueError(f"a TLAS leaf holds 1 to {TLAS_LEAF_MAX} instances, not {leaf}")
+    return leaf
+
+
+def tlas_packet(block: int | None) -> int:
+    """A TLAS launch's packet: ``block`` (None: ``TLAS_BLOCK_R``), one of
+    the widths the kernels are built for (``TLAS_PACKETS``); raises for any
+    other, never rounds."""
+    block = TLAS_BLOCK_R if block is None else int(block)
+    if block not in TLAS_PACKETS:
+        raise ValueError(f"a TLAS packet is one of {TLAS_PACKETS} lanes, not {block}")
+    return block
+
+
+def tlas_leaf_size() -> int:
+    """The ``TRC_TLAS_LEAF`` tier: instances per TLAS leaf (default 4),
+    clamped to [1, TLAS_LEAF_MAX] (the reference's ``tlas_leaf_size``)."""
+    return max(1, min(env_int("TRC_TLAS_LEAF", TLAS_LEAF), TLAS_LEAF_MAX))
+
+
+def tlas_block_r() -> int:
+    """The ``TRC_TLAS_BLOCK`` tier: the TLAS kernels' packet (default 256),
+    snapped down to a power of two in [128, BVH_BLOCK_R], a value below 256
+    to 128 (the reference's ``tlas_block_r``)."""
+    raw = env_int("TRC_TLAS_BLOCK", TLAS_BLOCK_R)
+    block = TLAS_PACKETS[0]
+    while block * 2 <= min(raw, BVH_BLOCK_R):
+        block *= 2
+    return block
 
 
 def tlas_enabled() -> bool:
@@ -372,11 +448,12 @@ def _blas_counts(bvh: MeshBVH) -> tuple[int, int, int]:
     return (bvh.skip.shape[0], bvh.v0.shape[0] // LEAF_SIZE, LEAF_SIZE)
 
 
-def _tlas_counts(k_count: int, frames: int = 1) -> tuple[int, int, int]:
-    """A TLAS of ``frames`` stacked K-slot windows as ``resolve_bvh_quant``
-    counts it."""
-    m = len(cached_tlas_topology(k_count, TLAS_LEAF).skip)
-    return (frames * m, frames * k_count, TLAS_LEAF)
+def _tlas_counts(k_count: int, frames: int = 1, leaf: int | None = None) -> tuple[int, int, int]:
+    """A TLAS of ``frames`` stacked K-slot windows of ``leaf``-instance
+    leaves (None: ``TLAS_LEAF``) as ``resolve_bvh_quant`` counts it."""
+    leaf = TLAS_LEAF if leaf is None else leaf
+    m = len(cached_tlas_topology(k_count, leaf).skip)
+    return (frames * m, frames * k_count, leaf)
 
 
 def mesh_quant(mesh: MeshSet, quant: int, tlas: bool, frames: int = 1) -> int:
@@ -384,7 +461,7 @@ def mesh_quant(mesh: MeshSet, quant: int, tlas: bool, frames: int = 1) -> int:
     ``frames`` stacked windows) takes at tier ``quant``."""
     tables = [_blas_counts(mesh.bvh)]
     if tlas:
-        tables.append(_tlas_counts(mesh.instances.translation.shape[0], frames))
+        tables.append(_tlas_counts(mesh.instances.translation.shape[0], frames, mesh_leaf(mesh)))
     return resolve_bvh_quant(quant, *tables)
 
 
@@ -632,12 +709,17 @@ _LAUNCH_ARGTYPES = {
 
 
 @functools.cache
-def _library(name: str) -> ctypes.CDLL:
+def _library(name: str, packet: int | None = None) -> ctypes.CDLL:
     """The kernel's library, built first if needed, with its C entry points
-    typed once, when it loads."""
+    typed once, when it loads; a TLAS kernel's at the packet ``packet``
+    (None: the default width), whose build must say it is that width's."""
     from tpu_render_cluster_torch.render import _build
 
-    library = _build.load(name)
+    library = _build.load(_build.variant(name, packet))
+    if name in _build.PACKET_SOURCES:
+        built = getattr(library, f"{name}_packet")()
+        if built != (packet or _build.DEFAULT_PACKET):
+            raise RuntimeError(f"{name}: the library for {packet} lanes was built for {built}")
     launch = getattr(library, f"{name}_launch")
     launch.argtypes = _LAUNCH_ARGTYPES[name]
     launch.restype = ctypes.c_int
@@ -857,24 +939,27 @@ def trace_paths_fused_mesh(
     max_bounces: int,
     use_tlas: bool | None = None,
     quant: int = 0,
+    tlas_block: int | None = None,
 ) -> torch.Tensor:
     """Path-trace each ray of a mesh scene through the whole bounce loop;
     radiance ``[R, 3]``. CUDA tensors go to the mesh megakernel, CPU
     tensors to its plain version. Takes any mesh: the eligibility rule is
     the caller's (``integrator.trace_paths``). ``use_tlas`` (None:
-    ``use_tlas_for``) picks the two-level variant, ``quant`` the node
-    format (``mesh_quant``: the reference's degrade rule)."""
+    ``use_tlas_for`` at the mesh's leaf) picks the two-level variant,
+    ``quant`` the node format (``mesh_quant``: the reference's degrade
+    rule), ``tlas_block`` the TLAS variant's packet (``tlas_packet``)."""
     _check_inputs(scene, origins, directions, seed)
     _check_mesh(mesh, origins)
-    tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas)
+    tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas, mesh_leaf(mesh))
     quant = mesh_quant(mesh, quant, tlas)
+    packet = tlas_packet(tlas_block)
     if origins.device.type == "cuda":
         return _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces, tlas,
-                                        quant)
+                                        quant, packet)
     if origins.device.type == "cpu":
         return trace_paths_fused_mesh_reference(
             scene, mesh, origins, directions, seed, max_bounces=max_bounces, use_tlas=tlas,
-            quant=quant,
+            quant=quant, tlas_block=packet,
         )
     raise ValueError(f"Unsupported device {origins.device}")
 
@@ -981,12 +1066,14 @@ def _mesh_tables(mesh: MeshSet, tlas: bool = False, ordered: bool = False, quant
         return [table.data_ptr(), table.shape[0], *_bvh_tables(mesh.bvh, ordered, quant)]
     frame = tlas_frame(mesh)
     k_count = frame.slots.shape[0]
+    leaf = mesh_leaf(mesh)
     if quant:
         bounds, links = tlas_quant_table(mesh, quant, ordered).words, None
     elif ordered:
-        bounds, links = frame.octant_node_bounds, tlas_octant_links(k_count, frame.slots.device)
+        bounds, links = (frame.octant_node_bounds,
+                         tlas_octant_links(k_count, frame.slots.device, leaf))
     else:
-        bounds, links = frame.node_bounds, tlas_links(k_count, 1, frame.slots.device)
+        bounds, links = frame.node_bounds, tlas_links(k_count, 1, frame.slots.device, leaf)
     return [
         frame.slots.data_ptr(), k_count, *_bvh_tables(mesh.bvh, ordered, quant),
         bounds.data_ptr(), _pointer(links), frame.node_bounds.shape[0],
@@ -998,9 +1085,11 @@ def _grid(table: QuantTable | None) -> int:
     return 0 if table is None else table.grid.data_ptr()
 
 
-def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces, tlas, quant):
+def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces, tlas, quant,
+                             packet=TLAS_BLOCK_R):
     name = "trace_fused_mesh_tlas" if tlas else "trace_fused_mesh"
-    library = _library(name)
+    packet = packet if tlas else None
+    library = _library(name, packet)
     launch = getattr(library, f"{name}_launch")
     spheres, params = _sphere_operands(scene)
     origins, directions, radiance, stream = _ray_operands(origins, directions)
@@ -1013,7 +1102,7 @@ def _launch_trace_fused_mesh(scene, mesh, origins, directions, seed, max_bounces
         radiance.data_ptr(), *counter, *_node_format(mesh, quant, ordered, tlas), stream,
     )
     _check_status(library, name, status)
-    _count(name, quant)
+    _count(name, quant, packet)
     return radiance
 
 
@@ -1043,7 +1132,7 @@ def tlas_frame_on_host(mesh: MeshSet) -> TlasFrame:
     table = instance_table(mesh)
     lo_w, hi_w = table[:, 13:16], table[:, 16:19]
     slots = table[instance_morton_order(lo_w, hi_w)]
-    topology = cached_tlas_topology(table.shape[0], TLAS_LEAF)
+    topology = cached_tlas_topology(table.shape[0], mesh_leaf(mesh))
     node_lo, node_hi = tlas_node_bounds(topology, slots[:, 13:16], slots[:, 16:19])
     zero = torch.zeros_like(node_lo[:, :1])
     node_bounds = torch.cat([node_lo, zero, node_hi, zero], dim=1).contiguous()
@@ -1062,7 +1151,7 @@ def _frame_quant_table(mesh: MeshSet, quant: int, ordered: bool) -> QuantTable:
     stacked (the reference's ``_tlas_node_arrays``), against the grid of
     the nodes' union box, where the frame's operands lie."""
     frame = tlas_frame(mesh)
-    topology = cached_tlas_topology(frame.slots.shape[0], TLAS_LEAF)
+    topology = cached_tlas_topology(frame.slots.shape[0], mesh_leaf(mesh))
     grid = quant_grid(frame.union[0:3], frame.union[3:6], quant)
     if ordered:
         bounds = frame.octant_node_bounds
@@ -1089,26 +1178,42 @@ def tlas_quant_table(mesh: MeshSet, quant: int, ordered: bool) -> QuantTable:
     return _tlas_quant_tables[(quant, ordered)](mesh)
 
 
-# A frame's TLAS operands: the MeshSet's own (``scene_mesh_set``'s, from the
-# host), else derived once per MeshSet where its instances lie.
-tlas_frame = _IdentityCache(lambda mesh: mesh.tlas or tlas_frame_on_host(mesh))
+def _tlas_frame(mesh: MeshSet) -> TlasFrame:
+    """The MeshSet's own TLAS operands (``scene_mesh_set``'s, from the host)
+    where they hold its leaf's topology (a topology is a function of K and
+    the leaf, and a smaller leaf's refines a larger one's, so two leaves give
+    the same tree exactly where they give as many nodes), else derived where
+    its instances lie."""
+    tlas = mesh.tlas
+    nodes = len(cached_tlas_topology(mesh.instances.translation.shape[0], mesh_leaf(mesh)).skip)
+    if tlas is not None and tlas.node_bounds.shape[0] == nodes:
+        return tlas
+    return tlas_frame_on_host(mesh)
 
 
-def tlas_links(k_count: int, frames: int, device: torch.device) -> torch.Tensor:
+# A frame's TLAS operands, once per MeshSet.
+tlas_frame = _IdentityCache(_tlas_frame)
+
+
+def tlas_links(k_count: int, frames: int, device: torch.device,
+               leaf: int | None = None) -> torch.Tensor:
     """[F M, 4] int32 TLAS links of ``frames`` stacked windows of the
-    K-slot topology (``_pack_bvh``'s layout: skip, first, count, 0): frame
-    f's nodes at rows [f M, (f + 1) M), its skip links offset by f M and
-    its leaf starts by f K (``pallas_kernels.py:3915-3958``). Static per
-    (K, leaf, F): copied to the device once."""
-    return _tlas_links(k_count, TLAS_LEAF, frames, torch.device(device))
+    K-slot topology of ``leaf``-instance leaves (None: ``TLAS_LEAF``;
+    ``_pack_bvh``'s layout: skip, first, count, 0): frame f's nodes at rows
+    [f M, (f + 1) M), its skip links offset by f M and its leaf starts by
+    f K (``pallas_kernels.py:3915-3958``). Static per (K, leaf, F): copied
+    to the device once."""
+    return _tlas_links(k_count, TLAS_LEAF if leaf is None else leaf, frames,
+                       torch.device(device))
 
 
-def tlas_octant_links(k_count: int, device: torch.device) -> torch.Tensor:
+def tlas_octant_links(k_count: int, device: torch.device, leaf: int | None = None) -> torch.Tensor:
     """[8M, 4] int32 links of the K-slot topology's eight octant orders
-    (``TlasTopology.octant_*``): order o at rows [o M, (o + 1) M), its skip
-    links local to them (``_tlas_node_arrays``, ``pallas_kernels.py:3130``).
-    Static per (K, leaf): copied to the device once."""
-    return _tlas_octant_links(k_count, TLAS_LEAF, torch.device(device))
+    (``TlasTopology.octant_*``; ``leaf`` as for ``tlas_links``): order o at
+    rows [o M, (o + 1) M), its skip links local to them
+    (``_tlas_node_arrays``, ``pallas_kernels.py:3130``). Static per (K,
+    leaf): copied to the device once."""
+    return _tlas_octant_links(k_count, TLAS_LEAF if leaf is None else leaf, torch.device(device))
 
 
 @functools.lru_cache(maxsize=16)
@@ -1310,12 +1415,15 @@ def mesh_bounce(
     total_bounces: int,
     use_tlas: bool | None = None,
     quant: int = 0,
+    tlas_block: int | None = None,
     _group: int | None = None,
     _hits: list | None = None,
 ) -> BounceState | KeyedBounceState:
     """One bounce of the mesh megakernel over streamed path state; the
     arguments are ``sphere_bounce``'s plus the mesh. Takes any mesh.
-    ``use_tlas`` (None: ``use_tlas_for``) picks the two-level variant,
+    ``use_tlas`` (None: ``use_tlas_for`` at the mesh's leaf) picks the
+    two-level variant, ``tlas_block`` its packet (``tlas_packet``: the
+    lanes whose votes order its walks and its key pass's),
     whose output also holds the key of each lane's new state: a lane alive
     after the bounce and below the live count keys with the slot it enters
     first (K for none), any other lane and every lane of the last bounce
@@ -1330,27 +1438,31 @@ def mesh_bounce(
     _check_state(scene, origins, directions, throughput, alive, lane, seed, bounce, total_bounces)
     _check_mesh(mesh, origins)
     _check_group(_group)
-    tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas)
+    tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas, mesh_leaf(mesh))
     quant = mesh_quant(mesh, quant, tlas)
+    packet = tlas_packet(tlas_block)
     if origins.device.type == "cuda":
         return _launch_bounce(
             "mesh_bounce_tlas" if tlas else "mesh_bounce", scene, mesh, origins, directions,
             throughput, alive, lane, live_count, seed, bounce, total_bounces, _group, quant,
-            _hits,
+            _hits, packet,
         )
     if origins.device.type == "cpu":
         return mesh_bounce_reference(
             scene, mesh, origins, directions, throughput, alive, lane, live_count, seed, bounce,
-            total_bounces=total_bounces, use_tlas=tlas, quant=quant, _hits=_hits,
+            total_bounces=total_bounces, use_tlas=tlas, quant=quant, tlas_block=packet,
+            _hits=_hits,
         )
     raise ValueError(f"Unsupported device {origins.device}")
 
 
 def _launch_bounce(
     name, scene, mesh, origins, directions, throughput, alive, lane, live_count, seed, bounce,
-    total_bounces, group=None, quant=0, hits_out=None,
+    total_bounces, group=None, quant=0, hits_out=None, packet=TLAS_BLOCK_R,
 ):
-    library = _library(name)
+    tlas = name == "mesh_bounce_tlas"
+    packet = packet if tlas else None
+    library = _library(name, packet)
     launch = getattr(library, f"{name}_launch")
     rays = origins.shape[0]
     if rays >= 2**31:
@@ -1360,14 +1472,14 @@ def _launch_bounce(
     state = [t.contiguous() for t in (origins, directions, throughput, alive, lane)]
     spheres, params = _sphere_operands(scene)
     tables = [spheres.data_ptr(), spheres.shape[0], params.data_ptr()]
-    tlas = name == "mesh_bounce_tlas"
     ordered = mesh is not None and walks_ordered(mesh.bvh)
     if mesh is not None:
         tables += _mesh_tables(mesh, tlas, ordered, quant)
     if tlas:
         frame = tlas_frame(mesh)
         tables.append(frame.key_window.data_ptr())
-        votes = _packet_votes(state[1], live, frame.slots, TLAS_BLOCK_R, mesh.bvh, ordered, True)
+        votes = _packet_votes(state[1], live, frame.slots, packet, mesh.bvh, ordered, True,
+                              packet=packet)
         tables += [0, 0] if votes is None else [votes[0].data_ptr(), _pointer(votes[1])]
     elif mesh is not None:
         votes = _packet_votes(state[1], live, instance_operands(mesh), BVH_BLOCK_R, mesh.bvh,
@@ -1393,10 +1505,10 @@ def _launch_bounce(
         *(t.data_ptr() for t in out), *walk, *node_format, stream.cuda_stream,
     )
     _check_status(library, name, status)
-    _count(name, quant)
+    _count(name, quant, packet)
     if tlas and ordered:
         _launch_entry_keys(mesh, out.origins, out.directions, out.alive, out.key, live, bounce,
-                           total_bounces, quant, hits)
+                           total_bounces, quant, hits, packet)
     if hits_out is not None and tlas and quant:
         hits_out.append(hits)
     return out
@@ -1407,19 +1519,21 @@ def _pointer(tensor: torch.Tensor | None) -> int:
 
 
 def _packet_votes(directions, live, table, block, bvh, ordered, world, frames=None,
-                  per_frame=0):
+                  per_frame=0, packet=None):
     """The packet votes of an ordered launch on the card (``packet_votes``:
     ``world`` the packets' world octants [P], and their octants per row of
     ``table`` [P, K], None on a one-node BVH, whose eight tables are one
     node alike; a pool's with its lanes' ``frames``); None on the canonical
-    walk."""
+    walk. ``packet``: the TLAS packet of the launch they order (its count's
+    name), None for a flat launch."""
     if not ordered:
         return None
     return _launch_packet_votes(directions, live, table, block, world, bvh.skip.shape[0] > 1,
-                                frames, per_frame)
+                                frames, per_frame, packet)
 
 
-def _launch_packet_votes(directions, live, table, block, world, rows, frames=None, per_frame=0):
+def _launch_packet_votes(directions, live, table, block, world, rows, frames=None, per_frame=0,
+                         packet=None):
     library = _library("packet_octants")
     rays = directions.shape[0]
     packets = -(-rays // block)
@@ -1433,23 +1547,25 @@ def _launch_packet_votes(directions, live, table, block, world, rows, frames=Non
         torch.cuda.current_stream(device).cuda_stream,
     )
     _check_status(library, "packet_octants", status)
-    counts["packet_octants"] += 1
+    _count("packet_octants", 0, packet)
     return tlas_out, slot_out
 
 
 def _launch_entry_keys(mesh, origins, directions, alive, key, live, bounce,
-                       total_bounces, quant=0, hits=None) -> None:
+                       total_bounces, quant=0, hits=None, packet=TLAS_BLOCK_R) -> None:
     """The key column of an ordered per-bounce TLAS launch's outputs
     (``mesh_entry_keys``), written into ``key``; at tier ``quant`` its
-    quantized TLAS and the launch's ``hits`` column."""
-    library = _library("mesh_entry_keys")
+    quantized TLAS and the launch's ``hits`` column; its packets of
+    ``packet`` lanes."""
+    library = _library("mesh_entry_keys", packet)
     frame = tlas_frame(mesh)
     k_count = frame.slots.shape[0]
     device = key.device
     stream = torch.cuda.current_stream(device).cuda_stream
     table = tlas_quant_table(mesh, quant, True) if quant else None
     if table is None:
-        bounds, links = frame.octant_node_bounds, tlas_octant_links(k_count, device)
+        bounds, links = frame.octant_node_bounds, tlas_octant_links(k_count, device,
+                                                                      mesh_leaf(mesh))
     else:
         bounds, links = table.words, None
     status = library.mesh_entry_keys_launch(
@@ -1460,7 +1576,7 @@ def _launch_entry_keys(mesh, origins, directions, alive, key, live, bounce,
         int(quant), _grid(table), _pointer(hits), stream,
     )
     _check_status(library, "mesh_entry_keys", status)
-    _count("mesh_entry_keys", quant)
+    _count("mesh_entry_keys", quant, packet)
 
 
 def packet_votes(
@@ -1566,12 +1682,14 @@ def entry_keys(
     total_bounces: int,
     quant: int = 0,
     hits: torch.Tensor | None = None,
+    tlas_block: int | None = None,
 ) -> torch.Tensor:
     """The key column [R] int32 of an ordered per-bounce TLAS launch from
     its outputs (``origins``, ``directions`` [R, 3], ``alive`` [R]): the
     coherence key with the slot each live new ray below ``live_count``
-    enters first, walked through the TLAS table of its packet's vote (256
-    lanes) over every lane's new direction; K for the others and on the
+    enters first, walked through the TLAS table of its packet's vote
+    (``tlas_block`` lanes, ``tlas_packet``) over every lane's new
+    direction; K for the others and on the
     last bounce. The mesh's BVH must carry octant tables. ``quant`` is the
     node format (``mesh_quant``); at 1 or 2 the launch's ``hits`` [R]
     int32 (each lane's winning slot, K for none) are required, and a lane
@@ -1582,15 +1700,17 @@ def entry_keys(
         raise ValueError("entry_keys is the octant-ordered walk's: the BVH has no octant tables")
     quant = mesh_quant(mesh, quant, True)
     _check_hits(origins, quant, hits)
+    packet = tlas_packet(tlas_block)
     if origins.device.type == "cuda":
         key = torch.empty(origins.shape[0], dtype=torch.int32, device=origins.device)
         _launch_entry_keys(mesh, origins.contiguous(), directions.contiguous(), alive.contiguous(),
                            key, _live_tensor(live_count, origins.device), bounce, total_bounces,
-                           quant, None if hits is None else hits.contiguous())
+                           quant, None if hits is None else hits.contiguous(), packet)
         return key
     if origins.device.type == "cpu":
         return entry_keys_reference(mesh, origins, directions, alive, live_count, bounce,
-                                    total_bounces=total_bounces, quant=quant, hits=hits)
+                                    total_bounces=total_bounces, quant=quant, hits=hits,
+                                    tlas_block=packet)
     raise ValueError(f"Unsupported device {origins.device}")
 
 
@@ -1604,16 +1724,17 @@ def _check_hits(origins: torch.Tensor, quant: int, hits: torch.Tensor | None) ->
 
 
 def entry_keys_reference(mesh, origins, directions, alive, live_count, bounce, *,
-                         total_bounces, quant=0, hits=None, stats=None):
+                         total_bounces, quant=0, hits=None, stats=None, tlas_block=None):
     """The plain version of ``entry_keys``, on any device; ``stats`` counts
     the entry walk's rays and box tests (``entry_rays``, ``entry_tests``)."""
     quant = mesh_quant(mesh, quant, True)
     _check_hits(origins, quant, hits)
-    _count("mesh_entry_keys_reference", quant)
+    packet = tlas_packet(tlas_block)
+    _count("mesh_entry_keys_reference", quant, packet)
     if stats is not None:
         for key in ("entry_rays", "entry_tests"):
             stats.setdefault(key, 0)
-    walk = _entry_walks[quant](mesh)
+    walk = _entry_walks[quant](mesh)._replace(packet=packet)
     live = max(0, min(int(live_count), origins.shape[0]))
     return _keys_reference(walk, origins, directions, alive, live, bounce, total_bounces,
                            262144, stats, True, hits if quant else None)
@@ -1653,9 +1774,12 @@ class PoolMeshOperands(NamedTuple):
     [f K, (f + 1) K) of ``instances``."""
 
     spheres: PoolSphereOperands
-    meshes: tuple[MeshSet, ...]  # per frame; the BVH is frame 0's
+    meshes: tuple[MeshSet, ...]  # per frame; the BVH and the TLAS leaf are frame 0's
     instances: torch.Tensor  # [F K, 22]: instance_table rows, frame-major
     per_frame: int  # K
+    # The window's frame cap (the reference pads a window to it; the node
+    # format's degrade rule counts it, ``pool_quant``); None: RAYPOOL_FRAMES.
+    frame_cap: int | None = None
 
 
 def pool_sphere_operands(scenes: Sequence[Scene]) -> PoolSphereOperands:
@@ -1675,9 +1799,11 @@ def pool_sphere_operands(scenes: Sequence[Scene]) -> PoolSphereOperands:
     )
 
 
-def pool_mesh_operands(scenes: Sequence[Scene], meshes: Sequence[MeshSet]) -> PoolMeshOperands:
+def pool_mesh_operands(scenes: Sequence[Scene], meshes: Sequence[MeshSet],
+                       frame_cap: int | None = None) -> PoolMeshOperands:
     """Stack the window's scenes and MeshSets (one BVH, K instances per
-    frame) for ``pool_mesh_bounce``."""
+    frame, one TLAS leaf) for ``pool_mesh_bounce``; ``frame_cap``: the
+    window's cap (None: ``RAYPOOL_FRAMES``)."""
     if len(meshes) != len(scenes):
         raise ValueError(f"{len(scenes)} scenes but {len(meshes)} meshes")
     bvh = meshes[0].bvh
@@ -1687,11 +1813,14 @@ def pool_mesh_operands(scenes: Sequence[Scene], meshes: Sequence[MeshSet]) -> Po
             raise ValueError("the frames of a pool window must share one BVH")
         if mesh.instances.translation.shape[0] != per_frame:
             raise ValueError("every frame of a pool window must hold the same instance count")
+        if mesh_leaf(mesh) != mesh_leaf(meshes[0]):
+            raise ValueError("every frame of a pool window must take the same TLAS leaf")
     return PoolMeshOperands(
         spheres=pool_sphere_operands(scenes),
         meshes=tuple(meshes),
         instances=torch.cat([instance_table(mesh) for mesh in meshes]).contiguous(),
         per_frame=per_frame,
+        frame_cap=frame_cap,
     )
 
 
@@ -1778,12 +1907,15 @@ def pool_mesh_bounce(
     total_bounces: int,
     use_tlas: bool | None = None,
     quant: int = 0,
+    tlas_block: int | None = None,
     _group: int | None = None,
 ) -> BounceState | KeyedBounceState:
     """One mesh bounce over a pool of P lanes from the window's frames; the
     arguments are ``pool_sphere_bounce``'s, a lane seeing its own frame's
-    spheres and K instances. ``use_tlas`` (None: ``use_tlas_for``) picks
-    the two-level variant: a lane walks its own frame's TLAS, and the
+    spheres and K instances. ``use_tlas`` (None: ``use_tlas_for`` at the
+    window's leaf) picks the two-level variant, ``tlas_block`` its packet
+    (``tlas_packet``: the lanes whose votes order its BLAS walks): a lane
+    walks its own frame's TLAS, and the
     output holds each lane's key (its frame id in the key; the candidate
     its frame's slot, K for none or for a lane not alive after the bounce
     below the live count; no last-bounce rule: the pool's lanes sit at
@@ -1798,25 +1930,29 @@ def pool_mesh_bounce(
     _check_mesh(ops.meshes[0], origins)
     _check_group(_group)
     state = (origins, directions, throughput, alive, lane, fid, seed_row, bounce_row)
-    tlas = use_tlas_for(ops.per_frame, use_tlas)
+    tlas = use_tlas_for(ops.per_frame, use_tlas, mesh_leaf(ops.meshes[0]))
     quant = pool_quant(ops, quant, tlas)
+    packet = tlas_packet(tlas_block)
     if origins.device.type == "cuda":
         return _launch_pool(
             "pool_mesh_bounce_tlas" if tlas else "pool_mesh_bounce", ops.spheres, ops, state,
-            live_count, total_bounces, _group, quant,
+            live_count, total_bounces, _group, quant, packet,
         )
     if origins.device.type == "cpu":
         return pool_mesh_bounce_reference(
             ops, *state, live_count, total_bounces=total_bounces, use_tlas=tlas, quant=quant,
+            tlas_block=packet,
         )
     raise ValueError(f"Unsupported device {origins.device}")
 
 
 def pool_quant(ops: "PoolMeshOperands", quant: int, tlas: bool) -> int:
     """The node format of a pool launch at tier ``quant``: ``mesh_quant``
-    over the TLAS windows of the reference's window, padded to
-    ``RAYPOOL_FRAMES`` frames (a window that holds more: its own)."""
-    return mesh_quant(ops.meshes[0], quant, tlas, max(len(ops.meshes), RAYPOOL_FRAMES))
+    over the TLAS windows of the reference's window, padded to its frame
+    cap (``ops.frame_cap``; None: ``RAYPOOL_FRAMES``; a window that holds
+    more: its own)."""
+    cap = RAYPOOL_FRAMES if ops.frame_cap is None else ops.frame_cap
+    return mesh_quant(ops.meshes[0], quant, tlas, max(len(ops.meshes), cap))
 
 
 def _bounce_outputs(rays: int, device, keyed: bool) -> BounceState | KeyedBounceState:
@@ -1848,7 +1984,7 @@ def _stack_pool_tlas(ops: "PoolMeshOperands") -> PoolTlasOperands:
     return PoolTlasOperands(
         slots=slots,
         node_bounds=torch.cat([frame.node_bounds for frame in frames]).contiguous(),
-        links=tlas_links(ops.per_frame, len(frames), slots.device),
+        links=tlas_links(ops.per_frame, len(frames), slots.device, mesh_leaf(ops.meshes[0])),
         key_window=mesh_key_bounds(slots[:, 13:16], slots[:, 16:19]),
     )
 
@@ -1890,8 +2026,10 @@ def _live_tensor(live_count, device) -> torch.Tensor:
 
 
 def _launch_pool(name, spheres, mesh_ops, state, live_count, total_bounces, group=None,
-                 quant=0):
-    library = _library(name)
+                 quant=0, packet=TLAS_BLOCK_R):
+    tlas = name == "pool_mesh_bounce_tlas"
+    packet = packet if tlas else None
+    library = _library(name, packet)
     launch = getattr(library, f"{name}_launch")
     rays = state[0].shape[0]
     if rays >= 2**31:
@@ -1901,7 +2039,6 @@ def _launch_pool(name, spheres, mesh_ops, state, live_count, total_bounces, grou
     state = [t.contiguous() for t in state]
     frames = len(spheres.tables)
     tables = [spheres.spheres.data_ptr(), spheres.per_frame, frames, spheres.params.data_ptr()]
-    tlas = name == "pool_mesh_bounce_tlas"
     if mesh_ops is not None:
         bvh = mesh_ops.meshes[0].bvh
         ordered = walks_ordered(bvh)
@@ -1921,8 +2058,8 @@ def _launch_pool(name, spheres, mesh_ops, state, live_count, total_bounces, grou
             ]
         # The pool orders its BLAS only: votes per row of the stacked table,
         # for the frames each packet's lanes carry.
-        votes = _packet_votes(state[1], live, instances, TLAS_BLOCK_R if tlas else BVH_BLOCK_R,
-                              bvh, ordered, False, state[5], mesh_ops.per_frame)
+        votes = _packet_votes(state[1], live, instances, packet if tlas else BVH_BLOCK_R,
+                              bvh, ordered, False, state[5], mesh_ops.per_frame, packet)
         tables += [int(ordered), 0 if votes is None else _pointer(votes[1])]
     else:
         node_format = []
@@ -1933,7 +2070,7 @@ def _launch_pool(name, spheres, mesh_ops, state, live_count, total_bounces, grou
         *node_format, torch.cuda.current_stream(device).cuda_stream,
     )
     _check_status(library, name, status)
-    _count(name, quant)
+    _count(name, quant, packet)
     return out
 
 
@@ -2180,6 +2317,7 @@ def trace_paths_fused_mesh_reference(
     quant: int = 0,
     chunk_rays: int = 262144,
     stats: dict | None = None,
+    tlas_block: int | None = None,
 ) -> torch.Tensor:
     """The plain PyTorch version of the mesh megakernel, on any device.
 
@@ -2194,7 +2332,9 @@ def trace_paths_fused_mesh_reference(
     ``use_tlas`` (None: ``use_tlas_for``) walks the instances as the TLAS
     variant does: the slot-ordered table through the frame's TLAS, each
     ray reaching a node when it passed its parent's box with its best t
-    (shadow rays: until their first occluder), the leaves' slots in order.
+    (shadow rays: until their first occluder), the leaves' slots in order;
+    its packets of ``tlas_block`` lanes (``tlas_packet``) vote its walk
+    order.
 
     ``quant`` (``mesh_quant``) walks the quantized tables' boxes as the
     kernel reconstructs them (``dequantize_node_bounds``) and their
@@ -2208,13 +2348,15 @@ def trace_paths_fused_mesh_reference(
     """
     _check_inputs(scene, origins, directions, seed)
     _check_mesh(mesh, origins)
-    tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas)
+    tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas, mesh_leaf(mesh))
     quant = mesh_quant(mesh, quant, tlas)
+    packet = tlas_packet(tlas_block)
     name = "trace_fused_mesh_tlas_reference" if tlas else "trace_fused_mesh_reference"
-    _count(name, quant)
+    _count(name, quant, packet if tlas else None)
+    walk = _MeshWalk.build(mesh, scene.sun_direction, use_tlas=tlas, quant=quant)
     return _trace_reference(
-        sphere_table(scene), _MeshWalk.build(mesh, scene.sun_direction, use_tlas=tlas, quant=quant),
-        origins, directions, seed, max_bounces, chunk_rays, stats,
+        sphere_table(scene), walk._replace(packet=packet), origins, directions, seed, max_bounces,
+        chunk_rays, stats,
     )
 
 
@@ -2262,6 +2404,7 @@ def mesh_bounce_reference(
     quant: int = 0,
     chunk_rays: int = 262144,
     stats: dict | None = None,
+    tlas_block: int | None = None,
     _hits: list | None = None,
 ) -> BounceState | KeyedBounceState:
     """The plain PyTorch version of the per-bounce mesh kernel, on any
@@ -2269,18 +2412,19 @@ def mesh_bounce_reference(
     bounce (its node sweep and its work counters). ``use_tlas`` (None:
     ``use_tlas_for``) walks as the TLAS variant and keys its output as the
     kernel does (``mesh_bounce``), the candidates from the plain entry walk
-    (counted as ``entry_rays`` and ``entry_tests``); ``quant`` and
-    ``_hits`` as for ``mesh_bounce``."""
+    (counted as ``entry_rays`` and ``entry_tests``); ``quant``,
+    ``tlas_block`` and ``_hits`` as for ``mesh_bounce``."""
     _check_state(scene, origins, directions, throughput, alive, lane, seed, bounce, total_bounces)
     _check_mesh(mesh, origins)
-    tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas)
+    tlas = use_tlas_for(mesh.instances.translation.shape[0], use_tlas, mesh_leaf(mesh))
     quant = mesh_quant(mesh, quant, tlas)
+    packet = tlas_packet(tlas_block)
     name = "mesh_bounce_tlas_reference" if tlas else "mesh_bounce_reference"
-    _count(name, quant)
+    _count(name, quant, packet if tlas else None)
+    walk = _MeshWalk.build(mesh, scene.sun_direction, use_tlas=tlas, quant=quant)
     return _bounce_reference(
-        sphere_table(scene), _MeshWalk.build(mesh, scene.sun_direction, use_tlas=tlas, quant=quant),
-        origins, directions, throughput, alive, lane, live_count, seed, bounce, total_bounces,
-        chunk_rays, stats, quant, _hits,
+        sphere_table(scene), walk._replace(packet=packet), origins, directions, throughput,
+        alive, lane, live_count, seed, bounce, total_bounces, chunk_rays, stats, quant, _hits,
     )
 
 
@@ -2333,22 +2477,25 @@ def pool_mesh_bounce_reference(
     quant: int = 0,
     chunk_rays: int = 262144,
     stats: dict | None = None,
+    tlas_block: int | None = None,
 ) -> BounceState | KeyedBounceState:
     """The plain PyTorch version of the pool mesh kernel, on any device:
     ``pool_sphere_bounce_reference`` with each frame's mesh walk (the mesh
     megakernel's plain bounce and its work counters). ``use_tlas`` (None:
     ``use_tlas_for``) walks each frame's TLAS and keys the output as the
-    kernel does (``pool_mesh_bounce``); ``quant`` as there, each frame's
-    TLAS boxes from the window's one grid."""
+    kernel does (``pool_mesh_bounce``); ``quant`` and ``tlas_block`` as
+    there, each frame's TLAS boxes from the window's one grid."""
     _check_pool_state(ops.spheres, origins, directions, throughput, alive, lane, fid, seed_row,
                       bounce_row, total_bounces)
     _check_mesh(ops.meshes[0], origins)
-    tlas = use_tlas_for(ops.per_frame, use_tlas)
+    tlas = use_tlas_for(ops.per_frame, use_tlas, mesh_leaf(ops.meshes[0]))
     quant = pool_quant(ops, quant, tlas)
+    packet = tlas_packet(tlas_block)
     name = "pool_mesh_bounce_tlas_reference" if tlas else "pool_mesh_bounce_reference"
-    _count(name, quant)
+    _count(name, quant, packet if tlas else None)
+    walks = tuple(walk._replace(packet=packet) for walk in _pool_walks[(tlas, quant)](ops))
     return _pool_reference(
-        ops.spheres.tables, _pool_walks[(tlas, quant)](ops), origins, directions,
+        ops.spheres.tables, walks, origins, directions,
         throughput, alive, lane, fid, seed_row, bounce_row, live_count, total_bounces, chunk_rays,
         stats, window=pool_tlas_operands(ops).key_window if tlas else None, packed_keys=quant > 0,
     )
@@ -3338,6 +3485,7 @@ class _MeshWalk(NamedTuple):
     tlas: _TlasWalk | None = None  # the TLAS variant's tree; None: the flat sweep
     key_window: torch.Tensor | None = None  # [6], with ``tlas``
     octants: tuple[_Tree, ...] | None = None
+    packet: int = TLAS_BLOCK_R  # the TLAS variant's packet (``block``)
 
     @classmethod
     def build(
@@ -3364,7 +3512,7 @@ class _MeshWalk(NamedTuple):
                 node_bounds = (_dequantized_rows(tlas_quant_table(mesh, quant, False), quant)
                                if tlas_bounds is None else tlas_bounds)
             tlas = _TlasWalk.build(
-                node_bounds, cached_tlas_topology(table.shape[0], TLAS_LEAF),
+                node_bounds, cached_tlas_topology(table.shape[0], mesh_leaf(mesh)),
                 ordered=octant is not None,
             )
         else:
@@ -3390,9 +3538,9 @@ class _MeshWalk(NamedTuple):
 
     @property
     def block(self) -> int:
-        """The reference kernel's packet: ``TLAS_BLOCK_R`` lanes under the
-        TLAS, else ``BVH_BLOCK_R``."""
-        return TLAS_BLOCK_R if self.tlas is not None else BVH_BLOCK_R
+        """The reference kernel's packet: ``packet`` lanes under the TLAS,
+        else ``BVH_BLOCK_R``."""
+        return self.packet if self.tlas is not None else BVH_BLOCK_R
 
     def order(self, directions: torch.Tensor) -> "_Order | None":
         """The octant order of a launch of rays along ``directions`` [R, 3]

@@ -119,11 +119,16 @@ class MeshSet(NamedTuple):
     """A mesh-backed scene's geometry: one shared BVH + its instances, and
     (``scene_mesh_set``) the frame's TLAS operands, computed on the host
     and copied to the device with the instances; None: derived at first
-    use (``kernels.tlas_frame``)."""
+    use (``kernels.tlas_frame``). ``tlas_leaf``: the instances a leaf of
+    its TLAS holds (the reference's ``TRC_TLAS_LEAF`` tier, 1 to 16), which
+    shapes the TLAS operands and decides whether the field takes the TLAS
+    at all (``kernels.use_tlas_for``); None: ``kernels.TLAS_LEAF``, the
+    default."""
 
     bvh: MeshBVH
     instances: MeshInstances
     tlas: TlasFrame | None = None
+    tlas_leaf: int | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -899,13 +904,14 @@ def rotation_y(angle: torch.Tensor) -> torch.Tensor:
 
 def scene_mesh_set(
     scene_name: str, frame, builder: str = "sah", wide: int = 4,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cpu", leaf: int | None = None,
 ) -> MeshSet | None:
     """The MeshSet of a scene on ``device`` (None for sphere-only scenes):
     the cached BVH (``builder``, ``wide``) plus this frame's instance
-    transforms and TLAS operands, both computed on the host and copied in
-    one (``scene.on_device``)."""
-    return mesh_frame_on(mesh_frame_on_host(scene_name, frame, builder, wide), device)
+    transforms and TLAS operands (``leaf`` instances a TLAS leaf; None:
+    the default), both computed on the host and copied in one
+    (``scene.on_device``)."""
+    return mesh_frame_on(mesh_frame_on_host(scene_name, frame, builder, wide, leaf), device)
 
 
 class MeshFrame(NamedTuple):
@@ -918,13 +924,14 @@ class MeshFrame(NamedTuple):
     wide: int
     tables: _FrameTables
     union: torch.Tensor
+    leaf: int | None = None
 
 
 def mesh_frame_on_host(
-    scene_name: str, frame, builder: str = "sah", wide: int = 4
+    scene_name: str, frame, builder: str = "sah", wide: int = 4, leaf: int | None = None
 ) -> MeshFrame | None:
     """``scene_mesh_set``'s host half (None for sphere-only scenes)."""
-    from tpu_render_cluster_torch.render.kernels import tlas_frame_on_host
+    from tpu_render_cluster_torch.render.kernels import mesh_leaf, tlas_frame_on_host
     from tpu_render_cluster_torch.render.scene import mesh_instances_on, mesh_kind_for_scene
 
     kind = mesh_kind_for_scene(scene_name)
@@ -933,9 +940,11 @@ def mesh_frame_on_host(
     host = MeshSet(
         bvh=cached_mesh_bvh(kind, builder, wide, "cpu"),
         instances=mesh_instances_on(scene_name, frame, "cpu"),
+        tlas_leaf=leaf,
     )
     tlas = tlas_frame_on_host(host)
-    return MeshFrame(kind, builder, wide, _FrameTables(*host.instances, *tlas[:4]), tlas.union)
+    return MeshFrame(kind, builder, wide, _FrameTables(*host.instances, *tlas[:4]), tlas.union,
+                     mesh_leaf(host))
 
 
 def mesh_frame_on(frame: MeshFrame | None, device: str | torch.device) -> MeshSet | None:
@@ -950,6 +959,7 @@ def mesh_frame_on(frame: MeshFrame | None, device: str | torch.device) -> MeshSe
         bvh=cached_mesh_bvh(frame.kind, frame.builder, frame.wide, device),
         instances=MeshInstances(*copy[:4]),
         tlas=TlasFrame(*copy[4:], union=frame.union),
+        tlas_leaf=frame.leaf,
     )
 
 

@@ -42,10 +42,10 @@ image and no statistic.
 Telemetry (``PoolStats``): iterations, primaries served and refilled, the
 live lanes summed over iterations and the refill log depend only on the
 paths' lifetimes and equal the reference's. Launched lanes count the live
-prefix rounded up to the port kernels' thread block (256 lanes), their
-granularity of skipping a dead tail; the reference rounds to its TLAS ray
-block (``kernels.TLAS_BLOCK_R``, 256: the same count) under TLAS and to its
-1,024-lane ray block under the flat variant. The occupancy log follows
+prefix rounded up, under TLAS, to the TLAS kernel's packet (the resolved
+``TRC_TLAS_BLOCK`` tier, the reference's rounding), otherwise to the port
+kernels' thread block (256 lanes), their granularity of skipping a dead
+tail, where the reference rounds to its 1,024-lane ray block. The occupancy log follows
 that count. The reference's registry and trace emission
 (``_emit_batch_obs``) come with the port of its ``obs`` package. ``on_iteration`` sees each launch's input
 state without reading it back.
@@ -56,8 +56,11 @@ each frame, the same tile in every frame): it serves the region's rays
 keys each lane's RNG with its whole-frame lane (``region_lane_map``), so
 the region's images equal the whole-frame pool's pixels there.
 
-The BVH tiers resolve once per window (``integrator.resolve_bvh_config``:
-None takes the environment's). At ``quant`` 1 or 2 the mesh kernel reads
+The BVH and TLAS tiers resolve once per window
+(``integrator.resolve_bvh_config``, ``resolve_tlas_config``: None takes the
+environment's); so do the window's frame cap (``raypool_frame_cap``:
+``TRC_RAYPOOL_FRAMES``) and the pool's width (``raypool_width``:
+``TRC_RAYPOOL_WIDTH``), as the reference's. At ``quant`` 1 or 2 the mesh kernel reads
 quantized node tables (the window's TLAS windows against one grid) and the
 loop carries the throughput column as bf16 words
 (``kernels.pack_throughput_bf16``, a refilled lane packed ones); the
@@ -70,8 +73,7 @@ format's degrade rule still counts the padded window,
 ``kernels.pool_quant``); the reference's quantized tiers also fold the
 alive, frame and bounce columns into one meta word a lane, which holds
 them losslessly (a frame id below 32, a bounce below 256), so the port
-keeps the columns; the frame cap and pool width are arguments, not
-environment knobs.
+keeps the columns.
 """
 
 from __future__ import annotations
@@ -88,10 +90,12 @@ from tpu_render_cluster_torch.render.integrator import (
     frame_rays_and_seed,
     region_rays_and_seed,
     resolve_bvh_config,
+    resolve_tlas_config,
 )
 from tpu_render_cluster_torch.render.mesh import scene_mesh_set
 from tpu_render_cluster_torch.render.rng import MASK32
 from tpu_render_cluster_torch.render.scene import build_scene, mesh_kind_for_scene
+from tpu_render_cluster_torch.utils.env import env_int
 
 # Length of the per-iteration occupancy and refill logs; later iterations
 # overwrite the last slot (as the reference's fixed-size device logs).
@@ -108,16 +112,21 @@ CHECK_EVERY = 16  # iterations per host check of the loop condition
 RAYPOOL_MODES = ("auto", "off", "force")
 
 
-def raypool_frame_cap(frames: int = RAYPOOL_FRAMES) -> int:
-    """Frames per pool window, clamped to [1, RAYPOOL_MAX_FRAMES]."""
-    return max(1, min(int(frames), RAYPOOL_MAX_FRAMES))
+def raypool_frame_cap(frames: int | None = None) -> int:
+    """Frames per pool window: ``frames``, or the ``TRC_RAYPOOL_FRAMES`` tier
+    (default 8), clamped to [1, RAYPOOL_MAX_FRAMES] (the reference's
+    ``raypool_frame_cap``)."""
+    frames = env_int("TRC_RAYPOOL_FRAMES", RAYPOOL_FRAMES) if frames is None else int(frames)
+    return max(1, min(frames, RAYPOOL_MAX_FRAMES))
 
 
 def raypool_width(rays_per_frame: int, width: int | None = None) -> int:
-    """Pool lanes: ``width``, or one frame's rays up to 64 blocks, rounded
-    up to whole blocks of POOL_BLOCK (at least one)."""
-    width = min(rays_per_frame, 64 * POOL_BLOCK) if width is None else int(width)
-    return max(POOL_BLOCK, -(-width // POOL_BLOCK) * POOL_BLOCK)
+    """Pool lanes: ``width``, or the ``TRC_RAYPOOL_WIDTH`` tier, or one
+    frame's rays up to 64 blocks, rounded up to whole blocks of POOL_BLOCK
+    (at least one; the reference's ``raypool_width``)."""
+    if width is None:
+        width = env_int("TRC_RAYPOOL_WIDTH", min(rays_per_frame, 64 * POOL_BLOCK))
+    return max(POOL_BLOCK, -(-int(width) // POOL_BLOCK) * POOL_BLOCK)
 
 
 def raypool_active(scene_name: str, *, mode: str | None = None, frames_ahead: int = 0) -> bool:
@@ -224,7 +233,11 @@ class PoolWindow:
     ``more`` its condition, both without a host read. ``region`` (y0, x0,
     tile_height, tile_width): the window renders that region of each of
     its frames. The BVH tiers (``use_tlas``, ``quant``, ``builder``,
-    ``wide``; None: the environment's) resolve here."""
+    ``wide``), the TLAS tiers (``tlas_leaf``, ``tlas_block``: the reference's
+    ``_raypool_batch`` takes them resolved) and the pool's width
+    (``pool_width``) resolve here, None taking the environment's; the node
+    format's degrade rule counts the window padded to the environment's
+    frame cap (``raypool_frame_cap()``), as the reference's compiled window."""
 
     def __init__(
         self,
@@ -242,9 +255,12 @@ class PoolWindow:
         quant: int | None = None,
         builder: str | None = None,
         wide: int | None = None,
+        tlas_leaf: int | None = None,
+        tlas_block: int | None = None,
     ) -> None:
         frames = [int(f) for f in frames]
         use_tlas, self.quant, builder, wide = resolve_bvh_config(use_tlas, quant, builder, wide)
+        tlas_leaf, self.tlas_block = resolve_tlas_config(tlas_leaf, tlas_block)
         if not 1 <= len(frames) <= RAYPOOL_MAX_FRAMES:
             raise ValueError(f"a pool window holds 1 to {RAYPOOL_MAX_FRAMES} frames, not {len(frames)}")
         self.frames, self.device = frames, device
@@ -289,9 +305,11 @@ class PoolWindow:
             self.mesh_ops = None
             self.ops = kernels.pool_sphere_operands(scenes)
         else:
-            meshes = [scene_mesh_set(scene_name, f, builder, wide, device) for f in frames]
-            self.mesh_ops = self.ops = kernels.pool_mesh_operands(scenes, meshes)
-            self.tlas = kernels.use_tlas_for(self.mesh_ops.per_frame, use_tlas)
+            meshes = [scene_mesh_set(scene_name, f, builder, wide, device, tlas_leaf)
+                      for f in frames]
+            self.mesh_ops = self.ops = kernels.pool_mesh_operands(
+                scenes, meshes, raypool_frame_cap())
+            self.tlas = kernels.use_tlas_for(self.mesh_ops.per_frame, use_tlas, tlas_leaf)
             if not self.tlas:
                 # The flat sort key's broadphase over SLOT-UNION boxes:
                 # instance k's world box unioned over the window's frames,
@@ -303,7 +321,7 @@ class PoolWindow:
                 self.slot_lo = lo.reshape(len(frames), k, 3).amin(dim=0)
                 self.slot_hi = hi.reshape(len(frames), k, 3).amax(dim=0)
         # The lane quantum of the launched-lane count.
-        self.block = kernels.TLAS_BLOCK_R if self.tlas else KERNEL_BLOCK
+        self.block = self.tlas_block if self.tlas else KERNEL_BLOCK
         # A refilled lane's throughput, in the carried form.
         ones = torch.ones((1, 3), dtype=torch.float32, device=device)
         self.fresh_throughput = kernels.pack_throughput_bf16(ones) if self.quant else ones
@@ -396,7 +414,7 @@ class PoolWindow:
         else:
             step = kernels.pool_mesh_bounce(
                 self.ops, *inputs, live2, total_bounces=self.max_bounces, use_tlas=self.tlas,
-                quant=self.quant,
+                quant=self.quant, tlas_block=self.tlas_block,
             )
 
         # 4. Scatter-back into each lane's frame buffer. The ids are unique
@@ -502,7 +520,7 @@ def render_batch_raypool(
     samples: int = 8,
     max_bounces: int = 4,
     pool_width: int | None = None,
-    frame_cap: int = RAYPOOL_FRAMES,
+    frame_cap: int | None = None,
     device: str | torch.device | None = None,
     on_iteration: Callable[[PoolLaunch], None] | None = None,
     use_tlas: bool | None = None,
@@ -512,16 +530,19 @@ def render_batch_raypool(
     wide: int | None = None,
 ) -> tuple[list[torch.Tensor], list[PoolStats]]:
     """Render a batch of frames through the pool, in windows of at most
-    ``frame_cap`` frames: (linear [H, W, 3] images on ``device`` (CUDA
-    unless ``cpu`` is asked for), one per frame in order, and one PoolStats
-    per window). Each window's rays and trace seeds are the masked per-frame
-    renderer's. The BVH tiers ``use_tlas``, ``quant``, ``builder`` and
-    ``wide`` (None: the environment's) resolve once for the batch
-    (``integrator.resolve_bvh_config``). ``region`` (y0, x0, tile_height, tile_width):
+    ``frame_cap`` frames (None: ``raypool_frame_cap()``, the environment's):
+    (linear [H, W, 3] images on ``device`` (CUDA unless ``cpu`` is asked
+    for), one per frame in order, and one PoolStats per window). Each
+    window's rays and trace seeds are the masked per-frame renderer's. The
+    BVH tiers ``use_tlas``, ``quant``, ``builder`` and ``wide`` (None: the
+    environment's) and the environment's TLAS tiers resolve once for the
+    batch (``integrator.resolve_bvh_config``, ``resolve_tlas_config``), the
+    pool's width ``pool_width`` once a window (``raypool_width``). ``region`` (y0, x0, tile_height, tile_width):
     every frame is rendered on that region only, [th, tw, 3] each, equal to
     the whole-frame pool's pixels there (a tiled job's same-tile units)."""
     device = resolve_device(device)
     use_tlas, quant, builder, wide = resolve_bvh_config(use_tlas, quant, builder, wide)
+    tlas_leaf, tlas_block = resolve_tlas_config()
     frames = [int(f) for f in frame_indices]
     cap = raypool_frame_cap(frame_cap)
     images: list[torch.Tensor] = []
@@ -531,6 +552,7 @@ def render_batch_raypool(
             scene_name, frames[start:start + cap], width=width, height=height,
             samples=samples, max_bounces=max_bounces, pool_width=pool_width, device=device,
             use_tlas=use_tlas, region=region, quant=quant, builder=builder, wide=wide,
+            tlas_leaf=tlas_leaf, tlas_block=tlas_block,
         )
         window_images, window_stats = window.run(on_iteration=on_iteration)
         images.extend(window_images)

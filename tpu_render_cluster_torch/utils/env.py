@@ -3,8 +3,10 @@
 The port keeps the reference's names and defaults for the knobs its copied
 modules read: the reconnect budget (``transport/reconnect.py``), the
 event-loop lag probe (``obs/loopmon.py``), the log filter
-(``utils/logging.py``) and the BVH tiers that ``integrator.resolve_bvh_config``
-resolves (``render/mesh.py``, ``render/kernels.py``). Values are read at call time, not import time, so a
+(``utils/logging.py``), the BVH tiers that ``integrator.resolve_bvh_config``
+resolves (``render/mesh.py``, ``render/kernels.py``), the TLAS tiers that
+``integrator.resolve_tlas_config`` resolves (``render/kernels.py``) and the
+ray pool's window and width (``render/raypool.py``). Values are read at call time, not import time, so a
 long-lived process and a test that patches ``os.environ`` both see the
 current value. Reference: ``tpu_render_cluster/utils/env.py``.
 """
@@ -48,7 +50,11 @@ declare("TRC_OP_DEADLINE_SECONDS", "float", 30.0, "Per-op reconnect deadline")
 declare("TRC_OBS_LOOPMON_INTERVAL", "float", 0.25, "Event-loop lag probe interval")
 declare("TRC_OBS_LOOPMON_THRESHOLD", "float", 0.1, "Loop lag that counts as a blocked episode")
 # -- render tiers ------------------------------------------------------------
+declare("TRC_RAYPOOL_FRAMES", "int", 8, "Frames per compiled pool window")
+declare("TRC_RAYPOOL_WIDTH", "int", None, "Ray-pool width (default: one frame, block-rounded)")
 declare("TRC_TLAS", "flag", 1, "Two-level (TLAS) mesh traversal on/off")
+declare("TRC_TLAS_LEAF", "int", 4, "Instances per TLAS leaf (clamped 1..16)")
+declare("TRC_TLAS_BLOCK", "int", 256, "Ray-block width of the TLAS kernel variants")
 declare("TRC_BVH_QUANT", "int", 0, "Quantized BVH/TLAS node tier: 0 off, 1 16-bit, 2 8-bit slabs (+ packed carried ray state)")
 declare("TRC_BVH_BUILDER", "spec", "sah", "BLAS build strategy: sah (binned) | median")
 declare("TRC_BVH_WIDE", "int", 4, "BLAS branching factor after wide collapse (1 = binary, clamped 1..8)")

@@ -13,7 +13,9 @@ whole frames, with four of its execution tiers:
   relaunched over a bucket of them alone;
 - the ray-pool tier (``render/raypool.py``): the frame asked for and the
   next frames of the same job still queued on this worker render together
-  in one pool window, one pool-kernel launch per iteration and no host
+  in one pool window (at most ``raypool.raypool_frame_cap()`` frames, the
+  ``TRC_RAYPOOL_FRAMES`` tier; its width ``TRC_RAYPOOL_WIDTH``, as the
+  reference's), one pool-kernel launch per iteration and no host
   read inside it. The frames rendered ahead wait, linear, in a cache
   bounded at 64 MB, and their own requests only tonemap and save them;
 - the per-bounce scan tier (``bounce_scan=True``, the reference's tier
@@ -42,12 +44,17 @@ tiers, each ``None`` by default, which takes its environment tier as the
 reference's worker does (``TRC_TLAS``, ``TRC_BVH_QUANT``,
 ``TRC_BVH_BUILDER``, ``TRC_BVH_WIDE``; ``integrator.resolve_bvh_config``),
 resolved once per renderer or pool window, never per launch. ``use_tlas``
-(default on) walks the instances of a field of more than
-``kernels.TLAS_LEAF`` through the two-level (TLAS) variant of the mesh
-kernels, ``False`` through the flat instance sweep; ``quant`` 1 or 2 reads
-quantized node tables (the masked tier's images bit for bit the fp32
-ones; the wavefront and the pool then carry bf16 throughput); the builder
-and width shape the BLAS. The scan takes the build tiers only.
+(default on) walks the instances of a field of more than a TLAS leaf
+through the two-level (TLAS) variant of the mesh kernels, ``False`` through
+the flat instance sweep; ``quant`` 1 or 2 reads quantized node tables (the
+masked tier's images bit for bit the fp32 ones; the wavefront and the pool
+then carry bf16 throughput); the builder and width shape the BLAS. The
+TLAS tiers are environment tiers alone, as the reference worker's:
+``TRC_TLAS_LEAF`` (instances a TLAS leaf, 1 to 16) and ``TRC_TLAS_BLOCK``
+(the TLAS kernels' packet, 128, 256, 512 or 1,024 lanes) resolve beside the
+BVH tiers (``integrator.resolve_tlas_config``) into the same renderer keys;
+a launch at a packet other than 256 counts as ``..._tlas[p128]`` etc. The
+scan takes the build tiers only.
 
 It emits the same 7-phase ``FrameRenderTime``:
 
@@ -122,11 +129,11 @@ from tpu_render_cluster_torch.render.integrator import (
     tonemap,
 )
 from tpu_render_cluster_torch.render.raypool import (
-    RAYPOOL_FRAMES,
     RAYPOOL_MODES,
     PoolLaunch,
     PoolStats,
     raypool_active,
+    raypool_frame_cap,
     render_batch_raypool,
 )
 from tpu_render_cluster_torch.render.scene import scene_for_job_name
@@ -216,7 +223,7 @@ class TorchRaytraceBackend(RenderBackend):
         """``frame -> uint8 [H, W, 3]`` on the device (a region's [th, tw,
         3]), through the bounce scan or else the tier the ``wavefront``
         option picks for this scene (never under sharding); the BVH tiers
-        resolved once, here."""
+        resolved once, here, and the TLAS tiers by the renderer."""
         tiers = self.tiers()
         masked = (
             self.bounce_scan or self.sharding is not None
@@ -303,9 +310,11 @@ class TorchRaytraceBackend(RenderBackend):
     def _render_window(
         self, scene_name: str, frames: list[int], region: tuple[int, int, int, int] | None = None
     ) -> list[torch.Tensor]:
+        # The window's cap is the environment's (the node format's degrade
+        # rule counts it, as the reference's); ``frames`` hold at most that.
         images, stats = render_batch_raypool(
             scene_name, frames, width=self.width, height=self.height, samples=self.samples,
-            max_bounces=self.max_bounces, frame_cap=len(frames), device=self.device,
+            max_bounces=self.max_bounces, device=self.device,
             on_iteration=self.on_iteration, region=region, **self.tiers(),
         )
         self.pool_stats.extend(stats)
@@ -392,7 +401,9 @@ class TorchRaytraceBackend(RenderBackend):
         elif use_sharded:
             display = tonemap(self._render_sharded(scene_name, frame_index))
         elif use_raypool:
-            window = [frame_index] + upcoming[:RAYPOOL_FRAMES - 1]
+            # The reference's window (tpu_raytrace.py:371): this unit and at
+            # most cap - 1 queued ones.
+            window = [frame_index] + upcoming[:raypool_frame_cap() - 1]
             images = self._render_window(scene_name, window, region)
             for ahead, image in zip(window[1:], images[1:]):
                 self._raypool_cache[(job.job_name, ahead, tile)] = image
